@@ -9,25 +9,49 @@ Phases, in order; any failure exits non-zero before the last line:
    and power limit (nvidia-smi) and the device count.
 2. build: compile every kernel source of the package with nvcc, one
    process per source, all at once.
-3. kernels vs plain twins: K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3)
-   and K3 (jacobi7_padded) against their plain PyTorch twins on the
-   card, at small odd shapes and at 512^3. Tolerance: 0 (bitwise) — each
-   kernel adds and multiplies in its twin's order, built -fmad=false.
-4. main path: ``Jacobi3D(512, 512, 512, float32)`` with kernel="auto"
-   must take the ``wrap`` path; ``run(21)`` must launch K2 exactly 10
-   times and K1 once, and agree with the plain ``xla`` path; then the
-   ``pallas`` path runs 4 steps (4 K3 launches) against ``xla``. The
-   paths add in different orders, so they agree to
-   ``steps * 8 * eps(float32)`` (values lie in [0, 1]; each step may
-   round each of its 7 operations differently, and a Jacobi step never
-   amplifies an earlier difference). A 16^3 run is also held against
-   the dense numpy oracle.
-5. timing: steps/s of the wrap, pallas and xla paths at 512^3 (host
-   clock around run(k), ending in a synchronize), each kernel's and
-   twin's ms (CUDA events over repeated launches after a warm-up), and
-   each kernel's bound: the larger of bytes / 3.35 TB/s and
-   flops / 67 TFLOP/s (H100 SXM data sheet, float32 without tensor
-   cores). Results also go to chiprun_out/chip_smoke.json.
+3. kernels vs plain twins, on the card:
+   - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
+     (jacobi7_padded) at small odd shapes and at 512^3. Tolerance: 0
+     (bitwise) — each kernel adds and multiplies in its twin's order,
+     built -fmad=false.
+   - B8 (laplace6) at (8,8,8), (16,8,24), (8,16,40) and 256^3 (Z,Y,X).
+     Tolerance: 0, as for K3.
+   - B9 (mhd_substep_wrap: s=0 with w=None, s=1, s=2 with
+     write_w=False), B10 (mhd_substep01_wrap) against its twin and
+     against two B9 launches, at the same shapes, dt 1e-8 and 1e-4.
+     Tolerance per field, for f and w: max |kernel - twin| <=
+     64 * eps(f32) * max |twin| (the kernels' expf and PyTorch's exp
+     differ by an ulp; every other operation is in the twin's order).
+4. main paths, each driven with the launch counts set to 0 just before
+   it and read just after:
+   - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
+     ``wrap``; ``run(21)`` must launch K2 exactly 10 times and K1 once,
+     and agree with the plain ``xla`` path; then the ``pallas`` path runs
+     4 steps (4 K3 launches) against ``xla``. The paths add in different
+     orders, so they agree to ``steps * 8 * eps(float32)`` (values lie in
+     [0, 1]; each step may round each of its 7 operations differently,
+     and a Jacobi step never amplifies an earlier difference). A 16^3
+     run is also held against the dense numpy oracle.
+   - ``Astaroth(256, 256, 256, float32)``: kernel="auto" must take
+     ``wrap``; ``run(2)`` must launch B9 exactly 6 times and B10 never;
+     with ``STENCIL_MHD_PAIR=1``, ``run(2)`` must launch B10 twice and
+     B9 twice; neither launches B8, which no model path runs. The models
+     run at dt 1e-4, where the rates move the float32 fields by many
+     ulps. Each run's fields, and the w it carries (substep 1's), agree
+     with the plain ``xla`` path per field to ``substeps * 64 * eps(f32)
+     * max |xla|`` (6 substeps), and a 16^3 run agrees with a float64
+     ``xla`` run of the port to the same bound. Fields stay finite.
+5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3
+   and iterations/s of the Astaroth wrap, wrap+pair and xla paths at
+   256^3 (host clock around run(k), ending in a synchronize); each
+   kernel's, twin's and library call's ms (CUDA events over repeated
+   launches after a warm-up); and each kernel's bound: the larger of
+   bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
+   float32 without tensor cores). The library calls are
+   ``torch.nn.functional.conv3d`` for K3 (3x3x3 weight) and B8 (7x7x7),
+   with cuDNN's TF32 turned off so that they compute in float32; the
+   MHD kernels have no single PyTorch call. Results also go to
+   chiprun_out/chip_smoke.json.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -35,6 +59,7 @@ the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -44,7 +69,18 @@ import time
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, non-tensor float32
 N512 = 512
+N256 = 256
 SMALL_SHAPES = [(5, 8, 7), (9, 16, 13), (3, 8, 33)]   # (Z, Y, X)
+MHD_SHAPES = [(8, 8, 8), (16, 8, 24), (8, 16, 40)]    # (Z, Y, X)
+MHD_DTS = (1e-8, 1e-4)
+MHD_PATH_DT = 1e-4    # phase 4: large enough that the rates show in f32
+# flops per output point, counted from the sources (each expf as one):
+# csrc/mhd.cu B9: the 8 fields' derivatives 676, the rates 242, the
+# update 24 without a w read (s=0) and 40 with one; B10: one of each;
+# csrc/laplace6.cu: 34
+B9_FLOPS = {0: 676 + 242 + 24, 1: 676 + 242 + 40, 2: 676 + 242 + 40}
+B10_FLOPS = B9_FLOPS[0] + B9_FLOPS[1]
+LAPLACE6_FLOPS = 34
 
 
 def log(msg: str) -> None:
@@ -169,7 +205,7 @@ def run_main_path(torch, cs) -> dict:
     wrap_counts = dict(cs.LAUNCHES)
     log(f"  wrap run(21) launches: {wrap_counts}")
     if wrap_counts != {"jacobi7_wrap": 1, "jacobi7_wrapn": 10,
-                       "jacobi7_padded": 0}:
+                       "jacobi7_padded": 0, "laplace6": 0}:
         raise AssertionError("wrap path did not launch K2 x10 + K1 x1")
     ref = solver("xla")
     ref.run(21)
@@ -194,7 +230,7 @@ def run_main_path(torch, cs) -> dict:
     pallas_counts = dict(cs.LAUNCHES)
     log(f"  pallas run(4) launches: {pallas_counts}")
     if pallas_counts != {"jacobi7_wrap": 0, "jacobi7_wrapn": 0,
-                         "jacobi7_padded": 4}:
+                         "jacobi7_padded": 4, "laplace6": 0}:
         raise AssertionError("pallas path did not launch K3 x4")
     ref = solver("xla")
     ref.run(4)
@@ -209,7 +245,9 @@ def run_main_path(torch, cs) -> dict:
     torch.cuda.empty_cache()
     out["launches"] = {"jacobi7_wrap": wrap_counts["jacobi7_wrap"],
                        "jacobi7_wrapn": wrap_counts["jacobi7_wrapn"],
-                       "jacobi7_padded": pallas_counts["jacobi7_padded"]}
+                       "jacobi7_padded": pallas_counts["jacobi7_padded"],
+                       "laplace6": wrap_counts["laplace6"]
+                       + pallas_counts["laplace6"]}
     return out
 
 
@@ -281,18 +319,361 @@ def time_kernels(torch, cs) -> dict:
         plain_ms = event_ms(torch, plain, reps=3, warmup=1)
         bms, by = bound_ms(nbytes, flops)
         res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by}
+                     "bound_by": by, "library_ms": None}
         log(f"  {name}: {ms!r} ms/launch, bound {bms!r} ms ({by}), "
             f"{100 * bms / ms:.1f}% of bound; plain twin {plain_ms!r} ms")
+    # K3's function as one library call: conv3d of the padded field with
+    # 1/6 at the six face neighbours
+    weight = torch.zeros((1, 1, 3, 3, 3), device="cuda")
+    for k, j, i in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                    (1, 1, 2)):
+        weight[0, 0, k, j, i] = 1.0 / 6.0
+    res["jacobi7_padded"]["library_ms"] = library_ms(
+        torch, pad, weight, cs.jacobi7_padded_cuda(pad, rad, interior, out=b),
+        "jacobi7_padded")
     del a, b, pad
     torch.cuda.empty_cache()
     return res
 
 
+def library_ms(torch, padded, weight, want, what: str) -> float:
+    """ms of one ``F.conv3d`` of the padded field with ``weight`` (no
+    padding, float32: cuDNN's TF32 is off), the kernel's function as one
+    library call; first checks that it agrees with the kernel's output
+    ``want`` (to 1e-4 of its largest value: conv3d adds its products in
+    its own order)."""
+    import torch.nn.functional as F
+
+    x = padded[None, None]
+    got = F.conv3d(x, weight)[0, 0]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"  {what}: max |conv3d - kernel| = {err!r} ({err / scale:.2e} "
+        f"of max |kernel|)")
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{what}: conv3d does not compute the "
+                             f"kernel's function")
+    del got
+    return event_ms(torch, lambda: F.conv3d(x, weight), reps=5)
+
+
+EPS32 = 2.0 ** -23
+
+
+def check_fields(torch, got: dict, want: dict, what: str,
+                 factor: float = 64.0) -> float:
+    """Per field: finite, same shape, max |got - want| <= factor *
+    eps(f32) * max |want|. Returns the largest absolute difference."""
+    worst = ratio = 0.0
+    for q, t in want.items():
+        g = got[q]
+        if g.shape != t.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what} {q}: wrong shape or non-finite")
+        err = float((g - t).abs().max())
+        scale = float(t.abs().max())
+        if err > factor * EPS32 * scale:
+            raise AssertionError(f"{what} {q}: max |diff| {err!r} > "
+                                 f"{factor:g} eps(f32) x {scale!r}")
+        worst = max(worst, err)
+        ratio = max(ratio, err / (EPS32 * scale) if scale else 0.0)
+    log(f"  {what}: max |diff| {worst!r}, at most {ratio:.2f} eps(f32) x "
+        f"max|ref| in a field (tolerance {factor:g})")
+    return worst
+
+
+def mhd_state(torch, shape, gen):
+    """8 fields of sigma 0.1 and 8 w of sigma 1e-4 on the card."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    f = {q: 0.1 * torch.randn(shape, generator=gen, device="cuda")
+         for q in FIELDS}
+    w = {q: 1e-4 * torch.randn(shape, generator=gen, device="cuda")
+         for q in FIELDS}
+    return f, w
+
+
+def mhd_inv_ds():
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    prm = MhdParams()
+    return (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
+
+
+def compare_mhd_kernels(torch, cs, cm) -> dict:
+    """Phase 3, Astaroth: B8 bitwise; B9 and B10 per field within 64
+    eps(f32) of the largest twin value; B10 also against two B9
+    launches. Returns the largest absolute difference per kernel."""
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    worst = {"laplace6": 0.0, "mhd_substep_wrap": 0.0,
+             "mhd_substep01_wrap": 0.0}
+    r3 = Radius.constant(3)
+    inv = mhd_inv_ds()
+    for shape in MHD_SHAPES + [(N256,) * 3]:
+        Z, Y, X = shape
+        pad = torch.randn((Z + 6, Y + 6, X + 6), generator=gen,
+                          device="cuda")
+        got = cs.laplace6_cuda(pad, r3, Dim3(X, Y, Z), inv)
+        want = cs.laplace6_plain(pad, r3, Dim3(X, Y, Z), inv)
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, want))
+        log(f"  B8 {shape}: max |kernel - twin| = {err!r} "
+            f"({'bitwise equal' if same else 'DIFFERENT'})")
+        if not same or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B8 {shape}: kernel disagrees with its twin")
+        del pad, got, want
+        for dt in MHD_DTS:
+            prm = MhdParams(dt=dt)
+            f, w = mhd_state(torch, shape, gen)
+            tag = f"{shape} dt={dt:g}"
+            for s, w_in, write_w in ((0, None, True), (1, w, True),
+                                     (2, w, False)):
+                kf, kw = cm.mhd_substep_wrap_cuda(f, w_in, s, prm, dt,
+                                                  write_w=write_w)
+                tf, tw = cm.mhd_substep_wrap_plain(f, w_in, s, prm, dt,
+                                                   write_w=write_w)
+                e = check_fields(torch, kf, tf, f"B9 s={s} f {tag}")
+                if write_w:
+                    e = max(e, check_fields(torch, kw, tw, f"B9 s={s} w {tag}"))
+                elif kw is not None:
+                    raise AssertionError("B9 write_w=False returned a w")
+                worst["mhd_substep_wrap"] = max(worst["mhd_substep_wrap"], e)
+                del kf, kw, tf, tw
+            kf, kw = cm.mhd_substep01_wrap_cuda(f, prm, dt)
+            tf, tw = cm.mhd_substep01_wrap_plain(f, prm, dt)
+            e = max(check_fields(torch, kf, tf, f"B10 f {tag}"),
+                    check_fields(torch, kw, tw, f"B10 w {tag}"))
+            worst["mhd_substep01_wrap"] = max(worst["mhd_substep01_wrap"], e)
+            del tf, tw
+            f1, w1 = cm.mhd_substep_wrap_cuda(f, None, 0, prm, dt)
+            f2, w2 = cm.mhd_substep_wrap_cuda(f1, w1, 1, prm, dt)
+            check_fields(torch, kf, f2, f"B10 vs two B9 launches, f {tag}")
+            check_fields(torch, kw, w2, f"B10 vs two B9 launches, w {tag}")
+            del f, w, kf, kw, f1, w1, f2, w2
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return worst
+
+
+@contextlib.contextmanager
+def mhd_pair(value: str):
+    """STENCIL_MHD_PAIR set to ``value`` for the block (the models read
+    it when they are built), then restored."""
+    prev = os.environ.get("STENCIL_MHD_PAIR")
+    os.environ["STENCIL_MHD_PAIR"] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("STENCIL_MHD_PAIR", None)
+        else:
+            os.environ["STENCIL_MHD_PAIR"] = prev
+
+
+def run_astaroth(torch, cs, cm) -> dict:
+    """Phase 4, Astaroth at 256^3 through the model class, at dt 1e-4 so
+    that the rates move the float32 fields by many ulps."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    factor = 6 * 64.0   # 6 substeps, each within 64 eps of its max
+    prm = MhdParams(dt=MHD_PATH_DT)
+    out = {}
+
+    def model(kernel, n=N256, dtype=torch.float32):
+        m = Astaroth(n, n, n, params=prm, dtype=dtype, kernel=kernel,
+                     device="cuda")
+        m.init()
+        m.block()
+        return m
+
+    def host(t: dict, dtype=torch.float32):
+        return {q: t[q].to("cpu", dtype) for q in FIELDS}
+
+    def state(m, dtype=torch.float32):
+        fields = {q: torch.from_numpy(m.field(q)) for q in FIELDS}
+        return host(fields, dtype), host(m._w, dtype)
+
+    def xla_reference(n=N256, dtype=torch.float32):
+        """Fields after 2 iterations of the xla path, and the w of its
+        last iteration's substep 1 — the w the wrap path carries (it
+        never writes substep 2's, which nothing reads)."""
+        m = model("xla", n, dtype)
+        start = {q: torch.from_numpy(m.field(q)) for q in FIELDS}
+        m.run(1)
+        m._substep_xla(0)
+        m._substep_xla(1)
+        w1 = host(m._w, dtype)
+        m._substep_xla(2)
+        fields, _ = state(m, dtype)
+        # the comparison means something only if the rates moved every
+        # field by far more than the tolerance
+        moved = min(float((fields[q] - start[q].to(dtype)).abs().max())
+                    / (EPS32 * float(fields[q].abs().max())) for q in FIELDS)
+        log(f"  {n}^3 xla: 2 iterations moved every field by at least "
+            f"{moved:.4g} eps(f32) x max|field|")
+        if not moved > 10 * factor:
+            raise AssertionError("the rates did not show in the fields")
+        return fields, w1
+
+    small = model("auto", 16)
+    if small.kernel_path != "wrap":
+        raise AssertionError(f"auto picked {small.kernel_path!r} at 16^3")
+    small.run(2)
+    f64, w64 = xla_reference(16, torch.float64)
+    sf, sw = state(small, torch.float64)
+    what = "16^3 wrap (float32) vs xla (float64) after 2 iterations"
+    check_fields(torch, sf, f64, what + ", f", factor=factor)
+    check_fields(torch, sw, w64, what + ", w", factor=factor)
+    del small
+
+    counts = {}
+    got = {}
+    for label, pair, want_counts in (
+            ("wrap", "0", {"mhd_substep_wrap": 6, "mhd_substep01_wrap": 0,
+                           "laplace6": 0}),
+            ("wrap+pair", "1", {"mhd_substep_wrap": 2,
+                                "mhd_substep01_wrap": 2, "laplace6": 0})):
+        with mhd_pair(pair):
+            m = model("auto")
+        if m.kernel_path != "wrap":
+            raise AssertionError(f"auto picked {m.kernel_path!r}, not 'wrap'")
+        cm.reset_launch_counts()
+        cs.reset_launch_counts()
+        m.run(2)
+        m.block()
+        counts[label] = dict(cm.LAUNCHES, laplace6=cs.LAUNCHES["laplace6"])
+        log(f"  Astaroth 256^3 {label} run(2) launches: {counts[label]}")
+        if counts[label] != want_counts:
+            raise AssertionError(f"{label} path launched {counts[label]}, "
+                                 f"not {want_counts}")
+        got[label] = state(m)
+        del m
+        torch.cuda.empty_cache()
+    want_f, want_w = xla_reference()
+    torch.cuda.empty_cache()
+    for label, (gf, gw) in got.items():
+        what = f"256^3 {label} vs xla after 2 iterations"
+        out[f"{label}_vs_xla_max_diff"] = max(
+            check_fields(torch, gf, want_f, what + ", f", factor=factor),
+            check_fields(torch, gw, want_w, what + ", w", factor=factor))
+    out["launches"] = {
+        "mhd_substep_wrap": counts["wrap"]["mhd_substep_wrap"],
+        "mhd_substep01_wrap": counts["wrap+pair"]["mhd_substep01_wrap"],
+        "laplace6": sum(c["laplace6"] for c in counts.values())}
+    out["launches_by_path"] = counts
+    return out
+
+
+def iters_per_s(torch, kernel: str, k: int, pair: str = "0") -> float:
+    from stencil_tpu_torch.models.astaroth import Astaroth
+
+    with mhd_pair(pair):
+        m = Astaroth(N256, N256, N256, kernel=kernel, device="cuda")
+    m.init()
+    m.run(1)
+    m.block()
+    t0 = time.perf_counter()
+    m.run(k)
+    m.block()
+    ips = k / (time.perf_counter() - t0)
+    del m
+    torch.cuda.empty_cache()
+    return ips
+
+
+def time_mhd_kernels(torch, cs, cm) -> dict:
+    """Phase 5b, Astaroth: B9 (each s), B10 and B8 at 256^3."""
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.models.astaroth import MhdParams
+    from stencil_tpu_torch.ops.fd6 import _D2, _D2_C
+
+    n = N256
+    pts = float(n ** 3)
+    field = 4 * pts
+    gen = torch.Generator(device="cuda").manual_seed(999)
+    f, w = mhd_state(torch, (n, n, n), gen)
+    prm = MhdParams()
+    dt = prm.dt
+    r3 = Radius.constant(3)
+    interior = Dim3(n, n, n)
+    inv = mhd_inv_ds()
+    pad = torch.randn((n + 6,) * 3, generator=gen, device="cuda")
+    lap_out = torch.empty((n, n, n), device="cuda")
+    cases = {
+        "B9 s=0 (w=None)": (
+            lambda: cm.mhd_substep_wrap_cuda(f, None, 0, prm, dt),
+            lambda: cm.mhd_substep_wrap_plain(f, None, 0, prm, dt),
+            24 * field, B9_FLOPS[0] * pts, 10),
+        "B9 s=1": (
+            lambda: cm.mhd_substep_wrap_cuda(f, w, 1, prm, dt),
+            lambda: cm.mhd_substep_wrap_plain(f, w, 1, prm, dt),
+            32 * field, B9_FLOPS[1] * pts, 10),
+        "B9 s=2 (write_w=False)": (
+            lambda: cm.mhd_substep_wrap_cuda(f, w, 2, prm, dt, write_w=False),
+            lambda: cm.mhd_substep_wrap_plain(f, w, 2, prm, dt,
+                                              write_w=False),
+            24 * field, B9_FLOPS[2] * pts, 10),
+        "mhd_substep01_wrap": (
+            lambda: cm.mhd_substep01_wrap_cuda(f, prm, dt),
+            lambda: cm.mhd_substep01_wrap_plain(f, prm, dt),
+            24 * field, B10_FLOPS * pts, 5),
+        "laplace6": (
+            lambda: cs.laplace6_cuda(pad, r3, interior, inv, out=lap_out),
+            lambda: cs.laplace6_plain(pad, r3, interior, inv),
+            (float(n + 6) ** 3 + pts) * 4, LAPLACE6_FLOPS * pts, 20),
+    }
+    res = {}
+    for name, (kern, plain, nbytes, flops, reps) in cases.items():
+        ms = event_ms(torch, kern, reps=reps)
+        plain_ms = event_ms(torch, plain, reps=2, warmup=1)
+        bms, by = bound_ms(nbytes, flops)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None}
+        log(f"  {name}: {ms!r} ms/launch, bound {bms!r} ms ({by}), "
+            f"{100 * bms / ms:.1f}% of bound; plain twin {plain_ms!r} ms")
+        torch.cuda.empty_cache()
+    # B8's function as one library call: conv3d with the 6th-order cross
+    ix2, iy2, iz2 = (v * v for v in inv)
+    wt = torch.zeros((7, 7, 7), dtype=torch.float64)
+    wt[3, 3, 3] = _D2_C * (ix2 + iy2 + iz2)
+    for i, c in enumerate(_D2, start=1):
+        for sgn in (-1, 1):
+            wt[3, 3, 3 + sgn * i] = c * ix2
+            wt[3, 3 + sgn * i, 3] = c * iy2
+            wt[3 + sgn * i, 3, 3] = c * iz2
+    weight = wt.to(torch.float32).cuda()[None, None]
+    res["laplace6"]["library_ms"] = library_ms(
+        torch, pad, weight, cs.laplace6_cuda(pad, r3, interior, inv),
+        "laplace6")
+    b9 = [res.pop(k) for k in ("B9 s=0 (w=None)", "B9 s=1",
+                               "B9 s=2 (write_w=False)")]
+    res["mhd_substep_wrap"] = {
+        k: sum(v[k] for v in b9) / 3 for k in ("ms", "plain_ms", "bound_ms")}
+    res["mhd_substep_wrap"].update(
+        bound_by=b9[1]["bound_by"], library_ms=None,
+        variants={"s=0 (w=None)": b9[0], "s=1": b9[1],
+                  "s=2 (write_w=False)": b9[2]})
+    del f, w, pad, lap_out
+    torch.cuda.empty_cache()
+    return res
+
+
+# name: (tag, source, TPU kernel it replaces)
 KERNEL_META = {
-    "jacobi7_wrap": ("K1", "stencil_tpu/ops/pallas_stencil.py:134"),
-    "jacobi7_wrapn": ("K2", "stencil_tpu/ops/pallas_stencil.py:246"),
-    "jacobi7_padded": ("K3", "stencil_tpu/ops/pallas_stencil.py:72"),
+    "jacobi7_wrap": ("K1", "stencil_tpu_torch/csrc/jacobi7.cu",
+                     "stencil_tpu/ops/pallas_stencil.py:134"),
+    "jacobi7_wrapn": ("K2", "stencil_tpu_torch/csrc/jacobi7.cu",
+                      "stencil_tpu/ops/pallas_stencil.py:246"),
+    "jacobi7_padded": ("K3", "stencil_tpu_torch/csrc/jacobi7.cu",
+                       "stencil_tpu/ops/pallas_stencil.py:72"),
+    "laplace6": ("B8", "stencil_tpu_torch/csrc/laplace6.cu",
+                 "stencil_tpu/ops/pallas_stencil.py:432"),
+    "mhd_substep_wrap": ("B9", "stencil_tpu_torch/csrc/mhd.cu",
+                         "stencil_tpu/ops/pallas_mhd.py:186"),
+    "mhd_substep01_wrap": ("B10", "stencil_tpu_torch/csrc/mhd.cu",
+                           "stencil_tpu/ops/pallas_mhd.py:347"),
 }
 
 
@@ -309,8 +690,11 @@ def main() -> int:
     count = torch.cuda.device_count()
     log(f"phase 1: card {card!r}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, {count} device(s)")
+    # the library yardsticks (conv3d) compute in float32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
 
     from stencil_tpu_torch.ops import _build
+    from stencil_tpu_torch.ops import cuda_mhd as cm
     from stencil_tpu_torch.ops import cuda_stencil as cs
 
     # phase 2: build
@@ -320,38 +704,54 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3: kernels vs twins
-    log("phase 3: kernels vs plain twins (tolerance 0)")
+    log("phase 3: kernels vs plain twins")
     worst = compare_kernels(torch, cs)
+    worst.update(compare_mhd_kernels(torch, cs, cm))
 
-    # phase 4: the main path
+    # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
     main_path = run_main_path(torch, cs)
+    log("phase 4: Astaroth 256^3 float32 main path")
+    mhd_path = run_astaroth(torch, cs, cm)
+    launches = dict(main_path["launches"])
+    for name, n in mhd_path["launches"].items():
+        launches[name] = launches.get(name, 0) + n
 
     # phase 5: timing
-    log("phase 5: timing at 512^3 (card: " + card + ")")
+    log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
+        + card + ")")
     sps = {"wrap": steps_per_s(torch, "wrap", 40),
            "pallas": steps_per_s(torch, "pallas", 20),
            "xla": steps_per_s(torch, "xla", 6)}
     for path, v in sps.items():
-        log(f"  {path}: {v!r} steps/s")
+        log(f"  Jacobi {path}: {v!r} steps/s")
+    ips = {"wrap": iters_per_s(torch, "wrap", 20),
+           "wrap+pair": iters_per_s(torch, "wrap", 10, pair="1"),
+           "xla": iters_per_s(torch, "xla", 3)}
+    for path, v in ips.items():
+        log(f"  Astaroth {path}: {v!r} iterations/s")
     times = time_kernels(torch, cs)
+    times.update(time_mhd_kernels(torch, cs, cm))
 
     kernels = []
-    for name, (tag, replaces) in KERNEL_META.items():
-        kernels.append({
-            "name": f"{name} ({tag})", "route": "cuda",
-            "source": "stencil_tpu_torch/csrc/jacobi7.cu",
-            "replaces": replaces,
-            "launches": main_path["launches"][name],
-            "max_abs_err": worst[name],
-            "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-            "bound_ms": times[name]["bound_ms"],
-            "bound_by": times[name]["bound_by"],
-            "library_ms": None})
+    for name, (tag, source, replaces) in KERNEL_META.items():
+        t = times[name]
+        entry = {
+            "name": f"{name} ({tag})", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name == "laplace6":
+            entry["path"] = "none: no model path runs it in either package"
+        if "variants" in t:
+            entry["variants"] = t["variants"]
+        kernels.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "steps_per_s_512": sps, "main_path": main_path,
+                   "steps_per_s_512": sps, "iters_per_s_256": ips,
+                   "main_path": main_path, "astaroth_path": mhd_path,
                    "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,19 @@
 """Carry state across from the JAX package.
 
-The Jacobi system has no weights: its state is the temperature field
-(and the sphere configuration, which both packages derive from the grid
-size). A JAX domain hands its field over as numpy — the global interior
-from ``DistributedDomain.interior_to_host`` or a (1,1,1) domain's padded
-shard (``np.asarray(dd.curr[name])``) — and ``field_from_jax`` turns it
-into the port's halo-padded tensor on a device. Nothing here imports
-JAX: the two packages meet only in numpy arrays.
+The systems have no weights: their state is fields. Jacobi's is the
+temperature field (the sphere configuration both packages derive from
+the grid size); Astaroth's is 8 fields plus the 8 RK3 accumulators
+``w``. A JAX domain hands a field over as numpy — the global interior
+from ``DistributedDomain.interior_to_host`` or ``Astaroth.field``, or a
+(1,1,1) domain's padded shard (``np.asarray(dd.curr[name])``) — and
+``field_from_jax`` turns it into the port's halo-padded tensor on a
+device; ``astaroth_state_from_jax`` does so for a whole MHD state.
+Nothing here imports JAX: the two packages meet only in numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +41,9 @@ def field_from_jax(arr: np.ndarray, radius: Radius, layout: str = "padded",
         raise TypeError(f"field dtype {arr.dtype} does not match "
                         f"{dtype}; convert explicitly before loading")
     dev = resolve_device(device)
-    host = torch.from_numpy(np.ascontiguousarray(arr))
+    host = torch.tensor(arr)     # a copy, also of a read-only array
     if layout == "padded":
-        return host.to(dev, copy=True)
+        return host.to(dev)
     if layout != "interior":
         raise ValueError(f"layout must be 'padded' or 'interior', got "
                          f"{layout!r}")
@@ -51,3 +53,37 @@ def field_from_jax(arr: np.ndarray, radius: Radius, layout: str = "padded",
                       device=dev)
     out[interior_slices(size, radius)].copy_(host)
     return out
+
+
+def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
+                            w: Optional[Dict[str, np.ndarray]] = None,
+                            device: DeviceLike = None,
+                            dtype: Optional[torch.dtype] = None
+                            ) -> Tuple[Dict[str, torch.Tensor],
+                                       Optional[Dict[str, torch.Tensor]]]:
+    """The port's MHD state from the JAX model's: ``fields[q]`` are the
+    (z,y,x) interiors of its ``field(q)``, ``w[q]`` its ``_w``
+    accumulators (interior-shaped; None before its first step). Returns
+    ``({q: radius-3 padded field with zero halos}, {q: w tensor} or
+    None)`` on ``device``, bit for bit; ``dtype``, if given, must match
+    the arrays'."""
+    from .models.astaroth import FIELDS
+
+    if set(fields) != set(FIELDS) or (w is not None and set(w) != set(FIELDS)):
+        raise ValueError(f"an Astaroth state holds exactly {FIELDS}")
+    radius = Radius.constant(3)
+    out = {q: field_from_jax(fields[q], radius, layout="interior",
+                             device=device, dtype=dtype) for q in FIELDS}
+    if w is None:
+        return out, None
+    wt = {}
+    for q in FIELDS:
+        arr = np.asarray(w[q])
+        if arr.shape != np.asarray(fields[q]).shape:
+            raise ValueError(f"w[{q!r}] has shape {arr.shape}, expected the "
+                             f"interior's {np.asarray(fields[q]).shape}")
+        if torch_dtype(arr.dtype) != out[q].dtype:
+            raise TypeError(f"w[{q!r}] is {arr.dtype}, the fields "
+                            f"{out[q].dtype}; convert explicitly first")
+        wt[q] = torch.tensor(arr, device=out[q].device)
+    return out, wt

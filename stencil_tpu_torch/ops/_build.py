@@ -117,3 +117,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def launch(name: str, fn_name: str, argtypes, *args) -> None:
+    """Call the launcher ``fn_name`` of library ``name`` with ``args``
+    and PyTorch's current CUDA stream as the last argument; raise if it
+    returns a CUDA error (a refused launch never runs, and no later
+    synchronize would report it)."""
+    import torch
+
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int   # cudaError_t
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

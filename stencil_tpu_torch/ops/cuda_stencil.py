@@ -11,12 +11,16 @@ K   TPU kernel (pallas_stencil.py)      wrapper                      plain twin
 K1  :134 ``jacobi7_wrap_pallas``        ``jacobi7_wrap_cuda``        ``jacobi7_wrap_plain``
 K2  :246 ``jacobi7_wrapn_pallas``       ``jacobi7_wrapn_cuda``       ``jacobi7_wrapn_plain``
 K3  :72 ``jacobi7_pallas``              ``jacobi7_padded_cuda``      ``jacobi7_padded_plain``
+B8  :432 ``laplace6_pallas``            ``laplace6_cuda``            ``laplace6_plain``
 ==  ==================================  ===========================  ========================
 
-A wrapper dispatches on the tensor's device: a CPU tensor goes to the
+K1–K3 live in ``csrc/jacobi7.cu``, B8 in ``csrc/laplace6.cu``. A
+wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain twin (that is how the tests run); a CUDA tensor launches the
 kernel or raises — it never falls back. Each launch adds one to the
-wrapper's entry in ``LAUNCHES``. The kernels take float32 only.
+wrapper's entry in ``LAUNCHES``. The kernels take float32 only; K1–K3
+refuse any other dtype on the CPU too, while ``laplace6_cuda`` hands a
+CPU tensor of any float dtype to its twin, as the MHD wrappers do.
 
 The two wrap kernels add in different orders, as their JAX originals
 do (K1: ``((((ym+yp)+xm)+xp)+zm)+zp``; K2 per step:
@@ -29,9 +33,11 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..geometry import Dim3, Radius
+from .fd6 import _D2, _D2_C, const
 from .stencil_kernels import sixth
 
 HOT_TEMP = 1.0   # reference: bin/jacobi3d.cu:12
@@ -39,7 +45,8 @@ COLD_TEMP = 0.0  # reference: bin/jacobi3d.cu:11
 
 #: launches per wrapper since the last ``reset_launch_counts``; only a
 #: kernel launch counts, never a call that went to the plain twin
-LAUNCHES = {"jacobi7_wrap": 0, "jacobi7_wrapn": 0, "jacobi7_padded": 0}
+LAUNCHES = {"jacobi7_wrap": 0, "jacobi7_wrapn": 0, "jacobi7_padded": 0,
+            "laplace6": 0}
 
 
 def reset_launch_counts() -> None:
@@ -137,6 +144,35 @@ def jacobi7_padded_plain(padded: torch.Tensor, radius: Radius,
     return acc * sixth(padded.dtype, padded.device)
 
 
+def laplace6_plain(padded: torch.Tensor, radius: Radius, interior: Dim3,
+                   inv_ds: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+                   ) -> torch.Tensor:
+    """B8's twin: the 6th-order Laplacian over a radius-3-padded shard,
+    in the order of ``laplace6_pallas`` (pallas_stencil.py:451-465):
+    ``accx``, ``accy`` and ``accz`` each start at ``D2_C * centre`` and
+    add ``w_i * (hi + lo)`` for i = 1..3; then ``accx * ix2 + accy * iy2
+    + accz * iz2``. Returns the (Z, Y, X) interior; any float dtype."""
+    lo = radius.pad_lo()
+    Z, Y, X = interior.z, interior.y, interior.x
+    dt = padded.dtype
+
+    def at(dz, dy, dx):
+        return padded[lo.z + dz:lo.z + dz + Z, lo.y + dy:lo.y + dy + Y,
+                      lo.x + dx:lo.x + dx + X]
+
+    ctr = at(0, 0, 0)
+    accx = const(_D2_C, dt) * ctr
+    accy = accx
+    accz = const(_D2_C, dt) * ctr
+    for i, w in enumerate(_D2, start=1):
+        wc = const(w, dt)
+        accx = accx + wc * (at(0, 0, i) + at(0, 0, -i))
+        accy = accy + wc * (at(0, i, 0) + at(0, -i, 0))
+        accz = accz + wc * (at(i, 0, 0) + at(-i, 0, 0))
+    ix2, iy2, iz2 = (const(v * v, dt) for v in inv_ds)
+    return accx * ix2 + accy * iy2 + accz * iz2
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -147,25 +183,14 @@ _SIGNATURES = {
     "jacobi7_wrap_launch": [_P, _P] + [_I] * 10 + [_P],
     "jacobi7_wrapn_launch": [_P, _P] + [_I] * 11 + [_P],
     "jacobi7_padded_launch": [_P, _P] + [_I] * 8 + [_P],
+    "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3 + [_P],
 }
 
 
-def _launcher(fn_name: str):
+def _launch(fn_name: str, *args, lib_name: str = _LIB) -> None:
     from . import _build
 
-    lib = _build.load(_LIB)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[fn_name]
-        fn.restype = ctypes.c_int   # cudaError_t
-    return fn
-
-
-def _launch(fn_name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _launcher(fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+    _build.launch(lib_name, fn_name, _SIGNATURES[fn_name], *args)
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -270,4 +295,36 @@ def jacobi7_padded_cuda(padded: torch.Tensor, radius: Radius,
     _launch("jacobi7_padded_launch", padded.data_ptr(), out.data_ptr(),
             Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x)
     LAUNCHES["jacobi7_padded"] += 1
+    return out
+
+
+def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
+                  inv_ds: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B8: the 6th-order Laplacian over a halo-padded (Zp, Yp, Xp) shard
+    with low pads ``radius.pad_lo()`` of at least 3 and a radius-3 ring
+    on the high side; returns the (Z, Y, X) interior. A CUDA tensor must
+    be float32; a CPU tensor of any float dtype goes to the twin."""
+    what = "laplace6_cuda"
+    if padded.dim() != 3 or not padded.is_floating_point():
+        raise ValueError(f"{what}: expected a floating (Z, Y, X) tensor, "
+                         f"got {padded.dtype} {tuple(padded.shape)}")
+    lo = radius.pad_lo()
+    Zp, Yp, Xp = padded.shape
+    Z, Y, X = interior.z, interior.y, interior.x
+    if min(lo) < 3 or lo.z + Z + 3 > Zp or lo.y + Y + 3 > Yp \
+            or lo.x + X + 3 > Xp:
+        raise ValueError(f"{what}: padded shape {tuple(padded.shape)} "
+                         f"with low pads {lo} has no radius-3 ring "
+                         f"around a {interior} interior")
+    out = _out(padded, out, (Z, Y, X), what)
+    if padded.device.type == "cpu":
+        return out.copy_(laplace6_plain(padded, radius, interior, inv_ds))
+    _check(padded, what)
+    _check_cuda(padded, what)
+    ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv_ds)
+    _launch("laplace6_launch", padded.data_ptr(), out.data_ptr(),
+            Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x, ix2, iy2, iz2,
+            lib_name="laplace6")
+    LAUNCHES["laplace6"] += 1
     return out

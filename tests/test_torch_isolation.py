@@ -45,7 +45,9 @@ def test_no_jax_imports(path):
 def test_imports_without_nvcc_or_jax():
     code = ("import sys, stencil_tpu_torch, stencil_tpu_torch.ops.cuda_stencil,"
             " stencil_tpu_torch.ops._build, stencil_tpu_torch.convert,"
-            " stencil_tpu_torch.apps.jacobi3d;"
+            " stencil_tpu_torch.apps.jacobi3d, stencil_tpu_torch.ops.fd6,"
+            " stencil_tpu_torch.ops.cuda_mhd, stencil_tpu_torch.models.astaroth,"
+            " stencil_tpu_torch.apps.astaroth;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'stencil_tpu')];"
             " assert not bad, bad")
@@ -66,6 +68,6 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-    assert set(_build.sources()) == {"jacobi7"}
+    assert set(_build.sources()) == {"jacobi7", "laplace6", "mhd"}
     assert os.path.basename(_build.library_path("jacobi7")).startswith(
         "libjacobi7-")

@@ -136,8 +136,10 @@ def test_cpu_wrappers_launch_nothing():
     cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=2)
     p = torch.zeros((10, 10, 10))
     cs.jacobi7_padded_cuda(p, Radius.constant(1), Dim3(8, 8, 8))
+    cs.laplace6_cuda(torch.zeros((14, 14, 14)), Radius.constant(3),
+                     Dim3(8, 8, 8))
     assert cs.LAUNCHES == {"jacobi7_wrap": 0, "jacobi7_wrapn": 0,
-                           "jacobi7_padded": 0}
+                           "jacobi7_padded": 0, "laplace6": 0}
 
 
 @pytest.mark.parametrize("call", ["wrap", "wrapn", "padded"])

@@ -6,6 +6,8 @@ from __future__ import annotations
 import contextlib
 import sys
 
+import numpy as np
+
 #: names newer jax releases moved from ``jax.core`` to
 #: ``jax.extend.core``; ``stencil_tpu/analysis/jaxprs.py`` reads them
 #: from ``jax.core`` when the block planner is imported
@@ -55,3 +57,77 @@ def sphere_args(shape_zyx):
     raised by one so that small grids have non-empty spheres."""
     Z, Y, X = shape_zyx
     return (X // 3, Y // 2, Z // 2), (2 * X // 3, Y // 2, Z // 2), X // 10 + 1
+
+
+def assert_mhd_fields_match(got, want, dtype):
+    """Per field of an MHD state (``got`` and ``want`` map field names to
+    tensors or arrays): float64 within ``rtol=1e-11, atol=1e-13`` (the
+    JAX package's own wrap-vs-xla tolerance, tests/test_astaroth.py:82-83);
+    float32 within ``64 * eps(f32) * max |want|``."""
+    assert set(got) == set(want)
+    for q in want:
+        g, w = np.asarray(got[q]), np.asarray(want[q])
+        assert g.dtype == w.dtype == dtype, q
+        if dtype == np.float64:
+            np.testing.assert_allclose(g, w, rtol=1e-11, atol=1e-13,
+                                       err_msg=q)
+        else:
+            err = np.abs(g - w).max()
+            assert err <= 64 * np.finfo(np.float32).eps * np.abs(w).max(), \
+                (q, err)
+
+
+#: (dtype, dt) of every MHD comparison: the default dt = 1e-8, where the
+#: rates barely reach a float32 field, and 1e-4, where an error in them
+#: shows in f
+MHD_CASES = [(np.float32, 1e-8), (np.float32, 1e-4),
+             (np.float64, 1e-8), (np.float64, 1e-4)]
+MHD_CASE_IDS = [f"{np.dtype(d).name}-dt{dt:g}" for d, dt in MHD_CASES]
+
+
+def jax_astaroth(kernel, dt, dtype, n=(16, 16, 16)):
+    """The JAX model on one CPU device, a (1,1,1) mesh."""
+    import jax
+
+    from stencil_tpu.models import astaroth as jm
+
+    return jm.Astaroth(*n, params=jm.MhdParams(dt=dt), mesh_shape=(1, 1, 1),
+                       dtype=dtype, devices=jax.devices()[:1], kernel=kernel)
+
+
+def port_astaroth(kernel, dt, dtype, n=(16, 16, 16)):
+    """The port's model on the CPU."""
+    import torch
+
+    from stencil_tpu_torch.models import astaroth as pm
+
+    return pm.Astaroth(*n, params=pm.MhdParams(dt=dt),
+                       dtype={np.float32: torch.float32,
+                              np.float64: torch.float64}[dtype],
+                       kernel=kernel, device="cpu")
+
+
+def astaroth_state(m):
+    """({field: interior}, {field: w}) of either package's model, as
+    numpy."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    return ({q: m.field(q) for q in FIELDS},
+            {q: np.asarray(m._w[q]) for q in FIELDS})
+
+
+def run_astaroth_pair(kernel, dt, dtype, steps=2):
+    """(JAX state, port state) after ``init()`` and ``steps`` steps on
+    path ``kernel`` in both packages."""
+    with reference_block_planner():
+        j = jax_astaroth(kernel, dt, dtype)
+        j.init()
+        for _ in range(steps):
+            j.step()
+        jstate = astaroth_state(j)
+    p = port_astaroth(kernel, dt, dtype)
+    p.init()
+    for _ in range(steps):
+        p.step()
+    assert p.kernel_path == j.kernel_path == kernel
+    return jstate, astaroth_state(p)
