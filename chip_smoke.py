@@ -16,6 +16,16 @@ Phases, in order; any failure exits non-zero before the last line:
      built -fmad=false.
    - B8 (laplace6) at (8,8,8), (16,8,24), (8,16,40) and 256^3 (Z,Y,X).
      Tolerance: 0, as for K3.
+   - B5 (jacobi7_halo) and B6 (jacobi7_halon) on slabs from
+     ``exchange_interior_slabs``: B5 at 512^3 with its own wrapped
+     slabs, and on the four shards of 512 x 511 x 509 (x, y, z) over
+     mesh (1,2,2) (capacity 512 x 256 x 255, remainders (0,1,1),
+     compared on each shard's live cells), both with the halo path's
+     one-row slabs, and at small odd shapes with JAX-style slabs (rz >
+     1, or y slabs 8 columns wide); B6 at 512^3 N=2, and on the four
+     shards of 512^3 over (1,2,2) at N=2 and 3, with the path's N-row
+     slabs, and at small odd shapes with JAX-style rz = block_z, ry = 8
+     slabs. Tolerance: 0, as K1/K2.
    - B9 (mhd_substep_wrap: s=0 with w=None, s=1, s=2 with
      write_w=False), B10 (mhd_substep01_wrap) against its twin and
      against two B9 launches, at the same shapes, dt 1e-8 and 1e-4.
@@ -32,6 +42,16 @@ Phases, in order; any failure exits non-zero before the last line:
      [0, 1]; each step may round each of its 7 operations differently,
      and a Jacobi step never amplifies an earlier difference). A 16^3
      run is also held against the dense numpy oracle.
+   - ``Jacobi3D(512, 512, 512, kernel="halo")`` on a (1,1,1) mesh:
+     ``run(21)`` must launch B6 10 times and B5 once and equal the
+     ``wrap`` path bitwise (on one shard the slabs are the shard's own
+     wrapped edges, so B5 is K1's arithmetic and B6 K2's); the same
+     grid on mesh (1,2,2) with all four shards on the one card
+     (``devices=["cuda:0"] * 4``, kernel="auto" must take ``halo``):
+     40 B6 + 4 B5 launches, bitwise equal to ``wrap``; and
+     512 x 511 x 509 ``halo`` on (1,2,2) (uneven: B5 every step, 84
+     launches) against the ``xla`` path on the same mesh within
+     ``steps * 8 * eps(float32)``.
    - ``Astaroth(256, 256, 256, float32)``: kernel="auto" must take
      ``wrap``; ``run(2)`` must launch B9 exactly 6 times and B10 never;
      with ``STENCIL_MHD_PAIR=1``, ``run(2)`` must launch B10 twice and
@@ -41,8 +61,10 @@ Phases, in order; any failure exits non-zero before the last line:
      with the plain ``xla`` path per field to ``substeps * 64 * eps(f32)
      * max |xla|`` (6 substeps), and a 16^3 run agrees with a float64
      ``xla`` run of the port to the same bound. Fields stay finite.
-5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3
-   and iterations/s of the Astaroth wrap, wrap+pair and xla paths at
+5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
+   of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
+   and the halo path's slab exchange per group; iterations/s of the
+   Astaroth wrap, wrap+pair and xla paths at
    256^3 (host clock around run(k), ending in a synchronize); each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
@@ -356,6 +378,268 @@ def library_ms(torch, padded, weight, want, what: str) -> float:
     del got
     return event_ms(torch, lambda: F.conv3d(x, weight), reps=5)
 
+# ---------------------------------------------------------------------------
+# the halo path: B5, B6 and Jacobi3D(kernel="halo") on meshes of shards
+# ---------------------------------------------------------------------------
+def halo_case(torch, gen, size_xyz, mesh, slab_kw, widen: int = 0):
+    """Random capacity-sized shards of a ``size_xyz`` grid over ``mesh``
+    on the card, their slabs (``exchange_interior_slabs(**slab_kw)``),
+    and per shard its global origin (z, y, x) and live extents (z, y).
+    Returns (shards, slabs, origins, lens, spheres, global (z, y, x))."""
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.parallel.exchange import (exchange_interior_slabs,
+                                                     shard_interior_len,
+                                                     shard_origin)
+    from stencil_tpu_torch.parallel.mesh import mesh_index
+
+    size = Dim3(*size_xyz)
+    counts = Dim3(*mesh)
+    cap = Dim3(*(-(-size[a] // counts[a]) for a in range(3)))
+    rem = Dim3(*(size[a] % counts[a] for a in range(3)))
+    shards = [torch.rand((cap.z, cap.y, cap.x), generator=gen, device="cuda")
+              for _ in range(counts.flatten())]
+    kw = dict(slab_kw)
+    if not kw.get("y_z_extended"):
+        kw["rem"] = rem
+    slabs = exchange_interior_slabs(shards, counts, **kw)
+    origins, lens = [], []
+    for i in range(len(shards)):
+        idx = mesh_index(i, counts)
+        ox, oy, oz = shard_origin(cap, rem, idx)
+        origins.append((oz, oy, ox))
+        lens.append((shard_interior_len(2, cap.z, rem, idx.z),
+                     shard_interior_len(1, cap.y, rem, idx.y)))
+    return (shards, slabs, origins, lens,
+            spheres((size.z, size.y, size.x), widen), (size.z, size.y, size.x))
+
+
+def compare_halo_kernels(torch, ch) -> dict:
+    """Phase 3, the halo kernels against their twins; returns the largest
+    absolute difference per kernel (must be 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    worst = {"jacobi7_halo": 0.0, "jacobi7_halon": 0.0}
+
+    def check(name, got, want, what, live=None):
+        g, w = (got, want) if live is None else (
+            got[:live[0], :live[1]], want[:live[0], :live[1]])
+        err = float((g - w).abs().max())
+        same = bool(torch.equal(g, w))
+        every = "" if live is None else (
+            f"; every cell incl. dead: "
+            f"{'equal' if torch.equal(got, want) else 'different'}")
+        log(f"  {what}: max |kernel - twin| = {err!r} "
+            f"({'bitwise equal' if same else 'DIFFERENT'}{every})")
+        if not same or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: kernel disagrees with its twin")
+        worst[name] = max(worst[name], err)
+
+    n = N512
+    # the halo path's own slabs (rz = ry = 1) at 512^3, and JAX-shaped
+    # ones (rz > 1, or y slabs a sublane tile wide) at small odd shapes
+    b5 = [((n, n, n), (1, 1, 1), dict(rz=1, ry=1), 0),
+          ((n, 511, 509), (1, 2, 2), dict(rz=1, ry=1), 0),
+          ((33, 13, 9), (1, 1, 1), dict(rz=3, ry=8, radius_rows=1), 2),
+          ((33, 16, 9), (1, 2, 2), dict(rz=1, ry=8), 2),
+          ((33, 17, 9), (1, 2, 2), dict(rz=1, ry=1), 2)]
+    for size, mesh, kw, widen in b5:
+        shards, slabs, orgs, lens, (hot, cold, r), _ = halo_case(
+            torch, gen, size, mesh, kw, widen)
+        for i, t in enumerate(shards):
+            check("jacobi7_halo",
+                  ch.jacobi7_halo_cuda(t, slabs[i], orgs[i], hot, cold, r,
+                                       interior_len_zy=lens[i]),
+                  ch.jacobi7_halo_plain(t, slabs[i], orgs[i], hot, cold, r,
+                                        lens[i]),
+                  f"B5 {size} mesh {mesh} shard {i} slabs {kw}",
+                  live=lens[i])
+        del shards, slabs
+    # (size, mesh, steps, rz, ry, widen): the path's own rz = ry = N
+    # slabs at 512^3, JAX's rz = block_z, ry = 8 at small shapes
+    b6 = [((n, n, n), (1, 1, 1), 2, 2, 2, 0),
+          ((n, n, n), (1, 2, 2), 2, 2, 2, 0),
+          ((n, n, n), (1, 2, 2), 3, 3, 3, 0),
+          ((33, 16, 10), (1, 2, 2), 2, 4, 8, 2),
+          ((33, 16, 10), (1, 1, 2), 3, 5, 8, 2)]
+    for size, mesh, steps, rz, ry, widen in b6:
+        kw = dict(rz=rz, ry=ry, radius_rows=steps, y_z_extended=True)
+        shards, slabs, orgs, _, (hot, cold, r), gsize = halo_case(
+            torch, gen, size, mesh, kw, widen)
+        for i, t in enumerate(shards):
+            check("jacobi7_halon",
+                  ch.jacobi7_halon_cuda(t, slabs[i], orgs[i], gsize, hot,
+                                        cold, r, steps=steps),
+                  ch.jacobi7_halon_plain(t, slabs[i], orgs[i], gsize, hot,
+                                         cold, r, steps=steps),
+                  f"B6 N={steps} {size} mesh {mesh} shard {i} rz={rz} "
+                  f"ry={ry}")
+        del shards, slabs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def gather(torch, j):
+    """A solver's global interior as one tensor on the card."""
+    dd = j.dd
+    out = torch.empty((dd.size.z, dd.size.y, dd.size.x), device="cuda")
+    for i in range(dd.num_subdomains()):
+        o, s = dd.shard_origin(i), dd.shard_size(i)
+        out[o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x] = \
+            dd.interior("temp", i)
+    return out
+
+
+def jacobi_mesh(kernel, mesh=(1, 1, 1), size=(N512, N512, N512)):
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    j = Jacobi3D(*size, kernel=kernel, mesh_shape=mesh,
+                 devices=["cuda:0"] * (mesh[0] * mesh[1] * mesh[2]))
+    j.init()
+    j.block()
+    return j
+
+
+def run_halo_path(torch, cs, ch) -> dict:
+    """Phase 4, the halo path: bitwise against ``wrap`` at 512^3 on
+    (1,1,1) and on four shards of one card, and the uneven grid against
+    ``xla`` on its mesh; launch counts from the counters."""
+    import numpy as np
+
+    eps = float(np.finfo(np.float32).eps)
+    steps = 21
+    out = {"launches_by_run": {}}
+    ref = jacobi_mesh("wrap")
+    ref.run(steps)
+    want = gather(torch, ref)
+    del ref
+    runs = (("512^3 (1,1,1)", "halo", (1, 1, 1),
+             {"jacobi7_halo": 1, "jacobi7_halon": 10}),
+            ("512^3 (1,2,2) on one card", "auto", (1, 2, 2),
+             {"jacobi7_halo": 4, "jacobi7_halon": 40}))
+    for label, kernel, mesh, want_counts in runs:
+        j = jacobi_mesh(kernel, mesh)
+        if j.kernel_path != "halo":
+            raise AssertionError(f"{label}: kernel={kernel!r} took "
+                                 f"{j.kernel_path!r}, not 'halo'")
+        ch.reset_launch_counts()
+        cs.reset_launch_counts()
+        j.run(steps)
+        j.block()
+        counts = dict(ch.LAUNCHES)
+        log(f"  halo {label} run({steps}) launches: {counts}, K1-K3 "
+            f"{dict(cs.LAUNCHES)}")
+        if counts != want_counts or any(cs.LAUNCHES.values()):
+            raise AssertionError(f"halo {label} launched {counts}, not "
+                                 f"{want_counts}")
+        got = gather(torch, j)
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, want))
+        log(f"  halo {label} vs wrap after {steps} steps: max diff {err!r} "
+            f"({'bitwise equal' if same else 'DIFFERENT'})")
+        if not same or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"halo {label} is not bitwise the wrap path")
+        out["launches_by_run"][label] = counts
+        out[f"halo_vs_wrap_max_diff {label}"] = err
+        del j, got
+        torch.cuda.empty_cache()
+    del want
+    size = (N512, 511, 509)
+    h = jacobi_mesh("halo", (1, 2, 2), size)
+    ch.reset_launch_counts()
+    h.run(steps)
+    h.block()
+    counts = dict(ch.LAUNCHES)
+    log(f"  halo {size} (1,2,2) run({steps}) launches: {counts}")
+    if counts != {"jacobi7_halo": 4 * steps, "jacobi7_halon": 0}:
+        raise AssertionError(f"uneven halo launched {counts}")
+    x = jacobi_mesh("xla", (1, 2, 2), size)
+    x.run(steps)
+    got, ref = gather(torch, h), gather(torch, x)
+    err, tol = float((got - ref).abs().max()), steps * 8 * eps
+    log(f"  halo vs xla {size} (1,2,2) after {steps} steps: max diff "
+        f"{err!r} (tolerance {tol!r})")
+    if err > tol or not bool(torch.isfinite(got).all()):
+        raise AssertionError("uneven halo path disagrees with the xla path")
+    out["uneven_halo_vs_xla_max_diff"] = err
+    out["launches_by_run"][f"{size} (1,2,2)"] = counts
+    # the slice's main path: four shards on the card
+    out["launches"] = dict(out["launches_by_run"]["512^3 (1,2,2) on one card"])
+    del h, x, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_halo(torch, ch) -> dict:
+    """Phase 5, the halo path: steps/s at 512^3 on (1,1,1) and (1,2,2),
+    the slab exchange per group, and B5/B6 at 512^3 on one shard."""
+    res = {"steps_per_s": {}, "slab_exchange_ms": {}}
+    for label, mesh in (("(1,1,1)", (1, 1, 1)), ("(1,2,2)", (1, 2, 2))):
+        j = jacobi_mesh("halo", mesh)
+        j.run(2)
+        j.block()
+        t0 = time.perf_counter()
+        j.run(40)
+        j.block()
+        res["steps_per_s"][label] = 40 / (time.perf_counter() - t0)
+        res["slab_exchange_ms"][label] = 1e3 * j.slab_exchange_seconds(10)
+        log(f"  Jacobi halo {label}: {res['steps_per_s'][label]!r} steps/s; "
+            f"slab exchange {res['slab_exchange_ms'][label]!r} ms per "
+            f"{j._halo_n}-step group")
+        del j
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    n = N512
+    pts = float(n ** 3)
+    kernels = {}
+    # the slabs of the halo path: one row (B5) or N = 2 rows (B6) wide
+    for name, kw, steps in (("jacobi7_halo", dict(rz=1, ry=1), 1),
+                            ("jacobi7_halon", dict(rz=2, ry=2, radius_rows=2,
+                                                   y_z_extended=True), 2)):
+        (a,), (sl,), (org,), (lens,), (hot, cold, r), gsize = halo_case(
+            torch, gen, (n, n, n), (1, 1, 1), kw)
+        b = torch.empty_like(a)
+        if steps == 1:
+            kern = lambda: ch.jacobi7_halo_cuda(a, sl, org, hot, cold, r,
+                                                interior_len_zy=lens, out=b)
+            plain = lambda: ch.jacobi7_halo_plain(a, sl, org, hot, cold, r,
+                                                  lens)
+        else:
+            kern = lambda: ch.jacobi7_halon_cuda(a, sl, org, gsize, hot, cold,
+                                                 r, steps=2, out=b)
+            plain = lambda: ch.jacobi7_halon_plain(a, sl, org, gsize, hot,
+                                                   cold, r, steps=2)
+        # the shard read once and written once, and of the slabs only
+        # the rows the kernel reads: r = steps rows of each z slab, and r
+        # columns of each y slab over its Zs rows (Z + 2r when it is
+        # z-extended); 7 flops a point a step
+        Z, Y, X = a.shape
+        zs = Z + 2 * steps if kw.get("y_z_extended") else Z
+        nbytes = 4 * (2 * Z * Y * X + 2 * steps * Y * X + 2 * zs * steps * X)
+        ms = event_ms(torch, kern, reps=20)
+        plain_ms = event_ms(torch, plain, reps=3, warmup=1)
+        bms, by = bound_ms(nbytes, 7 * steps * pts)
+        kernels[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": None}
+        log(f"  {name}: {ms!r} ms/launch, bound {bms!r} ms ({by}), "
+            f"{100 * bms / ms:.1f}% of bound; plain twin {plain_ms!r} ms")
+        del a, b, sl
+        torch.cuda.empty_cache()
+    # B6 on one shard of the (1,2,2) mesh, for the split of that path's
+    # time
+    (a,), (sl,), (org,), _, (hot, cold, r), gsize = halo_case(
+        torch, gen, (n, n // 2, n // 2), (1, 1, 1),
+        dict(rz=2, ry=2, radius_rows=2, y_z_extended=True))
+    b = torch.empty_like(a)
+    res["halon_quarter_shard_ms"] = event_ms(
+        torch, lambda: ch.jacobi7_halon_cuda(a, sl, org, gsize, hot, cold, r,
+                                             steps=2, out=b), reps=20)
+    log(f"  jacobi7_halon on a 512 x 256 x 256 shard: "
+        f"{res['halon_quarter_shard_ms']!r} ms/launch")
+    del a, b, sl
+    torch.cuda.empty_cache()
+    res["kernels"] = kernels
+    return res
+
 
 EPS32 = 2.0 ** -23
 
@@ -668,6 +952,10 @@ KERNEL_META = {
                       "stencil_tpu/ops/pallas_stencil.py:246"),
     "jacobi7_padded": ("K3", "stencil_tpu_torch/csrc/jacobi7.cu",
                        "stencil_tpu/ops/pallas_stencil.py:72"),
+    "jacobi7_halo": ("B5", "stencil_tpu_torch/csrc/jacobi_halo.cu",
+                     "stencil_tpu/ops/pallas_halo.py:115"),
+    "jacobi7_halon": ("B6", "stencil_tpu_torch/csrc/jacobi_halo.cu",
+                      "stencil_tpu/ops/pallas_halo.py:317"),
     "laplace6": ("B8", "stencil_tpu_torch/csrc/laplace6.cu",
                  "stencil_tpu/ops/pallas_stencil.py:432"),
     "mhd_substep_wrap": ("B9", "stencil_tpu_torch/csrc/mhd.cu",
@@ -694,6 +982,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from stencil_tpu_torch.ops import _build
+    from stencil_tpu_torch.ops import cuda_halo as ch
     from stencil_tpu_torch.ops import cuda_mhd as cm
     from stencil_tpu_torch.ops import cuda_stencil as cs
 
@@ -706,14 +995,18 @@ def main() -> int:
     # phase 3: kernels vs twins
     log("phase 3: kernels vs plain twins")
     worst = compare_kernels(torch, cs)
+    worst.update(compare_halo_kernels(torch, ch))
     worst.update(compare_mhd_kernels(torch, cs, cm))
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
     main_path = run_main_path(torch, cs)
+    log("phase 4: Jacobi3D halo path on meshes of shards on one card")
+    halo_path = run_halo_path(torch, cs, ch)
     log("phase 4: Astaroth 256^3 float32 main path")
     mhd_path = run_astaroth(torch, cs, cm)
     launches = dict(main_path["launches"])
+    launches.update(halo_path["launches"])
     for name, n in mhd_path["launches"].items():
         launches[name] = launches.get(name, 0) + n
 
@@ -725,12 +1018,14 @@ def main() -> int:
            "xla": steps_per_s(torch, "xla", 6)}
     for path, v in sps.items():
         log(f"  Jacobi {path}: {v!r} steps/s")
+    halo_times = time_halo(torch, ch)
     ips = {"wrap": iters_per_s(torch, "wrap", 20),
            "wrap+pair": iters_per_s(torch, "wrap", 10, pair="1"),
            "xla": iters_per_s(torch, "xla", 3)}
     for path, v in ips.items():
         log(f"  Astaroth {path}: {v!r} iterations/s")
     times = time_kernels(torch, cs)
+    times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
 
     kernels = []
@@ -751,7 +1046,12 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "steps_per_s_512": sps, "iters_per_s_256": ips,
-                   "main_path": main_path, "astaroth_path": mhd_path,
+                   "halo_steps_per_s_512": halo_times["steps_per_s"],
+                   "halo_slab_exchange_ms": halo_times["slab_exchange_ms"],
+                   "halon_quarter_shard_ms":
+                       halo_times["halon_quarter_shard_ms"],
+                   "main_path": main_path, "halo_path": halo_path,
+                   "astaroth_path": mhd_path,
                    "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

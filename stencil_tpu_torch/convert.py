@@ -7,7 +7,9 @@ the grid size); Astaroth's is 8 fields plus the 8 RK3 accumulators
 from ``DistributedDomain.interior_to_host`` or ``Astaroth.field``, or a
 (1,1,1) domain's padded shard (``np.asarray(dd.curr[name])``) — and
 ``field_from_jax`` turns it into the port's halo-padded tensor on a
-device; ``astaroth_state_from_jax`` does so for a whole MHD state.
+device; ``interior_from_jax`` checks a global interior for
+``DistributedDomain.set_interior``, which scatters it into the shards
+of any mesh; ``astaroth_state_from_jax`` does so for a whole MHD state.
 Nothing here imports JAX: the two packages meet only in numpy arrays.
 """
 
@@ -53,6 +55,18 @@ def field_from_jax(arr: np.ndarray, radius: Radius, layout: str = "padded",
                       device=dev)
     out[interior_slices(size, radius)].copy_(host)
     return out
+
+
+def interior_from_jax(arr: np.ndarray,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A global (z,y,x) interior as a host tensor (a copy), for
+    ``DistributedDomain.set_interior``; ``dtype`` (default: ``arr``'s)
+    must match ``arr``'s exactly — the state is carried bit for bit."""
+    arr = np.asarray(arr)
+    if dtype is not None and torch_dtype(dtype) != torch_dtype(arr.dtype):
+        raise TypeError(f"field dtype {arr.dtype} does not match "
+                        f"{dtype}; convert explicitly before loading")
+    return torch.tensor(arr)
 
 
 def astaroth_state_from_jax(fields: Dict[str, np.ndarray],

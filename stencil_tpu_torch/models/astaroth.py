@@ -41,7 +41,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..distributed import DeviceLike, DistributedDomain, torch_dtype
+from ..distributed import (DeviceLike, DistributedDomain, resolve_device,
+                           torch_dtype)
 from ..geometry import Dim3, Radius
 from ..local_domain import zyx_shape
 from ..ops.fd6 import RADIUS, FieldData, const
@@ -244,7 +245,8 @@ class Astaroth:
                 f"dtype {self._dtype}: bfloat16 storage (f32 compute) is "
                 f"ROADMAP A8b; this slice runs float32 and float64")
         self.prm = params or MhdParams()
-        self.dd = DistributedDomain(nx, ny, nz, device=device)
+        # one device: the MHD mesh paths are a later slice (ROADMAP A8c)
+        self.dd = DistributedDomain(nx, ny, nz, device=resolve_device(device))
         self.dd.set_radius(Radius.constant(RADIUS))
         for q in FIELDS:
             self.dd.add_data(q, self._dtype)
@@ -289,7 +291,7 @@ class Astaroth:
                                              dtype=self._dtype)
         self._inner = None
         for q in FIELDS:
-            self.dd.curr[q].copy_(padded[q])
+            self.dd.curr[q][0].copy_(padded[q])
         self._w = wt
 
     # -- path selection -------------------------------------------------
@@ -353,7 +355,7 @@ class Astaroth:
         pad_lo = dd.radius.pad_lo()
         inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
         dd.exchange()
-        data = {q: FieldData(dd.curr[q].to(comp), inv_ds, pad_lo, dd.size)
+        data = {q: FieldData(dd.curr[q][0].to(comp), inv_ds, pad_lo, dd.size)
                 for q in FIELDS}
         rates = mhd_rates(data, prm, comp)
         alpha = const(RK3_ALPHA[s], comp)

@@ -1,4 +1,4 @@
-"""Jacobi-3D heat solver on one GPU.
+"""Jacobi-3D heat solver over a mesh of shards.
 
 PyTorch-port counterpart of ``stencil_tpu/models/jacobi.py`` (reference:
 bin/jacobi3d.cu): a 7-point Jacobi relaxation over a periodic global
@@ -6,35 +6,54 @@ grid with a hot sphere (T=1) at x/3 and a cold sphere (T=0) at 2x/3,
 each of radius x/10, re-imposed every iteration; everything else
 starts at the mean temperature 0.5.
 
-Compute paths (``kernel=``), as in the JAX model:
+The grid is split over a mesh of shards (``mesh_shape``, ``devices``;
+see ``distributed.py``). Compute paths (``kernel=``), as in the JAX
+model:
 
-* ``wrap`` — the single-device fast path: the periodic wrap inside the
+* ``wrap`` — the one-shard fast path: the periodic wrap inside the
   kernel, no halo storage, no exchange. Iterations run in groups of N
   through K2 (``jacobi7_wrapn_cuda``) with a single-step tail through K1
-  (``jacobi7_wrap_cuda``).
-* ``pallas`` — exchange into the padded field, then K3
-  (``jacobi7_padded_cuda``), sources, write-back.
+  (``jacobi7_wrap_cuda``). Needs a (1,1,1) mesh.
+* ``halo`` — the multi-shard fast path on any x-unsharded mesh,
+  (1,1,1) included: each shard's interior stays resident, and every
+  group of steps first exchanges the interior slabs of all shards
+  (``exchange_interior_slabs``), then launches one kernel per shard:
+  B6 (``jacobi7_halon_cuda``, N steps on radius-N slabs) for
+  ``n // N`` groups and B5 (``jacobi7_halo_cuda``, one step) for the
+  tail — or B5 every step where JAX's planner declines the N-step
+  blocking (``ops/halo_plan.py``), e.g. on uneven grids.
+* ``pallas`` — exchange into the padded shards, then K3
+  (``jacobi7_padded_cuda``) per shard, sources, write-back.
 * ``xla`` — exchange, the plain PyTorch stencil (``ops/stencil_kernels``),
   sources, write-back: the port's reference path; no kernel.
-* ``auto`` — ``wrap`` on a CUDA device when the grid allows it, else
-  ``xla`` (on the CPU too, as the JAX model picks ``xla`` off-TPU).
+* ``auto`` — on CUDA devices, JAX's on-TPU choice: ``wrap`` on a
+  (1,1,1) mesh, else ``halo`` when x is unsharded, else ``xla`` (a
+  kernel path only for float32); on the CPU ``xla``, as the JAX model
+  picks it off-TPU.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..distributed import DeviceLike, DistributedDomain, torch_dtype
-from ..geometry import Dim3, Radius
+from ..geometry import Dim3, Dim3Like, Radius
+from ..ops.cuda_halo import jacobi7_halo_cuda, jacobi7_halon_cuda
 from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, impose_spheres,
                                 jacobi7_padded_cuda, jacobi7_wrap_cuda,
                                 jacobi7_wrapn_cuda, sublane_tile)
+from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import jacobi7, write_interior
-from ..parallel.exchange import shard_origin
+from ..parallel.exchange import (exchange_interior_slabs, exchange_shard,
+                                 interior_slab_bytes, shard_interior_len,
+                                 shard_origin)
+from ..parallel.mesh import mesh_index
+from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import wrap2_disabled
 from ..utils.logging import LOG_INFO, LOG_WARN
@@ -50,7 +69,7 @@ def sphere_geometry(gsize: Dim3):
     return hot, cold, gsize.x // 10
 
 
-def _apply_sources(new: torch.Tensor, origin_xyz, local: Dim3, hot_c: Dim3,
+def _apply_sources(new: torch.Tensor, origin_xyz, hot_c: Dim3,
                    cold_c: Dim3, sph_r: int) -> torch.Tensor:
     """Re-impose the Dirichlet hot/cold spheres on a shard's interior
     whose global origin is ``origin_xyz`` (reference:
@@ -59,30 +78,33 @@ def _apply_sources(new: torch.Tensor, origin_xyz, local: Dim3, hot_c: Dim3,
     return impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox))
 
 
-def jacobi_shard_step(p: torch.Tensor, radius: Radius, local: Dim3,
-                      gsize: Dim3, origin_xyz, kernel: str = "xla",
-                      nonperiodic: bool = False) -> torch.Tensor:
-    """One Jacobi step on one padded shard: exchange + 7-point update +
-    Dirichlet sphere sources, updating ``p`` in place (the JAX version
-    returns a new array). ``kernel``: "xla" (plain PyTorch) or "pallas"
-    (K3, ``jacobi7_padded_cuda``)."""
-    from ..parallel.exchange import exchange_shard
-
+def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
+                      counts: Dim3, local: Dim3, gsize: Dim3,
+                      kernel: str = "xla", rem: Dim3 = Dim3(0, 0, 0),
+                      nonperiodic: bool = False) -> None:
+    """One Jacobi step on the padded shards of a mesh (x fastest):
+    exchange, then per shard the 7-point update of its capacity interior
+    plus the Dirichlet sphere sources at its own origin, written back in
+    place (the JAX version runs one shard under ``shard_map`` and returns
+    a new array). ``kernel``: "xla" (plain PyTorch) or "pallas" (K3,
+    ``jacobi7_padded_cuda``)."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
-    exchange_shard(p, radius, nonperiodic=nonperiodic)
-    if kernel == "pallas":
-        new = jacobi7_padded_cuda(p, radius, local)
-    else:
-        new = jacobi7(p, radius, local)
-    new = _apply_sources(new, origin_xyz, local, hot_c, cold_c, sph_r)
-    return write_interior(p, new, radius)
+    exchange_shard(shards, radius, counts, rem=rem, nonperiodic=nonperiodic)
+    for i, p in enumerate(shards):
+        if kernel == "pallas":
+            new = jacobi7_padded_cuda(p, radius, local)
+        else:
+            new = jacobi7(p, radius, local)
+        origin = shard_origin(local, rem, mesh_index(i, counts))
+        new = _apply_sources(new, origin, hot_c, cold_c, sph_r)
+        write_interior(p, new, radius)
 
 
 def _wrap_steps(tile: int) -> int:
-    """Temporal-blocking depth of the wrap path, as in the JAX model:
-    STENCIL_WRAP_STEPS (default 2), clamped to [1, tile] — the TPU's
-    sublane tile, kept so that both packages group the same steps the
-    same way."""
+    """Temporal-blocking depth of the wrap and halo paths, as in the JAX
+    model: STENCIL_WRAP_STEPS (default 2), clamped to [1, tile] — the
+    TPU's sublane tile, kept so that both packages group the same steps
+    the same way."""
     try:
         n = int(os.environ.get("STENCIL_WRAP_STEPS", "2") or 2)
     except ValueError:
@@ -92,18 +114,32 @@ def _wrap_steps(tile: int) -> int:
 
 
 class Jacobi3D:
-    """Jacobi-3D solver on one device."""
+    """Jacobi-3D solver over a mesh of shards (one device by default:
+    ``device=``; a mesh: ``mesh_shape=`` and ``devices=``)."""
 
     def __init__(self, x: int, y: int, z: int, dtype=torch.float32,
                  kernel: str = "auto", boundary: Optional[Boundary] = None,
-                 device: DeviceLike = None) -> None:
-        if kernel not in ("auto", "wrap", "xla", "pallas"):
+                 device: DeviceLike = None,
+                 mesh_shape: Optional[Dim3Like] = None,
+                 devices: Optional[Sequence] = None) -> None:
+        if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
-                f"kernel must be auto|wrap|xla|pallas, got {kernel!r}")
-        self.dd = DistributedDomain(x, y, z, device=device)
+                f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
+        self.dd = DistributedDomain(x, y, z, device=device, devices=devices)
         self.dd.set_radius(1)
         if boundary is not None:
             self.dd.set_boundary(boundary)
+        devs = self.dd._devices
+        on_gpu = all(d.type == "cuda" for d in devs)
+        if mesh_shape is not None:
+            self.dd.set_mesh_shape(mesh_shape)
+        elif len(devs) > 1 and (kernel == "halo"
+                                or (kernel == "auto" and on_gpu)):
+            # prefer an x-unsharded decomposition so the halo path is
+            # available (models/jacobi.py:329-341 of the JAX package)
+            shape = partition_dims_even_xfree(Dim3(x, y, z), len(devs))
+            if shape is not None:
+                self.dd.set_mesh_shape(shape)
         self._dtype = torch_dtype(dtype)
         self.dd.add_data("temp", self._dtype)
         self.dd.realize()
@@ -112,49 +148,88 @@ class Jacobi3D:
 
     # -- initial conditions (reference: bin/jacobi3d.cu:18-27) ---------
     def init(self) -> None:
-        self.dd.curr["temp"].zero_()
-        self.dd.interior("temp").fill_((HOT_TEMP + COLD_TEMP) / 2)
+        for i, p in enumerate(self.dd.curr["temp"]):
+            p.zero_()
+            self.dd.interior("temp", i).fill_((HOT_TEMP + COLD_TEMP) / 2)
 
     def load_interior(self, values: np.ndarray) -> None:
         """Start from a given global (z,y,x) interior — for instance
-        ``interior_to_host`` of a JAX solver (see ``convert.py``)."""
-        from ..convert import field_from_jax
+        ``interior_to_host`` of a JAX solver (see ``convert.py``) —
+        scattered into the shards; halos are zeroed."""
+        from ..convert import interior_from_jax
 
-        self.dd.curr["temp"].copy_(field_from_jax(
-            np.asarray(values), self.dd.radius, layout="interior",
-            device=self.dd.device, dtype=self._dtype))
+        self.dd.set_interior("temp", interior_from_jax(values, self._dtype))
 
     # -- path selection -------------------------------------------------
     def _build_step(self) -> None:
         dd = self.dd
         radius = dd.radius
+        counts = dd.mesh_counts
         nonper = dd.boundary == Boundary.NONE
         radius_ok = all(radius.face(a, s) == 1
                         for a in range(3) for s in (-1, 1))
-        # the JAX model's wrap_ok (models/jacobi.py:474-476) on a
-        # one-device mesh with no overlap and no temporal depths; the
-        # port's kernels take float32 only in this slice, so ``auto``
-        # picks them only for a float32 domain
+        # the JAX model's wrap_ok / halo_ok (models/jacobi.py:474-483)
+        # with no overlap, wire formats or temporal depths; the port's
+        # kernels take float32 only, so ``auto`` picks them only for a
+        # float32 domain
         f32 = self._dtype == torch.float32
-        wrap_ok = radius_ok and not nonper
+        wrap_ok = (counts == Dim3(1, 1, 1) and dd.rem == Dim3(0, 0, 0)
+                   and radius_ok and not nonper)
+        halo_ok = counts.x == 1 and radius_ok and not nonper
         kernel = self._kernel
         if kernel == "auto":
-            on_gpu = dd.device.type == "cuda"
-            kernel = "wrap" if (on_gpu and wrap_ok and f32) else "xla"
+            on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
+            kernel = ("xla" if not (on_gpu and f32) else "wrap" if wrap_ok
+                      else "halo" if halo_ok else "xla")
             LOG_INFO(f"jacobi kernel path: {kernel}")
-        if kernel in ("wrap", "pallas") and not f32:
+        if kernel in ("wrap", "halo", "pallas") and not f32:
             raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
                             f"float32 only, got {self._dtype}; use "
                             f"kernel='xla'")
+        tile = sublane_tile(self._dtype)
         if kernel == "wrap":
             if not wrap_ok:
-                raise ValueError("kernel='wrap' needs radius 1 and "
-                                 "periodic boundaries")
-            tile = sublane_tile(self._dtype)
+                raise ValueError("kernel='wrap' needs a (1,1,1) mesh, "
+                                 "radius 1 and periodic boundaries")
             self._wrap_n = _wrap_steps(tile)
             self._pair_ok = (dd.size.y % tile == 0 and self._wrap_n > 1
                              and not wrap2_disabled())
+        if kernel == "halo":
+            if not halo_ok:
+                raise ValueError("kernel='halo' needs an x-unsharded mesh, "
+                                 "radius 1 and periodic boundaries")
+            self._build_halo_step(tile)
         self.kernel_path = kernel
+
+    def _build_halo_step(self, tile: int) -> None:
+        """JAX's ``_build_halo_step`` rules (models/jacobi.py:838-878):
+        N-step groups when the grid divides evenly, the shard's y extent
+        is a multiple of the sublane tile, N > 1 and the JAX planner
+        finds a blocking; the single-step kernel otherwise."""
+        local = self.dd.local_size
+        self._halo_n = N = _wrap_steps(tile)
+        pair_ok = (self.dd.rem == Dim3(0, 0, 0) and N > 1
+                   and local.y % tile == 0 and not wrap2_disabled())
+        if pair_ok:
+            refusal = pair_halo_refusal(
+                local.z, local.y, local.x,
+                torch.empty((), dtype=self._dtype).element_size(), N)
+            if refusal is not None:
+                LOG_WARN(f"halo temporal blocking declined: {refusal}")
+                pair_ok = False
+        if pair_ok:
+            LOG_INFO(f"jacobi halo path: {N}-step temporal blocking")
+        self._halo_pair_ok = pair_ok
+        # one radius-N z-extended exchange per N iterations, or one
+        # radius-1 exchange per iteration. The slabs are exactly the rows
+        # that cross (rz = ry = radius_rows): the kernels read no more,
+        # and the JAX package's wider y slabs (ry = the sublane tile) are
+        # a TPU layout that would only add zero filler here
+        self._slab_exchange_cfg = (
+            dict(rz=N, ry=N, radius_rows=N, y_z_extended=True,
+                 per_iter_div=N) if pair_ok
+            else dict(rz=1, ry=1, radius_rows=1, y_z_extended=False,
+                      per_iter_div=1))
 
     # -- stepping -------------------------------------------------------
     def step(self) -> None:
@@ -162,21 +237,23 @@ class Jacobi3D:
         self.run(1)
 
     def run(self, iters: int) -> None:
-        """``iters`` iterations. On the wrap path: ``iters // N`` K2
-        launches, then ``iters % N`` K1 launches (the JAX model's
-        grouping, models/jacobi.py:688-709)."""
+        """``iters`` iterations. On the wrap and halo paths: ``iters //
+        N`` N-step launches, then ``iters % N`` single-step launches (the
+        JAX model's grouping, models/jacobi.py:688-709, :880-903)."""
         iters = int(iters)
         if iters <= 0:
             return
         if self.kernel_path == "wrap":
             self._run_wrap(iters)
             return
+        if self.kernel_path == "halo":
+            self._run_halo(iters)
+            return
         dd = self.dd
-        p = dd.curr["temp"]
-        origin = shard_origin(dd.local_size, dd.rem)
         for _ in range(iters):
-            jacobi_shard_step(p, dd.radius, dd.local_size, dd.size, origin,
-                              kernel=self.kernel_path,
+            jacobi_shard_step(dd.curr["temp"], dd.radius, dd.mesh_counts,
+                              dd.local_size, dd.size,
+                              kernel=self.kernel_path, rem=dd.rem,
                               nonperiodic=dd.boundary == Boundary.NONE)
 
     def _run_wrap(self, n: int) -> None:
@@ -201,6 +278,53 @@ class Jacobi3D:
             a, b = b, a
         self.dd.interior("temp").copy_(a)
 
+    def _capacity_slices(self) -> Tuple[slice, slice, slice]:
+        lo = self.dd.alloc_radius.pad_lo()
+        c = self.dd.local_size
+        return (slice(lo.z, lo.z + c.z), slice(lo.y, lo.y + c.y),
+                slice(lo.x, lo.x + c.x))
+
+    def _run_halo(self, n: int) -> None:
+        """Slice each shard's capacity interior (a short shard's dead
+        row and column included, as JAX keeps them) into a contiguous
+        tensor once, run the groups — every group exchanges the slabs of
+        ALL shards before any kernel writes, and the kernels write into
+        the second buffer of each ping-pong pair —, and write each
+        interior back once; the halos go stale."""
+        dd = self.dd
+        counts, rem, local = dd.mesh_counts, dd.rem, dd.local_size
+        hot, cold, sph_r = sphere_geometry(dd.size)
+        gsize = (dd.size.z, dd.size.y, dd.size.x)
+        cap = self._capacity_slices()
+        a = [p[cap].contiguous() for p in dd.curr["temp"]]
+        b = [torch.empty_like(t) for t in a]
+        orgs, lens = [], []
+        for i in range(len(a)):
+            idx = dd.shard_index(i)
+            ox, oy, oz = shard_origin(local, rem, idx)
+            orgs.append((oz, oy, ox))
+            lens.append((shard_interior_len(2, local.z, rem, idx.z),
+                         shard_interior_len(1, local.y, rem, idx.y)))
+        N = self._halo_n
+        tail = n
+        if self._halo_pair_ok:
+            for _ in range(n // N):
+                slabs = exchange_interior_slabs(a, counts, rz=N, ry=N,
+                                                y_z_extended=True)
+                for i in range(len(a)):
+                    jacobi7_halon_cuda(a[i], slabs[i], orgs[i], gsize, hot,
+                                       cold, sph_r, steps=N, out=b[i])
+                a, b = b, a
+            tail = n % N
+        for _ in range(tail):
+            slabs = exchange_interior_slabs(a, counts, rz=1, ry=1, rem=rem)
+            for i in range(len(a)):
+                jacobi7_halo_cuda(a[i], slabs[i], orgs[i], hot, cold, sph_r,
+                                  interior_len_zy=lens[i], out=b[i])
+            a, b = b, a
+        for p, t in zip(dd.curr["temp"], a):
+            p[cap].copy_(t)
+
     def block(self) -> None:
         device_sync(self.dd.curr["temp"])
 
@@ -209,30 +333,75 @@ class Jacobi3D:
         return self.dd.interior_to_host("temp")
 
     def exchange_stats(self) -> dict:
-        """Per-iteration exchange accounting of the built path: the wrap
-        path has no exchange; the padded paths exchange once a step, and
-        on one device that moves 0 bytes between devices."""
-        if self.kernel_path == "wrap":
-            return {"path": "wrap", "bytes_per_iteration": 0,
+        """Per-iteration exchange accounting of the built path (JAX's,
+        models/jacobi.py:950-993): bytes that cross between shards per
+        iteration, whole mesh, and exchange rounds per iteration. The
+        wrap path has none; the halo path counts its slab transfers
+        (``interior_slab_bytes``) over its group length; the padded paths
+        exchange once a step."""
+        path = self.kernel_path
+        if path == "wrap":
+            return {"path": path, "bytes_per_iteration": 0,
                     "rounds_per_iteration": 0.0}
-        return {"path": self.kernel_path,
+        counts = self.dd.mesh_counts
+        if path == "halo":
+            cfg = self._slab_exchange_cfg
+            local = self.dd.local_size
+            per_shard = interior_slab_bytes(
+                (local.z, local.y, local.x), counts, cfg["radius_rows"],
+                torch.empty((), dtype=self._dtype).element_size(),
+                cfg["y_z_extended"])
+            return {"path": path,
+                    "bytes_per_iteration":
+                        per_shard * counts.flatten() / cfg["per_iter_div"],
+                    "rounds_per_iteration": 1.0 / cfg["per_iter_div"]}
+        return {"path": path,
                 "bytes_per_iteration":
-                    self.dd.exchange_bytes_amortized_per_step(),
+                    float(self.dd.exchange_bytes_amortized_per_step()),
                 "rounds_per_iteration": 1.0}
 
     def measure_exchange_seconds(self, reps: int = 10) -> float:
-        """Seconds per ``dd.exchange()`` on the padded paths (0.0 on the
-        wrap path, which has no exchange)."""
-        import time
-
-        if self.kernel_path == "wrap":
+        """Exchange seconds per ITERATION of the built path: the halo
+        path's slab exchange of one group (timed on zero shards) over
+        its group length, or one ``dd.exchange()`` on the padded paths;
+        0.0 on the wrap path, which has no exchange."""
+        path = self.kernel_path
+        if path == "wrap":
             return 0.0
+        if path == "halo":
+            cfg = self._slab_exchange_cfg
+            return self.slab_exchange_seconds(reps) / cfg["per_iter_div"]
         self.dd.exchange()
         self.block()
         t0 = time.perf_counter()
         for _ in range(reps):
             self.dd.exchange()
         self.block()
+        return (time.perf_counter() - t0) / reps
+
+    def slab_exchange_seconds(self, reps: int = 10) -> float:
+        """Seconds of one ``exchange_interior_slabs`` round of the halo
+        path's group configuration over all shards, on capacity-sized
+        zero shards (the state is not touched)."""
+        cfg = self._slab_exchange_cfg
+        dd = self.dd
+        c = dd.local_size
+        shards = [torch.zeros((c.z, c.y, c.x), dtype=self._dtype, device=d)
+                  for d in dd.mesh.devices]
+        rem = Dim3(0, 0, 0) if cfg["y_z_extended"] else dd.rem
+
+        def once() -> List:
+            return exchange_interior_slabs(
+                shards, dd.mesh_counts, rz=cfg["rz"], ry=cfg["ry"],
+                radius_rows=cfg["radius_rows"],
+                y_z_extended=cfg["y_z_extended"], rem=rem)
+
+        once()
+        device_sync(shards)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = once()
+        device_sync([s["yhi"] for s in out])
         return (time.perf_counter() - t0) / reps
 
 

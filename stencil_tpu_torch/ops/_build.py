@@ -119,17 +119,21 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, fn_name: str, argtypes, *args) -> None:
-    """Call the launcher ``fn_name`` of library ``name`` with ``args``
-    and PyTorch's current CUDA stream as the last argument; raise if it
-    returns a CUDA error (a refused launch never runs, and no later
-    synchronize would report it)."""
+def launch(name: str, fn_name: str, argtypes, device, *args) -> None:
+    """Call the launcher ``fn_name`` of library ``name`` with ``args`` on
+    ``device``, the CUDA device that holds the launch's tensors: with it
+    as the current device and its current PyTorch stream as the last
+    argument, so that the kernel is ordered after the work PyTorch
+    queued on that device (and a copy from another device waits for it).
+    Raise if the launcher returns a CUDA error (a refused launch never
+    runs, and no later synchronize would report it)."""
     import torch
 
     fn = getattr(load(name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int   # cudaError_t
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

@@ -263,10 +263,10 @@ def _check_cuda(f0: torch.Tensor, tensors, what: str) -> None:
         raise ValueError(f"{what}: tensors must be contiguous")
 
 
-def _launch(fn_name: str, *args) -> None:
+def _launch(fn_name: str, device: torch.device, *args) -> None:
     from . import _build
 
-    _build.launch(_LIB, fn_name, _SIGNATURES[fn_name], *args)
+    _build.launch(_LIB, fn_name, _SIGNATURES[fn_name], device, *args)
 
 
 def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
@@ -298,8 +298,8 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs(w_in) if w_in else None
     p_wo = _ptrs([out_w[q] for q in FIELDS]) if write_w else None
-    _launch("mhd_substep_wrap_launch", p_in, p_w, p_f, p_wo, Z, Y, X,
-            consts.ctypes.data, consts.size)
+    _launch("mhd_substep_wrap_launch", f0.device, p_in, p_w, p_f, p_wo,
+            Z, Y, X, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep_wrap"] += 1
     return out_f, out_w
 
@@ -324,7 +324,7 @@ def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float
     consts = kernel_consts(prm, dt_phys)
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs([out_w[q] for q in FIELDS])
-    _launch("mhd_substep01_wrap_launch", p_in, p_f, p_w, Z, Y, X,
-            consts.ctypes.data, consts.size)
+    _launch("mhd_substep01_wrap_launch", f0.device, p_in, p_f, p_w,
+            Z, Y, X, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep01_wrap"] += 1
     return out_f, out_w

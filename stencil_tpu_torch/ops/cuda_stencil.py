@@ -72,15 +72,21 @@ def sublane_tile(dtype: torch.dtype) -> int:
 # ---------------------------------------------------------------------------
 def impose_spheres(vals: torch.Tensor, hot_c: Tuple[int, int, int],
                    cold_c: Tuple[int, int, int], sph_r: int,
-                   origin_zyx: Tuple[int, int, int] = (0, 0, 0)
+                   origin_zyx: Tuple[int, int, int] = (0, 0, 0),
+                   period_zyx: Optional[Tuple[int, int, int]] = None
                    ) -> torch.Tensor:
     """Re-impose the Dirichlet spheres on a (Z, Y, X) block whose
     global origin is ``origin_zyx``: hot (1) first, then cold (0), which
     wins where the two overlap (reference: bin/jacobi3d.cu:40-63).
-    ``hot_c``/``cold_c`` are (cx, cy, cz)."""
+    ``hot_c``/``cold_c`` are (cx, cy, cz). ``period_zyx``: wrap the
+    coordinates modulo the global grid first (floor modulo, so a ring
+    cell at a negative coordinate wraps to the top), as the N-step halo
+    kernel's ring cells need (pallas_halo.py:388-402)."""
     dev = vals.device
     gz, gy, gx = (o + torch.arange(n, device=dev, dtype=torch.int32)
                   for n, o in zip(vals.shape, origin_zyx))
+    if period_zyx is not None:
+        gz, gy, gx = (g % p for g, p in zip((gz, gy, gx), period_zyx))
     r2 = sph_r * sph_r
     for (cx, cy, cz), temp in ((hot_c, HOT_TEMP), (cold_c, COLD_TEMP)):
         d2 = (((gz - cz) ** 2)[:, None, None] + ((gy - cy) ** 2)[None, :, None]
@@ -187,10 +193,11 @@ _SIGNATURES = {
 }
 
 
-def _launch(fn_name: str, *args, lib_name: str = _LIB) -> None:
+def _launch(fn_name: str, device: torch.device, *args,
+            lib_name: str = _LIB) -> None:
     from . import _build
 
-    _build.launch(lib_name, fn_name, _SIGNATURES[fn_name], *args)
+    _build.launch(lib_name, fn_name, _SIGNATURES[fn_name], device, *args)
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -239,8 +246,8 @@ def jacobi7_wrap_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
         return out.copy_(jacobi7_wrap_plain(interior, hot_c, cold_c, sph_r))
     _check_cuda(interior, what)
     Z, Y, X = interior.shape
-    _launch("jacobi7_wrap_launch", interior.data_ptr(), out.data_ptr(),
-            Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r))
+    _launch("jacobi7_wrap_launch", interior.device, interior.data_ptr(),
+            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r))
     LAUNCHES["jacobi7_wrap"] += 1
     return out
 
@@ -266,8 +273,8 @@ def jacobi7_wrapn_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
         return out.copy_(jacobi7_wrapn_plain(interior, hot_c, cold_c, sph_r,
                                              steps=N))
     _check_cuda(interior, what)
-    _launch("jacobi7_wrapn_launch", interior.data_ptr(), out.data_ptr(),
-            Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r), N)
+    _launch("jacobi7_wrapn_launch", interior.device, interior.data_ptr(),
+            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r), N)
     LAUNCHES["jacobi7_wrapn"] += 1
     return out
 
@@ -292,8 +299,8 @@ def jacobi7_padded_cuda(padded: torch.Tensor, radius: Radius,
     if padded.device.type == "cpu":
         return out.copy_(jacobi7_padded_plain(padded, radius, interior))
     _check_cuda(padded, what)
-    _launch("jacobi7_padded_launch", padded.data_ptr(), out.data_ptr(),
-            Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x)
+    _launch("jacobi7_padded_launch", padded.device, padded.data_ptr(),
+            out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x)
     LAUNCHES["jacobi7_padded"] += 1
     return out
 
@@ -323,8 +330,8 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     _check(padded, what)
     _check_cuda(padded, what)
     ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv_ds)
-    _launch("laplace6_launch", padded.data_ptr(), out.data_ptr(),
-            Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x, ix2, iy2, iz2,
-            lib_name="laplace6")
+    _launch("laplace6_launch", padded.device, padded.data_ptr(),
+            out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x, ix2, iy2,
+            iz2, lib_name="laplace6")
     LAUNCHES["laplace6"] += 1
     return out

@@ -230,3 +230,179 @@ def test_astaroth_wrap_path_agrees_with_plain_path(cm, monkeypatch, pair):
         got, want = m.field(q), ref.field(q)
         assert np.isfinite(got).all(), q
         assert np.abs(got - want).max() <= 6 * 64 * EPS32 * np.abs(want).max(), q
+
+
+# ---------------------------------------------------------------------------
+# the halo path: B5/B6 (csrc/jacobi_halo.cu) on slabs of meshes of shards
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def ch(cs):
+    from stencil_tpu_torch.ops import cuda_halo
+
+    return cuda_halo
+
+
+def _halo_case(size_xyz, mesh, slab_kw, seed):
+    """Random capacity shards of a grid over a mesh on the card, their
+    slabs, and per shard its origin (z, y, x) and live (z, y) extents."""
+    from stencil_tpu_torch.parallel.exchange import (exchange_interior_slabs,
+                                                     shard_interior_len,
+                                                     shard_origin)
+    from stencil_tpu_torch.parallel.mesh import mesh_index
+
+    size, counts = Dim3(*size_xyz), Dim3(*mesh)
+    cap = Dim3(*(-(-size[a] // counts[a]) for a in range(3)))
+    rem = Dim3(*(size[a] % counts[a] for a in range(3)))
+    shards = [_rand((cap.z, cap.y, cap.x), seed + i)
+              for i in range(counts.flatten())]
+    kw = dict(slab_kw)
+    if not kw.get("y_z_extended"):
+        kw["rem"] = rem
+    slabs = exchange_interior_slabs(shards, counts, **kw)
+    meta = []
+    for i in range(len(shards)):
+        idx = mesh_index(i, counts)
+        ox, oy, oz = shard_origin(cap, rem, idx)
+        meta.append(((oz, oy, ox), (shard_interior_len(2, cap.z, rem, idx.z),
+                                    shard_interior_len(1, cap.y, rem, idx.y))))
+    X, Y, Z = size_xyz
+    spheres = (X // 3, Y // 2, Z // 2), (2 * X // 3, Y // 2, Z // 2), 3
+    return shards, slabs, meta, spheres, (Z, Y, X)
+
+
+@pytest.mark.parametrize("size,mesh,kw", [
+    ((7, 8, 5), (1, 1, 1), dict(rz=1, ry=8)),
+    ((13, 17, 9), (1, 2, 2), dict(rz=1, ry=1)),        # uneven y and z
+    ((33, 16, 11), (1, 2, 2), dict(rz=1, ry=8)),       # uneven z
+    ((33, 13, 9), (1, 1, 1), dict(rz=3, ry=8, radius_rows=1)),
+])
+def test_halo_kernel_equals_twin(ch, size, mesh, kw):
+    shards, slabs, meta, (hot, cold, r), _ = _halo_case(size, mesh, kw, 61)
+    before = ch.LAUNCHES["jacobi7_halo"]
+    for t, sl, (org, lens) in zip(shards, slabs, meta):
+        assert torch.equal(
+            ch.jacobi7_halo_cuda(t, sl, org, hot, cold, r,
+                                 interior_len_zy=lens),
+            ch.jacobi7_halo_plain(t, sl, org, hot, cold, r, lens))
+    assert ch.LAUNCHES["jacobi7_halo"] == before + len(shards)
+
+
+@pytest.mark.parametrize("steps,rz", [(1, 1), (2, 2), (2, 4), (3, 3), (8, 8)])
+@pytest.mark.parametrize("size,mesh", [((7, 16, 20), (1, 1, 1)),
+                                       ((33, 16, 24), (1, 2, 2)),
+                                       ((5, 40, 32), (1, 1, 4))])
+def test_halon_kernel_equals_twin(ch, size, mesh, steps, rz):
+    kw = dict(rz=rz, ry=8, radius_rows=steps, y_z_extended=True)
+    shards, slabs, meta, (hot, cold, r), gsize = _halo_case(size, mesh, kw, 62)
+    for t, sl, (org, _) in zip(shards, slabs, meta):
+        assert torch.equal(
+            ch.jacobi7_halon_cuda(t, sl, org, gsize, hot, cold, r,
+                                  steps=steps),
+            ch.jacobi7_halon_plain(t, sl, org, gsize, hot, cold, r,
+                                   steps=steps))
+
+
+def test_halo_wrappers_never_take_a_cuda_tensor_to_the_twin(ch):
+    shards, slabs, meta, (hot, cold, r), _ = _halo_case(
+        (8, 8, 8), (1, 1, 1), dict(rz=1, ry=8), 63)
+    t, sl = shards[0], slabs[0]
+    with pytest.raises(TypeError, match="float32"):
+        ch.jacobi7_halo_cuda(t.double(), {k: v.double() for k, v in sl.items()},
+                             meta[0][0], hot, cold, r)
+    with pytest.raises(ValueError, match="on"):
+        ch.jacobi7_halo_cuda(t, {k: v.cpu() for k, v in sl.items()},
+                             meta[0][0], hot, cold, r)
+
+
+@pytest.mark.parametrize("mesh", [(1, 1, 1), (1, 2, 2)])
+def test_halo_path_equals_wrap_path(ch, mesh):
+    """64^3, run(5): the halo path on one shard, and on four shards that
+    share the card, equals the wrap path bitwise; 2 B6 + 1 B5 launches
+    per shard."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    n = mesh[1] * mesh[2]
+    h = Jacobi3D(64, 64, 64, kernel="halo", mesh_shape=mesh,
+                 devices=["cuda:0"] * n)
+    w = Jacobi3D(64, 64, 64, kernel="wrap", device="cuda")
+    ch.reset_launch_counts()
+    for m in (h, w):
+        m.init()
+        m.run(5)
+    assert ch.LAUNCHES == {"jacobi7_halo": n, "jacobi7_halon": 2 * n}
+    np.testing.assert_array_equal(h.temperature(), w.temperature())
+
+
+# ---------------------------------------------------------------------------
+# shards on distinct cards: every kernel launches on its tensors' device
+# ---------------------------------------------------------------------------
+def test_kernels_launch_on_their_tensors_device_and_stream(ch, monkeypatch):
+    """Each launch asks for the current stream OF ITS TENSORS' DEVICE and
+    makes that device current, whatever device is current before it."""
+    seen = []
+    real = torch.cuda.current_stream
+
+    def spy(device=None):
+        seen.append((device, torch.cuda.current_device()))
+        return real(device)
+
+    monkeypatch.setattr(torch.cuda, "current_stream", spy)
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    t = _rand((8, 8, 8), 64).to(dev)
+    slabs = {k: v.to(dev) for k, v in
+             _halo_case((8, 8, 8), (1, 1, 1), dict(rz=1, ry=1), 64)[1][0]
+             .items()}
+    from stencil_tpu_torch.ops import cuda_stencil
+
+    with torch.cuda.device(0):
+        ch.jacobi7_halo_cuda(t, slabs, (0, 0, 0), (2, 4, 4), (5, 4, 4), 1)
+        cuda_stencil.jacobi7_wrap_cuda(t, (2, 4, 4), (5, 4, 4), 1)
+    assert seen == [(dev, dev.index)] * 2
+
+
+def _distinct_cards():
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    # shard 0 on the last card, so that the current device (0) is not
+    # the one that holds the first shard
+    return [f"cuda:{n - 1 - i % n}" for i in range(4)]
+
+
+@pytest.mark.parametrize("kernel,mesh", [("halo", (1, 2, 2)),
+                                         ("xla", (2, 2, 1)),
+                                         ("pallas", (2, 2, 1))])
+def test_paths_on_distinct_cards_equal_one_card(ch, kernel, mesh):
+    """128^3, run(9): four shards over distinct cards equal the same four
+    shards on one card bitwise (the same arithmetic; only the placement,
+    and so the cross-device copies and launches, differ)."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    devs = _distinct_cards()
+    runs = []
+    for devices in (devs, ["cuda:0"] * 4):
+        m = Jacobi3D(128, 128, 128, kernel=kernel, mesh_shape=mesh,
+                     devices=devices)
+        assert [d.index for d in m.dd.mesh.devices] == \
+            [torch.device(d).index for d in devices]
+        m.init()
+        m.run(9)
+        runs.append(m.temperature())
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+def test_default_devices_spread_the_halo_path_over_every_card(ch):
+    """With no device given, the solver takes every visible card, an
+    x-free mesh and the halo path; 256^3 run(21) equals the one-card
+    wrap path bitwise."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    _distinct_cards()
+    m = Jacobi3D(256, 256, 256)
+    assert m.kernel_path == "halo"
+    assert len(set(m.dd.mesh.devices)) == torch.cuda.device_count()
+    w = Jacobi3D(256, 256, 256, kernel="wrap", device="cuda:0")
+    for s in (m, w):
+        s.init()
+        s.run(21)
+    np.testing.assert_array_equal(m.temperature(), w.temperature())

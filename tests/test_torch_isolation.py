@@ -47,7 +47,8 @@ def test_imports_without_nvcc_or_jax():
             " stencil_tpu_torch.ops._build, stencil_tpu_torch.convert,"
             " stencil_tpu_torch.apps.jacobi3d, stencil_tpu_torch.ops.fd6,"
             " stencil_tpu_torch.ops.cuda_mhd, stencil_tpu_torch.models.astaroth,"
-            " stencil_tpu_torch.apps.astaroth;"
+            " stencil_tpu_torch.apps.astaroth, stencil_tpu_torch.ops.cuda_halo,"
+            " stencil_tpu_torch.parallel.mesh, stencil_tpu_torch.placement;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'stencil_tpu')];"
             " assert not bad, bad")
@@ -68,6 +69,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-    assert set(_build.sources()) == {"jacobi7", "laplace6", "mhd"}
+    assert set(_build.sources()) == {"jacobi7", "jacobi_halo", "laplace6",
+                                     "mhd"}
     assert os.path.basename(_build.library_path("jacobi7")).startswith(
         "libjacobi7-")

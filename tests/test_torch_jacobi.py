@@ -174,12 +174,12 @@ def test_exchange_fills_halos_like_jax(radius, boundary):
     pd.set_boundary(pb)
     pd.add_data("q", torch.float32)
     pd.realize()
-    assert tuple(pd.curr["q"].shape) == shape
-    pd.curr["q"].copy_(field_from_jax(vals, pr, layout="padded",
-                                      device="cpu"))
+    assert tuple(pd.curr["q"][0].shape) == shape
+    pd.curr["q"][0].copy_(field_from_jax(vals, pr, layout="padded",
+                                         device="cpu"))
     jd.exchange()
     pd.exchange()
-    np.testing.assert_array_equal(pd.curr["q"].numpy(),
+    np.testing.assert_array_equal(pd.curr["q"][0].numpy(),
                                   np.asarray(jd.curr["q"]))
     assert pd.exchange_bytes_per_axis() == jd.exchange_bytes_per_axis()
 

@@ -20,11 +20,12 @@ def reference_block_planner():
 
     ``jacobi7_wrap_pallas`` and ``jacobi7_wrapn_pallas`` choose their
     blocks through ``stencil_tpu.analysis.tiling``, whose package import
-    reads ``jax.core.Jaxpr`` and its siblings. Where jax no longer has
-    them there, lend the ``jax.extend.core`` objects for the duration,
-    then take them back and drop the analysis modules imported
-    meanwhile, so every other test sees the process as it was. The JAX
-    package itself is not touched."""
+    reads ``jax.core.Jaxpr`` and its siblings (``ops/pallas_halo.py``
+    imports it at module level). Where jax no longer has them there,
+    lend the ``jax.extend.core`` objects for the duration, then take them
+    back and drop every JAX-package module imported meanwhile, so every
+    other test sees the process as it was. The JAX package itself is not
+    touched."""
     import jax.core as jc
     import jax.extend.core as jec
 
@@ -40,13 +41,14 @@ def reference_block_planner():
         yield
     finally:
         if lent:
-            for mod in set(sys.modules) - before:
-                if mod.startswith("stencil_tpu.analysis"):
-                    del sys.modules[mod]
-            pkg = sys.modules.get("stencil_tpu")
-            if "stencil_tpu.analysis" not in before and pkg is not None \
-                    and "analysis" in vars(pkg):
-                delattr(pkg, "analysis")
+            for mod in sorted(set(sys.modules) - before, reverse=True):
+                if not mod.startswith("stencil_tpu."):
+                    continue
+                del sys.modules[mod]
+                parent, _, child = mod.rpartition(".")
+                pkg = sys.modules.get(parent)
+                if pkg is not None and child in vars(pkg):
+                    delattr(pkg, child)
             for name in lent:
                 delattr(jc, name)
 
