@@ -32,6 +32,14 @@ Phases, in order; any failure exits non-zero before the last line:
      Tolerance per field, for f and w: max |kernel - twin| <=
      64 * eps(f32) * max |twin| (the kernels' expf and PyTorch's exp
      differ by an ulp; every other operation is in the twin's order).
+   - B11 (mhd_substep_halo: every variant of s, w=None and write_w) and
+     B12 (mhd_substep01_halo) against their twins on the slabs of
+     ``exchange_interior_slabs``: JAX's layout (rz = ry = 8, zero filler)
+     and the halo path's exact rows (rz = ry = 3, or 6 for B12), on
+     (1,1,1), (1,2,2) and (1,2,4) meshes of small shards and on two 256^3
+     shards of a (1,1,2) mesh; B12 also against B11 s=0, a slab round and
+     B11 s=1; on one shard B11 against B9 and B12 against B10, bitwise.
+     Tolerance as for B9.
 4. main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
@@ -61,11 +69,25 @@ Phases, in order; any failure exits non-zero before the last line:
      with the plain ``xla`` path per field to ``substeps * 64 * eps(f32)
      * max |xla|`` (6 substeps), and a 16^3 run agrees with a float64
      ``xla`` run of the port to the same bound. Fields stay finite.
+   - ``Astaroth(256, 512, 512, float32)`` on mesh (1,2,2), four 256^3
+     shards on the one card (``devices=["cuda:0"] * 4``): kernel="auto"
+     must take ``halo``; ``run(2)`` must launch B11 24 times and nothing
+     else, with ``STENCIL_MHD_PAIR=1`` B12 8 times and B11 8 times; each
+     equals the ``wrap`` path on the same grid (fields and carried w)
+     within ``substeps * 64 * eps(f32) * max`` (bitwise is expected, and
+     reported); ``halo`` on a 256^3 (1,1,1) mesh (6 B11 launches) the
+     same against ``wrap``, and on (1,2,2) quarter shards against the
+     ``xla`` run above. Every run moves every field by more than 10x
+     that bound.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
    and the halo path's slab exchange per group; iterations/s of the
    Astaroth wrap, wrap+pair and xla paths at
-   256^3 (host clock around run(k), ending in a synchronize); each
+   256^3, and of the Astaroth halo and halo+pair paths at 256 x 512 x
+   512 on (1,2,2) and halo at 256^3 on (1,1,1), with one slab round of
+   that mesh at radius 3 and 6 (host clock around run(k), ending in a
+   synchronize); B11 and B12 on one 256^3 shard of the (1,2,2) mesh,
+   beside B9 on the same shard; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
@@ -741,6 +763,142 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the MHD halo path: B11, B12 and Astaroth(kernel="halo") on meshes of shards
+# ---------------------------------------------------------------------------
+def per_field(t):
+    """The 8 fields of a (8, Z, Y, X) tensor, as views."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    return dict(zip(FIELDS, t.unbind(0)))
+
+
+def per_field_slabs(sl):
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    return {q: {k: v[j] for k, v in sl.items()} for j, q in enumerate(FIELDS)}
+
+
+def mhd_mesh_case(torch, gen, size_zyx, mesh):
+    """Random (8, Z, Y, X) shards (sigma 0.1) and w (sigma 1e-4) of a
+    global grid over an x-unsharded mesh, on the card."""
+    Z, Y, X = size_zyx
+    lz, ly = Z // mesh[2], Y // mesh[1]
+    n = mesh[1] * mesh[2]
+    shards = [0.1 * torch.randn((8, lz, ly, X), generator=gen, device="cuda")
+              for _ in range(n)]
+    ws = [1e-4 * torch.randn((8, lz, ly, X), generator=gen, device="cuda")
+          for _ in range(n)]
+    return shards, ws
+
+
+def mhd_slabs(shards, mesh, **kw):
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.parallel.exchange import exchange_interior_slabs
+
+    return [per_field_slabs(s) for s in exchange_interior_slabs(
+        shards, Dim3(*mesh), y_z_extended=True, **kw)]
+
+
+def compare_mhd_halo_kernels(torch, cm) -> dict:
+    """Phase 3, the MHD halo kernels: B11 (every variant) and B12
+    against their twins per field within 64 eps(f32) of the largest twin
+    value, on JAX-layout slabs (rz = ry = 8, zero filler) and the halo
+    path's exact-row ones (rz = ry = R, or 2R for B12), at small shapes
+    and on two 256^3 shards; B12 also against B11 s=0, a slab round and
+    B11 s=1; on one shard B11 against B9 and B12 against B10, bitwise."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    worst = {"mhd_substep_halo": 0.0, "mhd_substep01_halo": 0.0}
+    jax_layout = (dict(rz=8, ry=8, radius_rows=3),
+                  dict(rz=8, ry=8, radius_rows=6))
+    exact = (dict(rz=3, ry=3), dict(rz=6, ry=6))
+    # (global (Z, Y, X), mesh, (B11 slabs, B12 slabs), dts, unelided)
+    cases = [((16, 8, 16), (1, 1, 1), jax_layout, MHD_DTS, True),
+             ((16, 8, 24), (1, 1, 1), exact, MHD_DTS, True),
+             ((16, 16, 24), (1, 2, 2), exact, MHD_DTS, True),
+             ((32, 16, 40), (1, 2, 4), jax_layout, MHD_DTS, True),
+             ((2 * N256, N256, N256), (1, 1, 2), exact, (MHD_PATH_DT,),
+              False)]
+    for size, mesh, (kw11, kw12), dts, unelided in cases:
+        shards, ws = mhd_mesh_case(torch, gen, size, mesh)
+        sl11 = mhd_slabs(shards, mesh, **kw11)
+        sl12 = mhd_slabs(shards, mesh, **kw12)
+        variants = [(0, False, True), (1, True, True), (2, True, False)]
+        if unelided:
+            variants += [(0, True, True), (2, True, True)]
+        for dt in dts:
+            prm = MhdParams(dt=dt)
+            tag = f"{size} mesh {mesh} slabs {kw11['rz']}/{kw12['rz']} dt={dt:g}"
+            for i, (t, w) in enumerate(zip(shards, ws)):
+                f = per_field(t)
+                for s, read_w, write_w in variants:
+                    w_in = per_field(w) if read_w else None
+                    kf, kw = cm.mhd_substep_halo_cuda(f, w_in, sl11[i], s, prm,
+                                                      dt, write_w=write_w)
+                    tf, tw = cm.mhd_substep_halo_plain(f, w_in, sl11[i], s,
+                                                       prm, dt,
+                                                       write_w=write_w)
+                    what = (f"B11 s={s}{'' if read_w else ' w=None'}"
+                            f"{'' if write_w else ' write_w=False'} {tag} "
+                            f"shard {i}")
+                    e = check_fields(torch, kf, tf, what + ", f")
+                    if write_w:
+                        e = max(e, check_fields(torch, kw, tw, what + ", w"))
+                    elif kw is not None:
+                        raise AssertionError("B11 write_w=False returned a w")
+                    worst["mhd_substep_halo"] = max(
+                        worst["mhd_substep_halo"], e)
+                    if mesh == (1, 1, 1) and s == 0 and not read_w:
+                        bf, bw = cm.mhd_substep_wrap_cuda(f, None, 0, prm, dt)
+                        same = all(torch.equal(kf[q], bf[q])
+                                   and torch.equal(kw[q], bw[q]) for q in bf)
+                        log(f"  B11 vs B9 on one shard {tag}: "
+                            f"{'bitwise equal' if same else 'DIFFERENT'}")
+                        if not same:
+                            raise AssertionError("B11 differs from B9 on a "
+                                                 "(1,1,1) mesh")
+                    del kf, kw, tf, tw
+                kf, kw = cm.mhd_substep01_halo_cuda(f, sl12[i], prm, dt)
+                tf, tw = cm.mhd_substep01_halo_plain(f, sl12[i], prm, dt)
+                e = max(check_fields(torch, kf, tf, f"B12 f {tag} shard {i}"),
+                        check_fields(torch, kw, tw, f"B12 w {tag} shard {i}"))
+                worst["mhd_substep01_halo"] = max(
+                    worst["mhd_substep01_halo"], e)
+                if mesh == (1, 1, 1):
+                    bf, bw = cm.mhd_substep01_wrap_cuda(f, prm, dt)
+                    same = all(torch.equal(kf[q], bf[q])
+                               and torch.equal(kw[q], bw[q]) for q in bf)
+                    log(f"  B12 vs B10 on one shard {tag}: "
+                        f"{'bitwise equal' if same else 'DIFFERENT'}")
+                    if not same:
+                        raise AssertionError("B12 differs from B10 on a "
+                                             "(1,1,1) mesh")
+                del kf, kw, tf, tw
+            # B12 against B11 s=0, a radius-R slab round, B11 s=1
+            one = [cm.mhd_substep_halo_cuda(per_field(t), None, sl, 0, prm,
+                                            dt)
+                   for t, sl in zip(shards, mhd_slabs(shards, mesh, rz=3,
+                                                      ry=3))]
+            f1 = [torch.stack(list(f.values())) for f, _ in one]
+            sl1 = mhd_slabs(f1, mesh, rz=3, ry=3)
+            for i, t in enumerate(shards):
+                f2, w2 = cm.mhd_substep_halo_cuda(per_field(f1[i]), one[i][1],
+                                                  sl1[i], 1, prm, dt)
+                kf, kw = cm.mhd_substep01_halo_cuda(per_field(t), sl12[i],
+                                                    prm, dt)
+                check_fields(torch, kf, f2, f"B12 vs B11 + slabs + B11, f "
+                             f"{tag} shard {i}")
+                check_fields(torch, kw, w2, f"B12 vs B11 + slabs + B11, w "
+                             f"{tag} shard {i}")
+            del one, f1, sl1, f2, w2, kf, kw
+        del shards, ws, sl11, sl12
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return worst
+
+
 @contextlib.contextmanager
 def mhd_pair(value: str):
     """STENCIL_MHD_PAIR set to ``value`` for the block (the models read
@@ -772,12 +930,10 @@ def run_astaroth(torch, cs, cm) -> dict:
         m.block()
         return m
 
-    def host(t: dict, dtype=torch.float32):
-        return {q: t[q].to("cpu", dtype) for q in FIELDS}
-
     def state(m, dtype=torch.float32):
-        fields = {q: torch.from_numpy(m.field(q)) for q in FIELDS}
-        return host(fields, dtype), host(m._w, dtype)
+        return ({q: torch.from_numpy(m.field(q)).to(dtype) for q in FIELDS},
+                {q: torch.from_numpy(m.accumulator(q)).to(dtype)
+                 for q in FIELDS})
 
     def xla_reference(n=N256, dtype=torch.float32):
         """Fields after 2 iterations of the xla path, and the w of its
@@ -788,7 +944,8 @@ def run_astaroth(torch, cs, cm) -> dict:
         m.run(1)
         m._substep_xla(0)
         m._substep_xla(1)
-        w1 = host(m._w, dtype)
+        w1 = {q: torch.from_numpy(m.accumulator(q)).to(dtype)
+              for q in FIELDS}
         m._substep_xla(2)
         fields, _ = state(m, dtype)
         # the comparison means something only if the rates moved every
@@ -816,9 +973,12 @@ def run_astaroth(torch, cs, cm) -> dict:
     got = {}
     for label, pair, want_counts in (
             ("wrap", "0", {"mhd_substep_wrap": 6, "mhd_substep01_wrap": 0,
+                           "mhd_substep_halo": 0, "mhd_substep01_halo": 0,
                            "laplace6": 0}),
             ("wrap+pair", "1", {"mhd_substep_wrap": 2,
-                                "mhd_substep01_wrap": 2, "laplace6": 0})):
+                                "mhd_substep01_wrap": 2,
+                                "mhd_substep_halo": 0,
+                                "mhd_substep01_halo": 0, "laplace6": 0})):
         with mhd_pair(pair):
             m = model("auto")
         if m.kernel_path != "wrap":
@@ -847,6 +1007,109 @@ def run_astaroth(torch, cs, cm) -> dict:
         "mhd_substep01_wrap": counts["wrap+pair"]["mhd_substep01_wrap"],
         "laplace6": sum(c["laplace6"] for c in counts.values())}
     out["launches_by_path"] = counts
+    out["xla_fields_256"] = want_f     # for the halo path's check
+    return out
+
+
+def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
+    """Phase 4, the Astaroth halo path at dt 1e-4 through the model class:
+    256 x 512 x 512 on mesh (1,2,2), four 256^3 shards on the one card,
+    where kernel="auto" must take ``halo``: run(2) launches B11 24 times
+    (with the pair: B12 8 times and B11 8 times) and nothing else, and
+    equals the wrap path on the same grid (B11 keeps B9's per-point
+    order, and the slabs hold the neighbours' rows: bitwise; the bound
+    held is substeps x 64 eps x max). 256^3 ``halo`` on (1,1,1) (6 B11
+    launches) equals ``wrap``; on (1,2,2) (quarter shards) it agrees with
+    the xla path of run_astaroth within PR 2's path bound. Each run must
+    move every field by more than 10x that bound."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    factor = 6 * 64.0
+    prm = MhdParams(dt=MHD_PATH_DT)
+    out = {"launches_by_run": {}}
+    zero = {k: 0 for k in cm.LAUNCHES}
+    zero["laplace6"] = 0
+
+    def model(kernel, size, mesh=(1, 1, 1), pair="0"):
+        with mhd_pair(pair):
+            m = Astaroth(*size, params=prm, kernel=kernel, mesh_shape=mesh,
+                         devices=["cuda:0"] * (mesh[1] * mesh[2]))
+        m.init()
+        m.block()
+        return m
+
+    def fields(m):
+        return {q: torch.from_numpy(m.field(q)) for q in FIELDS}
+
+    def drive(label, kernel, size, mesh, pair, want_counts):
+        m = model(kernel, size, mesh, pair)
+        if m.kernel_path != "halo":
+            raise AssertionError(f"{label}: kernel={kernel!r} took "
+                                 f"{m.kernel_path!r}, not 'halo'")
+        start = fields(m)
+        cm.reset_launch_counts()
+        cs.reset_launch_counts()
+        m.run(2)
+        m.block()
+        counts = dict(cm.LAUNCHES, laplace6=cs.LAUNCHES["laplace6"])
+        want = dict(zero, **want_counts)
+        log(f"  Astaroth halo {label} run(2) launches: {counts}")
+        if counts != want:
+            raise AssertionError(f"halo {label} launched {counts}, not {want}")
+        out["launches_by_run"][label] = counts
+        got = fields(m)
+        w = {q: torch.from_numpy(m.accumulator(q)) for q in FIELDS}
+        moved = min(float((got[q] - start[q]).abs().max())
+                    / (EPS32 * float(got[q].abs().max())) for q in FIELDS)
+        log(f"  halo {label}: 2 iterations moved every field by at least "
+            f"{moved:.4g} eps(f32) x max|field|")
+        if not moved > 10 * factor:
+            raise AssertionError("the rates did not show in the fields")
+        del m
+        torch.cuda.empty_cache()
+        return got, w
+
+    def against_wrap(label, size, got, pair):
+        m = model("wrap", size, pair=pair)
+        m.run(2)
+        want_f = fields(m)
+        want_w = {q: torch.from_numpy(m.accumulator(q)) for q in FIELDS}
+        del m
+        torch.cuda.empty_cache()
+        same = all(torch.equal(got[0][q], want_f[q])
+                   and torch.equal(got[1][q], want_w[q]) for q in FIELDS)
+        what = f"halo {label} vs wrap after 2 iterations"
+        err = max(check_fields(torch, got[0], want_f, what + ", f",
+                               factor=factor),
+                  check_fields(torch, got[1], want_w, what + ", w",
+                               factor=factor))
+        log(f"  {what}: {'bitwise equal' if same else 'not bitwise equal'}")
+        out[f"halo_vs_wrap_max_diff {label}"] = err
+        out[f"halo_vs_wrap_bitwise {label}"] = same
+
+    big = (N256, 2 * N256, 2 * N256)           # (nx, ny, nz)
+    for label, pair, want in (
+            ("256x512x512 (1,2,2)", "0", {"mhd_substep_halo": 24}),
+            ("256x512x512 (1,2,2) pair", "1", {"mhd_substep_halo": 8,
+                                               "mhd_substep01_halo": 8})):
+        got = drive(label, "auto", big, (1, 2, 2), pair, want)
+        against_wrap(label, big, got, pair)
+        del got
+    cube = (N256,) * 3
+    got = drive("256^3 (1,1,1)", "halo", cube, (1, 1, 1), "0",
+                {"mhd_substep_halo": 6})
+    against_wrap("256^3 (1,1,1)", cube, got, "0")
+    got = drive("256^3 (1,2,2)", "halo", cube, (1, 2, 2), "0",
+                {"mhd_substep_halo": 24})
+    out["halo_quarter_vs_xla_max_diff"] = check_fields(
+        torch, got[0], xla_fields, "halo 256^3 (1,2,2) vs xla after 2 "
+        "iterations, f", factor=factor)
+    del got
+    main = out["launches_by_run"]
+    out["launches"] = {
+        "mhd_substep_halo": main["256x512x512 (1,2,2)"]["mhd_substep_halo"],
+        "mhd_substep01_halo":
+            main["256x512x512 (1,2,2) pair"]["mhd_substep01_halo"]}
     return out
 
 
@@ -944,6 +1207,111 @@ def time_mhd_kernels(torch, cs, cm) -> dict:
     return res
 
 
+def time_mhd_halo(torch, cm) -> dict:
+    """Phase 5, the Astaroth halo path: iterations/s of ``halo`` and
+    ``halo`` + pair at 256 x 512 x 512 on (1,2,2) (four shards on the one
+    card) and of ``halo`` at 256^3 on (1,1,1); one slab round (all 8
+    fields of every shard) at radius R and 2R; B11 (each variant), B12
+    and, for the gap, B9 on one 256^3 shard of that mesh."""
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+
+    res = {"iters_per_s": {}, "slab_exchange_ms": {}}
+    big = (N256, 2 * N256, 2 * N256)
+    for label, size, mesh, pair, k in (
+            ("halo 256x512x512 (1,2,2)", big, (1, 2, 2), "0", 10),
+            ("halo+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1", 4),
+            ("halo 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "0", 20)):
+        with mhd_pair(pair):
+            m = Astaroth(*size, kernel="halo", mesh_shape=mesh,
+                         devices=["cuda:0"] * (mesh[1] * mesh[2]))
+        m.init()
+        m.run(1)
+        m.block()
+        t0 = time.perf_counter()
+        m.run(k)
+        m.block()
+        res["iters_per_s"][label] = k / (time.perf_counter() - t0)
+        log(f"  Astaroth {label}: {res['iters_per_s'][label]!r} "
+            f"iterations/s")
+        if pair == "0" and mesh != (1, 1, 1):
+            for rr in (cm.R, 2 * cm.R):
+                ms = 1e3 * m.slab_exchange_seconds(rr, reps=10)
+                res["slab_exchange_ms"][f"{label} radius {rr}"] = ms
+                log(f"  slab round, radius {rr}, {label}: {ms!r} ms "
+                    f"(host clock)")
+        del m
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    shards, ws = mhd_mesh_case(torch, gen, (2 * N256, 2 * N256, N256),
+                               (1, 2, 2))
+    f, w = per_field(shards[0]), per_field(ws[0])
+    sl3 = mhd_slabs(shards, (1, 2, 2), rz=3, ry=3)[0]
+    sl6 = mhd_slabs(shards, (1, 2, 2), rz=6, ry=6)[0]
+    del shards[1:], ws[1:]
+    prm = MhdParams()
+    dt = prm.dt
+    Z = Y = X = N256
+    pts = float(Z * Y * X)
+    field = 4 * pts
+
+    def slab_bytes(r):       # the slab rows a kernel reads, 8 fields
+        return 8 * 4 * (2 * r * Y * X + 2 * (Z + 2 * r) * r * X)
+
+    cases = {
+        "B11 s=0 (w=None)": (
+            lambda: cm.mhd_substep_halo_cuda(f, None, sl3, 0, prm, dt),
+            lambda: cm.mhd_substep_halo_plain(f, None, sl3, 0, prm, dt),
+            24 * field + slab_bytes(3), B9_FLOPS[0] * pts, 10),
+        "B11 s=1": (
+            lambda: cm.mhd_substep_halo_cuda(f, w, sl3, 1, prm, dt),
+            lambda: cm.mhd_substep_halo_plain(f, w, sl3, 1, prm, dt),
+            32 * field + slab_bytes(3), B9_FLOPS[1] * pts, 10),
+        "B11 s=2 (write_w=False)": (
+            lambda: cm.mhd_substep_halo_cuda(f, w, sl3, 2, prm, dt,
+                                             write_w=False),
+            lambda: cm.mhd_substep_halo_plain(f, w, sl3, 2, prm, dt,
+                                              write_w=False),
+            24 * field + slab_bytes(3), B9_FLOPS[2] * pts, 10),
+        "mhd_substep01_halo": (
+            lambda: cm.mhd_substep01_halo_cuda(f, sl6, prm, dt),
+            lambda: cm.mhd_substep01_halo_plain(f, sl6, prm, dt),
+            24 * field + slab_bytes(6), B10_FLOPS * pts, 5),
+    }
+    kernels = {}
+    for name, (kern, plain, nbytes, flops, reps) in cases.items():
+        ms = event_ms(torch, kern, reps=reps)
+        plain_ms = event_ms(torch, plain, reps=2, warmup=1)
+        bms, by = bound_ms(nbytes, flops)
+        kernels[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": None}
+        log(f"  {name} (256^3 shard of the (1,2,2) mesh): {ms!r} ms/launch, "
+            f"bound {bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; "
+            f"plain twin {plain_ms!r} ms")
+        torch.cuda.empty_cache()
+    # the gap to B9 on the same shard's fields, in this call
+    res["b9_same_shard_ms"] = {
+        "s=0 (w=None)": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
+            f, None, 0, prm, dt), reps=10),
+        "s=1": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
+            f, w, 1, prm, dt), reps=10),
+        "s=2 (write_w=False)": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
+            f, w, 2, prm, dt, write_w=False), reps=10)}
+    log(f"  B9 on the same 256^3 shard: {res['b9_same_shard_ms']} ms/launch")
+    b11 = [kernels.pop(k) for k in ("B11 s=0 (w=None)", "B11 s=1",
+                                    "B11 s=2 (write_w=False)")]
+    kernels["mhd_substep_halo"] = {
+        k: sum(v[k] for v in b11) / 3 for k in ("ms", "plain_ms", "bound_ms")}
+    kernels["mhd_substep_halo"].update(
+        bound_by=b11[1]["bound_by"], library_ms=None,
+        variants={"s=0 (w=None)": b11[0], "s=1": b11[1],
+                  "s=2 (write_w=False)": b11[2]})
+    del f, w, sl3, sl6, shards, ws
+    torch.cuda.empty_cache()
+    res["kernels"] = kernels
+    return res
+
+
 # name: (tag, source, TPU kernel it replaces)
 KERNEL_META = {
     "jacobi7_wrap": ("K1", "stencil_tpu_torch/csrc/jacobi7.cu",
@@ -962,6 +1330,10 @@ KERNEL_META = {
                          "stencil_tpu/ops/pallas_mhd.py:186"),
     "mhd_substep01_wrap": ("B10", "stencil_tpu_torch/csrc/mhd.cu",
                            "stencil_tpu/ops/pallas_mhd.py:347"),
+    "mhd_substep_halo": ("B11", "stencil_tpu_torch/csrc/mhd.cu",
+                         "stencil_tpu/ops/pallas_halo.py:852"),
+    "mhd_substep01_halo": ("B12", "stencil_tpu_torch/csrc/mhd.cu",
+                           "stencil_tpu/ops/pallas_halo.py:969"),
 }
 
 
@@ -997,6 +1369,7 @@ def main() -> int:
     worst = compare_kernels(torch, cs)
     worst.update(compare_halo_kernels(torch, ch))
     worst.update(compare_mhd_kernels(torch, cs, cm))
+    worst.update(compare_mhd_halo_kernels(torch, cm))
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -1005,10 +1378,14 @@ def main() -> int:
     halo_path = run_halo_path(torch, cs, ch)
     log("phase 4: Astaroth 256^3 float32 main path")
     mhd_path = run_astaroth(torch, cs, cm)
+    log("phase 4: Astaroth halo path on meshes of shards on one card")
+    mhd_halo_path = run_astaroth_halo(torch, cs, cm,
+                                      mhd_path.pop("xla_fields_256"))
     launches = dict(main_path["launches"])
     launches.update(halo_path["launches"])
     for name, n in mhd_path["launches"].items():
         launches[name] = launches.get(name, 0) + n
+    launches.update(mhd_halo_path["launches"])
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -1024,9 +1401,11 @@ def main() -> int:
            "xla": iters_per_s(torch, "xla", 3)}
     for path, v in ips.items():
         log(f"  Astaroth {path}: {v!r} iterations/s")
+    mhd_halo_times = time_mhd_halo(torch, cm)
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
+    times.update(mhd_halo_times["kernels"])
 
     kernels = []
     for name, (tag, source, replaces) in KERNEL_META.items():
@@ -1050,8 +1429,14 @@ def main() -> int:
                    "halo_slab_exchange_ms": halo_times["slab_exchange_ms"],
                    "halon_quarter_shard_ms":
                        halo_times["halon_quarter_shard_ms"],
+                   "astaroth_halo_iters_per_s":
+                       mhd_halo_times["iters_per_s"],
+                   "astaroth_halo_slab_exchange_ms":
+                       mhd_halo_times["slab_exchange_ms"],
+                   "b9_same_shard_ms": mhd_halo_times["b9_same_shard_ms"],
                    "main_path": main_path, "halo_path": halo_path,
                    "astaroth_path": mhd_path,
+                   "astaroth_halo_path": mhd_halo_path,
                    "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Astaroth-style MHD mini-app on one GPU.
+"""Astaroth-style MHD mini-app over a mesh of shards.
 
 PyTorch-port counterpart of ``apps/astaroth.py`` (reference:
 astaroth/astaroth.cu main): conf-file loading, the iteration loop, and
@@ -8,12 +8,20 @@ the reference's CSV result line
 
 with per-iteration seconds (reference: astaroth/astaroth.cu:668-676).
 Each of ``--iters`` samples is one iteration ending in a device
-synchronize, after two warm-up iterations. Run it as
+synchronize, after two warm-up iterations. ``--nx/--ny/--nz`` are the
+size of one shard: the global grid is that times the mesh (weak
+scaling, as the JAX app does), and the line prints the global size. Run
+it as
 
     python -m stencil_tpu_torch.apps.astaroth --nx 256 --ny 256 --nz 256
+    python -m stencil_tpu_torch.apps.astaroth --nx 256 --ny 256 --nz 256 \\
+        --kernel halo --mesh-shape 1,2,2 --devices cuda:0,cuda:0,cuda:0,cuda:0
 
-It runs on the current CUDA device unless ``--device`` names another
-(``--device cpu`` runs the plain PyTorch twins).
+The mesh runs on every visible CUDA device unless ``--devices`` lists
+one device per mesh position (repeats allowed: shards sharing a card)
+or ``--device`` names one (``--device cpu`` runs the plain PyTorch
+twins). With no ``--mesh-shape``, the ``halo`` and ``auto`` kernels take
+an x-unsharded mesh and ``xla`` a near-cubic one.
 """
 
 from __future__ import annotations
@@ -22,32 +30,61 @@ import argparse
 import time
 
 
+def _mesh_shape(text: str):
+    parts = [int(v) for v in text.split(",")]
+    if len(parts) != 3 or min(parts) < 1:
+        raise argparse.ArgumentTypeError("--mesh-shape wants X,Y,Z")
+    return tuple(parts)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--conf", default="", help="astaroth.conf-style file")
-    ap.add_argument("--nx", type=int, default=64, help="grid x size")
+    ap.add_argument("--nx", type=int, default=64, help="shard x size")
     ap.add_argument("--ny", type=int, default=64)
     ap.add_argument("--nz", type=int, default=64)
     ap.add_argument("--iters", "-n", type=int, default=10)
     ap.add_argument("--kernel", default="auto",
-                    choices=("auto", "wrap", "xla"),
+                    choices=("auto", "wrap", "halo", "xla"),
                     help="compute path: wrap (fused CUDA substep kernels, "
-                         "periodic wrap in the kernel), xla (plain "
-                         "PyTorch on the halo-padded fields), or auto")
+                         "periodic wrap in the kernel, one shard), halo "
+                         "(fused CUDA substep kernels on resident shards "
+                         "with slab exchange), xla (plain PyTorch on the "
+                         "halo-padded shards), or auto")
     ap.add_argument("--dtype", default="f32", choices=("f32", "f64"))
+    ap.add_argument("--mesh-shape", type=_mesh_shape, default=None,
+                    metavar="X,Y,Z", help="shards along x, y and z")
+    ap.add_argument("--devices", default=None,
+                    help="comma list of torch devices, one per mesh "
+                         "position (x fastest; repeats allowed)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
+                    help="one torch device for the whole mesh")
     args = ap.parse_args(argv)
 
     import torch
 
     from ..models.astaroth import Astaroth, MhdParams
     from ..numerics import Statistics
+    from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
+                                 resolve_devices)
 
     prm = MhdParams.from_conf(args.conf) if args.conf else MhdParams()
     dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
-    m = Astaroth(args.nx, args.ny, args.nz, params=prm, dtype=dtype,
-                 kernel=args.kernel, device=args.device)
+    shape = args.mesh_shape
+    if args.devices is not None:
+        devices = args.devices.split(",")
+    else:
+        devices = resolve_devices(None, args.device)
+        if shape is not None and len(devices) == 1:
+            # every shard of the mesh on the one device
+            devices = devices * (shape[0] * shape[1] * shape[2])
+    if shape is None:
+        xfree = args.kernel in ("halo", "auto")
+        shape = tuple((default_mesh_shape_xfree if xfree
+                       else default_mesh_shape)(len(devices)))
+    gx, gy, gz = args.nx * shape[0], args.ny * shape[1], args.nz * shape[2]
+    m = Astaroth(gx, gy, gz, params=prm, dtype=dtype, kernel=args.kernel,
+                 mesh_shape=shape, devices=devices)
     m.init()
     stats = Statistics()
     for i in range(2 + max(args.iters, 1)):
@@ -59,7 +96,7 @@ def main(argv=None) -> None:
     exch = m.measure_exchange_seconds()
     xstats = m.exchange_stats()
     print(",".join(str(f) for f in (
-        m.dd.num_subdomains(), args.nx, args.ny, args.nz,
+        m.dd.num_subdomains(), gx, gy, gz,
         f"{stats.trimean():.6e}", f"{exch:.6e}", xstats["path"],
         int(xstats["bytes_per_iteration"]))))
 

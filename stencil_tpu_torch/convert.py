@@ -9,13 +9,14 @@ from ``DistributedDomain.interior_to_host`` or ``Astaroth.field``, or a
 ``field_from_jax`` turns it into the port's halo-padded tensor on a
 device; ``interior_from_jax`` checks a global interior for
 ``DistributedDomain.set_interior``, which scatters it into the shards
-of any mesh; ``astaroth_state_from_jax`` does so for a whole MHD state.
+of any mesh; ``astaroth_state_from_jax`` cuts a whole MHD state into
+the shards of a mesh.
 Nothing here imports JAX: the two packages meet only in numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -69,35 +70,59 @@ def interior_from_jax(arr: np.ndarray,
     return torch.tensor(arr)
 
 
+def _scatter(values: torch.Tensor, domain, radius: Optional[Radius]
+             ) -> List[torch.Tensor]:
+    """A global (z,y,x) interior cut into ``domain``'s shards on their
+    devices, each at capacity: padded by ``radius`` (zero halos), or
+    unpadded with ``radius=None``; a short shard's dead rows are zero."""
+    shards = []
+    for i, dev in enumerate(domain.mesh.devices):
+        sz, org = domain.shard_size(i), domain.shard_origin(i)
+        cap = (raw_size(domain.local_size, radius) if radius is not None
+               else domain.local_size)
+        out = torch.zeros(zyx_shape(cap), dtype=values.dtype, device=dev)
+        dst = (out[interior_slices(sz, radius)] if radius is not None
+               else out[:sz.z, :sz.y, :sz.x])
+        dst.copy_(values[org.z:org.z + sz.z, org.y:org.y + sz.y,
+                         org.x:org.x + sz.x])
+        shards.append(out)
+    return shards
+
+
 def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
-                            w: Optional[Dict[str, np.ndarray]] = None,
-                            device: DeviceLike = None,
-                            dtype: Optional[torch.dtype] = None
-                            ) -> Tuple[Dict[str, torch.Tensor],
-                                       Optional[Dict[str, torch.Tensor]]]:
+                            w: Optional[Dict[str, np.ndarray]], domain,
+                            dtype: Optional[torch.dtype] = None):
     """The port's MHD state from the JAX model's: ``fields[q]`` are the
-    (z,y,x) interiors of its ``field(q)``, ``w[q]`` its ``_w``
+    global (z,y,x) interiors of its ``field(q)``, ``w[q]`` its ``_w``
     accumulators (interior-shaped; None before its first step). Returns
-    ``({q: radius-3 padded field with zero halos}, {q: w tensor} or
-    None)`` on ``device``, bit for bit; ``dtype``, if given, must match
-    the arrays'."""
+    ``({q: [shard]}, {q: [shard]} or None)``: the shards (x fastest) of
+    ``domain``, a realized ``DistributedDomain``, on their devices, each
+    at capacity — the radius-3 padded field with zero halos, and the
+    unpadded w; a short shard's dead rows are zero. Bit for bit;
+    ``dtype``, if given, must match the arrays'."""
     from .models.astaroth import FIELDS
 
     if set(fields) != set(FIELDS) or (w is not None and set(w) != set(FIELDS)):
         raise ValueError(f"an Astaroth state holds exactly {FIELDS}")
     radius = Radius.constant(3)
-    out = {q: field_from_jax(fields[q], radius, layout="interior",
-                             device=device, dtype=dtype) for q in FIELDS}
+    shape = zyx_shape(domain.size)
+    out = {}
+    for q in FIELDS:
+        t = interior_from_jax(fields[q], dtype)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fields[{q!r}] has shape {tuple(t.shape)}, "
+                             f"expected the domain's {shape}")
+        out[q] = _scatter(t, domain, radius)
     if w is None:
         return out, None
     wt = {}
     for q in FIELDS:
         arr = np.asarray(w[q])
-        if arr.shape != np.asarray(fields[q]).shape:
+        if arr.shape != shape:
             raise ValueError(f"w[{q!r}] has shape {arr.shape}, expected the "
-                             f"interior's {np.asarray(fields[q]).shape}")
-        if torch_dtype(arr.dtype) != out[q].dtype:
+                             f"interior's {shape}")
+        if torch_dtype(arr.dtype) != out[q][0].dtype:
             raise TypeError(f"w[{q!r}] is {arr.dtype}, the fields "
-                            f"{out[q].dtype}; convert explicitly first")
-        wt[q] = torch.tensor(arr, device=out[q].device)
+                            f"{out[q][0].dtype}; convert explicitly first")
+        wt[q] = _scatter(torch.tensor(arr), domain, None)
     return out, wt

@@ -1,18 +1,22 @@
 // Fused MHD RK3 substep kernels for Hopper (sm_90a), float32.
 //
-// Two kernels, each the hand-written counterpart of one Pallas TPU
-// kernel of stencil_tpu/ops/pallas_mhd.py, bound to Python through a
-// plain extern "C" launcher (ctypes; see stencil_tpu_torch/ops/_build.py
-// and ops/cuda_mhd.py, which also holds each kernel's plain PyTorch
-// twin):
+// Four kernels, each the hand-written counterpart of one Pallas TPU
+// kernel of stencil_tpu/ops/, bound to Python through a plain extern "C"
+// launcher (ctypes; see stencil_tpu_torch/ops/_build.py and
+// ops/cuda_mhd.py, which also holds each kernel's plain PyTorch twin):
 //
 //   B9  mhd_substep_wrap_kernel    <- pallas_mhd.py:186 mhd_substep_wrap_pallas
 //   B10 mhd_substep01_wrap_kernel  <- pallas_mhd.py:347 mhd_substep01_wrap_pallas
+//   B11 mhd_substep_halo_kernel    <- pallas_halo.py:852 mhd_substep_halo_pallas
+//   B12 mhd_substep01_halo_kernel  <- pallas_halo.py:969 mhd_substep01_halo_pallas
 //
-// Both evaluate the Astaroth right-hand sides (models/astaroth.py
+// All evaluate the Astaroth right-hand sides (models/astaroth.py
 // mhd_rates; reference: astaroth/user_kernels.h:383-453) on 8 unpadded
-// (Z, Y, X) fields, periodic in all three axes, with the 6th-order
-// operators of ops/fd6.py, and apply the Williamson RK3 update. Every
+// (Z, Y, X) fields with the 6th-order operators of ops/fd6.py, and
+// apply the Williamson RK3 update. B9/B10 read a field periodic in all
+// three axes; B11/B12 read a shard of a z/y-sharded mesh and, across
+// its z and y edges, the halo slabs of parallel/exchange.py
+// exchange_interior_slabs (x wraps in the kernel in all four). Every
 // derivative, every term of the rates and the update is formed in the
 // twin's order of operations; the library is built with -fmad=false, so
 // no a*b+c is contracted into one rounding. exp is expf (never __expf),
@@ -439,6 +443,190 @@ mhd_substep01_wrap_kernel(InPtrs f, OutPtrs of, OutPtrs ow, int Z, int Y,
   }
 }
 
+// ---------------------------------------------------------------------
+// The slab layout of B11/B12 (ops/cuda_mhd.py halo_window; the window
+// semantics of pallas_halo.py _mhd_window_plan's select_window). Per
+// field, zlo/zhi (rz, Y, X) hold the z neighbours' rows (zlo's last row
+// is z = -1, zhi's first z = Z) and the z-extended ylo/yhi (Z + 2 rz,
+// ry, X) the y neighbours' rows at every z in [-rz, Z + rz) (ylo's last
+// row is y = -1, yhi's first y = Y). Row (z, y) of the radius-rr window
+// comes from the y slabs where y is outside [0, Y) (so the yz corners
+// come from them), else from the z slabs where z is outside [0, Z), else
+// from the shard.
+// ---------------------------------------------------------------------
+struct SlabPtrs {
+  const float* zlo[kNF];
+  const float* zhi[kNF];
+  const float* ylo[kNF];
+  const float* yhi[kNF];
+};
+
+struct HaloGeom {
+  int Z, Y, X, rz, ry;
+};
+
+// the source of window row (z, y) of field q
+__device__ __forceinline__ const float* halo_row(const InPtrs& f,
+                                                 const SlabPtrs& sl, int q,
+                                                 const HaloGeom& g, int y,
+                                                 int z) {
+  if (y < 0) return sl.ylo[q] + ((z + g.rz) * g.ry + g.ry + y) * g.X;
+  if (y >= g.Y) return sl.yhi[q] + ((z + g.rz) * g.ry + y - g.Y) * g.X;
+  if (z < 0) return sl.zlo[q] + ((z + g.rz) * g.Y + y) * g.X;
+  if (z >= g.Z) return sl.zhi[q] + ((z - g.Z) * g.Y + y) * g.X;
+  return f.p[q] + (z * g.Y + y) * g.X;
+}
+
+// B11/B12, step 1: the (Z + 2rr, Y + 2rr, X) window of every field,
+// gathered from the shard and its slabs; one block per window row, so
+// the source is chosen once per row (block-uniform) and the row copied
+// coalesced.
+constexpr int kWinBX = 128;
+
+__global__ void __launch_bounds__(kWinBX)
+halo_window_kernel(InPtrs f, SlabPtrs sl, OutPtrs win, HaloGeom g, int rr) {
+  const int x = blockIdx.x * kWinBX + threadIdx.x;
+  if (x >= g.X) return;
+  const int wy = blockIdx.y, wz = blockIdx.z;
+  const int o = (wz * (g.Y + 2 * rr) + wy) * g.X + x;
+#pragma unroll
+  for (int q = 0; q < kNF; ++q)
+    win.p[q][o] = __ldg(halo_row(f, sl, q, g, wy - rr, wz - rr) + x);
+}
+
+// Offsets of the 7 x columns, 7 y rows and 7 z planes around one point
+// of the (Z + 2rr, Y + 2rr, X) window: x wrapped, y and z shifted by rr
+// (B9's Idx, with the window's rows in place of y/z wrapping).
+struct PadIdx {
+  int x[2 * R + 1], y[2 * R + 1], z[2 * R + 1];
+  __device__ __forceinline__ PadIdx(int px, int py, int pz, int X, int Yw,
+                                    int rr) {
+#pragma unroll
+    for (int d = -R; d <= R; ++d) {
+      x[d + R] = wrap(px + d, X);
+      y[d + R] = (py + rr + d) * X;
+      z[d + R] = (pz + rr + d) * Yw * X;
+    }
+  }
+  __device__ __forceinline__ int at(int dx, int dy, int dz) const {
+    return z[dz + R] + y[dy + R] + x[dx + R];
+  }
+};
+
+struct PadAt {
+  const float* __restrict__ p;
+  const PadIdx& I;
+  __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
+    return __ldg(p + I.at(dx, dy, dz));
+  }
+};
+
+// ---------------------------------------------------------------------
+// B11. Replaces stencil_tpu/ops/pallas_halo.py:852
+// mhd_substep_halo_pallas. One RK3 substep s on a shard of a z/y-sharded
+// mesh, B9's arithmetic point for point:
+//   wq = dt * rates;  wq = alpha * w + wq  (only when w is read);
+//   w_out = wq (only when written);  f_out = value + beta * wq,
+// with B9's dead-w elision (kReadW=false is w=None, kWriteW=false is
+// write_w=False). On a (1,1,1) mesh the slabs are the shard's own
+// wrapped rows, so B11 computes B9's values bitwise.
+// Bound on this card: bytes, as B9, plus the slab rows (0.3 % more at a
+// 256^3 shard); the window costs another 16 passes of device memory.
+// Design: two launches. halo_window_kernel gathers the radius-R window
+// of all 8 fields (source chosen once per row); this kernel is then
+// B9's, one thread per output point, a (32, 8) block over (x, y), one z
+// plane per block row, reading the window through PadIdx. The first
+// version chose the source for each of the ~450 taps of a point inside
+// the kernel (warp-uniform branches): 105 registers, but 20 ms a launch
+// on a 256^3 shard of an H100 against B9's 1.8, its unrolled code ten
+// times B9's (nvcc took 104 s for this file), most likely instruction-
+// cache bound (PERF.md, Findings). __launch_bounds__(256, 2) as B9.
+// ---------------------------------------------------------------------
+template <bool kReadW, bool kWriteW>
+__global__ void __launch_bounds__(kBX * kBY, 2)
+mhd_substep_halo_kernel(InPtrs win, InPtrs w, OutPtrs of, OutPtrs ow,
+                        HaloGeom g, Consts c) {
+  const int x = blockIdx.x * kBX + threadIdx.x;
+  const int y = blockIdx.y * kBY + threadIdx.y;
+  const int z = blockIdx.z;
+  if (x >= g.X || y >= g.Y) return;
+  const PadIdx I(x, y, z, g.X, g.Y + 2 * R, R);
+  Fd F[kNF];
+  field_data([&](int q) { return PadAt{win.p[q], I}; }, c, F);
+  float r[kNF];
+  mhd_rates(F, c, r);
+  const int o = (z * g.Y + y) * g.X + x;
+#pragma unroll
+  for (int q = 0; q < kNF; ++q) {
+    float wq = c.dt * r[q];
+    if (kReadW) wq = c.alpha * __ldg(w.p[q] + o) + wq;
+    if (kWriteW) ow.p[q][o] = wq;
+    of.p[q][o] = F[q].v + c.beta * wq;
+  }
+}
+
+// ---------------------------------------------------------------------
+// B12. Replaces stencil_tpu/ops/pallas_halo.py:969
+// mhd_substep01_halo_pallas. RK3 substeps 0 and 1 on a shard whose slabs
+// hold 2R = 6 rows, B10's arithmetic point for point. Bound on this
+// card: bytes, as B10, plus the window's 16 passes. Design: two
+// launches, as B11: halo_window_kernel gathers the radius-2R window
+// (phase 1 evaluates substep 0 on the tile extended by R, whose taps
+// reach 2R beyond the shard's edges); this kernel is then B10's (kT^3
+// tile, ring recomputed, f1 in shared memory), phase 1 reading the
+// window through PadIdx, phase 2 from shared memory only. The first
+// version, with the per-tap source choice in phase 1, took 149 ms a
+// launch on a 256^3 shard of an H100 (B10 15.0).
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kPairThreads)
+mhd_substep01_halo_kernel(InPtrs win, OutPtrs of, OutPtrs ow, HaloGeom g,
+                          Consts c) {
+  extern __shared__ float smem[];
+  float* sF = smem;              // [kNF][kE][kE][kE] f1, extended tile
+  float* sW = smem + kNF * kE3;  // [kNF][kT][kT][kT] w1, tile
+  const int x0 = blockIdx.x * kT, y0 = blockIdx.y * kT, z0 = blockIdx.z * kT;
+
+  // phase 1: substep 0 on the extended tile, from the radius-2R window
+  for (int e = threadIdx.x; e < kE3; e += kPairThreads) {
+    const int ex = e % kE, ey = (e / kE) % kE, ez = e / (kE * kE);
+    const PadIdx I(x0 - R + ex, y0 - R + ey, z0 - R + ez, g.X,
+                   g.Y + 4 * R, 2 * R);
+    Fd F[kNF];
+    field_data([&](int q) { return PadAt{win.p[q], I}; }, c, F);
+    float r[kNF];
+    mhd_rates(F, c, r);
+    const bool core = ex >= R && ex < R + kT && ey >= R && ey < R + kT &&
+                      ez >= R && ez < R + kT;
+    const int t = ((ez - R) * kT + (ey - R)) * kT + (ex - R);
+#pragma unroll
+    for (int q = 0; q < kNF; ++q) {
+      const float w1 = c.dt * r[q];
+      sF[q * kE3 + e] = F[q].v + c.beta0 * w1;
+      if (core) sW[q * kT3 + t] = w1;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: substep 1 on the tile, from shared memory only (B10's)
+  for (int t = threadIdx.x; t < kT3; t += kPairThreads) {
+    const int cx = t % kT, cy = (t / kT) % kT, cz = t / (kT * kT);
+    const int x = x0 + cx;
+    if (x >= g.X) continue;
+    const int e = ((cz + R) * kE + (cy + R)) * kE + (cx + R);
+    Fd F[kNF];
+    field_data([&](int q) { return SharedAt{sF + q * kE3 + e}; }, c, F);
+    float r[kNF];
+    mhd_rates(F, c, r);
+    const int o = ((z0 + cz) * g.Y + (y0 + cy)) * g.X + x;
+#pragma unroll
+    for (int q = 0; q < kNF; ++q) {
+      const float wq = c.alpha1 * sW[q * kT3 + t] + c.dt * r[q];
+      ow.p[q][o] = wq;
+      of.p[q][o] = F[q].v + c.beta1 * wq;
+    }
+  }
+}
+
 inline unsigned blocks(int n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
@@ -460,6 +648,24 @@ OutPtrs out_ptrs(void* const* src) {
 bool shape_ok(int Z, int Y, int X) {
   return Z > 0 && Y > 0 && X > 0 && Z % kT == 0 && Y % kT == 0 &&
          static_cast<long long>(Z) * Y * X < (1LL << 31);
+}
+
+SlabPtrs slab_ptrs(const void* const* src) {
+  SlabPtrs out{};
+  for (int q = 0; q < kNF; ++q) {
+    out.zlo[q] = static_cast<const float*>(src[q]);
+    out.zhi[q] = static_cast<const float*>(src[kNF + q]);
+    out.ylo[q] = static_cast<const float*>(src[2 * kNF + q]);
+    out.yhi[q] = static_cast<const float*>(src[3 * kNF + q]);
+  }
+  return out;
+}
+
+// slabs of rz z rows and ry y rows feed a window of radius rr, whose
+// offsets fit 32 bits
+bool halo_ok(int Z, int Y, int X, int rz, int ry, int rr) {
+  return rz >= rr && ry >= rr &&
+         static_cast<long long>(Z + 2 * rr) * (Y + 2 * rr) * X < (1LL << 31);
 }
 
 }  // namespace
@@ -509,6 +715,77 @@ cudaError_t mhd_substep01_wrap_launch(const void* const* fields,
   mhd_substep01_wrap_kernel<<<grid, kPairThreads, kPairSmem,
                               static_cast<cudaStream_t>(stream)>>>(
       in_ptrs(fields), out_ptrs(out_f), out_ptrs(out_w), Z, Y, X, c);
+  return cudaGetLastError();
+}
+
+// fields/w: 8 device pointers each (w NULL for w=None); slabs: 32
+// (zlo, zhi, ylo, yhi, each in field order); window: 8 scratch buffers
+// of (Z + 2R) (Y + 2R) X floats; out_f/out_w: 8 each (out_w NULL for
+// write_w=False); consts: kNConsts host floats.
+cudaError_t mhd_substep_halo_launch(const void* const* fields,
+                                    const void* const* w,
+                                    const void* const* slabs,
+                                    void* const* window,
+                                    void* const* out_f, void* const* out_w,
+                                    int Z, int Y, int X, int rz, int ry,
+                                    const float* consts, int n_consts,
+                                    void* stream) {
+  if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
+      !halo_ok(Z, Y, X, rz, ry, R))
+    return cudaErrorInvalidValue;
+  Consts c;
+  std::memcpy(&c, consts, sizeof c);
+  const HaloGeom g{Z, Y, X, rz, ry};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  halo_window_kernel<<<dim3(blocks(X, kWinBX), Y + 2 * R, Z + 2 * R),
+                       kWinBX, 0, s>>>(in_ptrs(fields), slab_ptrs(slabs),
+                                       out_ptrs(window), g, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const InPtrs wp = in_ptrs(window), wr = in_ptrs(w);
+  const OutPtrs op = out_ptrs(out_f), owp = out_ptrs(out_w);
+  const dim3 grid(blocks(X, kBX), blocks(Y, kBY), Z);
+  const dim3 block(kBX, kBY);
+  if (w != nullptr && out_w != nullptr)
+    mhd_substep_halo_kernel<true, true><<<grid, block, 0, s>>>(wp, wr, op, owp, g, c);
+  else if (w != nullptr)
+    mhd_substep_halo_kernel<true, false><<<grid, block, 0, s>>>(wp, wr, op, owp, g, c);
+  else if (out_w != nullptr)
+    mhd_substep_halo_kernel<false, true><<<grid, block, 0, s>>>(wp, wr, op, owp, g, c);
+  else
+    mhd_substep_halo_kernel<false, false><<<grid, block, 0, s>>>(wp, wr, op, owp, g, c);
+  return cudaGetLastError();
+}
+
+// as mhd_substep_halo_launch, with no w; window: 8 scratch buffers of
+// (Z + 4R) (Y + 4R) X floats
+cudaError_t mhd_substep01_halo_launch(const void* const* fields,
+                                      const void* const* slabs,
+                                      void* const* window,
+                                      void* const* out_f,
+                                      void* const* out_w, int Z, int Y,
+                                      int X, int rz, int ry,
+                                      const float* consts, int n_consts,
+                                      void* stream) {
+  if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
+      !halo_ok(Z, Y, X, rz, ry, 2 * R))
+    return cudaErrorInvalidValue;
+  Consts c;
+  std::memcpy(&c, consts, sizeof c);
+  cudaError_t err = cudaFuncSetAttribute(
+      mhd_substep01_halo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPairSmem));
+  if (err != cudaSuccess) return err;
+  const HaloGeom g{Z, Y, X, rz, ry};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  halo_window_kernel<<<dim3(blocks(X, kWinBX), Y + 4 * R, Z + 4 * R),
+                       kWinBX, 0, s>>>(in_ptrs(fields), slab_ptrs(slabs),
+                                       out_ptrs(window), g, 2 * R);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks(X, kT), Y / kT, Z / kT);
+  mhd_substep01_halo_kernel<<<grid, kPairThreads, kPairSmem, s>>>(
+      in_ptrs(window), out_ptrs(out_f), out_ptrs(out_w), g, c);
   return cudaGetLastError();
 }
 

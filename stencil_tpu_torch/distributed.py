@@ -23,7 +23,7 @@ and QAP placement (``set_placement("qap")`` raises at realize(): A5).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -84,6 +84,7 @@ class DistributedDomain:
         self.curr: Dict[str, List[torch.Tensor]] = {}
         self.next_: Dict[str, List[torch.Tensor]] = {}
         self._bytes_per_axis: Dict[str, int] = {}
+        self._on_interior_write: List[Callable[[str], None]] = []
 
     # -- configuration (reference: stencil.hpp:134-158) ----------------
     def add_data(self, name: str, dtype=torch.float32) -> str:
@@ -266,10 +267,19 @@ class DistributedDomain:
         """The global interior (z,y,x-ordered) as a numpy array."""
         return self.assemble_interior(self.curr[name])
 
+    def on_interior_write(self, cb: Callable[[str], None]) -> None:
+        """Register a callback that ``set_interior`` calls, with the
+        field's name, before it writes: the hook a model with state kept
+        outside ``curr`` uses to flush it first (stencil_tpu/
+        distributed.py:841-845)."""
+        self._on_interior_write.append(cb)
+
     def set_interior(self, name: str, values) -> None:
         """Scatter a global (z,y,x) interior (numpy array or tensor) into
         the shards of ``curr[name]``; halos and dead capacity rows are
-        zeroed."""
+        zeroed. The ``on_interior_write`` callbacks run first."""
+        for cb in self._on_interior_write:
+            cb(name)
         values = values if isinstance(values, torch.Tensor) else \
             torch.as_tensor(np.asarray(values))
         if tuple(values.shape) != zyx_shape(self.size):

@@ -1,4 +1,5 @@
-"""Astaroth-parity MHD integrator on one GPU: 8 fields, 6th order, RK3.
+"""Astaroth-parity MHD integrator over a mesh of shards: 8 fields, 6th
+order, RK3.
 
 PyTorch-port counterpart of ``stencil_tpu/models/astaroth.py``
 (reference: astaroth/astaroth.cu, "rough approximation of astaroth
@@ -9,49 +10,67 @@ cross derivatives (radius 3) and periodic boundaries. The physics
 (``mhd_rates``, reference: astaroth/user_kernels.h:383-453) is the JAX
 module's expression for expression.
 
-Compute paths (``kernel=``), as in the JAX model on a (1,1,1) mesh:
+The grid is split over a mesh of shards (``mesh_shape``, ``devices``;
+see ``distributed.py``). Compute paths (``kernel=``), as in the JAX
+model:
 
-* ``wrap`` — the single-device fast path. The interiors stay resident
-  in contiguous tensors between calls (extracted once, written back on
-  ``sync_domain()``/``field()``); one iteration is three launches of the
-  fused substep kernel B9 (``mhd_substep_wrap_cuda``): substep 0 with
+* ``wrap`` — the one-shard fast path. The interiors stay resident in
+  one (8, Z, Y, X) tensor between calls (extracted once, written back on
+  ``sync_domain()``); one iteration is three launches of the fused
+  substep kernel B9 (``mhd_substep_wrap_cuda``): substep 0 with
   ``w=None``, substep 1, substep 2 with ``write_w=False``. With
   ``STENCIL_MHD_PAIR=1`` it is one launch of the pair kernel B10
   (``mhd_substep01_wrap_cuda``) and B9 for substep 2. The carried ``w``
-  is the last one written, as in JAX. On the CPU the wrappers run their
-  plain twins.
-* ``xla`` — per substep: exchange into the radius-3 padded fields, then
-  ``FieldData`` + ``mhd_rates`` + the RK update in plain PyTorch, written
-  into the interiors in place. The port's reference path; no kernel.
-* ``auto`` — ``wrap`` on a CUDA device for float32 when Z and Y are
-  multiples of ``mhd_tile`` (8), else ``xla`` (on the CPU too, as the
-  JAX model takes ``xla`` off the TPU).
+  is the last one written, as in JAX.
+* ``halo`` — the multi-shard fast path on an x-unsharded mesh, (1,1,1)
+  included: the same resident state per shard, and before every launch
+  one slab round over ALL shards (``exchange_interior_slabs``, the 8
+  fields of a shard moved by each slice), then B11
+  (``mhd_substep_halo_cuda``) per shard, three times an iteration; with
+  the pair (``STENCIL_MHD_PAIR=1`` or ``exchange_every=2``) one
+  radius-2R round and B12 (``mhd_substep01_halo_cuda``), then a
+  radius-R round and B11 for substep 2.
+* ``xla`` — per substep: exchange into the radius-3 padded shards, then
+  per shard ``FieldData`` + ``mhd_rates`` + the RK update in plain
+  PyTorch, written into the shard in place. The port's reference path;
+  no kernel. It runs on any mesh, uneven (+-1) shards included.
+* ``auto`` — on CUDA devices for float32: ``wrap`` on a (1,1,1) mesh,
+  else ``halo`` when x is unsharded and the shards are even with z and
+  y multiples of ``mhd_tile`` (8), else ``xla``; ``xla`` on the CPU, as
+  the JAX model takes ``xla`` off the TPU. The JAX model's ``auto`` also
+  asks its TPU block planner whether the halo kernel's VMEM window fits
+  the shard (it does not for float32 shards wider than x ~ 166); the
+  CUDA kernels have no such window, so the port does not ask.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``kernel="halo"``, ``overlap=True``, ``exchange_every >
-1``, a mesh of more than one device, ``Boundary.NONE`` and bfloat16.
+On the CPU the kernel wrappers run their plain twins. Not ported (each
+raises ``NotImplementedError`` naming its ROADMAP item): ``overlap=True``
+(B13/B14), ``exchange_every > 2`` and ``exchange_every=2`` off the halo
+path (A7), ``Boundary.NONE`` (A8d) and bfloat16 (A8b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..distributed import (DeviceLike, DistributedDomain, resolve_device,
-                           torch_dtype)
-from ..geometry import Dim3, Radius
-from ..local_domain import zyx_shape
+from ..distributed import DeviceLike, DistributedDomain, torch_dtype
+from ..geometry import Dim3, Dim3Like, Radius
+from ..local_domain import interior_slices, zyx_shape
 from ..ops.fd6 import RADIUS, FieldData, const
+from ..parallel.exchange import exchange_interior_slabs, interior_slab_bytes
+from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import load_config, mhd_pair_requested
 from ..utils.logging import LOG_INFO
 from ..utils.timers import device_sync
 
 FIELDS = ("lnrho", "uux", "uuy", "uuz", "ax", "ay", "az", "ss")
+
+Fields = Dict[str, torch.Tensor]
 
 # Williamson (1980) low-storage RK3 (reference: integration.cuh:20-21)
 RK3_ALPHA = (0.0, -5.0 / 9.0, -153.0 / 128.0)
@@ -206,64 +225,85 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def _views(t: torch.Tensor) -> Fields:
+    """The 8 fields of a (8, Z, Y, X) state tensor, as contiguous
+    views in FIELDS order."""
+    return dict(zip(FIELDS, t.unbind(0)))
+
+
 class Astaroth:
-    """MHD integrator on one device."""
+    """MHD integrator over a mesh of shards (one device by default:
+    ``device=``; a mesh: ``mesh_shape=`` and ``devices=``)."""
 
     def __init__(self, nx: int, ny: int, nz: int,
                  params: Optional[MhdParams] = None,
-                 mesh_shape=None, dtype=torch.float32,
-                 overlap: bool = False, kernel: str = "auto",
+                 mesh_shape: Optional[Dim3Like] = None,
+                 dtype=torch.float32, overlap: bool = False,
+                 kernel: str = "auto",
                  exchange_every: Optional[int] = None,
                  boundary: Optional[Boundary] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 devices: Optional[Sequence] = None) -> None:
+        from ..ops.cuda_mhd import mhd_tile
+
         if kernel not in ("auto", "wrap", "halo", "xla"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla, got {kernel!r}")
-        if mesh_shape is not None and Dim3.of(mesh_shape).flatten() > 1:
-            raise NotImplementedError(
-                f"mesh {tuple(mesh_shape)}: a mesh of more than one "
-                f"device needs the multi-GPU MHD slice (ROADMAP A8c)")
-        if kernel == "halo":
-            raise NotImplementedError(
-                "kernel='halo' (kernels B11/B12) comes with the multi-GPU "
-                "MHD slice (ROADMAP A8c)")
         if overlap:
             raise NotImplementedError(
-                "overlap=True (kernels B13/B14) comes with the multi-GPU "
-                "MHD slice (ROADMAP A8c)")
-        if exchange_every is not None and int(exchange_every) > 1:
+                "overlap=True (kernels B13/B14, in-kernel slab sends) is "
+                "parked until a run on more than one card (ROADMAP A8c)")
+        self._exchange_every = (1 if exchange_every is None
+                                else max(int(exchange_every), 1))
+        if self._exchange_every > 2:
             raise NotImplementedError(
-                "exchange_every > 1 (temporal blocking) comes with "
-                "ROADMAP A7 and the multi-GPU MHD slice (A8c)")
+                "exchange_every > 2 (temporal blocking on the xla path) is "
+                "ROADMAP A7")
         if boundary is not None and boundary != Boundary.PERIODIC:
             raise NotImplementedError(
-                f"boundary {boundary}: only periodic boundaries are in "
-                f"this slice (Boundary.NONE: ROADMAP A8d)")
+                f"boundary {boundary}: only periodic boundaries are ported "
+                f"(Boundary.NONE: ROADMAP A8d)")
         self._dtype = torch_dtype(dtype)
         if self._dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
                 f"dtype {self._dtype}: bfloat16 storage (f32 compute) is "
-                f"ROADMAP A8b; this slice runs float32 and float64")
+                f"ROADMAP A8b; the port runs float32 and float64")
         self.prm = params or MhdParams()
-        # one device: the MHD mesh paths are a later slice (ROADMAP A8c)
-        self.dd = DistributedDomain(nx, ny, nz, device=resolve_device(device))
+        self.dd = DistributedDomain(nx, ny, nz, device=device,
+                                    devices=devices)
         self.dd.set_radius(Radius.constant(RADIUS))
+        devs = self.dd._devices
+        if mesh_shape is not None:
+            self.dd.set_mesh_shape(mesh_shape)
+        elif len(devs) > 1 and (
+                kernel == "halo"
+                or (kernel == "auto" and self._dtype == torch.float32
+                    and all(d.type == "cuda" for d in devs))):
+            # an x-unsharded decomposition, so that the halo path is
+            # available (models/astaroth.py:271-288 of the JAX package)
+            shape = partition_dims_even_xfree(Dim3(nx, ny, nz), len(devs),
+                                              align=mhd_tile(self._dtype))
+            if shape is not None:
+                self.dd.set_mesh_shape(shape)
         for q in FIELDS:
             self.dd.add_data(q, self._dtype)
         self.dd.realize()
         self._kernel = kernel
-        # RK3 accumulators, interior-shaped (no halos); None until the
-        # first iteration
-        self._w: Optional[Dict[str, torch.Tensor]] = None
-        # interior-resident state of the wrap path (see sync_domain)
-        self._inner: Optional[Dict[str, torch.Tensor]] = None
+        # RK3 accumulators per shard, capacity-shaped (no halos); None
+        # until the first iteration
+        self._w: Optional[List[Fields]] = None
+        # the wrap and halo paths' interior-resident state, one (8, Z, Y,
+        # X) tensor per shard (see sync_domain); dd.set_interior flushes
+        # it first
+        self._inner: Optional[List[torch.Tensor]] = None
+        self.dd.on_interior_write(lambda name: self.sync_domain())
         self._build_step()
 
     # -- initial conditions (reference: astaroth/astaroth.cu:509-528) --
     def init(self) -> None:
         """hash-random all fields in [-1, 1); lnrho constant 0.5;
         radial-explosion shell velocity."""
-        self._inner = None
+        self._inner = None          # every field is overwritten below
         size = self.dd.size
         shape = zyx_shape(size)
         npdt = _numpy_dtype(self._dtype)
@@ -284,69 +324,99 @@ class Astaroth:
         """Start from a given state: ``fields[q]`` the global (z,y,x)
         interiors and ``w`` the RK accumulators (or None), as numpy —
         for instance a JAX model's ``field(q)`` and ``_w`` (see
-        ``convert.astaroth_state_from_jax``). Carried bit for bit."""
+        ``convert.astaroth_state_from_jax``) — scattered into the
+        shards. Carried bit for bit."""
         from ..convert import astaroth_state_from_jax
 
-        padded, wt = astaroth_state_from_jax(fields, w, device=self.dd.device,
+        padded, wt = astaroth_state_from_jax(fields, w, self.dd,
                                              dtype=self._dtype)
         self._inner = None
         for q in FIELDS:
-            self.dd.curr[q][0].copy_(padded[q])
-        self._w = wt
+            for dst, src in zip(self.dd.curr[q], padded[q]):
+                dst.copy_(src)
+        self._w = (None if wt is None else
+                   [{q: wt[q][i] for q in FIELDS}
+                    for i in range(self.dd.num_subdomains())])
 
     # -- path selection -------------------------------------------------
     def _build_step(self) -> None:
+        """The JAX model's path rules (models/astaroth.py:419-519) with
+        no overlap, temporal depth beyond the substep pair, or block
+        planner: the GPU kernels have no VMEM window to fit."""
         from ..ops.cuda_mhd import mhd_tile
 
-        local = self.dd.size
+        dd = self.dd
+        counts, local = dd.mesh_counts, dd.local_size
         tile = mhd_tile(self._dtype)
-        wrap_ok = local.z % tile == 0 and local.y % tile == 0
-        on_gpu = self.dd.device.type == "cuda"
+        f32 = self._dtype == torch.float32
+        aligned = (dd.rem == Dim3(0, 0, 0) and local.z % tile == 0
+                   and local.y % tile == 0)
+        wrap_ok = counts == Dim3(1, 1, 1) and aligned
+        halo_ok = counts.x == 1 and aligned
         kernel = self._kernel
         if kernel == "auto":
-            kernel = ("wrap" if on_gpu and wrap_ok
-                      and self._dtype == torch.float32 else "xla")
+            on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
+            kernel = ("xla" if not (on_gpu and f32) else "wrap" if wrap_ok
+                      else "halo" if halo_ok else "xla")
             LOG_INFO(f"astaroth kernel path: {kernel}")
-        if kernel == "wrap":
-            if not wrap_ok:
-                raise ValueError(
-                    "kernel='wrap' needs a (1,1,1) mesh, even grid, z/y "
-                    f"multiples of the dtype sublane tile ({tile}), "
-                    "overlap off")
-            if on_gpu and self._dtype != torch.float32:
-                raise TypeError(f"kernel='wrap' runs CUDA kernels that take "
-                                f"float32 only, got {self._dtype}; use "
-                                f"kernel='xla'")
-            self._pair = mhd_pair_requested()
-            if self._pair:
-                LOG_INFO("astaroth wrap path: fused substep-0+1 kernel")
+        if kernel == "wrap" and not wrap_ok:
+            raise ValueError(
+                "kernel='wrap' needs a (1,1,1) mesh, even grid, z/y "
+                f"multiples of the dtype sublane tile ({tile}), "
+                "overlap off")
+        if kernel == "halo" and not halo_ok:
+            raise ValueError(
+                "kernel='halo' needs an x-unsharded mesh, even grid, "
+                f"local z/y multiples of the dtype sublane tile ({tile}), "
+                "overlap off, periodic boundaries, exchange_every <= 2")
+        if kernel in ("wrap", "halo") and not f32 and any(
+                d.type == "cuda" for d in dd.mesh.devices):
+            raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
+                            f"float32 only, got {self._dtype}; use "
+                            f"kernel='xla'")
+        if self._exchange_every == 2 and kernel != "halo":
+            raise NotImplementedError(
+                f"exchange_every=2 maps onto the halo path's substep pair; "
+                f"on the {kernel} path temporal blocking is ROADMAP A7")
+        # the substep pair (B10 / B12): STENCIL_MHD_PAIR=1, or on the
+        # halo path exchange_every=2 (one radius-2R slab round for two
+        # substeps)
+        self._pair = mhd_pair_requested() or self._exchange_every == 2
+        if kernel in ("wrap", "halo") and self._pair:
+            LOG_INFO(f"astaroth {kernel} path: fused substep-0+1 kernel")
         self.kernel_path = kernel
 
     # -- stepping -------------------------------------------------------
-    def _ensure_w(self) -> None:
-        if self._w is None:
-            shape = zyx_shape(self.dd.size)
-            self._w = {q: torch.zeros(shape, dtype=self._dtype,
-                                      device=self.dd.device)
-                       for q in FIELDS}
-
     def step(self) -> None:
         """One full RK3 iteration (3 substeps)."""
         self.run(1)
 
     def run(self, iters: int) -> None:
+        iters = int(iters)
+        if iters <= 0:
+            return
+        if self.kernel_path in ("wrap", "halo"):
+            self._run_resident(iters)
+            return
         self._ensure_w()
-        for _ in range(int(iters)):
-            if self.kernel_path == "wrap":
-                self._iter_wrap()
-            else:
-                for s in range(3):
-                    self._substep_xla(s)
+        for _ in range(iters):
+            for s in range(3):
+                self._substep_xla(s)
+
+    def _ensure_w(self) -> None:
+        if self._w is None:
+            shape = zyx_shape(self.dd.local_size)
+            self._w = [{q: torch.zeros(shape, dtype=self._dtype, device=d)
+                        for q in FIELDS} for d in self.dd.mesh.devices]
+
+    def _capacity(self) -> Tuple[slice, slice, slice]:
+        return interior_slices(self.dd.local_size, self.dd.alloc_radius)
 
     def _substep_xla(self, s: int) -> None:
-        """One substep on the padded fields: exchange, rates, update
-        ``wq = alpha*w + dt*rates; u = value + beta*wq`` (the JAX
-        model's ``substep_fused``), the interiors written in place."""
+        """One substep on the padded shards: exchange, then per shard the
+        rates and the update ``wq = alpha*w + dt*rates; u = value +
+        beta*wq`` over its capacity interior (the JAX model's
+        ``substep_fused``), written into the shard in place."""
         from ..ops.cuda_mhd import compute_dtype
 
         dd = self.dd
@@ -354,82 +424,207 @@ class Astaroth:
         comp = compute_dtype(self._dtype)
         pad_lo = dd.radius.pad_lo()
         inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
-        dd.exchange()
-        data = {q: FieldData(dd.curr[q][0].to(comp), inv_ds, pad_lo, dd.size)
-                for q in FIELDS}
-        rates = mhd_rates(data, prm, comp)
         alpha = const(RK3_ALPHA[s], comp)
         beta = const(RK3_BETA[s], comp)
         dt_ = const(prm.dt, comp)
-        new_w = {}
-        for q in FIELDS:
-            wq = alpha * self._w[q].to(comp) + dt_ * rates[q]
-            uq = data[q].value + beta * wq
-            new_w[q] = wq.to(self._dtype)
-            dd.interior(q).copy_(uq)
-        self._w = new_w
+        cap = self._capacity()
+        dd.exchange()
+        for i, w in enumerate(self._w):
+            data = {q: FieldData(dd.curr[q][i].to(comp), inv_ds, pad_lo,
+                                 dd.local_size)
+                    for q in FIELDS}
+            rates = mhd_rates(data, prm, comp)
+            for q in FIELDS:
+                wq = alpha * w[q].to(comp) + dt_ * rates[q]
+                uq = data[q].value + beta * wq
+                w[q] = wq.to(self._dtype)
+                dd.curr[q][i][cap].copy_(uq)
 
-    def _iter_wrap(self) -> None:
-        """One iteration on the resident interiors. Dead-w elision as in
-        JAX: substep 0 never reads w (alpha_0 == 0, ``w=None``) and
-        nothing reads substep 2's w (``write_w=False``); the carried w
-        is substep 1's."""
-        from ..ops.cuda_mhd import (mhd_substep01_wrap_cuda,
-                                    mhd_substep_wrap_cuda)
+    def _run_resident(self, n: int) -> None:
+        """``n`` iterations on the interior-resident state, three
+        launches per shard an iteration: substep 0 with ``w=None``,
+        substep 1, substep 2 with ``write_w=False`` — or, with the pair,
+        B10/B12 for substeps 0 and 1 and B9/B11 for substep 2. The wrap
+        path launches B9/B10 on its one shard; the halo path first
+        exchanges the slabs of ALL shards (all 8 fields per slice, radius
+        R, or 2R before the pair) and then launches B11/B12 per shard.
+        Every substep writes into the other buffer of a ping-pong pair,
+        so no kernel writes what a slab copy still has to read. The
+        carried w is the last one written (substep 1's), as in JAX."""
+        from ..ops import cuda_mhd as cm
 
         if self._inner is None:
-            self._inner = {q: self.dd.interior(q).clone(
-                memory_format=torch.contiguous_format) for q in FIELDS}
-        f = self._inner
+            cap = self._capacity()
+            self._inner = [torch.stack([self.dd.curr[q][i][cap]
+                                        for q in FIELDS])
+                           for i in range(self.dd.num_subdomains())]
+        a = self._inner
+        b = [torch.empty_like(t) for t in a]
+        w1 = None if self._pair else [torch.empty_like(t) for t in a]
+        w2 = [torch.empty_like(t) for t in a]
         prm, dt = self.prm, self.prm.dt
-        if self._pair:
-            f, wk = mhd_substep01_wrap_cuda(f, prm, dt)
-        else:
-            f, wk = mhd_substep_wrap_cuda(f, None, 0, prm, dt)
-            f, wk = mhd_substep_wrap_cuda(f, wk, 1, prm, dt)
-        f, _ = mhd_substep_wrap_cuda(f, wk, 2, prm, dt, write_w=False)
-        self._inner = f
-        self._w = wk
+        halo = self.kernel_path == "halo"
+
+        def slabs(rr: int) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+            if not halo:
+                return [None] * len(a)
+            return [{q: {k: v[j] for k, v in sl.items()}
+                     for j, q in enumerate(FIELDS)}
+                    for sl in exchange_interior_slabs(
+                        a, self.dd.mesh_counts, rz=rr, ry=rr,
+                        y_z_extended=True)]
+
+        def substep(s: int, w_in, w_out) -> None:
+            for i, sl in enumerate(slabs(cm.R)):
+                wi = None if w_in is None else _views(w_in[i])
+                wo = None if w_out is None else _views(w_out[i])
+                if halo:
+                    cm.mhd_substep_halo_cuda(
+                        _views(a[i]), wi, sl, s, prm, dt,
+                        write_w=wo is not None, out_f=_views(b[i]),
+                        out_w=wo)
+                else:
+                    cm.mhd_substep_wrap_cuda(
+                        _views(a[i]), wi, s, prm, dt,
+                        write_w=wo is not None, out_f=_views(b[i]),
+                        out_w=wo)
+
+        for _ in range(n):
+            if self._pair:
+                for i, sl in enumerate(slabs(2 * cm.R)):
+                    out = dict(out_f=_views(b[i]), out_w=_views(w2[i]))
+                    if halo:
+                        cm.mhd_substep01_halo_cuda(_views(a[i]), sl, prm, dt,
+                                                   **out)
+                    else:
+                        cm.mhd_substep01_wrap_cuda(_views(a[i]), prm, dt,
+                                                   **out)
+                a, b = b, a
+            else:
+                substep(0, None, w1)
+                a, b = b, a
+                substep(1, w1, w2)
+                a, b = b, a
+            substep(2, w2, None)
+            a, b = b, a
+        self._inner = a
+        self._w = [_views(t) for t in w2]
 
     def sync_domain(self) -> None:
-        """Write the wrap path's resident interiors back into the padded
-        ``dd.curr`` fields (no-op otherwise); the halos stay stale until
-        the next exchange. Call it before reading or writing
-        ``dd.curr`` directly."""
+        """Write the wrap and halo paths' resident interiors back into
+        the padded ``dd.curr`` shards (no-op otherwise); the halos stay
+        stale until the next exchange. ``dd.set_interior`` calls it
+        first; call it before reading or writing ``dd.curr`` directly."""
         if self._inner is not None:
-            for q in FIELDS:
-                self.dd.interior(q).copy_(self._inner[q])
+            cap = self._capacity()
+            for q, dst in self.dd.curr.items():
+                k = FIELDS.index(q)
+                for i, t in enumerate(self._inner):
+                    dst[i][cap].copy_(t[k])
             self._inner = None
 
     def block(self) -> None:
-        inner = self._inner
-        device_sync(inner["lnrho"] if inner is not None
+        device_sync(self._inner if self._inner is not None
                     else self.dd.curr["lnrho"])
+
+    def _gather(self, shards: Sequence[torch.Tensor]) -> np.ndarray:
+        """The global (z,y,x) array on the host from capacity-sized
+        unpadded shards (a short shard's dead rows dropped)."""
+        dd = self.dd
+        out = np.empty(zyx_shape(dd.size), dtype=_numpy_dtype(self._dtype))
+        for i, t in enumerate(shards):
+            sz, org = dd.shard_size(i), dd.shard_origin(i)
+            out[org.z:org.z + sz.z, org.y:org.y + sz.y,
+                org.x:org.x + sz.x] = t[:sz.z, :sz.y, :sz.x].cpu().numpy()
+        return out
 
     def field(self, name: str) -> np.ndarray:
         """The global (z,y,x) interior of field ``name`` on the host (a
         copy)."""
-        t = (self._inner[name] if self._inner is not None
-             else self.dd.interior(name))
-        return t.to("cpu", copy=True).numpy()
+        if self._inner is None:
+            return self.dd.interior_to_host(name)
+        k = FIELDS.index(name)
+        return self._gather([t[k] for t in self._inner])
+
+    def accumulator(self, name: str) -> Optional[np.ndarray]:
+        """The global (z,y,x) RK3 accumulator ``w`` of field ``name`` on
+        the host (a copy), None before the first iteration: the w of the
+        last substep that wrote one (the JAX model's ``_w``)."""
+        if self._w is None:
+            return None
+        return self._gather([w[name] for w in self._w])
 
     # -- exchange accounting -------------------------------------------
     def exchange_stats(self) -> dict:
-        """Per-iteration exchange accounting of the built path: the wrap
-        path has no exchange; the xla path exchanges once per substep,
-        and on one device that moves 0 bytes between devices."""
-        if self.kernel_path == "wrap":
-            return {"path": "wrap", "bytes_per_iteration": 0,
+        """Per-iteration exchange accounting of the built path, whole
+        mesh (the JAX model's, models/astaroth.py:1071-1119): the wrap
+        path has none; the halo path moves, per iteration, one radius-2R
+        and one radius-R slab round with the pair and three radius-R
+        rounds without (``interior_slab_bytes`` with z-extended y slabs,
+        all 8 fields); the xla path exchanges once per substep."""
+        path = self.kernel_path
+        if path == "wrap":
+            return {"path": path, "bytes_per_iteration": 0,
                     "rounds_per_iteration": 0.0}
-        return {"path": self.kernel_path,
-                "bytes_per_iteration": 3.0 * self.dd.exchange_bytes_total(),
+        dd = self.dd
+        if path == "halo":
+            from ..ops.cuda_mhd import R as HALO_R
+
+            counts, local = dd.mesh_counts, dd.local_size
+            item = torch.empty((), dtype=self._dtype).element_size()
+
+            def rnd(r: int) -> int:
+                return interior_slab_bytes(
+                    (local.z, local.y, local.x), counts, r, item,
+                    y_z_extended=True) * counts.flatten() * len(FIELDS)
+
+            if self._pair:
+                return {"path": path,
+                        "bytes_per_iteration": rnd(2 * HALO_R) + rnd(HALO_R),
+                        "rounds_per_iteration": 2.0}
+            return {"path": path, "bytes_per_iteration": 3 * rnd(HALO_R),
+                    "rounds_per_iteration": 3.0}
+        return {"path": path,
+                "bytes_per_iteration": 3.0 * dd.exchange_bytes_total(),
                 "rounds_per_iteration": 3.0}
 
+    def slab_exchange_seconds(self, radius_rows: int, reps: int = 5) -> float:
+        """Seconds of one slab round of the halo path (all 8 fields of
+        every shard, ``radius_rows`` rows) on zero shards, host clock
+        ending in a device synchronize; the state is not touched."""
+        dd = self.dd
+        c = dd.local_size
+        shards = [torch.zeros((len(FIELDS), c.z, c.y, c.x), dtype=self._dtype,
+                              device=d) for d in dd.mesh.devices]
+
+        def once() -> List:
+            return exchange_interior_slabs(shards, dd.mesh_counts,
+                                           rz=radius_rows, ry=radius_rows,
+                                           y_z_extended=True)
+
+        once()
+        device_sync(shards)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = once()
+        device_sync([s["yhi"] for s in out])
+        return (time.perf_counter() - t0) / reps
+
     def measure_exchange_seconds(self, reps: int = 5) -> float:
-        """Exchange seconds per iteration (three ``dd.exchange()`` on the
-        xla path, timed standalone); 0.0 on the wrap path."""
-        if self.kernel_path == "wrap":
+        """Exchange seconds per iteration of the built path: 0.0 on the
+        wrap path; on the halo path its slab rounds timed standalone
+        (``slab_exchange_seconds``); on the xla path three
+        ``dd.exchange()``."""
+        from ..ops.cuda_mhd import R as HALO_R
+
+        path = self.kernel_path
+        if path == "wrap":
             return 0.0
+        if path == "halo":
+            if self._pair:
+                return (self.slab_exchange_seconds(2 * HALO_R, reps)
+                        + self.slab_exchange_seconds(HALO_R, reps))
+            return 3 * self.slab_exchange_seconds(HALO_R, reps)
         self.dd.exchange()
         self.block()
         t0 = time.perf_counter()

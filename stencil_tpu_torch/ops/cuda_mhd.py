@@ -8,19 +8,29 @@ wrapper, beside a plain PyTorch twin that computes the same function
 order of operations:
 
 ===  ======================================  ===========================  ============================
-#    TPU kernel (pallas_mhd.py)              wrapper                      plain twin
+#    TPU kernel                              wrapper                      plain twin
 ===  ======================================  ===========================  ============================
-B9   :186 ``mhd_substep_wrap_pallas``        ``mhd_substep_wrap_cuda``    ``mhd_substep_wrap_plain``
-B10  :347 ``mhd_substep01_wrap_pallas``      ``mhd_substep01_wrap_cuda``  ``mhd_substep01_wrap_plain``
+B9   pallas_mhd.py:186                       ``mhd_substep_wrap_cuda``    ``mhd_substep_wrap_plain``
+     ``mhd_substep_wrap_pallas``
+B10  pallas_mhd.py:347                       ``mhd_substep01_wrap_cuda``  ``mhd_substep01_wrap_plain``
+     ``mhd_substep01_wrap_pallas``
+B11  pallas_halo.py:852                      ``mhd_substep_halo_cuda``    ``mhd_substep_halo_plain``
+     ``mhd_substep_halo_pallas``
+B12  pallas_halo.py:969                      ``mhd_substep01_halo_cuda``  ``mhd_substep01_halo_plain``
+     ``mhd_substep01_halo_pallas``
 ===  ======================================  ===========================  ============================
 
-Layout (as in JAX): 8 unpadded (Z, Y, X) fields, periodic in all three
-axes inside the kernel; Z and Y multiples of ``mhd_tile`` (8); ``w=None``
-only where ``alpha_s == 0``. A wrapper dispatches on the tensors'
-device: CPU tensors go to the plain twin (any float dtype; bfloat16
-stored, float32 computed, see ``compute_dtype``); CUDA tensors launch
-the kernel (float32 only, else ``TypeError``) or raise — never the twin.
-Each launch adds one to the wrapper's entry in ``LAUNCHES``.
+Layout (as in JAX): 8 unpadded (Z, Y, X) fields; Z and Y multiples of
+``mhd_tile`` (8); ``w=None`` only where ``alpha_s == 0``. B9/B10 are
+periodic in all three axes inside the kernel. B11/B12 take the shard of
+a z/y-sharded mesh and, per field, its four halo slabs (``slabs[q] =
+{"zlo", "zhi", "ylo", "yhi"}``, see ``halo_window``); x wraps inside the
+kernel. A wrapper dispatches on the tensors' device: CPU tensors go to
+the plain twin (any float dtype; bfloat16 stored, float32 computed, see
+``compute_dtype``); CUDA tensors launch the kernel (float32 only, else
+``TypeError``) or raise — never the twin. Each launch adds one to the
+wrapper's entry in ``LAUNCHES`` (a B11/B12 launch is two kernels, the
+window gather and the substep, counted once).
 
 The kernels evaluate ``exp`` with CUDA's ``expf`` and the twins with
 PyTorch's; everything else is formed in the twins' order, built
@@ -47,7 +57,10 @@ Fields = Dict[str, torch.Tensor]
 
 #: launches per wrapper since the last ``reset_launch_counts``; only a
 #: kernel launch counts, never a call that went to the plain twin
-LAUNCHES = {"mhd_substep_wrap": 0, "mhd_substep01_wrap": 0}
+LAUNCHES = {"mhd_substep_wrap": 0, "mhd_substep01_wrap": 0,
+            "mhd_substep_halo": 0, "mhd_substep01_halo": 0}
+
+SLAB_NAMES = ("zlo", "zhi", "ylo", "yhi")
 
 
 def reset_launch_counts() -> None:
@@ -86,27 +99,28 @@ def _inv_ds(prm) -> Tuple[float, float, float]:
     return (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
 
 
-def mhd_substep_wrap_plain(fields: Fields, w: Optional[Fields], s: int, prm,
-                           dt_phys: float, write_w: bool = True
-                           ) -> Tuple[Fields, Optional[Fields]]:
-    """B9's twin: one RK3 substep ``s`` on unpadded periodic fields, in
-    the order of ``mhd_substep_wrap_pallas`` (pallas_mhd.py:247-261):
-    ``wq = dt*rates``, then ``wq = alpha*w + wq`` only when ``w`` is
-    given; ``f = value + beta*wq``. Returns (new_fields, new_w or
-    None)."""
+def _substep_on_windows(wins: Fields, w: Optional[Fields], s: int, prm,
+                        dt_phys: float, write_w: bool
+                        ) -> Tuple[Fields, Optional[Fields]]:
+    """One RK3 substep ``s`` on radius-R windows ``wins[q]`` of shape
+    (Z + 2R, Y + 2R, X), x whole (FieldData's ``x_wrap`` rolls it), in
+    the order of the JAX substep kernels (pallas_mhd.py:247-261,
+    pallas_halo.py:929-938): ``wq = dt*rates``, then ``wq = alpha*w +
+    wq`` only when ``w`` is given; ``f = value + beta*wq``. Returns
+    (new_fields, new_w or None) of shape (Z, Y, X)."""
     from ..models.astaroth import FIELDS, RK3_ALPHA, RK3_BETA, mhd_rates
 
-    Z, Y, X = fields[FIELDS[0]].shape
-    dtype = fields[FIELDS[0]].dtype
+    Zw, Yw, X = wins[FIELDS[0]].shape
+    dtype = wins[FIELDS[0]].dtype
     comp = compute_dtype(dtype)
     alpha = float(RK3_ALPHA[s])
     beta = float(RK3_BETA[s])
     if w is None and alpha != 0.0:
         raise ValueError("w=None is only valid when alpha_s == 0")
     pad_lo = Dim3(0, R, R)
-    interior = Dim3(X, Y, Z)
-    data = {q: FieldData(_periodic_window(fields[q], R).to(comp),
-                         _inv_ds(prm), pad_lo, interior, x_wrap=True)
+    interior = Dim3(X, Yw - 2 * R, Zw - 2 * R)
+    data = {q: FieldData(wins[q].to(comp), _inv_ds(prm), pad_lo, interior,
+                         x_wrap=True)
             for q in FIELDS}
     rates = mhd_rates(data, prm, comp)
     new_f = {}
@@ -119,6 +133,55 @@ def mhd_substep_wrap_plain(fields: Fields, w: Optional[Fields], s: int, prm,
             new_w[q] = wq.to(dtype)
         new_f[q] = (data[q].value + const(beta, comp) * wq).to(dtype)
     return new_f, new_w
+
+
+def mhd_substep_wrap_plain(fields: Fields, w: Optional[Fields], s: int, prm,
+                           dt_phys: float, write_w: bool = True
+                           ) -> Tuple[Fields, Optional[Fields]]:
+    """B9's twin: one RK3 substep ``s`` on unpadded periodic fields, in
+    the order of ``mhd_substep_wrap_pallas`` (pallas_mhd.py:247-261).
+    Returns (new_fields, new_w or None)."""
+    wins = {q: _periodic_window(t, R) for q, t in fields.items()}
+    return _substep_on_windows(wins, w, s, prm, dt_phys, write_w)
+
+
+def halo_window(t: torch.Tensor, slabs: Dict[str, torch.Tensor],
+                rr: int) -> torch.Tensor:
+    """The (Z + 2rr, Y + 2rr, X) window of a (Z, Y, X) shard and its
+    slabs, the semantics of ``_mhd_window_plan``'s ``select_window``
+    (pallas_halo.py:774-847), with the z/y index i of the window holding
+    shard row i - rr:
+
+    * z in [0, Z) and y in [0, Y): the shard;
+    * z outside [0, Z), y in [0, Y): the z slabs, ``zlo[z + rz]`` below
+      (its last rows) and ``zhi[z - Z]`` above (its first rows);
+    * y outside [0, Y), at every z of the window: the z-extended y
+      slabs, ``ylo[z + rz, y + ry]`` and ``yhi[z + rz, y - Y]`` — so the
+      yz corners come from the y slabs (``sel3``, :796-806).
+
+    The slabs are those of ``exchange_interior_slabs`` with
+    ``y_z_extended=True``: ``zlo``/``zhi`` (rz, Y, X) and ``ylo``/``yhi``
+    (Z + 2rz, ry, X), holding at least ``rr`` valid rows — JAX's layout
+    (rz = block_z, ry = 8, zero filler) or exact rows (rz = ry = rr)."""
+    Z = t.shape[0]
+    zlo, zhi, ylo, yhi = (slabs[k] for k in SLAB_NAMES)
+    rz = zlo.shape[0]
+    ry = ylo.shape[1]
+    mid = torch.cat([zlo[rz - rr:], t, zhi[:rr]], dim=0)
+    zs = slice(rz - rr, rz + Z + rr)
+    return torch.cat([ylo[zs, ry - rr:], mid, yhi[zs, :rr]], dim=1)
+
+
+def mhd_substep_halo_plain(fields: Fields, w: Optional[Fields],
+                           slabs: Dict[str, Dict[str, torch.Tensor]], s: int,
+                           prm, dt_phys: float, write_w: bool = True
+                           ) -> Tuple[Fields, Optional[Fields]]:
+    """B11's twin: one RK3 substep ``s`` on (Z, Y, X) shards with their
+    slabs (``halo_window`` at radius R), then exactly B9's twin's
+    arithmetic (pallas_halo.py:929-938). Returns (new_fields, new_w or
+    None)."""
+    wins = {q: halo_window(t, slabs[q], R) for q, t in fields.items()}
+    return _substep_on_windows(wins, w, s, prm, dt_phys, write_w)
 
 
 def mhd_pair_update(wins: Fields, prm, dtype: torch.dtype, dt_phys: float,
@@ -165,7 +228,7 @@ def mhd_pair_update(wins: Fields, prm, dtype: torch.dtype, dt_phys: float,
 
 def mhd_substep01_wrap_plain(fields: Fields, prm, dt_phys: float
                              ) -> Tuple[Fields, Fields]:
-    """B10's twin: RK substeps 0 and 1 on unpadded periodic fields — the
+    """B10's twin: RK3 substeps 0 and 1 on unpadded periodic fields — the
     pair update on the whole field's radius-2R periodic window. Equals
     ``mhd_substep_wrap_plain(f, None, 0)`` followed by
     ``mhd_substep_wrap_plain(f1, w1, 1)``."""
@@ -173,6 +236,21 @@ def mhd_substep01_wrap_plain(fields: Fields, prm, dt_phys: float
 
     Z, Y, X = fields[FIELDS[0]].shape
     wins = {q: _periodic_window(t, 2 * R) for q, t in fields.items()}
+    return mhd_pair_update(wins, prm, fields[FIELDS[0]].dtype, dt_phys, Z, Y)
+
+
+def mhd_substep01_halo_plain(fields: Fields,
+                             slabs: Dict[str, Dict[str, torch.Tensor]], prm,
+                             dt_phys: float) -> Tuple[Fields, Fields]:
+    """B12's twin: RK3 substeps 0 and 1 on (Z, Y, X) shards — the pair
+    update on each field's radius-2R ``halo_window`` (the slabs must hold
+    2R valid rows). Equals ``mhd_substep_halo_plain(f, None, slabs, 0)``
+    then ``mhd_substep_halo_plain(f1, w1, slabs1, 1)`` where ``slabs1``
+    are the slabs of the neighbours' substep-0 results."""
+    from ..models.astaroth import FIELDS
+
+    Z, Y, X = fields[FIELDS[0]].shape
+    wins = {q: halo_window(t, slabs[q], 2 * R) for q, t in fields.items()}
     return mhd_pair_update(wins, prm, fields[FIELDS[0]].dtype, dt_phys, Z, Y)
 
 
@@ -188,6 +266,12 @@ _SIGNATURES = {
     "mhd_substep_wrap_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # (fields[8], out_f[8], out_w[8], Z, Y, X, consts, n_consts, stream)
     "mhd_substep01_wrap_launch": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # (fields[8], w[8] or NULL, slabs[32], window[8], out_f[8], out_w[8]
+    #  or NULL, Z, Y, X, rz, ry, consts, n_consts, stream)
+    "mhd_substep_halo_launch": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    # (fields[8], slabs[32], window[8], out_f[8], out_w[8], Z, Y, X, rz,
+    #  ry, consts, n_consts, stream)
+    "mhd_substep01_halo_launch": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
 }
 
 
@@ -270,13 +354,16 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
 
 
 def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
-                          dt_phys: float, write_w: bool = True
+                          dt_phys: float, write_w: bool = True,
+                          out_f: Optional[Fields] = None,
+                          out_w: Optional[Fields] = None
                           ) -> Tuple[Fields, Optional[Fields]]:
     """B9: one fused RK3 substep ``s`` on 8 unpadded periodic (Z, Y, X)
     fields. Returns (new_fields, new_w); ``new_w`` is None when
     ``write_w=False``. ``w=None`` (only for ``alpha_s == 0``) skips the
     w read; ``write_w=False`` skips the w write — the dead-w elision of
-    ``mhd_substep_wrap_pallas``."""
+    ``mhd_substep_wrap_pallas``. ``out_f``/``out_w``: destination
+    tensors (default: new ones), which must not alias the inputs."""
     from ..models.astaroth import FIELDS, RK3_ALPHA
 
     what = "mhd_substep_wrap_cuda"
@@ -284,15 +371,20 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     if w is None and float(RK3_ALPHA[s]) != 0.0:
         raise ValueError(f"{what}: w=None is only valid when alpha_s == 0 "
                          f"(substep {s} has alpha {RK3_ALPHA[s]})")
+    if not write_w and out_w is not None:
+        raise ValueError(f"{what}: out_w given with write_w=False")
     if f0.device.type == "cpu":
-        return mhd_substep_wrap_plain(fields, w, s, prm, dt_phys,
-                                      write_w=write_w)
+        nf, nw = mhd_substep_wrap_plain(fields, w, s, prm, dt_phys,
+                                        write_w=write_w)
+        return _copy_into(nf, out_f, f0, what), _copy_into(nw, out_w, f0,
+                                                           what)
+    out_f = _outputs(f0, out_f, what)
+    out_w = _outputs(f0, out_w, what) if write_w else None
     ins = [fields[q] for q in FIELDS]
     w_in = [w[q] for q in FIELDS] if w is not None else []
-    _check_cuda(f0, ins + w_in, what)
+    _check_cuda(f0, ins + w_in + list(out_f.values())
+                + list((out_w or {}).values()), what)
     Z, Y, X = f0.shape
-    out_f = {q: torch.empty_like(f0) for q in FIELDS}
-    out_w = {q: torch.empty_like(f0) for q in FIELDS} if write_w else None
     consts = kernel_consts(prm, dt_phys, s)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
@@ -304,27 +396,205 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     return out_f, out_w
 
 
-def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float
+def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float,
+                            out_f: Optional[Fields] = None,
+                            out_w: Optional[Fields] = None
                             ) -> Tuple[Fields, Fields]:
     """B10: RK3 substeps 0 and 1 fused into one launch on 8 unpadded
     periodic (Z, Y, X) fields (alpha_0 == 0, so no w is read). Returns
     (f_2, w_2); equals B9(s=0, ``w=None``) followed by B9(s=1) to the
-    kernels' tolerance."""
+    kernels' tolerance. ``out_f``/``out_w`` as for B9."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep01_wrap_cuda"
     f0 = _check_fields(fields, None, what)
     if f0.device.type == "cpu":
-        return mhd_substep01_wrap_plain(fields, prm, dt_phys)
+        nf, nw = mhd_substep01_wrap_plain(fields, prm, dt_phys)
+        return _copy_into(nf, out_f, f0, what), _copy_into(nw, out_w, f0,
+                                                           what)
+    out_f = _outputs(f0, out_f, what)
+    out_w = _outputs(f0, out_w, what)
     ins = [fields[q] for q in FIELDS]
-    _check_cuda(f0, ins, what)
+    _check_cuda(f0, ins + list(out_f.values()) + list(out_w.values()), what)
     Z, Y, X = f0.shape
-    out_f = {q: torch.empty_like(f0) for q in FIELDS}
-    out_w = {q: torch.empty_like(f0) for q in FIELDS}
     consts = kernel_consts(prm, dt_phys)
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs([out_w[q] for q in FIELDS])
     _launch("mhd_substep01_wrap_launch", f0.device, p_in, p_f, p_w,
             Z, Y, X, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep01_wrap"] += 1
+    return out_f, out_w
+
+
+def _check_slabs(f0: torch.Tensor, slabs: Dict[str, Dict[str, torch.Tensor]],
+                 rr: int, what: str) -> Tuple[int, int]:
+    """The slabs' (rz, ry) after the layout checks of
+    pallas_halo.py:896-899, widened to any row counts: per field ``zlo``
+    and ``zhi`` (rz, Y, X), z-extended ``ylo`` and ``yhi`` (Z + 2rz, ry,
+    X), each holding at least ``rr`` rows, all of the shard's dtype and
+    device."""
+    from ..models.astaroth import FIELDS
+
+    if set(slabs) != set(FIELDS):
+        raise ValueError(f"{what}: slabs must hold exactly {FIELDS}")
+    Z, Y, X = f0.shape
+    rz = slabs[FIELDS[0]]["zlo"].shape[0]
+    ry = slabs[FIELDS[0]]["ylo"].shape[1]
+    want = {"zlo": (rz, Y, X), "zhi": (rz, Y, X), "ylo": (Z + 2 * rz, ry, X),
+            "yhi": (Z + 2 * rz, ry, X)}
+    for q in FIELDS:
+        if set(slabs[q]) != set(SLAB_NAMES):
+            raise ValueError(f"{what}: slabs[{q!r}] must hold exactly "
+                             f"{SLAB_NAMES}")
+        for k, shape in want.items():
+            t = slabs[q][k]
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{what}: slab {q}/{k} has shape "
+                                 f"{tuple(t.shape)}, expected {shape} (z "
+                                 f"slabs (rz, Y, X), z-extended y slabs "
+                                 f"(Z + 2rz, ry, X))")
+            if t.dtype != f0.dtype or t.device != f0.device:
+                raise ValueError(f"{what}: slab {q}/{k} is {t.dtype} on "
+                                 f"{t.device}, the shard {f0.dtype} on "
+                                 f"{f0.device}")
+    if rz < rr or ry < rr:
+        raise ValueError(f"{what}: slabs of {rz} z rows and {ry} y rows "
+                         f"cannot feed a radius-{rr} window")
+    return rz, ry
+
+
+def _slab_list(slabs: Dict[str, Dict[str, torch.Tensor]]):
+    """The 32 slab tensors in the launchers' order: all ``zlo``, then
+    ``zhi``, ``ylo``, ``yhi``, each in FIELDS order."""
+    from ..models.astaroth import FIELDS
+
+    return [slabs[q][k] for k in SLAB_NAMES for q in FIELDS]
+
+
+def _outputs(f0: torch.Tensor, out: Optional[Fields], what: str) -> Fields:
+    """The destination fields of a launch: ``out`` after checking it
+    (8 tensors of the shard's shape, dtype and device), else new ones."""
+    from ..models.astaroth import FIELDS
+
+    if out is None:
+        return {q: torch.empty_like(f0) for q in FIELDS}
+    if set(out) != set(FIELDS):
+        raise ValueError(f"{what}: outputs must hold exactly {FIELDS}")
+    for q, t in out.items():
+        if (t.shape != f0.shape or t.dtype != f0.dtype
+                or t.device != f0.device):
+            raise ValueError(f"{what}: output {q!r} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{f0.dtype} {tuple(f0.shape)} on {f0.device}")
+    return out
+
+
+def _window(f0: torch.Tensor, rr: int) -> torch.Tensor:
+    """Scratch for the kernels' radius-``rr`` window of the 8 fields,
+    (8, Z + 2rr, Y + 2rr, X); the window's offsets must fit 32 bits."""
+    Z, Y, X = f0.shape
+    if (Z + 2 * rr) * (Y + 2 * rr) * X >= 2 ** 31:
+        raise ValueError(f"shards whose radius-{rr} window holds 2^31 "
+                         f"points or more are not supported (32-bit "
+                         f"offsets)")
+    return torch.empty((8, Z + 2 * rr, Y + 2 * rr, X), dtype=f0.dtype,
+                       device=f0.device)
+
+
+def _copy_into(got: Optional[Fields], out: Optional[Fields],
+               f0: torch.Tensor, what: str) -> Optional[Fields]:
+    """A twin's result, copied into ``out`` when the caller gave one."""
+    if got is None or out is None:
+        return got
+    out = _outputs(f0, out, what)
+    for q, t in got.items():
+        out[q].copy_(t)
+    return out
+
+
+def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
+                          slabs: Dict[str, Dict[str, torch.Tensor]], s: int,
+                          prm, dt_phys: float, write_w: bool = True,
+                          out_f: Optional[Fields] = None,
+                          out_w: Optional[Fields] = None
+                          ) -> Tuple[Fields, Optional[Fields]]:
+    """B11: one fused RK3 substep ``s`` on 8 (Z, Y, X) shards of a
+    z/y-sharded mesh, reading across the shard's z and y edges from
+    ``slabs[q]`` (see ``halo_window``; radius R = 3 rows needed) and
+    wrapping x. Returns (new_fields, new_w); ``new_w`` is None when
+    ``write_w=False``. Dead-w elision as in B9: ``w=None`` (only for
+    ``alpha_s == 0``) skips the w read, ``write_w=False`` the w write.
+    ``out_f``/``out_w``: destination tensors (default: new ones), which
+    must not alias the inputs."""
+    from ..models.astaroth import FIELDS, RK3_ALPHA
+
+    what = "mhd_substep_halo_cuda"
+    f0 = _check_fields(fields, w, what)
+    if w is None and float(RK3_ALPHA[s]) != 0.0:
+        raise ValueError(f"{what}: w=None is only valid when alpha_s == 0 "
+                         f"(substep {s} has alpha {RK3_ALPHA[s]})")
+    if not write_w and out_w is not None:
+        raise ValueError(f"{what}: out_w given with write_w=False")
+    rz, ry = _check_slabs(f0, slabs, R, what)
+    if f0.device.type == "cpu":
+        nf, nw = mhd_substep_halo_plain(fields, w, slabs, s, prm, dt_phys,
+                                        write_w=write_w)
+        return _copy_into(nf, out_f, f0, what), _copy_into(nw, out_w, f0,
+                                                           what)
+    out_f = _outputs(f0, out_f, what)
+    out_w = _outputs(f0, out_w, what) if write_w else None
+    ins = [fields[q] for q in FIELDS]
+    w_in = [w[q] for q in FIELDS] if w is not None else []
+    sl = _slab_list(slabs)
+    outs = [out_f[q] for q in FIELDS]
+    wo = [out_w[q] for q in FIELDS] if write_w else []
+    _check_cuda(f0, ins + w_in + sl + outs + wo, what)
+    Z, Y, X = f0.shape
+    consts = kernel_consts(prm, dt_phys, s)
+    win = _window(f0, R)
+    # the pointer arrays are locals: they must outlive the call
+    p_in, p_sl, p_f = _ptrs(ins), _ptrs(sl), _ptrs(outs)
+    p_win = _ptrs(win.unbind(0))
+    p_w = _ptrs(w_in) if w_in else None
+    p_wo = _ptrs(wo) if wo else None
+    _launch("mhd_substep_halo_launch", f0.device, p_in, p_w, p_sl, p_win,
+            p_f, p_wo, Z, Y, X, rz, ry, consts.ctypes.data, consts.size)
+    LAUNCHES["mhd_substep_halo"] += 1
+    return out_f, out_w
+
+
+def mhd_substep01_halo_cuda(fields: Fields,
+                            slabs: Dict[str, Dict[str, torch.Tensor]], prm,
+                            dt_phys: float, out_f: Optional[Fields] = None,
+                            out_w: Optional[Fields] = None
+                            ) -> Tuple[Fields, Fields]:
+    """B12: RK3 substeps 0 and 1 fused into one launch on 8 (Z, Y, X)
+    shards with slabs of 2R = 6 valid rows (alpha_0 == 0, so no w is
+    read). Returns (f_2, w_2); equals B11(s=0, ``w=None``), a radius-R
+    slab round, then B11(s=1) to the kernels' tolerance. ``out_f``/
+    ``out_w`` as for ``mhd_substep_halo_cuda``."""
+    from ..models.astaroth import FIELDS
+
+    what = "mhd_substep01_halo_cuda"
+    f0 = _check_fields(fields, None, what)
+    rz, ry = _check_slabs(f0, slabs, 2 * R, what)
+    if f0.device.type == "cpu":
+        nf, nw = mhd_substep01_halo_plain(fields, slabs, prm, dt_phys)
+        return _copy_into(nf, out_f, f0, what), _copy_into(nw, out_w, f0,
+                                                           what)
+    out_f = _outputs(f0, out_f, what)
+    out_w = _outputs(f0, out_w, what)
+    ins = [fields[q] for q in FIELDS]
+    sl = _slab_list(slabs)
+    outs = [out_f[q] for q in FIELDS]
+    wo = [out_w[q] for q in FIELDS]
+    _check_cuda(f0, ins + sl + outs + wo, what)
+    Z, Y, X = f0.shape
+    consts = kernel_consts(prm, dt_phys)
+    win = _window(f0, 2 * R)
+    p_in, p_sl, p_f, p_w = _ptrs(ins), _ptrs(sl), _ptrs(outs), _ptrs(wo)
+    p_win = _ptrs(win.unbind(0))
+    _launch("mhd_substep01_halo_launch", f0.device, p_in, p_sl, p_win, p_f,
+            p_w, Z, Y, X, rz, ry, consts.ctypes.data, consts.size)
+    LAUNCHES["mhd_substep01_halo"] += 1
     return out_f, out_w

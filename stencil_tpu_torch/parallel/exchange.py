@@ -148,10 +148,10 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
                             rem: Dim3 = Dim3(0, 0, 0)
                             ) -> List[Dict[str, torch.Tensor]]:
     """The halo SLABS of the interior-resident (unpadded) shards of a
-    mesh: the data plane of the halo kernels (``ops/cuda_halo.py``).
-    Returns, per shard (x fastest), ``{"zlo", "zhi", "ylo", "yhi"}`` on
-    that shard's device; the shards are not changed. The JAX function's
-    alignment contract, per shard:
+    mesh: the data plane of the halo kernels (``ops/cuda_halo.py``,
+    ``ops/cuda_mhd.py``). Returns, per shard (x fastest), ``{"zlo",
+    "zhi", "ylo", "yhi"}`` on that shard's device; the shards are not
+    changed. The JAX function's alignment contract, per shard:
 
     * ``zlo`` (rz, Y, X): the z-minus neighbour's TOP rows, right-
       aligned (the row adjacent to this shard is ``zlo[-1]``);
@@ -162,6 +162,10 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
       or (Z + 2*rz, ry, X) when ``y_z_extended``: the y sources then
       span the z halo too (the neighbour's own interior plus the z slabs
       it received), so yz edge and corner data ride along.
+
+    A shard may carry leading batch dimensions, (..., Z, Y, X), such as
+    the 8 fields of an MHD state in one (8, Z, Y, X) tensor; its slabs
+    then carry the same ones, and each slice moves every field at once.
 
     ``radius_rows`` (default ``min(rz, ry)``) rows cross between shards;
     the rest of each buffer is zero filler. On a one-device mesh axis the
@@ -174,7 +178,8 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
         raise ValueError("exchange_interior_slabs: x must not be sharded "
                          f"(mesh {tuple(counts)})")
     arrs = _as_list(shards, counts)
-    Z, Y, X = arrs[0].shape
+    lead = tuple(arrs[0].shape[:-3])
+    Z, Y, X = arrs[0].shape[-3:]
     r = radius_rows or min(rz, ry)
     if not (r <= rz and r <= ry):
         raise ValueError(f"radius_rows {r} exceeds rz={rz} or ry={ry}")
@@ -190,19 +195,19 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
 
     # r-row transfers: zlo from the z-minus neighbour's actual top rows,
     # zhi from the z-plus neighbour's bottom rows
-    zlo_r = [to(arrs[j].narrow(0, Lz[j] - r, r), i) for i, j in
+    zlo_r = [to(arrs[j].narrow(-3, Lz[j] - r, r), i) for i, j in
              ((i, mesh_neighbor(i, counts, 2, -1)) for i in range(n))]
-    zhi_r = [to(arrs[j].narrow(0, 0, r), i) for i, j in
+    zhi_r = [to(arrs[j].narrow(-3, 0, r), i) for i, j in
              ((i, mesh_neighbor(i, counts, 2, 1)) for i in range(n))]
     if y_z_extended:
         def ysrc(j: int, lo: bool) -> torch.Tensor:
-            ys = slice(0, r) if lo else slice(Y - r, Y)
-            return torch.cat([zlo_r[j][:, ys], arrs[j][:, ys],
-                              zhi_r[j][:, ys]], dim=0)
+            y0 = 0 if lo else Y - r
+            return torch.cat([t.narrow(-2, y0, r) for t in
+                              (zlo_r[j], arrs[j], zhi_r[j])], dim=-3)
         zoff = rz - r
     else:
         def ysrc(j: int, lo: bool) -> torch.Tensor:
-            return arrs[j].narrow(1, 0 if lo else Ly[j] - r, r)
+            return arrs[j].narrow(-2, 0 if lo else Ly[j] - r, r)
         zoff = 0
     ylo_r = [to(ysrc(mesh_neighbor(i, counts, 1, -1), False), i)
              for i in range(n)]
@@ -212,17 +217,17 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
     def zembed(recv: torch.Tensor, align_hi: bool) -> torch.Tensor:
         if rz == r:
             return recv
-        pad = recv.new_zeros((rz - r, Y, X))
-        return torch.cat([pad, recv] if align_hi else [recv, pad], dim=0)
+        pad = recv.new_zeros(lead + (rz - r, Y, X))
+        return torch.cat([pad, recv] if align_hi else [recv, pad], dim=-3)
 
     def yembed(recv: torch.Tensor, align_hi: bool) -> torch.Tensor:
         out = recv
         if ry != r:
-            pad = out.new_zeros((out.shape[0], ry - r, X))
-            out = torch.cat([pad, out] if align_hi else [out, pad], dim=1)
+            pad = out.new_zeros(lead + (out.shape[-3], ry - r, X))
+            out = torch.cat([pad, out] if align_hi else [out, pad], dim=-2)
         if zoff:
-            zpad = out.new_zeros((zoff, ry, X))
-            out = torch.cat([zpad, out, zpad], dim=0)
+            zpad = out.new_zeros(lead + (zoff, ry, X))
+            out = torch.cat([zpad, out, zpad], dim=-3)
         return out.contiguous()
 
     return [{"zlo": zembed(zlo_r[i], True), "zhi": zembed(zhi_r[i], False),

@@ -172,15 +172,18 @@ def test_state_carried_from_jax_then_one_step(kernel):
 
 def test_state_from_jax_checks_what_it_is_given():
     f = {q: np.zeros((8, 8, 8), np.float32) for q in pm.FIELDS}
-    padded, w = astaroth_state_from_jax(f, device="cpu")
-    assert w is None and tuple(padded["lnrho"].shape) == (14, 14, 14)
+    dd = port_astaroth("xla", 1e-8, np.float32, n=(8, 8, 8)).dd
+    padded, w = astaroth_state_from_jax(f, None, dd)
+    assert w is None and tuple(padded["lnrho"][0].shape) == (14, 14, 14)
     with pytest.raises(ValueError, match="exactly"):
-        astaroth_state_from_jax({"lnrho": f["lnrho"]}, device="cpu")
+        astaroth_state_from_jax({"lnrho": f["lnrho"]}, None, dd)
     with pytest.raises(TypeError):
         astaroth_state_from_jax(f, {q: v.astype(np.float64)
-                                    for q, v in f.items()}, device="cpu")
+                                    for q, v in f.items()}, dd)
     with pytest.raises(TypeError):
-        astaroth_state_from_jax(f, device="cpu", dtype=torch.float64)
+        astaroth_state_from_jax(f, None, dd, dtype=torch.float64)
+    with pytest.raises(ValueError, match="domain's"):
+        astaroth_state_from_jax({q: v[:4] for q, v in f.items()}, None, dd)
 
 
 # -- path selection and what this slice leaves out ------------------------
@@ -203,12 +206,15 @@ def test_misaligned_wrap_raises_like_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kernel="halo"), dict(overlap=True), dict(exchange_every=2),
-    dict(mesh_shape=(2, 1, 1)), dict(boundary=Boundary.NONE),
-    dict(dtype=torch.bfloat16)])
+    dict(exchange_every=3), dict(overlap=True), dict(exchange_every=2),
+    dict(overlap=True, mesh_shape=(1, 2, 2), devices=["cpu"] * 4),
+    dict(boundary=Boundary.NONE), dict(dtype=torch.bfloat16)])
 def test_left_out_options_name_their_roadmap_item(kw):
+    """Temporal blocking beyond the halo path's substep pair (A7), the
+    overlap path (B13/B14), Boundary.NONE (A8d) and bfloat16 (A8b)."""
+    kw = dict(kw) if "devices" in kw else dict(kw, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.Astaroth(16, 16, 16, device="cpu", **kw)
+        pm.Astaroth(16, 16, 16, **kw)
 
 
 def test_model_entry_point_needs_a_card_unless_told(monkeypatch):

@@ -222,14 +222,138 @@ def test_astaroth_wrap_path_agrees_with_plain_path(cm, monkeypatch, pair):
     for a in (m, ref):
         a.init()
         a.run(2)
+    halo = {"mhd_substep_halo": 0, "mhd_substep01_halo": 0}
     if pair == "1":
-        assert cm.LAUNCHES == {"mhd_substep_wrap": 2, "mhd_substep01_wrap": 2}
+        assert cm.LAUNCHES == dict(halo, mhd_substep_wrap=2,
+                                   mhd_substep01_wrap=2)
     else:
-        assert cm.LAUNCHES == {"mhd_substep_wrap": 6, "mhd_substep01_wrap": 0}
+        assert cm.LAUNCHES == dict(halo, mhd_substep_wrap=6,
+                                   mhd_substep01_wrap=0)
     for q in FIELDS:
         got, want = m.field(q), ref.field(q)
         assert np.isfinite(got).all(), q
         assert np.abs(got - want).max() <= 6 * 64 * EPS32 * np.abs(want).max(), q
+
+
+# ---------------------------------------------------------------------------
+# the MHD halo path: B11/B12 (csrc/mhd.cu) on slabs of meshes of shards
+# ---------------------------------------------------------------------------
+def _mhd_mesh(size_zyx, mesh, seed, device="cuda"):
+    """(8, Z, Y, X) shards (sigma 0.1) and w (sigma 1e-4) of an
+    x-unsharded mesh, float32, from a seeded numpy generator."""
+    g = np.random.default_rng(seed)
+    Z, Y, X = size_zyx
+    lz, ly = Z // mesh[2], Y // mesh[1]
+    n = mesh[1] * mesh[2]
+    f = [torch.from_numpy(g.normal(0, 0.1, (8, lz, ly, X)).astype(np.float32))
+         .to(device) for _ in range(n)]
+    w = [torch.from_numpy(g.normal(0, 1e-4, (8, lz, ly, X))
+                          .astype(np.float32)).to(device) for _ in range(n)]
+    return f, w
+
+
+def _fields(t):
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    return dict(zip(FIELDS, t.unbind(0)))
+
+
+def _mhd_slabs(shards, mesh, **kw):
+    from stencil_tpu_torch.models.astaroth import FIELDS
+    from stencil_tpu_torch.parallel.exchange import exchange_interior_slabs
+
+    return [{q: {k: v[j] for k, v in sl.items()} for j, q in enumerate(FIELDS)}
+            for sl in exchange_interior_slabs(shards, Dim3(*mesh),
+                                              y_z_extended=True, **kw)]
+
+
+@pytest.mark.parametrize("layout", ["jax", "exact"])
+@pytest.mark.parametrize("size,mesh", [((16, 8, 16), (1, 1, 1)),
+                                       ((16, 16, 24), (1, 2, 2)),
+                                       ((32, 16, 5), (1, 2, 4))])
+def test_mhd_halo_kernels_match_twins(cm, size, mesh, layout):
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    kw11, kw12 = ((dict(rz=8, ry=8, radius_rows=3),
+                   dict(rz=8, ry=8, radius_rows=6)) if layout == "jax"
+                  else (dict(rz=3, ry=3), dict(rz=6, ry=6)))
+    shards, ws = _mhd_mesh(size, mesh, 45)
+    sl11, sl12 = _mhd_slabs(shards, mesh, **kw11), _mhd_slabs(shards, mesh,
+                                                              **kw12)
+    before = dict(cm.LAUNCHES)
+    for dt in (1e-8, 1e-4):
+        prm = MhdParams(dt=dt)
+        for t, w, s11, s12 in zip(shards, ws, sl11, sl12):
+            f, w = _fields(t), _fields(w)
+            for s, w_in, write_w in [(0, None, True), (1, w, True),
+                                     (2, w, False), (0, w, True),
+                                     (2, w, True)]:
+                kf, kw = cm.mhd_substep_halo_cuda(f, w_in, s11, s, prm, dt,
+                                                  write_w=write_w)
+                tf, tw = cm.mhd_substep_halo_plain(f, w_in, s11, s, prm, dt,
+                                                   write_w=write_w)
+                _assert_fields_close(kf, tf)
+                if write_w:
+                    _assert_fields_close(kw, tw)
+                else:
+                    assert kw is None and tw is None
+            kf, kw = cm.mhd_substep01_halo_cuda(f, s12, prm, dt)
+            tf, tw = cm.mhd_substep01_halo_plain(f, s12, prm, dt)
+            _assert_fields_close(kf, tf)
+            _assert_fields_close(kw, tw)
+    n = len(shards)
+    assert cm.LAUNCHES["mhd_substep_halo"] == before["mhd_substep_halo"] + 10 * n
+    assert (cm.LAUNCHES["mhd_substep01_halo"]
+            == before["mhd_substep01_halo"] + 2 * n)
+
+
+def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm):
+    """On a (1,1,1) mesh the slabs are the shard's own wrapped rows: B11
+    computes B9's values and B12 B10's, bit for bit."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    (t,), _ = _mhd_mesh((16, 8, 24), (1, 1, 1), 46)
+    f, prm = _fields(t), MhdParams(dt=1e-4)
+    (s3,), (s6,) = (_mhd_slabs([t], (1, 1, 1), rz=3, ry=3),
+                    _mhd_slabs([t], (1, 1, 1), rz=6, ry=6))
+    for got, want in ((cm.mhd_substep_halo_cuda(f, None, s3, 0, prm, 1e-4),
+                       cm.mhd_substep_wrap_cuda(f, None, 0, prm, 1e-4)),
+                      (cm.mhd_substep01_halo_cuda(f, s6, prm, 1e-4),
+                       cm.mhd_substep01_wrap_cuda(f, prm, 1e-4))):
+        for q in f:
+            assert torch.equal(got[0][q], want[0][q]), q
+            assert torch.equal(got[1][q], want[1][q]), q
+
+
+@pytest.mark.parametrize("pair", ["0", "1"])
+@pytest.mark.parametrize("mesh", [(1, 1, 1), (1, 2, 2)])
+def test_astaroth_halo_path_equals_wrap_path(cm, monkeypatch, mesh, pair):
+    """24 x 16 x 32 (x, y, z), two iterations at dt = 1e-4: the halo path
+    on one shard, and on four shards that share the card, equals the wrap
+    path bitwise (fields and carried w); 3 launches per shard an
+    iteration (B12 + B11 with the pair)."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    monkeypatch.setenv("STENCIL_MHD_PAIR", pair)
+    prm = MhdParams(dt=1e-4)
+    n = mesh[1] * mesh[2]
+    # auto takes halo on a mesh of more than one shard
+    h = Astaroth(24, 16, 32, params=prm, kernel="halo" if n == 1 else "auto",
+                 mesh_shape=mesh, devices=["cuda:0"] * n)
+    w = Astaroth(24, 16, 32, params=prm, kernel="wrap", device="cuda")
+    assert h.kernel_path == "halo"
+    cm.reset_launch_counts()
+    h.init()
+    h.run(2)
+    want = ({"mhd_substep_halo": 2 * n, "mhd_substep01_halo": 2 * n}
+            if pair == "1" else {"mhd_substep_halo": 6 * n,
+                                 "mhd_substep01_halo": 0})
+    assert cm.LAUNCHES == dict(want, mhd_substep_wrap=0, mhd_substep01_wrap=0)
+    w.init()
+    w.run(2)
+    for q in FIELDS:
+        np.testing.assert_array_equal(h.field(q), w.field(q))
+        np.testing.assert_array_equal(h.accumulator(q), w.accumulator(q))
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +484,35 @@ def test_kernels_launch_on_their_tensors_device_and_stream(ch, monkeypatch):
     assert seen == [(dev, dev.index)] * 2
 
 
+def test_mhd_halo_kernels_launch_on_each_shards_device_and_stream(
+        cm, monkeypatch):
+    """B11 and B12 launch on the device of their shard and on that
+    device's current stream, shard by shard, whatever device is current
+    (with one card every shard is on it)."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    n_dev = torch.cuda.device_count()
+    devs = [torch.device("cuda", (n_dev - 1 - i) % n_dev) for i in range(4)]
+    shards, _ = _mhd_mesh((16, 16, 8), (1, 2, 2), 47)
+    shards = [t.to(d) for t, d in zip(shards, devs)]
+    s3 = _mhd_slabs(shards, (1, 2, 2), rz=3, ry=3)
+    s6 = _mhd_slabs(shards, (1, 2, 2), rz=6, ry=6)
+    seen = []
+    real = torch.cuda.current_stream
+
+    def spy(device=None):
+        seen.append((device, torch.cuda.current_device()))
+        return real(device)
+
+    monkeypatch.setattr(torch.cuda, "current_stream", spy)
+    prm = MhdParams()
+    with torch.cuda.device(0):
+        for t, a, b in zip(shards, s3, s6):
+            cm.mhd_substep_halo_cuda(_fields(t), None, a, 0, prm, 1e-8)
+            cm.mhd_substep01_halo_cuda(_fields(t), b, prm, 1e-8)
+    assert seen == [(d, d.index) for d in devs for _ in range(2)]
+
+
 def _distinct_cards():
     n = torch.cuda.device_count()
     if n < 2:
@@ -406,3 +559,29 @@ def test_default_devices_spread_the_halo_path_over_every_card(ch):
         s.init()
         s.run(21)
     np.testing.assert_array_equal(m.temperature(), w.temperature())
+
+
+def test_astaroth_halo_on_four_distinct_cards_equals_one_card(cm):
+    """64 x 32 x 32 (x, y, z), run(3), halo path (and the pair): four
+    shards over four distinct cards equal the same shards on one card
+    bitwise, fields and carried w. Runs only with four or more cards."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip("needs four or more CUDA GPUs")
+    prm = MhdParams(dt=1e-4)
+    for pair in (0, 2):
+        runs = []
+        for devices in ([f"cuda:{3 - i}" for i in range(4)], ["cuda:0"] * 4):
+            m = Astaroth(64, 32, 32, params=prm, kernel="halo",
+                         mesh_shape=(1, 2, 2), devices=devices,
+                         exchange_every=pair or None)
+            assert [d.index for d in m.dd.mesh.devices] == \
+                [torch.device(d).index for d in devices]
+            m.init()
+            m.run(3)
+            runs.append({q: (m.field(q), m.accumulator(q)) for q in FIELDS})
+        for q in FIELDS:
+            np.testing.assert_array_equal(runs[0][q][0], runs[1][q][0])
+            np.testing.assert_array_equal(runs[0][q][1], runs[1][q][1])

@@ -147,7 +147,8 @@ def test_cpu_wrapper_routes_to_the_twin_and_launches_nothing():
         assert torch.equal(got_f[q], want_f[q])
         assert torch.equal(got_w[q], want_w[q])
     cm.mhd_substep01_wrap_cuda(_t(f), prm, 1e-4)
-    assert cm.LAUNCHES == {"mhd_substep_wrap": 0, "mhd_substep01_wrap": 0}
+    assert cm.LAUNCHES == {"mhd_substep_wrap": 0, "mhd_substep01_wrap": 0,
+                           "mhd_substep_halo": 0, "mhd_substep01_halo": 0}
 
 
 def test_wrappers_keep_the_jax_layout_rules():

@@ -112,8 +112,11 @@ def port_astaroth(kernel, dt, dtype, n=(16, 16, 16)):
 def astaroth_state(m):
     """({field: interior}, {field: w}) of either package's model, as
     numpy."""
-    from stencil_tpu_torch.models.astaroth import FIELDS
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth
 
+    if isinstance(m, Astaroth):
+        return ({q: m.field(q) for q in FIELDS},
+                {q: m.accumulator(q) for q in FIELDS})
     return ({q: m.field(q) for q in FIELDS},
             {q: np.asarray(m._w[q]) for q in FIELDS})
 
