@@ -40,6 +40,17 @@ Phases, in order; any failure exits non-zero before the last line:
      shards of a (1,1,2) mesh; B12 also against B11 s=0, a slab round and
      B11 s=1; on one shard B11 against B9 and B12 against B10, bitwise.
      Tolerance as for B9.
+   - B4 (exchange_axis: every shard stores its boundary slabs into its
+     neighbours' halos) sweep by sweep against its twin and whole
+     ``Method.PallasDMA`` exchanges against the slab copy: 512^3 radius 1
+     on (1,2,2), on (2,2,2) with eight shards on the card (the x sweep
+     remote too), float64 and bfloat16 at odd shapes with asymmetric
+     radii, and the 8-quantity radius-3 domain of 256 x 512 x 512 over
+     (1,2,2) through ``DistributedDomain.exchange``; B7 (jacobi7_overlap:
+     face slabs sent into the neighbours' receive slabs, interior, then
+     faces), field and landed slabs, on the 512 x 256 x 256 quarter
+     shards of (1,2,2), on one 512^3 shard and at small shapes.
+     Tolerance: 0 (B4 copies; B7 adds in its twin's orders).
 4. main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
@@ -79,6 +90,16 @@ Phases, in order; any failure exits non-zero before the last line:
      same against ``wrap``, and on (1,2,2) quarter shards against the
      ``xla`` run above. Every run moves every field by more than 10x
      that bound.
+   - ``Jacobi3D(512, 512, 512, overlap=True)`` on (1,2,2) with four
+     shards on the card (kernel="auto" must take ``overlap``): ``run(21)``
+     launches B7 84 times (once per shard and step, launch A and B) and
+     nothing else, agrees with ``xla`` on the same mesh within ``steps *
+     8 * eps(float32)``, and equals itself bitwise when one shard's
+     stream sleeps before each of its launches (a missing ordering rule
+     between the shards' streams would show there); the same on
+     (1,1,1) (21 launches). ``pallas`` with ``Method.PallasDMA`` (4
+     steps: 32 B4 and 16 K3 launches) and ``xla-overlap`` with
+     ``PallasDMA`` bitwise equal to the slab method.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
    and the halo path's slab exchange per group; iterations/s of the
@@ -87,7 +108,10 @@ Phases, in order; any failure exits non-zero before the last line:
    512 on (1,2,2) and halo at 256^3 on (1,1,1), with one slab round of
    that mesh at radius 3 and 6 (host clock around run(k), ending in a
    synchronize); B11 and B12 on one 256^3 shard of the (1,2,2) mesh,
-   beside B9 on the same shard; each
+   beside B9 on the same shard; ``overlap`` steps/s at 512^3 on (1,2,2)
+   and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the same sweep
+   by ``copy_`` (its library call), B7 per step of the four quarter
+   shards and of one 512^3 shard, and one ``measure_overlap`` line; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
@@ -1312,6 +1336,389 @@ def time_mhd_halo(torch, cm) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the remote-write paths: B4 (Method.PallasDMA) and B7 (the overlap path)
+# ---------------------------------------------------------------------------
+#: cycles of ``torch.cuda._sleep`` queued on the delayed shard's stream
+#: before each of its launches (about a millisecond at the H100's clock,
+#: ten times a quarter shard's launch A)
+DELAY_CYCLES = 2_000_000
+
+
+@contextlib.contextmanager
+def delayed_shard(torch, shard: int, n_shards: int, cycles: int = DELAY_CYCLES):
+    """For the block, every B7 launch of mesh position ``shard`` (launch
+    A and launch B; a step launches the shards' A in mesh order, then
+    their B) waits ``cycles`` on its own stream before it starts, so that
+    a missing ordering rule between the shards' streams shows as a wrong
+    result."""
+    from stencil_tpu_torch.ops import _build
+
+    real = _build.launch
+    calls = {"jacobi7_overlap_inner_launch": 0,
+             "jacobi7_overlap_faces_launch": 0}
+
+    def launch(name, fn_name, *args):
+        if fn_name in calls:
+            if calls[fn_name] % n_shards == shard:
+                torch.cuda._sleep(cycles)
+            calls[fn_name] += 1
+        return real(name, fn_name, *args)
+
+    _build.launch = launch
+    try:
+        yield calls
+    finally:
+        _build.launch = real
+
+
+def dma_shards(torch, gen, local_zyx, mesh, radius, dtype=None):
+    """Random padded shards of an evenly divided grid over ``mesh`` on
+    the card (halos random too)."""
+    lo, hi = radius.pad_lo(), radius.pad_hi()
+    Z, Y, X = local_zyx
+    shape = (Z + lo.z + hi.z, Y + lo.y + hi.y, X + lo.x + hi.x)
+    n = mesh[0] * mesh[1] * mesh[2]
+    return [torch.rand(shape, generator=gen, device="cuda").to(
+        dtype or torch.float32) for _ in range(n)]
+
+
+def overlap_case(torch, gen, size_xyz, mesh):
+    """Random (Z, Y, X) shards of an evenly divided grid over an
+    x-unsharded mesh, their origins (z, y, x) and the grid's spheres."""
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.parallel.mesh import mesh_index
+
+    X, Y, Z = size_xyz
+    counts = Dim3(*mesh)
+    lz, ly = Z // mesh[2], Y // mesh[1]
+    shards = [torch.rand((lz, ly, X), generator=gen, device="cuda")
+              for _ in range(counts.flatten())]
+    origins = [(mesh_index(i, counts).z * lz, mesh_index(i, counts).y * ly, 0)
+               for i in range(counts.flatten())]
+    return shards, origins, spheres((Z, Y, X), widen=0 if X >= 64 else 2)
+
+
+def compare_dma_overlap_kernels(torch, cx, co) -> dict:
+    """Phase 3, B4 and B7 against their twins, bitwise: B4 sweep by sweep
+    (kernel against ``exchange_axis_plain``) and whole exchanges
+    (``exchange_shard_cuda`` against the slab copy ``exchange_shard``) on
+    (1,2,2) at 512^3 radius 1, on (2,2,2) with eight shards on the card
+    (the x sweep remote too), on the 8-quantity radius-3 domain of 256 x
+    512 x 512 over (1,2,2) through ``DistributedDomain.exchange``, and at
+    small odd shapes in float64 and bfloat16 with an asymmetric radius;
+    B7 (field and landed slabs) on the 512 x 256 x 256 quarter shards of
+    (1,2,2), on one 512^3 shard, and at small shapes on (1,2,4) and (1,4,1)."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.distributed import DistributedDomain
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.parallel.cuda_exchange import exchange_shard_cuda
+    from stencil_tpu_torch.parallel.exchange import exchange_shard
+
+    gen = torch.Generator(device="cuda").manual_seed(7531)
+    worst = {"exchange_axis": 0.0, "jacobi7_overlap": 0.0}
+
+    def same(name, got, want, what):
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        eq = all(torch.equal(g, w) for g, w in zip(got, want))
+        log(f"  {what}: max |kernel - twin| = {err!r} "
+            f"({'bitwise equal' if eq else 'DIFFERENT'})")
+        if not eq:
+            raise AssertionError(f"{what}: kernel disagrees with its twin")
+        worst[name] = max(worst[name], err)
+
+    n = N512
+    r1 = Radius.constant(1)
+    b4 = [("512^3 (1,2,2) r=1", (n, n // 2, n // 2), (1, 2, 2), r1, None),
+          ("512^3 (2,2,2) r=1, eight shards", (n // 2,) * 3, (2, 2, 2), r1,
+           None),
+          ("(9, 6, 11) (2,2,2) asymmetric r, float64", (9, 6, 11),
+           (2, 2, 2), asym_radius(), torch.float64),
+          ("(9, 6, 11) (2,1,2) r=2, bfloat16", (9, 6, 11), (2, 1, 2),
+           Radius.constant(2), torch.bfloat16)]
+    for label, local, mesh, rad, dtype in b4:
+        counts = Dim3(*mesh)
+        shards = dma_shards(torch, gen, local, mesh, rad, dtype)
+        for a in range(3):
+            r_lo, r_hi = rad.face(a, -1), rad.face(a, 1)
+            if counts[a] == 1 or (r_lo == 0 and r_hi == 0):
+                continue
+            k = [t.clone() for t in shards]
+            w = [t.clone() for t in shards]
+            cx.exchange_axis_cuda(k, a, r_lo, r_hi, counts)
+            cx.exchange_axis_plain(w, a, r_lo, r_hi, counts)
+            same("exchange_axis", k, w, f"B4 {label}, {'xyz'[a]} sweep")
+        k = [t.clone() for t in shards]
+        w = [t.clone() for t in shards]
+        exchange_shard_cuda(k, rad, counts)
+        exchange_shard(w, rad, counts)
+        same("exchange_axis", k, w,
+             f"B4 {label}, whole exchange vs the slab copy")
+        del shards, k, w
+    doms = []
+    for method in (Method.PallasDMA, Method.PpermuteSlab):
+        d = DistributedDomain(N256, 2 * N256, 2 * N256,
+                              devices=["cuda:0"] * 4)
+        d.set_radius(3)
+        d.set_mesh_shape((1, 2, 2))
+        d.set_methods(method)
+        for q in range(8):
+            d.add_data(f"q{q}")
+        d.realize()
+        doms.append(d)
+    for q in doms[0].curr:
+        for s0, s1 in zip(doms[0].curr[q], doms[1].curr[q]):
+            s0.copy_(torch.rand(s0.shape, generator=gen, device="cuda"))
+            s1.copy_(s0)
+    for d in doms:
+        d.exchange()
+    for q in doms[0].curr:
+        same("exchange_axis", doms[0].curr[q], doms[1].curr[q],
+             f"B4 256x512x512 (1,2,2) r=3, quantity {q}: PallasDMA vs slab "
+             f"exchange()")
+    del doms
+    torch.cuda.empty_cache()
+    b7 = [((n, n, n), (1, 2, 2)), ((n, n, n), (1, 1, 1)),
+          ((33, 32, 32), (1, 2, 4)), ((24, 8, 4), (1, 4, 1)),
+          ((17, 6, 9), (1, 1, 1))]
+    for size, mesh in b7:
+        shards, origins, (hot, cold, r) = overlap_case(torch, gen, size, mesh)
+        counts = Dim3(*mesh)
+        out, recv = co.jacobi7_overlap_cuda(shards, origins, hot, cold, r,
+                                            counts)
+        new, slabs = co.jacobi7_overlap_plain(shards, origins, hot, cold, r,
+                                              counts)
+        same("jacobi7_overlap", out, new, f"B7 {size} mesh {mesh}, field")
+        for k in co.SLAB_NAMES:
+            same("jacobi7_overlap", [s[k] for s in recv.slabs],
+                 [s[k] for s in slabs],
+                 f"B7 {size} mesh {mesh}, landed {k} slabs")
+        del shards, out, recv, new, slabs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_overlap_paths(torch, cs, ch, cx, co) -> dict:
+    """Phase 4, the remote-write paths through ``Jacobi3D`` at 512^3:
+    ``overlap=True`` (kernel="auto" must take ``overlap``) on (1,2,2)
+    with four shards on the card — 21 steps, 84 B7 launches and no other
+    kernel — and on (1,1,1); each against the ``xla`` path on its mesh
+    within ``steps * 8 * eps(f32)``, the (1,2,2) run also against the
+    same run with one shard's stream delayed before each of its launches
+    (bitwise); ``pallas`` with ``Method.PallasDMA`` (4 steps: 32 B4 and 16
+    K3 launches) bitwise against ``pallas`` with the slab copy, and
+    ``xla-overlap`` with ``PallasDMA`` bitwise against the ``xla`` path."""
+    import numpy as np
+
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    eps = float(np.finfo(np.float32).eps)
+    out = {"launches_by_run": {}}
+    mods = (cs, ch, cx, co)
+
+    def reset():
+        for m in mods:
+            m.reset_launch_counts()
+
+    def counted():
+        c = {}
+        for m in mods:
+            c.update(m.LAUNCHES)
+        return c
+
+    def model(kernel, mesh, **kw):
+        j = Jacobi3D(N512, N512, N512, kernel=kernel, mesh_shape=mesh,
+                     devices=["cuda:0"] * (mesh[1] * mesh[2] * mesh[0]),
+                     **kw)
+        j.init()
+        j.block()
+        return j
+
+    def drive(label, j, steps, want):
+        reset()
+        j.run(steps)
+        j.block()
+        got = counted()
+        log(f"  {label} run({steps}) launches: {got}")
+        expect = {k: 0 for k in got}
+        expect.update(want)
+        if got != expect:
+            raise AssertionError(f"{label} launched {got}, not {want}")
+        out["launches_by_run"][label] = got
+        t = gather(torch, j)
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite values")
+        return t
+
+    def close(label, got, want, tol):
+        err = float((got - want).abs().max())
+        eq = bool(torch.equal(got, want))
+        log(f"  {label}: max diff {err!r} "
+            f"({'bitwise equal' if eq else 'not bitwise'}"
+            f"{'' if tol == 0 else f'; tolerance {tol!r}'})")
+        if (tol == 0 and not eq) or err > tol:
+            raise AssertionError(f"{label}: disagrees")
+        out[f"{label} max diff"] = err
+
+    steps = 21
+    for label, mesh in (("(1,2,2) on one card", (1, 2, 2)),
+                        ("(1,1,1)", (1, 1, 1))):
+        j = model("auto", mesh, overlap=True)
+        if j.kernel_path != "overlap":
+            raise AssertionError(f"overlap {label}: auto took "
+                                 f"{j.kernel_path!r}")
+        n_sh = mesh[1] * mesh[2]
+        got = drive(f"overlap 512^3 {label}", j, steps,
+                    {"jacobi7_overlap": n_sh * steps})
+        del j
+        x = model("xla", mesh)
+        x.run(steps)
+        ref = gather(torch, x)
+        del x
+        close(f"overlap 512^3 {label} vs xla after {steps} steps", got, ref,
+              steps * 8 * eps)
+        if mesh == (1, 2, 2):
+            j = model("auto", mesh, overlap=True)
+            with delayed_shard(torch, 3, n_sh) as calls:
+                slow = drive(f"overlap 512^3 {label}, shard 3 delayed", j,
+                             steps, {"jacobi7_overlap": n_sh * steps})
+            log(f"  B7 launches seen while shard 3 was delayed before "
+                f"each of its own: {dict(calls)}")
+            if set(calls.values()) != {n_sh * steps}:
+                raise AssertionError("the delay did not see every launch")
+            del j
+            close(f"overlap 512^3 {label}: delayed vs undelayed", slow, got,
+                  0)
+            del slow
+        del got, ref
+        torch.cuda.empty_cache()
+    mesh = (1, 2, 2)
+    runs = {}
+    for label, kernel, kw, want in (
+            ("pallas + PallasDMA", "pallas",
+             dict(methods=Method.PallasDMA),
+             {"exchange_axis": 32, "jacobi7_padded": 16}),
+            ("pallas + slab", "pallas", {}, {"jacobi7_padded": 16}),
+            ("xla-overlap + PallasDMA", "xla",
+             dict(methods=Method.PallasDMA, overlap=True),
+             {"exchange_axis": 32}),
+            ("xla + slab", "xla", {}, {})):
+        j = model(kernel, mesh, **kw)
+        runs[label] = drive(f"{label} 512^3 (1,2,2)", j, 4, want)
+        del j
+        torch.cuda.empty_cache()
+    close("pallas + PallasDMA vs pallas + slab, 4 steps",
+          runs["pallas + PallasDMA"], runs["pallas + slab"], 0)
+    close("xla-overlap + PallasDMA vs xla + slab, 4 steps",
+          runs["xla-overlap + PallasDMA"], runs["xla + slab"], 0)
+    del runs
+    torch.cuda.empty_cache()
+    main = out["launches_by_run"]
+    out["launches"] = {
+        "exchange_axis":
+            main["pallas + PallasDMA 512^3 (1,2,2)"]["exchange_axis"],
+        "jacobi7_overlap":
+            main["overlap 512^3 (1,2,2) on one card"]["jacobi7_overlap"]}
+    return out
+
+
+def time_dma_overlap(torch, cx, co) -> dict:
+    """Phase 5, the remote-write paths: B4 per sweep on the (1,2,2) mesh
+    of 512^3 (z and y sweeps, radius 1, four shards) beside its twin and
+    the same sweep by ``Tensor.copy_`` (``exchange_shard`` on that axis
+    alone: the library call); B7 per step of the four 512 x 256 x 256
+    quarter shards and of one 512^3 shard, beside its twin; ``overlap``
+    steps/s at 512^3 on (1,2,2) and (1,1,1); one ``measure_overlap``
+    line."""
+    from stencil_tpu_torch.apps import measure_overlap
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.parallel.exchange import (_single_axis_radius,
+                                                     exchange_shard)
+
+    res = {"steps_per_s": {}, "kernels": {}}
+    n = N512
+    for label, mesh in (("(1,2,2)", (1, 2, 2)), ("(1,1,1)", (1, 1, 1))):
+        j = Jacobi3D(n, n, n, overlap=True, mesh_shape=mesh,
+                     devices=["cuda:0"] * (mesh[1] * mesh[2]))
+        j.init()
+        j.run(2)
+        j.block()
+        t0 = time.perf_counter()
+        j.run(40)
+        j.block()
+        res["steps_per_s"][label] = 40 / (time.perf_counter() - t0)
+        log(f"  Jacobi overlap 512^3 {label}: {res['steps_per_s'][label]!r} "
+            f"steps/s")
+        del j
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    r1 = Radius.constant(1)
+    counts = Dim3(1, 2, 2)
+    shards = dma_shards(torch, gen, (n, n // 2, n // 2), (1, 2, 2), r1)
+    variants = {}
+    for a in (2, 1):
+        single = _single_axis_radius(r1, a)
+        # each shard's two slabs of its padded cross section, read once
+        # and written once
+        dim = {1: 1, 2: 0}[a]
+        cross = shards[0].numel() // shards[0].shape[dim]
+        nbytes = 4 * len(shards) * 2 * 2 * cross
+        ms = event_ms(torch, lambda: cx.exchange_axis_cuda(
+            shards, a, 1, 1, counts), reps=20)
+        plain_ms = event_ms(torch, lambda: cx.exchange_axis_plain(
+            shards, a, 1, 1, counts), reps=20)
+        lib_ms = event_ms(torch, lambda: exchange_shard(
+            shards, single, counts, axis_order=(a,)), reps=20)
+        bms, by = bound_ms(nbytes, 0)
+        variants[f"{'xyz'[a]} sweep"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "bytes": nbytes}
+        log(f"  exchange_axis {'xyz'[a]} sweep of four 512 x 256 x 256 "
+            f"shards: {ms!r} ms, bound {bms!r} ms ({by}, {nbytes} B); "
+            f"twin {plain_ms!r} ms; copy_ sweep {lib_ms!r} ms")
+    res["kernels"]["exchange_axis"] = dict(variants["z sweep"],
+                                           variants=variants)
+    del shards
+    torch.cuda.empty_cache()
+    b7 = {}
+    for label, mesh in (("four 512 x 256 x 256 shards of (1,2,2)",
+                         (1, 2, 2)), ("one 512^3 shard", (1, 1, 1))):
+        sh, orgs, (hot, cold, r) = overlap_case(torch, gen, (n, n, n), mesh)
+        c = Dim3(*mesh)
+        outs = [torch.empty_like(t) for t in sh]
+        recv = co.OverlapRecv(sh, c)
+        ms = event_ms(torch, lambda: co.jacobi7_overlap_cuda(
+            sh, orgs, hot, cold, r, c, out=outs, recv=recv), reps=20)
+        plain_ms = event_ms(torch, lambda: co.jacobi7_overlap_plain(
+            sh, orgs, hot, cold, r, c), reps=3, warmup=1)
+        pts = float(sum(t.numel() for t in sh))
+        slab_pts = sum(2 * t.shape[1] * t.shape[2] + 2 * t.shape[0]
+                       * t.shape[2] for t in sh)
+        # each shard read once and written once, each slab written once
+        # by its sender and read once by its receiver; 7 flops a point
+        bms, by = bound_ms(4 * (2 * pts + 2 * slab_pts), 7 * pts)
+        b7[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None}
+        log(f"  jacobi7_overlap, one step of {label}: {ms!r} ms, bound "
+            f"{bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; plain twin "
+            f"{plain_ms!r} ms")
+        del sh, outs, recv
+        torch.cuda.empty_cache()
+    res["kernels"]["jacobi7_overlap"] = dict(
+        b7["four 512 x 256 x 256 shards of (1,2,2)"], variants=b7)
+    mo = measure_overlap.measure(n, n // 2, n // 2, iters=10,
+                                 mesh_shape=(1, 2, 2), devices=["cuda:0"])
+    res["measure_overlap"] = measure_overlap.csv_line(mo)
+    log(f"  measure_overlap (1,2,2) on one card, {mo['fused_path']} vs "
+        f"{mo['overlap_path']}: {res['measure_overlap']}")
+    torch.cuda.empty_cache()
+    return res
+
+
 # name: (tag, source, TPU kernel it replaces)
 KERNEL_META = {
     "jacobi7_wrap": ("K1", "stencil_tpu_torch/csrc/jacobi7.cu",
@@ -1334,6 +1741,10 @@ KERNEL_META = {
                          "stencil_tpu/ops/pallas_halo.py:852"),
     "mhd_substep01_halo": ("B12", "stencil_tpu_torch/csrc/mhd.cu",
                            "stencil_tpu/ops/pallas_halo.py:969"),
+    "exchange_axis": ("B4", "stencil_tpu_torch/csrc/exchange_dma.cu",
+                      "stencil_tpu/parallel/pallas_exchange.py:57"),
+    "jacobi7_overlap": ("B7", "stencil_tpu_torch/csrc/jacobi_overlap.cu",
+                        "stencil_tpu/ops/pallas_overlap.py:55"),
 }
 
 
@@ -1354,8 +1765,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from stencil_tpu_torch.ops import _build
+    from stencil_tpu_torch.ops import cuda_exchange as cx
     from stencil_tpu_torch.ops import cuda_halo as ch
     from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_overlap as co
     from stencil_tpu_torch.ops import cuda_stencil as cs
 
     # phase 2: build
@@ -1370,6 +1783,7 @@ def main() -> int:
     worst.update(compare_halo_kernels(torch, ch))
     worst.update(compare_mhd_kernels(torch, cs, cm))
     worst.update(compare_mhd_halo_kernels(torch, cm))
+    worst.update(compare_dma_overlap_kernels(torch, cx, co))
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -1386,6 +1800,10 @@ def main() -> int:
     for name, n in mhd_path["launches"].items():
         launches[name] = launches.get(name, 0) + n
     launches.update(mhd_halo_path["launches"])
+    log("phase 4: Jacobi3D remote-write paths (overlap, PallasDMA) on one "
+        "card")
+    overlap_path = run_overlap_paths(torch, cs, ch, cx, co)
+    launches.update(overlap_path["launches"])
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -1402,10 +1820,12 @@ def main() -> int:
     for path, v in ips.items():
         log(f"  Astaroth {path}: {v!r} iterations/s")
     mhd_halo_times = time_mhd_halo(torch, cm)
+    dma_times = time_dma_overlap(torch, cx, co)
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
     times.update(mhd_halo_times["kernels"])
+    times.update(dma_times["kernels"])
 
     kernels = []
     for name, (tag, source, replaces) in KERNEL_META.items():
@@ -1437,6 +1857,9 @@ def main() -> int:
                    "main_path": main_path, "halo_path": halo_path,
                    "astaroth_path": mhd_path,
                    "astaroth_halo_path": mhd_halo_path,
+                   "overlap_path": overlap_path,
+                   "overlap_steps_per_s_512": dma_times["steps_per_s"],
+                   "measure_overlap": dma_times["measure_overlap"],
                    "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

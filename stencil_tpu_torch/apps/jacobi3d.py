@@ -19,7 +19,11 @@ The mesh runs on every visible CUDA device unless ``--devices`` lists
 one device per mesh position (repeats allowed: shards sharing a card)
 or ``--device`` names one (``--device cpu`` runs the plain PyTorch
 twins). With no ``--mesh-shape``, the ``halo`` and ``auto`` kernels take
-an x-unsharded mesh and the others a near-cubic one.
+an x-unsharded mesh and the others a near-cubic one. The method flags
+(``--slab``, ``--packed``, ``--allgather``, ``--pallas-dma``; JAX's
+``apps/_common.py``) choose the exchange of the padded paths
+(``--pallas-dma``: the remote-write kernel B4); the ``methods`` column
+prints the one that ran.
 """
 
 from __future__ import annotations
@@ -34,6 +38,34 @@ def _mesh_shape(text: str):
     if len(parts) != 3 or min(parts) < 1:
         raise argparse.ArgumentTypeError("--mesh-shape wants X,Y,Z")
     return tuple(parts)
+
+
+def add_method_flags(ap: argparse.ArgumentParser) -> None:
+    """The analog of the reference's per-method CLI flags (reference:
+    bin/jacobi3d.cu:107-122)."""
+    ap.add_argument("--slab", action="store_true",
+                    help="per-axis slab copy (default)")
+    ap.add_argument("--packed", action="store_true",
+                    help="packed exchange (runs the slab copy in the port)")
+    ap.add_argument("--allgather", action="store_true",
+                    help="all-gather exchange (runs the slab copy in the "
+                         "port)")
+    ap.add_argument("--pallas-dma", action="store_true",
+                    help="remote-write exchange: each shard's kernel stores "
+                         "its slabs into its neighbours' halos")
+
+
+def methods_from_args(args):
+    from ..parallel.methods import Method
+
+    m = Method.NONE
+    for flag, method in (("slab", Method.PpermuteSlab),
+                         ("packed", Method.PpermutePacked),
+                         ("allgather", Method.AllGather),
+                         ("pallas_dma", Method.PallasDMA)):
+        if getattr(args, flag, False):
+            m |= method
+    return m if m != Method.NONE else Method.Default
 
 
 def main(argv=None) -> None:
@@ -61,6 +93,7 @@ def main(argv=None) -> None:
                          "position (x fastest; repeats allowed)")
     ap.add_argument("--device", default=None,
                     help="one torch device for the whole mesh")
+    add_method_flags(ap)
     args = ap.parse_args(argv)
     if args.wrap_steps:
         os.environ["STENCIL_WRAP_STEPS"] = str(args.wrap_steps)
@@ -69,6 +102,7 @@ def main(argv=None) -> None:
     from ..numerics import Statistics
     from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
                                  resolve_devices)
+    from ..parallel.methods import pick_method
 
     shape = args.mesh_shape
     if args.devices is not None:
@@ -84,7 +118,7 @@ def main(argv=None) -> None:
                        else default_mesh_shape)(len(devices)))
     gx, gy, gz = args.x * shape[0], args.y * shape[1], args.z * shape[2]
     j = Jacobi3D(gx, gy, gz, kernel=args.kernel, mesh_shape=shape,
-                 devices=devices)
+                 devices=devices, methods=methods_from_args(args))
     j.init()
     stats = Statistics()
     for i in range(2 + max(args.iters // args.batch, 1)):
@@ -97,7 +131,7 @@ def main(argv=None) -> None:
     xstats = j.exchange_stats()
     ex_s = j.measure_exchange_seconds()
     print(",".join(str(f) for f in (
-        "jacobi3d", j.dd.methods, j.dd.num_subdomains(),
+        "jacobi3d", pick_method(j.dd.methods), j.dd.num_subdomains(),
         gx, gy, gz, b["x"], b["y"], b["z"],
         f"{stats.min() / args.batch:.6e}",
         f"{stats.trimean() / args.batch:.6e}",

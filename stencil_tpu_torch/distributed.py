@@ -2,10 +2,11 @@
 
 PyTorch-port counterpart of ``stencil_tpu/distributed.py`` (reference:
 include/stencil/stencil.hpp:33-225, src/stencil.cu): configure with
-``add_data`` / ``set_radius`` / ``set_boundary`` / ``set_mesh_shape``,
-``realize()`` partitions the grid, places one halo-padded shard per mesh
-position on its device, then ``exchange()`` fills the halos and
-``swap()`` flips the double buffer.
+``add_data`` / ``set_radius`` / ``set_methods`` / ``set_boundary`` /
+``set_mesh_shape``, ``realize()`` partitions the grid, places one
+halo-padded shard per mesh position on its device, then ``exchange()``
+fills the halos by the chosen method (``parallel/exchange.py``
+``dispatch_exchange``) and ``swap()`` flips the double buffer.
 
 The mesh is single-controller, as the JAX package's is: one process
 holds every shard (``curr[q]`` is a list of padded tensors, x fastest)
@@ -31,7 +32,7 @@ import torch
 from .geometry import Dim3, Dim3Like, Radius
 from .local_domain import interior_slices, raw_size, zyx_shape
 from .numerics import div_ceil
-from .parallel.exchange import exchange_shard, exchanged_bytes_per_sweep
+from .parallel.exchange import dispatch_exchange, exchanged_bytes_per_sweep
 from .parallel.mesh import Mesh, mesh_index, resolve_devices
 from .parallel.methods import Method, pick_method
 from .partition import RankPartition, partition_dims_even
@@ -99,6 +100,11 @@ class DistributedDomain:
 
     def set_radius(self, r: Union[int, Radius]) -> None:
         self.radius = Radius.constant(r) if isinstance(r, int) else r
+
+    def set_methods(self, m: Method) -> None:
+        """The exchange strategies allowed (``Method`` flags); realize()
+        and exchange() run the one ``pick_method`` chooses."""
+        self.methods = m
 
     def set_boundary(self, b: Boundary) -> None:
         self.boundary = b
@@ -192,14 +198,14 @@ class DistributedDomain:
 
     # -- iteration ------------------------------------------------------
     def exchange(self) -> None:
-        """Fill all halos of every quantity's ``curr`` shards, in place
-        (reference: src/stencil.cu:1002-1186)."""
+        """Fill all halos of every quantity's ``curr`` shards, in place,
+        by the method ``pick_method(self.methods)`` chooses (reference:
+        src/stencil.cu:1002-1186)."""
         if self.local_size is None:
             raise RuntimeError("realize() first")
-        for q in self._names:
-            exchange_shard(self.curr[q], self.radius, self.mesh_counts,
-                           rem=self.rem, alloc_radius=self.alloc_radius,
-                           nonperiodic=self.boundary == Boundary.NONE)
+        dispatch_exchange(self.curr, self.radius, self.mesh_counts,
+                          pick_method(self.methods), rem=self.rem,
+                          nonperiodic=self.boundary == Boundary.NONE)
 
     def swap(self) -> None:
         """Swap curr/next bindings (reference: src/local_domain.cu:67-84);

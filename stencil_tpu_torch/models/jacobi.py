@@ -26,10 +26,25 @@ model:
   (``jacobi7_padded_cuda``) per shard, sources, write-back.
 * ``xla`` — exchange, the plain PyTorch stencil (``ops/stencil_kernels``),
   sources, write-back: the port's reference path; no kernel.
-* ``auto`` — on CUDA devices, JAX's on-TPU choice: ``wrap`` on a
-  (1,1,1) mesh, else ``halo`` when x is unsharded, else ``xla`` (a
-  kernel path only for float32); on the CPU ``xla``, as the JAX model
-  picks it off-TPU.
+* ``overlap`` (``overlap=True`` with ``kernel="halo"``, or ``auto`` on
+  CUDA devices) — the reference's interior/exchange/exterior overlap
+  (bin/jacobi3d.cu:296-377) as B7 (``jacobi7_overlap_cuda``): each
+  shard's interior stays resident, and every step each shard sends its
+  four face slabs straight into its neighbours' receive slabs while its
+  interior is computed, then recomputes its faces from the landed slabs.
+  Needs x unsharded, an even grid, local z >= 4 and y >= 2, radius 1,
+  periodic boundaries.
+* ``xla-overlap`` / ``pallas-overlap`` — ``overlap=True`` elsewhere: the
+  padded paths with the deep interior computed while the exchange runs
+  (``parallel/overlap.py``).
+* ``auto`` — on CUDA devices, JAX's on-TPU choice: ``overlap`` when
+  overlap is asked for and possible, else ``wrap`` on a (1,1,1) mesh,
+  else ``halo`` when x is unsharded, else ``xla`` (a kernel path only for
+  float32); on the CPU ``xla``, as the JAX model picks it off-TPU.
+
+The padded paths exchange by ``methods`` (``Method`` flags, JAX's
+``DistributedDomain.set_methods``): ``Method.PallasDMA`` is B4's
+remote-write sweep, the others the slab copy.
 """
 
 from __future__ import annotations
@@ -44,15 +59,18 @@ import torch
 from ..distributed import DeviceLike, DistributedDomain, torch_dtype
 from ..geometry import Dim3, Dim3Like, Radius
 from ..ops.cuda_halo import jacobi7_halo_cuda, jacobi7_halon_cuda
+from ..ops.cuda_overlap import OverlapRecv, jacobi7_overlap_cuda
 from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, impose_spheres,
                                 jacobi7_padded_cuda, jacobi7_wrap_cuda,
                                 jacobi7_wrapn_cuda, sublane_tile)
 from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import jacobi7, write_interior
-from ..parallel.exchange import (exchange_interior_slabs, exchange_shard,
+from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
                                  interior_slab_bytes, shard_interior_len,
                                  shard_origin)
 from ..parallel.mesh import mesh_index
+from ..parallel.methods import Method, pick_method
+from ..parallel.overlap import overlapped_update
 from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import wrap2_disabled
@@ -78,26 +96,93 @@ def _apply_sources(new: torch.Tensor, origin_xyz, hot_c: Dim3,
     return impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox))
 
 
+def _update(p: torch.Tensor, radius: Radius, dims: Dim3,
+            kernel: str) -> torch.Tensor:
+    """The 7-point update of the region ``dims`` of a padded block:
+    plain PyTorch ("xla") or K3 ("pallas", ``jacobi7_padded_cuda``,
+    which takes a contiguous block on the card)."""
+    if kernel == "pallas":
+        return jacobi7_padded_cuda(p.contiguous() if p.is_cuda else p,
+                                   radius, dims)
+    return jacobi7(p, radius, dims)
+
+
 def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
                       counts: Dim3, local: Dim3, gsize: Dim3,
                       kernel: str = "xla", rem: Dim3 = Dim3(0, 0, 0),
-                      nonperiodic: bool = False) -> None:
+                      nonperiodic: bool = False,
+                      method: Method = Method.Default) -> None:
     """One Jacobi step on the padded shards of a mesh (x fastest):
-    exchange, then per shard the 7-point update of its capacity interior
-    plus the Dirichlet sphere sources at its own origin, written back in
-    place (the JAX version runs one shard under ``shard_map`` and returns
-    a new array). ``kernel``: "xla" (plain PyTorch) or "pallas" (K3,
-    ``jacobi7_padded_cuda``)."""
+    exchange by ``method``, then per shard the 7-point update of its
+    capacity interior plus the Dirichlet sphere sources at its own
+    origin, written back in place (the JAX version runs one shard under
+    ``shard_map`` and returns a new array). ``kernel``: "xla" (plain
+    PyTorch) or "pallas" (K3, ``jacobi7_padded_cuda``)."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
-    exchange_shard(shards, radius, counts, rem=rem, nonperiodic=nonperiodic)
+    dispatch_exchange({"temp": shards}, radius, counts, method, rem=rem,
+                      nonperiodic=nonperiodic)
     for i, p in enumerate(shards):
-        if kernel == "pallas":
-            new = jacobi7_padded_cuda(p, radius, local)
-        else:
-            new = jacobi7(p, radius, local)
+        new = _update(p, radius, local, kernel)
         origin = shard_origin(local, rem, mesh_index(i, counts))
         new = _apply_sources(new, origin, hot_c, cold_c, sph_r)
         write_interior(p, new, radius)
+
+
+def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
+                              radius: Radius, counts: Dim3, local: Dim3,
+                              gsize: Dim3, method: Method,
+                              kernel: str = "xla",
+                              nonperiodic: bool = False) -> None:
+    """The overlapped variant of ``jacobi_shard_step`` on an evenly
+    divided mesh (JAX: models/jacobi.py:125-149): the deep interior of
+    every shard is computed while the exchange runs, the thin face
+    slabs from the exchanged shards afterwards
+    (``parallel/overlap.py``), then the spheres and the write-back."""
+    hot_c, cold_c, sph_r = sphere_geometry(gsize)
+
+    def upd(blocks, dims, off):
+        return {"temp": _update(blocks["temp"], radius, dims, kernel)}
+
+    new = overlapped_update({"temp": list(shards)}, radius, counts, method,
+                            upd, nonperiodic=nonperiodic)
+    for i, p in enumerate(shards):
+        origin = shard_origin(local, Dim3(0, 0, 0), mesh_index(i, counts))
+        out = _apply_sources(new[i]["temp"], origin, hot_c, cold_c, sph_r)
+        write_interior(p, out, radius)
+
+
+def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
+                       local: Dim3, radius_ok: bool, nonperiodic: bool,
+                       on_gpu: bool, f32: bool) -> str:
+    """The compute path ``Jacobi3D`` builds: JAX's selection rules
+    (models/jacobi.py:439-504, :557-570) with its on-TPU choice taken on
+    CUDA devices, where the port's kernels run (and, as they take
+    float32 only, for a float32 domain). Raises as JAX does for an
+    explicit kernel its conditions exclude."""
+    if overlap and rem != Dim3(0, 0, 0):
+        raise NotImplementedError("overlap mode requires an evenly "
+                                  "divisible grid")
+    accel = on_gpu and f32
+    wrap_ok = (counts == Dim3(1, 1, 1) and rem == Dim3(0, 0, 0)
+               and not overlap and radius_ok and not nonperiodic)
+    halo_ok = counts.x == 1 and not overlap and radius_ok and not nonperiodic
+    overlap_ok = (overlap and counts.x == 1 and radius_ok
+                  and local.z >= 4 and local.y >= 2 and not nonperiodic)
+    if overlap_ok and (kernel == "halo" or (kernel == "auto" and accel)):
+        return "overlap"
+    if kernel == "auto":
+        kernel = ("xla" if not accel else "wrap" if wrap_ok
+                  else "halo" if halo_ok else "xla")
+    if kernel == "wrap" and not wrap_ok:
+        raise ValueError("kernel='wrap' needs a (1,1,1) mesh, radius 1, "
+                         "periodic boundaries, overlap off")
+    if kernel == "halo" and not halo_ok:
+        raise ValueError("kernel='halo' needs an x-unsharded mesh, radius "
+                         "1, periodic boundaries, overlap off (or overlap "
+                         "with local z >= 4 and y >= 2)")
+    if kernel in ("wrap", "halo"):
+        return kernel
+    return f"{kernel}-overlap" if overlap else kernel
 
 
 def _wrap_steps(tile: int) -> int:
@@ -121,20 +206,23 @@ class Jacobi3D:
                  kernel: str = "auto", boundary: Optional[Boundary] = None,
                  device: DeviceLike = None,
                  mesh_shape: Optional[Dim3Like] = None,
-                 devices: Optional[Sequence] = None) -> None:
+                 devices: Optional[Sequence] = None,
+                 methods: Method = Method.Default,
+                 overlap: bool = False) -> None:
         if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
         self.dd = DistributedDomain(x, y, z, device=device, devices=devices)
         self.dd.set_radius(1)
+        self.dd.set_methods(methods)
         if boundary is not None:
             self.dd.set_boundary(boundary)
         devs = self.dd._devices
         on_gpu = all(d.type == "cuda" for d in devs)
         if mesh_shape is not None:
             self.dd.set_mesh_shape(mesh_shape)
-        elif len(devs) > 1 and (kernel == "halo"
-                                or (kernel == "auto" and on_gpu)):
+        elif len(devs) > 1 and not overlap and (
+                kernel == "halo" or (kernel == "auto" and on_gpu)):
             # prefer an x-unsharded decomposition so the halo path is
             # available (models/jacobi.py:329-341 of the JAX package)
             shape = partition_dims_even_xfree(Dim3(x, y, z), len(devs))
@@ -144,6 +232,8 @@ class Jacobi3D:
         self.dd.add_data("temp", self._dtype)
         self.dd.realize()
         self._kernel = kernel
+        self._overlap = bool(overlap)
+        self._overlap_recv: Optional[OverlapRecv] = None
         self._build_step()
 
     # -- initial conditions (reference: bin/jacobi3d.cu:18-27) ---------
@@ -164,42 +254,38 @@ class Jacobi3D:
     def _build_step(self) -> None:
         dd = self.dd
         radius = dd.radius
-        counts = dd.mesh_counts
-        nonper = dd.boundary == Boundary.NONE
         radius_ok = all(radius.face(a, s) == 1
                         for a in range(3) for s in (-1, 1))
-        # the JAX model's wrap_ok / halo_ok (models/jacobi.py:474-483)
-        # with no overlap, wire formats or temporal depths; the port's
-        # kernels take float32 only, so ``auto`` picks them only for a
-        # float32 domain
+        # the port's kernels take float32 only, so ``auto`` picks them
+        # only for a float32 domain
         f32 = self._dtype == torch.float32
-        wrap_ok = (counts == Dim3(1, 1, 1) and dd.rem == Dim3(0, 0, 0)
-                   and radius_ok and not nonper)
-        halo_ok = counts.x == 1 and radius_ok and not nonper
-        kernel = self._kernel
-        if kernel == "auto":
-            on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
-            kernel = ("xla" if not (on_gpu and f32) else "wrap" if wrap_ok
-                      else "halo" if halo_ok else "xla")
-            LOG_INFO(f"jacobi kernel path: {kernel}")
-        if kernel in ("wrap", "halo", "pallas") and not f32:
+        path = select_kernel_path(
+            self._kernel, self._overlap, dd.mesh_counts, dd.rem,
+            dd.local_size, radius_ok, dd.boundary == Boundary.NONE,
+            all(d.type == "cuda" for d in dd.mesh.devices), f32)
+        if self._kernel == "auto" or path == "overlap":
+            LOG_INFO(f"jacobi kernel path: {path}")
+        kernel = path.split("-")[0]
+        if kernel in ("wrap", "halo", "pallas", "overlap") and not f32:
             raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
                             f"float32 only, got {self._dtype}; use "
                             f"kernel='xla'")
+        self._method = pick_method(dd.methods)
         tile = sublane_tile(self._dtype)
         if kernel == "wrap":
-            if not wrap_ok:
-                raise ValueError("kernel='wrap' needs a (1,1,1) mesh, "
-                                 "radius 1 and periodic boundaries")
             self._wrap_n = _wrap_steps(tile)
             self._pair_ok = (dd.size.y % tile == 0 and self._wrap_n > 1
                              and not wrap2_disabled())
         if kernel == "halo":
-            if not halo_ok:
-                raise ValueError("kernel='halo' needs an x-unsharded mesh, "
-                                 "radius 1 and periodic boundaries")
             self._build_halo_step(tile)
-        self.kernel_path = kernel
+        if kernel == "overlap":
+            # the kernel moves the same single-row face slabs as a
+            # radius-1 slab exchange (JAX models/jacobi.py:927-928)
+            self._slab_exchange_cfg = dict(rz=1, ry=1, radius_rows=1,
+                                           y_z_extended=False,
+                                           per_iter_div=1)
+        self._base_kernel = kernel
+        self.kernel_path = path
 
     def _build_halo_step(self, tile: int) -> None:
         """JAX's ``_build_halo_step`` rules (models/jacobi.py:838-878):
@@ -249,12 +335,22 @@ class Jacobi3D:
         if self.kernel_path == "halo":
             self._run_halo(iters)
             return
+        if self.kernel_path == "overlap":
+            self._run_overlap(iters)
+            return
         dd = self.dd
+        nonper = dd.boundary == Boundary.NONE
         for _ in range(iters):
-            jacobi_shard_step(dd.curr["temp"], dd.radius, dd.mesh_counts,
-                              dd.local_size, dd.size,
-                              kernel=self.kernel_path, rem=dd.rem,
-                              nonperiodic=dd.boundary == Boundary.NONE)
+            if self._overlap:
+                jacobi_shard_step_overlap(
+                    dd.curr["temp"], dd.radius, dd.mesh_counts,
+                    dd.local_size, dd.size, self._method,
+                    kernel=self._base_kernel, nonperiodic=nonper)
+            else:
+                jacobi_shard_step(dd.curr["temp"], dd.radius,
+                                  dd.mesh_counts, dd.local_size, dd.size,
+                                  kernel=self._base_kernel, rem=dd.rem,
+                                  nonperiodic=nonper, method=self._method)
 
     def _run_wrap(self, n: int) -> None:
         """Slice the interior into a contiguous tensor once, ping-pong it
@@ -325,6 +421,34 @@ class Jacobi3D:
         for p, t in zip(dd.curr["temp"], a):
             p[cap].copy_(t)
 
+    def _run_overlap(self, n: int) -> None:
+        """As ``_run_halo``: each shard's capacity interior (the grid is
+        even here) sliced into a contiguous tensor once, ping-ponged with
+        a second buffer through B7, and written back once; the halos go
+        stale. The shards' receive slabs persist across runs. The steps
+        run in one ``OverlapRecv.session``: between them only B7's two
+        ordering rules join the shards' streams."""
+        dd = self.dd
+        counts, local = dd.mesh_counts, dd.local_size
+        hot, cold, sph_r = sphere_geometry(dd.size)
+        cap = self._capacity_slices()
+        a = [p[cap].contiguous() for p in dd.curr["temp"]]
+        b = [torch.empty_like(t) for t in a]
+        orgs = []
+        for i in range(len(a)):
+            ox, oy, oz = shard_origin(local, dd.rem, dd.shard_index(i))
+            orgs.append((oz, oy, ox))
+        if self._overlap_recv is None:
+            self._overlap_recv = OverlapRecv(a, counts)
+        recv = self._overlap_recv
+        with recv.session():
+            for _ in range(n):
+                jacobi7_overlap_cuda(a, orgs, hot, cold, sph_r, counts,
+                                     out=b, recv=recv)
+                a, b = b, a
+        for p, t in zip(dd.curr["temp"], a):
+            p[cap].copy_(t)
+
     def block(self) -> None:
         device_sync(self.dd.curr["temp"])
 
@@ -337,14 +461,15 @@ class Jacobi3D:
         models/jacobi.py:950-993): bytes that cross between shards per
         iteration, whole mesh, and exchange rounds per iteration. The
         wrap path has none; the halo path counts its slab transfers
-        (``interior_slab_bytes``) over its group length; the padded paths
-        exchange once a step."""
+        (``interior_slab_bytes``) over its group length, the overlap path
+        its single-row face slabs; the padded paths exchange once a
+        step."""
         path = self.kernel_path
         if path == "wrap":
             return {"path": path, "bytes_per_iteration": 0,
                     "rounds_per_iteration": 0.0}
         counts = self.dd.mesh_counts
-        if path == "halo":
+        if path in ("halo", "overlap"):
             cfg = self._slab_exchange_cfg
             local = self.dd.local_size
             per_shard = interior_slab_bytes(
@@ -363,12 +488,13 @@ class Jacobi3D:
     def measure_exchange_seconds(self, reps: int = 10) -> float:
         """Exchange seconds per ITERATION of the built path: the halo
         path's slab exchange of one group (timed on zero shards) over
-        its group length, or one ``dd.exchange()`` on the padded paths;
-        0.0 on the wrap path, which has no exchange."""
+        its group length (the overlap path: a round of its single-row
+        face slabs), or one ``dd.exchange()`` on the padded paths; 0.0
+        on the wrap path, which has no exchange."""
         path = self.kernel_path
         if path == "wrap":
             return 0.0
-        if path == "halo":
+        if path in ("halo", "overlap"):
             cfg = self._slab_exchange_cfg
             return self.slab_exchange_seconds(reps) / cfg["per_iter_div"]
         self.dd.exchange()
@@ -381,8 +507,8 @@ class Jacobi3D:
 
     def slab_exchange_seconds(self, reps: int = 10) -> float:
         """Seconds of one ``exchange_interior_slabs`` round of the halo
-        path's group configuration over all shards, on capacity-sized
-        zero shards (the state is not touched)."""
+        (or overlap) path's slab configuration over all shards, on
+        capacity-sized zero shards (the state is not touched)."""
         cfg = self._slab_exchange_cfg
         dd = self.dd
         c = dd.local_size

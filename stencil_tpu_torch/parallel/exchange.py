@@ -16,6 +16,10 @@ share one; on a one-device axis the neighbour is the shard itself).
 * ``exchange_interior_slabs`` returns, per shard, the four slab tensors
   the halo kernels read (``ops/cuda_halo.py``), leaving the shards as
   they are.
+* ``dispatch_exchange`` routes a multi-quantity exchange by
+  ``Method``: ``PallasDMA`` to the remote-write kernel
+  (``parallel/cuda_exchange.py``, B4), every other transport to
+  ``exchange_shard``'s slab copy.
 
 Both keep the JAX functions' arguments, with the list of shards (x
 fastest, the order of ``Mesh.devices``) in place of the one traced
@@ -273,3 +277,87 @@ def exchanged_bytes_per_sweep(shard_padded_shape_zyx, radius: Radius,
                 other *= shape[d]
         out[AXIS_NAME[a]] = radius.wire_rows(a) * other * elem_size
     return out
+
+
+def _single_axis_radius(radius: Radius, axis: int) -> Radius:
+    """``radius`` on the faces of ``axis`` alone, zero elsewhere."""
+    r = Radius.constant(0)
+    for side in (-1, 1):
+        d = [0, 0, 0]
+        d[axis] = side
+        r.set_dir(tuple(d), radius.face(axis, side))
+    return r
+
+
+class ExchangeInFlight:
+    """A started exchange. ``wait()`` makes the cards' current streams
+    wait for the shard streams it runs on (``ops/cuda_exchange.
+    ShardStreams``); with none — the slab copy, or any exchange on the
+    CPU — it has landed already and ``wait()`` has nothing to do."""
+
+    def __init__(self, streams=None) -> None:
+        self._streams = streams
+
+    def wait(self) -> None:
+        if self._streams is not None:
+            self._streams.exit()
+            self._streams = None
+
+
+def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
+                            radius: Radius, mesh_counts: Dim3, method,
+                            axis_order: Tuple[int, ...] = (0, 1, 2),
+                            rem: Dim3 = Dim3(0, 0, 0),
+                            alloc_radius: "Radius | None" = None,
+                            nonperiodic: bool = False):
+    """Start ``dispatch_exchange`` and return a handle whose ``wait()``
+    makes the work queued after it on the cards' current streams see
+    the filled halos. Between the two, the caller may queue work that
+    reads only the shards' interiors, which the exchange does not write
+    — the overlap path's inner block. The slab copy runs on the current
+    streams and has landed at once; ``PallasDMA`` runs on the shards'
+    own streams (``parallel/cuda_exchange.py``)."""
+    from .methods import Method
+
+    counts = Dim3.of(mesh_counts)
+    slab = method in (Method.PpermuteSlab, Method.PpermutePacked)
+    if rem != Dim3(0, 0, 0) and not slab:
+        raise NotImplementedError(
+            f"uneven (+-1 remainder) subdomains are only supported by "
+            f"the PpermuteSlab and PpermutePacked methods, not {method}")
+    if (alloc_radius is not None or nonperiodic) and not slab:
+        raise NotImplementedError(
+            f"deep-carry allocations and non-periodic boundaries are only "
+            f"supported by the PpermuteSlab and PpermutePacked methods, "
+            f"not {method}")
+    if method == Method.PallasDMA:
+        from .cuda_exchange import start_exchange_shard_cuda
+
+        return start_exchange_shard_cuda(list(fields.values()), radius,
+                                         counts, axis_order)
+    for shards in fields.values():
+        exchange_shard(shards, radius, counts, axis_order, rem,
+                       alloc_radius, nonperiodic)
+    return ExchangeInFlight()
+
+
+def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
+                      mesh_counts: Dim3, method,
+                      axis_order: Tuple[int, ...] = (0, 1, 2),
+                      rem: Dim3 = Dim3(0, 0, 0),
+                      alloc_radius: "Radius | None" = None,
+                      nonperiodic: bool = False
+                      ) -> Dict[str, List[torch.Tensor]]:
+    """Route a multi-quantity exchange (``fields[q]`` is the list of
+    padded shards of quantity q, x fastest) to the selected strategy,
+    in place; returns ``fields`` (JAX: ``parallel/exchange.py:693-738``,
+    with its ``NotImplementedError`` for uneven grids, non-periodic
+    boundaries and deep allocations on a non-slab method).
+    ``PallasDMA`` is B4's remote-write sweep, on the card and (as its
+    plain twin) on the CPU; ``PpermuteSlab``, ``PpermutePacked`` and
+    ``AllGather`` are all the slab copy of ``exchange_shard`` (ROADMAP
+    A4: the packed and all-gather engines are not ported). The halos
+    are the same bits whatever the method."""
+    start_dispatch_exchange(fields, radius, mesh_counts, method, axis_order,
+                            rem, alloc_radius, nonperiodic).wait()
+    return fields

@@ -3,16 +3,17 @@
 PyTorch-port counterpart of ``stencil_tpu/parallel/methods.py`` (the
 analog of the reference's Method bitflags,
 include/stencil/method.hpp:5-16). The flag names are kept so that a
-configuration reads the same in both packages. In this slice of the
-port every domain is one GPU, so every exchange is a local slab copy
-(``parallel/exchange.py``) whatever the method; ``PallasDMA`` (in-kernel
-remote writes) has no GPU counterpart yet and is never runnable.
+configuration reads the same in both packages. ``parallel/exchange.py``
+``dispatch_exchange`` routes them: ``PallasDMA`` to the hand-written
+remote-write kernel (``parallel/cuda_exchange.py``, B4: each shard
+stores its boundary slabs straight into its neighbours' halos), every
+other transport to the slab copy of ``exchange_shard``.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, Optional, Set, Tuple
+from typing import Tuple
 
 
 class Method(enum.Flag):
@@ -40,52 +41,18 @@ METHOD_PRIORITY: Tuple["Method", ...] = (
     Method.AllGather)
 
 
-def method_runnable(m: "Method") -> bool:
-    """Can this strategy EXECUTE in the port? Everything but the
-    in-kernel remote-write transport, which is not ported yet."""
-    return m != Method.PallasDMA
-
-
-# (requested, fallback) pairs already warned about
-_warned: Set[Tuple[int, int]] = set()
-
-
-def pick_method(methods: "Method",
-                runnable: Optional[Callable[["Method"], bool]] = None
-                ) -> "Method":
-    """Choose the single strategy the exchange will use, by priority
-    (the analog of the reference's per-pair transport routing,
-    src/stencil.cu:371-458). A requested strategy that cannot run is
-    skipped with a logged warning in favour of the next runnable one,
-    or ``Method.Default`` when nothing requested is runnable.
-    ``Method.Auto`` alone raises: the port has no autotuner yet."""
-    if runnable is None:
-        runnable = method_runnable
+def pick_method(methods: "Method") -> "Method":
+    """Choose the single strategy the exchange will use: the requested
+    transport of highest priority (the analog of the reference's
+    per-pair transport routing, src/stencil.cu:371-458). Every transport
+    runs in the port — ``PallasDMA`` as its CUDA kernel on the card and
+    as the kernel's plain twin on the CPU —, so nothing requested is
+    ever replaced by another. ``Method.Auto`` alone raises: the port has
+    no exchange autotuner yet."""
     requested = [m for m in METHOD_PRIORITY if m in methods]
-    if not requested:
-        if Method.Auto in methods:
-            raise ValueError(
-                "Method.Auto carries no transport, and the port has no "
-                "exchange autotuner yet: name a method")
-        raise ValueError(f"no usable method in {methods}")
-    skipped = []
-    for m in requested:
-        if runnable(m):
-            if skipped:
-                _warn_fallback(skipped, m)
-            return m
-        skipped.append(m)
-    _warn_fallback(skipped, Method.Default)
-    return Method.Default
-
-
-def _warn_fallback(skipped, chosen: "Method") -> None:
-    from ..utils.logging import LOG_WARN
-
-    key = (sum(m.value for m in skipped), chosen.value)
-    if key in _warned:
-        return
-    _warned.add(key)
-    names = "|".join(m.name or "?" for m in skipped)
-    LOG_WARN(f"requested exchange method(s) {names} cannot run in the "
-             f"PyTorch port; falling back to {chosen}")
+    if requested:
+        return requested[0]
+    if Method.Auto in methods:
+        raise ValueError("Method.Auto carries no transport, and the port "
+                         "has no exchange autotuner yet: name a method")
+    raise ValueError(f"no usable method in {methods}")

@@ -585,3 +585,237 @@ def test_astaroth_halo_on_four_distinct_cards_equals_one_card(cm):
         for q in FIELDS:
             np.testing.assert_array_equal(runs[0][q][0], runs[1][q][0])
             np.testing.assert_array_equal(runs[0][q][1], runs[1][q][1])
+
+
+# ---------------------------------------------------------------------------
+# the remote-write paths: B4 (csrc/exchange_dma.cu, Method.PallasDMA) and B7
+# (csrc/jacobi_overlap.cu, the overlap path)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cx(cs):
+    from stencil_tpu_torch.ops import cuda_exchange
+
+    return cuda_exchange
+
+
+@pytest.fixture
+def co(cs):
+    from stencil_tpu_torch.ops import cuda_overlap
+
+    return cuda_overlap
+
+
+def _asym():
+    r = Radius.constant(1)
+    r.set_dir((1, 0, 0), 2)
+    r.set_dir((0, 0, -1), 3)
+    r.set_dir((0, 1, 0), 0)
+    return r
+
+
+def _padded_shards(local_zyx, mesh, radius, dtype, seed):
+    lo, hi = radius.pad_lo(), radius.pad_hi()
+    Z, Y, X = local_zyx
+    shape = (Z + lo.z + hi.z, Y + lo.y + hi.y, X + lo.x + hi.x)
+    n = mesh[0] * mesh[1] * mesh[2]
+    return [(1000 * _rand(shape, seed + i)).to(dtype) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("local,mesh,rad", [
+    ((5, 6, 7), (2, 2, 2), "r2"),
+    ((9, 4, 11), (3, 2, 2), "asym"),
+    ((4, 8, 9), (1, 2, 3), "r1"),
+])
+def test_exchange_axis_kernel_equals_twin(cx, local, mesh, rad, dtype):
+    """Every remote sweep, kernel against twin, every cell bitwise (any
+    dtype: the kernel copies units of 2 to 16 bytes); then the whole
+    remote-write exchange against the slab copy."""
+    from stencil_tpu_torch.parallel.cuda_exchange import exchange_shard_cuda
+    from stencil_tpu_torch.parallel.exchange import exchange_shard
+
+    radius = {"r1": Radius.constant(1), "r2": Radius.constant(2),
+              "asym": _asym()}[rad]
+    counts = Dim3(*mesh)
+    shards = _padded_shards(local, mesh, radius, dtype, 71)
+    for a in range(3):
+        r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
+        if counts[a] == 1 or r_lo + r_hi == 0:
+            continue
+        k = [t.clone() for t in shards]
+        w = [t.clone() for t in shards]
+        before = cx.LAUNCHES["exchange_axis"]
+        cx.exchange_axis_cuda(k, a, r_lo, r_hi, counts)
+        assert cx.LAUNCHES["exchange_axis"] == before + len(shards)
+        cx.exchange_axis_plain(w, a, r_lo, r_hi, counts)
+        for i, (g, t) in enumerate(zip(k, w)):
+            assert torch.equal(g, t), (a, i)
+    k = [t.clone() for t in shards]
+    exchange_shard_cuda(k, radius, counts)
+    exchange_shard(shards, radius, counts)
+    for g, t in zip(k, shards):
+        assert torch.equal(g, t)
+
+
+def test_exchange_axis_refuses_mixed_or_strided_shards(cx):
+    shards = [_rand((6, 6, 6), 72 + i) for i in range(2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cx.exchange_axis_cuda([shards[0], shards[1].cpu()], 0, 1, 1,
+                              Dim3(2, 1, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        cx.exchange_axis_cuda([t.transpose(0, 1) for t in shards], 0, 1, 1,
+                              Dim3(2, 1, 1))
+
+
+def _overlap_case(size_xyz, mesh, seed):
+    X, Y, Z = size_xyz
+    lz, ly = Z // mesh[2], Y // mesh[1]
+    n = mesh[1] * mesh[2]
+    shards = [_rand((lz, ly, X), seed + i) for i in range(n)]
+    orgs = [((i // mesh[1]) * lz, (i % mesh[1]) * ly, 0) for i in range(n)]
+    return shards, orgs, ((X // 3, Y // 2, Z // 2),
+                          (2 * X // 3, Y // 2, Z // 2), 3)
+
+
+@pytest.mark.parametrize("size,mesh", [((24, 16, 16), (1, 2, 2)),
+                                       ((33, 32, 32), (1, 2, 4)),
+                                       ((17, 6, 9), (1, 1, 1)),
+                                       ((24, 8, 4), (1, 4, 1))])
+def test_overlap_kernel_equals_twin(co, size, mesh):
+    shards, orgs, (hot, cold, r) = _overlap_case(size, mesh, 73)
+    counts = Dim3(*mesh)
+    co.reset_launch_counts()
+    out, recv = co.jacobi7_overlap_cuda(shards, orgs, hot, cold, r, counts)
+    assert co.LAUNCHES["jacobi7_overlap"] == len(shards)
+    new, slabs = co.jacobi7_overlap_plain(shards, orgs, hot, cold, r, counts)
+    for i in range(len(shards)):
+        assert torch.equal(out[i], new[i]), i
+        for k in co.SLAB_NAMES:
+            assert torch.equal(recv.slabs[i][k], slabs[i][k]), (i, k)
+
+
+@pytest.fixture
+def delayed_launches(monkeypatch):
+    """``delay(shard, n_shards)``: from then on, every B7 launch of mesh
+    position ``shard`` (A and B) first sleeps on its own stream."""
+    from stencil_tpu_torch.ops import _build
+
+    real = _build.launch
+    calls = {"jacobi7_overlap_inner_launch": 0,
+             "jacobi7_overlap_faces_launch": 0}
+
+    def delay(shard, n_shards, cycles=2_000_000):
+        def launch(name, fn_name, *args):
+            if fn_name in calls:
+                if calls[fn_name] % n_shards == shard:
+                    torch.cuda._sleep(cycles)
+                calls[fn_name] += 1
+            return real(name, fn_name, *args)
+        monkeypatch.setattr(_build, "launch", launch)
+        return calls
+    return delay
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_overlap_steps_with_a_delayed_neighbour_equal_the_twin(
+        co, delayed_launches, shard):
+    """Six steps in one session, one shard's stream sleeping before each
+    of its launches: rule (b) keeps its neighbours' launch B from reading
+    slabs it has not sent yet, rule (a) keeps them from overwriting slabs
+    it has not read yet. Equals six steps of the twin bitwise."""
+    shards, orgs, (hot, cold, r) = _overlap_case((64, 32, 32), (1, 2, 2), 74)
+    counts = Dim3(1, 2, 2)
+    want = [t.clone() for t in shards]
+    for _ in range(6):
+        want, _ = co.jacobi7_overlap_plain(want, orgs, hot, cold, r, counts)
+    a = [t.clone() for t in shards]
+    b = [torch.empty_like(t) for t in a]
+    recv = co.OverlapRecv(a, counts)
+    calls = delayed_launches(shard, 4)
+    with recv.session():
+        for _ in range(6):
+            co.jacobi7_overlap_cuda(a, orgs, hot, cold, r, counts, out=b,
+                                    recv=recv)
+            a, b = b, a
+    assert set(calls.values()) == {24}
+    for g, w in zip(a, want):
+        assert torch.equal(g, w)
+
+
+def test_overlap_path_agrees_with_plain_path(co, delayed_launches):
+    """64^3 on four shards of the card: ``overlap=True`` (auto takes
+    ``overlap``) launches B7 once per shard a step and nothing else,
+    agrees with ``xla`` within steps x 8 eps(f32) after run(5), and
+    equals itself with a delayed shard bitwise."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.ops import cuda_halo, cuda_stencil
+
+    runs = {}
+    for label, kw in (("overlap", dict(overlap=True)), ("xla",
+                                                        dict(kernel="xla")),
+                      ("delayed", dict(overlap=True))):
+        m = Jacobi3D(64, 64, 64, mesh_shape=(1, 2, 2),
+                     devices=["cuda:0"] * 4, **kw)
+        assert m.kernel_path == ("xla" if label == "xla" else "overlap")
+        m.init()
+        if label == "delayed":
+            delayed_launches(1, 4)
+        for mod in (co, cuda_halo, cuda_stencil):
+            mod.reset_launch_counts()
+        m.run(5)
+        if label != "xla":
+            assert co.LAUNCHES["jacobi7_overlap"] == 20
+            assert not any(cuda_halo.LAUNCHES.values())
+            assert not any(cuda_stencil.LAUNCHES.values())
+        runs[label] = m.temperature()
+    eps = np.finfo(np.float32).eps
+    assert np.abs(runs["overlap"] - runs["xla"]).max() <= 5 * 8 * eps
+    np.testing.assert_array_equal(runs["delayed"], runs["overlap"])
+
+
+@pytest.mark.parametrize("kernel,overlap", [("pallas", False),
+                                            ("xla", True)])
+def test_pallas_dma_paths_equal_slab_paths(cx, kernel, overlap):
+    """The padded paths with Method.PallasDMA equal them with the slab
+    copy bitwise (48^3 on (2,2,1) and (1,2,2), run(3)); every step
+    launches B4 once per shard and remote axis."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    for mesh in ((2, 2, 1), (1, 2, 2)):
+        runs = []
+        for methods in (Method.PallasDMA, Method.PpermuteSlab):
+            m = Jacobi3D(48, 48, 48, kernel=kernel, overlap=overlap,
+                         methods=methods, mesh_shape=mesh,
+                         devices=["cuda:0"] * 4)
+            m.init()
+            cx.reset_launch_counts()
+            m.run(3)
+            want = 3 * 4 * 2 if methods == Method.PallasDMA else 0
+            assert cx.LAUNCHES["exchange_axis"] == want
+            runs.append(m.temperature())
+        np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("kernel,overlap,methods", [
+    ("halo", True, None), ("xla", False, "dma"), ("pallas", False, "dma")])
+def test_remote_write_paths_on_distinct_cards_equal_one_card(
+        cx, kernel, overlap, methods):
+    """128^3, run(7): four shards over distinct cards (their kernels
+    storing into each other's memory over the peer link) equal the same
+    four shards on one card bitwise."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    devs = _distinct_cards()
+    mesh = (1, 2, 2) if kernel == "halo" else (2, 2, 1)
+    kw = {} if methods is None else {"methods": Method.PallasDMA}
+    runs = []
+    for devices in (devs, ["cuda:0"] * 4):
+        m = Jacobi3D(128, 128, 128, kernel=kernel, overlap=overlap,
+                     mesh_shape=mesh, devices=devices, **kw)
+        m.init()
+        m.run(7)
+        runs.append(m.temperature())
+    np.testing.assert_array_equal(runs[0], runs[1])

@@ -48,7 +48,10 @@ def test_imports_without_nvcc_or_jax():
             " stencil_tpu_torch.apps.jacobi3d, stencil_tpu_torch.ops.fd6,"
             " stencil_tpu_torch.ops.cuda_mhd, stencil_tpu_torch.models.astaroth,"
             " stencil_tpu_torch.apps.astaroth, stencil_tpu_torch.ops.cuda_halo,"
-            " stencil_tpu_torch.parallel.mesh, stencil_tpu_torch.placement;"
+            " stencil_tpu_torch.parallel.mesh, stencil_tpu_torch.placement,"
+            " stencil_tpu_torch.ops.cuda_exchange, stencil_tpu_torch.ops.cuda_overlap,"
+            " stencil_tpu_torch.parallel.cuda_exchange,"
+            " stencil_tpu_torch.parallel.overlap, stencil_tpu_torch.apps.measure_overlap;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'stencil_tpu')];"
             " assert not bad, bad")
@@ -69,7 +72,8 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-    assert set(_build.sources()) == {"jacobi7", "jacobi_halo", "laplace6",
-                                     "mhd"}
+    assert set(_build.sources()) == {"exchange_dma", "jacobi7",
+                                     "jacobi_halo", "jacobi_overlap",
+                                     "laplace6", "mhd"}
     assert os.path.basename(_build.library_path("jacobi7")).startswith(
         "libjacobi7-")
