@@ -51,6 +51,19 @@ Phases, in order; any failure exits non-zero before the last line:
      faces), field and landed slabs, on the 512 x 256 x 256 quarter
      shards of (1,2,2), on one 512^3 shard and at small shapes.
      Tolerance: 0 (B4 copies; B7 adds in its twin's orders).
+   - B13 (mhd_substep_overlap: every shard stores its boundary rows of
+     the 8 fields into its face and diagonal neighbours' receive
+     buffers, then computes its interior) and B14 (mhd_substep_fixup:
+     the exterior shell from the landed rows) for every variant (s=0
+     with w=None, s=1, s=2 with write_w=False, the pair) on (1,1,1),
+     (1,1,2), (1,2,2) and (1,2,4) meshes of small shards and on the four
+     256^3 shards of 256 x 512 x 512 over (1,2,2): B13's interior against
+     its twin per field within 64 eps(f32) x max, its landed rows
+     bitwise; B14 after B13 bitwise against B11 (B12 with the pair) on
+     the same shards and rows, and within the same tolerance of their
+     twins; a chain of substeps on the 256^3 shards with shard 3's
+     stream delayed before each of its launches bitwise equal to the
+     undelayed chain.
 4. main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
@@ -100,6 +113,16 @@ Phases, in order; any failure exits non-zero before the last line:
      (1,1,1) (21 launches). ``pallas`` with ``Method.PallasDMA`` (4
      steps: 32 B4 and 16 K3 launches) and ``xla-overlap`` with
      ``PallasDMA`` bitwise equal to the slab method.
+   - ``Astaroth(256, 512, 512, overlap=True)`` on (1,2,2) with four
+     shards on the card: kernel="auto" must take ``halo-overlap``;
+     ``run(2)`` launches B13 and B14 24 times each and nothing else (16
+     and 16 with ``STENCIL_MHD_PAIR=1``) and equals the ``halo`` runs
+     above bitwise (fields and carried w), also with shard 3's stream
+     delayed before each of its launches; 256^3 ``halo-overlap`` on
+     (1,1,1) (6 + 6 launches) bitwise equal to ``wrap``; the MHD
+     ``xla-overlap`` path with ``Method.PallasDMA`` (384 B4 launches) on
+     32 x 32 x 48 over (1,2,2) against ``xla`` within substeps x 64 eps
+     x max.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
    and the halo path's slab exchange per group; iterations/s of the
@@ -111,7 +134,11 @@ Phases, in order; any failure exits non-zero before the last line:
    beside B9 on the same shard; ``overlap`` steps/s at 512^3 on (1,2,2)
    and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the same sweep
    by ``copy_`` (its library call), B7 per step of the four quarter
-   shards and of one 512^3 shard, and one ``measure_overlap`` line; each
+   shards and of one 512^3 shard, and one ``measure_overlap`` line;
+   iterations/s of Astaroth ``halo-overlap`` (and with the pair) at 256 x
+   512 x 512 on (1,2,2) and at 256^3 on (1,1,1), B13 and B14 per variant
+   on one 256^3 shard and per substep of the four shards of (1,2,2), and
+   one ``measure_overlap --model mhd`` line at 256^3 per shard; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
@@ -151,7 +178,14 @@ B10_FLOPS = B9_FLOPS[0] + B9_FLOPS[1]
 LAPLACE6_FLOPS = 34
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """One line of the run's log; a phase's first line also gives the
+    seconds since the script started."""
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - _T0:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -1118,6 +1152,8 @@ def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
                                                "mhd_substep01_halo": 8})):
         got = drive(label, "auto", big, (1, 2, 2), pair, want)
         against_wrap(label, big, got, pair)
+        # the halo-overlap path is held against these (phase 4, B13/B14)
+        out.setdefault("halo_state", {})[pair] = got
         del got
     cube = (N256,) * 3
     got = drive("256^3 (1,1,1)", "halo", cube, (1, 1, 1), "0",
@@ -1345,18 +1381,22 @@ def time_mhd_halo(torch, cm) -> dict:
 DELAY_CYCLES = 2_000_000
 
 
+B7_FNS = ("jacobi7_overlap_inner_launch", "jacobi7_overlap_faces_launch")
+B13_B14_FNS = ("mhd_substep_overlap_launch", "mhd_substep_fixup_launch")
+
+
 @contextlib.contextmanager
-def delayed_shard(torch, shard: int, n_shards: int, cycles: int = DELAY_CYCLES):
-    """For the block, every B7 launch of mesh position ``shard`` (launch
-    A and launch B; a step launches the shards' A in mesh order, then
-    their B) waits ``cycles`` on its own stream before it starts, so that
-    a missing ordering rule between the shards' streams shows as a wrong
-    result."""
+def delayed_shard(torch, shard: int, n_shards: int, cycles: int = DELAY_CYCLES,
+                  fns=B7_FNS):
+    """For the block, every launch ``fns`` (B7's launch A and launch B by
+    default; a step launches the shards' A in mesh order, then their B)
+    of mesh position ``shard`` waits ``cycles`` on its own stream before
+    it starts, so that a missing ordering rule between the shards'
+    streams shows as a wrong result."""
     from stencil_tpu_torch.ops import _build
 
     real = _build.launch
-    calls = {"jacobi7_overlap_inner_launch": 0,
-             "jacobi7_overlap_faces_launch": 0}
+    calls = {fn: 0 for fn in fns}
 
     def launch(name, fn_name, *args):
         if fn_name in calls:
@@ -1719,6 +1759,393 @@ def time_dma_overlap(torch, cx, co) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the MHD overlap path: B13 (mhd_substep_overlap) and B14 (mhd_substep_fixup)
+# ---------------------------------------------------------------------------
+OVERLAP_VARIANTS = ((0, False, True, False), (1, True, True, False),
+                    (2, True, False, False), (0, False, True, True))
+
+
+def overlap_variant_tag(s, read_w, write_w, pair):
+    if pair:
+        return "pair"
+    return (f"s={s}{'' if read_w else ' (w=None)'}"
+            f"{'' if write_w else ' (write_w=False)'}")
+
+
+def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
+    """Phase 3, B13 and B14 against their twins per field within 64
+    eps(f32) of the largest twin value (B13 at its interior points, its
+    landed rows bitwise), and B14 after B13 against B11 (B12 with the
+    pair) on the same shards and rows bitwise, for every variant (s = 0
+    with w=None, s = 1, s = 2 with write_w=False, the pair), on (1,1,1),
+    (1,1,2), (1,2,2) and (1,2,4) meshes of small shards and on the four
+    256^3 shards of 256 x 512 x 512 over (1,2,2); there also a chain of
+    substeps in one session with shard 3's stream delayed before each of
+    its launches, bitwise equal to the undelayed chain. Returns the
+    largest absolute difference per kernel."""
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    worst = {"mhd_substep_overlap": 0.0, "mhd_substep_fixup": 0.0}
+    dt = MHD_PATH_DT
+    prm = MhdParams(dt=dt)
+    cases = [((16, 8, 24), (1, 1, 1)), ((32, 8, 16), (1, 1, 2)),
+             ((48, 48, 16), (1, 2, 2)), ((32, 32, 40), (1, 2, 4)),
+             ((2 * N256, 2 * N256, N256), (1, 2, 2))]
+    for size, mesh in cases:
+        counts = Dim3(*mesh)
+        shards, ws = mhd_mesh_case(torch, gen, size, mesh)
+        f = [per_field(t) for t in shards]
+        w = [per_field(t) for t in ws]
+        Z, Y = shards[0].shape[1:3]
+        for s, read_w, write_w, pair in OVERLAP_VARIANTS:
+            tag = (f"{size} mesh {mesh} "
+                   f"{overlap_variant_tag(s, read_w, write_w, pair)}")
+            hr = mo.halo_rows(pair)
+            w_in = w if read_w else None
+            kf, kw, recv = mo.mhd_substep_overlap_cuda(
+                f, w_in, s, prm, dt, counts, pair=pair, write_w=write_w)
+            tf, tw, tsl = mo.mhd_substep_overlap_plain(
+                f, w_in, s, prm, dt, counts, pair=pair, write_w=write_w)
+            landed = recv.landed(hr)
+            if not all(torch.equal(landed[i][q][k], tsl[i][q][k])
+                       for i in range(len(f)) for q in FIELDS
+                       for k in cm.SLAB_NAMES):
+                raise AssertionError(f"B13 {tag}: landed rows differ from "
+                                     f"the twin's")
+            inner = mo.interior_region(Z, Y, pair)
+            if inner is not None:
+                z0, nz, y0, ny = inner
+                cut = (slice(z0, z0 + nz), slice(y0, y0 + ny))
+
+                def at(g):
+                    return {f"{q} shard {i}": g[i][q][cut]
+                            for i in range(len(f)) for q in FIELDS}
+
+                e = check_fields(torch, at(kf), at(tf),
+                                 f"B13 {tag}, f (interior)")
+                if write_w:
+                    e = max(e, check_fields(torch, at(kw), at(tw),
+                                            f"B13 {tag}, w (interior)"))
+                worst["mhd_substep_overlap"] = max(
+                    worst["mhd_substep_overlap"], e)
+            del tf, tw
+            kf, kw = mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm, dt,
+                                               counts, recv, pair=pair)
+            same = True
+            tf, tw = {}, {}
+            for i in range(len(f)):
+                if pair:
+                    hf, hw = cm.mhd_substep01_halo_cuda(f[i], tsl[i], prm, dt)
+                    pf, pw = cm.mhd_substep01_halo_plain(f[i], tsl[i], prm, dt)
+                else:
+                    wi = None if w_in is None else w_in[i]
+                    hf, hw = cm.mhd_substep_halo_cuda(f[i], wi, tsl[i], s, prm,
+                                                      dt, write_w=write_w)
+                    pf, pw = cm.mhd_substep_halo_plain(f[i], wi, tsl[i], s,
+                                                       prm, dt,
+                                                       write_w=write_w)
+                same &= all(torch.equal(kf[i][q], hf[q]) for q in FIELDS)
+                if write_w:
+                    same &= all(torch.equal(kw[i][q], hw[q]) for q in FIELDS)
+                tf.update({f"{q} shard {i}": v for q, v in pf.items()})
+                if write_w:
+                    tw.update({f"{q} shard {i}": v for q, v in pw.items()})
+                del hf, hw, pf, pw
+            every = {f"{q} shard {i}": kf[i][q]
+                     for i in range(len(f)) for q in FIELDS}
+            e = check_fields(torch, every, tf, f"B14 after B13 {tag} vs the "
+                             f"B11/B12 twin, f")
+            if write_w:
+                every = {f"{q} shard {i}": kw[i][q]
+                         for i in range(len(f)) for q in FIELDS}
+                e = max(e, check_fields(torch, every, tw, f"B14 after B13 "
+                                        f"{tag} vs the B11/B12 twin, w"))
+            worst["mhd_substep_fixup"] = max(worst["mhd_substep_fixup"], e)
+            del tf, tw, every
+            log(f"  B14 after B13 vs {'B12' if pair else 'B11'}, {tag}: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"B14 after B13 differs from B11/B12 "
+                                     f"({tag})")
+            del kf, kw, tsl, landed, recv
+        if mesh == (1, 2, 2) and size[0] == 2 * N256:
+            chains = [overlap_chain(torch, mo, shards, counts, prm)]
+            with delayed_shard(torch, 3, 4, fns=B13_B14_FNS) as calls:
+                chains.append(overlap_chain(torch, mo, shards, counts, prm))
+            same = all(torch.equal(a, b) for a, b in zip(*chains))
+            log(f"  B13/B14 chain (s=0, 1, 2, pair) on the four 256^3 shards, "
+                f"shard 3 delayed before each of its launches {dict(calls)}: "
+                f"{'bitwise equal' if same else 'DIFFERENT'} to undelayed")
+            if not same or set(calls.values()) != {16}:
+                raise AssertionError("the delayed B13/B14 chain differs")
+            del chains
+        del shards, ws, f, w
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return worst
+
+
+def overlap_chain(torch, mo, shards, counts, prm):
+    """Substeps 0, 1, 2 and a pair pass of ``mhd_substep_overlap`` on
+    copies of ``shards`` in one session; the final shards."""
+    dt = prm.dt
+    a = [t.clone() for t in shards]
+    b = [torch.empty_like(t) for t in a]
+    w1 = [torch.empty_like(t) for t in a]
+    w2 = [torch.empty_like(t) for t in a]
+    recv = mo.MhdOverlapRecv(a, counts)
+
+    def v(ts):
+        return None if ts is None else [per_field(t) for t in ts]
+
+    with recv.session():
+        for s, w_in, w_out in ((0, None, w1), (1, w1, w2), (2, w2, w1)):
+            mo.mhd_substep_overlap(v(a), v(w_in), s, prm, dt, counts,
+                                   out_f=v(b), out_w=v(w_out), recv=recv)
+            a, b = b, a
+        mo.mhd_substep_overlap(v(a), None, 0, prm, dt, counts, pair=True,
+                               out_f=v(b), out_w=v(w2), recv=recv)
+        a, b = b, a
+    torch.cuda.synchronize()
+    return a
+
+
+def run_astaroth_overlap(torch, cs, cm, mo, cx, halo_state) -> dict:
+    """Phase 4, the Astaroth ``halo-overlap`` path (B13/B14) at dt 1e-4
+    through the model class: ``Astaroth(256, 512, 512, overlap=True)`` on
+    (1,2,2), four 256^3 shards on the one card, where kernel="auto" must
+    take ``halo-overlap``; run(2) launches B13 and B14 24 times each and
+    nothing else (16 and 16 with the pair) and equals the ``halo`` runs
+    of run_astaroth_halo bitwise (fields and carried w); the same with
+    shard 3's stream delayed before each of its launches; 256^3 on
+    (1,1,1) with overlap=True (6 + 6 launches) bitwise equal to ``wrap``;
+    and the ``xla-overlap`` path with ``Method.PallasDMA`` (B4: one launch
+    per substep, field, shard and remote axis, 384) on a small (1,2,2)
+    mesh against ``xla`` within substeps x 64 eps x max."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    prm = MhdParams(dt=MHD_PATH_DT)
+    out = {"launches_by_run": {}}
+    mods = (cs, cm, mo, cx)
+
+    def counted():
+        c = {}
+        for m in mods:
+            c.update(m.LAUNCHES)
+        return c
+
+    def drive(label, size, mesh, pair, want, kernel="auto", overlap=True,
+              methods=Method.PpermutePacked, delay=False):
+        with mhd_pair(pair):
+            m = Astaroth(*size, params=prm, kernel=kernel, overlap=overlap,
+                         mesh_shape=mesh, methods=methods,
+                         devices=["cuda:0"] * (mesh[1] * mesh[2]))
+        m.init()
+        m.block()
+        for mod in mods:
+            mod.reset_launch_counts()
+        if delay:
+            with delayed_shard(torch, 3, 4, fns=B13_B14_FNS) as calls:
+                m.run(2)
+                m.block()
+            log(f"  launches seen while shard 3 was delayed: {dict(calls)}")
+        else:
+            m.run(2)
+            m.block()
+        got = counted()
+        expect = dict({k: 0 for k in got}, **want)
+        log(f"  Astaroth {label} ({m.kernel_path}) run(2) launches: "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != expect:
+            raise AssertionError(f"{label} launched {got}, not {want}")
+        out["launches_by_run"][label] = got
+        state = ({q: torch.from_numpy(m.field(q)) for q in FIELDS},
+                 {q: torch.from_numpy(m.accumulator(q)) for q in FIELDS})
+        path = m.kernel_path
+        del m
+        torch.cuda.empty_cache()
+        return path, state
+
+    def bitwise(label, got, want):
+        same = all(torch.equal(got[0][q], want[0][q])
+                   and torch.equal(got[1][q], want[1][q]) for q in FIELDS)
+        err = max(float((got[j][q] - want[j][q]).abs().max())
+                  for j in (0, 1) for q in FIELDS)
+        log(f"  {label}: max diff {err!r} "
+            f"({'bitwise equal' if same else 'DIFFERENT'})")
+        if not same:
+            raise AssertionError(f"{label}: not bitwise equal")
+        out[f"{label} bitwise"] = same
+
+    big = (N256, 2 * N256, 2 * N256)
+    for pair, n13 in (("0", 24), ("1", 16)):
+        label = f"halo-overlap 256x512x512 (1,2,2){' pair' if pair == '1' else ''}"
+        want = {"mhd_substep_overlap": n13, "mhd_substep_fixup": n13}
+        path, got = drive(label, big, (1, 2, 2), pair, want)
+        if path != "halo-overlap":
+            raise AssertionError(f"{label}: auto took {path!r}")
+        bitwise(f"{label} vs halo after 2 iterations", got, halo_state[pair])
+        if pair == "0":
+            _, slow = drive(label + ", shard 3 delayed", big, (1, 2, 2), pair,
+                            want, delay=True)
+            bitwise(f"{label}: delayed vs undelayed", slow, got)
+            del slow
+        del got
+    cube = (N256,) * 3
+    _, got = drive("halo-overlap 256^3 (1,1,1)", cube, (1, 1, 1), "0",
+                   {"mhd_substep_overlap": 6, "mhd_substep_fixup": 6})
+    _, ref = drive("wrap 256^3 (1,1,1)", cube, (1, 1, 1), "0",
+                   {"mhd_substep_wrap": 6}, kernel="wrap", overlap=False)
+    bitwise("halo-overlap 256^3 (1,1,1) vs wrap after 2 iterations", got, ref)
+    del got, ref
+    small = (32, 32, 48)
+    _, xo = drive("xla-overlap + PallasDMA 32x32x48 (1,2,2)", small, (1, 2, 2),
+                  "0", {"exchange_axis": 3 * 2 * 8 * 4 * 2}, kernel="xla",
+                  methods=Method.PallasDMA)
+    _, xl = drive("xla 32x32x48 (1,2,2)", small, (1, 2, 2), "0", {},
+                  kernel="xla", overlap=False)
+    out["xla_overlap_dma_vs_xla_max_diff"] = check_fields(
+        torch, xo[0], xl[0], "xla-overlap + PallasDMA vs xla after 2 "
+        "iterations, f", factor=6 * 64.0)
+    main = out["launches_by_run"]
+    out["launches"] = {
+        k: main["halo-overlap 256x512x512 (1,2,2)"][k]
+        for k in ("mhd_substep_overlap", "mhd_substep_fixup")}
+    return out
+
+
+def time_mhd_overlap(torch, cm, mo) -> dict:
+    """Phase 5, the Astaroth halo-overlap path: iterations/s at 256 x 512
+    x 512 on (1,2,2) (four shards on the one card) and at 256^3 on
+    (1,1,1), with and without the pair; B13 and B14 (each variant) on one
+    256^3 shard (a (1,1,1) mesh: its rows go to itself) and per substep of
+    the four shards of (1,2,2), beside their twins; one
+    ``measure_overlap --model mhd`` line at 256^3 per shard on (1,2,2)."""
+    from stencil_tpu_torch.apps import measure_overlap
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+
+    res = {"iters_per_s": {}, "kernels": {}}
+    big = (N256, 2 * N256, 2 * N256)
+    for label, size, mesh, pair, k in (
+            ("halo-overlap 256x512x512 (1,2,2)", big, (1, 2, 2), "0", 10),
+            ("halo-overlap+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1", 4),
+            ("halo-overlap 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "0", 20),
+            ("halo-overlap+pair 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "1",
+             10)):
+        with mhd_pair(pair):
+            m = Astaroth(*size, kernel="halo", overlap=True, mesh_shape=mesh,
+                         devices=["cuda:0"] * (mesh[1] * mesh[2]))
+        m.init()
+        m.run(1)
+        m.block()
+        t0 = time.perf_counter()
+        m.run(k)
+        m.block()
+        res["iters_per_s"][label] = k / (time.perf_counter() - t0)
+        log(f"  Astaroth {label}: {res['iters_per_s'][label]!r} iterations/s")
+        del m
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(13579)
+    prm = MhdParams()
+    dt = prm.dt
+    n = N256
+    field = 4.0 * n ** 3
+    variants = {}
+    for mesh, size in (((1, 1, 1), (n, n, n)), ((1, 2, 2), (2 * n, 2 * n, n))):
+        counts = Dim3(*mesh)
+        shards, ws = mhd_mesh_case(torch, gen, size, mesh)
+        f = [per_field(t) for t in shards]
+        w = [per_field(t) for t in ws]
+        of = [per_field(torch.empty_like(t)) for t in shards]
+        ow = [per_field(torch.empty_like(t)) for t in shards]
+        recv = mo.MhdOverlapRecv(shards, counts)
+        Z = Y = X = n
+        for s, read_w, write_w, pair in OVERLAP_VARIANTS:
+            tag = overlap_variant_tag(s, read_w, write_w, pair)
+            hr = mo.halo_rows(pair)
+            w_in = w if read_w else None
+            w_out = ow if write_w else None
+
+            def b13():
+                mo.mhd_substep_overlap_cuda(f, w_in, s, prm, dt, counts,
+                                            pair=pair, write_w=write_w,
+                                            out_f=of, out_w=w_out, recv=recv)
+
+            def b14():
+                mo.mhd_substep_fixup_cuda(f, w_in, of, w_out, s, prm, dt,
+                                          counts, recv, pair=pair)
+
+            b13()
+            reps = 3 if pair else 10
+            ms13 = event_ms(torch, b13, reps=reps)
+            ms14 = event_ms(torch, b14, reps=reps)
+            # the work of one shard: B13 reads the shard (and w at its
+            # interior), writes f (and w) there and the slab rows it
+            # sends; B14 reads the shard rows within e + hr of a z or y
+            # face (its strips' windows), the landed rows and w at the
+            # shell, and writes the shell
+            e = mo.shell_width(pair)
+            pts = float(Z * Y * X)
+            inner = mo.interior_region(Z, Y, pair)
+            p_in = float(inner[1] * inner[3] * X) if inner else 0.0
+            p_sh = pts - p_in
+            near = pts - max(Z - 2 * (e + hr), 0) * max(Y - 2 * (e + hr), 0) * X
+            slab = 8 * 4.0 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
+            flops = B10_FLOPS if pair else B9_FLOPS[s]
+            wr = (8 if read_w else 0) + (8 if write_w else 0)
+            b13_bytes = 4.0 * (8 * pts + (8 + wr) * p_in) + slab
+            b14_bytes = 4.0 * (8 * near + (8 + wr) * p_sh) + slab
+            per = len(shards)
+            nb13, nb14 = per * b13_bytes, per * b14_bytes
+            bm13, by13 = bound_ms(nb13, per * flops * p_in)
+            bm14, by14 = bound_ms(nb14, per * flops * p_sh)
+            if mesh == (1, 1, 1):
+                plain13 = event_ms(torch, lambda: mo.mhd_substep_overlap_plain(
+                    f, w_in, s, prm, dt, counts, pair=pair,
+                    write_w=write_w), reps=1, warmup=1)
+                plain14 = event_ms(torch, lambda: mo.mhd_substep_fixup_plain(
+                    f, w_in, of, w_out, recv.landed(hr), s, prm, dt,
+                    pair=pair), reps=1, warmup=1)
+            else:
+                plain13 = plain14 = None
+            where = ("one 256^3 shard" if mesh == (1, 1, 1)
+                     else "four 256^3 shards of (1,2,2)")
+            for name, ms, plain, bms, by, nb in (
+                    ("mhd_substep_overlap", ms13, plain13, bm13, by13, nb13),
+                    ("mhd_substep_fixup", ms14, plain14, bm14, by14, nb14)):
+                variants.setdefault(name, {})[f"{tag}, {where}"] = {
+                    "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None, "bytes": nb}
+                log(f"  {name} {tag}, {where}: {ms!r} ms, bound {bms!r} ms "
+                    f"({by}), {100 * bms / ms:.1f}% of bound; plain twin "
+                    f"{plain!r} ms")
+        del shards, ws, f, w, of, ow, recv
+        torch.cuda.empty_cache()
+    for name, v in variants.items():
+        one = [v[f"{overlap_variant_tag(*var)}, one 256^3 shard"]
+               for var in OVERLAP_VARIANTS[:3]]
+        res["kernels"][name] = {k: sum(x[k] for x in one) / 3
+                                for k in ("ms", "plain_ms", "bound_ms")}
+        res["kernels"][name].update(bound_by=one[1]["bound_by"],
+                                    library_ms=None, variants=v)
+    mo_res = measure_overlap.measure_mhd(n, n, n, iters=5,
+                                         mesh_shape=(1, 2, 2),
+                                         devices=["cuda:0"])
+    res["measure_overlap_mhd"] = measure_overlap.csv_line(
+        mo_res, "measure_overlap_mhd")
+    log(f"  measure_overlap --model mhd (1,2,2) on one card, "
+        f"{mo_res['fused_path']} vs {mo_res['overlap_path']}: "
+        f"{res['measure_overlap_mhd']}")
+    torch.cuda.empty_cache()
+    return res
+
+
 # name: (tag, source, TPU kernel it replaces)
 KERNEL_META = {
     "jacobi7_wrap": ("K1", "stencil_tpu_torch/csrc/jacobi7.cu",
@@ -1745,6 +2172,10 @@ KERNEL_META = {
                       "stencil_tpu/parallel/pallas_exchange.py:57"),
     "jacobi7_overlap": ("B7", "stencil_tpu_torch/csrc/jacobi_overlap.cu",
                         "stencil_tpu/ops/pallas_overlap.py:55"),
+    "mhd_substep_overlap": ("B13", "stencil_tpu_torch/csrc/mhd_overlap.cu",
+                            "stencil_tpu/ops/pallas_mhd_overlap.py:67"),
+    "mhd_substep_fixup": ("B14", "stencil_tpu_torch/csrc/mhd_overlap.cu",
+                          "stencil_tpu/ops/pallas_mhd_overlap.py:360"),
 }
 
 
@@ -1768,6 +2199,7 @@ def main() -> int:
     from stencil_tpu_torch.ops import cuda_exchange as cx
     from stencil_tpu_torch.ops import cuda_halo as ch
     from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
     from stencil_tpu_torch.ops import cuda_overlap as co
     from stencil_tpu_torch.ops import cuda_stencil as cs
 
@@ -1784,6 +2216,7 @@ def main() -> int:
     worst.update(compare_mhd_kernels(torch, cs, cm))
     worst.update(compare_mhd_halo_kernels(torch, cm))
     worst.update(compare_dma_overlap_kernels(torch, cx, co))
+    worst.update(compare_mhd_overlap_kernels(torch, cm, mo))
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -1804,6 +2237,11 @@ def main() -> int:
         "card")
     overlap_path = run_overlap_paths(torch, cs, ch, cx, co)
     launches.update(overlap_path["launches"])
+    log("phase 4: Astaroth halo-overlap path (B13/B14) on meshes of shards "
+        "on one card")
+    mhd_overlap_path = run_astaroth_overlap(
+        torch, cs, cm, mo, cx, mhd_halo_path.pop("halo_state"))
+    launches.update(mhd_overlap_path["launches"])
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -1821,11 +2259,13 @@ def main() -> int:
         log(f"  Astaroth {path}: {v!r} iterations/s")
     mhd_halo_times = time_mhd_halo(torch, cm)
     dma_times = time_dma_overlap(torch, cx, co)
+    mhd_overlap_times = time_mhd_overlap(torch, cm, mo)
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
     times.update(mhd_halo_times["kernels"])
     times.update(dma_times["kernels"])
+    times.update(mhd_overlap_times["kernels"])
 
     kernels = []
     for name, (tag, source, replaces) in KERNEL_META.items():
@@ -1858,6 +2298,11 @@ def main() -> int:
                    "astaroth_path": mhd_path,
                    "astaroth_halo_path": mhd_halo_path,
                    "overlap_path": overlap_path,
+                   "astaroth_overlap_path": mhd_overlap_path,
+                   "astaroth_overlap_iters_per_s":
+                       mhd_overlap_times["iters_per_s"],
+                   "measure_overlap_mhd":
+                       mhd_overlap_times["measure_overlap_mhd"],
                    "overlap_steps_per_s_512": dma_times["steps_per_s"],
                    "measure_overlap": dma_times["measure_overlap"],
                    "kernels": kernels}, f, indent=1)

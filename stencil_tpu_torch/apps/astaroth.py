@@ -17,11 +17,19 @@ it as
     python -m stencil_tpu_torch.apps.astaroth --nx 256 --ny 256 --nz 256 \\
         --kernel halo --mesh-shape 1,2,2 --devices cuda:0,cuda:0,cuda:0,cuda:0
 
+    python -m stencil_tpu_torch.apps.astaroth --nx 256 --ny 256 --nz 256 \\
+        --overlap --mesh-shape 1,2,2 --devices cuda:0,cuda:0,cuda:0,cuda:0
+
 The mesh runs on every visible CUDA device unless ``--devices`` lists
 one device per mesh position (repeats allowed: shards sharing a card)
 or ``--device`` names one (``--device cpu`` runs the plain PyTorch
 twins). With no ``--mesh-shape``, the ``halo`` and ``auto`` kernels take
-an x-unsharded mesh and ``xla`` a near-cubic one.
+an x-unsharded mesh and ``xla`` a near-cubic one. ``--overlap`` hides
+each substep's exchange behind the interior compute (``halo-overlap``:
+B13/B14 with ``--kernel halo``, or ``auto`` on the card; else
+``xla-overlap``); the method flags (``--slab``, ``--packed``,
+``--allgather``, ``--pallas-dma``) choose the exchange of the ``xla``
+paths.
 """
 
 from __future__ import annotations
@@ -29,12 +37,7 @@ from __future__ import annotations
 import argparse
 import time
 
-
-def _mesh_shape(text: str):
-    parts = [int(v) for v in text.split(",")]
-    if len(parts) != 3 or min(parts) < 1:
-        raise argparse.ArgumentTypeError("--mesh-shape wants X,Y,Z")
-    return tuple(parts)
+from ._common import add_method_flags, mesh_shape, methods_from_args
 
 
 def main(argv=None) -> None:
@@ -49,16 +52,21 @@ def main(argv=None) -> None:
                     help="compute path: wrap (fused CUDA substep kernels, "
                          "periodic wrap in the kernel, one shard), halo "
                          "(fused CUDA substep kernels on resident shards "
-                         "with slab exchange), xla (plain PyTorch on the "
-                         "halo-padded shards), or auto")
+                         "with slab exchange; with --overlap the slabs "
+                         "are sent inside the kernels), xla (plain "
+                         "PyTorch on the halo-padded shards), or auto")
     ap.add_argument("--dtype", default="f32", choices=("f32", "f64"))
-    ap.add_argument("--mesh-shape", type=_mesh_shape, default=None,
+    ap.add_argument("--overlap", action="store_true",
+                    help="interior/exterior comm-compute overlap per "
+                         "substep")
+    ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
                     metavar="X,Y,Z", help="shards along x, y and z")
     ap.add_argument("--devices", default=None,
                     help="comma list of torch devices, one per mesh "
                          "position (x fastest; repeats allowed)")
     ap.add_argument("--device", default=None,
                     help="one torch device for the whole mesh")
+    add_method_flags(ap)
     args = ap.parse_args(argv)
 
     import torch
@@ -84,7 +92,8 @@ def main(argv=None) -> None:
                        else default_mesh_shape)(len(devices)))
     gx, gy, gz = args.nx * shape[0], args.ny * shape[1], args.nz * shape[2]
     m = Astaroth(gx, gy, gz, params=prm, dtype=dtype, kernel=args.kernel,
-                 mesh_shape=shape, devices=devices)
+                 mesh_shape=shape, devices=devices, overlap=args.overlap,
+                 methods=methods_from_args(args))
     m.init()
     stats = Statistics()
     for i in range(2 + max(args.iters, 1)):

@@ -32,40 +32,7 @@ import argparse
 import os
 import time
 
-
-def _mesh_shape(text: str):
-    parts = [int(v) for v in text.split(",")]
-    if len(parts) != 3 or min(parts) < 1:
-        raise argparse.ArgumentTypeError("--mesh-shape wants X,Y,Z")
-    return tuple(parts)
-
-
-def add_method_flags(ap: argparse.ArgumentParser) -> None:
-    """The analog of the reference's per-method CLI flags (reference:
-    bin/jacobi3d.cu:107-122)."""
-    ap.add_argument("--slab", action="store_true",
-                    help="per-axis slab copy (default)")
-    ap.add_argument("--packed", action="store_true",
-                    help="packed exchange (runs the slab copy in the port)")
-    ap.add_argument("--allgather", action="store_true",
-                    help="all-gather exchange (runs the slab copy in the "
-                         "port)")
-    ap.add_argument("--pallas-dma", action="store_true",
-                    help="remote-write exchange: each shard's kernel stores "
-                         "its slabs into its neighbours' halos")
-
-
-def methods_from_args(args):
-    from ..parallel.methods import Method
-
-    m = Method.NONE
-    for flag, method in (("slab", Method.PpermuteSlab),
-                         ("packed", Method.PpermutePacked),
-                         ("allgather", Method.AllGather),
-                         ("pallas_dma", Method.PallasDMA)):
-        if getattr(args, flag, False):
-            m |= method
-    return m if m != Method.NONE else Method.Default
+from ._common import add_method_flags, mesh_shape, methods_from_args
 
 
 def main(argv=None) -> None:
@@ -86,7 +53,7 @@ def main(argv=None) -> None:
     ap.add_argument("--wrap-steps", type=int, default=0, metavar="N",
                     help="steps per launch of the N-step wrap and halo "
                          "kernels (default 2; sets STENCIL_WRAP_STEPS)")
-    ap.add_argument("--mesh-shape", type=_mesh_shape, default=None,
+    ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
                     metavar="X,Y,Z", help="shards along x, y and z")
     ap.add_argument("--devices", default=None,
                     help="comma list of torch devices, one per mesh "

@@ -1,9 +1,9 @@
-"""Comm/compute overlap study on the Jacobi-3D step.
+"""Comm/compute overlap study on the Jacobi-3D step and the MHD substeps.
 
-PyTorch-port counterpart of the Jacobi half of ``apps/measure_overlap.py``
-(reference: bin/measure_buf_exchange.cu). It times three programs at the
-same size — the slab exchange alone (``exchange_only``), the step with
-its exchange in program order (``fused``: the ``halo`` path on a mesh,
+PyTorch-port counterpart of ``apps/measure_overlap.py`` (reference:
+bin/measure_buf_exchange.cu). It times three programs at the same size
+— the slab exchange alone (``exchange_only``), the step with its
+exchange in program order (``fused``: the ``halo`` path on a mesh,
 ``auto`` on one shard) and the overlapped step (``overlap``: B7, the
 faces sent while the interior is computed) — and reports how much of the
 exchange the overlapped step hides:
@@ -20,8 +20,13 @@ CUDA device, or ``--devices`` lists one device per mesh position
     python -m stencil_tpu_torch.apps.measure_overlap --x 512 --y 256 \\
         --z 256 --mesh-shape 1,2,2 --devices cuda:0,cuda:0,cuda:0,cuda:0
 
-``--model mhd`` (the Astaroth half) needs the MHD overlap kernels B13
-and B14, which are not ported yet (ROADMAP), and raises.
+``--model mhd`` (JAX's ``measure_mhd``) runs the same study on the
+Astaroth integrator, float32: fused is the ``halo`` path (slab round
+THEN B11, three times an iteration; the halo family on any shard count,
+so that all three programs share one kernel family), exchange only its
+slab rounds timed alone (``Astaroth.measure_exchange_seconds``), and
+overlap ``halo-overlap`` (B13/B14, the rows sent inside the kernels);
+times are per iteration.
 """
 
 from __future__ import annotations
@@ -29,12 +34,7 @@ from __future__ import annotations
 import argparse
 import time
 
-
-def _mesh_shape(text: str):
-    parts = [int(v) for v in text.split(",")]
-    if len(parts) != 3 or min(parts) < 1:
-        raise argparse.ArgumentTypeError("--mesh-shape wants X,Y,Z")
-    return tuple(parts)
+from ._common import mesh_shape
 
 
 def timed_samples(fn, sync, iters: int, warmup: int = 2):
@@ -54,6 +54,33 @@ def timed_samples(fn, sync, iters: int, warmup: int = 2):
     return stats
 
 
+def _mesh(x: int, y: int, z: int, mesh_shape, devices):
+    """(mesh shape, one device per shard, result dict with the shard
+    count and the global size) for shards of ``x`` x ``y`` x ``z`` over
+    ``mesh_shape`` (default: x-unsharded over ``devices``, every visible
+    CUDA device when None; one device repeats for every shard)."""
+    from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
+                                 resolve_devices)
+
+    devs = resolve_devices(devices)
+    shape = mesh_shape
+    if shape is None:
+        shape = tuple((default_mesh_shape_xfree if len(devs) > 1
+                       else default_mesh_shape)(len(devs)))
+    n = shape[0] * shape[1] * shape[2]
+    if len(devs) == 1 and n > 1:
+        devs = devs * n
+    size = (x * shape[0], y * shape[1], z * shape[2])
+    return shape, devs, {"shards": n, "size": size}
+
+
+def _efficiency(res: dict) -> dict:
+    hidden = res["fused"] - res["overlap"]
+    res["overlap_efficiency"] = (hidden / res["exchange_only"]
+                                 if res["exchange_only"] else 0.0)
+    return res
+
+
 def measure(x: int, y: int, z: int, iters: int = 20, mesh_shape=None,
             devices=None) -> dict:
     """The three trimeans (seconds) and the efficiency, for shards of
@@ -64,23 +91,13 @@ def measure(x: int, y: int, z: int, iters: int = 20, mesh_shape=None,
     from ..geometry import Dim3
     from ..models.jacobi import Jacobi3D
     from ..parallel.exchange import exchange_interior_slabs
-    from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
-                                 resolve_devices)
     from ..utils.timers import device_sync
 
-    devs = resolve_devices(devices)
-    shape = mesh_shape
-    if shape is None:
-        shape = tuple((default_mesh_shape_xfree if len(devs) > 1
-                       else default_mesh_shape)(len(devs)))
-    n = shape[0] * shape[1] * shape[2]
-    if len(devs) == 1 and n > 1:
-        devs = devs * n
-    gx, gy, gz = x * shape[0], y * shape[1], z * shape[2]
+    shape, devs, res = _mesh(x, y, z, mesh_shape, devices)
+    gx, gy, gz = res["size"]
     # fused and overlap share the kernel family: on a mesh the halo path
     # (slab exchange THEN kernels) against B7; on one shard auto
-    kern = "halo" if n > 1 else "auto"
-    res = {"shards": n, "size": (gx, gy, gz)}
+    kern = "halo" if res["shards"] > 1 else "auto"
     fused = Jacobi3D(gx, gy, gz, kernel=kern, mesh_shape=shape, devices=devs)
     fused.init()
     res["fused"] = timed_samples(fused.step, fused.block, iters).trimean()
@@ -104,16 +121,40 @@ def measure(x: int, y: int, z: int, iters: int = 20, mesh_shape=None,
     over.init()
     res["overlap"] = timed_samples(over.step, over.block, iters).trimean()
     res["overlap_path"] = over.kernel_path
-    hidden = res["fused"] - res["overlap"]
-    res["overlap_efficiency"] = (hidden / res["exchange_only"]
-                                 if res["exchange_only"] else 0.0)
-    return res
+    return _efficiency(res)
 
 
-def csv_line(res: dict) -> str:
+def measure_mhd(x: int, y: int, z: int, iters: int = 20, mesh_shape=None,
+                devices=None) -> dict:
+    """As ``measure``, on the Astaroth integrator (float32; JAX's
+    ``measure_mhd``): fused = ``kernel="halo"``, exchange only =
+    its ``measure_exchange_seconds()``, overlap = ``kernel="halo",
+    overlap=True``; seconds per iteration."""
+    import torch
+
+    from ..models.astaroth import Astaroth
+
+    shape, devs, res = _mesh(x, y, z, mesh_shape, devices)
+    gx, gy, gz = res["size"]
+    fused = Astaroth(gx, gy, gz, dtype=torch.float32, kernel="halo",
+                     mesh_shape=shape, devices=devs)
+    fused.init()
+    res["fused"] = timed_samples(fused.step, fused.block, iters).trimean()
+    res["fused_path"] = fused.kernel_path
+    res["exchange_only"] = fused.measure_exchange_seconds()
+    del fused
+    over = Astaroth(gx, gy, gz, dtype=torch.float32, kernel="halo",
+                    overlap=True, mesh_shape=shape, devices=devs)
+    over.init()
+    res["overlap"] = timed_samples(over.step, over.block, iters).trimean()
+    res["overlap_path"] = over.kernel_path
+    return _efficiency(res)
+
+
+def csv_line(res: dict, label: str = "measure_overlap") -> str:
     gx, gy, gz = res["size"]
     return ",".join(str(f) for f in (
-        "measure_overlap", res["shards"], gx, gy, gz,
+        label, res["shards"], gx, gy, gz,
         f"{res['exchange_only']:.6e}", f"{res['fused']:.6e}",
         f"{res['overlap']:.6e}", f"{res['overlap_efficiency']:.3f}"))
 
@@ -125,18 +166,22 @@ def main(argv=None) -> None:
     ap.add_argument("--z", type=int, default=64)
     ap.add_argument("--iters", "-n", type=int, default=20)
     ap.add_argument("--model", default="jacobi", choices=("jacobi", "mhd"))
-    ap.add_argument("--mesh-shape", type=_mesh_shape, default=None,
+    ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
                     metavar="X,Y,Z", help="shards along x, y and z")
     ap.add_argument("--devices", default=None,
                     help="comma list of torch devices, one per mesh "
                          "position (x fastest; repeats allowed)")
+    ap.add_argument("--device", default=None,
+                    help="one torch device for every shard (cpu runs the "
+                         "plain PyTorch twins)")
     args = ap.parse_args(argv)
+    devices = (args.devices.split(",") if args.devices
+               else [args.device] if args.device else None)
     if args.model == "mhd":
-        raise NotImplementedError(
-            "--model mhd runs the MHD overlap path, whose kernels "
-            "(mhd_substep_overlap_pallas and mhd_substep_fixup_pallas, "
-            "ROADMAP B13/B14) are not ported yet")
-    devices = args.devices.split(",") if args.devices else None
+        print(csv_line(measure_mhd(args.x, args.y, args.z, args.iters,
+                                   args.mesh_shape, devices),
+                       "measure_overlap_mhd"))
+        return
     print(csv_line(measure(args.x, args.y, args.z, args.iters,
                            args.mesh_shape, devices)))
 

@@ -1,0 +1,406 @@
+// The overlapped MHD RK3 substep for Hopper (sm_90a), float32: B13, B14.
+//
+//   B13 mhd_substep_overlap_launch <- pallas_mhd_overlap.py:67
+//                                     mhd_substep_overlap_pallas
+//   B14 mhd_substep_fixup_launch   <- pallas_mhd_overlap.py:360
+//                                     mhd_substep_fixup_pallas
+//
+// The TPU kernel B13 is one program per shard: a neighbour barrier, the
+// radius-hr z slabs and z-extended y slabs of all 8 fields sent by
+// remote DMA, every (bz, by, X) block computed from clamped in-shard
+// windows while they fly (the edge blocks are placeholders), and the yz
+// corner pieces forwarded from the landed z slabs. B14's strip kernels
+// then recompute the edge blocks from the landed slabs through B11's
+// window plan. Here the substep is two launches per shard, on that
+// shard's own CUDA stream, bound through plain extern "C" launchers
+// (ctypes; stencil_tpu_torch/ops/_build.py and ops/cuda_mhd_overlap.py,
+// which also holds the plain PyTorch twins):
+//
+//   launch A (B13): send_rows_kernel stores the shard's boundary rows of
+//     all 8 fields straight into its neighbours' receive buffers (plain
+//     global stores through their device pointers; across cards they go
+//     over NVLink once peer access is on): the hr z rows to z+-1, the Z
+//     interior rows of the hr y rows to y+-1, and the four hr x hr yz
+//     corners directly to the diagonal shards (z+-1, y+-1), which gives
+//     the values the TPU kernel forwards from its landed z slabs without
+//     a third ordering step. Then the interior: with one substep every
+//     point z in [R, Z-R), y in [R, Y-R), B11's arithmetic read from the
+//     shard itself (the radius-R neighbourhood of those points lies in
+//     the shard, so the values are B11's bit for bit); with the pair
+//     (substeps 0+1, hr = 2R) B12's kT^3 tiles whose ring reads stay in
+//     the shard, z and y in [kT, n-kT).
+//   launch B (B14): the exterior shell that launch A left, as up to four
+//     strips (z in [0, e) and [Z-e, Z) at every y, then y in [0, e) and
+//     [Y-e, Y) between them; e = R, or kT with the pair): each strip's
+//     radius-rr window (rr = R, or 2R) is gathered from the shard and the
+//     landed rows by B11's source rule (halo_row), and B11's compute
+//     (B12's with the pair) runs on it. B14 after B13 is therefore B11
+//     (B12) point for point: bitwise.
+//
+// The barrier and the DMA waits become two ordering rules, carried by
+// CUDA events between the per-shard streams (ops/cuda_overlap.py
+// ShardOrdering): (a) shard i's launch A writes into shard j's receive
+// buffers only after j's previous launch B has read them; (b) j's launch
+// B starts only after the launch A of every shard that writes into it,
+// up to 8 (four faces, four diagonals). No kernel spins on a flag another
+// launch sets.
+//
+// Receive buffers of a shard (Z, Y, X), per field, exact rows (the
+// layout of parallel/exchange.py exchange_interior_slabs with rz = ry =
+// hr, y_z_extended): zlo/zhi (hr, Y, X), ylo/yhi (Z + 2hr, hr, X).
+//
+// Bound on this card: bytes. B13 reads the shard (and w) and writes the
+// new state at the interior points, as B9 (24 / 32 / 24 passes of a
+// field for s = 0 / 1 / 2, 24 with the pair), plus the slab rows it
+// stores; B14 reads the shell's windows' share of the shard and the slab
+// rows and writes the shell. Design (first, simple version): B9's and
+// B10's kernels on a window, as B11/B12; the strip windows are gathered
+// into scratch (a shell-sized share of B11's 16-pass gather).
+
+#include "mhd_common.cuh"
+
+#include <cstring>
+
+namespace {
+
+// ---------------------------------------------------------------------
+// launch A, step 1: the sends. Eight pieces per field, each a box of
+// nz x ny rows of X floats copied from the shard at (sz0, sy0) into a
+// receive buffer (of dY rows per z) at (dz0, dy0).
+// ---------------------------------------------------------------------
+constexpr int kPieces = 8;
+constexpr int kPieceInts = 7;
+
+struct Piece {
+  int nz, ny, sz0, sy0, dz0, dy0, dY;
+};
+struct Pieces {
+  Piece p[kPieces];
+};
+struct DstPtrs {
+  float* p[kPieces][kNF];
+};
+
+constexpr int kCopyBX = 128;
+constexpr int kCopyRows = 64;  // grid rows; a block strides over a piece
+
+__global__ void __launch_bounds__(kCopyBX)
+send_rows_kernel(InPtrs f, DstPtrs dst, Pieces pc, int Y, int X) {
+  const int x = blockIdx.x * kCopyBX + threadIdx.x;
+  if (x >= X) return;
+  const int k = blockIdx.z / kNF, q = blockIdx.z % kNF;
+  const Piece P = pc.p[k];
+  const int rows = P.nz * P.ny;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const int rz = r / P.ny, ry = r % P.ny;
+    dst.p[k][q][((P.dz0 + rz) * P.dY + P.dy0 + ry) * X + x] =
+        __ldg(f.p[q] + ((P.sz0 + rz) * Y + P.sy0 + ry) * X + x);
+  }
+}
+
+// ---------------------------------------------------------------------
+// Regions: the output points z in [z0, z0 + nz), y in [y0, y0 + ny) (all
+// x) of a shard, computed from a window whose row (0, 0) is shard row
+// (wz0, wy0), Yw rows per z, at offset woff of each field's window
+// buffer (for launch A's interior the window is the shard itself).
+// nrows (the window rows of the gather) is filled on the host.
+// ---------------------------------------------------------------------
+constexpr int kMaxRegions = 4;
+constexpr int kRegionInts = 9;
+
+struct Region {
+  int z0, nz, y0, ny, wz0, wy0, Zw, Yw, woff;
+  int nrows;
+};
+struct Regions {
+  Region r[kMaxRegions];
+  int n;
+};
+
+// the region of window row b of the gather, and b's row inside it; the
+// loop over regions is unrolled so that each region is read from the
+// kernel parameters at a fixed offset (an indexed read would copy the
+// whole table to local memory)
+__device__ __forceinline__ Region find_region(const Regions& rs, int& b) {
+  Region g = rs.r[0];
+#pragma unroll
+  for (int k = 1; k < kMaxRegions; ++k) {
+    const int n = g.nrows;
+    if (k < rs.n && b >= n) {
+      b -= n;
+      g = rs.r[k];
+    }
+  }
+  return g;
+}
+
+// B14, step 1: every strip's window, gathered from the shard and the
+// landed rows (B11's halo_window_kernel on the strips' rows only); one
+// block per window row and 128 x columns, 1-D grid.
+__global__ void __launch_bounds__(kCopyBX)
+strip_window_kernel(InPtrs f, SlabPtrs sl, OutPtrs win, HaloGeom g,
+                    Regions rs) {
+  const int nxb = (g.X + kCopyBX - 1) / kCopyBX;
+  int b = blockIdx.x / nxb;
+  const int x = (blockIdx.x % nxb) * kCopyBX + threadIdx.x;
+  if (x >= g.X) return;
+  const Region r = find_region(rs, b);
+  const int wy = b % r.Yw, wz = b / r.Yw;
+  const int o = r.woff + (wz * r.Yw + wy) * g.X + x;
+#pragma unroll
+  for (int q = 0; q < kNF; ++q)
+    win.p[q][o] = __ldg(halo_row(f, sl, q, g, r.wy0 + wy, r.wz0 + wz) + x);
+}
+
+// ---------------------------------------------------------------------
+// One RK3 substep s at the points of one region, B11's kernel point for
+// point (B9's design: one thread per point, a (32, 8) block over (x, y),
+// one z row per block row), reading the region's window through PadIdx.
+// The host launches it once per region, with the window pointers already
+// at the region's woff and only the geometry below as arguments, so that
+// it holds as few registers as B11's kernel (a region table read per
+// block cost 200 B of spills a thread and 1.7x B9's time on an H100).
+// ---------------------------------------------------------------------
+struct RegionGeom {
+  int z0, y0, ny, wz0, wy0, Yw;
+};
+
+template <bool kReadW, bool kWriteW>
+__global__ void __launch_bounds__(kBX * kBY, 2)
+mhd_region_kernel(InPtrs win, InPtrs w, OutPtrs of, OutPtrs ow, RegionGeom g,
+                  int Y, int X, Consts c) {
+  const int x = blockIdx.x * kBX + threadIdx.x;
+  const int yl = blockIdx.y * kBY + threadIdx.y;
+  if (x >= X || yl >= g.ny) return;
+  const int y = g.y0 + yl, z = g.z0 + blockIdx.z;
+  const PadIdx I(x, y - g.wy0, z - g.wz0, X, g.Yw, 0);
+  Fd F[kNF];
+  field_data([&](int q) { return PadAt{win.p[q], I}; }, c, F);
+  float r[kNF];
+  mhd_rates(F, c, r);
+  const int o = (z * Y + y) * X + x;
+#pragma unroll
+  for (int q = 0; q < kNF; ++q) {
+    float wq = c.dt * r[q];
+    if (kReadW) wq = c.alpha * __ldg(w.p[q] + o) + wq;
+    if (kWriteW) ow.p[q][o] = wq;
+    of.p[q][o] = F[q].v + c.beta * wq;
+  }
+}
+
+// ---------------------------------------------------------------------
+// RK3 substeps 0 and 1 on the kT^3 tiles of one region (nz, ny multiples
+// of kT), B12's kernel point for point: phase 1 evaluates substep 0 on
+// the tile extended by R from the region's window (rr = 2R beyond the
+// tile), keeping f1 in shared memory; phase 2 substep 1 on the tile from
+// shared memory only. Grid: blocks(X, kT) x ny/kT x nz/kT tiles, one
+// launch per region as above.
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kPairThreads)
+mhd_region01_kernel(InPtrs win, OutPtrs of, OutPtrs ow, RegionGeom g, int Y,
+                    int X, Consts c) {
+  extern __shared__ float smem[];
+  float* sF = smem;              // [kNF][kE][kE][kE] f1, extended tile
+  float* sW = smem + kNF * kE3;  // [kNF][kT][kT][kT] w1, tile
+  const int x0 = blockIdx.x * kT;
+  const int y0 = g.y0 + blockIdx.y * kT, z0 = g.z0 + blockIdx.z * kT;
+
+  // phase 1: substep 0 on the extended tile, from the region's window
+  for (int e = threadIdx.x; e < kE3; e += kPairThreads) {
+    const int ex = e % kE, ey = (e / kE) % kE, ez = e / (kE * kE);
+    const PadIdx I(x0 - R + ex, y0 - R + ey - g.wy0, z0 - R + ez - g.wz0, X,
+                   g.Yw, 0);
+    Fd F[kNF];
+    field_data([&](int q) { return PadAt{win.p[q], I}; }, c, F);
+    float r[kNF];
+    mhd_rates(F, c, r);
+    const bool core = ex >= R && ex < R + kT && ey >= R && ey < R + kT &&
+                      ez >= R && ez < R + kT;
+    const int t = ((ez - R) * kT + (ey - R)) * kT + (ex - R);
+#pragma unroll
+    for (int q = 0; q < kNF; ++q) {
+      const float w1 = c.dt * r[q];
+      sF[q * kE3 + e] = F[q].v + c.beta0 * w1;
+      if (core) sW[q * kT3 + t] = w1;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: substep 1 on the tile, from shared memory only
+  for (int t = threadIdx.x; t < kT3; t += kPairThreads) {
+    const int cx = t % kT, cy = (t / kT) % kT, cz = t / (kT * kT);
+    const int x = x0 + cx;
+    if (x >= X) continue;
+    const int e = ((cz + R) * kE + (cy + R)) * kE + (cx + R);
+    Fd F[kNF];
+    field_data([&](int q) { return SharedAt{sF + q * kE3 + e}; }, c, F);
+    float r[kNF];
+    mhd_rates(F, c, r);
+    const int o = ((z0 + cz) * Y + (y0 + cy)) * X + x;
+#pragma unroll
+    for (int q = 0; q < kNF; ++q) {
+      const float wq = c.alpha1 * sW[q * kT3 + t] + c.dt * r[q];
+      ow.p[q][o] = wq;
+      of.p[q][o] = F[q].v + c.beta1 * wq;
+    }
+  }
+}
+
+// The regions from the host's kRegionInts ints each, with the block and
+// row counts of the kernels filled in; false if a region does not fit
+// the shard or its window, or (pair) is not made of whole tiles.
+bool read_regions(const int* src, int n, int Z, int Y, int X, bool pair,
+                  Regions& rs) {
+  if (n < 0 || n > kMaxRegions) return false;
+  rs = Regions{};
+  rs.n = n;
+  for (int k = 0; k < n; ++k) {
+    Region& r = rs.r[k];
+    const int* v = src + k * kRegionInts;
+    r = Region{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], 0};
+    if (r.nz <= 0 || r.ny <= 0 || r.z0 < 0 || r.y0 < 0 ||
+        r.z0 + r.nz > Z || r.y0 + r.ny > Y || r.woff < 0)
+      return false;
+    if (pair && (r.nz % kT || r.ny % kT)) return false;
+    const long long rows = static_cast<long long>(r.Zw) * r.Yw;
+    if (rows * blocks(X, kCopyBX) >= (1LL << 31) || r.nz > 65535 ||
+        blocks(r.ny, kBY) > 65535)
+      return false;
+    r.nrows = static_cast<int>(rows);
+  }
+  return true;
+}
+
+// every region's window lies in [zlo, zhi) x [ylo, yhi) of shard rows
+// and holds the rr rows its points read on each side
+bool windows_ok(const Regions& rs, int rr, int zlo, int zhi, int ylo,
+                int yhi) {
+  for (int k = 0; k < rs.n; ++k) {
+    const Region& r = rs.r[k];
+    if (r.wz0 < zlo || r.wz0 + r.Zw > zhi || r.wy0 < ylo ||
+        r.wy0 + r.Yw > yhi || r.z0 - r.wz0 < rr || r.y0 - r.wy0 < rr ||
+        r.wz0 + r.Zw < r.z0 + r.nz + rr || r.wy0 + r.Yw < r.y0 + r.ny + rr)
+      return false;
+  }
+  return true;
+}
+
+long long total_rows(const Regions& rs) {
+  long long t = 0;
+  for (int k = 0; k < rs.n; ++k) t += rs.r[k].nrows;
+  return t;
+}
+
+// the compute of the regions on window win (B11's kernel, or B12's with
+// the pair), one launch per region; nothing to do for an empty set
+cudaError_t launch_regions(const InPtrs& win, const void* const* w,
+                           void* const* out_f, void* const* out_w,
+                           const Regions& rs, int Y, int X, bool pair,
+                           const Consts& c, cudaStream_t s) {
+  const OutPtrs op = out_ptrs(out_f), owp = out_ptrs(out_w);
+  const InPtrs wr = in_ptrs(w);
+  if (pair) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mhd_region01_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kPairSmem));
+    if (err != cudaSuccess) return err;
+  }
+  for (int k = 0; k < rs.n; ++k) {
+    const Region& r = rs.r[k];
+    InPtrs rw = win;
+    for (int q = 0; q < kNF; ++q) rw.p[q] += r.woff;
+    const RegionGeom g{r.z0, r.y0, r.ny, r.wz0, r.wy0, r.Yw};
+    if (pair) {
+      mhd_region01_kernel<<<dim3(blocks(X, kT), r.ny / kT, r.nz / kT),
+                            kPairThreads, kPairSmem, s>>>(rw, op, owp, g, Y,
+                                                          X, c);
+    } else {
+      const dim3 grid(blocks(X, kBX), blocks(r.ny, kBY), r.nz);
+      const dim3 block(kBX, kBY);
+      if (w != nullptr && out_w != nullptr)
+        mhd_region_kernel<true, true><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
+      else if (w != nullptr)
+        mhd_region_kernel<true, false><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
+      else if (out_w != nullptr)
+        mhd_region_kernel<false, true><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
+      else
+        mhd_region_kernel<false, false><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// B13, launch A. fields/w: 8 device pointers each (w NULL for w=None, and
+// with the pair); dst: 64 receive-buffer pointers, piece-major (8 pieces
+// x 8 fields); pieces: 8 x 7 host ints (nz, ny, sz0, sy0, dz0, dy0, dY);
+// out_f/out_w: 8 each (out_w NULL for write_w=False); regions: n x 9 host
+// ints (z0, nz, y0, ny, wz0, wy0, Zw, Yw, woff) of the interior, read
+// from the shard itself; consts: kNConsts host floats.
+cudaError_t mhd_substep_overlap_launch(
+    const void* const* fields, const void* const* w, void* const* dst,
+    const int* pieces, void* const* out_f, void* const* out_w,
+    const int* regions, int n_regions, int Z, int Y, int X, int pair,
+    const float* consts, int n_consts, void* stream) {
+  Regions rs;
+  if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
+      !read_regions(regions, n_regions, Z, Y, X, pair != 0, rs) ||
+      !windows_ok(rs, pair ? 2 * R : R, 0, Z, 0, Y) ||
+      (pair && (w != nullptr || out_w == nullptr)))
+    return cudaErrorInvalidValue;
+  Consts c;
+  std::memcpy(&c, consts, sizeof c);
+  Pieces pc;
+  static_assert(sizeof(Piece) == kPieceInts * sizeof(int), "Piece layout");
+  std::memcpy(&pc, pieces, sizeof pc);
+  DstPtrs dp;
+  std::memcpy(&dp, dst, sizeof dp);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const InPtrs fp = in_ptrs(fields);
+  send_rows_kernel<<<dim3(blocks(X, kCopyBX), kCopyRows, kPieces * kNF),
+                     kCopyBX, 0, s>>>(fp, dp, pc, Y, X);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_regions(fp, w, out_f, out_w, rs, Y, X, pair != 0, c, s);
+}
+
+// B14, launch B. fields/w: the pre-substep shard and w (w NULL for
+// w=None, and with the pair); slabs: 32 landed-row pointers (zlo, zhi,
+// ylo, yhi, each in field order; rz = ry rows); window: 8 scratch buffers
+// holding every region's window at its woff; out_f/out_w: B13's outputs,
+// completed in place (out_w NULL for write_w=False); regions: the
+// exterior shell, as for launch A.
+cudaError_t mhd_substep_fixup_launch(
+    const void* const* fields, const void* const* w, const void* const* slabs,
+    void* const* window, void* const* out_f, void* const* out_w,
+    const int* regions, int n_regions, int Z, int Y, int X, int rz, int ry,
+    int pair, const float* consts, int n_consts, void* stream) {
+  Regions rs;
+  const int rr = pair ? 2 * R : R;
+  if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
+      !halo_ok(Z, Y, X, rz, ry, rr) ||
+      !read_regions(regions, n_regions, Z, Y, X, pair != 0, rs) ||
+      !windows_ok(rs, rr, -rz, Z + rz, -ry, Y + ry) ||
+      (pair && (w != nullptr || out_w == nullptr)))
+    return cudaErrorInvalidValue;
+  Consts c;
+  std::memcpy(&c, consts, sizeof c);
+  const long long rows = total_rows(rs);
+  if (rows == 0) return cudaSuccess;
+  const HaloGeom g{Z, Y, X, rz, ry};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  strip_window_kernel<<<static_cast<unsigned>(rows * blocks(X, kCopyBX)),
+                        kCopyBX, 0, s>>>(in_ptrs(fields), slab_ptrs(slabs),
+                                         out_ptrs(window), g, rs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_regions(in_ptrs(window), w, out_f, out_w, rs, Y, X,
+                        pair != 0, c, s);
+}
+
+}  // extern "C"

@@ -30,26 +30,42 @@ model:
   the pair (``STENCIL_MHD_PAIR=1`` or ``exchange_every=2``) one
   radius-2R round and B12 (``mhd_substep01_halo_cuda``), then a
   radius-R round and B11 for substep 2.
+* ``halo-overlap`` — ``overlap=True`` with ``kernel="halo"``, or
+  ``auto`` on CUDA devices for float32, on an x-unsharded mesh of even
+  shards, (1,1,1) included: the halo path's resident state, with each
+  substep's slab round moved into the kernels (``ops/cuda_mhd_overlap.py``
+  ``mhd_substep_overlap``): per shard B13 stores its boundary rows of all
+  8 fields into its neighbours' receive buffers and computes its
+  interior, then B14 computes the exterior shell from the landed rows —
+  equal to ``halo`` bitwise. With the pair: the pair pass (substeps 0+1,
+  2R rows), then substep 2.
 * ``xla`` — per substep: exchange into the radius-3 padded shards, then
   per shard ``FieldData`` + ``mhd_rates`` + the RK update in plain
   PyTorch, written into the shard in place. The port's reference path;
-  no kernel. It runs on any mesh, uneven (+-1) shards included.
-* ``auto`` — on CUDA devices for float32: ``wrap`` on a (1,1,1) mesh,
-  else ``halo`` when x is unsharded and the shards are even with z and
-  y multiples of ``mhd_tile`` (8), else ``xla``; ``xla`` on the CPU, as
+  no kernel. It runs on any mesh, uneven (+-1) shards included. The
+  exchange runs by ``methods`` (``Method.PallasDMA``: B4).
+* ``xla-overlap`` — ``overlap=True`` where ``halo-overlap`` is not
+  taken: the ``xla`` update over ``parallel/overlap.py``'s
+  interior/exterior split, the inner blocks computed while the exchange
+  runs (JAX's ``substep_overlap``).
+* ``auto`` — on CUDA devices for float32: ``halo-overlap`` when overlap
+  is asked for and possible, else ``wrap`` on a (1,1,1) mesh, else
+  ``halo`` when x is unsharded and the shards are even with z and y
+  multiples of ``mhd_tile`` (8), else ``xla``; ``xla`` on the CPU, as
   the JAX model takes ``xla`` off the TPU. The JAX model's ``auto`` also
   asks its TPU block planner whether the halo kernel's VMEM window fits
   the shard (it does not for float32 shards wider than x ~ 166); the
   CUDA kernels have no such window, so the port does not ask.
 
 On the CPU the kernel wrappers run their plain twins. Not ported (each
-raises ``NotImplementedError`` naming its ROADMAP item): ``overlap=True``
-(B13/B14), ``exchange_every > 2`` and ``exchange_every=2`` off the halo
-path (A7), ``Boundary.NONE`` (A8d) and bfloat16 (A8b).
+raises ``NotImplementedError`` naming its ROADMAP item): ``exchange_every
+> 2`` and ``exchange_every=2`` off the halo paths (A7), ``Boundary.NONE``
+(A8d) and bfloat16 (A8b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -62,6 +78,8 @@ from ..geometry import Dim3, Dim3Like, Radius
 from ..local_domain import interior_slices, zyx_shape
 from ..ops.fd6 import RADIUS, FieldData, const
 from ..parallel.exchange import exchange_interior_slabs, interior_slab_bytes
+from ..parallel.methods import Method, pick_method
+from ..parallel.overlap import overlapped_update
 from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import load_config, mhd_pair_requested
@@ -231,6 +249,40 @@ def _views(t: torch.Tensor) -> Fields:
     return dict(zip(FIELDS, t.unbind(0)))
 
 
+def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
+                       local: Dim3, tile: int, accel: bool) -> str:
+    """The compute path ``Astaroth`` builds: JAX's selection rules
+    (models/astaroth.py:411-527) with periodic boundaries and
+    ``exchange_every`` <= 2 (the constructor refuses the rest) and no
+    VMEM planner; ``accel`` (CUDA devices and float32) stands for JAX's
+    on-TPU float32 choice. Raises as JAX does for an uneven grid with
+    overlap and for an explicit kernel its conditions exclude."""
+    if overlap and rem != Dim3(0, 0, 0):
+        raise NotImplementedError("overlap mode requires an evenly "
+                                  "divisible grid")
+    aligned_t = (rem == Dim3(0, 0, 0) and local.z % tile == 0
+                 and local.y % tile == 0)
+    aligned = aligned_t and not overlap
+    wrap_ok = counts == Dim3(1, 1, 1) and aligned
+    halo_ok = counts.x == 1 and aligned
+    if (overlap and counts.x == 1 and aligned_t
+            and (kernel == "halo" or (kernel == "auto" and accel))):
+        return "halo-overlap"
+    if kernel == "auto":
+        kernel = ("xla" if not accel else "wrap" if wrap_ok
+                  else "halo" if halo_ok else "xla")
+    if kernel == "wrap" and not wrap_ok:
+        raise ValueError(
+            "kernel='wrap' needs a (1,1,1) mesh, even grid, z/y "
+            f"multiples of the dtype sublane tile ({tile}), overlap off")
+    if kernel == "halo" and not halo_ok:
+        raise ValueError(
+            "kernel='halo' needs an x-unsharded mesh, even grid, local z/y "
+            f"multiples of the dtype sublane tile ({tile}), overlap off, "
+            "periodic boundaries, exchange_every <= 2")
+    return "xla-overlap" if kernel == "xla" and overlap else kernel
+
+
 class Astaroth:
     """MHD integrator over a mesh of shards (one device by default:
     ``device=``; a mesh: ``mesh_shape=`` and ``devices=``)."""
@@ -240,6 +292,7 @@ class Astaroth:
                  mesh_shape: Optional[Dim3Like] = None,
                  dtype=torch.float32, overlap: bool = False,
                  kernel: str = "auto",
+                 methods: Method = Method.PpermutePacked,
                  exchange_every: Optional[int] = None,
                  boundary: Optional[Boundary] = None,
                  device: DeviceLike = None,
@@ -249,10 +302,6 @@ class Astaroth:
         if kernel not in ("auto", "wrap", "halo", "xla"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla, got {kernel!r}")
-        if overlap:
-            raise NotImplementedError(
-                "overlap=True (kernels B13/B14, in-kernel slab sends) is "
-                "parked until a run on more than one card (ROADMAP A8c)")
         self._exchange_every = (1 if exchange_every is None
                                 else max(int(exchange_every), 1))
         if self._exchange_every > 2:
@@ -272,6 +321,7 @@ class Astaroth:
         self.dd = DistributedDomain(nx, ny, nz, device=device,
                                     devices=devices)
         self.dd.set_radius(Radius.constant(RADIUS))
+        self.dd.set_methods(methods)
         devs = self.dd._devices
         if mesh_shape is not None:
             self.dd.set_mesh_shape(mesh_shape)
@@ -289,6 +339,10 @@ class Astaroth:
             self.dd.add_data(q, self._dtype)
         self.dd.realize()
         self._kernel = kernel
+        self._overlap = bool(overlap)
+        # the halo-overlap path's receive buffers and stream ordering,
+        # made at its first run
+        self._overlap_recv = None
         # RK3 accumulators per shard, capacity-shaped (no halos); None
         # until the first iteration
         self._w: Optional[List[Fields]] = None
@@ -340,50 +394,37 @@ class Astaroth:
 
     # -- path selection -------------------------------------------------
     def _build_step(self) -> None:
-        """The JAX model's path rules (models/astaroth.py:419-519) with
-        no overlap, temporal depth beyond the substep pair, or block
-        planner: the GPU kernels have no VMEM window to fit."""
+        """The JAX model's path rules (models/astaroth.py:411-527) with
+        no temporal depth beyond the substep pair and no block planner
+        (the GPU kernels have no VMEM window to fit), its on-TPU choice
+        taken on CUDA devices for float32."""
         from ..ops.cuda_mhd import mhd_tile
 
         dd = self.dd
-        counts, local = dd.mesh_counts, dd.local_size
-        tile = mhd_tile(self._dtype)
         f32 = self._dtype == torch.float32
-        aligned = (dd.rem == Dim3(0, 0, 0) and local.z % tile == 0
-                   and local.y % tile == 0)
-        wrap_ok = counts == Dim3(1, 1, 1) and aligned
-        halo_ok = counts.x == 1 and aligned
-        kernel = self._kernel
-        if kernel == "auto":
-            on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
-            kernel = ("xla" if not (on_gpu and f32) else "wrap" if wrap_ok
-                      else "halo" if halo_ok else "xla")
+        on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
+        kernel = select_kernel_path(self._kernel, self._overlap,
+                                    dd.mesh_counts, dd.rem, dd.local_size,
+                                    mhd_tile(self._dtype), on_gpu and f32)
+        if self._kernel == "auto" or kernel == "halo-overlap":
             LOG_INFO(f"astaroth kernel path: {kernel}")
-        if kernel == "wrap" and not wrap_ok:
-            raise ValueError(
-                "kernel='wrap' needs a (1,1,1) mesh, even grid, z/y "
-                f"multiples of the dtype sublane tile ({tile}), "
-                "overlap off")
-        if kernel == "halo" and not halo_ok:
-            raise ValueError(
-                "kernel='halo' needs an x-unsharded mesh, even grid, "
-                f"local z/y multiples of the dtype sublane tile ({tile}), "
-                "overlap off, periodic boundaries, exchange_every <= 2")
-        if kernel in ("wrap", "halo") and not f32 and any(
+        if kernel in ("wrap", "halo", "halo-overlap") and not f32 and any(
                 d.type == "cuda" for d in dd.mesh.devices):
             raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
                             f"float32 only, got {self._dtype}; use "
                             f"kernel='xla'")
-        if self._exchange_every == 2 and kernel != "halo":
+        if self._exchange_every == 2 and kernel not in ("halo",
+                                                         "halo-overlap"):
             raise NotImplementedError(
-                f"exchange_every=2 maps onto the halo path's substep pair; "
+                f"exchange_every=2 maps onto the halo paths' substep pair; "
                 f"on the {kernel} path temporal blocking is ROADMAP A7")
-        # the substep pair (B10 / B12): STENCIL_MHD_PAIR=1, or on the
-        # halo path exchange_every=2 (one radius-2R slab round for two
-        # substeps)
+        # the substep pair (B10 / B12, B13/B14 with pair=True):
+        # STENCIL_MHD_PAIR=1, or on the halo paths exchange_every=2 (one
+        # radius-2R slab round for two substeps)
         self._pair = mhd_pair_requested() or self._exchange_every == 2
-        if kernel in ("wrap", "halo") and self._pair:
+        if kernel in ("wrap", "halo", "halo-overlap") and self._pair:
             LOG_INFO(f"astaroth {kernel} path: fused substep-0+1 kernel")
+        self._method = pick_method(dd.methods)
         self.kernel_path = kernel
 
     # -- stepping -------------------------------------------------------
@@ -395,13 +436,15 @@ class Astaroth:
         iters = int(iters)
         if iters <= 0:
             return
-        if self.kernel_path in ("wrap", "halo"):
+        if self.kernel_path in ("wrap", "halo", "halo-overlap"):
             self._run_resident(iters)
             return
         self._ensure_w()
+        substep = (self._substep_xla_overlap
+                   if self.kernel_path == "xla-overlap" else self._substep_xla)
         for _ in range(iters):
             for s in range(3):
-                self._substep_xla(s)
+                substep(s)
 
     def _ensure_w(self) -> None:
         if self._w is None:
@@ -440,6 +483,46 @@ class Astaroth:
                 w[q] = wq.to(self._dtype)
                 dd.curr[q][i][cap].copy_(uq)
 
+    def _substep_xla_overlap(self, s: int) -> None:
+        """``_substep_xla`` with the exchange overlapped
+        (``parallel/overlap.py`` ``overlapped_update``; the JAX model's
+        ``substep_overlap``): each shard's inner block is updated while
+        the exchange runs, its faces from the exchanged shard after it,
+        and the update written into the shard in place."""
+        from ..ops.cuda_mhd import compute_dtype
+
+        dd = self.dd
+        prm = self.prm
+        comp = compute_dtype(self._dtype)
+        pad_lo = dd.radius.pad_lo()
+        inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
+        alpha = const(RK3_ALPHA[s], comp)
+        beta = const(RK3_BETA[s], comp)
+        dt_ = const(prm.dt, comp)
+        ws = self._w
+
+        def upd(blocks, dims, off, i):
+            data = {q: FieldData(blocks[q].to(comp), inv_ds, pad_lo, dims)
+                    for q in FIELDS}
+            rates = mhd_rates(data, prm, comp)
+            out = {}
+            for q in FIELDS:
+                w_blk = ws[i][q][off[2]:off[2] + dims.z,
+                                 off[1]:off[1] + dims.y,
+                                 off[0]:off[0] + dims.x]
+                wq = alpha * w_blk.to(comp) + dt_ * rates[q]
+                out[f"w:{q}"] = wq.to(self._dtype)
+                out[f"f:{q}"] = (data[q].value + beta * wq).to(self._dtype)
+            return out
+
+        cap = self._capacity()
+        parts = overlapped_update(dd.curr, dd.radius, dd.mesh_counts,
+                                  self._method, upd)
+        for i, got in enumerate(parts):
+            for q in FIELDS:
+                ws[i][q] = got[f"w:{q}"]
+                dd.curr[q][i][cap].copy_(got[f"f:{q}"])
+
     def _run_resident(self, n: int) -> None:
         """``n`` iterations on the interior-resident state, three
         launches per shard an iteration: substep 0 with ``w=None``,
@@ -447,11 +530,15 @@ class Astaroth:
         B10/B12 for substeps 0 and 1 and B9/B11 for substep 2. The wrap
         path launches B9/B10 on its one shard; the halo path first
         exchanges the slabs of ALL shards (all 8 fields per slice, radius
-        R, or 2R before the pair) and then launches B11/B12 per shard.
+        R, or 2R before the pair) and then launches B11/B12 per shard;
+        the halo-overlap path runs B13 and B14 per shard and substep
+        (``mhd_substep_overlap``), the slabs sent inside B13, all of
+        ``run(n)`` in one session of its receive buffers' ordering.
         Every substep writes into the other buffer of a ping-pong pair,
         so no kernel writes what a slab copy still has to read. The
         carried w is the last one written (substep 1's), as in JAX."""
         from ..ops import cuda_mhd as cm
+        from ..ops import cuda_mhd_overlap as mo
 
         if self._inner is None:
             cap = self._capacity()
@@ -463,7 +550,15 @@ class Astaroth:
         w1 = None if self._pair else [torch.empty_like(t) for t in a]
         w2 = [torch.empty_like(t) for t in a]
         prm, dt = self.prm, self.prm.dt
-        halo = self.kernel_path == "halo"
+        counts = self.dd.mesh_counts
+        path = self.kernel_path
+        halo = path == "halo"
+        if path == "halo-overlap" and self._overlap_recv is None:
+            self._overlap_recv = mo.MhdOverlapRecv(a, counts)
+        recv = self._overlap_recv
+
+        def views(ts):
+            return None if ts is None else [_views(t) for t in ts]
 
         def slabs(rr: int) -> List[Dict[str, Dict[str, torch.Tensor]]]:
             if not halo:
@@ -471,10 +566,15 @@ class Astaroth:
             return [{q: {k: v[j] for k, v in sl.items()}
                      for j, q in enumerate(FIELDS)}
                     for sl in exchange_interior_slabs(
-                        a, self.dd.mesh_counts, rz=rr, ry=rr,
-                        y_z_extended=True)]
+                        a, counts, rz=rr, ry=rr, y_z_extended=True)]
 
         def substep(s: int, w_in, w_out) -> None:
+            if path == "halo-overlap":
+                mo.mhd_substep_overlap(views(a), views(w_in), s, prm, dt,
+                                       counts, write_w=w_out is not None,
+                                       out_f=views(b), out_w=views(w_out),
+                                       recv=recv)
+                return
             for i, sl in enumerate(slabs(cm.R)):
                 wi = None if w_in is None else _views(w_in[i])
                 wo = None if w_out is None else _views(w_out[i])
@@ -489,24 +589,33 @@ class Astaroth:
                         write_w=wo is not None, out_f=_views(b[i]),
                         out_w=wo)
 
-        for _ in range(n):
-            if self._pair:
-                for i, sl in enumerate(slabs(2 * cm.R)):
-                    out = dict(out_f=_views(b[i]), out_w=_views(w2[i]))
-                    if halo:
-                        cm.mhd_substep01_halo_cuda(_views(a[i]), sl, prm, dt,
-                                                   **out)
-                    else:
-                        cm.mhd_substep01_wrap_cuda(_views(a[i]), prm, dt,
-                                                   **out)
+        def pair() -> None:
+            if path == "halo-overlap":
+                mo.mhd_substep_overlap(views(a), None, 0, prm, dt, counts,
+                                       pair=True, out_f=views(b),
+                                       out_w=views(w2), recv=recv)
+                return
+            for i, sl in enumerate(slabs(2 * cm.R)):
+                out = dict(out_f=_views(b[i]), out_w=_views(w2[i]))
+                if halo:
+                    cm.mhd_substep01_halo_cuda(_views(a[i]), sl, prm, dt,
+                                               **out)
+                else:
+                    cm.mhd_substep01_wrap_cuda(_views(a[i]), prm, dt, **out)
+
+        with (recv.session() if recv is not None
+              else contextlib.nullcontext()):
+            for _ in range(n):
+                if self._pair:
+                    pair()
+                    a, b = b, a
+                else:
+                    substep(0, None, w1)
+                    a, b = b, a
+                    substep(1, w1, w2)
+                    a, b = b, a
+                substep(2, w2, None)
                 a, b = b, a
-            else:
-                substep(0, None, w1)
-                a, b = b, a
-                substep(1, w1, w2)
-                a, b = b, a
-            substep(2, w2, None)
-            a, b = b, a
         self._inner = a
         self._w = [_views(t) for t in w2]
 
@@ -567,7 +676,7 @@ class Astaroth:
             return {"path": path, "bytes_per_iteration": 0,
                     "rounds_per_iteration": 0.0}
         dd = self.dd
-        if path == "halo":
+        if path in ("halo", "halo-overlap"):
             from ..ops.cuda_mhd import R as HALO_R
 
             counts, local = dd.mesh_counts, dd.local_size
@@ -620,7 +729,7 @@ class Astaroth:
         path = self.kernel_path
         if path == "wrap":
             return 0.0
-        if path == "halo":
+        if path in ("halo", "halo-overlap"):
             if self._pair:
                 return (self.slab_exchange_seconds(2 * HALO_R, reps)
                         + self.slab_exchange_seconds(HALO_R, reps))

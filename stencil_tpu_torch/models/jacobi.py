@@ -140,7 +140,7 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
     (``parallel/overlap.py``), then the spheres and the write-back."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
 
-    def upd(blocks, dims, off):
+    def upd(blocks, dims, off, i):
         return {"temp": _update(blocks["temp"], radius, dims, kernel)}
 
     new = overlapped_update({"temp": list(shards)}, radius, counts, method,

@@ -22,12 +22,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -61,10 +62,31 @@ def find_nvcc() -> str:
                        "kernels of stencil_tpu_torch cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first met."""
+    seen: List[Path] = []
+    todo = [sources()[name]]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [SRC_DIR / m.decode() for m in _INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed by a
-    hash of the source text and the flags."""
-    h = hashlib.sha256(sources()[name].read_bytes())
+    hash of the source text, of every header it includes and of the
+    flags, so that a changed header never loads a stale library."""
+    h = hashlib.sha256()
+    for p in source_files(name):
+        h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,595 @@
+"""The hand-written overlapped MHD RK3 substep (B13, B14), with plain twins.
+
+PyTorch-port counterpart of ``stencil_tpu/ops/pallas_mhd_overlap.py``:
+one RK3 substep (or the fused substeps 0+1) on the interior-resident
+(Z, Y, X) shards of an x-unsharded mesh, where every shard sends its
+boundary rows of all 8 fields to its neighbours while its interior is
+computed, and the exterior shell is recomputed from the landed rows
+(``csrc/mhd_overlap.cu``: launch A sends and computes the interior,
+launch B the shell).
+
+===  ===============================================  ===========================  ============================
+B    TPU kernel                                       wrapper                      plain twin
+===  ===============================================  ===========================  ============================
+B13  pallas_mhd_overlap.py:67                         ``mhd_substep_overlap_cuda``  ``mhd_substep_overlap_plain``
+     ``mhd_substep_overlap_pallas``
+B14  pallas_mhd_overlap.py:360                        ``mhd_substep_fixup_cuda``    ``mhd_substep_fixup_plain``
+     ``mhd_substep_fixup_pallas``
+===  ===============================================  ===========================  ============================
+
+``mhd_substep_overlap`` (JAX :515) composes the two. The module rules
+of ``ops/cuda_mhd.py`` hold: CPU shards go to the plain twins; CUDA
+shards launch the kernels or raise; float32 only on the card (bfloat16
+storage is ROADMAP A8b). Each wrapper adds one to its entry in
+``LAUNCHES`` per shard (B13: the sends and the interior; B14: the strip
+windows and the shell).
+
+What each computes, per shard, with hr = R (or 2R with the pair):
+
+* B13: the new f (and w) at the interior points — every point whose
+  radius-hr neighbourhood lies in the shard (``interior_region``; with
+  the pair, the kT = 8 tiles of B12 whose ring reads stay in it) — and
+  the landed rows, in the layout of ``exchange_interior_slabs(rz=hr,
+  ry=hr, y_z_extended=True)`` (``MhdOverlapRecv.landed``). Its values
+  at the other points are unspecified (the JAX kernel leaves clamped-
+  window placeholders there).
+* B14: the exterior shell (``shell_regions``) from the pre-substep
+  shard and the landed rows, through B11's window rule
+  (``ops/cuda_mhd.halo_window``), written into B13's outputs in place
+  (JAX aliases them). B14 after B13 equals B11 (B12 with the pair) on
+  the same shards, point for point: bitwise.
+
+Ordering on the card: ``MhdOverlapRecv`` extends
+``ops/cuda_overlap.ShardOrdering`` (rules (a) and (b) of B7) with the
+receive buffers; the targets of a shard's launch A are its four face
+neighbours and its four diagonal (z+-1, y+-1) neighbours, whose ylo/yhi
+corner rows it stores directly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import Dim3
+from ..parallel.exchange import exchange_interior_slabs
+from ..parallel.mesh import mesh_neighbor
+from . import cuda_mhd as cm
+from .cuda_mhd import R, SLAB_NAMES, Fields
+from .cuda_overlap import ShardOrdering
+
+#: launches per wrapper since the last ``reset_launch_counts``, one per
+#: shard and substep; only a kernel launch counts, never a call that went
+#: to the plain twin
+LAUNCHES = {"mhd_substep_overlap": 0, "mhd_substep_fixup": 0}
+
+#: the tile edge of the pair kernels (B10/B12, ``csrc/mhd_common.cuh``
+#: kT): with the pair, the interior and the shell are whole tiles
+PAIR_TILE = 8
+
+Slabs = Dict[str, Dict[str, torch.Tensor]]
+#: (z0, nz, y0, ny): the points z in [z0, z0 + nz), y in [y0, y0 + ny),
+#: every x
+Region = Tuple[int, int, int, int]
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def halo_rows(pair: bool) -> int:
+    """The rows that cross between shards: R, or 2R for the pair."""
+    return 2 * R if pair else R
+
+
+def shell_width(pair: bool) -> int:
+    """The depth of the exterior shell B14 computes: R, or the pair
+    kernels' tile (8 >= 2R)."""
+    return PAIR_TILE if pair else R
+
+
+def interior_region(Z: int, Y: int, pair: bool) -> Optional[Region]:
+    """The points B13 computes: z in [e, Z - e), y in [e, Y - e) with e =
+    ``shell_width(pair)``; None when that is empty."""
+    e = shell_width(pair)
+    if Z <= 2 * e or Y <= 2 * e:
+        return None
+    return (e, Z - 2 * e, e, Y - 2 * e)
+
+
+def shell_regions(Z: int, Y: int, pair: bool) -> List[Region]:
+    """The points B14 computes, as disjoint strips that with
+    ``interior_region`` cover the shard: z in [0, e) and [max(e, Z - e),
+    Z) at every y, then, between them, y in [0, e) and [max(e, Y - e),
+    Y)."""
+    e = shell_width(pair)
+    out = [(0, min(e, Z), 0, Y)]
+    zt = max(e, Z - e)
+    if zt < Z:
+        out.append((zt, Z - zt, 0, Y))
+    if Z > 2 * e:
+        out.append((e, Z - 2 * e, 0, min(e, Y)))
+        yt = max(e, Y - e)
+        if yt < Y:
+            out.append((e, Z - 2 * e, yt, Y - yt))
+    return out
+
+
+def _write_regions(dst: torch.Tensor, src: torch.Tensor,
+                   regions: Sequence[Region]) -> None:
+    for z0, nz, y0, ny in regions:
+        dst[z0:z0 + nz, y0:y0 + ny] = src[z0:z0 + nz, y0:y0 + ny]
+
+
+# ---------------------------------------------------------------------------
+# receive buffers and ordering
+# ---------------------------------------------------------------------------
+def send_pieces(i: int, counts: Dim3, Z: int, Y: int, hr: int
+                ) -> List[Tuple[str, int, Tuple[int, ...]]]:
+    """Shard i's eight sends of each field, as (receive buffer name,
+    target shard, (nz, ny, sz0, sy0, dz0, dy0, dY)): a box of nz x ny
+    rows from the shard at (sz0, sy0) into the target's buffer (dY rows
+    per z) at (dz0, dy0). The hr top z rows fill the z+1 neighbour's
+    ``zlo``, the bottom ones the z-1 neighbour's ``zhi``; the Z rows of
+    the hr last (first) y rows fill the y+1 (y-1) neighbour's ``ylo``
+    (``yhi``) at z rows [hr, hr + Z); the four hr x hr yz corners fill the
+    diagonal shards' ``ylo``/``yhi`` at z rows [0, hr) (from z+1) or [Z +
+    hr, Z + 2hr) (from z-1). On a one-shard axis the neighbour is the
+    shard itself."""
+    def nb(dz: int, dy: int) -> int:
+        j = mesh_neighbor(i, counts, 2, dz) if dz else i
+        return mesh_neighbor(j, counts, 1, dy) if dy else j
+
+    top, last = Z - hr, Y - hr
+    return [
+        ("zlo", nb(1, 0), (hr, Y, top, 0, 0, 0, Y)),
+        ("zhi", nb(-1, 0), (hr, Y, 0, 0, 0, 0, Y)),
+        ("ylo", nb(0, 1), (Z, hr, 0, last, hr, 0, hr)),
+        ("yhi", nb(0, -1), (Z, hr, 0, 0, hr, 0, hr)),
+        ("ylo", nb(1, 1), (hr, hr, top, last, 0, 0, hr)),
+        ("ylo", nb(-1, 1), (hr, hr, 0, last, Z + hr, 0, hr)),
+        ("yhi", nb(1, -1), (hr, hr, top, 0, 0, 0, hr)),
+        ("yhi", nb(-1, -1), (hr, hr, 0, 0, Z + hr, 0, hr)),
+    ]
+
+
+class MhdOverlapRecv(ShardOrdering):
+    """The persistent receive buffers of every shard of a mesh, per row
+    count hr (R, and 2R for the pair): ``buffers(hr)[i] = {"zlo", "zhi":
+    (8, hr, Y, X), "ylo", "yhi": (8, Z + 2hr, hr, X)}`` on shard i's
+    device (the 8 fields in FIELDS order) — and, on the card, the
+    shards' streams and the events of rules (a) and (b). The buffers are
+    zeroed here, on the cards' current streams, so that a session's
+    ``enter`` orders every shard's stream after the zeroing: zeroed
+    later, inside a session, a card's zeroing would race with the stores
+    of shards on other cards, which no event orders against it."""
+
+    def __init__(self, shards: Sequence[torch.Tensor], counts: Dim3) -> None:
+        self.counts = Dim3.of(counts)
+        if self.counts.x != 1:
+            raise ValueError(f"MhdOverlapRecv: x must not be sharded (mesh "
+                             f"{tuple(self.counts)})")
+        if len(shards) != self.counts.flatten():
+            raise ValueError(f"MhdOverlapRecv: {len(shards)} shards for a "
+                             f"{tuple(self.counts)} mesh")
+        self.shape = tuple(shards[0].shape[-3:])
+        self.dtype = shards[0].dtype
+        self.devices = [t.device for t in shards]
+        Z, Y, _ = self.shape
+        n = len(shards)
+        self.pieces = {hr: [send_pieces(i, self.counts, Z, Y, hr)
+                            for i in range(n)] for hr in (R, 2 * R)}
+        super().__init__(self.devices,
+                         [[j for _, j, _ in self.pieces[R][i]]
+                          for i in range(n)])
+        self._buffers = {hr: self._zeroed_buffers(hr) for hr in (R, 2 * R)}
+        # B14's scratch, on the card only: the strip windows of every field
+        self._windows: Dict[int, List[torch.Tensor]] = {}
+        if self.streams is not None:
+            for hr in (R, 2 * R):
+                n = _shell_windows(*self.shape, hr == 2 * R)[2]
+                self._windows[hr] = [torch.empty((8, n), dtype=self.dtype,
+                                                 device=d)
+                                     for d in self.devices]
+
+    def _zeroed_buffers(self, hr: int) -> List[Dict[str, torch.Tensor]]:
+        Z, Y, X = self.shape
+        shapes = {"zlo": (8, hr, Y, X), "zhi": (8, hr, Y, X),
+                  "ylo": (8, Z + 2 * hr, hr, X),
+                  "yhi": (8, Z + 2 * hr, hr, X)}
+        return [{k: torch.zeros(s, dtype=self.dtype, device=d)
+                 for k, s in shapes.items()} for d in self.devices]
+
+    def buffers(self, hr: int) -> List[Dict[str, torch.Tensor]]:
+        """Every shard's (8, ...) receive buffers of ``hr`` rows."""
+        return self._buffers[hr]
+
+    def windows(self, hr: int) -> List[torch.Tensor]:
+        """B14's scratch per shard on the card, (8, floats per field);
+        only shard i's launch B, on its stream, uses shard i's, and
+        writes all of it before it reads it."""
+        return self._windows[hr]
+
+    def landed(self, hr: int) -> List[Slabs]:
+        """The landed rows of every shard, per field: ``landed(hr)[i][q] =
+        {"zlo", "zhi", "ylo", "yhi"}`` (views of ``buffers(hr)``), what
+        ``halo_window`` and B11/B12 read."""
+        from ..models.astaroth import FIELDS
+
+        return [{q: {k: v[f] for k, v in b.items()}
+                 for f, q in enumerate(FIELDS)} for b in self.buffers(hr)]
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+def landed_slabs(shards: Sequence[Fields], counts: Dim3, hr: int
+                 ) -> List[Slabs]:
+    """Every shard's landed rows after every launch A of a substep: the
+    slabs of ``exchange_interior_slabs(rz=hr, ry=hr, y_z_extended=True)``
+    over the 8 fields, per field."""
+    from ..models.astaroth import FIELDS
+
+    stacked = [torch.stack([f[q] for q in FIELDS]) for f in shards]
+    return [{q: {k: v[f] for k, v in sl.items()} for f, q in
+             enumerate(FIELDS)}
+            for sl in exchange_interior_slabs(stacked, Dim3.of(counts),
+                                              rz=hr, ry=hr,
+                                              y_z_extended=True)]
+
+
+def _own_window_update(fields: Fields, w: Optional[Fields], s: int, prm,
+                       dt_phys: float, pair: bool, write_w: bool
+                       ) -> Tuple[Fields, Optional[Fields]]:
+    """B9's twin (or B10's with the pair) on the shard alone: its values
+    at ``interior_region`` read only the shard, on windows of the shape
+    and layout B11's (B12's) twin uses, so that every point's operations
+    run as they do there."""
+    if pair:
+        return cm.mhd_substep01_wrap_plain(fields, prm, dt_phys)
+    return cm.mhd_substep_wrap_plain(fields, w, s, prm, dt_phys,
+                                     write_w=write_w)
+
+
+def mhd_substep_overlap_plain(fields: Sequence[Fields],
+                              w: Optional[Sequence[Fields]], s: int, prm,
+                              dt_phys: float, counts: Dim3,
+                              pair: bool = False, write_w: bool = True
+                              ) -> Tuple[List[Fields], Optional[List[Fields]],
+                                         List[Slabs]]:
+    """B13's twin over every shard of the mesh: (new fields, new w or
+    None, landed rows). The new fields and w hold B11's (B12's) values at
+    ``interior_region`` and zeros elsewhere; the landed rows are
+    ``landed_slabs``. ``pair=True``: substeps 0+1 (``s`` and ``w`` are
+    not read)."""
+    from ..models.astaroth import FIELDS
+
+    Z, Y, _ = fields[0][FIELDS[0]].shape
+    inner = interior_region(Z, Y, pair)
+    new_f: List[Fields] = []
+    new_w: Optional[List[Fields]] = [] if write_w else None
+    for i, f in enumerate(fields):
+        got_f, got_w = _own_window_update(f, None if w is None else w[i], s,
+                                          prm, dt_phys, pair, write_w)
+        for got, out in ((got_f, new_f), (got_w, new_w)):
+            if got is None:
+                continue
+            z = {q: torch.zeros_like(f[q]) for q in FIELDS}
+            for q in FIELDS:
+                if inner is not None:
+                    _write_regions(z[q], got[q], [inner])
+            out.append(z)
+    return new_f, new_w, landed_slabs(fields, counts, halo_rows(pair))
+
+
+def mhd_substep_fixup_plain(fields: Sequence[Fields],
+                            w: Optional[Sequence[Fields]],
+                            f_partial: Sequence[Fields],
+                            w_partial: Optional[Sequence[Fields]],
+                            slabs: Sequence[Slabs], s: int, prm,
+                            dt_phys: float, pair: bool = False
+                            ) -> Tuple[List[Fields], Optional[List[Fields]]]:
+    """B14's twin: per shard, ``f_partial`` (and ``w_partial``) with the
+    exterior shell (``shell_regions``) replaced by B11's twin (B12's with
+    the pair) on the pre-substep ``fields``/``w`` and the landed rows
+    ``slabs``; new tensors. ``w_partial=None`` (write_w=False) returns
+    None for w."""
+    from ..models.astaroth import FIELDS
+
+    Z, Y, _ = fields[0][FIELDS[0]].shape
+    shell = shell_regions(Z, Y, pair)
+    write_w = w_partial is not None
+    out_f: List[Fields] = []
+    out_w: Optional[List[Fields]] = [] if write_w else None
+    for i, f in enumerate(fields):
+        if pair:
+            full_f, full_w = cm.mhd_substep01_halo_plain(f, slabs[i], prm,
+                                                         dt_phys)
+        else:
+            full_f, full_w = cm.mhd_substep_halo_plain(
+                f, None if w is None else w[i], slabs[i], s, prm, dt_phys,
+                write_w=write_w)
+        nf = {q: f_partial[i][q].clone() for q in FIELDS}
+        for q in FIELDS:
+            _write_regions(nf[q], full_f[q], shell)
+        out_f.append(nf)
+        if write_w:
+            nw = {q: w_partial[i][q].clone() for q in FIELDS}
+            for q in FIELDS:
+                _write_regions(nw[q], full_w[q], shell)
+            out_w.append(nw)
+    return out_f, out_w
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+_LIB = "mhd_overlap"
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (fields[8], w[8] or NULL, dst[64], pieces[56], out_f[8], out_w[8] or
+    #  NULL, regions, n_regions, Z, Y, X, pair, consts, n_consts, stream)
+    "mhd_substep_overlap_launch": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
+    # (fields[8], w[8] or NULL, slabs[32], window[8], out_f[8], out_w[8]
+    #  or NULL, regions, n_regions, Z, Y, X, rz, ry, pair, consts,
+    #  n_consts, stream)
+    "mhd_substep_fixup_launch": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
+}
+
+
+def _region_ints(regions: Sequence[Region], windows) -> np.ndarray:
+    """The launchers' region table: per region (z0, nz, y0, ny, wz0, wy0,
+    Zw, Yw, woff)."""
+    rows = [list(r) + list(wn) for r, wn in zip(regions, windows)]
+    return np.asarray(rows or [[0] * 9], dtype=np.int32).reshape(-1)
+
+
+def _shell_windows(Z: int, Y: int, X: int, pair: bool):
+    """(regions, per region (wz0, wy0, Zw, Yw, woff), floats per field)
+    of B14's strip windows: each region widened by the rows its points
+    read, rr = hr on each side, packed one after another."""
+    rr = halo_rows(pair)
+    regions = shell_regions(Z, Y, pair)
+    wins, off = [], 0
+    for z0, nz, y0, ny in regions:
+        Zw, Yw = nz + 2 * rr, ny + 2 * rr
+        wins.append((z0 - rr, y0 - rr, Zw, Yw, off))
+        off += Zw * Yw * X
+    if off >= 2 ** 31:
+        raise ValueError("mhd_substep_fixup_cuda: the shell's windows hold "
+                         "2^31 points or more (32-bit offsets)")
+    return regions, wins, off
+
+
+def _check_mesh(fields: Sequence[Fields], w, counts: Dim3, what: str):
+    counts = Dim3.of(counts)
+    if counts.x != 1:
+        raise ValueError(f"{what}: x must not be sharded (mesh "
+                         f"{tuple(counts)})")
+    if len(fields) != counts.flatten():
+        raise ValueError(f"{what}: {len(fields)} shards for a "
+                         f"{tuple(counts)} mesh")
+    if w is not None and len(w) != len(fields):
+        raise ValueError(f"{what}: {len(w)} w for {len(fields)} shards")
+    f0 = None
+    for i, f in enumerate(fields):
+        g = cm._check_fields(f, None if w is None else w[i], what)
+        if f0 is not None and (g.shape != f0.shape or g.dtype != f0.dtype):
+            raise ValueError(f"{what}: shards of {tuple(f0.shape)} "
+                             f"{f0.dtype} and {tuple(g.shape)} {g.dtype}")
+        f0 = f0 if f0 is not None else g
+    devs = {f[next(iter(f))].device.type for f in fields}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: shards on CPU and CUDA devices at once")
+    return counts, f0
+
+
+def _check_w_args(w, s: int, pair: bool, write_w: bool, what: str) -> None:
+    from ..models.astaroth import RK3_ALPHA
+
+    if pair:
+        if w is not None:
+            raise ValueError(f"{what}: the pair reads no w (alpha_0 == 0)")
+        if not write_w:
+            raise ValueError(f"{what}: the pair always writes w")
+    elif w is None and float(RK3_ALPHA[s]) != 0.0:
+        raise ValueError(f"{what}: w=None is only valid when alpha_s == 0 "
+                         f"(substep {s} has alpha {RK3_ALPHA[s]})")
+
+
+def _recv_for(recv: Optional[MhdOverlapRecv], fields: Sequence[Fields],
+              counts: Dim3, what: str) -> MhdOverlapRecv:
+    from ..models.astaroth import FIELDS
+
+    f0 = fields[0][FIELDS[0]]
+    if recv is None:
+        return MhdOverlapRecv([f[FIELDS[0]] for f in fields], counts)
+    if (recv.counts != counts or recv.shape != tuple(f0.shape)
+            or recv.dtype != f0.dtype
+            or recv.devices != [f[FIELDS[0]].device for f in fields]):
+        raise ValueError(f"{what}: recv was made for another mesh")
+    return recv
+
+
+def _launch_ptrs(group: Optional[Fields]):
+    from ..models.astaroth import FIELDS
+
+    return None if group is None else cm._ptrs([group[q] for q in FIELDS])
+
+
+def mhd_substep_overlap_cuda(fields: Sequence[Fields],
+                             w: Optional[Sequence[Fields]], s: int, prm,
+                             dt_phys: float, counts: Dim3,
+                             pair: bool = False, write_w: bool = True,
+                             out_f: Optional[Sequence[Fields]] = None,
+                             out_w: Optional[Sequence[Fields]] = None,
+                             recv: Optional[MhdOverlapRecv] = None
+                             ) -> Tuple[List[Fields], Optional[List[Fields]],
+                                        MhdOverlapRecv]:
+    """B13 (launch A) on every shard of an x-unsharded mesh
+    (``fields[i]``: the 8 (Z, Y, X) fields of mesh position i, x
+    fastest): RK3 substep ``s`` at ``interior_region`` into ``out_f``/
+    ``out_w`` (made if None; they must not alias the inputs), and the
+    boundary rows of all 8 fields stored into the neighbours' receive
+    buffers ``recv.buffers(hr)`` (``recv``: the mesh's persistent
+    ``MhdOverlapRecv``, made if None). Dead-w elision as in B11 (``w=None``
+    only where alpha_s == 0; ``write_w=False``); ``pair=True`` runs
+    substeps 0+1 (``w`` None, w written). Returns (out_f, out_w or None,
+    recv); on the card the landed rows are complete once every shard's
+    launch A has run (rule (b) orders B14 after them)."""
+    from ..models.astaroth import FIELDS
+
+    what = "mhd_substep_overlap_cuda"
+    _check_w_args(w, s, pair, write_w, what)
+    if not write_w and out_w is not None:
+        raise ValueError(f"{what}: out_w given with write_w=False")
+    counts, f0 = _check_mesh(fields, w, counts, what)
+    recv = _recv_for(recv, fields, counts, what)
+    hr = halo_rows(pair)
+    n = len(fields)
+    out_f = [cm._outputs(f[FIELDS[0]], None if out_f is None else out_f[i],
+                         what) for i, f in enumerate(fields)]
+    out_w = ([cm._outputs(f[FIELDS[0]], None if out_w is None else out_w[i],
+                          what) for i, f in enumerate(fields)]
+             if write_w else None)
+    if f0.device.type == "cpu":
+        nf, nw, slabs = mhd_substep_overlap_plain(fields, w, s, prm, dt_phys,
+                                                  counts, pair=pair,
+                                                  write_w=write_w)
+        landed = recv.landed(hr)
+        for i in range(n):
+            for q in FIELDS:
+                out_f[i][q].copy_(nf[i][q])
+                if write_w:
+                    out_w[i][q].copy_(nw[i][q])
+                for k in SLAB_NAMES:
+                    landed[i][q][k].copy_(slabs[i][q][k])
+        return out_f, out_w, recv
+    bufs = recv.buffers(hr)
+    for i, f in enumerate(fields):
+        ts = ([f[q] for q in FIELDS] + list(out_f[i].values())
+              + ([w[i][q] for q in FIELDS] if w is not None else [])
+              + (list(out_w[i].values()) if write_w else []))
+        cm._check_cuda(f0, ts, what)
+        if any(out_f[i][q].data_ptr() == f[q].data_ptr() for q in FIELDS):
+            raise ValueError(f"{what}: out_f aliases the fields")
+    Z, Y, X = f0.shape
+    consts = cm.kernel_consts(prm, dt_phys, s)
+    inner = interior_region(Z, Y, pair)
+    regions = _region_ints([inner] if inner else [], [(0, 0, Z, Y, 0)])
+    n_regions = 1 if inner else 0
+    from . import _build
+
+    with recv.own_session():
+        for i, f in enumerate(fields):
+            pieces = recv.pieces[hr][i]
+            dst = cm._ptrs([bufs[j][k][q] for k, j, _ in pieces
+                            for q in range(8)])
+            geo = np.asarray([g for _, _, g in pieces], dtype=np.int32)
+            p_in, p_f = _launch_ptrs(f), _launch_ptrs(out_f[i])
+            p_w = _launch_ptrs(None if w is None else w[i])
+            p_wo = _launch_ptrs(out_w[i] if write_w else None)
+            with recv.launch_a(i):
+                _build.launch(_LIB, "mhd_substep_overlap_launch",
+                              _SIGNATURES["mhd_substep_overlap_launch"],
+                              f[FIELDS[0]].device,
+                              p_in, p_w, dst, geo.ctypes.data, p_f, p_wo,
+                              regions.ctypes.data, n_regions, Z, Y, X,
+                              int(pair), consts.ctypes.data, consts.size)
+    LAUNCHES["mhd_substep_overlap"] += n
+    return out_f, out_w, recv
+
+
+def mhd_substep_fixup_cuda(fields: Sequence[Fields],
+                           w: Optional[Sequence[Fields]],
+                           f_partial: Sequence[Fields],
+                           w_partial: Optional[Sequence[Fields]], s: int,
+                           prm, dt_phys: float, counts: Dim3,
+                           recv: MhdOverlapRecv, pair: bool = False
+                           ) -> Tuple[List[Fields], Optional[List[Fields]]]:
+    """B14 (launch B) on every shard: the exterior shell
+    (``shell_regions``) of substep ``s`` from the pre-substep ``fields``/
+    ``w`` and the landed rows in ``recv.buffers(hr)``, written into B13's
+    outputs ``f_partial``/``w_partial`` IN PLACE (JAX aliases them;
+    ``w_partial=None`` is write_w=False). ``pair`` as for B13. Returns
+    (f_partial, w_partial)."""
+    from ..models.astaroth import FIELDS
+
+    what = "mhd_substep_fixup_cuda"
+    write_w = w_partial is not None
+    _check_w_args(w, s, pair, write_w, what)
+    counts, f0 = _check_mesh(fields, w, counts, what)
+    recv = _recv_for(recv, fields, counts, what)
+    hr = halo_rows(pair)
+    n = len(fields)
+    f_partial = [cm._outputs(f[FIELDS[0]], fp, what)
+                 for f, fp in zip(fields, f_partial)]
+    if write_w:
+        w_partial = [cm._outputs(f[FIELDS[0]], wp, what)
+                     for f, wp in zip(fields, w_partial)]
+    if f0.device.type == "cpu":
+        nf, nw = mhd_substep_fixup_plain(fields, w, f_partial, w_partial,
+                                         recv.landed(hr), s, prm, dt_phys,
+                                         pair=pair)
+        for i in range(n):
+            for q in FIELDS:
+                f_partial[i][q].copy_(nf[i][q])
+                if write_w:
+                    w_partial[i][q].copy_(nw[i][q])
+        return f_partial, w_partial
+    for i, f in enumerate(fields):
+        ts = ([f[q] for q in FIELDS] + list(f_partial[i].values())
+              + ([w[i][q] for q in FIELDS] if w is not None else [])
+              + (list(w_partial[i].values()) if write_w else []))
+        cm._check_cuda(f0, ts, what)
+    Z, Y, X = f0.shape
+    consts = cm.kernel_consts(prm, dt_phys, s)
+    regs, wins, _ = _shell_windows(Z, Y, X, pair)
+    regions = _region_ints(regs, wins)
+    landed = recv.landed(hr)
+    from . import _build
+
+    windows = recv.windows(hr)
+    with recv.own_session():
+        for j, f in enumerate(fields):
+            p_in, p_sl = _launch_ptrs(f), cm._ptrs(cm._slab_list(landed[j]))
+            p_win = cm._ptrs(windows[j].unbind(0))
+            p_w = _launch_ptrs(None if w is None else w[j])
+            p_f = _launch_ptrs(f_partial[j])
+            p_wo = _launch_ptrs(w_partial[j] if write_w else None)
+            with recv.launch_b(j):
+                _build.launch(_LIB, "mhd_substep_fixup_launch",
+                              _SIGNATURES["mhd_substep_fixup_launch"],
+                              f[FIELDS[0]].device, p_in, p_w, p_sl, p_win,
+                              p_f, p_wo, regions.ctypes.data, len(regs), Z,
+                              Y, X, hr, hr, int(pair), consts.ctypes.data,
+                              consts.size)
+    LAUNCHES["mhd_substep_fixup"] += n
+    return f_partial, w_partial
+
+
+def mhd_substep_overlap(fields: Sequence[Fields],
+                        w: Optional[Sequence[Fields]], s: int, prm,
+                        dt_phys: float, counts: Dim3, pair: bool = False,
+                        write_w: bool = True,
+                        out_f: Optional[Sequence[Fields]] = None,
+                        out_w: Optional[Sequence[Fields]] = None,
+                        recv: Optional[MhdOverlapRecv] = None
+                        ) -> Tuple[List[Fields], Optional[List[Fields]],
+                                   MhdOverlapRecv]:
+    """One full overlapped substep on every shard (JAX :515): B13, then
+    B14 on B13's outputs. Equals a slab round (``exchange_interior_slabs``
+    with hr rows) and B11 (B12 with the pair) on every shard, bitwise.
+    Returns (new fields, new w or None, recv)."""
+    f1, w1, recv = mhd_substep_overlap_cuda(fields, w, s, prm, dt_phys,
+                                            counts, pair=pair,
+                                            write_w=write_w, out_f=out_f,
+                                            out_w=out_w, recv=recv)
+    f1, w1 = mhd_substep_fixup_cuda(fields, w, f1, w1, s, prm, dt_phys,
+                                    counts, recv, pair=pair)
+    return f1, w1, recv

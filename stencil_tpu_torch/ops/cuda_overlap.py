@@ -19,7 +19,8 @@ plain twin; CUDA shards launch the kernels or raise; float32 only. A
 step adds one to ``LAUNCHES["jacobi7_overlap"]`` per shard (its launch
 A and its launch B).
 
-Ordering on the card (``OverlapRecv``): each shard launches on a CUDA
+Ordering on the card (``ShardOrdering``, which ``OverlapRecv`` extends
+with B7's receive slabs): each shard launches on a CUDA
 stream of its own (``ops/cuda_exchange.ShardStreams``), even where
 shards share a card, and two rules carried by CUDA events replace the
 TPU kernel's barrier and DMA waits: (a) shard i's launch A writes into
@@ -27,8 +28,9 @@ shard j's receive slabs only after j's launch B of the previous step has
 read them; (b) shard j's launch B starts only after the launch A of
 every shard that writes into its slabs. A run of steps joins the shard
 streams with the cards' current streams once at its start and once at
-its end (``OverlapRecv.session``); a call outside a session joins around
-its one step.
+its end (``ShardOrdering.session``); a call outside a session joins
+around its one step. B13/B14 (``ops/cuda_mhd_overlap.py``) share the
+same ordering.
 """
 
 from __future__ import annotations
@@ -89,39 +91,34 @@ def _check_mesh(interiors: Sequence[torch.Tensor], counts: Dim3,
     return Z, Y, X
 
 
-class OverlapRecv:
-    """The persistent receive slabs of every shard of a mesh — ``slabs[i]
-    = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X), "yhi": (Z,
-    1, X)}`` on shard i's device — and, on the card, the shards' streams
-    and the events of rules (a) and (b)."""
+class ShardOrdering:
+    """The ordering of a mesh's remote-write launches on the card: one
+    CUDA stream per shard (``ShardStreams``) and the events of rules (a)
+    and (b). ``targets[i]`` is the set of shards whose receive buffers
+    shard i's launch A writes (itself included on a one-shard axis);
+    ``sources[j]`` the shards that write into shard j's. On the CPU
+    (``devices`` all CPU) it holds no streams, and only ``session``
+    applies."""
 
-    def __init__(self, interiors: Sequence[torch.Tensor], counts: Dim3
-                 ) -> None:
-        self.counts = Dim3.of(counts)
-        Z, Y, X = _check_mesh(interiors, self.counts, "OverlapRecv")
-        shapes = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X),
-                  "yhi": (Z, 1, X)}
-        self.slabs = [{k: torch.zeros(s, dtype=t.dtype, device=t.device)
-                       for k, s in shapes.items()} for t in interiors]
-        n = len(interiors)
-        self.targets = [send_targets(i, self.counts) for i in range(n)]
-        # the shards whose sends fill shard j's slabs
-        self.sources = [sorted({i for i in range(n)
-                                if j in self.targets[i].values()})
+    def __init__(self, devices: Sequence[torch.device],
+                 targets: Sequence[Sequence[int]]) -> None:
+        n = len(devices)
+        self.targets = [sorted(set(t)) for t in targets]
+        self.sources = [sorted({i for i in range(n) if j in self.targets[i]})
                         for j in range(n)]
         self.streams: Optional[ShardStreams] = None
-        if interiors[0].is_cuda:
-            self.streams = ShardStreams([t.device for t in interiors])
+        self.active = False
+        if torch.device(devices[0]).type == "cuda":
+            self.streams = ShardStreams(devices)
             self.sent = [torch.cuda.Event() for _ in range(n)]
             self.read = [torch.cuda.Event() for _ in range(n)]
             self._read_recorded = [False] * n
-            for i, t in enumerate(interiors):
-                for j in set(self.targets[i].values()):
-                    enable_peer_access(t.device, interiors[j].device)
-        self.active = False
+            for i, d in enumerate(devices):
+                for j in self.targets[i]:
+                    enable_peer_access(d, devices[j])
 
     @contextlib.contextmanager
-    def session(self) -> Iterator["OverlapRecv"]:
+    def session(self) -> Iterator["ShardOrdering"]:
         """A run of steps: the shard streams wait for the cards'
         current streams once at the start, and the current streams for
         the shard streams once at the end; between steps only rules (a)
@@ -135,6 +132,61 @@ class OverlapRecv:
             self.active = False
             if self.streams is not None:
                 self.streams.exit()
+
+    @contextlib.contextmanager
+    def launch_a(self, i: int) -> Iterator[torch.cuda.Stream]:
+        """The block launches shard i's launch A on its stream, after
+        rule (a): every other target's previous launch B."""
+        s = self.streams[i]
+        for j in self.targets[i]:
+            if j != i and self._read_recorded[j]:
+                s.wait_event(self.read[j])
+        with torch.cuda.stream(s):
+            yield s
+        self.sent[i].record(s)
+
+    @contextlib.contextmanager
+    def launch_b(self, j: int) -> Iterator[torch.cuda.Stream]:
+        """The block launches shard j's launch B on its stream, after
+        rule (b): the launch A of every other shard that writes into
+        j."""
+        s = self.streams[j]
+        for i in self.sources[j]:
+            if i != j:
+                s.wait_event(self.sent[i])
+        with torch.cuda.stream(s):
+            yield s
+        self.read[j].record(s)
+        self._read_recorded[j] = True
+
+    @contextlib.contextmanager
+    def own_session(self) -> Iterator[None]:
+        """A session around one call, unless one is open already."""
+        if self.active:
+            yield
+            return
+        with self.session():
+            yield
+
+
+class OverlapRecv(ShardOrdering):
+    """The persistent receive slabs of every shard of a mesh — ``slabs[i]
+    = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X), "yhi": (Z,
+    1, X)}`` on shard i's device — and, on the card, the shards' streams
+    and the events of rules (a) and (b) (``ShardOrdering``)."""
+
+    def __init__(self, interiors: Sequence[torch.Tensor], counts: Dim3
+                 ) -> None:
+        self.counts = Dim3.of(counts)
+        Z, Y, X = _check_mesh(interiors, self.counts, "OverlapRecv")
+        shapes = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X),
+                  "yhi": (Z, 1, X)}
+        self.slabs = [{k: torch.zeros(s, dtype=t.dtype, device=t.device)
+                       for k, s in shapes.items()} for t in interiors]
+        self.send_to = [send_targets(i, self.counts)
+                        for i in range(len(interiors))]
+        super().__init__([t.device for t in interiors],
+                         [list(t.values()) for t in self.send_to])
 
 
 # ---------------------------------------------------------------------------
@@ -251,37 +303,25 @@ def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
     spheres = _sphere_args(hot_c, cold_c, sph_r)
     orgs = [tuple(int(v) for v in o) for o in origins]
     n = len(arrs)
-    own_session = not recv.active
-    if own_session:
-        recv.streams.enter()
-    # launch A: sends and the interior, after rule (a)
-    for i, t in enumerate(arrs):
-        s = recv.streams[i]
-        tg = recv.targets[i]
-        for j in set(tg.values()) - {i}:
-            if recv._read_recorded[j]:
-                s.wait_event(recv.read[j])
-        with torch.cuda.stream(s):
-            _build.launch(_LIB, "jacobi7_overlap_inner_launch", _SIGNATURE,
-                          t.device, t.data_ptr(), out[i].data_ptr(),
-                          *(recv.slabs[tg[k]][k].data_ptr()
-                            for k in SLAB_NAMES), Z, Y, X, *orgs[i],
-                          *spheres)
-        recv.sent[i].record(s)
-    # launch B: the faces, after rule (b)
-    for j, t in enumerate(arrs):
-        s = recv.streams[j]
-        for i in recv.sources[j]:
-            if i != j:
-                s.wait_event(recv.sent[i])
-        with torch.cuda.stream(s):
-            _build.launch(_LIB, "jacobi7_overlap_faces_launch", _SIGNATURE,
-                          t.device, t.data_ptr(), out[j].data_ptr(),
-                          *(recv.slabs[j][k].data_ptr() for k in SLAB_NAMES),
-                          Z, Y, X, *orgs[j], *spheres)
-        recv.read[j].record(s)
-        recv._read_recorded[j] = True
+    with recv.own_session():
+        # launch A: sends and the interior, after rule (a)
+        for i, t in enumerate(arrs):
+            tg = recv.send_to[i]
+            with recv.launch_a(i):
+                _build.launch(_LIB, "jacobi7_overlap_inner_launch",
+                              _SIGNATURE, t.device, t.data_ptr(),
+                              out[i].data_ptr(),
+                              *(recv.slabs[tg[k]][k].data_ptr()
+                                for k in SLAB_NAMES), Z, Y, X, *orgs[i],
+                              *spheres)
+        # launch B: the faces, after rule (b)
+        for j, t in enumerate(arrs):
+            with recv.launch_b(j):
+                _build.launch(_LIB, "jacobi7_overlap_faces_launch",
+                              _SIGNATURE, t.device, t.data_ptr(),
+                              out[j].data_ptr(),
+                              *(recv.slabs[j][k].data_ptr()
+                                for k in SLAB_NAMES), Z, Y, X, *orgs[j],
+                              *spheres)
     LAUNCHES["jacobi7_overlap"] += n
-    if own_session:
-        recv.streams.exit()
     return out, recv

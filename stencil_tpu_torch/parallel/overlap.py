@@ -30,10 +30,11 @@ from ..geometry import Dim3, Radius
 from .exchange import start_dispatch_exchange
 
 # an update function: (padded blocks per field, interior dims of this
-# region, region offset (x, y, z) in shard-interior coords) -> dict of
-# interior-shaped outputs for this region
-UpdateFn = Callable[[Dict[str, torch.Tensor], Dim3, Tuple[int, int, int]],
-                    Dict[str, torch.Tensor]]
+# region, region offset (x, y, z) in shard-interior coords, the shard's
+# mesh position) -> dict of interior-shaped outputs for this region (the
+# JAX version runs under shard_map, where the shard is implicit)
+UpdateFn = Callable[[Dict[str, torch.Tensor], Dim3, Tuple[int, int, int],
+                     int], Dict[str, torch.Tensor]]
 
 
 def split_regions(radius: Radius, local: Dim3
@@ -105,14 +106,14 @@ def overlapped_update(fields: Dict[str, List[torch.Tensor]], radius: Radius,
         for off, dims in inner:
             pieces[i].append((off, update_fn(
                 _region_blocks(shard, radius, off, dims), dims,
-                (off.x, off.y, off.z))))
+                (off.x, off.y, off.z), i)))
     landed.wait()
     for i in range(n):
         shard = {q: fields[q][i] for q in names}
         for off, dims in ext:
             pieces[i].append((off, update_fn(
                 _region_blocks(shard, radius, off, dims), dims,
-                (off.x, off.y, off.z))))
+                (off.x, off.y, off.z), i)))
 
     out: List[Dict[str, torch.Tensor]] = []
     for i in range(n):

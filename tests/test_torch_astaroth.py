@@ -206,12 +206,16 @@ def test_misaligned_wrap_raises_like_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(exchange_every=3), dict(overlap=True), dict(exchange_every=2),
-    dict(overlap=True, mesh_shape=(1, 2, 2), devices=["cpu"] * 4),
+    dict(exchange_every=3), dict(overlap=True, exchange_every=3),
+    dict(exchange_every=2),
+    dict(overlap=True, mesh_shape=(1, 2, 2), devices=["cpu"] * 4,
+         kernel="xla", exchange_every=2),
     dict(boundary=Boundary.NONE), dict(dtype=torch.bfloat16)])
 def test_left_out_options_name_their_roadmap_item(kw):
-    """Temporal blocking beyond the halo path's substep pair (A7), the
-    overlap path (B13/B14), Boundary.NONE (A8d) and bfloat16 (A8b)."""
+    """Temporal blocking beyond the halo paths' substep pair (A7), with
+    overlap too (``xla-overlap`` has no substep pair), Boundary.NONE
+    (A8d) and bfloat16 (A8b). The overlap path itself is ported
+    (B13/B14: tests/test_torch_astaroth_overlap.py)."""
     kw = dict(kw) if "devices" in kw else dict(kw, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pm.Astaroth(16, 16, 16, **kw)

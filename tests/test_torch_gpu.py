@@ -698,14 +698,17 @@ def test_overlap_kernel_equals_twin(co, size, mesh):
 @pytest.fixture
 def delayed_launches(monkeypatch):
     """``delay(shard, n_shards)``: from then on, every B7 launch of mesh
-    position ``shard`` (A and B) first sleeps on its own stream."""
+    position ``shard`` (A and B) first sleeps on its own stream; ``fns``
+    names other launchers (B13/B14's). Returns the launch counts seen."""
     from stencil_tpu_torch.ops import _build
 
     real = _build.launch
-    calls = {"jacobi7_overlap_inner_launch": 0,
-             "jacobi7_overlap_faces_launch": 0}
 
-    def delay(shard, n_shards, cycles=2_000_000):
+    def delay(shard, n_shards, cycles=2_000_000,
+              fns=("jacobi7_overlap_inner_launch",
+                   "jacobi7_overlap_faces_launch")):
+        calls = {fn: 0 for fn in fns}
+
         def launch(name, fn_name, *args):
             if fn_name in calls:
                 if calls[fn_name] % n_shards == shard:
@@ -819,3 +822,200 @@ def test_remote_write_paths_on_distinct_cards_equal_one_card(
         m.run(7)
         runs.append(m.temperature())
     np.testing.assert_array_equal(runs[0], runs[1])
+
+
+# ---------------------------------------------------------------------------
+# the MHD overlap path: B13/B14 (csrc/mhd_overlap.cu, halo-overlap)
+# ---------------------------------------------------------------------------
+MHD_OVERLAP_FNS = ("mhd_substep_overlap_launch", "mhd_substep_fixup_launch")
+
+
+@pytest.fixture
+def mo(cm):
+    from stencil_tpu_torch.ops import cuda_mhd_overlap
+
+    return cuda_mhd_overlap
+
+
+def _overlap_variants(pair):
+    return ([(0, False, True, True)] if pair else
+            [(0, False, True, False), (1, True, True, False),
+             (2, True, False, False)])
+
+
+@pytest.mark.parametrize("size,mesh", [((16, 8, 24), (1, 1, 1)),
+                                       ((32, 8, 16), (1, 1, 2)),
+                                       ((48, 48, 16), (1, 2, 2)),
+                                       ((32, 16, 5), (1, 2, 4))])
+def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
+    """B13 against its twin (the interior within 64 eps(f32) x max, the
+    landed rows bitwise), and B14 after B13 against B11 (B12 with the
+    pair) on the same shards and rows bitwise, for every variant: s = 0
+    with w=None, s = 1, s = 2 with write_w=False, and the pair."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
+
+    shards, ws = _mhd_mesh(size, mesh, 81)
+    counts = Dim3(*mesh)
+    f = [_fields(t) for t in shards]
+    w = [_fields(t) for t in ws]
+    prm = MhdParams(dt=1e-4)
+    Z, Y = shards[0].shape[1:3]
+    for pair in (False, True):
+        hr = mo.halo_rows(pair)
+        slabs = _mhd_slabs(shards, mesh, rz=hr, ry=hr)
+        inner = mo.interior_region(Z, Y, pair)
+        for s, read_w, write_w, _ in _overlap_variants(pair):
+            w_in = w if read_w else None
+            mo.reset_launch_counts()
+            kf, kw, recv = mo.mhd_substep_overlap_cuda(
+                f, w_in, s, prm, 1e-4, counts, pair=pair, write_w=write_w)
+            tf, tw, tsl = mo.mhd_substep_overlap_plain(
+                f, w_in, s, prm, 1e-4, counts, pair=pair, write_w=write_w)
+            landed = recv.landed(hr)
+            for i in range(len(f)):
+                for q in FIELDS:
+                    for k in cm.SLAB_NAMES:
+                        assert torch.equal(landed[i][q][k], tsl[i][q][k])
+                        assert torch.equal(landed[i][q][k], slabs[i][q][k])
+                if inner is not None:
+                    z0, nz, y0, ny = inner
+                    cut = (slice(z0, z0 + nz), slice(y0, y0 + ny))
+                    _assert_fields_close({q: kf[i][q][cut] for q in FIELDS},
+                                         {q: tf[i][q][cut] for q in FIELDS})
+                    if write_w:
+                        _assert_fields_close(
+                            {q: kw[i][q][cut] for q in FIELDS},
+                            {q: tw[i][q][cut] for q in FIELDS})
+            kf, kw = mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm, 1e-4,
+                                               counts, recv, pair=pair)
+            assert mo.LAUNCHES == {"mhd_substep_overlap": len(f),
+                                   "mhd_substep_fixup": len(f)}
+            for i in range(len(f)):
+                if pair:
+                    hf, hw = cm.mhd_substep01_halo_cuda(f[i], slabs[i], prm,
+                                                        1e-4)
+                else:
+                    hf, hw = cm.mhd_substep_halo_cuda(
+                        f[i], None if w_in is None else w_in[i], slabs[i], s,
+                        prm, 1e-4, write_w=write_w)
+                for q in FIELDS:
+                    assert torch.equal(kf[i][q], hf[q]), (pair, s, i, q)
+                    if write_w:
+                        assert torch.equal(kw[i][q], hw[q]), (pair, s, i, q)
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_mhd_overlap_substeps_with_a_delayed_shard_equal_the_halo_kernels(
+        mo, cm, delayed_launches, shard):
+    """Three substeps and a pair pass of ``mhd_substep_overlap`` in one
+    session on (1,2,2), one shard's stream sleeping before each of its
+    B13 and B14 launches (rule (a) guards the receive buffers it has not
+    read, rule (b) the rows it has not sent, from its four face and four
+    diagonal neighbours): bitwise equal to a slab round and B11 (B12) per
+    substep."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    mesh, counts = (1, 2, 2), Dim3(1, 2, 2)
+    shards, _ = _mhd_mesh((32, 32, 24), mesh, 82)
+    prm = MhdParams(dt=1e-4)
+
+    def halo_chain(a):
+        steps = [(0, False), (1, True), (2, True)]
+        w = None
+        for s, read_w in steps:
+            sl = _mhd_slabs(a, mesh, rz=3, ry=3)
+            out = [cm.mhd_substep_halo_cuda(_fields(t), w[i] if read_w else
+                                            None, sl[i], s, prm, 1e-4)
+                   for i, t in enumerate(a)]
+            a = [torch.stack(list(o[0].values())) for o in out]
+            w = [o[1] for o in out]
+        sl = _mhd_slabs(a, mesh, rz=6, ry=6)
+        out = [cm.mhd_substep01_halo_cuda(_fields(t), sl[i], prm, 1e-4)
+               for i, t in enumerate(a)]
+        return [torch.stack(list(o[0].values())) for o in out]
+
+    want = halo_chain(shards)
+    calls = delayed_launches(shard, 4, fns=MHD_OVERLAP_FNS)
+    a = [t.clone() for t in shards]
+    b = [torch.empty_like(t) for t in a]
+    w1 = [torch.empty_like(t) for t in a]
+    w2 = [torch.empty_like(t) for t in a]
+    recv = mo.MhdOverlapRecv(a, counts)
+
+    def v(ts):
+        return None if ts is None else [_fields(t) for t in ts]
+
+    with recv.session():
+        for s, w_in, w_out in ((0, None, w1), (1, w1, w2), (2, w2, w1)):
+            mo.mhd_substep_overlap(v(a), v(w_in), s, prm, 1e-4, counts,
+                                   out_f=v(b), out_w=v(w_out), recv=recv)
+            a, b = b, a
+        mo.mhd_substep_overlap(v(a), None, 0, prm, 1e-4, counts, pair=True,
+                               out_f=v(b), out_w=v(w2), recv=recv)
+        a, b = b, a
+    assert set(calls.values()) == {16}
+    for g, t in zip(a, want):
+        assert torch.equal(g, t)
+
+
+@pytest.mark.parametrize("pair", ["0", "1"])
+@pytest.mark.parametrize("mesh", [(1, 1, 1), (1, 2, 2)])
+def test_astaroth_halo_overlap_path_equals_halo_path(mo, cm, monkeypatch,
+                                                     delayed_launches, mesh,
+                                                     pair):
+    """24 x 32 x 48 (x, y, z), run(2) at dt = 1e-4: ``overlap=True``
+    (``auto`` takes ``halo-overlap``) launches B13 and B14 once per shard
+    and substep (pair pass) and nothing else, equals ``halo`` bitwise
+    (fields and carried w), and equals itself with a delayed shard."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    monkeypatch.setenv("STENCIL_MHD_PAIR", pair)
+    prm = MhdParams(dt=1e-4)
+    n = mesh[1] * mesh[2]
+    runs = []
+    for label in ("halo", "overlap", "delayed"):
+        m = Astaroth(24, 32, 48, params=prm, kernel="halo" if label == "halo"
+                     else "auto", overlap=label != "halo", mesh_shape=mesh,
+                     devices=["cuda:0"] * n)
+        assert m.kernel_path == ("halo" if label == "halo"
+                                 else "halo-overlap")
+        m.init()
+        if label == "delayed":
+            delayed_launches(n - 1, n, fns=MHD_OVERLAP_FNS)
+        cm.reset_launch_counts()
+        mo.reset_launch_counts()
+        m.run(2)
+        if label != "halo":
+            k = (2 if pair == "1" else 3) * 2 * n
+            assert mo.LAUNCHES == {"mhd_substep_overlap": k,
+                                   "mhd_substep_fixup": k}
+            assert not any(cm.LAUNCHES.values())
+        runs.append({q: (m.field(q), m.accumulator(q)) for q in FIELDS})
+    for q in FIELDS:
+        for r in runs[1:]:
+            np.testing.assert_array_equal(r[q][0], runs[0][q][0])
+            np.testing.assert_array_equal(r[q][1], runs[0][q][1])
+
+
+def test_astaroth_halo_overlap_on_distinct_cards_equals_one_card(mo):
+    """64 x 32 x 32 (x, y, z), run(3), ``halo-overlap`` (and the pair):
+    four shards over distinct cards, B13 storing its rows into the other
+    cards' receive buffers over the peer link, equal the same shards on
+    one card bitwise. Runs only with two or more cards."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    devs = _distinct_cards()
+    prm = MhdParams(dt=1e-4)
+    for pair in (0, 2):
+        runs = []
+        for devices in (devs, ["cuda:0"] * 4):
+            m = Astaroth(64, 32, 32, params=prm, kernel="halo", overlap=True,
+                         mesh_shape=(1, 2, 2), devices=devices,
+                         exchange_every=pair or None)
+            assert m.kernel_path == "halo-overlap"
+            m.init()
+            m.run(3)
+            runs.append({q: (m.field(q), m.accumulator(q)) for q in FIELDS})
+        for q in FIELDS:
+            np.testing.assert_array_equal(runs[0][q][0], runs[1][q][0])
+            np.testing.assert_array_equal(runs[0][q][1], runs[1][q][1])

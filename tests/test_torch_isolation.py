@@ -51,7 +51,8 @@ def test_imports_without_nvcc_or_jax():
             " stencil_tpu_torch.parallel.mesh, stencil_tpu_torch.placement,"
             " stencil_tpu_torch.ops.cuda_exchange, stencil_tpu_torch.ops.cuda_overlap,"
             " stencil_tpu_torch.parallel.cuda_exchange,"
-            " stencil_tpu_torch.parallel.overlap, stencil_tpu_torch.apps.measure_overlap;"
+            " stencil_tpu_torch.parallel.overlap, stencil_tpu_torch.apps.measure_overlap,"
+            " stencil_tpu_torch.ops.cuda_mhd_overlap, stencil_tpu_torch.apps._common;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'stencil_tpu')];"
             " assert not bad, bad")
@@ -74,6 +75,6 @@ def test_build_without_nvcc_raises(monkeypatch):
         _build.find_nvcc()
     assert set(_build.sources()) == {"exchange_dma", "jacobi7",
                                      "jacobi_halo", "jacobi_overlap",
-                                     "laplace6", "mhd"}
+                                     "laplace6", "mhd", "mhd_overlap"}
     assert os.path.basename(_build.library_path("jacobi7")).startswith(
         "libjacobi7-")

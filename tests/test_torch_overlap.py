@@ -206,5 +206,8 @@ def test_measure_overlap_app_line_and_mhd_refusal(capsys):
     res = measure_overlap.measure(8, 8, 8, iters=1, mesh_shape=(1, 2, 2),
                                   devices=["cpu"])
     assert (res["fused_path"], res["overlap_path"]) == ("halo", "overlap")
-    with pytest.raises(NotImplementedError, match="B13/B14"):
-        measure_overlap.main(["--model", "mhd"])
+    # --model mhd, once refused, runs B13/B14's path (their twins here)
+    res = measure_overlap.measure_mhd(16, 8, 8, iters=1,
+                                      mesh_shape=(1, 2, 2), devices=["cpu"])
+    assert (res["fused_path"], res["overlap_path"]) == ("halo",
+                                                        "halo-overlap")
