@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. card: ``torch.cuda.is_available()`` must hold; print the card's name
    and power limit (nvidia-smi) and the device count.
 2. build: compile every kernel source of the package with nvcc, one
-   process per source, all at once.
+   process per source, all at once; the registers and spills of B9 and
+   B11 are read from the ``-Xptxas=-v`` lines, their opcode counts from
+   ``cuobjdump -sass``.
 3. kernels vs plain twins, on the card:
    - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
      (jacobi7_padded) at small odd shapes and at 512^3. Tolerance: 0
@@ -36,17 +38,23 @@ Phases, in order; any failure exits non-zero before the last line:
      B12 (mhd_substep01_halo) against their twins on the slabs of
      ``exchange_interior_slabs``: JAX's layout (rz = ry = 8, zero filler)
      and the halo path's exact rows (rz = ry = 3, or 6 for B12), on
-     (1,1,1), (1,2,2) and (1,2,4) meshes of small shards and on two 256^3
-     shards of a (1,1,2) mesh; B12 also against B11 s=0, a slab round and
-     B11 s=1; on one shard B11 against B9 and B12 against B10, bitwise.
-     Tolerance as for B9.
+     (1,1,1), (1,2,2) and (1,2,4) meshes of small shards (x not a
+     multiple of B11's 32-wide tile), on two 256^3 shards of a (1,1,2)
+     mesh and on four 136 x 128 x 96 shards of a (1,2,2) mesh, where
+     ``b11_zrun`` splits z into runs, the last one shorter; B12 also against B11 s=0, a slab round and B11 s=1; on one shard B11
+     (every variant) against B9 and B12 against B10, bitwise. Tolerance:
+     B11 bitwise (it reads the shard and the slabs themselves and
+     computes B9's arithmetic, as its twin does), B12 as for B9.
    - B4 (exchange_axis: every shard stores its boundary slabs into its
-     neighbours' halos) sweep by sweep against its twin and whole
-     ``Method.PallasDMA`` exchanges against the slab copy: 512^3 radius 1
-     on (1,2,2), on (2,2,2) with eight shards on the card (the x sweep
-     remote too), float64 and bfloat16 at odd shapes with asymmetric
-     radii, and the 8-quantity radius-3 domain of 256 x 512 x 512 over
-     (1,2,2) through ``DistributedDomain.exchange``; B7 (jacobi7_overlap:
+     neighbours' halos; one launch per card and sweep for every quantity
+     and shard) sweep by sweep against its twin, each sweep one launch,
+     and whole ``Method.PallasDMA`` exchanges against the slab copy:
+     512^3 radius 1 on (1,2,2), on (2,2,2) with eight shards on the card
+     (the x sweep remote too), float64 and bfloat16 at odd shapes with
+     asymmetric radii, 1 and 8 quantities of radius 3 on (1,2,2) and
+     (1,2,4) in float32 and float64, and the 8-quantity radius-3 domain
+     of 256 x 512 x 512 over (1,2,2) through ``DistributedDomain.
+     exchange``; B7 (jacobi7_overlap:
      face slabs sent into the neighbours' receive slabs, interior, then
      faces), field and landed slabs, on the 512 x 256 x 256 quarter
      shards of (1,2,2), on one 512^3 shard and at small shapes.
@@ -111,8 +119,10 @@ Phases, in order; any failure exits non-zero before the last line:
      stream sleeps before each of its launches (a missing ordering rule
      between the shards' streams would show there); the same on
      (1,1,1) (21 launches). ``pallas`` with ``Method.PallasDMA`` (4
-     steps: 32 B4 and 16 K3 launches) and ``xla-overlap`` with
-     ``PallasDMA`` bitwise equal to the slab method.
+     steps: 12 B4 — one per step, sweep and card — and 16 K3 launches)
+     and ``xla-overlap`` with ``PallasDMA`` bitwise equal to the slab
+     method, and the latter also with every B4 launch delayed on its
+     card's side stream.
    - ``Astaroth(256, 512, 512, overlap=True)`` on (1,2,2) with four
      shards on the card: kernel="auto" must take ``halo-overlap``;
      ``run(2)`` launches B13 and B14 24 times each and nothing else (16
@@ -120,9 +130,10 @@ Phases, in order; any failure exits non-zero before the last line:
      above bitwise (fields and carried w), also with shard 3's stream
      delayed before each of its launches; 256^3 ``halo-overlap`` on
      (1,1,1) (6 + 6 launches) bitwise equal to ``wrap``; the MHD
-     ``xla-overlap`` path with ``Method.PallasDMA`` (384 B4 launches) on
-     32 x 32 x 48 over (1,2,2) against ``xla`` within substeps x 64 eps
-     x max.
+     ``xla-overlap`` path with ``Method.PallasDMA`` (18 B4 launches: one
+     per substep, sweep and card) on 32 x 32 x 48 over (1,2,2) against
+     ``xla`` within substeps x 64 eps x max, and bitwise against itself
+     with every B4 launch delayed.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
    and the halo path's slab exchange per group; iterations/s of the
@@ -130,10 +141,15 @@ Phases, in order; any failure exits non-zero before the last line:
    256^3, and of the Astaroth halo and halo+pair paths at 256 x 512 x
    512 on (1,2,2) and halo at 256^3 on (1,1,1), with one slab round of
    that mesh at radius 3 and 6 (host clock around run(k), ending in a
-   synchronize); B11 and B12 on one 256^3 shard of the (1,2,2) mesh,
-   beside B9 on the same shard; ``overlap`` steps/s at 512^3 on (1,2,2)
-   and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the same sweep
-   by ``copy_`` (its library call), B7 per step of the four quarter
+   synchronize; for the Astaroth halo and halo-overlap paths three such
+   runs, all iterations over all their time, every run beside it); B11
+   and B12 on one 256^3 shard of the (1,2,2) mesh, B11 per variant
+   beside B9 on the same shard in turns (B9, B11, B11, B9); ``overlap``
+   steps/s at 512^3
+   on (1,2,2) and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the
+   same sweep by ``copy_`` (its library call), an 8-field z sweep of
+   four 256^3 shards beside 8 ``copy_`` sweeps, a whole ``PallasDMA``
+   exchange of each beside the slab copy, B7 per step of the four quarter
    shards and of one 512^3 shard, and one ``measure_overlap`` line;
    iterations/s of Astaroth ``halo-overlap`` (and with the pair) at 256 x
    512 x 512 on (1,2,2) and at 256^3 on (1,1,1), B13 and B14 per variant
@@ -155,6 +171,7 @@ the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -858,13 +875,25 @@ def mhd_slabs(shards, mesh, **kw):
         shards, Dim3(*mesh), y_z_extended=True, **kw)]
 
 
+def same_bits(torch, got, want) -> bool:
+    """(fields, w) pairs equal bit for bit (w None in both, or equal)."""
+    (gf, gw), (wf, ww) = got, want
+    if (gw is None) != (ww is None):
+        return False
+    return (all(torch.equal(gf[q], wf[q]) for q in wf)
+            and (ww is None or all(torch.equal(gw[q], ww[q]) for q in ww)))
+
+
 def compare_mhd_halo_kernels(torch, cm) -> dict:
-    """Phase 3, the MHD halo kernels: B11 (every variant) and B12
-    against their twins per field within 64 eps(f32) of the largest twin
-    value, on JAX-layout slabs (rz = ry = 8, zero filler) and the halo
-    path's exact-row ones (rz = ry = R, or 2R for B12), at small shapes
-    and on two 256^3 shards; B12 also against B11 s=0, a slab round and
-    B11 s=1; on one shard B11 against B9 and B12 against B10, bitwise."""
+    """Phase 3, the MHD halo kernels: B11 (every variant) bitwise against
+    its twin (and within 64 eps(f32) of the largest twin value per field,
+    reported), B12 against its twin within that tolerance, on JAX-layout
+    slabs (rz = ry = 8, zero filler) and the halo path's exact-row ones
+    (rz = ry = R, or 2R for B12), at small shapes (x not a multiple of
+    B11's 32-wide tile), on two 256^3 shards and on four 136 x 128 x 96
+    shards, where B11's blocks walk z in runs; B12 also against B11 s=0, a slab
+    round and B11 s=1; on one shard B11 (every variant) against B9 and
+    B12 against B10, bitwise."""
     from stencil_tpu_torch.models.astaroth import MhdParams
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
@@ -878,9 +907,14 @@ def compare_mhd_halo_kernels(torch, cm) -> dict:
              ((16, 16, 24), (1, 2, 2), exact, MHD_DTS, True),
              ((32, 16, 40), (1, 2, 4), jax_layout, MHD_DTS, True),
              ((2 * N256, N256, N256), (1, 1, 2), exact, (MHD_PATH_DT,),
-              False)]
+              False),
+             ((272, 256, 96), (1, 2, 2), exact, (MHD_PATH_DT,), False)]
     for size, mesh, (kw11, kw12), dts, unelided in cases:
         shards, ws = mhd_mesh_case(torch, gen, size, mesh)
+        Z, Y, X = shards[0].shape[1:]
+        zrun = cm.b11_zrun(Z, Y, X, cm._sm_count(shards[0].device))
+        log(f"  B11 on {size} mesh {mesh}: {-(-Z // zrun)} z runs of "
+            f"{zrun} planes a block")
         sl11 = mhd_slabs(shards, mesh, **kw11)
         sl12 = mhd_slabs(shards, mesh, **kw12)
         variants = [(0, False, True), (1, True, True), (2, True, False)]
@@ -906,13 +940,15 @@ def compare_mhd_halo_kernels(torch, cm) -> dict:
                         e = max(e, check_fields(torch, kw, tw, what + ", w"))
                     elif kw is not None:
                         raise AssertionError("B11 write_w=False returned a w")
+                    if not same_bits(torch, (kf, kw), (tf, tw)):
+                        raise AssertionError(f"{what}: not bitwise equal to "
+                                             f"its twin")
                     worst["mhd_substep_halo"] = max(
                         worst["mhd_substep_halo"], e)
-                    if mesh == (1, 1, 1) and s == 0 and not read_w:
-                        bf, bw = cm.mhd_substep_wrap_cuda(f, None, 0, prm, dt)
-                        same = all(torch.equal(kf[q], bf[q])
-                                   and torch.equal(kw[q], bw[q]) for q in bf)
-                        log(f"  B11 vs B9 on one shard {tag}: "
+                    if mesh == (1, 1, 1):
+                        same = same_bits(torch, (kf, kw), cm.mhd_substep_wrap_cuda(
+                            f, w_in, s, prm, dt, write_w=write_w))
+                        log(f"  {what} vs B9: "
                             f"{'bitwise equal' if same else 'DIFFERENT'}")
                         if not same:
                             raise AssertionError("B11 differs from B9 on a "
@@ -1267,7 +1303,21 @@ def time_mhd_kernels(torch, cs, cm) -> dict:
     return res
 
 
-def time_mhd_halo(torch, cm) -> dict:
+def timed_runs(m, k: int, reps: int = 3):
+    """Iterations/s of ``reps`` host-clocked ``run(k)`` of a warmed-up
+    model, each ending in a synchronize: (all iterations over all their
+    seconds, each run's rate). A stalled run counts in full: the host
+    side of a path can stall, and that is the path's own cost."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        m.run(k)
+        m.block()
+        secs.append(time.perf_counter() - t0)
+    return reps * k / sum(secs), [k / t for t in secs]
+
+
+def time_mhd_halo(torch, cm, ptxas) -> dict:
     """Phase 5, the Astaroth halo path: iterations/s of ``halo`` and
     ``halo`` + pair at 256 x 512 x 512 on (1,2,2) (four shards on the one
     card) and of ``halo`` at 256^3 on (1,1,1); one slab round (all 8
@@ -1287,12 +1337,10 @@ def time_mhd_halo(torch, cm) -> dict:
         m.init()
         m.run(1)
         m.block()
-        t0 = time.perf_counter()
-        m.run(k)
-        m.block()
-        res["iters_per_s"][label] = k / (time.perf_counter() - t0)
+        res["iters_per_s"][label], runs = timed_runs(m, k)
+        res.setdefault("runs_iters_per_s", {})[label] = runs
         log(f"  Astaroth {label}: {res['iters_per_s'][label]!r} "
-            f"iterations/s")
+            f"iterations/s over three runs ({runs})")
         if pair == "0" and mesh != (1, 1, 1):
             for rr in (cm.R, 2 * cm.R):
                 ms = 1e3 * m.slab_exchange_seconds(rr, reps=10)
@@ -1349,23 +1397,42 @@ def time_mhd_halo(torch, cm) -> dict:
             f"bound {bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; "
             f"plain twin {plain_ms!r} ms")
         torch.cuda.empty_cache()
-    # the gap to B9 on the same shard's fields, in this call
-    res["b9_same_shard_ms"] = {
-        "s=0 (w=None)": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
-            f, None, 0, prm, dt), reps=10),
-        "s=1": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
-            f, w, 1, prm, dt), reps=10),
-        "s=2 (write_w=False)": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
-            f, w, 2, prm, dt, write_w=False), reps=10)}
-    log(f"  B9 on the same 256^3 shard: {res['b9_same_shard_ms']} ms/launch")
-    b11 = [kernels.pop(k) for k in ("B11 s=0 (w=None)", "B11 s=1",
-                                    "B11 s=2 (write_w=False)")]
+    # B11 against B9 on the same shard's fields, in turns (B9, B11, B11, B9)
+    variants = {"s=0 (w=None)": (0, None, True),
+                "s=1": (1, w, True), "s=2 (write_w=False)": (2, w, False)}
+    res["b9_same_shard_ms"] = {}
+    b11 = []
+    zrun = cm.b11_zrun(Z, Y, X, cm._sm_count(shards[0].device))
+    for v, (s, w_in, write_w) in variants.items():
+        def b9():
+            return cm.mhd_substep_wrap_cuda(f, w_in, s, prm, dt,
+                                            write_w=write_w)
+
+        def b11_once():
+            return cm.mhd_substep_halo_cuda(f, w_in, sl3, s, prm, dt,
+                                            write_w=write_w)
+
+        turns = [event_ms(torch, b9, reps=10),
+                 event_ms(torch, b11_once, reps=10),
+                 event_ms(torch, b11_once, reps=10),
+                 event_ms(torch, b9, reps=10)]
+        res["b9_same_shard_ms"][v] = (turns[0] + turns[3]) / 2
+        entry = kernels.pop(f"B11 {v}")
+        entry["b9_b11_b11_b9_ms"] = turns
+        entry.update(ptxas.get(("B11", s != 0, write_w), {}))
+        entry["b9_ptxas"] = ptxas.get(("B9", s != 0, write_w), {})
+        log(f"  B11 {v} vs B9, in turns B9, B11, B11, B9: {turns} ms "
+            f"(32 x {cm.B11_TILE_Y} tiles, z runs of {zrun}); ptxas B11 "
+            f"{ {k: entry.get(k) for k in PTXAS_KEYS} }, B9 "
+            f"{entry['b9_ptxas']}")
+        if max(turns[1:3]) >= min(turns[0], turns[3]):
+            log(f"  NOTE: B11 {v} is not faster than B9 in this call")
+        b11.append(entry)
     kernels["mhd_substep_halo"] = {
         k: sum(v[k] for v in b11) / 3 for k in ("ms", "plain_ms", "bound_ms")}
     kernels["mhd_substep_halo"].update(
         bound_by=b11[1]["bound_by"], library_ms=None,
-        variants={"s=0 (w=None)": b11[0], "s=1": b11[1],
-                  "s=2 (write_w=False)": b11[2]})
+        zrun=zrun, variants=dict(zip(variants, b11)))
     del f, w, sl3, sl6, shards, ws
     torch.cuda.empty_cache()
     res["kernels"] = kernels
@@ -1412,6 +1479,30 @@ def delayed_shard(torch, shard: int, n_shards: int, cycles: int = DELAY_CYCLES,
         _build.launch = real
 
 
+@contextlib.contextmanager
+def delayed_b4(torch, cycles: int = DELAY_CYCLES):
+    """For the block, every B4 launch first waits ``cycles`` on its
+    card's side stream, so that a missing join between that stream and
+    the streams that read or write the halos shows as a wrong result.
+    Yields the number of launches delayed so far (a one-item list)."""
+    from stencil_tpu_torch.ops import cuda_exchange as cx
+
+    real = cx._launch_card
+    seen = [0]
+
+    def launch(args, stream):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(cycles)
+        seen[0] += 1
+        return real(args, stream)
+
+    cx._launch_card = launch
+    try:
+        yield seen
+    finally:
+        cx._launch_card = real
+
+
 def dma_shards(torch, gen, local_zyx, mesh, radius, dtype=None):
     """Random padded shards of an evenly divided grid over ``mesh`` on
     the card (halos random too)."""
@@ -1441,7 +1532,9 @@ def overlap_case(torch, gen, size_xyz, mesh):
 
 def compare_dma_overlap_kernels(torch, cx, co) -> dict:
     """Phase 3, B4 and B7 against their twins, bitwise: B4 sweep by sweep
-    (kernel against ``exchange_axis_plain``) and whole exchanges
+    (kernel against ``exchange_axis_plain``, one launch per card and
+    sweep, one-shard axes too; 1 and 8 quantities in one launch on
+    (1,2,2) and (1,2,4), float32 and float64) and whole exchanges
     (``exchange_shard_cuda`` against the slab copy ``exchange_shard``) on
     (1,2,2) at 512^3 radius 1, on (2,2,2) with eight shards on the card
     (the x sweep remote too), on the 8-quantity radius-3 domain of 256 x
@@ -1477,16 +1570,24 @@ def compare_dma_overlap_kernels(torch, cx, co) -> dict:
            (2, 2, 2), asym_radius(), torch.float64),
           ("(9, 6, 11) (2,1,2) r=2, bfloat16", (9, 6, 11), (2, 1, 2),
            Radius.constant(2), torch.bfloat16)]
+    def one_launch(before, what):
+        got = cx.LAUNCHES["exchange_axis"] - before
+        if got != 1:
+            raise AssertionError(f"{what}: {got} B4 launches, not one per "
+                                 f"card and sweep")
+
     for label, local, mesh, rad, dtype in b4:
         counts = Dim3(*mesh)
         shards = dma_shards(torch, gen, local, mesh, rad, dtype)
         for a in range(3):
             r_lo, r_hi = rad.face(a, -1), rad.face(a, 1)
-            if counts[a] == 1 or (r_lo == 0 and r_hi == 0):
+            if r_lo == 0 and r_hi == 0:
                 continue
             k = [t.clone() for t in shards]
             w = [t.clone() for t in shards]
+            before = cx.LAUNCHES["exchange_axis"]
             cx.exchange_axis_cuda(k, a, r_lo, r_hi, counts)
+            one_launch(before, f"B4 {label}, {'xyz'[a]} sweep")
             cx.exchange_axis_plain(w, a, r_lo, r_hi, counts)
             same("exchange_axis", k, w, f"B4 {label}, {'xyz'[a]} sweep")
         k = [t.clone() for t in shards]
@@ -1496,6 +1597,27 @@ def compare_dma_overlap_kernels(torch, cx, co) -> dict:
         same("exchange_axis", k, w,
              f"B4 {label}, whole exchange vs the slab copy")
         del shards, k, w
+    # 1 and 8 quantities in one launch per sweep, float32 and float64
+    for mesh, local, n_q, dtype in (((1, 2, 2), (64, 40, 48), 8, None),
+                                    ((1, 2, 4), (33, 20, 24), 8,
+                                     torch.float64),
+                                    ((1, 2, 4), (33, 20, 24), 1, None)):
+        counts = Dim3(*mesh)
+        rad = Radius.constant(3)
+        fields = [dma_shards(torch, gen, local, mesh, rad, dtype)
+                  for _ in range(n_q)]
+        want = [[t.clone() for t in f] for f in fields]
+        tag = f"B4 {n_q} quantities {local} {mesh} {dtype or torch.float32}"
+        for a in range(3):
+            before = cx.LAUNCHES["exchange_axis"]
+            cx.start_sweeps(fields, [(a, 3, 3)], counts).exit()
+            one_launch(before, f"{tag}, {'xyz'[a]} sweep")
+            for f in want:
+                cx.exchange_axis_plain(f, a, 3, 3, counts)
+            for q in range(n_q):
+                same("exchange_axis", fields[q], want[q],
+                     f"{tag}, {'xyz'[a]} sweep, quantity {q}")
+        del fields, want
     doms = []
     for method in (Method.PallasDMA, Method.PpermuteSlab):
         d = DistributedDomain(N256, 2 * N256, 2 * N256,
@@ -1547,9 +1669,11 @@ def run_overlap_paths(torch, cs, ch, cx, co) -> dict:
     kernel — and on (1,1,1); each against the ``xla`` path on its mesh
     within ``steps * 8 * eps(f32)``, the (1,2,2) run also against the
     same run with one shard's stream delayed before each of its launches
-    (bitwise); ``pallas`` with ``Method.PallasDMA`` (4 steps: 32 B4 and 16
-    K3 launches) bitwise against ``pallas`` with the slab copy, and
-    ``xla-overlap`` with ``PallasDMA`` bitwise against the ``xla`` path."""
+    (bitwise); ``pallas`` with ``Method.PallasDMA`` (4 steps: 12 B4 — one
+    per step, sweep and card — and 16 K3 launches) bitwise against
+    ``pallas`` with the slab copy, and ``xla-overlap`` with ``PallasDMA``
+    bitwise against the ``xla`` path and against itself with every B4
+    launch delayed on its card's side stream."""
     import numpy as np
 
     from stencil_tpu_torch import Method
@@ -1637,23 +1761,37 @@ def run_overlap_paths(torch, cs, ch, cx, co) -> dict:
         torch.cuda.empty_cache()
     mesh = (1, 2, 2)
     runs = {}
+    # B4: one launch per step (exchange), sweep (x, y, z) and card: 4 x 3
     for label, kernel, kw, want in (
             ("pallas + PallasDMA", "pallas",
              dict(methods=Method.PallasDMA),
-             {"exchange_axis": 32, "jacobi7_padded": 16}),
+             {"exchange_axis": 12, "jacobi7_padded": 16}),
             ("pallas + slab", "pallas", {}, {"jacobi7_padded": 16}),
             ("xla-overlap + PallasDMA", "xla",
              dict(methods=Method.PallasDMA, overlap=True),
-             {"exchange_axis": 32}),
+             {"exchange_axis": 12}),
+            ("xla-overlap + PallasDMA, B4 delayed", "xla",
+             dict(methods=Method.PallasDMA, overlap=True),
+             {"exchange_axis": 12}),
             ("xla + slab", "xla", {}, {})):
         j = model(kernel, mesh, **kw)
-        runs[label] = drive(f"{label} 512^3 (1,2,2)", j, 4, want)
+        if "delayed" in label:
+            with delayed_b4(torch) as seen:
+                runs[label] = drive(f"{label} 512^3 (1,2,2)", j, 4, want)
+            if seen[0] != want["exchange_axis"]:
+                raise AssertionError("the delay did not see every B4 launch")
+        else:
+            runs[label] = drive(f"{label} 512^3 (1,2,2)", j, 4, want)
         del j
         torch.cuda.empty_cache()
     close("pallas + PallasDMA vs pallas + slab, 4 steps",
           runs["pallas + PallasDMA"], runs["pallas + slab"], 0)
     close("xla-overlap + PallasDMA vs xla + slab, 4 steps",
           runs["xla-overlap + PallasDMA"], runs["xla + slab"], 0)
+    close("xla-overlap + PallasDMA, every B4 launch delayed on its card's "
+          "side stream, vs undelayed",
+          runs["xla-overlap + PallasDMA, B4 delayed"],
+          runs["xla-overlap + PallasDMA"], 0)
     del runs
     torch.cuda.empty_cache()
     main = out["launches_by_run"]
@@ -1669,14 +1807,20 @@ def time_dma_overlap(torch, cx, co) -> dict:
     """Phase 5, the remote-write paths: B4 per sweep on the (1,2,2) mesh
     of 512^3 (z and y sweeps, radius 1, four shards) beside its twin and
     the same sweep by ``Tensor.copy_`` (``exchange_shard`` on that axis
-    alone: the library call); B7 per step of the four 512 x 256 x 256
+    alone: the library call), and a z sweep of 8 fields of four 256^3
+    shards at radius 3 beside 8 such ``copy_`` sweeps; a whole
+    ``PallasDMA`` exchange on both beside the slab copy; B7 per step of
+    the four 512 x 256 x 256
     quarter shards and of one 512^3 shard, beside its twin; ``overlap``
     steps/s at 512^3 on (1,2,2) and (1,1,1); one ``measure_overlap``
     line."""
+    from stencil_tpu_torch import Method
     from stencil_tpu_torch.apps import measure_overlap
     from stencil_tpu_torch.geometry import Dim3, Radius
     from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.parallel.cuda_exchange import exchange_shard_cuda
     from stencil_tpu_torch.parallel.exchange import (_single_axis_radius,
+                                                     dispatch_exchange,
                                                      exchange_shard)
 
     res = {"steps_per_s": {}, "kernels": {}}
@@ -1720,9 +1864,47 @@ def time_dma_overlap(torch, cx, co) -> dict:
         log(f"  exchange_axis {'xyz'[a]} sweep of four 512 x 256 x 256 "
             f"shards: {ms!r} ms, bound {bms!r} ms ({by}, {nbytes} B); "
             f"twin {plain_ms!r} ms; copy_ sweep {lib_ms!r} ms")
+    # the whole PallasDMA exchange (three sweeps) beside the slab copy
+    whole = {"Jacobi 512^3 (1,2,2) r=1": event_ms(
+        torch, lambda: exchange_shard_cuda(shards, r1, counts), reps=20),
+        "Jacobi slab copy": event_ms(
+        torch, lambda: exchange_shard(shards, r1, counts), reps=20)}
+    del shards
+    torch.cuda.empty_cache()
+    # 8 MHD fields of four 256^3 shards at radius 3: one z sweep (one
+    # launch for all 32 shards of the 8 fields) beside 8 copy_ sweeps,
+    # and the whole exchange beside the slab copy
+    r3 = Radius.constant(3)
+    fields = [dma_shards(torch, gen, (N256,) * 3, (1, 2, 2), r3)
+              for _ in range(8)]
+    single = _single_axis_radius(r3, 2)
+    cross = fields[0][0].numel() // fields[0][0].shape[0]
+    nbytes = 4 * 8 * len(fields[0]) * 2 * 2 * 3 * cross
+    ms = event_ms(torch, lambda: cx.start_sweeps(fields, [(2, 3, 3)],
+                                                 counts).exit(), reps=20)
+    plain_ms = event_ms(torch, lambda: [cx.exchange_axis_plain(
+        f, 2, 3, 3, counts) for f in fields], reps=5)
+    lib_ms = event_ms(torch, lambda: [exchange_shard(
+        f, single, counts, axis_order=(2,)) for f in fields], reps=5)
+    bms, by = bound_ms(nbytes, 0)
+    variants["z sweep, 8 MHD fields of four 256^3 shards, r=3"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms, "bytes": nbytes}
+    log(f"  exchange_axis z sweep of 8 fields x four 256^3 shards, r=3: "
+        f"{ms!r} ms, bound {bms!r} ms ({by}, {nbytes} B); twin "
+        f"{plain_ms!r} ms; 8 copy_ sweeps {lib_ms!r} ms")
+    dmap = {f"q{q}": f for q, f in enumerate(fields)}
+    whole["MHD 8 fields 256x512x512 (1,2,2) r=3"] = event_ms(
+        torch, lambda: dispatch_exchange(dmap, r3, counts, Method.PallasDMA),
+        reps=10)
+    whole["MHD slab copy"] = event_ms(
+        torch, lambda: dispatch_exchange(dmap, r3, counts,
+                                         Method.PpermuteSlab), reps=3)
+    log(f"  whole exchange, PallasDMA (B4) vs the slab copy: {whole} ms")
+    res["whole_exchange_ms"] = whole
     res["kernels"]["exchange_axis"] = dict(variants["z sweep"],
                                            variants=variants)
-    del shards
+    del fields, dmap
     torch.cuda.empty_cache()
     b7 = {}
     for label, mesh in (("four 512 x 256 x 256 shards of (1,2,2)",
@@ -1923,8 +2105,9 @@ def run_astaroth_overlap(torch, cs, cm, mo, cx, halo_state) -> dict:
     shard 3's stream delayed before each of its launches; 256^3 on
     (1,1,1) with overlap=True (6 + 6 launches) bitwise equal to ``wrap``;
     and the ``xla-overlap`` path with ``Method.PallasDMA`` (B4: one launch
-    per substep, field, shard and remote axis, 384) on a small (1,2,2)
-    mesh against ``xla`` within substeps x 64 eps x max."""
+    per substep, sweep and card, 18) on a small (1,2,2) mesh against
+    ``xla`` within substeps x 64 eps x max, and bitwise against itself
+    with every B4 launch delayed on its card's side stream."""
     from stencil_tpu_torch import Method
     from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
 
@@ -2003,9 +2186,21 @@ def run_astaroth_overlap(torch, cs, cm, mo, cx, halo_state) -> dict:
     bitwise("halo-overlap 256^3 (1,1,1) vs wrap after 2 iterations", got, ref)
     del got, ref
     small = (32, 32, 48)
+    # B4: one launch per exchange, sweep and card: 3 substeps x 2
+    # iterations x 3 sweeps (x, y, z) x 1 card, all 8 fields and 4 shards
+    # in each launch
+    b4 = {"exchange_axis": 3 * 2 * 3}
     _, xo = drive("xla-overlap + PallasDMA 32x32x48 (1,2,2)", small, (1, 2, 2),
-                  "0", {"exchange_axis": 3 * 2 * 8 * 4 * 2}, kernel="xla",
-                  methods=Method.PallasDMA)
+                  "0", b4, kernel="xla", methods=Method.PallasDMA)
+    with delayed_b4(torch) as seen:
+        _, slow = drive("xla-overlap + PallasDMA 32x32x48 (1,2,2), B4 "
+                        "delayed", small, (1, 2, 2), "0", b4, kernel="xla",
+                        methods=Method.PallasDMA)
+    log(f"  B4 launches delayed on the card's side stream: {seen[0]}")
+    if seen[0] != b4["exchange_axis"]:
+        raise AssertionError("the delay did not see every B4 launch")
+    bitwise("xla-overlap + PallasDMA: B4 delayed vs undelayed", slow, xo)
+    del slow
     _, xl = drive("xla 32x32x48 (1,2,2)", small, (1, 2, 2), "0", {},
                   kernel="xla", overlap=False)
     out["xla_overlap_dma_vs_xla_max_diff"] = check_fields(
@@ -2043,11 +2238,10 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
         m.init()
         m.run(1)
         m.block()
-        t0 = time.perf_counter()
-        m.run(k)
-        m.block()
-        res["iters_per_s"][label] = k / (time.perf_counter() - t0)
-        log(f"  Astaroth {label}: {res['iters_per_s'][label]!r} iterations/s")
+        res["iters_per_s"][label], runs = timed_runs(m, k)
+        res.setdefault("runs_iters_per_s", {})[label] = runs
+        log(f"  Astaroth {label}: {res['iters_per_s'][label]!r} iterations/s "
+            f"over three runs ({runs})")
         del m
         torch.cuda.empty_cache()
 
@@ -2147,6 +2341,78 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
 
 
 # name: (tag, source, TPU kernel it replaces)
+PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
+
+
+def kernel_key(name: str):
+    """("B9" or "B11", read_w, write_w) of a mangled kernel name, else
+    None."""
+    import re
+
+    for tag, kernel in (("B11", "mhd_substep_halo"), ("B9", "mhd_substep_wrap")):
+        m = re.search(kernel + r"_kernelILb(\d)ELb(\d)E", name)
+        if m:
+            return (tag, m.group(1) == "1", m.group(2) == "1")
+    return None
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of B9 and B11 from the ``-Xptxas=-v``
+    lines of the build log: ``kernel_key`` -> {"registers",
+    "spill_stores", "spill_loads"}. Empty when the libraries were built
+    before (no log)."""
+    import re
+
+    out = {}
+    key = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = kernel_key(m.group(1))
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts() -> dict:
+    """Static opcode counts of B9 and B11 in the built MHD library
+    (``cuobjdump -sass``; each instruction of the kernel once, loops not
+    unrolled): ``kernel_key`` -> {"total": n, and the 8 most frequent
+    opcodes}. Empty where the toolkit has no cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    from stencil_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("mhd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        key = kernel_key(part.split("\n", 1)[0])
+        if key is None:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]+)", part)
+        c = collections.Counter(o.split(".")[0] for o in ops)
+        out[key] = dict(total=len(ops), **dict(c.most_common(8)))
+    return out
+
+
 KERNEL_META = {
     "jacobi7_wrap": ("K1", "stencil_tpu_torch/csrc/jacobi7.cu",
                      "stencil_tpu/ops/pallas_stencil.py:134"),
@@ -2205,9 +2471,17 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    built = _build.build_all()
+    build_log = io.StringIO()
+    with contextlib.redirect_stdout(build_log):
+        built = _build.build_all()
+    print(build_log.getvalue(), end="", flush=True)
+    ptxas = ptxas_usage(build_log.getvalue())
+    for key, counts in sass_counts().items():
+        ptxas.setdefault(key, {})["sass"] = counts
     log(f"phase 2: built {sorted(built)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    for key, use in sorted(ptxas.items(), key=str):
+        log(f"  ptxas {key}: {use}")
 
     # phase 3: kernels vs twins
     log("phase 3: kernels vs plain twins")
@@ -2257,7 +2531,7 @@ def main() -> int:
            "xla": iters_per_s(torch, "xla", 3)}
     for path, v in ips.items():
         log(f"  Astaroth {path}: {v!r} iterations/s")
-    mhd_halo_times = time_mhd_halo(torch, cm)
+    mhd_halo_times = time_mhd_halo(torch, cm, ptxas)
     dma_times = time_dma_overlap(torch, cx, co)
     mhd_overlap_times = time_mhd_overlap(torch, cm, mo)
     times = time_kernels(torch, cs)
@@ -2291,6 +2565,8 @@ def main() -> int:
                        halo_times["halon_quarter_shard_ms"],
                    "astaroth_halo_iters_per_s":
                        mhd_halo_times["iters_per_s"],
+                   "astaroth_halo_runs_iters_per_s":
+                       mhd_halo_times["runs_iters_per_s"],
                    "astaroth_halo_slab_exchange_ms":
                        mhd_halo_times["slab_exchange_ms"],
                    "b9_same_shard_ms": mhd_halo_times["b9_same_shard_ms"],
@@ -2301,9 +2577,12 @@ def main() -> int:
                    "astaroth_overlap_path": mhd_overlap_path,
                    "astaroth_overlap_iters_per_s":
                        mhd_overlap_times["iters_per_s"],
+                   "astaroth_overlap_runs_iters_per_s":
+                       mhd_overlap_times["runs_iters_per_s"],
                    "measure_overlap_mhd":
                        mhd_overlap_times["measure_overlap_mhd"],
                    "overlap_steps_per_s_512": dma_times["steps_per_s"],
+                   "whole_exchange_ms": dma_times["whole_exchange_ms"],
                    "measure_overlap": dma_times["measure_overlap"],
                    "kernels": kernels}, f, indent=1)
     print(card)

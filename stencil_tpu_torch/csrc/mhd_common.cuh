@@ -334,16 +334,25 @@ struct HaloGeom {
   int Z, Y, X, rz, ry;
 };
 
+// the source of window row (z, y) of one field: its shard fq and its
+// four slabs
+__device__ __forceinline__ const float* halo_row_of(
+    const float* fq, const float* zlo, const float* zhi, const float* ylo,
+    const float* yhi, const HaloGeom& g, int y, int z) {
+  if (y < 0) return ylo + ((z + g.rz) * g.ry + g.ry + y) * g.X;
+  if (y >= g.Y) return yhi + ((z + g.rz) * g.ry + y - g.Y) * g.X;
+  if (z < 0) return zlo + ((z + g.rz) * g.Y + y) * g.X;
+  if (z >= g.Z) return zhi + ((z - g.Z) * g.Y + y) * g.X;
+  return fq + (z * g.Y + y) * g.X;
+}
+
 // the source of window row (z, y) of field q
 __device__ __forceinline__ const float* halo_row(const InPtrs& f,
                                                  const SlabPtrs& sl, int q,
                                                  const HaloGeom& g, int y,
                                                  int z) {
-  if (y < 0) return sl.ylo[q] + ((z + g.rz) * g.ry + g.ry + y) * g.X;
-  if (y >= g.Y) return sl.yhi[q] + ((z + g.rz) * g.ry + y - g.Y) * g.X;
-  if (z < 0) return sl.zlo[q] + ((z + g.rz) * g.Y + y) * g.X;
-  if (z >= g.Z) return sl.zhi[q] + ((z - g.Z) * g.Y + y) * g.X;
-  return f.p[q] + (z * g.Y + y) * g.X;
+  return halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q], sl.ylo[q], sl.yhi[q], g,
+                     y, z);
 }
 
 // Offsets of the 7 x columns, 7 y rows and 7 z planes around one point

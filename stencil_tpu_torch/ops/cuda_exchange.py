@@ -1,5 +1,5 @@
 """The hand-written remote-write halo exchange (B4), with its plain twin,
-and the per-shard CUDA streams that order remote writes.
+its launch tables and the per-card streams that order its sweeps.
 
 PyTorch-port counterpart of ``stencil_tpu/parallel/pallas_exchange.py``
 ``_exchange_axis_pallas`` (:57): one axis sweep in which every shard of
@@ -14,29 +14,40 @@ B4  pallas_exchange.py:57 ``_exchange_axis_pallas``  ``exchange_axis_cuda``  ``e
 ==  ==========================================  =======================  ========================
 
 The module rules of ``ops/cuda_stencil.py`` hold: CPU shards go to the
-plain twin; CUDA shards launch the kernel (one launch per shard, each
-adding one to ``LAUNCHES["exchange_axis"]``) or raise — a shard whose
-card cannot reach a neighbour's card raises too, and nothing is ever
-staged through the host or handed to ``copy_`` instead.
+plain twin; CUDA shards launch the kernel or raise — a shard whose card
+cannot reach a neighbour's card raises too, and nothing is ever staged
+through the host or handed to ``copy_`` instead.
+
+One launch per card and sweep. ``plan_card_sweeps`` (pure) lays out,
+per card, a launch table with one row per (quantity, shard) held there:
+the shard's pointer, its two neighbours' pointers and the slab geometry
+in the widest unit that divides them all. ``ExchangePlan`` uploads the
+tables once per set of buffers (``exchange_plan`` caches them by the
+buffers' pointers, shapes, strides and dtypes, the sweeps and the mesh),
+enabling peer access as it does; a call with the same buffers then
+costs one launch per card and sweep (``start_sweeps``), each adding one
+to ``LAUNCHES["exchange_axis"]``. A one-shard axis is swept by the same
+kernel, each shard its own neighbour.
 
 Ordering. The TPU kernel meets its neighbours at a semaphore barrier
-before it writes. On the card every shard launches on a CUDA stream of
-its own (``ShardStreams``; shards that share a card get distinct
-streams, so the ordering below is real there too), and events between
-those streams carry the barrier's meaning: ``enter`` makes each shard's
-stream wait for the work already queued on the current stream of every
-card of the mesh (the previous readers of the halos about to be
-written, and the writers of the slabs about to be read), ``join``
-makes every shard's stream wait for every other's work so far, and
-``exit`` makes each card's current stream wait for every shard's
-stream. No kernel waits on a flag another launch sets.
+before it writes. On the card every card runs the sweeps on a side
+stream of its own (``card_stream``), and events carry the barrier's
+meaning: the side streams first wait for the work already queued on the
+current stream of every card of the mesh (the previous readers of the
+halos about to be written, and the writers of the slabs about to be
+read); with several cards, every card's sweep s lands before any card's
+sweep s+1 starts; and ``CardJoin.exit`` makes each card's current
+stream wait for every card's side stream. No kernel waits on a flag
+another launch sets.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -57,51 +68,8 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# per-shard streams and the peer-access helper
+# the peer-access helper
 # ---------------------------------------------------------------------------
-class ShardStreams:
-    """One CUDA stream per shard of a mesh (``devices[i]`` holds shard
-    i; a device may repeat, and each repeat gets a stream of its own),
-    with the event joins between them and the cards' current streams."""
-
-    def __init__(self, devices: Sequence[torch.device]) -> None:
-        self.devices = [torch.device(d) for d in devices]
-        self.streams = [torch.cuda.Stream(d) for d in self.devices]
-        self.cards = list(dict.fromkeys(self.devices))
-
-    def __getitem__(self, i: int) -> torch.cuda.Stream:
-        return self.streams[i]
-
-    def __len__(self) -> int:
-        return len(self.streams)
-
-    def enter(self) -> None:
-        """Every shard's stream waits for the work queued so far on the
-        current stream of every card of the mesh."""
-        events = [torch.cuda.current_stream(d).record_event()
-                  for d in self.cards]
-        for s in self.streams:
-            for e in events:
-                s.wait_event(e)
-
-    def join(self) -> None:
-        """Every shard's stream waits for every shard's work so far."""
-        events = [s.record_event() for s in self.streams]
-        for i, s in enumerate(self.streams):
-            for j, e in enumerate(events):
-                if j != i:
-                    s.wait_event(e)
-
-    def exit(self) -> None:
-        """The current stream of every card of the mesh waits for every
-        shard's stream."""
-        events = [s.record_event() for s in self.streams]
-        for d in self.cards:
-            cur = torch.cuda.current_stream(d)
-            for e in events:
-                cur.wait_event(e)
-
-
 _peers: Set[Tuple[int, int]] = set()
 
 
@@ -175,78 +143,310 @@ def exchange_axis_plain(shards: Sequence[torch.Tensor], axis: int,
 
 
 _LIB = "exchange_dma"
-_LL = ctypes.c_longlong
-_SIGNATURE = ([ctypes.c_void_p] * 3 + [_LL] * 8 + [ctypes.c_int]
-              + [ctypes.c_void_p])
+_LAUNCHER = "exchange_table_launch"
+_SIGNATURE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+#: the int64 columns of one launch-table row (``struct Entry`` of
+#: ``csrc/exchange_dma.cu``): the shard's pointer, its right and left
+#: neighbours' pointers, then the two slabs' geometry in units
+ENTRY_FIELDS = ("src", "right", "left", "lo_src_off", "lo_dst_off",
+                "lo_run", "hi_src_off", "hi_dst_off", "hi_run", "stride",
+                "runs")
 
 
-def sweep_geometry(shape: Sequence[int], itemsize: int, axis: int,
-                   r_lo: int, r_hi: int, ptrs: Sequence[int] = ()
-                   ) -> Dict[str, int]:
-    """The kernel's view of one sweep of a padded ``shape``: the unit
-    (the widest of 1, 2, 4, 8, 16 bytes that divides the bytes of one
-    cell row across the swept axis, and so every run, offset and
-    stride, and every pointer), and in units the two slabs' source and
-    destination offsets and run lengths, the stride between runs and
-    the number of runs."""
+def widest_unit(*byte_counts: int) -> int:
+    """The widest of 1, 2, 4, 8 and 16 bytes that divides every count
+    (and pointer) given."""
+    return math.gcd(16, *byte_counts)
+
+
+def _geometry(shape: Sequence[int], itemsize: int, axis: int, r_lo: int,
+              r_hi: int, unit: int) -> Dict[str, int]:
     dim = _AXIS_TO_DIM[axis]
     alloc = shape[dim]
     interior = alloc - r_lo - r_hi
-    runs = math.prod(shape[:dim])
-    inner = math.prod(shape[dim + 1:]) * itemsize
-    g = math.gcd(16, inner, *ptrs)
-    unit = 1 << (g.bit_length() - 1)
-    per = inner // unit
+    per = math.prod(shape[dim + 1:]) * itemsize // unit
     return {"unit": unit, "lo_src_off": interior * per, "lo_dst_off": 0,
             "lo_run": r_lo * per, "hi_src_off": r_lo * per,
             "hi_dst_off": (r_lo + interior) * per, "hi_run": r_hi * per,
-            "stride": alloc * per, "runs": runs}
+            "stride": alloc * per, "runs": math.prod(shape[:dim])}
+
+
+@dataclass(frozen=True)
+class CardSweep:
+    """One B4 launch: one sweep of every (quantity, shard) held on
+    ``card``. ``keys[k]`` is the (quantity, shard) of table row
+    ``rows[k]`` (``ENTRY_FIELDS`` order, in ``unit``-byte units);
+    ``most`` is the largest slab of any row, in units."""
+    card: Hashable
+    unit: int
+    keys: Tuple[Tuple[int, int], ...]
+    rows: Tuple[Tuple[int, ...], ...]
+    most: int
+
+
+def plan_card_sweeps(ptrs: Sequence[Sequence[int]],
+                     shapes: Sequence[Sequence[int]],
+                     itemsizes: Sequence[int], cards: Sequence[Hashable],
+                     axis: int, r_lo: int, r_hi: int, counts: Dim3
+                     ) -> List[CardSweep]:
+    """The launch tables of one sweep along grid ``axis``, one per card
+    in order of first appearance: ``ptrs[q][i]`` is the pointer of shard
+    i (x fastest) of quantity q, ``shapes[q]``/``itemsizes[q]`` its
+    padded (Z, Y, X) shape and element bytes, ``cards[i]`` the card that
+    holds shard i (of every quantity). A card's table has one row per
+    (quantity, shard) it holds, with the shard's right and left
+    neighbours along ``axis`` (``mesh_neighbor``; itself on a one-shard
+    axis); its unit is the widest that divides every pointer and every
+    cell row of its rows. Pure: plain integers in, plain integers out."""
+    counts = Dim3.of(counts)
+    n = counts.flatten()
+    if len(cards) != n:
+        raise ValueError(f"{len(cards)} shards for a {tuple(counts)} mesh")
+    dim = _AXIS_TO_DIM[axis]
+    right = [mesh_neighbor(i, counts, axis, 1) for i in range(n)]
+    left = [mesh_neighbor(i, counts, axis, -1) for i in range(n)]
+    held: Dict[Hashable, List[Tuple[int, int]]] = {c: [] for c in cards}
+    for q, qp in enumerate(ptrs):
+        if len(qp) != n:
+            raise ValueError(f"quantity {q}: {len(qp)} shards for a "
+                             f"{tuple(counts)} mesh")
+        for i in range(n):
+            held[cards[i]].append((q, i))
+    out = []
+    for card, keys in held.items():
+        vals = []
+        for q, i in keys:
+            inner = math.prod(shapes[q][dim + 1:]) * itemsizes[q]
+            vals += [inner, ptrs[q][i], ptrs[q][right[i]], ptrs[q][left[i]]]
+        unit = widest_unit(*vals)
+        rows = []
+        most = 0
+        for q, i in keys:
+            shape = shapes[q]
+            if math.prod(shape) * itemsizes[q] // unit >= 2 ** 31:
+                raise ValueError(f"exchange_axis: a {tuple(shape)} shard of "
+                                 f"{itemsizes[q]}-byte cells holds 2^31 "
+                                 f"{unit}-byte units or more (32-bit "
+                                 f"offsets)")
+            g = _geometry(shape, itemsizes[q], axis, r_lo, r_hi, unit)
+            rows.append((ptrs[q][i], ptrs[q][right[i]], ptrs[q][left[i]],
+                         *(g[k] for k in ENTRY_FIELDS[3:])))
+            most = max(most, g["runs"] * max(g["lo_run"], g["hi_run"]))
+        out.append(CardSweep(card, unit, tuple(keys), tuple(rows), most))
+    return out
+
+
+Sweep = Tuple[int, int, int]     # (grid axis, r_lo, r_hi)
+
+
+class ExchangePlan:
+    """The B4 launches of one exchange (``sweeps`` in order over every
+    quantity's shards ``fields[q][i]``), planned once per set of
+    buffers: ``launches[s]`` holds sweep s's ``CardSweep`` per card. On
+    CUDA shards it also enables peer access between every shard's card
+    and its neighbours' and uploads each card's launch table (every
+    sweep's rows, back to back) into that card's memory."""
+
+    def __init__(self, fields: Sequence[Sequence[torch.Tensor]],
+                 sweeps: Sequence[Sweep], counts: Dim3) -> None:
+        counts = Dim3.of(counts)
+        fields = [list(s) for s in fields]
+        for shards in fields:
+            for axis, r_lo, r_hi in sweeps:
+                _check_sweep(shards, axis, r_lo, r_hi, counts)
+        devices = [t.device for t in fields[0]]
+        for shards in fields:
+            if [t.device for t in shards] != devices:
+                raise ValueError("exchange: shard i of every quantity must "
+                                 "lie on one device")
+        kinds = {d.type for d in devices}
+        self.cuda = kinds == {"cuda"}
+        if not self.cuda and kinds != {"cpu"}:
+            raise ValueError("exchange_axis_cuda: shards on "
+                             f"{sorted({str(d) for d in devices})}; all "
+                             f"must be on CUDA devices (or all on the CPU)")
+        if not all(t.is_contiguous() for s in fields for t in s):
+            raise ValueError("exchange_axis_cuda: shards must be contiguous")
+        ptrs = [[t.data_ptr() for t in s] for s in fields]
+        shapes = [tuple(s[0].shape) for s in fields]
+        items = [s[0].element_size() for s in fields]
+        self.sweeps = tuple(sweeps)
+        self.cards = list(dict.fromkeys(devices))
+        self.launches = [plan_card_sweeps(ptrs, shapes, items, devices, a,
+                                          lo, hi, counts)
+                         for a, lo, hi in sweeps]
+        self.tables: Dict[torch.device, torch.Tensor] = {}
+        self.args: List[List[Tuple]] = []
+        if self.cuda:
+            self._upload(devices, counts)
+
+    def _upload(self, devices, counts: Dim3) -> None:
+        for i, d in enumerate(devices):
+            for a, _, _ in self.sweeps:
+                for step in (1, -1):
+                    enable_peer_access(d, devices[mesh_neighbor(
+                        i, counts, a, step)])
+        rows: Dict[torch.device, list] = {c: [] for c in self.cards}
+        for per_card in self.launches:
+            for cs in per_card:
+                rows[cs.card] += cs.rows
+        for c in self.cards:
+            t = torch.tensor(rows[c], dtype=torch.int64, device=c)
+            t.record_stream(card_stream(c))
+            self.tables[c] = t
+        row_bytes = 8 * len(ENTRY_FIELDS)
+        offset = {c: 0 for c in self.cards}
+        for per_card in self.launches:
+            args = []
+            for cs in per_card:
+                base = self.tables[cs.card].data_ptr()
+                args.append((cs.card, base + offset[cs.card] * row_bytes,
+                             len(cs.rows), cs.most, cs.unit,
+                             cs.card.index))
+                offset[cs.card] += len(cs.rows)
+            self.args.append(args)
+
+
+#: plans by key (the buffers' pointers, shapes, strides and dtypes, the
+#: sweeps and the mesh counts), least recently used first
+_PLANS: "OrderedDict[tuple, ExchangePlan]" = OrderedDict()
+PLAN_CACHE_SIZE = 64
+
+
+def _plan_key(fields, sweeps, counts) -> tuple:
+    return (tuple(sweeps), tuple(counts),
+            tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                  for s in fields for t in s))
+
+
+def exchange_plan(fields: Sequence[Sequence[torch.Tensor]],
+                  sweeps: Sequence[Sweep], counts: Dim3) -> ExchangePlan:
+    """The cached ``ExchangePlan`` of these buffers and sweeps: built on
+    the first call for a key and whenever a buffer is replaced (a new
+    pointer, shape, stride or dtype changes the key), else returned as
+    it is."""
+    key = _plan_key(fields, sweeps, counts)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        _PLANS.move_to_end(key)
+        return plan
+    plan = ExchangePlan(fields, sweeps, counts)
+    _PLANS[key] = plan
+    while len(_PLANS) > PLAN_CACHE_SIZE:
+        _PLANS.popitem(last=False)
+    return plan
+
+
+# one side stream and two reusable events per card
+_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+_EVENTS: Dict[Tuple[torch.device, str], "torch.cuda.Event"] = {}
+
+
+def card_stream(card: torch.device) -> "torch.cuda.Stream":
+    """The stream on which card ``card`` runs B4's sweeps."""
+    s = _SIDE.get(card)
+    if s is None:
+        s = _SIDE[card] = torch.cuda.Stream(card)
+    return s
+
+
+def _event(card: torch.device, what: str) -> "torch.cuda.Event":
+    e = _EVENTS.get((card, what))
+    if e is None:
+        e = _EVENTS[(card, what)] = torch.cuda.Event()
+    return e
+
+
+def _record(card: torch.device, what: str, stream) -> "torch.cuda.Event":
+    e = _event(card, what)
+    e.record(stream)
+    return e
+
+
+class CardJoin:
+    """The started sweeps of one exchange on the cards' side streams;
+    ``exit()`` makes every card's current stream wait for them."""
+
+    def __init__(self, cards: Sequence[torch.device]) -> None:
+        self.cards = cards
+
+    def exit(self) -> None:
+        done = [_record(c, "done", card_stream(c)) for c in self.cards]
+        for c in self.cards:
+            cur = torch.cuda.current_stream(c)
+            for e in done:
+                cur.wait_event(e)
+
+
+_fn = None
+
+
+def _launch_card(args: Tuple, stream: "torch.cuda.Stream") -> None:
+    """One B4 launch on ``stream``: ``args`` = (card, table pointer,
+    rows, most, unit, device index) from ``ExchangePlan.args``."""
+    global _fn
+    if _fn is None:
+        from . import _build
+
+        fn = getattr(_build.load(_LIB), _LAUNCHER)
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+        _fn = fn
+    err = _fn(*args[1:], stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_LAUNCHER} failed: CUDA error {err}")
+
+
+def start_sweeps(fields: Sequence[Sequence[torch.Tensor]],
+                 sweeps: Sequence[Sweep], counts: Dim3
+                 ) -> Optional[CardJoin]:
+    """Queue ``sweeps`` (each (axis, r_lo, r_hi), in order) over every
+    quantity's padded shards ``fields[q][i]`` in place. On CUDA: one B4
+    launch per card and sweep, on the card's side stream, after the work
+    already queued on the current stream of every card of the mesh
+    (the previous readers of the halos about to be written, the writers
+    of the slabs about to be read); with several cards, every card's
+    sweep s lands before any card's sweep s+1 starts (one event per
+    card). Returns the ``CardJoin`` whose ``exit()`` joins the side
+    streams back. On the CPU the sweeps run at once through the twin,
+    and None is returned."""
+    counts = Dim3.of(counts)
+    if all(t.device.type == "cpu" for s in fields for t in s):
+        for axis, r_lo, r_hi in sweeps:
+            for shards in fields:
+                exchange_axis_plain(shards, axis, r_lo, r_hi, counts)
+        return None
+    plan = exchange_plan(fields, sweeps, counts)
+    cards = plan.cards
+    ready = [_record(c, "ready", torch.cuda.current_stream(c)) for c in cards]
+    for c in cards:
+        side = card_stream(c)
+        for e in ready:
+            side.wait_event(e)
+    for s, args in enumerate(plan.args):
+        if s and len(cards) > 1:
+            swept = [_record(c, "swept", card_stream(c)) for c in cards]
+            for c in cards:
+                side = card_stream(c)
+                for d, e in zip(cards, swept):
+                    if d != c:
+                        side.wait_event(e)
+        for a in args:
+            _launch_card(a, card_stream(a[0]))
+            LAUNCHES["exchange_axis"] += 1
+    return CardJoin(cards)
 
 
 def exchange_axis_cuda(shards: Sequence[torch.Tensor], axis: int, r_lo: int,
-                       r_hi: int, counts: Dim3,
-                       streams: Optional[ShardStreams] = None
-                       ) -> Sequence[torch.Tensor]:
+                       r_hi: int, counts: Dim3) -> Sequence[torch.Tensor]:
     """B4: one sweep along grid ``axis`` over the padded shards of a
-    mesh, in place — ``exchange_axis_plain``'s function, with every
-    shard's kernel storing both its slabs into its neighbours' tensors.
-    On CUDA shard i launches on ``streams[i]``; with no ``streams`` the
-    sweep makes its own and joins them with the cards' current streams
-    before and after (a caller that runs several sweeps passes one
-    ``ShardStreams`` and joins them itself). Any dtype; every shard
-    contiguous, one shape."""
-    counts = Dim3.of(counts)
-    arrs = _check_sweep(shards, axis, r_lo, r_hi, counts)
-    if all(t.device.type == "cpu" for t in arrs):
-        return exchange_axis_plain(arrs, axis, r_lo, r_hi, counts)
-    if not all(t.is_cuda for t in arrs):
-        raise ValueError("exchange_axis_cuda: shards on "
-                         f"{sorted({str(t.device) for t in arrs})}; all "
-                         f"must be on CUDA devices (or all on the CPU)")
-    if not all(t.is_contiguous() for t in arrs):
-        raise ValueError("exchange_axis_cuda: shards must be contiguous")
-    from . import _build
-
-    own = streams is None
-    if own:
-        streams = ShardStreams([t.device for t in arrs])
-        streams.enter()
-    geo = sweep_geometry(arrs[0].shape, arrs[0].element_size(), axis,
-                         r_lo, r_hi, [t.data_ptr() for t in arrs])
-    for i, src in enumerate(arrs):
-        right = arrs[mesh_neighbor(i, counts, axis, 1)]
-        left = arrs[mesh_neighbor(i, counts, axis, -1)]
-        enable_peer_access(src.device, right.device)
-        enable_peer_access(src.device, left.device)
-        with torch.cuda.stream(streams[i]):
-            _build.launch(_LIB, "exchange_axis_launch", _SIGNATURE,
-                          src.device, src.data_ptr(), right.data_ptr(),
-                          left.data_ptr(), geo["lo_src_off"],
-                          geo["lo_dst_off"], geo["lo_run"],
-                          geo["hi_src_off"], geo["hi_dst_off"],
-                          geo["hi_run"], geo["stride"], geo["runs"],
-                          geo["unit"])
-        LAUNCHES["exchange_axis"] += 1
-    if own:
-        streams.exit()
+    mesh, in place — ``exchange_axis_plain``'s function, with one launch
+    per card storing every shard's two slabs into its neighbours'
+    tensors, joined with the cards' current streams before and after.
+    Any dtype; every shard contiguous, one shape."""
+    join = start_sweeps([shards], [(axis, r_lo, r_hi)], counts)
+    if join is not None:
+        join.exit()
     return shards

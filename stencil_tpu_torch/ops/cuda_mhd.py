@@ -29,8 +29,9 @@ kernel. A wrapper dispatches on the tensors' device: CPU tensors go to
 the plain twin (any float dtype; bfloat16 stored, float32 computed, see
 ``compute_dtype``); CUDA tensors launch the kernel (float32 only, else
 ``TypeError``) or raise — never the twin. Each launch adds one to the
-wrapper's entry in ``LAUNCHES`` (a B11/B12 launch is two kernels, the
-window gather and the substep, counted once).
+wrapper's entry in ``LAUNCHES`` (a B12 launch is two kernels, the
+window gather and the substep, counted once; B11 is one kernel that
+reads the shard and its slabs itself).
 
 The kernels evaluate ``exp`` with CUDA's ``expf`` and the twins with
 PyTorch's; everything else is formed in the twins' order, built
@@ -42,6 +43,7 @@ field's largest value (the tests and ``chip_smoke.py`` hold them to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -266,9 +268,9 @@ _SIGNATURES = {
     "mhd_substep_wrap_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # (fields[8], out_f[8], out_w[8], Z, Y, X, consts, n_consts, stream)
     "mhd_substep01_wrap_launch": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    # (fields[8], w[8] or NULL, slabs[32], window[8], out_f[8], out_w[8]
-    #  or NULL, Z, Y, X, rz, ry, consts, n_consts, stream)
-    "mhd_substep_halo_launch": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    # (fields[8], w[8] or NULL, slabs[32], out_f[8], out_w[8] or NULL,
+    #  Z, Y, X, rz, ry, zrun, consts, n_consts, stream)
+    "mhd_substep_halo_launch": [_P] * 5 + [_I] * 6 + [_P, _I, _P],
     # (fields[8], slabs[32], window[8], out_f[8], out_w[8], Z, Y, X, rz,
     #  ry, consts, n_consts, stream)
     "mhd_substep01_halo_launch": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
@@ -489,6 +491,31 @@ def _outputs(f0: torch.Tensor, out: Optional[Fields], what: str) -> Fields:
     return out
 
 
+#: B11's block: 32 x 16 (x, y) points walking a run of z planes, one
+#: block an SM (csrc/mhd.cu HaloTile)
+B11_TILE_Y = 16
+
+
+@functools.lru_cache(maxsize=None)
+def b11_zrun(Z: int, Y: int, X: int, n_sms: int) -> int:
+    """The z planes a B11 block walks on a (Z, Y, X) shard: the run that
+    minimises waves x (run + 2R), where a wave is one block on every SM
+    and each run also loads 2R planes of margin — long runs while the
+    (x, y) tiles alone fill the card, shorter ones when they do not."""
+    cols = -(-X // 32) * -(-Y // B11_TILE_Y)
+
+    def cost(zrun):
+        waves = -(-cols * -(-Z // zrun) // n_sms)
+        return waves * (zrun + 2 * R), zrun
+
+    return min(cost(-(-Z // runs)) for runs in range(1, Z + 1))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _window(f0: torch.Tensor, rr: int) -> torch.Tensor:
     """Scratch for the kernels' radius-``rr`` window of the 8 fields,
     (8, Z + 2rr, Y + 2rr, X); the window's offsets must fit 32 bits."""
@@ -525,7 +552,9 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     ``write_w=False``. Dead-w elision as in B9: ``w=None`` (only for
     ``alpha_s == 0``) skips the w read, ``write_w=False`` the w write.
     ``out_f``/``out_w``: destination tensors (default: new ones), which
-    must not alias the inputs."""
+    must not alias the inputs. One launch, no scratch: the kernel reads
+    the rows straight from the shard and the slabs into shared memory,
+    each block walking ``b11_zrun`` z planes."""
     from ..models.astaroth import FIELDS, RK3_ALPHA
 
     what = "mhd_substep_halo_cuda"
@@ -550,15 +579,14 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     wo = [out_w[q] for q in FIELDS] if write_w else []
     _check_cuda(f0, ins + w_in + sl + outs + wo, what)
     Z, Y, X = f0.shape
+    zrun = b11_zrun(Z, Y, X, _sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys, s)
-    win = _window(f0, R)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f = _ptrs(ins), _ptrs(sl), _ptrs(outs)
-    p_win = _ptrs(win.unbind(0))
     p_w = _ptrs(w_in) if w_in else None
     p_wo = _ptrs(wo) if wo else None
-    _launch("mhd_substep_halo_launch", f0.device, p_in, p_w, p_sl, p_win,
-            p_f, p_wo, Z, Y, X, rz, ry, consts.ctypes.data, consts.size)
+    _launch("mhd_substep_halo_launch", f0.device, p_in, p_w, p_sl, p_f, p_wo,
+            Z, Y, X, rz, ry, zrun, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep_halo"] += 1
     return out_f, out_w
 

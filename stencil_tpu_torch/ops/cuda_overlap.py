@@ -21,7 +21,7 @@ A and its launch B).
 
 Ordering on the card (``ShardOrdering``, which ``OverlapRecv`` extends
 with B7's receive slabs): each shard launches on a CUDA
-stream of its own (``ops/cuda_exchange.ShardStreams``), even where
+stream of its own (``ShardStreams``), even where
 shards share a card, and two rules carried by CUDA events replace the
 TPU kernel's barrier and DMA waits: (a) shard i's launch A writes into
 shard j's receive slabs only after j's launch B of the previous step has
@@ -43,7 +43,7 @@ import torch
 
 from ..geometry import Dim3
 from ..parallel.mesh import mesh_neighbor
-from .cuda_exchange import ShardStreams, enable_peer_access
+from .cuda_exchange import enable_peer_access
 from .cuda_stencil import _check, _check_cuda, _sphere_args, impose_spheres
 from .stencil_kernels import sixth
 
@@ -58,6 +58,41 @@ SLAB_NAMES = ("zlo", "zhi", "ylo", "yhi")
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class ShardStreams:
+    """One CUDA stream per shard of a mesh (``devices[i]`` holds shard
+    i; a device may repeat, and each repeat gets a stream of its own),
+    with the event joins between them and the cards' current streams."""
+
+    def __init__(self, devices: Sequence[torch.device]) -> None:
+        self.devices = [torch.device(d) for d in devices]
+        self.streams = [torch.cuda.Stream(d) for d in self.devices]
+        self.cards = list(dict.fromkeys(self.devices))
+
+    def __getitem__(self, i: int) -> torch.cuda.Stream:
+        return self.streams[i]
+
+    def __len__(self) -> int:
+        return len(self.streams)
+
+    def enter(self) -> None:
+        """Every shard's stream waits for the work queued so far on the
+        current stream of every card of the mesh."""
+        events = [torch.cuda.current_stream(d).record_event()
+                  for d in self.cards]
+        for s in self.streams:
+            for e in events:
+                s.wait_event(e)
+
+    def exit(self) -> None:
+        """The current stream of every card of the mesh waits for every
+        shard's stream."""
+        events = [s.record_event() for s in self.streams]
+        for d in self.cards:
+            cur = torch.cuda.current_stream(d)
+            for e in events:
+                cur.wait_event(e)
 
 
 def send_targets(i: int, counts: Dim3) -> Dict[str, int]:

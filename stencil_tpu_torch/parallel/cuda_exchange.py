@@ -2,28 +2,27 @@
 
 PyTorch-port counterpart of ``stencil_tpu/parallel/pallas_exchange.py``
 ``exchange_shard_pallas`` (:121-144): fill every halo of the padded
-shards of a mesh by sequential axis sweeps in ``axis_order``, where each
-sweep along an axis of more than one shard is one launch of B4 per shard
-(``ops/cuda_exchange.py``: the shard stores its two boundary slabs
-straight into its neighbours' halos), and a sweep along a one-shard axis
-is the local periodic copy that ``exchange_shard`` already does, with
-that axis's radius alone (JAX :133-139). Every slab spans the full
-padded cross section, so edges and corners ride along from sweep to
-sweep: every shard's sweep a lands before any shard's sweep a+1 starts
-(an event join between the shards' streams). The halos equal those of
-the slab method bit for bit.
+shards of a mesh by sequential axis sweeps in ``axis_order``. Each sweep
+is one launch of B4 per card, covering every quantity and every shard
+that card holds (``ops/cuda_exchange.py``: each shard stores its two
+boundary slabs straight into its neighbours' halos). Along a one-shard
+axis the neighbour is the shard itself, so the same kernel does the
+local periodic copy that JAX does there with that axis's radius alone
+(:133-139). Every slab spans the full padded cross section, so edges and
+corners ride along from sweep to sweep: every card's sweep a lands
+before any card's sweep a+1 starts. The halos equal those of the slab
+method bit for bit.
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from ..geometry import Dim3, Radius
-from ..ops.cuda_exchange import ShardStreams, exchange_axis_cuda
-from .exchange import ExchangeInFlight, _single_axis_radius, exchange_shard
+from ..ops.cuda_exchange import start_sweeps
+from .exchange import ExchangeInFlight
 
 
 def start_exchange_shard_cuda(fields: Sequence[Sequence[torch.Tensor]],
@@ -32,41 +31,13 @@ def start_exchange_shard_cuda(fields: Sequence[Sequence[torch.Tensor]],
                               ) -> ExchangeInFlight:
     """Queue the sweeps of every quantity's shards (``fields[q][i]``:
     shard i of quantity q, x fastest) and return the handle whose
-    ``wait()`` joins them back. On the card, shard i's sweeps of every
-    quantity run on its own stream, after the work already queued on the
-    current streams of the mesh's cards."""
-    counts = Dim3.of(mesh_counts)
-    shards0 = list(fields[0])
-    if len(shards0) != counts.flatten():
-        raise ValueError(f"{len(shards0)} shards for a {tuple(counts)} mesh")
-    streams = (ShardStreams([t.device for t in shards0])
-               if shards0[0].is_cuda else None)
-    if streams is not None:
-        streams.enter()
-    first = True
-    for a in axis_order:
-        r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
-        if r_lo == 0 and r_hi == 0:
-            continue
-        if streams is not None and not first:
-            streams.join()
-        first = False
-        for shards in fields:
-            arrs: List[torch.Tensor] = list(shards)
-            if counts[a] > 1:
-                exchange_axis_cuda(arrs, a, r_lo, r_hi, counts,
-                                   streams=streams)
-                continue
-            # periodic self-neighbour: the local slab copy, on the
-            # shard's own stream
-            single = _single_axis_radius(radius, a)
-            for i, p in enumerate(arrs):
-                ctx = (torch.cuda.stream(streams[i]) if streams is not None
-                       else nullcontext())
-                with ctx:
-                    exchange_shard([p], single, Dim3(1, 1, 1),
-                                   axis_order=(a,))
-    return ExchangeInFlight(streams)
+    ``wait()`` joins them back. On the card the sweeps run on one side
+    stream per card, after the work already queued on the current
+    streams of the mesh's cards; on the CPU they run at once."""
+    sweeps = [(a, radius.face(a, -1), radius.face(a, 1)) for a in axis_order
+              if radius.face(a, -1) or radius.face(a, 1)]
+    return ExchangeInFlight(start_sweeps(fields, sweeps,
+                                         Dim3.of(mesh_counts)))
 
 
 def exchange_shard_cuda(shards: Sequence[torch.Tensor], radius: Radius,

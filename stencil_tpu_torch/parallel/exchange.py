@@ -291,17 +291,18 @@ def _single_axis_radius(radius: Radius, axis: int) -> Radius:
 
 class ExchangeInFlight:
     """A started exchange. ``wait()`` makes the cards' current streams
-    wait for the shard streams it runs on (``ops/cuda_exchange.
-    ShardStreams``); with none — the slab copy, or any exchange on the
-    CPU — it has landed already and ``wait()`` has nothing to do."""
+    wait for the side streams it runs on (``join``, an ``ops/
+    cuda_exchange.CardJoin``); with none — the slab copy, or any
+    exchange on the CPU — it has landed already and ``wait()`` has
+    nothing to do."""
 
-    def __init__(self, streams=None) -> None:
-        self._streams = streams
+    def __init__(self, join=None) -> None:
+        self._join = join
 
     def wait(self) -> None:
-        if self._streams is not None:
-            self._streams.exit()
-            self._streams = None
+        if self._join is not None:
+            self._join.exit()
+            self._join = None
 
 
 def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
@@ -315,8 +316,8 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
     the filled halos. Between the two, the caller may queue work that
     reads only the shards' interiors, which the exchange does not write
     — the overlap path's inner block. The slab copy runs on the current
-    streams and has landed at once; ``PallasDMA`` runs on the shards'
-    own streams (``parallel/cuda_exchange.py``)."""
+    streams and has landed at once; ``PallasDMA`` runs on one side
+    stream per card (``parallel/cuda_exchange.py``)."""
     from .methods import Method
 
     counts = Dim3.of(mesh_counts)

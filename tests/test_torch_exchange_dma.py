@@ -122,8 +122,13 @@ def test_exchange_axis_twin_writes_both_neighbours(axis, n):
 ])
 def test_sweep_geometry_counts_in_the_widest_unit(shape, itemsize, axis, r,
                                                   ptrs, unit):
-    geo = cx.sweep_geometry(shape, itemsize, axis, r, r, ptrs)
-    assert geo["unit"] == unit
+    """The planner's row for one shard at pointer ``ptrs`` (0 if none)."""
+    p = ptrs[0] if ptrs else 0
+    (sweep,) = cx.plan_card_sweeps([[p]], [shape], [itemsize], ["c"], axis,
+                                   r, r, Dim3(1, 1, 1))
+    assert sweep.unit == unit
+    geo = dict(zip(cx.ENTRY_FIELDS, sweep.rows[0]))
+    assert geo["src"] == geo["right"] == geo["left"] == p
     dim = {0: 2, 1: 1, 2: 0}[axis]
     inner = int(np.prod(shape[dim + 1:])) * itemsize // unit
     assert geo["runs"] == int(np.prod(shape[:dim]))

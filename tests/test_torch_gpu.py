@@ -325,6 +325,94 @@ def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm):
             assert torch.equal(got[1][q], want[1][q]), q
 
 
+B11_VARIANTS = [(0, False, True), (1, True, True), (2, True, False),
+                (0, True, True), (2, True, True)]
+
+
+@pytest.mark.parametrize("size,mesh", [((256, 256, 256), (1, 1, 1)),
+                                       ((512, 512, 256), (1, 2, 2)),
+                                       ((1024, 512, 256), (1, 2, 4)),
+                                       ((24, 16, 40), (1, 1, 1)),
+                                       ((48, 16, 24), (1, 2, 2)),
+                                       ((64, 16, 40), (1, 2, 4))])
+def test_b11_is_bitwise_its_twin_without_a_window(cm, monkeypatch, size,
+                                                  mesh):
+    """B11, every (s, read_w, write_w), bitwise equal to its twin on the
+    halo path's exact slabs — at 256^3 a shard and at shapes whose x is
+    not a multiple of the 32-wide tile — and on a (1,1,1) mesh also to
+    B9. One launch, and no
+    window: ``_window`` is never called and the call allocates nothing
+    but its outputs."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    def no_window(*a, **k):
+        raise AssertionError("B11 allocated a window")
+    monkeypatch.setattr(cm, "_window", no_window)
+    shards, ws = _mhd_mesh(size, mesh, 47)
+    sl = _mhd_slabs(shards, mesh, rz=3, ry=3)
+    prm = MhdParams(dt=1e-4)
+    picks = range(len(shards)) if size[2] < 256 else (0, len(shards) - 1)
+    for i in picks:
+        f, w = _fields(shards[i]), _fields(ws[i])
+        for s, read_w, write_w in B11_VARIANTS:
+            w_in = w if read_w else None
+            out_f = {q: torch.empty_like(t) for q, t in f.items()}
+            out_w = ({q: torch.empty_like(t) for q, t in f.items()}
+                     if write_w else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = cm.LAUNCHES["mhd_substep_halo"]
+            kf, kw = cm.mhd_substep_halo_cuda(f, w_in, sl[i], s, prm, 1e-4,
+                                              write_w=write_w, out_f=out_f,
+                                              out_w=out_w)
+            torch.cuda.synchronize()
+            assert cm.LAUNCHES["mhd_substep_halo"] == before + 1
+            assert torch.cuda.max_memory_allocated() - base < 2 ** 20
+            tf, tw = cm.mhd_substep_halo_plain(f, w_in, sl[i], s, prm, 1e-4,
+                                               write_w=write_w)
+            for q in tf:
+                assert torch.equal(kf[q], tf[q]), (i, s, q)
+                if write_w:
+                    assert torch.equal(kw[q], tw[q]), (i, s, q)
+            assert (kw is None) == (not write_w)
+            if mesh == (1, 1, 1):
+                bf, bw = cm.mhd_substep_wrap_cuda(f, w_in, s, prm, 1e-4,
+                                                  write_w=write_w)
+                for q in bf:
+                    assert torch.equal(kf[q], bf[q]), (s, q)
+                    if write_w:
+                        assert torch.equal(kw[q], bw[q]), (s, q)
+            del kf, kw, tf, tw
+        torch.cuda.empty_cache()
+
+
+def test_b11_z_runs_are_bitwise_its_twin(cm):
+    """(136, 128, 96) shards on (1,2,2): the tiles alone leave most SMs
+    idle, so ``b11_zrun`` splits z into runs (on 132 SMs five of 28
+    planes, the last one 24); every (s, read_w, write_w) is still bitwise
+    equal to the twin."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    shards, ws = _mhd_mesh((272, 256, 96), (1, 2, 2), 48)
+    zrun = cm.b11_zrun(136, 128, 96, cm._sm_count(shards[0].device))
+    assert zrun < 136
+    sl = _mhd_slabs(shards, (1, 2, 2), rz=3, ry=3)
+    prm = MhdParams(dt=1e-4)
+    for i in range(len(shards)):
+        f, w = _fields(shards[i]), _fields(ws[i])
+        for s, read_w, write_w in B11_VARIANTS:
+            w_in = w if read_w else None
+            kf, kw = cm.mhd_substep_halo_cuda(f, w_in, sl[i], s, prm, 1e-4,
+                                              write_w=write_w)
+            tf, tw = cm.mhd_substep_halo_plain(f, w_in, sl[i], s, prm, 1e-4,
+                                               write_w=write_w)
+            for q in tf:
+                assert torch.equal(kf[q], tf[q]), (i, s, q)
+                if write_w:
+                    assert torch.equal(kw[q], tw[q]), (i, s, q)
+
+
 @pytest.mark.parametrize("pair", ["0", "1"])
 @pytest.mark.parametrize("mesh", [(1, 1, 1), (1, 2, 2)])
 def test_astaroth_halo_path_equals_wrap_path(cm, monkeypatch, mesh, pair):
@@ -629,9 +717,10 @@ def _padded_shards(local_zyx, mesh, radius, dtype, seed):
     ((4, 8, 9), (1, 2, 3), "r1"),
 ])
 def test_exchange_axis_kernel_equals_twin(cx, local, mesh, rad, dtype):
-    """Every remote sweep, kernel against twin, every cell bitwise (any
-    dtype: the kernel copies units of 2 to 16 bytes); then the whole
-    remote-write exchange against the slab copy."""
+    """Every sweep (one-shard axes too), kernel against twin, every cell
+    bitwise (any dtype: the kernel copies units of 2 to 16 bytes), one
+    launch per sweep for the one card; then the whole remote-write
+    exchange against the slab copy."""
     from stencil_tpu_torch.parallel.cuda_exchange import exchange_shard_cuda
     from stencil_tpu_torch.parallel.exchange import exchange_shard
 
@@ -641,13 +730,13 @@ def test_exchange_axis_kernel_equals_twin(cx, local, mesh, rad, dtype):
     shards = _padded_shards(local, mesh, radius, dtype, 71)
     for a in range(3):
         r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
-        if counts[a] == 1 or r_lo + r_hi == 0:
+        if r_lo + r_hi == 0:
             continue
         k = [t.clone() for t in shards]
         w = [t.clone() for t in shards]
         before = cx.LAUNCHES["exchange_axis"]
         cx.exchange_axis_cuda(k, a, r_lo, r_hi, counts)
-        assert cx.LAUNCHES["exchange_axis"] == before + len(shards)
+        assert cx.LAUNCHES["exchange_axis"] == before + 1
         cx.exchange_axis_plain(w, a, r_lo, r_hi, counts)
         for i, (g, t) in enumerate(zip(k, w)):
             assert torch.equal(g, t), (a, i)
@@ -656,6 +745,117 @@ def test_exchange_axis_kernel_equals_twin(cx, local, mesh, rad, dtype):
     exchange_shard(shards, radius, counts)
     for g, t in zip(k, shards):
         assert torch.equal(g, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_q", [1, 8])
+@pytest.mark.parametrize("mesh,local", [((1, 2, 2), (24, 20, 16)),
+                                        ((1, 2, 4), (17, 12, 9))])
+def test_sweeps_of_every_quantity_are_one_launch_per_card(cx, mesh, local,
+                                                          n_q, dtype):
+    """``start_sweeps`` over ``n_q`` quantities of a mesh on one card: one
+    B4 launch per sweep, whatever the quantities and shards, every cell
+    bitwise equal to the twin's sweeps; a second exchange of the same
+    buffers reuses the cached plan, a replaced buffer gets a new one."""
+    counts = Dim3(*mesh)
+    radius = Radius.constant(3)
+    fields = [_padded_shards(local, mesh, radius, dtype, 90 + 10 * q)
+              for q in range(n_q)]
+    want = [[t.clone() for t in f] for f in fields]
+    sweeps = [(0, 3, 3), (1, 3, 3), (2, 3, 3)]
+    for rep in range(2):
+        before = cx.LAUNCHES["exchange_axis"]
+        cx.start_sweeps(fields, sweeps, counts).exit()
+        assert cx.LAUNCHES["exchange_axis"] == before + 3
+        for f in want:
+            for a, lo, hi in sweeps:
+                cx.exchange_axis_plain(f, a, lo, hi, counts)
+        for f, g in zip(fields, want):
+            for a, b in zip(f, g):
+                assert torch.equal(a, b)
+    plan = cx.exchange_plan(fields, sweeps, counts)
+    assert cx.exchange_plan(fields, sweeps, counts) is plan
+    assert all(len(per_card) == 1 and len(per_card[0].rows)
+               == n_q * counts.flatten() for per_card in plan.launches)
+    fields[0][1] = fields[0][1].clone()
+    assert cx.exchange_plan(fields, sweeps, counts) is not plan
+
+
+def test_sweeps_on_distinct_cards_are_one_launch_per_card(cx):
+    """8 quantities of a (1,2,2) mesh over four cards (each shard's card
+    storing into its neighbours' over the peer link): one launch per card
+    and sweep, bitwise equal to the twin on one card."""
+    devs = _distinct_cards()
+    counts = Dim3(1, 2, 2)
+    radius = Radius.constant(3)
+    fields = [_padded_shards((16, 12, 20), (1, 2, 2), radius, torch.float32,
+                             70 + q) for q in range(8)]
+    want = [[t.clone() for t in f] for f in fields]
+    spread = [[t.to(devs[i]) for i, t in enumerate(f)] for f in fields]
+    sweeps = [(0, 3, 3), (1, 3, 3), (2, 3, 3)]
+    before = cx.LAUNCHES["exchange_axis"]
+    cx.start_sweeps(spread, sweeps, counts).exit()
+    assert (cx.LAUNCHES["exchange_axis"]
+            == before + 3 * len(set(devs)))
+    cx.start_sweeps(want, sweeps, counts).exit()
+    for f, g in zip(spread, want):
+        for a, b in zip(f, g):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.fixture
+def delayed_b4(cx, monkeypatch):
+    """From then on, every B4 launch first sleeps on its card's side
+    stream; returns the count of launches delayed (a one-item list)."""
+    def delay(cycles=2_000_000):
+        real = cx._launch_card
+        seen = [0]
+
+        def launch(args, stream):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(cycles)
+            seen[0] += 1
+            return real(args, stream)
+        monkeypatch.setattr(cx, "_launch_card", launch)
+        return seen
+    return delay
+
+
+@pytest.mark.parametrize("model", ["jacobi", "astaroth"])
+def test_xla_overlap_with_dma_is_unchanged_by_a_delayed_exchange(
+        cx, delayed_b4, model):
+    """``xla-overlap`` + ``PallasDMA`` on (1,2,2) of one card: the inner
+    blocks run while the exchange is in flight on the card's side
+    stream, the outer ones after ``wait()``. With every B4 launch
+    sleeping first, the result is bitwise the same."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    def run():
+        if model == "jacobi":
+            m = Jacobi3D(48, 48, 48, kernel="xla", overlap=True,
+                         methods=Method.PallasDMA, mesh_shape=(1, 2, 2),
+                         devices=["cuda:0"] * 4)
+        else:
+            m = Astaroth(32, 32, 48, params=MhdParams(dt=1e-4), kernel="xla",
+                         overlap=True, methods=Method.PallasDMA,
+                         mesh_shape=(1, 2, 2), devices=["cuda:0"] * 4)
+        m.init()
+        cx.reset_launch_counts()
+        m.run(2)
+        got = ([m.temperature()] if model == "jacobi"
+               else [m.field(q) for q in FIELDS])
+        # one launch per exchange and sweep: 2 steps, or 2 x 3 substeps
+        assert cx.LAUNCHES["exchange_axis"] == 3 * (2 if model == "jacobi"
+                                                    else 6)
+        return got
+    ref = run()
+    seen = delayed_b4()
+    slow = run()
+    assert seen[0] == cx.LAUNCHES["exchange_axis"]
+    for a, b in zip(slow, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_exchange_axis_refuses_mixed_or_strided_shards(cx):
@@ -782,7 +982,7 @@ def test_overlap_path_agrees_with_plain_path(co, delayed_launches):
 def test_pallas_dma_paths_equal_slab_paths(cx, kernel, overlap):
     """The padded paths with Method.PallasDMA equal them with the slab
     copy bitwise (48^3 on (2,2,1) and (1,2,2), run(3)); every step
-    launches B4 once per shard and remote axis."""
+    launches B4 once per card and sweep (x, y and z: 3 on one card)."""
     from stencil_tpu_torch import Method
     from stencil_tpu_torch.models.jacobi import Jacobi3D
 
@@ -795,7 +995,7 @@ def test_pallas_dma_paths_equal_slab_paths(cx, kernel, overlap):
             m.init()
             cx.reset_launch_counts()
             m.run(3)
-            want = 3 * 4 * 2 if methods == Method.PallasDMA else 0
+            want = 3 * 3 if methods == Method.PallasDMA else 0
             assert cx.LAUNCHES["exchange_axis"] == want
             runs.append(m.temperature())
         np.testing.assert_array_equal(runs[0], runs[1])
