@@ -8,9 +8,11 @@ Phases, in order; any failure exits non-zero before the last line:
 1. card: ``torch.cuda.is_available()`` must hold; print the card's name
    and power limit (nvidia-smi) and the device count.
 2. build: compile every kernel source of the package with nvcc, one
-   process per source, all at once; the registers and spills of B9 and
-   B11 are read from the ``-Xptxas=-v`` lines, their opcode counts from
-   ``cuobjdump -sass``.
+   process per source, all at once; the registers and spills of every
+   instantiation of the ring kernel (``csrc/mhd_ring.cuh``: B9 and B11
+   in the ``mhd`` library, B13's interior in ``mhd_overlap``) are read
+   from the ``-Xptxas=-v`` lines (a NOTE where one uses more than 128
+   registers or spills), their opcode counts from ``cuobjdump -sass``.
 3. kernels vs plain twins, on the card:
    - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
      (jacobi7_padded) at small odd shapes and at 512^3. Tolerance: 0
@@ -33,7 +35,11 @@ Phases, in order; any failure exits non-zero before the last line:
      against two B9 launches, at the same shapes, dt 1e-8 and 1e-4.
      Tolerance per field, for f and w: max |kernel - twin| <=
      64 * eps(f32) * max |twin| (the kernels' expf and PyTorch's exp
-     differ by an ulp; every other operation is in the twin's order).
+     differ by an ulp; every other operation is in the twin's order);
+     whether B9 came out bitwise is reported. B9 (every variant) also
+     against B11 on the same field as a (1,1,1) mesh, at those shapes,
+     at 256^3 and at 136 x 128 x 96, where ``ring_zrun`` splits z into
+     runs, the last one shorter. Tolerance: 0 (one kernel body).
    - B11 (mhd_substep_halo: every variant of s, w=None and write_w) and
      B12 (mhd_substep01_halo) against their twins on the slabs of
      ``exchange_interior_slabs``: JAX's layout (rz = ry = 8, zero filler)
@@ -41,7 +47,8 @@ Phases, in order; any failure exits non-zero before the last line:
      (1,1,1), (1,2,2) and (1,2,4) meshes of small shards (x not a
      multiple of B11's 32-wide tile), on two 256^3 shards of a (1,1,2)
      mesh and on four 136 x 128 x 96 shards of a (1,2,2) mesh, where
-     ``b11_zrun`` splits z into runs, the last one shorter; B12 also against B11 s=0, a slab round and B11 s=1; on one shard B11
+     ``ring_zrun`` splits z into runs, the last one shorter; B12 also
+     against B11 s=0, a slab round and B11 s=1; on one shard B11
      (every variant) against B9 and B12 against B10, bitwise. Tolerance:
      B11 bitwise (it reads the shard and the slabs themselves and
      computes B9's arithmetic, as its twin does), B12 as for B9.
@@ -65,11 +72,14 @@ Phases, in order; any failure exits non-zero before the last line:
      the exterior shell from the landed rows) for every variant (s=0
      with w=None, s=1, s=2 with write_w=False, the pair) on (1,1,1),
      (1,1,2), (1,2,2) and (1,2,4) meshes of small shards and on the four
-     256^3 shards of 256 x 512 x 512 over (1,2,2): B13's interior against
-     its twin per field within 64 eps(f32) x max, its landed rows
-     bitwise; B14 after B13 bitwise against B11 (B12 with the pair) on
-     the same shards and rows, and within the same tolerance of their
-     twins; a chain of substeps on the 256^3 shards with shard 3's
+     256^3 shards of 256 x 512 x 512 over (1,2,2), and on four 104 x 128
+     x 96 shards of (1,2,2), whose interior the ring kernel walks in z
+     runs, the last one shorter: B13's interior against its twin per
+     field within 64 eps(f32) x max and bitwise against B11 (B12 with the
+     pair) on the same shards and rows, its landed rows bitwise; B14
+     after B13 bitwise against B11 (B12) on the same shards and rows, and
+     within the same tolerance of their twins; a chain of substeps on the
+     256^3 shards with shard 3's
      stream delayed before each of its launches bitwise equal to the
      undelayed chain.
 4. main paths, each driven with the launch counts set to 0 just before
@@ -137,14 +147,15 @@ Phases, in order; any failure exits non-zero before the last line:
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
    and the halo path's slab exchange per group; iterations/s of the
-   Astaroth wrap, wrap+pair and xla paths at
-   256^3, and of the Astaroth halo and halo+pair paths at 256 x 512 x
-   512 on (1,2,2) and halo at 256^3 on (1,1,1), with one slab round of
-   that mesh at radius 3 and 6 (host clock around run(k), ending in a
-   synchronize; for the Astaroth halo and halo-overlap paths three such
-   runs, all iterations over all their time, every run beside it); B11
+   Astaroth wrap, wrap+pair and xla paths at 256^3, and of the Astaroth
+   halo and halo+pair paths at 256 x 512 x 512 on (1,2,2) and halo at
+   256^3 on (1,1,1), with one slab round of that mesh at radius 3 and 6
+   (host clock around run(k), ending in a synchronize; for the Jacobi
+   halo and overlap paths and every Astaroth path three such runs, all
+   iterations over all their time, every run beside it); B11
    and B12 on one 256^3 shard of the (1,2,2) mesh, B11 per variant
-   beside B9 on the same shard in turns (B9, B11, B11, B9); ``overlap``
+   beside B9 and B13 on the same shard in turns (B9, B11, B13, B13, B11,
+   B9); ``overlap``
    steps/s at 512^3
    on (1,2,2) and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the
    same sweep by ``copy_`` (its library call), an 8-field z sweep of
@@ -153,8 +164,10 @@ Phases, in order; any failure exits non-zero before the last line:
    shards and of one 512^3 shard, and one ``measure_overlap`` line;
    iterations/s of Astaroth ``halo-overlap`` (and with the pair) at 256 x
    512 x 512 on (1,2,2) and at 256^3 on (1,1,1), B13 and B14 per variant
-   on one 256^3 shard and per substep of the four shards of (1,2,2), and
-   one ``measure_overlap --model mhd`` line at 256^3 per shard; each
+   on one 256^3 shard and per substep of the four shards of (1,2,2),
+   those of B13 and B14 summed over an iteration's three substeps beside
+   the ``halo-overlap`` iteration on the four shards, and one
+   ``measure_overlap --model mhd`` line at 256^3 per shard; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
@@ -674,14 +687,13 @@ def time_halo(torch, ch) -> dict:
         j = jacobi_mesh("halo", mesh)
         j.run(2)
         j.block()
-        t0 = time.perf_counter()
-        j.run(40)
-        j.block()
-        res["steps_per_s"][label] = 40 / (time.perf_counter() - t0)
+        res["steps_per_s"][label], runs = timed_runs(j, 40)
+        res.setdefault("runs_steps_per_s", {})[label] = runs
         res["slab_exchange_ms"][label] = 1e3 * j.slab_exchange_seconds(10)
-        log(f"  Jacobi halo {label}: {res['steps_per_s'][label]!r} steps/s; "
-            f"slab exchange {res['slab_exchange_ms'][label]!r} ms per "
-            f"{j._halo_n}-step group")
+        log(f"  Jacobi halo {label}: {res['steps_per_s'][label]!r} steps/s "
+            f"over three runs ({runs}); slab exchange "
+            f"{res['slab_exchange_ms'][label]!r} ms per {j._halo_n}-step "
+            f"group")
         del j
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(1357)
@@ -782,8 +794,12 @@ def mhd_inv_ds():
 
 def compare_mhd_kernels(torch, cs, cm) -> dict:
     """Phase 3, Astaroth: B8 bitwise; B9 and B10 per field within 64
-    eps(f32) of the largest twin value; B10 also against two B9
-    launches. Returns the largest absolute difference per kernel."""
+    eps(f32) of the largest twin value (whether B9 came out bitwise is
+    reported); B10 also against two B9 launches; B9 (every variant)
+    bitwise equal to B11 on the same field as a (1,1,1) mesh, whose slabs
+    are its own wrapped rows, at these shapes, at 256^3 and at 136 x 128
+    x 96, where ``ring_zrun`` splits z into runs, the last one shorter.
+    Returns the largest absolute difference per kernel."""
     from stencil_tpu_torch.geometry import Dim3, Radius
     from stencil_tpu_torch.models.astaroth import MhdParams
 
@@ -792,22 +808,30 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
              "mhd_substep01_wrap": 0.0}
     r3 = Radius.constant(3)
     inv = mhd_inv_ds()
-    for shape in MHD_SHAPES + [(N256,) * 3]:
+    split = (136, 128, 96)
+    for shape in MHD_SHAPES + [(N256,) * 3, split]:
         Z, Y, X = shape
-        pad = torch.randn((Z + 6, Y + 6, X + 6), generator=gen,
-                          device="cuda")
-        got = cs.laplace6_cuda(pad, r3, Dim3(X, Y, Z), inv)
-        want = cs.laplace6_plain(pad, r3, Dim3(X, Y, Z), inv)
-        err = float((got - want).abs().max())
-        same = bool(torch.equal(got, want))
-        log(f"  B8 {shape}: max |kernel - twin| = {err!r} "
-            f"({'bitwise equal' if same else 'DIFFERENT'})")
-        if not same or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"B8 {shape}: kernel disagrees with its twin")
-        del pad, got, want
-        for dt in MHD_DTS:
+        if shape != split:
+            pad = torch.randn((Z + 6, Y + 6, X + 6), generator=gen,
+                              device="cuda")
+            got = cs.laplace6_cuda(pad, r3, Dim3(X, Y, Z), inv)
+            want = cs.laplace6_plain(pad, r3, Dim3(X, Y, Z), inv)
+            err = float((got - want).abs().max())
+            same = bool(torch.equal(got, want))
+            log(f"  B8 {shape}: max |kernel - twin| = {err!r} "
+                f"({'bitwise equal' if same else 'DIFFERENT'})")
+            if not same or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"B8 {shape}: kernel disagrees with "
+                                     f"its twin")
+            del pad, got, want
+        zrun = cm.ring_zrun(Z, Y, X, cm._sm_count(torch.device("cuda")))
+        log(f"  B9 on {shape}: {-(-Z // zrun)} z runs of {zrun} planes a "
+            f"block")
+        for dt in (MHD_DTS if shape != split else (MHD_PATH_DT,)):
             prm = MhdParams(dt=dt)
             f, w = mhd_state(torch, shape, gen)
+            t = torch.stack(list(f.values()))
+            own = mhd_slabs([t], (1, 1, 1), rz=3, ry=3)[0]
             tag = f"{shape} dt={dt:g}"
             for s, w_in, write_w in ((0, None, True), (1, w, True),
                                      (2, w, False)):
@@ -820,8 +844,22 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
                     e = max(e, check_fields(torch, kw, tw, f"B9 s={s} w {tag}"))
                 elif kw is not None:
                     raise AssertionError("B9 write_w=False returned a w")
+                bitwise = same_bits(torch, (kf, kw), (tf, tw))
+                log(f"  B9 s={s} {tag} vs its twin: "
+                    + ("bitwise equal" if bitwise
+                       else "not bitwise, within the tolerance"))
                 worst["mhd_substep_wrap"] = max(worst["mhd_substep_wrap"], e)
+                same = same_bits(torch, (kf, kw), cm.mhd_substep_halo_cuda(
+                    f, w_in, own, s, prm, dt, write_w=write_w))
+                log(f"  B9 s={s} {tag} vs B11 on a (1,1,1) mesh: "
+                    f"{'bitwise equal' if same else 'DIFFERENT'}")
+                if not same:
+                    raise AssertionError(f"B9 s={s} {tag} differs from B11 "
+                                         f"on a (1,1,1) mesh")
                 del kf, kw, tf, tw
+            if shape == split:
+                del f, w, t, own
+                continue
             kf, kw = cm.mhd_substep01_wrap_cuda(f, prm, dt)
             tf, tw = cm.mhd_substep01_wrap_plain(f, prm, dt)
             e = max(check_fields(torch, kf, tf, f"B10 f {tag}"),
@@ -832,7 +870,7 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
             f2, w2 = cm.mhd_substep_wrap_cuda(f1, w1, 1, prm, dt)
             check_fields(torch, kf, f2, f"B10 vs two B9 launches, f {tag}")
             check_fields(torch, kw, w2, f"B10 vs two B9 launches, w {tag}")
-            del f, w, kf, kw, f1, w1, f2, w2
+            del f, w, t, own, kf, kw, f1, w1, f2, w2
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return worst
@@ -912,7 +950,7 @@ def compare_mhd_halo_kernels(torch, cm) -> dict:
     for size, mesh, (kw11, kw12), dts, unelided in cases:
         shards, ws = mhd_mesh_case(torch, gen, size, mesh)
         Z, Y, X = shards[0].shape[1:]
-        zrun = cm.b11_zrun(Z, Y, X, cm._sm_count(shards[0].device))
+        zrun = cm.ring_zrun(Z, Y, X, cm._sm_count(shards[0].device))
         log(f"  B11 on {size} mesh {mesh}: {-(-Z // zrun)} z runs of "
             f"{zrun} planes a block")
         sl11 = mhd_slabs(shards, mesh, **kw11)
@@ -1209,7 +1247,9 @@ def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
     return out
 
 
-def iters_per_s(torch, kernel: str, k: int, pair: str = "0") -> float:
+def iters_per_s(torch, kernel: str, k: int, pair: str = "0"):
+    """Iterations/s of Astaroth 256^3 on ``kernel``: three host-clocked
+    ``run(k)`` pooled, each run's rate beside it (``timed_runs``)."""
     from stencil_tpu_torch.models.astaroth import Astaroth
 
     with mhd_pair(pair):
@@ -1217,13 +1257,10 @@ def iters_per_s(torch, kernel: str, k: int, pair: str = "0") -> float:
     m.init()
     m.run(1)
     m.block()
-    t0 = time.perf_counter()
-    m.run(k)
-    m.block()
-    ips = k / (time.perf_counter() - t0)
+    got = timed_runs(m, k)
     del m
     torch.cuda.empty_cache()
-    return ips
+    return got
 
 
 def time_mhd_kernels(torch, cs, cm) -> dict:
@@ -1304,10 +1341,11 @@ def time_mhd_kernels(torch, cs, cm) -> dict:
 
 
 def timed_runs(m, k: int, reps: int = 3):
-    """Iterations/s of ``reps`` host-clocked ``run(k)`` of a warmed-up
-    model, each ending in a synchronize: (all iterations over all their
-    seconds, each run's rate). A stalled run counts in full: the host
-    side of a path can stall, and that is the path's own cost."""
+    """Iterations (steps) per second of ``reps`` host-clocked ``run(k)``
+    of a warmed-up model, each ending in a synchronize: (all iterations
+    over all their seconds, each run's rate). A stalled run counts in
+    full: the host side of a path can stall, and that is the path's own
+    cost."""
     secs = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1317,12 +1355,14 @@ def timed_runs(m, k: int, reps: int = 3):
     return reps * k / sum(secs), [k / t for t in secs]
 
 
-def time_mhd_halo(torch, cm, ptxas) -> dict:
+def time_mhd_halo(torch, cm, mo, ptxas) -> dict:
     """Phase 5, the Astaroth halo path: iterations/s of ``halo`` and
     ``halo`` + pair at 256 x 512 x 512 on (1,2,2) (four shards on the one
     card) and of ``halo`` at 256^3 on (1,1,1); one slab round (all 8
-    fields of every shard) at radius R and 2R; B11 (each variant), B12
-    and, for the gap, B9 on one 256^3 shard of that mesh."""
+    fields of every shard) at radius R and 2R; B11 (each variant) and
+    B12 on one 256^3 shard of that mesh, B11 also in turns with B9 and
+    B13 on the same shard."""
+    from stencil_tpu_torch.geometry import Dim3
     from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
 
     res = {"iters_per_s": {}, "slab_exchange_ms": {}}
@@ -1397,12 +1437,22 @@ def time_mhd_halo(torch, cm, ptxas) -> dict:
             f"bound {bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; "
             f"plain twin {plain_ms!r} ms")
         torch.cuda.empty_cache()
-    # B11 against B9 on the same shard's fields, in turns (B9, B11, B11, B9)
+    # B9, B11 and B13 (the shard as a (1,1,1) mesh: its rows go to
+    # itself) on the same shard's fields, in turns (B9, B11, B13, B13,
+    # B11, B9): all three are the ring kernel, over the whole shard (B9,
+    # B11) or its interior (B13, after its sends)
     variants = {"s=0 (w=None)": (0, None, True),
                 "s=1": (1, w, True), "s=2 (write_w=False)": (2, w, False)}
     res["b9_same_shard_ms"] = {}
+    res["b13_same_shard_ms"] = {}
     b11 = []
-    zrun = cm.b11_zrun(Z, Y, X, cm._sm_count(shards[0].device))
+    n_sms = cm._sm_count(shards[0].device)
+    zrun = cm.ring_zrun(Z, Y, X, n_sms)
+    zrun13 = cm.ring_zrun(Z - 2 * cm.R, Y - 2 * cm.R, X, n_sms)
+    one = Dim3(1, 1, 1)
+    recv = mo.MhdOverlapRecv([shards[0]], one)
+    of = [per_field(torch.empty_like(shards[0]))]
+    ow = [per_field(torch.empty_like(shards[0]))]
     for v, (s, w_in, write_w) in variants.items():
         def b9():
             return cm.mhd_substep_wrap_cuda(f, w_in, s, prm, dt,
@@ -1412,22 +1462,28 @@ def time_mhd_halo(torch, cm, ptxas) -> dict:
             return cm.mhd_substep_halo_cuda(f, w_in, sl3, s, prm, dt,
                                             write_w=write_w)
 
-        turns = [event_ms(torch, b9, reps=10),
-                 event_ms(torch, b11_once, reps=10),
-                 event_ms(torch, b11_once, reps=10),
-                 event_ms(torch, b9, reps=10)]
-        res["b9_same_shard_ms"][v] = (turns[0] + turns[3]) / 2
+        def b13():
+            return mo.mhd_substep_overlap_cuda(
+                [f], None if w_in is None else [w_in], s, prm, dt, one,
+                write_w=write_w, out_f=of, out_w=ow if write_w else None,
+                recv=recv)
+
+        turns = [event_ms(torch, fn, reps=10)
+                 for fn in (b9, b11_once, b13, b13, b11_once, b9)]
+        res["b9_same_shard_ms"][v] = (turns[0] + turns[5]) / 2
+        res["b13_same_shard_ms"][v] = (turns[2] + turns[3]) / 2
         entry = kernels.pop(f"B11 {v}")
-        entry["b9_b11_b11_b9_ms"] = turns
-        entry.update(ptxas.get(("B11", s != 0, write_w), {}))
-        entry["b9_ptxas"] = ptxas.get(("B9", s != 0, write_w), {})
-        log(f"  B11 {v} vs B9, in turns B9, B11, B11, B9: {turns} ms "
-            f"(32 x {cm.B11_TILE_Y} tiles, z runs of {zrun}); ptxas B11 "
-            f"{ {k: entry.get(k) for k in PTXAS_KEYS} }, B9 "
-            f"{entry['b9_ptxas']}")
-        if max(turns[1:3]) >= min(turns[0], turns[3]):
-            log(f"  NOTE: B11 {v} is not faster than B9 in this call")
+        entry["b9_b11_b13_b13_b11_b9_ms"] = turns
+        entry.update(ptxas.get(("mhd", s != 0, write_w), {}))
+        entry["b13_ptxas"] = ptxas.get(("mhd_overlap", s != 0, write_w), {})
+        log(f"  B11 {v} beside B9 and B13 on one 256^3 shard, in turns B9, "
+            f"B11, B13, B13, B11, B9: {turns} ms (32 x {cm.RING_TILE_Y} "
+            f"tiles, z runs of {zrun}; over B13's interior {zrun13}); ptxas "
+            f"of the ring kernel in the B9/B11 library "
+            f"{ {k: entry.get(k) for k in PTXAS_KEYS} }, in B13's "
+            f"{entry['b13_ptxas']}")
         b11.append(entry)
+    del recv, of, ow
     kernels["mhd_substep_halo"] = {
         k: sum(v[k] for v in b11) / 3 for k in ("ms", "plain_ms", "bound_ms")}
     kernels["mhd_substep_halo"].update(
@@ -1831,12 +1887,10 @@ def time_dma_overlap(torch, cx, co) -> dict:
         j.init()
         j.run(2)
         j.block()
-        t0 = time.perf_counter()
-        j.run(40)
-        j.block()
-        res["steps_per_s"][label] = 40 / (time.perf_counter() - t0)
+        res["steps_per_s"][label], runs = timed_runs(j, 40)
+        res.setdefault("runs_steps_per_s", {})[label] = runs
         log(f"  Jacobi overlap 512^3 {label}: {res['steps_per_s'][label]!r} "
-            f"steps/s")
+            f"steps/s over three runs ({runs})")
         del j
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(8642)
@@ -1958,11 +2012,14 @@ def overlap_variant_tag(s, read_w, write_w, pair):
 def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
     """Phase 3, B13 and B14 against their twins per field within 64
     eps(f32) of the largest twin value (B13 at its interior points, its
-    landed rows bitwise), and B14 after B13 against B11 (B12 with the
-    pair) on the same shards and rows bitwise, for every variant (s = 0
-    with w=None, s = 1, s = 2 with write_w=False, the pair), on (1,1,1),
-    (1,1,2), (1,2,2) and (1,2,4) meshes of small shards and on the four
-    256^3 shards of 256 x 512 x 512 over (1,2,2); there also a chain of
+    landed rows bitwise); B13's interior, and B14 after B13 everywhere,
+    against B11 (B12 with the pair) on the same shards and rows bitwise,
+    for every variant (s = 0 with w=None, s = 1, s = 2 with
+    write_w=False, the pair), on (1,1,1), (1,1,2), (1,2,2) and (1,2,4)
+    meshes of small shards, on four 104 x 128 x 96 shards of (1,2,2),
+    whose interior's z the ring kernel splits into runs, the last one
+    shorter, and on the four 256^3 shards of 256 x 512 x 512 over
+    (1,2,2); there also a chain of
     substeps in one session with shard 3's stream delayed before each of
     its launches, bitwise equal to the undelayed chain. Returns the
     largest absolute difference per kernel."""
@@ -1975,6 +2032,7 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
     prm = MhdParams(dt=dt)
     cases = [((16, 8, 24), (1, 1, 1)), ((32, 8, 16), (1, 1, 2)),
              ((48, 48, 16), (1, 2, 2)), ((32, 32, 40), (1, 2, 4)),
+             ((32, 16, 5), (1, 2, 4)), ((208, 256, 96), (1, 2, 2)),
              ((2 * N256, 2 * N256, N256), (1, 2, 2))]
     for size, mesh in cases:
         counts = Dim3(*mesh)
@@ -1997,6 +2055,13 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
                        for k in cm.SLAB_NAMES):
                 raise AssertionError(f"B13 {tag}: landed rows differ from "
                                      f"the twin's")
+            if pair:
+                halo = [cm.mhd_substep01_halo_cuda(f[i], tsl[i], prm, dt)
+                        for i in range(len(f))]
+            else:
+                halo = [cm.mhd_substep_halo_cuda(
+                    f[i], None if w_in is None else w_in[i], tsl[i], s, prm,
+                    dt, write_w=write_w) for i in range(len(f))]
             inner = mo.interior_region(Z, Y, pair)
             if inner is not None:
                 z0, nz, y0, ny = inner
@@ -2013,19 +2078,26 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
                                             f"B13 {tag}, w (interior)"))
                 worst["mhd_substep_overlap"] = max(
                     worst["mhd_substep_overlap"], e)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    at(kf).values(), at([h[0] for h in halo]).values()))
+                if write_w:
+                    same &= all(torch.equal(a, b) for a, b in zip(
+                        at(kw).values(), at([h[1] for h in halo]).values()))
+                log(f"  B13's interior vs {'B12' if pair else 'B11'}, {tag}: "
+                    f"{'bitwise equal' if same else 'DIFFERENT'}")
+                if not same:
+                    raise AssertionError(f"B13's interior differs from "
+                                         f"B11/B12 ({tag})")
             del tf, tw
             kf, kw = mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm, dt,
                                                counts, recv, pair=pair)
             same = True
             tf, tw = {}, {}
-            for i in range(len(f)):
+            for i, (hf, hw) in enumerate(halo):
                 if pair:
-                    hf, hw = cm.mhd_substep01_halo_cuda(f[i], tsl[i], prm, dt)
                     pf, pw = cm.mhd_substep01_halo_plain(f[i], tsl[i], prm, dt)
                 else:
                     wi = None if w_in is None else w_in[i]
-                    hf, hw = cm.mhd_substep_halo_cuda(f[i], wi, tsl[i], s, prm,
-                                                      dt, write_w=write_w)
                     pf, pw = cm.mhd_substep_halo_plain(f[i], wi, tsl[i], s,
                                                        prm, dt,
                                                        write_w=write_w)
@@ -2052,7 +2124,7 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
             if not same:
                 raise AssertionError(f"B14 after B13 differs from B11/B12 "
                                      f"({tag})")
-            del kf, kw, tsl, landed, recv
+            del kf, kw, tsl, landed, recv, halo
         if mesh == (1, 2, 2) and size[0] == 2 * N256:
             chains = [overlap_chain(torch, mo, shards, counts, prm)]
             with delayed_shard(torch, 3, 4, fns=B13_B14_FNS) as calls:
@@ -2328,6 +2400,25 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                                 for k in ("ms", "plain_ms", "bound_ms")}
         res["kernels"][name].update(bound_by=one[1]["bound_by"],
                                     library_ms=None, variants=v)
+    # one halo-overlap iteration on the four shards beside the kernels'
+    # CUDA-event times per substep of the four (s = 0, 1, 2), summed: what
+    # is left of the iteration is the host's
+    label = "halo-overlap 256x512x512 (1,2,2)"
+    it_ms = 1e3 / res["iters_per_s"][label]
+    split = {"iteration_ms": it_ms,
+             "fastest_run_iteration_ms": 1e3 / max(
+                 res["runs_iters_per_s"][label])}
+    for name in ("mhd_substep_overlap", "mhd_substep_fixup"):
+        split[name] = sum(
+            variants[name][f"{overlap_variant_tag(*var)}, four 256^3 "
+                           f"shards of (1,2,2)"]["ms"]
+            for var in OVERLAP_VARIANTS[:3])
+    res["iteration_ms"] = split
+    log(f"  {label}: {it_ms!r} ms an iteration (pooled; fastest run "
+        f"{split['fastest_run_iteration_ms']!r}), against B13's "
+        f"{split['mhd_substep_overlap']!r} ms and B14's "
+        f"{split['mhd_substep_fixup']!r} ms (three substeps of the four "
+        f"shards, each timed alone)")
     mo_res = measure_overlap.measure_mhd(n, n, n, iters=5,
                                          mesh_shape=(1, 2, 2),
                                          devices=["cuda:0"])
@@ -2344,31 +2435,41 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
-def kernel_key(name: str):
-    """("B9" or "B11", read_w, write_w) of a mangled kernel name, else
-    None."""
+# the libraries that build the ring kernel: B9/B11, and B13's interior
+RING_LIBS = ("mhd", "mhd_overlap")
+
+
+def kernel_key(lib: str, name: str):
+    """(library, read_w, write_w) of a ring-kernel instantiation
+    (``mhd_substep_ring_kernel<kReadW, kWriteW>``, which the ``mhd``
+    library launches as B9 and B11 and ``mhd_overlap`` as B13's
+    interior) from its mangled name, else None."""
     import re
 
-    for tag, kernel in (("B11", "mhd_substep_halo"), ("B9", "mhd_substep_wrap")):
-        m = re.search(kernel + r"_kernelILb(\d)ELb(\d)E", name)
-        if m:
-            return (tag, m.group(1) == "1", m.group(2) == "1")
+    m = re.search(r"mhd_substep_ring_kernelILb(\d)ELb(\d)E", name)
+    if m and lib in RING_LIBS:
+        return (lib, m.group(1) == "1", m.group(2) == "1")
     return None
 
 
 def ptxas_usage(log: str) -> dict:
-    """Registers and spill bytes of B9 and B11 from the ``-Xptxas=-v``
-    lines of the build log: ``kernel_key`` -> {"registers",
-    "spill_stores", "spill_loads"}. Empty when the libraries were built
-    before (no log)."""
+    """Registers and spill bytes of every ring-kernel instantiation from
+    the ``-Xptxas=-v`` lines of the build log (``_build.build_all``
+    heads each library's lines with ``nvcc <name>.cu:``): ``kernel_key``
+    -> {"registers", "spill_stores", "spill_loads"}. Empty when the
+    libraries were built before (no log)."""
     import re
 
     out = {}
-    key = None
+    lib = key = None
     for line in log.splitlines():
+        m = re.match(r"nvcc (\w+)\.cu:", line)
+        if m:
+            lib, key = m.group(1), None
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            key = kernel_key(m.group(1))
+            key = kernel_key(lib, m.group(1))
             continue
         if key is None:
             continue
@@ -2384,10 +2485,11 @@ def ptxas_usage(log: str) -> dict:
 
 
 def sass_counts() -> dict:
-    """Static opcode counts of B9 and B11 in the built MHD library
-    (``cuobjdump -sass``; each instruction of the kernel once, loops not
-    unrolled): ``kernel_key`` -> {"total": n, and the 8 most frequent
-    opcodes}. Empty where the toolkit has no cuobjdump."""
+    """Static opcode counts of every ring-kernel instantiation in the
+    built ``mhd`` and ``mhd_overlap`` libraries (``cuobjdump -sass``; each
+    instruction of the kernel once, loops not unrolled): ``kernel_key``
+    -> {"total": n, and the 8 most frequent opcodes}. Empty where the
+    toolkit has no cuobjdump."""
     import collections
     import re
     import shutil
@@ -2398,18 +2500,19 @@ def sass_counts() -> dict:
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if not tool:
         return {}
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("mhd"))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
     out = {}
-    for part in sass.split("Function : ")[1:]:
-        key = kernel_key(part.split("\n", 1)[0])
-        if key is None:
-            continue
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_.]+)", part)
-        c = collections.Counter(o.split(".")[0] for o in ops)
-        out[key] = dict(total=len(ops), **dict(c.most_common(8)))
+    for lib in RING_LIBS:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            key = kernel_key(lib, part.split("\n", 1)[0])
+            if key is None:
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]+)", part)
+            c = collections.Counter(o.split(".")[0] for o in ops)
+            out[key] = dict(total=len(ops), **dict(c.most_common(8)))
     return out
 
 
@@ -2482,6 +2585,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for key, use in sorted(ptxas.items(), key=str):
         log(f"  ptxas {key}: {use}")
+        if (use.get("registers", 0) > 128 or use.get("spill_stores")
+                or use.get("spill_loads")):
+            log(f"  NOTE: ring kernel {key} uses more than 128 registers "
+                f"or spills")
 
     # phase 3: kernels vs twins
     log("phase 3: kernels vs plain twins")
@@ -2526,12 +2633,14 @@ def main() -> int:
     for path, v in sps.items():
         log(f"  Jacobi {path}: {v!r} steps/s")
     halo_times = time_halo(torch, ch)
-    ips = {"wrap": iters_per_s(torch, "wrap", 20),
-           "wrap+pair": iters_per_s(torch, "wrap", 10, pair="1"),
-           "xla": iters_per_s(torch, "xla", 3)}
-    for path, v in ips.items():
-        log(f"  Astaroth {path}: {v!r} iterations/s")
-    mhd_halo_times = time_mhd_halo(torch, cm, ptxas)
+    ips, ips_runs = {}, {}
+    for path, kernel, k, pair in (("wrap", "wrap", 20, "0"),
+                                  ("wrap+pair", "wrap", 10, "1"),
+                                  ("xla", "xla", 3, "0")):
+        ips[path], ips_runs[path] = iters_per_s(torch, kernel, k, pair)
+        log(f"  Astaroth {path}: {ips[path]!r} iterations/s over three "
+            f"runs ({ips_runs[path]})")
+    mhd_halo_times = time_mhd_halo(torch, cm, mo, ptxas)
     dma_times = time_dma_overlap(torch, cx, co)
     mhd_overlap_times = time_mhd_overlap(torch, cm, mo)
     times = time_kernels(torch, cs)
@@ -2559,7 +2668,10 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "steps_per_s_512": sps, "iters_per_s_256": ips,
+                   "runs_iters_per_s_256": ips_runs,
                    "halo_steps_per_s_512": halo_times["steps_per_s"],
+                   "halo_runs_steps_per_s_512":
+                       halo_times["runs_steps_per_s"],
                    "halo_slab_exchange_ms": halo_times["slab_exchange_ms"],
                    "halon_quarter_shard_ms":
                        halo_times["halon_quarter_shard_ms"],
@@ -2570,6 +2682,9 @@ def main() -> int:
                    "astaroth_halo_slab_exchange_ms":
                        mhd_halo_times["slab_exchange_ms"],
                    "b9_same_shard_ms": mhd_halo_times["b9_same_shard_ms"],
+                   "b13_same_shard_ms": mhd_halo_times["b13_same_shard_ms"],
+                   "astaroth_overlap_iteration_ms":
+                       mhd_overlap_times["iteration_ms"],
                    "main_path": main_path, "halo_path": halo_path,
                    "astaroth_path": mhd_path,
                    "astaroth_halo_path": mhd_halo_path,
@@ -2582,6 +2697,8 @@ def main() -> int:
                    "measure_overlap_mhd":
                        mhd_overlap_times["measure_overlap_mhd"],
                    "overlap_steps_per_s_512": dma_times["steps_per_s"],
+                   "overlap_runs_steps_per_s_512":
+                       dma_times["runs_steps_per_s"],
                    "whole_exchange_ms": dma_times["whole_exchange_ms"],
                    "measure_overlap": dma_times["measure_overlap"],
                    "kernels": kernels}, f, indent=1)

@@ -1,5 +1,6 @@
 // Device code shared by the MHD kernels for Hopper (sm_90a), float32:
-// csrc/mhd.cu (B9-B12) and csrc/mhd_overlap.cu (B13, B14).
+// csrc/mhd.cu (B9-B12), csrc/mhd_overlap.cu (B13, B14) and the ring
+// kernel both launch (csrc/mhd_ring.cuh).
 //
 // The Astaroth right-hand sides (models/astaroth.py mhd_rates;
 // reference: astaroth/user_kernels.h:383-453) with the 6th-order

@@ -24,11 +24,12 @@
 //     corners directly to the diagonal shards (z+-1, y+-1), which gives
 //     the values the TPU kernel forwards from its landed z slabs without
 //     a third ordering step. Then the interior: with one substep every
-//     point z in [R, Z-R), y in [R, Y-R), B11's arithmetic read from the
-//     shard itself (the radius-R neighbourhood of those points lies in
-//     the shard, so the values are B11's bit for bit); with the pair
+//     point z in [R, Z-R), y in [R, Y-R), computed by B11's own kernel
+//     (the z-streaming ring of mhd_ring.cuh, its margin rows read from
+//     the shard itself: the radius-R neighbourhood of those points lies
+//     in the shard, so the values are B11's bit for bit); with the pair
 //     (substeps 0+1, hr = 2R) B12's kT^3 tiles whose ring reads stay in
-//     the shard, z and y in [kT, n-kT).
+//     the shard, z and y in [kT, n-kT), the shard read as their window.
 //   launch B (B14): the exterior shell that launch A left, as up to four
 //     strips (z in [0, e) and [Z-e, Z) at every y, then y in [0, e) and
 //     [Y-e, Y) between them; e = R, or kT with the pair): each strip's
@@ -53,11 +54,16 @@
 // new state at the interior points, as B9 (24 / 32 / 24 passes of a
 // field for s = 0 / 1 / 2, 24 with the pair), plus the slab rows it
 // stores; B14 reads the shell's windows' share of the shard and the slab
-// rows and writes the shell. Design (first, simple version): B9's and
-// B10's kernels on a window, as B11/B12; the strip windows are gathered
-// into scratch (a shell-sized share of B11's 16-pass gather).
+// rows and writes the shell. Design: B13's interior (one substep) is the
+// ring kernel that computes B9 and B11 (mhd_ring.cuh), one launch over
+// the interior region. B14's strips and the pair's interior keep the
+// first, simple design: per-point kernels on a window (mhd_region_kernel,
+// one thread a point; mhd_region01_kernel, B10's tiles), the strip
+// windows gathered into scratch (a shell-sized share of a 16-pass
+// gather).
 
 #include "mhd_common.cuh"
+#include "mhd_ring.cuh"
 
 #include <cstring>
 
@@ -153,13 +159,14 @@ strip_window_kernel(InPtrs f, SlabPtrs sl, OutPtrs win, HaloGeom g,
 }
 
 // ---------------------------------------------------------------------
-// One RK3 substep s at the points of one region, B11's kernel point for
-// point (B9's design: one thread per point, a (32, 8) block over (x, y),
-// one z row per block row), reading the region's window through PadIdx.
-// The host launches it once per region, with the window pointers already
-// at the region's woff and only the geometry below as arguments, so that
-// it holds as few registers as B11's kernel (a region table read per
-// block cost 200 B of spills a thread and 1.7x B9's time on an H100).
+// One RK3 substep s at the points of one of B14's strips, B11's
+// arithmetic point for point (one thread per point, a (32, 8) block over
+// (x, y), one z row per block row), reading the strip's window through
+// PadIdx. A strip is R rows deep, too thin for the ring's z runs and
+// 16-row tiles. The host launches it once per strip, with the window
+// pointers already at the strip's woff and only the geometry below as
+// arguments, so that it holds 128 registers (a region table read per
+// block cost 200 B of spills a thread and 1.7x the time on an H100).
 // ---------------------------------------------------------------------
 struct RegionGeom {
   int z0, y0, ny, wz0, wy0, Yw;
@@ -291,8 +298,8 @@ long long total_rows(const Regions& rs) {
   return t;
 }
 
-// the compute of the regions on window win (B11's kernel, or B12's with
-// the pair), one launch per region; nothing to do for an empty set
+// the compute of the regions on window win (B14's strips, or the pair's
+// B12 tiles), one launch per region; nothing to do for an empty set
 cudaError_t launch_regions(const InPtrs& win, const void* const* w,
                            void* const* out_f, void* const* out_w,
                            const Regions& rs, int Y, int X, bool pair,
@@ -341,12 +348,13 @@ extern "C" {
 // x 8 fields); pieces: 8 x 7 host ints (nz, ny, sz0, sy0, dz0, dy0, dY);
 // out_f/out_w: 8 each (out_w NULL for write_w=False); regions: n x 9 host
 // ints (z0, nz, y0, ny, wz0, wy0, Zw, Yw, woff) of the interior, read
-// from the shard itself; consts: kNConsts host floats.
+// from the shard itself; zrun: z planes a block of the ring kernel walks
+// (one substep); consts: kNConsts host floats.
 cudaError_t mhd_substep_overlap_launch(
     const void* const* fields, const void* const* w, void* const* dst,
     const int* pieces, void* const* out_f, void* const* out_w,
     const int* regions, int n_regions, int Z, int Y, int X, int pair,
-    const float* consts, int n_consts, void* stream) {
+    int zrun, const float* consts, int n_consts, void* stream) {
   Regions rs;
   if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
       !read_regions(regions, n_regions, Z, Y, X, pair != 0, rs) ||
@@ -366,7 +374,18 @@ cudaError_t mhd_substep_overlap_launch(
                      kCopyBX, 0, s>>>(fp, dp, pc, Y, X);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_regions(fp, w, out_f, out_w, rs, Y, X, pair != 0, c, s);
+  if (pair) return launch_regions(fp, w, out_f, out_w, rs, Y, X, true, c, s);
+  // one substep: the ring kernel over each region, its margin rows from
+  // the shard (windows_ok above keeps every row it reads inside it)
+  for (int k = 0; k < rs.n; ++k) {
+    const Region& r = rs.r[k];
+    const RingGeom g{{Z, Y, X, 0, 0}, r.z0, r.nz, r.y0, r.ny, zrun,
+                     kWrappedRows};
+    err = launch_ring(fp, in_ptrs(w), SlabPtrs{}, out_ptrs(out_f),
+                      out_ptrs(out_w), g, c, s);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // B14, launch B. fields/w: the pre-substep shard and w (w NULL for

@@ -1,0 +1,236 @@
+// The z-streaming MHD RK3 substep for Hopper (sm_90a), float32: one
+// kernel body that csrc/mhd.cu launches as B9 and B11 and
+// csrc/mhd_overlap.cu as B13's interior.
+//
+// One RK3 substep s over a region of a (Z, Y, X) field or shard: the
+// points z in [z0, z0 + nz), y in [y0, y0 + ny), every x (x wrapped):
+//   wq = dt * rates;  wq = alpha * w + wq  (only when w is read);
+//   w_out = wq (only when written);  f_out = value + beta * wq.
+// kReadW=false is w=None (alpha_0 == 0: substep 0 never reads w);
+// kWriteW=false is write_w=False (nothing reads substep 2's w).
+//
+// Design (B11's, generalised to a region and a row source): a
+// block owns a 32 x 16 (x, y) tile of the region and walks a run of
+// `zrun` z planes. Shared memory holds, per field, a ring of 8 planes of
+// the tile and its radius-3 margin (22 x 38 floats each): 7 for the
+// point's neighbourhood and one that cp.async fills with plane z + 4
+// while plane z is computed. Each margin row is copied by one warp,
+// coalesced, x wrapped, from a table of the block's rows set up once
+// (RowSrc), so every tap of the ~300 a point is a shared-memory load with
+// an immediate offset from one of 7 per-thread plane registers. The
+// arithmetic is field_data and mhd_rates (mhd_common.cuh), unchanged,
+// through a shared-memory accessor (RingAt). A 32 x 16 tile is 512
+// threads, 16 warps and 214 KB a block, one block an SM, at most 128
+// registers a thread; 32 x 8 and 32 x 4 tiles hold 8 warps an SM and ran
+// slower on an H100 (PERF.md). ops/cuda_mhd.py ring_zrun picks the run.
+//
+// The launches differ only in where a margin row comes from, a choice
+// made once a block, while the table is filled (RingGeom::source):
+//   kHaloRows     B11: the shard, a z slab or a z-extended y slab, as
+//                 halo_row_of chooses (the slab layout of mhd_common.cuh);
+//   kWrappedRows  B9: the field itself, periodic: row wrap(y, Y) at plane
+//                 wrap(p, Z) (Z, Y >= 8 > R, so one wrap is enough);
+//                 B13's interior takes the same rule on a region whose
+//                 radius-R neighbourhood lies in the shard, so no row it
+//                 reads wraps and it reads the shard alone.
+// The values are therefore B11's bit for bit in all three: on a (1,1,1)
+// mesh B11's slabs are the shard's own wrapped rows, and B13's interior
+// points read the same rows B11 reads there.
+
+#pragma once
+
+#include "mhd_common.cuh"
+
+namespace {
+
+constexpr int kRing = 8;  // ring slots per field: 2R + 1 planes + 1 loading
+
+struct RingTile {
+  static constexpr int kTY = 16;               // the tile's y rows
+  static constexpr int kPX = kBX + 2 * R;      // 38 floats a margin row
+  static constexpr int kPY = kTY + 2 * R;      // margin rows a plane
+  static constexpr int kPlane = kPX * kPY;     // one field's plane
+  static constexpr int kSlot = kNF * kPlane;   // one plane of 8 fields
+  static constexpr int kRows = kNF * kPY;      // margin rows of a slot
+  static constexpr int kThreads = kBX * kTY;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRowsPerWarp = kRows / kWarps;
+  static constexpr size_t kSmem = sizeof(float) * kRing * kSlot;
+  static_assert(kRows % kWarps == 0, "every warp copies as many rows");
+};
+
+enum RowSource { kHaloRows = 0, kWrappedRows = 1 };
+
+// One launch: the field or shard (h; its slabs' rz, ry for kHaloRows),
+// the region it computes, the z run a block walks and the row source.
+struct RingGeom {
+  HaloGeom h;
+  int z0, nz, y0, ny;
+  int zrun;
+  int source;  // RowSource
+};
+
+// Where margin row (q, y) of plane p comes from, set up once a block:
+// base[k] is the row at plane pref = -1, 0, Z (for p < 0, 0 <= p < Z,
+// p >= Z), and the row at plane p is then base[k] + (p - pref) * stride
+// (the slab or field's plane pitch); dst is the row's offset in a ring
+// slot (-1: the row lies R or more beyond the region's last y, and only
+// masked points would read it).
+struct RowSrc {
+  const float* base[3];
+  int stride;
+  int dst;
+};
+
+// a field's ring around one point: o[k] is the point's offset in the
+// slot of plane z + k - R, p the field's first float in a slot
+template <int PX>
+struct RingAt {
+  const float* p;
+  const int* o;
+  __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
+    return p[o[dz + R] + dy * PX + dx];
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <bool kReadW, bool kWriteW>
+__global__ void __launch_bounds__(RingTile::kThreads, 1)
+mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
+                        OutPtrs ow, RingGeom g, Consts c) {
+  using T = RingTile;
+  extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
+  __shared__ RowSrc rows[T::kRows];  // row k = q * kPY + ry
+  const int Z = g.h.Z, Y = g.h.Y, X = g.h.X;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int x0 = blockIdx.x * kBX, y0 = g.y0 + blockIdx.y * T::kTY;
+  const int z0 = g.z0 + blockIdx.z * g.zrun;
+  const int z1 = min(z0 + g.zrun, g.z0 + g.nz);
+  const int y1 = g.y0 + g.ny;
+  for (int k = warp * kBX + lane; k < T::kRows; k += T::kThreads) {
+    const int qk = k / T::kPY, ry = k - qk * T::kPY;
+    const int y = y0 - R + ry;
+    RowSrc r;
+    // field qk's pointers, each a kernel parameter read at a constant
+    // index (a run-time index would copy the structs to local memory)
+#pragma unroll
+    for (int q = 0; q < kNF; ++q) {
+      if (q != qk) continue;
+      if (g.source == kWrappedRows) {
+        const float* row = f.p[q] + wrap(y, Y) * X;
+        r.base[0] = row + (Z - 1) * Y * X;  // plane Z - 1 at p = -1
+        r.base[1] = row;                    // plane 0 at p = 0
+        r.base[2] = row;                    // plane 0 at p = Z
+      } else {
+        const int pref[3] = {-1, 0, Z};
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          r.base[j] = halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q], sl.ylo[q],
+                                  sl.yhi[q], g.h, y, pref[j]);
+      }
+    }
+    r.stride = (g.source == kWrappedRows || (y >= 0 && y < Y) ? Y : g.h.ry) *
+               X;
+    r.dst = y < y1 + R ? qk * T::kPlane + ry * T::kPX : -1;
+    rows[k] = r;
+  }
+  __syncthreads();
+  const int xa = wrap(x0 - R + lane, X);             // margin column lane
+  const int xb = wrap(x0 - R + kBX + lane, X);       // column 32 + lane
+
+  // plane p of every field into its ring slot, one margin row a warp
+  auto load_plane = [&](int p) {
+    float* slot = ring + ((p + kRing) % kRing) * T::kSlot;
+    const int j = p < 0 ? 0 : (p < Z ? 1 : 2);
+    const int dp = p - (j == 0 ? -1 : (j == 1 ? 0 : Z));
+#pragma unroll
+    for (int i = 0; i < T::kRowsPerWarp; ++i) {
+      const RowSrc& r = rows[warp + T::kWarps * i];
+      if (r.dst < 0) continue;
+      const float* row = r.base[j] + dp * r.stride;
+      float* d = slot + r.dst;
+      cp_async4(d + lane, row + xa);
+      if (lane < 2 * R) cp_async4(d + kBX + lane, row + xb);
+    }
+  };
+
+  for (int p = z0 - R; p <= z0 + R; ++p) load_plane(p);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int x = x0 + lane, y = y0 + warp;
+  const bool live = x < X && y < y1;
+  const int here = (warp + R) * T::kPX + (lane + R);
+  for (int z = z0; z < z1; ++z) {
+    if (z + 1 < z1) load_plane(z + 1 + R);
+    cp_async_commit();
+    if (live) {
+      int o[2 * R + 1];
+#pragma unroll
+      for (int k = 0; k <= 2 * R; ++k)
+        o[k] = ((z + k - R + kRing) % kRing) * T::kSlot + here;
+      Fd F[kNF];
+      field_data(
+          [&](int q) { return RingAt<T::kPX>{ring + q * T::kPlane, o}; }, c,
+          F);
+      float r[kNF];
+      mhd_rates(F, c, r);
+      const int og = (z * Y + y) * X + x;
+#pragma unroll
+      for (int q = 0; q < kNF; ++q) {
+        float wq = c.dt * r[q];
+        if (kReadW) wq = c.alpha * __ldg(w.p[q] + og) + wq;
+        if (kWriteW) ow.p[q][og] = wq;
+        of.p[q][og] = F[q].v + c.beta * wq;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+template <bool kReadW, bool kWriteW>
+cudaError_t launch_ring_variant(const InPtrs& f, const InPtrs& w,
+                                const SlabPtrs& sl, const OutPtrs& of,
+                                const OutPtrs& ow, const RingGeom& g,
+                                const Consts& c, cudaStream_t s) {
+  using T = RingTile;
+  auto kernel = mhd_substep_ring_kernel<kReadW, kWriteW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks(g.h.X, kBX), blocks(g.ny, T::kTY),
+                  blocks(g.nz, g.zrun));
+  kernel<<<grid, dim3(kBX, T::kTY), T::kSmem, s>>>(f, w, sl, of, ow, g, c);
+  return cudaGetLastError();
+}
+
+// The ring kernel over region g, w read when w.p[0] is set and written
+// when ow.p[0] is; invalid for an empty region or run.
+cudaError_t launch_ring(const InPtrs& f, const InPtrs& w, const SlabPtrs& sl,
+                        const OutPtrs& of, const OutPtrs& ow,
+                        const RingGeom& g, const Consts& c, cudaStream_t s) {
+  if (g.zrun < 1 || g.nz < 1 || g.ny < 1 || g.z0 < 0 || g.y0 < 0 ||
+      g.z0 + g.nz > g.h.Z || g.y0 + g.ny > g.h.Y)
+    return cudaErrorInvalidValue;
+  const bool rw = w.p[0] != nullptr, ww = ow.p[0] != nullptr;
+  if (rw && ww) return launch_ring_variant<true, true>(f, w, sl, of, ow, g, c, s);
+  if (rw) return launch_ring_variant<true, false>(f, w, sl, of, ow, g, c, s);
+  if (ww) return launch_ring_variant<false, true>(f, w, sl, of, ow, g, c, s);
+  return launch_ring_variant<false, false>(f, w, sl, of, ow, g, c, s);
+}
+
+}  // namespace

@@ -21,7 +21,9 @@ model:
   ``w=None``, substep 1, substep 2 with ``write_w=False``. With
   ``STENCIL_MHD_PAIR=1`` it is one launch of the pair kernel B10
   (``mhd_substep01_wrap_cuda``) and B9 for substep 2. The carried ``w``
-  is the last one written, as in JAX.
+  is the last one written, as in JAX. B9, B11 and B13's interior are
+  one z-streaming kernel (``csrc/mhd_ring.cuh``), launched over the
+  whole field, the whole shard, or the shard's interior.
 * ``halo`` — the multi-shard fast path on an x-unsharded mesh, (1,1,1)
   included: the same resident state per shard, and before every launch
   one slab round over ALL shards (``exchange_interior_slabs``, the 8

@@ -25,7 +25,12 @@ Layout (as in JAX): 8 unpadded (Z, Y, X) fields; Z and Y multiples of
 periodic in all three axes inside the kernel. B11/B12 take the shard of
 a z/y-sharded mesh and, per field, its four halo slabs (``slabs[q] =
 {"zlo", "zhi", "ylo", "yhi"}``, see ``halo_window``); x wraps inside the
-kernel. A wrapper dispatches on the tensors' device: CPU tensors go to
+kernel. B9 and B11 launch one kernel (``csrc/mhd_ring.cuh``, a
+z-streaming ring of planes in shared memory, which also computes B13's
+interior), each block walking ``ring_zrun`` z planes; they differ only
+in where the kernel reads a margin row (the field's own wrapped rows,
+or the shard's slabs), so on a (1,1,1) mesh they agree bitwise. A
+wrapper dispatches on the tensors' device: CPU tensors go to
 the plain twin (any float dtype; bfloat16 stored, float32 computed, see
 ``compute_dtype``); CUDA tensors launch the kernel (float32 only, else
 ``TypeError``) or raise — never the twin. Each launch adds one to the
@@ -264,8 +269,8 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (fields[8], w[8] or NULL, out_f[8], out_w[8] or NULL, Z, Y, X,
-    #  consts, n_consts, stream)
-    "mhd_substep_wrap_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    #  zrun, consts, n_consts, stream)
+    "mhd_substep_wrap_launch": [_P] * 4 + [_I] * 4 + [_P, _I, _P],
     # (fields[8], out_f[8], out_w[8], Z, Y, X, consts, n_consts, stream)
     "mhd_substep01_wrap_launch": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # (fields[8], w[8] or NULL, slabs[32], out_f[8], out_w[8] or NULL,
@@ -365,7 +370,9 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     ``write_w=False``. ``w=None`` (only for ``alpha_s == 0``) skips the
     w read; ``write_w=False`` skips the w write — the dead-w elision of
     ``mhd_substep_wrap_pallas``. ``out_f``/``out_w``: destination
-    tensors (default: new ones), which must not alias the inputs."""
+    tensors (default: new ones), which must not alias the inputs. One
+    launch of the ring kernel over the whole field, each block walking
+    ``ring_zrun`` z planes."""
     from ..models.astaroth import FIELDS, RK3_ALPHA
 
     what = "mhd_substep_wrap_cuda"
@@ -387,13 +394,14 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     _check_cuda(f0, ins + w_in + list(out_f.values())
                 + list((out_w or {}).values()), what)
     Z, Y, X = f0.shape
+    zrun = ring_zrun(Z, Y, X, _sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys, s)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs(w_in) if w_in else None
     p_wo = _ptrs([out_w[q] for q in FIELDS]) if write_w else None
     _launch("mhd_substep_wrap_launch", f0.device, p_in, p_w, p_f, p_wo,
-            Z, Y, X, consts.ctypes.data, consts.size)
+            Z, Y, X, zrun, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep_wrap"] += 1
     return out_f, out_w
 
@@ -491,24 +499,27 @@ def _outputs(f0: torch.Tensor, out: Optional[Fields], what: str) -> Fields:
     return out
 
 
-#: B11's block: 32 x 16 (x, y) points walking a run of z planes, one
-#: block an SM (csrc/mhd.cu HaloTile)
-B11_TILE_Y = 16
+#: the ring kernel's block (B9, B11, B13's interior): 32 x 16 (x, y)
+#: points walking a run of z planes, one block an SM (csrc/mhd_ring.cuh
+#: RingTile)
+RING_TILE_Y = 16
 
 
 @functools.lru_cache(maxsize=None)
-def b11_zrun(Z: int, Y: int, X: int, n_sms: int) -> int:
-    """The z planes a B11 block walks on a (Z, Y, X) shard: the run that
-    minimises waves x (run + 2R), where a wave is one block on every SM
-    and each run also loads 2R planes of margin — long runs while the
-    (x, y) tiles alone fill the card, shorter ones when they do not."""
-    cols = -(-X // 32) * -(-Y // B11_TILE_Y)
+def ring_zrun(nz: int, ny: int, X: int, n_sms: int) -> int:
+    """The z planes a block of the ring kernel walks over a region of nz
+    planes, ny rows and X columns (a whole field or shard for B9 and
+    B11, the interior for B13): the run that minimises waves x (run +
+    2R), where a wave is one block on every SM and each run also loads
+    2R planes of margin — long runs while the (x, y) tiles alone fill
+    the card, shorter ones when they do not."""
+    cols = -(-X // 32) * -(-ny // RING_TILE_Y)
 
     def cost(zrun):
-        waves = -(-cols * -(-Z // zrun) // n_sms)
+        waves = -(-cols * -(-nz // zrun) // n_sms)
         return waves * (zrun + 2 * R), zrun
 
-    return min(cost(-(-Z // runs)) for runs in range(1, Z + 1))[1]
+    return min(cost(-(-nz // runs)) for runs in range(1, nz + 1))[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -554,7 +565,8 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     ``out_f``/``out_w``: destination tensors (default: new ones), which
     must not alias the inputs. One launch, no scratch: the kernel reads
     the rows straight from the shard and the slabs into shared memory,
-    each block walking ``b11_zrun`` z planes."""
+    each block walking ``ring_zrun`` z planes (B9's kernel, its margin
+    rows read from the slabs)."""
     from ..models.astaroth import FIELDS, RK3_ALPHA
 
     what = "mhd_substep_halo_cuda"
@@ -579,7 +591,7 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     wo = [out_w[q] for q in FIELDS] if write_w else []
     _check_cuda(f0, ins + w_in + sl + outs + wo, what)
     Z, Y, X = f0.shape
-    zrun = b11_zrun(Z, Y, X, _sm_count(f0.device))
+    zrun = ring_zrun(Z, Y, X, _sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys, s)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f = _ptrs(ins), _ptrs(sl), _ptrs(outs)

@@ -27,12 +27,13 @@ windows and the shell).
 What each computes, per shard, with hr = R (or 2R with the pair):
 
 * B13: the new f (and w) at the interior points — every point whose
-  radius-hr neighbourhood lies in the shard (``interior_region``; with
-  the pair, the kT = 8 tiles of B12 whose ring reads stay in it) — and
-  the landed rows, in the layout of ``exchange_interior_slabs(rz=hr,
-  ry=hr, y_z_extended=True)`` (``MhdOverlapRecv.landed``). Its values
-  at the other points are unspecified (the JAX kernel leaves clamped-
-  window placeholders there).
+  radius-hr neighbourhood lies in the shard (``interior_region``,
+  computed by the ring kernel of B9 and B11 reading the shard alone;
+  with the pair, the kT = 8 tiles of B12 whose ring reads stay in it) —
+  and the landed rows, in the layout of ``exchange_interior_slabs(rz=hr,
+  ry=hr, y_z_extended=True)`` (``MhdOverlapRecv.landed``). Its values at
+  the other points are unspecified (the JAX kernel leaves clamped-window
+  placeholders there).
 * B14: the exterior shell (``shell_regions``) from the pre-substep
   shard and the landed rows, through B11's window rule
   (``ops/cuda_mhd.halo_window``), written into B13's outputs in place
@@ -333,8 +334,9 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (fields[8], w[8] or NULL, dst[64], pieces[56], out_f[8], out_w[8] or
-    #  NULL, regions, n_regions, Z, Y, X, pair, consts, n_consts, stream)
-    "mhd_substep_overlap_launch": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
+    #  NULL, regions, n_regions, Z, Y, X, pair, zrun, consts, n_consts,
+    #  stream)
+    "mhd_substep_overlap_launch": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
     # (fields[8], w[8] or NULL, slabs[32], window[8], out_f[8], out_w[8]
     #  or NULL, regions, n_regions, Z, Y, X, rz, ry, pair, consts,
     #  n_consts, stream)
@@ -483,6 +485,10 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
     inner = interior_region(Z, Y, pair)
     regions = _region_ints([inner] if inner else [], [(0, 0, Z, Y, 0)])
     n_regions = 1 if inner else 0
+    # one substep: the ring kernel's z run over the interior (the pair's
+    # tiles take none)
+    zrun = (cm.ring_zrun(inner[1], inner[3], X, cm._sm_count(f0.device))
+            if inner and not pair else 1)
     from . import _build
 
     with recv.own_session():
@@ -500,7 +506,8 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
                               f[FIELDS[0]].device,
                               p_in, p_w, dst, geo.ctypes.data, p_f, p_wo,
                               regions.ctypes.data, n_regions, Z, Y, X,
-                              int(pair), consts.ctypes.data, consts.size)
+                              int(pair), zrun, consts.ctypes.data,
+                              consts.size)
     LAUNCHES["mhd_substep_overlap"] += n
     return out_f, out_w, recv
 

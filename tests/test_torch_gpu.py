@@ -307,26 +307,78 @@ def test_mhd_halo_kernels_match_twins(cm, size, mesh, layout):
             == before["mhd_substep01_halo"] + 2 * n)
 
 
-def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm):
-    """On a (1,1,1) mesh the slabs are the shard's own wrapped rows: B11
-    computes B9's values and B12 B10's, bit for bit."""
-    from stencil_tpu_torch.models.astaroth import MhdParams
-
-    (t,), _ = _mhd_mesh((16, 8, 24), (1, 1, 1), 46)
-    f, prm = _fields(t), MhdParams(dt=1e-4)
-    (s3,), (s6,) = (_mhd_slabs([t], (1, 1, 1), rz=3, ry=3),
-                    _mhd_slabs([t], (1, 1, 1), rz=6, ry=6))
-    for got, want in ((cm.mhd_substep_halo_cuda(f, None, s3, 0, prm, 1e-4),
-                       cm.mhd_substep_wrap_cuda(f, None, 0, prm, 1e-4)),
-                      (cm.mhd_substep01_halo_cuda(f, s6, prm, 1e-4),
-                       cm.mhd_substep01_wrap_cuda(f, prm, 1e-4))):
-        for q in f:
-            assert torch.equal(got[0][q], want[0][q]), q
-            assert torch.equal(got[1][q], want[1][q]), q
-
-
 B11_VARIANTS = [(0, False, True), (1, True, True), (2, True, False),
                 (0, True, True), (2, True, True)]
+
+
+@pytest.mark.parametrize("shape", MHD_SHAPES + [(136, 128, 96)])
+def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm, shape):
+    """On a (1,1,1) mesh the slabs are the shard's own wrapped rows: B11
+    computes B9's values (one kernel body, ``csrc/mhd_ring.cuh``, that
+    differs only in where a margin row comes from) for every (s, read_w,
+    write_w), and B12 B10's, bit for bit — at shapes with x below the
+    ring's 32-wide tile and y below its 16 rows, and at 136 x 128 x 96,
+    where ``ring_zrun`` splits z into runs, the last one shorter."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    (t,), (wt,) = _mhd_mesh(shape, (1, 1, 1), 46)
+    f, w, prm = _fields(t), _fields(wt), MhdParams(dt=1e-4)
+    (s3,), (s6,) = (_mhd_slabs([t], (1, 1, 1), rz=3, ry=3),
+                    _mhd_slabs([t], (1, 1, 1), rz=6, ry=6))
+    if shape == (136, 128, 96):
+        assert shape[0] % cm.ring_zrun(*shape, cm._sm_count(t.device))
+    pairs = [(cm.mhd_substep01_halo_cuda(f, s6, prm, 1e-4),
+              cm.mhd_substep01_wrap_cuda(f, prm, 1e-4))]
+    for s, read_w, write_w in B11_VARIANTS:
+        w_in = w if read_w else None
+        pairs.append((cm.mhd_substep_halo_cuda(f, w_in, s3, s, prm, 1e-4,
+                                               write_w=write_w),
+                      cm.mhd_substep_wrap_cuda(f, w_in, s, prm, 1e-4,
+                                               write_w=write_w)))
+    for got, want in pairs:
+        assert (got[1] is None) == (want[1] is None)
+        for q in f:
+            assert torch.equal(got[0][q], want[0][q]), q
+            if want[1] is not None:
+                assert torch.equal(got[1][q], want[1][q]), q
+
+
+@pytest.mark.parametrize("lib", ["mhd", "mhd_overlap"])
+def test_ring_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
+    """Every instantiation of the ring kernel (B9 and B11 in ``mhd``,
+    B13's interior in ``mhd_overlap``), built as the package builds it:
+    at most 128 registers a thread (one 512-thread block an SM) and no
+    spill, from the ``-Xptxas=-v`` lines."""
+    import re
+    import subprocess
+
+    from stencil_tpu_torch.ops import _build
+
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+           str(tmp_path / f"lib{lib}.so"), str(_build.sources()[lib])]
+    log = subprocess.run(cmd, capture_output=True, text=True, check=True,
+                         timeout=600)
+    usage, key = {}, None
+    for line in (log.stdout + log.stderr).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = (m.group(1) if "mhd_substep_ring_kernel" in m.group(1)
+                   else None)
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(key, {})["spills"] = (int(m.group(1)),
+                                                  int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(key, {})["registers"] = int(m.group(1))
+    assert len(usage) == 4, usage      # (read_w, write_w)
+    for name, use in usage.items():
+        assert use["registers"] <= 128, (name, use)
+        assert use["spills"] == (0, 0), (name, use)
 
 
 @pytest.mark.parametrize("size,mesh", [((256, 256, 256), (1, 1, 1)),
@@ -389,13 +441,13 @@ def test_b11_is_bitwise_its_twin_without_a_window(cm, monkeypatch, size,
 
 def test_b11_z_runs_are_bitwise_its_twin(cm):
     """(136, 128, 96) shards on (1,2,2): the tiles alone leave most SMs
-    idle, so ``b11_zrun`` splits z into runs (on 132 SMs five of 28
+    idle, so ``ring_zrun`` splits z into runs (on 132 SMs five of 28
     planes, the last one 24); every (s, read_w, write_w) is still bitwise
     equal to the twin."""
     from stencil_tpu_torch.models.astaroth import MhdParams
 
     shards, ws = _mhd_mesh((272, 256, 96), (1, 2, 2), 48)
-    zrun = cm.b11_zrun(136, 128, 96, cm._sm_count(shards[0].device))
+    zrun = cm.ring_zrun(136, 128, 96, cm._sm_count(shards[0].device))
     assert zrun < 136
     sl = _mhd_slabs(shards, (1, 2, 2), rz=3, ry=3)
     prm = MhdParams(dt=1e-4)
@@ -1046,12 +1098,17 @@ def _overlap_variants(pair):
 @pytest.mark.parametrize("size,mesh", [((16, 8, 24), (1, 1, 1)),
                                        ((32, 8, 16), (1, 1, 2)),
                                        ((48, 48, 16), (1, 2, 2)),
-                                       ((32, 16, 5), (1, 2, 4))])
+                                       ((32, 16, 5), (1, 2, 4)),
+                                       ((208, 256, 96), (1, 2, 2))])
 def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
     """B13 against its twin (the interior within 64 eps(f32) x max, the
-    landed rows bitwise), and B14 after B13 against B11 (B12 with the
-    pair) on the same shards and rows bitwise, for every variant: s = 0
-    with w=None, s = 1, s = 2 with write_w=False, and the pair."""
+    landed rows bitwise), B13's interior against B11 (B12 with the pair)
+    at the same points bitwise, and B14 after B13 against B11 (B12) on
+    the same shards and rows bitwise, for every variant: s = 0 with
+    w=None, s = 1, s = 2 with write_w=False, and the pair. The interior's
+    ny is not a multiple of the ring kernel's 16-row tile, at (32, 16, 5)
+    on (1,2,4) with X below its 32 columns; on 104 x 128 x 96 shards the
+    ring kernel walks the interior's z in runs, the last one shorter."""
     from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
 
     shards, ws = _mhd_mesh(size, mesh, 81)
@@ -1072,6 +1129,13 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
             tf, tw, tsl = mo.mhd_substep_overlap_plain(
                 f, w_in, s, prm, 1e-4, counts, pair=pair, write_w=write_w)
             landed = recv.landed(hr)
+            if pair:
+                halo = [cm.mhd_substep01_halo_cuda(f[i], slabs[i], prm, 1e-4)
+                        for i in range(len(f))]
+            else:
+                halo = [cm.mhd_substep_halo_cuda(
+                    f[i], None if w_in is None else w_in[i], slabs[i], s,
+                    prm, 1e-4, write_w=write_w) for i in range(len(f))]
             for i in range(len(f)):
                 for q in FIELDS:
                     for k in cm.SLAB_NAMES:
@@ -1086,18 +1150,18 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
                         _assert_fields_close(
                             {q: kw[i][q][cut] for q in FIELDS},
                             {q: tw[i][q][cut] for q in FIELDS})
+                    hf, hw = halo[i]
+                    for q in FIELDS:
+                        assert torch.equal(kf[i][q][cut], hf[q][cut]), (
+                            pair, s, i, q)
+                        if write_w:
+                            assert torch.equal(kw[i][q][cut], hw[q][cut]), (
+                                pair, s, i, q)
             kf, kw = mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm, 1e-4,
                                                counts, recv, pair=pair)
             assert mo.LAUNCHES == {"mhd_substep_overlap": len(f),
                                    "mhd_substep_fixup": len(f)}
-            for i in range(len(f)):
-                if pair:
-                    hf, hw = cm.mhd_substep01_halo_cuda(f[i], slabs[i], prm,
-                                                        1e-4)
-                else:
-                    hf, hw = cm.mhd_substep_halo_cuda(
-                        f[i], None if w_in is None else w_in[i], slabs[i], s,
-                        prm, 1e-4, write_w=write_w)
+            for i, (hf, hw) in enumerate(halo):
                 for q in FIELDS:
                     assert torch.equal(kf[i][q], hf[q]), (pair, s, i, q)
                     if write_w:
