@@ -9,15 +9,20 @@ Phases, in order; any failure exits non-zero before the last line:
    and power limit (nvidia-smi) and the device count.
 2. build: compile every kernel source of the package with nvcc, one
    process per source, all at once; the registers and spills of every
-   instantiation of the ring kernel (``csrc/mhd_ring.cuh``: B9 and B11
-   in the ``mhd`` library, B13's interior in ``mhd_overlap``) are read
-   from the ``-Xptxas=-v`` lines (a NOTE where one uses more than 128
-   registers or spills), their opcode counts from ``cuobjdump -sass``.
+   instantiation of the two ring kernels (``csrc/mhd_ring.cuh``: B9 and
+   B11 in the ``mhd`` library, B13's interior in ``mhd_overlap``;
+   ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in ``jacobi_halo``)
+   are read from the ``-Xptxas=-v`` lines (a NOTE where one uses more
+   than 128 registers or spills), their opcode counts from ``cuobjdump
+   -sass``.
 3. kernels vs plain twins, on the card:
    - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
-     (jacobi7_padded) at small odd shapes and at 512^3. Tolerance: 0
-     (bitwise) — each kernel adds and multiplies in its twin's order,
-     built -fmad=false.
+     (jacobi7_padded) at small odd shapes and at 512^3; K2 also at N=1,
+     2, 3, 8 where x is a multiple of 4 (16-byte copies), y not a
+     multiple of its 32-row tile, and at (131, 64, 128), where
+     ``jacobi_ring_plan`` walks z in runs whose last one is shorter.
+     Tolerance: 0 (bitwise) — each kernel adds and multiplies in its
+     twin's order, built -fmad=false.
    - B8 (laplace6) at (8,8,8), (16,8,24), (8,16,40) and 256^3 (Z,Y,X).
      Tolerance: 0, as for K3.
    - B5 (jacobi7_halo) and B6 (jacobi7_halon) on slabs from
@@ -28,8 +33,10 @@ Phases, in order; any failure exits non-zero before the last line:
      one-row slabs, and at small odd shapes with JAX-style slabs (rz >
      1, or y slabs 8 columns wide); B6 at 512^3 N=2, and on the four
      shards of 512^3 over (1,2,2) at N=2 and 3, with the path's N-row
-     slabs, and at small odd shapes with JAX-style rz = block_z, ry = 8
-     slabs. Tolerance: 0, as K1/K2.
+     slabs, at small odd shapes with JAX-style rz = block_z, ry = 8
+     slabs, on (1,2,4), and on the four (131, 64, 128) shards of 128 x
+     128 x 262 over (1,2,2) (z runs, the last one shorter). Tolerance:
+     0, as K1/K2.
    - B9 (mhd_substep_wrap: s=0 with w=None, s=1, s=2 with
      write_w=False), B10 (mhd_substep01_wrap) against its twin and
      against two B9 launches, at the same shapes, dt 1e-8 and 1e-4.
@@ -145,7 +152,11 @@ Phases, in order; any failure exits non-zero before the last line:
      ``xla`` within substeps x 64 eps x max, and bitwise against itself
      with every B4 launch delayed.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
-   of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card,
+   of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
+   (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
+   a quarter shard, with the ring kernel's launch plans there (tile, z
+   run, blocks, and waves at the blocks an SM that the card reports;
+   logged and in chip_smoke.json),
    and the halo path's slab exchange per group; iterations/s of the
    Astaroth wrap, wrap+pair and xla paths at 256^3, and of the Astaroth
    halo and halo+pair paths at 256 x 512 x 512 on (1,2,2) and halo at
@@ -166,7 +177,9 @@ Phases, in order; any failure exits non-zero before the last line:
    512 x 512 on (1,2,2) and at 256^3 on (1,1,1), B13 and B14 per variant
    on one 256^3 shard and per substep of the four shards of (1,2,2),
    those of B13 and B14 summed over an iteration's three substeps beside
-   the ``halo-overlap`` iteration on the four shards, and one
+   the ``halo-overlap`` iteration on the four shards, B14's device time
+   alone (its launches queued behind a sleeping kernel, so that the CUDA
+   events see no host time: ``device_ms``), and one
    ``measure_overlap --model mhd`` line at 256^3 per shard; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
@@ -196,6 +209,9 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, non-tensor float32
 N512 = 512
 N256 = 256
 SMALL_SHAPES = [(5, 8, 7), (9, 16, 13), (3, 8, 33)]   # (Z, Y, X)
+# K2's ring kernel: x a multiple of 4, y not a multiple of its 32-row
+# tile; z runs, the last one shorter
+RING_SHAPES = [(6, 16, 20), (23, 72, 132), (131, 64, 128)]
 MHD_SHAPES = [(8, 8, 8), (16, 8, 24), (8, 16, 40)]    # (Z, Y, X)
 MHD_DTS = (1e-8, 1e-4)
 MHD_PATH_DT = 1e-4    # phase 4: large enough that the rates show in f32
@@ -264,12 +280,12 @@ def compare_kernels(torch, cs) -> dict:
             raise AssertionError(f"{what}: kernel disagrees with its twin")
         worst[name] = max(worst[name], err)
 
-    for shape in SMALL_SHAPES + [(N512,) * 3]:
+    for shape in SMALL_SHAPES + RING_SHAPES + [(N512,) * 3]:
         t = torch.rand(shape, generator=gen, device="cuda")
         hot, cold, r = spheres(shape, widen=0 if shape[0] == N512 else 2)
         check("jacobi7_wrap", cs.jacobi7_wrap_cuda(t, hot, cold, r),
               cs.jacobi7_wrap_plain(t, hot, cold, r), f"K1 {shape}")
-        for n in (1, 2, 3):
+        for n in (1, 2, 3) + ((8,) if shape in RING_SHAPES else ()):
             check("jacobi7_wrapn",
                   cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=n),
                   cs.jacobi7_wrapn_plain(t, hot, cold, r, steps=n),
@@ -383,20 +399,48 @@ def run_main_path(torch, cs) -> dict:
     return out
 
 
-def steps_per_s(torch, kernel: str, k: int) -> float:
+def steps_per_s(torch, kernel: str, k: int):
+    """Steps per second of the Jacobi path ``kernel`` at 512^3: three
+    ``run(k)`` pooled, each run's rate beside it (``timed_runs``)."""
     from stencil_tpu_torch.models.jacobi import Jacobi3D
 
     j = Jacobi3D(N512, N512, N512, kernel=kernel, device="cuda")
     j.init()
     j.run(2)
     j.block()
-    t0 = time.perf_counter()
-    j.run(k)
-    j.block()
-    sps = k / (time.perf_counter() - t0)
+    got = timed_runs(j, k)
     del j
     torch.cuda.empty_cache()
-    return sps
+    return got
+
+
+def device_ms(torch, fn, reps: int, warmup: int = 2,
+              cycles: int = 60_000_000) -> float:
+    """ms of the device work of one ``fn()``, without the host's: the
+    ``reps`` calls are queued behind a kernel that sleeps ``cycles``
+    clocks, and the CUDA events around them are recorded after it, so
+    the host has queued them all before the card starts them. Raises if
+    the host took longer to queue them than the sleep lasted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    slept = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    slept.record()
+    torch.cuda._sleep(cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    stop.record()
+    stop.synchronize()
+    if host_ms >= slept.elapsed_time(start):
+        raise AssertionError(f"device_ms: queuing took {host_ms!r} ms, "
+                             f"longer than the {slept.elapsed_time(start)!r}"
+                             f" ms sleep")
+    return start.elapsed_time(stop) / reps
 
 
 def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -417,6 +461,35 @@ def bound_ms(nbytes: float, flops: float):
     b = nbytes / HBM_BYTES_PER_S * 1e3
     f = flops / F32_FLOPS_PER_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
+
+
+def halo_bytes(shape, r: int, z_extended: bool) -> float:
+    """Bytes B5 (r = 1) or B6 (r = N) must move on a (Z, Y, X) shard:
+    the shard read once and written once, and of the slabs only the rows
+    the kernel reads: r rows of each z slab, and r columns of each y
+    slab over its Zs rows (Z + 2r when it is z-extended)."""
+    Z, Y, X = shape
+    zs = Z + 2 * r if z_extended else Z
+    return 4.0 * (2 * Z * Y * X + 2 * r * Y * X + 2 * zs * r * X)
+
+
+def ring_plan(torch, cs, shape, steps: int) -> dict:
+    """The launch plan of the Jacobi ring kernel (K2, B6) for a (Z, Y, X)
+    shape on this card: the planner's tile, depth, z run and blocks an
+    SM, the blocks of the launch, and its waves at the blocks an SM that
+    the card reports (``ring_occupancy``). A NOTE where the two counts
+    differ."""
+    Z, Y, X = shape
+    dev = torch.device("cuda")
+    n_sms = cs.sm_count(dev)
+    p = cs.jacobi_ring_plan(Z, Y, X, steps, n_sms)
+    card_bps = cs.ring_occupancy(dev, steps, p.ty, p.depth)
+    if card_bps != p.blocks_per_sm:
+        log(f"  NOTE: the ring planner counts {p.blocks_per_sm} blocks an "
+            f"SM at N = {steps}, the card {card_bps}")
+    blocks = -(-X // cs.RING_TILE_X) * -(-Y // p.ty) * -(-Z // p.zrun)
+    return dict(p._asdict(), card_blocks_per_sm=card_bps, blocks=blocks,
+                sms=n_sms, waves=blocks / (n_sms * card_bps))
 
 
 def time_kernels(torch, cs) -> dict:
@@ -569,7 +642,10 @@ def compare_halo_kernels(torch, ch) -> dict:
           ((n, n, n), (1, 2, 2), 2, 2, 2, 0),
           ((n, n, n), (1, 2, 2), 3, 3, 3, 0),
           ((33, 16, 10), (1, 2, 2), 2, 4, 8, 2),
-          ((33, 16, 10), (1, 1, 2), 3, 5, 8, 2)]
+          ((33, 16, 10), (1, 1, 2), 3, 5, 8, 2),
+          ((20, 48, 64), (1, 2, 4), 2, 2, 2, 2),
+          ((13, 40, 48), (1, 2, 4), 3, 8, 8, 2),
+          ((128, 128, 262), (1, 2, 2), 2, 2, 2, 0)]
     for size, mesh, steps, rz, ry, widen in b6:
         kw = dict(rz=rz, ry=ry, radius_rows=steps, y_z_extended=True)
         shards, slabs, orgs, _, (hot, cold, r), gsize = halo_case(
@@ -599,11 +675,11 @@ def gather(torch, j):
     return out
 
 
-def jacobi_mesh(kernel, mesh=(1, 1, 1), size=(N512, N512, N512)):
+def jacobi_mesh(kernel, mesh=(1, 1, 1), size=(N512, N512, N512), **kw):
     from stencil_tpu_torch.models.jacobi import Jacobi3D
 
     j = Jacobi3D(*size, kernel=kernel, mesh_shape=mesh,
-                 devices=["cuda:0"] * (mesh[0] * mesh[1] * mesh[2]))
+                 devices=["cuda:0"] * (mesh[0] * mesh[1] * mesh[2]), **kw)
     j.init()
     j.block()
     return j
@@ -679,7 +755,7 @@ def run_halo_path(torch, cs, ch) -> dict:
     return out
 
 
-def time_halo(torch, ch) -> dict:
+def time_halo(torch, cs, ch) -> dict:
     """Phase 5, the halo path: steps/s at 512^3 on (1,1,1) and (1,2,2),
     the slab exchange per group, and B5/B6 at 512^3 on one shard."""
     res = {"steps_per_s": {}, "slab_exchange_ms": {}}
@@ -717,16 +793,11 @@ def time_halo(torch, ch) -> dict:
                                                  r, steps=2, out=b)
             plain = lambda: ch.jacobi7_halon_plain(a, sl, org, gsize, hot,
                                                    cold, r, steps=2)
-        # the shard read once and written once, and of the slabs only
-        # the rows the kernel reads: r = steps rows of each z slab, and r
-        # columns of each y slab over its Zs rows (Z + 2r when it is
-        # z-extended); 7 flops a point a step
-        Z, Y, X = a.shape
-        zs = Z + 2 * steps if kw.get("y_z_extended") else Z
-        nbytes = 4 * (2 * Z * Y * X + 2 * steps * Y * X + 2 * zs * steps * X)
         ms = event_ms(torch, kern, reps=20)
         plain_ms = event_ms(torch, plain, reps=3, warmup=1)
-        bms, by = bound_ms(nbytes, 7 * steps * pts)
+        bms, by = bound_ms(halo_bytes(a.shape, steps,
+                                      kw.get("y_z_extended", False)),
+                           7 * steps * pts)
         kernels[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                          "bound_by": by, "library_ms": None}
         log(f"  {name}: {ms!r} ms/launch, bound {bms!r} ms ({by}), "
@@ -742,8 +813,20 @@ def time_halo(torch, ch) -> dict:
     res["halon_quarter_shard_ms"] = event_ms(
         torch, lambda: ch.jacobi7_halon_cuda(a, sl, org, gsize, hot, cold, r,
                                              steps=2, out=b), reps=20)
+    Z, Y, X = a.shape
+    res["halon_quarter_shard_bound_ms"] = bound_ms(
+        halo_bytes(a.shape, 2, True), 7 * 2 * float(Z * Y * X))[0]
     log(f"  jacobi7_halon on a 512 x 256 x 256 shard: "
-        f"{res['halon_quarter_shard_ms']!r} ms/launch")
+        f"{res['halon_quarter_shard_ms']!r} ms/launch, bound "
+        f"{res['halon_quarter_shard_bound_ms']!r} ms")
+    # the ring kernel's launch plans of these cases (K2 at 512^3 has
+    # B6's): kept in chip_smoke.json, not in the kernels line
+    res["jacobi_ring_plans"] = {
+        f"{label} N = 2": ring_plan(torch, cs, shape, 2)
+        for label, shape in (("512^3", (n, n, n)),
+                             ("512 x 256 x 256 shard", (Z, Y, X)))}
+    for label, plan in res["jacobi_ring_plans"].items():
+        log(f"  Jacobi ring kernel plan, {label}: {plan}")
     del a, b, sl
     torch.cuda.empty_cache()
     res["kernels"] = kernels
@@ -824,7 +907,7 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
                 raise AssertionError(f"B8 {shape}: kernel disagrees with "
                                      f"its twin")
             del pad, got, want
-        zrun = cm.ring_zrun(Z, Y, X, cm._sm_count(torch.device("cuda")))
+        zrun = cm.ring_zrun(Z, Y, X, cs.sm_count(torch.device("cuda")))
         log(f"  B9 on {shape}: {-(-Z // zrun)} z runs of {zrun} planes a "
             f"block")
         for dt in (MHD_DTS if shape != split else (MHD_PATH_DT,)):
@@ -950,7 +1033,7 @@ def compare_mhd_halo_kernels(torch, cm) -> dict:
     for size, mesh, (kw11, kw12), dts, unelided in cases:
         shards, ws = mhd_mesh_case(torch, gen, size, mesh)
         Z, Y, X = shards[0].shape[1:]
-        zrun = cm.ring_zrun(Z, Y, X, cm._sm_count(shards[0].device))
+        zrun = cm.ring_zrun(Z, Y, X, cm.sm_count(shards[0].device))
         log(f"  B11 on {size} mesh {mesh}: {-(-Z // zrun)} z runs of "
             f"{zrun} planes a block")
         sl11 = mhd_slabs(shards, mesh, **kw11)
@@ -1446,7 +1529,7 @@ def time_mhd_halo(torch, cm, mo, ptxas) -> dict:
     res["b9_same_shard_ms"] = {}
     res["b13_same_shard_ms"] = {}
     b11 = []
-    n_sms = cm._sm_count(shards[0].device)
+    n_sms = cm.sm_count(shards[0].device)
     zrun = cm.ring_zrun(Z, Y, X, n_sms)
     zrun13 = cm.ring_zrun(Z - 2 * cm.R, Y - 2 * cm.R, X, n_sms)
     one = Dim3(1, 1, 1)
@@ -2351,6 +2434,8 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
             reps = 3 if pair else 10
             ms13 = event_ms(torch, b13, reps=reps)
             ms14 = event_ms(torch, b14, reps=reps)
+            # B14 alone is host-bound: its device time, apart
+            dev14 = device_ms(torch, b14, reps=reps)
             # the work of one shard: B13 reads the shard (and w at its
             # interior), writes f (and w) there and the slab rows it
             # sends; B14 reads the shard rows within e + hr of a z or y
@@ -2382,15 +2467,21 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                 plain13 = plain14 = None
             where = ("one 256^3 shard" if mesh == (1, 1, 1)
                      else "four 256^3 shards of (1,2,2)")
-            for name, ms, plain, bms, by, nb in (
-                    ("mhd_substep_overlap", ms13, plain13, bm13, by13, nb13),
-                    ("mhd_substep_fixup", ms14, plain14, bm14, by14, nb14)):
-                variants.setdefault(name, {})[f"{tag}, {where}"] = {
+            for name, ms, plain, bms, by, nb, dev in (
+                    ("mhd_substep_overlap", ms13, plain13, bm13, by13, nb13,
+                     None),
+                    ("mhd_substep_fixup", ms14, plain14, bm14, by14, nb14,
+                     dev14)):
+                v = variants.setdefault(name, {})[f"{tag}, {where}"] = {
                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
                     "bound_by": by, "library_ms": None, "bytes": nb}
+                if dev is not None:
+                    v["device_ms"] = dev
                 log(f"  {name} {tag}, {where}: {ms!r} ms, bound {bms!r} ms "
                     f"({by}), {100 * bms / ms:.1f}% of bound; plain twin "
-                    f"{plain!r} ms")
+                    f"{plain!r} ms"
+                    + ("" if dev is None else f"; device time alone {dev!r} "
+                       f"ms ({100 * bms / dev:.1f}% of bound)"))
         del shards, ws, f, w, of, ow, recv
         torch.cuda.empty_cache()
     for name, v in variants.items():
@@ -2400,6 +2491,9 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                                 for k in ("ms", "plain_ms", "bound_ms")}
         res["kernels"][name].update(bound_by=one[1]["bound_by"],
                                     library_ms=None, variants=v)
+        if "device_ms" in one[0]:
+            res["kernels"][name]["device_ms"] = sum(
+                x["device_ms"] for x in one) / 3
     # one halo-overlap iteration on the four shards beside the kernels'
     # CUDA-event times per substep of the four (s = 0, 1, 2), summed: what
     # is left of the iteration is the host's
@@ -2413,12 +2507,17 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
             variants[name][f"{overlap_variant_tag(*var)}, four 256^3 "
                            f"shards of (1,2,2)"]["ms"]
             for var in OVERLAP_VARIANTS[:3])
+    split["mhd_substep_fixup_device"] = sum(
+        variants["mhd_substep_fixup"][f"{overlap_variant_tag(*var)}, four "
+                                      f"256^3 shards of (1,2,2)"]["device_ms"]
+        for var in OVERLAP_VARIANTS[:3])
     res["iteration_ms"] = split
     log(f"  {label}: {it_ms!r} ms an iteration (pooled; fastest run "
         f"{split['fastest_run_iteration_ms']!r}), against B13's "
         f"{split['mhd_substep_overlap']!r} ms and B14's "
         f"{split['mhd_substep_fixup']!r} ms (three substeps of the four "
-        f"shards, each timed alone)")
+        f"shards, each timed alone; B14's device time alone "
+        f"{split['mhd_substep_fixup_device']!r} ms)")
     mo_res = measure_overlap.measure_mhd(n, n, n, iters=5,
                                          mesh_shape=(1, 2, 2),
                                          devices=["cuda:0"])
@@ -2435,52 +2534,41 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
-# the libraries that build the ring kernel: B9/B11, and B13's interior
-RING_LIBS = ("mhd", "mhd_overlap")
+# the libraries that build a ring kernel: B9/B11 and B13's interior
+# (csrc/mhd_ring.cuh), K2 and B6 (csrc/jacobi_ring.cuh)
+RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo")
 
 
 def kernel_key(lib: str, name: str):
-    """(library, read_w, write_w) of a ring-kernel instantiation
+    """(library, read_w, write_w) of an MHD ring-kernel instantiation
     (``mhd_substep_ring_kernel<kReadW, kWriteW>``, which the ``mhd``
     library launches as B9 and B11 and ``mhd_overlap`` as B13's
-    interior) from its mangled name, else None."""
+    interior), or (library, "jacobi_ring") of the Jacobi ring kernel
+    (K2 in ``jacobi7``, B6 in ``jacobi_halo``), from its mangled name,
+    else None."""
     import re
 
     m = re.search(r"mhd_substep_ring_kernelILb(\d)ELb(\d)E", name)
     if m and lib in RING_LIBS:
         return (lib, m.group(1) == "1", m.group(2) == "1")
+    if "jacobi_ring_kernel" in name and lib in RING_LIBS:
+        return (lib, "jacobi_ring")
     return None
 
 
 def ptxas_usage(log: str) -> dict:
-    """Registers and spill bytes of every ring-kernel instantiation from
-    the ``-Xptxas=-v`` lines of the build log (``_build.build_all``
-    heads each library's lines with ``nvcc <name>.cu:``): ``kernel_key``
-    -> {"registers", "spill_stores", "spill_loads"}. Empty when the
-    libraries were built before (no log)."""
-    import re
+    """Registers, spill bytes and static shared memory of every
+    ring-kernel instantiation in the build log (``_build.ptxas_usage``):
+    ``kernel_key`` -> {"registers", "spill_stores", "spill_loads",
+    "static_smem"}. Empty when the libraries were built before (no
+    log)."""
+    from stencil_tpu_torch.ops import _build
 
     out = {}
-    lib = key = None
-    for line in log.splitlines():
-        m = re.match(r"nvcc (\w+)\.cu:", line)
-        if m:
-            lib, key = m.group(1), None
-            continue
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            key = kernel_key(lib, m.group(1))
-            continue
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
-                                           spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(key, {})["registers"] = int(m.group(1))
+    for (lib, name), use in _build.ptxas_usage(log).items():
+        key = kernel_key(lib, name)
+        if key is not None:
+            out[key] = use
     return out
 
 
@@ -2627,12 +2715,12 @@ def main() -> int:
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
         + card + ")")
-    sps = {"wrap": steps_per_s(torch, "wrap", 40),
-           "pallas": steps_per_s(torch, "pallas", 20),
-           "xla": steps_per_s(torch, "xla", 6)}
-    for path, v in sps.items():
-        log(f"  Jacobi {path}: {v!r} steps/s")
-    halo_times = time_halo(torch, ch)
+    sps, sps_runs = {}, {}
+    for path, k in (("wrap", 40), ("pallas", 20), ("xla", 6)):
+        sps[path], sps_runs[path] = steps_per_s(torch, path, k)
+        log(f"  Jacobi {path}: {sps[path]!r} steps/s over three runs "
+            f"({sps_runs[path]})")
+    halo_times = time_halo(torch, cs, ch)
     ips, ips_runs = {}, {}
     for path, kernel, k, pair in (("wrap", "wrap", 20, "0"),
                                   ("wrap+pair", "wrap", 10, "1"),
@@ -2661,13 +2749,20 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if name == "laplace6":
             entry["path"] = "none: no model path runs it in either package"
+        if "device_ms" in t:
+            entry["device_ms"] = t["device_ms"]
+        if name in ("jacobi7_wrapn", "jacobi7_halon"):
+            entry["ptxas"] = ptxas.get(
+                ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
+                 "jacobi_ring"), {})
         if "variants" in t:
             entry["variants"] = t["variants"]
         kernels.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "steps_per_s_512": sps, "iters_per_s_256": ips,
+                   "steps_per_s_512": sps, "runs_steps_per_s_512": sps_runs,
+                   "iters_per_s_256": ips,
                    "runs_iters_per_s_256": ips_runs,
                    "halo_steps_per_s_512": halo_times["steps_per_s"],
                    "halo_runs_steps_per_s_512":
@@ -2675,6 +2770,9 @@ def main() -> int:
                    "halo_slab_exchange_ms": halo_times["slab_exchange_ms"],
                    "halon_quarter_shard_ms":
                        halo_times["halon_quarter_shard_ms"],
+                   "halon_quarter_shard_bound_ms":
+                       halo_times["halon_quarter_shard_bound_ms"],
+                   "jacobi_ring_plans": halo_times["jacobi_ring_plans"],
                    "astaroth_halo_iters_per_s":
                        mhd_halo_times["iters_per_s"],
                    "astaroth_halo_runs_iters_per_s":

@@ -4,7 +4,9 @@
 // kernel of stencil_tpu/ops/pallas_stencil.py, and each bound to
 // Python through a plain extern "C" launcher (ctypes; see
 // stencil_tpu_torch/ops/_build.py and ops/cuda_stencil.py, which also
-// holds each kernel's plain PyTorch twin).
+// holds each kernel's plain PyTorch twin). K2 is the z-streaming N-step
+// ring kernel of csrc/jacobi_ring.cuh, which B6 (csrc/jacobi_halo.cu)
+// launches too; this file chooses its window rows.
 //
 // Every kernel adds and multiplies in the order of the JAX kernel it
 // replaces, with __fadd_rn / __fmul_rn, and the library is built with
@@ -15,35 +17,9 @@
 // read) and then re-imposes the Dirichlet hot (T=1) and cold (T=0)
 // spheres (reference: bin/jacobi3d.cu:40-85).
 
-#include <cuda_runtime.h>
+#include "jacobi_ring.cuh"
 
 namespace {
-
-// dt.type(1.0 / 6.0) in the JAX kernels: 1/6 in double, rounded once
-// to float
-constexpr float kSixth = static_cast<float>(1.0 / 6.0);
-
-struct Spheres {
-  int hx, hy, hz;  // hot centre
-  int cx, cy, cz;  // cold centre
-  int r2;          // radius squared
-};
-
-__device__ __forceinline__ float impose(float v, int gx, int gy, int gz,
-                                        const Spheres& s) {
-  int dx = gx - s.hx, dy = gy - s.hy, dz = gz - s.hz;
-  if (dx * dx + dy * dy + dz * dz <= s.r2) v = 1.0f;
-  dx = gx - s.cx;
-  dy = gy - s.cy;
-  dz = gz - s.cz;
-  if (dx * dx + dy * dy + dz * dz <= s.r2) v = 0.0f;  // cold wins
-  return v;
-}
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  const int r = v % n;
-  return r < 0 ? r + n : r;
-}
 
 // K1 and K3: a (32, 8) block of threads in (x, y), one thread per
 // output column, each walking kZRun z planes and carrying the planes
@@ -139,117 +115,6 @@ jacobi7_padded_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-// ---------------------------------------------------------------------
-// K2. Replaces stencil_tpu/ops/pallas_stencil.py:246 jacobi7_wrapn_pallas
-// (and its steps=2 alias jacobi7_wrap2_pallas, :412).
-// N periodic steps per pass over device memory (temporal blocking),
-// the spheres re-imposed after every step at the wrapped global
-// coordinates, as the JAX kernel's `sources` does (:308-320). Each
-// block owns a (kWY - 2N) x (kWX - 2N) column of outputs, kZRunN planes
-// deep; the (x, y) ring of earlier-step values around it is recomputed,
-// not exchanged. Unlike the TPU kernel, which held whole x rows in VMEM
-// and rolled them, x is tiled here too, so x gets a ring as well.
-// Bound on this card: bytes. One read and one write of the field per N
-// steps, 8 B per point (1.07 GB at 512^3: 0.32 ms a launch, 0.16 ms a
-// step at N=2), against 7 flops per point per step.
-// Design: a (32, 8) block of threads streams its kWY x kWX window down
-// z. Shared memory holds, for each step level 0..N-1, a ring of the
-// last three planes of that level (N * 3 * 32*32*4 B = 24 KB at N=2);
-// each new input plane lets every level k compute one more plane (plane
-// p at level k needs planes p-1, p, p+1 of level k-1), and level N goes
-// straight to device memory. The next input plane is loaded into
-// registers while the current one is consumed. Each thread keeps one x
-// column and four rows, so no cell index is divided, and coordinates
-// wrap once per row or plane. The window reads overlap the neighbours'
-// by the ring (32*32 loads per 28*28 outputs at N=2), which L2 serves.
-// Order (pallas_stencil.py:325-330): ((zm+zp)+(ym+yp))+(xm+xp), *1/6.
-// ---------------------------------------------------------------------
-constexpr int kWX = 32;             // window width in x: one warp
-constexpr int kWY = 32;             // window rows in y
-constexpr int kRows = kWY / kBY;    // window rows per thread
-constexpr int kZRunN = 32;          // output planes per block
-constexpr int kMaxSteps = 8;        // the JAX kernel's limit: the sublane tile
-constexpr int kWPlane = kWX * kWY;
-static_assert(kWX == kBX, "one thread per window column");
-static_assert(kWY % kBY == 0 && 2 * kMaxSteps < kWY, "window rows");
-
-__global__ void __launch_bounds__(kBX * kBY)
-jacobi7_wrapn_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     int Z, int Y, int X, Spheres s, int N) {
-  extern __shared__ float ring[];  // [level 0..N-1][p mod 3][kWY][kWX]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  // global (unwrapped) coordinates of window cell (0, 0) and first plane
-  const int ox = blockIdx.x * (kWX - 2 * N) - N;
-  const int oy = blockIdx.y * (kWY - 2 * N) - N;
-  const int z0 = blockIdx.z * kZRunN;
-  const size_t plane = static_cast<size_t>(Y) * X;
-  // this thread's column and rows, wrapped once
-  const int gx = wrap(ox + tx, X);
-  int gy[kRows];
-  size_t src[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    gy[j] = wrap(oy + ty + kBY * j, Y);
-    src[j] = static_cast<size_t>(gy[j]) * X + gx;
-  }
-  auto slot = [&](int level, int p) {
-    return ring + (level * 3 + wrap(p, 3)) * kWPlane;
-  };
-  const int x = ox + tx;
-  const int T = min(kZRunN, Z - z0) + 2 * N;  // input planes to stream
-  float next[kRows];
-  {
-    const size_t zoff = wrap(z0 - N, Z) * plane;
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) next[j] = in[zoff + src[j]];
-  }
-  for (int t = 0; t < T; ++t) {
-    const int p0 = z0 - N + t;  // the input plane arriving now
-    float* l0 = slot(0, p0);
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) l0[(ty + kBY * j) * kWX + tx] = next[j];
-    if (t + 1 < T) {
-      const size_t zoff = wrap(p0 + 1, Z) * plane;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) next[j] = in[zoff + src[j]];
-    }
-    __syncthreads();
-    for (int k = 1; k <= N; ++k) {
-      // level k computes plane p0 - k once planes p0-2k .. p0 of level 0
-      // have arrived; its window cells are [k, W-k) in x and y
-      if (t >= 2 * k && tx >= k && tx < kWX - k) {
-        const int p = p0 - k;
-        const float* lo = slot(k - 1, p - 1);
-        const float* mid = slot(k - 1, p);
-        const float* hi = slot(k - 1, p + 1);
-        const int gz = wrap(p, Z);
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int ly = ty + kBY * j;
-          if (ly < k || ly >= kWY - k) continue;
-          const int c = ly * kWX + tx;
-          const float zs = __fadd_rn(lo[c], hi[c]);
-          const float ys = __fadd_rn(mid[c - kWX], mid[c + kWX]);
-          const float xs = __fadd_rn(mid[c - 1], mid[c + 1]);
-          const float v = impose(
-              __fmul_rn(__fadd_rn(__fadd_rn(zs, ys), xs), kSixth), gx, gy[j],
-              gz, s);
-          if (k < N) {
-            slot(k, p)[c] = v;
-          } else if (x < X && oy + ly < Y) {
-            out[p * plane + static_cast<size_t>(oy + ly) * X + x] = v;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-inline unsigned blocks(int n, int per) {
-  return static_cast<unsigned>((n + per - 1) / per);
-}
-
 }  // namespace
 
 extern "C" {
@@ -265,27 +130,46 @@ cudaError_t jacobi7_wrap_launch(const float* in, float* out, int Z, int Y,
   return cudaGetLastError();
 }
 
-size_t jacobi7_wrapn_smem_bytes(int N) {
-  return sizeof(float) * static_cast<size_t>(N) * 3 * kWPlane;
+// ---------------------------------------------------------------------
+// K2. Replaces stencil_tpu/ops/pallas_stencil.py:246 jacobi7_wrapn_pallas
+// (and its steps=2 alias jacobi7_wrap2_pallas, :412).
+// N periodic steps per pass over device memory (temporal blocking), the
+// spheres re-imposed after every step at the wrapped global coordinates,
+// as the JAX kernel's `sources` does (:308-320).
+// Bound on this card: bytes. One read and one write of the field per N
+// steps, 8 B per point (1.07 GB at 512^3: 0.32 ms a launch, 0.16 ms a
+// step at N=2), against 7 flops per point per step.
+// Design: csrc/jacobi_ring.cuh with kWrappedRows: each window row is the
+// field's own row wrap(y, Y) at plane wrap(p, Z), x wrapped in the row.
+// Unlike the TPU kernel, which held whole x rows in VMEM and rolled them,
+// x is tiled too, so the recomputed ring runs round the tile in x as well.
+// Order (pallas_stencil.py:325-330): ((zm+zp)+(ym+yp))+(xm+xp), *1/6.
+// ---------------------------------------------------------------------
+
+// How many blocks of the ring kernel one SM holds at a tile and depth
+// (K2's instantiation; B6's is the same body): ops/cuda_stencil.py
+// ring_blocks_per_sm models it, and jacobi_ring_plan plans with that.
+cudaError_t jacobi7_ring_blocks_per_sm(int N, int ty, int depth,
+                                       int* blocks_per_sm) {
+  const size_t smem = ring_smem_bytes(N, RingPlan{ty, depth, 1});
+  auto kernel = jacobi_ring_kernel<kWrappedRows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kRingThreads, smem);
 }
 
 cudaError_t jacobi7_wrapn_launch(const float* in, float* out, int Z, int Y,
                                  int X, int hx, int hy, int hz, int cx,
-                                 int cy, int cz, int r2, int N,
-                                 void* stream) {
-  if (N < 1 || N > kMaxSteps) return cudaErrorInvalidValue;
+                                 int cy, int cz, int r2, int N, int ty,
+                                 int depth, int zrun, void* stream) {
   const Spheres s{hx, hy, hz, cx, cy, cz, r2};
-  const size_t smem = jacobi7_wrapn_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      jacobi7_wrapn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(blocks(X, kWX - 2 * N), blocks(Y, kWY - 2 * N),
-                  blocks(Z, kZRunN));
-  jacobi7_wrapn_kernel<<<grid, dim3(kBX, kBY), smem,
-                         static_cast<cudaStream_t>(stream)>>>(in, out, Z, Y,
-                                                              X, s, N);
-  return cudaGetLastError();
+  const Global g{0, 0, 0, Z, Y, X};
+  return launch_jacobi_ring<kWrappedRows>(
+      in, out, SlabSrc{}, Z, Y, X, g, s, N, RingPlan{ty, depth, zrun},
+      static_cast<cudaStream_t>(stream));
 }
 
 cudaError_t jacobi7_padded_launch(const float* in, float* out, int Z, int Y,

@@ -129,6 +129,41 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
+def ptxas_usage(log: str, lib: Optional[str] = None
+                ) -> Dict[tuple, Dict[str, int]]:
+    """Registers, spill bytes and static shared memory of every kernel
+    in the ``-Xptxas=-v`` lines of a build log: (library, mangled name)
+    -> {"registers", "spill_stores", "spill_loads", "static_smem"}. The
+    library is the one named by the last ``nvcc <name>.cu:`` line (as
+    ``build_all`` heads each library's output), else ``lib``."""
+    out: Dict[tuple, Dict[str, int]] = {}
+    key = None
+    for line in log.splitlines():
+        m = re.match(r"nvcc (\w+)\.cu:", line)
+        if m:
+            lib, key = m.group(1), None
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = (lib, m.group(1))
+            continue
+        if key is None:
+            continue
+        use = out.setdefault(key, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            use.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            use["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            use["static_smem"] = int(m.group(1))
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, building it
     first if needed."""

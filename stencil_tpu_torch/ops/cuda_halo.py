@@ -13,7 +13,10 @@ B5  :115 ``jacobi7_halo_pallas``         ``jacobi7_halo_cuda``       ``jacobi7_h
 B6  :317 ``jacobi7_halon_pallas``        ``jacobi7_halon_cuda``      ``jacobi7_halon_plain``
 ==  ===================================  ==========================  ===========================
 
-Both live in ``csrc/jacobi_halo.cu``. The module rules of
+Both live in ``csrc/jacobi_halo.cu``; B6 is the z-streaming N-step ring
+kernel of ``csrc/jacobi_ring.cuh`` (K2's body, its window rows read from
+the shard and the slabs), launched as ``cuda_stencil.jacobi_ring_plan``
+says. The module rules of
 ``ops/cuda_stencil.py`` hold: a CPU tensor goes to the plain twin; a
 CUDA tensor launches the kernel or raises; each launch adds one to the
 wrapper's entry in ``LAUNCHES``; float32 only.
@@ -33,7 +36,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .cuda_stencil import (_check, _check_cuda, _out, _sphere_args,
-                           impose_spheres)
+                           impose_spheres, jacobi_ring_plan, sm_count)
 from .stencil_kernels import sixth
 
 #: launches per wrapper since the last ``reset_launch_counts``; only a
@@ -136,7 +139,7 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "jacobi7_halo_launch": [_P] * 6 + [_I] * 17 + [_P],
-    "jacobi7_halon_launch": [_P] * 6 + [_I] * 19 + [_P],
+    "jacobi7_halon_launch": [_P] * 6 + [_I] * 22 + [_P],
 }
 
 
@@ -231,9 +234,10 @@ def jacobi7_halon_cuda(interior: torch.Tensor,
     Z, Y, X = interior.shape
     oz, oy, ox = (int(v) for v in origin_zyx)
     gz, gy, gx = (int(v) for v in gsize_zyx)
+    plan = jacobi_ring_plan(Z, Y, X, N, sm_count(interior.device))
     _launch("jacobi7_halon_launch", interior.device, interior.data_ptr(),
             out.data_ptr(), *(slabs[k].data_ptr() for k in SLAB_NAMES),
             Z, Y, X, rz, e, oz, oy, ox, gz, gy, gx,
-            *_sphere_args(hot_c, cold_c, sph_r), N)
+            *_sphere_args(hot_c, cold_c, sph_r), N, *plan[:3])
     LAUNCHES["jacobi7_halon"] += 1
     return out

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..geometry import Dim3
-from .cuda_stencil import sublane_tile
+from .cuda_stencil import sm_count, sublane_tile
 from .fd6 import FieldData, const
 
 R = 3          # stencil radius (6th order)
@@ -394,7 +394,7 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     _check_cuda(f0, ins + w_in + list(out_f.values())
                 + list((out_w or {}).values()), what)
     Z, Y, X = f0.shape
-    zrun = ring_zrun(Z, Y, X, _sm_count(f0.device))
+    zrun = ring_zrun(Z, Y, X, sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys, s)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
@@ -522,11 +522,6 @@ def ring_zrun(nz: int, ny: int, X: int, n_sms: int) -> int:
     return min(cost(-(-nz // runs)) for runs in range(1, nz + 1))[1]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _window(f0: torch.Tensor, rr: int) -> torch.Tensor:
     """Scratch for the kernels' radius-``rr`` window of the 8 fields,
     (8, Z + 2rr, Y + 2rr, X); the window's offsets must fit 32 bits."""
@@ -591,7 +586,7 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     wo = [out_w[q] for q in FIELDS] if write_w else []
     _check_cuda(f0, ins + w_in + sl + outs + wo, what)
     Z, Y, X = f0.shape
-    zrun = ring_zrun(Z, Y, X, _sm_count(f0.device))
+    zrun = ring_zrun(Z, Y, X, sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys, s)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f = _ptrs(ins), _ptrs(sl), _ptrs(outs)

@@ -487,7 +487,7 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
     n_regions = 1 if inner else 0
     # one substep: the ring kernel's z run over the interior (the pair's
     # tiles take none)
-    zrun = (cm.ring_zrun(inner[1], inner[3], X, cm._sm_count(f0.device))
+    zrun = (cm.ring_zrun(inner[1], inner[3], X, cm.sm_count(f0.device))
             if inner and not pair else 1)
     from . import _build
 

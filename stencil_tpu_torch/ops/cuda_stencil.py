@@ -14,7 +14,10 @@ K3  :72 ``jacobi7_pallas``              ``jacobi7_padded_cuda``      ``jacobi7_p
 B8  :432 ``laplace6_pallas``            ``laplace6_cuda``            ``laplace6_plain``
 ==  ==================================  ===========================  ========================
 
-K1–K3 live in ``csrc/jacobi7.cu``, B8 in ``csrc/laplace6.cu``. A
+K1–K3 live in ``csrc/jacobi7.cu``, B8 in ``csrc/laplace6.cu``; K2 is
+the z-streaming N-step ring kernel of ``csrc/jacobi_ring.cuh``, which B6
+(``ops/cuda_halo.py``) launches too, each with the tile, prefetch depth
+and z run of ``jacobi_ring_plan``. A
 wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain twin (that is how the tests run); a CUDA tensor launches the
 kernel or raises — it never falls back. Each launch adds one to the
@@ -31,7 +34,8 @@ N steps differ in the last bits; each twin copies its own kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +184,140 @@ def laplace6_plain(padded: torch.Tensor, radius: Radius, interior: Dim3,
 
 
 # ---------------------------------------------------------------------------
+# the N-step ring kernel's launch plan (K2 and B6)
+# ---------------------------------------------------------------------------
+#: the ring kernel's threads a block, the registers an SM holds, and the
+#: registers the card allots a thread of the kernel: its 77-78
+#: (``-Xptxas=-v``) in the card's unit of 8, which the card tests hold
+#: the build to; so three blocks an SM where shared memory allows
+RING_THREADS = 256
+SM_REGISTERS = 64 * 1024
+RING_REGISTERS = 80
+#: shared memory of an H100 SM, the most one block may ask for, what the
+#: runtime keeps per block, and the kernel's static tables: a ``RowSrc``
+#: (three pointers and a stride) for each of ``kMaxWY`` window rows and
+#: an ``int2`` of squared distances for each of ``kMaxWX`` columns and
+#: ``kMaxWY`` rows (csrc/jacobi_ring.cuh)
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_SMEM_BYTES = 227 * 1024
+BLOCK_RESERVED_BYTES = 1024
+RING_MAX_WINDOW_ROWS = 48
+RING_MAX_WINDOW_COLS = 80
+RING_STATIC_BYTES = 32 * RING_MAX_WINDOW_ROWS \
+    + 8 * (RING_MAX_WINDOW_COLS + RING_MAX_WINDOW_ROWS)
+#: a tile's 64 columns (two a lane of a warp), and its rows: the most
+#: whose ring fits a block at prefetch depth 2 (32 for N <= 4, 16 for
+#: N = 5, 6, 8 for N = 7, 4 for N = 8)
+RING_TILE_X = 64
+RING_TILE_ROWS = (32, 16, 8, 4)
+RING_DEPTHS = (2, 3, 4)
+
+
+class RingPlan(NamedTuple):
+    """One launch of the ring kernel: the rows ``ty`` of a block's 64 x
+    ty output tile, how many input planes it asks for ahead (``depth``),
+    the z planes it walks (``zrun``) and the blocks one SM holds."""
+    ty: int
+    depth: int
+    zrun: int
+    blocks_per_sm: int
+
+
+def ring_margin(steps: int) -> int:
+    """Window columns on each side of a tile: N rounded up to 4, so that
+    window rows start on 16 bytes when X % 4 == 0."""
+    return 4 * -(-steps // 4)
+
+
+def ring_smem_bytes(steps: int, ty: int, depth: int) -> int:
+    """The ring kernel's dynamic shared memory: depth + 3 input planes
+    and 4 planes for each of the N - 1 intermediate levels, of the
+    (64 + 2M) x (ty + 2N) window (``ring_smem_bytes`` in
+    csrc/jacobi_ring.cuh)."""
+    slots = depth + 3 + 4 * (steps - 1)
+    return 4 * slots * (RING_TILE_X + 2 * ring_margin(steps)) \
+        * (ty + 2 * steps)
+
+
+def ring_blocks_per_sm(steps: int, ty: int, depth: int) -> int:
+    """Blocks of the ring kernel one SM holds, by shared memory and by
+    registers; 0 where one block does not fit. ``ring_occupancy`` reads
+    the card's count."""
+    need = ring_smem_bytes(steps, ty, depth)
+    if need + RING_STATIC_BYTES > BLOCK_SMEM_BYTES:
+        return 0
+    per = need + RING_STATIC_BYTES + BLOCK_RESERVED_BYTES
+    return min(SM_REGISTERS // (RING_THREADS * RING_REGISTERS),
+               SM_SMEM_BYTES // per)
+
+
+def ring_tile(steps: int) -> Tuple[int, int, int]:
+    """(ty, depth, blocks per SM) of N steps: the first tile rows of
+    ``RING_TILE_ROWS`` that fit at depth 2, then the deepest prefetch
+    that keeps as many blocks on an SM, but 3 where several blocks share
+    it (six planes or more in flight an SM; depth 4 at N = 2 would leave
+    256 bytes of the SM's shared memory)."""
+    for ty in RING_TILE_ROWS:
+        bps = ring_blocks_per_sm(steps, ty, RING_DEPTHS[0])
+        if bps:
+            depth = max(d for d in RING_DEPTHS
+                        if ring_blocks_per_sm(steps, ty, d) == bps
+                        and (bps == 1 or d <= 3))
+            return ty, depth, bps
+    raise ValueError(f"no ring tile fits {steps} steps")
+
+
+def ring_cost(Z: int, Y: int, X: int, steps: int, n_sms: int, ty: int,
+              bps: int, zrun: int) -> int:
+    """Waves x planes loaded: a wave is ``bps`` blocks on each of the
+    ``n_sms`` SMs, and a block of a z run loads zrun + 2N input planes."""
+    blocks = -(-X // RING_TILE_X) * -(-Y // ty) * -(-Z // zrun)
+    return -(-blocks // (n_sms * bps)) * (zrun + 2 * steps)
+
+
+@functools.lru_cache(maxsize=None)
+def jacobi_ring_plan(Z: int, Y: int, X: int, steps: int,
+                     n_sms: int) -> RingPlan:
+    """The ring kernel's launch for N = ``steps`` over a (Z, Y, X) field
+    or shard on a card of ``n_sms`` SMs: ``ring_tile``'s tile, and the
+    z run that minimises ``ring_cost`` (waves x planes loaded), found
+    among the runs ceil(Z / k), k = 1..Z: any other run loads more
+    planes for the same number of blocks. Ties go to the longer run."""
+    if not 1 <= steps <= 8:
+        raise ValueError(f"the ring kernel takes 1 <= steps <= 8, got {steps}")
+    ty, depth, bps = ring_tile(steps)
+    runs = {-(-Z // k) for k in range(1, Z + 1)}
+    zrun = min(runs, key=lambda r: (ring_cost(Z, Y, X, steps, n_sms, ty,
+                                              bps, r), -r))
+    return RingPlan(ty, depth, zrun, bps)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ring_occupancy(device: torch.device, steps: int, ty: int,
+                   depth: int) -> int:
+    """Blocks of the ring kernel (K2's instantiation) one SM of
+    ``device`` holds at this tile and depth, as the CUDA runtime counts
+    them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``ring_blocks_per_sm`` models it."""
+    from . import _build
+
+    fn = _build.load(_LIB).jacobi7_ring_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    got = _I(0)
+    with torch.cuda.device(device):
+        err = fn(steps, ty, depth, ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"jacobi7_ring_blocks_per_sm failed: CUDA error "
+                           f"{err}")
+    return got.value
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 _LIB = "jacobi7"
@@ -187,7 +325,7 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "jacobi7_wrap_launch": [_P, _P] + [_I] * 10 + [_P],
-    "jacobi7_wrapn_launch": [_P, _P] + [_I] * 11 + [_P],
+    "jacobi7_wrapn_launch": [_P, _P] + [_I] * 14 + [_P],
     "jacobi7_padded_launch": [_P, _P] + [_I] * 8 + [_P],
     "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3 + [_P],
 }
@@ -256,8 +394,9 @@ def jacobi7_wrapn_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
                        steps: int = 2,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: ``steps`` fused periodic Jacobi steps (spheres after each) in
-    one pass over memory. Keeps the JAX kernel's rules, ``1 <= steps <=
-    8`` and ``Y % 8 == 0`` for float32 (see ``sublane_tile_bytes``)."""
+    one pass over memory, launched as ``jacobi_ring_plan`` says. Keeps
+    the JAX kernel's rules, ``1 <= steps <= 8`` and ``Y % 8 == 0`` for
+    float32 (see ``sublane_tile_bytes``)."""
     what = "jacobi7_wrapn_cuda"
     _check(interior, what)
     N = int(steps)
@@ -273,8 +412,10 @@ def jacobi7_wrapn_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
         return out.copy_(jacobi7_wrapn_plain(interior, hot_c, cold_c, sph_r,
                                              steps=N))
     _check_cuda(interior, what)
+    plan = jacobi_ring_plan(Z, Y, X, N, sm_count(interior.device))
     _launch("jacobi7_wrapn_launch", interior.device, interior.data_ptr(),
-            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r), N)
+            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r), N,
+            *plan[:3])
     LAUNCHES["jacobi7_wrapn"] += 1
     return out
 

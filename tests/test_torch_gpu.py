@@ -99,6 +99,84 @@ def test_paths_agree_with_plain_path(cs, kernel, iters):
         assert cs.LAUNCHES["jacobi7_padded"] == iters
 
 
+# shapes of K2 beyond SHAPES (X % 4 != 0 there, so 4-byte copies):
+# X % 4 == 0 (16-byte copies), Y not a multiple of the tile's 32 rows,
+# several tiles in x and y; the z runs come from the card's plan
+RING_SHAPES = [(6, 16, 20), (7, 40, 68), (11, 8, 4), (23, 72, 132)]
+
+
+def _ring_runs(cs, shape, steps):
+    """The plan of a (Z, Y, X) shape on this card, and whether it splits
+    z into runs with a shorter last one."""
+    Z, Y, X = shape
+    plan = cs.jacobi_ring_plan(Z, Y, X, steps, cs.sm_count(
+        torch.device("cuda")))
+    return plan, Z > plan.zrun and Z % plan.zrun != 0
+
+
+@pytest.mark.parametrize("shape", RING_SHAPES + [(131, 64, 128)])
+def test_wrapn_ring_kernel_equals_twin_across_tiles_and_runs(cs, shape):
+    """K2 (the ring kernel with the field's own wrapped rows) bitwise
+    its twin at N = 1, 2, 3, 8; (131, 64, 128) at N = 2 walks z in runs
+    whose last one is shorter, and a field whose base is not 16-byte
+    aligned takes the 4-byte copies although X % 4 == 0."""
+    Z, Y, X = shape
+    t = _rand(shape, 35)
+    hot, cold, r = (X // 3, Y // 2, Z // 2), (2 * X // 3, Y // 2, Z // 2), 3
+    for n in (1, 2, 3, 8):
+        assert torch.equal(cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=n),
+                           cs.jacobi7_wrapn_plain(t, hot, cold, r, steps=n))
+    if shape == (131, 64, 128):
+        assert _ring_runs(cs, shape, 2)[1]
+    buf = _rand((t.numel() + 1,), 36)
+    odd = buf[1:].view(shape)
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(cs.jacobi7_wrapn_cuda(odd, hot, cold, r, steps=2),
+                       cs.jacobi7_wrapn_plain(odd, hot, cold, r, steps=2))
+
+
+@pytest.mark.parametrize("steps", range(1, 9))
+def test_ring_plan_matches_the_card(cs, steps):
+    """The planner's blocks an SM (shared memory and registers) are the
+    card's: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on K2's
+    instantiation at the planned tile and depth."""
+    ty, depth, bps = cs.ring_tile(steps)
+    assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth) == bps
+
+
+def _fresh_ptxas(lib, tmp_path, kernel):
+    """Registers, spills and static shared memory of every instantiation
+    of ``kernel`` in a fresh build of library ``lib``, built as the
+    package builds it, from the ``-Xptxas=-v`` lines."""
+    import subprocess
+
+    from stencil_tpu_torch.ops import _build
+
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+           str(tmp_path / f"lib{lib}.so"), str(_build.sources()[lib])]
+    log = subprocess.run(cmd, capture_output=True, text=True, check=True,
+                         timeout=600)
+    return {name: use for (_, name), use
+            in _build.ptxas_usage(log.stdout + log.stderr, lib).items()
+            if kernel in name}
+
+
+@pytest.mark.parametrize("lib", ["jacobi7", "jacobi_halo"])
+def test_jacobi_ring_kernel_fits_the_planners_registers_without_spills(
+        cs, lib, tmp_path):
+    """The one instantiation of the Jacobi ring kernel in each library
+    (K2 in ``jacobi7``, B6 in ``jacobi_halo``): at most the registers
+    and exactly the static shared memory that the planner counts
+    (``RING_REGISTERS``, ``RING_STATIC_BYTES``), and no spill."""
+    usage = _fresh_ptxas(lib, tmp_path, "jacobi_ring_kernel")
+    assert len(usage) == 1, usage
+    for name, use in usage.items():
+        assert use["registers"] <= cs.RING_REGISTERS, (name, use)
+        assert use["static_smem"] == cs.RING_STATIC_BYTES, (name, use)
+        assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
+            (name, use)
+
+
 # ---------------------------------------------------------------------------
 # Astaroth MHD: B9/B10 (csrc/mhd.cu) and B8 (csrc/laplace6.cu)
 # ---------------------------------------------------------------------------
@@ -326,7 +404,7 @@ def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm, shape):
     (s3,), (s6,) = (_mhd_slabs([t], (1, 1, 1), rz=3, ry=3),
                     _mhd_slabs([t], (1, 1, 1), rz=6, ry=6))
     if shape == (136, 128, 96):
-        assert shape[0] % cm.ring_zrun(*shape, cm._sm_count(t.device))
+        assert shape[0] % cm.ring_zrun(*shape, cm.sm_count(t.device))
     pairs = [(cm.mhd_substep01_halo_cuda(f, s6, prm, 1e-4),
               cm.mhd_substep01_wrap_cuda(f, prm, 1e-4))]
     for s, read_w, write_w in B11_VARIANTS:
@@ -349,36 +427,12 @@ def test_ring_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
     B13's interior in ``mhd_overlap``), built as the package builds it:
     at most 128 registers a thread (one 512-thread block an SM) and no
     spill, from the ``-Xptxas=-v`` lines."""
-    import re
-    import subprocess
-
-    from stencil_tpu_torch.ops import _build
-
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-           str(tmp_path / f"lib{lib}.so"), str(_build.sources()[lib])]
-    log = subprocess.run(cmd, capture_output=True, text=True, check=True,
-                         timeout=600)
-    usage, key = {}, None
-    for line in (log.stdout + log.stderr).splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            key = (m.group(1) if "mhd_substep_ring_kernel" in m.group(1)
-                   else None)
-            continue
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            usage.setdefault(key, {})["spills"] = (int(m.group(1)),
-                                                  int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            usage.setdefault(key, {})["registers"] = int(m.group(1))
+    usage = _fresh_ptxas(lib, tmp_path, "mhd_substep_ring_kernel")
     assert len(usage) == 4, usage      # (read_w, write_w)
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
-        assert use["spills"] == (0, 0), (name, use)
+        assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
+            (name, use)
 
 
 @pytest.mark.parametrize("size,mesh", [((256, 256, 256), (1, 1, 1)),
@@ -447,7 +501,7 @@ def test_b11_z_runs_are_bitwise_its_twin(cm):
     from stencil_tpu_torch.models.astaroth import MhdParams
 
     shards, ws = _mhd_mesh((272, 256, 96), (1, 2, 2), 48)
-    zrun = cm.ring_zrun(136, 128, 96, cm._sm_count(shards[0].device))
+    zrun = cm.ring_zrun(136, 128, 96, cm.sm_count(shards[0].device))
     assert zrun < 136
     sl = _mhd_slabs(shards, (1, 2, 2), rz=3, ry=3)
     prm = MhdParams(dt=1e-4)
@@ -564,6 +618,51 @@ def test_halon_kernel_equals_twin(ch, size, mesh, steps, rz):
                                   steps=steps),
             ch.jacobi7_halon_plain(t, sl, org, gsize, hot, cold, r,
                                    steps=steps))
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3, 8])
+@pytest.mark.parametrize("layout", ["path", "jax"])
+@pytest.mark.parametrize("mesh", [(1, 1, 1), (1, 2, 2), (1, 2, 4)])
+@pytest.mark.parametrize("size", [(20, 48, 64), (13, 40, 48)])
+def test_halon_ring_kernel_equals_twin_on_both_slab_layouts(ch, size, mesh,
+                                                            layout, steps):
+    """B6 (the ring kernel with rows from the shard and its slabs)
+    bitwise its twin on the halo path's own slabs (rz = ry = N) and on
+    JAX-style ones (rz = 8, ry = 8), x a multiple of 4 (16-byte copies)
+    or not; on (1,1,1) it also equals K2 bitwise (its slabs are the
+    shard's own wrapped rows)."""
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    rz, ry = (steps, steps) if layout == "path" else (8, 8)
+    kw = dict(rz=rz, ry=ry, radius_rows=steps, y_z_extended=True)
+    shards, slabs, meta, (hot, cold, r), gsize = _halo_case(size, mesh, kw,
+                                                            64)
+    for t, sl, (org, _) in zip(shards, slabs, meta):
+        got = ch.jacobi7_halon_cuda(t, sl, org, gsize, hot, cold, r,
+                                    steps=steps)
+        assert torch.equal(got, ch.jacobi7_halon_plain(
+            t, sl, org, gsize, hot, cold, r, steps=steps))
+        if mesh == (1, 1, 1) and t.shape[1] % 8 == 0:
+            assert torch.equal(got, cs.jacobi7_wrapn_cuda(t, hot, cold, r,
+                                                          steps=steps))
+
+
+def test_halon_ring_kernel_runs_with_a_shorter_last_run(ch):
+    """Quarter shards (Z, Y, X) = (131, 64, 128) of 128 x 128 x 262 (x y
+    z) over (1,2,2): four tiles a plane, so the plan walks z in short
+    runs whose last is shorter; B6 stays bitwise its twin there."""
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    size, mesh = (128, 128, 262), (1, 2, 2)
+    kw = dict(rz=2, ry=2, radius_rows=2, y_z_extended=True)
+    shards, slabs, meta, (hot, cold, r), gsize = _halo_case(size, mesh, kw,
+                                                            65)
+    plan, uneven = _ring_runs(cs, tuple(shards[0].shape), 2)
+    assert uneven, plan
+    for t, sl, (org, _) in zip(shards, slabs, meta):
+        assert torch.equal(
+            ch.jacobi7_halon_cuda(t, sl, org, gsize, hot, cold, r, steps=2),
+            ch.jacobi7_halon_plain(t, sl, org, gsize, hot, cold, r, steps=2))
 
 
 def test_halo_wrappers_never_take_a_cuda_tensor_to_the_twin(ch):
