@@ -78,10 +78,13 @@ Phases, in order; any failure exits non-zero before the last line:
      buffers, then computes its interior) and B14 (mhd_substep_fixup:
      the exterior shell from the landed rows) for every variant (s=0
      with w=None, s=1, s=2 with write_w=False, the pair) on (1,1,1),
-     (1,1,2), (1,2,2) and (1,2,4) meshes of small shards and on the four
+     (1,1,2), (1,2,2) and (1,2,4) meshes of small shards (among them 24 x
+     8 x 24 shards, thin in y and narrower than a tile) and on the four
      256^3 shards of 256 x 512 x 512 over (1,2,2), and on four 104 x 128
      x 96 shards of (1,2,2), whose interior the ring kernel walks in z
-     runs, the last one shorter: B13's interior against its twin per
+     runs, the last one shorter (B14 with one substep: the ring kernel's
+     z instance over its z strips, its y instance over its y strips, one
+     launch a shard): B13's interior against its twin per
      field within 64 eps(f32) x max and bitwise against B11 (B12 with the
      pair) on the same shards and rows, its landed rows bitwise; B14
      after B13 bitwise against B11 (B12) on the same shards and rows, and
@@ -179,7 +182,11 @@ Phases, in order; any failure exits non-zero before the last line:
    those of B13 and B14 summed over an iteration's three substeps beside
    the ``halo-overlap`` iteration on the four shards, B14's device time
    alone (its launches queued behind a sleeping kernel, so that the CUDA
-   events see no host time: ``device_ms``), and one
+   events see no host time: ``device_ms``) and per kernel it launches
+   (``utils.timers.kernel_profile``, torch.profiler), its blocks an SM as
+   the card counts them (in the kernels line) against those of its
+   launch plan on a 256^3 shard (``fixup_plan``, in the log and in
+   chip_smoke.json as ``fixup_plan_256``), which must agree, and one
    ``measure_overlap --model mhd`` line at 256^3 per shard; each
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
@@ -461,6 +468,24 @@ def bound_ms(nbytes: float, flops: float):
     b = nbytes / HBM_BYTES_PER_S * 1e3
     f = flops / F32_FLOPS_PER_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
+
+
+def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
+    """Bytes B14 must move on one (Z, Y, X) shard: the shard rows within
+    e + hr of a z or y face (the rows its shell's points read), every
+    landed row, w at the shell where it is read, and f (and w) written
+    at the shell (e = ``shell_width``, hr = ``halo_rows``: 3 and 3, or 8
+    and 6 with the pair)."""
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+
+    Z, Y, X = shape
+    e, hr = mo.shell_width(pair), mo.halo_rows(pair)
+    inner = mo.interior_region(Z, Y, pair)
+    shell = Z * Y * X - (inner[1] * inner[3] * X if inner else 0)
+    near = Z * Y * X - max(Z - 2 * (e + hr), 0) * max(Y - 2 * (e + hr), 0) * X
+    slab = 8 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
+    wr = (8 if read_w else 0) + (8 if write_w else 0)
+    return 4.0 * (8 * near + (8 + wr) * shell + slab)
 
 
 def halo_bytes(shape, r: int, z_extended: bool) -> float:
@@ -2099,7 +2124,9 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
     against B11 (B12 with the pair) on the same shards and rows bitwise,
     for every variant (s = 0 with w=None, s = 1, s = 2 with
     write_w=False, the pair), on (1,1,1), (1,1,2), (1,2,2) and (1,2,4)
-    meshes of small shards, on four 104 x 128 x 96 shards of (1,2,2),
+    meshes of small shards (among them 24 x 8 x 24 shards: B14's y
+    strips span 18 rows of z, Y = 8 and X below a 32-column tile), on
+    four 104 x 128 x 96 shards of (1,2,2),
     whose interior's z the ring kernel splits into runs, the last one
     shorter, and on the four 256^3 shards of 256 x 512 x 512 over
     (1,2,2); there also a chain of
@@ -2115,7 +2142,8 @@ def compare_mhd_overlap_kernels(torch, cm, mo) -> dict:
     prm = MhdParams(dt=dt)
     cases = [((16, 8, 24), (1, 1, 1)), ((32, 8, 16), (1, 1, 2)),
              ((48, 48, 16), (1, 2, 2)), ((32, 32, 40), (1, 2, 4)),
-             ((32, 16, 5), (1, 2, 4)), ((208, 256, 96), (1, 2, 2)),
+             ((32, 16, 5), (1, 2, 4)), ((48, 16, 24), (1, 2, 2)),
+             ((208, 256, 96), (1, 2, 2)),
              ((2 * N256, 2 * N256, N256), (1, 2, 2))]
     for size, mesh in cases:
         counts = Dim3(*mesh)
@@ -2378,6 +2406,7 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
     from stencil_tpu_torch.apps import measure_overlap
     from stencil_tpu_torch.geometry import Dim3
     from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+    from stencil_tpu_torch.utils.timers import kernel_profile
 
     res = {"iters_per_s": {}, "kernels": {}}
     big = (N256, 2 * N256, 2 * N256)
@@ -2434,26 +2463,24 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
             reps = 3 if pair else 10
             ms13 = event_ms(torch, b13, reps=reps)
             ms14 = event_ms(torch, b14, reps=reps)
-            # B14 alone is host-bound: its device time, apart
+            # B14's host work shows by events: its device time, apart,
+            # and the device time of each kernel it launches
             dev14 = device_ms(torch, b14, reps=reps)
+            split14 = kernel_profile(b14, reps)[0]
             # the work of one shard: B13 reads the shard (and w at its
             # interior), writes f (and w) there and the slab rows it
-            # sends; B14 reads the shard rows within e + hr of a z or y
-            # face (its strips' windows), the landed rows and w at the
-            # shell, and writes the shell
-            e = mo.shell_width(pair)
+            # sends; B14 as b14_bytes counts it
             pts = float(Z * Y * X)
             inner = mo.interior_region(Z, Y, pair)
             p_in = float(inner[1] * inner[3] * X) if inner else 0.0
             p_sh = pts - p_in
-            near = pts - max(Z - 2 * (e + hr), 0) * max(Y - 2 * (e + hr), 0) * X
             slab = 8 * 4.0 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
             flops = B10_FLOPS if pair else B9_FLOPS[s]
             wr = (8 if read_w else 0) + (8 if write_w else 0)
             b13_bytes = 4.0 * (8 * pts + (8 + wr) * p_in) + slab
-            b14_bytes = 4.0 * (8 * near + (8 + wr) * p_sh) + slab
             per = len(shards)
-            nb13, nb14 = per * b13_bytes, per * b14_bytes
+            nb13 = per * b13_bytes
+            nb14 = per * b14_bytes((Z, Y, X), read_w, write_w, pair)
             bm13, by13 = bound_ms(nb13, per * flops * p_in)
             bm14, by14 = bound_ms(nb14, per * flops * p_sh)
             if mesh == (1, 1, 1):
@@ -2477,11 +2504,13 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                     "bound_by": by, "library_ms": None, "bytes": nb}
                 if dev is not None:
                     v["device_ms"] = dev
+                    v["kernel_us"] = split14
                 log(f"  {name} {tag}, {where}: {ms!r} ms, bound {bms!r} ms "
                     f"({by}), {100 * bms / ms:.1f}% of bound; plain twin "
                     f"{plain!r} ms"
                     + ("" if dev is None else f"; device time alone {dev!r} "
-                       f"ms ({100 * bms / dev:.1f}% of bound)"))
+                       f"ms ({100 * bms / dev:.1f}% of bound); kernels "
+                       f"{split14}"))
         del shards, ws, f, w, of, ow, recv
         torch.cuda.empty_cache()
     for name, v in variants.items():
@@ -2494,6 +2523,28 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
         if "device_ms" in one[0]:
             res["kernels"][name]["device_ms"] = sum(
                 x["device_ms"] for x in one) / 3
+    # B14's design and its blocks an SM as the card counts them (kernels
+    # line); its launch plan on a 256^3 shard, computed, goes to the log
+    # and chip_smoke.json, and must count as many blocks an SM
+    card_bps = mo.fixup_occupancy(torch.device("cuda"))
+    res["kernels"]["mhd_substep_fixup"].update(
+        design="one substep: one launch a shard of the ring kernel "
+               "(mhd_shell_kernel), z strips walked in z and y strips in "
+               "y, margin rows from the shard and the landed rows, no "
+               "scratch; pair: strip windows + B12's tiles",
+        blocks_per_sm=card_bps)
+    shell = mo.fixup_plan(n, n, n, False).shell
+    n_sms = cm.sm_count(torch.device("cuda"))
+    blocks = shell.grid[0] * shell.grid[1]
+    res["fixup_plan_256"] = dict(
+        shell._asdict(), grid=list(shell.grid), blocks=blocks,
+        planned_blocks_per_sm=mo.FIXUP_BLOCKS_PER_SM,
+        card_blocks_per_sm=card_bps, sms=n_sms,
+        waves=blocks / (n_sms * card_bps))
+    log(f"  B14's plan on a 256^3 shard: {res['fixup_plan_256']}")
+    if card_bps != mo.FIXUP_BLOCKS_PER_SM:
+        raise AssertionError(f"B14: the card holds {card_bps} blocks an SM, "
+                             f"the plan counts {mo.FIXUP_BLOCKS_PER_SM}")
     # one halo-overlap iteration on the four shards beside the kernels'
     # CUDA-event times per substep of the four (s = 0, 1, 2), summed: what
     # is left of the iteration is the host's
@@ -2534,8 +2585,8 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
-# the libraries that build a ring kernel: B9/B11 and B13's interior
-# (csrc/mhd_ring.cuh), K2 and B6 (csrc/jacobi_ring.cuh)
+# the libraries that build a ring kernel: B9/B11, B13's interior and
+# B14's shell (csrc/mhd_ring.cuh), K2 and B6 (csrc/jacobi_ring.cuh)
 RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo")
 
 
@@ -2543,14 +2594,18 @@ def kernel_key(lib: str, name: str):
     """(library, read_w, write_w) of an MHD ring-kernel instantiation
     (``mhd_substep_ring_kernel<kReadW, kWriteW>``, which the ``mhd``
     library launches as B9 and B11 and ``mhd_overlap`` as B13's
-    interior), or (library, "jacobi_ring") of the Jacobi ring kernel
-    (K2 in ``jacobi7``, B6 in ``jacobi_halo``), from its mangled name,
-    else None."""
+    interior), (library, "shell", read_w, write_w) of B14's
+    (``mhd_shell_kernel``, the ring's z and y instances), or (library,
+    "jacobi_ring") of the Jacobi ring kernel (K2 in ``jacobi7``, B6 in
+    ``jacobi_halo``), from its mangled name, else None."""
     import re
 
     m = re.search(r"mhd_substep_ring_kernelILb(\d)ELb(\d)E", name)
     if m and lib in RING_LIBS:
         return (lib, m.group(1) == "1", m.group(2) == "1")
+    m = re.search(r"mhd_shell_kernelILb(\d)ELb(\d)E", name)
+    if m and lib in RING_LIBS:
+        return (lib, "shell", m.group(1) == "1", m.group(2) == "1")
     if "jacobi_ring_kernel" in name and lib in RING_LIBS:
         return (lib, "jacobi_ring")
     return None
@@ -2749,12 +2804,18 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if name == "laplace6":
             entry["path"] = "none: no model path runs it in either package"
-        if "device_ms" in t:
-            entry["device_ms"] = t["device_ms"]
+        for k in ("device_ms", "design", "blocks_per_sm"):
+            if k in t:
+                entry[k] = t[k]
         if name in ("jacobi7_wrapn", "jacobi7_halon"):
             entry["ptxas"] = ptxas.get(
                 ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
                  "jacobi_ring"), {})
+        if name == "mhd_substep_fixup":
+            entry["ptxas"] = {
+                f"read_w={k[2]}, write_w={k[3]}": use
+                for k, use in ptxas.items() if k[:2] == ("mhd_overlap",
+                                                         "shell")}
         if "variants" in t:
             entry["variants"] = t["variants"]
         kernels.append(entry)
@@ -2773,6 +2834,7 @@ def main() -> int:
                    "halon_quarter_shard_bound_ms":
                        halo_times["halon_quarter_shard_bound_ms"],
                    "jacobi_ring_plans": halo_times["jacobi_ring_plans"],
+                   "fixup_plan_256": mhd_overlap_times["fixup_plan_256"],
                    "astaroth_halo_iters_per_s":
                        mhd_halo_times["iters_per_s"],
                    "astaroth_halo_runs_iters_per_s":

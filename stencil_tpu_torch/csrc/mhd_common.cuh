@@ -296,7 +296,6 @@ struct GlobalAt {
 };
 
 constexpr int kBX = 32;
-constexpr int kBY = 8;
 
 constexpr int kT = 8;                 // tile edge, z, y and x
 constexpr int kE = kT + 2 * R;        // extended tile edge

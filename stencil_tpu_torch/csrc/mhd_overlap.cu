@@ -32,11 +32,18 @@
 //     the shard, z and y in [kT, n-kT), the shard read as their window.
 //   launch B (B14): the exterior shell that launch A left, as up to four
 //     strips (z in [0, e) and [Z-e, Z) at every y, then y in [0, e) and
-//     [Y-e, Y) between them; e = R, or kT with the pair): each strip's
-//     radius-rr window (rr = R, or 2R) is gathered from the shard and the
-//     landed rows by B11's source rule (halo_row), and B11's compute
-//     (B12's with the pair) runs on it. B14 after B13 is therefore B11
-//     (B12) point for point: bitwise.
+//     [Y-e, Y) between them; e = R, or kT with the pair). With one
+//     substep, one launch a shard of the ring kernel (mhd_shell_kernel
+//     below, on mhd_ring.cuh's ring_run, its strips and tiles as the
+//     host's fixup_plan passes them): each block takes a 32 x 16
+//     tile of a strip's broad face and walks the strip across its thin
+//     axis, the z strips in z, the y strips in y (z along the tile's
+//     rows), its margin rows read straight from the shard and the landed
+//     rows by B11's source rule (halo_row_of); there is no window and no
+//     scratch. With the pair (rr = 2R), each strip's radius-rr window is
+//     gathered from the shard and the landed rows by the same rule and
+//     B12's compute runs on it. B14 after B13 is therefore B11 (B12)
+//     point for point: bitwise.
 //
 // The barrier and the DMA waits become two ordering rules, carried by
 // CUDA events between the per-shard streams (ops/cuda_overlap.py
@@ -53,14 +60,15 @@
 // Bound on this card: bytes. B13 reads the shard (and w) and writes the
 // new state at the interior points, as B9 (24 / 32 / 24 passes of a
 // field for s = 0 / 1 / 2, 24 with the pair), plus the slab rows it
-// stores; B14 reads the shell's windows' share of the shard and the slab
-// rows and writes the shell. Design: B13's interior (one substep) is the
-// ring kernel that computes B9 and B11 (mhd_ring.cuh), one launch over
-// the interior region. B14's strips and the pair's interior keep the
-// first, simple design: per-point kernels on a window (mhd_region_kernel,
-// one thread a point; mhd_region01_kernel, B10's tiles), the strip
-// windows gathered into scratch (a shell-sized share of a 16-pass
-// gather).
+// stores; B14 reads the shard rows within e + hr of a z or y face and
+// the slab rows, and writes the shell. Design: B13's interior and B14's
+// shell (one substep) are the ring kernel that computes B9 and B11
+// (mhd_ring.cuh), one launch a shard each. A strip is only R deep, so
+// each of B14's blocks loads 3R slices for the R it computes, and at one
+// 512-thread block an SM the shell of a 256^3 shard is 512 blocks, ~3.9
+// waves on 132 SMs (PERF.md). The pair keeps the first, simple design:
+// its interior and its shell are B12's tiles (mhd_region01_kernel) on a
+// window, the shell's strip windows gathered into scratch first.
 
 #include "mhd_common.cuh"
 #include "mhd_ring.cuh"
@@ -158,42 +166,11 @@ strip_window_kernel(InPtrs f, SlabPtrs sl, OutPtrs win, HaloGeom g,
     win.p[q][o] = __ldg(halo_row(f, sl, q, g, r.wy0 + wy, r.wz0 + wz) + x);
 }
 
-// ---------------------------------------------------------------------
-// One RK3 substep s at the points of one of B14's strips, B11's
-// arithmetic point for point (one thread per point, a (32, 8) block over
-// (x, y), one z row per block row), reading the strip's window through
-// PadIdx. A strip is R rows deep, too thin for the ring's z runs and
-// 16-row tiles. The host launches it once per strip, with the window
-// pointers already at the strip's woff and only the geometry below as
-// arguments, so that it holds 128 registers (a region table read per
-// block cost 200 B of spills a thread and 1.7x the time on an H100).
-// ---------------------------------------------------------------------
+// The geometry of one region for the pair kernel below: its first
+// output point and rows, and its window's first row and rows per z.
 struct RegionGeom {
   int z0, y0, ny, wz0, wy0, Yw;
 };
-
-template <bool kReadW, bool kWriteW>
-__global__ void __launch_bounds__(kBX * kBY, 2)
-mhd_region_kernel(InPtrs win, InPtrs w, OutPtrs of, OutPtrs ow, RegionGeom g,
-                  int Y, int X, Consts c) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int yl = blockIdx.y * kBY + threadIdx.y;
-  if (x >= X || yl >= g.ny) return;
-  const int y = g.y0 + yl, z = g.z0 + blockIdx.z;
-  const PadIdx I(x, y - g.wy0, z - g.wz0, X, g.Yw, 0);
-  Fd F[kNF];
-  field_data([&](int q) { return PadAt{win.p[q], I}; }, c, F);
-  float r[kNF];
-  mhd_rates(F, c, r);
-  const int o = (z * Y + y) * X + x;
-#pragma unroll
-  for (int q = 0; q < kNF; ++q) {
-    float wq = c.dt * r[q];
-    if (kReadW) wq = c.alpha * __ldg(w.p[q] + o) + wq;
-    if (kWriteW) ow.p[q][o] = wq;
-    of.p[q][o] = F[q].v + c.beta * wq;
-  }
-}
 
 // ---------------------------------------------------------------------
 // RK3 substeps 0 and 1 on the kT^3 tiles of one region (nz, ny multiples
@@ -270,9 +247,7 @@ bool read_regions(const int* src, int n, int Z, int Y, int X, bool pair,
       return false;
     if (pair && (r.nz % kT || r.ny % kT)) return false;
     const long long rows = static_cast<long long>(r.Zw) * r.Yw;
-    if (rows * blocks(X, kCopyBX) >= (1LL << 31) || r.nz > 65535 ||
-        blocks(r.ny, kBY) > 65535)
-      return false;
+    if (rows * blocks(X, kCopyBX) >= (1LL << 31)) return false;
     r.nrows = static_cast<int>(rows);
   }
   return true;
@@ -298,45 +273,108 @@ long long total_rows(const Regions& rs) {
   return t;
 }
 
-// the compute of the regions on window win (B14's strips, or the pair's
-// B12 tiles), one launch per region; nothing to do for an empty set
-cudaError_t launch_regions(const InPtrs& win, const void* const* w,
-                           void* const* out_f, void* const* out_w,
-                           const Regions& rs, int Y, int X, bool pair,
-                           const Consts& c, cudaStream_t s) {
-  const OutPtrs op = out_ptrs(out_f), owp = out_ptrs(out_w);
-  const InPtrs wr = in_ptrs(w);
-  if (pair) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mhd_region01_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kPairSmem));
-    if (err != cudaSuccess) return err;
-  }
+// B12's compute (the pair) over the regions on window win, one launch
+// per region; nothing to do for an empty set
+cudaError_t launch_pair_regions(const InPtrs& win, void* const* out_f,
+                                void* const* out_w, const Regions& rs,
+                                int Y, int X, const Consts& c,
+                                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mhd_region01_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPairSmem));
+  if (err != cudaSuccess) return err;
   for (int k = 0; k < rs.n; ++k) {
     const Region& r = rs.r[k];
     InPtrs rw = win;
     for (int q = 0; q < kNF; ++q) rw.p[q] += r.woff;
     const RegionGeom g{r.z0, r.y0, r.ny, r.wz0, r.wy0, r.Yw};
-    if (pair) {
-      mhd_region01_kernel<<<dim3(blocks(X, kT), r.ny / kT, r.nz / kT),
-                            kPairThreads, kPairSmem, s>>>(rw, op, owp, g, Y,
-                                                          X, c);
-    } else {
-      const dim3 grid(blocks(X, kBX), blocks(r.ny, kBY), r.nz);
-      const dim3 block(kBX, kBY);
-      if (w != nullptr && out_w != nullptr)
-        mhd_region_kernel<true, true><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
-      else if (w != nullptr)
-        mhd_region_kernel<true, false><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
-      else if (out_w != nullptr)
-        mhd_region_kernel<false, true><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
-      else
-        mhd_region_kernel<false, false><<<grid, block, 0, s>>>(rw, wr, op, owp, g, Y, X, c);
-    }
-    const cudaError_t err = cudaGetLastError();
+    mhd_region01_kernel<<<dim3(blocks(X, kT), r.ny / kT, r.nz / kT),
+                          kPairThreads, kPairSmem, s>>>(
+        rw, out_ptrs(out_f), out_ptrs(out_w), g, Y, X, c);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------
+// B14 with one substep: the exterior shell as four strips, planned on
+// the host (ops/cuda_mhd_overlap.py fixup_plan, whose ShellLaunch ints
+// the launcher copies in as they are): the z strips z in [0, min(R, Z))
+// and, with two, [zt, Z) at every y, walked in z; the y strips y in [0,
+// min(R, Y)) and, with two, [yt, Y) at z in [R, Z - R), walked in y.
+// Each strip is cut into tiles of 32 columns by kTY rows of its broad
+// axis (y for a z strip, z for a y strip); tile index b (blockIdx.y)
+// counts the near z strip's tiles, then the far one's, then the y
+// strips' in that order.
+// ---------------------------------------------------------------------
+struct ShellPlan {
+  int zt, yt;    // first slice of the far z strip, of the far y strip
+  int nzs, nys;  // z strips (1 or 2) and y strips (0, 1 or 2)
+  int tz, ty;    // row tiles of a z strip and of a y strip
+};
+constexpr int kShellPlanInts = 6;
+static_assert(sizeof(ShellPlan) == kShellPlanInts * sizeof(int),
+              "ShellPlan layout");
+
+// the row tiles of plan p; -1 if p would have a block read or write
+// outside the shard and its landed rows (a wrong but safe plan computes
+// wrong points: the card tests hold it bitwise against B11)
+long long shell_tiles(const ShellPlan& p, int Z, int Y) {
+  if (p.zt < 0 || p.zt > Z || p.yt < 0 || p.yt > Y || p.nzs < 1 ||
+      p.nzs > 2 || p.nys < 0 || p.nys > 2 || p.tz < 0 || p.ty < 0)
+    return -1;
+  return static_cast<long long>(p.nzs) * p.tz +
+         static_cast<long long>(p.nys) * p.ty;
+}
+
+// One launch a shard: block (bx, b) walks column tile bx of row tile b
+// through its strip's whole depth, on the ring kernel's z instance (z
+// strips) or y instance (y strips), its margin rows read straight from
+// the shard and the landed rows by B11's rule (kHaloRows): no window, no
+// scratch. The choice is uniform per block, so each block runs one
+// instance's code.
+template <bool kReadW, bool kWriteW>
+__global__ void __launch_bounds__(RingTile::kThreads, 1)
+mhd_shell_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of, OutPtrs ow,
+                 HaloGeom h, ShellPlan p, Consts c) {
+  extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
+  __shared__ RowSrc rows[RingTile::kRows];
+  constexpr int kTY = RingTile::kTY;
+  const int x0 = blockIdx.x * kBX;
+  int b = blockIdx.y;
+  if (b < p.nzs * p.tz) {
+    const bool far = b >= p.tz;
+    b -= far ? p.tz : 0;
+    ring_run<kStreamZ, kReadW, kWriteW>(
+        f, w, sl, of, ow, h, kHaloRows, x0, b * kTY, h.Y, far ? p.zt : 0,
+        far ? h.Z : min(R, h.Z), c, ring, rows);
+  } else {
+    b -= p.nzs * p.tz;
+    const bool far = b >= p.ty;
+    b -= far ? p.ty : 0;
+    ring_run<kStreamY, kReadW, kWriteW>(
+        f, w, sl, of, ow, h, kHaloRows, x0, R + b * kTY, h.Z - R,
+        far ? p.yt : 0, far ? h.Y : min(R, h.Y), c, ring, rows);
+  }
+}
+
+template <bool kReadW, bool kWriteW>
+cudaError_t launch_shell_variant(const InPtrs& f, const InPtrs& w,
+                                 const SlabPtrs& sl, const OutPtrs& of,
+                                 const OutPtrs& ow, const HaloGeom& h,
+                                 const ShellPlan& p, unsigned tiles,
+                                 const Consts& c, cudaStream_t s) {
+  using T = RingTile;
+  auto kernel = mhd_shell_kernel<kReadW, kWriteW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks(h.X, kBX), tiles);
+  kernel<<<grid, dim3(kBX, T::kTY), T::kSmem, s>>>(f, w, sl, of, ow, h, p,
+                                                   c);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -374,7 +412,7 @@ cudaError_t mhd_substep_overlap_launch(
                      kCopyBX, 0, s>>>(fp, dp, pc, Y, X);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (pair) return launch_regions(fp, w, out_f, out_w, rs, Y, X, true, c, s);
+  if (pair) return launch_pair_regions(fp, out_f, out_w, rs, Y, X, c, s);
   // one substep: the ring kernel over each region, its margin rows from
   // the shard (windows_ok above keeps every row it reads inside it)
   for (int k = 0; k < rs.n; ++k) {
@@ -390,36 +428,77 @@ cudaError_t mhd_substep_overlap_launch(
 
 // B14, launch B. fields/w: the pre-substep shard and w (w NULL for
 // w=None, and with the pair); slabs: 32 landed-row pointers (zlo, zhi,
-// ylo, yhi, each in field order; rz = ry rows); window: 8 scratch buffers
-// holding every region's window at its woff; out_f/out_w: B13's outputs,
-// completed in place (out_w NULL for write_w=False); regions: the
-// exterior shell, as for launch A.
+// ylo, yhi, each in field order; rz = ry rows); out_f/out_w: B13's
+// outputs, completed in place (out_w NULL for write_w=False). One
+// substep: plan holds the kShellPlanInts host ints of ShellPlan
+// (ops/cuda_mhd_overlap.py fixup_plan; n_plan = kShellPlanInts), and
+// one launch of mhd_shell_kernel reads the shard and the landed rows
+// itself (window NULL). The pair: plan is the pair's shell as n_plan
+// regions for launch A, window 8 scratch buffers holding every region's
+// window at its woff; the strip windows are gathered, then B12's
+// compute runs per region.
 cudaError_t mhd_substep_fixup_launch(
     const void* const* fields, const void* const* w, const void* const* slabs,
     void* const* window, void* const* out_f, void* const* out_w,
-    const int* regions, int n_regions, int Z, int Y, int X, int rz, int ry,
+    const int* plan, int n_plan, int Z, int Y, int X, int rz, int ry,
     int pair, const float* consts, int n_consts, void* stream) {
-  Regions rs;
   const int rr = pair ? 2 * R : R;
   if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
       !halo_ok(Z, Y, X, rz, ry, rr) ||
-      !read_regions(regions, n_regions, Z, Y, X, pair != 0, rs) ||
-      !windows_ok(rs, rr, -rz, Z + rz, -ry, Y + ry) ||
-      (pair && (w != nullptr || out_w == nullptr)))
+      (pair && (w != nullptr || out_w == nullptr || window == nullptr)))
     return cudaErrorInvalidValue;
   Consts c;
   std::memcpy(&c, consts, sizeof c);
-  const long long rows = total_rows(rs);
-  if (rows == 0) return cudaSuccess;
   const HaloGeom g{Z, Y, X, rz, ry};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!pair) {
+    if (n_plan != kShellPlanInts) return cudaErrorInvalidValue;
+    ShellPlan p;
+    std::memcpy(&p, plan, sizeof p);
+    const long long tiles = shell_tiles(p, Z, Y);
+    if (tiles < 1 || tiles > 65535) return cudaErrorInvalidValue;
+    const unsigned t = static_cast<unsigned>(tiles);
+    const InPtrs fp = in_ptrs(fields), wp = in_ptrs(w);
+    const SlabPtrs sp = slab_ptrs(slabs);
+    const OutPtrs op = out_ptrs(out_f), owp = out_ptrs(out_w);
+    if (w != nullptr && out_w != nullptr)
+      return launch_shell_variant<true, true>(fp, wp, sp, op, owp, g, p, t,
+                                              c, s);
+    if (w != nullptr)
+      return launch_shell_variant<true, false>(fp, wp, sp, op, owp, g, p, t,
+                                               c, s);
+    if (out_w != nullptr)
+      return launch_shell_variant<false, true>(fp, wp, sp, op, owp, g, p, t,
+                                               c, s);
+    return launch_shell_variant<false, false>(fp, wp, sp, op, owp, g, p, t,
+                                              c, s);
+  }
+  Regions rs;
+  if (!read_regions(plan, n_plan, Z, Y, X, true, rs) ||
+      !windows_ok(rs, rr, -rz, Z + rz, -ry, Y + ry))
+    return cudaErrorInvalidValue;
+  const long long rows = total_rows(rs);
+  if (rows == 0) return cudaSuccess;
   strip_window_kernel<<<static_cast<unsigned>(rows * blocks(X, kCopyBX)),
                         kCopyBX, 0, s>>>(in_ptrs(fields), slab_ptrs(slabs),
                                          out_ptrs(window), g, rs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_regions(in_ptrs(window), w, out_f, out_w, rs, Y, X,
-                        pair != 0, c, s);
+  return launch_pair_regions(in_ptrs(window), out_f, out_w, rs, Y, X, c, s);
+}
+
+// How many blocks of B14's one-substep kernel one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the instantiation that
+// reads and writes w; ops/cuda_mhd_overlap.py plans with one,
+// FIXUP_BLOCKS_PER_SM).
+cudaError_t mhd_fixup_blocks_per_sm(int* blocks_per_sm) {
+  auto kernel = mhd_shell_kernel<true, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(RingTile::kSmem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, RingTile::kThreads, RingTile::kSmem);
 }
 
 }  // extern "C"

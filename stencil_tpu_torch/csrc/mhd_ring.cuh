@@ -1,6 +1,7 @@
-// The z-streaming MHD RK3 substep for Hopper (sm_90a), float32: one
+// The streaming MHD RK3 substep for Hopper (sm_90a), float32: one
 // kernel body that csrc/mhd.cu launches as B9 and B11 and
-// csrc/mhd_overlap.cu as B13's interior.
+// csrc/mhd_overlap.cu as B13's interior (walking z) and as B14's shell
+// (its z strips walking z, its y strips walking y).
 //
 // One RK3 substep s over a region of a (Z, Y, X) field or shard: the
 // points z in [z0, z0 + nz), y in [y0, y0 + ny), every x (x wrapped):
@@ -9,33 +10,46 @@
 // kReadW=false is w=None (alpha_0 == 0: substep 0 never reads w);
 // kWriteW=false is write_w=False (nothing reads substep 2's w).
 //
-// Design (B11's, generalised to a region and a row source): a
-// block owns a 32 x 16 (x, y) tile of the region and walks a run of
-// `zrun` z planes. Shared memory holds, per field, a ring of 8 planes of
-// the tile and its radius-3 margin (22 x 38 floats each): 7 for the
-// point's neighbourhood and one that cp.async fills with plane z + 4
-// while plane z is computed. Each margin row is copied by one warp,
-// coalesced, x wrapped, from a table of the block's rows set up once
-// (RowSrc), so every tap of the ~300 a point is a shared-memory load with
-// an immediate offset from one of 7 per-thread plane registers. The
-// arithmetic is field_data and mhd_rates (mhd_common.cuh), unchanged,
-// through a shared-memory accessor (RingAt). A 32 x 16 tile is 512
+// Design (B11's, generalised to a region, a row source and a streaming
+// axis): a block owns a 32 x 16 tile of the region, 32 x columns by 16
+// rows of the tile's row axis, and walks a run of slices along the
+// streaming axis. The z instance (kStreamZ: tile rows are y, slices are
+// z planes) computes B9, B11, B13's interior and B14's z strips; the y
+// instance (kStreamY: tile rows are z, slices are y) B14's y strips,
+// which are R rows deep in y, so that a tile's 16 rows lie along their
+// broad z side and every warp computes. Shared memory holds, per field,
+// a ring of 8 slices of the tile and its radius-3 margin (22 x 38
+// floats each): 7 for the point's neighbourhood and one that cp.async
+// fills with slice s + 4 while slice s is computed. Each margin row is
+// copied by one warp, coalesced, x wrapped, from a table of the block's
+// rows set up once (RowSrc), so every tap of the ~300 a point is a
+// shared-memory load with an immediate offset from one of 7 per-thread
+// slice registers. The arithmetic is field_data and mhd_rates
+// (mhd_common.cuh), unchanged, through a shared-memory accessor (RingAt,
+// which swaps dy and dz in the y instance). A 32 x 16 tile is 512
 // threads, 16 warps and 214 KB a block, one block an SM, at most 128
 // registers a thread; 32 x 8 and 32 x 4 tiles hold 8 warps an SM and ran
-// slower on an H100 (PERF.md). ops/cuda_mhd.py ring_zrun picks the run.
+// slower on an H100 (PERF.md). ops/cuda_mhd.py ring_zrun picks the z run
+// of a whole region; B14's strips are walked whole.
 //
 // The launches differ only in where a margin row comes from, a choice
 // made once a block, while the table is filled (RingGeom::source):
-//   kHaloRows     B11: the shard, a z slab or a z-extended y slab, as
-//                 halo_row_of chooses (the slab layout of mhd_common.cuh);
+//   kHaloRows     B11, B14: the shard, a z slab or a z-extended y slab,
+//                 as halo_row_of chooses (the slab layout of
+//                 mhd_common.cuh). Every source steps by a whole plane
+//                 from one z to the next (Y X in the shard and the z
+//                 slabs, ry X in the y slabs) and by X from one y to the
+//                 next, so a row's source at every slice is its base at
+//                 slice -1, 0 or N (N = Z or Y) plus a stride;
 //   kWrappedRows  B9: the field itself, periodic: row wrap(y, Y) at plane
 //                 wrap(p, Z) (Z, Y >= 8 > R, so one wrap is enough);
 //                 B13's interior takes the same rule on a region whose
 //                 radius-R neighbourhood lies in the shard, so no row it
-//                 reads wraps and it reads the shard alone.
-// The values are therefore B11's bit for bit in all three: on a (1,1,1)
-// mesh B11's slabs are the shard's own wrapped rows, and B13's interior
-// points read the same rows B11 reads there.
+//                 reads wraps and it reads the shard alone (z instance).
+// The values are therefore B11's bit for bit in every launch: on a
+// (1,1,1) mesh B11's slabs are the shard's own wrapped rows, and B13's
+// interior and B14's strips read, tap for tap, the rows B11 reads at
+// the same points.
 
 #pragma once
 
@@ -43,14 +57,14 @@
 
 namespace {
 
-constexpr int kRing = 8;  // ring slots per field: 2R + 1 planes + 1 loading
+constexpr int kRing = 8;  // ring slots per field: 2R + 1 slices + 1 loading
 
 struct RingTile {
-  static constexpr int kTY = 16;               // the tile's y rows
+  static constexpr int kTY = 16;               // the tile's rows
   static constexpr int kPX = kBX + 2 * R;      // 38 floats a margin row
-  static constexpr int kPY = kTY + 2 * R;      // margin rows a plane
-  static constexpr int kPlane = kPX * kPY;     // one field's plane
-  static constexpr int kSlot = kNF * kPlane;   // one plane of 8 fields
+  static constexpr int kPY = kTY + 2 * R;      // margin rows a slice
+  static constexpr int kPlane = kPX * kPY;     // one field's slice
+  static constexpr int kSlot = kNF * kPlane;   // one slice of 8 fields
   static constexpr int kRows = kNF * kPY;      // margin rows of a slot
   static constexpr int kThreads = kBX * kTY;
   static constexpr int kWarps = kThreads / 32;
@@ -60,9 +74,11 @@ struct RingTile {
 };
 
 enum RowSource { kHaloRows = 0, kWrappedRows = 1 };
+enum RingAxis { kStreamZ = 0, kStreamY = 1 };  // the axis a block walks
 
 // One launch: the field or shard (h; its slabs' rz, ry for kHaloRows),
-// the region it computes, the z run a block walks and the row source.
+// the region it computes, the z run a block walks and the row source
+// (the z instance's launches; B14's shell plans its own, mhd_overlap.cu).
 struct RingGeom {
   HaloGeom h;
   int z0, nz, y0, ny;
@@ -70,12 +86,13 @@ struct RingGeom {
   int source;  // RowSource
 };
 
-// Where margin row (q, y) of plane p comes from, set up once a block:
-// base[k] is the row at plane pref = -1, 0, Z (for p < 0, 0 <= p < Z,
-// p >= Z), and the row at plane p is then base[k] + (p - pref) * stride
-// (the slab or field's plane pitch); dst is the row's offset in a ring
-// slot (-1: the row lies R or more beyond the region's last y, and only
-// masked points would read it).
+// Where margin row (q, u) of slice p comes from, set up once a block (u
+// the tile's row coordinate: y in the z instance, z in the y instance):
+// base[k] is the row at slice pref = -1, 0, N (for p < 0, 0 <= p < N,
+// p >= N; N = Z or Y), and the row at slice p is then base[k] + (p -
+// pref) * stride; dst is the row's offset in a ring slot (-1: the row
+// lies R or more beyond the region's last row, and only masked points
+// would read it).
 struct RowSrc {
   const float* base[3];
   int stride;
@@ -83,13 +100,16 @@ struct RowSrc {
 };
 
 // a field's ring around one point: o[k] is the point's offset in the
-// slot of plane z + k - R, p the field's first float in a slot
-template <int PX>
+// slot of slice s + k - R, p the field's first float in a slot; the
+// slices step along z (kStreamZ) or y (kStreamY), the tile's rows along
+// the other
+template <int PX, int kAxis>
 struct RingAt {
   const float* p;
   const int* o;
   __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
-    return p[o[dz + R] + dy * PX + dx];
+    return kAxis == kStreamZ ? p[o[dz + R] + dy * PX + dx]
+                             : p[o[dy + R] + dz * PX + dx];
   }
 };
 
@@ -105,55 +125,61 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <bool kReadW, bool kWriteW>
-__global__ void __launch_bounds__(RingTile::kThreads, 1)
-mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
-                        OutPtrs ow, RingGeom g, Consts c) {
+// One block's walk: the tile of 32 x columns from x0 and 16 rows from u0
+// (rows at or past u1, the region's end, are masked), slices s0 to s1 of
+// the streaming axis kAxis, margin rows from source (the y instance
+// takes kHaloRows only). ring: the kernel's dynamic shared memory, rows
+// its RowSrc table.
+template <int kAxis, bool kReadW, bool kWriteW>
+__device__ __forceinline__ void ring_run(
+    const InPtrs& f, const InPtrs& w, const SlabPtrs& sl, const OutPtrs& of,
+    const OutPtrs& ow, const HaloGeom& h, int source, int x0, int u0, int u1,
+    int s0, int s1, const Consts& c, float* ring, RowSrc* rows) {
   using T = RingTile;
-  extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
-  __shared__ RowSrc rows[T::kRows];  // row k = q * kPY + ry
-  const int Z = g.h.Z, Y = g.h.Y, X = g.h.X;
+  const int Z = h.Z, Y = h.Y, X = h.X;
+  const int N = kAxis == kStreamZ ? Z : Y;  // slices of the streaming axis
   const int lane = threadIdx.x, warp = threadIdx.y;
-  const int x0 = blockIdx.x * kBX, y0 = g.y0 + blockIdx.y * T::kTY;
-  const int z0 = g.z0 + blockIdx.z * g.zrun;
-  const int z1 = min(z0 + g.zrun, g.z0 + g.nz);
-  const int y1 = g.y0 + g.ny;
   for (int k = warp * kBX + lane; k < T::kRows; k += T::kThreads) {
-    const int qk = k / T::kPY, ry = k - qk * T::kPY;
-    const int y = y0 - R + ry;
+    const int qk = k / T::kPY, ru = k - qk * T::kPY;
+    const int u = u0 - R + ru;
     RowSrc r;
     // field qk's pointers, each a kernel parameter read at a constant
     // index (a run-time index would copy the structs to local memory)
 #pragma unroll
     for (int q = 0; q < kNF; ++q) {
       if (q != qk) continue;
-      if (g.source == kWrappedRows) {
-        const float* row = f.p[q] + wrap(y, Y) * X;
+      if (kAxis == kStreamZ && source == kWrappedRows) {
+        const float* row = f.p[q] + wrap(u, Y) * X;
         r.base[0] = row + (Z - 1) * Y * X;  // plane Z - 1 at p = -1
         r.base[1] = row;                    // plane 0 at p = 0
         r.base[2] = row;                    // plane 0 at p = Z
       } else {
-        const int pref[3] = {-1, 0, Z};
+        const int pref[3] = {-1, 0, N};
 #pragma unroll
         for (int j = 0; j < 3; ++j)
-          r.base[j] = halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q], sl.ylo[q],
-                                  sl.yhi[q], g.h, y, pref[j]);
+          r.base[j] = kAxis == kStreamZ
+                          ? halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q],
+                                        sl.ylo[q], sl.yhi[q], h, u, pref[j])
+                          : halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q],
+                                        sl.ylo[q], sl.yhi[q], h, pref[j], u);
       }
     }
-    r.stride = (g.source == kWrappedRows || (y >= 0 && y < Y) ? Y : g.h.ry) *
-               X;
-    r.dst = y < y1 + R ? qk * T::kPlane + ry * T::kPX : -1;
+    if (kAxis == kStreamZ)
+      r.stride = (source == kWrappedRows || (u >= 0 && u < Y) ? Y : h.ry) * X;
+    else
+      r.stride = X;
+    r.dst = u < u1 + R ? qk * T::kPlane + ru * T::kPX : -1;
     rows[k] = r;
   }
   __syncthreads();
   const int xa = wrap(x0 - R + lane, X);             // margin column lane
   const int xb = wrap(x0 - R + kBX + lane, X);       // column 32 + lane
 
-  // plane p of every field into its ring slot, one margin row a warp
-  auto load_plane = [&](int p) {
+  // slice p of every field into its ring slot, one margin row a warp
+  auto load_slice = [&](int p) {
     float* slot = ring + ((p + kRing) % kRing) * T::kSlot;
-    const int j = p < 0 ? 0 : (p < Z ? 1 : 2);
-    const int dp = p - (j == 0 ? -1 : (j == 1 ? 0 : Z));
+    const int j = p < 0 ? 0 : (p < N ? 1 : 2);
+    const int dp = p - (j == 0 ? -1 : (j == 1 ? 0 : N));
 #pragma unroll
     for (int i = 0; i < T::kRowsPerWarp; ++i) {
       const RowSrc& r = rows[warp + T::kWarps * i];
@@ -165,29 +191,31 @@ mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
     }
   };
 
-  for (int p = z0 - R; p <= z0 + R; ++p) load_plane(p);
+  for (int p = s0 - R; p <= s0 + R; ++p) load_slice(p);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  const int x = x0 + lane, y = y0 + warp;
-  const bool live = x < X && y < y1;
+  const int x = x0 + lane, u = u0 + warp;
+  const bool live = x < X && u < u1;
   const int here = (warp + R) * T::kPX + (lane + R);
-  for (int z = z0; z < z1; ++z) {
-    if (z + 1 < z1) load_plane(z + 1 + R);
+  for (int s = s0; s < s1; ++s) {
+    if (s + 1 < s1) load_slice(s + 1 + R);
     cp_async_commit();
     if (live) {
       int o[2 * R + 1];
 #pragma unroll
       for (int k = 0; k <= 2 * R; ++k)
-        o[k] = ((z + k - R + kRing) % kRing) * T::kSlot + here;
+        o[k] = ((s + k - R + kRing) % kRing) * T::kSlot + here;
       Fd F[kNF];
       field_data(
-          [&](int q) { return RingAt<T::kPX>{ring + q * T::kPlane, o}; }, c,
-          F);
+          [&](int q) {
+            return RingAt<T::kPX, kAxis>{ring + q * T::kPlane, o};
+          },
+          c, F);
       float r[kNF];
       mhd_rates(F, c, r);
-      const int og = (z * Y + y) * X + x;
+      const int og = (kAxis == kStreamZ ? s * Y + u : u * Y + s) * X + x;
 #pragma unroll
       for (int q = 0; q < kNF; ++q) {
         float wq = c.dt * r[q];
@@ -199,6 +227,21 @@ mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
     cp_async_wait_all();
     __syncthreads();
   }
+}
+
+// The z instance over a RingGeom region: block (bx, by, bz) computes the
+// tile (bx, by) of the region's (x, y) over z run bz.
+template <bool kReadW, bool kWriteW>
+__global__ void __launch_bounds__(RingTile::kThreads, 1)
+mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
+                        OutPtrs ow, RingGeom g, Consts c) {
+  extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
+  __shared__ RowSrc rows[RingTile::kRows];  // row k = q * kPY + ru
+  const int z0 = g.z0 + blockIdx.z * g.zrun;
+  ring_run<kStreamZ, kReadW, kWriteW>(
+      f, w, sl, of, ow, g.h, g.source, blockIdx.x * kBX,
+      g.y0 + blockIdx.y * RingTile::kTY, g.y0 + g.ny, z0,
+      min(z0 + g.zrun, g.z0 + g.nz), c, ring, rows);
 }
 
 template <bool kReadW, bool kWriteW>

@@ -21,8 +21,8 @@ B14  pallas_mhd_overlap.py:360                        ``mhd_substep_fixup_cuda``
 of ``ops/cuda_mhd.py`` hold: CPU shards go to the plain twins; CUDA
 shards launch the kernels or raise; float32 only on the card (bfloat16
 storage is ROADMAP A8b). Each wrapper adds one to its entry in
-``LAUNCHES`` per shard (B13: the sends and the interior; B14: the strip
-windows and the shell).
+``LAUNCHES`` per shard (B13: the sends and the interior; B14: its one
+shell kernel, or with the pair the strip windows and B12's tiles).
 
 What each computes, per shard, with hr = R (or 2R with the pair):
 
@@ -50,7 +50,7 @@ corner rows it stores directly.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +118,77 @@ def shell_regions(Z: int, Y: int, pair: bool) -> List[Region]:
         if yt < Y:
             out.append((e, Z - 2 * e, yt, Y - yt))
     return out
+
+
+class Strip(NamedTuple):
+    """One strip of B14's shell and how its launch walks it."""
+    region: Region   # (z0, nz, y0, ny)
+    axis: str        # one substep: "z" / "y", the axis its blocks walk;
+    #                  the pair: "window" (B12's tiles on its window)
+    tiles: int       # one substep: its tiles of ``RING_TILE_Y`` rows of
+    #                  the broad axis (y for a z strip, z for a y strip)
+    #                  per 32 columns; the pair: its kT x kT (z, y) tiles
+
+
+class ShellLaunch(NamedTuple):
+    """B14's one launch a shard with one substep: the ints that
+    ``mhd_substep_fixup_launch`` copies into the kernel's ShellPlan
+    (``csrc/mhd_overlap.cu``; its near strips start at slice 0, a y
+    strip's z at R), and the grid's column tiles. Block row b counts the
+    near z strip's tiles, the far one's, then the y strips'."""
+    zt: int    # first slice of the far z strip
+    yt: int    # first slice of the far y strip
+    nzs: int   # z strips: 1 or 2
+    nys: int   # y strips: 0, 1 or 2
+    tz: int    # row tiles of a z strip
+    ty: int    # row tiles of a y strip
+    cols: int  # column tiles of 32
+
+    def ints(self) -> np.ndarray:
+        return np.asarray(self[:6], dtype=np.int32)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.cols, self.nzs * self.tz + self.nys * self.ty
+
+
+class FixupPlan(NamedTuple):
+    """B14's launches on one (Z, Y, X) shard (``fixup_plan``)."""
+    strips: Tuple[Strip, ...]
+    launches: int                 # kernel launches a shard
+    shell: Optional[ShellLaunch]  # one substep; None with the pair
+
+
+#: B14's one-substep kernel holds one 512-thread block of 214 KB an SM
+#: (``csrc/mhd_ring.cuh`` RingTile, 128 registers a thread); the card's
+#: own count is ``fixup_occupancy``
+FIXUP_BLOCKS_PER_SM = 1
+
+
+def fixup_plan(Z: int, Y: int, X: int, pair: bool) -> FixupPlan:
+    """B14's launch plan for one (Z, Y, X) shard: the one source of the
+    launcher, the tests and ``chip_smoke.py``. One substep: one launch of
+    the ring kernel over ``shell_regions``' strips, the z strips walked
+    in z and the y strips in y, each cut into tiles of 32 columns by
+    ``RING_TILE_Y`` rows of its broad axis; the kernel is given
+    ``shell.ints()``. The pair: the strips' radius-2R windows gathered
+    into scratch (one launch), then B12's kT^3 tiles per strip (one
+    launch each)."""
+    regions = shell_regions(Z, Y, pair)
+    if pair:
+        strips = tuple(Strip(r, "window", (r[1] // PAIR_TILE)
+                             * (r[3] // PAIR_TILE)) for r in regions)
+        return FixupPlan(strips, 1 + len(strips), None)
+    n_z = 2 if max(R, Z - R) < Z else 1   # z strips come first
+    zs, ys = regions[:n_z], regions[n_z:]
+    tz = -(-Y // cm.RING_TILE_Y)
+    ty = -(-(Z - 2 * R) // cm.RING_TILE_Y) if ys else 0
+    strips = tuple([Strip(r, "z", tz) for r in zs]
+                   + [Strip(r, "y", ty) for r in ys])
+    shell = ShellLaunch(zs[-1][0] if n_z == 2 else Z,
+                        ys[-1][2] if len(ys) == 2 else Y, n_z, len(ys), tz,
+                        ty, -(-X // 32))
+    return FixupPlan(strips, 1, shell)
 
 
 def _write_regions(dst: torch.Tensor, src: torch.Tensor,
@@ -188,14 +259,15 @@ class MhdOverlapRecv(ShardOrdering):
                          [[j for _, j, _ in self.pieces[R][i]]
                           for i in range(n)])
         self._buffers = {hr: self._zeroed_buffers(hr) for hr in (R, 2 * R)}
-        # B14's scratch, on the card only: the strip windows of every field
-        self._windows: Dict[int, List[torch.Tensor]] = {}
+        # B14's scratch, on the card only and for the pair only: the
+        # strip windows of every field (one substep reads no window)
+        self._windows: List[torch.Tensor] = []
+        #: B14's launch arguments per argument set (``_fixup_args``)
+        self.fixup_cache: Dict[tuple, tuple] = {}
         if self.streams is not None:
-            for hr in (R, 2 * R):
-                n = _shell_windows(*self.shape, hr == 2 * R)[2]
-                self._windows[hr] = [torch.empty((8, n), dtype=self.dtype,
-                                                 device=d)
-                                     for d in self.devices]
+            n = _pair_windows(*self.shape)[2]
+            self._windows = [torch.empty((8, n), dtype=self.dtype, device=d)
+                             for d in self.devices]
 
     def _zeroed_buffers(self, hr: int) -> List[Dict[str, torch.Tensor]]:
         Z, Y, X = self.shape
@@ -209,11 +281,11 @@ class MhdOverlapRecv(ShardOrdering):
         """Every shard's (8, ...) receive buffers of ``hr`` rows."""
         return self._buffers[hr]
 
-    def windows(self, hr: int) -> List[torch.Tensor]:
-        """B14's scratch per shard on the card, (8, floats per field);
-        only shard i's launch B, on its stream, uses shard i's, and
-        writes all of it before it reads it."""
-        return self._windows[hr]
+    def windows(self) -> List[torch.Tensor]:
+        """B14's scratch for the pair per shard on the card, (8, floats
+        per field); only shard i's launch B, on its stream, uses shard
+        i's, and writes all of it before it reads it."""
+        return self._windows
 
     def landed(self, hr: int) -> List[Slabs]:
         """The landed rows of every shard, per field: ``landed(hr)[i][q] =
@@ -337,11 +409,31 @@ _SIGNATURES = {
     #  NULL, regions, n_regions, Z, Y, X, pair, zrun, consts, n_consts,
     #  stream)
     "mhd_substep_overlap_launch": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
-    # (fields[8], w[8] or NULL, slabs[32], window[8], out_f[8], out_w[8]
-    #  or NULL, regions, n_regions, Z, Y, X, rz, ry, pair, consts,
-    #  n_consts, stream)
+    # (fields[8], w[8] or NULL, slabs[32], window[8] (pair) or NULL,
+    #  out_f[8], out_w[8] or NULL, plan (one substep: ShellLaunch.ints;
+    #  the pair: its regions), n_plan (6, or the regions), Z, Y, X, rz,
+    #  ry, pair, consts, n_consts, stream)
     "mhd_substep_fixup_launch": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
 }
+
+
+def fixup_occupancy(device: torch.device) -> int:
+    """Blocks of B14's one-substep kernel one SM of ``device`` holds, as
+    the CUDA runtime counts them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), to hold against
+    ``FIXUP_BLOCKS_PER_SM``."""
+    from . import _build
+
+    fn = _build.load(_LIB).mhd_fixup_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_I)]
+    got = _I(0)
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"mhd_fixup_blocks_per_sm failed: CUDA error "
+                           f"{err}")
+    return got.value
 
 
 def _region_ints(regions: Sequence[Region], windows) -> np.ndarray:
@@ -351,12 +443,13 @@ def _region_ints(regions: Sequence[Region], windows) -> np.ndarray:
     return np.asarray(rows or [[0] * 9], dtype=np.int32).reshape(-1)
 
 
-def _shell_windows(Z: int, Y: int, X: int, pair: bool):
+def _pair_windows(Z: int, Y: int, X: int):
     """(regions, per region (wz0, wy0, Zw, Yw, woff), floats per field)
-    of B14's strip windows: each region widened by the rows its points
-    read, rr = hr on each side, packed one after another."""
-    rr = halo_rows(pair)
-    regions = shell_regions(Z, Y, pair)
+    of the pair's strip windows (B14 with the pair): each strip of the
+    pair's shell widened by the rows its points read, rr = 2R on each
+    side, packed one after another."""
+    rr = halo_rows(True)
+    regions = shell_regions(Z, Y, True)
     wins, off = [], 0
     for z0, nz, y0, ny in regions:
         Zw, Yw = nz + 2 * rr, ny + 2 * rr
@@ -523,8 +616,12 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
     (``shell_regions``) of substep ``s`` from the pre-substep ``fields``/
     ``w`` and the landed rows in ``recv.buffers(hr)``, written into B13's
     outputs ``f_partial``/``w_partial`` IN PLACE (JAX aliases them;
-    ``w_partial=None`` is write_w=False). ``pair`` as for B13. Returns
-    (f_partial, w_partial)."""
+    ``w_partial=None`` is write_w=False). ``pair`` as for B13. On the
+    card, ``fixup_plan``: with one substep one launch of the ring kernel a
+    shard, reading the shard and the landed rows itself; with the pair a
+    gather of the strips' windows into ``recv.windows()`` and B12's tiles.
+    The launch arguments are built once per argument set
+    (``_fixup_args``). Returns (f_partial, w_partial)."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep_fixup_cuda"
@@ -554,30 +651,72 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
               + ([w[i][q] for q in FIELDS] if w is not None else [])
               + (list(w_partial[i].values()) if write_w else []))
         cm._check_cuda(f0, ts, what)
-    Z, Y, X = f0.shape
-    consts = cm.kernel_consts(prm, dt_phys, s)
-    regs, wins, _ = _shell_windows(Z, Y, X, pair)
-    regions = _region_ints(regs, wins)
-    landed = recv.landed(hr)
+    args = _fixup_args(recv, fields, w, f_partial, w_partial, s, prm,
+                       dt_phys, pair)
     from . import _build
 
-    windows = recv.windows(hr)
+    sig = _SIGNATURES["mhd_substep_fixup_launch"]
     with recv.own_session():
-        for j, f in enumerate(fields):
-            p_in, p_sl = _launch_ptrs(f), cm._ptrs(cm._slab_list(landed[j]))
-            p_win = cm._ptrs(windows[j].unbind(0))
-            p_w = _launch_ptrs(None if w is None else w[j])
-            p_f = _launch_ptrs(f_partial[j])
-            p_wo = _launch_ptrs(w_partial[j] if write_w else None)
+        for j, a in enumerate(args):
             with recv.launch_b(j):
-                _build.launch(_LIB, "mhd_substep_fixup_launch",
-                              _SIGNATURES["mhd_substep_fixup_launch"],
-                              f[FIELDS[0]].device, p_in, p_w, p_sl, p_win,
-                              p_f, p_wo, regions.ctypes.data, len(regs), Z,
-                              Y, X, hr, hr, int(pair), consts.ctypes.data,
-                              consts.size)
+                _build.launch(_LIB, "mhd_substep_fixup_launch", sig,
+                              recv.devices[j], *a)
     LAUNCHES["mhd_substep_fixup"] += n
     return f_partial, w_partial
+
+
+#: argument sets ``_fixup_args`` keeps per ``MhdOverlapRecv``: an
+#: Astaroth iteration's 3 substeps, each from either buffer of its
+#: ping-pong pair (the pair: 2 launches an iteration, so 4)
+FIXUP_CACHE_SETS = 6
+
+
+def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
+                w: Optional[Sequence[Fields]], f_partial: Sequence[Fields],
+                w_partial: Optional[Sequence[Fields]], s: int, prm,
+                dt_phys: float, pair: bool) -> List[tuple]:
+    """B14's launcher arguments per shard (after the device), built once
+    per argument set and kept in ``recv.fixup_cache`` (at most
+    ``FIXUP_CACHE_SETS``, then it starts anew): the pointer arrays, the
+    plan's ints (one substep) or the pair's region table, and the
+    constants. The key is the constants and every tensor's address (128
+    ``data_ptr`` reads on four shards, a few microseconds); the wrapper
+    has checked the tensors' shapes, dtypes and layout before, so equal
+    addresses are equal arguments."""
+    from ..models.astaroth import FIELDS
+
+    consts = cm.kernel_consts(prm, dt_phys, s)
+    groups = (fields, w, f_partial, w_partial)
+    key = (pair, consts.tobytes()) + tuple(
+        None if g is None else tuple(g[i][q].data_ptr() for q in FIELDS)
+        for i in range(len(fields)) for g in groups)
+    got = recv.fixup_cache.get(key)
+    if got is not None:
+        return got[0]
+    if len(recv.fixup_cache) >= FIXUP_CACHE_SETS:
+        recv.fixup_cache.clear()
+    Z, Y, X = recv.shape
+    hr = halo_rows(pair)
+    if pair:
+        regs, wins, _ = _pair_windows(Z, Y, X)
+        table, n_plan = _region_ints(regs, wins), len(regs)
+    else:
+        table = fixup_plan(Z, Y, X, False).shell.ints()
+        n_plan = table.size
+    landed = recv.landed(hr)
+    args = []
+    for j, f in enumerate(fields):
+        p_win = cm._ptrs(recv.windows()[j].unbind(0)) if pair else None
+        args.append((
+            _launch_ptrs(f), _launch_ptrs(None if w is None else w[j]),
+            cm._ptrs(cm._slab_list(landed[j])), p_win,
+            _launch_ptrs(f_partial[j]),
+            _launch_ptrs(None if w_partial is None else w_partial[j]),
+            table.ctypes.data, n_plan, Z, Y, X, hr, hr, int(pair),
+            consts.ctypes.data, consts.size))
+    # the entry keeps the arrays that the pointers point into alive
+    recv.fixup_cache[key] = (args, table, consts)
+    return args
 
 
 def mhd_substep_overlap(fields: Sequence[Fields],

@@ -18,6 +18,7 @@ import torch
 
 from stencil_tpu_torch.geometry import Dim3, Radius
 from stencil_tpu_torch.local_domain import raw_size, zyx_shape
+from stencil_tpu_torch.utils.timers import kernel_profile
 
 pytestmark = pytest.mark.gpu
 
@@ -1198,7 +1199,9 @@ def _overlap_variants(pair):
                                        ((32, 8, 16), (1, 1, 2)),
                                        ((48, 48, 16), (1, 2, 2)),
                                        ((32, 16, 5), (1, 2, 4)),
-                                       ((208, 256, 96), (1, 2, 2))])
+                                       ((208, 256, 96), (1, 2, 2)),
+                                       ((48, 16, 24), (1, 2, 2)),
+                                       ((80, 64, 40), (1, 2, 2))])
 def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
     """B13 against its twin (the interior within 64 eps(f32) x max, the
     landed rows bitwise), B13's interior against B11 (B12 with the pair)
@@ -1207,7 +1210,13 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
     w=None, s = 1, s = 2 with write_w=False, and the pair. The interior's
     ny is not a multiple of the ring kernel's 16-row tile, at (32, 16, 5)
     on (1,2,4) with X below its 32 columns; on 104 x 128 x 96 shards the
-    ring kernel walks the interior's z in runs, the last one shorter."""
+    ring kernel walks the interior's z in runs, the last one shorter.
+    B14's y strips span Z - 2R rows of z, 18 on the 24 x 24 x 16 and
+    24 x 8 x 24 shards and 34 on 40 x 32 x 40 ones (none a multiple of
+    its 16-row tile; the last holds 2 rows); 24 x 8 x 24 shards are thin
+    in y (Y = 8) and narrower than a 32-column tile, 40 x 32 x 40 ones
+    take a second, partial column tile. Every launch of B14 is, per
+    shard, the launches ``fixup_plan`` counts (one with one substep)."""
     from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
 
     shards, ws = _mhd_mesh(size, mesh, 81)
@@ -1256,15 +1265,38 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
                         if write_w:
                             assert torch.equal(kw[i][q][cut], hw[q][cut]), (
                                 pair, s, i, q)
-            kf, kw = mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm, 1e-4,
-                                               counts, recv, pair=pair)
+            kernels, calls = kernel_profile(
+                lambda: mo.mhd_substep_fixup_cuda(f, w_in, kf, kw, s, prm,
+                                                  1e-4, counts, recv,
+                                                  pair=pair))
+            plan = mo.fixup_plan(Z, Y, shards[0].shape[3], pair)
+            assert sum(k["launches"] for k in kernels.values()) == \
+                len(f) * plan.launches, kernels
+            if not pair:
+                assert set(kernels) == {"mhd_shell_kernel"}, kernels
+            # one count a shard and call: B13 once, B14 once a call
             assert mo.LAUNCHES == {"mhd_substep_overlap": len(f),
-                                   "mhd_substep_fixup": len(f)}
+                                   "mhd_substep_fixup": calls * len(f)}
             for i, (hf, hw) in enumerate(halo):
                 for q in FIELDS:
                     assert torch.equal(kf[i][q], hf[q]), (pair, s, i, q)
                     if write_w:
                         assert torch.equal(kw[i][q], hw[q]), (pair, s, i, q)
+
+
+def test_b14_kernel_fits_the_planners_registers_without_spills(mo, tmp_path):
+    """B14's one-substep kernel (``mhd_shell_kernel``: both instances of
+    the ring, z and y, behind one uniform branch), every (read_w,
+    write_w) instantiation built as the package builds it: at most 128
+    registers a thread, no spill, and the one block an SM that the
+    planner counts (``FIXUP_BLOCKS_PER_SM``), as the card counts it."""
+    usage = _fresh_ptxas("mhd_overlap", tmp_path, "mhd_shell_kernel")
+    assert len(usage) == 4, usage      # (read_w, write_w)
+    for name, use in usage.items():
+        assert use["registers"] <= 128, (name, use)
+        assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
+            (name, use)
+    assert mo.fixup_occupancy(torch.device("cuda")) == mo.FIXUP_BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("shard", [0, 3])
