@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compile every kernel source of the package with nvcc, one
    process per source, all at once; the registers and spills of every
    instantiation of the two ring kernels (``csrc/mhd_ring.cuh``: B9 and
-   B11 in the ``mhd`` library, B13's interior in ``mhd_overlap``;
-   ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in ``jacobi_halo``)
-   are read from the ``-Xptxas=-v`` lines (a NOTE where one uses more
+   B11, launched twice each as B10 and B12, and B12's margin kernel in
+   the ``mhd`` library, B13's interior and B14's shell in
+   ``mhd_overlap``; ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in
+   ``jacobi_halo``) are read from the ``-Xptxas=-v`` lines (a NOTE where one uses more
    than 128 registers or spills), their opcode counts from ``cuobjdump
    -sass``.
 3. kernels vs plain twins, on the card:
@@ -38,12 +39,12 @@ Phases, in order; any failure exits non-zero before the last line:
      128 x 262 over (1,2,2) (z runs, the last one shorter). Tolerance:
      0, as K1/K2.
    - B9 (mhd_substep_wrap: s=0 with w=None, s=1, s=2 with
-     write_w=False), B10 (mhd_substep01_wrap) against its twin and
-     against two B9 launches, at the same shapes, dt 1e-8 and 1e-4.
-     Tolerance per field, for f and w: max |kernel - twin| <=
-     64 * eps(f32) * max |twin| (the kernels' expf and PyTorch's exp
-     differ by an ulp; every other operation is in the twin's order);
-     whether B9 came out bitwise is reported. B9 (every variant) also
+     write_w=False), B10 (mhd_substep01_wrap) against its twin, at the
+     same shapes, dt 1e-8 and 1e-4. Tolerance per field, for f and w:
+     max |kernel - twin| <= 64 * eps(f32) * max |twin| (the kernels'
+     expf and PyTorch's exp differ by an ulp; every other operation is
+     in the twin's order); whether B9 came out bitwise is reported. B10
+     also against B9 s=0 then B9 s=1, which it launches: bitwise. B9 (every variant) also
      against B11 on the same field as a (1,1,1) mesh, at those shapes,
      at 256^3 and at 136 x 128 x 96, where ``ring_zrun`` splits z into
      runs, the last one shorter. Tolerance: 0 (one kernel body).
@@ -55,10 +56,13 @@ Phases, in order; any failure exits non-zero before the last line:
      multiple of B11's 32-wide tile), on two 256^3 shards of a (1,1,2)
      mesh and on four 136 x 128 x 96 shards of a (1,2,2) mesh, where
      ``ring_zrun`` splits z into runs, the last one shorter; B12 also
-     against B11 s=0, a slab round and B11 s=1; on one shard B11
-     (every variant) against B9 and B12 against B10, bitwise. Tolerance:
-     B11 bitwise (it reads the shard and the slabs themselves and
-     computes B9's arithmetic, as its twin does), B12 as for B9.
+     against B11 s=0, a radius-R slab round and B11 s=1 (what it
+     launches, with substep 0 over the R rows around the shard in place
+     of the round) on every one of those meshes and layouts; on one shard
+     B11 (every variant) against B9 and B12 against B10. Tolerance: B11
+     bitwise (it reads the shard and the slabs themselves and computes
+     B9's arithmetic, as its twin does), B12 against its twin as for B9,
+     B12 against the B11 chain and B10 bitwise.
    - B4 (exchange_axis: every shard stores its boundary slabs into its
      neighbours' halos; one launch per card and sweep for every quantity
      and shard) sweep by sweep against its twin, each sweep one launch,
@@ -117,7 +121,8 @@ Phases, in order; any failure exits non-zero before the last line:
      with ``STENCIL_MHD_PAIR=1``, ``run(2)`` must launch B10 twice and
      B9 twice; neither launches B8, which no model path runs. The models
      run at dt 1e-4, where the rates move the float32 fields by many
-     ulps. Each run's fields, and the w it carries (substep 1's), agree
+     ulps. ``wrap``+pair equals ``wrap`` bitwise, fields and carried w.
+     Each run's fields, and the w it carries (substep 1's), agree
      with the plain ``xla`` path per field to ``substeps * 64 * eps(f32)
      * max |xla|`` (6 substeps), and a 16^3 run agrees with a float64
      ``xla`` run of the port to the same bound. Fields stay finite.
@@ -129,8 +134,10 @@ Phases, in order; any failure exits non-zero before the last line:
      within ``substeps * 64 * eps(f32) * max`` (bitwise is expected, and
      reported); ``halo`` on a 256^3 (1,1,1) mesh (6 B11 launches) the
      same against ``wrap``, and on (1,2,2) quarter shards against the
-     ``xla`` run above. Every run moves every field by more than 10x
-     that bound.
+     ``xla`` run above. ``halo``+pair equals ``halo`` bitwise, fields
+     and carried w, on the four 256^3 shards and on 256^3 (1,1,1) (2
+     B12 and 2 B11 launches). Every run moves every field by more than
+     10x that bound.
    - ``Jacobi3D(512, 512, 512, overlap=True)`` on (1,2,2) with four
      shards on the card (kernel="auto" must take ``overlap``): ``run(21)``
      launches B7 84 times (once per shard and step, launch A and B) and
@@ -169,7 +176,9 @@ Phases, in order; any failure exits non-zero before the last line:
    iterations over all their time, every run beside it); B11
    and B12 on one 256^3 shard of the (1,2,2) mesh, B11 per variant
    beside B9 and B13 on the same shard in turns (B9, B11, B13, B13, B11,
-   B9); ``overlap``
+   B9), B10 and B12 by device time alone (``device_ms``, below) beside
+   B9 and B11 s=0 and s=1 on that shard, and per kernel they launch;
+   ``overlap``
    steps/s at 512^3
    on (1,2,2) and (1,1,1), B4 per sweep of the (1,2,2) mesh beside the
    same sweep by ``copy_`` (its library call), an 8-field z sweep of
@@ -976,8 +985,12 @@ def compare_mhd_kernels(torch, cs, cm) -> dict:
             del tf, tw
             f1, w1 = cm.mhd_substep_wrap_cuda(f, None, 0, prm, dt)
             f2, w2 = cm.mhd_substep_wrap_cuda(f1, w1, 1, prm, dt)
-            check_fields(torch, kf, f2, f"B10 vs two B9 launches, f {tag}")
-            check_fields(torch, kw, w2, f"B10 vs two B9 launches, w {tag}")
+            same = same_bits(torch, (kf, kw), (f2, w2))
+            log(f"  B10 {tag} vs B9 s=0 then B9 s=1: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"B10 {tag} differs from B9 s=0 then "
+                                     f"B9 s=1")
             del f, w, t, own, kf, kw, f1, w1, f2, w2
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1128,10 +1141,11 @@ def compare_mhd_halo_kernels(torch, cm) -> dict:
                                                   sl1[i], 1, prm, dt)
                 kf, kw = cm.mhd_substep01_halo_cuda(per_field(t), sl12[i],
                                                     prm, dt)
-                check_fields(torch, kf, f2, f"B12 vs B11 + slabs + B11, f "
-                             f"{tag} shard {i}")
-                check_fields(torch, kw, w2, f"B12 vs B11 + slabs + B11, w "
-                             f"{tag} shard {i}")
+                if not same_bits(torch, (kf, kw), (f2, w2)):
+                    raise AssertionError(f"B12 {tag} shard {i} differs from "
+                                         f"B11 s=0, a slab round, B11 s=1")
+            log(f"  B12 {tag} vs B11 s=0, a radius-R slab round, B11 s=1: "
+                f"bitwise equal on all {len(shards)} shards")
             del one, f1, sl1, f2, w2, kf, kw
         del shards, ws, sl11, sl12
         torch.cuda.synchronize()
@@ -1235,6 +1249,12 @@ def run_astaroth(torch, cs, cm) -> dict:
         got[label] = state(m)
         del m
         torch.cuda.empty_cache()
+    same = same_bits(torch, got["wrap+pair"], got["wrap"])
+    log(f"  256^3 wrap+pair vs wrap after 2 iterations (fields and carried "
+        f"w): {'bitwise equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("wrap+pair differs from wrap")
+    out["pair_vs_wrap_bitwise"] = same
     want_f, want_w = xla_reference()
     torch.cuda.empty_cache()
     for label, (gf, gw) in got.items():
@@ -1260,8 +1280,10 @@ def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
     order, and the slabs hold the neighbours' rows: bitwise; the bound
     held is substeps x 64 eps x max). 256^3 ``halo`` on (1,1,1) (6 B11
     launches) equals ``wrap``; on (1,2,2) (quarter shards) it agrees with
-    the xla path of run_astaroth within PR 2's path bound. Each run must
-    move every field by more than 10x that bound."""
+    the xla path of run_astaroth within the same bound. With the pair
+    the path equals itself without it bitwise, fields and carried w, on
+    the four shards and on (1,1,1) (B12 is B11 s=0, the margin and B11
+    s=1). Each run must move every field by more than 10x that bound."""
     from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
 
     factor = 6 * 64.0
@@ -1327,6 +1349,14 @@ def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
         out[f"halo_vs_wrap_max_diff {label}"] = err
         out[f"halo_vs_wrap_bitwise {label}"] = same
 
+    def pair_vs_single(label, got_pair, got):
+        same = same_bits(torch, got_pair, got)
+        log(f"  halo+pair vs halo {label} after 2 iterations (fields and "
+            f"carried w): {'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"halo+pair differs from halo, {label}")
+        out[f"pair_vs_halo_bitwise {label}"] = same
+
     big = (N256, 2 * N256, 2 * N256)           # (nx, ny, nz)
     for label, pair, want in (
             ("256x512x512 (1,2,2)", "0", {"mhd_substep_halo": 24}),
@@ -1337,10 +1367,16 @@ def run_astaroth_halo(torch, cs, cm, xla_fields) -> dict:
         # the halo-overlap path is held against these (phase 4, B13/B14)
         out.setdefault("halo_state", {})[pair] = got
         del got
+    pair_vs_single("256x512x512 (1,2,2)", out["halo_state"]["1"],
+                   out["halo_state"]["0"])
     cube = (N256,) * 3
     got = drive("256^3 (1,1,1)", "halo", cube, (1, 1, 1), "0",
                 {"mhd_substep_halo": 6})
     against_wrap("256^3 (1,1,1)", cube, got, "0")
+    pair_vs_single("256^3 (1,1,1)",
+                   drive("256^3 (1,1,1) pair", "halo", cube, (1, 1, 1), "1",
+                         {"mhd_substep_halo": 2, "mhd_substep01_halo": 2}),
+                   got)
     got = drive("256^3 (1,2,2)", "halo", cube, (1, 2, 2), "0",
                 {"mhd_substep_halo": 24})
     out["halo_quarter_vs_xla_max_diff"] = check_fields(
@@ -1469,7 +1505,9 @@ def time_mhd_halo(torch, cm, mo, ptxas) -> dict:
     card) and of ``halo`` at 256^3 on (1,1,1); one slab round (all 8
     fields of every shard) at radius R and 2R; B11 (each variant) and
     B12 on one 256^3 shard of that mesh, B11 also in turns with B9 and
-    B13 on the same shard."""
+    B13 on the same shard; B10 and B12 by device time alone beside the
+    B9 and B11 launches they are made of, on that shard, and per kernel
+    they launch."""
     from stencil_tpu_torch.geometry import Dim3
     from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
 
@@ -1477,7 +1515,7 @@ def time_mhd_halo(torch, cm, mo, ptxas) -> dict:
     big = (N256, 2 * N256, 2 * N256)
     for label, size, mesh, pair, k in (
             ("halo 256x512x512 (1,2,2)", big, (1, 2, 2), "0", 10),
-            ("halo+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1", 4),
+            ("halo+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1", 10),
             ("halo 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "0", 20)):
         with mhd_pair(pair):
             m = Astaroth(*size, kernel="halo", mesh_shape=mesh,
@@ -1592,6 +1630,39 @@ def time_mhd_halo(torch, cm, mo, ptxas) -> dict:
             f"{entry['b13_ptxas']}")
         b11.append(entry)
     del recv, of, ow
+    # B10 and B12 beside the launches they are made of, on the same
+    # shard's fields, by device time alone (``device_ms``) and per kernel
+    # they launch (``kernel_profile``): B10 is B9 s=0 then B9 s=1 (the
+    # fields as a periodic field), B12 B11 s=0, the margin, B11 s=1
+    from stencil_tpu_torch.utils.timers import kernel_profile
+
+    res["pair_device_ms"] = dev = {}
+    pair_fns = {
+        "B9 s=0 (w=None)": lambda: cm.mhd_substep_wrap_cuda(f, None, 0, prm,
+                                                            dt),
+        "B9 s=1": lambda: cm.mhd_substep_wrap_cuda(f, w, 1, prm, dt),
+        "B10": lambda: cm.mhd_substep01_wrap_cuda(f, prm, dt),
+        "B11 s=0 (w=None)": lambda: cm.mhd_substep_halo_cuda(f, None, sl3, 0,
+                                                             prm, dt),
+        "B11 s=1": lambda: cm.mhd_substep_halo_cuda(f, w, sl3, 1, prm, dt),
+        "B12": lambda: cm.mhd_substep01_halo_cuda(f, sl6, prm, dt)}
+    for name, fn in pair_fns.items():
+        dev[name] = device_ms(torch, fn, reps=10)
+    for tag, name in (("B10", "mhd_substep01_wrap"),
+                      ("B12", "mhd_substep01_halo")):
+        split = kernel_profile(pair_fns[tag], 3)[0]
+        res.setdefault("pair_kernels", {})[name] = split
+        chain = (dev[f"{'B9' if tag == 'B10' else 'B11'} s=0 (w=None)"]
+                 + dev[f"{'B9' if tag == 'B10' else 'B11'} s=1"])
+        log(f"  {tag} on one 256^3 shard: device time alone {dev[tag]!r} ms "
+            f"against its substeps launched alone {chain!r} ms; kernels a "
+            f"call { {k: v['launches'] for k, v in split.items()} }, "
+            f"{ {k: round(v['us'], 2) for k, v in split.items()} } us")
+    kernels["mhd_substep01_halo"].update(
+        device_ms=dev["B12"],
+        design="B11 s=0 over the shard, substep 0 over the R rows around "
+               "it (mhd_margin_kernel, from slabs of 2R rows), B11 s=1: "
+               "three launches of the ring kernel, no window")
     kernels["mhd_substep_halo"] = {
         k: sum(v[k] for v in b11) / 3 for k in ("ms", "plain_ms", "bound_ms")}
     kernels["mhd_substep_halo"].update(
@@ -2531,7 +2602,7 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
         design="one substep: one launch a shard of the ring kernel "
                "(mhd_shell_kernel), z strips walked in z and y strips in "
                "y, margin rows from the shard and the landed rows, no "
-               "scratch; pair: strip windows + B12's tiles",
+               "scratch; pair: strip windows + the kT^3 pair tiles",
         blocks_per_sm=card_bps)
     shell = mo.fixup_plan(n, n, n, False).shell
     n_sms = cm.sm_count(torch.device("cuda"))
@@ -2594,8 +2665,10 @@ def kernel_key(lib: str, name: str):
     """(library, read_w, write_w) of an MHD ring-kernel instantiation
     (``mhd_substep_ring_kernel<kReadW, kWriteW>``, which the ``mhd``
     library launches as B9 and B11 and ``mhd_overlap`` as B13's
-    interior), (library, "shell", read_w, write_w) of B14's
-    (``mhd_shell_kernel``, the ring's z and y instances), or (library,
+    interior, and twice each as B10 and B12), (library, "shell", read_w,
+    write_w) of B14's (``mhd_shell_kernel``, the ring's z and y
+    instances), (library, "margin") of B12's margin
+    (``mhd_margin_kernel``, the same two instances), or (library,
     "jacobi_ring") of the Jacobi ring kernel (K2 in ``jacobi7``, B6 in
     ``jacobi_halo``), from its mangled name, else None."""
     import re
@@ -2606,6 +2679,8 @@ def kernel_key(lib: str, name: str):
     m = re.search(r"mhd_shell_kernelILb(\d)ELb(\d)E", name)
     if m and lib in RING_LIBS:
         return (lib, "shell", m.group(1) == "1", m.group(2) == "1")
+    if "mhd_margin_kernel" in name and lib in RING_LIBS:
+        return (lib, "margin")
     if "jacobi_ring_kernel" in name and lib in RING_LIBS:
         return (lib, "jacobi_ring")
     return None
@@ -2778,7 +2853,7 @@ def main() -> int:
     halo_times = time_halo(torch, cs, ch)
     ips, ips_runs = {}, {}
     for path, kernel, k, pair in (("wrap", "wrap", 20, "0"),
-                                  ("wrap+pair", "wrap", 10, "1"),
+                                  ("wrap+pair", "wrap", 20, "1"),
                                   ("xla", "xla", 3, "0")):
         ips[path], ips_runs[path] = iters_per_s(torch, kernel, k, pair)
         log(f"  Astaroth {path}: {ips[path]!r} iterations/s over three "
@@ -2790,6 +2865,9 @@ def main() -> int:
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
     times.update(mhd_halo_times["kernels"])
+    times["mhd_substep01_wrap"].update(
+        device_ms=mhd_halo_times["pair_device_ms"]["B10"],
+        design="B9 s=0 then B9 s=1: two launches of the ring kernel")
     times.update(dma_times["kernels"])
     times.update(mhd_overlap_times["kernels"])
 
@@ -2811,6 +2889,9 @@ def main() -> int:
             entry["ptxas"] = ptxas.get(
                 ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
                  "jacobi_ring"), {})
+        if name == "mhd_substep01_halo":
+            entry["ptxas"] = {"mhd_margin_kernel": ptxas.get(("mhd",
+                                                              "margin"), {})}
         if name == "mhd_substep_fixup":
             entry["ptxas"] = {
                 f"read_w={k[2]}, write_w={k[3]}": use
@@ -2843,6 +2924,8 @@ def main() -> int:
                        mhd_halo_times["slab_exchange_ms"],
                    "b9_same_shard_ms": mhd_halo_times["b9_same_shard_ms"],
                    "b13_same_shard_ms": mhd_halo_times["b13_same_shard_ms"],
+                   "pair_device_ms": mhd_halo_times["pair_device_ms"],
+                   "pair_kernels": mhd_halo_times["pair_kernels"],
                    "astaroth_overlap_iteration_ms":
                        mhd_overlap_times["iteration_ms"],
                    "main_path": main_path, "halo_path": halo_path,

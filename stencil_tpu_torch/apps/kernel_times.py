@@ -2,8 +2,9 @@
 """Time the kernels of one checkout of the port on one CUDA card, so
 that two checkouts can be compared in turns in one call.
 
-    python3 stencil_tpu_torch/apps/kernel_times.py [--model jacobi|mhd]
-        [--root DIR] [--label NAME] [--paths] [--baseline]
+    python3 stencil_tpu_torch/apps/kernel_times.py
+        [--model jacobi|mhd|pair] [--root DIR] [--label NAME] [--paths]
+        [--baseline]
 
 ``--root DIR`` imports ``stencil_tpu_torch`` from DIR (default: this
 checkout), say a parent commit unpacked with ``git archive`` into a
@@ -42,6 +43,19 @@ the one shard: B11's ring kernel (``launch_ring`` of DIR's
 against DIR's headers, held bitwise against B14 first. ``--paths`` adds
 the Astaroth ``halo-overlap`` and ``halo`` rates on 256 x 512 x 512 over
 (1,2,2), four shards on the card (three ``run(10)``).
+
+``--model pair``: the substep pair B10 (mhd_substep01_wrap) and B12
+(mhd_substep01_halo) beside the one-substep kernels they are made of,
+on one 256^3 shard (shard 0 of four random 256^3 shards of 256 x 512 x
+512 over (1,2,2), sigma 0.1, w sigma 1e-4, from a seeded generator):
+B9 for each variant and B10 on its fields as a periodic field; B11 for
+each variant on its slabs of R rows and B12 on its slabs of 2R rows;
+B13 for each variant on the shard as a (1,1,1) mesh (its sends and its
+interior, which the ring kernel computes). Each by CUDA events, by its
+device time alone and per kernel it launches, as ``--model mhd`` times
+B14. ``--paths`` adds the Astaroth rates of ``wrap`` and ``wrap`` +
+pair at 256^3 and of ``halo`` and ``halo`` + pair on 256 x 512 x 512
+over (1,2,2), four shards on the card (three ``run(10)`` each).
 
 Writes one JSON object to
 ``chiprun_out/kernel_times_<model>_<label>.json`` and prints it as the
@@ -387,9 +401,124 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
     return res
 
 
+def pair(args, m: Measuring, log: io.StringIO) -> dict:
+    import torch
+
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+    from stencil_tpu_torch.ops import _build
+    from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+
+    smoke, reps, n = m.smoke, 10, 256
+    with contextlib.redirect_stdout(log):
+        _build.build_all(["mhd", "mhd_overlap"])
+    gen = torch.Generator(device="cuda").manual_seed(13579)
+    shards, ws = smoke.mhd_mesh_case(torch, gen, (2 * n, 2 * n, n),
+                                     (1, 2, 2))
+    f, w = smoke.per_field(shards[0]), smoke.per_field(ws[0])
+    sl3 = smoke.mhd_slabs(shards, (1, 2, 2), rz=cm.R, ry=cm.R)[0]
+    sl6 = smoke.mhd_slabs(shards, (1, 2, 2), rz=2 * cm.R, ry=2 * cm.R)[0]
+    del shards[1:], ws[1:]
+    prm = MhdParams()
+    dt = prm.dt
+    pts = float(n ** 3)
+    field = 4 * pts
+    one = Dim3(1, 1, 1)
+    recv = mo.MhdOverlapRecv([shards[0]], one)
+    of = [smoke.per_field(torch.empty_like(shards[0]))]
+    ow = [smoke.per_field(torch.empty_like(shards[0]))]
+    inner = (n - 2 * cm.R) ** 2 * n
+
+    def slab_bytes(r):       # the slab rows a kernel reads, 8 fields
+        return 8 * 4.0 * (2 * r * n * n + 2 * (n + 2 * r) * r * n)
+
+    cases = {}
+    for s, read_w, write_w in MHD_VARIANTS:
+        tag = _tag(s, read_w, write_w)
+        w_in = w if read_w else None
+        wr = (8 if read_w else 0) + (8 if write_w else 0)
+        flops = smoke.B9_FLOPS[s] * pts
+
+        def b9(w_in=w_in, s=s, write_w=write_w):
+            cm.mhd_substep_wrap_cuda(f, w_in, s, prm, dt, write_w=write_w)
+
+        def b11(w_in=w_in, s=s, write_w=write_w):
+            cm.mhd_substep_halo_cuda(f, w_in, sl3, s, prm, dt,
+                                     write_w=write_w)
+
+        def b13(w_in=w_in, s=s, write_w=write_w):
+            mo.mhd_substep_overlap_cuda(
+                [f], None if w_in is None else [w_in], s, prm, dt, one,
+                write_w=write_w, out_f=of, out_w=ow if write_w else None,
+                recv=recv)
+
+        cases[f"B9 {tag}"] = (b9, (8 + 8 + wr) * field, flops)
+        cases[f"B11 {tag}"] = (b11, (8 + 8 + wr) * field + slab_bytes(cm.R),
+                               flops)
+        cases[f"B13 {tag}"] = (b13, 4.0 * (8 * pts + (8 + wr) * inner)
+                               + slab_bytes(cm.R),
+                               smoke.B9_FLOPS[s] * inner)
+    cases["B10"] = (lambda: cm.mhd_substep01_wrap_cuda(f, prm, dt),
+                    24 * field, smoke.B10_FLOPS * pts)
+    cases["B12"] = (lambda: cm.mhd_substep01_halo_cuda(f, sl6, prm, dt),
+                    24 * field + slab_bytes(2 * cm.R),
+                    smoke.B10_FLOPS * pts)
+    turns = time_in_turns(cases, {
+        "events": lambda fn: smoke.event_ms(torch, fn, reps),
+        "device": lambda fn: smoke.device_ms(torch, fn, reps)})
+    res = {"reps": reps, "cases": {}}
+    for name, (fn, nbytes, flops) in cases.items():
+        ms = sum(turns[name]["events"]) / 2
+        dev_ms = sum(turns[name]["device"]) / 2
+        bound, by = smoke.bound_ms(nbytes, flops)
+        split = m.timers.kernel_profile(fn, 3)[0]
+        res["cases"][name] = {
+            "ms": ms, "turns_ms": turns[name]["events"], "device_ms": dev_ms,
+            "turns_device_ms": turns[name]["device"], "bound_ms": bound,
+            "bound_by": by, "share_device": bound / dev_ms, "split": split}
+        print(f"{args.label}: {name}, one 256^3 shard: {ms!r} ms by events "
+              f"({turns[name]['events']}), device alone {dev_ms!r} ms "
+              f"({turns[name]['device']}), bound {bound!r} ms ({by}), "
+              f"{100 * bound / dev_ms:.1f}% of bound on the device; kernels "
+              f"{ {k: round(v['us'], 2) for k, v in split.items()} } us, "
+              f"launches { {k: v['launches'] for k, v in split.items()} }",
+              flush=True)
+    del cases, shards, ws, f, w, sl3, sl6, recv, of, ow
+    torch.cuda.empty_cache()
+    if args.paths:
+        res["paths"] = {}
+        big = (n, 2 * n, 2 * n)
+        for label, size, mesh, kernel, on in (
+                ("wrap 256^3", (n,) * 3, (1, 1, 1), "wrap", "0"),
+                ("wrap+pair 256^3", (n,) * 3, (1, 1, 1), "wrap", "1"),
+                ("halo 256x512x512 (1,2,2)", big, (1, 2, 2), "halo", "0"),
+                ("halo+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "halo",
+                 "1")):
+            with smoke.mhd_pair(on):
+                a = Astaroth(*size, kernel=kernel, mesh_shape=mesh,
+                             devices=["cuda:0"] * (mesh[1] * mesh[2]))
+            a.init()
+            a.run(1)
+            a.block()
+            rate, runs = smoke.timed_runs(a, 10)
+            res["paths"][label] = [rate, runs]
+            print(f"{args.label}: path {label}: {rate!r} iterations/s "
+                  f"({runs})", flush=True)
+            del a
+            torch.cuda.empty_cache()
+    res["ptxas"] = {name: use for (lib, name), use
+                    in m.build.ptxas_usage(log.getvalue()).items()
+                    if lib in ("mhd", "mhd_overlap")}
+    return res
+
+
+MODELS = {"jacobi": jacobi, "mhd": mhd, "pair": pair}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("jacobi", "mhd"), default="jacobi")
+    ap.add_argument("--model", choices=tuple(MODELS), default="jacobi")
     ap.add_argument("--root", default=str(TREE))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--paths", action="store_true")
@@ -408,7 +537,7 @@ def main(argv=None) -> int:
     log = io.StringIO()
     res = {"model": args.model, "label": args.label, "card": card,
            "root": args.root}
-    res.update((jacobi if args.model == "jacobi" else mhd)(args, m, log))
+    res.update(MODELS[args.model](args, m, log))
     for name, use in res["ptxas"].items():
         print(f"{args.label}: ptxas {name}: {use}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)

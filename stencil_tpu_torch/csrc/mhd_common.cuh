@@ -5,9 +5,9 @@
 // The Astaroth right-hand sides (models/astaroth.py mhd_rates;
 // reference: astaroth/user_kernels.h:383-453) with the 6th-order
 // operators of ops/fd6.py, the run's constants (struct Consts, filled by
-// ops/cuda_mhd.py kernel_consts), the index helpers of the periodic
-// field (Idx) and of a window (PadIdx), and the halo-slab layout of
-// B11/B12 (halo_row). Every derivative and every term is formed in the
+// ops/cuda_mhd.py kernel_consts), the index helper of a window (PadIdx)
+// and the tiles of B13's and B14's pair forms, and the halo-slab layout
+// of B11/B12 (halo_row). Every derivative and every term is formed in the
 // plain twins' order of operations; the libraries are built -fmad=false,
 // so no a*b+c is contracted into one rounding.
 //
@@ -40,8 +40,9 @@ constexpr float kDC_3 = static_cast<float>(2.0 / 720.0);
 // mhd_rates and fd6 compute them and rounded once to float
 // (ops/cuda_mhd.py kernel_consts, same order). mhd_rates' literals
 // (third ... c0001) travel here too: as constexpr immediates they give
-// the same values, but ptxas then allots B10 128 registers instead of
-// 130 and B10 runs 13 % slower on an H100 (PERF.md, Findings).
+// the same values, but ptxas then allotted the first fused pair kernel
+// 128 registers instead of 130, and it ran 13 % slower on an H100
+// (PERF.md, Findings).
 struct Consts {
   float inv_ds[3];             // 1/ds (der1)
   float inv_ds2[3];            // (1/ds)^2 (der2)
@@ -49,8 +50,8 @@ struct Consts {
   float third, two_thirds, half, inv_mu0, eta, cs2_sound, gamma_cp,
       gamma_m1, lnrho0, inv_cp, nu_visc, two, zeta, lnT0, eta_mu0, two_nu,
       gamma, one, c0001, cp;
-  float dt, alpha, beta;       // B9: the substep's RK3 coefficients
-  float beta0, alpha1, beta1;  // B10: substeps 0 and 1
+  float dt, alpha, beta;       // the substep's RK3 coefficients
+  float beta0, alpha1, beta1;  // the pair's: substeps 0 and 1
 };
 constexpr int kNConsts = 35;
 static_assert(sizeof(Consts) == kNConsts * sizeof(float), "Consts layout");
@@ -266,37 +267,11 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return m < 0 ? m + n : m;
 }
 
-// Periodic offsets of the 7 x columns, 7 y rows and 7 z planes around
-// one point, wrapped once per point (21 modulo operations) so that no
-// neighbour access divides.
-struct Idx {
-  int x[2 * R + 1], y[2 * R + 1], z[2 * R + 1];
-  __device__ __forceinline__ Idx(int px, int py, int pz, int X, int Y,
-                                 int Z) {
-    const int XY = X * Y;
-#pragma unroll
-    for (int d = -R; d <= R; ++d) {
-      x[d + R] = wrap(px + d, X);
-      y[d + R] = wrap(py + d, Y) * X;
-      z[d + R] = wrap(pz + d, Z) * XY;
-    }
-  }
-  __device__ __forceinline__ int at(int dx, int dy, int dz) const {
-    return z[dz + R] + y[dy + R] + x[dx + R];
-  }
-};
-
-// a field in device memory around one point, through the read-only path
-struct GlobalAt {
-  const float* __restrict__ p;
-  const Idx& I;
-  __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
-    return __ldg(p + I.at(dx, dy, dz));
-  }
-};
-
 constexpr int kBX = 32;
 
+// The tiles of B13's and B14's pair forms (mhd_overlap.cu
+// mhd_region01_kernel): substeps 0 and 1 on a kT^3 tile, substep 0
+// recomputed on the tile extended by R and kept in shared memory.
 constexpr int kT = 8;                 // tile edge, z, y and x
 constexpr int kE = kT + 2 * R;        // extended tile edge
 constexpr int kE3 = kE * kE * kE;     // 2744 extended points
@@ -356,8 +331,8 @@ __device__ __forceinline__ const float* halo_row(const InPtrs& f,
 }
 
 // Offsets of the 7 x columns, 7 y rows and 7 z planes around one point
-// of the (Z + 2rr, Y + 2rr, X) window: x wrapped, y and z shifted by rr
-// (B9's Idx, with the window's rows in place of y/z wrapping).
+// of the (Z + 2rr, Y + 2rr, X) window: x wrapped once per point (so that
+// no neighbour access divides), y and z shifted by rr.
 struct PadIdx {
   int x[2 * R + 1], y[2 * R + 1], z[2 * R + 1];
   __device__ __forceinline__ PadIdx(int px, int py, int pz, int X, int Yw,

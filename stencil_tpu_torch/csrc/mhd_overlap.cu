@@ -28,8 +28,9 @@
 //     (the z-streaming ring of mhd_ring.cuh, its margin rows read from
 //     the shard itself: the radius-R neighbourhood of those points lies
 //     in the shard, so the values are B11's bit for bit); with the pair
-//     (substeps 0+1, hr = 2R) B12's kT^3 tiles whose ring reads stay in
-//     the shard, z and y in [kT, n-kT), the shard read as their window.
+//     (substeps 0+1, hr = 2R) the kT^3 pair tiles (B12's first design)
+//     whose ring reads stay in the shard, z and y in [kT, n-kT), the
+//     shard read as their window.
 //   launch B (B14): the exterior shell that launch A left, as up to four
 //     strips (z in [0, e) and [Z-e, Z) at every y, then y in [0, e) and
 //     [Y-e, Y) between them; e = R, or kT with the pair). With one
@@ -42,8 +43,9 @@
 //     rows by B11's source rule (halo_row_of); there is no window and no
 //     scratch. With the pair (rr = 2R), each strip's radius-rr window is
 //     gathered from the shard and the landed rows by the same rule and
-//     B12's compute runs on it. B14 after B13 is therefore B11 (B12)
-//     point for point: bitwise.
+//     the pair tiles run on it. B14 after B13 is therefore B11 (with
+//     the pair, B11 s=0 -> a slab round -> B11 s=1, which is B12) point
+//     for point: bitwise.
 //
 // The barrier and the DMA waits become two ordering rules, carried by
 // CUDA events between the per-shard streams (ops/cuda_overlap.py
@@ -66,9 +68,10 @@
 // (mhd_ring.cuh), one launch a shard each. A strip is only R deep, so
 // each of B14's blocks loads 3R slices for the R it computes, and at one
 // 512-thread block an SM the shell of a 256^3 shard is 512 blocks, ~3.9
-// waves on 132 SMs (PERF.md). The pair keeps the first, simple design:
-// its interior and its shell are B12's tiles (mhd_region01_kernel) on a
-// window, the shell's strip windows gathered into scratch first.
+// waves on 132 SMs (PERF.md). The pair keeps the first, simple design
+// (B12's first design): its interior and its shell are kT^3 pair tiles
+// (mhd_region01_kernel) on a window, the shell's strip windows gathered
+// into scratch first.
 
 #include "mhd_common.cuh"
 #include "mhd_ring.cuh"
@@ -174,7 +177,7 @@ struct RegionGeom {
 
 // ---------------------------------------------------------------------
 // RK3 substeps 0 and 1 on the kT^3 tiles of one region (nz, ny multiples
-// of kT), B12's kernel point for point: phase 1 evaluates substep 0 on
+// of kT), the first design of B12 point for point: phase 1 evaluates substep 0 on
 // the tile extended by R from the region's window (rr = 2R beyond the
 // tile), keeping f1 in shared memory; phase 2 substep 1 on the tile from
 // shared memory only. Grid: blocks(X, kT) x ny/kT x nz/kT tiles, one
@@ -273,7 +276,7 @@ long long total_rows(const Regions& rs) {
   return t;
 }
 
-// B12's compute (the pair) over the regions on window win, one launch
+// The pair tiles' compute over the regions on window win, one launch
 // per region; nothing to do for an empty set
 cudaError_t launch_pair_regions(const InPtrs& win, void* const* out_f,
                                 void* const* out_w, const Regions& rs,
@@ -342,19 +345,20 @@ mhd_shell_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of, OutPtrs ow,
   __shared__ RowSrc rows[RingTile::kRows];
   constexpr int kTY = RingTile::kTY;
   const int x0 = blockIdx.x * kBX;
+  const OutMap om{0, h.Y * h.X};
   int b = blockIdx.y;
   if (b < p.nzs * p.tz) {
     const bool far = b >= p.tz;
     b -= far ? p.tz : 0;
     ring_run<kStreamZ, kReadW, kWriteW>(
-        f, w, sl, of, ow, h, kHaloRows, x0, b * kTY, h.Y, far ? p.zt : 0,
-        far ? h.Z : min(R, h.Z), c, ring, rows);
+        f, w, sl, of, ow, h, om, kHaloRows, x0, b * kTY, h.Y,
+        far ? p.zt : 0, far ? h.Z : min(R, h.Z), c, ring, rows);
   } else {
     b -= p.nzs * p.tz;
     const bool far = b >= p.ty;
     b -= far ? p.ty : 0;
     ring_run<kStreamY, kReadW, kWriteW>(
-        f, w, sl, of, ow, h, kHaloRows, x0, R + b * kTY, h.Z - R,
+        f, w, sl, of, ow, h, om, kHaloRows, x0, R + b * kTY, h.Z - R,
         far ? p.yt : 0, far ? h.Y : min(R, h.Y), c, ring, rows);
   }
 }
@@ -435,8 +439,8 @@ cudaError_t mhd_substep_overlap_launch(
 // one launch of mhd_shell_kernel reads the shard and the landed rows
 // itself (window NULL). The pair: plan is the pair's shell as n_plan
 // regions for launch A, window 8 scratch buffers holding every region's
-// window at its woff; the strip windows are gathered, then B12's
-// compute runs per region.
+// window at its woff; the strip windows are gathered, then the pair
+// tiles run per region.
 cudaError_t mhd_substep_fixup_launch(
     const void* const* fields, const void* const* w, const void* const* slabs,
     void* const* window, void* const* out_f, void* const* out_w,

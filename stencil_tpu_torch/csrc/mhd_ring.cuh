@@ -1,10 +1,13 @@
 // The streaming MHD RK3 substep for Hopper (sm_90a), float32: one
-// kernel body that csrc/mhd.cu launches as B9 and B11 and
-// csrc/mhd_overlap.cu as B13's interior (walking z) and as B14's shell
-// (its z strips walking z, its y strips walking y).
+// kernel body that csrc/mhd.cu launches as B9 and B11, twice each as
+// the substep pairs B10 and B12, and over B12's margin (its z strips
+// walking z, its y strips walking y), and csrc/mhd_overlap.cu as B13's
+// interior (walking z) and as B14's shell (its z strips walking z, its
+// y strips walking y).
 //
-// One RK3 substep s over a region of a (Z, Y, X) field or shard: the
-// points z in [z0, z0 + nz), y in [y0, y0 + ny), every x (x wrapped):
+// One RK3 substep s over a region of a (Z, Y, X) field or shard (or, for
+// B12's margin, the rows just outside a shard): the points z in [z0, z0 +
+// nz), y in [y0, y0 + ny), every x (x wrapped):
 //   wq = dt * rates;  wq = alpha * w + wq  (only when w is read);
 //   w_out = wq (only when written);  f_out = value + beta * wq.
 // kReadW=false is w=None (alpha_0 == 0: substep 0 never reads w);
@@ -49,7 +52,10 @@
 // The values are therefore B11's bit for bit in every launch: on a
 // (1,1,1) mesh B11's slabs are the shard's own wrapped rows, and B13's
 // interior and B14's strips read, tap for tap, the rows B11 reads at
-// the same points.
+// the same points; B12's margin, points up to R outside the shard,
+// reads its rows from slabs of 2R rows, the rows the neighbour's own
+// B11 reads at those points. Where a point's values go is the launch's
+// output map (OutMap): the shard's layout, or a slab's.
 
 #pragma once
 
@@ -84,6 +90,13 @@ struct RingGeom {
   int z0, nz, y0, ny;
   int zrun;
   int source;  // RowSource
+};
+
+// Where point (z, y, x) is written (and w read): off + z zs + y X + x.
+// The shard: off = 0, zs = Y X; a z slab of R rows from z0: off = -z0 Y
+// X, zs = Y X; a z-extended y slab: zs = R X (mhd.cu MarginPlan).
+struct OutMap {
+  int off, zs;
 };
 
 // Where margin row (q, u) of slice p comes from, set up once a block (u
@@ -127,14 +140,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // One block's walk: the tile of 32 x columns from x0 and 16 rows from u0
 // (rows at or past u1, the region's end, are masked), slices s0 to s1 of
-// the streaming axis kAxis, margin rows from source (the y instance
-// takes kHaloRows only). ring: the kernel's dynamic shared memory, rows
-// its RowSrc table.
+// the streaming axis kAxis (u and the slices may lie up to R outside the
+// shard when the slabs hold 2R rows), margin rows from source (the y
+// instance takes kHaloRows only), outputs (and w) at om. ring: the
+// kernel's dynamic shared memory, rows its RowSrc table.
 template <int kAxis, bool kReadW, bool kWriteW>
 __device__ __forceinline__ void ring_run(
     const InPtrs& f, const InPtrs& w, const SlabPtrs& sl, const OutPtrs& of,
-    const OutPtrs& ow, const HaloGeom& h, int source, int x0, int u0, int u1,
-    int s0, int s1, const Consts& c, float* ring, RowSrc* rows) {
+    const OutPtrs& ow, const HaloGeom& h, const OutMap& om, int source,
+    int x0, int u0, int u1, int s0, int s1, const Consts& c, float* ring,
+    RowSrc* rows) {
   using T = RingTile;
   const int Z = h.Z, Y = h.Y, X = h.X;
   const int N = kAxis == kStreamZ ? Z : Y;  // slices of the streaming axis
@@ -215,7 +230,9 @@ __device__ __forceinline__ void ring_run(
           c, F);
       float r[kNF];
       mhd_rates(F, c, r);
-      const int og = (kAxis == kStreamZ ? s * Y + u : u * Y + s) * X + x;
+      const int og =
+          om.off + x +
+          (kAxis == kStreamZ ? s * om.zs + u * X : u * om.zs + s * X);
 #pragma unroll
       for (int q = 0; q < kNF; ++q) {
         float wq = c.dt * r[q];
@@ -239,8 +256,8 @@ mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
   __shared__ RowSrc rows[RingTile::kRows];  // row k = q * kPY + ru
   const int z0 = g.z0 + blockIdx.z * g.zrun;
   ring_run<kStreamZ, kReadW, kWriteW>(
-      f, w, sl, of, ow, g.h, g.source, blockIdx.x * kBX,
-      g.y0 + blockIdx.y * RingTile::kTY, g.y0 + g.ny, z0,
+      f, w, sl, of, ow, g.h, OutMap{0, g.h.Y * g.h.X}, g.source,
+      blockIdx.x * kBX, g.y0 + blockIdx.y * RingTile::kTY, g.y0 + g.ny, z0,
       min(z0 + g.zrun, g.z0 + g.nz), c, ring, rows);
 }
 

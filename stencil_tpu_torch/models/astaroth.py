@@ -19,8 +19,9 @@ model:
   ``sync_domain()``); one iteration is three launches of the fused
   substep kernel B9 (``mhd_substep_wrap_cuda``): substep 0 with
   ``w=None``, substep 1, substep 2 with ``write_w=False``. With
-  ``STENCIL_MHD_PAIR=1`` it is one launch of the pair kernel B10
-  (``mhd_substep01_wrap_cuda``) and B9 for substep 2. The carried ``w``
+  ``STENCIL_MHD_PAIR=1`` it is one call of the pair B10
+  (``mhd_substep01_wrap_cuda``: B9 s=0 and s=1 in one call) and B9 for
+  substep 2. The carried ``w``
   is the last one written, as in JAX. B9, B11 and B13's interior are
   one z-streaming kernel (``csrc/mhd_ring.cuh``), launched over the
   whole field, the whole shard, or the shard's interior.
@@ -425,7 +426,7 @@ class Astaroth:
         # radius-2R slab round for two substeps)
         self._pair = mhd_pair_requested() or self._exchange_every == 2
         if kernel in ("wrap", "halo", "halo-overlap") and self._pair:
-            LOG_INFO(f"astaroth {kernel} path: fused substep-0+1 kernel")
+            LOG_INFO(f"astaroth {kernel} path: substeps 0+1 as one pair call")
         self._method = pick_method(dd.methods)
         self.kernel_path = kernel
 

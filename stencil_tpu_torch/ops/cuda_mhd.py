@@ -29,14 +29,18 @@ kernel. B9 and B11 launch one kernel (``csrc/mhd_ring.cuh``, a
 z-streaming ring of planes in shared memory, which also computes B13's
 interior), each block walking ``ring_zrun`` z planes; they differ only
 in where the kernel reads a margin row (the field's own wrapped rows,
-or the shard's slabs), so on a (1,1,1) mesh they agree bitwise. A
-wrapper dispatches on the tensors' device: CPU tensors go to
-the plain twin (any float dtype; bfloat16 stored, float32 computed, see
-``compute_dtype``); CUDA tensors launch the kernel (float32 only, else
-``TypeError``) or raise — never the twin. Each launch adds one to the
-wrapper's entry in ``LAUNCHES`` (a B12 launch is two kernels, the
-window gather and the substep, counted once; B11 is one kernel that
-reads the shard and its slabs itself).
+or the shard's slabs), so on a (1,1,1) mesh they agree bitwise. The
+substep pairs (substeps 0 and 1) are the same kernel launched in turn:
+B10 is B9 s=0 then B9 s=1; B12 is B11 s=0 over the shard, substep 0
+over the R rows around it that substep 1 reads (``margin_plan``: from
+the shard's slabs of 2R rows, written as R-row slabs), then B11 s=1 —
+each equal to its one-substep chain bit for bit. A wrapper dispatches
+on the tensors' device: CPU tensors go to the plain twin (any float
+dtype; bfloat16 stored, float32 computed, see ``compute_dtype``); CUDA
+tensors launch the kernel (float32 only, else ``TypeError``) or raise —
+never the twin. Each wrapper call adds one to the wrapper's entry in
+``LAUNCHES`` (a B10 call is two kernel launches and a B12 call three,
+each counted once).
 
 The kernels evaluate ``exp`` with CUDA's ``expf`` and the twins with
 PyTorch's; everything else is formed in the twins' order, built
@@ -49,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -271,14 +275,17 @@ _SIGNATURES = {
     # (fields[8], w[8] or NULL, out_f[8], out_w[8] or NULL, Z, Y, X,
     #  zrun, consts, n_consts, stream)
     "mhd_substep_wrap_launch": [_P] * 4 + [_I] * 4 + [_P, _I, _P],
-    # (fields[8], out_f[8], out_w[8], Z, Y, X, consts, n_consts, stream)
-    "mhd_substep01_wrap_launch": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # (fields[8], f1[8], w1[8], out_f[8], out_w[8], Z, Y, X, zrun, consts,
+    #  n_consts, stream)
+    "mhd_substep01_wrap_launch": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
     # (fields[8], w[8] or NULL, slabs[32], out_f[8], out_w[8] or NULL,
     #  Z, Y, X, rz, ry, zrun, consts, n_consts, stream)
     "mhd_substep_halo_launch": [_P] * 5 + [_I] * 6 + [_P, _I, _P],
-    # (fields[8], slabs[32], window[8], out_f[8], out_w[8], Z, Y, X, rz,
-    #  ry, consts, n_consts, stream)
-    "mhd_substep01_halo_launch": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
+    # (fields[8], slabs[32], f1[8], w1[8], margin[8], slabs1[32],
+    #  out_f[8], out_w[8], Z, Y, X, rz, ry, zrun, plan, n_plan, n_margin,
+    #  consts, n_consts, stream)
+    "mhd_substep01_halo_launch": ([_P] * 8 + [_I] * 6 + [_P, _I, _I, _P, _I,
+                                                         _P]),
 }
 
 
@@ -410,10 +417,12 @@ def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float,
                             out_f: Optional[Fields] = None,
                             out_w: Optional[Fields] = None
                             ) -> Tuple[Fields, Fields]:
-    """B10: RK3 substeps 0 and 1 fused into one launch on 8 unpadded
-    periodic (Z, Y, X) fields (alpha_0 == 0, so no w is read). Returns
-    (f_2, w_2); equals B9(s=0, ``w=None``) followed by B9(s=1) to the
-    kernels' tolerance. ``out_f``/``out_w`` as for B9."""
+    """B10: RK3 substeps 0 and 1 on 8 unpadded periodic (Z, Y, X) fields
+    (alpha_0 == 0, so no w is read). Returns (f_2, w_2), which equal
+    B9(s=0, ``w=None``) followed by B9(s=1) bit for bit: the wrapper
+    launches just that, B9's ring kernel twice, through f_1 and w_1 in
+    scratch from PyTorch's caching allocator. ``out_f``/``out_w`` as for
+    B9."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep01_wrap_cuda"
@@ -427,11 +436,16 @@ def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float,
     ins = [fields[q] for q in FIELDS]
     _check_cuda(f0, ins + list(out_f.values()) + list(out_w.values()), what)
     Z, Y, X = f0.shape
+    zrun = ring_zrun(Z, Y, X, sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys)
+    f1 = torch.empty((8, Z, Y, X), dtype=f0.dtype, device=f0.device)
+    w1 = torch.empty_like(f1)
+    # the pointer arrays are locals: they must outlive the call
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs([out_w[q] for q in FIELDS])
-    _launch("mhd_substep01_wrap_launch", f0.device, p_in, p_f, p_w,
-            Z, Y, X, consts.ctypes.data, consts.size)
+    p_f1, p_w1 = _ptrs(f1.unbind(0)), _ptrs(w1.unbind(0))
+    _launch("mhd_substep01_wrap_launch", f0.device, p_in, p_f1, p_w1, p_f,
+            p_w, Z, Y, X, zrun, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep01_wrap"] += 1
     return out_f, out_w
 
@@ -522,16 +536,77 @@ def ring_zrun(nz: int, ny: int, X: int, n_sms: int) -> int:
     return min(cost(-(-nz // runs)) for runs in range(1, nz + 1))[1]
 
 
-def _window(f0: torch.Tensor, rr: int) -> torch.Tensor:
-    """Scratch for the kernels' radius-``rr`` window of the 8 fields,
-    (8, Z + 2rr, Y + 2rr, X); the window's offsets must fit 32 bits."""
-    Z, Y, X = f0.shape
-    if (Z + 2 * rr) * (Y + 2 * rr) * X >= 2 ** 31:
-        raise ValueError(f"shards whose radius-{rr} window holds 2^31 "
-                         f"points or more are not supported (32-bit "
-                         f"offsets)")
-    return torch.empty((8, Z + 2 * rr, Y + 2 * rr, X), dtype=f0.dtype,
-                       device=f0.device)
+class MarginPlan(NamedTuple):
+    """B12's margin launch on one (Z, Y, X) shard (``margin_plan``): the
+    ints that ``mhd_substep01_halo_launch`` copies into the kernel's
+    MarginPlan (``csrc/mhd.cu``) as they are, the grid's column tiles
+    and the floats a field of the margin buffer holds. A point (z, y, x)
+    of a strip is written at ``off + z * zs + y * X + x`` of its field's
+    buffer (``off`` the strip's, ``zs`` its kind's). Block row b counts
+    the near z strip's tiles, the far one's, then the near and the far y
+    strip's."""
+    tz: int      # row tiles of a z strip (its Y rows of y)
+    ty: int      # row tiles of a y strip (its Z + 2R rows of z)
+    zlo: int     # output offset of the near z strip, z in [-R, 0)
+    zhi: int     # ... of the far z strip, z in [Z, Z + R)
+    ylo: int     # ... of the near y strip, y in [-R, 0)
+    yhi: int     # ... of the far y strip, y in [Y, Y + R)
+    zs: int      # z stride of the z strips' output
+    ys: int      # z stride of the y strips' output
+    cols: int    # column tiles of 32
+    floats: int  # floats a field of the margin buffer
+
+    def ints(self) -> np.ndarray:
+        return np.asarray(self[:8], dtype=np.int32)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.cols, 2 * (self.tz + self.ty)
+
+
+@functools.lru_cache(maxsize=None)
+def margin_layout(Z: int, Y: int, X: int) -> Dict[str, Tuple[int, tuple]]:
+    """Where each R-row slab of B12's margin lies in a field's margin
+    buffer: {name: (first float, shape)} in the layout of
+    ``exchange_interior_slabs(rz=R, ry=R, y_z_extended=True)`` — ``zlo``
+    and ``zhi`` (R, Y, X), ``ylo`` and ``yhi`` (Z + 2R, R, X) — one after
+    another."""
+    out, at = {}, 0
+    for name in SLAB_NAMES:
+        shape = (R, Y, X) if name[0] == "z" else (Z + 2 * R, R, X)
+        out[name] = (at, shape)
+        at += shape[0] * shape[1] * shape[2]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def margin_plan(Z: int, Y: int, X: int) -> MarginPlan:
+    """B12's substep 0 around a (Z, Y, X) shard: the points within R of
+    it that substep 1 reads, in the four strips of the R-row slab layout
+    (``margin_layout``) — z in [-R, 0) and [Z, Z + R) at y in [0, Y),
+    walked in z; y in [-R, 0) and [Y, Y + R) at z in [-R, Z + R), walked
+    in y — each cut into tiles of 32 columns by ``RING_TILE_Y`` rows of
+    its broad axis. The one source of the launcher, the tests and
+    ``chip_smoke.py``."""
+    lay = margin_layout(Z, Y, X)
+    zs, ys = Y * X, R * X
+    return MarginPlan(
+        -(-Y // RING_TILE_Y), -(-(Z + 2 * R) // RING_TILE_Y),
+        lay["zlo"][0] + R * zs, lay["zhi"][0] - Z * zs,
+        lay["ylo"][0] + R * ys + R * X, lay["yhi"][0] + R * ys - Y * X,
+        zs, ys, -(-X // 32),
+        sum(a * b * c for _, (a, b, c) in lay.values()))
+
+
+def margin_slabs(buf: torch.Tensor, Z: int, Y: int, X: int
+                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The R-row slabs (per field, views) of an (8, floats) margin
+    buffer, in the layout ``margin_layout`` gives them."""
+    from ..models.astaroth import FIELDS
+
+    return {q: {k: buf[j, at:at + a * b * c].view(a, b, c)
+                for k, (at, (a, b, c)) in margin_layout(Z, Y, X).items()}
+            for j, q in enumerate(FIELDS)}
 
 
 def _copy_into(got: Optional[Fields], out: Optional[Fields],
@@ -603,11 +678,16 @@ def mhd_substep01_halo_cuda(fields: Fields,
                             dt_phys: float, out_f: Optional[Fields] = None,
                             out_w: Optional[Fields] = None
                             ) -> Tuple[Fields, Fields]:
-    """B12: RK3 substeps 0 and 1 fused into one launch on 8 (Z, Y, X)
-    shards with slabs of 2R = 6 valid rows (alpha_0 == 0, so no w is
-    read). Returns (f_2, w_2); equals B11(s=0, ``w=None``), a radius-R
-    slab round, then B11(s=1) to the kernels' tolerance. ``out_f``/
-    ``out_w`` as for ``mhd_substep_halo_cuda``."""
+    """B12: RK3 substeps 0 and 1 on 8 (Z, Y, X) shards with slabs of 2R =
+    6 valid rows (alpha_0 == 0, so no w is read). Returns (f_2, w_2),
+    which equal B11(s=0, ``w=None``), a radius-R slab round, then B11(s=1)
+    bit for bit: one call, three launches of the ring kernel on the
+    caller's stream — B11 s=0 over the shard into f_1 and w_1, substep 0
+    over the R rows around the shard from the same slabs into f_1's
+    R-row slabs (``margin_plan``; the values the neighbours compute
+    there), then B11 s=1 from them. f_1, w_1 and the margin are scratch
+    from PyTorch's caching allocator. ``out_f``/``out_w`` as for
+    ``mhd_substep_halo_cuda``."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep01_halo_cuda"
@@ -625,11 +705,31 @@ def mhd_substep01_halo_cuda(fields: Fields,
     wo = [out_w[q] for q in FIELDS]
     _check_cuda(f0, ins + sl + outs + wo, what)
     Z, Y, X = f0.shape
+    if (Z + 4 * R) * (Y + 4 * R) * X >= 2 ** 31:
+        raise ValueError(f"{what}: shards whose radius-{2 * R} window holds "
+                         f"2^31 points or more are not supported (32-bit "
+                         f"offsets)")
+    zrun = ring_zrun(Z, Y, X, sm_count(f0.device))
+    plan = margin_plan(Z, Y, X)
+    ints = plan.ints()
     consts = kernel_consts(prm, dt_phys)
-    win = _window(f0, 2 * R)
+    f1 = torch.empty((8, Z, Y, X), dtype=f0.dtype, device=f0.device)
+    w1 = torch.empty_like(f1)
+    margin = torch.empty((8, plan.floats), dtype=f0.dtype, device=f0.device)
+    # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f, p_w = _ptrs(ins), _ptrs(sl), _ptrs(outs), _ptrs(wo)
-    p_win = _ptrs(win.unbind(0))
-    _launch("mhd_substep01_halo_launch", f0.device, p_in, p_sl, p_win, p_f,
-            p_w, Z, Y, X, rz, ry, consts.ctypes.data, consts.size)
+    p_f1, p_w1 = _ptrs(f1.unbind(0)), _ptrs(w1.unbind(0))
+    # each field's margin buffer, and in it the R-row slabs that
+    # ``margin_slabs`` views, by address: making the 32 views would be
+    # most of the wrapper's host work
+    base = [margin.data_ptr() + j * margin.stride(0) * margin.element_size()
+            for j in range(8)]
+    p_m = (ctypes.c_void_p * 8)(*base)
+    p_sl1 = (ctypes.c_void_p * 32)(*[
+        b + at * margin.element_size()
+        for at, _ in margin_layout(Z, Y, X).values() for b in base])
+    _launch("mhd_substep01_halo_launch", f0.device, p_in, p_sl, p_f1, p_w1,
+            p_m, p_sl1, p_f, p_w, Z, Y, X, rz, ry, zrun, ints.ctypes.data,
+            ints.size, plan.floats, consts.ctypes.data, consts.size)
     LAUNCHES["mhd_substep01_halo"] += 1
     return out_f, out_w

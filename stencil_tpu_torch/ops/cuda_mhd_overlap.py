@@ -22,14 +22,14 @@ of ``ops/cuda_mhd.py`` hold: CPU shards go to the plain twins; CUDA
 shards launch the kernels or raise; float32 only on the card (bfloat16
 storage is ROADMAP A8b). Each wrapper adds one to its entry in
 ``LAUNCHES`` per shard (B13: the sends and the interior; B14: its one
-shell kernel, or with the pair the strip windows and B12's tiles).
+shell kernel, or with the pair the strip windows and the pair tiles).
 
 What each computes, per shard, with hr = R (or 2R with the pair):
 
 * B13: the new f (and w) at the interior points — every point whose
   radius-hr neighbourhood lies in the shard (``interior_region``,
   computed by the ring kernel of B9 and B11 reading the shard alone;
-  with the pair, the kT = 8 tiles of B12 whose ring reads stay in it) —
+  with the pair, the kT = 8 pair tiles whose ring reads stay in it) —
   and the landed rows, in the layout of ``exchange_interior_slabs(rz=hr,
   ry=hr, y_z_extended=True)`` (``MhdOverlapRecv.landed``). Its values at
   the other points are unspecified (the JAX kernel leaves clamped-window
@@ -67,7 +67,7 @@ from .cuda_overlap import ShardOrdering
 #: to the plain twin
 LAUNCHES = {"mhd_substep_overlap": 0, "mhd_substep_fixup": 0}
 
-#: the tile edge of the pair kernels (B10/B12, ``csrc/mhd_common.cuh``
+#: the tile edge of the pair forms of B13 and B14 (``csrc/mhd_common.cuh``
 #: kT): with the pair, the interior and the shell are whole tiles
 PAIR_TILE = 8
 
@@ -124,7 +124,7 @@ class Strip(NamedTuple):
     """One strip of B14's shell and how its launch walks it."""
     region: Region   # (z0, nz, y0, ny)
     axis: str        # one substep: "z" / "y", the axis its blocks walk;
-    #                  the pair: "window" (B12's tiles on its window)
+    #                  the pair: "window" (the pair tiles on its window)
     tiles: int       # one substep: its tiles of ``RING_TILE_Y`` rows of
     #                  the broad axis (y for a z strip, z for a y strip)
     #                  per 32 columns; the pair: its kT x kT (z, y) tiles
@@ -172,7 +172,7 @@ def fixup_plan(Z: int, Y: int, X: int, pair: bool) -> FixupPlan:
     in z and the y strips in y, each cut into tiles of 32 columns by
     ``RING_TILE_Y`` rows of its broad axis; the kernel is given
     ``shell.ints()``. The pair: the strips' radius-2R windows gathered
-    into scratch (one launch), then B12's kT^3 tiles per strip (one
+    into scratch (one launch), then the kT^3 pair tiles per strip (one
     launch each)."""
     regions = shell_regions(Z, Y, pair)
     if pair:
@@ -619,7 +619,8 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
     ``w_partial=None`` is write_w=False). ``pair`` as for B13. On the
     card, ``fixup_plan``: with one substep one launch of the ring kernel a
     shard, reading the shard and the landed rows itself; with the pair a
-    gather of the strips' windows into ``recv.windows()`` and B12's tiles.
+    gather of the strips' windows into ``recv.windows()`` and the pair
+    tiles.
     The launch arguments are built once per argument set
     (``_fixup_args``). Returns (f_partial, w_partial)."""
     from ..models.astaroth import FIELDS

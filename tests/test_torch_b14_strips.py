@@ -23,6 +23,7 @@ from stencil_tpu_torch.geometry import Dim3
 from stencil_tpu_torch.ops import cuda_mhd as cm
 from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
 from stencil_tpu_torch.parallel.exchange import exchange_interior_slabs
+from torch_port_support import ring_row
 
 R = cm.R
 TY = cm.RING_TILE_Y
@@ -152,39 +153,6 @@ def test_kernel_blocks_walk_the_plans_strips(shape):
 # ---------------------------------------------------------------------------
 # the margin rows: the kernel's row rule against the plain window
 # ---------------------------------------------------------------------------
-def _halo_row_of(g, y, z):
-    """mhd_common.cuh halo_row_of: (buffer, offset of the row's first
-    float) of window row (z, y)."""
-    Z, Y, X, rz, ry = g
-    if y < 0:
-        return "ylo", ((z + rz) * ry + ry + y) * X
-    if y >= Y:
-        return "yhi", ((z + rz) * ry + y - Y) * X
-    if z < 0:
-        return "zlo", ((z + rz) * Y + y) * X
-    if z >= Z:
-        return "zhi", ((z - Z) * Y + y) * X
-    return "shard", (z * Y + y) * X
-
-
-def _row(bufs, g, axis, u, p):
-    """Margin row u of slice p by the ring's rule (mhd_ring.cuh
-    ring_run): the row's source at slice pref = -1, 0 or N (N = Z for
-    the z instance, Y for the y instance), stepped by the stride."""
-    Z, Y, X, rz, ry = g
-    N = Z if axis == "z" else Y
-    pref = -1 if p < 0 else (0 if p < N else N)
-    if axis == "z":
-        name, base = _halo_row_of(g, u, pref)
-        stride = (Y if 0 <= u < Y else ry) * X
-    else:
-        name, base = _halo_row_of(g, pref, u)
-        stride = X
-    flat = bufs[name].reshape(-1)
-    off = base + (p - pref) * stride
-    return flat[off:off + X]
-
-
 @pytest.mark.parametrize("layout", [dict(rz=3, ry=3), dict(rz=8, ry=8)])
 @pytest.mark.parametrize("size,mesh", [((48, 48, 16), (1, 2, 2)),
                                        ((48, 16, 24), (1, 2, 2)),
@@ -221,7 +189,7 @@ def test_ring_rows_are_the_plain_windows_rows(size, mesh, layout):
             for p in slices:
                 for u in rows:
                     z, y = (p, u) if st.axis == "z" else (u, p)
-                    got = _row(bufs, geo, st.axis, u, p)
+                    got = ring_row(bufs, geo, st.axis, u, p)
                     assert torch.equal(got, win[z + R, y + R]), (st, p, u)
                     checked += 1
         assert checked > 0

@@ -61,6 +61,42 @@ def sphere_args(shape_zyx):
     return (X // 3, Y // 2, Z // 2), (2 * X // 3, Y // 2, Z // 2), X // 10 + 1
 
 
+def halo_row_of(g, y, z):
+    """csrc/mhd_common.cuh halo_row_of: (buffer, offset of the row's first
+    float) of window row (z, y); g = (Z, Y, X, rz, ry)."""
+    Z, Y, X, rz, ry = g
+    if y < 0:
+        return "ylo", ((z + rz) * ry + ry + y) * X
+    if y >= Y:
+        return "yhi", ((z + rz) * ry + y - Y) * X
+    if z < 0:
+        return "zlo", ((z + rz) * Y + y) * X
+    if z >= Z:
+        return "zhi", ((z - Z) * Y + y) * X
+    return "shard", (z * Y + y) * X
+
+
+def ring_row(bufs, g, axis, u, p):
+    """Margin row u of slice p by the MHD ring kernel's rule
+    (csrc/mhd_ring.cuh ring_run, kHaloRows): the row's source at slice
+    pref = -1, 0 or N (N = Z for the z instance, Y for the y instance),
+    stepped by the stride. ``bufs``: the shard and its four slabs by
+    name; g = (Z, Y, X, rz, ry). The row must lie inside its buffer."""
+    Z, Y, X, rz, ry = g
+    N = Z if axis == "z" else Y
+    pref = -1 if p < 0 else (0 if p < N else N)
+    if axis == "z":
+        name, base = halo_row_of(g, u, pref)
+        stride = (Y if 0 <= u < Y else ry) * X
+    else:
+        name, base = halo_row_of(g, pref, u)
+        stride = X
+    flat = bufs[name].reshape(-1)
+    off = base + (p - pref) * stride
+    assert 0 <= off and off + X <= flat.numel(), (name, axis, u, p)
+    return flat[off:off + X]
+
+
 def assert_mhd_fields_match(got, want, dtype):
     """Per field of an MHD state (``got`` and ``want`` map field names to
     tensors or arrays): float64 within ``rtol=1e-11, atol=1e-13`` (the
