@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compile every kernel source of the package with nvcc, one
    process per source, all at once; the registers and spills of every
    instantiation of the two ring kernels (``csrc/mhd_ring.cuh``: B9 and
-   B11, launched twice each as B10 and B12, and B12's margin kernel in
-   the ``mhd`` library, B13's interior and B14's shell in
+   B11, launched twice each as B10 and B12, and the margin kernel of
+   ``csrc/mhd_margin.cuh`` in the ``mhd`` library, B13's interior, B14's
+   shell and the margin kernel again (the pair forms) in
    ``mhd_overlap``; ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in
    ``jacobi_halo``) are read from the ``-Xptxas=-v`` lines (a NOTE where one uses more
    than 128 registers or spills), their opcode counts from ``cuobjdump
@@ -86,9 +87,11 @@ Phases, in order; any failure exits non-zero before the last line:
      8 x 24 shards, thin in y and narrower than a tile) and on the four
      256^3 shards of 256 x 512 x 512 over (1,2,2), and on four 104 x 128
      x 96 shards of (1,2,2), whose interior the ring kernel walks in z
-     runs, the last one shorter (B14 with one substep: the ring kernel's
-     z instance over its z strips, its y instance over its y strips, one
-     launch a shard): B13's interior against its twin per
+     runs, the last one shorter (B14: the ring kernel's z instance over
+     its z strips, its y instance over its y strips, one launch a shard;
+     with the pair, B13 is the sends and two ring launches and B14 two
+     shell launches around the margin kernel, through the shard's
+     scratch): B13's interior against its twin per
      field within 64 eps(f32) x max and bitwise against B11 (B12 with the
      pair) on the same shards and rows, its landed rows bitwise; B14
      after B13 bitwise against B11 (B12) on the same shards and rows, and
@@ -156,7 +159,8 @@ Phases, in order; any failure exits non-zero before the last line:
      and 16 with ``STENCIL_MHD_PAIR=1``) and equals the ``halo`` runs
      above bitwise (fields and carried w), also with shard 3's stream
      delayed before each of its launches; 256^3 ``halo-overlap`` on
-     (1,1,1) (6 + 6 launches) bitwise equal to ``wrap``; the MHD
+     (1,1,1) (6 + 6 launches, 4 + 4 with the pair) bitwise equal to
+     ``wrap`` (which equals ``halo`` and ``halo``+pair there); the MHD
      ``xla-overlap`` path with ``Method.PallasDMA`` (18 B4 launches: one
      per substep, sweep and card) on 32 x 32 x 48 over (1,2,2) against
      ``xla`` within substeps x 64 eps x max, and bitwise against itself
@@ -186,13 +190,15 @@ Phases, in order; any failure exits non-zero before the last line:
    exchange of each beside the slab copy, B7 per step of the four quarter
    shards and of one 512^3 shard, and one ``measure_overlap`` line;
    iterations/s of Astaroth ``halo-overlap`` (and with the pair) at 256 x
-   512 x 512 on (1,2,2) and at 256^3 on (1,1,1), B13 and B14 per variant
-   on one 256^3 shard and per substep of the four shards of (1,2,2),
-   those of B13 and B14 summed over an iteration's three substeps beside
-   the ``halo-overlap`` iteration on the four shards, B14's device time
-   alone (its launches queued behind a sleeping kernel, so that the CUDA
-   events see no host time: ``device_ms``) and per kernel it launches
-   (``utils.timers.kernel_profile``, torch.profiler), its blocks an SM as
+   512 x 512 on (1,2,2) and at 256^3 on (1,1,1), ``halo-overlap``+pair
+   over ``halo``+pair on the four shards, B13 and B14 per variant (the
+   pair among them) on one 256^3 shard and per substep of the four
+   shards of (1,2,2), those of B13 and B14 summed over an iteration's
+   three substeps beside the ``halo-overlap`` iteration on the four
+   shards, B13's and B14's device time alone (their launches queued
+   behind a sleeping kernel, so that the CUDA events see no host time:
+   ``device_ms``) and per kernel they launch
+   (``utils.timers.kernel_profile``, torch.profiler), B14's blocks an SM as
    the card counts them (in the kernels line) against those of its
    launch plan on a 256^3 shard (``fixup_plan``, in the log and in
    chip_smoke.json as ``fixup_plan_256``), which must agree, and one
@@ -477,6 +483,22 @@ def bound_ms(nbytes: float, flops: float):
     b = nbytes / HBM_BYTES_PER_S * 1e3
     f = flops / F32_FLOPS_PER_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
+
+
+def b13_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
+    """Bytes B13 must move on one (Z, Y, X) shard: the shard read once,
+    w read (where it is read) and f and w written at its interior
+    (``interior_region``), and the slab rows it sends, hr =
+    ``halo_rows`` of them (3, or 6 with the pair)."""
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+
+    Z, Y, X = shape
+    hr = mo.halo_rows(pair)
+    inner = mo.interior_region(Z, Y, pair)
+    p_in = inner[1] * inner[3] * X if inner else 0
+    slab = 8 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
+    wr = (8 if read_w else 0) + (8 if write_w else 0)
+    return 4.0 * (8 * Z * Y * X + (8 + wr) * p_in + slab)
 
 
 def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
@@ -2357,8 +2379,9 @@ def run_astaroth_overlap(torch, cs, cm, mo, cx, halo_state) -> dict:
     nothing else (16 and 16 with the pair) and equals the ``halo`` runs
     of run_astaroth_halo bitwise (fields and carried w); the same with
     shard 3's stream delayed before each of its launches; 256^3 on
-    (1,1,1) with overlap=True (6 + 6 launches) bitwise equal to ``wrap``;
-    and the ``xla-overlap`` path with ``Method.PallasDMA`` (B4: one launch
+    (1,1,1) with overlap=True (6 + 6 launches; 4 + 4 with the pair)
+    bitwise equal to ``wrap`` (which equals ``halo`` and ``halo``+pair
+    there); and the ``xla-overlap`` path with ``Method.PallasDMA`` (B4: one launch
     per substep, sweep and card, 18) on a small (1,2,2) mesh against
     ``xla`` within substeps x 64 eps x max, and bitwise against itself
     with every B4 launch delayed on its card's side stream."""
@@ -2438,6 +2461,12 @@ def run_astaroth_overlap(torch, cs, cm, mo, cx, halo_state) -> dict:
     _, ref = drive("wrap 256^3 (1,1,1)", cube, (1, 1, 1), "0",
                    {"mhd_substep_wrap": 6}, kernel="wrap", overlap=False)
     bitwise("halo-overlap 256^3 (1,1,1) vs wrap after 2 iterations", got, ref)
+    del got
+    # with the pair: wrap (= halo = halo+pair on one shard, phase 4 above)
+    _, got = drive("halo-overlap+pair 256^3 (1,1,1)", cube, (1, 1, 1), "1",
+                   {"mhd_substep_overlap": 4, "mhd_substep_fixup": 4})
+    bitwise("halo-overlap+pair 256^3 (1,1,1) vs wrap (= halo+pair) after 2 "
+            "iterations", got, ref)
     del got, ref
     small = (32, 32, 48)
     # B4: one launch per exchange, sweep and card: 3 substeps x 2
@@ -2483,10 +2512,11 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
     big = (N256, 2 * N256, 2 * N256)
     for label, size, mesh, pair, k in (
             ("halo-overlap 256x512x512 (1,2,2)", big, (1, 2, 2), "0", 10),
-            ("halo-overlap+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1", 4),
+            ("halo-overlap+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "1",
+             10),
             ("halo-overlap 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "0", 20),
             ("halo-overlap+pair 256^3 (1,1,1)", (N256,) * 3, (1, 1, 1), "1",
-             10)):
+             20)):
         with mhd_pair(pair):
             m = Astaroth(*size, kernel="halo", overlap=True, mesh_shape=mesh,
                          devices=["cuda:0"] * (mesh[1] * mesh[2]))
@@ -2534,23 +2564,20 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
             reps = 3 if pair else 10
             ms13 = event_ms(torch, b13, reps=reps)
             ms14 = event_ms(torch, b14, reps=reps)
-            # B14's host work shows by events: its device time, apart,
-            # and the device time of each kernel it launches
+            # the host work shows by events: B14's device time, apart,
+            # and the device time of each kernel it launches (B13's too)
             dev14 = device_ms(torch, b14, reps=reps)
             split14 = kernel_profile(b14, reps)[0]
-            # the work of one shard: B13 reads the shard (and w at its
-            # interior), writes f (and w) there and the slab rows it
-            # sends; B14 as b14_bytes counts it
+            dev13 = device_ms(torch, b13, reps=reps)
+            split13 = kernel_profile(b13, reps)[0]
+            # the work of one shard, as b13_bytes and b14_bytes count it
             pts = float(Z * Y * X)
             inner = mo.interior_region(Z, Y, pair)
             p_in = float(inner[1] * inner[3] * X) if inner else 0.0
             p_sh = pts - p_in
-            slab = 8 * 4.0 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
             flops = B10_FLOPS if pair else B9_FLOPS[s]
-            wr = (8 if read_w else 0) + (8 if write_w else 0)
-            b13_bytes = 4.0 * (8 * pts + (8 + wr) * p_in) + slab
             per = len(shards)
-            nb13 = per * b13_bytes
+            nb13 = per * b13_bytes((Z, Y, X), read_w, write_w, pair)
             nb14 = per * b14_bytes((Z, Y, X), read_w, write_w, pair)
             bm13, by13 = bound_ms(nb13, per * flops * p_in)
             bm14, by14 = bound_ms(nb14, per * flops * p_sh)
@@ -2565,23 +2592,19 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                 plain13 = plain14 = None
             where = ("one 256^3 shard" if mesh == (1, 1, 1)
                      else "four 256^3 shards of (1,2,2)")
-            for name, ms, plain, bms, by, nb, dev in (
+            for name, ms, plain, bms, by, nb, dev, split in (
                     ("mhd_substep_overlap", ms13, plain13, bm13, by13, nb13,
-                     None),
+                     dev13, split13),
                     ("mhd_substep_fixup", ms14, plain14, bm14, by14, nb14,
-                     dev14)):
-                v = variants.setdefault(name, {})[f"{tag}, {where}"] = {
+                     dev14, split14)):
+                variants.setdefault(name, {})[f"{tag}, {where}"] = {
                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                    "bound_by": by, "library_ms": None, "bytes": nb}
-                if dev is not None:
-                    v["device_ms"] = dev
-                    v["kernel_us"] = split14
+                    "bound_by": by, "library_ms": None, "bytes": nb,
+                    "device_ms": dev, "kernel_us": split}
                 log(f"  {name} {tag}, {where}: {ms!r} ms, bound {bms!r} ms "
                     f"({by}), {100 * bms / ms:.1f}% of bound; plain twin "
-                    f"{plain!r} ms"
-                    + ("" if dev is None else f"; device time alone {dev!r} "
-                       f"ms ({100 * bms / dev:.1f}% of bound); kernels "
-                       f"{split14}"))
+                    f"{plain!r} ms; device time alone {dev!r} ms "
+                    f"({100 * bms / dev:.1f}% of bound); kernels {split}")
         del shards, ws, f, w, of, ow, recv
         torch.cuda.empty_cache()
     for name, v in variants.items():
@@ -2591,18 +2614,24 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
                                 for k in ("ms", "plain_ms", "bound_ms")}
         res["kernels"][name].update(bound_by=one[1]["bound_by"],
                                     library_ms=None, variants=v)
-        if "device_ms" in one[0]:
-            res["kernels"][name]["device_ms"] = sum(
-                x["device_ms"] for x in one) / 3
+        res["kernels"][name]["device_ms"] = sum(
+            x["device_ms"] for x in one) / 3
     # B14's design and its blocks an SM as the card counts them (kernels
     # line); its launch plan on a 256^3 shard, computed, goes to the log
     # and chip_smoke.json, and must count as many blocks an SM
     card_bps = mo.fixup_occupancy(torch.device("cuda"))
+    res["kernels"]["mhd_substep_overlap"]["design"] = (
+        "the sends (send_rows_kernel), then the ring kernel over the "
+        "interior from the shard alone; pair: substep 0 over [R, n - R) "
+        "into the shard's scratch f1, w1, then substep 1 over [kT, n - kT) "
+        "from them (two ring launches)")
     res["kernels"]["mhd_substep_fixup"].update(
         design="one substep: one launch a shard of the ring kernel "
                "(mhd_shell_kernel), z strips walked in z and y strips in "
                "y, margin rows from the shard and the landed rows, no "
-               "scratch; pair: strip windows + the kT^3 pair tiles",
+               "scratch; pair: the shell kernel's substep 0 at depth R "
+               "into f1, w1, the margin kernel (substep 0 around the "
+               "shard), the shell kernel's substep 1 at depth kT",
         blocks_per_sm=card_bps)
     shell = mo.fixup_plan(n, n, n, False).shell
     n_sms = cm.sm_count(torch.device("cuda"))
@@ -2861,6 +2890,11 @@ def main() -> int:
     mhd_halo_times = time_mhd_halo(torch, cm, mo, ptxas)
     dma_times = time_dma_overlap(torch, cx, co)
     mhd_overlap_times = time_mhd_overlap(torch, cm, mo)
+    ratio = (mhd_overlap_times["iters_per_s"]
+             ["halo-overlap+pair 256x512x512 (1,2,2)"]
+             / mhd_halo_times["iters_per_s"]["halo+pair 256x512x512 (1,2,2)"])
+    log(f"  Astaroth halo-overlap+pair / halo+pair on four 256^3 shards: "
+        f"{ratio!r}")
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
@@ -2892,11 +2926,19 @@ def main() -> int:
         if name == "mhd_substep01_halo":
             entry["ptxas"] = {"mhd_margin_kernel": ptxas.get(("mhd",
                                                               "margin"), {})}
+        if name == "mhd_substep_overlap":
+            entry["ptxas"] = {
+                f"mhd_substep_ring_kernel read_w={k[1]}, write_w={k[2]}": use
+                for k, use in ptxas.items()
+                if k[0] == "mhd_overlap" and len(k) == 3
+                and isinstance(k[1], bool)}
         if name == "mhd_substep_fixup":
             entry["ptxas"] = {
-                f"read_w={k[2]}, write_w={k[3]}": use
+                f"mhd_shell_kernel read_w={k[2]}, write_w={k[3]}": use
                 for k, use in ptxas.items() if k[:2] == ("mhd_overlap",
                                                          "shell")}
+            entry["ptxas"]["mhd_margin_kernel"] = ptxas.get(
+                ("mhd_overlap", "margin"), {})
         if "variants" in t:
             entry["variants"] = t["variants"]
         kernels.append(entry)

@@ -51,11 +51,14 @@ on one 256^3 shard (shard 0 of four random 256^3 shards of 256 x 512 x
 B9 for each variant and B10 on its fields as a periodic field; B11 for
 each variant on its slabs of R rows and B12 on its slabs of 2R rows;
 B13 for each variant on the shard as a (1,1,1) mesh (its sends and its
-interior, which the ring kernel computes). Each by CUDA events, by its
-device time alone and per kernel it launches, as ``--model mhd`` times
-B14. ``--paths`` adds the Astaroth rates of ``wrap`` and ``wrap`` +
-pair at 256^3 and of ``halo`` and ``halo`` + pair on 256 x 512 x 512
-over (1,2,2), four shards on the card (three ``run(10)`` each).
+interior, which the ring kernel computes); the pair forms of B13 and
+B14 on that mesh (B14's pair after a B13 pair on the same fields).
+Each by CUDA events, by its device time alone and per kernel it
+launches, as ``--model mhd`` times B14. ``--paths`` adds the Astaroth
+rates of ``wrap`` and ``wrap`` + pair at 256^3, of ``halo``, ``halo`` +
+pair, ``halo-overlap`` and ``halo-overlap`` + pair on 256 x 512 x 512
+over (1,2,2), four shards on the card, and of ``halo-overlap`` with and
+without the pair on 256^3 over (1,1,1) (three ``run(10)`` each).
 
 Writes one JSON object to
 ``chiprun_out/kernel_times_<model>_<label>.json`` and prints it as the
@@ -429,6 +432,7 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     of = [smoke.per_field(torch.empty_like(shards[0]))]
     ow = [smoke.per_field(torch.empty_like(shards[0]))]
     inner = (n - 2 * cm.R) ** 2 * n
+    shape = (n, n, n)
 
     def slab_bytes(r):       # the slab rows a kernel reads, 8 fields
         return 8 * 4.0 * (2 * r * n * n + 2 * (n + 2 * r) * r * n)
@@ -464,6 +468,24 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     cases["B12"] = (lambda: cm.mhd_substep01_halo_cuda(f, sl6, prm, dt),
                     24 * field + slab_bytes(2 * cm.R),
                     smoke.B10_FLOPS * pts)
+
+    # the pair forms of B13 and B14 on the shard as a (1,1,1) mesh; B14's
+    # pair completes what the last B13 pair on the same fields left
+    def b13_pair():
+        mo.mhd_substep_overlap_cuda([f], None, 0, prm, dt, one, pair=True,
+                                    out_f=of, out_w=ow, recv=recv)
+
+    def b14_pair():
+        mo.mhd_substep_fixup_cuda([f], None, of, ow, 0, prm, dt, one, recv,
+                                  pair=True)
+
+    b13_pair()
+    z0, nz, y0, ny = mo.interior_region(n, n, True)
+    inner2 = float(nz * ny * n)
+    cases["B13 pair"] = (b13_pair, smoke.b13_bytes(shape, False, True, True),
+                         smoke.B10_FLOPS * inner2)
+    cases["B14 pair"] = (b14_pair, smoke.b14_bytes(shape, False, True, True),
+                         smoke.B10_FLOPS * (pts - inner2))
     turns = time_in_turns(cases, {
         "events": lambda fn: smoke.event_ms(torch, fn, reps),
         "device": lambda fn: smoke.device_ms(torch, fn, reps)})
@@ -489,14 +511,25 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     if args.paths:
         res["paths"] = {}
         big = (n, 2 * n, 2 * n)
-        for label, size, mesh, kernel, on in (
-                ("wrap 256^3", (n,) * 3, (1, 1, 1), "wrap", "0"),
-                ("wrap+pair 256^3", (n,) * 3, (1, 1, 1), "wrap", "1"),
-                ("halo 256x512x512 (1,2,2)", big, (1, 2, 2), "halo", "0"),
+        cube = (n,) * 3
+        for label, size, mesh, kernel, on, overlap in (
+                ("wrap 256^3", cube, (1, 1, 1), "wrap", "0", False),
+                ("wrap+pair 256^3", cube, (1, 1, 1), "wrap", "1", False),
+                ("halo 256x512x512 (1,2,2)", big, (1, 2, 2), "halo", "0",
+                 False),
                 ("halo+pair 256x512x512 (1,2,2)", big, (1, 2, 2), "halo",
-                 "1")):
+                 "1", False),
+                ("halo-overlap 256x512x512 (1,2,2)", big, (1, 2, 2), "halo",
+                 "0", True),
+                ("halo-overlap+pair 256x512x512 (1,2,2)", big, (1, 2, 2),
+                 "halo", "1", True),
+                ("halo-overlap 256^3 (1,1,1)", cube, (1, 1, 1), "halo", "0",
+                 True),
+                ("halo-overlap+pair 256^3 (1,1,1)", cube, (1, 1, 1), "halo",
+                 "1", True)):
             with smoke.mhd_pair(on):
-                a = Astaroth(*size, kernel=kernel, mesh_shape=mesh,
+                a = Astaroth(*size, kernel=kernel, overlap=overlap,
+                             mesh_shape=mesh,
                              devices=["cuda:0"] * (mesh[1] * mesh[2]))
             a.init()
             a.run(1)

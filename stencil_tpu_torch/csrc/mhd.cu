@@ -25,11 +25,12 @@
 // B12 (substeps 0 and 1; alpha_0 == 0, so no w is read) are those
 // launches twice: B10 is B9 s=0 then B9 s=1; B12 is B11 s=0 over the
 // shard, substep 0 over the R rows around it that substep 1 reads (the
-// margin kernel below, from slabs of 2R rows), then B11 s=1 from those
-// rows. So B10 and B12 equal their one-substep chains bit for bit. Every
-// derivative, every term of the rates and the update is formed in the
-// twin's order of operations; the library is built with -fmad=false, so
-// no a*b+c is contracted into one rounding. exp is expf (never __expf),
+// margin kernel of mhd_margin.cuh, which B14's pair form launches too,
+// from slabs of 2R rows), then B11 s=1 from those rows. So B10 and B12
+// equal their one-substep chains bit for bit. Every derivative, every
+// term of the rates and the update is formed in the twin's order of
+// operations; the library is built with -fmad=false, so no a*b+c is
+// contracted into one rounding. exp is expf (never __expf),
 // which differs from PyTorch's exp by an ulp at most: kernel and twin
 // agree to a few ulps of each field, not bitwise. The device code they
 // share with B13/B14 — the constants, fd6's operators, mhd_rates, the
@@ -38,95 +39,10 @@
 // Field order (FIELDS): lnrho, uux, uuy, uuz, ax, ay, az, ss.
 
 #include "mhd_common.cuh"
+#include "mhd_margin.cuh"
 #include "mhd_ring.cuh"
 
 #include <cstring>
-
-namespace {
-
-// ---------------------------------------------------------------------
-// B12's margin: substep 0 at the points within R outside a shard, which
-// substep 1 reads there, written in the layout of the R-row slabs that
-// B11 reads (mhd_common.cuh): the z strips z in [-R, 0) and [Z, Z + R)
-// at y in [0, Y), walked in z (the ring's z instance), and the
-// z-extended y strips y in [-R, 0) and [Y, Y + R) at z in [-R, Z + R),
-// walked in y with z along the tile's 16 rows (its y instance). Their
-// rows reach 2R outside the shard, all within the shard's slabs of 2R
-// rows, by B11's source rule. Planned on the host (ops/cuda_mhd.py
-// margin_plan), whose MarginPlan ints the launcher copies in as they
-// are: tile index b (blockIdx.y) counts the near z strip's tiles, the
-// far one's, then the near and the far y strip's; a strip's points go
-// through its OutMap into the 8 fields' margin buffers.
-// ---------------------------------------------------------------------
-struct MarginPlan {
-  int tz, ty;    // row tiles of a z strip (over y) and of a y strip (over z)
-  int zlo, zhi;  // OutMap::off of the near and the far z strip
-  int ylo, yhi;  // OutMap::off of the near and the far y strip
-  int zs, ys;    // OutMap::zs of the z strips and of the y strips
-};
-constexpr int kMarginPlanInts = 8;
-static_assert(sizeof(MarginPlan) == kMarginPlanInts * sizeof(int),
-              "MarginPlan layout");
-
-__global__ void __launch_bounds__(RingTile::kThreads, 1)
-mhd_margin_kernel(InPtrs f, SlabPtrs sl, OutPtrs of, HaloGeom h,
-                  MarginPlan p, Consts c) {
-  extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
-  __shared__ RowSrc rows[RingTile::kRows];
-  constexpr int kTY = RingTile::kTY;
-  const int x0 = blockIdx.x * kBX;
-  int b = blockIdx.y;
-  if (b < 2 * p.tz) {
-    const bool far = b >= p.tz;
-    b -= far ? p.tz : 0;
-    const int s0 = far ? h.Z : -R;
-    ring_run<kStreamZ, false, false>(
-        f, InPtrs{}, sl, of, OutPtrs{}, h, OutMap{far ? p.zhi : p.zlo, p.zs},
-        kHaloRows, x0, b * kTY, h.Y, s0, s0 + R, c, ring, rows);
-  } else {
-    b -= 2 * p.tz;
-    const bool far = b >= p.ty;
-    b -= far ? p.ty : 0;
-    const int s0 = far ? h.Y : -R;
-    ring_run<kStreamY, false, false>(
-        f, InPtrs{}, sl, of, OutPtrs{}, h, OutMap{far ? p.yhi : p.ylo, p.ys},
-        kHaloRows, x0, -R + b * kTY, h.Z + R, s0, s0 + R, c, ring, rows);
-  }
-}
-
-// The output offsets of plan p lie in [0, n) for every point of its
-// strips (the margin buffers hold n floats a field), and its tiles fit
-// a grid; false otherwise.
-bool margin_ok(const MarginPlan& p, int Z, int Y, int X, long long n) {
-  if (p.tz < 1 || p.ty < 1 || 2LL * (p.tz + p.ty) > 65535 || p.zs < X ||
-      p.ys < X)
-    return false;
-  // (off, zs, z range, y range) of the four strips; each map is
-  // increasing in z, y and x
-  const long long s[4][6] = {{p.zlo, p.zs, -R, -1, 0, Y - 1},
-                             {p.zhi, p.zs, Z, Z + R - 1, 0, Y - 1},
-                             {p.ylo, p.ys, -R, Z + R - 1, -R, -1},
-                             {p.yhi, p.ys, -R, Z + R - 1, Y, Y + R - 1}};
-  for (const auto& t : s) {
-    const long long lo = t[0] + t[2] * t[1] + t[4] * X;
-    const long long hi = t[0] + t[3] * t[1] + t[5] * X + X - 1;
-    if (lo < 0 || hi >= n) return false;
-  }
-  return true;
-}
-
-// substep 0's and substep 1's constants from the host's kNConsts floats
-// (ops/cuda_mhd.py kernel_consts: the pair's beta0, alpha1, beta1)
-void pair_consts(const float* src, Consts& c0, Consts& c1) {
-  std::memcpy(&c0, src, sizeof c0);
-  c0.alpha = 0.0f;  // alpha_0: w=None reads no w
-  c0.beta = c0.beta0;
-  c1 = c0;
-  c1.alpha = c0.alpha1;
-  c1.beta = c0.beta1;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -237,9 +153,9 @@ cudaError_t mhd_substep_halo_launch(const void* const* fields,
 // hold 2R rows, as three launches of the ring kernel: (1) B11 s=0 with
 // w=None over the shard, from the shard and the slabs (halo_row_of takes
 // any rz, ry >= R), into the scratch f1, w1; (2) substep 0 over the R
-// rows around the shard (mhd_margin_kernel), from the same slabs, into
-// f1's R-row slabs; (3) B11 s=1 over the shard from f1, w1 and those
-// slabs. Bound on this card: bytes, as B10, plus the slab rows (0.5 %
+// rows around the shard (mhd_margin.cuh mhd_margin_kernel), from the
+// same slabs, into f1's R-row slabs; (3) B11 s=1 over the shard from
+// f1, w1 and those slabs. Bound on this card: bytes, as B10, plus the slab rows (0.5 %
 // more at a 256^3 shard): 0.50 ms. Its first designs fused both substeps
 // into one launch of 8^3 tiles, the taps chosen in the kernel (149 ms a
 // 256^3 shard on an H100), then read from a radius-2R window gathered
@@ -275,14 +191,7 @@ cudaError_t mhd_substep01_halo_launch(
                                 RingGeom{h, 0, Z, 0, Y, zrun, kHaloRows},
                                 c0, s);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mhd_margin_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(RingTile::kSmem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(blocks(X, kBX), 2 * (p.tz + p.ty));
-  mhd_margin_kernel<<<grid, dim3(kBX, RingTile::kTY), RingTile::kSmem, s>>>(
-      fp, sp, out_ptrs(margin), h, p, c0);
-  err = cudaGetLastError();
+  err = launch_margin(fp, sp, out_ptrs(margin), h, p, c0, s);
   if (err != cudaSuccess) return err;
   return launch_ring(in_ptrs(f1), in_ptrs(w1), slab_ptrs(slabs1),
                      out_ptrs(out_f), out_ptrs(out_w),

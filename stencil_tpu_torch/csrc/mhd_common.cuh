@@ -5,9 +5,8 @@
 // The Astaroth right-hand sides (models/astaroth.py mhd_rates;
 // reference: astaroth/user_kernels.h:383-453) with the 6th-order
 // operators of ops/fd6.py, the run's constants (struct Consts, filled by
-// ops/cuda_mhd.py kernel_consts), the index helper of a window (PadIdx)
-// and the tiles of B13's and B14's pair forms, and the halo-slab layout
-// of B11/B12 (halo_row). Every derivative and every term is formed in the
+// ops/cuda_mhd.py kernel_consts) and the halo-slab layout of B11-B14
+// (halo_row_of). Every derivative and every term is formed in the
 // plain twins' order of operations; the libraries are built -fmad=false,
 // so no a*b+c is contracted into one rounding.
 //
@@ -269,23 +268,10 @@ __device__ __forceinline__ int wrap(int v, int n) {
 
 constexpr int kBX = 32;
 
-// The tiles of B13's and B14's pair forms (mhd_overlap.cu
-// mhd_region01_kernel): substeps 0 and 1 on a kT^3 tile, substep 0
-// recomputed on the tile extended by R and kept in shared memory.
-constexpr int kT = 8;                 // tile edge, z, y and x
-constexpr int kE = kT + 2 * R;        // extended tile edge
-constexpr int kE3 = kE * kE * kE;     // 2744 extended points
-constexpr int kT3 = kT * kT * kT;     // 512 tile points
-constexpr int kPairThreads = 256;
-constexpr size_t kPairSmem = sizeof(float) * kNF * (kE3 + kT3);  // 104,192 B
-
-// f1 of one field in shared memory, around one tile point
-struct SharedAt {
-  const float* p;  // the point's f1 in field q's extended tile
-  __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
-    return p[(dz * kE + dy) * kE + dx];
-  }
-};
+// Z and Y of every MHD field or shard are multiples of kT, the TPU's
+// float32 sublane tile (ops/cuda_mhd.py mhd_tile), so that a grid takes
+// the same path in both packages.
+constexpr int kT = 8;
 
 // ---------------------------------------------------------------------
 // The slab layout of B11/B12 (ops/cuda_mhd.py halo_window; the window
@@ -320,42 +306,6 @@ __device__ __forceinline__ const float* halo_row_of(
   if (z >= g.Z) return zhi + ((z - g.Z) * g.Y + y) * g.X;
   return fq + (z * g.Y + y) * g.X;
 }
-
-// the source of window row (z, y) of field q
-__device__ __forceinline__ const float* halo_row(const InPtrs& f,
-                                                 const SlabPtrs& sl, int q,
-                                                 const HaloGeom& g, int y,
-                                                 int z) {
-  return halo_row_of(f.p[q], sl.zlo[q], sl.zhi[q], sl.ylo[q], sl.yhi[q], g,
-                     y, z);
-}
-
-// Offsets of the 7 x columns, 7 y rows and 7 z planes around one point
-// of the (Z + 2rr, Y + 2rr, X) window: x wrapped once per point (so that
-// no neighbour access divides), y and z shifted by rr.
-struct PadIdx {
-  int x[2 * R + 1], y[2 * R + 1], z[2 * R + 1];
-  __device__ __forceinline__ PadIdx(int px, int py, int pz, int X, int Yw,
-                                    int rr) {
-#pragma unroll
-    for (int d = -R; d <= R; ++d) {
-      x[d + R] = wrap(px + d, X);
-      y[d + R] = (py + rr + d) * X;
-      z[d + R] = (pz + rr + d) * Yw * X;
-    }
-  }
-  __device__ __forceinline__ int at(int dx, int dy, int dz) const {
-    return z[dz + R] + y[dy + R] + x[dx + R];
-  }
-};
-
-struct PadAt {
-  const float* __restrict__ p;
-  const PadIdx& I;
-  __device__ __forceinline__ float operator()(int dx, int dy, int dz) const {
-    return __ldg(p + I.at(dx, dy, dz));
-  }
-};
 
 inline unsigned blocks(int n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);

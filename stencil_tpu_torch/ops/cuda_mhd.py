@@ -537,10 +537,11 @@ def ring_zrun(nz: int, ny: int, X: int, n_sms: int) -> int:
 
 
 class MarginPlan(NamedTuple):
-    """B12's margin launch on one (Z, Y, X) shard (``margin_plan``): the
-    ints that ``mhd_substep01_halo_launch`` copies into the kernel's
-    MarginPlan (``csrc/mhd.cu``) as they are, the grid's column tiles
-    and the floats a field of the margin buffer holds. A point (z, y, x)
+    """The margin launch of B12 and of B14's pair on one (Z, Y, X) shard
+    (``margin_plan``): the ints that the launchers copy into the
+    kernel's MarginPlan (``csrc/mhd_margin.cuh``) as they are, the
+    grid's column tiles and the floats a field of the margin buffer
+    holds. A point (z, y, x)
     of a strip is written at ``off + z * zs + y * X + x`` of its field's
     buffer (``off`` the strip's, ``zs`` its kind's). Block row b counts
     the near z strip's tiles, the far one's, then the near and the far y
@@ -607,6 +608,20 @@ def margin_slabs(buf: torch.Tensor, Z: int, Y: int, X: int
     return {q: {k: buf[j, at:at + a * b * c].view(a, b, c)
                 for k, (at, (a, b, c)) in margin_layout(Z, Y, X).items()}
             for j, q in enumerate(FIELDS)}
+
+
+def margin_ptrs(buf: torch.Tensor, Z: int, Y: int, X: int
+                ) -> Tuple[ctypes.Array, ctypes.Array]:
+    """The launchers' pointers into an (8, floats) margin buffer: each
+    field's buffer (8), and in them the R-row slabs that ``margin_slabs``
+    views (32, in ``_slab_list`` order), by address: making the 32 views
+    would be most of a wrapper's host work."""
+    base = [buf.data_ptr() + j * buf.stride(0) * buf.element_size()
+            for j in range(8)]
+    return ((ctypes.c_void_p * 8)(*base),
+            (ctypes.c_void_p * 32)(*[
+                b + at * buf.element_size()
+                for at, _ in margin_layout(Z, Y, X).values() for b in base]))
 
 
 def _copy_into(got: Optional[Fields], out: Optional[Fields],
@@ -719,15 +734,7 @@ def mhd_substep01_halo_cuda(fields: Fields,
     # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f, p_w = _ptrs(ins), _ptrs(sl), _ptrs(outs), _ptrs(wo)
     p_f1, p_w1 = _ptrs(f1.unbind(0)), _ptrs(w1.unbind(0))
-    # each field's margin buffer, and in it the R-row slabs that
-    # ``margin_slabs`` views, by address: making the 32 views would be
-    # most of the wrapper's host work
-    base = [margin.data_ptr() + j * margin.stride(0) * margin.element_size()
-            for j in range(8)]
-    p_m = (ctypes.c_void_p * 8)(*base)
-    p_sl1 = (ctypes.c_void_p * 32)(*[
-        b + at * margin.element_size()
-        for at, _ in margin_layout(Z, Y, X).values() for b in base])
+    p_m, p_sl1 = margin_ptrs(margin, Z, Y, X)
     _launch("mhd_substep01_halo_launch", f0.device, p_in, p_sl, p_f1, p_w1,
             p_m, p_sl1, p_f, p_w, Z, Y, X, rz, ry, zrun, ints.ctypes.data,
             ints.size, plan.floats, consts.ctypes.data, consts.size)

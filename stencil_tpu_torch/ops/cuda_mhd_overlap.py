@@ -6,7 +6,8 @@ one RK3 substep (or the fused substeps 0+1) on the interior-resident
 boundary rows of all 8 fields to its neighbours while its interior is
 computed, and the exterior shell is recomputed from the landed rows
 (``csrc/mhd_overlap.cu``: launch A sends and computes the interior,
-launch B the shell).
+launch B the shell; every compute launch is the ring kernel of B9 and
+B11, ``csrc/mhd_ring.cuh``).
 
 ===  ===============================================  ===========================  ============================
 B    TPU kernel                                       wrapper                      plain twin
@@ -21,30 +22,39 @@ B14  pallas_mhd_overlap.py:360                        ``mhd_substep_fixup_cuda``
 of ``ops/cuda_mhd.py`` hold: CPU shards go to the plain twins; CUDA
 shards launch the kernels or raise; float32 only on the card (bfloat16
 storage is ROADMAP A8b). Each wrapper adds one to its entry in
-``LAUNCHES`` per shard (B13: the sends and the interior; B14: its one
-shell kernel, or with the pair the strip windows and the pair tiles).
+``LAUNCHES`` per shard and call, however many kernels the call
+launches.
 
 What each computes, per shard, with hr = R (or 2R with the pair):
 
-* B13: the new f (and w) at the interior points — every point whose
-  radius-hr neighbourhood lies in the shard (``interior_region``,
-  computed by the ring kernel of B9 and B11 reading the shard alone;
-  with the pair, the kT = 8 pair tiles whose ring reads stay in it) —
+* B13: the new f (and w) at the interior points, ``interior_region``,
   and the landed rows, in the layout of ``exchange_interior_slabs(rz=hr,
   ry=hr, y_z_extended=True)`` (``MhdOverlapRecv.landed``). Its values at
   the other points are unspecified (the JAX kernel leaves clamped-window
-  placeholders there).
+  placeholders there). On the card: the sends, then the ring kernel over
+  ``interior_plan``'s regions, reading the shard alone — one substep over
+  z, y in [R, n - R); with the pair, substep 0 there into the shard's
+  scratch f1, w1 (``MhdOverlapRecv.pair_scratch``), then substep 1 over
+  z, y in [kT, n - kT) from them.
 * B14: the exterior shell (``shell_regions``) from the pre-substep
   shard and the landed rows, through B11's window rule
   (``ops/cuda_mhd.halo_window``), written into B13's outputs in place
-  (JAX aliases them). B14 after B13 equals B11 (B12 with the pair) on
-  the same shards, point for point: bitwise.
+  (JAX aliases them). On the card, ``fixup_plan``: one substep, the ring
+  kernel over the shell's strips (depth R); the pair, substep 0 over the
+  depth-R shell into f1, w1, substep 0 over the R rows around the shard
+  (B12's margin kernel), then substep 1 over the depth-kT shell from f1,
+  w1 and that margin. The pair's B14 therefore reads what the same
+  shard's last B13 pair left in the scratch, and refuses to run unless
+  that pass was for the same fields (address and version) and constants.
+  B14 after B13 equals B11 (B12 with the pair) on the same shards, point
+  for point: bitwise.
 
 Ordering on the card: ``MhdOverlapRecv`` extends
 ``ops/cuda_overlap.ShardOrdering`` (rules (a) and (b) of B7) with the
 receive buffers; the targets of a shard's launch A are its four face
 neighbours and its four diagonal (z+-1, y+-1) neighbours, whose ylo/yhi
-corner rows it stores directly.
+corner rows it stores directly. The pair's scratch of a shard is
+written and read on that shard's stream only.
 """
 
 from __future__ import annotations
@@ -63,12 +73,13 @@ from .cuda_mhd import R, SLAB_NAMES, Fields
 from .cuda_overlap import ShardOrdering
 
 #: launches per wrapper since the last ``reset_launch_counts``, one per
-#: shard and substep; only a kernel launch counts, never a call that went
-#: to the plain twin
+#: shard and call (the pair's too); only a kernel launch counts, never a
+#: call that went to the plain twin
 LAUNCHES = {"mhd_substep_overlap": 0, "mhd_substep_fixup": 0}
 
-#: the tile edge of the pair forms of B13 and B14 (``csrc/mhd_common.cuh``
-#: kT): with the pair, the interior and the shell are whole tiles
+#: the depth of the pair's shell, kT = 8 (``csrc/mhd_common.cuh``, the
+#: TPU kernels' tile): with the pair B13 computes z, y in [8, n - 8),
+#: the points whose substep-1 rows lie in [R, n - R), and B14 the rest
 PAIR_TILE = 8
 
 Slabs = Dict[str, Dict[str, torch.Tensor]]
@@ -88,8 +99,8 @@ def halo_rows(pair: bool) -> int:
 
 
 def shell_width(pair: bool) -> int:
-    """The depth of the exterior shell B14 computes: R, or the pair
-    kernels' tile (8 >= 2R)."""
+    """The depth of the exterior shell B14 computes: R, or
+    ``PAIR_TILE`` (8 >= 2R) with the pair."""
     return PAIR_TILE if pair else R
 
 
@@ -106,8 +117,11 @@ def shell_regions(Z: int, Y: int, pair: bool) -> List[Region]:
     """The points B14 computes, as disjoint strips that with
     ``interior_region`` cover the shard: z in [0, e) and [max(e, Z - e),
     Z) at every y, then, between them, y in [0, e) and [max(e, Y - e),
-    Y)."""
-    e = shell_width(pair)
+    Y), with e = ``shell_width(pair)``."""
+    return _strips(Z, Y, shell_width(pair))
+
+
+def _strips(Z: int, Y: int, e: int) -> List[Region]:
     out = [(0, min(e, Z), 0, Y)]
     zt = max(e, Z - e)
     if zt < Z:
@@ -120,21 +134,35 @@ def shell_regions(Z: int, Y: int, pair: bool) -> List[Region]:
     return out
 
 
+def interior_plan(Z: int, Y: int, X: int, pair: bool, n_sms: int
+                  ) -> np.ndarray:
+    """B13's ring-kernel launches after its sends, as the launcher's
+    (z0, nz, y0, ny, zrun) rows (``ring_zrun`` of each region): one
+    substep, ``interior_region`` from the shard; the pair, substep 0 over
+    the one-substep interior from the shard, then (where the shard has
+    one) substep 1 over the pair's interior, whose rows it reads all lie
+    in the first."""
+    regions = [interior_region(Z, Y, False)]
+    if pair:
+        regions.append(interior_region(Z, Y, True))
+    return np.asarray([(z0, nz, y0, ny, cm.ring_zrun(nz, ny, X, n_sms))
+                       for z0, nz, y0, ny in filter(None, regions)],
+                      dtype=np.int32).reshape(-1, 5)
+
+
 class Strip(NamedTuple):
     """One strip of B14's shell and how its launch walks it."""
     region: Region   # (z0, nz, y0, ny)
-    axis: str        # one substep: "z" / "y", the axis its blocks walk;
-    #                  the pair: "window" (the pair tiles on its window)
-    tiles: int       # one substep: its tiles of ``RING_TILE_Y`` rows of
-    #                  the broad axis (y for a z strip, z for a y strip)
-    #                  per 32 columns; the pair: its kT x kT (z, y) tiles
+    axis: str        # "z" / "y": the axis its blocks walk
+    tiles: int       # its tiles of ``RING_TILE_Y`` rows of the broad axis
+    #                  (y for a z strip, z for a y strip) per 32 columns
 
 
 class ShellLaunch(NamedTuple):
-    """B14's one launch a shard with one substep: the ints that
+    """One launch of B14's shell kernel on a shard: the ints that
     ``mhd_substep_fixup_launch`` copies into the kernel's ShellPlan
     (``csrc/mhd_overlap.cu``; its near strips start at slice 0, a y
-    strip's z at R), and the grid's column tiles. Block row b counts the
+    strip's z at e), and the grid's column tiles. Block row b counts the
     near z strip's tiles, the far one's, then the y strips'."""
     zt: int    # first slice of the far z strip
     yt: int    # first slice of the far y strip
@@ -142,10 +170,11 @@ class ShellLaunch(NamedTuple):
     nys: int   # y strips: 0, 1 or 2
     tz: int    # row tiles of a z strip
     ty: int    # row tiles of a y strip
+    e: int     # the shell's depth
     cols: int  # column tiles of 32
 
     def ints(self) -> np.ndarray:
-        return np.asarray(self[:6], dtype=np.int32)
+        return np.asarray(self[:7], dtype=np.int32)
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -154,41 +183,58 @@ class ShellLaunch(NamedTuple):
 
 class FixupPlan(NamedTuple):
     """B14's launches on one (Z, Y, X) shard (``fixup_plan``)."""
-    strips: Tuple[Strip, ...]
+    strips: Tuple[Strip, ...]     # the shell B14 writes, as ``shell`` walks it
     launches: int                 # kernel launches a shard
-    shell: Optional[ShellLaunch]  # one substep; None with the pair
+    shell: ShellLaunch            # the launch that writes the strips
+    shell0: Optional[ShellLaunch]     # the pair: substep 0, depth R
+    margin: Optional[cm.MarginPlan]   # the pair: substep 0 around it
+
+    def ints(self) -> np.ndarray:
+        """The launcher's plan: ``shell``'s ints, or with the pair the
+        kernel's PairPlan (``shell0``, ``margin``, ``shell``)."""
+        if self.shell0 is None:
+            return self.shell.ints()
+        return np.concatenate([self.shell0.ints(), self.margin.ints(),
+                               self.shell.ints()])
 
 
-#: B14's one-substep kernel holds one 512-thread block of 214 KB an SM
+#: B14's kernel holds one 512-thread block of 214 KB an SM
 #: (``csrc/mhd_ring.cuh`` RingTile, 128 registers a thread); the card's
 #: own count is ``fixup_occupancy``
 FIXUP_BLOCKS_PER_SM = 1
 
 
-def fixup_plan(Z: int, Y: int, X: int, pair: bool) -> FixupPlan:
-    """B14's launch plan for one (Z, Y, X) shard: the one source of the
-    launcher, the tests and ``chip_smoke.py``. One substep: one launch of
-    the ring kernel over ``shell_regions``' strips, the z strips walked
-    in z and the y strips in y, each cut into tiles of 32 columns by
-    ``RING_TILE_Y`` rows of its broad axis; the kernel is given
-    ``shell.ints()``. The pair: the strips' radius-2R windows gathered
-    into scratch (one launch), then the kT^3 pair tiles per strip (one
-    launch each)."""
-    regions = shell_regions(Z, Y, pair)
-    if pair:
-        strips = tuple(Strip(r, "window", (r[1] // PAIR_TILE)
-                             * (r[3] // PAIR_TILE)) for r in regions)
-        return FixupPlan(strips, 1 + len(strips), None)
-    n_z = 2 if max(R, Z - R) < Z else 1   # z strips come first
+def _shell_launch(Z: int, Y: int, X: int, e: int
+                  ) -> Tuple[Tuple[Strip, ...], ShellLaunch]:
+    """The strips of the depth-e shell and the one launch that walks
+    them: the z strips in z, the y strips in y, each cut into tiles of
+    32 columns by ``RING_TILE_Y`` rows of its broad axis."""
+    regions = _strips(Z, Y, e)
+    n_z = 2 if max(e, Z - e) < Z else 1   # z strips come first
     zs, ys = regions[:n_z], regions[n_z:]
     tz = -(-Y // cm.RING_TILE_Y)
-    ty = -(-(Z - 2 * R) // cm.RING_TILE_Y) if ys else 0
+    ty = -(-(Z - 2 * e) // cm.RING_TILE_Y) if ys else 0
     strips = tuple([Strip(r, "z", tz) for r in zs]
                    + [Strip(r, "y", ty) for r in ys])
-    shell = ShellLaunch(zs[-1][0] if n_z == 2 else Z,
-                        ys[-1][2] if len(ys) == 2 else Y, n_z, len(ys), tz,
-                        ty, -(-X // 32))
-    return FixupPlan(strips, 1, shell)
+    return strips, ShellLaunch(zs[-1][0] if n_z == 2 else Z,
+                               ys[-1][2] if len(ys) == 2 else Y, n_z,
+                               len(ys), tz, ty, e, -(-X // 32))
+
+
+def fixup_plan(Z: int, Y: int, X: int, pair: bool) -> FixupPlan:
+    """B14's launch plan for one (Z, Y, X) shard: the one source of the
+    launcher, the tests and ``chip_smoke.py``; the kernel is given
+    ``ints()``. One substep: one launch of the shell kernel over
+    ``shell_regions``' strips (depth R). The pair: three launches —
+    substep 0 over the depth-R shell into the scratch f1, w1
+    (``shell0``), substep 0 over the R rows around the shard
+    (``margin``, ``ops/cuda_mhd.margin_plan``), then substep 1 over the
+    depth-kT shell (``shell``)."""
+    strips, shell = _shell_launch(Z, Y, X, shell_width(pair))
+    if not pair:
+        return FixupPlan(strips, 1, shell, None, None)
+    return FixupPlan(strips, 3, shell, _shell_launch(Z, Y, X, R)[1],
+                     cm.margin_plan(Z, Y, X))
 
 
 def _write_regions(dst: torch.Tensor, src: torch.Tensor,
@@ -229,12 +275,51 @@ def send_pieces(i: int, counts: Dim3, Z: int, Y: int, hr: int
     ]
 
 
+class PairScratch:
+    """One shard's scratch for the pair on the card, on its device: f1
+    and w1 (substep 0 over the shard, (8, Z, Y, X) each), written by
+    B13's launch A and B14's launch B, and the margin (substep 0 over the
+    R rows around the shard, ``cm.margin_plan``'s (8, floats) buffer),
+    written and read by launch B; with the launchers' pointers into
+    them. ``holds`` names what f1 and w1 hold substep 0 of: the fields
+    (every field's address and version) and the constants of the last
+    launch A, None before one."""
+
+    def __init__(self, shape, dtype: torch.dtype,
+                 stream: torch.cuda.Stream) -> None:
+        Z, Y, X = shape
+        n = cm.margin_plan(Z, Y, X).floats
+        # allocated on the shard's stream, the only one that uses them,
+        # so that the caching allocator never hands their blocks to
+        # another stream while its launches may still run
+        with torch.cuda.stream(stream):
+            self.f1 = torch.empty((8, Z, Y, X), dtype=dtype,
+                                  device=stream.device)
+            self.w1 = torch.empty_like(self.f1)
+            self.margin = torch.empty((8, n), dtype=dtype,
+                                      device=stream.device)
+        self.p_f1 = cm._ptrs(self.f1.unbind(0))
+        self.p_w1 = cm._ptrs(self.w1.unbind(0))
+        self.p_margin, self.p_slabs1 = cm.margin_ptrs(self.margin, Z, Y, X)
+        self.holds: Optional[tuple] = None
+
+
+def pair_key(fields: Fields, consts: np.ndarray) -> tuple:
+    """What a B13 pair pass on ``fields`` with ``consts`` leaves in its
+    shard's scratch (``PairScratch.holds``)."""
+    from ..models.astaroth import FIELDS
+
+    return (tuple((fields[q].data_ptr(), fields[q]._version)
+                  for q in FIELDS), consts.tobytes())
+
+
 class MhdOverlapRecv(ShardOrdering):
     """The persistent receive buffers of every shard of a mesh, per row
     count hr (R, and 2R for the pair): ``buffers(hr)[i] = {"zlo", "zhi":
     (8, hr, Y, X), "ylo", "yhi": (8, Z + 2hr, hr, X)}`` on shard i's
     device (the 8 fields in FIELDS order) — and, on the card, the
-    shards' streams and the events of rules (a) and (b). The buffers are
+    shards' streams, the events of rules (a) and (b) and, from the first
+    pair call on, each shard's ``pair_scratch``. The buffers are
     zeroed here, on the cards' current streams, so that a session's
     ``enter`` orders every shard's stream after the zeroing: zeroed
     later, inside a session, a card's zeroing would race with the stores
@@ -259,15 +344,9 @@ class MhdOverlapRecv(ShardOrdering):
                          [[j for _, j, _ in self.pieces[R][i]]
                           for i in range(n)])
         self._buffers = {hr: self._zeroed_buffers(hr) for hr in (R, 2 * R)}
-        # B14's scratch, on the card only and for the pair only: the
-        # strip windows of every field (one substep reads no window)
-        self._windows: List[torch.Tensor] = []
+        self._pair: List[Optional[PairScratch]] = [None] * n
         #: B14's launch arguments per argument set (``_fixup_args``)
         self.fixup_cache: Dict[tuple, tuple] = {}
-        if self.streams is not None:
-            n = _pair_windows(*self.shape)[2]
-            self._windows = [torch.empty((8, n), dtype=self.dtype, device=d)
-                             for d in self.devices]
 
     def _zeroed_buffers(self, hr: int) -> List[Dict[str, torch.Tensor]]:
         Z, Y, X = self.shape
@@ -281,11 +360,15 @@ class MhdOverlapRecv(ShardOrdering):
         """Every shard's (8, ...) receive buffers of ``hr`` rows."""
         return self._buffers[hr]
 
-    def windows(self) -> List[torch.Tensor]:
-        """B14's scratch for the pair per shard on the card, (8, floats
-        per field); only shard i's launch B, on its stream, uses shard
-        i's, and writes all of it before it reads it."""
-        return self._windows
+    def pair_scratch(self, i: int, make: bool = False
+                     ) -> Optional[PairScratch]:
+        """Shard i's scratch for the pair on the card (``PairScratch``),
+        made at the first pair call (``make``), so that a run without the
+        pair never holds it; None before."""
+        if self._pair[i] is None and make:
+            self._pair[i] = PairScratch(self.shape, self.dtype,
+                                        self.streams[i])
+        return self._pair[i]
 
     def landed(self, hr: int) -> List[Slabs]:
         """The landed rows of every shard, per field: ``landed(hr)[i][q] =
@@ -406,14 +489,15 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (fields[8], w[8] or NULL, dst[64], pieces[56], out_f[8], out_w[8] or
-    #  NULL, regions, n_regions, Z, Y, X, pair, zrun, consts, n_consts,
+    #  NULL, f1[8] and w1[8] (the pair) or NULL, regions
+    #  (``interior_plan``), n_regions, Z, Y, X, pair, consts, n_consts,
     #  stream)
-    "mhd_substep_overlap_launch": [_P] * 7 + [_I] * 6 + [_P, _I, _P],
-    # (fields[8], w[8] or NULL, slabs[32], window[8] (pair) or NULL,
-    #  out_f[8], out_w[8] or NULL, plan (one substep: ShellLaunch.ints;
-    #  the pair: its regions), n_plan (6, or the regions), Z, Y, X, rz,
-    #  ry, pair, consts, n_consts, stream)
-    "mhd_substep_fixup_launch": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
+    "mhd_substep_overlap_launch": [_P] * 9 + [_I] * 5 + [_P, _I, _P],
+    # (fields[8], w[8] or NULL, slabs[32], f1[8], w1[8], margin[8] and
+    #  slabs1[32] (the pair) or NULL, out_f[8], out_w[8] or NULL, plan
+    #  (``FixupPlan.ints``), n_plan, n_margin, Z, Y, X, rz, ry, pair,
+    #  consts, n_consts, stream)
+    "mhd_substep_fixup_launch": [_P] * 10 + [_I] * 8 + [_P, _I, _P],
 }
 
 
@@ -434,31 +518,6 @@ def fixup_occupancy(device: torch.device) -> int:
         raise RuntimeError(f"mhd_fixup_blocks_per_sm failed: CUDA error "
                            f"{err}")
     return got.value
-
-
-def _region_ints(regions: Sequence[Region], windows) -> np.ndarray:
-    """The launchers' region table: per region (z0, nz, y0, ny, wz0, wy0,
-    Zw, Yw, woff)."""
-    rows = [list(r) + list(wn) for r, wn in zip(regions, windows)]
-    return np.asarray(rows or [[0] * 9], dtype=np.int32).reshape(-1)
-
-
-def _pair_windows(Z: int, Y: int, X: int):
-    """(regions, per region (wz0, wy0, Zw, Yw, woff), floats per field)
-    of the pair's strip windows (B14 with the pair): each strip of the
-    pair's shell widened by the rows its points read, rr = 2R on each
-    side, packed one after another."""
-    rr = halo_rows(True)
-    regions = shell_regions(Z, Y, True)
-    wins, off = [], 0
-    for z0, nz, y0, ny in regions:
-        Zw, Yw = nz + 2 * rr, ny + 2 * rr
-        wins.append((z0 - rr, y0 - rr, Zw, Yw, off))
-        off += Zw * Yw * X
-    if off >= 2 ** 31:
-        raise ValueError("mhd_substep_fixup_cuda: the shell's windows hold "
-                         "2^31 points or more (32-bit offsets)")
-    return regions, wins, off
 
 
 def _check_mesh(fields: Sequence[Fields], w, counts: Dim3, what: str):
@@ -575,13 +634,7 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
             raise ValueError(f"{what}: out_f aliases the fields")
     Z, Y, X = f0.shape
     consts = cm.kernel_consts(prm, dt_phys, s)
-    inner = interior_region(Z, Y, pair)
-    regions = _region_ints([inner] if inner else [], [(0, 0, Z, Y, 0)])
-    n_regions = 1 if inner else 0
-    # one substep: the ring kernel's z run over the interior (the pair's
-    # tiles take none)
-    zrun = (cm.ring_zrun(inner[1], inner[3], X, cm.sm_count(f0.device))
-            if inner and not pair else 1)
+    regions = interior_plan(Z, Y, X, pair, cm.sm_count(f0.device))
     from . import _build
 
     with recv.own_session():
@@ -593,14 +646,20 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
             p_in, p_f = _launch_ptrs(f), _launch_ptrs(out_f[i])
             p_w = _launch_ptrs(None if w is None else w[i])
             p_wo = _launch_ptrs(out_w[i] if write_w else None)
+            sc = recv.pair_scratch(i, make=True) if pair else None
+            if sc is not None:
+                sc.holds = None
             with recv.launch_a(i):
                 _build.launch(_LIB, "mhd_substep_overlap_launch",
                               _SIGNATURES["mhd_substep_overlap_launch"],
                               f[FIELDS[0]].device,
                               p_in, p_w, dst, geo.ctypes.data, p_f, p_wo,
-                              regions.ctypes.data, n_regions, Z, Y, X,
-                              int(pair), zrun, consts.ctypes.data,
-                              consts.size)
+                              None if sc is None else sc.p_f1,
+                              None if sc is None else sc.p_w1,
+                              regions.ctypes.data, len(regions), Z, Y, X,
+                              int(pair), consts.ctypes.data, consts.size)
+            if sc is not None:
+                sc.holds = pair_key(f, consts)
     LAUNCHES["mhd_substep_overlap"] += n
     return out_f, out_w, recv
 
@@ -618,9 +677,12 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
     outputs ``f_partial``/``w_partial`` IN PLACE (JAX aliases them;
     ``w_partial=None`` is write_w=False). ``pair`` as for B13. On the
     card, ``fixup_plan``: with one substep one launch of the ring kernel a
-    shard, reading the shard and the landed rows itself; with the pair a
-    gather of the strips' windows into ``recv.windows()`` and the pair
-    tiles.
+    shard, reading the shard and the landed rows itself; with the pair
+    three (substep 0 over the depth-R shell, the margin, substep 1 over
+    the depth-kT shell), which complete the substep 0 that the shard's
+    last B13 pair left in ``recv.pair_scratch``: ``ValueError`` unless
+    that pass was on these ``fields`` (the same tensors, unwritten
+    since) with these constants. B14 may run again on the same state.
     The launch arguments are built once per argument set
     (``_fixup_args``). Returns (f_partial, w_partial)."""
     from ..models.astaroth import FIELDS
@@ -652,8 +714,16 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
               + ([w[i][q] for q in FIELDS] if w is not None else [])
               + (list(w_partial[i].values()) if write_w else []))
         cm._check_cuda(f0, ts, what)
-    args = _fixup_args(recv, fields, w, f_partial, w_partial, s, prm,
-                       dt_phys, pair)
+    consts = cm.kernel_consts(prm, dt_phys, s)
+    if pair:
+        for i, f in enumerate(fields):
+            sc = recv.pair_scratch(i)
+            if sc is None or sc.holds != pair_key(f, consts):
+                raise ValueError(
+                    f"{what}: shard {i}'s scratch does not hold substep 0 of "
+                    f"these fields with these constants; run "
+                    f"mhd_substep_overlap_cuda(pair=True) on them first")
+    args = _fixup_args(recv, fields, w, f_partial, w_partial, consts, pair)
     from . import _build
 
     sig = _SIGNATURES["mhd_substep_fixup_launch"]
@@ -674,19 +744,19 @@ FIXUP_CACHE_SETS = 6
 
 def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
                 w: Optional[Sequence[Fields]], f_partial: Sequence[Fields],
-                w_partial: Optional[Sequence[Fields]], s: int, prm,
-                dt_phys: float, pair: bool) -> List[tuple]:
+                w_partial: Optional[Sequence[Fields]], consts: np.ndarray,
+                pair: bool) -> List[tuple]:
     """B14's launcher arguments per shard (after the device), built once
     per argument set and kept in ``recv.fixup_cache`` (at most
-    ``FIXUP_CACHE_SETS``, then it starts anew): the pointer arrays, the
-    plan's ints (one substep) or the pair's region table, and the
-    constants. The key is the constants and every tensor's address (128
-    ``data_ptr`` reads on four shards, a few microseconds); the wrapper
-    has checked the tensors' shapes, dtypes and layout before, so equal
-    addresses are equal arguments."""
+    ``FIXUP_CACHE_SETS``, then it starts anew): the pointer arrays (with
+    the pair, the shard's scratch), the plan's ints
+    (``FixupPlan.ints``) and ``consts`` (``kernel_consts``). The key is
+    the constants and
+    every tensor's address (128 ``data_ptr`` reads on four shards, a few
+    microseconds); the wrapper has checked the tensors' shapes, dtypes
+    and layout before, so equal addresses are equal arguments."""
     from ..models.astaroth import FIELDS
 
-    consts = cm.kernel_consts(prm, dt_phys, s)
     groups = (fields, w, f_partial, w_partial)
     key = (pair, consts.tobytes()) + tuple(
         None if g is None else tuple(g[i][q].data_ptr() for q in FIELDS)
@@ -698,23 +768,22 @@ def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
         recv.fixup_cache.clear()
     Z, Y, X = recv.shape
     hr = halo_rows(pair)
-    if pair:
-        regs, wins, _ = _pair_windows(Z, Y, X)
-        table, n_plan = _region_ints(regs, wins), len(regs)
-    else:
-        table = fixup_plan(Z, Y, X, False).shell.ints()
-        n_plan = table.size
+    plan = fixup_plan(Z, Y, X, pair)
+    table = plan.ints()
+    n_margin = plan.margin.floats if pair else 0
     landed = recv.landed(hr)
     args = []
     for j, f in enumerate(fields):
-        p_win = cm._ptrs(recv.windows()[j].unbind(0)) if pair else None
+        sc = recv.pair_scratch(j) if pair else None
+        scratch = ((None,) * 4 if sc is None else
+                   (sc.p_f1, sc.p_w1, sc.p_margin, sc.p_slabs1))
         args.append((
             _launch_ptrs(f), _launch_ptrs(None if w is None else w[j]),
-            cm._ptrs(cm._slab_list(landed[j])), p_win,
+            cm._ptrs(cm._slab_list(landed[j])), *scratch,
             _launch_ptrs(f_partial[j]),
             _launch_ptrs(None if w_partial is None else w_partial[j]),
-            table.ctypes.data, n_plan, Z, Y, X, hr, hr, int(pair),
-            consts.ctypes.data, consts.size))
+            table.ctypes.data, table.size, n_margin, Z, Y, X, hr, hr,
+            int(pair), consts.ctypes.data, consts.size))
     # the entry keeps the arrays that the pointers point into alive
     recv.fixup_cache[key] = (args, table, consts)
     return args

@@ -1,14 +1,16 @@
-"""B14's one-substep plan on the CPU (``ops/cuda_mhd_overlap.fixup_plan``)
-and a model of the rows its ring kernel reads.
+"""B14's plan on the CPU (``ops/cuda_mhd_overlap.fixup_plan``) and a
+model of the rows its ring kernel reads.
 
 The kernel (``csrc/mhd_overlap.cu`` mhd_shell_kernel on
 ``csrc/mhd_ring.cuh`` ring_run) runs only on the card
 (``tests/test_torch_gpu.py``). What surrounds it is pure integers and
 tensor indexing, and is held here: the plan's strips, with
-``interior_region``, cover every point of a shard exactly once; the
-ints the plan hands the kernel, read as the kernel reads them (modelled
-below), walk exactly the plan's strips, in the field order of the
-kernel's ShellPlan; and the margin rows of the z and the y instance,
+``interior_region``, cover every point of a shard exactly once (with
+one substep and with the pair, whose three launches
+``tests/test_torch_overlap_pair_ring.py`` holds); the ints the plan
+hands the kernel, read as the kernel reads them (modelled below), walk
+exactly the plan's strips, in the field order of the kernel's ShellPlan
+and PairPlan; and the margin rows of the z and the y instance,
 assembled from the shard and the landed slabs by the kernel's row rule
 (a base at slice -1, 0 or N plus a stride), are the rows of the plain
 window (``ops/cuda_mhd.halo_window``, which ``mhd_substep_fixup_plain``
@@ -23,7 +25,7 @@ from stencil_tpu_torch.geometry import Dim3
 from stencil_tpu_torch.ops import cuda_mhd as cm
 from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
 from stencil_tpu_torch.parallel.exchange import exchange_interior_slabs
-from torch_port_support import ring_row
+from torch_port_support import ring_row, shell_block
 
 R = cm.R
 TY = cm.RING_TILE_Y
@@ -53,6 +55,11 @@ def _pair_shape(Z, Y, X):
 @pytest.mark.parametrize("shape,pair", [(s, False) for s in SHAPES]
                          + [(s, True) for s in SHAPES if _pair_shape(*s)])
 def test_plan_and_interior_cover_the_shard_once(shape, pair):
+    """The plan's strips and ``interior_region`` cover the shard once;
+    with the pair the strips are the depth-kT shell of substep 1 (three
+    launches: the depth-R shell of substep 0, the margin, that shell),
+    the plan walked by the shell launch, and substep 0's depth-R shell
+    with the one-substep interior covers the shard once too."""
     Z, Y, X = shape
     hits, plan = _shell_points(Z, Y, pair)
     inner = mo.interior_region(Z, Y, pair)
@@ -61,6 +68,19 @@ def test_plan_and_interior_cover_the_shard_once(shape, pair):
         hits[z0:z0 + nz, y0:y0 + ny] += 1
     assert (hits == 1).all(), shape
     assert [st.region for st in plan.strips] == mo.shell_regions(Z, Y, pair)
+    assert plan.launches == (3 if pair else 1)
+    assert plan.shell.e == mo.shell_width(pair)
+    assert {st.axis for st in plan.strips} <= {"z", "y"}
+    if not pair:
+        assert plan.shell0 is None and plan.margin is None
+        return
+    plan = mo.fixup_plan(Z, Y, X, True)
+    assert plan.shell0 == mo.fixup_plan(Z, Y, X, False).shell
+    assert plan.margin == cm.margin_plan(Z, Y, X)
+    hits = _walked(plan.shell0, Z, Y)
+    z0, nz, y0, ny = mo.interior_region(Z, Y, False)
+    hits[z0:z0 + nz, y0:y0 + ny] += 1
+    assert (hits == 1).all(), shape
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -83,22 +103,34 @@ def test_one_substep_plan_is_one_launch_of_strip_tiles(shape):
         assert (st.tiles - 1) * TY < broad <= st.tiles * TY
         tiles += st.tiles
     assert plan.shell.grid == (-(-X // 32), tiles)
-    assert len(plan.shell.ints()) == 6
+    assert len(plan.shell.ints()) == 7 and plan.shell.e == R
+    assert (plan.ints() == plan.shell.ints()).all()
 
 
-def test_main_path_plan():
+@pytest.mark.parametrize("pair", [False, True])
+def test_main_path_plan(pair):
     """A 256^3 shard: four strips of 16 row tiles, 8 column tiles, 512
-    blocks of one an SM (3.9 waves on 132 SMs)."""
-    plan = mo.fixup_plan(256, 256, 256, False)
+    blocks of one an SM (3.9 waves on 132 SMs); with the pair that launch
+    (substep 0, into the scratch), the margin's 528 blocks and the
+    depth-8 shell's 496 (its y strips span 240 rows of z, 15 tiles)."""
+    plan = mo.fixup_plan(256, 256, 256, pair)
+    shell = plan.shell0 if pair else plan.shell
     assert [st.axis for st in plan.strips] == ["z", "z", "y", "y"]
-    assert [st.tiles for st in plan.strips] == [16, 16, 16, 16]
-    assert plan.shell.grid == (8, 64)
+    assert shell.grid == (8, 64)
     assert mo.FIXUP_BLOCKS_PER_SM == 1
+    if not pair:
+        assert [st.tiles for st in plan.strips] == [16, 16, 16, 16]
+        return
+    assert [st.tiles for st in plan.strips] == [16, 16, 15, 15]
+    assert plan.shell.grid == (8, 62) and plan.margin.grid == (8, 66)
+    assert plan.ints().size == 22
 
 
 def test_shell_ints_follow_the_kernels_plan_struct():
     """``ShellLaunch.ints()`` is copied byte for byte into the kernel's
-    ShellPlan: the same fields in the same order."""
+    ShellPlan: the same fields in the same order; the pair's
+    ``FixupPlan.ints()`` into PairPlan: substep 0's shell, the margin,
+    substep 1's shell."""
     import re
     from pathlib import Path
 
@@ -107,38 +139,48 @@ def test_shell_ints_follow_the_kernels_plan_struct():
     body = re.search(r"struct ShellPlan \{(.*?)\};", src, re.S).group(1)
     fields = [n.strip() for decl in re.findall(r"int ([\w, ]+);", body)
               for n in decl.split(",")]
-    assert fields == list(mo.ShellLaunch._fields[:6])
-    assert "constexpr int kShellPlanInts = 6;" in src
+    assert fields == list(mo.ShellLaunch._fields[:7])
+    assert "constexpr int kShellPlanInts = 7;" in src
+    body = re.search(r"struct PairPlan \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"(\w+) (\w+);", body) == [
+        ("ShellPlan", "shell0"), ("MarginPlan", "margin"),
+        ("ShellPlan", "shell1")]
+    assert ("constexpr int kPairPlanInts = 2 * kShellPlanInts + "
+            "kMarginPlanInts;") in src
+    plan = mo.fixup_plan(40, 32, 40, True)
+    assert plan.ints().tolist() == (list(plan.shell0.ints())
+                                    + list(plan.margin.ints())
+                                    + list(plan.shell.ints()))
 
 
-def _kernel_block(p, Z, Y, b):
-    """csrc/mhd_overlap.cu mhd_shell_kernel reading ShellPlan p: the
-    axis, the slices [s0, s1) and the tile rows [u0, min(u0 + 16, u1))
-    of block row b."""
-    assert b < p.nzs * p.tz + p.nys * p.ty
-    if b < p.nzs * p.tz:
-        far = b >= p.tz
-        b -= p.tz if far else 0
-        return "z", (p.zt, Z) if far else (0, min(R, Z)), (b * TY, Y)
-    b -= p.nzs * p.tz
-    far = b >= p.ty
-    b -= p.ty if far else 0
-    return "y", (p.yt, Y) if far else (0, min(R, Y)), (R + b * TY, Z - R)
+def _walked(p, Z, Y):
+    """How often the blocks of ShellPlan p compute each (z, y)."""
+    got = np.zeros((Z, Y), dtype=int)
+    for b in range(p.grid[1]):
+        axis, (s0, s1), (u0, u1) = shell_block(p, Z, Y, b, TY)
+        rows = slice(u0, min(u0 + TY, u1))
+        if axis == "z":
+            got[s0:s1, rows] += 1
+        else:
+            got[rows, s0:s1] += 1
+    return got
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_blocks_walk_the_plans_strips(shape):
+@pytest.mark.parametrize("shape,pair", [(s, False) for s in SHAPES]
+                         + [(s, True) for s in SHAPES if _pair_shape(*s)])
+def test_kernel_blocks_walk_the_plans_strips(shape, pair):
     """The plan's ints, read as the kernel reads them, block row by block
     row, compute exactly the points of the plan's strips, each once, in
-    the strips' order and orientation."""
+    the strips' order and orientation (with the pair, the shell launch
+    of substep 1, depth kT)."""
     Z, Y, X = shape
-    plan = mo.fixup_plan(Z, Y, X, False)
-    want, _ = _shell_points(Z, Y, False)
+    plan = mo.fixup_plan(Z, Y, X, pair)
+    want, _ = _shell_points(Z, Y, pair)
     got = np.zeros((Z, Y), dtype=int)
     b = 0
     for st in plan.strips:
         for _ in range(st.tiles):
-            axis, (s0, s1), (u0, u1) = _kernel_block(plan.shell, Z, Y, b)
+            axis, (s0, s1), (u0, u1) = shell_block(plan.shell, Z, Y, b, TY)
             assert axis == st.axis
             rows = slice(u0, min(u0 + TY, u1))
             if axis == "z":

@@ -425,11 +425,13 @@ def test_b12_is_bitwise_b11_then_a_slab_round_then_b11(cm, size, mesh,
     assert cm.LAUNCHES["mhd_substep01_halo"] == before + len(shards)
 
 
-def test_margin_kernel_holds_128_registers_without_spills(cs, tmp_path):
-    """B12's margin kernel (``mhd_margin_kernel`` in ``mhd``: both
-    instances of the ring behind one uniform branch), built as the
+@pytest.mark.parametrize("lib", ["mhd", "mhd_overlap"])
+def test_margin_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
+    """The margin kernel (``csrc/mhd_margin.cuh`` ``mhd_margin_kernel``:
+    both instances of the ring behind one uniform branch), as B12 in
+    ``mhd`` and B14's pair in ``mhd_overlap`` build it, built as the
     package builds it: at most 128 registers a thread and no spill."""
-    usage = _fresh_ptxas("mhd", tmp_path, "mhd_margin_kernel")
+    usage = _fresh_ptxas(lib, tmp_path, "mhd_margin_kernel")
     assert len(usage) == 1, usage
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
@@ -1293,7 +1295,8 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
     its 16-row tile; the last holds 2 rows); 24 x 8 x 24 shards are thin
     in y (Y = 8) and narrower than a 32-column tile, 40 x 32 x 40 ones
     take a second, partial column tile. Every launch of B14 is, per
-    shard, the launches ``fixup_plan`` counts (one with one substep)."""
+    shard, the launches ``fixup_plan`` counts (one with one substep; with
+    the pair two of the shell kernel and one of the margin kernel)."""
     from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
 
     shards, ws = _mhd_mesh(size, mesh, 81)
@@ -1349,8 +1352,9 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
             plan = mo.fixup_plan(Z, Y, shards[0].shape[3], pair)
             assert sum(k["launches"] for k in kernels.values()) == \
                 len(f) * plan.launches, kernels
-            if not pair:
-                assert set(kernels) == {"mhd_shell_kernel"}, kernels
+            assert set(kernels) == ({"mhd_shell_kernel", "mhd_margin_kernel"}
+                                    if pair else {"mhd_shell_kernel"}), \
+                kernels
             # one count a shard and call: B13 once, B14 once a call
             assert mo.LAUNCHES == {"mhd_substep_overlap": len(f),
                                    "mhd_substep_fixup": calls * len(f)}
@@ -1374,6 +1378,101 @@ def test_b14_kernel_fits_the_planners_registers_without_spills(mo, tmp_path):
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
             (name, use)
     assert mo.fixup_occupancy(torch.device("cuda")) == mo.FIXUP_BLOCKS_PER_SM
+
+
+PAIR_PROFILE = """
+import json
+import torch
+from stencil_tpu_torch.geometry import Dim3
+from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
+from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+from stencil_tpu_torch.utils.timers import kernel_profile
+
+g = torch.Generator(device="cuda").manual_seed(5)
+shards = [0.1 * torch.randn((8, 24, 24, 40), generator=g, device="cuda")
+          for _ in range(4)]
+f = [dict(zip(FIELDS, t.unbind(0))) for t in shards]
+of = [dict(zip(FIELDS, torch.empty_like(t).unbind(0))) for t in shards]
+ow = [dict(zip(FIELDS, torch.empty_like(t).unbind(0))) for t in shards]
+counts, prm = Dim3(1, 2, 2), MhdParams(dt=1e-4)
+recv = mo.MhdOverlapRecv(shards, counts)
+b13 = lambda: mo.mhd_substep_overlap_cuda(f, None, 0, prm, 1e-4, counts,
+                                          pair=True, out_f=of, out_w=ow,
+                                          recv=recv)
+b14 = lambda: mo.mhd_substep_fixup_cuda(f, None, of, ow, 0, prm, 1e-4,
+                                        counts, recv, pair=True)
+out = {}
+for name, fn in (("b13", b13), ("b14", b14)):
+    kernels, _ = kernel_profile(fn, 3)
+    out[name] = {k: v["launches"] for k, v in kernels.items()}
+print(json.dumps(out))
+"""
+
+
+def test_pair_forms_launch_the_ring_kernels_in_a_fresh_process(mo):
+    """What one pair call launches on four 24 x 24 x 40 shards of (1,2,2)
+    (``torch.profiler``, three calls, in a fresh process: many profiles
+    in one process have dropped kernel records): B13's pair, per shard,
+    ``send_rows_kernel`` and two ``mhd_substep_ring_kernel`` (substep 0
+    over z, y in [R, n - R), substep 1 over [kT, n - kT)); B14's pair two
+    ``mhd_shell_kernel`` (substep 0 at depth R, substep 1 at depth kT)
+    and one ``mhd_margin_kernel``. Nothing else, so none of the fused 8^3
+    tile kernels of the first design."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    got = subprocess.run([sys.executable, "-c", PAIR_PROFILE], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         check=True)
+    out = json.loads(got.stdout.strip().splitlines()[-1])
+    assert out == {"b13": {"send_rows_kernel": 4.0,
+                           "mhd_substep_ring_kernel": 8.0},
+                   "b14": {"mhd_shell_kernel": 8.0,
+                           "mhd_margin_kernel": 4.0}}, out
+
+
+def test_b14_pair_refuses_scratch_of_other_fields(mo):
+    """B14's pair completes the substep 0 that the shard's last B13 pair
+    left in its scratch, so it raises ``ValueError`` (and launches
+    nothing) when no B13 pair ran on that recv, when the fields were
+    written since or are other tensors, and when the constants differ;
+    it runs, and runs again, on the state that B13's pair saw."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
+
+    shards, _ = _mhd_mesh((48, 48, 24), (1, 2, 2), 83)
+    counts, prm = Dim3(1, 2, 2), MhdParams(dt=1e-4)
+    f = [_fields(t) for t in shards]
+    of = [_fields(torch.empty_like(t)) for t in shards]
+    ow = [_fields(torch.empty_like(t)) for t in shards]
+    recv = mo.MhdOverlapRecv(shards, counts)
+
+    def b14(fields=f, dt=1e-4):
+        mo.mhd_substep_fixup_cuda(fields, None, of, ow, 0, prm, dt, counts,
+                                  recv, pair=True)
+
+    mo.reset_launch_counts()
+    with pytest.raises(ValueError, match="scratch"):
+        b14()
+    assert all(recv.pair_scratch(i) is None for i in range(4))
+    mo.mhd_substep_overlap_cuda(f, None, 0, prm, 1e-4, counts, pair=True,
+                                out_f=of, out_w=ow, recv=recv)
+    b14()
+    first = [{q: t.clone() for q, t in g.items()} for g in of]
+    b14()
+    assert all(torch.equal(a[q], b[q]) for a, b in zip(first, of)
+               for q in FIELDS)
+    with pytest.raises(ValueError, match="scratch"):
+        b14(dt=2e-4)
+    with pytest.raises(ValueError, match="scratch"):
+        b14([_fields(t.clone()) for t in shards])
+    shards[2][3, 0, 0, 0] += 0.0      # written: a new version
+    with pytest.raises(ValueError, match="scratch"):
+        b14()
+    assert mo.LAUNCHES == {"mhd_substep_overlap": 4,
+                           "mhd_substep_fixup": 8}
 
 
 @pytest.mark.parametrize("shard", [0, 3])

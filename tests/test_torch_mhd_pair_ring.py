@@ -2,7 +2,7 @@
 
 On the card B12 (``ops/cuda_mhd.mhd_substep01_halo_cuda``) is three
 launches of the ring kernel: B11 s=0 over the shard, substep 0 over the
-R rows around the shard (``margin_plan``, ``csrc/mhd.cu``
+R rows around the shard (``margin_plan``, ``csrc/mhd_margin.cuh``
 mhd_margin_kernel) from its slabs of 2R rows, written in the R-row slab
 layout, then B11 s=1 from those rows. The kernels run only on the card
 (``tests/test_torch_gpu.py``); what they rest on is held here:
@@ -104,9 +104,10 @@ def test_b12_twin_equals_b11_round_b11_bitwise(size, mesh, layout, dtype):
 # (b) the margin plan, read as the kernel reads it
 # ---------------------------------------------------------------------------
 def _kernel_block(p, Z, Y, b):
-    """csrc/mhd.cu mhd_margin_kernel reading MarginPlan p: the instance,
-    the slices [s0, s1), the tile rows (u0, u1: rows u0 to min(u0 + 16,
-    u1) computed) and the output map (off, zs) of block row b."""
+    """csrc/mhd_margin.cuh mhd_margin_kernel reading MarginPlan p: the
+    instance, the slices [s0, s1), the tile rows (u0, u1: rows u0 to
+    min(u0 + 16, u1) computed) and the output map (off, zs) of block row
+    b."""
     assert b < 2 * (p.tz + p.ty)
     if b < 2 * p.tz:
         far = b >= p.tz
@@ -205,7 +206,7 @@ def test_margin_ints_follow_the_kernels_plan_struct():
     """``MarginPlan.ints()`` is copied byte for byte into the kernel's
     MarginPlan: the same fields in the same order."""
     src = (Path(cm.__file__).resolve().parents[1] / "csrc"
-           / "mhd.cu").read_text()
+           / "mhd_margin.cuh").read_text()
     body = re.search(r"struct MarginPlan \{(.*?)\};", src, re.S).group(1)
     fields = [n.strip() for decl in re.findall(r"int ([\w, ]+);", body)
               for n in decl.split(",")]

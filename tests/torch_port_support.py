@@ -97,6 +97,23 @@ def ring_row(bufs, g, axis, u, p):
     return flat[off:off + X]
 
 
+def shell_block(p, Z, Y, b, ty=16):
+    """csrc/mhd_overlap.cu mhd_shell_kernel reading ShellPlan p (an
+    ``ops/cuda_mhd_overlap.ShellLaunch``) on a (Z, Y, X) shard: the axis
+    its block row b walks, the slices [s0, s1) and the tile rows [u0,
+    min(u0 + ty, u1)); ty is the ring's tile rows (``RING_TILE_Y``)."""
+    assert b < p.nzs * p.tz + p.nys * p.ty
+    if b < p.nzs * p.tz:
+        far = b >= p.tz
+        b -= p.tz if far else 0
+        return "z", (p.zt, Z) if far else (0, min(p.e, Z)), (b * ty, Y)
+    b -= p.nzs * p.tz
+    far = b >= p.ty
+    b -= p.ty if far else 0
+    return ("y", (p.yt, Y) if far else (0, min(p.e, Y)),
+            (p.e + b * ty, Z - p.e))
+
+
 def assert_mhd_fields_match(got, want, dtype):
     """Per field of an MHD state (``got`` and ``want`` map field names to
     tensors or arrays): float64 within ``rtol=1e-11, atol=1e-13`` (the
