@@ -14,9 +14,10 @@ Phases, in order; any failure exits non-zero before the last line:
    ``csrc/mhd_margin.cuh`` in the ``mhd`` library, B13's interior, B14's
    shell and the margin kernel again (the pair forms) in
    ``mhd_overlap``; ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in
-   ``jacobi_halo``) are read from the ``-Xptxas=-v`` lines (a NOTE where one uses more
-   than 128 registers or spills), their opcode counts from ``cuobjdump
-   -sass``.
+   ``jacobi_halo``) and of B8's ring kernel (``csrc/laplace6.cu``: each
+   copy width and store width) are read from the
+   ``-Xptxas=-v`` lines (a NOTE where one uses more than 128 registers
+   or spills), their opcode counts from ``cuobjdump -sass``.
 3. kernels vs plain twins, on the card:
    - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
      (jacobi7_padded) at small odd shapes and at 512^3; K2 also at N=1,
@@ -25,8 +26,12 @@ Phases, in order; any failure exits non-zero before the last line:
      ``jacobi_ring_plan`` walks z in runs whose last one is shorter.
      Tolerance: 0 (bitwise) — each kernel adds and multiplies in its
      twin's order, built -fmad=false.
-   - B8 (laplace6) at (8,8,8), (16,8,24), (8,16,40) and 256^3 (Z,Y,X).
-     Tolerance: 0, as for K3.
+   - B8 (laplace6) at (8,8,8), (16,8,24), (8,16,40), 256^3, 136 x 128
+     x 96 and (131, 64, 128) (``laplace6_plan`` walks z in runs whose
+     last one is shorter), (1, 8, 1) (smaller than one tile) and (5, 7,
+     33) (x not a multiple of 4) (Z,Y,X), and at 29 x 37 x 70 with low
+     pads above 3 and padded rows that start on 4 or 8 bytes (its 4- and
+     8-byte copies, 4-byte stores). Tolerance: 0, as for K3.
    - B5 (jacobi7_halo) and B6 (jacobi7_halon) on slabs from
      ``exchange_interior_slabs``: B5 at 512^3 with its own wrapped
      slabs, and on the four shards of 512 x 511 x 509 (x, y, z) over
@@ -206,7 +211,11 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel's, twin's and library call's ms (CUDA events over repeated
    launches after a warm-up); and each kernel's bound: the larger of
    bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM data sheet,
-   float32 without tensor cores). The library calls are
+   float32 without tensor cores); B8's device time alone, its launch
+   plan at 256^3 (logged, and in chip_smoke.json as
+   ``laplace6_plan_256``) and its blocks an SM as the card counts them
+   (in the kernels line), which must equal the plan's. The library calls
+   are
    ``torch.nn.functional.conv3d`` for K3 (3x3x3 weight) and B8 (7x7x7),
    with cuDNN's TF32 turned off so that they compute in float32; the
    MHD kernels have no single PyTorch call. Results also go to
@@ -931,38 +940,83 @@ def mhd_inv_ds():
     return (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
 
 
+# B8's shapes (Z, Y, X) beyond MHD_SHAPES: Astaroth's per-rank grid, z
+# runs with a shorter last one, one smaller than a tile, x not a multiple
+# of 4; and its layouts at 29 x 37 x 70: (low pads, high pads) (x, y, z)
+# and the floats by which the field and the output start past 16 bytes
+LAPLACE6_SHAPES = [(N256,) * 3, (136, 128, 96), (131, 64, 128), (1, 8, 1),
+                   (5, 7, 33)]
+LAPLACE6_LAYOUTS = [((5, 4, 6), (4, 4, 3), 0, 0),   # Xp odd: 4-byte copies
+                    ((3, 3, 3), (3, 3, 3), 1, 0),   # rows on 4 bytes
+                    ((3, 5, 4), (5, 3, 3), 2, 0),   # odd low x pad, 8 bytes
+                    ((4, 4, 4), (4, 4, 4), 0, 1),   # even low x pad: 4
+                    ((6, 3, 5), (4, 4, 4), 2, 3)]
+
+
+def compare_laplace6(torch, cs) -> float:
+    """Phase 3: B8 bitwise against its twin, one launch a call, at
+    ``MHD_SHAPES`` and ``LAPLACE6_SHAPES`` padded by 3, and at 29 x 37 x
+    70 in each of ``LAPLACE6_LAYOUTS``. Returns the largest absolute
+    difference."""
+    from stencil_tpu_torch.geometry import Dim3, Radius
+
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    inv = mhd_inv_ds()
+
+    cases = [((Z, Y, X), (3, 3, 3), (3, 3, 3), 0, 0)
+             for Z, Y, X in MHD_SHAPES + LAPLACE6_SHAPES]
+    cases += [((29, 37, 70), lo, hi, off, ooff)
+              for lo, hi, off, ooff in LAPLACE6_LAYOUTS]
+    n_sms = cs.sm_count(torch.device("cuda"))
+    worst = 0.0
+    for (Z, Y, X), lo, hi, off, ooff in cases:
+        r = Radius.constant(3)
+        for axis, v in enumerate(lo):
+            d = [0, 0, 0]
+            d[axis] = -1
+            r.set_dir(tuple(d), v)
+        shape = (Z + lo[2] + hi[2], Y + lo[1] + hi[1], X + lo[0] + hi[0])
+        n = shape[0] * shape[1] * shape[2]
+        pad = torch.randn((n + off,), generator=gen,
+                          device="cuda")[off:].view(shape)
+        out = torch.full((Z * Y * X + ooff,), float("nan"),
+                         device="cuda")[ooff:].view(Z, Y, X)
+        before = cs.LAUNCHES["laplace6"]
+        got = cs.laplace6_cuda(pad, r, Dim3(X, Y, Z), inv, out=out)
+        want = cs.laplace6_plain(pad, r, Dim3(X, Y, Z), inv)
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, want))
+        plan = cs.laplace6_plan(Z, Y, X, n_sms)
+        tag = f"{(Z, Y, X)} pads {lo}/{hi} offsets {off}/{ooff}"
+        log(f"  B8 {tag}, plan {tuple(plan)}: max |kernel - twin| = "
+            f"{err!r} ({'bitwise equal' if same else 'DIFFERENT'})")
+        if not same or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B8 {tag}: kernel disagrees with its "
+                                 f"twin")
+        if cs.LAUNCHES["laplace6"] != before + 1:
+            raise AssertionError(f"B8 {tag}: not one launch a call")
+        worst = max(worst, err)
+        del pad, out, got, want
+    return worst
+
+
 def compare_mhd_kernels(torch, cs, cm) -> dict:
-    """Phase 3, Astaroth: B8 bitwise; B9 and B10 per field within 64
-    eps(f32) of the largest twin value (whether B9 came out bitwise is
-    reported); B10 also against two B9 launches; B9 (every variant)
+    """Phase 3, Astaroth: B8 bitwise (``compare_laplace6``); B9 and B10
+    per field within 64 eps(f32) of the largest twin value (whether B9
+    came out bitwise is reported); B10 also against two B9 launches; B9
+    (every variant)
     bitwise equal to B11 on the same field as a (1,1,1) mesh, whose slabs
     are its own wrapped rows, at these shapes, at 256^3 and at 136 x 128
     x 96, where ``ring_zrun`` splits z into runs, the last one shorter.
     Returns the largest absolute difference per kernel."""
-    from stencil_tpu_torch.geometry import Dim3, Radius
     from stencil_tpu_torch.models.astaroth import MhdParams
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    worst = {"laplace6": 0.0, "mhd_substep_wrap": 0.0,
-             "mhd_substep01_wrap": 0.0}
-    r3 = Radius.constant(3)
-    inv = mhd_inv_ds()
     split = (136, 128, 96)
+    worst = {"laplace6": compare_laplace6(torch, cs),
+             "mhd_substep_wrap": 0.0, "mhd_substep01_wrap": 0.0}
     for shape in MHD_SHAPES + [(N256,) * 3, split]:
         Z, Y, X = shape
-        if shape != split:
-            pad = torch.randn((Z + 6, Y + 6, X + 6), generator=gen,
-                              device="cuda")
-            got = cs.laplace6_cuda(pad, r3, Dim3(X, Y, Z), inv)
-            want = cs.laplace6_plain(pad, r3, Dim3(X, Y, Z), inv)
-            err = float((got - want).abs().max())
-            same = bool(torch.equal(got, want))
-            log(f"  B8 {shape}: max |kernel - twin| = {err!r} "
-                f"({'bitwise equal' if same else 'DIFFERENT'})")
-            if not same or not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"B8 {shape}: kernel disagrees with "
-                                     f"its twin")
-            del pad, got, want
         zrun = cm.ring_zrun(Z, Y, X, cs.sm_count(torch.device("cuda")))
         log(f"  B9 on {shape}: {-(-Z // zrun)} z runs of {zrun} planes a "
             f"block")
@@ -1493,6 +1547,29 @@ def time_mhd_kernels(torch, cs, cm) -> dict:
     res["laplace6"]["library_ms"] = library_ms(
         torch, pad, weight, cs.laplace6_cuda(pad, r3, interior, inv),
         "laplace6")
+    # B8's device time alone, its plan at 256^3 and the card's blocks an
+    # SM there, which must equal the plan's
+    dev = torch.device("cuda")
+    plan = cs.laplace6_plan(n, n, n, cs.sm_count(dev))
+    card_bps = cs.laplace6_occupancy(dev)
+    blocks = -(-n // 64) * -(-n // cs.LAPLACE6_TY) * -(-n // plan.zrun)
+    res["laplace6_plan_256"] = dict(
+        plan._asdict(), blocks=blocks, card_blocks_per_sm=card_bps,
+        waves=blocks / (cs.sm_count(dev) * card_bps))
+    log(f"  laplace6 plan at 256^3: {res['laplace6_plan_256']}")
+    if card_bps != plan.blocks_per_sm:
+        raise AssertionError(f"laplace6: the card holds {card_bps} blocks "
+                             f"an SM, the plan {plan.blocks_per_sm}")
+    res["laplace6"].update(
+        device_ms=device_ms(torch, cases["laplace6"][0], 20, warmup=3),
+        blocks_per_sm=card_bps,
+        design=("z-streaming shared-memory ring: 64 x 32 tiles walking z "
+                "runs (laplace6_plan), cp.async of 8-byte cells (4 where "
+                "rows start on 4 bytes or the low x pad is even) two "
+                "planes ahead, four columns and two rows a thread, z "
+                "pencil in registers"))
+    log(f"  laplace6: device time alone "
+        f"{res['laplace6']['device_ms']!r} ms")
     b9 = [res.pop(k) for k in ("B9 s=0 (w=None)", "B9 s=1",
                                "B9 s=2 (write_w=False)")]
     res["mhd_substep_wrap"] = {
@@ -2687,7 +2764,7 @@ PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 # the libraries that build a ring kernel: B9/B11, B13's interior and
 # B14's shell (csrc/mhd_ring.cuh), K2 and B6 (csrc/jacobi_ring.cuh)
-RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo")
+RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo", "laplace6")
 
 
 def kernel_key(lib: str, name: str):
@@ -2697,9 +2774,11 @@ def kernel_key(lib: str, name: str):
     interior, and twice each as B10 and B12), (library, "shell", read_w,
     write_w) of B14's (``mhd_shell_kernel``, the ring's z and y
     instances), (library, "margin") of B12's margin
-    (``mhd_margin_kernel``, the same two instances), or (library,
+    (``mhd_margin_kernel``, the same two instances), (library,
     "jacobi_ring") of the Jacobi ring kernel (K2 in ``jacobi7``, B6 in
-    ``jacobi_halo``), from its mangled name, else None."""
+    ``jacobi_halo``), or (library, "laplace6_ring", copy floats, 16-byte
+    stores) of B8's (``laplace6_ring_kernel<kChunk, kVecOut>``), from its
+    mangled name, else None."""
     import re
 
     m = re.search(r"mhd_substep_ring_kernelILb(\d)ELb(\d)E", name)
@@ -2712,6 +2791,9 @@ def kernel_key(lib: str, name: str):
         return (lib, "margin")
     if "jacobi_ring_kernel" in name and lib in RING_LIBS:
         return (lib, "jacobi_ring")
+    m = re.search(r"laplace6_ring_kernelILi(\d)ELb(\d)E", name)
+    if m and lib in RING_LIBS:
+        return (lib, "laplace6_ring", int(m.group(1)), m.group(2) == "1")
     return None
 
 
@@ -2733,7 +2815,7 @@ def ptxas_usage(log: str) -> dict:
 
 def sass_counts() -> dict:
     """Static opcode counts of every ring-kernel instantiation in the
-    built ``mhd`` and ``mhd_overlap`` libraries (``cuobjdump -sass``; each
+    built ``RING_LIBS`` libraries (``cuobjdump -sass``; each
     instruction of the kernel once, loops not unrolled): ``kernel_key``
     -> {"total": n, and the 8 most frequent opcodes}. Empty where the
     toolkit has no cuobjdump."""
@@ -2916,6 +2998,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if name == "laplace6":
             entry["path"] = "none: no model path runs it in either package"
+            entry["ptxas"] = {
+                f"laplace6_ring_kernel {4 * k[2]}-byte copies, "
+                f"16-byte stores={k[3]}": use
+                for k, use in ptxas.items() if k[:2] == ("laplace6",
+                                                         "laplace6_ring")}
         for k in ("device_ms", "design", "blocks_per_sm"):
             if k in t:
                 entry[k] = t[k]
@@ -2958,6 +3045,7 @@ def main() -> int:
                        halo_times["halon_quarter_shard_bound_ms"],
                    "jacobi_ring_plans": halo_times["jacobi_ring_plans"],
                    "fixup_plan_256": mhd_overlap_times["fixup_plan_256"],
+                   "laplace6_plan_256": times.pop("laplace6_plan_256"),
                    "astaroth_halo_iters_per_s":
                        mhd_halo_times["iters_per_s"],
                    "astaroth_halo_runs_iters_per_s":

@@ -3,8 +3,8 @@
 that two checkouts can be compared in turns in one call.
 
     python3 stencil_tpu_torch/apps/kernel_times.py
-        [--model jacobi|mhd|pair] [--root DIR] [--label NAME] [--paths]
-        [--baseline]
+        [--model jacobi|mhd|pair|laplace6] [--root DIR] [--label NAME]
+        [--paths] [--baseline] [--plans]
 
 ``--root DIR`` imports ``stencil_tpu_torch`` from DIR (default: this
 checkout), say a parent commit unpacked with ``git archive`` into a
@@ -59,6 +59,18 @@ rates of ``wrap`` and ``wrap`` + pair at 256^3, of ``halo``, ``halo`` +
 pair, ``halo-overlap`` and ``halo-overlap`` + pair on 256 x 512 x 512
 over (1,2,2), four shards on the card, and of ``halo-overlap`` with and
 without the pair on 256^3 over (1,1,1) (three ``run(10)`` each).
+
+``--model laplace6``: B8 (laplace6, no model path runs it) on a random
+256^3 interior padded by 3 (Astaroth's per-rank grid) and on 136 x 128
+x 96 (Z, Y, X), where B8's tiles and z runs are ragged, each first held
+bitwise to its twin, and a plain ``copy_`` of the 256^3 padded field
+(the practical ceiling): each ``chip_smoke.event_ms`` of 20 launches
+after 3 warm-ups and by device time alone (``chip_smoke.device_ms``),
+with B8's launch plan and, where the tree has them, the card's blocks
+an SM (``laplace6_plan``, ``laplace6_occupancy``). ``--plans`` (a tree
+with ``laplace6_plan``) adds, at both shapes by device time in turns,
+B8 launched with other z runs than its plan's and with its 4-byte
+copies (the field one float past 8 bytes).
 
 Writes one JSON object to
 ``chiprun_out/kernel_times_<model>_<label>.json`` and prints it as the
@@ -546,7 +558,134 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     return res
 
 
-MODELS = {"jacobi": jacobi, "mhd": mhd, "pair": pair}
+def laplace6(args, m: Measuring, log: io.StringIO) -> dict:
+    import torch
+
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import _build
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    smoke, reps = m.smoke, 20
+    with contextlib.redirect_stdout(log):
+        _build.build_all(["laplace6"])
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    r3 = Radius.constant(3)
+    inv = smoke.mhd_inv_ds()
+    dev = torch.device("cuda")
+    cases, res = {}, {"reps": reps, "cases": {}, "plans": {}}
+    for label, (Z, Y, X) in (("B8 256^3", (256, 256, 256)),
+                             ("B8 136x128x96", (136, 128, 96))):
+        pad = torch.randn((Z + 6, Y + 6, X + 6), generator=gen, device=dev)
+        out = torch.empty((Z, Y, X), device=dev)
+        interior = Dim3(X, Y, Z)
+        same = torch.equal(cs.laplace6_cuda(pad, r3, interior, inv, out=out),
+                           cs.laplace6_plain(pad, r3, interior, inv))
+        print(f"{args.label}: {label} vs its twin: "
+              f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: kernel differs from its twin")
+        cases[label] = (
+            lambda pad=pad, interior=interior, out=out: cs.laplace6_cuda(
+                pad, r3, interior, inv, out=out),
+            4.0 * (pad.numel() + out.numel()),
+            smoke.LAPLACE6_FLOPS * out.numel())
+        if hasattr(cs, "laplace6_plan"):
+            plan = cs.laplace6_plan(Z, Y, X, cs.sm_count(dev))
+            res["plans"][label] = dict(
+                plan._asdict(),
+                card_blocks_per_sm=cs.laplace6_occupancy(dev))
+    pad = torch.randn((262,) * 3, generator=gen, device=dev)
+    dst = torch.empty_like(pad)
+    cases["copy_ of the 256^3 padded field"] = (
+        lambda: dst.copy_(pad), 8.0 * pad.numel(), 0.0)
+    turns = time_in_turns(cases, {
+        "events": lambda fn: smoke.event_ms(torch, fn, reps, warmup=3),
+        "device": lambda fn: smoke.device_ms(torch, fn, reps, warmup=3)})
+    for name, (_, nbytes, flops) in cases.items():
+        ms = sum(turns[name]["events"]) / 2
+        dev_ms = sum(turns[name]["device"]) / 2
+        bound, by = smoke.bound_ms(nbytes, flops)
+        res["cases"][name] = {
+            "ms": ms, "turns_ms": turns[name]["events"], "device_ms": dev_ms,
+            "turns_device_ms": turns[name]["device"], "bound_ms": bound,
+            "bound_by": by, "share": bound / ms}
+        print(f"{args.label}: {name}: {ms!r} ms by events "
+              f"({turns[name]['events']}), device alone {dev_ms!r} ms "
+              f"({turns[name]['device']}), bound {bound!r} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of bound", flush=True)
+    for label, plan in res["plans"].items():
+        print(f"{args.label}: {label} plan {plan}", flush=True)
+    if args.plans and hasattr(cs, "laplace6_plan"):
+        res["plan_sweep"] = {}
+        for shape in LAPLACE6_SWEEPS:
+            res["plan_sweep"].update(laplace6_plans(m, cs, shape))
+    res["ptxas"] = {name: use for (lib, name), use
+                    in m.build.ptxas_usage(log.getvalue()).items()
+                    if lib == "laplace6"}
+    return res
+
+
+# B8's plan sweeps (--plans): (Z, Y, X) -> other z runs to try
+LAPLACE6_SWEEPS = {(256, 256, 256): (26, 37, 43, 64),
+                   (136, 128, 96): (7, 9, 12, 17)}
+
+
+def laplace6_plans(m: Measuring, cs, shape) -> dict:
+    """B8 on a (Z, Y, X) interior padded by 3 with ``laplace6_plan``'s
+    z run and those of ``LAPLACE6_SWEEPS``, and with its 4-byte copies,
+    by device time, forward and backward through the cases; each first
+    held bitwise to the twin."""
+    import numpy as np
+    import torch
+
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import _build
+
+    smoke, dev = m.smoke, torch.device("cuda")
+    Z, Y, X = shape
+    inv = smoke.mhd_inv_ds()
+    ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv)
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    padded = (Z + 6, Y + 6, X + 6)
+    numel = padded[0] * padded[1] * padded[2]
+    buf = torch.randn((numel + 1,), generator=gen, device=dev)
+    out = torch.empty(shape, device=dev)
+    zrun = cs.laplace6_plan(Z, Y, X, cs.sm_count(dev)).zrun
+
+    def launch(p, run):
+        _build.launch("laplace6", "laplace6_launch",
+                      cs._SIGNATURES["laplace6_launch"], dev, p.data_ptr(),
+                      out.data_ptr(), Z, Y, X, Y + 6, X + 6, 3, 3, 3, ix2,
+                      iy2, iz2, run)
+
+    field = buf[:numel].view(padded)
+    odd = buf[1:].view(padded)   # 4 bytes past 8: 4-byte copies
+    cases = {f"{shape} z run {r}": (field, r)
+             for r in (zrun,) + LAPLACE6_SWEEPS[shape]}
+    cases[f"{shape} 4-byte copies, z run {zrun}"] = (odd, zrun)
+    for name, (p, run) in cases.items():
+        out.fill_(float("nan"))
+        launch(p, run)
+        want = cs.laplace6_plain(p, Radius.constant(3), Dim3(X, Y, Z), inv)
+        if not torch.equal(out, want):
+            raise AssertionError(f"B8 {name} differs from its twin")
+        del want
+    bound = smoke.bound_ms(4.0 * (numel + Z * Y * X), 34.0 * Z * Y * X)[0]
+    calls = {k: (lambda p=p, run=run: launch(p, run),)
+             for k, (p, run) in cases.items()}
+    turns = time_in_turns(calls, {
+        "device": lambda fn: smoke.device_ms(torch, fn, 20, warmup=3)})
+    res = {}
+    for name in cases:
+        ms = sum(turns[name]["device"]) / 2
+        res[name] = {"device_ms": ms, "turns": turns[name]["device"],
+                     "share": bound / ms}
+        print(f"  {name}: {ms!r} ms device ({turns[name]['device']}), "
+              f"{100 * bound / ms:.1f}% of bound", flush=True)
+    return res
+
+
+MODELS = {"jacobi": jacobi, "mhd": mhd, "pair": pair, "laplace6": laplace6}
 
 
 def main(argv=None) -> int:
@@ -557,6 +696,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--baseline", action="store_true",
                     help="with --model mhd: B14's z-streaming baseline")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --model laplace6: B8 at other launch plans")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     m = Measuring()

@@ -1,12 +1,12 @@
 // 6th-order Laplacian kernel for Hopper (sm_90a), float32.
 //
-// B8 laplace6_kernel replaces stencil_tpu/ops/pallas_stencil.py:432
+// B8 laplace6_ring_kernel replaces stencil_tpu/ops/pallas_stencil.py:432
 // laplace6_pallas: the sum over x, y and z of the 6th-order central
 // second derivative (reference: astaroth/user_kernels.h:49-62
 // second_derivative) on a radius-3 halo-padded (Zp, Yp, Xp) shard,
 // writing the (Z, Y, X) interior. Bound to Python through a plain
 // extern "C" launcher (ctypes; ops/cuda_stencil.py laplace6_cuda, beside
-// its plain twin laplace6_plain).
+// its plain twin laplace6_plain, launched as laplace6_plan says).
 //
 // Order (pallas_stencil.py:451-465): accx, accy and accz each start at
 // D2_C * centre and add w_i * (hi + lo) for i = 1..3; then
@@ -17,14 +17,38 @@
 // Bound on this card: bytes. One read of the padded field and one write
 // of the interior, (Zp*Yp*Xp + Z*Y*X) * 4 B (139 MB at 256^3, 0.042 ms
 // at 3.35 TB/s), against 34 flops per point (0.009 ms at 67 TFLOP/s).
-// Design: as the Jacobi kernel K3 (csrc/jacobi7.cu): a (32, 8) block of
-// threads in (x, y), one thread per output column, each walking kZRun z
-// planes with the 7 planes of its column's z pencil in registers, so
-// device memory sees about one read per input point; the x and y
-// neighbours are re-reads that L1/L2 serve. A warp reads 32 neighbouring
-// x: every load and store is a coalesced 128-byte row.
+//
+// Design: a z-streaming shared-memory ring. A block of 256 threads owns
+// a 64 x 32 (x, y) output tile and walks a run of `zrun` z planes of it
+// (the run: ops/cuda_stencil.py laplace6_plan). Shared memory holds a
+// ring of kDepth + 4 window planes: the tile with 4 columns (3 used) and
+// 3 rows on each side, its rows rounded up to a multiple of the 8 warps,
+// filled by cp.async kDepth = 2 planes ahead of the plane in use (on an
+// H100 at 256^3 two beat one, three, five and six and tied four:
+// PERF.md §6), so that each input point crosses device memory about
+// once and the x and y neighbours are shared-memory loads, never global
+// re-reads. On this card the number of cp.async instructions, not their
+// bytes, sets the copy rate, so each row's first 64 columns are full
+// warp-wide chunks and the 8 left over of 4 or 8 rows share one
+// instruction, and the copies are 8 bytes where every padded row starts
+// on 8 bytes and the low x pad is odd (Astaroth's layout: Xp = 262 rules
+// out 16-byte rows), else 4 (kernel_times.py --model laplace6 --plans
+// times both). Each thread computes four adjacent columns of two rows:
+// its x window is two or three loads beside the centres, the y
+// neighbours six rows of centres shared by its rows, and the z
+// neighbours a register pencil of the 7 planes around each output row,
+// fed one row of centres a plane from the ring and indexed modulo 7 in
+// a loop unrolled 7 times, so the pencil never moves. One barrier a
+// plane: pass i waits for plane i, asks for plane i + 2 into the slot of
+// plane i - 4, and computes the output plane whose centre is plane
+// i - 3. Odd z runs walk down, so that neighbouring runs read the planes
+// they share at about the same time.
+// Ragged x, y and z are masked; 16-byte stores where X is a multiple of 4.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -35,65 +59,350 @@ constexpr float kW2 = static_cast<float>(-3.0 / 20.0);
 constexpr float kW3 = static_cast<float>(1.0 / 90.0);
 constexpr int R = 3;
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-constexpr int kZRun = 16;
-
-__global__ void __launch_bounds__(kBX * kBY)
-laplace6_kernel(const float* __restrict__ in, float* __restrict__ out, int Z,
-                int Y, int X, int Yp, int Xp, int lz, int ly, int lx,
-                float ix2, float iy2, float iz2) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  const int z0 = blockIdx.z * kZRun;
-  if (x >= X || y >= Y || z0 >= Z) return;
-  const size_t pplane = static_cast<size_t>(Yp) * Xp;
-  const size_t pcol = static_cast<size_t>(y + ly) * Xp + (x + lx);
-  const size_t plane = static_cast<size_t>(Y) * X;
-  const size_t col = static_cast<size_t>(y) * X + x;
-  const int z1 = min(z0 + kZRun, Z);
-  // zc[R + d] holds the column at z + d, d = -R..R
-  float zc[2 * R + 1];
-#pragma unroll
-  for (int d = -R; d < R; ++d) zc[R + d] = in[(z0 + lz + d) * pplane + pcol];
-  for (int z = z0; z < z1; ++z) {
-    zc[2 * R] = in[(z + lz + R) * pplane + pcol];
-    const float* p = in + (z + lz) * pplane + pcol;
-    const float ctr = zc[R];
-    float accx = kC * ctr;
-    float accy = accx;
-    float accz = kC * ctr;
-    accx = accx + kW1 * (p[1] + p[-1]);
-    accy = accy + kW1 * (p[Xp] + p[-Xp]);
-    accz = accz + kW1 * (zc[R + 1] + zc[R - 1]);
-    accx = accx + kW2 * (p[2] + p[-2]);
-    accy = accy + kW2 * (p[2 * Xp] + p[-2 * Xp]);
-    accz = accz + kW2 * (zc[R + 2] + zc[R - 2]);
-    accx = accx + kW3 * (p[3] + p[-3]);
-    accy = accy + kW3 * (p[3 * Xp] + p[-3 * Xp]);
-    accz = accz + kW3 * (zc[R + 3] + zc[R - 3]);
-    out[z * plane + col] = accx * ix2 + accy * iy2 + accz * iz2;
-#pragma unroll
-    for (int d = 0; d < 2 * R; ++d) zc[d] = zc[d + 1];
-  }
-}
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanesX = 16;                     // threads across a tile row
+constexpr int kTX = 4 * kLanesX;                // 64 tile columns
+constexpr int kRowGroups = kThreads / kLanesX;  // 16 thread rows
+constexpr int kPitch = kTX + 8;                 // window columns
+constexpr int kPencil = 2 * R + 1;              // 7 planes
+constexpr int kRows = 2;                        // output rows a thread
+constexpr int kTY = kRowGroups * kRows;         // 32 tile rows
+constexpr int kDepth = 2;                       // planes asked for ahead
+constexpr int kSlots = kDepth + R + 1;          // ring planes
+// the rows of a window plane in the ring: the tile's and R on each side,
+// rounded up to a multiple of the warps, which copy one row each at a time
+constexpr int kWinRows = (kTY + 2 * R + kWarps - 1) / kWarps * kWarps;
+constexpr int kPlane = kPitch * kWinRows;
+constexpr size_t kRingBytes = sizeof(float) * kSlots * kPlane;
 
 inline unsigned blocks(int n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
+}
+
+struct Geom {
+  int Z, Y, X;    // interior
+  int Yp, Xp;     // row and plane strides of the padded field
+  int lz, ly, lx; // low pads
+};
+
+struct Scale {
+  float ix2, iy2, iz2;
+};
+
+__device__ __forceinline__ float weight(int d) {
+  return d == 1 ? kW1 : (d == 2 ? kW2 : kW3);
+}
+
+__device__ __forceinline__ float part(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One cp.async of kChunk floats to the shared-memory address dst, only
+// where `on` is set (a predicate inside the asm, so that the copies are
+// straight-line code).
+template <int kChunk>
+__device__ __forceinline__ void copy_cell(unsigned dst, const float* src,
+                                          int on) {
+  asm volatile(
+      "{\n .reg .pred p0;\n setp.ne.b32 p0, %2, 0;\n"
+      " @p0 cp.async.ca.shared.global [%0], [%1], %3;\n}\n" ::"r"(dst),
+      "l"(src), "r"(on), "n"(4 * kChunk));
+}
+// A row's full chunks: the 8-byte cell src[0..1], or the 4-byte ones
+// src[0] and src[32] (to dst and dst + 128 bytes), each where its flag is
+// set.
+template <int kChunk>
+__device__ __forceinline__ void copy_full(unsigned dst, const float* src,
+                                          int on0, int on1) {
+  if (kChunk == 2) {
+    copy_cell<2>(dst, src, on0);
+    return;
+  }
+  asm volatile(
+      "{\n .reg .pred p0, p1;\n"
+      " setp.ne.b32 p0, %2, 0;\n setp.ne.b32 p1, %3, 0;\n"
+      " @p0 cp.async.ca.shared.global [%0], [%1], 4;\n"
+      " @p1 cp.async.ca.shared.global [%0+128], [%1+128], 4;\n}\n" ::"r"(dst),
+      "l"(src), "r"(on0), "r"(on1));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most kDepth - 1 groups are pending
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  static_assert(kDepth == 2, "the wait_group immediate is kDepth - 1");
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The four centre columns of a window row at p (16-byte aligned: the
+// thread's window columns 0 .. 3 at kShift 0, -1 .. 2 at kShift 1).
+template <int kShift>
+__device__ __forceinline__ float4 centres(const float* p) {
+  const float4 a = ld4(p);
+  return kShift == 0 ? a : make_float4(a.y, a.z, a.w, p[4]);
+}
+
+// B8's ring kernel. kChunk: floats a cp.async copies (2 where the
+// padded rows are 8-byte aligned and the low x pad odd, else 1).
+template <int kChunk, bool kVecOut>
+__global__ void __launch_bounds__(kThreads, 2)
+laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     Geom g, Scale s, int zrun) {
+  extern __shared__ __align__(16) float ring[];
+  // smem column of window column 0: 1 with 8-byte copies, so that each
+  // lands on 8 bytes (the low x pad is odd); then the thread's centres
+  // start one float past 16 bytes and take two loads a row
+  constexpr int kShift = kChunk - 1;
+  constexpr int kCopyRows = kWinRows / kWarps;  // full rows a warp copies
+  // a row's 72 smem columns: the full chunks of its first 64, and the 8
+  // left over, whose cells (kLeftCells a row) of kLeftRows rows one
+  // instruction copies; warp w copies leftover groups w, w + 8, ...
+  constexpr int kFull = 2 / kChunk;
+  constexpr int kLeftCells = 8 / kChunk;
+  constexpr int kLeftRows = 32 / kLeftCells;
+  constexpr int kLeftGroups = kWinRows / kLeftRows;
+  constexpr int kLeftPerWarp = (kLeftGroups + kWarps - 1) / kWarps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
+  const int z0 = blockIdx.z * zrun, z1 = min(z0 + zrun, g.Z);
+  // Odd z runs walk down: two neighbouring runs then reach the R planes
+  // on each side of their border at about the same time, and the second
+  // read of each is served by L2. Plane i of the stream is padded plane
+  // zs + dz * i + lz; the output plane of pass i >= 6 is zs + dz * (i -
+  // R). (hi + lo) is the same sum in either direction.
+  const bool down = blockIdx.z & 1;
+  const int dz = down ? -1 : 1;
+  const int zs = down ? z1 - 1 + R : z0 - R;
+  const ptrdiff_t pplane = static_cast<ptrdiff_t>(g.Yp) * g.Xp;
+  const int xw = x0 + g.lx - 4 - kShift;  // padded column of smem column 0
+  const int yw = y0 + g.ly - R;           // padded row of window row 0
+
+  // Window rows below the padded field copy its last row instead, and
+  // cells outside the padded row are left out: either only ever feeds
+  // outputs that are not stored. Each pointer walks its row's planes in
+  // stream order.
+  const float* const base = in + (zs + g.lz) * pplane + xw;
+  const auto row_at = [&](int r) {
+    return base + static_cast<ptrdiff_t>(min(yw + r, g.Yp - 1)) * g.Xp;
+  };
+  const auto inside = [&](int c) {  // smem column c starts a valid cell
+    return xw + c >= 0 && xw + c + kChunk <= g.Xp;
+  };
+  const unsigned ring_s =
+      static_cast<unsigned>(__cvta_generic_to_shared(ring));
+  const float* rp[kCopyRows];  // full rows warp + 8 m, at column kChunk lane
+#pragma unroll
+  for (int m = 0; m < kCopyRows; ++m)
+    rp[m] = row_at(warp + kWarps * m) + kChunk * lane;
+  const int full0 = inside(kChunk * lane);
+  const int full1 = kFull > 1 && inside(kChunk * lane + 32);
+  const unsigned dfull = ring_s + 4 * (warp * kPitch + kChunk * lane);
+  const float* lp[kLeftPerWarp];  // leftover cells
+  int left_on[kLeftPerWarp];
+  unsigned dleft[kLeftPerWarp];
+  const int lc = 64 + kChunk * (lane % kLeftCells);
+#pragma unroll
+  for (int u = 0; u < kLeftPerWarp; ++u) {
+    const int q = warp + kWarps * u, r = q * kLeftRows + lane / kLeftCells;
+    left_on[u] = q < kLeftGroups && inside(lc);
+    lp[u] = row_at(q < kLeftGroups ? r : 0) + lc;
+    dleft[u] = ring_s + 4 * ((q < kLeftGroups ? r : 0) * kPitch + lc);
+  }
+  auto load_plane = [&](int slot) {
+    const unsigned d = 4 * slot * kPlane;
+#pragma unroll
+    for (int m = 0; m < kCopyRows; ++m) {
+      copy_full<kChunk>(dfull + d + 4 * m * kWarps * kPitch, rp[m], full0,
+                        full1);
+      rp[m] += dz * pplane;
+    }
+#pragma unroll
+    for (int u = 0; u < kLeftPerWarp; ++u) {
+      copy_cell<kChunk>(dleft[u] + d, lp[u], left_on[u]);
+      lp[u] += dz * pplane;
+    }
+  };
+
+  // this thread's four columns and kRows rows: its first centre row's
+  // 16-byte-aligned smem offset, and its first output
+  const int tx = tid % kLanesX, ty = tid / kLanesX;
+  const int ci = (R + kRows * ty) * kPitch + 4 + 4 * tx;
+  const int ox = x0 + 4 * tx, oy = y0 + kRows * ty;
+  const ptrdiff_t oplane = dz * static_cast<ptrdiff_t>(g.Y) * g.X;
+  float* o = out + (zs + dz * R) * static_cast<ptrdiff_t>(g.Y) * g.X +
+             static_cast<size_t>(oy) * g.X + ox;
+
+  const int nload = z1 - z0 + 2 * R;  // planes z0 - R .. z1 + R - 1
+  for (int i = 0; i < kDepth; ++i) {
+    if (i < nload) load_plane(i);
+    cp_async_commit();
+  }
+  // pass i waits for plane i (in ring slot `slot`), asks for plane i +
+  // kDepth into the slot of plane i - 4 (read in pass i - 1, which the
+  // barrier has closed) and reads plane i's centres into the pencil:
+  // pc[r][i % 7] is row r's four centre columns at plane i
+  float4 pc[kRows][kPencil];
+  int slot = 0;
+  auto advance = [&](int i) {
+    cp_async_wait_ahead();  // plane i has landed (this thread's)
+    __syncthreads();        // ... everyone's; pass i - 1 is done
+    if (i + kDepth < nload) {
+      const int ls = slot + kDepth;
+      load_plane(ls < kSlots ? ls : ls - kSlots);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < 2 * R; ++k) {  // passes 0 .. 5 fill the pencil
+    advance(k);
+    const float* const pi = ring + slot * kPlane + ci;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      pc[r][k] = centres<kShift>(pi + r * kPitch);
+    if (++slot == kSlots) slot = 0;
+  }
+  // pass i >= 6 computes the output plane of stream plane i - 3; in
+  // pass i = 6 + 7 m + k plane i sits at pencil slot (k + 6) % 7, plane
+  // i - 3 + d at (k + 3 + d) % 7: the loop is unrolled 7 times so that
+  // every index is a constant and the pencil never moves
+  for (int i0 = 2 * R; i0 < nload; i0 += kPencil) {
+#pragma unroll
+    for (int k = 0; k < kPencil; ++k) {
+      if (i0 + k < nload) {
+        advance(i0 + k);
+        const float* const pi = ring + slot * kPlane + ci;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          pc[r][(k + 6) % kPencil] = centres<kShift>(pi + r * kPitch);
+        const int ms = slot >= R ? slot - R : slot - R + kSlots;
+        const float* const w = ring + ms * kPlane + ci;
+        // rows -R .. kRows + R - 1 of the window at this thread's columns
+        float4 yv[kRows + 2 * R];
+#pragma unroll
+        for (int j = 0; j < kRows + 2 * R; ++j)
+          yv[j] = (j >= R && j < R + kRows)
+                      ? pc[j - R][(k + 3) % kPencil]
+                      : centres<kShift>(w + (j - R) * kPitch);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          // window columns -3 .. 6 around the thread's first centre
+          const float* const wr = w + r * kPitch;
+          const float4 c = yv[R + r];
+          float xs[10];
+          if (kShift == 0) {
+            const float4 a = ld4(wr - 4), b = ld4(wr + 4);
+            const float v[10] = {a.y, a.z, a.w, c.x, c.y,
+                                 c.z, c.w, b.x, b.y, b.z};
+#pragma unroll
+            for (int q = 0; q < 10; ++q) xs[q] = v[q];
+          } else {
+            const float2 a = *reinterpret_cast<const float2*>(wr - 2);
+            const float4 b = ld4(wr + 4);
+            const float v[10] = {a.x, a.y, wr[0], c.x, c.y,
+                                 c.z, c.w, b.y, b.z, b.w};
+#pragma unroll
+            for (int q = 0; q < 10; ++q) xs[q] = v[q];
+          }
+          float res[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ctr = xs[R + e];
+            float accx = kC * ctr;
+            float accy = accx;
+            float accz = kC * ctr;
+#pragma unroll
+            for (int d = 1; d <= R; ++d) {
+              const float wd = weight(d);
+              accx = accx + wd * (xs[R + e + d] + xs[R + e - d]);
+              accy = accy + wd * (part(yv[R + r + d], e) +
+                                  part(yv[R + r - d], e));
+              accz = accz + wd * (part(pc[r][(k + 3 + d) % kPencil], e) +
+                                  part(pc[r][(k + 3 - d) % kPencil], e));
+            }
+            res[e] = accx * s.ix2 + accy * s.iy2 + accz * s.iz2;
+          }
+          if (oy + r < g.Y) {
+            float* const p = o + static_cast<size_t>(r) * g.X;
+            if (kVecOut) {
+              if (ox < g.X)
+                *reinterpret_cast<float4*>(p) =
+                    make_float4(res[0], res[1], res[2], res[3]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (ox + e < g.X) p[e] = res[e];
+            }
+          }
+        }
+        o += oplane;
+        if (++slot == kSlots) slot = 0;
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+// B8 with kChunk-float copies; 16-byte stores where X is a multiple of 4
+// and the output 16-byte aligned.
+template <int kChunk>
+cudaError_t launch(const float* in, float* out, const Geom& g,
+                   const Scale& s, int zrun, cudaStream_t stream) {
+  const bool vec_out =
+      g.X % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const auto kernel = vec_out ? laplace6_ring_kernel<kChunk, true>
+                              : laplace6_ring_kernel<kChunk, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRingBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks(g.X, kTX), blocks(g.Y, kTY), blocks(g.Z, zrun));
+  kernel<<<grid, kThreads, kRingBytes, stream>>>(in, out, g, s, zrun);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// B8 over the (Z, Y, X) interior of a (Zp, Yp, Xp) field with low pads
+// (lz, ly, lx) >= 3, in z runs of `zrun` planes (ops/cuda_stencil.py
+// laplace6_plan): 8-byte copies where every padded row starts on 8 bytes
+// (Xp even, the field 8-byte aligned) and lx is odd, 4-byte ones
+// otherwise.
 cudaError_t laplace6_launch(const float* in, float* out, int Z, int Y, int X,
                             int Yp, int Xp, int lz, int ly, int lx,
-                            float ix2, float iy2, float iz2, void* stream) {
-  const dim3 grid(blocks(X, kBX), blocks(Y, kBY), blocks(Z, kZRun));
-  laplace6_kernel<<<grid, dim3(kBX, kBY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      in, out, Z, Y, X, Yp, Xp, lz, ly, lx, ix2, iy2, iz2);
-  return cudaGetLastError();
+                            float ix2, float iy2, float iz2, int zrun,
+                            void* stream) {
+  if (Z < 1 || Y < 1 || X < 1 || lz < R || ly < R || lx < R || zrun < 1)
+    return cudaErrorInvalidValue;
+  const Geom g{Z, Y, X, Yp, Xp, lz, ly, lx};
+  const Scale s{ix2, iy2, iz2};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (Xp % 2 == 0 && reinterpret_cast<uintptr_t>(in) % 8 == 0 && lx % 2)
+    return launch<2>(in, out, g, s, zrun, st);
+  return launch<1>(in, out, g, s, zrun, st);
+}
+
+// How many blocks of the kernel one SM holds, as the CUDA runtime counts
+// them (the instantiation of Astaroth's layout: 8-byte copies, odd low x
+// pad, 16-byte stores): ops/cuda_stencil.py laplace6_blocks_per_sm models
+// it, and laplace6_plan plans with that.
+cudaError_t laplace6_blocks_per_sm(int* blocks_per_sm) {
+  const auto kernel = laplace6_ring_kernel<2, true>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRingBytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       kThreads, kRingBytes);
 }
 
 }  // extern "C"

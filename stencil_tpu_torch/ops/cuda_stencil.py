@@ -17,7 +17,8 @@ B8  :432 ``laplace6_pallas``            ``laplace6_cuda``            ``laplace6_
 K1–K3 live in ``csrc/jacobi7.cu``, B8 in ``csrc/laplace6.cu``; K2 is
 the z-streaming N-step ring kernel of ``csrc/jacobi_ring.cuh``, which B6
 (``ops/cuda_halo.py``) launches too, each with the tile, prefetch depth
-and z run of ``jacobi_ring_plan``. A
+and z run of ``jacobi_ring_plan``; B8 is a z-streaming radius-3 ring
+kernel of its own, launched as ``laplace6_plan`` says. A
 wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain twin (that is how the tests run); a CUDA tensor launches the
 kernel or raises — it never falls back. Each launch adds one to the
@@ -292,6 +293,68 @@ def jacobi_ring_plan(Z: int, Y: int, X: int, steps: int,
     return RingPlan(ty, depth, zrun, bps)
 
 
+# ---------------------------------------------------------------------------
+# B8's launch plan
+# ---------------------------------------------------------------------------
+#: B8's ring kernel (csrc/laplace6.cu): threads a block, its tile's rows
+#: (16 thread rows of two output rows), the window's pitch (the tile's 64
+#: columns, four a thread, and 4 on each side) and the registers the card
+#: allots a thread: its ``-Xptxas=-v`` count (125-128) in the card's unit
+#: of 8, which the card tests hold the build to
+LAPLACE6_THREADS = 256
+LAPLACE6_TY = 32
+LAPLACE6_PITCH = RING_TILE_X + 8
+LAPLACE6_REGISTERS = 128
+#: the planes a block asks for ahead, ``kDepth`` in the kernel: on an
+#: H100 at 256^3 two beat one, three, five and six and tied four (PERF.md)
+LAPLACE6_DEPTH = 2
+#: the stencil's radius: window rows on each side of a tile, and the
+#: planes a z run loads beyond its own on each side
+LAPLACE6_R = 3
+#: the rows of a window plane: the tile's and 3 on each side, rounded up
+#: to a multiple of the block's 8 warps, which copy a row each at a time
+LAPLACE6_WINDOW_ROWS = 8 * -(-(LAPLACE6_TY + 2 * LAPLACE6_R) // 8)
+#: B8's dynamic shared memory: a ring of depth + 4 window planes
+#: (``kRingBytes`` in csrc/laplace6.cu)
+LAPLACE6_SMEM_BYTES = 4 * (LAPLACE6_DEPTH + LAPLACE6_R + 1) \
+    * LAPLACE6_PITCH * LAPLACE6_WINDOW_ROWS
+
+
+class Laplace6Plan(NamedTuple):
+    """One launch of B8's ring kernel: the z planes a block walks
+    (``zrun``) and the blocks one SM holds."""
+    zrun: int
+    blocks_per_sm: int
+
+
+def laplace6_blocks_per_sm() -> int:
+    """Blocks of B8's kernel one SM holds, by shared memory and by
+    registers. ``laplace6_occupancy`` reads the card's count."""
+    return min(SM_REGISTERS // (LAPLACE6_THREADS * LAPLACE6_REGISTERS),
+               SM_SMEM_BYTES // (LAPLACE6_SMEM_BYTES + BLOCK_RESERVED_BYTES))
+
+
+@functools.lru_cache(maxsize=None)
+def laplace6_plan(Z: int, Y: int, X: int, n_sms: int) -> Laplace6Plan:
+    """B8's launch over a (Z, Y, X) interior on a card of ``n_sms`` SMs:
+    the z run that minimises ``ring_cost`` (waves x planes a block
+    loads, the ring's model at radius 3) on the 64 x 32 tile, among the
+    runs ceil(Z / k), k = 1..Z: any other run loads more planes for the
+    same number of blocks. Ties go to the longer run."""
+    bps = laplace6_blocks_per_sm()
+    runs = {-(-Z // k) for k in range(1, Z + 1)}
+    zrun = min(runs, key=lambda r: (ring_cost(
+        Z, Y, X, LAPLACE6_R, n_sms, LAPLACE6_TY, bps, r), -r))
+    return Laplace6Plan(zrun, bps)
+
+
+def laplace6_occupancy(device: torch.device) -> int:
+    """Blocks of B8's kernel one SM of ``device`` holds, as the CUDA
+    runtime counts them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    ``laplace6_blocks_per_sm`` models it."""
+    return _occupancy("laplace6", "laplace6_blocks_per_sm", device)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -303,17 +366,23 @@ def ring_occupancy(device: torch.device, steps: int, ty: int,
     ``device`` holds at this tile and depth, as the CUDA runtime counts
     them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
     ``ring_blocks_per_sm`` models it."""
+    return _occupancy(_LIB, "jacobi7_ring_blocks_per_sm", device, steps,
+                      ty, depth)
+
+
+def _occupancy(lib: str, fn_name: str, device: torch.device, *args) -> int:
+    """Call a library's ``fn_name(int..., int* blocks_per_sm)`` on
+    ``device``; raise on a CUDA error."""
     from . import _build
 
-    fn = _build.load(_LIB).jacobi7_ring_blocks_per_sm
+    fn = getattr(_build.load(lib), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I)]
     got = _I(0)
     with torch.cuda.device(device):
-        err = fn(steps, ty, depth, ctypes.byref(got))
+        err = fn(*args, ctypes.byref(got))
     if err != 0:
-        raise RuntimeError(f"jacobi7_ring_blocks_per_sm failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
     return got.value
 
 
@@ -327,7 +396,8 @@ _SIGNATURES = {
     "jacobi7_wrap_launch": [_P, _P] + [_I] * 10 + [_P],
     "jacobi7_wrapn_launch": [_P, _P] + [_I] * 14 + [_P],
     "jacobi7_padded_launch": [_P, _P] + [_I] * 8 + [_P],
-    "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3 + [_P],
+    "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3
+    + [_I, _P],
 }
 
 
@@ -452,7 +522,8 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     """B8: the 6th-order Laplacian over a halo-padded (Zp, Yp, Xp) shard
     with low pads ``radius.pad_lo()`` of at least 3 and a radius-3 ring
     on the high side; returns the (Z, Y, X) interior. A CUDA tensor must
-    be float32; a CPU tensor of any float dtype goes to the twin."""
+    be float32 and is one launch, as ``laplace6_plan`` says; a CPU
+    tensor of any float dtype goes to the twin."""
     what = "laplace6_cuda"
     if padded.dim() != 3 or not padded.is_floating_point():
         raise ValueError(f"{what}: expected a floating (Z, Y, X) tensor, "
@@ -471,8 +542,9 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     _check(padded, what)
     _check_cuda(padded, what)
     ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv_ds)
+    plan = laplace6_plan(Z, Y, X, sm_count(padded.device))
     _launch("laplace6_launch", padded.device, padded.data_ptr(),
             out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x, ix2, iy2,
-            iz2, lib_name="laplace6")
+            iz2, plan.zrun, lib_name="laplace6")
     LAUNCHES["laplace6"] += 1
     return out

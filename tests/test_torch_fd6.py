@@ -162,3 +162,40 @@ def test_laplace6_wrapper_on_the_cpu():
         cs.laplace6_cuda(p, Radius.constant(2), Dim3(10, 10, 10))
     with pytest.raises(ValueError, match="radius-3 ring"):
         cs.laplace6_cuda(p, r3, Dim3(9, 8, 8))
+
+
+def _radius(cls, lo_xyz):
+    """A radius-3 Radius of ``cls`` (the JAX package's or the port's)
+    with the low pads ``lo_xyz``."""
+    r = cls.constant(3)
+    for axis, v in enumerate(lo_xyz):
+        d = [0, 0, 0]
+        d[axis] = -1
+        r.set_dir(tuple(d), v)
+    return r
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("interior,lo,hi", [
+    ((9, 7, 5), (4, 5, 6), (4, 4, 3)),     # Xp = 17
+    ((12, 8, 6), (5, 3, 4), (4, 3, 3)),    # Xp = 21, odd low x pad
+    ((10, 6, 7), (6, 4, 3), (3, 5, 4)),    # Xp = 19
+])   # (x, y, z)
+def test_laplace6_wrapper_on_the_cpu_matches_pallas(dtype, interior, lo, hi):
+    """``laplace6_cuda`` on a CPU tensor with low pads above 3 and rows
+    that are not a multiple of 4 floats against ``laplace6_pallas``
+    (interpret mode) with the same pads: the twin, no launch."""
+    shape = tuple(n + a + b for n, a, b in zip(interior, lo, hi))[::-1]
+    p = _padded(shape, dtype, 7)
+    assert shape[2] % 4 != 0
+    want = np.asarray(laplace6_pallas(
+        jnp.asarray(p), _radius(JRadius, lo), JDim3(*interior),
+        inv_ds=INV_DS, interpret=True))
+    cs.reset_launch_counts()
+    got = cs.laplace6_cuda(torch.from_numpy(p), _radius(Radius, lo),
+                           Dim3(*interior), INV_DS).numpy()
+    assert cs.LAUNCHES["laplace6"] == 0
+    assert got.dtype == want.dtype == dtype
+    assert got.shape == want.shape == interior[::-1]
+    tol = 64 * np.finfo(dtype).eps * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol

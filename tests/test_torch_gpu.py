@@ -274,17 +274,89 @@ def test_mhd_wrappers_never_take_a_cuda_tensor_to_the_twin(cm):
         cm.mhd_substep_wrap_cuda(f, None, 1, MhdParams(), 1e-8)
 
 
-@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 8, 24), (5, 7, 33)])
+# (Z, Y, X): small shapes (x not a multiple of 4 at 33), one smaller
+# than a tile, z runs whose last one is shorter (131 on 132 SMs: runs of
+# 2), Astaroth's per-rank grid and the timing app's ragged shape
+LAPLACE6_SHAPES = [(8, 8, 8), (16, 8, 24), (5, 7, 33), (1, 8, 1),
+                   (131, 64, 128), (256, 256, 256), (136, 128, 96)]
+LAPLACE6_INV = (1 / 0.049, 1 / 0.05, 1 / 0.047)
+
+
+@pytest.mark.parametrize("shape", LAPLACE6_SHAPES)
 def test_laplace6_kernel_equals_twin(cs, shape):
     Z, Y, X = shape
     r = Radius.constant(3)
     interior = Dim3(X, Y, Z)
     p = _rand(zyx_shape(raw_size(interior, r)), 44)
-    inv = (1 / 0.049, 1 / 0.05, 1 / 0.047)
+    inv = LAPLACE6_INV
     before = cs.LAUNCHES["laplace6"]
     assert torch.equal(cs.laplace6_cuda(p, r, interior, inv),
                        cs.laplace6_plain(p, r, interior, inv))
     assert cs.LAUNCHES["laplace6"] == before + 1
+    plan = cs.laplace6_plan(Z, Y, X, cs.sm_count(p.device))
+    if shape == (131, 64, 128):
+        assert Z > plan.zrun and Z % plan.zrun != 0
+    if shape == (1, 8, 1):
+        assert X < cs.RING_TILE_X and Y < cs.LAPLACE6_TY
+
+
+def _laplace6_radius(lo_xyz):
+    r = Radius.constant(3)
+    for axis, v in enumerate(lo_xyz):
+        d = [0, 0, 0]
+        d[axis] = -1
+        r.set_dir(tuple(d), v)
+    return r
+
+
+@pytest.mark.parametrize("lo,hi,offset,out_offset", [
+    ((5, 4, 6), (4, 4, 3), 0, 0),    # Xp odd: 4-byte copies
+    ((3, 3, 3), (3, 3, 3), 1, 0),    # rows on 4 bytes: 4-byte copies
+    ((3, 5, 4), (5, 3, 3), 2, 0),    # odd low x pad, 8-byte copies
+    ((4, 4, 4), (4, 4, 4), 0, 1),    # even low x pad: 4-byte copies
+    ((6, 3, 5), (4, 4, 4), 2, 3),
+])   # (x, y, z)
+def test_laplace6_kernel_equals_twin_on_wide_and_unaligned_pads(
+        cs, lo, hi, offset, out_offset):
+    """Low pads above 3, padded rows that start on 4 or 8 bytes, each
+    copy width, and outputs that start off 16 bytes (X = 70 takes 4-byte
+    stores), over several tiles and z runs: bitwise, one launch a
+    call."""
+    X, Y, Z = 70, 37, 29
+    shape = (Z + lo[2] + hi[2], Y + lo[1] + hi[1], X + lo[0] + hi[0])
+    n = shape[0] * shape[1] * shape[2]
+    p = _rand((n + offset,), 45)[offset:].view(shape)
+    out = torch.full((Z * Y * X + out_offset,), float("nan"),
+                     device="cuda")[out_offset:].view(Z, Y, X)
+    r = _laplace6_radius(lo)
+    before = cs.LAUNCHES["laplace6"]
+    got = cs.laplace6_cuda(p, r, Dim3(X, Y, Z), LAPLACE6_INV, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, cs.laplace6_plain(p, r, Dim3(X, Y, Z),
+                                              LAPLACE6_INV))
+    assert cs.LAUNCHES["laplace6"] == before + 1
+
+
+def test_laplace6_plan_matches_the_card(cs):
+    """The planner's blocks an SM (shared memory and registers) are the
+    card's: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on B8's
+    kernel."""
+    assert cs.laplace6_occupancy(torch.device("cuda")) \
+        == cs.laplace6_blocks_per_sm()
+
+
+def test_laplace6_kernel_fits_the_planners_registers_without_spills(
+        cs, tmp_path):
+    """Every instantiation of B8's kernel (copy width, store width): at
+    most the registers the planner counts (``LAPLACE6_REGISTERS``), no
+    spill and no static shared memory."""
+    usage = _fresh_ptxas("laplace6", tmp_path, "laplace6_ring_kernel")
+    assert len(usage) == 4, usage   # 2 copy widths x 2 store widths
+    for name, use in usage.items():
+        assert use["registers"] <= cs.LAPLACE6_REGISTERS, (name, use)
+        assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
+            (name, use)
+        assert use.get("static_smem", 0) == 0, (name, use)
 
 
 @pytest.mark.parametrize("pair", ["0", "1"])
