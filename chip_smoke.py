@@ -19,8 +19,8 @@ Phases, in order; any failure exits non-zero before the last line:
    ``-Xptxas=-v`` lines (a NOTE where one uses more than 128 registers
    or spills), their opcode counts from ``cuobjdump -sass``.
 3. kernels vs plain twins, on the card:
-   - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3) and K3
-     (jacobi7_padded) at small odd shapes and at 512^3; K2 also at N=1,
+   - K1 (jacobi7_wrap), K2 (jacobi7_wrapn, N=1,2,3, and 4 at 512^3)
+     and K3 (jacobi7_padded) at small odd shapes and at 512^3; K2 also at N=1,
      2, 3, 8 where x is a multiple of 4 (16-byte copies), y not a
      multiple of its 32-row tile, and at (131, 64, 128), where
      ``jacobi_ring_plan`` walks z in runs whose last one is shorter.
@@ -40,7 +40,8 @@ Phases, in order; any failure exits non-zero before the last line:
      one-row slabs, and at small odd shapes with JAX-style slabs (rz >
      1, or y slabs 8 columns wide); B6 at 512^3 N=2, and on the four
      shards of 512^3 over (1,2,2) at N=2 and 3, with the path's N-row
-     slabs, at small odd shapes with JAX-style rz = block_z, ry = 8
+     slabs (N=4 too, and N=3 and 4 on one 512^3 shard), at small odd
+     shapes with JAX-style rz = block_z, ry = 8
      slabs, on (1,2,4), and on the four (131, 64, 128) shards of 128 x
      128 x 262 over (1,2,2) (z runs, the last one shorter). Tolerance:
      0, as K1/K2.
@@ -170,13 +171,33 @@ Phases, in order; any failure exits non-zero before the last line:
      per substep, sweep and card) on 32 x 32 x 48 over (1,2,2) against
      ``xla`` within substeps x 64 eps x max, and bitwise against itself
      with every B4 launch delayed.
+   - Temporal blocking, ``Jacobi3D(exchange_every=s)`` for s = 1, 3, 4,
+     ``run(12)`` each: ``wrap`` at 512^3 launches K2 12/s times (K1 12
+     times at s = 1); ``halo`` on four 512 x 256 x 256 shards of the
+     card launches B6 4 x 12/s times where ``pair_halo_refusal`` allows
+     N = s (the log says which), else B5 every step. ``halo`` equals
+     ``wrap`` bitwise where both group steps alike, else within ``steps
+     * 8 * eps(float32)``; each is within that of ``xla`` at 512^3.
+     ``xla-temporal[s=4]``, ``[s=1.1.4]`` and ``[s=4]-overlap`` on four
+     128^3 shards of the card equal stepwise ``xla`` bitwise after
+     ``run(9)``.
+   - The exchange apps through their ``main()``, CSV lines printed:
+     ``bench_exchange`` on four 256^3 shards of the card at
+     ``--exchange-every 1,2,4`` and once with ``--pallas-dma`` (B4
+     launches, counted), ``pingpong`` on two shards of the card,
+     ``bench_pack`` at its default sizes; every time finite and
+     positive.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
    a quarter shard, with the ring kernel's launch plans there (tile, z
    run, blocks, and waves at the blocks an SM that the card reports;
    logged and in chip_smoke.json),
-   and the halo path's slab exchange per group; iterations/s of the
+   and the halo path's slab exchange per group; steps/s of ``wrap`` and
+   ``halo`` ((1,1,1) and four shards) at ``exchange_every`` 1-4, and K2
+   and B6 (512^3 and a quarter shard) at N = 3 and 4 beside their twins
+   and bounds (the kernels line's ``temporal`` entries of K2 and B6,
+   with phase 4's launches at s = N); iterations/s of the
    Astaroth wrap, wrap+pair and xla paths at 256^3, and of the Astaroth
    halo and halo+pair paths at 256 x 512 x 512 on (1,2,2) and halo at
    256^3 on (1,1,1), with one slab round of that mesh at radius 3 and 6
@@ -316,7 +337,8 @@ def compare_kernels(torch, cs) -> dict:
         hot, cold, r = spheres(shape, widen=0 if shape[0] == N512 else 2)
         check("jacobi7_wrap", cs.jacobi7_wrap_cuda(t, hot, cold, r),
               cs.jacobi7_wrap_plain(t, hot, cold, r), f"K1 {shape}")
-        for n in (1, 2, 3) + ((8,) if shape in RING_SHAPES else ()):
+        for n in (1, 2, 3) + ((8,) if shape in RING_SHAPES else
+                              (4,) if shape[0] == N512 else ()):
             check("jacobi7_wrapn",
                   cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=n),
                   cs.jacobi7_wrapn_plain(t, hot, cold, r, steps=n),
@@ -706,6 +728,9 @@ def compare_halo_kernels(torch, ch) -> dict:
     b6 = [((n, n, n), (1, 1, 1), 2, 2, 2, 0),
           ((n, n, n), (1, 2, 2), 2, 2, 2, 0),
           ((n, n, n), (1, 2, 2), 3, 3, 3, 0),
+          ((n, n, n), (1, 2, 2), 4, 4, 4, 0),
+          ((n, n, n), (1, 1, 1), 3, 3, 3, 0),
+          ((n, n, n), (1, 1, 1), 4, 4, 4, 0),
           ((33, 16, 10), (1, 2, 2), 2, 4, 8, 2),
           ((33, 16, 10), (1, 1, 2), 3, 5, 8, 2),
           ((20, 48, 64), (1, 2, 4), 2, 2, 2, 2),
@@ -895,6 +920,240 @@ def time_halo(torch, cs, ch) -> dict:
     del a, b, sl
     torch.cuda.empty_cache()
     res["kernels"] = kernels
+    return res
+
+
+# ---------------------------------------------------------------------------
+# temporal blocking: Jacobi3D(exchange_every=s) and the exchange apps
+# ---------------------------------------------------------------------------
+#: the depths phase 4 drives (1: single steps; 3 and 4: depths no earlier
+#: path launched) and the steps of each run, a multiple of all of them
+TEMPORAL_DEPTHS = (1, 3, 4)
+TEMPORAL_STEPS = 12
+
+
+def temporal_counts(s: int, grouped: bool, shards: int, n1: str, nn: str):
+    """The launches ``run(TEMPORAL_STEPS)`` must make: ``steps / s``
+    N-step launches a shard where the path groups steps, else one
+    single-step launch a shard and step."""
+    steps = TEMPORAL_STEPS
+    if grouped:
+        return {n1: 0, nn: shards * steps // s}
+    return {n1: shards * steps, nn: 0}
+
+
+def run_temporal_paths(torch, cs, ch) -> dict:
+    """Phase 4, temporal blocking: ``Jacobi3D(exchange_every=s)`` on
+    ``wrap`` at 512^3 (K2 at N = s) and ``halo`` on four 512 x 256 x 256
+    shards of the card (B6 at N = s where ``pair_halo_refusal`` allows
+    it), each against the other and against ``xla``; ``xla-temporal`` on
+    four 128^3 shards against stepwise ``xla``, bitwise."""
+    import numpy as np
+
+    from stencil_tpu_torch.ops.halo_plan import pair_halo_refusal
+
+    eps = float(np.finfo(np.float32).eps)
+    steps = TEMPORAL_STEPS
+    tol = steps * 8 * eps
+    out = {"launches_by_run": {}, "max_diff": {}}
+    x = jacobi_mesh("xla")
+    x.run(steps)
+    want = gather(torch, x)
+    del x
+    torch.cuda.empty_cache()
+
+    def counted(j, label, expect):
+        cs.reset_launch_counts()
+        ch.reset_launch_counts()
+        j.run(steps)
+        j.block()
+        counts = {k: v for k, v in list(cs.LAUNCHES.items())
+                  + list(ch.LAUNCHES.items()) if v}
+        log(f"  {label} run({steps}) launches: {counts}")
+        if counts != {k: v for k, v in expect.items() if v}:
+            raise AssertionError(f"{label} launched {counts}, not {expect}")
+        out["launches_by_run"][label] = counts
+        got = gather(torch, j)
+        if tuple(got.shape) != (N512,) * 3 or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: wrong shape or non-finite")
+        return got
+
+    def held(label, got, ref, what, bitwise):
+        err = float((got - ref).abs().max())
+        same = bool(torch.equal(got, ref))
+        log(f"  {label} vs {what}: max diff {err!r} ("
+            f"{'bitwise equal' if same else 'different'}; required "
+            f"{'bitwise' if bitwise else f'<= {tol!r}'})")
+        if (bitwise and not same) or err > tol:
+            raise AssertionError(f"{label} disagrees with {what}")
+        out["max_diff"][f"{label} vs {what}"] = err
+
+    for s in TEMPORAL_DEPTHS:
+        w = jacobi_mesh("wrap", exchange_every=s)
+        got_w = counted(w, f"wrap s={s}",
+                        temporal_counts(s, w._pair_ok, 1, "jacobi7_wrap",
+                                        "jacobi7_wrapn"))
+        del w
+        h = jacobi_mesh("halo", (1, 2, 2), exchange_every=s)
+        why = (pair_halo_refusal(N512 // 2, N512 // 2, N512, 4, s)
+               if s > 1 else "N = 1: single steps")
+        log(f"  halo s={s} on four 512 x 256 x 256 shards: "
+            f"{f'B6 at N = {s}' if h._halo_pair_ok else 'B5 every step'}"
+            f" (pair_halo_refusal: {why})")
+        got_h = counted(h, f"halo s={s} (1,2,2)",
+                        temporal_counts(s, h._halo_pair_ok, 4,
+                                        "jacobi7_halo", "jacobi7_halon"))
+        del h
+        held(f"halo s={s} (1,2,2)", got_h, got_w, f"wrap s={s}",
+             bitwise=(s > 1) == bool(out["launches_by_run"]
+                                     [f"halo s={s} (1,2,2)"]
+                                     .get("jacobi7_halon")))
+        held(f"wrap s={s}", got_w, want, "xla", bitwise=False)
+        held(f"halo s={s} (1,2,2)", got_h, want, "xla", bitwise=False)
+        del got_w, got_h
+        torch.cuda.empty_cache()
+    del want
+
+    size, mesh, n = (128, 256, 256), (1, 2, 2), 9
+    base = jacobi_mesh("xla", mesh, size)
+    base.run(n)
+    want = gather(torch, base)
+    del base
+    for s, overlap, path in ((4, False, "xla-temporal[s=4]"),
+                             ({"z": 4}, False, "xla-temporal[s=1.1.4]"),
+                             (4, True, "xla-temporal[s=4]-overlap")):
+        t = jacobi_mesh("xla", mesh, size, exchange_every=s, overlap=overlap)
+        if t.kernel_path != path:
+            raise AssertionError(f"exchange_every={s} took "
+                                 f"{t.kernel_path!r}, not {path!r}")
+        t.run(n)
+        got = gather(torch, t)
+        same = bool(torch.equal(got, want))
+        log(f"  {path} on four 128^3 shards, run({n}), vs stepwise xla: "
+            f"{'bitwise equal' if same else 'DIFFERENT'}")
+        if not same or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{path} is not bitwise stepwise xla")
+        del t, got
+    del want
+    torch.cuda.empty_cache()
+    out["launches"] = {
+        "jacobi7_wrapn": out["launches_by_run"]["wrap s=3"]["jacobi7_wrapn"],
+        "jacobi7_halon": out["launches_by_run"]["halo s=3 (1,2,2)"]
+        .get("jacobi7_halon", 0)}
+    return out
+
+
+def run_exchange_apps(torch, cx) -> dict:
+    """Phase 4, the exchange apps on the card, through their ``main()``:
+    ``bench_exchange`` on four 256^3 shards at s = 1, 2, 4 and once with
+    ``--pallas-dma`` (B4, counted), ``pingpong`` on two shards of the
+    card and ``bench_pack`` at its default sizes. Their CSV lines are
+    printed; each must carry finite, positive times."""
+    from stencil_tpu_torch.apps import bench_exchange, bench_pack, pingpong
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    cuda4 = ",".join(["cuda:0"] * 4)
+    size = ["--x", "256", "--y", "256", "--z", "256"]
+    runs = (("bench_exchange", bench_exchange.main,
+             ["--devices", cuda4, *size, "--exchange-every", "1,2,4",
+              "--json-out", os.path.join("chiprun_out",
+                                         "bench_exchange_smoke.json")], 3),
+            ("bench_exchange --pallas-dma", bench_exchange.main,
+             ["--devices", cuda4, *size, "--pallas-dma"], 1),
+            ("pingpong", pingpong.main, ["--devices", "cuda:0,cuda:0"], 16),
+            ("bench_pack", bench_pack.main, ["--device", "cuda"], 4))
+    out = {"lines": {}}
+    for label, fn, argv, n_lines in runs:
+        cx.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        lines = [ln for ln in buf.getvalue().splitlines() if "," in ln]
+        for ln in lines:
+            log(f"  {ln}")
+        rows = [ln.split(",") for ln in lines
+                if not ln.startswith("pingpong,bytes")]
+        times = [float(r[-2]) for r in rows]
+        if len(lines) != n_lines or not all(0 < t < 1e3 for t in times):
+            raise AssertionError(f"{label}: {len(lines)} lines, times "
+                                 f"{times}")
+        if label.endswith("--pallas-dma"):
+            b4 = cx.LAUNCHES["exchange_axis"]
+            log(f"  {label}: {b4} B4 launches")
+            if not b4:
+                raise AssertionError(f"{label} launched no B4")
+        out["lines"][label] = lines
+    with open(os.path.join("chiprun_out", "bench_exchange_smoke.json")) as f:
+        out["bench_exchange"] = json.load(f)
+    return out
+
+
+def time_temporal(torch, cs, ch) -> dict:
+    """Phase 5, temporal blocking: steps/s of ``wrap`` and ``halo`` (one
+    512^3 shard and four 512 x 256 x 256 shards of the card) at
+    ``exchange_every`` 1-4 (three ``run(48)`` pooled), and K2 and B6 at N
+    = 3 and 4 (512^3, and B6 on a quarter shard) beside their twins and
+    bounds, with the ring kernel's launch plans."""
+    res = {"steps_per_s": {}, "runs_steps_per_s": {}, "kernels": {},
+           "jacobi_ring_plans": {}}
+    for s in (1, 2, 3, 4):
+        for label, kernel, mesh in (("wrap", "wrap", (1, 1, 1)),
+                                    ("halo (1,1,1)", "halo", (1, 1, 1)),
+                                    ("halo (1,2,2)", "halo", (1, 2, 2))):
+            j = jacobi_mesh(kernel, mesh, exchange_every=s)
+            j.run(12)
+            j.block()
+            key = f"{label} s={s}"
+            res["steps_per_s"][key], res["runs_steps_per_s"][key] = \
+                timed_runs(j, 48)
+            log(f"  Jacobi {key}: {res['steps_per_s'][key]!r} steps/s over "
+                f"three runs ({res['runs_steps_per_s'][key]})")
+            del j
+            torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    n = N512
+    a = torch.rand((n, n, n), generator=gen, device="cuda")
+    b = torch.empty_like(a)
+    hot, cold, r = spheres((n, n, n))
+    pts = float(n ** 3)
+    for N in (3, 4):
+        ms = event_ms(torch, lambda: cs.jacobi7_wrapn_cuda(
+            a, hot, cold, r, steps=N, out=b), reps=20)
+        plain_ms = event_ms(torch, lambda: cs.jacobi7_wrapn_plain(
+            a, hot, cold, r, steps=N), reps=2, warmup=1)
+        bms, by = bound_ms(2 * pts * 4, 7 * N * pts)
+        res["kernels"][f"jacobi7_wrapn N={N}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        log(f"  jacobi7_wrapn N={N}: {ms!r} ms/launch ({ms / N!r} a step), "
+            f"bound {bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; "
+            f"plain twin {plain_ms!r} ms")
+        for label, size in (("512^3", (n, n, n)),
+                            ("512 x 256 x 256 shard", (n, n // 2, n // 2))):
+            (t,), (sl,), (org,), _, (h2, c2, r2), gsize = halo_case(
+                torch, gen, size, (1, 1, 1),
+                dict(rz=N, ry=N, radius_rows=N, y_z_extended=True))
+            o = torch.empty_like(t)
+            ms = event_ms(torch, lambda: ch.jacobi7_halon_cuda(
+                t, sl, org, gsize, h2, c2, r2, steps=N, out=o), reps=20)
+            plain_ms = event_ms(torch, lambda: ch.jacobi7_halon_plain(
+                t, sl, org, gsize, h2, c2, r2, steps=N), reps=2, warmup=1)
+            Z, Y, X = t.shape
+            bms, by = bound_ms(halo_bytes(t.shape, N, True),
+                               7 * N * float(Z * Y * X))
+            res["kernels"][f"jacobi7_halon N={N} {label}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            log(f"  jacobi7_halon N={N} {label}: {ms!r} ms/launch, bound "
+                f"{bms!r} ms ({by}), {100 * bms / ms:.1f}% of bound; plain "
+                f"twin {plain_ms!r} ms")
+            res["jacobi_ring_plans"][f"{label} N = {N}"] = ring_plan(
+                torch, cs, (Z, Y, X), N)
+            del t, sl, o
+        torch.cuda.empty_cache()
+    for label, plan in res["jacobi_ring_plans"].items():
+        log(f"  Jacobi ring kernel plan, {label}: {plan}")
+    del a, b
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2952,6 +3211,11 @@ def main() -> int:
     mhd_overlap_path = run_astaroth_overlap(
         torch, cs, cm, mo, cx, mhd_halo_path.pop("halo_state"))
     launches.update(mhd_overlap_path["launches"])
+    log("phase 4: Jacobi3D temporal blocking (exchange_every) on one card")
+    temporal_path = run_temporal_paths(torch, cs, ch)
+    log("phase 4: the exchange apps (bench_exchange, pingpong, bench_pack) "
+        "on one card")
+    exchange_apps = run_exchange_apps(torch, cx)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -2962,6 +3226,7 @@ def main() -> int:
         log(f"  Jacobi {path}: {sps[path]!r} steps/s over three runs "
             f"({sps_runs[path]})")
     halo_times = time_halo(torch, cs, ch)
+    temporal_times = time_temporal(torch, cs, ch)
     ips, ips_runs = {}, {}
     for path, kernel, k, pair in (("wrap", "wrap", 20, "0"),
                                   ("wrap+pair", "wrap", 20, "1"),
@@ -3007,6 +3272,16 @@ def main() -> int:
             if k in t:
                 entry[k] = t[k]
         if name in ("jacobi7_wrapn", "jacobi7_halon"):
+            # N = 3 and 4 (exchange_every): launches of the phase-4 run at
+            # s = N, times at 512^3 (B6 also on a quarter shard)
+            entry["temporal"] = {
+                f"N={N}": {
+                    "launches": temporal_path["launches_by_run"][
+                        f"wrap s={N}" if name == "jacobi7_wrapn"
+                        else f"halo s={N} (1,2,2)"].get(name, 0),
+                    **{k: v for k, v in temporal_times["kernels"].items()
+                       if k.startswith(f"{name} N={N}")}}
+                for N in (3, 4)}
             entry["ptxas"] = ptxas.get(
                 ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
                  "jacobi_ring"), {})
@@ -3044,6 +3319,13 @@ def main() -> int:
                    "halon_quarter_shard_bound_ms":
                        halo_times["halon_quarter_shard_bound_ms"],
                    "jacobi_ring_plans": halo_times["jacobi_ring_plans"],
+                   "temporal_path": temporal_path,
+                   "exchange_apps": exchange_apps,
+                   "temporal_steps_per_s_512": temporal_times["steps_per_s"],
+                   "temporal_runs_steps_per_s_512":
+                       temporal_times["runs_steps_per_s"],
+                   "temporal_kernels": temporal_times["kernels"],
+                   "temporal_ring_plans": temporal_times["jacobi_ring_plans"],
                    "fixup_plan_256": mhd_overlap_times["fixup_plan_256"],
                    "laplace6_plan_256": times.pop("laplace6_plan_256"),
                    "astaroth_halo_iters_per_s":

@@ -1,0 +1,237 @@
+"""Halo-exchange micro-benchmark with face/edge/corner radius control.
+
+PyTorch-port counterpart of ``apps/bench_exchange.py`` (reference:
+bin/bench_exchange.cu — ``--fr/--er/--cr`` radius flags, trimean
+seconds and trimean B/s, bin/bench_exchange.cu:58-64,86-100).
+
+Temporal blocking: ``--exchange-every 1,4`` sweeps communication-
+avoiding depths (``axis=value`` tokens such as ``z=4,y=1,x=1`` merge into
+one per-axis candidate after the uniform ones). Each depth is measured
+two ways: the per-exchange time of ``dd.exchange()`` on a domain built
+with ``set_exchange_every(s)`` (deep slabs), printed as the CSV line
+
+    bench_exchange,methods,devices,x,y,z,fr,er,cr,fields,exchange_every,bytes,trimean (s),B/s
+
+and the steps/s of ``Jacobi3D(kernel="xla", exchange_every=s)``'s run
+loop (the ``xla-temporal`` path, which pays the redundant ring compute
+and the deeper slabs), with the amortized byte model beside it, on
+stderr; ``--json-out`` writes both as JSON. ``--x/--y/--z`` are the size
+of one shard: the grid is that times the mesh. Run it as
+
+    python -m stencil_tpu_torch.apps.bench_exchange \\
+        --devices cuda:0,cuda:0,cuda:0,cuda:0 --exchange-every 1,2,4
+
+Only CSV lines go to stdout. These options wait for an item of the
+ROADMAP and raise ``NotImplementedError`` naming it: ``--wire-layout``
+other than ``slab`` (A7, wire formats); ``--autotune``, ``--tune-cache``,
+``--metrics-json``, ``--ledger`` (A12); ``--fuse-segments``,
+``--check-every`` (A10). The JSON has no ``link_classes`` block (the
+link observatory, A12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ._common import (add_bench_record_flags, add_device_flags,
+                      add_method_flags, csv_line, grouped_steps_per_s,
+                      mesh_from_args, methods_from_args, refuse_pending,
+                      timed_samples)
+
+
+def _parse_depths(text: str):
+    """Comma list of depths to sweep. Plain integers are uniform depths;
+    ``axis=value`` tokens (``z=4,y=1,x=1``) merge into ONE per-axis
+    candidate appended after the uniform sweep."""
+    ints = set()
+    axes = {}
+    for t in (t.strip() for t in text.split(",")):
+        if not t:
+            continue
+        if "=" in t:
+            k, v = t.split("=", 1)
+            k = k.strip().lower()
+            if k not in ("x", "y", "z"):
+                raise SystemExit(f"--exchange-every axis token wants "
+                                 f"x=/y=/z=, got {t!r}")
+            axes[k] = int(v)
+        else:
+            ints.add(int(t))
+    depths = sorted(ints)
+    if axes:
+        depths.append(axes)
+    bad = any(s < 1 for s in ints) or any(v < 1 for v in axes.values())
+    if not depths or bad:
+        raise SystemExit(f"--exchange-every wants depths >= 1, got {text!r}")
+    return depths
+
+
+def _depth_max(s) -> int:
+    return max(s.values()) if isinstance(s, dict) else int(s)
+
+
+def _depth_label(s) -> str:
+    """Uniform depths keep the bare integer; per-axis depths read
+    ``x.y.z``."""
+    if isinstance(s, dict):
+        from ..geometry import normalize_depths
+        d = normalize_depths(s)
+        return f"{d.x}.{d.y}.{d.z}"
+    return str(s)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--x", type=int, default=128, help="per-shard x size")
+    ap.add_argument("--y", type=int, default=128)
+    ap.add_argument("--z", type=int, default=128)
+    ap.add_argument("--fr", type=int, default=2, help="face radius")
+    ap.add_argument("--er", type=int, default=2, help="edge radius")
+    ap.add_argument("--cr", type=int, default=2, help="corner radius")
+    ap.add_argument("--fields", type=int, default=1)
+    ap.add_argument("--iters", "-n", type=int, default=30)
+    ap.add_argument("--exchange-every", default="1", metavar="S[,S...]",
+                    help="temporal-blocking depths to sweep (comma list; "
+                         "1 = the per-step exchange; axis=value tokens "
+                         "like z=4,y=1,x=1 merge into one per-axis "
+                         "candidate)")
+    ap.add_argument("--wire-layout", default="slab", metavar="L[,L...]",
+                    help="halo wire layouts; only 'slab' is ported "
+                         "(ROADMAP A7)")
+    ap.add_argument("--metrics-json", default="", metavar="PATH",
+                    help="telemetry metrics snapshot (ROADMAP A12)")
+    ap.add_argument("--fuse-segments", action="store_true",
+                    help="megastep race (ROADMAP A10)")
+    ap.add_argument("--check-every", type=int, default=None,
+                    help="megastep segment length (ROADMAP A10)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="exchange autotuner (ROADMAP A12)")
+    ap.add_argument("--tune-cache", default="", metavar="PATH",
+                    help="autotuner plan cache (ROADMAP A12)")
+    add_method_flags(ap)
+    add_device_flags(ap)
+    add_bench_record_flags(ap)
+    args = ap.parse_args(argv)
+    layouts = [t.strip() for t in args.wire_layout.split(",") if t.strip()]
+    if layouts != ["slab"]:
+        raise NotImplementedError(
+            f"--wire-layout {args.wire_layout!r}: the port ships the slab "
+            f"layout only; the irredundant layout waits for ROADMAP A7 "
+            f"(wire formats)")
+    refuse_pending(args, [
+        ("--autotune", "A12 (tuning)", False),
+        ("--tune-cache", "A12 (tuning)", ""),
+        ("--metrics-json", "A12 (telemetry)", ""),
+        ("--fuse-segments", "A10 (megastep)", False),
+        ("--check-every", "A10 (megastep)", None)])
+
+    import torch
+
+    from ..distributed import DistributedDomain
+    from ..geometry import Radius
+    from ..models.jacobi import Jacobi3D
+    from ..utils.timers import device_sync
+
+    devices, mesh_shape = mesh_from_args(args)
+    ndev = len(devices)
+    gx, gy, gz = (args.x * mesh_shape[0], args.y * mesh_shape[1],
+                  args.z * mesh_shape[2])
+    depths = _parse_depths(args.exchange_every)
+    methods = methods_from_args(args)
+
+    def jacobi_steps_per_s(s):
+        """Steps/s of the blocked hot path: the Jacobi model's run loop
+        (deep exchange + sub-steps, the redundant ring compute included)
+        under this configuration."""
+        j = Jacobi3D(gx, gy, gz, mesh_shape=mesh_shape, devices=devices,
+                     dtype=torch.float32, kernel="xla", methods=methods,
+                     exchange_every=s if _depth_max(s) > 1 else None)
+        j.init()
+        n, dt, _ = grouped_steps_per_s(j.run, j.block, args.iters,
+                                       group=_depth_max(s))
+        return n, dt, j
+
+    def make_domain(s):
+        dd = DistributedDomain(gx, gy, gz, devices=devices)
+        dd.set_mesh_shape(mesh_shape)
+        dd.set_radius(Radius.face_edge_corner(args.fr, args.er, args.cr))
+        dd.set_methods(methods)
+        if _depth_max(s) > 1:
+            dd.set_exchange_every(s)
+        for i in range(args.fields):
+            dd.add_data(f"q{i}", torch.float32)
+        dd.realize()
+        return dd
+
+    results = []
+    for s in depths:
+        dd = make_domain(s)
+        stats = timed_samples(
+            dd.exchange,
+            lambda: device_sync([t for v in dd.curr.values() for t in v]),
+            args.iters)
+        per_ex = dd.exchange_bytes_total()
+        tm = stats.trimean()
+        print(csv_line("bench_exchange", dd.methods, ndev,
+                       args.x, args.y, args.z, args.fr, args.er, args.cr,
+                       args.fields, _depth_label(s), per_ex,
+                       f"{tm:.6e}", f"{per_ex / tm:.6e}"), flush=True)
+        amortized = dd.exchange_bytes_amortized_per_step()
+        del dd
+        n, dt, j = jacobi_steps_per_s(s)
+        xs = j.exchange_stats()
+        row_extra = {}
+        if isinstance(s, dict):
+            d = j.dd.exchange_depths
+            row_extra["depths"] = [d.x, d.y, d.z]
+        del j
+        results.append({
+            "exchange_every": (s if isinstance(s, int)
+                               else _depth_label(s)),
+            **row_extra,
+            "steps": n,
+            "seconds": dt,
+            "steps_per_s": n / dt,
+            "exchange_rounds_per_step": xs["rounds_per_iteration"],
+            "bytes_per_exchange_model": per_ex,
+            "amortized_bytes_per_step_model": amortized,
+            "jacobi_bytes_per_step_model": xs["bytes_per_iteration"],
+            "trimean_exchange_s": tm,
+        })
+        print(f"bench_exchange steps: s={_depth_label(s)} "
+              f"steps/s={n / dt:.3f} (jacobi blocked loop) "
+              f"rounds/step={xs['rounds_per_iteration']:.3f} "
+              f"amortized={amortized:.0f}B/step (model)", file=sys.stderr)
+
+    if args.json_out:
+        base = results[0]
+        results_by_s = {str(r["exchange_every"]): r for r in results}
+        payload = {
+            "bench": "bench_exchange",
+            "mesh": list(mesh_shape),
+            "per_device_size": [args.x, args.y, args.z],
+            "radius": [args.fr, args.er, args.cr],
+            "fields": args.fields,
+            "configs": results,
+            # ratios against the smallest swept depth: exchange rounds
+            # per step drop exactly s-fold; steps/s includes the
+            # redundant ring compute
+            "baseline_exchange_every": base["exchange_every"],
+            "rounds_per_step_ratio": {
+                k: r["exchange_rounds_per_step"]
+                / base["exchange_rounds_per_step"]
+                for k, r in results_by_s.items()},
+            "steps_per_s_ratio": {
+                k: r["steps_per_s"] / base["steps_per_s"]
+                for k, r in results_by_s.items()},
+            "wire_layout": "slab",
+        }
+        with open(args.json_out, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,16 +23,20 @@ an x-unsharded mesh and the others a near-cubic one. The method flags
 (``--slab``, ``--packed``, ``--allgather``, ``--pallas-dma``; JAX's
 ``apps/_common.py``) choose the exchange of the padded paths
 (``--pallas-dma``: the remote-write kernel B4); the ``methods`` column
-prints the one that ran.
+prints the one that ran. ``--exchange-every S`` is the temporal depth
+(``Jacobi3D(exchange_every=S)``): N of the N-step kernels on ``wrap``
+and ``halo``, one deep exchange per S steps on the padded paths
+(``xla-temporal[s=S]``); ``--wrap-steps N`` sets STENCIL_WRAP_STEPS,
+which an explicit ``--exchange-every`` overrides.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import time
 
-from ._common import add_method_flags, mesh_shape, methods_from_args
+from ._common import (KERNEL_CHOICES, add_device_flags, add_method_flags,
+                      mesh_from_args, methods_from_args, sampled_steps_per_s)
 
 
 def main(argv=None) -> None:
@@ -43,8 +47,7 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", "-n", type=int, default=30)
     ap.add_argument("--batch", type=int, default=10,
                     help="iterations per timing sample")
-    ap.add_argument("--kernel", default="auto",
-                    choices=("auto", "wrap", "halo", "xla", "pallas"),
+    ap.add_argument("--kernel", default="auto", choices=KERNEL_CHOICES,
                     help="compute path: wrap (CUDA, periodic wrap in the "
                          "kernel, one shard), halo (CUDA on resident "
                          "shards with slab exchange), pallas (CUDA on the "
@@ -53,47 +56,29 @@ def main(argv=None) -> None:
     ap.add_argument("--wrap-steps", type=int, default=0, metavar="N",
                     help="steps per launch of the N-step wrap and halo "
                          "kernels (default 2; sets STENCIL_WRAP_STEPS)")
-    ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
-                    metavar="X,Y,Z", help="shards along x, y and z")
-    ap.add_argument("--devices", default=None,
-                    help="comma list of torch devices, one per mesh "
-                         "position (x fastest; repeats allowed)")
-    ap.add_argument("--device", default=None,
-                    help="one torch device for the whole mesh")
+    ap.add_argument("--exchange-every", type=int, default=0, metavar="S",
+                    help="temporal blocking depth: one depth-S exchange "
+                         "per S steps (xla), S steps a launch (wrap, "
+                         "halo); 0 leaves the default")
+    add_device_flags(ap)
     add_method_flags(ap)
     args = ap.parse_args(argv)
     if args.wrap_steps:
         os.environ["STENCIL_WRAP_STEPS"] = str(args.wrap_steps)
 
     from ..models.jacobi import Jacobi3D
-    from ..numerics import Statistics
-    from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
-                                 resolve_devices)
     from ..parallel.methods import pick_method
 
-    shape = args.mesh_shape
-    if args.devices is not None:
-        devices = args.devices.split(",")
-    else:
-        devices = resolve_devices(None, args.device)
-        if shape is not None and len(devices) == 1:
-            # every shard of the mesh on the one device
-            devices = devices * (shape[0] * shape[1] * shape[2])
-    if shape is None:
-        xfree = args.kernel in ("halo", "auto")
-        shape = tuple((default_mesh_shape_xfree if xfree
-                       else default_mesh_shape)(len(devices)))
+    devices, shape = mesh_from_args(args,
+                                    xfree=args.kernel in ("halo", "auto"))
     gx, gy, gz = args.x * shape[0], args.y * shape[1], args.z * shape[2]
     j = Jacobi3D(gx, gy, gz, kernel=args.kernel, mesh_shape=shape,
-                 devices=devices, methods=methods_from_args(args))
+                 devices=devices, methods=methods_from_args(args),
+                 exchange_every=args.exchange_every or None)
     j.init()
-    stats = Statistics()
-    for i in range(2 + max(args.iters // args.batch, 1)):
-        t0 = time.perf_counter()
-        j.run(args.batch)
-        j.block()
-        if i >= 2:
-            stats.insert(time.perf_counter() - t0)
+    stats, _ = sampled_steps_per_s(lambda: j.run(args.batch), j.block,
+                                   max(args.iters // args.batch, 1),
+                                   args.batch)
     b = j.dd.exchange_bytes_per_axis()
     xstats = j.exchange_stats()
     ex_s = j.measure_exchange_seconds()

@@ -17,9 +17,13 @@ one-device shorthand; with neither, every visible CUDA device is used,
 and with no card that raises — the port never falls back to the CPU by
 itself.
 
+Temporal blocking (``set_exchange_every``): allocations pad to the
+deepened radius and ``exchange()`` ships the deep halo once per ``s``
+steps (``parallel/temporal.py``).
+
 Not in this slice: the DCN tier, the exchange autotuner, narrowing wire
-formats, the irredundant wire layout, temporal blocking (ROADMAP A7),
-and QAP placement (``set_placement("qap")`` raises at realize(): A5).
+formats and the irredundant wire layout (ROADMAP A7), and QAP placement
+(``set_placement("qap")`` raises at realize(): A5).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .geometry import Dim3, Dim3Like, Radius
+from .geometry import DepthsLike, Dim3, Dim3Like, Radius, normalize_depths
 from .local_domain import interior_slices, raw_size, zyx_shape
 from .numerics import div_ceil
 from .parallel.exchange import dispatch_exchange, exchanged_bytes_per_sweep
@@ -70,6 +74,8 @@ class DistributedDomain:
         self.device = self._devices[0]
         self.radius = Radius.constant(0)
         self.alloc_radius = self.radius
+        self.exchange_every = 1
+        self.exchange_depths = Dim3(1, 1, 1)
         self._names: List[str] = []
         self._dtypes: Dict[str, torch.dtype] = {}
         self.methods = Method.Default
@@ -108,6 +114,33 @@ class DistributedDomain:
 
     def set_boundary(self, b: Boundary) -> None:
         self.boundary = b
+
+    def set_exchange_every(self, s: DepthsLike) -> None:
+        """Temporal blocking depth (JAX ``distributed.py:162-193``):
+        ``exchange()`` ships a depth-``s * r`` halo once per ``s`` steps
+        instead of a depth-``r`` halo every step. Allocations pad to the
+        deepened radius. The step loop (``Jacobi3D``) owns calling the
+        exchange every ``s``-th step and consuming one radius ring per
+        sub-step (``parallel/temporal.py``).
+
+        ``s`` may be per-axis (``{"z": 4, "y": 1, "x": 1}``, a 3-tuple
+        or a ``Dim3``; ``geometry.normalize_depths``): axis ``a`` is
+        exchanged every ``s_a`` sub-steps of the ``max(s)``-step group;
+        ``exchange_every`` stays ``max(s)``.
+
+        Allocations deepen (and the minimum-shard check tightens) even
+        where a CUDA fast path later takes the depth inside its kernel
+        and never runs this deep exchange: ``2*(s-1)*r`` extra halo rows
+        per field per axis."""
+        if self.mesh is not None:
+            raise RuntimeError("set_exchange_every before realize() — the "
+                               "allocation pads and the exchange are "
+                               "already built")
+        if isinstance(s, int) and s < 1:
+            raise ValueError(f"exchange_every must be >= 1, got {s}")
+        depths = normalize_depths(s)
+        self.exchange_depths = depths
+        self.exchange_every = max(depths)
 
     def set_mesh_shape(self, shape: Dim3Like) -> None:
         """Explicit subdomain-grid shape (the reference's set_gpus
@@ -161,16 +194,24 @@ class DistributedDomain:
                 f"grid {self.size} over mesh {dim} has uneven (+-1) "
                 f"subdomains, supported only by the PpermuteSlab and "
                 f"PpermutePacked methods")
-        self.alloc_radius = self.radius
+        # temporal blocking: allocations and the exchange depth come
+        # from the DEEPENED radius (one depth-(s_a*r) exchange per axis
+        # feeds s_a steps); s == 1 collapses to the base radius
+        self.alloc_radius = self.radius.deepened(self.exchange_depths)
+        if self.exchange_every > 1 and not slab:
+            raise NotImplementedError(
+                f"exchange_every > 1 is supported by the PpermuteSlab "
+                f"and PpermutePacked methods, not {method}")
         min_local = [self.local_size[a] - (1 if self.rem[a] else 0)
                      for a in range(3)]
         if any(m < 1 for m in min_local):
             raise ValueError(f"zero-extent subdomains: grid {self.size} "
                              f"over mesh {dim}")
-        if any(min_local[a] < max(self.radius.face(a, -1),
-                                  self.radius.face(a, 1)) for a in range(3)):
-            raise ValueError(f"subdomain {min_local} smaller than radius "
-                             f"{self.radius}")
+        if any(min_local[a] < self.alloc_radius.face(a, 1) or
+               min_local[a] < self.alloc_radius.face(a, -1)
+               for a in range(3)):
+            raise ValueError(f"subdomain {min_local} smaller than "
+                             f"(deepened) radius {self.alloc_radius}")
         part = RankPartition.from_dim(self.size, dim)
         self.placement = make_placement(part, self._devices,
                                         mode=self.placement_mode)
@@ -200,10 +241,11 @@ class DistributedDomain:
     def exchange(self) -> None:
         """Fill all halos of every quantity's ``curr`` shards, in place,
         by the method ``pick_method(self.methods)`` chooses (reference:
-        src/stencil.cu:1002-1186)."""
+        src/stencil.cu:1002-1186): the deep halo of the allocation when
+        ``exchange_every > 1``."""
         if self.local_size is None:
             raise RuntimeError("realize() first")
-        dispatch_exchange(self.curr, self.radius, self.mesh_counts,
+        dispatch_exchange(self.curr, self.alloc_radius, self.mesh_counts,
                           pick_method(self.methods), rem=self.rem,
                           nonperiodic=self.boundary == Boundary.NONE)
 
@@ -246,11 +288,22 @@ class DistributedDomain:
         return dict(self._bytes_per_axis)
 
     def exchange_bytes_total(self) -> int:
+        """Bytes per exchange over the whole mesh (the DEEP exchange
+        when ``exchange_every > 1``)."""
         return sum(v * self.mesh_counts.flatten()
                    for v in self._bytes_per_axis.values())
 
     def exchange_bytes_amortized_per_step(self) -> float:
-        return float(self.exchange_bytes_total())
+        """Whole-mesh bytes per STEP under temporal blocking: the deep
+        exchange's bytes over the ``exchange_every`` steps it feeds (the
+        total when s == 1); per-axis depths amortize each axis over its
+        own refresh period ``s_a`` (JAX ``distributed.py:707-720``)."""
+        d = self.exchange_depths
+        if d.x == d.y == d.z:
+            return self.exchange_bytes_total() / self.exchange_every
+        n = self.mesh_counts.flatten()
+        return sum(self._bytes_per_axis[name] * n / d[a]
+                   for a, name in ((0, "x"), (1, "y"), (2, "z")))
 
     # -- IO (reference: src/stencil.cu:1188-1264) -----------------------
     def assemble_interior(self, shards: Sequence) -> np.ndarray:

@@ -37,6 +37,13 @@ model:
 * ``xla-overlap`` / ``pallas-overlap`` — ``overlap=True`` elsewhere: the
   padded paths with the deep interior computed while the exchange runs
   (``parallel/overlap.py``).
+* ``xla-temporal[s=…]`` (``exchange_every=s`` > 1 off the ``wrap`` and
+  ``halo`` paths) — communication-avoiding steps (``parallel/
+  temporal.py``): one depth-``s`` exchange, then ``s`` plain 7-point
+  sub-steps on the shrinking windows, bitwise equal to step-by-step
+  ``xla``; ``-overlap`` with ``overlap=True`` (the deep exchange runs
+  while sub-step 0's inner block is computed), and a depth-1 tail for
+  ``iters % s``. Per-axis depths (``{"z": 3}``) run only here.
 * ``auto`` — on CUDA devices, JAX's on-TPU choice: ``overlap`` when
   overlap is asked for and possible, else ``wrap`` on a (1,1,1) mesh,
   else ``halo`` when x is unsharded, else ``xla`` (a kernel path only for
@@ -45,6 +52,12 @@ model:
 The padded paths exchange by ``methods`` (``Method`` flags, JAX's
 ``DistributedDomain.set_methods``): ``Method.PallasDMA`` is B4's
 remote-write sweep, the others the slab copy.
+
+``exchange_every`` (JAX ``models/jacobi.py:277-299``): None leaves the
+``wrap`` and ``halo`` paths at their ``STENCIL_WRAP_STEPS`` depth
+(default 2); an explicit ``s`` sets N of K2 and B6 there (``s = 1``
+forces single steps) and deepens the allocation as JAX does, and makes
+the padded paths temporal.
 """
 
 from __future__ import annotations
@@ -57,20 +70,21 @@ import numpy as np
 import torch
 
 from ..distributed import DeviceLike, DistributedDomain, torch_dtype
-from ..geometry import Dim3, Dim3Like, Radius
+from ..geometry import DepthsLike, Dim3, Dim3Like, Radius, normalize_depths
 from ..ops.cuda_halo import jacobi7_halo_cuda, jacobi7_halon_cuda
 from ..ops.cuda_overlap import OverlapRecv, jacobi7_overlap_cuda
 from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, impose_spheres,
                                 jacobi7_padded_cuda, jacobi7_wrap_cuda,
                                 jacobi7_wrapn_cuda, sublane_tile)
 from ..ops.halo_plan import pair_halo_refusal
-from ..ops.stencil_kernels import jacobi7, write_interior
+from ..ops.stencil_kernels import global_coords, jacobi7, write_interior
 from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
                                  interior_slab_bytes, shard_interior_len,
                                  shard_origin)
 from ..parallel.mesh import mesh_index
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
+from ..parallel.temporal import temporal_shard_steps, validate_temporal
 from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import wrap2_disabled
@@ -94,6 +108,28 @@ def _apply_sources(new: torch.Tensor, origin_xyz, hot_c: Dim3,
     bin/jacobi3d.cu:40-63)."""
     ox, oy, oz = origin_xyz
     return impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox))
+
+
+def _apply_sources_windowed(new: torch.Tensor, origin_xyz, dims: Dim3,
+                            gsize: Dim3, hot_c: Dim3, cold_c: Dim3,
+                            sph_r: int, nonperiodic: bool) -> torch.Tensor:
+    """Per-sub-step sources for a temporal-blocking window that may
+    reach into the halo ring (JAX ``models/jacobi.py:96-124``): ring
+    cells get exactly what their OWNER shard computes, so periodic
+    coordinates wrap modulo the global size before the sphere test; with
+    the zero-Dirichlet exterior (``Boundary.NONE``) out-of-domain cells
+    are forced to zero instead."""
+    ox, oy, oz = origin_xyz
+    if not nonperiodic:
+        return impose_spheres(new, hot_c, cold_c, sph_r,
+                              origin_zyx=(oz, oy, ox),
+                              period_zyx=(gsize.z, gsize.y, gsize.x))
+    new = impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox))
+    gz, gy, gx = global_coords(origin_xyz, dims, device=new.device)
+    inside = ((gx >= 0) & (gx < gsize.x) & (gy >= 0) & (gy < gsize.y)
+              & (gz >= 0) & (gz < gsize.z))
+    return torch.where(inside, new, torch.zeros((), dtype=new.dtype,
+                                                device=new.device))
 
 
 def _update(p: torch.Tensor, radius: Radius, dims: Dim3,
@@ -153,21 +189,41 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
 
 def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
                        local: Dim3, radius_ok: bool, nonperiodic: bool,
-                       on_gpu: bool, f32: bool) -> str:
+                       on_gpu: bool, f32: bool,
+                       depths: Dim3 = Dim3(1, 1, 1)) -> str:
     """The compute path ``Jacobi3D`` builds: JAX's selection rules
-    (models/jacobi.py:439-504, :557-570) with its on-TPU choice taken on
+    (models/jacobi.py:439-504, :540-557) with its on-TPU choice taken on
     CUDA devices, where the port's kernels run (and, as they take
-    float32 only, for a float32 domain). Raises as JAX does for an
-    explicit kernel its conditions exclude."""
+    float32 only, for a float32 domain). ``depths``: the domain's
+    temporal depths (``exchange_depths``); above 1 the padded paths
+    become ``xla-temporal[s=…]`` (``-overlap``). Raises as JAX does for
+    an explicit kernel its conditions exclude."""
     if overlap and rem != Dim3(0, 0, 0):
         raise NotImplementedError("overlap mode requires an evenly "
                                   "divisible grid")
+    s_every = max(depths)
+    asym = not depths.x == depths.y == depths.z
+    if asym and overlap:
+        raise NotImplementedError(
+            "asymmetric temporal depths (per-axis exchange_every) are not "
+            "supported with overlap=True — the overlap composition assumes "
+            "one symmetric deep exchange per group (parallel/temporal.py "
+            "declines it too)")
+    if asym and kernel in ("wrap", "halo", "pallas"):
+        raise NotImplementedError(
+            f"asymmetric temporal depths (exchange_every={tuple(depths)}) "
+            f"are not supported with kernel={kernel!r} — the in-kernel "
+            f"multi-step paths have one step count, not one per axis; use "
+            f"kernel='xla' or 'auto'")
     accel = on_gpu and f32
     wrap_ok = (counts == Dim3(1, 1, 1) and rem == Dim3(0, 0, 0)
-               and not overlap and radius_ok and not nonperiodic)
-    halo_ok = counts.x == 1 and not overlap and radius_ok and not nonperiodic
+               and not overlap and radius_ok and not nonperiodic
+               and not asym)
+    halo_ok = (counts.x == 1 and not overlap and radius_ok
+               and not nonperiodic and not asym)
     overlap_ok = (overlap and counts.x == 1 and radius_ok
-                  and local.z >= 4 and local.y >= 2 and not nonperiodic)
+                  and local.z >= 4 and local.y >= 2 and not nonperiodic
+                  and s_every == 1)
     if overlap_ok and (kernel == "halo" or (kernel == "auto" and accel)):
         return "overlap"
     if kernel == "auto":
@@ -182,14 +238,24 @@ def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
                          "with local z >= 4 and y >= 2)")
     if kernel in ("wrap", "halo"):
         return kernel
+    if s_every > 1:
+        if kernel == "pallas":
+            raise ValueError("exchange_every > 1 is not supported with "
+                             "kernel='pallas' (use xla, wrap or halo)")
+        tag = (f"s={depths.x}.{depths.y}.{depths.z}" if asym
+               else f"s={s_every}")
+        return f"xla-temporal[{tag}]" + ("-overlap" if overlap else "")
     return f"{kernel}-overlap" if overlap else kernel
 
 
-def _wrap_steps(tile: int) -> int:
+def _wrap_steps(tile: int, requested: int = 0) -> int:
     """Temporal-blocking depth of the wrap and halo paths, as in the JAX
-    model: STENCIL_WRAP_STEPS (default 2), clamped to [1, tile] — the
-    TPU's sublane tile, kept so that both packages group the same steps
-    the same way."""
+    model (``models/jacobi.py:164-177``): an explicit ``exchange_every``
+    request wins; else STENCIL_WRAP_STEPS (default 2). Clamped to [1,
+    tile] — the TPU's sublane tile, kept so that both packages group the
+    same steps the same way."""
+    if requested:
+        return min(max(int(requested), 1), tile)
     try:
         n = int(os.environ.get("STENCIL_WRAP_STEPS", "2") or 2)
     except ValueError:
@@ -208,13 +274,29 @@ class Jacobi3D:
                  mesh_shape: Optional[Dim3Like] = None,
                  devices: Optional[Sequence] = None,
                  methods: Method = Method.Default,
-                 overlap: bool = False) -> None:
+                 overlap: bool = False,
+                 exchange_every: Optional[DepthsLike] = None) -> None:
         if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
         self.dd = DistributedDomain(x, y, z, device=device, devices=devices)
         self.dd.set_radius(1)
         self.dd.set_methods(methods)
+        # temporal blocking: None = unset (the wrap and halo paths keep
+        # their STENCIL_WRAP_STEPS default); an explicit s pins the depth
+        # — deep allocations and one deep exchange per s steps on the
+        # padded paths (parallel/temporal.py), N of K2 and B6 on the wrap
+        # and halo paths (s == 1 forces single steps). Per-axis depths
+        # ({"z": 4}, (1, 1, 4)) deepen only the named axes, on the
+        # temporal path only
+        if exchange_every is None:
+            self._exchange_every = 0
+        elif isinstance(exchange_every, int):
+            self._exchange_every = max(int(exchange_every), 1)
+        else:
+            self._exchange_every = max(normalize_depths(exchange_every))
+        if self._exchange_every > 1:
+            self.dd.set_exchange_every(exchange_every)
         if boundary is not None:
             self.dd.set_boundary(boundary)
         devs = self.dd._devices
@@ -262,8 +344,10 @@ class Jacobi3D:
         path = select_kernel_path(
             self._kernel, self._overlap, dd.mesh_counts, dd.rem,
             dd.local_size, radius_ok, dd.boundary == Boundary.NONE,
-            all(d.type == "cuda" for d in dd.mesh.devices), f32)
-        if self._kernel == "auto" or path == "overlap":
+            all(d.type == "cuda" for d in dd.mesh.devices), f32,
+            dd.exchange_depths)
+        if (self._kernel == "auto" or path == "overlap"
+                or path.startswith("xla-temporal")):
             LOG_INFO(f"jacobi kernel path: {path}")
         kernel = path.split("-")[0]
         if kernel in ("wrap", "halo", "pallas", "overlap") and not f32:
@@ -272,8 +356,11 @@ class Jacobi3D:
                             f"kernel='xla'")
         self._method = pick_method(dd.methods)
         tile = sublane_tile(self._dtype)
+        if path.startswith("xla-temporal"):
+            validate_temporal(radius, dd.local_size, dd.exchange_depths,
+                              dd.rem)
         if kernel == "wrap":
-            self._wrap_n = _wrap_steps(tile)
+            self._wrap_n = _wrap_steps(tile, self._exchange_every)
             self._pair_ok = (dd.size.y % tile == 0 and self._wrap_n > 1
                              and not wrap2_disabled())
         if kernel == "halo":
@@ -293,7 +380,7 @@ class Jacobi3D:
         is a multiple of the sublane tile, N > 1 and the JAX planner
         finds a blocking; the single-step kernel otherwise."""
         local = self.dd.local_size
-        self._halo_n = N = _wrap_steps(tile)
+        self._halo_n = N = _wrap_steps(tile, self._exchange_every)
         pair_ok = (self.dd.rem == Dim3(0, 0, 0) and N > 1
                    and local.y % tile == 0 and not wrap2_disabled())
         if pair_ok:
@@ -338,6 +425,9 @@ class Jacobi3D:
         if self.kernel_path == "overlap":
             self._run_overlap(iters)
             return
+        if self.kernel_path.startswith("xla-temporal"):
+            self._run_temporal(iters)
+            return
         dd = self.dd
         nonper = dd.boundary == Boundary.NONE
         for _ in range(iters):
@@ -351,6 +441,44 @@ class Jacobi3D:
                                   dd.mesh_counts, dd.local_size, dd.size,
                                   kernel=self._base_kernel, rem=dd.rem,
                                   nonperiodic=nonper, method=self._method)
+
+    def _run_temporal(self, n: int) -> None:
+        """JAX's ``_build_temporal_step`` (models/jacobi.py:590-662):
+        ``n // s`` groups through ``temporal_shard_steps`` — one deep
+        exchange, then ``s`` plain 7-point sub-steps on the shrinking
+        windows with the sources re-imposed on each window, ring cells
+        included —, then ``n % s`` depth-1 groups on the same deep
+        buffers. With ``overlap=True`` the deep exchange runs while
+        sub-step 0's inner block is computed."""
+        dd = self.dd
+        radius, counts, local, rem = (dd.radius, dd.mesh_counts,
+                                      dd.local_size, dd.rem)
+        gsize, depths = dd.size, dd.exchange_depths
+        nonper = dd.boundary == Boundary.NONE
+        hot_c, cold_c, sph_r = sphere_geometry(gsize)
+        origins = [shard_origin(local, rem, mesh_index(i, counts))
+                   for i in range(counts.flatten())]
+
+        def update_fn(blocks, dims, off, k, i):
+            blk = blocks["temp"]
+            new = jacobi7(blk, radius, dims)
+            ox, oy, oz = origins[i]
+            org = (ox + off[0], oy + off[1], oz + off[2])
+            new = _apply_sources_windowed(new, org, dims, gsize, hot_c,
+                                          cold_c, sph_r, nonper)
+            return {"temp": new.to(blk.dtype)}
+
+        def group(depth, ovl):
+            temporal_shard_steps({"temp": dd.curr["temp"]}, radius, counts,
+                                 self._method, update_fn, depth,
+                                 alloc_steps=depths, rem=rem, overlap=ovl,
+                                 nonperiodic=nonper)
+
+        s = dd.exchange_every
+        for _ in range(n // s):
+            group(depths, self._overlap)
+        for _ in range(n % s):
+            group(1, False)
 
     def _run_wrap(self, n: int) -> None:
         """Slice the interior into a contiguous tensor once, ping-pong it
@@ -463,7 +591,8 @@ class Jacobi3D:
         wrap path has none; the halo path counts its slab transfers
         (``interior_slab_bytes``) over its group length, the overlap path
         its single-row face slabs; the padded paths exchange once a
-        step."""
+        step, the temporal path once a group of ``s`` (or, with per-axis
+        depths, at sub-step 0 and at every mid-group refresh)."""
         path = self.kernel_path
         if path == "wrap":
             return {"path": path, "bytes_per_iteration": 0,
@@ -480,17 +609,29 @@ class Jacobi3D:
                     "bytes_per_iteration":
                         per_shard * counts.flatten() / cfg["per_iter_div"],
                     "rounds_per_iteration": 1.0 / cfg["per_iter_div"]}
+        d = self.dd.exchange_depths
+        s = self.dd.exchange_every
+        if d.x == d.y == d.z:
+            rounds = 1.0 / s
+        else:
+            # asymmetric group: the deep exchange at sub-step 0 plus a
+            # mid-group refresh at every k where some axis's cadence
+            # divides k (parallel.temporal.refresh_axes)
+            rounds = (1 + sum(1 for k in range(1, s)
+                              if any(k % d[a] == 0
+                                     for a in range(3)))) / s
         return {"path": path,
                 "bytes_per_iteration":
                     float(self.dd.exchange_bytes_amortized_per_step()),
-                "rounds_per_iteration": 1.0}
+                "rounds_per_iteration": rounds}
 
     def measure_exchange_seconds(self, reps: int = 10) -> float:
         """Exchange seconds per ITERATION of the built path: the halo
         path's slab exchange of one group (timed on zero shards) over
         its group length (the overlap path: a round of its single-row
-        face slabs), or one ``dd.exchange()`` on the padded paths; 0.0
-        on the wrap path, which has no exchange."""
+        face slabs), or one ``dd.exchange()`` on the padded paths (the
+        deep one over the ``exchange_every`` steps it feeds on the
+        temporal path); 0.0 on the wrap path, which has no exchange."""
         path = self.kernel_path
         if path == "wrap":
             return 0.0
@@ -503,7 +644,8 @@ class Jacobi3D:
         for _ in range(reps):
             self.dd.exchange()
         self.block()
-        return (time.perf_counter() - t0) / reps
+        # one (possibly deep) exchange feeds exchange_every iterations
+        return (time.perf_counter() - t0) / reps / self.dd.exchange_every
 
     def slab_exchange_seconds(self, reps: int = 10) -> float:
         """Seconds of one ``exchange_interior_slabs`` round of the halo

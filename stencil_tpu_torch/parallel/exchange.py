@@ -257,6 +257,41 @@ def interior_slab_bytes(shard_zyx: Sequence[int], mesh_counts: Dim3,
     return total
 
 
+def measure_slab_exchange_seconds(mesh, local: Dim3, dtype, rz: int, ry: int,
+                                  radius_rows: int, y_z_extended: bool,
+                                  nfields: int = 1, reps: int = 10) -> float:
+    """Seconds of ONE ``exchange_interior_slabs`` round for ``nfields``
+    interior-resident fields over ``mesh`` (a ``parallel/mesh.Mesh``):
+    the exchange cost of the fused halo paths, which perform exactly
+    this transfer between their kernels (JAX: ``parallel/exchange.py:852``).
+    Zero shards of ``local`` (x, y, z) extent are made on each mesh
+    position's device; one round runs first, outside the timed window,
+    then ``reps`` rounds, ending in a synchronize of every device."""
+    import time
+
+    from ..utils.timers import device_sync
+
+    counts = mesh.shape
+    fields = [[torch.zeros((local.z, local.y, local.x), dtype=dtype,
+                           device=d) for d in mesh.devices]
+              for _ in range(nfields)]
+
+    def once():
+        return [exchange_interior_slabs(f, counts, rz=rz, ry=ry,
+                                        radius_rows=radius_rows,
+                                        y_z_extended=y_z_extended)
+                for f in fields]
+
+    out = once()
+    device_sync([t for f in fields for t in f])
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = once()
+    device_sync([s[k] for per in out for s in per
+                 for k in ("zlo", "zhi", "ylo", "yhi")])
+    return (time.perf_counter() - t0) / reps
+
+
 def exchanged_bytes_per_sweep(shard_padded_shape_zyx, radius: Radius,
                               mesh_counts: Dim3, elem_size: int,
                               axis_order: Tuple[int, ...] = (0, 1, 2)

@@ -1,0 +1,226 @@
+"""The port's apps (``stencil_tpu_torch/apps``) against the JAX package's.
+
+Each ported app's ``main()`` runs on the host (``--device cpu`` or
+``--devices cpu,cpu,cpu,cpu``) at 16^3 and prints JAX's CSV columns in
+JAX's order: the JAX apps (``apps/*.py``) run once, in one subprocess
+over 4 fake CPU devices, and every column but the measured seconds and
+rates must be equal. ``bench_exchange``'s byte columns equal JAX's
+``DistributedDomain.exchange_bytes_total()`` and its JSON the
+``_amortized_per_step()`` of the same configuration. Options that wait
+for a ROADMAP item raise ``NotImplementedError`` naming it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from stencil_tpu.distributed import DistributedDomain as JDomain
+from stencil_tpu.geometry import Radius as JRadius
+from stencil_tpu_torch.apps import (bench_exchange, bench_methods,
+                                    bench_pack, exchange_strong,
+                                    exchange_weak, jacobi3d,
+                                    jacobi3d_strong, machine_info, pingpong)
+
+ROOT = Path(__file__).resolve().parent.parent
+CPU4 = ["--devices", "cpu,cpu,cpu,cpu"]
+S16 = ["--x", "16", "--y", "16", "--z", "16"]
+
+# app: (JAX argv, port argv, indices of measured columns)
+CASES = {
+    "bench_exchange": (S16 + ["--iters", "3", "--exchange-every", "1,2,z=2"],
+                       S16 + ["--iters", "3", "--exchange-every", "1,2,z=2"]
+                       + CPU4, {12, 13}),
+    "exchange_weak": (S16 + ["--iters", "3"], S16 + ["--iters", "3"] + CPU4,
+                      {9, 10, 11}),
+    "exchange_strong": (S16 + ["--iters", "3", "--interior-slabs"],
+                        S16 + ["--iters", "3", "--interior-slabs"] + CPU4,
+                        {9, 10, 11}),
+    "jacobi3d_strong": (S16 + ["--iters", "2", "--batch", "1"],
+                        S16 + ["--iters", "2", "--batch", "1"] + CPU4,
+                        {9, 10, 13}),
+    "pingpong": (["--min", "10", "--max", "11", "--iters", "2"],
+                 ["--min", "10", "--max", "11", "--iters", "2"] + CPU4,
+                 {2, 3}),
+}
+PORT_APPS = {"bench_exchange": bench_exchange,
+             "exchange_weak": exchange_weak,
+             "exchange_strong": exchange_strong,
+             "jacobi3d_strong": jacobi3d_strong, "pingpong": pingpong}
+
+JAX_RUNNER = """
+import contextlib, io, json, runpy, sys
+sys.path.insert(0, {apps!r})
+cases = json.loads({cases!r})
+out = {{}}
+for name, argv in cases.items():
+    sys.argv = [name, "--fake-cpu", "4"] + argv
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path({apps!r} + "/" + name + ".py", run_name="__main__")
+    out[name] = buf.getvalue()
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_lines():
+    """Stdout of each JAX app, all run in one process over 4 fake CPU
+    devices."""
+    cases = json.dumps({k: v[0] for k, v in CASES.items()})
+    code = JAX_RUNNER.format(apps=str(ROOT / "apps"), cases=cases)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def _csv(text):
+    return [ln.split(",") for ln in text.strip().splitlines()
+            if "," in ln]
+
+
+@pytest.mark.parametrize("app", sorted(CASES))
+def test_app_prints_jax_columns(app, jax_lines, capsys):
+    """Same number of lines and columns; every column but the measured
+    seconds and rates equal to JAX's, which must parse as numbers."""
+    _, argv, measured = CASES[app]
+    PORT_APPS[app].main(argv)
+    got, want = _csv(capsys.readouterr().out), _csv(jax_lines[app])
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w), (g, w)
+        for i, (a, b) in enumerate(zip(g, w)):
+            if i in measured and a != b:
+                float(a), float(b)
+            else:
+                assert a == b, (app, i, g, w)
+
+
+def test_bench_exchange_bytes_equal_jax_byte_models(tmp_path, capsys):
+    """The deep exchange's bytes (CSV) and their amortized share per
+    step (JSON) for ``--exchange-every 1,2,z=2`` at radius (2, 1, 1)."""
+    out = tmp_path / "be.json"
+    bench_exchange.main(S16 + ["--iters", "2", "--fr", "2", "--er", "1",
+                               "--cr", "1", "--fields", "2",
+                               "--exchange-every", "1,2,z=2",
+                               "--mesh-shape", "1,2,2", "--json-out",
+                               str(out)] + CPU4)
+    rows = _csv(capsys.readouterr().out)
+    payload = json.loads(out.read_text())
+    assert [c["exchange_every"] for c in payload["configs"]] == \
+        [1, 2, "1.1.2"]
+    assert payload["rounds_per_step_ratio"] == {"1": 1.0, "2": 0.5,
+                                                "1.1.2": 1.0}
+    for s, row, cfg in zip((1, 2, {"z": 2}), rows, payload["configs"]):
+        jd = JDomain(16, 32, 32, devices=jax.devices()[:4])
+        jd.set_mesh_shape((1, 2, 2))
+        jd.set_radius(JRadius.face_edge_corner(2, 1, 1))
+        if s != 1:
+            jd.set_exchange_every(s)
+        for i in range(2):
+            jd.add_data(f"q{i}", np.float32)
+        jd.realize()
+        assert int(row[11]) == jd.exchange_bytes_total()
+        assert cfg["bytes_per_exchange_model"] == jd.exchange_bytes_total()
+        assert cfg["amortized_bytes_per_step_model"] == \
+            jd.exchange_bytes_amortized_per_step()
+    assert set(payload) >= {"bench", "mesh", "per_device_size", "radius",
+                            "fields", "configs", "baseline_exchange_every",
+                            "steps_per_s_ratio", "wire_layout"}
+
+
+def test_jacobi3d_exchange_every_flag(capsys):
+    """``--exchange-every`` takes the temporal path on the padded
+    kernels and sets N on the halo path."""
+    jacobi3d.main(["--x", "8", "--y", "8", "--z", "8", "--iters", "4",
+                   "--batch", "2", "--kernel", "xla", "--mesh-shape",
+                   "1,2,2", "--device", "cpu", "--exchange-every", "2"])
+    line = capsys.readouterr().out.strip().splitlines()[-1].split(",")
+    assert line[11] == "xla-temporal[s=2]"
+    jacobi3d.main(["--x", "8", "--y", "8", "--z", "8", "--iters", "3",
+                   "--batch", "3", "--kernel", "halo", "--mesh-shape",
+                   "1,2,2", "--device", "cpu", "--exchange-every", "3"])
+    line = capsys.readouterr().out.strip().splitlines()[-1].split(",")
+    assert line[11] == "halo"
+
+
+@pytest.mark.parametrize("app,argv", [
+    (bench_methods, ["--x", "8", "--y", "8", "--z", "8", "--iters", "2"]
+     + CPU4),
+    (bench_pack, ["--sizes", "8", "16", "--iters", "2", "--device", "cpu"]),
+])
+def test_app_lines_have_jax_columns(app, argv, capsys):
+    """The apps whose JAX twins cannot run here (PallasDMA) or pack
+    other regions: JAX's column count and fixed columns."""
+    app.main(argv)
+    rows = _csv(capsys.readouterr().out)
+    if app is bench_methods:
+        assert [r[1] for r in rows] == ["PpermuteSlab", "PpermutePacked",
+                                        "AllGather", "PallasDMA"]
+        assert all(len(r) == 11 and r[2:8] == ["4", "8", "8", "8", "2", "4"]
+                   for r in rows)
+        assert len({r[8] for r in rows}) == 1          # same bytes
+    else:
+        assert [r[:4] for r in rows] == [["bench_pack", "8", "2", "4"],
+                                         ["bench_pack", "16", "2", "4"]]
+        # each direction's halo region, packed and unpacked, 4 fields
+        n8 = ((8 + 4) ** 3 - 8 ** 3) * 4 * 4 * 2
+        assert all(len(r) == 7 for r in rows) and int(rows[0][4]) == n8
+
+
+def test_machine_info_lists_the_devices(capsys):
+    machine_info.main(["--devices", "cpu,cpu,cpu,cpu"])
+    out = capsys.readouterr().out
+    assert "devices: 4" in out
+    assert "default 3D mesh: (2, 2, 1)" in out
+
+
+@pytest.mark.parametrize("app,argv,item", [
+    (bench_exchange, ["--wire-layout", "irredundant"], "A7"),
+    (bench_exchange, ["--wire-layout", "slab,irredundant"], "A7"),
+    (bench_exchange, ["--autotune"], "A12"),
+    (bench_exchange, ["--tune-cache", "plans.json"], "A12"),
+    (bench_exchange, ["--metrics-json", "m.json"], "A12"),
+    (bench_exchange, ["--ledger", "ledger.jsonl"], "A12"),
+    (bench_exchange, ["--fuse-segments"], "A10"),
+    (bench_exchange, ["--check-every", "8"], "A10"),
+    (jacobi3d_strong, ["--random"], "A5"),
+])
+def test_pending_options_raise_naming_their_item(app, argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        app.main(argv + ["--device", "cpu"])
+
+
+def test_ledger_off_is_accepted(tmp_path, capsys):
+    out = tmp_path / "be.json"
+    bench_exchange.main(["--x", "8", "--y", "8", "--z", "8", "--iters", "1",
+                         "--device", "cpu", "--ledger", "", "--json-out",
+                         str(out)])
+    assert json.loads(out.read_text())["bench"] == "bench_exchange"
+
+
+def test_new_modules_import_without_jax():
+    """The apps and the temporal engine import neither JAX nor the JAX
+    package (the isolation test walks their ASTs; this imports them)."""
+    mods = ["stencil_tpu_torch.parallel.temporal"] + [
+        f"stencil_tpu_torch.apps.{m}" for m in (
+            "bench_exchange", "bench_methods", "bench_pack",
+            "exchange_strong", "exchange_weak", "jacobi3d_strong",
+            "machine_info", "pingpong")]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in "
+            f"{mods!r}]; bad = [m for m in sys.modules if m.split('.')[0] "
+            f"in ('jax', 'jaxlib', 'stencil_tpu')]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT),
+                         env={"PATH": "/usr/bin:/bin",
+                              "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
