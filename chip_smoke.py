@@ -274,6 +274,8 @@ MHD_PATH_DT = 1e-4    # phase 4: large enough that the rates show in f32
 B9_FLOPS = {0: 676 + 242 + 24, 1: 676 + 242 + 40, 2: 676 + 242 + 40}
 B10_FLOPS = B9_FLOPS[0] + B9_FLOPS[1]
 LAPLACE6_FLOPS = 34
+#: the device every shard of the one-card meshes lies on
+CARD = "cuda:0"
 
 
 _T0 = time.perf_counter()
@@ -468,32 +470,39 @@ def steps_per_s(torch, kernel: str, k: int):
 
 
 def device_ms(torch, fn, reps: int, warmup: int = 2,
-              cycles: int = 60_000_000) -> float:
+              cycles: int = 60_000_000, tries: int = 3) -> float:
     """ms of the device work of one ``fn()``, without the host's: the
     ``reps`` calls are queued behind a kernel that sleeps ``cycles``
     clocks, and the CUDA events around them are recorded after it, so
-    the host has queued them all before the card starts them. Raises if
-    the host took longer to queue them than the sleep lasted."""
+    the host has queued them all before the card starts them. Where the
+    host took longer to queue them than the sleep lasted (a host stall),
+    the measurement is taken again behind a sleep twice as long; raises
+    if that happens ``tries`` times."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    slept = torch.cuda.Event(enable_timing=True)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    slept.record()
-    torch.cuda._sleep(cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    stop.record()
-    stop.synchronize()
-    if host_ms >= slept.elapsed_time(start):
-        raise AssertionError(f"device_ms: queuing took {host_ms!r} ms, "
-                             f"longer than the {slept.elapsed_time(start)!r}"
-                             f" ms sleep")
-    return start.elapsed_time(stop) / reps
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        stop.record()
+        stop.synchronize()
+        sleep_ms = slept.elapsed_time(start)
+        if host_ms < sleep_ms:
+            return start.elapsed_time(stop) / reps
+        log(f"  device_ms: queuing took {host_ms!r} ms, longer than the "
+            f"{sleep_ms!r} ms sleep; again behind a sleep twice as long")
+        cycles *= 2
+    raise AssertionError(f"device_ms: queuing outlasted the sleep {tries} "
+                         f"times (last {host_ms!r} ms against {sleep_ms!r} "
+                         f"ms)")
 
 
 def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -757,7 +766,7 @@ def compare_halo_kernels(torch, ch) -> dict:
 def gather(torch, j):
     """A solver's global interior as one tensor on the card."""
     dd = j.dd
-    out = torch.empty((dd.size.z, dd.size.y, dd.size.x), device="cuda")
+    out = torch.empty((dd.size.z, dd.size.y, dd.size.x), device=CARD)
     for i in range(dd.num_subdomains()):
         o, s = dd.shard_origin(i), dd.shard_size(i)
         out[o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x] = \
@@ -769,7 +778,7 @@ def jacobi_mesh(kernel, mesh=(1, 1, 1), size=(N512, N512, N512), **kw):
     from stencil_tpu_torch.models.jacobi import Jacobi3D
 
     j = Jacobi3D(*size, kernel=kernel, mesh_shape=mesh,
-                 devices=["cuda:0"] * (mesh[0] * mesh[1] * mesh[2]), **kw)
+                 devices=[CARD] * (mesh[0] * mesh[1] * mesh[2]), **kw)
     j.init()
     j.block()
     return j
@@ -1154,6 +1163,334 @@ def time_temporal(torch, cs, ch) -> dict:
         log(f"  Jacobi ring kernel plan, {label}: {plan}")
     del a, b
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# halo wire formats and layouts: Jacobi3D(wire_format=, wire_layout=), the
+# packed and all-gather engines, make_exchange's gate, bench_exchange's race
+# ---------------------------------------------------------------------------
+WIRE_STEPS = 4
+#: the grids of the exchange matrix over (2,2,2): 128^3 shards, even and
+#: uneven
+WIRE_MATRIX_N = (256, 255)
+#: rel_error_bound of each narrowing format (half its dtype's epsilon)
+WIRE_BOUNDS = {"bf16": 2.0 ** -8, "e4m3": 2.0 ** -4, "e5m2": 2.0 ** -3}
+#: the wire settings phase 5 times on four shards
+WIRE_TIMED = (("f32 slab", {}),
+              ("f32 irredundant", {"wire_layout": "irredundant"}),
+              ("bf16 irredundant", {"wire_format": "bf16",
+                                    "wire_layout": "irredundant"}))
+
+
+def equal_bits(torch, a, b) -> bool:
+    """Bitwise equality of two float32 tensors, NaN bits included."""
+    return bool(torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
+
+
+def wire_matrix(torch) -> dict:
+    """The exchange matrix of ``tests/test_torch_wire.py`` at 128^3
+    shards on the card: grids 256^3 and 255^3 (uneven) over (2,2,2), the
+    eight shards on one card, radius 1 and 3, periodic and zero
+    exterior, wire f32 / bf16 / e4m3 / {y: bf16, z: e4m3}, slab and
+    irredundant layouts, ``PpermuteSlab`` and ``PpermutePacked``
+    (``AllGather`` on the periodic 256^3 f32 slab cases): every shard
+    bitwise equal to the same exchange of the port on the CPU, and the
+    irredundant layout equal to the slab layout on the live window."""
+    import numpy as np
+
+    from stencil_tpu_torch import Boundary, Method
+    from stencil_tpu_torch.distributed import DistributedDomain
+
+    wires = {"f32": None, "bf16": "bf16", "e4m3": "e4m3",
+             "dict": {"y": "bf16", "z": "e4m3"}}
+    cases = 0
+
+    def domain(n, r, boundary, wire, layout, method, device):
+        dd = DistributedDomain(n, n, n, devices=[device] * 8)
+        dd.set_mesh_shape((2, 2, 2))
+        dd.set_radius(r)
+        dd.set_boundary(boundary)
+        if wires[wire] is not None:
+            dd.set_wire_format(wires[wire])
+        dd.set_wire_layout(layout)
+        dd.set_methods(method)
+        dd.add_data("q", torch.float32)
+        dd.realize()
+        return dd
+
+    for n in WIRE_MATRIX_N:
+        for r in (1, 3):
+            cap = -(-n // 2) + 2 * r
+            rng = np.random.default_rng(71 + n + r)
+            vals = [torch.from_numpy((rng.standard_normal((cap,) * 3)
+                                      * 10.0 ** rng.uniform(
+                                          -40, 3.2, (cap,) * 3))
+                                     .astype(np.float32)) for _ in range(8)]
+            for boundary in (Boundary.PERIODIC, Boundary.NONE):
+                for wire in wires:
+                    live = {}
+                    for layout in ("slab", "irredundant"):
+                        ref = domain(n, r, boundary, wire, layout,
+                                     Method.PpermuteSlab, "cpu")
+                        for t, v in zip(ref.curr["q"], vals):
+                            t.copy_(v)
+                        ref.exchange()
+                        want = [t.to(CARD) for t in ref.curr["q"]]
+                        methods = [Method.PpermuteSlab, Method.PpermutePacked]
+                        if (n % 2 == 0 and boundary == Boundary.PERIODIC
+                                and wire == "f32" and layout == "slab"):
+                            methods.append(Method.AllGather)
+                        for method in methods:
+                            dd = domain(n, r, boundary, wire, layout,
+                                        method, CARD)
+                            for t, v in zip(dd.curr["q"], vals):
+                                t.copy_(v)
+                            dd.exchange()
+                            for i, (t, w) in enumerate(zip(dd.curr["q"],
+                                                           want)):
+                                if not equal_bits(torch, t, w):
+                                    raise AssertionError(
+                                        f"exchange n={n} r={r} {boundary} "
+                                        f"wire={wire} {layout} {method}: "
+                                        f"shard {i} differs from the CPU")
+                            cases += 1
+                            del dd
+                        lo, hi = ref.radius.pad_lo(), ref.radius.pad_hi()
+                        live[layout] = []
+                        for i, t in enumerate(want):
+                            sz = ref.shard_size(i)
+                            live[layout].append(
+                                t[:lo.z + sz.z + hi.z, :lo.y + sz.y + hi.y,
+                                  :lo.x + sz.x + hi.x])
+                        del ref
+                    for a, b in zip(live["slab"], live["irredundant"]):
+                        if not equal_bits(torch, a, b):
+                            raise AssertionError(
+                                f"irredundant != slab on the live window, "
+                                f"n={n} r={r} {boundary} wire={wire}")
+                    del live, want
+            torch.cuda.empty_cache()
+    log(f"  exchange matrix at 128^3 shards: {cases} card exchanges "
+        f"bitwise equal to the port's CPU exchange; irredundant = slab on "
+        f"the live window in all 32 (n, r, boundary, wire) cells")
+    return {"card_exchanges": cases}
+
+
+def run_wire_paths(torch, cs) -> dict:
+    """Phase 4, halo wire formats and layouts: the card's narrowing
+    against the CPU's; ``Jacobi3D`` ``xla`` and ``pallas`` (K3) on four
+    512 x 256 x 256 shards of (1,2,2) on the card, f32 wire = no wire
+    argument, irredundant = slab, ``PpermutePacked`` = ``AllGather`` =
+    ``PpermuteSlab`` bitwise, bf16 / e4m3 / e5m2 within ``steps *
+    rel_error_bound * max`` of the f32 wire, above 0, and each below the
+    next narrower format's error; the exchange
+    matrix at 128^3 shards; Astaroth 256^3 ``xla`` (the packed engine)
+    equal to ``PpermuteSlab`` bitwise, on (1,1,1) and on four shards;
+    ``bench_exchange --wire-layout slab,irredundant`` on four 256^3
+    shards (bytes ratio 0.97704)."""
+    import numpy as np
+
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.analysis.precision import wire_edge_values
+    from stencil_tpu_torch.parallel.exchange import _from_wire, _to_wire
+
+    out = {"launches_by_run": {}, "max_diff": {}}
+    vals = torch.from_numpy(wire_edge_values())
+    card = vals.to(CARD)
+    for fmt in WIRE_BOUNDS:
+        got = _from_wire(_to_wire(card, fmt), torch.float32).cpu()
+        want = _from_wire(_to_wire(vals, fmt), torch.float32)
+        if not equal_bits(torch, got, want):
+            raise AssertionError(f"the card narrows to {fmt} unlike the CPU")
+    log(f"  _to_wire/_from_wire on the card = on the CPU, bitwise, for "
+        f"{sorted(WIRE_BOUNDS)} ({vals.numel()} edge values, e4m3's NaN "
+        f"above 464 included)")
+
+    steps = WIRE_STEPS
+    for kernel in ("xla", "pallas"):
+        def run(label, **kw):
+            cs.reset_launch_counts()
+            j = jacobi_mesh(kernel, (1, 2, 2), (N512,) * 3, **kw)
+            if j.kernel_path != kernel:
+                raise AssertionError(f"{kernel} {label} took "
+                                     f"{j.kernel_path!r}")
+            j.run(steps)
+            j.block()
+            k3 = cs.LAUNCHES["jacobi7_padded"]
+            want = 4 * steps if kernel == "pallas" else 0
+            out["launches_by_run"][f"{kernel} {label}"] = k3
+            if k3 != want:
+                raise AssertionError(f"{kernel} {label}: {k3} K3 launches, "
+                                     f"not {want}")
+            got = gather(torch, j)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kernel} {label}: non-finite")
+            del j
+            return got
+
+        ref = run("f32 slab")
+        for label, kw in (("wire_format='f32'", {"wire_format": "f32"}),
+                          ("f32 irredundant", {"wire_layout": "irredundant"}),
+                          ("PpermutePacked", {"methods":
+                                              Method.PpermutePacked}),
+                          ("AllGather", {"methods": Method.AllGather})):
+            got = run(label, **kw)
+            if not equal_bits(torch, got, ref):
+                raise AssertionError(f"{kernel} {label} != f32 slab")
+            del got
+        log(f"  {kernel} on four 512 x 256 x 256 shards, run({steps}): "
+            f"wire_format='f32', f32 irredundant, PpermutePacked and "
+            f"AllGather all bitwise equal to the f32 slab run")
+        scale = float(ref.abs().max())
+        errs = []
+        for fmt, bound in WIRE_BOUNDS.items():
+            got = run(f"{fmt} irredundant", wire_format=fmt,
+                      wire_layout="irredundant")
+            err = float((got - ref).abs().max())
+            tol = steps * bound * scale
+            log(f"  {kernel} {fmt} irredundant vs f32: max diff {err!r} "
+                f"(required 0 < diff <= {tol!r})")
+            if not 0.0 < err <= tol:
+                raise AssertionError(f"{kernel} {fmt} wire outside its "
+                                     f"bound")
+            out["max_diff"][f"{kernel} {fmt} irredundant vs f32"] = err
+            errs.append(err)
+            if fmt == "bf16":
+                packed = run("bf16 irredundant PpermutePacked",
+                             wire_format=fmt, wire_layout="irredundant",
+                             methods=Method.PpermutePacked)
+                slab = run("bf16 slab", wire_format=fmt)
+                if not (equal_bits(torch, packed, got)
+                        and equal_bits(torch, slab, got)):
+                    raise AssertionError(f"{kernel} bf16: packed or slab "
+                                         f"layout != irredundant")
+                log(f"  {kernel} bf16: PpermutePacked and the slab layout "
+                    f"bitwise equal to the irredundant PpermuteSlab run")
+                del packed, slab
+            del got
+        # each format's error below the next narrower one's: a format
+        # that shipped at another width than its own would not be
+        if not errs[0] < errs[1] < errs[2]:
+            raise AssertionError(f"{kernel}: wire errors {errs} not "
+                                 f"ordered bf16 < e4m3 < e5m2")
+        log(f"  {kernel}: wire errors ordered bf16 < e4m3 < e5m2")
+        del ref
+        torch.cuda.empty_cache()
+    out["launches"] = {"jacobi7_padded": out["launches_by_run"][
+        "pallas bf16 irredundant"]}
+
+    out["matrix"] = wire_matrix(torch)
+    out["astaroth"] = astaroth_packed_vs_slab(torch)
+    out["bench_exchange"] = bench_exchange_layout_race(torch)
+    return out
+
+
+def astaroth_packed_vs_slab(torch) -> dict:
+    """Astaroth ``xla`` by its default method (``PpermutePacked``, the
+    packed engine) against ``methods=Method.PpermuteSlab``, bitwise,
+    fields and accumulators: 256^3 on (1,1,1), run(2), and 256 x 512 x
+    512 on four shards of (1,2,2) on the card, run(1)."""
+    from stencil_tpu_torch import Method
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    res = {}
+    for label, size, mesh, iters in (("256^3 (1,1,1)", (N256,) * 3,
+                                      (1, 1, 1), 2),
+                                     ("256 x 512 x 512 (1,2,2)",
+                                      (N256, 2 * N256, 2 * N256),
+                                      (1, 2, 2), 1)):
+        runs = []
+        for methods in (None, Method.PpermuteSlab):
+            kw = {} if methods is None else {"methods": methods}
+            m = Astaroth(*size, params=MhdParams(dt=MHD_PATH_DT),
+                         kernel="xla", mesh_shape=mesh,
+                         devices=[CARD] * (mesh[1] * mesh[2]), **kw)
+            m.init()
+            t0 = time.perf_counter()
+            m.run(iters)
+            m.block()
+            secs = time.perf_counter() - t0
+            runs.append({q: (torch.from_numpy(m.field(q)),
+                             torch.from_numpy(m.accumulator(q)))
+                         for q in FIELDS})
+            log(f"  Astaroth xla {label} methods="
+                f"{'PpermutePacked (default)' if methods is None else methods}"
+                f": run({iters}) {secs:.3f} s")
+            del m
+            torch.cuda.empty_cache()
+        for q in FIELDS:
+            for a, b in zip(runs[0][q], runs[1][q]):
+                if not (bool(torch.isfinite(a).all())
+                        and equal_bits(torch, a, b)):
+                    raise AssertionError(f"Astaroth {label} packed != slab "
+                                         f"({q})")
+        res[label] = "bitwise"
+        log(f"  Astaroth xla {label}: packed engine = PpermuteSlab, "
+            f"bitwise, fields and accumulators")
+    return res
+
+
+def bench_exchange_layout_race(torch) -> dict:
+    """``bench_exchange --wire-layout slab,irredundant`` on four 256^3
+    shards of the card through its ``main()``: the layout line's bytes
+    ratio must be the byte model's, 2,113,536 / 2,163,200 = 0.97704
+    (radius 2, mesh (2,2,1))."""
+    from stencil_tpu_torch import Dim3, Radius
+    from stencil_tpu_torch.apps import bench_exchange
+    from stencil_tpu_torch.parallel.exchange import exchanged_bytes_per_sweep
+    from stencil_tpu_torch.parallel.packing import irredundant_bytes_per_sweep
+
+    padded, r2, mesh = (N256 + 4,) * 3, Radius.constant(2), Dim3(2, 2, 1)
+    expect = (sum(irredundant_bytes_per_sweep(padded, r2, mesh, 4).values())
+              / sum(exchanged_bytes_per_sweep(padded, r2, mesh, 4).values()))
+    if N256 == 256 and round(expect, 5) != 0.97704:
+        raise AssertionError(f"byte model ratio {expect!r}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "bench_exchange_layout.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_exchange.main(["--devices", ",".join([CARD] * 4),
+                             "--x", str(N256), "--y", str(N256),
+                             "--z", str(N256), "--iters", "10",
+                             "--wire-layout",
+                             "slab,irredundant", "--json-out", path])
+    lines = [ln for ln in buf.getvalue().splitlines() if "," in ln]
+    for ln in lines:
+        log(f"  {ln}")
+    with open(path) as f:
+        payload = json.load(f)
+    race = payload["wire_layout_race"]["races"]["irredundant"]
+    ratio = race["bytes_ratio"]
+    if ratio != expect or not 0 < race["trimean_exchange_s"] < 1e3:
+        raise AssertionError(f"bench_exchange layout race: bytes ratio "
+                             f"{ratio!r}, {race}")
+    log(f"  bench_exchange layout race: irredundant {race['bytes_per_exchange_model']} "
+        f"B an exchange ({ratio!r} of slab), {race['trimean_exchange_s']!r} "
+        f"s ({race['exchange_s_ratio']!r} of slab), {race['steps_per_s']!r} "
+        f"steps/s ({race['steps_per_s_ratio']!r} of slab)")
+    return {"lines": lines, "wire_layout_race": payload["wire_layout_race"],
+            "slab": payload["configs"][0]}
+
+
+def time_wire(torch) -> dict:
+    """Phase 5, wire formats: steps/s of ``xla`` and ``pallas`` on four
+    512 x 256 x 256 shards of (1,2,2) on the card, f32 slab, f32
+    irredundant and bf16 irredundant (three ``run(k)`` pooled)."""
+    res = {"steps_per_s": {}, "runs_steps_per_s": {}}
+    for kernel, k in (("xla", 20), ("pallas", 40)):
+        for label, kw in WIRE_TIMED:
+            j = jacobi_mesh(kernel, (1, 2, 2), (N512,) * 3, **kw)
+            j.run(2)
+            j.block()
+            key = f"{kernel} {label}"
+            res["steps_per_s"][key], res["runs_steps_per_s"][key] = \
+                timed_runs(j, k)
+            log(f"  Jacobi {key} (1,2,2): {res['steps_per_s'][key]!r} "
+                f"steps/s over three runs ({res['runs_steps_per_s'][key]})")
+            del j
+            torch.cuda.empty_cache()
     return res
 
 
@@ -3216,6 +3553,9 @@ def main() -> int:
     log("phase 4: the exchange apps (bench_exchange, pingpong, bench_pack) "
         "on one card")
     exchange_apps = run_exchange_apps(torch, cx)
+    log("phase 4: halo wire formats (bf16, e4m3, e5m2), the irredundant "
+        "layout and the packed and all-gather engines on one card")
+    wire_path = run_wire_paths(torch, cs)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -3227,6 +3567,7 @@ def main() -> int:
             f"({sps_runs[path]})")
     halo_times = time_halo(torch, cs, ch)
     temporal_times = time_temporal(torch, cs, ch)
+    wire_times = time_wire(torch)
     ips, ips_runs = {}, {}
     for path, kernel, k, pair in (("wrap", "wrap", 20, "0"),
                                   ("wrap+pair", "wrap", 20, "1"),
@@ -3285,6 +3626,16 @@ def main() -> int:
             entry["ptxas"] = ptxas.get(
                 ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
                  "jacobi_ring"), {})
+        if name == "jacobi7_padded":
+            # K3 behind narrowed and irredundant wires: launches of the
+            # phase-4 pallas run(4) on four shards behind a bf16
+            # irredundant wire, and the phase-5 rates of that path
+            entry["wire"] = {
+                "launches": wire_path["launches"]["jacobi7_padded"],
+                "steps_per_s_1x2x2": {
+                    k[len("pallas "):]: v
+                    for k, v in wire_times["steps_per_s"].items()
+                    if k.startswith("pallas ")}}
         if name == "mhd_substep01_halo":
             entry["ptxas"] = {"mhd_margin_kernel": ptxas.get(("mhd",
                                                               "margin"), {})}
@@ -3321,6 +3672,10 @@ def main() -> int:
                    "jacobi_ring_plans": halo_times["jacobi_ring_plans"],
                    "temporal_path": temporal_path,
                    "exchange_apps": exchange_apps,
+                   "wire_path": wire_path,
+                   "wire_steps_per_s_1x2x2": wire_times["steps_per_s"],
+                   "wire_runs_steps_per_s_1x2x2":
+                       wire_times["runs_steps_per_s"],
                    "temporal_steps_per_s_512": temporal_times["steps_per_s"],
                    "temporal_runs_steps_per_s_512":
                        temporal_times["runs_steps_per_s"],

@@ -101,10 +101,11 @@ def add_method_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--slab", action="store_true",
                     help="per-axis slab copy (default)")
     ap.add_argument("--packed", action="store_true",
-                    help="packed exchange (runs the slab copy in the port)")
+                    help="packed exchange: one buffer a direction for "
+                         "every quantity")
     ap.add_argument("--allgather", action="store_true",
-                    help="all-gather exchange (runs the slab copy in the "
-                         "port)")
+                    help="all-gather exchange: each mesh line's boundary "
+                         "slabs gathered onto every device")
     ap.add_argument("--pallas-dma", action="store_true",
                     help="remote-write exchange: each shard's kernel stores "
                          "its slabs into its neighbours' halos")

@@ -16,17 +16,26 @@ and the steps/s of ``Jacobi3D(kernel="xla", exchange_every=s)``'s run
 loop (the ``xla-temporal`` path, which pays the redundant ring compute
 and the deeper slabs), with the amortized byte model beside it, on
 stderr; ``--json-out`` writes both as JSON. ``--x/--y/--z`` are the size
-of one shard: the grid is that times the mesh. Run it as
+of one shard: the grid is that times the mesh.
+
+Wire layouts: ``--wire-layout slab,irredundant`` sweeps in the first
+layout and races each further one at the smallest swept depth (JAX
+``apps/bench_exchange.py:246-290``): the per-exchange seconds of
+``dd.exchange()`` and the blocked Jacobi steps/s, as ratios against the
+sweep's, with the bytes ratio from the byte model, printed as
+
+    bench_exchange_layout,layout,baseline layout,exchange_every,bytes,trimean (s),bytes ratio,steps/s ratio
+
+and added to ``--json-out`` as ``wire_layout_race``. Run it as
 
     python -m stencil_tpu_torch.apps.bench_exchange \\
         --devices cuda:0,cuda:0,cuda:0,cuda:0 --exchange-every 1,2,4
 
 Only CSV lines go to stdout. These options wait for an item of the
-ROADMAP and raise ``NotImplementedError`` naming it: ``--wire-layout``
-other than ``slab`` (A7, wire formats); ``--autotune``, ``--tune-cache``,
-``--metrics-json``, ``--ledger`` (A12); ``--fuse-segments``,
-``--check-every`` (A10). The JSON has no ``link_classes`` block (the
-link observatory, A12).
+ROADMAP and raise ``NotImplementedError`` naming it: ``--autotune``,
+``--tune-cache``, ``--metrics-json``, ``--ledger`` (A12);
+``--fuse-segments``, ``--check-every`` (A10). The JSON has no
+``link_classes`` block (the link observatory, A12).
 """
 
 from __future__ import annotations
@@ -98,8 +107,11 @@ def main(argv=None) -> None:
                          "like z=4,y=1,x=1 merge into one per-axis "
                          "candidate)")
     ap.add_argument("--wire-layout", default="slab", metavar="L[,L...]",
-                    help="halo wire layouts; only 'slab' is ported "
-                         "(ROADMAP A7)")
+                    help="halo wire message layouts (comma list of "
+                         "slab,irredundant): the first is the sweep's "
+                         "layout; each further layout races per-exchange "
+                         "seconds and the blocked Jacobi steps/s against "
+                         "the sweep's at its smallest depth")
     ap.add_argument("--metrics-json", default="", metavar="PATH",
                     help="telemetry metrics snapshot (ROADMAP A12)")
     ap.add_argument("--fuse-segments", action="store_true",
@@ -114,12 +126,6 @@ def main(argv=None) -> None:
     add_device_flags(ap)
     add_bench_record_flags(ap)
     args = ap.parse_args(argv)
-    layouts = [t.strip() for t in args.wire_layout.split(",") if t.strip()]
-    if layouts != ["slab"]:
-        raise NotImplementedError(
-            f"--wire-layout {args.wire_layout!r}: the port ships the slab "
-            f"layout only; the irredundant layout waits for ROADMAP A7 "
-            f"(wire formats)")
     refuse_pending(args, [
         ("--autotune", "A12 (tuning)", False),
         ("--tune-cache", "A12 (tuning)", ""),
@@ -132,6 +138,7 @@ def main(argv=None) -> None:
     from ..distributed import DistributedDomain
     from ..geometry import Radius
     from ..models.jacobi import Jacobi3D
+    from ..parallel.packing import WIRE_LAYOUTS
     from ..utils.timers import device_sync
 
     devices, mesh_shape = mesh_from_args(args)
@@ -140,24 +147,32 @@ def main(argv=None) -> None:
                   args.z * mesh_shape[2])
     depths = _parse_depths(args.exchange_every)
     methods = methods_from_args(args)
+    layouts = [t.strip() for t in args.wire_layout.split(",") if t.strip()]
+    bad = [t for t in layouts if t not in WIRE_LAYOUTS]
+    if not layouts or bad:
+        raise SystemExit(f"--wire-layout wants a comma list from "
+                         f"{WIRE_LAYOUTS}, got {args.wire_layout!r}")
+    primary_layout = layouts[0]
 
-    def jacobi_steps_per_s(s):
+    def jacobi_steps_per_s(s, layout=primary_layout):
         """Steps/s of the blocked hot path: the Jacobi model's run loop
         (deep exchange + sub-steps, the redundant ring compute included)
         under this configuration."""
         j = Jacobi3D(gx, gy, gz, mesh_shape=mesh_shape, devices=devices,
                      dtype=torch.float32, kernel="xla", methods=methods,
-                     exchange_every=s if _depth_max(s) > 1 else None)
+                     exchange_every=s if _depth_max(s) > 1 else None,
+                     wire_layout=layout)
         j.init()
         n, dt, _ = grouped_steps_per_s(j.run, j.block, args.iters,
                                        group=_depth_max(s))
         return n, dt, j
 
-    def make_domain(s):
+    def make_domain(s, layout=primary_layout):
         dd = DistributedDomain(gx, gy, gz, devices=devices)
         dd.set_mesh_shape(mesh_shape)
         dd.set_radius(Radius.face_edge_corner(args.fr, args.er, args.cr))
         dd.set_methods(methods)
+        dd.set_wire_layout(layout)
         if _depth_max(s) > 1:
             dd.set_exchange_every(s)
         for i in range(args.fields):
@@ -165,15 +180,17 @@ def main(argv=None) -> None:
         dd.realize()
         return dd
 
+    def exchange_trimean(dd):
+        return timed_samples(
+            dd.exchange,
+            lambda: device_sync([t for v in dd.curr.values() for t in v]),
+            args.iters).trimean()
+
     results = []
     for s in depths:
         dd = make_domain(s)
-        stats = timed_samples(
-            dd.exchange,
-            lambda: device_sync([t for v in dd.curr.values() for t in v]),
-            args.iters)
+        tm = exchange_trimean(dd)
         per_ex = dd.exchange_bytes_total()
-        tm = stats.trimean()
         print(csv_line("bench_exchange", dd.methods, ndev,
                        args.x, args.y, args.z, args.fr, args.er, args.cr,
                        args.fields, _depth_label(s), per_ex,
@@ -205,6 +222,41 @@ def main(argv=None) -> None:
               f"rounds/step={xs['rounds_per_iteration']:.3f} "
               f"amortized={amortized:.0f}B/step (model)", file=sys.stderr)
 
+    layout_cmp = None
+    if len(layouts) > 1:
+        # each further layout re-runs the smallest swept depth's two
+        # measurements, as ratios against the sweep's first row; the
+        # bytes ratio comes from the byte model, so it is exact
+        base = results[0]
+        s0 = depths[0]
+        layout_cmp = {"baseline_layout": primary_layout,
+                      "exchange_every": s0, "races": {}}
+        for layout in layouts[1:]:
+            dd = make_domain(s0, layout)
+            tm = exchange_trimean(dd)
+            per_ex = dd.exchange_bytes_total()
+            del dd
+            n, dt, _ = jacobi_steps_per_s(s0, layout)
+            sps = n / dt
+            bytes_ratio = per_ex / (base["bytes_per_exchange_model"] or 1)
+            sps_ratio = sps / base["steps_per_s"]
+            layout_cmp["races"][layout] = {
+                "bytes_per_exchange_model": per_ex,
+                "bytes_ratio": bytes_ratio,
+                "trimean_exchange_s": tm,
+                "exchange_s_ratio": tm / base["trimean_exchange_s"],
+                "steps_per_s": sps,
+                "steps_per_s_ratio": sps_ratio,
+            }
+            print(csv_line("bench_exchange_layout", layout, primary_layout,
+                           _depth_label(s0), per_ex, f"{tm:.6e}",
+                           f"{bytes_ratio:.4f}", f"{sps_ratio:.3f}"),
+                  flush=True)
+            print(f"bench_exchange layout: {layout} {per_ex}B/exchange "
+                  f"({bytes_ratio:.3f}x {primary_layout} bytes) "
+                  f"{sps:.3f} steps/s (x{sps_ratio:.2f} blocked loop)",
+                  file=sys.stderr)
+
     if args.json_out:
         base = results[0]
         results_by_s = {str(r["exchange_every"]): r for r in results}
@@ -226,8 +278,10 @@ def main(argv=None) -> None:
             "steps_per_s_ratio": {
                 k: r["steps_per_s"] / base["steps_per_s"]
                 for k, r in results_by_s.items()},
-            "wire_layout": "slab",
+            "wire_layout": primary_layout,
         }
+        if layout_cmp is not None:
+            payload["wire_layout_race"] = layout_cmp
         with open(args.json_out, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)

@@ -2,10 +2,11 @@
 
 PyTorch-port counterpart of ``apps/bench_methods.py`` (reference:
 bin/bench_alltoallv.cu, bin/bench_mpi_pack.cu): every exchange
-``Method`` on one configuration — ``PpermuteSlab``, ``PpermutePacked``
-and ``AllGather`` (all the slab copy in the port, ROADMAP A7) and
-``PallasDMA`` (the remote-write kernel B4) — with trimean seconds and
-B/s, one line per method:
+``Method`` on one configuration — ``PpermuteSlab`` (the slab copy),
+``PpermutePacked`` (one buffer a direction for every quantity),
+``AllGather`` (each mesh line's boundary slabs gathered onto every
+device) and ``PallasDMA`` (the remote-write kernel B4) — with trimean
+seconds and B/s, one line per method:
 
     bench_methods,method,devices,x,y,z,radius,fields,bytes,trimean (s),B/s
 

@@ -3,8 +3,8 @@
 that two checkouts can be compared in turns in one call.
 
     python3 stencil_tpu_torch/apps/kernel_times.py
-        [--model jacobi|mhd|pair|laplace6] [--root DIR] [--label NAME]
-        [--paths] [--baseline] [--plans]
+        [--model jacobi|mhd|pair|laplace6|exchange] [--root DIR]
+        [--label NAME] [--paths] [--baseline] [--plans]
 
 ``--root DIR`` imports ``stencil_tpu_torch`` from DIR (default: this
 checkout), say a parent commit unpacked with ``git archive`` into a
@@ -71,6 +71,18 @@ an SM (``laplace6_plan``, ``laplace6_occupancy``). ``--plans`` (a tree
 with ``laplace6_plan``) adds, at both shapes by device time in turns,
 B8 launched with other z runs than its plan's and with its 4-byte
 copies (the field one float past 8 bytes).
+
+``--model exchange``: the halo exchange engine, no kernel: the
+milliseconds of one ``DistributedDomain.exchange()`` of the
+``bench_exchange`` configuration (four 256^3 float32 shards of (2,2,1)
+on the card, face, edge and corner radius 2) at exchange depths 1, 2
+and 4, and, where the tree has wire layouts, of the irredundant layout
+at depth 1 (``chip_smoke.event_ms`` of 30 exchanges after 3 warm-ups,
+host work included). ``--paths`` adds the Jacobi ``xla`` and ``pallas``
+rates on four 512 x 256 x 256 shards of (1,2,2) on the card
+(``chip_smoke.timed_runs`` of three ``run(20)`` / ``run(40)``), and,
+where the tree has wire formats, the same behind f32 irredundant and
+bf16 irredundant wires.
 
 Writes one JSON object to
 ``chiprun_out/kernel_times_<model>_<label>.json`` and prints it as the
@@ -685,7 +697,73 @@ def laplace6_plans(m: Measuring, cs, shape) -> dict:
     return res
 
 
-MODELS = {"jacobi": jacobi, "mhd": mhd, "pair": pair, "laplace6": laplace6}
+def exchange(args, m: Measuring, log: io.StringIO) -> dict:
+    import inspect
+
+    import torch
+
+    from stencil_tpu_torch.distributed import DistributedDomain
+    from stencil_tpu_torch.geometry import Radius
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    smoke, n, card = m.smoke, 256, "cuda:0"
+    layouts = hasattr(DistributedDomain, "set_wire_layout")
+
+    def domain(s, layout=None):
+        dd = DistributedDomain(2 * n, 2 * n, n, devices=[card] * 4)
+        dd.set_mesh_shape((2, 2, 1))
+        dd.set_radius(Radius.face_edge_corner(2, 2, 2))
+        if layout is not None:
+            dd.set_wire_layout(layout)
+        if s > 1:
+            dd.set_exchange_every(s)
+        dd.add_data("q0", torch.float32)
+        dd.realize()
+        return (dd.exchange, dd)
+
+    cases = {f"slab s={s}": domain(s) for s in (1, 2, 4)}
+    if layouts:
+        cases["irredundant s=1"] = domain(1, "irredundant")
+    turns = time_in_turns(cases, {"ms": lambda fn: smoke.event_ms(
+        torch, fn, 30, warmup=3)})
+    res = {"exchange_ms": {}}
+    for name, (_, dd) in cases.items():
+        ms = sum(turns[name]["ms"]) / 2
+        res["exchange_ms"][name] = {"ms": ms, "turns_ms": turns[name]["ms"],
+                                    "bytes": dd.exchange_bytes_total()}
+        print(f"{args.label}: exchange {name}: {ms!r} ms "
+              f"({turns[name]['ms']}), {dd.exchange_bytes_total()} B",
+              flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    if args.paths:
+        wires = "wire_format" in inspect.signature(Jacobi3D).parameters
+        res["paths"] = {}
+        for kernel, k in (("xla", 20), ("pallas", 40)):
+            for label, kw in (("f32 slab", {}),
+                              ("f32 irredundant",
+                               {"wire_layout": "irredundant"}),
+                              ("bf16 irredundant",
+                               {"wire_format": "bf16",
+                                "wire_layout": "irredundant"})):
+                if kw and not wires:
+                    continue
+                j = smoke.jacobi_mesh(kernel, (1, 2, 2),
+                                      (2 * n, 2 * n, 2 * n), **kw)
+                j.run(2)
+                j.block()
+                rate, runs = smoke.timed_runs(j, k)
+                res["paths"][f"{kernel} {label}"] = [rate, runs]
+                print(f"{args.label}: path {kernel} {label} (1,2,2): "
+                      f"{rate!r} steps/s ({runs})", flush=True)
+                del j
+                torch.cuda.empty_cache()
+    res["ptxas"] = {}
+    return res
+
+
+MODELS = {"jacobi": jacobi, "mhd": mhd, "pair": pair, "laplace6": laplace6,
+          "exchange": exchange}
 
 
 def main(argv=None) -> int:

@@ -21,9 +21,14 @@ Temporal blocking (``set_exchange_every``): allocations pad to the
 deepened radius and ``exchange()`` ships the deep halo once per ``s``
 steps (``parallel/temporal.py``).
 
-Not in this slice: the DCN tier, the exchange autotuner, narrowing wire
-formats and the irredundant wire layout (ROADMAP A7), and QAP placement
-(``set_placement("qap")`` raises at realize(): A5).
+Halo wire formats and layouts (``set_wire_format``, ``set_wire_layout``):
+``realize()`` builds the exchange through ``parallel/exchange.
+make_exchange``, which gates a narrowing format behind a precision
+certificate (``precision_certificate``), and prices the bytes at the
+wire's width and layout.
+
+Not ported: the DCN tier, the exchange autotuner (ROADMAP A12), and QAP
+placement (``set_placement("qap")`` raises at realize(): A5).
 """
 
 from __future__ import annotations
@@ -36,9 +41,12 @@ import torch
 from .geometry import DepthsLike, Dim3, Dim3Like, Radius, normalize_depths
 from .local_domain import interior_slices, raw_size, zyx_shape
 from .numerics import div_ceil
-from .parallel.exchange import dispatch_exchange, exchanged_bytes_per_sweep
+from .parallel.exchange import (exchanged_bytes_per_sweep, make_exchange,
+                                normalize_wire_format)
 from .parallel.mesh import Mesh, mesh_index, resolve_devices
-from .parallel.methods import Method, pick_method
+from .parallel.methods import WIRE_CAPABLE, Method, pick_method
+from .parallel.packing import (irredundant_bytes_per_sweep,
+                               normalize_wire_layout)
 from .partition import RankPartition, partition_dims_even
 from .placement import Placement, make_placement, normalize_placement_mode
 from .topology import Boundary, Topology
@@ -80,6 +88,9 @@ class DistributedDomain:
         self._dtypes: Dict[str, torch.dtype] = {}
         self.methods = Method.Default
         self.boundary = Boundary.PERIODIC
+        self.wire_format = "f32"
+        self.wire_layout = "slab"
+        self._exchange_fn = None
         self.placement_mode = "auto"
         self._mesh_shape: Optional[Dim3] = None
         self.mesh: Optional[Mesh] = None
@@ -142,6 +153,34 @@ class DistributedDomain:
         self.exchange_depths = depths
         self.exchange_every = max(depths)
 
+    def set_wire_format(self, fmt) -> None:
+        """Per-axis halo wire format: ``"f32"`` (identity, the default),
+        ``"bf16"``, ``"e4m3"`` or ``"e5m2"`` (float32 halos narrow at the
+        send boundary and widen back on arrival; halo math is unchanged,
+        every field keeps its storage dtype), or a per-axis dict like
+        ``{"y": "bf16"}``. A narrowing format realizes only behind a
+        ``safe`` ``PrecisionCertificate`` (``realize()`` raises
+        ``PrecisionGateError`` otherwise) and only with the PpermuteSlab
+        and PpermutePacked methods. Validated here; after ``realize()``
+        it raises ``AssertionError``, as JAX's does."""
+        if self.mesh is not None:
+            raise AssertionError("set_wire_format before realize()")
+        normalize_wire_format(fmt)
+        self.wire_format = fmt
+
+    def set_wire_layout(self, layout: str) -> None:
+        """Halo message layout: ``"slab"`` (the default — each sweep
+        ships the full cross-section of the allocation) or
+        ``"irredundant"`` (one box a direction that carries each halo
+        cell once, ``parallel/packing.py``). Supported by the
+        PpermuteSlab and PpermutePacked methods only. Validated here;
+        after ``realize()`` it raises ``AssertionError``, as JAX's
+        does."""
+        if self.mesh is not None:
+            raise AssertionError("set_wire_layout before realize()")
+        normalize_wire_layout(layout)
+        self.wire_layout = layout
+
     def set_mesh_shape(self, shape: Dim3Like) -> None:
         """Explicit subdomain-grid shape (the reference's set_gpus
         analog; a repeated device list plays its set_gpus({0,0}))."""
@@ -178,11 +217,23 @@ class DistributedDomain:
         if self.boundary not in (Boundary.PERIODIC, Boundary.NONE):
             raise NotImplementedError(f"unsupported boundary {self.boundary}")
         method = pick_method(self.methods)
-        slab = method in (Method.PpermuteSlab, Method.PpermutePacked)
+        slab = method in WIRE_CAPABLE
         if self.boundary == Boundary.NONE and not slab:
             raise NotImplementedError(
                 "Boundary.NONE (zero-Dirichlet exterior) is supported by "
                 "the PpermuteSlab and PpermutePacked methods only")
+        wire_narrows = any(v != "f32" for v in
+                           normalize_wire_format(self.wire_format).values())
+        if wire_narrows and not slab:
+            raise NotImplementedError(
+                f"wire_format {self.wire_format!r} narrows the halo "
+                f"wire, supported only by the PpermuteSlab and "
+                f"PpermutePacked methods")
+        wire_layout = normalize_wire_layout(self.wire_layout)
+        if wire_layout != "slab" and not slab:
+            raise NotImplementedError(
+                f"wire_layout {self.wire_layout!r} is supported only "
+                f"by the PpermuteSlab and PpermutePacked methods")
         dim = self._choose_partition_dim()
         # per-shard capacity = ceil sizes; uneven shards are one short
         # (reference: partition.hpp:55-69)
@@ -202,6 +253,13 @@ class DistributedDomain:
             raise NotImplementedError(
                 f"exchange_every > 1 is supported by the PpermuteSlab "
                 f"and PpermutePacked methods, not {method}")
+        d = self.exchange_depths
+        if not d.x == d.y == d.z and wire_layout != "slab":
+            raise NotImplementedError(
+                f"asymmetric temporal depths {tuple(d)} decline "
+                f"wire_layout {self.wire_layout!r}: the irredundant "
+                f"dedup plan assumes one group-wide exchange (see "
+                f"parallel/temporal.py)")
         min_local = [self.local_size[a] - (1 if self.rem[a] else 0)
                      for a in range(3)]
         if any(m < 1 for m in min_local):
@@ -224,11 +282,25 @@ class DistributedDomain:
                                         device=d)
                             for d in self.mesh.devices]
         self.next_ = {}
+        # the DEEP exchange (wire depth s*r) when exchange_every > 1; a
+        # narrowing wire format runs make_exchange's precision gate, a
+        # probe exchange on "meta" shards of these specs
+        self._exchange_fn = make_exchange(
+            self.mesh, self.alloc_radius, self.methods, rem=self.rem,
+            nonperiodic=self.boundary == Boundary.NONE,
+            wire_format=self.wire_format, wire_layout=wire_layout,
+            fields_spec={q: (shape, self._dtypes[q]) for q in self._names})
         self._bytes_per_axis = {"x": 0, "y": 0, "z": 0}
         for q in self._names:
-            b = exchanged_bytes_per_sweep(
-                shape, self.alloc_radius, dim,
-                self.curr[q][0].element_size())
+            es = self.curr[q][0].element_size()
+            if wire_layout == "irredundant":
+                b = irredundant_bytes_per_sweep(
+                    shape, self.alloc_radius, dim, es,
+                    wire_format=self.wire_format)
+            else:
+                b = exchanged_bytes_per_sweep(
+                    shape, self.alloc_radius, dim, es,
+                    wire_format=self.wire_format)
             for k in b:
                 self._bytes_per_axis[k] += b[k]
         LOG_INFO(f"realized {self.size} over mesh {dim} (local "
@@ -240,14 +312,12 @@ class DistributedDomain:
     # -- iteration ------------------------------------------------------
     def exchange(self) -> None:
         """Fill all halos of every quantity's ``curr`` shards, in place,
-        by the method ``pick_method(self.methods)`` chooses (reference:
-        src/stencil.cu:1002-1186): the deep halo of the allocation when
-        ``exchange_every > 1``."""
+        by the method ``pick_method(self.methods)`` chooses, at the wire
+        format and layout set (reference: src/stencil.cu:1002-1186): the
+        deep halo of the allocation when ``exchange_every > 1``."""
         if self.local_size is None:
             raise RuntimeError("realize() first")
-        dispatch_exchange(self.curr, self.alloc_radius, self.mesh_counts,
-                          pick_method(self.methods), rem=self.rem,
-                          nonperiodic=self.boundary == Boundary.NONE)
+        self._exchange_fn(self.curr)
 
     def swap(self) -> None:
         """Swap curr/next bindings (reference: src/local_domain.cu:67-84);
@@ -280,6 +350,13 @@ class DistributedDomain:
         shard."""
         return self.curr[name][i][interior_slices(self.shard_size(i),
                                                   self.alloc_radius)]
+
+    @property
+    def precision_certificate(self):
+        """The realized exchange's ``PrecisionCertificate``
+        (``analysis/precision.py``), or None for an all-f32 wire, which
+        runs no gate."""
+        return getattr(self._exchange_fn, "precision_certificate", None)
 
     # -- observability (reference: stencil.hpp:86-93) -------------------
     def exchange_bytes_per_axis(self) -> Dict[str, int]:

@@ -62,7 +62,7 @@ model:
 
 On the CPU the kernel wrappers run their plain twins. Not ported (each
 raises ``NotImplementedError`` naming its ROADMAP item): ``exchange_every
-> 2`` and ``exchange_every=2`` off the halo paths (A7), ``Boundary.NONE``
+> 2`` and ``exchange_every=2`` off the halo paths (A7b), ``Boundary.NONE``
 (A8d) and bfloat16 (A8b).
 """
 
@@ -310,7 +310,7 @@ class Astaroth:
         if self._exchange_every > 2:
             raise NotImplementedError(
                 "exchange_every > 2 (temporal blocking on the xla path) is "
-                "ROADMAP A7")
+                "ROADMAP A7b")
         if boundary is not None and boundary != Boundary.PERIODIC:
             raise NotImplementedError(
                 f"boundary {boundary}: only periodic boundaries are ported "
@@ -420,7 +420,7 @@ class Astaroth:
                                                          "halo-overlap"):
             raise NotImplementedError(
                 f"exchange_every=2 maps onto the halo paths' substep pair; "
-                f"on the {kernel} path temporal blocking is ROADMAP A7")
+                f"on the {kernel} path temporal blocking is ROADMAP A7b")
         # the substep pair (B10 / B12, B13/B14 with pair=True):
         # STENCIL_MHD_PAIR=1, or on the halo paths exchange_every=2 (one
         # radius-2R slab round for two substeps)

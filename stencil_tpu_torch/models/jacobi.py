@@ -51,7 +51,17 @@ model:
 
 The padded paths exchange by ``methods`` (``Method`` flags, JAX's
 ``DistributedDomain.set_methods``): ``Method.PallasDMA`` is B4's
-remote-write sweep, the others the slab copy.
+remote-write sweep, ``PpermutePacked`` the packed engine, ``AllGather``
+the all-gather engine and ``PpermuteSlab`` the slab copy.
+
+Halo wire formats and layouts (``wire_format``, ``wire_layout``; JAX
+``models/jacobi.py:278-308``): the ``xla`` and ``pallas`` paths (and
+``xla-temporal``, the layout only) exchange at the narrowed width or in
+the irredundant layout (``parallel/exchange.py``, ``parallel/
+packing.py``); the halo and overlap paths, which move their own slabs,
+refuse both, and ``xla-overlap`` ships the slab layout at the storage
+dtype. ``wrap`` on (1,1,1) has no exchange, so neither setting affects
+it.
 
 ``exchange_every`` (JAX ``models/jacobi.py:277-299``): None leaves the
 ``wrap`` and ``halo`` paths at their ``STENCIL_WRAP_STEPS`` depth
@@ -79,11 +89,12 @@ from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, impose_spheres,
 from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import global_coords, jacobi7, write_interior
 from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
-                                 interior_slab_bytes, shard_interior_len,
-                                 shard_origin)
+                                 interior_slab_bytes, normalize_wire_format,
+                                 shard_interior_len, shard_origin)
 from ..parallel.mesh import mesh_index
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
+from ..parallel.packing import normalize_wire_layout
 from ..parallel.temporal import temporal_shard_steps, validate_temporal
 from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
@@ -147,16 +158,21 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
                       counts: Dim3, local: Dim3, gsize: Dim3,
                       kernel: str = "xla", rem: Dim3 = Dim3(0, 0, 0),
                       nonperiodic: bool = False,
-                      method: Method = Method.Default) -> None:
+                      method: Method = Method.Default,
+                      wire_format=None, wire_layout=None) -> None:
     """One Jacobi step on the padded shards of a mesh (x fastest):
     exchange by ``method``, then per shard the 7-point update of its
     capacity interior plus the Dirichlet sphere sources at its own
     origin, written back in place (the JAX version runs one shard under
     ``shard_map`` and returns a new array). ``kernel``: "xla" (plain
-    PyTorch) or "pallas" (K3, ``jacobi7_padded_cuda``)."""
+    PyTorch) or "pallas" (K3, ``jacobi7_padded_cuda``).
+    ``wire_format`` narrows the halo wire only, ``wire_layout`` picks
+    the message geometry (``parallel/exchange.py``); the update runs at
+    the storage dtype."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
     dispatch_exchange({"temp": shards}, radius, counts, method, rem=rem,
-                      nonperiodic=nonperiodic)
+                      nonperiodic=nonperiodic, wire_format=wire_format,
+                      wire_layout=wire_layout)
     for i, p in enumerate(shards):
         new = _update(p, radius, local, kernel)
         origin = shard_origin(local, rem, mesh_index(i, counts))
@@ -190,14 +206,19 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
 def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
                        local: Dim3, radius_ok: bool, nonperiodic: bool,
                        on_gpu: bool, f32: bool,
-                       depths: Dim3 = Dim3(1, 1, 1)) -> str:
+                       depths: Dim3 = Dim3(1, 1, 1),
+                       wire_narrows: bool = False,
+                       irredundant: bool = False) -> str:
     """The compute path ``Jacobi3D`` builds: JAX's selection rules
-    (models/jacobi.py:439-504, :540-557) with its on-TPU choice taken on
-    CUDA devices, where the port's kernels run (and, as they take
-    float32 only, for a float32 domain). ``depths``: the domain's
-    temporal depths (``exchange_depths``); above 1 the padded paths
-    become ``xla-temporal[s=…]`` (``-overlap``). Raises as JAX does for
-    an explicit kernel its conditions exclude."""
+    (models/jacobi.py:460-575) with its on-TPU choice taken on CUDA
+    devices, where the port's kernels run (and, as they take float32
+    only, for a float32 domain). ``depths``: the domain's temporal
+    depths (``exchange_depths``); above 1 the padded paths become
+    ``xla-temporal[s=…]`` (``-overlap``). ``wire_narrows`` (a narrowing
+    wire format) and ``irredundant`` (the irredundant wire layout) rule
+    out the halo and overlap paths, which move their own slabs; a
+    narrowing format also refuses ``exchange_every > 1`` and overlap.
+    Raises as JAX does for an explicit kernel its conditions exclude."""
     if overlap and rem != Dim3(0, 0, 0):
         raise NotImplementedError("overlap mode requires an evenly "
                                   "divisible grid")
@@ -220,10 +241,11 @@ def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
                and not overlap and radius_ok and not nonperiodic
                and not asym)
     halo_ok = (counts.x == 1 and not overlap and radius_ok
-               and not nonperiodic and not asym)
+               and not nonperiodic and not wire_narrows and not irredundant
+               and not asym)
     overlap_ok = (overlap and counts.x == 1 and radius_ok
                   and local.z >= 4 and local.y >= 2 and not nonperiodic
-                  and s_every == 1)
+                  and s_every == 1 and not wire_narrows and not irredundant)
     if overlap_ok and (kernel == "halo" or (kernel == "auto" and accel)):
         return "overlap"
     if kernel == "auto":
@@ -242,9 +264,18 @@ def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
         if kernel == "pallas":
             raise ValueError("exchange_every > 1 is not supported with "
                              "kernel='pallas' (use xla, wrap or halo)")
+        if wire_narrows:
+            raise NotImplementedError(
+                "a narrowing wire_format is not supported with "
+                "exchange_every > 1 (the temporal deep exchange has no "
+                "wire-narrowing variant yet)")
         tag = (f"s={depths.x}.{depths.y}.{depths.z}" if asym
                else f"s={s_every}")
         return f"xla-temporal[{tag}]" + ("-overlap" if overlap else "")
+    if wire_narrows and overlap:
+        raise NotImplementedError(
+            "a narrowing wire_format is not supported with overlap=True "
+            "(overlapped_update has no wire-narrowing variant yet)")
     return f"{kernel}-overlap" if overlap else kernel
 
 
@@ -275,7 +306,8 @@ class Jacobi3D:
                  devices: Optional[Sequence] = None,
                  methods: Method = Method.Default,
                  overlap: bool = False,
-                 exchange_every: Optional[DepthsLike] = None) -> None:
+                 exchange_every: Optional[DepthsLike] = None,
+                 wire_format=None, wire_layout=None) -> None:
         if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
@@ -299,6 +331,11 @@ class Jacobi3D:
             self.dd.set_exchange_every(exchange_every)
         if boundary is not None:
             self.dd.set_boundary(boundary)
+        if wire_format is not None:
+            # halo wire narrowing; realize() below runs the precision gate
+            self.dd.set_wire_format(wire_format)
+        if wire_layout is not None:
+            self.dd.set_wire_layout(wire_layout)
         devs = self.dd._devices
         on_gpu = all(d.type == "cuda" for d in devs)
         if mesh_shape is not None:
@@ -345,7 +382,11 @@ class Jacobi3D:
             self._kernel, self._overlap, dd.mesh_counts, dd.rem,
             dd.local_size, radius_ok, dd.boundary == Boundary.NONE,
             all(d.type == "cuda" for d in dd.mesh.devices), f32,
-            dd.exchange_depths)
+            dd.exchange_depths,
+            wire_narrows=any(v != "f32" for v in
+                             normalize_wire_format(dd.wire_format).values()),
+            irredundant=normalize_wire_layout(dd.wire_layout)
+            == "irredundant")
         if (self._kernel == "auto" or path == "overlap"
                 or path.startswith("xla-temporal")):
             LOG_INFO(f"jacobi kernel path: {path}")
@@ -440,7 +481,9 @@ class Jacobi3D:
                 jacobi_shard_step(dd.curr["temp"], dd.radius,
                                   dd.mesh_counts, dd.local_size, dd.size,
                                   kernel=self._base_kernel, rem=dd.rem,
-                                  nonperiodic=nonper, method=self._method)
+                                  nonperiodic=nonper, method=self._method,
+                                  wire_format=dd.wire_format,
+                                  wire_layout=dd.wire_layout)
 
     def _run_temporal(self, n: int) -> None:
         """JAX's ``_build_temporal_step`` (models/jacobi.py:590-662):
@@ -472,7 +515,8 @@ class Jacobi3D:
             temporal_shard_steps({"temp": dd.curr["temp"]}, radius, counts,
                                  self._method, update_fn, depth,
                                  alloc_steps=depths, rem=rem, overlap=ovl,
-                                 nonperiodic=nonper)
+                                 nonperiodic=nonper,
+                                 wire_layout=dd.wire_layout)
 
         s = dd.exchange_every
         for _ in range(n // s):

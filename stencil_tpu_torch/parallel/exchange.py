@@ -7,28 +7,44 @@ neighbour along one mesh axis. The port holds all shards in one process
 (``parallel/mesh.py``), so a shift is a loop over the mesh positions
 that copies each neighbour's slab into this shard (a device-to-device
 ``copy_`` when the two lie on different devices, a local copy when they
-share one; on a one-device axis the neighbour is the shard itself).
+share one; on a one-shard axis the neighbour is the shard itself).
 
 * ``exchange_shard`` fills the halos of the padded shards in place, by
   three sequential axis sweeps, x, then y, then z; each slab spans the
   full allocation of the other two axes, so edge and corner data ride
-  along (reference src/stencil.cu:1002-1186 collapsed as in SURVEY §7).
+  along (reference src/stencil.cu:1002-1186 collapsed as in SURVEY §7)
+  — or, with ``wire_layout="irredundant"``, the box of
+  ``packing.plan_direction`` that carries each halo cell once.
+* ``exchange_shard_packed`` moves, per direction, ONE buffer holding
+  every quantity's slab (or box) of a shard, per storage dtype
+  (reference src/packer.cu); ``exchange_shard_allgather`` gathers every
+  shard's boundary slab of a mesh line onto each device and takes the
+  two neighbours' (the reference's bin/bench_alltoallv.cu control).
+* Halo wire formats (``wire_format``): a float32 message narrows to
+  bfloat16 or one of the float8 types on the sender's device, crosses to
+  the receiver's device at that width, and widens back to float32
+  before it is written; only mesh axes of more than one shard narrow.
 * ``exchange_interior_slabs`` returns, per shard, the four slab tensors
   the halo kernels read (``ops/cuda_halo.py``), leaving the shards as
   they are.
 * ``dispatch_exchange`` routes a multi-quantity exchange by
   ``Method``: ``PallasDMA`` to the remote-write kernel
-  (``parallel/cuda_exchange.py``, B4), every other transport to
-  ``exchange_shard``'s slab copy.
+  (``parallel/cuda_exchange.py``, B4), ``PpermutePacked`` to
+  ``exchange_shard_packed``, ``AllGather`` to
+  ``exchange_shard_allgather`` and ``PpermuteSlab`` to
+  ``exchange_shard``; ``make_exchange`` closes over a mesh and its
+  settings, and gates a narrowing wire format behind a precision
+  certificate (``analysis/precision.py``).
 
-Both keep the JAX functions' arguments, with the list of shards (x
+They keep the JAX functions' arguments, with the list of shards (x
 fastest, the order of ``Mesh.devices``) in place of the one traced
 shard, so that tests feed both packages the same values. Unlike the JAX
-version, ``exchange_shard`` updates the shards IN PLACE.
+versions, the engines update the shards IN PLACE.
 
-Within one sweep every source is interior and every destination halo,
-so the copies of one direction may run in any order, on shards that
-share a device or not. On distinct CUDA devices a cross-device
+Within one direction every source is interior along the sweep axis and
+every destination halo, so the copies of one direction may run in any
+order, on shards that share a device or not, and give what JAX's
+simultaneous shifts give. On distinct CUDA devices a cross-device
 ``copy_`` is ordered after the work already queued on both devices'
 current streams, and every kernel launches on its own shard's device and
 current stream (``ops/_build.launch``), so a copy out of a shard waits
@@ -38,16 +54,180 @@ its slabs.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..geometry import Dim3, Radius
-from .mesh import mesh_index, mesh_neighbor
+from .mesh import mesh_index, mesh_linear, mesh_neighbor
+from .packing import (DirectionPlan, Span, normalize_wire_layout,
+                      plan_direction)
 
 # grid axis index -> tensor dimension of a (z,y,x)-ordered field
 AXIS_TO_DIM = {0: 2, 1: 1, 2: 0}
 AXIS_NAME = {0: "x", 1: "y", 2: "z"}
+
+#: halo WIRE formats: what a message is converted to at the send
+#: boundary (TEMPI's canonical-datatype pack layer, arXiv:2012.14363).
+#: "f32" is the identity — full storage precision on the wire; "bf16"
+#: narrows float32 messages to bfloat16 and widens them on arrival, so
+#: halo math runs unchanged at storage precision while wire bytes halve;
+#: "e4m3"/"e5m2" narrow to the float8 types (a quarter of the bytes,
+#: with the coarser error bound of their 3-/2-bit mantissas). Narrower
+#: storage dtypes are never re-narrowed.
+WIRE_FORMATS = ("f32", "bf16", "e4m3", "e5m2")
+
+#: wire format -> dtype NAME of the on-wire element type for a float32
+#: lane (numpy's and torch's names agree)
+WIRE_DTYPE_NAMES = {"f32": "float32", "bf16": "bfloat16",
+                    "e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2"}
+
+#: on-wire byte width of a 4-byte float32 element per wire format
+_WIRE_F32_BYTES = {"f32": 4, "bf16": 2, "e4m3": 1, "e5m2": 1}
+
+_WIRE_DTYPES = {"bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn,
+                "e5m2": torch.float8_e5m2}
+
+#: float8_e4m3fn has no infinity and 448 is its largest finite value;
+#: JAX (XLA, and ml_dtypes alike) rounds |x| <= 464 to +-448 and turns
+#: every larger magnitude, +-inf included, into NaN, where torch
+#: saturates to +-448 (tests/test_torch_wire.py
+#: test_wire_round_trip_equals_jax pins the rule)
+E4M3_NAN_ABOVE = 464.0
+
+#: the quiet NaN of each sign on the wire, as bits of the integer type of
+#: the dtype's width: JAX narrows a NaN to the quiet NaN of its sign,
+#: where torch's bfloat16 cast drops the sign and its float8 casts set
+#: every mantissa bit, so ``_to_wire`` writes these bits itself
+_NAN_BITS = {torch.bfloat16: (torch.int16, 0x7FC0, -0x40),
+             torch.float8_e4m3fn: (torch.int8, 0x7F, -0x01),
+             torch.float8_e5m2: (torch.int8, 0x7E, -0x02)}
+
+#: 0xFFC00000: the sign, exponent and quiet bits of a float32 NaN. JAX
+#: widens a NaN to the quiet NaN of its sign; torch keeps the mantissa
+#: bits of float8_e4m3fn's NaN, and on the card its float8_e5m2 widening
+#: sets them all, so ``_from_wire`` masks every widened float8 NaN down
+#: to these (a bfloat16 widening is an exact 16-bit shift, so the quiet
+#: NaNs ``_to_wire`` writes widen to JAX's as they are)
+_QUIET_NAN_MASK = -0x400000
+
+#: (device, wire dtype) -> the quiet NaNs of ``_NAN_BITS`` as 0-dim
+#: tensors of the wire's integer type on that device, made once
+_QUIET_NANS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def normalize_wire_format(wire_format) -> Dict[str, str]:
+    """Canonical per-axis wire-format map ``{"x"|"y"|"z": fmt}``.
+
+    Accepts ``None`` (full precision), a single format string applied
+    to every mesh axis, or a per-axis dict (missing axes default to
+    "f32")."""
+    if wire_format is None:
+        return {"x": "f32", "y": "f32", "z": "f32"}
+    if isinstance(wire_format, str):
+        if wire_format not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire format {wire_format!r}; "
+                             f"expected one of {WIRE_FORMATS}")
+        return {"x": wire_format, "y": wire_format, "z": wire_format}
+    out = {"x": "f32", "y": "f32", "z": "f32"}
+    for k, v in dict(wire_format).items():
+        if k not in out:
+            raise ValueError(f"unknown mesh axis {k!r} in wire_format")
+        if v not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire format {v!r} for axis "
+                             f"{k!r}; expected one of {WIRE_FORMATS}")
+        out[k] = v
+    return out
+
+
+def wire_dtype(dtype: torch.dtype, fmt: str) -> torch.dtype:
+    """The on-wire dtype of a message stored as ``dtype`` under wire
+    format ``fmt``: only float32 narrows (to ``torch.bfloat16``,
+    ``torch.float8_e4m3fn`` or ``torch.float8_e5m2``); everything else
+    ships at storage width."""
+    if fmt != "f32" and dtype == torch.float32:
+        return _WIRE_DTYPES[fmt]
+    return dtype
+
+
+def wire_elem_size(elem_size: int, fmt: str) -> int:
+    """Byte width of one element on the wire (the cost-model twin of
+    :func:`wire_dtype`): a 4-byte element ships as 2 under "bf16" and
+    as 1 under the float8 formats."""
+    if int(elem_size) == 4:
+        return _WIRE_F32_BYTES[fmt]
+    return int(elem_size)
+
+
+def _quiet_nans(device: torch.device, wd: torch.dtype):
+    """(positive, negative) quiet NaN of wire dtype ``wd`` as 0-dim
+    tensors of its integer type on ``device`` (``_NAN_BITS``)."""
+    got = _QUIET_NANS.get((device, wd))
+    if got is None:
+        ity, pos, neg = _NAN_BITS[wd]
+        got = _QUIET_NANS[(device, wd)] = tuple(
+            torch.full((), v, dtype=ity, device=device) for v in (pos, neg))
+    return got
+
+
+def _to_wire(t: torch.Tensor, fmt: str) -> torch.Tensor:
+    """``t`` narrowed to its wire dtype under ``fmt`` (``t`` itself when
+    nothing narrows), as JAX's ``astype`` narrows: round to nearest
+    even, NaN made the quiet NaN of its sign, and under "e4m3" NaN for
+    |x| > 464 and +-inf (``E4M3_NAN_ABOVE``; ``not |x| <= 464`` holds
+    for NaN too)."""
+    wd = wire_dtype(t.dtype, fmt)
+    if wd == t.dtype:
+        return t
+    if wd == torch.float8_e4m3fn:
+        nan = ~(t.abs() <= E4M3_NAN_ABOVE)
+    else:
+        nan = torch.isnan(t)
+    pos, neg = _quiet_nans(t.device, wd)
+    quiet = torch.where(torch.signbit(t), neg, pos)
+    return torch.where(nan, quiet, t.to(wd).view(pos.dtype)).view(wd)
+
+
+def _from_wire(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A wire message widened back to its storage ``dtype`` (``t``
+    itself when it arrived at that width); a NaN widens to the quiet NaN
+    of its sign, as in JAX (``_QUIET_NAN_MASK``: only float8 needs it)."""
+    if t.dtype == dtype:
+        return t
+    out = t.to(dtype)
+    if dtype != torch.float32 or t.dtype == torch.bfloat16:
+        return out
+    bits = out.view(torch.int32)
+    return torch.where(torch.isnan(out), bits & _QUIET_NAN_MASK,
+                       bits).view(dtype)
+
+
+class WireProbe:
+    """The record of a probe exchange (``make_exchange``'s precision
+    gate): per message that moves between two mesh positions, its axis,
+    the dtype it crossed at, the storage dtype it was meant for and the
+    dtype it was written as."""
+
+    def __init__(self) -> None:
+        self.records: List[Tuple[str, torch.dtype, torch.dtype,
+                                 torch.dtype]] = []
+
+    def moved(self, axis: str, wire: torch.dtype, storage: torch.dtype,
+              written: torch.dtype) -> None:
+        self.records.append((axis, wire, storage, written))
+
+
+def _ship(src: torch.Tensor, device: torch.device, fmt: str, axis: str,
+          probe: Optional[WireProbe] = None) -> torch.Tensor:
+    """One message between two mesh positions: ``src`` narrowed under
+    ``fmt`` on its own device, moved to ``device`` at wire width, and
+    widened back to its storage dtype there. A message that does not
+    narrow is returned as it is, for the caller's ``copy_`` to move."""
+    wire = _to_wire(src, fmt)
+    recv = src if wire is src else _from_wire(wire.to(device), src.dtype)
+    if probe is not None:
+        probe.moved(axis, wire.dtype, src.dtype, recv.dtype)
+    return recv
 
 
 def shard_interior_len(axis: int, capacity: int, rem: Dim3,
@@ -86,16 +266,143 @@ def _as_list(shards: Sequence[torch.Tensor],
     return out
 
 
+def _check_pads(a: int, radius: Radius, alloc_r: Radius) -> None:
+    if (alloc_r.face(a, -1) < radius.face(a, -1)
+            or alloc_r.face(a, 1) < radius.face(a, 1)):
+        raise ValueError(
+            f"axis {a}: wire depth ({radius.face(a, -1)},"
+            f"{radius.face(a, 1)}) exceeds allocation pads "
+            f"({alloc_r.face(a, -1)},{alloc_r.face(a, 1)})")
+
+
+def _shard_lens(shape_zyx: Sequence[int], alloc_r: Radius, counts: Dim3,
+                rem: Dim3) -> List[Tuple[int, int, int]]:
+    """Per shard (x fastest), its actual interior length along each grid
+    axis: the capacity of the padded ``shape_zyx``, one less along an
+    uneven axis past the remainder."""
+    caps = [shape_zyx[AXIS_TO_DIM[a]] - alloc_r.face(a, -1)
+            - alloc_r.face(a, 1) for a in range(3)]
+    return [tuple(shard_interior_len(a, caps[a], rem, idx[a])
+                  for a in range(3))
+            for idx in (mesh_index(i, counts)
+                        for i in range(counts.flatten()))]
+
+
+def _direction_plan(a: int, side: int, radius: Radius, alloc_r: Radius,
+                    axis_order: Tuple[int, ...], shape_zyx: Sequence[int],
+                    layout: str) -> DirectionPlan:
+    """Where the message of sweep ``a``, direction ``side``, leaves the
+    sender and lands in the receiver: the irredundant box of
+    ``packing.plan_direction``, or the slab — the same rows along ``a``,
+    over the full allocation of the other two axes."""
+    full = [int(shape_zyx[AXIS_TO_DIM[b]]) for b in range(3)]
+    interiors = [full[b] - alloc_r.face(b, -1) - alloc_r.face(b, 1)
+                 for b in range(3)]
+    plan = plan_direction(a, side, radius, alloc_r, tuple(axis_order),
+                          interiors)
+    if layout == "irredundant":
+        return plan
+    slab = [Span(0, False, full[b]) for b in range(3)]
+
+    def spans(along):
+        return tuple(along[b] if b == a else slab[b] for b in range(3))
+
+    return DirectionPlan(axis=a, side=side, src=spans(plan.src),
+                         dst=spans(plan.dst))
+
+
+def _narrows(spans: Tuple[Span, Span, Span], lens: Tuple[int, int, int],
+             shape_zyx: Sequence[int]) -> Tuple[Tuple[int, int, int], ...]:
+    """The ``narrow`` calls, ``(dim, start, size)``, that cut a
+    ``DirectionPlan`` box out of a padded (z,y,x) shard whose actual
+    interior lengths are ``lens`` (per grid axis): a ``plus_L`` span
+    starts ``lens[a]`` further on (JAX: ``_box_take`` / ``_box_put``).
+    A span over a whole dimension needs none, so a slab is one."""
+    out = []
+    for a in range(3):
+        s, dim = spans[a], AXIS_TO_DIM[a]
+        start = s.base + (lens[a] if s.plus_L else 0)
+        if start != 0 or s.size != shape_zyx[dim]:
+            out.append((dim, start, s.size))
+    return tuple(out)
+
+
+def _view(arr: torch.Tensor,
+          narrows: Tuple[Tuple[int, int, int], ...]) -> torch.Tensor:
+    for dim, start, size in narrows:
+        arr = arr.narrow(dim, start, size)
+    return arr
+
+
+def _exterior(i: int, counts: Dim3, a: int, side: int) -> bool:
+    """Is the ``side`` halo of shard ``i`` along ``a`` across the open
+    global boundary? On a one-shard axis every halo is (JAX:
+    ``_edge_masked``)."""
+    n = counts[a]
+    return n == 1 or mesh_index(i, counts)[a] == (n - 1 if side == 1 else 0)
+
+
+def _faces(r: Radius) -> Tuple[int, ...]:
+    return tuple(r.face(a, s) for a in range(3) for s in (-1, 1))
+
+
+#: an exchange configuration (``_moves``' arguments) -> its moves
+_MOVES: Dict[tuple, tuple] = {}
+
+
+def _moves(shape_zyx: Sequence[int], radius: Radius, alloc_r: Radius,
+           counts: Dim3, rem: Dim3, axis_order: Tuple[int, ...],
+           layout: str, nonperiodic: bool) -> tuple:
+    """The moves of one exchange of padded (z,y,x) shards of
+    ``shape_zyx``, planned once per configuration and then reused: per
+    direction in sweep order, ``(axis, side, per_shard)``, where
+    ``per_shard[i]`` is ``(dst, j, src)``: the ``narrow`` calls
+    (``_narrows``) of shard i's halo box, and those of the box of shard
+    j it is filled from — ``j`` None where the halo is zero-filled."""
+    key = (tuple(shape_zyx), _faces(radius), _faces(alloc_r),
+           tuple(counts), tuple(rem), tuple(axis_order), layout,
+           nonperiodic)
+    got = _MOVES.get(key)
+    if got is not None:
+        return got
+    shape = tuple(int(v) for v in shape_zyx)
+    lens = _shard_lens(shape, alloc_r, counts, rem)
+    out = []
+    for a in axis_order:
+        if radius.wire_rows(a) == 0:
+            continue
+        _check_pads(a, radius, alloc_r)
+        for side in (1, -1):
+            if radius.face(a, side) == 0:
+                continue
+            plan = _direction_plan(a, side, radius, alloc_r, axis_order,
+                                   shape, layout)
+            per = []
+            for i in range(counts.flatten()):
+                dst = _narrows(plan.dst, lens[i], shape)
+                if nonperiodic and _exterior(i, counts, a, side):
+                    per.append((dst, None, None))
+                    continue
+                j = mesh_neighbor(i, counts, a, side)
+                per.append((dst, j, _narrows(plan.src, lens[j], shape)))
+            out.append((a, side, tuple(per)))
+    got = _MOVES[key] = tuple(out)
+    return got
+
+
 def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
                    mesh_counts: Dim3 = Dim3(1, 1, 1),
                    axis_order: Tuple[int, ...] = (0, 1, 2),
                    rem: Dim3 = Dim3(0, 0, 0),
                    alloc_radius: "Radius | None" = None,
-                   nonperiodic: bool = False) -> Sequence[torch.Tensor]:
+                   nonperiodic: bool = False,
+                   wire_format=None, wire_layout=None,
+                   probe: Optional[WireProbe] = None
+                   ) -> Sequence[torch.Tensor]:
     """Fill all halo regions of the padded (z,y,x) shards of a mesh (x
     fastest) via sequential axis sweeps, in place; returns ``shards``.
     Per axis the hi-side halo is filled first, then the lo side, as in
-    the JAX engine (``stencil_tpu/parallel/exchange.py:288-332``):
+    the JAX engine (``stencil_tpu/parallel/exchange.py:218-332``):
 
     * hi halo ``[p_lo + L, p_lo + L + r_hi)`` <- the +neighbour's
       interior lo edge ``[p_lo, p_lo + r_hi)``;
@@ -108,40 +415,39 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
     interior). ``alloc_radius``: the allocation's Radius when it pads
     deeper than this exchange's wire depth (default: ``radius``).
     ``nonperiodic``: zero-fill the halos across the open global boundary
-    (``Boundary.NONE``); on a one-device axis every halo is exterior."""
+    (``Boundary.NONE``); on a one-shard axis every halo is exterior.
+    ``wire_format``: per-axis halo wire format
+    (``normalize_wire_format``); a narrowing axis of more than one shard
+    ships each message at the narrow width (``_ship``); one-shard axes
+    are local copies at full precision.
+    ``wire_layout``: "slab" (default — full-allocation cross-sections)
+    or "irredundant" (each wire-halo cell ships exactly once, boxes of
+    ``packing.plan_direction`` placed by each shard's own interior
+    lengths). The live window (interior plus wire-radius shell) is
+    bitwise the slab layout's; a short shard's dead slack row may
+    differ. ``probe``: records every message (``make_exchange``)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
     alloc_r = alloc_radius if alloc_radius is not None else radius
-    for a in axis_order:
-        r_lo = radius.face(a, -1)
-        r_hi = radius.face(a, 1)
-        if r_lo == 0 and r_hi == 0:
-            continue
-        p_lo = alloc_r.face(a, -1)
-        p_hi = alloc_r.face(a, 1)
-        if p_lo < r_lo or p_hi < r_hi:
-            raise ValueError(f"axis {a}: wire depth ({r_lo},{r_hi}) "
-                             f"exceeds allocation pads ({p_lo},{p_hi})")
-        dim = AXIS_TO_DIM[a]
-        n_dev = counts[a]
-        cap = arrs[0].shape[dim] - p_lo - p_hi
-        lens = [shard_interior_len(a, cap, rem, mesh_index(i, counts)[a])
-                for i in range(len(arrs))]
-        for side, r in ((1, r_hi), (-1, r_lo)):
-            if r == 0:
+    wf = normalize_wire_format(wire_format)
+    layout = normalize_wire_layout(wire_layout)
+    for a, _, per in _moves(arrs[0].shape, radius, alloc_r, counts, rem,
+                            axis_order, layout, nonperiodic):
+        name = AXIS_NAME[a]
+        fmt = wf[name] if counts[a] > 1 else "f32"
+        plain = fmt == "f32" and probe is None
+        for i, (dst_at, j, src_at) in enumerate(per):
+            dst = _view(arrs[i], dst_at)
+            if j is None:
+                dst.zero_()
                 continue
-            for i, arr in enumerate(arrs):
-                start = p_lo + lens[i] if side == 1 else p_lo - r
-                dst = arr.narrow(dim, start, r)
-                pos = mesh_index(i, counts)[a]
-                edge = pos == (n_dev - 1 if side == 1 else 0)
-                if nonperiodic and (n_dev == 1 or edge):
-                    dst.zero_()
-                    continue
-                j = mesh_neighbor(i, counts, a, side)
-                src_start = p_lo if side == 1 else p_lo + lens[j] - r
-                src = arrs[j].narrow(dim, src_start, r)
-                dst.copy_(src.clone() if j == i else src)
+            src = _view(arrs[j], src_at)
+            if j == i:
+                dst.copy_(src.clone())
+            elif plain:
+                dst.copy_(src)
+            else:
+                dst.copy_(_ship(src, arrs[i].device, fmt, name, probe))
     return shards
 
 
@@ -294,14 +600,17 @@ def measure_slab_exchange_seconds(mesh, local: Dim3, dtype, rz: int, ry: int,
 
 def exchanged_bytes_per_sweep(shard_padded_shape_zyx, radius: Radius,
                               mesh_counts: Dim3, elem_size: int,
-                              axis_order: Tuple[int, ...] = (0, 1, 2)
-                              ) -> Dict[str, int]:
+                              axis_order: Tuple[int, ...] = (0, 1, 2),
+                              wire_format=None) -> Dict[str, int]:
     """Per-axis bytes one shard puts on the wire per exchange (reference:
     stencil.hpp:86-93, src/stencil.cu:516-637). Counts only shifts that
-    cross shards; one-device axes are wraps of the shard into itself and
-    cost 0."""
+    cross shards; one-shard axes are wraps of the shard into itself and
+    cost 0. A narrowing ``wire_format`` axis prices its elements at the
+    on-wire width. Prices the SLAB layout; the irredundant twin is
+    ``packing.irredundant_bytes_per_sweep``."""
     out = {"x": 0, "y": 0, "z": 0}
     shape = list(shard_padded_shape_zyx)
+    wf = normalize_wire_format(wire_format)
     for a in axis_order:
         dim = AXIS_TO_DIM[a]
         if mesh_counts[a] <= 1:
@@ -310,7 +619,8 @@ def exchanged_bytes_per_sweep(shard_padded_shape_zyx, radius: Radius,
         for d in range(3):
             if d != dim:
                 other *= shape[d]
-        out[AXIS_NAME[a]] = radius.wire_rows(a) * other * elem_size
+        es = wire_elem_size(elem_size, wf[AXIS_NAME[a]])
+        out[AXIS_NAME[a]] = radius.wire_rows(a) * other * es
     return out
 
 
@@ -324,10 +634,114 @@ def _single_axis_radius(radius: Radius, axis: int) -> Radius:
     return r
 
 
+def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
+                          radius: Radius, mesh_counts: Dim3,
+                          axis_order: Tuple[int, ...] = (0, 1, 2),
+                          rem: Dim3 = Dim3(0, 0, 0),
+                          alloc_radius: "Radius | None" = None,
+                          nonperiodic: bool = False,
+                          wire_format=None, wire_layout=None,
+                          probe: Optional[WireProbe] = None
+                          ) -> Dict[str, List[torch.Tensor]]:
+    """Multi-quantity exchange with per-direction packing (JAX
+    ``parallel/exchange.py:518-644``; reference src/packer.cu:10-44,
+    69-82), in place; returns ``fields``. Per axis, side and storage
+    dtype (quantities in sorted name order, so both ends agree on the
+    layout), each shard's message is every quantity's slab — or
+    irredundant box — from its neighbour, flattened and concatenated
+    into ONE buffer on the neighbour's device, narrowed once, moved to
+    this shard's device, widened once, split, and written back. The
+    placement of every part is ``exchange_shard``'s, so each quantity's
+    halos come out bitwise as ``exchange_shard`` fills them. A one-shard
+    axis is a local copy of each quantity, as there."""
+    counts = Dim3.of(mesh_counts)
+    alloc_r = alloc_radius if alloc_radius is not None else radius
+    wf = normalize_wire_format(wire_format)
+    layout = normalize_wire_layout(wire_layout)
+    names = sorted(fields)
+    arrs = {q: _as_list(fields[q], counts) for q in names}
+    moves = {q: _moves(arrs[q][0].shape, radius, alloc_r, counts, rem,
+                       axis_order, layout, nonperiodic) for q in names}
+    groups: Dict[torch.dtype, List[str]] = {}
+    for q in names:
+        groups.setdefault(arrs[q][0].dtype, []).append(q)
+    for k, (a, _, first) in enumerate(moves[names[0]]):
+        name = AXIS_NAME[a]
+        fmt = wf[name] if counts[a] > 1 else "f32"
+        for qs in groups.values():
+            for i, (_, j, _) in enumerate(first):
+                dsts = [_view(arrs[q][i], moves[q][k][2][i][0]) for q in qs]
+                if j is None:
+                    for d in dsts:
+                        d.zero_()
+                    continue
+                srcs = [_view(arrs[q][j], moves[q][k][2][i][2]) for q in qs]
+                if j == i:
+                    for d, s in zip(dsts, srcs):
+                        d.copy_(s.clone())
+                    continue
+                buf = torch.cat([s.reshape(-1) for s in srcs])
+                dev = dsts[0].device
+                recv = _ship(buf, dev, fmt, name, probe).to(dev)
+                off = 0
+                for d in dsts:
+                    d.copy_(recv[off:off + d.numel()].view(d.shape))
+                    off += d.numel()
+    return fields
+
+
+def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
+                             mesh_counts: Dim3,
+                             axis_order: Tuple[int, ...] = (0, 1, 2),
+                             probe: Optional[WireProbe] = None
+                             ) -> Sequence[torch.Tensor]:
+    """The all-gather control strategy (JAX ``parallel/exchange.py:
+    647-681``; reference bin/bench_alltoallv.cu), in place; returns
+    ``shards``. Per axis and side, along each mesh line every shard's
+    boundary slab is gathered onto each device of the line (one stacked
+    tensor a device), and each shard takes its neighbour's slab from the
+    stack on its own device: n times the bytes of the slab copy, the
+    same halos. A one-shard axis is the slab copy's local wrap. Even
+    grids with the allocation at ``radius`` only (``dispatch_exchange``
+    refuses the rest), so every shard's boxes lie alike."""
+    counts = Dim3.of(mesh_counts)
+    arrs = _as_list(shards, counts)
+    for a, side, per in _moves(arrs[0].shape, radius, radius, counts,
+                               Dim3(0, 0, 0), axis_order, "slab", False):
+        n_dev = counts[a]
+        if n_dev == 1:
+            for i, (dst_at, _, src_at) in enumerate(per):
+                _view(arrs[i], dst_at).copy_(_view(arrs[i], src_at).clone())
+            continue
+        name = AXIS_NAME[a]
+        dst_at, _, src_at = per[0]
+        for first in range(len(arrs)):
+            idx = list(mesh_index(first, counts))
+            if idx[a] != 0:
+                continue
+            line = []
+            for k in range(n_dev):
+                idx[a] = k
+                line.append(mesh_linear(Dim3(*idx), counts))
+            slabs = [_view(arrs[k], src_at) for k in line]
+            gathered = {}
+            for k in line:
+                dev = arrs[k].device
+                if dev not in gathered:
+                    gathered[dev] = torch.stack([s.to(dev) for s in slabs])
+                    if probe is not None:
+                        for s in slabs:
+                            probe.moved(name, s.dtype, s.dtype, s.dtype)
+            for p, k in enumerate(line):
+                recv = gathered[arrs[k].device][(p + side) % n_dev]
+                _view(arrs[k], dst_at).copy_(recv)
+    return shards
+
+
 class ExchangeInFlight:
     """A started exchange. ``wait()`` makes the cards' current streams
     wait for the side streams it runs on (``join``, an ``ops/
-    cuda_exchange.CardJoin``); with none — the slab copy, or any
+    cuda_exchange.CardJoin``); with none — the copy engines, or any
     exchange on the CPU — it has landed already and ``wait()`` has
     nothing to do."""
 
@@ -345,35 +759,50 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
                             axis_order: Tuple[int, ...] = (0, 1, 2),
                             rem: Dim3 = Dim3(0, 0, 0),
                             alloc_radius: "Radius | None" = None,
-                            nonperiodic: bool = False):
+                            nonperiodic: bool = False,
+                            wire_format=None, wire_layout=None,
+                            probe: Optional[WireProbe] = None):
     """Start ``dispatch_exchange`` and return a handle whose ``wait()``
     makes the work queued after it on the cards' current streams see
     the filled halos. Between the two, the caller may queue work that
     reads only the shards' interiors, which the exchange does not write
-    — the overlap path's inner block. The slab copy runs on the current
-    streams and has landed at once; ``PallasDMA`` runs on one side
-    stream per card (``parallel/cuda_exchange.py``)."""
-    from .methods import Method
+    — the overlap path's inner block. The copy engines run on the
+    current streams and have landed at once; ``PallasDMA`` runs on one
+    side stream per card (``parallel/cuda_exchange.py``)."""
+    from .methods import WIRE_CAPABLE, Method
 
     counts = Dim3.of(mesh_counts)
-    slab = method in (Method.PpermuteSlab, Method.PpermutePacked)
-    if rem != Dim3(0, 0, 0) and not slab:
+    wf = normalize_wire_format(wire_format)
+    narrows = any(v != "f32" for v in wf.values())
+    layout = normalize_wire_layout(wire_layout)
+    wire_capable = method in WIRE_CAPABLE
+    if rem != Dim3(0, 0, 0) and not wire_capable:
         raise NotImplementedError(
             f"uneven (+-1 remainder) subdomains are only supported by "
             f"the PpermuteSlab and PpermutePacked methods, not {method}")
-    if (alloc_radius is not None or nonperiodic) and not slab:
+    if ((alloc_radius is not None or nonperiodic or narrows
+         or layout != "slab") and not wire_capable):
         raise NotImplementedError(
-            f"deep-carry allocations and non-periodic boundaries are only "
-            f"supported by the PpermuteSlab and PpermutePacked methods, "
-            f"not {method}")
+            f"deep-carry allocations, non-periodic boundaries, narrow "
+            f"wire formats, and non-slab wire layouts are only "
+            f"supported by the PpermuteSlab and PpermutePacked "
+            f"methods, not {method}")
     if method == Method.PallasDMA:
         from .cuda_exchange import start_exchange_shard_cuda
 
         return start_exchange_shard_cuda(list(fields.values()), radius,
                                          counts, axis_order)
-    for shards in fields.values():
-        exchange_shard(shards, radius, counts, axis_order, rem,
-                       alloc_radius, nonperiodic)
+    if method == Method.PpermutePacked:
+        exchange_shard_packed(fields, radius, counts, axis_order, rem,
+                              alloc_radius, nonperiodic, wf, layout, probe)
+    elif method == Method.AllGather:
+        for shards in fields.values():
+            exchange_shard_allgather(shards, radius, counts, axis_order,
+                                     probe)
+    else:
+        for shards in fields.values():
+            exchange_shard(shards, radius, counts, axis_order, rem,
+                           alloc_radius, nonperiodic, wf, layout, probe)
     return ExchangeInFlight()
 
 
@@ -382,18 +811,84 @@ def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
                       axis_order: Tuple[int, ...] = (0, 1, 2),
                       rem: Dim3 = Dim3(0, 0, 0),
                       alloc_radius: "Radius | None" = None,
-                      nonperiodic: bool = False
+                      nonperiodic: bool = False,
+                      wire_format=None, wire_layout=None,
+                      probe: Optional[WireProbe] = None
                       ) -> Dict[str, List[torch.Tensor]]:
     """Route a multi-quantity exchange (``fields[q]`` is the list of
     padded shards of quantity q, x fastest) to the selected strategy,
-    in place; returns ``fields`` (JAX: ``parallel/exchange.py:693-738``,
-    with its ``NotImplementedError`` for uneven grids, non-periodic
-    boundaries and deep allocations on a non-slab method).
+    in place; returns ``fields`` (JAX: ``parallel/exchange.py:693-742``,
+    with its ``NotImplementedError`` for uneven grids, deep allocations,
+    non-periodic boundaries, narrowing wire formats and non-slab wire
+    layouts off ``PpermuteSlab`` and ``PpermutePacked``).
     ``PallasDMA`` is B4's remote-write sweep, on the card and (as its
-    plain twin) on the CPU; ``PpermuteSlab``, ``PpermutePacked`` and
-    ``AllGather`` are all the slab copy of ``exchange_shard`` (ROADMAP
-    A4: the packed and all-gather engines are not ported). The halos
-    are the same bits whatever the method."""
+    plain twin) on the CPU; ``PpermutePacked`` is
+    ``exchange_shard_packed``, ``AllGather`` ``exchange_shard_allgather``
+    and ``PpermuteSlab`` ``exchange_shard``. The halos are the same bits
+    whatever the method."""
     start_dispatch_exchange(fields, radius, mesh_counts, method, axis_order,
-                            rem, alloc_radius, nonperiodic).wait()
+                            rem, alloc_radius, nonperiodic, wire_format,
+                            wire_layout, probe).wait()
     return fields
+
+
+def make_exchange(mesh, radius: Radius, methods=None,
+                  axis_order: Tuple[int, ...] = (0, 1, 2),
+                  rem: Dim3 = Dim3(0, 0, 0),
+                  nonperiodic: bool = False,
+                  wire_format=None, fields_spec=None,
+                  wire_layout=None):
+    """The multi-quantity halo exchange over ``mesh`` (a
+    ``parallel/mesh.Mesh``), JAX ``parallel/exchange.py:745-829``:
+    returns ``exchange(fields)``, which fills the halos of every
+    quantity's list of padded shards in place through
+    ``dispatch_exchange`` with the method ``pick_method(methods)``
+    chooses (default ``Method.Default``) and returns ``fields``.
+
+    A NARROWING ``wire_format`` is certificate-gated, as in JAX:
+    ``fields_spec`` — ``{name: (padded shard shape (z, y, x), dtype)}``
+    — is then required, one probe exchange runs on "meta" shards of that
+    spec (no card memory, no kernel) with the engine recording every
+    message it moves between mesh positions, and ``analysis/precision.certify_wire_probe`` builds the
+    ``PrecisionCertificate``; an unsafe one raises
+    ``PrecisionGateError``. The returned callable carries
+    ``wire_format``, ``wire_layout``, ``precision_declaration`` and
+    ``precision_certificate`` (None for an all-f32 wire, which runs no
+    gate)."""
+    from .methods import Method, pick_method
+
+    method = pick_method(Method.Default if methods is None else methods)
+    counts = mesh.shape
+    wf = normalize_wire_format(wire_format)
+    narrows = any(v != "f32" for v in wf.values())
+    layout = normalize_wire_layout(wire_layout)
+
+    def exchange(fields: Dict[str, List[torch.Tensor]],
+                 probe: Optional[WireProbe] = None
+                 ) -> Dict[str, List[torch.Tensor]]:
+        return dispatch_exchange(fields, radius, counts, method, axis_order,
+                                 rem, nonperiodic=nonperiodic,
+                                 wire_format=wf, wire_layout=layout,
+                                 probe=probe)
+
+    cert = None
+    if narrows:
+        from ..analysis import precision
+
+        if fields_spec is None:
+            raise ValueError(
+                "make_exchange: a narrowing wire_format is certificate-"
+                "gated — pass fields_spec={name: (padded_shard_shape_zyx, "
+                "dtype)} so that a probe exchange can prove the wire "
+                "before it realizes")
+        cert = precision.certify_wire_probe(exchange, fields_spec, mesh, wf)
+        if not cert.safe:
+            raise precision.PrecisionGateError(
+                f"make_exchange: wire format {wf} is NOT certified safe "
+                f"— refusing to realize: " + "; ".join(cert.reasons))
+    exchange.wire_format = dict(wf)
+    exchange.wire_layout = layout
+    exchange.precision_declaration = {"wire": dict(wf),
+                                      "compute": "float32"}
+    exchange.precision_certificate = cert
+    return exchange

@@ -6,8 +6,10 @@ include/stencil/method.hpp:5-16). The flag names are kept so that a
 configuration reads the same in both packages. ``parallel/exchange.py``
 ``dispatch_exchange`` routes them: ``PallasDMA`` to the hand-written
 remote-write kernel (``parallel/cuda_exchange.py``, B4: each shard
-stores its boundary slabs straight into its neighbours' halos), every
-other transport to the slab copy of ``exchange_shard``.
+stores its boundary slabs straight into its neighbours' halos),
+``PpermutePacked`` to ``exchange_shard_packed`` (one buffer a direction
+for every quantity), ``AllGather`` to ``exchange_shard_allgather`` and
+``PpermuteSlab`` to the slab copy of ``exchange_shard``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ class Method(enum.Flag):
 METHOD_PRIORITY: Tuple["Method", ...] = (
     Method.PallasDMA, Method.PpermutePacked, Method.PpermuteSlab,
     Method.AllGather)
+
+
+#: strategies whose data plane carries narrowing halo wire formats and
+#: the irredundant layout: the slab and packed engines narrow at the send
+#: boundary and widen on arrival; the remote-write and all-gather paths
+#: ship raw storage bytes (JAX ``parallel/methods.py:60-66``)
+WIRE_CAPABLE: Tuple["Method", ...] = (Method.PpermuteSlab,
+                                      Method.PpermutePacked)
+
+
+def method_supports_wire_format(m: "Method") -> bool:
+    """Can this strategy carry a NARROWING halo wire format?"""
+    return m in WIRE_CAPABLE
 
 
 def pick_method(methods: "Method") -> "Method":

@@ -39,8 +39,9 @@ queued between the exchange's start and its ``wait`` (the
 ``parallel/overlap.py`` split at temporal depth), plus thin shells of
 thickness ``s*r`` computed from the exchanged fields.
 
-Not in this slice: narrowing wire formats and the irredundant wire
-layout (ROADMAP A7, wire formats); both raise ``NotImplementedError``.
+The deep exchange and the mid-group refreshes carry the halo wire
+format and layout (``wire_format``, ``wire_layout``) to the engine;
+asymmetric depths decline the irredundant layout, as in JAX.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import torch
 
 from ..geometry import DepthsLike, Dim3, Radius, normalize_depths
 from .exchange import dispatch_exchange, start_dispatch_exchange
+from .packing import normalize_wire_layout
 
 ZERO = Dim3(0, 0, 0)
 
@@ -65,20 +67,6 @@ ZERO = Dim3(0, 0, 0)
 TemporalUpdateFn = Callable[[Dict[str, torch.Tensor], Dim3,
                              Tuple[int, int, int], int, int],
                             Dict[str, torch.Tensor]]
-
-
-def check_wire(wire_format=None, wire_layout=None) -> None:
-    """Refuse what this slice does not carry: the temporal exchange
-    ships the slab layout at the storage dtype only."""
-    if wire_layout not in (None, "slab"):
-        raise NotImplementedError(
-            f"wire_layout {wire_layout!r}: the port ships the slab layout "
-            f"only; the irredundant layout is ROADMAP A7 (wire formats)")
-    if wire_format not in (None, "f32"):
-        raise NotImplementedError(
-            f"wire_format {wire_format!r}: the port ships halos at their "
-            f"storage dtype only; narrowing wire formats are ROADMAP A7 "
-            f"(wire formats)")
 
 
 def validate_temporal(radius: Radius, local: Dim3, steps: DepthsLike,
@@ -194,16 +182,16 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     ``steps*r`` slabs immediately around the interior).
     ``overlap``: split sub-step 0 into the pre-exchange deep-interior
     block plus post-exchange shells (even shards only).
-    ``wire_format``/``wire_layout``: only the storage dtype and the
-    slab layout (``check_wire``).
+    ``wire_format``/``wire_layout``: the halo wire format and layout
+    of every exchange of the group (``parallel/exchange.py``).
 
     Per-axis ``steps`` (e.g. ``{"z": 4, "y": 1, "x": 1}``): the group
     runs ``max(steps)`` sub-steps; axis ``a`` is exchanged at depth
     ``s_a * r`` on every sub-step ``k`` with ``k % s_a == 0``
     (``refresh_axes``), and each axis's window saw-tooths with its own
-    ``m_a(k)``. Non-uniform depths decline ``overlap``, which assumes
-    one group-wide exchange."""
-    check_wire(wire_format, wire_layout)
+    ``m_a(k)``. Non-uniform depths decline ``overlap`` and the
+    ``"irredundant"`` wire layout, which both assume one group-wide
+    exchange."""
     depths = normalize_depths(steps)
     alloc_d = depths if alloc_steps is None else normalize_depths(alloc_steps)
     if any(not 1 <= depths[a] <= alloc_d[a] for a in range(3)):
@@ -218,6 +206,12 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
             f"asymmetric temporal depths {tuple(depths)} decline the "
             f"overlap composition: the sub-step-0 shell split assumes one "
             f"group-wide exchange, not mid-group refreshes")
+    if not uniform and normalize_wire_layout(wire_layout) != "slab":
+        raise NotImplementedError(
+            f"asymmetric temporal depths {tuple(depths)} decline "
+            f"wire_layout {wire_layout!r}: the irredundant dedup plan "
+            f"assumes one group-wide exchange whose slabs carry the "
+            f"halo-of-halo rows mid-group refreshes rely on")
     wire = radius.deepened(depths)
     alloc_r = radius.deepened(alloc_d)
     p_lo, p_hi = alloc_r.pad_lo(), alloc_r.pad_hi()
@@ -234,7 +228,9 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     landed = start_dispatch_exchange(fields, wire,
                                      mesh_counts, method, rem=rem,
                                      alloc_radius=alloc_r,
-                                     nonperiodic=nonperiodic)
+                                     nonperiodic=nonperiodic,
+                                     wire_format=wire_format,
+                                     wire_layout=wire_layout)
 
     windows = sub_step_windows(radius, cap, depths)
     k0 = 0
@@ -287,7 +283,9 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
                                   _axes_wire_radius(radius, depths, axes),
                                   mesh_counts, method, rem=rem,
                                   alloc_radius=alloc_r,
-                                  nonperiodic=nonperiodic)
+                                  nonperiodic=nonperiodic,
+                                  wire_format=wire_format,
+                                  wire_layout=wire_layout)
         off, dims = windows[k]
         for i, shard in enumerate(shards):
             outs = update_fn(_region_blocks(shard, p_lo, r_lo, r_hi, off,

@@ -6,8 +6,11 @@ JAX's order: the JAX apps (``apps/*.py``) run once, in one subprocess
 over 4 fake CPU devices, and every column but the measured seconds and
 rates must be equal. ``bench_exchange``'s byte columns equal JAX's
 ``DistributedDomain.exchange_bytes_total()`` and its JSON the
-``_amortized_per_step()`` of the same configuration. Options that wait
-for a ROADMAP item raise ``NotImplementedError`` naming it.
+``_amortized_per_step()`` of the same configuration; with
+``--wire-layout`` its ``bench_exchange_layout`` line and the JSON's
+``wire_layout_race`` carry the irredundant layout's bytes and their
+ratio to the slab layout's, as JAX's do. Options that wait for a
+ROADMAP item raise ``NotImplementedError`` naming it.
 """
 
 import json
@@ -31,11 +34,22 @@ ROOT = Path(__file__).resolve().parent.parent
 CPU4 = ["--devices", "cpu,cpu,cpu,cpu"]
 S16 = ["--x", "16", "--y", "16", "--z", "16"]
 
-# app: (JAX argv, port argv, indices of measured columns)
+LAYOUT_RACE = ["--iters", "2", "--exchange-every", "1,2", "--wire-layout",
+               "slab,irredundant"]
+
+# case: (JAX argv, port argv, indices of measured columns — per line tag
+# where the lines differ)
 CASES = {
     "bench_exchange": (S16 + ["--iters", "3", "--exchange-every", "1,2,z=2"],
                        S16 + ["--iters", "3", "--exchange-every", "1,2,z=2"]
                        + CPU4, {12, 13}),
+    "bench_exchange_irredundant": (
+        S16 + ["--iters", "2", "--wire-layout", "irredundant"],
+        S16 + ["--iters", "2", "--wire-layout", "irredundant"] + CPU4,
+        {12, 13}),
+    "bench_exchange_layout_race": (
+        S16 + LAYOUT_RACE, S16 + LAYOUT_RACE + CPU4,
+        {"bench_exchange": {12, 13}, "bench_exchange_layout": {5, 7}}),
     "exchange_weak": (S16 + ["--iters", "3"], S16 + ["--iters", "3"] + CPU4,
                       {9, 10, 11}),
     "exchange_strong": (S16 + ["--iters", "3", "--interior-slabs"],
@@ -48,7 +62,12 @@ CASES = {
                  ["--min", "10", "--max", "11", "--iters", "2"] + CPU4,
                  {2, 3}),
 }
+#: the app file of a case whose name is not its app's
+CASE_APP = {"bench_exchange_irredundant": "bench_exchange",
+            "bench_exchange_layout_race": "bench_exchange"}
 PORT_APPS = {"bench_exchange": bench_exchange,
+             "bench_exchange_irredundant": bench_exchange,
+             "bench_exchange_layout_race": bench_exchange,
              "exchange_weak": exchange_weak,
              "exchange_strong": exchange_strong,
              "jacobi3d_strong": jacobi3d_strong, "pingpong": pingpong}
@@ -58,11 +77,11 @@ import contextlib, io, json, runpy, sys
 sys.path.insert(0, {apps!r})
 cases = json.loads({cases!r})
 out = {{}}
-for name, argv in cases.items():
-    sys.argv = [name, "--fake-cpu", "4"] + argv
+for name, (app, argv) in cases.items():
+    sys.argv = [app, "--fake-cpu", "4"] + argv
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        runpy.run_path({apps!r} + "/" + name + ".py", run_name="__main__")
+        runpy.run_path({apps!r} + "/" + app + ".py", run_name="__main__")
     out[name] = buf.getvalue()
 print("RESULT " + json.dumps(out))
 """
@@ -72,7 +91,8 @@ print("RESULT " + json.dumps(out))
 def jax_lines():
     """Stdout of each JAX app, all run in one process over 4 fake CPU
     devices."""
-    cases = json.dumps({k: v[0] for k, v in CASES.items()})
+    cases = json.dumps({k: (CASE_APP.get(k, k), v[0])
+                        for k, v in CASES.items()})
     code = JAX_RUNNER.format(apps=str(ROOT / "apps"), cases=cases)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
     env.pop("XLA_FLAGS", None)
@@ -98,8 +118,10 @@ def test_app_prints_jax_columns(app, jax_lines, capsys):
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         assert len(g) == len(w), (g, w)
+        cols = measured.get(w[0], set()) if isinstance(measured, dict) \
+            else measured
         for i, (a, b) in enumerate(zip(g, w)):
-            if i in measured and a != b:
+            if i in cols and a != b:
                 float(a), float(b)
             else:
                 assert a == b, (app, i, g, w)
@@ -185,8 +207,6 @@ def test_machine_info_lists_the_devices(capsys):
 
 
 @pytest.mark.parametrize("app,argv,item", [
-    (bench_exchange, ["--wire-layout", "irredundant"], "A7"),
-    (bench_exchange, ["--wire-layout", "slab,irredundant"], "A7"),
     (bench_exchange, ["--autotune"], "A12"),
     (bench_exchange, ["--tune-cache", "plans.json"], "A12"),
     (bench_exchange, ["--metrics-json", "m.json"], "A12"),
@@ -200,6 +220,39 @@ def test_pending_options_raise_naming_their_item(app, argv, item):
         app.main(argv + ["--device", "cpu"])
 
 
+def test_bench_exchange_layout_race_json_matches_jax_bytes(tmp_path, capsys):
+    """``wire_layout_race``: the irredundant domain's bytes an exchange
+    and their ratio to the slab sweep's, as JAX's domains price them
+    (radius 2, one field, four 16^3 shards of (2,2,1))."""
+    out = tmp_path / "be.json"
+    bench_exchange.main(S16 + LAYOUT_RACE + ["--json-out", str(out)] + CPU4)
+    rows = [r for r in _csv(capsys.readouterr().out)
+            if r[0] == "bench_exchange_layout"]
+    payload = json.loads(out.read_text())
+    race = payload["wire_layout_race"]
+    assert payload["wire_layout"] == race["baseline_layout"] == "slab"
+    assert race["exchange_every"] == 1 and list(race["races"]) == \
+        ["irredundant"]
+    want = {}
+    for layout in ("slab", "irredundant"):
+        jd = JDomain(32, 32, 16, devices=jax.devices()[:4])
+        jd.set_mesh_shape((2, 2, 1))
+        jd.set_radius(JRadius.face_edge_corner(2, 2, 2))
+        jd.set_wire_layout(layout)
+        jd.add_data("q0", np.float32)
+        jd.realize()
+        want[layout] = jd.exchange_bytes_total()
+    got = race["races"]["irredundant"]
+    assert got["bytes_per_exchange_model"] == want["irredundant"]
+    assert payload["configs"][0]["bytes_per_exchange_model"] == want["slab"]
+    assert got["bytes_ratio"] == want["irredundant"] / want["slab"] < 1
+    assert rows == [["bench_exchange_layout", "irredundant", "slab", "1",
+                     str(want["irredundant"]), rows[0][5],
+                     f"{want['irredundant'] / want['slab']:.4f}",
+                     rows[0][7]]]
+    assert got["steps_per_s"] > 0 and got["trimean_exchange_s"] > 0
+
+
 def test_ledger_off_is_accepted(tmp_path, capsys):
     out = tmp_path / "be.json"
     bench_exchange.main(["--x", "8", "--y", "8", "--z", "8", "--iters", "1",
@@ -209,9 +262,12 @@ def test_ledger_off_is_accepted(tmp_path, capsys):
 
 
 def test_new_modules_import_without_jax():
-    """The apps and the temporal engine import neither JAX nor the JAX
-    package (the isolation test walks their ASTs; this imports them)."""
-    mods = ["stencil_tpu_torch.parallel.temporal"] + [
+    """The apps, the temporal engine, the wire-layout planner and the
+    precision certificate import neither JAX nor the JAX package (the
+    isolation test walks their ASTs; this imports them)."""
+    mods = ["stencil_tpu_torch.parallel.temporal",
+            "stencil_tpu_torch.parallel.packing",
+            "stencil_tpu_torch.analysis.precision"] + [
         f"stencil_tpu_torch.apps.{m}" for m in (
             "bench_exchange", "bench_methods", "bench_pack",
             "exchange_strong", "exchange_weak", "jacobi3d_strong",

@@ -212,7 +212,7 @@ def test_misaligned_wrap_raises_like_jax():
          kernel="xla", exchange_every=2),
     dict(boundary=Boundary.NONE), dict(dtype=torch.bfloat16)])
 def test_left_out_options_name_their_roadmap_item(kw):
-    """Temporal blocking beyond the halo paths' substep pair (A7), with
+    """Temporal blocking beyond the halo paths' substep pair (A7b), with
     overlap too (``xla-overlap`` has no substep pair), Boundary.NONE
     (A8d) and bfloat16 (A8b). The overlap path itself is ported
     (B13/B14: tests/test_torch_astaroth_overlap.py)."""

@@ -935,6 +935,45 @@ def test_paths_on_distinct_cards_equal_one_card(ch, kernel, mesh):
     np.testing.assert_array_equal(runs[0], runs[1])
 
 
+@pytest.mark.parametrize("method", ["PpermuteSlab", "PpermutePacked"])
+def test_narrowed_irredundant_exchange_on_distinct_cards_equals_one_card(
+        cs, method):
+    """A bf16 irredundant exchange of two quantities on uneven shards
+    over distinct cards equals the same exchange on one card bitwise:
+    each message narrows on its sender's card, crosses at bf16 (the
+    precision certificate's record) and widens on the receiver's."""
+    from stencil_tpu_torch.distributed import DistributedDomain
+    from stencil_tpu_torch.parallel.methods import Method
+
+    devs = _distinct_cards()
+    runs = []
+    for devices in (devs, ["cuda:0"] * 4):
+        dd = DistributedDomain(67, 66, 33, devices=devices)
+        dd.set_mesh_shape((2, 2, 1))
+        dd.set_radius(2)
+        dd.set_methods(Method[method])
+        dd.set_wire_format("bf16")
+        dd.set_wire_layout("irredundant")
+        for q in ("a", "b"):
+            dd.add_data(q, torch.float32)
+        dd.realize()
+        cert = dd.precision_certificate
+        assert cert.safe and cert.max_rel_error_bound == 2.0 ** -8
+        assert {v["dtypes"][0] for v in cert.wire_dtypes.values()} == \
+            {"bfloat16"}
+        rng = np.random.default_rng(37)
+        for q in ("a", "b"):
+            for t in dd.curr[q]:
+                t.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(t.shape)).astype(np.float32) * 500))
+        dd.exchange()
+        runs.append({q: [t.cpu().view(torch.int32) for t in dd.curr[q]]
+                     for q in ("a", "b")})
+    for q in ("a", "b"):
+        for x, y in zip(runs[0][q], runs[1][q]):
+            assert torch.equal(x, y)
+
+
 def test_default_devices_spread_the_halo_path_over_every_card(ch):
     """With no device given, the solver takes every visible card, an
     x-free mesh and the halo path; 256^3 run(21) equals the one-card
