@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero before the last line:
    shell and the margin kernel again (the pair forms) in
    ``mhd_overlap``; ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in
    ``jacobi_halo``) and of B8's ring kernel (``csrc/laplace6.cu``: each
-   copy width and store width) are read from the
+   copy width and store width), the MHD ones for float32 and bfloat16
+   storage (and the bf16 pair's mixed instances), are read from the
    ``-Xptxas=-v`` lines (a NOTE where one uses more than 128 registers
    or spills), their opcode counts from ``cuobjdump -sass``.
 3. kernels vs plain twins, on the card:
@@ -105,6 +106,17 @@ Phases, in order; any failure exits non-zero before the last line:
      256^3 shards with shard 3's
      stream delayed before each of its launches bitwise equal to the
      undelayed chain.
+   - bfloat16 storage (``compare_mhd_bf16_kernels``): B9 (s=0 with
+     w=None, s=1, s=2 with write_w=False) and B10 at 16 x 16 x 24 (a
+     16-row sub-tile), 32 x 16 x 33 (odd x) and 256^3; B11 (each s) and
+     B12 on every shard of two small (1,2,2) meshes and on shard 0 of
+     the four 256^3 shards of 256 x 512 x 512; B13 then B14 (each s and
+     the pair) on those meshes. Each against its plain twin on the same
+     bf16 inputs within one bf16 ulp of the largest twin value a field
+     (2^-7 x max; the share of elements that differ is logged), and
+     against the float32 instance on the widened inputs, rounded once
+     to bf16: bitwise (the ring and the arithmetic are float32 in
+     both).
 4. main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
@@ -181,6 +193,25 @@ Phases, in order; any failure exits non-zero before the last line:
      ``xla-temporal[s=4]``, ``[s=1.1.4]`` and ``[s=4]-overlap`` on four
      128^3 shards of the card equal stepwise ``xla`` bitwise after
      ``run(9)``.
+   - bfloat16 storage (``run_astaroth_bf16``), each ``run(2)`` at dt
+     1e-4: ``Astaroth(256, 256, 256, bfloat16)`` auto takes ``wrap`` (6
+     B9 launches; 2 B10 + 2 B9 with the pair), ``halo`` on it as a
+     (1,1,1) mesh (6 B11) bitwise equal to ``wrap``;
+     ``Astaroth(256, 512, 512, bfloat16)`` on four 256^3 shards auto
+     takes ``halo`` (24 B11; 8 B12 + 8 B11 with the pair) and with
+     overlap ``halo-overlap`` (24 B13 + 24 B14; 16 + 16), bitwise equal
+     to ``halo`` (+pair); each within 6 x 2^-7 x max of the bf16 ``xla``
+     path on the same grid. A bf16 pair is not bitwise its
+     single-substep path (f_1, w_1 stay float32 in it): logged.
+   - The MHD temporal path and Boundary.NONE (``run_astaroth_temporal``),
+     float32, ``Astaroth(256, 512, 512, kernel="xla")`` on four 256^3
+     shards: ``exchange_every`` 2, 3 (also with overlap) and 4, two
+     runs back to back (2 + 3 iterations; 4 + 1 at s = 4, whose period
+     is four iterations), after each against stepwise ``xla`` within
+     ``substeps x 64 eps(f32) x max`` ("bitwise: yes/no" logged), with
+     iterations/s over the second run and ``exchange_stats()``;
+     ``xla-overlap`` and ``xla-temporal[s=3]`` with Boundary.NONE
+     against stepwise ``xla`` with it, ``run(2)``.
    - The exchange apps through their ``main()``, CSV lines printed:
      ``bench_exchange`` on four 256^3 shards of the card at
      ``--exchange-every 1,2,4`` and once with ``--pallas-dma`` (B4
@@ -239,7 +270,14 @@ Phases, in order; any failure exits non-zero before the last line:
    are
    ``torch.nn.functional.conv3d`` for K3 (3x3x3 weight) and B8 (7x7x7),
    with cuDNN's TF32 turned off so that they compute in float32; the
-   MHD kernels have no single PyTorch call. Results also go to
+   MHD kernels have no single PyTorch call. bfloat16: iterations/s of
+   ``wrap`` (± pair) at 256^3 and ``halo``, ``halo-overlap`` (± pair) on
+   four 256^3 shards, beside the float32 rates of this run
+   (``time_astaroth_bf16_paths``); B9-B14 in bf16 on one 256^3 shard by
+   CUDA events (B13, B14 also by device time alone) beside their bf16
+   twins, bounds counting 2-byte cells, and B9 and B11 float32 s=0 in
+   the same process (``time_mhd_bf16_kernels``; the kernels line's
+   ``... bf16`` entries). Results also go to
    chiprun_out/chip_smoke.json.
 
 The last three lines are the card's name and power limit (nvidia-smi),
@@ -525,7 +563,8 @@ def bound_ms(nbytes: float, flops: float):
     return (b, "bytes") if b >= f else (f, "operations")
 
 
-def b13_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
+def b13_bytes(shape, read_w: bool, write_w: bool, pair: bool,
+              item: int = 4) -> float:
     """Bytes B13 must move on one (Z, Y, X) shard: the shard read once,
     w read (where it is read) and f and w written at its interior
     (``interior_region``), and the slab rows it sends, hr =
@@ -538,10 +577,11 @@ def b13_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
     p_in = inner[1] * inner[3] * X if inner else 0
     slab = 8 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
     wr = (8 if read_w else 0) + (8 if write_w else 0)
-    return 4.0 * (8 * Z * Y * X + (8 + wr) * p_in + slab)
+    return float(item) * (8 * Z * Y * X + (8 + wr) * p_in + slab)
 
 
-def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
+def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool,
+              item: int = 4) -> float:
     """Bytes B14 must move on one (Z, Y, X) shard: the shard rows within
     e + hr of a z or y face (the rows its shell's points read), every
     landed row, w at the shell where it is read, and f (and w) written
@@ -556,7 +596,7 @@ def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool) -> float:
     near = Z * Y * X - max(Z - 2 * (e + hr), 0) * max(Y - 2 * (e + hr), 0) * X
     slab = 8 * (2 * hr * Y * X + 2 * (Z + 2 * hr) * hr * X)
     wr = (8 if read_w else 0) + (8 if write_w else 0)
-    return 4.0 * (8 * near + (8 + wr) * shell + slab)
+    return float(item) * (8 * near + (8 + wr) * shell + slab)
 
 
 def halo_bytes(shape, r: int, z_extended: bool) -> float:
@@ -3354,6 +3394,651 @@ def time_mhd_overlap(torch, cm, mo) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 storage on the MHD ring kernels (B9-B14), the MHD temporal path
+# (exchange_every >= 2 on xla) and Boundary.NONE
+# ---------------------------------------------------------------------------
+#: one bfloat16 ulp of a value's magnitude, relative: 8 significant bits
+BF16_ULP = 2.0 ** -7
+#: the bf16 launch families and the float32 wrapper name each extends
+BF16_NAMES = ("mhd_substep_wrap", "mhd_substep01_wrap", "mhd_substep_halo",
+              "mhd_substep01_halo", "mhd_substep_overlap",
+              "mhd_substep_fixup")
+# (Z, Y, X) of the bf16 kernel checks: a 16-row sub-tile (x below one
+# 32-column tile), an odd x, the full 256^3
+BF16_SHAPES = [(16, 16, 24), (32, 16, 33), (N256,) * 3]
+# global (Z, Y, X) over (1,2,2): 16 x 16 x 40 and 16 x 32 x 33 shards,
+# and the four 256^3 shards of Astaroth(256, 512, 512)
+BF16_MESHES = [(32, 32, 40), (32, 64, 33), (2 * N256, 2 * N256, N256)]
+
+
+def bf16_of(torch, d):
+    return {q: t.to(torch.bfloat16) for q, t in d.items()}
+
+
+def f32_of(d):
+    return None if d is None else {q: t.float() for q, t in d.items()}
+
+
+def check_bf16(torch, got: dict, want: dict, what: str,
+               ulps: float = 1.0) -> float:
+    """Per field: bfloat16, finite, max |got - want| <= ulps * 2^-7 *
+    max |want| (one bf16 ulp of the largest value a substep), with the
+    share of elements that differ logged. Returns the largest absolute
+    difference."""
+    worst = 0.0
+    differ = total = 0
+    for q, t in want.items():
+        g = got[q]
+        if (g.dtype != torch.bfloat16 or g.shape != t.shape
+                or not bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{what} {q}: not finite bfloat16 of the "
+                                 f"twin's shape")
+        d = (g.float() - t.float()).abs()
+        err = float(d.max())
+        scale = float(t.float().abs().max())
+        if err > ulps * BF16_ULP * scale:
+            raise AssertionError(f"{what} {q}: max |diff| {err!r} > {ulps:g}"
+                                 f" x 2^-7 x {scale!r}")
+        worst = max(worst, err)
+        differ += int((d > 0).sum())
+        total += d.numel()
+    log(f"  {what}: max |diff| {worst!r} (tolerance {ulps:g} bf16 ulp of "
+        f"max a field), {differ / total:.3%} of the elements differ")
+    return worst
+
+
+def same_as_widened(torch, got, want32, what: str) -> None:
+    """A bf16 launch's (fields, w) against the float32 instance's on the
+    widened inputs, rounded once to bfloat16: bit for bit."""
+    gf, gw = got
+    wf, ww = want32
+    rounded = (bf16_of(torch, wf), None if ww is None else bf16_of(torch, ww))
+    same = same_bits(torch, (gf, gw), rounded)
+    if not same:
+        n = sum(int((gf[q] != rounded[0][q]).sum()) for q in gf)
+        log(f"  {what} vs the float32 instance rounded once: {n} elements "
+            f"DIFFER")
+        raise AssertionError(f"{what}: not the float32 instance rounded "
+                             f"once")
+    log(f"  {what} vs the float32 instance on the widened inputs, rounded "
+        f"once: bitwise equal")
+
+
+def compare_mhd_bf16_kernels(torch, cm, mo) -> dict:
+    """Phase 3, bfloat16 storage: B9 (s = 0 w=None, 1, 2 write_w=False)
+    and B10 at ``BF16_SHAPES``, B11 (each s), B12 and B13 + B14 (each s
+    and the pair, through ``mhd_substep_overlap``) on the (1,2,2) meshes
+    of ``BF16_MESHES``, each against its plain twin on the same bf16
+    inputs within one bf16 ulp of the largest twin value a field
+    (``check_bf16``), and against the float32 instance on the widened
+    inputs rounded once, bitwise. Returns the largest absolute
+    difference from the twin per family."""
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.models.astaroth import FIELDS, MhdParams
+
+    gen = torch.Generator(device="cuda").manual_seed(1616)
+    prm = MhdParams(dt=MHD_PATH_DT)
+    dt = prm.dt
+    worst = {name: 0.0 for name in BF16_NAMES}
+    subs = ((0, False, True), (1, True, True), (2, True, False))
+    for shape in BF16_SHAPES:
+        f32, w32 = mhd_state(torch, shape, gen)
+        f, w = bf16_of(torch, f32), bf16_of(torch, w32)
+        fw, ww = f32_of(f), f32_of(w)
+        for s, read_w, write_w in subs:
+            tag = f"B9 bf16 s={s} {shape}"
+            got = cm.mhd_substep_wrap_cuda(f, w if read_w else None, s, prm,
+                                           dt, write_w=write_w)
+            tw = cm.mhd_substep_wrap_plain(f, w if read_w else None, s, prm,
+                                           dt, write_w=write_w)
+            e = check_bf16(torch, got[0], tw[0], tag + " f vs twin")
+            if write_w:
+                e = max(e, check_bf16(torch, got[1], tw[1],
+                                      tag + " w vs twin"))
+            worst["mhd_substep_wrap"] = max(worst["mhd_substep_wrap"], e)
+            same_as_widened(torch, got, cm.mhd_substep_wrap_cuda(
+                fw, ww if read_w else None, s, prm, dt, write_w=write_w), tag)
+            del got, tw
+        tag = f"B10 bf16 {shape}"
+        got = cm.mhd_substep01_wrap_cuda(f, prm, dt)
+        tw = cm.mhd_substep01_wrap_plain(f, prm, dt)
+        e = max(check_bf16(torch, got[0], tw[0], tag + " f vs twin"),
+                check_bf16(torch, got[1], tw[1], tag + " w vs twin"))
+        worst["mhd_substep01_wrap"] = max(worst["mhd_substep01_wrap"], e)
+        same_as_widened(torch, got, cm.mhd_substep01_wrap_cuda(fw, prm, dt),
+                        tag)
+        del f32, w32, f, w, fw, ww, got, tw
+        torch.cuda.empty_cache()
+    mesh = (1, 2, 2)
+    counts = Dim3(*mesh)
+    for size in BF16_MESHES:
+        s32, w32s = mhd_mesh_case(torch, gen, size, mesh)
+        shards = [t.to(torch.bfloat16) for t in s32]
+        wsh = [t.to(torch.bfloat16) for t in w32s]
+        del s32, w32s
+        f = [per_field(t) for t in shards]
+        w = [per_field(t) for t in wsh]
+        fw = [f32_of(x) for x in f]
+        ww = [f32_of(x) for x in w]
+        sl3 = mhd_slabs(shards, mesh, rz=3, ry=3)
+        sl6 = mhd_slabs(shards, mesh, rz=6, ry=6)
+        sl3w = mhd_slabs([t.float() for t in shards], mesh, rz=3, ry=3)
+        sl6w = mhd_slabs([t.float() for t in shards], mesh, rz=6, ry=6)
+        big = size[0] == 2 * N256
+        # B11 and B12: shard 0 on the 256^3 mesh, every shard else
+        for i in (range(1) if big else range(len(f))):
+            for s, read_w, write_w in subs:
+                tag = f"B11 bf16 s={s} {size} {mesh} shard {i}"
+                wi = w[i] if read_w else None
+                got = cm.mhd_substep_halo_cuda(f[i], wi, sl3[i], s, prm, dt,
+                                               write_w=write_w)
+                tw = cm.mhd_substep_halo_plain(f[i], wi, sl3[i], s, prm, dt,
+                                               write_w=write_w)
+                e = check_bf16(torch, got[0], tw[0], tag + " f vs twin")
+                if write_w:
+                    e = max(e, check_bf16(torch, got[1], tw[1],
+                                          tag + " w vs twin"))
+                worst["mhd_substep_halo"] = max(worst["mhd_substep_halo"], e)
+                same_as_widened(torch, got, cm.mhd_substep_halo_cuda(
+                    fw[i], ww[i] if read_w else None, sl3w[i], s, prm, dt,
+                    write_w=write_w), tag)
+                del got, tw
+            tag = f"B12 bf16 {size} {mesh} shard {i}"
+            got = cm.mhd_substep01_halo_cuda(f[i], sl6[i], prm, dt)
+            tw = cm.mhd_substep01_halo_plain(f[i], sl6[i], prm, dt)
+            e = max(check_bf16(torch, got[0], tw[0], tag + " f vs twin"),
+                    check_bf16(torch, got[1], tw[1], tag + " w vs twin"))
+            worst["mhd_substep01_halo"] = max(worst["mhd_substep01_halo"], e)
+            same_as_widened(torch, got, cm.mhd_substep01_halo_cuda(
+                fw[i], sl6w[i], prm, dt), tag)
+            del got, tw
+        # B13 + B14 over the mesh, each substep and the pair
+        for s, read_w, write_w, pair in OVERLAP_VARIANTS:
+            var = overlap_variant_tag(s, read_w, write_w, pair)
+            tag = f"B13+B14 bf16 {var} {size} {mesh}"
+            wi = w if read_w else None
+            gf, gw, _ = mo.mhd_substep_overlap(f, wi, s, prm, dt, counts,
+                                               pair=pair, write_w=write_w)
+            kf, kw, _ = mo.mhd_substep_overlap(fw, ww if read_w else None,
+                                               s, prm, dt, counts, pair=pair,
+                                               write_w=write_w)
+            sl = sl6 if pair else sl3
+            for i in range(len(f)):
+                if pair:
+                    tw = cm.mhd_substep01_halo_plain(f[i], sl[i], prm, dt)
+                else:
+                    tw = cm.mhd_substep_halo_plain(
+                        f[i], None if wi is None else wi[i], sl[i], s, prm,
+                        dt, write_w=write_w)
+                got = (gf[i], None if gw is None else gw[i])
+                e = check_bf16(torch, got[0], tw[0],
+                               f"{tag} shard {i} f vs the B11/B12 twin")
+                if write_w:
+                    e = max(e, check_bf16(torch, got[1], tw[1],
+                                          f"{tag} shard {i} w vs the "
+                                          f"B11/B12 twin"))
+                for name in ("mhd_substep_overlap", "mhd_substep_fixup"):
+                    worst[name] = max(worst[name], e)
+                same_as_widened(torch, got,
+                                (kf[i], None if kw is None else kw[i]),
+                                f"{tag} shard {i}")
+                del tw, got
+            del gf, gw, kf, kw
+        del shards, wsh, f, w, fw, ww, sl3, sl6, sl3w, sl6w
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return worst
+
+
+def seed_state(torch, m, ref) -> None:
+    """Start model ``m`` from model ``ref``'s fields, copied on the card
+    interior to interior (both on the same mesh and dtype, allocation
+    pads may differ): the host's ``init()`` of a 256 x 512 x 512 grid
+    takes seconds a model. Accumulators start at zero, as after
+    ``init()``."""
+    ref.sync_domain()
+    m.sync_domain()
+    src, dst = ref._capacity(), m._capacity()
+    for q, shards in ref.dd.curr.items():
+        for a, b in zip(m.dd.curr[q], shards):
+            a.zero_()
+            a[dst].copy_(b[src])
+    m._w = None
+    m._inner = None
+
+
+def state_of(torch, m) -> tuple:
+    """(fields, w) of a model on the card: every shard's interior per
+    field, keyed "q shard i" (the temporal path's w ring stripped), as
+    float32 copies (a bf16 model's values exactly)."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    m.sync_domain()
+    cap = m._capacity()
+    wcap = cap if m._w_padded else (slice(None),) * 3
+    f = {f"{q} shard {i}": t[cap].float().clone()
+         for q in FIELDS for i, t in enumerate(m.dd.curr[q])}
+    w = ({f"{q} shard {i}": wi[q][wcap].float().clone()
+          for q in FIELDS for i, wi in enumerate(m._w)}
+         if m._w is not None else None)
+    return f, w
+
+
+def run_astaroth_bf16(torch, cs, cm, mo) -> dict:
+    """Phase 4, bfloat16 storage through the model class at dt 1e-4, each
+    run ``run(2)`` with the launch counts set to 0 just before it and
+    read just after: ``Astaroth(256, 256, 256, bfloat16)`` (auto must
+    take ``wrap``: 6 B9 launches; with the pair 2 B10 and 2 B9), ``halo``
+    on it as a (1,1,1) mesh (6 B11) bitwise equal to ``wrap``;
+    ``Astaroth(256, 512, 512, bfloat16)`` on four 256^3 shards of the
+    card (auto must take ``halo``: 24 B11; the pair 8 B12 and 8 B11) and
+    ``halo-overlap`` (24 B13 and 24 B14; the pair 16 and 16), bitwise
+    equal to ``halo`` (with the pair, to ``halo``+pair). Each path
+    within ``substeps x 2^-7 x max`` (one bf16 ulp of the largest value
+    a substep) of the bf16 ``xla`` path on the same grid and mesh; a
+    pair path is not bitwise its single-substep twin in bf16 (f_1 and
+    w_1 stay float32 inside the pair), which is logged."""
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+
+    prm = MhdParams(dt=MHD_PATH_DT)
+    bf = torch.bfloat16
+    out = {"launches_by_run": {}, "checks": {}}
+    zero = {k: 0 for k in list(cm.LAUNCHES) + list(mo.LAUNCHES)}
+
+    def model(kernel, size, mesh, pair="0", overlap=False):
+        with mhd_pair(pair):
+            return Astaroth(*size, params=prm, dtype=bf, kernel=kernel,
+                            overlap=overlap, mesh_shape=mesh,
+                            devices=[CARD] * (mesh[1] * mesh[2]))
+
+    def drive(label, m, ref, want_path, want):
+        if m.kernel_path != want_path:
+            raise AssertionError(f"bf16 {label}: took {m.kernel_path!r}, "
+                                 f"not {want_path!r}")
+        seed_state(torch, m, ref)
+        cm.reset_launch_counts()
+        mo.reset_launch_counts()
+        cs.reset_launch_counts()
+        m.run(2)
+        m.block()
+        counts = dict(cm.LAUNCHES, **mo.LAUNCHES)
+        log(f"  Astaroth bf16 {label} run(2) launches: {counts}")
+        if counts != dict(zero, **want):
+            raise AssertionError(f"bf16 {label} launched {counts}, not "
+                                 f"{dict(zero, **want)}")
+        if cs.LAUNCHES["laplace6"]:
+            raise AssertionError("an MHD path launched B8")
+        out["launches_by_run"][label] = counts
+        got = state_of(torch, m)
+        del m
+        torch.cuda.empty_cache()
+        return got
+
+    def near(label, got, want):
+        out["checks"][f"{label} vs bf16 xla"] = check_bf16(
+            torch, {k: v.to(bf) for k, v in got[0].items()},
+            want[0], f"bf16 {label} vs bf16 xla after 2 iterations, f",
+            ulps=6)
+
+    def bitwise(label, got, want, must=True):
+        same = all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+        if want[1] is not None and got[1] is not None:
+            same &= all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+        log(f"  bf16 {label}: {'bitwise equal' if same else 'not bitwise equal'}")
+        out["checks"][label] = same
+        if must and not same:
+            raise AssertionError(f"bf16 {label}: not bitwise equal")
+
+    cube, big = (N256,) * 3, (N256, 2 * N256, 2 * N256)
+    for size, mesh in ((cube, (1, 1, 1)), (big, (1, 2, 2))):
+        tag = "256^3" if size == cube else "256x512x512 (1,2,2)"
+        ref = model("xla", size, mesh)
+        ref.init()
+        xla = model("xla", size, mesh)
+        seed_state(torch, xla, ref)
+        xla.run(2)
+        want = state_of(torch, xla)
+        want = ({k: v.to(bf) for k, v in want[0].items()}, None)
+        del xla
+        torch.cuda.empty_cache()
+        if size == cube:
+            wrap = drive("wrap 256^3", model("auto", size, mesh), ref,
+                         "wrap", {"mhd_substep_wrap": 6})
+            near("wrap 256^3", wrap, want)
+            pair = drive("wrap+pair 256^3", model("auto", size, mesh, "1"),
+                         ref, "wrap", {"mhd_substep_wrap": 2,
+                                       "mhd_substep01_wrap": 2})
+            near("wrap+pair 256^3", pair, want)
+            bitwise("wrap+pair vs wrap 256^3 (float32 f1, w1 in the pair)",
+                    pair, wrap, must=False)
+            halo = drive("halo 256^3 (1,1,1)", model("halo", size, mesh), ref,
+                         "halo", {"mhd_substep_halo": 6})
+            bitwise("halo vs wrap 256^3 (1,1,1)", halo, wrap)
+            del wrap, pair, halo
+        else:
+            halo = drive(f"halo {tag}", model("auto", size, mesh), ref,
+                         "halo", {"mhd_substep_halo": 24})
+            near(f"halo {tag}", halo, want)
+            hpair = drive(f"halo+pair {tag}", model("auto", size, mesh, "1"),
+                          ref, "halo", {"mhd_substep_halo": 8,
+                                        "mhd_substep01_halo": 8})
+            near(f"halo+pair {tag}", hpair, want)
+            ov = drive(f"halo-overlap {tag}",
+                       model("auto", size, mesh, overlap=True), ref,
+                       "halo-overlap", {"mhd_substep_overlap": 24,
+                                        "mhd_substep_fixup": 24})
+            bitwise(f"halo-overlap vs halo {tag}", ov, halo)
+            ovp = drive(f"halo-overlap+pair {tag}",
+                        model("auto", size, mesh, "1", overlap=True), ref,
+                        "halo-overlap", {"mhd_substep_overlap": 16,
+                                         "mhd_substep_fixup": 16})
+            bitwise(f"halo-overlap+pair vs halo+pair {tag}", ovp, hpair)
+            del halo, hpair, ov, ovp
+        del ref, want
+        torch.cuda.empty_cache()
+    r = out["launches_by_run"]
+    out["launches"] = {
+        "mhd_substep_wrap": r["wrap 256^3"]["mhd_substep_wrap"],
+        "mhd_substep01_wrap": r["wrap+pair 256^3"]["mhd_substep01_wrap"],
+        "mhd_substep_halo": r["halo 256x512x512 (1,2,2)"]["mhd_substep_halo"],
+        "mhd_substep01_halo":
+            r["halo+pair 256x512x512 (1,2,2)"]["mhd_substep01_halo"],
+        "mhd_substep_overlap":
+            r["halo-overlap 256x512x512 (1,2,2)"]["mhd_substep_overlap"],
+        "mhd_substep_fixup":
+            r["halo-overlap 256x512x512 (1,2,2)"]["mhd_substep_fixup"]}
+    return out
+
+
+#: (label, exchange_every, overlap, the two runs) of phase 4's temporal
+#: check; s = 4's period is four iterations, so it runs 4 then 1
+TEMPORAL_MHD = (("s=2", 2, False, (2, 3)), ("s=3", 3, False, (2, 3)),
+                ("s=3 overlap", 3, True, (2, 3)), ("s=4", 4, False, (4, 1)))
+
+
+def run_astaroth_temporal(torch) -> dict:
+    """Phase 4, the MHD temporal path and Boundary.NONE, float32 at dt
+    1e-4 on ``Astaroth(256, 512, 512, kernel="xla")`` over four 256^3
+    shards of the card: ``exchange_every`` 2, 3 (also with overlap) and
+    4 (``xla-temporal[s=N]``), each two runs back to back (2 then 3
+    iterations; 4 then 1 at s = 4), after each held against stepwise
+    ``xla`` on the same state within ``substeps x 64 eps(f32) x max``
+    (bitwise is reported), with its host-clocked iterations/s over the
+    second run and ``exchange_stats()``; and ``xla``, ``xla-overlap``
+    and ``xla-temporal[s=3]`` with ``Boundary.NONE``, ``run(2)``, against
+    stepwise ``xla`` with ``Boundary.NONE``. No kernel runs on these
+    paths."""
+    from stencil_tpu_torch import Boundary
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+
+    prm = MhdParams(dt=MHD_PATH_DT)
+    size, mesh = (N256, 2 * N256, 2 * N256), (1, 2, 2)
+    out = {"iters_per_s": {}, "exchange_stats": {}, "bitwise": {},
+           "max_diff": {}}
+
+    def model(s=None, overlap=False, boundary=None):
+        return Astaroth(*size, params=prm, kernel="xla", mesh_shape=mesh,
+                        devices=[CARD] * 4, exchange_every=s,
+                        overlap=overlap, boundary=boundary)
+
+    def held(label, got, want, substeps):
+        e = check_fields(torch, got[0], want[0], f"{label}, f",
+                         factor=substeps * 64.0)
+        e = max(e, check_fields(torch, got[1], want[1], f"{label}, w",
+                                factor=substeps * 64.0))
+        same = (all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+                and all(torch.equal(got[1][k], want[1][k]) for k in want[1]))
+        log(f"  {label}: bitwise: {'yes' if same else 'no'}")
+        out["bitwise"][label] = same
+        out["max_diff"][label] = e
+
+    ref = model()
+    ref.init()
+    # stepwise xla after 2, 4 and 5 iterations, timed over its last 3
+    step = model()
+    seed_state(torch, step, ref)
+    want = {}
+    step.run(2)
+    want[2] = state_of(torch, step)
+    step.block()
+    t0 = time.perf_counter()
+    step.run(2)
+    want[4] = state_of(torch, step)
+    step.run(1)
+    step.block()
+    out["iters_per_s"]["xla stepwise"] = 3 / (time.perf_counter() - t0)
+    want[5] = state_of(torch, step)
+    out["exchange_stats"]["xla stepwise"] = step.exchange_stats()
+    del step
+    torch.cuda.empty_cache()
+    for label, s, overlap, (n1, n2) in TEMPORAL_MHD:
+        m = model(s, overlap)
+        path = f"xla-temporal[s={s}]" + ("-overlap" if overlap else "")
+        if m.kernel_path != path:
+            raise AssertionError(f"temporal {label}: took {m.kernel_path!r}")
+        seed_state(torch, m, ref)
+        m.run(n1)
+        held(f"{path} after {n1} vs stepwise xla", state_of(torch, m),
+             want[n1], 3 * n1)
+        m.block()
+        t0 = time.perf_counter()
+        m.run(n2)
+        m.block()
+        out["iters_per_s"][path] = n2 / (time.perf_counter() - t0)
+        held(f"{path} after {n1} + {n2} vs stepwise xla", state_of(torch, m),
+             want[n1 + n2], 3 * (n1 + n2))
+        out["exchange_stats"][path] = m.exchange_stats()
+        log(f"  {path}: {out['iters_per_s'][path]!r} iterations/s over "
+            f"run({n2}) (stepwise xla {out['iters_per_s']['xla stepwise']!r})"
+            f"; exchange_stats {out['exchange_stats'][path]}")
+        del m
+        torch.cuda.empty_cache()
+    del want
+    none = Boundary.NONE
+    step = model(boundary=none)
+    seed_state(torch, step, ref)
+    step.run(2)
+    want = state_of(torch, step)
+    del step
+    for label, s, overlap in (("xla-overlap", None, True),
+                              ("xla-temporal[s=3]", 3, False)):
+        m = model(s, overlap, none)
+        if m.kernel_path != label:
+            raise AssertionError(f"Boundary.NONE {label}: took "
+                                 f"{m.kernel_path!r}")
+        seed_state(torch, m, ref)
+        m.run(2)
+        held(f"Boundary.NONE {label} after 2 vs stepwise xla",
+             state_of(torch, m), want, 6)
+        del m
+        torch.cuda.empty_cache()
+    del ref, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_astaroth_bf16_paths(torch) -> dict:
+    """Phase 5, iterations/s of the bf16 paths at dt 1e-8: ``wrap`` and
+    ``wrap``+pair on 256^3, ``halo``, ``halo``+pair, ``halo-overlap`` and
+    ``halo-overlap``+pair on four 256^3 shards of the card; three
+    host-clocked runs pooled (``timed_runs``), each model seeded from
+    one ``init()`` on the card (``seed_state``). The float32 rates of
+    the same paths are phase 5's own, in the same process."""
+    from stencil_tpu_torch.models.astaroth import Astaroth
+
+    res, runs = {}, {}
+    cube, big = (N256,) * 3, (N256, 2 * N256, 2 * N256)
+    for size, mesh, k, cases in (
+            (cube, (1, 1, 1), 20, (("wrap 256^3", "0", False),
+                                   ("wrap+pair 256^3", "1", False))),
+            (big, (1, 2, 2), 10,
+             (("halo 256x512x512 (1,2,2)", "0", False),
+              ("halo+pair 256x512x512 (1,2,2)", "1", False),
+              ("halo-overlap 256x512x512 (1,2,2)", "0", True),
+              ("halo-overlap+pair 256x512x512 (1,2,2)", "1", True)))):
+        devs = [CARD] * (mesh[1] * mesh[2])
+        ref = Astaroth(*size, dtype=torch.bfloat16, kernel="xla",
+                       mesh_shape=mesh, devices=devs)
+        ref.init()
+        for label, pair, overlap in cases:
+            with mhd_pair(pair):
+                m = Astaroth(*size, dtype=torch.bfloat16, mesh_shape=mesh,
+                             devices=devs, overlap=overlap)
+            seed_state(torch, m, ref)
+            m.run(1)
+            m.block()
+            res[label], runs[label] = timed_runs(m, k)
+            log(f"  Astaroth bf16 {label} ({m.kernel_path}): {res[label]!r} "
+                f"iterations/s over three runs ({runs[label]})")
+            del m
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+    return {"iters_per_s": res, "runs_iters_per_s": runs}
+
+
+def time_mhd_bf16_kernels(torch, cm, mo) -> dict:
+    """Phase 5, bfloat16 storage: B9 (each s) and B10 on a 256^3 field,
+    B11 (each s), B12, B13 and B14 (each s and the pair) on one 256^3
+    shard (a (1,1,1) mesh), by CUDA events after two warm-ups, beside
+    their bf16 twins and bounds with 2-byte storage (the pair's f1, w1
+    and margin are scratch, not counted, as for float32); B9 and B11
+    float32 at s=0 in the same process, beside them."""
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    gen = torch.Generator(device="cuda").manual_seed(1617)
+    n = N256
+    pts = float(n ** 3)
+    field = 2.0 * pts
+    prm = MhdParams()
+    dt = prm.dt
+    counts = Dim3(1, 1, 1)
+    f32, w32 = mhd_state(torch, (n, n, n), gen)
+    f, w = bf16_of(torch, f32), bf16_of(torch, w32)
+    t = torch.stack(list(f.values()))
+    sl3 = mhd_slabs([t], (1, 1, 1), rz=3, ry=3)[0]
+    sl6 = mhd_slabs([t], (1, 1, 1), rz=6, ry=6)[0]
+    sl3f = mhd_slabs([t.float()], (1, 1, 1), rz=3, ry=3)[0]
+    of = per_field(torch.empty_like(t))
+    ow = per_field(torch.empty_like(t))
+    recv = mo.MhdOverlapRecv([t], counts)
+
+    def slab_bytes(r):
+        return 2.0 * 8 * (2 * r * n * n + 2 * (n + 2 * r) * r * n)
+
+    res = {name: {"variants": {}} for name in BF16_NAMES}
+    f32_ms = {
+        "B9 float32 s=0": event_ms(torch, lambda: cm.mhd_substep_wrap_cuda(
+            f32, None, 0, prm, dt), reps=10),
+        "B11 float32 s=0": event_ms(torch, lambda: cm.mhd_substep_halo_cuda(
+            f32, None, sl3f, 0, prm, dt), reps=10)}
+    for k, v in f32_ms.items():
+        log(f"  {k} (same process): {v!r} ms/launch")
+    cases = []
+    for s, read_w, write_w in ((0, False, True), (1, True, True),
+                               (2, True, False)):
+        wi = w if read_w else None
+        wo = ow if write_w else None
+        passes = 8 + (8 if read_w else 0) + 8 + (8 if write_w else 0)
+        tag = overlap_variant_tag(s, read_w, write_w, False)
+        cases += [
+            ("mhd_substep_wrap", tag,
+             lambda s=s, wi=wi, write_w=write_w: cm.mhd_substep_wrap_cuda(
+                 f, wi, s, prm, dt, write_w=write_w),
+             lambda s=s, wi=wi, write_w=write_w: cm.mhd_substep_wrap_plain(
+                 f, wi, s, prm, dt, write_w=write_w),
+             passes * field, B9_FLOPS[s] * pts, 10),
+            ("mhd_substep_halo", tag,
+             lambda s=s, wi=wi, write_w=write_w: cm.mhd_substep_halo_cuda(
+                 f, wi, sl3, s, prm, dt, write_w=write_w),
+             lambda s=s, wi=wi, write_w=write_w: cm.mhd_substep_halo_plain(
+                 f, wi, sl3, s, prm, dt, write_w=write_w),
+             passes * field + slab_bytes(3), B9_FLOPS[s] * pts, 10),
+        ]
+    cases += [
+        ("mhd_substep01_wrap", "pair",
+         lambda: cm.mhd_substep01_wrap_cuda(f, prm, dt),
+         lambda: cm.mhd_substep01_wrap_plain(f, prm, dt),
+         24 * field, B10_FLOPS * pts, 5),
+        ("mhd_substep01_halo", "pair",
+         lambda: cm.mhd_substep01_halo_cuda(f, sl6, prm, dt),
+         lambda: cm.mhd_substep01_halo_plain(f, sl6, prm, dt),
+         24 * field + slab_bytes(6), B10_FLOPS * pts, 5)]
+    for name, tag, kern, plain, nbytes, flops, reps in cases:
+        ms = event_ms(torch, kern, reps=reps)
+        plain_ms = event_ms(torch, plain, reps=1, warmup=1)
+        bms, by = bound_ms(nbytes, flops)
+        res[name]["variants"][tag] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+        log(f"  {name} bf16 {tag}: {ms!r} ms/launch, bound {bms!r} ms "
+            f"({by}), {100 * bms / ms:.1f}% of bound; plain twin "
+            f"{plain_ms!r} ms")
+        torch.cuda.empty_cache()
+    fl, wl = [f], [w]
+    for s, read_w, write_w, pair in OVERLAP_VARIANTS:
+        tag = overlap_variant_tag(s, read_w, write_w, pair)
+        wi = wl if read_w else None
+        wo = [ow] if write_w else None
+
+        def b13():
+            mo.mhd_substep_overlap_cuda(fl, wi, s, prm, dt, counts,
+                                        pair=pair, write_w=write_w,
+                                        out_f=[of], out_w=wo, recv=recv)
+
+        def b14():
+            mo.mhd_substep_fixup_cuda(fl, wi, [of], wo, s, prm, dt, counts,
+                                      recv, pair=pair)
+
+        b13()
+        reps = 3 if pair else 10
+        pts_in = mo.interior_region(n, n, pair)
+        p_in = float(pts_in[1] * pts_in[3] * n) if pts_in else 0.0
+        flops = B10_FLOPS if pair else B9_FLOPS[s]
+        for name, fn, nbytes, p in (
+                ("mhd_substep_overlap", b13,
+                 b13_bytes((n, n, n), read_w, write_w, pair, item=2), p_in),
+                ("mhd_substep_fixup", b14,
+                 b14_bytes((n, n, n), read_w, write_w, pair, item=2),
+                 pts - p_in)):
+            ms = event_ms(torch, fn, reps=reps)
+            dev = device_ms(torch, fn, reps=reps)
+            bms, by = bound_ms(nbytes, flops * p)
+            res[name]["variants"][tag] = {
+                "ms": ms, "device_ms": dev, "plain_ms": None,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+            log(f"  {name} bf16 {tag}, one 256^3 shard: {ms!r} ms, device "
+                f"time alone {dev!r} ms, bound {bms!r} ms ({by}), "
+                f"{100 * bms / dev:.1f}% of bound (device)")
+    # B13's and B14's twin: the overlap twin over the shard, once a
+    # substep (both launches' function)
+    for s, read_w, write_w, pair in OVERLAP_VARIANTS:
+        tag = overlap_variant_tag(s, read_w, write_w, pair)
+        wi = wl if read_w else None
+        plain = event_ms(torch, lambda: mo.mhd_substep_overlap_plain(
+            fl, wi, s, prm, dt, counts, pair=pair, write_w=write_w),
+            reps=1, warmup=1)
+        for name in ("mhd_substep_overlap", "mhd_substep_fixup"):
+            res[name]["variants"][tag]["plain_ms"] = plain
+    out = {}
+    for name, r in res.items():
+        v = r["variants"]
+        main = [x for k, x in v.items() if k != "pair"] or list(v.values())
+        if name in ("mhd_substep_overlap", "mhd_substep_fixup"):
+            main = [v[overlap_variant_tag(*var)]
+                    for var in OVERLAP_VARIANTS[:3]]
+        out[name] = {k: sum(x[k] for x in main) / len(main)
+                     for k in ("ms", "plain_ms", "bound_ms")}
+        out[name].update(bound_by=main[-1]["bound_by"], library_ms=None,
+                         variants=v)
+    out["float32_same_process"] = f32_ms
+    del f32, w32, f, w, t, sl3, sl6, sl3f, of, ow, recv
+    torch.cuda.empty_cache()
+    return out
+
+
 # name: (tag, source, TPU kernel it replaces)
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
@@ -3363,32 +4048,58 @@ PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo", "laplace6")
 
 
+def _storage(name: str, m) -> tuple:
+    """The storage types after a match of the bool template arguments: ()
+    for the float32 instance, else ("bf16", ...) or the (TIn, TOut) pair
+    of a mixed instance."""
+    rest = name[m.end():]
+    if rest.startswith("ffE") or rest.startswith("fE"):
+        return ()
+    if rest.startswith("13__nv_bfloat16S1_E") or rest.startswith(
+            "13__nv_bfloat16E"):
+        return ("bf16",)
+    if rest.startswith("13__nv_bfloat16fE"):
+        return ("bf16->f32",)
+    if rest.startswith("f13__nv_bfloat16E"):
+        return ("f32->bf16",)
+    return ("?",)
+
+
 def kernel_key(lib: str, name: str):
     """(library, read_w, write_w) of an MHD ring-kernel instantiation
-    (``mhd_substep_ring_kernel<kReadW, kWriteW>``, which the ``mhd``
-    library launches as B9 and B11 and ``mhd_overlap`` as B13's
+    (``mhd_substep_ring_kernel<kReadW, kWriteW, TIn, TOut>``, which the
+    ``mhd`` library launches as B9 and B11 and ``mhd_overlap`` as B13's
     interior, and twice each as B10 and B12), (library, "shell", read_w,
     write_w) of B14's (``mhd_shell_kernel``, the ring's z and y
     instances), (library, "margin") of B12's margin
-    (``mhd_margin_kernel``, the same two instances), (library,
-    "jacobi_ring") of the Jacobi ring kernel (K2 in ``jacobi7``, B6 in
-    ``jacobi_halo``), or (library, "laplace6_ring", copy floats, 16-byte
-    stores) of B8's (``laplace6_ring_kernel<kChunk, kVecOut>``), from its
-    mangled name, else None."""
+    (``mhd_margin_kernel``, the same two instances), each followed by
+    its storage types where they are not float32 ("bf16", or the pair's
+    "bf16->f32" and "f32->bf16"), (library, "send_rows", ...) of B13's
+    sends, (library, "jacobi_ring") of the Jacobi ring kernel (K2 in
+    ``jacobi7``, B6 in ``jacobi_halo``), or (library, "laplace6_ring",
+    copy floats, 16-byte stores) of B8's (``laplace6_ring_kernel<kChunk,
+    kVecOut>``), from its mangled name, else None."""
     import re
 
+    if lib not in RING_LIBS:
+        return None
     m = re.search(r"mhd_substep_ring_kernelILb(\d)ELb(\d)E", name)
-    if m and lib in RING_LIBS:
-        return (lib, m.group(1) == "1", m.group(2) == "1")
+    if m:
+        return (lib, m.group(1) == "1", m.group(2) == "1") + _storage(name, m)
     m = re.search(r"mhd_shell_kernelILb(\d)ELb(\d)E", name)
-    if m and lib in RING_LIBS:
-        return (lib, "shell", m.group(1) == "1", m.group(2) == "1")
-    if "mhd_margin_kernel" in name and lib in RING_LIBS:
-        return (lib, "margin")
-    if "jacobi_ring_kernel" in name and lib in RING_LIBS:
+    if m:
+        return ((lib, "shell", m.group(1) == "1", m.group(2) == "1")
+                + _storage(name, m))
+    m = re.search(r"mhd_margin_kernelI", name)
+    if m:
+        return (lib, "margin") + _storage(name, m)
+    m = re.search(r"send_rows_kernelI", name)
+    if m:
+        return (lib, "send_rows") + _storage(name, m)
+    if "jacobi_ring_kernel" in name:
         return (lib, "jacobi_ring")
     m = re.search(r"laplace6_ring_kernelILi(\d)ELb(\d)E", name)
-    if m and lib in RING_LIBS:
+    if m:
         return (lib, "laplace6_ring", int(m.group(1)), m.group(2) == "1")
     return None
 
@@ -3523,6 +4234,8 @@ def main() -> int:
     worst.update(compare_mhd_halo_kernels(torch, cm))
     worst.update(compare_dma_overlap_kernels(torch, cx, co))
     worst.update(compare_mhd_overlap_kernels(torch, cm, mo))
+    log("phase 3: bfloat16 storage on the MHD ring kernels (B9-B14)")
+    worst_bf16 = compare_mhd_bf16_kernels(torch, cm, mo)
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -3556,6 +4269,12 @@ def main() -> int:
     log("phase 4: halo wire formats (bf16, e4m3, e5m2), the irredundant "
         "layout and the packed and all-gather engines on one card")
     wire_path = run_wire_paths(torch, cs)
+    log("phase 4: Astaroth bfloat16 storage (wrap, halo, halo-overlap, "
+        "+ pair) on one card")
+    bf16_path = run_astaroth_bf16(torch, cs, cm, mo)
+    log("phase 4: Astaroth temporal path (exchange_every 2-4 on xla) and "
+        "Boundary.NONE on four 256^3 shards of one card")
+    mhd_temporal = run_astaroth_temporal(torch)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -3583,6 +4302,15 @@ def main() -> int:
              / mhd_halo_times["iters_per_s"]["halo+pair 256x512x512 (1,2,2)"])
     log(f"  Astaroth halo-overlap+pair / halo+pair on four 256^3 shards: "
         f"{ratio!r}")
+    bf16_rates = time_astaroth_bf16_paths(torch)
+    f32_rates = {"wrap 256^3": ips["wrap"],
+                 "wrap+pair 256^3": ips["wrap+pair"]}
+    f32_rates.update(mhd_halo_times["iters_per_s"])
+    f32_rates.update(mhd_overlap_times["iters_per_s"])
+    for label, rate in bf16_rates["iters_per_s"].items():
+        log(f"  Astaroth {label}: bf16 {rate!r} against float32 "
+            f"{f32_rates.get(label)!r} iterations/s")
+    bf16_times = time_mhd_bf16_kernels(torch, cm, mo)
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
@@ -3648,12 +4376,32 @@ def main() -> int:
         if name == "mhd_substep_fixup":
             entry["ptxas"] = {
                 f"mhd_shell_kernel read_w={k[2]}, write_w={k[3]}": use
-                for k, use in ptxas.items() if k[:2] == ("mhd_overlap",
-                                                         "shell")}
+                for k, use in ptxas.items()
+                if k[:2] == ("mhd_overlap", "shell") and len(k) == 4}
             entry["ptxas"]["mhd_margin_kernel"] = ptxas.get(
                 ("mhd_overlap", "margin"), {})
         if "variants" in t:
             entry["variants"] = t["variants"]
+        kernels.append(entry)
+    # the bfloat16 instances of B9-B14: launches of the phase-4 bf16
+    # runs, errors against the bf16 twins, times of phase 5
+    for name in BF16_NAMES:
+        tag, source, replaces = KERNEL_META[name]
+        t = bf16_times[name]
+        lib = "mhd_overlap" if name in ("mhd_substep_overlap",
+                                        "mhd_substep_fixup") else "mhd"
+        entry = {
+            "name": f"{name} bf16 ({tag})", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": bf16_path["launches"][name],
+            "max_abs_err": worst_bf16[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "variants": t["variants"],
+            "ptxas": {", ".join(str(x) for x in k[1:]): use
+                      for k, use in ptxas.items()
+                      if k[0] == lib and len(k) > 1
+                      and k[-1] in ("bf16", "bf16->f32", "f32->bf16")}}
         kernels.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3711,7 +4459,14 @@ def main() -> int:
                        dma_times["runs_steps_per_s"],
                    "whole_exchange_ms": dma_times["whole_exchange_ms"],
                    "measure_overlap": dma_times["measure_overlap"],
-                   "kernels": kernels}, f, indent=1)
+                   "astaroth_bf16_path": bf16_path,
+                   "astaroth_bf16_iters_per_s": bf16_rates["iters_per_s"],
+                   "astaroth_bf16_runs_iters_per_s":
+                       bf16_rates["runs_iters_per_s"],
+                   "astaroth_f32_iters_per_s_same_run": f32_rates,
+                   "bf16_kernel_times": bf16_times,
+                   "astaroth_temporal": mhd_temporal,
+                   "kernels": kernels}, f, indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

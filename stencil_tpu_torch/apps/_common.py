@@ -83,8 +83,10 @@ def add_dtype_flags(ap: argparse.ArgumentParser) -> None:
     g = ap.add_mutually_exclusive_group()
     g.add_argument("--f64", action="store_true")
     g.add_argument("--bf16", action="store_true",
-                   help="bfloat16 fields (the plain PyTorch paths; the "
-                        "CUDA kernels take float32)")
+                   help="bfloat16 fields (Astaroth: stored half-width, "
+                        "computed in float32, its CUDA kernels included; "
+                        "Jacobi: the plain PyTorch paths, its CUDA kernels "
+                        "take float32)")
 
 
 def dtype_from_args(args):

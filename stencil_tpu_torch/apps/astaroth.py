@@ -29,7 +29,11 @@ each substep's exchange behind the interior compute (``halo-overlap``:
 B13/B14 with ``--kernel halo``, or ``auto`` on the card; else
 ``xla-overlap``); the method flags (``--slab``, ``--packed``,
 ``--allgather``, ``--pallas-dma``) choose the exchange of the ``xla``
-paths.
+paths. ``--exchange-every S`` is the JAX app's temporal blocking: one
+depth-3S exchange per S RK substeps (``xla-temporal[s=S]``; S=2 is the
+substep pair on the halo paths). ``--f64`` and ``--bf16`` choose the
+field dtype (float32 by default; bfloat16 is stored half-width and
+computed in float32, on the CUDA kernels too).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from __future__ import annotations
 import argparse
 import time
 
-from ._common import add_method_flags, mesh_shape, methods_from_args
+from ._common import (add_dtype_flags, add_method_flags, dtype_from_args,
+                      mesh_shape, methods_from_args)
 
 
 def main(argv=None) -> None:
@@ -55,7 +60,13 @@ def main(argv=None) -> None:
                          "with slab exchange; with --overlap the slabs "
                          "are sent inside the kernels), xla (plain "
                          "PyTorch on the halo-padded shards), or auto")
-    ap.add_argument("--dtype", default="f32", choices=("f32", "f64"))
+    add_dtype_flags(ap)
+    ap.add_argument("--exchange-every", type=int, default=0, metavar="S",
+                    help="communication-avoiding temporal blocking: one "
+                         "depth-(S*R) exchange per S RK substeps "
+                         "(multiples of 3 keep the w accumulator off the "
+                         "wire; S=2 maps to the substep pair on the halo "
+                         "paths)")
     ap.add_argument("--overlap", action="store_true",
                     help="interior/exterior comm-compute overlap per "
                          "substep")
@@ -69,15 +80,13 @@ def main(argv=None) -> None:
     add_method_flags(ap)
     args = ap.parse_args(argv)
 
-    import torch
-
     from ..models.astaroth import Astaroth, MhdParams
     from ..numerics import Statistics
     from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
                                  resolve_devices)
 
     prm = MhdParams.from_conf(args.conf) if args.conf else MhdParams()
-    dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
+    dtype = dtype_from_args(args)
     shape = args.mesh_shape
     if args.devices is not None:
         devices = args.devices.split(",")
@@ -93,7 +102,8 @@ def main(argv=None) -> None:
     gx, gy, gz = args.nx * shape[0], args.ny * shape[1], args.nz * shape[2]
     m = Astaroth(gx, gy, gz, params=prm, dtype=dtype, kernel=args.kernel,
                  mesh_shape=shape, devices=devices, overlap=args.overlap,
-                 methods=methods_from_args(args))
+                 methods=methods_from_args(args),
+                 exchange_every=args.exchange_every or None)
     m.init()
     stats = Statistics()
     for i in range(2 + max(args.iters, 1)):

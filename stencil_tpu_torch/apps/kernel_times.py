@@ -4,7 +4,7 @@ that two checkouts can be compared in turns in one call.
 
     python3 stencil_tpu_torch/apps/kernel_times.py
         [--model jacobi|mhd|pair|laplace6|exchange] [--root DIR]
-        [--label NAME] [--paths] [--baseline] [--plans]
+        [--label NAME] [--paths] [--baseline] [--plans] [--bf16]
 
 ``--root DIR`` imports ``stencil_tpu_torch`` from DIR (default: this
 checkout), say a parent commit unpacked with ``git archive`` into a
@@ -59,6 +59,11 @@ rates of ``wrap`` and ``wrap`` + pair at 256^3, of ``halo``, ``halo`` +
 pair, ``halo-overlap`` and ``halo-overlap`` + pair on 256 x 512 x 512
 over (1,2,2), four shards on the card, and of ``halo-overlap`` with and
 without the pair on 256^3 over (1,1,1) (three ``run(10)`` each).
+
+``--bf16`` (``--model mhd`` and ``pair``): the same with bfloat16
+fields (stored half-width, computed in float32; the pairs' scratch
+float32), the bounds counting 2-byte cells, the paths in bfloat16; the
+results go to ``kernel_times_<model>_bf16_<label>.json``.
 
 ``--model laplace6``: B8 (laplace6, no model path runs it) on a random
 256^3 interior padded by 3 (Astaroth's per-rank grid) and on 136 x 128
@@ -266,6 +271,14 @@ def build_baseline(root: Path, flags, log: io.StringIO):
     return fn
 
 
+def _storage(args):
+    """(torch dtype, bytes a cell) of the MHD fields: float32, or with
+    ``--bf16`` bfloat16."""
+    import torch
+
+    return ((torch.bfloat16, 2) if args.bf16 else (torch.float32, 4))
+
+
 def _tag(s: int, read_w: bool, write_w: bool) -> str:
     return (f"s={s}{'' if read_w else ' (w=None)'}"
             f"{'' if write_w else ' (write_w=False)'}")
@@ -282,6 +295,7 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
     from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
 
     smoke, reps, n = m.smoke, 10, 256
+    dtype, item = _storage(args)
     with contextlib.redirect_stdout(log):
         _build.build_all(["mhd", "mhd_overlap"])
     gen = torch.Generator(device="cuda").manual_seed(24680)
@@ -295,6 +309,8 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
                                (2 * n, 2 * n, n))):
         counts = Dim3(*mesh)
         shards, ws = smoke.mhd_mesh_case(torch, gen, size, mesh)
+        shards = [t.to(dtype) for t in shards]
+        ws = [t.to(dtype) for t in ws]
         f = [smoke.per_field(t) for t in shards]
         w = [smoke.per_field(t) for t in ws]
         of = [smoke.per_field(torch.empty_like(t)) for t in shards]
@@ -312,14 +328,15 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
 
             per = len(shards)
             cases[f"B14 {_tag(s, read_w, write_w)}, {where}"] = (
-                b14, per * smoke.b14_bytes(shape, read_w, write_w, False),
+                b14, per * smoke.b14_bytes(shape, read_w, write_w, False,
+                                           item=item),
                 per * smoke.B9_FLOPS[s] * p_sh)
 
     # B11 (and the baseline) on the one shard
     shards, ws, recv = meshes["one 256^3 shard"]
     f, w = smoke.per_field(shards[0]), smoke.per_field(ws[0])
     landed = recv.landed(cm.R)[0]
-    slab = 8 * 4.0 * (2 * cm.R * n * n + 2 * (n + 2 * cm.R) * cm.R * n)
+    slab = 8 * item * (2 * cm.R * n * n + 2 * (n + 2 * cm.R) * cm.R * n)
     res = {"reps": reps, "cases": {}, "checks": {}}
     if args.baseline:
         launch = build_baseline(Path(args.root).resolve(),
@@ -342,7 +359,7 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
                                      write_w=write_w)
 
         cases[f"B11 {tag}, one 256^3 shard"] = (
-            b11, 4.0 * (16 + wr) * n ** 3 + slab, smoke.B9_FLOPS[s] * n ** 3)
+            b11, item * (16 + wr) * n ** 3 + slab, smoke.B9_FLOPS[s] * n ** 3)
         if not args.baseline:
             continue
         out_f = smoke.per_field(torch.empty_like(shards[0]))
@@ -412,7 +429,8 @@ def mhd(args, m: Measuring, log: io.StringIO) -> dict:
         res["paths"] = {}
         for label, overlap in (("halo-overlap", True), ("halo", False)):
             a = Astaroth(n, 2 * n, 2 * n, kernel="halo", overlap=overlap,
-                         mesh_shape=(1, 2, 2), devices=["cuda:0"] * 4)
+                         mesh_shape=(1, 2, 2), devices=["cuda:0"] * 4,
+                         dtype=dtype)
             a.init()
             a.run(1)
             a.block()
@@ -438,11 +456,14 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
 
     smoke, reps, n = m.smoke, 10, 256
+    dtype, item = _storage(args)
     with contextlib.redirect_stdout(log):
         _build.build_all(["mhd", "mhd_overlap"])
     gen = torch.Generator(device="cuda").manual_seed(13579)
     shards, ws = smoke.mhd_mesh_case(torch, gen, (2 * n, 2 * n, n),
                                      (1, 2, 2))
+    shards = [t.to(dtype) for t in shards]
+    ws = [t.to(dtype) for t in ws]
     f, w = smoke.per_field(shards[0]), smoke.per_field(ws[0])
     sl3 = smoke.mhd_slabs(shards, (1, 2, 2), rz=cm.R, ry=cm.R)[0]
     sl6 = smoke.mhd_slabs(shards, (1, 2, 2), rz=2 * cm.R, ry=2 * cm.R)[0]
@@ -450,7 +471,7 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     prm = MhdParams()
     dt = prm.dt
     pts = float(n ** 3)
-    field = 4 * pts
+    field = item * pts
     one = Dim3(1, 1, 1)
     recv = mo.MhdOverlapRecv([shards[0]], one)
     of = [smoke.per_field(torch.empty_like(shards[0]))]
@@ -459,7 +480,7 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     shape = (n, n, n)
 
     def slab_bytes(r):       # the slab rows a kernel reads, 8 fields
-        return 8 * 4.0 * (2 * r * n * n + 2 * (n + 2 * r) * r * n)
+        return 8 * item * (2 * r * n * n + 2 * (n + 2 * r) * r * n)
 
     cases = {}
     for s, read_w, write_w in MHD_VARIANTS:
@@ -484,7 +505,7 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
         cases[f"B9 {tag}"] = (b9, (8 + 8 + wr) * field, flops)
         cases[f"B11 {tag}"] = (b11, (8 + 8 + wr) * field + slab_bytes(cm.R),
                                flops)
-        cases[f"B13 {tag}"] = (b13, 4.0 * (8 * pts + (8 + wr) * inner)
+        cases[f"B13 {tag}"] = (b13, item * (8 * pts + (8 + wr) * inner)
                                + slab_bytes(cm.R),
                                smoke.B9_FLOPS[s] * inner)
     cases["B10"] = (lambda: cm.mhd_substep01_wrap_cuda(f, prm, dt),
@@ -506,9 +527,11 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
     b13_pair()
     z0, nz, y0, ny = mo.interior_region(n, n, True)
     inner2 = float(nz * ny * n)
-    cases["B13 pair"] = (b13_pair, smoke.b13_bytes(shape, False, True, True),
+    cases["B13 pair"] = (b13_pair, smoke.b13_bytes(shape, False, True, True,
+                                                   item=item),
                          smoke.B10_FLOPS * inner2)
-    cases["B14 pair"] = (b14_pair, smoke.b14_bytes(shape, False, True, True),
+    cases["B14 pair"] = (b14_pair, smoke.b14_bytes(shape, False, True, True,
+                                                   item=item),
                          smoke.B10_FLOPS * (pts - inner2))
     turns = time_in_turns(cases, {
         "events": lambda fn: smoke.event_ms(torch, fn, reps),
@@ -553,7 +576,7 @@ def pair(args, m: Measuring, log: io.StringIO) -> dict:
                  "1", True)):
             with smoke.mhd_pair(on):
                 a = Astaroth(*size, kernel=kernel, overlap=overlap,
-                             mesh_shape=mesh,
+                             mesh_shape=mesh, dtype=dtype,
                              devices=["cuda:0"] * (mesh[1] * mesh[2]))
             a.init()
             a.run(1)
@@ -776,6 +799,8 @@ def main(argv=None) -> int:
                     help="with --model mhd: B14's z-streaming baseline")
     ap.add_argument("--plans", action="store_true",
                     help="with --model laplace6: B8 at other launch plans")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --model mhd or pair: bfloat16 fields")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     m = Measuring()
@@ -793,8 +818,9 @@ def main(argv=None) -> int:
     for name, use in res["ptxas"].items():
         print(f"{args.label}: ptxas {name}: {use}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
+    model = args.model + ("_bf16" if args.bf16 else "")
     path = os.path.join("chiprun_out",
-                        f"kernel_times_{args.model}_{args.label}.json")
+                        f"kernel_times_{model}_{args.label}.json")
     with open(path, "w") as f:
         json.dump(res, f, indent=1)
     print(card)

@@ -12,6 +12,10 @@ device; ``interior_from_jax`` checks a global interior for
 of any mesh; ``astaroth_state_from_jax`` cuts a whole MHD state into
 the shards of a mesh.
 Nothing here imports JAX: the two packages meet only in numpy arrays.
+numpy has no bfloat16: a JAX bfloat16 array (an ml_dtypes array on the
+JAX side) comes across as its ``uint16`` bits (``arr.view(np.uint16)``)
+or as the float32 array of its values, and becomes a bfloat16 tensor
+when the target dtype is bfloat16 (``tensor_from_jax``).
 """
 
 from __future__ import annotations
@@ -58,16 +62,36 @@ def field_from_jax(arr: np.ndarray, radius: Radius, layout: str = "padded",
     return out
 
 
-def interior_from_jax(arr: np.ndarray,
-                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A global (z,y,x) interior as a host tensor (a copy), for
-    ``DistributedDomain.set_interior``; ``dtype`` (default: ``arr``'s)
-    must match ``arr``'s exactly — the state is carried bit for bit."""
+def tensor_from_jax(arr: np.ndarray,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host tensor (a copy) of a JAX array handed over as numpy, bit
+    for bit: ``dtype`` (default: ``arr``'s) must match ``arr``'s, except
+    that a bfloat16 target takes ``uint16`` bits, or float32 values that
+    bfloat16 holds exactly."""
     arr = np.asarray(arr)
+    if dtype is not None and torch_dtype(dtype) == torch.bfloat16:
+        if arr.dtype == np.uint16:
+            return torch.from_numpy(arr.copy()).view(torch.int16).view(
+                torch.bfloat16)
+        if arr.dtype == np.float32:
+            out = torch.from_numpy(arr.copy()).to(torch.bfloat16)
+            if not torch.equal(out.float(), torch.from_numpy(arr)):
+                raise TypeError("float32 values that bfloat16 does not hold "
+                                "exactly; convert explicitly before loading")
+            return out
     if dtype is not None and torch_dtype(dtype) != torch_dtype(arr.dtype):
         raise TypeError(f"field dtype {arr.dtype} does not match "
                         f"{dtype}; convert explicitly before loading")
     return torch.tensor(arr)
+
+
+def interior_from_jax(arr: np.ndarray,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A global (z,y,x) interior as a host tensor (a copy), for
+    ``DistributedDomain.set_interior``; ``dtype`` (default: ``arr``'s)
+    must match ``arr``'s exactly, bfloat16 as ``tensor_from_jax`` takes
+    it — the state is carried bit for bit."""
+    return tensor_from_jax(arr, dtype)
 
 
 def _scatter(values: torch.Tensor, domain, radius: Optional[Radius]
@@ -89,23 +113,43 @@ def _scatter(values: torch.Tensor, domain, radius: Optional[Radius]
     return shards
 
 
+def _blocks(values: torch.Tensor, domain) -> List[torch.Tensor]:
+    """A global array of equal per-shard blocks (JAX's layout of a
+    sharded array, the block of mesh position (x, y, z) at block index
+    (z, y, x)) cut into ``domain``'s shards on their devices."""
+    c = domain.mesh_counts
+    bz, by, bx = (values.shape[0] // c.z, values.shape[1] // c.y,
+                  values.shape[2] // c.x)
+    out = []
+    for i, dev in enumerate(domain.mesh.devices):
+        m = domain.shard_index(i)
+        out.append(values[m.z * bz:(m.z + 1) * bz, m.y * by:(m.y + 1) * by,
+                          m.x * bx:(m.x + 1) * bx].to(dev).clone())
+    return out
+
+
 def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
                             w: Optional[Dict[str, np.ndarray]], domain,
                             dtype: Optional[torch.dtype] = None):
     """The port's MHD state from the JAX model's: ``fields[q]`` are the
     global (z,y,x) interiors of its ``field(q)``, ``w[q]`` its ``_w``
-    accumulators (interior-shaped; None before its first step). Returns
-    ``({q: [shard]}, {q: [shard]} or None)``: the shards (x fastest) of
-    ``domain``, a realized ``DistributedDomain``, on their devices, each
-    at capacity — the radius-3 padded field with zero halos, and the
-    unpadded w; a short shard's dead rows are zero. Bit for bit;
-    ``dtype``, if given, must match the arrays'."""
+    accumulators (None before its first step): interior-shaped, or, from
+    JAX's temporal path, padded — a global array of one ``raw_size(local,
+    alloc_radius)`` block per mesh position. Returns ``({q: [shard]}, {q:
+    [shard]} or None)``: the shards (x fastest) of ``domain``, a realized
+    ``DistributedDomain``, on their devices, each at capacity — the field
+    padded at ``domain.alloc_radius`` with zero halos, and w unpadded, or
+    padded as given; a short shard's dead rows are zero. Bit for bit;
+    ``dtype``, if given, must match the arrays' (bfloat16 as
+    ``tensor_from_jax`` takes it)."""
     from .models.astaroth import FIELDS
 
     if set(fields) != set(FIELDS) or (w is not None and set(w) != set(FIELDS)):
         raise ValueError(f"an Astaroth state holds exactly {FIELDS}")
-    radius = Radius.constant(3)
+    radius = domain.alloc_radius
     shape = zyx_shape(domain.size)
+    padded = zyx_shape(raw_size(domain.local_size, radius)
+                       * domain.mesh_counts)
     out = {}
     for q in FIELDS:
         t = interior_from_jax(fields[q], dtype)
@@ -118,11 +162,15 @@ def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
     wt = {}
     for q in FIELDS:
         arr = np.asarray(w[q])
-        if arr.shape != shape:
+        if arr.shape not in (shape, padded):
             raise ValueError(f"w[{q!r}] has shape {arr.shape}, expected the "
-                             f"interior's {shape}")
-        if torch_dtype(arr.dtype) != out[q][0].dtype:
-            raise TypeError(f"w[{q!r}] is {arr.dtype}, the fields "
-                            f"{out[q][0].dtype}; convert explicitly first")
-        wt[q] = _scatter(torch.tensor(arr), domain, None)
+                             f"interior's {shape} or the padded {padded}")
+        want = out[q][0].dtype
+        try:
+            t = tensor_from_jax(arr, want)
+        except TypeError:
+            raise TypeError(f"w[{q!r}] is {arr.dtype}, the fields {want}; "
+                            f"convert explicitly first") from None
+        wt[q] = (_scatter(t, domain, None) if arr.shape == shape
+                 else _blocks(t, domain))
     return out, wt

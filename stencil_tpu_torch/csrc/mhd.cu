@@ -1,4 +1,5 @@
-// MHD RK3 substep launchers for Hopper (sm_90a), float32.
+// MHD RK3 substep launchers for Hopper (sm_90a), float32 or bfloat16
+// storage (float32 arithmetic).
 //
 // Four launchers, each the hand-written counterpart of one Pallas TPU
 // kernel of stencil_tpu/ops/, bound to Python through a plain extern "C"
@@ -36,6 +37,12 @@
 // share with B13/B14 — the constants, fd6's operators, mhd_rates, the
 // index helpers and the slab layout — is in mhd_common.cuh.
 //
+// Every launcher takes is_bf16: 0 for float32 fields, 1 for bfloat16 ones
+// (stored half-width, computed in float32; mhd_ring.cuh). With bf16 the
+// pairs' scratch f1, w1 and margin stay float32, as in the JAX pair
+// kernels, which never round them: so a bf16 pair does not equal two
+// bf16 substeps, which round f1 and w1 to bfloat16 in between.
+//
 // Field order (FIELDS): lnrho, uux, uuy, uuz, ax, ay, az, ss.
 
 #include "mhd_common.cuh"
@@ -43,6 +50,66 @@
 #include "mhd_ring.cuh"
 
 #include <cstring>
+
+namespace {
+
+// B9 (kWrappedRows) and B11 (kHaloRows) in storage type S
+template <class S>
+cudaError_t substep(const void* const* fields, const void* const* w,
+                    const void* const* slabs, void* const* out_f,
+                    void* const* out_w, const RingGeom& g,
+                    const float* consts, cudaStream_t s) {
+  Consts c;
+  std::memcpy(&c, consts, sizeof c);
+  return launch_ring(in_ptrs<S>(fields), in_ptrs<S>(w),
+                     slabs ? slab_ptrs<S>(slabs) : SlabP<S>{},
+                     out_ptrs<S>(out_f), out_ptrs<S>(out_w), g, c, s);
+}
+
+// B10 in storage type S: B9 s=0 into the float32 scratch, then s=1
+template <class S>
+cudaError_t substep01_wrap(const void* const* fields, void* const* f1,
+                           void* const* w1, void* const* out_f,
+                           void* const* out_w, const RingGeom& g,
+                           const float* consts, cudaStream_t s) {
+  Consts c0, c1;
+  pair_consts(consts, c0, c1);
+  const cudaError_t err =
+      launch_ring(in_ptrs<S>(fields), InP<S>{}, SlabP<S>{}, out_ptrs(f1),
+                  out_ptrs(w1), g, c0, s);
+  if (err != cudaSuccess) return err;
+  return launch_ring(in_ptrs(f1), in_ptrs(w1), SlabPtrs{},
+                     out_ptrs<S>(out_f), out_ptrs<S>(out_w), g, c1, s);
+}
+
+// B12 in storage type S: its three launches (below), the scratch and
+// the margin float32
+template <class S>
+cudaError_t substep01_halo(const void* const* fields,
+                           const void* const* slabs, void* const* f1,
+                           void* const* w1, void* const* margin,
+                           const void* const* slabs1, void* const* out_f,
+                           void* const* out_w, const HaloGeom& h, int zrun,
+                           const MarginPlan& p, const float* consts,
+                           cudaStream_t s) {
+  Consts c0, c1;
+  pair_consts(consts, c0, c1);
+  const InP<S> fp = in_ptrs<S>(fields);
+  const SlabP<S> sp = slab_ptrs<S>(slabs);
+  const int Z = h.Z, Y = h.Y, X = h.X;
+  cudaError_t err = launch_ring(fp, InP<S>{}, sp, out_ptrs(f1), out_ptrs(w1),
+                                RingGeom{h, 0, Z, 0, Y, zrun, kHaloRows},
+                                c0, s);
+  if (err != cudaSuccess) return err;
+  err = launch_margin(fp, sp, out_ptrs(margin), h, p, c0, s);
+  if (err != cudaSuccess) return err;
+  return launch_ring(in_ptrs(f1), in_ptrs(w1), slab_ptrs(slabs1),
+                     out_ptrs<S>(out_f), out_ptrs<S>(out_w),
+                     RingGeom{{Z, Y, X, R, R}, 0, Z, 0, Y, zrun, kHaloRows},
+                     c1, s);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -60,21 +127,21 @@ extern "C" {
 //
 // fields/w: 8 device pointers each (w NULL for w=None); out_f/out_w: 8
 // each (out_w NULL for write_w=False); zrun: z planes a block walks;
-// consts: kNConsts host floats.
+// consts: kNConsts host floats; is_bf16: the storage type (0 float32, 1
+// bfloat16) of fields, w and outputs.
 // ---------------------------------------------------------------------
 cudaError_t mhd_substep_wrap_launch(const void* const* fields,
                                     const void* const* w,
                                     void* const* out_f, void* const* out_w,
                                     int Z, int Y, int X, int zrun,
                                     const float* consts, int n_consts,
-                                    void* stream) {
+                                    int is_bf16, void* stream) {
   if (n_consts != kNConsts || !shape_ok(Z, Y, X)) return cudaErrorInvalidValue;
-  Consts c;
-  std::memcpy(&c, consts, sizeof c);
   const RingGeom g{{Z, Y, X, 0, 0}, 0, Z, 0, Y, zrun, kWrappedRows};
-  return launch_ring(in_ptrs(fields), in_ptrs(w), SlabPtrs{},
-                     out_ptrs(out_f), out_ptrs(out_w), g, c,
-                     static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16
+             ? substep<bf16>(fields, w, nullptr, out_f, out_w, g, consts, s)
+             : substep<float>(fields, w, nullptr, out_f, out_w, g, consts, s);
 }
 
 // ---------------------------------------------------------------------
@@ -89,27 +156,24 @@ cudaError_t mhd_substep_wrap_launch(const void* const* fields,
 // tiles, recomputing substep 0 on the tile extended by R (5.4
 // evaluations a point): 15.0 ms on an H100 (PERF.md, Findings).
 //
-// fields: 8 device pointers; f1/w1: 8 scratch fields each; out_f/out_w:
-// 8 each; zrun: z planes a block walks; consts: kNConsts host floats.
+// fields: 8 device pointers; f1/w1: 8 float32 scratch fields each;
+// out_f/out_w: 8 each; zrun: z planes a block walks; consts: kNConsts
+// host floats; is_bf16: the storage type of fields and outputs.
 // ---------------------------------------------------------------------
 cudaError_t mhd_substep01_wrap_launch(const void* const* fields,
                                       void* const* f1, void* const* w1,
                                       void* const* out_f,
                                       void* const* out_w, int Z, int Y,
                                       int X, int zrun, const float* consts,
-                                      int n_consts, void* stream) {
+                                      int n_consts, int is_bf16,
+                                      void* stream) {
   if (n_consts != kNConsts || !shape_ok(Z, Y, X)) return cudaErrorInvalidValue;
-  Consts c0, c1;
-  pair_consts(consts, c0, c1);
   const RingGeom g{{Z, Y, X, 0, 0}, 0, Z, 0, Y, zrun, kWrappedRows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      launch_ring(in_ptrs(fields), InPtrs{}, SlabPtrs{}, out_ptrs(f1),
-                  out_ptrs(w1), g, c0, s);
-  if (err != cudaSuccess) return err;
-  const InPtrs f1p = in_ptrs(f1), w1p = in_ptrs(w1);
-  return launch_ring(f1p, w1p, SlabPtrs{}, out_ptrs(out_f), out_ptrs(out_w),
-                     g, c1, s);
+  return is_bf16 ? substep01_wrap<bf16>(fields, f1, w1, out_f, out_w, g,
+                                     consts, s)
+              : substep01_wrap<float>(fields, f1, w1, out_f, out_w, g,
+                                      consts, s);
 }
 
 // ---------------------------------------------------------------------
@@ -126,7 +190,7 @@ cudaError_t mhd_substep01_wrap_launch(const void* const* fields,
 // fields/w: 8 device pointers each (w NULL for w=None); slabs: 32
 // (zlo, zhi, ylo, yhi, each in field order); out_f/out_w: 8 each (out_w
 // NULL for write_w=False); zrun: z planes a block walks; consts:
-// kNConsts host floats.
+// kNConsts host floats; is_bf16: the storage type of all of them.
 // ---------------------------------------------------------------------
 cudaError_t mhd_substep_halo_launch(const void* const* fields,
                                     const void* const* w,
@@ -135,16 +199,15 @@ cudaError_t mhd_substep_halo_launch(const void* const* fields,
                                     int Z, int Y, int X, int rz, int ry,
                                     int zrun,
                                     const float* consts, int n_consts,
-                                    void* stream) {
+                                    int is_bf16, void* stream) {
   if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
       !halo_ok(Z, Y, X, rz, ry, R))
     return cudaErrorInvalidValue;
-  Consts c;
-  std::memcpy(&c, consts, sizeof c);
   const RingGeom g{{Z, Y, X, rz, ry}, 0, Z, 0, Y, zrun, kHaloRows};
-  return launch_ring(in_ptrs(fields), in_ptrs(w), slab_ptrs(slabs),
-                     out_ptrs(out_f), out_ptrs(out_w), g, c,
-                     static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16
+             ? substep<bf16>(fields, w, slabs, out_f, out_w, g, consts, s)
+             : substep<float>(fields, w, slabs, out_f, out_w, g, consts, s);
 }
 
 // ---------------------------------------------------------------------
@@ -162,41 +225,32 @@ cudaError_t mhd_substep_halo_launch(const void* const* fields,
 // into scratch first (17.9 ms; PERF.md, Findings).
 //
 // fields: 8 device pointers; slabs: 32 (zlo, zhi, ylo, yhi, each in
-// field order; rz, ry >= 2R rows); f1/w1: 8 scratch fields each;
-// margin: 8 scratch buffers of n_margin floats, into which plan
+// field order; rz, ry >= 2R rows); f1/w1: 8 float32 scratch fields each;
+// margin: 8 float32 scratch buffers of n_margin floats, into which plan
 // (n_plan = kMarginPlanInts ints, ops/cuda_mhd.py margin_plan) maps the
 // margin; slabs1: 32, the same R-row slabs of f1 in B11's layout, views
 // of margin; out_f/out_w: 8 each; zrun: z planes a block of launches (1)
-// and (3) walks; consts: kNConsts host floats.
+// and (3) walks; consts: kNConsts host floats; is_bf16: the storage type of
+// fields, slabs and outputs.
 // ---------------------------------------------------------------------
 cudaError_t mhd_substep01_halo_launch(
     const void* const* fields, const void* const* slabs, void* const* f1,
     void* const* w1, void* const* margin, const void* const* slabs1,
     void* const* out_f, void* const* out_w, int Z, int Y, int X, int rz,
     int ry, int zrun, const int* plan, int n_plan, int n_margin,
-    const float* consts, int n_consts, void* stream) {
+    const float* consts, int n_consts, int is_bf16, void* stream) {
   if (n_consts != kNConsts || n_plan != kMarginPlanInts ||
       !shape_ok(Z, Y, X) || !halo_ok(Z, Y, X, rz, ry, 2 * R))
     return cudaErrorInvalidValue;
   MarginPlan p;
   std::memcpy(&p, plan, sizeof p);
   if (!margin_ok(p, Z, Y, X, n_margin)) return cudaErrorInvalidValue;
-  Consts c0, c1;
-  pair_consts(consts, c0, c1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const InPtrs fp = in_ptrs(fields);
-  const SlabPtrs sp = slab_ptrs(slabs);
   const HaloGeom h{Z, Y, X, rz, ry};
-  cudaError_t err = launch_ring(fp, InPtrs{}, sp, out_ptrs(f1), out_ptrs(w1),
-                                RingGeom{h, 0, Z, 0, Y, zrun, kHaloRows},
-                                c0, s);
-  if (err != cudaSuccess) return err;
-  err = launch_margin(fp, sp, out_ptrs(margin), h, p, c0, s);
-  if (err != cudaSuccess) return err;
-  return launch_ring(in_ptrs(f1), in_ptrs(w1), slab_ptrs(slabs1),
-                     out_ptrs(out_f), out_ptrs(out_w),
-                     RingGeom{{Z, Y, X, R, R}, 0, Z, 0, Y, zrun, kHaloRows},
-                     c1, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? substep01_halo<bf16>(fields, slabs, f1, w1, margin, slabs1,
+                                     out_f, out_w, h, zrun, p, consts, s)
+              : substep01_halo<float>(fields, slabs, f1, w1, margin, slabs1,
+                                      out_f, out_w, h, zrun, p, consts, s);
 }
 
 }  // extern "C"

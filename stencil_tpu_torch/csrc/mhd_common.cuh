@@ -1,6 +1,7 @@
-// Device code shared by the MHD kernels for Hopper (sm_90a), float32:
+// Device code shared by the MHD kernels for Hopper (sm_90a):
 // csrc/mhd.cu (B9-B12), csrc/mhd_overlap.cu (B13, B14) and the ring
-// kernel both launch (csrc/mhd_ring.cuh).
+// kernel both launch (csrc/mhd_ring.cuh). Fields are stored in float32
+// or bfloat16 (Store, below); every value is computed in float32.
 //
 // The Astaroth right-hand sides (models/astaroth.py mhd_rates;
 // reference: astaroth/user_kernels.h:383-453) with the 6th-order
@@ -14,9 +15,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 constexpr int kNF = 8;
@@ -55,12 +58,36 @@ struct Consts {
 constexpr int kNConsts = 35;
 static_assert(sizeof(Consts) == kNConsts * sizeof(float), "Consts layout");
 
-struct InPtrs {
-  const float* p[kNF];
+// The storage types: float32, or bfloat16 (stored half-width, widened
+// exactly to float32 on load, the float32 result rounded once to
+// nearest even on store, as a PyTorch .to(torch.bfloat16) rounds it).
+using bf16 = __nv_bfloat16;
+
+// a bfloat16's bits as the float32 of the same value (exact)
+__device__ __forceinline__ float widen(unsigned short bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const bf16* p) {
+  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 8 field pointers of one storage type T
+template <class T>
+struct InP {
+  const T* p[kNF];
 };
-struct OutPtrs {
-  float* p[kNF];
+template <class T>
+struct OutP {
+  T* p[kNF];
 };
+using InPtrs = InP<float>;
+using OutPtrs = OutP<float>;
 
 // value, gradient and the hessian entries mhd_rates reads of one field
 // (fd6.FieldData); h[a][b] for a <= b
@@ -284,12 +311,14 @@ constexpr int kT = 8;
 // come from them), else from the z slabs where z is outside [0, Z), else
 // from the shard.
 // ---------------------------------------------------------------------
-struct SlabPtrs {
-  const float* zlo[kNF];
-  const float* zhi[kNF];
-  const float* ylo[kNF];
-  const float* yhi[kNF];
+template <class T>
+struct SlabP {
+  const T* zlo[kNF];
+  const T* zhi[kNF];
+  const T* ylo[kNF];
+  const T* yhi[kNF];
 };
+using SlabPtrs = SlabP<float>;
 
 struct HaloGeom {
   int Z, Y, X, rz, ry;
@@ -297,9 +326,10 @@ struct HaloGeom {
 
 // the source of window row (z, y) of one field: its shard fq and its
 // four slabs
-__device__ __forceinline__ const float* halo_row_of(
-    const float* fq, const float* zlo, const float* zhi, const float* ylo,
-    const float* yhi, const HaloGeom& g, int y, int z) {
+template <class T>
+__device__ __forceinline__ const T* halo_row_of(
+    const T* fq, const T* zlo, const T* zhi, const T* ylo, const T* yhi,
+    const HaloGeom& g, int y, int z) {
   if (y < 0) return ylo + ((z + g.rz) * g.ry + g.ry + y) * g.X;
   if (y >= g.Y) return yhi + ((z + g.rz) * g.ry + y - g.Y) * g.X;
   if (z < 0) return zlo + ((z + g.rz) * g.Y + y) * g.X;
@@ -311,17 +341,19 @@ inline unsigned blocks(int n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
 
-InPtrs in_ptrs(const void* const* src) {
-  InPtrs out{};
+template <class T = float>
+InP<T> in_ptrs(const void* const* src) {
+  InP<T> out{};
   if (src != nullptr)
-    for (int q = 0; q < kNF; ++q) out.p[q] = static_cast<const float*>(src[q]);
+    for (int q = 0; q < kNF; ++q) out.p[q] = static_cast<const T*>(src[q]);
   return out;
 }
 
-OutPtrs out_ptrs(void* const* src) {
-  OutPtrs out{};
+template <class T = float>
+OutP<T> out_ptrs(void* const* src) {
+  OutP<T> out{};
   if (src != nullptr)
-    for (int q = 0; q < kNF; ++q) out.p[q] = static_cast<float*>(src[q]);
+    for (int q = 0; q < kNF; ++q) out.p[q] = static_cast<T*>(src[q]);
   return out;
 }
 
@@ -330,13 +362,14 @@ bool shape_ok(int Z, int Y, int X) {
          static_cast<long long>(Z) * Y * X < (1LL << 31);
 }
 
-SlabPtrs slab_ptrs(const void* const* src) {
-  SlabPtrs out{};
+template <class T = float>
+SlabP<T> slab_ptrs(const void* const* src) {
+  SlabP<T> out{};
   for (int q = 0; q < kNF; ++q) {
-    out.zlo[q] = static_cast<const float*>(src[q]);
-    out.zhi[q] = static_cast<const float*>(src[kNF + q]);
-    out.ylo[q] = static_cast<const float*>(src[2 * kNF + q]);
-    out.yhi[q] = static_cast<const float*>(src[3 * kNF + q]);
+    out.zlo[q] = static_cast<const T*>(src[q]);
+    out.zhi[q] = static_cast<const T*>(src[kNF + q]);
+    out.ylo[q] = static_cast<const T*>(src[2 * kNF + q]);
+    out.yhi[q] = static_cast<const T*>(src[3 * kNF + q]);
   }
   return out;
 }

@@ -1,4 +1,4 @@
-// Substep 0 just outside a shard, for Hopper (sm_90a), float32: the
+// Substep 0 just outside a shard, for Hopper (sm_90a): the
 // margin kernel that B12 (csrc/mhd.cu) and the pair form of B14
 // (csrc/mhd_overlap.cu) launch between their two substeps, and the
 // constants of the substep pair both read.
@@ -14,7 +14,9 @@
 // margin_plan), whose MarginPlan ints the launchers copy in as they
 // are: tile index b (blockIdx.y) counts the near z strip's tiles, the
 // far one's, then the near and the far y strip's; a strip's points go
-// through its OutMap into the 8 fields' margin buffers.
+// through its OutMap into the 8 fields' margin buffers. The shard and
+// its slabs are float32 or bfloat16 (TIn); the margin, like the pair's
+// f1 and w1, is float32 in both.
 
 #pragma once
 
@@ -35,11 +37,12 @@ constexpr int kMarginPlanInts = 8;
 static_assert(sizeof(MarginPlan) == kMarginPlanInts * sizeof(int),
               "MarginPlan layout");
 
+template <class TIn = float>
 __global__ void __launch_bounds__(RingTile::kThreads, 1)
-mhd_margin_kernel(InPtrs f, SlabPtrs sl, OutPtrs of, HaloGeom h,
+mhd_margin_kernel(InP<TIn> f, SlabP<TIn> sl, OutPtrs of, HaloGeom h,
                   MarginPlan p, Consts c) {
   extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
-  __shared__ RowSrc rows[RingTile::kRows];
+  __shared__ RowSrc<TIn> rows[RingTile::kRows];
   constexpr int kTY = RingTile::kTY;
   const int x0 = blockIdx.x * kBX;
   int b = blockIdx.y;
@@ -48,7 +51,8 @@ mhd_margin_kernel(InPtrs f, SlabPtrs sl, OutPtrs of, HaloGeom h,
     b -= far ? p.tz : 0;
     const int s0 = far ? h.Z : -R;
     ring_run<kStreamZ, false, false>(
-        f, InPtrs{}, sl, of, OutPtrs{}, h, OutMap{far ? p.zhi : p.zlo, p.zs},
+        f, InP<TIn>{}, sl, of, OutPtrs{}, h,
+        OutMap{far ? p.zhi : p.zlo, p.zs},
         kHaloRows, x0, b * kTY, h.Y, s0, s0 + R, c, ring, rows);
   } else {
     b -= 2 * p.tz;
@@ -56,7 +60,8 @@ mhd_margin_kernel(InPtrs f, SlabPtrs sl, OutPtrs of, HaloGeom h,
     b -= far ? p.ty : 0;
     const int s0 = far ? h.Y : -R;
     ring_run<kStreamY, false, false>(
-        f, InPtrs{}, sl, of, OutPtrs{}, h, OutMap{far ? p.yhi : p.ylo, p.ys},
+        f, InP<TIn>{}, sl, of, OutPtrs{}, h,
+        OutMap{far ? p.yhi : p.ylo, p.ys},
         kHaloRows, x0, -R + b * kTY, h.Z + R, s0, s0 + R, c, ring, rows);
   }
 }
@@ -84,16 +89,18 @@ bool margin_ok(const MarginPlan& p, int Z, int Y, int X, long long n) {
 
 // The margin kernel over plan p (checked by margin_ok) on shard f with
 // its slabs sl of 2R rows, substep constants c, into the buffers of.
-cudaError_t launch_margin(const InPtrs& f, const SlabPtrs& sl,
+template <class TIn = float>
+cudaError_t launch_margin(const InP<TIn>& f, const SlabP<TIn>& sl,
                           const OutPtrs& of, const HaloGeom& h,
                           const MarginPlan& p, const Consts& c,
                           cudaStream_t s) {
+  auto kernel = mhd_margin_kernel<TIn>;
   cudaError_t err = cudaFuncSetAttribute(
-      mhd_margin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(RingTile::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid(blocks(h.X, kBX), 2 * (p.tz + p.ty));
-  mhd_margin_kernel<<<grid, dim3(kBX, RingTile::kTY), RingTile::kSmem, s>>>(
+  kernel<<<grid, dim3(kBX, RingTile::kTY), RingTile::kSmem, s>>>(
       f, sl, of, h, p, c);
   return cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// The overlapped MHD RK3 substep for Hopper (sm_90a), float32: B13, B14.
+// The overlapped MHD RK3 substep for Hopper (sm_90a), float32 or
+// bfloat16 storage (float32 arithmetic): B13, B14.
 //
 //   B13 mhd_substep_overlap_launch <- pallas_mhd_overlap.py:67
 //                                     mhd_substep_overlap_pallas
@@ -77,6 +78,11 @@
 // tiles of B12's first design on windows gathered into scratch: 12.65
 // ms (B13) and 2.05 ms (B14) a 256^3 shard on an H100 (PERF.md,
 // Findings).
+//
+// Both launchers take is_bf16: 0 for float32 fields, 1 for bfloat16 ones
+// (the fields, w, receive buffers and outputs; mhd_ring.cuh). The pair's
+// scratch f1, w1 and margin are float32 in both, as in mhd.cu's B10 and
+// B12.
 
 #include "mhd_common.cuh"
 #include "mhd_margin.cuh"
@@ -100,24 +106,31 @@ struct Piece {
 struct Pieces {
   Piece p[kPieces];
 };
+template <class T>
 struct DstPtrs {
-  float* p[kPieces][kNF];
+  T* p[kPieces][kNF];
 };
 
 constexpr int kCopyBX = 128;
 constexpr int kCopyRows = 64;  // grid rows; a block strides over a piece
 
+template <class T>
 __global__ void __launch_bounds__(kCopyBX)
-send_rows_kernel(InPtrs f, DstPtrs dst, Pieces pc, int Y, int X) {
+send_rows_kernel(InP<T> f, DstPtrs<T> dst, Pieces pc, int Y, int X) {
   const int x = blockIdx.x * kCopyBX + threadIdx.x;
   if (x >= X) return;
   const int k = blockIdx.z / kNF, q = blockIdx.z % kNF;
   const Piece P = pc.p[k];
   const int rows = P.nz * P.ny;
+  // a cell's bits: float, or a bfloat16's as an unsigned short
+  using Bits = typename std::conditional<std::is_same<T, float>::value, float,
+                                         unsigned short>::type;
+  const Bits* src = reinterpret_cast<const Bits*>(f.p[q]);
+  Bits* out = reinterpret_cast<Bits*>(dst.p[k][q]);
   for (int r = blockIdx.y; r < rows; r += gridDim.y) {
     const int rz = r / P.ny, ry = r % P.ny;
-    dst.p[k][q][((P.dz0 + rz) * P.dY + P.dy0 + ry) * X + x] =
-        __ldg(f.p[q] + ((P.sz0 + rz) * Y + P.sy0 + ry) * X + x);
+    out[((P.dz0 + rz) * P.dY + P.dy0 + ry) * X + x] =
+        __ldg(src + ((P.sz0 + rz) * Y + P.sy0 + ry) * X + x);
   }
 }
 
@@ -197,12 +210,12 @@ long long shell_tiles(const ShellPlan& p, int Z, int Y) {
 // strips) or y instance (y strips), its margin rows read straight from
 // the shard and the landed rows by B11's rule (kHaloRows). The choice is
 // uniform per block, so each block runs one instance's code.
-template <bool kReadW, bool kWriteW>
+template <bool kReadW, bool kWriteW, class TIn = float, class TOut = float>
 __global__ void __launch_bounds__(RingTile::kThreads, 1)
-mhd_shell_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of, OutPtrs ow,
-                 HaloGeom h, ShellPlan p, Consts c) {
+mhd_shell_kernel(InP<TIn> f, InP<TIn> w, SlabP<TIn> sl, OutP<TOut> of,
+                 OutP<TOut> ow, HaloGeom h, ShellPlan p, Consts c) {
   extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
-  __shared__ RowSrc rows[RingTile::kRows];
+  __shared__ RowSrc<TIn> rows[RingTile::kRows];
   constexpr int kTY = RingTile::kTY;
   const int x0 = blockIdx.x * kBX;
   const OutMap om{0, h.Y * h.X};
@@ -223,14 +236,14 @@ mhd_shell_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of, OutPtrs ow,
   }
 }
 
-template <bool kReadW, bool kWriteW>
-cudaError_t launch_shell_variant(const InPtrs& f, const InPtrs& w,
-                                 const SlabPtrs& sl, const OutPtrs& of,
-                                 const OutPtrs& ow, const HaloGeom& h,
+template <bool kReadW, bool kWriteW, class TIn, class TOut>
+cudaError_t launch_shell_variant(const InP<TIn>& f, const InP<TIn>& w,
+                                 const SlabP<TIn>& sl, const OutP<TOut>& of,
+                                 const OutP<TOut>& ow, const HaloGeom& h,
                                  const ShellPlan& p, unsigned tiles,
                                  const Consts& c, cudaStream_t s) {
   using T = RingTile;
-  auto kernel = mhd_shell_kernel<kReadW, kWriteW>;
+  auto kernel = mhd_shell_kernel<kReadW, kWriteW, TIn, TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
@@ -242,22 +255,105 @@ cudaError_t launch_shell_variant(const InPtrs& f, const InPtrs& w,
 }
 
 // The shell kernel over plan p, w read when w.p[0] is set and written
-// when ow.p[0] is; invalid for a plan shell_tiles refuses.
-cudaError_t launch_shell(const InPtrs& f, const InPtrs& w, const SlabPtrs& sl,
-                         const OutPtrs& of, const OutPtrs& ow,
-                         const HaloGeom& h, const ShellPlan& p,
-                         const Consts& c, cudaStream_t s) {
+// when ow.p[0] is; invalid for a plan shell_tiles refuses. The instances
+// as for launch_ring (mhd_ring.cuh).
+template <class TIn = float, class TOut = float>
+cudaError_t launch_shell(const InP<TIn>& f, const InP<TIn>& w,
+                         const SlabP<TIn>& sl, const OutP<TOut>& of,
+                         const OutP<TOut>& ow, const HaloGeom& h,
+                         const ShellPlan& p, const Consts& c,
+                         cudaStream_t s) {
   const long long tiles = shell_tiles(p, h.Z, h.Y);
   if (tiles < 1 || tiles > 65535) return cudaErrorInvalidValue;
   const unsigned t = static_cast<unsigned>(tiles);
   const bool rw = w.p[0] != nullptr, ww = ow.p[0] != nullptr;
-  if (rw && ww)
-    return launch_shell_variant<true, true>(f, w, sl, of, ow, h, p, t, c, s);
-  if (rw)
-    return launch_shell_variant<true, false>(f, w, sl, of, ow, h, p, t, c, s);
-  if (ww)
+  if constexpr (std::is_same<TIn, TOut>::value) {
+    if (rw && ww)
+      return launch_shell_variant<true, true>(f, w, sl, of, ow, h, p, t, c,
+                                              s);
+    if (rw)
+      return launch_shell_variant<true, false>(f, w, sl, of, ow, h, p, t, c,
+                                               s);
+    if (ww)
+      return launch_shell_variant<false, true>(f, w, sl, of, ow, h, p, t, c,
+                                               s);
+    return launch_shell_variant<false, false>(f, w, sl, of, ow, h, p, t, c,
+                                              s);
+  } else if constexpr (std::is_same<TOut, float>::value) {
+    if (rw || !ww) return cudaErrorInvalidValue;
     return launch_shell_variant<false, true>(f, w, sl, of, ow, h, p, t, c, s);
-  return launch_shell_variant<false, false>(f, w, sl, of, ow, h, p, t, c, s);
+  } else {
+    if (!rw || !ww) return cudaErrorInvalidValue;
+    return launch_shell_variant<true, true>(f, w, sl, of, ow, h, p, t, c, s);
+  }
+}
+
+// B13's launch A in storage type S, after the launcher's checks
+template <class S>
+cudaError_t overlap_a(const void* const* fields, const void* const* w,
+                      void* const* dst, const Pieces& pc, void* const* out_f,
+                      void* const* out_w, void* const* f1, void* const* w1,
+                      const Interior* r, int n_regions, int Z, int Y, int X,
+                      int pair, const float* consts, cudaStream_t s) {
+  DstPtrs<S> dp;
+  std::memcpy(&dp, dst, sizeof dp);
+  const InP<S> fp = in_ptrs<S>(fields);
+  send_rows_kernel<S><<<dim3(blocks(X, kCopyBX), kCopyRows, kPieces * kNF),
+                        kCopyBX, 0, s>>>(fp, dp, pc, Y, X);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_regions == 0) return err;
+  if (!pair) {
+    Consts c;
+    std::memcpy(&c, consts, sizeof c);
+    return launch_ring(fp, in_ptrs<S>(w), SlabP<S>{}, out_ptrs<S>(out_f),
+                       out_ptrs<S>(out_w), interior_geom(r[0], Z, Y, X), c,
+                       s);
+  }
+  Consts c0, c1;
+  pair_consts(consts, c0, c1);
+  err = launch_ring(fp, InP<S>{}, SlabP<S>{}, out_ptrs(f1), out_ptrs(w1),
+                    interior_geom(r[0], Z, Y, X), c0, s);
+  if (err != cudaSuccess || n_regions == 1) return err;
+  return launch_ring(in_ptrs(f1), in_ptrs(w1), SlabPtrs{},
+                     out_ptrs<S>(out_f), out_ptrs<S>(out_w),
+                     interior_geom(r[1], Z, Y, X), c1, s);
+}
+
+// B14's launch B in storage type S, after the launcher's checks: one
+// substep (plan: a ShellPlan) or the pair (a PairPlan)
+template <class S>
+cudaError_t fixup_b(const void* const* fields, const void* const* w,
+                    const void* const* slabs, void* const* f1,
+                    void* const* w1, void* const* margin,
+                    const void* const* slabs1, void* const* out_f,
+                    void* const* out_w, const int* plan, const HaloGeom& g,
+                    int pair, const float* consts, cudaStream_t s) {
+  const InP<S> fp = in_ptrs<S>(fields);
+  const SlabP<S> sp = slab_ptrs<S>(slabs);
+  if (!pair) {
+    ShellPlan p;
+    std::memcpy(&p, plan, sizeof p);
+    Consts c;
+    std::memcpy(&c, consts, sizeof c);
+    return launch_shell(fp, in_ptrs<S>(w), sp, out_ptrs<S>(out_f),
+                        out_ptrs<S>(out_w), g, p, c, s);
+  }
+  PairPlan p;
+  std::memcpy(&p, plan, sizeof p);
+  Consts c0, c1;
+  pair_consts(consts, c0, c1);
+  // (1) substep 0 over the shell of depth R: f1, w1 now B11 s=0's over
+  // the whole shard (launch A wrote z, y in [R, n - R))
+  cudaError_t err = launch_shell(fp, InP<S>{}, sp, out_ptrs(f1),
+                                 out_ptrs(w1), g, p.shell0, c0, s);
+  if (err != cudaSuccess) return err;
+  // (2) substep 0 over the R rows around the shard, into the R-row slabs
+  err = launch_margin(fp, sp, out_ptrs(margin), g, p.margin, c0, s);
+  if (err != cudaSuccess) return err;
+  // (3) substep 1 over the pair's shell from f1, w1 and those slabs
+  return launch_shell(in_ptrs(f1), in_ptrs(w1), slab_ptrs(slabs1),
+                      out_ptrs<S>(out_f), out_ptrs<S>(out_w),
+                      HaloGeom{g.Z, g.Y, g.X, R, R}, p.shell1, c1, s);
 }
 
 }  // namespace
@@ -268,16 +364,18 @@ extern "C" {
 // with the pair); dst: 64 receive-buffer pointers, piece-major (8 pieces
 // x 8 fields); pieces: 8 x 7 host ints (nz, ny, sz0, sy0, dz0, dy0, dY);
 // out_f/out_w: 8 each (out_w NULL for write_w=False); f1/w1: the pair's
-// 8 scratch fields each (NULL with one substep); regions: n_regions x 5
-// host ints (z0, nz, y0, ny, zrun), one region with one substep (none
-// when the shard has no interior), one or two with the pair (substep 0
-// into f1, w1; substep 1 from them); consts: kNConsts host floats.
+// 8 float32 scratch fields each (NULL with one substep); regions:
+// n_regions x 5 host ints (z0, nz, y0, ny, zrun), one region with one
+// substep (none when the shard has no interior), one or two with the
+// pair (substep 0 into f1, w1; substep 1 from them); consts: kNConsts
+// host floats; is_bf16: the storage type of fields, w, the receive
+// buffers and the outputs.
 cudaError_t mhd_substep_overlap_launch(
     const void* const* fields, const void* const* w, void* const* dst,
     const int* pieces, void* const* out_f, void* const* out_w,
     void* const* f1, void* const* w1, const int* regions, int n_regions,
     int Z, int Y, int X, int pair, const float* consts, int n_consts,
-    void* stream) {
+    int is_bf16, void* stream) {
   if (n_consts != kNConsts || !shape_ok(Z, Y, X) || n_regions < 0 ||
       n_regions > (pair ? kMaxInteriors : 1) ||
       (pair && (n_regions < 1 || w != nullptr || out_w == nullptr ||
@@ -295,27 +393,12 @@ cudaError_t mhd_substep_overlap_launch(
   Pieces pc;
   static_assert(sizeof(Piece) == kPieceInts * sizeof(int), "Piece layout");
   std::memcpy(&pc, pieces, sizeof pc);
-  DstPtrs dp;
-  std::memcpy(&dp, dst, sizeof dp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const InPtrs fp = in_ptrs(fields);
-  send_rows_kernel<<<dim3(blocks(X, kCopyBX), kCopyRows, kPieces * kNF),
-                     kCopyBX, 0, s>>>(fp, dp, pc, Y, X);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_regions == 0) return err;
-  if (!pair) {
-    Consts c;
-    std::memcpy(&c, consts, sizeof c);
-    return launch_ring(fp, in_ptrs(w), SlabPtrs{}, out_ptrs(out_f),
-                       out_ptrs(out_w), interior_geom(r[0], Z, Y, X), c, s);
-  }
-  Consts c0, c1;
-  pair_consts(consts, c0, c1);
-  err = launch_ring(fp, InPtrs{}, SlabPtrs{}, out_ptrs(f1), out_ptrs(w1),
-                    interior_geom(r[0], Z, Y, X), c0, s);
-  if (err != cudaSuccess || n_regions == 1) return err;
-  return launch_ring(in_ptrs(f1), in_ptrs(w1), SlabPtrs{}, out_ptrs(out_f),
-                     out_ptrs(out_w), interior_geom(r[1], Z, Y, X), c1, s);
+  return is_bf16 ? overlap_a<bf16>(fields, w, dst, pc, out_f, out_w, f1, w1,
+                                   r, n_regions, Z, Y, X, pair, consts, s)
+                 : overlap_a<float>(fields, w, dst, pc, out_f, out_w, f1,
+                                    w1, r, n_regions, Z, Y, X, pair, consts,
+                                    s);
 }
 
 // B14, launch B. fields/w: the pre-substep shard and w (w NULL for
@@ -324,55 +407,42 @@ cudaError_t mhd_substep_overlap_launch(
 // outputs, completed in place (out_w NULL for write_w=False). One
 // substep: plan holds the kShellPlanInts host ints of ShellPlan, e = R
 // (n_plan = kShellPlanInts); f1, w1, margin and slabs1 are NULL. The
-// pair: plan holds PairPlan's kPairPlanInts; f1/w1: the 8 scratch
-// fields each that the same shard's launch A wrote; margin: 8 buffers
-// of n_margin floats; slabs1: 32, the R-row slabs that the margin plan
-// writes, views of margin (ops/cuda_mhd.py margin_slabs).
+// pair: plan holds PairPlan's kPairPlanInts; f1/w1: the 8 float32 scratch
+// fields each that the same shard's launch A wrote; margin: 8 float32
+// buffers of n_margin floats; slabs1: 32, the R-row slabs that the margin
+// plan writes, views of margin (ops/cuda_mhd.py margin_slabs). is_bf16:
+// the storage type of fields, w, slabs and outputs.
 cudaError_t mhd_substep_fixup_launch(
     const void* const* fields, const void* const* w, const void* const* slabs,
     void* const* f1, void* const* w1, void* const* margin,
     const void* const* slabs1, void* const* out_f, void* const* out_w,
     const int* plan, int n_plan, int n_margin, int Z, int Y, int X, int rz,
-    int ry, int pair, const float* consts, int n_consts, void* stream) {
+    int ry, int pair, const float* consts, int n_consts, int is_bf16,
+    void* stream) {
   if (n_consts != kNConsts || !shape_ok(Z, Y, X) ||
       !halo_ok(Z, Y, X, rz, ry, pair ? 2 * R : R))
     return cudaErrorInvalidValue;
-  const HaloGeom g{Z, Y, X, rz, ry};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const InPtrs fp = in_ptrs(fields);
-  const SlabPtrs sp = slab_ptrs(slabs);
   if (!pair) {
     ShellPlan p;
     if (n_plan != kShellPlanInts) return cudaErrorInvalidValue;
     std::memcpy(&p, plan, sizeof p);
     if (p.e != R) return cudaErrorInvalidValue;  // B13: z, y in [R, n - R)
-    Consts c;
-    std::memcpy(&c, consts, sizeof c);
-    return launch_shell(fp, in_ptrs(w), sp, out_ptrs(out_f), out_ptrs(out_w),
-                        g, p, c, s);
+  } else {
+    if (n_plan != kPairPlanInts || w != nullptr || out_w == nullptr ||
+        f1 == nullptr || w1 == nullptr || margin == nullptr ||
+        slabs1 == nullptr)
+      return cudaErrorInvalidValue;
+    PairPlan p;
+    std::memcpy(&p, plan, sizeof p);
+    if (p.shell0.e != R || !margin_ok(p.margin, Z, Y, X, n_margin))
+      return cudaErrorInvalidValue;
   }
-  if (n_plan != kPairPlanInts || w != nullptr || out_w == nullptr ||
-      f1 == nullptr || w1 == nullptr || margin == nullptr ||
-      slabs1 == nullptr)
-    return cudaErrorInvalidValue;
-  PairPlan p;
-  std::memcpy(&p, plan, sizeof p);
-  if (p.shell0.e != R || !margin_ok(p.margin, Z, Y, X, n_margin))
-    return cudaErrorInvalidValue;
-  Consts c0, c1;
-  pair_consts(consts, c0, c1);
-  // (1) substep 0 over the shell of depth R: f1, w1 now B11 s=0's over
-  // the whole shard (launch A wrote z, y in [R, n - R))
-  cudaError_t err = launch_shell(fp, InPtrs{}, sp, out_ptrs(f1), out_ptrs(w1),
-                                 g, p.shell0, c0, s);
-  if (err != cudaSuccess) return err;
-  // (2) substep 0 over the R rows around the shard, into the R-row slabs
-  err = launch_margin(fp, sp, out_ptrs(margin), g, p.margin, c0, s);
-  if (err != cudaSuccess) return err;
-  // (3) substep 1 over the pair's shell from f1, w1 and those slabs
-  return launch_shell(in_ptrs(f1), in_ptrs(w1), slab_ptrs(slabs1),
-                      out_ptrs(out_f), out_ptrs(out_w),
-                      HaloGeom{Z, Y, X, R, R}, p.shell1, c1, s);
+  const HaloGeom g{Z, Y, X, rz, ry};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? fixup_b<bf16>(fields, w, slabs, f1, w1, margin, slabs1,
+                                 out_f, out_w, plan, g, pair, consts, s)
+                 : fixup_b<float>(fields, w, slabs, f1, w1, margin, slabs1,
+                                  out_f, out_w, plan, g, pair, consts, s);
 }
 
 // How many blocks of B14's kernel one SM holds

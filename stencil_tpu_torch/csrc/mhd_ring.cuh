@@ -1,6 +1,7 @@
-// The streaming MHD RK3 substep for Hopper (sm_90a), float32: one
-// kernel body that csrc/mhd.cu launches as B9 and B11, twice each as
-// the substep pairs B10 and B12, and over B12's margin (its z strips
+// The streaming MHD RK3 substep for Hopper (sm_90a), float32 or
+// bfloat16 storage, float32 arithmetic: one kernel body that csrc/mhd.cu
+// launches as B9 and B11, twice each as the substep pairs B10 and B12,
+// and over B12's margin (its z strips
 // walking z, its y strips walking y), and csrc/mhd_overlap.cu as B13's
 // interior (walking z) and as B14's shell (its z strips walking z, its
 // y strips walking y).
@@ -56,6 +57,18 @@
 // reads its rows from slabs of 2R rows, the rows the neighbour's own
 // B11 reads at those points. Where a point's values go is the launch's
 // output map (OutMap): the shard's layout, or a slab's.
+//
+// Storage (TIn: the fields, w and slabs a launch reads; TOut: the f and
+// w it writes), float or bf16. The ring is float32 in every instance
+// (same 214 KB, same layout, same arithmetic), so a bf16 launch computes
+// exactly what the float32 instance computes on the widened inputs, and
+// rounds each output once (store). cp.async copies 4, 8 or 16 bytes, not
+// a 2-byte cell, so a bf16 slice is staged through registers instead:
+// every warp issues the global loads of its rows of slice s + 4 before
+// slice s is computed (a register a cell, none read before the
+// compute), and widens and stores them into the ring after it. The substep pair keeps f1 and w1 in
+// float32 (the JAX pair kernels never round them): its substep 0 is a
+// bf16 -> float launch, its substep 1 float -> bf16.
 
 #pragma once
 
@@ -106,8 +119,9 @@ struct OutMap {
 // pref) * stride; dst is the row's offset in a ring slot (-1: the row
 // lies R or more beyond the region's last row, and only masked points
 // would read it).
+template <class T>
 struct RowSrc {
-  const float* base[3];
+  const T* base[3];
   int stride;
   int dst;
 };
@@ -144,12 +158,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // shard when the slabs hold 2R rows), margin rows from source (the y
 // instance takes kHaloRows only), outputs (and w) at om. ring: the
 // kernel's dynamic shared memory, rows its RowSrc table.
-template <int kAxis, bool kReadW, bool kWriteW>
+template <int kAxis, bool kReadW, bool kWriteW, class TIn, class TOut>
 __device__ __forceinline__ void ring_run(
-    const InPtrs& f, const InPtrs& w, const SlabPtrs& sl, const OutPtrs& of,
-    const OutPtrs& ow, const HaloGeom& h, const OutMap& om, int source,
-    int x0, int u0, int u1, int s0, int s1, const Consts& c, float* ring,
-    RowSrc* rows) {
+    const InP<TIn>& f, const InP<TIn>& w, const SlabP<TIn>& sl,
+    const OutP<TOut>& of, const OutP<TOut>& ow, const HaloGeom& h,
+    const OutMap& om, int source, int x0, int u0, int u1, int s0, int s1,
+    const Consts& c, float* ring, RowSrc<TIn>* rows) {
   using T = RingTile;
   const int Z = h.Z, Y = h.Y, X = h.X;
   const int N = kAxis == kStreamZ ? Z : Y;  // slices of the streaming axis
@@ -157,14 +171,14 @@ __device__ __forceinline__ void ring_run(
   for (int k = warp * kBX + lane; k < T::kRows; k += T::kThreads) {
     const int qk = k / T::kPY, ru = k - qk * T::kPY;
     const int u = u0 - R + ru;
-    RowSrc r;
+    RowSrc<TIn> r;
     // field qk's pointers, each a kernel parameter read at a constant
     // index (a run-time index would copy the structs to local memory)
 #pragma unroll
     for (int q = 0; q < kNF; ++q) {
       if (q != qk) continue;
       if (kAxis == kStreamZ && source == kWrappedRows) {
-        const float* row = f.p[q] + wrap(u, Y) * X;
+        const TIn* row = f.p[q] + wrap(u, Y) * X;
         r.base[0] = row + (Z - 1) * Y * X;  // plane Z - 1 at p = -1
         r.base[1] = row;                    // plane 0 at p = 0
         r.base[2] = row;                    // plane 0 at p = Z
@@ -191,32 +205,94 @@ __device__ __forceinline__ void ring_run(
   const int xb = wrap(x0 - R + kBX + lane, X);       // column 32 + lane
 
   // slice p of every field into its ring slot, one margin row a warp
+  constexpr bool kAsync = std::is_same<TIn, float>::value;
   auto load_slice = [&](int p) {
-    float* slot = ring + ((p + kRing) % kRing) * T::kSlot;
+    if constexpr (kAsync) {
+      float* slot = ring + ((p + kRing) % kRing) * T::kSlot;
+      const int j = p < 0 ? 0 : (p < N ? 1 : 2);
+      const int dp = p - (j == 0 ? -1 : (j == 1 ? 0 : N));
+#pragma unroll
+      for (int i = 0; i < T::kRowsPerWarp; ++i) {
+        const RowSrc<TIn>& r = rows[warp + T::kWarps * i];
+        if (r.dst < 0) continue;
+        const TIn* row = r.base[j] + dp * r.stride;
+        float* d = slot + r.dst;
+        cp_async4(d + lane, row + xa);
+        if (lane < 2 * R) cp_async4(d + kBX + lane, row + xb);
+      }
+    }
+  };
+  // bf16: slice p's cells of this lane, one register each, read only
+  // after the slice's compute, so that the loads' latency hides behind
+  // it: column lane of each of the warp's rows (sa), and the rows' last
+  // 2R columns spread over the warp's lanes, cell e = lane + 32 t of the
+  // warp's kRowsPerWarp x 2R (sb; e / 2R the row, e % 2R the column)
+  constexpr int kTail = T::kRowsPerWarp * 2 * R;
+  constexpr int kB = (kTail + 31) / 32;
+  unsigned short sa[T::kRowsPerWarp], sb[kB];
+  int xt[kB];  // the column of each sb cell, wrapped
+#pragma unroll
+  for (int t = 0; t < kB; ++t)
+    xt[t] = wrap(x0 - R + kBX + (lane + 32 * t) % (2 * R), X);
+  auto fetch_slice = [&](int p) {
     const int j = p < 0 ? 0 : (p < N ? 1 : 2);
     const int dp = p - (j == 0 ? -1 : (j == 1 ? 0 : N));
 #pragma unroll
     for (int i = 0; i < T::kRowsPerWarp; ++i) {
-      const RowSrc& r = rows[warp + T::kWarps * i];
+      const RowSrc<TIn>& r = rows[warp + T::kWarps * i];
       if (r.dst < 0) continue;
-      const float* row = r.base[j] + dp * r.stride;
-      float* d = slot + r.dst;
-      cp_async4(d + lane, row + xa);
-      if (lane < 2 * R) cp_async4(d + kBX + lane, row + xb);
+      sa[i] = __ldg(reinterpret_cast<const unsigned short*>(
+                        r.base[j] + dp * r.stride) + xa);
+    }
+#pragma unroll
+    for (int t = 0; t < kB; ++t) {
+      const int e = lane + 32 * t;
+      if (e >= kTail) continue;
+      const RowSrc<TIn>& r = rows[warp + T::kWarps * (e / (2 * R))];
+      if (r.dst < 0) continue;
+      sb[t] = __ldg(reinterpret_cast<const unsigned short*>(
+                        r.base[j] + dp * r.stride) + xt[t]);
     }
   };
-
-  for (int p = s0 - R; p <= s0 + R; ++p) load_slice(p);
-  cp_async_commit();
-  cp_async_wait_all();
+  auto put_slice = [&](int p) {
+    float* slot = ring + ((p + kRing) % kRing) * T::kSlot;
+#pragma unroll
+    for (int i = 0; i < T::kRowsPerWarp; ++i) {
+      const RowSrc<TIn>& r = rows[warp + T::kWarps * i];
+      if (r.dst >= 0) slot[r.dst + lane] = widen(sa[i]);
+    }
+#pragma unroll
+    for (int t = 0; t < kB; ++t) {
+      const int e = lane + 32 * t;
+      if (e >= kTail) continue;
+      const RowSrc<TIn>& r = rows[warp + T::kWarps * (e / (2 * R))];
+      if (r.dst >= 0) slot[r.dst + kBX + e % (2 * R)] = widen(sb[t]);
+    }
+  };
+  for (int p = s0 - R; p <= s0 + R; ++p) {
+    if constexpr (kAsync) {
+      load_slice(p);
+    } else {
+      fetch_slice(p);
+      put_slice(p);
+    }
+  }
+  if constexpr (kAsync) {
+    cp_async_commit();
+    cp_async_wait_all();
+  }
   __syncthreads();
 
   const int x = x0 + lane, u = u0 + warp;
   const bool live = x < X && u < u1;
   const int here = (warp + R) * T::kPX + (lane + R);
   for (int s = s0; s < s1; ++s) {
-    if (s + 1 < s1) load_slice(s + 1 + R);
-    cp_async_commit();
+    if constexpr (kAsync) {
+      if (s + 1 < s1) load_slice(s + 1 + R);
+      cp_async_commit();
+    } else {
+      if (s + 1 < s1) fetch_slice(s + 1 + R);
+    }
     if (live) {
       int o[2 * R + 1];
 #pragma unroll
@@ -236,24 +312,30 @@ __device__ __forceinline__ void ring_run(
 #pragma unroll
       for (int q = 0; q < kNF; ++q) {
         float wq = c.dt * r[q];
-        if (kReadW) wq = c.alpha * __ldg(w.p[q] + og) + wq;
-        if (kWriteW) ow.p[q][og] = wq;
-        of.p[q][og] = F[q].v + c.beta * wq;
+        if (kReadW) wq = c.alpha * load(w.p[q] + og) + wq;
+        if (kWriteW) store(ow.p[q] + og, wq);
+        store(of.p[q] + og, F[q].v + c.beta * wq);
       }
     }
-    cp_async_wait_all();
+    if constexpr (kAsync) {
+      cp_async_wait_all();
+    } else {
+      // slot (s + 4) % 8 is slice s - 4's, which no warp reads for s
+      if (s + 1 < s1) put_slice(s + 1 + R);
+    }
     __syncthreads();
   }
 }
 
 // The z instance over a RingGeom region: block (bx, by, bz) computes the
 // tile (bx, by) of the region's (x, y) over z run bz.
-template <bool kReadW, bool kWriteW>
+template <bool kReadW, bool kWriteW, class TIn = float, class TOut = float>
 __global__ void __launch_bounds__(RingTile::kThreads, 1)
-mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
-                        OutPtrs ow, RingGeom g, Consts c) {
+mhd_substep_ring_kernel(InP<TIn> f, InP<TIn> w, SlabP<TIn> sl,
+                        OutP<TOut> of, OutP<TOut> ow, RingGeom g,
+                        Consts c) {
   extern __shared__ float ring[];  // [kRing][kNF][kPY][kPX]
-  __shared__ RowSrc rows[RingTile::kRows];  // row k = q * kPY + ru
+  __shared__ RowSrc<TIn> rows[RingTile::kRows];  // row k = q * kPY + ru
   const int z0 = g.z0 + blockIdx.z * g.zrun;
   ring_run<kStreamZ, kReadW, kWriteW>(
       f, w, sl, of, ow, g.h, OutMap{0, g.h.Y * g.h.X}, g.source,
@@ -261,13 +343,13 @@ mhd_substep_ring_kernel(InPtrs f, InPtrs w, SlabPtrs sl, OutPtrs of,
       min(z0 + g.zrun, g.z0 + g.nz), c, ring, rows);
 }
 
-template <bool kReadW, bool kWriteW>
-cudaError_t launch_ring_variant(const InPtrs& f, const InPtrs& w,
-                                const SlabPtrs& sl, const OutPtrs& of,
-                                const OutPtrs& ow, const RingGeom& g,
+template <bool kReadW, bool kWriteW, class TIn, class TOut>
+cudaError_t launch_ring_variant(const InP<TIn>& f, const InP<TIn>& w,
+                                const SlabP<TIn>& sl, const OutP<TOut>& of,
+                                const OutP<TOut>& ow, const RingGeom& g,
                                 const Consts& c, cudaStream_t s) {
   using T = RingTile;
-  auto kernel = mhd_substep_ring_kernel<kReadW, kWriteW>;
+  auto kernel = mhd_substep_ring_kernel<kReadW, kWriteW, TIn, TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
@@ -279,18 +361,32 @@ cudaError_t launch_ring_variant(const InPtrs& f, const InPtrs& w,
 }
 
 // The ring kernel over region g, w read when w.p[0] is set and written
-// when ow.p[0] is; invalid for an empty region or run.
-cudaError_t launch_ring(const InPtrs& f, const InPtrs& w, const SlabPtrs& sl,
-                        const OutPtrs& of, const OutPtrs& ow,
-                        const RingGeom& g, const Consts& c, cudaStream_t s) {
+// when ow.p[0] is; invalid for an empty region or run. One storage type
+// builds all four w variants; the pair's mixed instances build only
+// theirs: bf16 -> float substep 0 (no w read, w written) and float ->
+// bf16 substep 1 (w read and written).
+template <class TIn = float, class TOut = float>
+cudaError_t launch_ring(const InP<TIn>& f, const InP<TIn>& w,
+                        const SlabP<TIn>& sl, const OutP<TOut>& of,
+                        const OutP<TOut>& ow, const RingGeom& g,
+                        const Consts& c, cudaStream_t s) {
   if (g.zrun < 1 || g.nz < 1 || g.ny < 1 || g.z0 < 0 || g.y0 < 0 ||
       g.z0 + g.nz > g.h.Z || g.y0 + g.ny > g.h.Y)
     return cudaErrorInvalidValue;
   const bool rw = w.p[0] != nullptr, ww = ow.p[0] != nullptr;
-  if (rw && ww) return launch_ring_variant<true, true>(f, w, sl, of, ow, g, c, s);
-  if (rw) return launch_ring_variant<true, false>(f, w, sl, of, ow, g, c, s);
-  if (ww) return launch_ring_variant<false, true>(f, w, sl, of, ow, g, c, s);
-  return launch_ring_variant<false, false>(f, w, sl, of, ow, g, c, s);
+  if constexpr (std::is_same<TIn, TOut>::value) {
+    if (rw && ww)
+      return launch_ring_variant<true, true>(f, w, sl, of, ow, g, c, s);
+    if (rw) return launch_ring_variant<true, false>(f, w, sl, of, ow, g, c, s);
+    if (ww) return launch_ring_variant<false, true>(f, w, sl, of, ow, g, c, s);
+    return launch_ring_variant<false, false>(f, w, sl, of, ow, g, c, s);
+  } else if constexpr (std::is_same<TOut, float>::value) {
+    if (rw || !ww) return cudaErrorInvalidValue;
+    return launch_ring_variant<false, true>(f, w, sl, of, ow, g, c, s);
+  } else {
+    if (!rw || !ww) return cudaErrorInvalidValue;
+    return launch_ring_variant<true, true>(f, w, sl, of, ow, g, c, s);
+  }
 }
 
 }  // namespace

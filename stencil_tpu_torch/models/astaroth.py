@@ -34,7 +34,7 @@ model:
   radius-2R round and B12 (``mhd_substep01_halo_cuda``), then a
   radius-R round and B11 for substep 2.
 * ``halo-overlap`` — ``overlap=True`` with ``kernel="halo"``, or
-  ``auto`` on CUDA devices for float32, on an x-unsharded mesh of even
+  ``auto`` on CUDA devices, on an x-unsharded mesh of even
   shards, (1,1,1) included: the halo path's resident state, with each
   substep's slab round moved into the kernels (``ops/cuda_mhd_overlap.py``
   ``mhd_substep_overlap``): per shard B13 stores its boundary rows of all
@@ -51,25 +51,37 @@ model:
   taken: the ``xla`` update over ``parallel/overlap.py``'s
   interior/exterior split, the inner blocks computed while the exchange
   runs (JAX's ``substep_overlap``).
-* ``auto`` — on CUDA devices for float32: ``halo-overlap`` when overlap
-  is asked for and possible, else ``wrap`` on a (1,1,1) mesh, else
-  ``halo`` when x is unsharded and the shards are even with z and y
-  multiples of ``mhd_tile`` (8), else ``xla``; ``xla`` on the CPU, as
-  the JAX model takes ``xla`` off the TPU. The JAX model's ``auto`` also
-  asks its TPU block planner whether the halo kernel's VMEM window fits
-  the shard (it does not for float32 shards wider than x ~ 166); the
-  CUDA kernels have no such window, so the port does not ask.
+* ``xla-temporal[s=N]`` (``-overlap``) — ``exchange_every=N >= 2`` off
+  the kernel paths (JAX's ``_build_temporal_xla_step``): RK substeps in
+  groups of N through ``parallel/temporal.py``, one depth-3N exchange a
+  group, over periods of ``lcm(3, N)`` substeps, so that every group's
+  RK phase is fixed; a group that starts where alpha != 0 ships the
+  padded ``w`` accumulators in the same exchange. ``overlap=True``
+  splits a deep group's first substep around the exchange.
+* ``auto`` — on CUDA devices for float32 and bfloat16: ``halo-overlap``
+  when overlap is asked for and possible, else ``wrap`` on a (1,1,1)
+  mesh, else ``halo`` when x is unsharded and the shards are even with z
+  and y multiples of ``mhd_tile`` (8; 16 for bfloat16), else ``xla``;
+  ``xla`` on the CPU, as the JAX model takes ``xla`` off the TPU. The
+  JAX model's ``auto`` also asks its TPU block planner whether the halo
+  kernel's VMEM window fits the shard (it does not for float32 shards
+  wider than x ~ 166); the CUDA kernels have no such window, so the port
+  does not ask.
 
-On the CPU the kernel wrappers run their plain twins. Not ported (each
-raises ``NotImplementedError`` naming its ROADMAP item): ``exchange_every
-> 2`` and ``exchange_every=2`` off the halo paths (A7b), ``Boundary.NONE``
-(A8d) and bfloat16 (A8b).
+The kernel paths run periodic boundaries and ``exchange_every`` <= 2
+(2 is the substep pair on the halo paths; on ``wrap`` it has no
+effect). ``boundary=Boundary.NONE`` (a zero-Dirichlet exterior) runs
+the ``xla`` paths. bfloat16 fields are stored in bfloat16 and computed
+in float32 on every path (``ops/cuda_mhd.compute_dtype``); ``field`` and
+``accumulator`` hand them out as float32 arrays. On the CPU the kernel
+wrappers run their plain twins.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -79,14 +91,17 @@ import torch
 from ..distributed import DeviceLike, DistributedDomain, torch_dtype
 from ..geometry import Dim3, Dim3Like, Radius
 from ..local_domain import interior_slices, zyx_shape
+from ..local_domain import raw_size
 from ..ops.fd6 import RADIUS, FieldData, const
+from ..ops.stencil_kernels import global_coords
 from ..parallel.exchange import exchange_interior_slabs, interior_slab_bytes
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
+from ..parallel.temporal import temporal_shard_steps, validate_temporal
 from ..partition import partition_dims_even_xfree
 from ..topology import Boundary
 from ..utils.config import load_config, mhd_pair_requested
-from ..utils.logging import LOG_INFO
+from ..utils.logging import LOG_INFO, LOG_WARN
 from ..utils.timers import device_sync
 
 FIELDS = ("lnrho", "uux", "uuy", "uuz", "ax", "ay", "az", "ss")
@@ -242,8 +257,23 @@ def mhd_rates(f: Dict[str, FieldData], prm: MhdParams, dtype):
             "ax": d_aa[0], "ay": d_aa[1], "az": d_aa[2], "ss": d_ss}
 
 
-def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
+def _host_values(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A float64 initial-condition array as a host tensor of ``dtype``,
+    rounded as the JAX model's ``astype`` rounds it: numpy for float32
+    and float64; for bfloat16 through float32 first, as ml_dtypes
+    rounds a float64."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a.astype(torch.empty((), dtype=dtype).numpy()
+                                      .dtype))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bfloat16 (which numpy lacks) as the
+    float32 array of the same values."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def _views(t: torch.Tensor) -> Fields:
@@ -253,22 +283,27 @@ def _views(t: torch.Tensor) -> Fields:
 
 
 def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
-                       local: Dim3, tile: int, accel: bool) -> str:
+                       local: Dim3, tile: int, accel: bool,
+                       exchange_every: int = 1,
+                       nonperiodic: bool = False) -> str:
     """The compute path ``Astaroth`` builds: JAX's selection rules
-    (models/astaroth.py:411-527) with periodic boundaries and
-    ``exchange_every`` <= 2 (the constructor refuses the rest) and no
-    VMEM planner; ``accel`` (CUDA devices and float32) stands for JAX's
-    on-TPU float32 choice. Raises as JAX does for an uneven grid with
-    overlap and for an explicit kernel its conditions exclude."""
+    (models/astaroth.py:411-527) without its VMEM planner; ``accel``
+    (CUDA devices, float32 or bfloat16) stands for JAX's on-TPU choice
+    (``_fast_dtype_ok``). The kernel paths take periodic boundaries and
+    ``exchange_every`` 1 or 2 (``halo``, ``halo-overlap``; ``wrap`` any);
+    deeper blocking off them is ``xla-temporal[s=N]``. Raises as JAX
+    does for an uneven grid with overlap and for an explicit kernel its
+    conditions exclude."""
     if overlap and rem != Dim3(0, 0, 0):
         raise NotImplementedError("overlap mode requires an evenly "
                                   "divisible grid")
     aligned_t = (rem == Dim3(0, 0, 0) and local.z % tile == 0
                  and local.y % tile == 0)
     aligned = aligned_t and not overlap
-    wrap_ok = counts == Dim3(1, 1, 1) and aligned
-    halo_ok = counts.x == 1 and aligned
-    if (overlap and counts.x == 1 and aligned_t
+    kernel_s_ok = exchange_every in (1, 2) and not nonperiodic
+    wrap_ok = counts == Dim3(1, 1, 1) and aligned and not nonperiodic
+    halo_ok = counts.x == 1 and aligned and kernel_s_ok
+    if (overlap and counts.x == 1 and aligned_t and kernel_s_ok
             and (kernel == "halo" or (kernel == "auto" and accel))):
         return "halo-overlap"
     if kernel == "auto":
@@ -283,6 +318,9 @@ def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
             "kernel='halo' needs an x-unsharded mesh, even grid, local z/y "
             f"multiples of the dtype sublane tile ({tile}), overlap off, "
             "periodic boundaries, exchange_every <= 2")
+    if kernel == "xla" and exchange_every > 1:
+        return (f"xla-temporal[s={exchange_every}]"
+                + ("-overlap" if overlap else ""))
     return "xla-overlap" if kernel == "xla" and overlap else kernel
 
 
@@ -300,37 +338,36 @@ class Astaroth:
                  boundary: Optional[Boundary] = None,
                  device: DeviceLike = None,
                  devices: Optional[Sequence] = None) -> None:
-        from ..ops.cuda_mhd import mhd_tile
+        from ..ops.cuda_mhd import KERNEL_DTYPES, mhd_tile
 
         if kernel not in ("auto", "wrap", "halo", "xla"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla, got {kernel!r}")
+        # temporal blocking (JAX models/astaroth.py:235-248): one
+        # depth-(s*R) exchange per s RK substeps; the halo paths map s = 2
+        # onto their substep pair, the xla path runs xla-temporal
         self._exchange_every = (1 if exchange_every is None
                                 else max(int(exchange_every), 1))
-        if self._exchange_every > 2:
-            raise NotImplementedError(
-                "exchange_every > 2 (temporal blocking on the xla path) is "
-                "ROADMAP A7b")
-        if boundary is not None and boundary != Boundary.PERIODIC:
-            raise NotImplementedError(
-                f"boundary {boundary}: only periodic boundaries are ported "
-                f"(Boundary.NONE: ROADMAP A8d)")
         self._dtype = torch_dtype(dtype)
-        if self._dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"dtype {self._dtype}: bfloat16 storage (f32 compute) is "
-                f"ROADMAP A8b; the port runs float32 and float64")
+        if self._dtype not in (torch.float32, torch.float64, torch.bfloat16):
+            raise TypeError(f"dtype {self._dtype}: Astaroth runs float32, "
+                            f"float64 and bfloat16 (stored, computed in "
+                            f"float32)")
         self.prm = params or MhdParams()
         self.dd = DistributedDomain(nx, ny, nz, device=device,
                                     devices=devices)
         self.dd.set_radius(Radius.constant(RADIUS))
         self.dd.set_methods(methods)
+        if self._exchange_every > 1:
+            self.dd.set_exchange_every(self._exchange_every)
+        if boundary is not None:
+            self.dd.set_boundary(boundary)
         devs = self.dd._devices
         if mesh_shape is not None:
             self.dd.set_mesh_shape(mesh_shape)
         elif len(devs) > 1 and (
                 kernel == "halo"
-                or (kernel == "auto" and self._dtype == torch.float32
+                or (kernel == "auto" and self._dtype in KERNEL_DTYPES
                     and all(d.type == "cuda" for d in devs))):
             # an x-unsharded decomposition, so that the halo path is
             # available (models/astaroth.py:271-288 of the JAX package)
@@ -346,8 +383,9 @@ class Astaroth:
         # the halo-overlap path's receive buffers and stream ordering,
         # made at its first run
         self._overlap_recv = None
-        # RK3 accumulators per shard, capacity-shaped (no halos); None
-        # until the first iteration
+        # RK3 accumulators per shard, capacity-shaped (no halos; padded
+        # at the allocation radius on the temporal path, so that its
+        # deep exchange can carry them); None until the first iteration
         self._w: Optional[List[Fields]] = None
         # the wrap and halo paths' interior-resident state, one (8, Z, Y,
         # X) tensor per shard (see sync_domain); dd.set_interior flushes
@@ -359,30 +397,36 @@ class Astaroth:
     # -- initial conditions (reference: astaroth/astaroth.cu:509-528) --
     def init(self) -> None:
         """hash-random all fields in [-1, 1); lnrho constant 0.5;
-        radial-explosion shell velocity."""
+        radial-explosion shell velocity. The float64 arrays are rounded
+        to the storage dtype as the JAX model rounds them
+        (``_host_values``)."""
         self._inner = None          # every field is overwritten below
         size = self.dd.size
         shape = zyx_shape(size)
-        npdt = _numpy_dtype(self._dtype)
+        dtype = self._dtype
         # the reference's hash init has no per-field seed, so all fields
         # get the identical array (astaroth.cu:509-528)
-        noise = _hash_field(shape).astype(npdt)
+        noise = _host_values(_hash_field(shape), dtype)
         for q in ("ax", "ay", "az", "ss"):
             self.dd.set_interior(q, noise)
-        self.dd.set_interior("lnrho", np.full(shape, 0.5, dtype=npdt))
+        self.dd.set_interior("lnrho",
+                             _host_values(np.full(shape, 0.5), dtype))
         ux, uy, uz = _radial_explosion(size, self.prm)
-        self.dd.set_interior("uux", ux.astype(npdt))
-        self.dd.set_interior("uuy", uy.astype(npdt))
-        self.dd.set_interior("uuz", uz.astype(npdt))
+        self.dd.set_interior("uux", _host_values(ux, dtype))
+        self.dd.set_interior("uuy", _host_values(uy, dtype))
+        self.dd.set_interior("uuz", _host_values(uz, dtype))
         self._w = None
 
     def load_state(self, fields: Dict[str, np.ndarray],
                    w: Optional[Dict[str, np.ndarray]] = None) -> None:
         """Start from a given state: ``fields[q]`` the global (z,y,x)
         interiors and ``w`` the RK accumulators (or None), as numpy —
-        for instance a JAX model's ``field(q)`` and ``_w`` (see
+        for instance a JAX model's ``field(q)`` and ``_w``, interior-shaped
+        or, from its temporal path, padded (see
         ``convert.astaroth_state_from_jax``) — scattered into the
-        shards. Carried bit for bit."""
+        shards. Carried bit for bit; a padded ``w`` keeps its ring on the
+        temporal path and loses it on the others, an interior-shaped one
+        gets a zero ring there."""
         from ..convert import astaroth_state_from_jax
 
         padded, wt = astaroth_state_from_jax(fields, w, self.dd,
@@ -391,42 +435,59 @@ class Astaroth:
         for q in FIELDS:
             for dst, src in zip(self.dd.curr[q], padded[q]):
                 dst.copy_(src)
-        self._w = (None if wt is None else
-                   [{q: wt[q][i] for q in FIELDS}
-                    for i in range(self.dd.num_subdomains())])
+        self._w = None
+        if wt is not None:
+            self._ensure_w()
+            cap = self._capacity()
+            for i, wi in enumerate(self._w):
+                for q in FIELDS:
+                    src = wt[q][i]
+                    if src.shape == wi[q].shape:
+                        wi[q].copy_(src)
+                    elif self._w_padded:
+                        wi[q].zero_()
+                        wi[q][cap].copy_(src)
+                    else:
+                        wi[q].copy_(src[cap])
 
     # -- path selection -------------------------------------------------
     def _build_step(self) -> None:
-        """The JAX model's path rules (models/astaroth.py:411-527) with
-        no temporal depth beyond the substep pair and no block planner
-        (the GPU kernels have no VMEM window to fit), its on-TPU choice
-        taken on CUDA devices for float32."""
-        from ..ops.cuda_mhd import mhd_tile
+        """The JAX model's path rules (models/astaroth.py:411-527) without
+        its block planner (the GPU kernels have no VMEM window to fit), its
+        on-TPU choice taken on CUDA devices for float32 and bfloat16."""
+        from ..ops.cuda_mhd import KERNEL_DTYPES, mhd_tile
 
         dd = self.dd
-        f32 = self._dtype == torch.float32
+        fast = self._dtype in KERNEL_DTYPES
         on_gpu = all(d.type == "cuda" for d in dd.mesh.devices)
+        s = dd.exchange_every
+        nonper = dd.boundary == Boundary.NONE
         kernel = select_kernel_path(self._kernel, self._overlap,
                                     dd.mesh_counts, dd.rem, dd.local_size,
-                                    mhd_tile(self._dtype), on_gpu and f32)
-        if self._kernel == "auto" or kernel == "halo-overlap":
+                                    mhd_tile(self._dtype), on_gpu and fast,
+                                    exchange_every=s, nonperiodic=nonper)
+        if self._kernel == "auto" or kernel != self._kernel:
             LOG_INFO(f"astaroth kernel path: {kernel}")
-        if kernel in ("wrap", "halo", "halo-overlap") and not f32 and any(
+        if kernel in ("wrap", "halo", "halo-overlap") and not fast and any(
                 d.type == "cuda" for d in dd.mesh.devices):
             raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
-                            f"float32 only, got {self._dtype}; use "
+                            f"float32 or bfloat16, got {self._dtype}; use "
                             f"kernel='xla'")
-        if self._exchange_every == 2 and kernel not in ("halo",
-                                                         "halo-overlap"):
-            raise NotImplementedError(
-                f"exchange_every=2 maps onto the halo paths' substep pair; "
-                f"on the {kernel} path temporal blocking is ROADMAP A7b")
+        if kernel == "wrap" and s > 1:
+            LOG_WARN("exchange_every has no effect on the single-shard "
+                     "wrap path (it performs no exchange); fields still "
+                     "carry the deepened allocation pads")
         # the substep pair (B10 / B12, B13/B14 with pair=True):
         # STENCIL_MHD_PAIR=1, or on the halo paths exchange_every=2 (one
         # radius-2R slab round for two substeps)
-        self._pair = mhd_pair_requested() or self._exchange_every == 2
+        self._pair = mhd_pair_requested() or (
+            s == 2 and kernel in ("halo", "halo-overlap"))
         if kernel in ("wrap", "halo", "halo-overlap") and self._pair:
             LOG_INFO(f"astaroth {kernel} path: substeps 0+1 as one pair call")
+        # the temporal path keeps w padded, so that its ring has a home
+        self._w_padded = kernel.startswith("xla-temporal")
+        if self._w_padded:
+            validate_temporal(dd.radius, dd.local_size, s, dd.rem)
         self._method = pick_method(dd.methods)
         self.kernel_path = kernel
 
@@ -443,6 +504,9 @@ class Astaroth:
             self._run_resident(iters)
             return
         self._ensure_w()
+        if self._w_padded:
+            self._run_temporal(iters)
+            return
         substep = (self._substep_xla_overlap
                    if self.kernel_path == "xla-overlap" else self._substep_xla)
         for _ in range(iters):
@@ -451,8 +515,10 @@ class Astaroth:
 
     def _ensure_w(self) -> None:
         if self._w is None:
-            shape = zyx_shape(self.dd.local_size)
-            self._w = [{q: torch.zeros(shape, dtype=self._dtype, device=d)
+            size = (raw_size(self.dd.local_size, self.dd.alloc_radius)
+                    if self._w_padded else self.dd.local_size)
+            self._w = [{q: torch.zeros(zyx_shape(size), dtype=self._dtype,
+                                       device=d)
                         for q in FIELDS} for d in self.dd.mesh.devices]
 
     def _capacity(self) -> Tuple[slice, slice, slice]:
@@ -520,11 +586,103 @@ class Astaroth:
 
         cap = self._capacity()
         parts = overlapped_update(dd.curr, dd.radius, dd.mesh_counts,
-                                  self._method, upd)
+                                  self._method, upd,
+                                  nonperiodic=dd.boundary == Boundary.NONE)
         for i, got in enumerate(parts):
             for q in FIELDS:
                 ws[i][q] = got[f"w:{q}"]
                 dd.curr[q][i][cap].copy_(got[f"f:{q}"])
+
+    def _run_temporal(self, n: int) -> None:
+        """JAX's ``_build_temporal_xla_step`` (models/astaroth.py:616-756)
+        over the list of shards, in place: RK substeps in groups of ``s =
+        exchange_every``, each group one depth-``s*R`` exchange then ``s``
+        substeps on the shrinking windows (``temporal_shard_steps``), group
+        ``g`` of a period starting at substep ``(g*s) % 3``; ``n //
+        (lcm(3, s)/3)`` whole periods, then ``n % (lcm(3, s)/3)`` tail
+        iterations of three depth-1 groups, all on the ``s*R``-padded
+        buffers. ``w`` is padded too and read pointwise, at the window
+        centre of its base-radius-padded block; a deep group whose first
+        substep has alpha != 0 ships it in the same exchange. With
+        ``Boundary.NONE`` a window's points outside the global domain are
+        set to 0 after each substep, what a stepwise exchange would
+        deliver there. ``overlap`` splits a deep group's first substep
+        around its exchange."""
+        from ..ops.cuda_mhd import compute_dtype
+
+        dd = self.dd
+        prm = self.prm
+        comp = compute_dtype(self._dtype)
+        store = self._dtype
+        radius = dd.radius
+        pad_lo = radius.pad_lo()
+        inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
+        gsize = dd.size
+        s = dd.exchange_every
+        nonper = dd.boundary == Boundary.NONE
+        origins = [dd.shard_origin(i) for i in range(dd.num_subdomains())]
+        state = {q: dd.curr[q] for q in FIELDS}
+        state.update({f"w:{q}": [w[q] for w in self._w] for q in FIELDS})
+        w_keys = [f"w:{q}" for q in FIELDS]
+
+        def make_update(start: int):
+            def update_fn(blocks, dims, off, k, i):
+                sub = (start + k) % 3
+                data = {q: FieldData(blocks[q].to(comp), inv_ds, pad_lo,
+                                     dims)
+                        for q in FIELDS}
+                rates = mhd_rates(data, prm, comp)
+                alpha = const(RK3_ALPHA[sub], comp)
+                beta = const(RK3_BETA[sub], comp)
+                dt_ = const(prm.dt, comp)
+                if nonper:
+                    o = origins[i]
+                    gz, gy, gx = global_coords(
+                        (o.x + off[0], o.y + off[1], o.z + off[2]), dims,
+                        device=blocks[FIELDS[0]].device)
+                    inside = ((gx >= 0) & (gx < gsize.x) & (gy >= 0)
+                              & (gy < gsize.y) & (gz >= 0) & (gz < gsize.z))
+                out = {}
+                for q in FIELDS:
+                    # w is read pointwise: the window centre of its
+                    # base-radius-padded block
+                    wv = blocks[f"w:{q}"][pad_lo.z:pad_lo.z + dims.z,
+                                          pad_lo.y:pad_lo.y + dims.y,
+                                          pad_lo.x:pad_lo.x + dims.x]
+                    wq = alpha * wv.to(comp) + dt_ * rates[q]
+                    uq = data[q].value + beta * wq
+                    if nonper:
+                        # the zero-Dirichlet exterior: ring cells beyond
+                        # the domain hold 0, as a stepwise exchange
+                        # would deliver them
+                        uq = torch.where(inside, uq, torch.zeros_like(uq))
+                    out[f"w:{q}"] = wq.to(store)
+                    out[q] = uq.to(store)
+                return out
+
+            return update_fn
+
+        def group(start: int, depth: int) -> None:
+            # only the group's first substep reads w from before the
+            # group; its window ring needs wire data only where alpha != 0
+            # and the window reaches past the interior
+            keys = list(FIELDS)
+            if RK3_ALPHA[start] != 0.0 and depth > 1:
+                keys += w_keys
+            temporal_shard_steps(state, radius, dd.mesh_counts, self._method,
+                                 make_update(start), depth, alloc_steps=s,
+                                 rem=dd.rem, exchange_keys=keys,
+                                 overlap=self._overlap and depth > 1,
+                                 nonperiodic=nonper)
+
+        period = math.lcm(3, s)
+        per_period = period // 3
+        for _ in range(n // per_period):
+            for g in range(period // s):
+                group((g * s) % 3, s)
+        for _ in range(n % per_period):
+            for sub in range(3):
+                group(sub, 1)
 
     def _run_resident(self, n: int) -> None:
         """``n`` iterations on the interior-resident state, three
@@ -641,30 +799,38 @@ class Astaroth:
 
     def _gather(self, shards: Sequence[torch.Tensor]) -> np.ndarray:
         """The global (z,y,x) array on the host from capacity-sized
-        unpadded shards (a short shard's dead rows dropped)."""
+        unpadded shards (a short shard's dead rows dropped); bfloat16 as
+        float32 (``_to_host``)."""
         dd = self.dd
-        out = np.empty(zyx_shape(dd.size), dtype=_numpy_dtype(self._dtype))
+        out = None
         for i, t in enumerate(shards):
             sz, org = dd.shard_size(i), dd.shard_origin(i)
+            blk = _to_host(t[:sz.z, :sz.y, :sz.x])
+            if out is None:
+                out = np.empty(zyx_shape(dd.size), dtype=blk.dtype)
             out[org.z:org.z + sz.z, org.y:org.y + sz.y,
-                org.x:org.x + sz.x] = t[:sz.z, :sz.y, :sz.x].cpu().numpy()
+                org.x:org.x + sz.x] = blk
         return out
 
     def field(self, name: str) -> np.ndarray:
         """The global (z,y,x) interior of field ``name`` on the host (a
-        copy)."""
+        copy). bfloat16 fields come out as float32 arrays holding their
+        values exactly (numpy has no bfloat16)."""
         if self._inner is None:
-            return self.dd.interior_to_host(name)
+            cap = self._capacity()
+            return self._gather([t[cap] for t in self.dd.curr[name]])
         k = FIELDS.index(name)
         return self._gather([t[k] for t in self._inner])
 
     def accumulator(self, name: str) -> Optional[np.ndarray]:
         """The global (z,y,x) RK3 accumulator ``w`` of field ``name`` on
-        the host (a copy), None before the first iteration: the w of the
-        last substep that wrote one (the JAX model's ``_w``)."""
+        the host (a copy; its ring stripped on the temporal path), None
+        before the first iteration: the w of the last substep that wrote
+        one (the JAX model's ``_w``). bfloat16 as float32, as ``field``."""
         if self._w is None:
             return None
-        return self._gather([w[name] for w in self._w])
+        cap = self._capacity() if self._w_padded else (slice(None),) * 3
+        return self._gather([w[name][cap] for w in self._w])
 
     # -- exchange accounting -------------------------------------------
     def exchange_stats(self) -> dict:
@@ -673,7 +839,9 @@ class Astaroth:
         path has none; the halo path moves, per iteration, one radius-2R
         and one radius-R slab round with the pair and three radius-R
         rounds without (``interior_slab_bytes`` with z-extended y slabs,
-        all 8 fields); the xla path exchanges once per substep."""
+        all 8 fields); the xla path exchanges once per substep, the
+        temporal path once per group, at depth ``s*R``, the bytes doubled
+        for a group that ships w."""
         path = self.kernel_path
         if path == "wrap":
             return {"path": path, "bytes_per_iteration": 0,
@@ -696,6 +864,19 @@ class Astaroth:
                         "rounds_per_iteration": 2.0}
             return {"path": path, "bytes_per_iteration": 3 * rnd(HALO_R),
                     "rounds_per_iteration": 3.0}
+        if self._w_padded:
+            # one deep exchange per s substeps; groups that start where
+            # alpha != 0 carry the 8 w as well: twice the bytes
+            s = dd.exchange_every
+            period = math.lcm(3, s)
+            starts = [(g * s) % 3 for g in range(period // s)]
+            per_ex = float(dd.exchange_bytes_total())
+            iters = period // 3
+            return {"path": path,
+                    "bytes_per_iteration": sum(
+                        per_ex * (2.0 if RK3_ALPHA[st] != 0.0 else 1.0)
+                        for st in starts) / iters,
+                    "rounds_per_iteration": len(starts) / iters}
         return {"path": path,
                 "bytes_per_iteration": 3.0 * dd.exchange_bytes_total(),
                 "rounds_per_iteration": 3.0}
@@ -725,8 +906,9 @@ class Astaroth:
     def measure_exchange_seconds(self, reps: int = 5) -> float:
         """Exchange seconds per iteration of the built path: 0.0 on the
         wrap path; on the halo path its slab rounds timed standalone
-        (``slab_exchange_seconds``); on the xla path three
-        ``dd.exchange()``."""
+        (``slab_exchange_seconds``); on the xla paths
+        ``exchange_stats()["rounds_per_iteration"]`` ``dd.exchange()``
+        (three; on the temporal path deep ones, one a group)."""
         from ..ops.cuda_mhd import R as HALO_R
 
         path = self.kernel_path

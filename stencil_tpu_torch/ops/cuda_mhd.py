@@ -21,7 +21,7 @@ B12  pallas_halo.py:969                      ``mhd_substep01_halo_cuda``  ``mhd_
 ===  ======================================  ===========================  ============================
 
 Layout (as in JAX): 8 unpadded (Z, Y, X) fields; Z and Y multiples of
-``mhd_tile`` (8); ``w=None`` only where ``alpha_s == 0``. B9/B10 are
+``mhd_tile`` (8; 16 for bfloat16); ``w=None`` only where ``alpha_s == 0``. B9/B10 are
 periodic in all three axes inside the kernel. B11/B12 take the shard of
 a z/y-sharded mesh and, per field, its four halo slabs (``slabs[q] =
 {"zlo", "zhi", "ylo", "yhi"}``, see ``halo_window``); x wraps inside the
@@ -37,10 +37,20 @@ the shard's slabs of 2R rows, written as R-row slabs), then B11 s=1 —
 each equal to its one-substep chain bit for bit. A wrapper dispatches
 on the tensors' device: CPU tensors go to the plain twin (any float
 dtype; bfloat16 stored, float32 computed, see ``compute_dtype``); CUDA
-tensors launch the kernel (float32 only, else ``TypeError``) or raise —
-never the twin. Each wrapper call adds one to the wrapper's entry in
-``LAUNCHES`` (a B10 call is two kernel launches and a B12 call three,
-each counted once).
+tensors launch the kernel (float32 or bfloat16, else ``TypeError``) or
+raise — never the twin. Each wrapper call adds one to the wrapper's
+entry in ``LAUNCHES`` (a B10 call is two kernel launches and a B12 call
+three, each counted once).
+
+bfloat16 fields (``mhd_tile`` 16): the kernels widen every input to
+float32, compute exactly what the float32 kernel computes on the widened
+values, and round each output once to bfloat16 — the twins' order too.
+The pairs' intermediates f_1, w_1 (and B12's margin) stay float32, as
+in every JAX pair form (``mhd_pair_update``), so a bfloat16 pair does
+not equal two bfloat16 substeps, which round f_1 and w_1 in between: the
+pair-equals-chain rule holds bit for bit in float32 only, and in
+bfloat16 for the kernels' chain with float32 scratch, which is what they
+launch.
 
 The kernels evaluate ``exp`` with CUDA's ``expf`` and the twins with
 PyTorch's; everything else is formed in the twins' order, built
@@ -273,20 +283,29 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (fields[8], w[8] or NULL, out_f[8], out_w[8] or NULL, Z, Y, X,
-    #  zrun, consts, n_consts, stream)
-    "mhd_substep_wrap_launch": [_P] * 4 + [_I] * 4 + [_P, _I, _P],
+    #  zrun, consts, n_consts, is_bf16, stream)
+    "mhd_substep_wrap_launch": [_P] * 4 + [_I] * 4 + [_P, _I, _I, _P],
     # (fields[8], f1[8], w1[8], out_f[8], out_w[8], Z, Y, X, zrun, consts,
-    #  n_consts, stream)
-    "mhd_substep01_wrap_launch": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
+    #  n_consts, is_bf16, stream)
+    "mhd_substep01_wrap_launch": [_P] * 5 + [_I] * 4 + [_P, _I, _I, _P],
     # (fields[8], w[8] or NULL, slabs[32], out_f[8], out_w[8] or NULL,
-    #  Z, Y, X, rz, ry, zrun, consts, n_consts, stream)
-    "mhd_substep_halo_launch": [_P] * 5 + [_I] * 6 + [_P, _I, _P],
+    #  Z, Y, X, rz, ry, zrun, consts, n_consts, is_bf16, stream)
+    "mhd_substep_halo_launch": [_P] * 5 + [_I] * 6 + [_P, _I, _I, _P],
     # (fields[8], slabs[32], f1[8], w1[8], margin[8], slabs1[32],
     #  out_f[8], out_w[8], Z, Y, X, rz, ry, zrun, plan, n_plan, n_margin,
-    #  consts, n_consts, stream)
+    #  consts, n_consts, is_bf16, stream)
     "mhd_substep01_halo_launch": ([_P] * 8 + [_I] * 6 + [_P, _I, _I, _P, _I,
-                                                         _P]),
+                                                         _I, _P]),
 }
+
+#: the storage dtypes the kernels take (``is_bf16`` of the launchers):
+#: JAX's ``_fast_dtype_ok`` (float32, and bfloat16 computed in float32)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def is_bf16(t: torch.Tensor) -> int:
+    """The launchers' ``is_bf16`` argument for fields like ``t``."""
+    return int(t.dtype == torch.bfloat16)
 
 
 def kernel_consts(prm, dt_phys: float, s: int = 0) -> np.ndarray:
@@ -351,9 +370,9 @@ def _check_cuda(f0: torch.Tensor, tensors, what: str) -> None:
     if not f0.is_cuda:
         raise ValueError(f"{what}: tensors on {f0.device}, expected cuda "
                          f"(or cpu for the plain twin)")
-    if f0.dtype != torch.float32:
-        raise TypeError(f"{what}: the CUDA kernel takes float32, got "
-                        f"{f0.dtype}")
+    if f0.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {f0.dtype}")
     if f0.numel() >= 2 ** 31:
         raise ValueError(f"{what}: fields of 2^31 points or more are not "
                          f"supported (32-bit offsets)")
@@ -408,7 +427,7 @@ def mhd_substep_wrap_cuda(fields: Fields, w: Optional[Fields], s: int, prm,
     p_w = _ptrs(w_in) if w_in else None
     p_wo = _ptrs([out_w[q] for q in FIELDS]) if write_w else None
     _launch("mhd_substep_wrap_launch", f0.device, p_in, p_w, p_f, p_wo,
-            Z, Y, X, zrun, consts.ctypes.data, consts.size)
+            Z, Y, X, zrun, consts.ctypes.data, consts.size, is_bf16(f0))
     LAUNCHES["mhd_substep_wrap"] += 1
     return out_f, out_w
 
@@ -421,8 +440,8 @@ def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float,
     (alpha_0 == 0, so no w is read). Returns (f_2, w_2), which equal
     B9(s=0, ``w=None``) followed by B9(s=1) bit for bit: the wrapper
     launches just that, B9's ring kernel twice, through f_1 and w_1 in
-    scratch from PyTorch's caching allocator. ``out_f``/``out_w`` as for
-    B9."""
+    scratch from PyTorch's caching allocator (float32 for bfloat16
+    fields, see the module's notes). ``out_f``/``out_w`` as for B9."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep01_wrap_cuda"
@@ -438,14 +457,16 @@ def mhd_substep01_wrap_cuda(fields: Fields, prm, dt_phys: float,
     Z, Y, X = f0.shape
     zrun = ring_zrun(Z, Y, X, sm_count(f0.device))
     consts = kernel_consts(prm, dt_phys)
-    f1 = torch.empty((8, Z, Y, X), dtype=f0.dtype, device=f0.device)
+    f1 = torch.empty((8, Z, Y, X), dtype=compute_dtype(f0.dtype),
+                     device=f0.device)
     w1 = torch.empty_like(f1)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_f = _ptrs(ins), _ptrs([out_f[q] for q in FIELDS])
     p_w = _ptrs([out_w[q] for q in FIELDS])
     p_f1, p_w1 = _ptrs(f1.unbind(0)), _ptrs(w1.unbind(0))
     _launch("mhd_substep01_wrap_launch", f0.device, p_in, p_f1, p_w1, p_f,
-            p_w, Z, Y, X, zrun, consts.ctypes.data, consts.size)
+            p_w, Z, Y, X, zrun, consts.ctypes.data, consts.size,
+            is_bf16(f0))
     LAUNCHES["mhd_substep01_wrap"] += 1
     return out_f, out_w
 
@@ -683,7 +704,8 @@ def mhd_substep_halo_cuda(fields: Fields, w: Optional[Fields],
     p_w = _ptrs(w_in) if w_in else None
     p_wo = _ptrs(wo) if wo else None
     _launch("mhd_substep_halo_launch", f0.device, p_in, p_w, p_sl, p_f, p_wo,
-            Z, Y, X, rz, ry, zrun, consts.ctypes.data, consts.size)
+            Z, Y, X, rz, ry, zrun, consts.ctypes.data, consts.size,
+            is_bf16(f0))
     LAUNCHES["mhd_substep_halo"] += 1
     return out_f, out_w
 
@@ -701,8 +723,8 @@ def mhd_substep01_halo_cuda(fields: Fields,
     over the R rows around the shard from the same slabs into f_1's
     R-row slabs (``margin_plan``; the values the neighbours compute
     there), then B11 s=1 from them. f_1, w_1 and the margin are scratch
-    from PyTorch's caching allocator. ``out_f``/``out_w`` as for
-    ``mhd_substep_halo_cuda``."""
+    from PyTorch's caching allocator (float32 for bfloat16 fields).
+    ``out_f``/``out_w`` as for ``mhd_substep_halo_cuda``."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep01_halo_cuda"
@@ -728,15 +750,17 @@ def mhd_substep01_halo_cuda(fields: Fields,
     plan = margin_plan(Z, Y, X)
     ints = plan.ints()
     consts = kernel_consts(prm, dt_phys)
-    f1 = torch.empty((8, Z, Y, X), dtype=f0.dtype, device=f0.device)
+    comp = compute_dtype(f0.dtype)
+    f1 = torch.empty((8, Z, Y, X), dtype=comp, device=f0.device)
     w1 = torch.empty_like(f1)
-    margin = torch.empty((8, plan.floats), dtype=f0.dtype, device=f0.device)
+    margin = torch.empty((8, plan.floats), dtype=comp, device=f0.device)
     # the pointer arrays are locals: they must outlive the call
     p_in, p_sl, p_f, p_w = _ptrs(ins), _ptrs(sl), _ptrs(outs), _ptrs(wo)
     p_f1, p_w1 = _ptrs(f1.unbind(0)), _ptrs(w1.unbind(0))
     p_m, p_sl1 = margin_ptrs(margin, Z, Y, X)
     _launch("mhd_substep01_halo_launch", f0.device, p_in, p_sl, p_f1, p_w1,
             p_m, p_sl1, p_f, p_w, Z, Y, X, rz, ry, zrun, ints.ctypes.data,
-            ints.size, plan.floats, consts.ctypes.data, consts.size)
+            ints.size, plan.floats, consts.ctypes.data, consts.size,
+            is_bf16(f0))
     LAUNCHES["mhd_substep01_halo"] += 1
     return out_f, out_w

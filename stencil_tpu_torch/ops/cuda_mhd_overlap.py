@@ -20,9 +20,10 @@ B14  pallas_mhd_overlap.py:360                        ``mhd_substep_fixup_cuda``
 
 ``mhd_substep_overlap`` (JAX :515) composes the two. The module rules
 of ``ops/cuda_mhd.py`` hold: CPU shards go to the plain twins; CUDA
-shards launch the kernels or raise; float32 only on the card (bfloat16
-storage is ROADMAP A8b). Each wrapper adds one to its entry in
-``LAUNCHES`` per shard and call, however many kernels the call
+shards launch the kernels or raise; float32 or bfloat16 storage on the
+card (bfloat16: float32 arithmetic, the pair's scratch f1, w1 and margin
+float32, as in ``cuda_mhd``'s B10 and B12). Each wrapper adds one to its
+entry in ``LAUNCHES`` per shard and call, however many kernels the call
 launches.
 
 What each computes, per shard, with hr = R (or 2R with the pair):
@@ -289,14 +290,15 @@ class PairScratch:
                  stream: torch.cuda.Stream) -> None:
         Z, Y, X = shape
         n = cm.margin_plan(Z, Y, X).floats
+        comp = cm.compute_dtype(dtype)
         # allocated on the shard's stream, the only one that uses them,
         # so that the caching allocator never hands their blocks to
         # another stream while its launches may still run
         with torch.cuda.stream(stream):
-            self.f1 = torch.empty((8, Z, Y, X), dtype=dtype,
+            self.f1 = torch.empty((8, Z, Y, X), dtype=comp,
                                   device=stream.device)
             self.w1 = torch.empty_like(self.f1)
-            self.margin = torch.empty((8, n), dtype=dtype,
+            self.margin = torch.empty((8, n), dtype=comp,
                                       device=stream.device)
         self.p_f1 = cm._ptrs(self.f1.unbind(0))
         self.p_w1 = cm._ptrs(self.w1.unbind(0))
@@ -492,12 +494,12 @@ _SIGNATURES = {
     #  NULL, f1[8] and w1[8] (the pair) or NULL, regions
     #  (``interior_plan``), n_regions, Z, Y, X, pair, consts, n_consts,
     #  stream)
-    "mhd_substep_overlap_launch": [_P] * 9 + [_I] * 5 + [_P, _I, _P],
+    "mhd_substep_overlap_launch": [_P] * 9 + [_I] * 5 + [_P, _I, _I, _P],
     # (fields[8], w[8] or NULL, slabs[32], f1[8], w1[8], margin[8] and
     #  slabs1[32] (the pair) or NULL, out_f[8], out_w[8] or NULL, plan
     #  (``FixupPlan.ints``), n_plan, n_margin, Z, Y, X, rz, ry, pair,
-    #  consts, n_consts, stream)
-    "mhd_substep_fixup_launch": [_P] * 10 + [_I] * 8 + [_P, _I, _P],
+    #  consts, n_consts, is_bf16, stream)
+    "mhd_substep_fixup_launch": [_P] * 10 + [_I] * 8 + [_P, _I, _I, _P],
 }
 
 
@@ -657,7 +659,8 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
                               None if sc is None else sc.p_f1,
                               None if sc is None else sc.p_w1,
                               regions.ctypes.data, len(regions), Z, Y, X,
-                              int(pair), consts.ctypes.data, consts.size)
+                              int(pair), consts.ctypes.data, consts.size,
+                              cm.is_bf16(f0))
             if sc is not None:
                 sc.holds = pair_key(f, consts)
     LAUNCHES["mhd_substep_overlap"] += n
@@ -783,7 +786,8 @@ def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
             _launch_ptrs(f_partial[j]),
             _launch_ptrs(None if w_partial is None else w_partial[j]),
             table.ctypes.data, table.size, n_margin, Z, Y, X, hr, hr,
-            int(pair), consts.ctypes.data, consts.size))
+            int(pair), consts.ctypes.data, consts.size,
+            int(recv.dtype == torch.bfloat16)))
     # the entry keeps the arrays that the pointers point into alive
     recv.fixup_cache[key] = (args, table, consts)
     return args

@@ -41,7 +41,9 @@ thickness ``s*r`` computed from the exchanged fields.
 
 The deep exchange and the mid-group refreshes carry the halo wire
 format and layout (``wire_format``, ``wire_layout``) to the engine;
-asymmetric depths decline the irredundant layout, as in JAX.
+asymmetric depths decline the irredundant layout, as in JAX. They carry
+the fields named by ``exchange_keys`` (default: all); the others
+window-cycle on their own earlier writes.
 """
 
 from __future__ import annotations
@@ -165,6 +167,7 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
                          update_fn: TemporalUpdateFn, steps: DepthsLike,
                          alloc_steps: Optional[DepthsLike] = None,
                          rem: Dim3 = ZERO,
+                         exchange_keys: Optional[Sequence[str]] = None,
                          overlap: bool = False,
                          nonperiodic: bool = False,
                          wire_format=None,
@@ -180,6 +183,11 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     defaults to ``steps``; a larger allocation lets tail groups of
     smaller depth run on the same buffers — the exchange then places
     ``steps*r`` slabs immediately around the interior).
+    ``exchange_keys``: the fields the deep exchange and the mid-group
+    refreshes carry (default: all). The others still window-cycle: their
+    ring values come from earlier sub-steps' writes, never from the wire
+    (e.g. an RK accumulator the group's first sub-step reads pointwise
+    only where its coefficient is 0).
     ``overlap``: split sub-step 0 into the pre-exchange deep-interior
     block plus post-exchange shells (even shards only).
     ``wire_format``/``wire_layout``: the halo wire format and layout
@@ -225,7 +233,9 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     validate_temporal(radius, cap, depths, rem)
 
     shards = [{q: fields[q][i] for q in names} for i in range(n)]
-    landed = start_dispatch_exchange(fields, wire,
+    keys = sorted(fields) if exchange_keys is None else list(exchange_keys)
+    wired = {q: fields[q] for q in keys}
+    landed = start_dispatch_exchange(wired, wire,
                                      mesh_counts, method, rem=rem,
                                      alloc_radius=alloc_r,
                                      nonperiodic=nonperiodic,
@@ -279,7 +289,7 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
             axes = [a for a in refresh_axes(depths, k)
                     if radius.wire_rows(a)]
             if axes:
-                dispatch_exchange(fields,
+                dispatch_exchange(wired,
                                   _axes_wire_radius(radius, depths, axes),
                                   mesh_counts, method, rem=rem,
                                   alloc_radius=alloc_r,

@@ -212,13 +212,53 @@ def test_misaligned_wrap_raises_like_jax():
          kernel="xla", exchange_every=2),
     dict(boundary=Boundary.NONE), dict(dtype=torch.bfloat16)])
 def test_left_out_options_name_their_roadmap_item(kw):
-    """Temporal blocking beyond the halo paths' substep pair (A7b), with
-    overlap too (``xla-overlap`` has no substep pair), Boundary.NONE
-    (A8d) and bfloat16 (A8b). The overlap path itself is ported
-    (B13/B14: tests/test_torch_astaroth_overlap.py)."""
-    kw = dict(kw) if "devices" in kw else dict(kw, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.Astaroth(16, 16, 16, **kw)
+    """Temporal blocking beyond the halo paths' substep pair (ROADMAP
+    A7b), with overlap too, Boundary.NONE (A8d) and bfloat16 (A8b): the
+    port accepts each and takes JAX's path and allocation for it
+    (``xla-temporal[s=N]``, ``-overlap``, ``xla``; their results against
+    JAX's: tests/test_torch_astaroth_temporal.py,
+    test_torch_astaroth_none.py, test_torch_astaroth_bf16.py)."""
+    import jax.numpy as jnp
+
+    from stencil_tpu.topology import Boundary as JBoundary
+
+    pkw, jkw = dict(kw), dict(kw)
+    if "devices" in kw:
+        jkw["devices"] = jax.devices()[:4]
+    else:
+        pkw["device"] = "cpu"
+        jkw.update(devices=jax.devices()[:1], mesh_shape=(1, 1, 1))
+    if "boundary" in kw:
+        jkw["boundary"] = JBoundary.NONE
+    if "dtype" in kw:
+        jkw["dtype"] = jnp.bfloat16
+    p = pm.Astaroth(16, 16, 16, **pkw)
+    j = jm.Astaroth(16, 16, 16, **jkw)
+    assert p.kernel_path == j.kernel_path
+    assert p.dd.alloc_radius.pad_lo() == tuple(j.dd.alloc_radius.pad_lo())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kernel="halo", exchange_every=3),
+    dict(kernel="halo", boundary="none"),
+    dict(kernel="wrap", boundary="none"),
+    dict(kernel="halo", overlap=True, exchange_every=3)])
+def test_kernels_the_rules_exclude_raise_like_jax(kw):
+    """An explicit kernel that the path rules exclude (deep blocking or a
+    zero exterior on the kernel paths) raises JAX's ``ValueError``, in
+    JAX's words."""
+    from stencil_tpu.topology import Boundary as JBoundary
+
+    pkw, jkw = dict(kw), dict(kw)
+    if "boundary" in kw:
+        pkw["boundary"], jkw["boundary"] = Boundary.NONE, JBoundary.NONE
+    with pytest.raises(ValueError) as want:
+        jm.Astaroth(16, 16, 32, mesh_shape=(1, 1, 2),
+                    devices=jax.devices()[:2], **jkw)
+    with pytest.raises(ValueError) as got:
+        pm.Astaroth(16, 16, 32, mesh_shape=(1, 1, 2),
+                    devices=["cpu"] * 2, **pkw)
+    assert str(got.value) == str(want.value)
 
 
 def test_model_entry_point_needs_a_card_unless_told(monkeypatch):
@@ -246,7 +286,7 @@ def test_app_prints_the_reference_csv_line(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "stencil_tpu_torch.apps.astaroth",
          "--nx", "16", "--ny", "8", "--nz", "8", "--iters", "2",
-         "--kernel", "wrap", "--dtype", "f64", "--device", "cpu"],
+         "--kernel", "wrap", "--f64", "--device", "cpu"],
         capture_output=True, text=True, timeout=120, cwd=tmp_path,
         env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr

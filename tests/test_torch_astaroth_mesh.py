@@ -239,7 +239,7 @@ def test_app_runs_a_mesh_on_the_cpu(tmp_path):
         [sys.executable, "-m", "stencil_tpu_torch.apps.astaroth",
          "--nx", "16", "--ny", "8", "--nz", "8", "--iters", "1",
          "--kernel", "halo", "--mesh-shape", "1,2,2", "--devices",
-         "cpu,cpu,cpu,cpu", "--dtype", "f64"],
+         "cpu,cpu,cpu,cpu", "--f64"],
         capture_output=True, text=True, timeout=120, cwd=tmp_path,
         env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr

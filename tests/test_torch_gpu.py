@@ -502,9 +502,10 @@ def test_margin_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
     """The margin kernel (``csrc/mhd_margin.cuh`` ``mhd_margin_kernel``:
     both instances of the ring behind one uniform branch), as B12 in
     ``mhd`` and B14's pair in ``mhd_overlap`` build it, built as the
-    package builds it: at most 128 registers a thread and no spill."""
+    package builds it: at most 128 registers a thread and no spill, in
+    both its instantiations (float32 and bfloat16 shards)."""
     usage = _fresh_ptxas(lib, tmp_path, "mhd_margin_kernel")
-    assert len(usage) == 1, usage
+    assert len(usage) == 2, usage      # the shard's storage type
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
@@ -554,7 +555,9 @@ def test_ring_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
     at most 128 registers a thread (one 512-thread block an SM) and no
     spill, from the ``-Xptxas=-v`` lines."""
     usage = _fresh_ptxas(lib, tmp_path, "mhd_substep_ring_kernel")
-    assert len(usage) == 4, usage      # (read_w, write_w)
+    # (read_w, write_w) for float32 and for bfloat16 storage, and the
+    # bf16 pair's bf16 -> float32 substep 0 and float32 -> bf16 substep 1
+    assert len(usage) == 10, usage
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
@@ -1483,7 +1486,7 @@ def test_b14_kernel_fits_the_planners_registers_without_spills(mo, tmp_path):
     registers a thread, no spill, and the one block an SM that the
     planner counts (``FIXUP_BLOCKS_PER_SM``), as the card counts it."""
     usage = _fresh_ptxas("mhd_overlap", tmp_path, "mhd_shell_kernel")
-    assert len(usage) == 4, usage      # (read_w, write_w)
+    assert len(usage) == 10, usage     # as the ring kernel's
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
@@ -1701,3 +1704,185 @@ def test_astaroth_halo_overlap_on_distinct_cards_equals_one_card(mo):
         for q in FIELDS:
             np.testing.assert_array_equal(runs[0][q][0], runs[1][q][0])
             np.testing.assert_array_equal(runs[0][q][1], runs[1][q][1])
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 storage on the MHD ring kernels (B9-B14): each launch family
+# against its plain twin on the same bf16 inputs, within one bf16 ulp of
+# the largest twin value a field, and against the float32 instance on the
+# widened inputs, rounded once, bit for bit (the ring and the arithmetic
+# are float32 in both)
+# ---------------------------------------------------------------------------
+BF16_SHAPES = [(16, 16, 24), (32, 16, 33), (256, 256, 256)]
+BF16_MESHES = [((32, 32, 40), (1, 2, 2)), ((32, 64, 33), (1, 2, 2)),
+               ((512, 512, 256), (1, 2, 2))]
+BF16_ULP = 2.0 ** -7
+
+
+def _bf(d):
+    return None if d is None else {q: t.to(torch.bfloat16)
+                                   for q, t in d.items()}
+
+
+def _wide(d):
+    return None if d is None else {q: t.float() for q, t in d.items()}
+
+
+def _assert_bf16_close(got, want):
+    assert set(got) == set(want)
+    for q in want:
+        assert got[q].dtype == torch.bfloat16, q
+        assert bool(torch.isfinite(got[q]).all()), q
+        err = float((got[q].float() - want[q].float()).abs().max())
+        assert err <= BF16_ULP * float(want[q].float().abs().max()), (q, err)
+
+
+def _assert_rounded_once(got, want32):
+    """(f, w) of a bf16 launch equal the float32 instance's, rounded."""
+    for g, w in zip(got, want32):
+        assert (g is None) == (w is None)
+        if w is not None:
+            for q in w:
+                assert torch.equal(g[q], w[q].to(torch.bfloat16)), q
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_b9_b10_match_twins_and_the_float32_instance(cm, shape):
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    prm = MhdParams(dt=1e-4)
+    f32, w32 = _mhd_state(shape, 61)
+    f, w = _bf(f32), _bf(w32)
+    before = dict(cm.LAUNCHES)
+    for s, read_w, write_w in [(0, False, True), (1, True, True),
+                               (2, True, False), (0, True, True)]:
+        wi = w if read_w else None
+        got = cm.mhd_substep_wrap_cuda(f, wi, s, prm, 1e-4, write_w=write_w)
+        tw = cm.mhd_substep_wrap_plain(f, wi, s, prm, 1e-4, write_w=write_w)
+        _assert_bf16_close(got[0], tw[0])
+        if write_w:
+            _assert_bf16_close(got[1], tw[1])
+        _assert_rounded_once(got, cm.mhd_substep_wrap_cuda(
+            _wide(f), _wide(wi), s, prm, 1e-4, write_w=write_w))
+    got = cm.mhd_substep01_wrap_cuda(f, prm, 1e-4)
+    tw = cm.mhd_substep01_wrap_plain(f, prm, 1e-4)
+    _assert_bf16_close(got[0], tw[0])
+    _assert_bf16_close(got[1], tw[1])
+    _assert_rounded_once(got, cm.mhd_substep01_wrap_cuda(_wide(f), prm,
+                                                         1e-4))
+    assert cm.LAUNCHES["mhd_substep_wrap"] == before["mhd_substep_wrap"] + 8
+    assert (cm.LAUNCHES["mhd_substep01_wrap"]
+            == before["mhd_substep01_wrap"] + 2)
+
+
+@pytest.mark.parametrize("size,mesh", BF16_MESHES)
+def test_bf16_b11_b12_match_twins_and_the_float32_instance(cm, size, mesh):
+    """On the halo path's exact slabs (3 and 6 rows), every shard of the
+    small meshes and shard 0 of the four 256^3 shards."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    prm = MhdParams(dt=1e-4)
+    f32, w32 = _mhd_mesh(size, mesh, 62)
+    shards = [t.to(torch.bfloat16) for t in f32]
+    ws = [t.to(torch.bfloat16) for t in w32]
+    sl3 = _mhd_slabs(shards, mesh, rz=3, ry=3)
+    sl6 = _mhd_slabs(shards, mesh, rz=6, ry=6)
+    sl3w = _mhd_slabs([t.float() for t in shards], mesh, rz=3, ry=3)
+    sl6w = _mhd_slabs([t.float() for t in shards], mesh, rz=6, ry=6)
+    for i in range(1 if size[0] == 512 else len(shards)):
+        f, w = _fields(shards[i]), _fields(ws[i])
+        for s, read_w, write_w in [(0, False, True), (1, True, True),
+                                   (2, True, False)]:
+            wi = w if read_w else None
+            got = cm.mhd_substep_halo_cuda(f, wi, sl3[i], s, prm, 1e-4,
+                                           write_w=write_w)
+            tw = cm.mhd_substep_halo_plain(f, wi, sl3[i], s, prm, 1e-4,
+                                           write_w=write_w)
+            _assert_bf16_close(got[0], tw[0])
+            if write_w:
+                _assert_bf16_close(got[1], tw[1])
+            _assert_rounded_once(got, cm.mhd_substep_halo_cuda(
+                _wide(f), _wide(wi), sl3w[i], s, prm, 1e-4, write_w=write_w))
+        got = cm.mhd_substep01_halo_cuda(f, sl6[i], prm, 1e-4)
+        tw = cm.mhd_substep01_halo_plain(f, sl6[i], prm, 1e-4)
+        _assert_bf16_close(got[0], tw[0])
+        _assert_bf16_close(got[1], tw[1])
+        _assert_rounded_once(got, cm.mhd_substep01_halo_cuda(
+            _wide(f), sl6w[i], prm, 1e-4))
+
+
+@pytest.mark.parametrize("size,mesh", BF16_MESHES)
+def test_bf16_b13_b14_match_twins_and_the_float32_instance(mo, cm, size,
+                                                           mesh):
+    """B13 then B14 (``mhd_substep_overlap``) for every variant, the pair
+    among them, against the B11/B12 twin on the landed rows and against
+    the float32 instance on the widened shards, rounded once."""
+    from stencil_tpu_torch.models.astaroth import MhdParams
+
+    prm = MhdParams(dt=1e-4)
+    counts = Dim3(*mesh)
+    f32, w32 = _mhd_mesh(size, mesh, 63)
+    f = [_fields(t.to(torch.bfloat16)) for t in f32]
+    w = [_fields(t.to(torch.bfloat16)) for t in w32]
+    del f32, w32
+    for s, read_w, write_w, pair in (_overlap_variants(False)
+                                     + _overlap_variants(True)):
+        wi = w if read_w else None
+        gf, gw, _ = mo.mhd_substep_overlap(f, wi, s, prm, 1e-4, counts,
+                                           pair=pair, write_w=write_w)
+        kf, kw, _ = mo.mhd_substep_overlap(
+            [_wide(x) for x in f], None if wi is None else
+            [_wide(x) for x in wi], s, prm, 1e-4, counts, pair=pair,
+            write_w=write_w)
+        slabs = mo.landed_slabs(f, counts, mo.halo_rows(pair))
+        for i in range(len(f)):
+            if pair:
+                tw = cm.mhd_substep01_halo_plain(f[i], slabs[i], prm, 1e-4)
+            else:
+                tw = cm.mhd_substep_halo_plain(
+                    f[i], None if wi is None else wi[i], slabs[i], s, prm,
+                    1e-4, write_w=write_w)
+            _assert_bf16_close(gf[i], tw[0])
+            if write_w:
+                _assert_bf16_close(gw[i], tw[1])
+            _assert_rounded_once((gf[i], None if gw is None else gw[i]),
+                                 (kf[i], None if kw is None else kw[i]))
+        del gf, gw, kf, kw, slabs
+        torch.cuda.empty_cache()
+
+
+def test_bf16_astaroth_kernel_paths_on_the_card(mo, cm):
+    """Astaroth in bf16 on the card: auto takes the kernels (JAX's
+    ``_fast_dtype_ok``); ``halo`` on a (1,1,1) mesh equals ``wrap`` and
+    ``halo-overlap`` equals ``halo`` on (1,2,2), bit for bit (fields
+    and carried w); the pair's f_1, w_1 stay float32, so a pair path is
+    within one bf16 ulp of max a substep of its single-substep path."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+
+    prm = MhdParams(dt=1e-4)
+
+    def run(size, mesh, **kw):
+        m = Astaroth(*size, params=prm, dtype=torch.bfloat16,
+                     mesh_shape=mesh, devices=["cuda:0"] * (mesh[1] * mesh[2]),
+                     **kw)
+        m.init()
+        m.run(2)
+        return m.kernel_path, ({q: m.field(q) for q in FIELDS},
+                               {q: m.accumulator(q) for q in FIELDS})
+
+    def same(a, b):
+        return all(np.array_equal(a[k][q], b[k][q]) for k in (0, 1)
+                   for q in FIELDS)
+
+    p_wrap, wrap = run((32, 32, 32), (1, 1, 1))
+    p_halo1, halo1 = run((32, 32, 32), (1, 1, 1), kernel="halo")
+    assert (p_wrap, p_halo1) == ("wrap", "halo")
+    assert same(halo1, wrap)
+    p_halo, halo = run((32, 64, 64), (1, 2, 2))
+    p_ov, ov = run((32, 64, 64), (1, 2, 2), overlap=True)
+    assert (p_halo, p_ov) == ("halo", "halo-overlap")
+    assert same(ov, halo)
+    _, hpair = run((32, 64, 64), (1, 2, 2), exchange_every=2)
+    for q in FIELDS:
+        err = np.abs(hpair[0][q] - halo[0][q]).max()
+        assert err <= 6 * BF16_ULP * np.abs(halo[0][q]).max(), (q, err)

@@ -174,6 +174,38 @@ def astaroth_state(m):
             {q: np.asarray(m._w[q]) for q in FIELDS})
 
 
+def jax_astaroth_w(m):
+    """The JAX model's RK3 accumulators as global (z,y,x) interiors, as
+    numpy: its ``_w`` as it is, or, on its temporal path (padded: one
+    ``raw_size(local, alloc_radius)`` block per mesh position, the block
+    of mesh position (x, y, z) at block index (z, y, x)), each block's
+    interior, a short shard's dead rows dropped."""
+    from stencil_tpu.geometry import Dim3
+
+    if not m._w_padded:
+        return {q: np.asarray(v) for q, v in m._w.items()}
+    dd = m.dd
+    lo = dd.alloc_radius.pad_lo()
+    cnt = dd.placement.dim()
+    out = {}
+    for q, v in m._w.items():
+        arr = np.asarray(v)
+        pz, py, px = (arr.shape[0] // cnt.z, arr.shape[1] // cnt.y,
+                      arr.shape[2] // cnt.x)
+        w = np.empty((dd.size.z, dd.size.y, dd.size.x), arr.dtype)
+        for iz in range(cnt.z):
+            for iy in range(cnt.y):
+                for ix in range(cnt.x):
+                    sz = dd.placement.subdomain_size(Dim3(ix, iy, iz))
+                    org = dd.placement.subdomain_origin(Dim3(ix, iy, iz))
+                    z0, y0, x0 = iz * pz + lo.z, iy * py + lo.y, ix * px + lo.x
+                    w[org.z:org.z + sz.z, org.y:org.y + sz.y,
+                      org.x:org.x + sz.x] = arr[z0:z0 + sz.z, y0:y0 + sz.y,
+                                                x0:x0 + sz.x]
+        out[q] = w
+    return out
+
+
 def run_astaroth_pair(kernel, dt, dtype, steps=2):
     """(JAX state, port state) after ``init()`` and ``steps`` steps on
     path ``kernel`` in both packages."""
