@@ -117,6 +117,14 @@ Phases, in order; any failure exits non-zero before the last line:
      against the float32 instance on the widened inputs, rounded once
      to bf16: bitwise (the ring and the arithmetic are float32 in
      both).
+   - bfloat16 on the Jacobi kernels (``compare_jacobi_bf16_kernels``):
+     K1 and K3 (r = 1 and asymmetric) at 512^3 and 131 x 97 x 133 (Z,
+     Y, X), K2 at N = 2, 3 and 16 (two launches) at 512^3 and 129 x 96
+     x 130, B5 at 512^3 and on the four shards of 512 x 511 x 509 over
+     (1,2,2), B6 at N = 2, 3 and 16 at 512^3 and 129 x 96 x 130, B7 on
+     the four shards of 512^3 and of 132 x 80 x 130 over (1,2,2).
+     Tolerance: 0 (bitwise) — each kernel rounds to bf16 after every
+     operation in its twin's order.
 4. main paths, each driven with the launch counts set to 0 just before
    it and read just after:
    - ``Jacobi3D(512, 512, 512, float32)``: kernel="auto" must take
@@ -218,6 +226,22 @@ Phases, in order; any failure exits non-zero before the last line:
      launches, counted), ``pingpong`` on two shards of the card,
      ``bench_pack`` at its default sizes; every time finite and
      positive.
+   - ``Jacobi3D(512, 512, 512, bfloat16)`` (``run_jacobi_bf16``):
+     ``auto`` takes ``wrap`` (K2 x 10 + K1 x 1 per ``run(21)``),
+     ``halo`` on (1,1,1) and, by ``auto``, on four shards of (1,2,2)
+     (B6 + B5), ``overlap`` on (1,2,2) (B7), ``pallas`` (K3 x 4 per
+     ``run(4)``) and ``exchange_every=16`` on ``wrap`` and ``halo``
+     (256 x 512 x 512, where JAX's planner takes 16-step groups);
+     ``halo`` bitwise equal to ``wrap``, the others within ``steps x
+     2^-7`` of bf16 ``xla``; finite and 512^3.
+   - Particle-in-cell (``run_pic``): a 9^3 NGP float64 model on (2,2,2)
+     shards of the card bitwise equal to the same on the CPU over 4
+     steps, its first rho to the dense oracle; then 256^3 on (2,2,2)
+     shards of 128^3: CIC float32 at 4 particles a cell (67,108,864,
+     seeded on the card), 3 timed steps (particle steps/s), 18 messages
+     a shard a step, the total charge within 1e-5 of the count; and NGP
+     float64 at 1 particle a cell, the total charge equal to the count
+     exactly after every step.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -277,8 +301,12 @@ Phases, in order; any failure exits non-zero before the last line:
    CUDA events (B13, B14 also by device time alone) beside their bf16
    twins, bounds counting 2-byte cells, and B9 and B11 float32 s=0 in
    the same process (``time_mhd_bf16_kernels``; the kernels line's
-   ``... bf16`` entries). Results also go to
-   chiprun_out/chip_smoke.json.
+   ``... bf16`` entries). The bfloat16 Jacobi kernels at 512^3 (K2 and
+   B6 also at N = 16, K3 beside conv3d in bf16, B7 per step of the four
+   quarter shards) beside their twins, bounds counting 2-byte cells,
+   and the bf16 ``wrap``, ``halo`` and ``overlap`` rates beside float32's
+   (``time_jacobi_bf16``; the kernels line's ``jacobi7_... bf16``
+   entries). Results also go to chiprun_out/chip_smoke.json.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -599,14 +627,15 @@ def b14_bytes(shape, read_w: bool, write_w: bool, pair: bool,
     return float(item) * (8 * near + (8 + wr) * shell + slab)
 
 
-def halo_bytes(shape, r: int, z_extended: bool) -> float:
-    """Bytes B5 (r = 1) or B6 (r = N) must move on a (Z, Y, X) shard:
-    the shard read once and written once, and of the slabs only the rows
-    the kernel reads: r rows of each z slab, and r columns of each y
-    slab over its Zs rows (Z + 2r when it is z-extended)."""
+def halo_bytes(shape, r: int, z_extended: bool, itemsize: int = 4) -> float:
+    """Bytes B5 (r = 1) or B6 (r = N) must move on a (Z, Y, X) shard of
+    ``itemsize``-byte cells: the shard read once and written once, and of
+    the slabs only the rows the kernel reads: r rows of each z slab, and
+    r columns of each y slab over its Zs rows (Z + 2r when it is
+    z-extended)."""
     Z, Y, X = shape
     zs = Z + 2 * r if z_extended else Z
-    return 4.0 * (2 * Z * Y * X + 2 * r * Y * X + 2 * zs * r * X)
+    return itemsize * (2.0 * Z * Y * X + 2 * r * Y * X + 2 * zs * r * X)
 
 
 def ring_plan(torch, cs, shape, steps: int) -> dict:
@@ -700,11 +729,13 @@ def library_ms(torch, padded, weight, want, what: str) -> float:
 # ---------------------------------------------------------------------------
 # the halo path: B5, B6 and Jacobi3D(kernel="halo") on meshes of shards
 # ---------------------------------------------------------------------------
-def halo_case(torch, gen, size_xyz, mesh, slab_kw, widen: int = 0):
+def halo_case(torch, gen, size_xyz, mesh, slab_kw, widen: int = 0,
+              dtype=None):
     """Random capacity-sized shards of a ``size_xyz`` grid over ``mesh``
-    on the card, their slabs (``exchange_interior_slabs(**slab_kw)``),
-    and per shard its global origin (z, y, x) and live extents (z, y).
-    Returns (shards, slabs, origins, lens, spheres, global (z, y, x))."""
+    on the card (float32, or rounded once to ``dtype``), their slabs
+    (``exchange_interior_slabs(**slab_kw)``), and per shard its global
+    origin (z, y, x) and live extents (z, y). Returns (shards, slabs,
+    origins, lens, spheres, global (z, y, x))."""
     from stencil_tpu_torch.geometry import Dim3
     from stencil_tpu_torch.parallel.exchange import (exchange_interior_slabs,
                                                      shard_interior_len,
@@ -717,6 +748,8 @@ def halo_case(torch, gen, size_xyz, mesh, slab_kw, widen: int = 0):
     rem = Dim3(*(size[a] % counts[a] for a in range(3)))
     shards = [torch.rand((cap.z, cap.y, cap.x), generator=gen, device="cuda")
               for _ in range(counts.flatten())]
+    if dtype is not None:
+        shards = [t.to(dtype) for t in shards]
     kw = dict(slab_kw)
     if not kw.get("y_z_extended"):
         kw["rem"] = rem
@@ -4040,6 +4073,460 @@ def time_mhd_bf16_kernels(torch, cm, mo) -> dict:
 
 
 # name: (tag, source, TPU kernel it replaces)
+# ---------------------------------------------------------------------------
+# bfloat16 on the Jacobi kernels (K1-K3, B5-B7) and the PIC model
+# ---------------------------------------------------------------------------
+JACOBI_BF16_NAMES = ("jacobi7_wrap", "jacobi7_wrapn", "jacobi7_padded",
+                     "jacobi7_halo", "jacobi7_halon", "jacobi7_overlap")
+#: shapes (Z, Y, X) off every tile: y a multiple of bfloat16's sublane
+#: tile (16) where K2 and B6 need it, odd x elsewhere
+JACOBI_BF16_UNEVEN = (131, 97, 133)
+JACOBI_BF16_RING_UNEVEN = (129, 96, 130)
+#: bfloat16 paths against the float32-computed-in-bfloat16 ``xla`` path:
+#: each path adds in its own order, so each step may differ by an ulp
+#: of bfloat16 at 1 (the field is in [0, 1])
+BF16_STEP_TOL = 2.0 ** -7
+PIC_GRID = 256          # global grid a side: (2,2,2) shards of 128^3
+PIC_MESH = (2, 2, 2)
+PIC_PER_CELL = 4        # CIC float32 particles a cell (67,108,864)
+PIC_STEPS = 3
+
+
+def compare_jacobi_bf16_kernels(torch, cs, ch, co) -> dict:
+    """Phase 3: every bfloat16 Jacobi kernel bitwise its twin at 512^3
+    and at one uneven size, K2 and B6 at N = 2, 3 and 16 (two launches);
+    returns the largest |kernel - twin| per kernel (must be 0)."""
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.local_domain import raw_size, zyx_shape
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    worst = {k: 0.0 for k in JACOBI_BF16_NAMES}
+
+    def check(name, got, want, what):
+        assert got.shape == want.shape and got.dtype == bf, (what,)
+        err = float((got.float() - want.float()).abs().max())
+        same = bool(torch.equal(got, want))
+        log(f"  {what} bf16: max |kernel - twin| = {err!r} "
+            f"({'bitwise equal' if same else 'DIFFERENT'})")
+        if not same or not torch.isfinite(got).all():
+            raise AssertionError(f"{what} bf16: kernel disagrees with its "
+                                 f"twin")
+        worst[name] = max(worst[name], err)
+
+    def field(shape):
+        return torch.rand(shape, generator=gen, device="cuda").to(bf)
+
+    n = N512
+    for shape in ((n, n, n), JACOBI_BF16_UNEVEN):
+        t = field(shape)
+        hot, cold, r = spheres(shape, widen=0 if shape[0] == n else 2)
+        check("jacobi7_wrap", cs.jacobi7_wrap_cuda(t, hot, cold, r),
+              cs.jacobi7_wrap_plain(t, hot, cold, r), f"K1 {shape}")
+        del t
+    for shape in ((n, n, n), JACOBI_BF16_RING_UNEVEN):
+        t = field(shape)
+        hot, cold, r = spheres(shape, widen=0 if shape[0] == n else 2)
+        for steps in (2, 3, 16):
+            check("jacobi7_wrapn",
+                  cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=steps),
+                  cs.jacobi7_wrapn_plain(t, hot, cold, r, steps=steps),
+                  f"K2 N={steps} {shape}")
+        del t
+    for shape, rad in (((n, n, n), Radius.constant(1)),
+                       (JACOBI_BF16_UNEVEN, Radius.constant(1)),
+                       (JACOBI_BF16_UNEVEN, asym_radius())):
+        interior = Dim3(shape[2], shape[1], shape[0])
+        p = field(zyx_shape(raw_size(interior, rad)))
+        check("jacobi7_padded", cs.jacobi7_padded_cuda(p, rad, interior),
+              cs.jacobi7_padded_plain(p, rad, interior), f"K3 {shape}")
+        del p
+    # B5 on 512^3 as one shard and on the uneven 512 x 511 x 509 grid
+    # over (1,2,2); B6 on 512^3 as one shard and on an uneven single shard
+    for size, mesh in (((n, n, n), (1, 1, 1)), ((n, 511, 509), (1, 2, 2))):
+        shards, slabs, orgs, lens, (hot, cold, r), _ = halo_case(
+            torch, gen, size, mesh, dict(rz=1, ry=1), dtype=bf)
+        for t, sl, org, ln in zip(shards, slabs, orgs, lens):
+            check("jacobi7_halo",
+                  ch.jacobi7_halo_cuda(t, sl, org, hot, cold, r,
+                                       interior_len_zy=ln),
+                  ch.jacobi7_halo_plain(t, sl, org, hot, cold, r, ln),
+                  f"B5 {size} {mesh}")
+        del shards, slabs
+    for size in ((n, n, n), tuple(reversed(JACOBI_BF16_RING_UNEVEN))):
+        for steps in (2, 3, 16):
+            kw = dict(rz=steps, ry=steps, radius_rows=steps,
+                      y_z_extended=True)
+            (t,), (sl,), (org,), _, (hot, cold, r), gsize = halo_case(
+                torch, gen, size, (1, 1, 1), kw, widen=2, dtype=bf)
+            check("jacobi7_halon",
+                  ch.jacobi7_halon_cuda(t, sl, org, gsize, hot, cold, r,
+                                        steps=steps),
+                  ch.jacobi7_halon_plain(t, sl, org, gsize, hot, cold, r,
+                                         steps=steps),
+                  f"B6 N={steps} {size}")
+            del t, sl
+    for size in ((n, n, n), (130, 80, 132)):
+        sh, orgs, (hot, cold, r) = overlap_case(torch, gen, size, (1, 2, 2))
+        sh = [t.to(bf) for t in sh]
+        c = Dim3(1, 2, 2)
+        out, recv = co.jacobi7_overlap_cuda(sh, orgs, hot, cold, r, c)
+        new, _ = co.jacobi7_overlap_plain(sh, orgs, hot, cold, r, c)
+        for i, (g, w) in enumerate(zip(out, new)):
+            check("jacobi7_overlap", g, w, f"B7 {size} (1,2,2) shard {i}")
+        del sh, out, recv, new
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_jacobi_bf16(torch, cs, ch, co) -> dict:
+    """Phase 4: ``Jacobi3D(512, 512, 512, dtype=bfloat16)`` through the
+    user's entry points: ``auto`` takes ``wrap`` on one shard (K1, K2),
+    ``halo`` on (1,2,2) (B5, B6) and, with ``overlap=True``, ``overlap``
+    (B7); ``pallas`` runs K3; ``exchange_every=16`` runs K2 and B6 at 16
+    steps (on 256 x 512 x 512). Each run's counts are set to 0 just before it and read just
+    after. ``halo`` equals ``wrap`` bitwise; every path is within
+    ``steps x BF16_STEP_TOL`` of bfloat16 ``xla``, finite and 512^3."""
+    bf = torch.bfloat16
+    steps = 21
+    mods = (cs, ch, co)
+    out = {"launches_by_run": {}}
+
+    def run(label, k, kernel, mesh=(1, 1, 1), want_path=None,
+            size=(N512, N512, N512), **kw):
+        j = jacobi_mesh(kernel, mesh, size, dtype=bf, **kw)
+        if want_path and j.kernel_path != want_path:
+            raise AssertionError(f"bf16 {label}: kernel={kernel!r} took "
+                                 f"{j.kernel_path!r}, not {want_path!r}")
+        for m in mods:
+            m.reset_launch_counts()
+        j.run(k)
+        j.block()
+        counts = {name: n for m in mods for name, n in m.LAUNCHES.items()
+                  if n}
+        log(f"  bf16 {label} run({k}) launches: {counts}")
+        out["launches_by_run"][label] = counts
+        got = gather(torch, j).float()
+        if tuple(got.shape) != tuple(reversed(size)) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"bf16 {label}: wrong shape or non-finite")
+        del j
+        torch.cuda.empty_cache()
+        return got, counts
+
+    def expect(label, counts, want):
+        if counts != want:
+            raise AssertionError(f"bf16 {label} launched {counts}, not "
+                                 f"{want}")
+
+    ref = {}
+    for k in (steps, 4):
+        x = jacobi_mesh("xla", dtype=bf)
+        x.run(k)
+        ref[k] = gather(torch, x).float()
+        del x
+    wrap, c = run("wrap (auto)", steps, "auto", want_path="wrap")
+    expect("wrap", c, {"jacobi7_wrapn": 10, "jacobi7_wrap": 1})
+    for label, k, kernel, mesh, want, kw in (
+            ("halo (1,1,1)", steps, "halo", (1, 1, 1),
+             {"jacobi7_halon": 10, "jacobi7_halo": 1}, {}),
+            ("halo (1,2,2) (auto)", steps, "auto", (1, 2, 2),
+             {"jacobi7_halon": 40, "jacobi7_halo": 4}, {})):
+        got, c = run(label, k, kernel, mesh, "halo", **kw)
+        expect(label, c, want)
+        same = bool(torch.equal(got, wrap))
+        log(f"  bf16 {label} vs bf16 wrap after {k} steps: "
+            f"{'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"bf16 {label} is not bitwise bf16 wrap")
+        del got
+    for label, k, kernel, mesh, path, want, kw in (
+            ("overlap (1,2,2)", steps, "auto", (1, 2, 2), "overlap",
+             {"jacobi7_overlap": 4 * steps}, dict(overlap=True)),
+            ("pallas", 4, "pallas", (1, 1, 1), "pallas",
+             {"jacobi7_padded": 4}, {})):
+        got, c = run(label, k, kernel, mesh, path, **kw)
+        expect(label, c, want)
+        err, tol = float((got - ref[k]).abs().max()), k * BF16_STEP_TOL
+        log(f"  bf16 {label} vs bf16 xla after {k} steps: max diff {err!r} "
+            f"(tolerance {tol!r})")
+        if err > tol:
+            raise AssertionError(f"bf16 {label} disagrees with bf16 xla")
+        out[f"{label} vs xla max diff"] = err
+        del got
+    err, tol = float((wrap - ref[steps]).abs().max()), steps * BF16_STEP_TOL
+    log(f"  bf16 wrap vs bf16 xla after {steps} steps: max diff {err!r} "
+        f"(tolerance {tol!r})")
+    if err > tol:
+        raise AssertionError("bf16 wrap disagrees with bf16 xla")
+    out["wrap vs xla max diff"] = err
+    del wrap, ref
+    # 16-step groups on 256 x 512 x 512: at 512^3 JAX's planner, which
+    # the halo path copies (ops/halo_plan.py), declines them (x = 512
+    # stages 16 MB against its 14 MB budget), and the path steps by B5
+    s16 = (N512 // 2, N512, N512)
+    w16, c = run("wrap exchange_every=16", 32, "wrap", size=s16,
+                 exchange_every=16)
+    expect("wrap s=16", c, {"jacobi7_wrapn": 2})
+    h16, c = run("halo (1,2,2) exchange_every=16", 32, "halo", (1, 2, 2),
+                 "halo", size=s16, exchange_every=16)
+    expect("halo s=16", c, {"jacobi7_halon": 8})
+    same = bool(torch.equal(h16, w16))
+    log(f"  bf16 halo (1,2,2) vs wrap at exchange_every=16: "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("bf16 halo s=16 is not bitwise bf16 wrap s=16")
+    del w16, h16
+    torch.cuda.empty_cache()
+    runs = out["launches_by_run"]
+    out["launches"] = {
+        "jacobi7_wrap": runs["wrap (auto)"]["jacobi7_wrap"],
+        "jacobi7_wrapn": runs["wrap (auto)"]["jacobi7_wrapn"],
+        "jacobi7_padded": runs["pallas"]["jacobi7_padded"],
+        "jacobi7_halo": runs["halo (1,2,2) (auto)"]["jacobi7_halo"],
+        "jacobi7_halon": runs["halo (1,2,2) (auto)"]["jacobi7_halon"],
+        "jacobi7_overlap": runs["overlap (1,2,2)"]["jacobi7_overlap"]}
+    return out
+
+
+def time_jacobi_bf16(torch, cs, ch, co, f32_rates: dict) -> dict:
+    """Phase 5: the bfloat16 Jacobi kernels at 512^3 (B7 per step of the
+    four 512 x 256 x 256 shards of (1,2,2)) beside their twins, with
+    their 2-byte bounds; K2 and B6 also at N = 16; K3 beside conv3d in
+    bfloat16; and the bfloat16 path rates beside ``f32_rates``."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from stencil_tpu_torch.geometry import Dim3, Radius
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    n = N512
+    pts = float(n ** 3)
+    hot, cold, r = spheres((n, n, n))
+    a = torch.rand((n, n, n), generator=gen, device="cuda").to(bf)
+    b = torch.empty_like(a)
+    pad = torch.rand((n + 2,) * 3, generator=gen, device="cuda").to(bf)
+    rad, inner = Radius.constant(1), Dim3(n, n, n)
+    cases = {
+        "jacobi7_wrap": (
+            lambda: cs.jacobi7_wrap_cuda(a, hot, cold, r, out=b),
+            lambda: cs.jacobi7_wrap_plain(a, hot, cold, r),
+            2 * 2 * pts, 7 * pts),
+        "jacobi7_wrapn": (
+            lambda: cs.jacobi7_wrapn_cuda(a, hot, cold, r, steps=2, out=b),
+            lambda: cs.jacobi7_wrapn_plain(a, hot, cold, r, steps=2),
+            2 * 2 * pts, 2 * 7 * pts),
+        "jacobi7_wrapn N=16": (
+            lambda: cs.jacobi7_wrapn_cuda(a, hot, cold, r, steps=16, out=b),
+            lambda: cs.jacobi7_wrapn_plain(a, hot, cold, r, steps=16),
+            2 * 2 * pts, 16 * 7 * pts),
+        "jacobi7_padded": (
+            lambda: cs.jacobi7_padded_cuda(pad, rad, inner, out=b),
+            lambda: cs.jacobi7_padded_plain(pad, rad, inner),
+            2 * (float(n + 2) ** 3 + pts), 7 * pts),
+    }
+    for name, kw, k in (("jacobi7_halo", dict(rz=1, ry=1), 1),
+                        ("jacobi7_halon", dict(rz=2, ry=2, radius_rows=2,
+                                               y_z_extended=True), 2),
+                        ("jacobi7_halon N=16", dict(rz=16, ry=16,
+                                                    radius_rows=16,
+                                                    y_z_extended=True), 16)):
+        (t,), (sl,), (org,), (ln,), (h, c, rr), gsize = halo_case(
+            torch, gen, (n, n, n), (1, 1, 1), kw, dtype=bf)
+        o = torch.empty_like(t)
+        if k == 1:
+            kern = functools.partial(
+                ch.jacobi7_halo_cuda, t, sl, org, h, c, rr,
+                interior_len_zy=ln, out=o)
+            plain = functools.partial(ch.jacobi7_halo_plain, t, sl, org, h,
+                                      c, rr, ln)
+        else:
+            kern = functools.partial(ch.jacobi7_halon_cuda, t, sl, org,
+                                     gsize, h, c, rr, steps=k, out=o)
+            plain = functools.partial(ch.jacobi7_halon_plain, t, sl, org,
+                                      gsize, h, c, rr, steps=k)
+        cases[name] = (kern, plain, halo_bytes(t.shape, k, k > 1, 2),
+                       7 * k * pts)
+    sh, orgs, (h7, c7, r7) = overlap_case(torch, gen, (n, n, n), (1, 2, 2))
+    sh = [t.to(bf) for t in sh]
+    c122 = Dim3(1, 2, 2)
+    outs = [torch.empty_like(t) for t in sh]
+    recv = co.OverlapRecv(sh, c122)
+    slab_pts = sum(2 * t.shape[1] * t.shape[2] + 2 * t.shape[0] * t.shape[2]
+                   for t in sh)
+    cases["jacobi7_overlap"] = (
+        lambda: co.jacobi7_overlap_cuda(sh, orgs, h7, c7, r7, c122, out=outs,
+                                        recv=recv),
+        lambda: co.jacobi7_overlap_plain(sh, orgs, h7, c7, r7, c122),
+        2 * (2 * pts + 2 * slab_pts), 7 * pts)
+    res = {"kernels": {}, "steps_per_s": {}, "runs_steps_per_s": {}}
+    for name, (kern, plain, nbytes, flops) in cases.items():
+        ms = event_ms(torch, kern, reps=20)
+        plain_ms = event_ms(torch, plain, reps=2, warmup=1)
+        bms, by = bound_ms(nbytes, flops)
+        res["kernels"][name] = {"ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bms, "bound_by": by,
+                                "library_ms": None}
+        log(f"  {name} bf16: {ms!r} ms/launch, bound {bms!r} ms ({by}), "
+            f"{100 * bms / ms:.1f}% of bound; plain twin {plain_ms!r} ms")
+    # K3's function as one library call in bfloat16 (conv3d's own order:
+    # held to 2 ulps of bfloat16 at 1 of the kernel)
+    weight = torch.zeros((1, 1, 3, 3, 3), device="cuda", dtype=bf)
+    for k, j, i in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                    (1, 1, 2)):
+        weight[0, 0, k, j, i] = 1.0 / 6.0
+    want = cs.jacobi7_padded_cuda(pad, rad, inner, out=b).float()
+    got = F.conv3d(pad[None, None], weight)[0, 0].float()
+    err = float((got - want).abs().max())
+    log(f"  jacobi7_padded bf16: max |conv3d - kernel| = {err!r}")
+    if not err <= 2 * BF16_STEP_TOL:
+        raise AssertionError("conv3d does not compute K3's function")
+    del got, want
+    res["kernels"]["jacobi7_padded"]["library_ms"] = event_ms(
+        torch, lambda: F.conv3d(pad[None, None], weight), reps=5)
+    log(f"  conv3d bf16 (K3's library call): "
+        f"{res['kernels']['jacobi7_padded']['library_ms']!r} ms")
+    del a, b, pad, sh, outs, recv, cases
+    torch.cuda.empty_cache()
+    for label, kernel, mesh, kw in (
+            ("wrap", "wrap", (1, 1, 1), {}),
+            ("halo (1,2,2)", "halo", (1, 2, 2), {}),
+            ("overlap (1,2,2)", "halo", (1, 2, 2), dict(overlap=True))):
+        j = jacobi_mesh(kernel, mesh, dtype=bf, **kw)
+        j.run(2)
+        j.block()
+        rate, runs = timed_runs(j, 40)
+        res["steps_per_s"][label] = rate
+        res["runs_steps_per_s"][label] = runs
+        log(f"  Jacobi bf16 {label}: {rate!r} steps/s over three runs "
+            f"({runs}) against float32 {f32_rates.get(label)!r}")
+        del j
+        torch.cuda.empty_cache()
+    return res
+
+
+def pic_shard_particles(torch, pic, per_shard: int, seed: int):
+    """``per_shard`` particles on every shard of ``pic``, made on the card
+    from ``seed``: positions uniform over the shard's box, thermal
+    velocities (sigma 0.05), unit charges (``Pic.init``'s plasma, each
+    shard holding the same count; the host ``init()`` of tens of millions
+    of particles takes seconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = pic._dtype
+    out = []
+    for i in range(pic.dd.num_subdomains()):
+        o, s = pic.dd.shard_origin(i), pic.dd.shard_size(i)
+        parts = {}
+        for k, lo, ln in (("x", o.x, s.x), ("y", o.y, s.y), ("z", o.z, s.z)):
+            u = torch.rand(per_shard, generator=gen, device="cuda",
+                           dtype=torch.float64)
+            # in [lo, lo + ln) in the particle dtype too
+            top = torch.tensor(float(lo + ln), dtype=dt).nextafter(
+                torch.tensor(0.0, dtype=dt)).item()
+            parts[k] = torch.clamp((lo + ln * u).to(dt), max=top)
+        for k in ("vx", "vy", "vz"):
+            parts[k] = 0.05 * torch.randn(per_shard, generator=gen,
+                                          device="cuda", dtype=dt)
+        parts["q"] = torch.ones(per_shard, device="cuda", dtype=dt)
+        out.append(parts)
+    return out
+
+
+def run_pic(torch) -> dict:
+    """Phase 4: the particle-in-cell model (``models/pic.py``; no Pallas
+    kernel in either package, so no kernel of the kernels line runs
+    here). A small NGP float64 case on the card equals the same on the
+    CPU bitwise and its first rho JAX's dense oracle (the port's copy);
+    then 256^3 on (2,2,2) shards of 128^3 on the card: CIC float32 at
+    ``PIC_PER_CELL`` particles a cell for ``PIC_STEPS`` timed steps
+    (particle steps/s), 18 messages a shard a step, the total charge
+    within 1e-5 of the count; and NGP float64 at 1 particle a cell, the
+    total charge equal to the count exactly after each step."""
+    import numpy as np
+
+    from stencil_tpu_torch.models.pic import Pic, dense_reference_rho
+    from stencil_tpu_torch.parallel.exchange import WireProbe
+
+    out = {}
+    card = card_line()
+    devs = [CARD] * 8
+    rng = np.random.default_rng(11)
+    n = 48
+    ics = {"x": rng.uniform(0, 9, n), "y": rng.uniform(0, 9, n),
+           "z": rng.uniform(0, 9, n), "vx": rng.normal(0, 0.3, n),
+           "vy": rng.normal(0, 0.3, n), "vz": rng.normal(0, 0.3, n)}
+    small = {}
+    for label, d in (("card", devs), ("cpu", ["cpu"] * 8)):
+        p = Pic(9, 9, 9, n, mesh_shape=PIC_MESH, devices=d,
+                dtype=torch.float64, deposition="ngp", capacity=n,
+                init=False)
+        p.set_particles(ics)
+        p.step()
+        rho1 = p.rho()
+        p.run(3)
+        small[label] = (rho1, p.rho(), p.particles_to_host())
+    oracle = dense_reference_rho(ics["x"], ics["y"], ics["z"], np.ones(n),
+                                 (9, 9, 9), deposition="ngp")
+    same = (np.array_equal(small["card"][0], oracle)
+            and np.array_equal(small["card"][1], small["cpu"][1])
+            and all(np.array_equal(small["card"][2][k], small["cpu"][2][k])
+                    for k in small["cpu"][2]))
+    log(f"  PIC NGP float64 9^3 (2,2,2), 4 steps: card vs CPU and the "
+        f"first rho vs the dense oracle: "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("PIC on the card disagrees with the CPU")
+    g = PIC_GRID
+    shards = 8
+    for label, dtype, dep, per_cell in (
+            ("CIC float32", torch.float32, "cic", PIC_PER_CELL),
+            ("NGP float64", torch.float64, "ngp", 1)):
+        total = per_cell * g ** 3
+        p = Pic(g, g, g, total, mesh_shape=PIC_MESH, devices=devs,
+                dtype=dtype, deposition=dep, init=False)
+        p.set_shard_particles(pic_shard_particles(torch, p, total // shards,
+                                                  seed=5))
+        p.probe = WireProbe()
+        p.step()
+        p.block()
+        msgs = len(p.probe.records) / shards
+        p.probe = None
+        charges = [p.total_charge()]
+        secs = []
+        for _ in range(PIC_STEPS):
+            t0 = time.perf_counter()
+            p.step()
+            p.block()
+            secs.append(time.perf_counter() - t0)
+            charges.append(p.total_charge())
+        rate = total * PIC_STEPS / sum(secs)
+        ovf = p.overflow_total()
+        log(f"  PIC {label} {g}^3 on {PIC_MESH} shards of {g // 2}^3, "
+            f"{total} particles ({per_cell} a cell): {rate!r} particle "
+            f"steps/s (step seconds {secs}; card: {card}); {msgs!r} "
+            f"messages a shard a step; total charge {charges}; overflow "
+            f"{ovf}")
+        if msgs != 18:
+            raise AssertionError(f"PIC sent {msgs} messages a shard a step")
+        if dep == "ngp":
+            if charges != [float(total)] * len(charges):
+                raise AssertionError("NGP float64 charge is not exact")
+        elif not all(abs(c - total) <= 1e-5 * total for c in charges):
+            raise AssertionError("CIC float32 charge drifted")
+        if not np.isfinite(p.rho()).all():
+            raise AssertionError(f"PIC {label}: non-finite rho")
+        out[label] = {"particles": total, "particle_steps_per_s": rate,
+                      "step_seconds": secs, "total_charge": charges,
+                      "messages_per_shard_step": msgs, "overflow": ovf,
+                      "migration": p.migration_stats()}
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
@@ -4076,9 +4563,11 @@ def kernel_key(lib: str, name: str):
     its storage types where they are not float32 ("bf16", or the pair's
     "bf16->f32" and "f32->bf16"), (library, "send_rows", ...) of B13's
     sends, (library, "jacobi_ring") of the Jacobi ring kernel (K2 in
-    ``jacobi7``, B6 in ``jacobi_halo``), or (library, "laplace6_ring",
-    copy floats, 16-byte stores) of B8's (``laplace6_ring_kernel<kChunk,
-    kVecOut>``), from its mangled name, else None."""
+    ``jacobi7``, B6 in ``jacobi_halo``; "padded" for the source of B6's
+    second launch of 9 to 16 steps, and "bf16" for bfloat16), or
+    (library, "laplace6_ring", copy floats, 16-byte stores) of B8's
+    (``laplace6_ring_kernel<kChunk, kVecOut>``), from its mangled name,
+    else None."""
     import re
 
     if lib not in RING_LIBS:
@@ -4096,8 +4585,10 @@ def kernel_key(lib: str, name: str):
     m = re.search(r"send_rows_kernelI", name)
     if m:
         return (lib, "send_rows") + _storage(name, m)
-    if "jacobi_ring_kernel" in name:
-        return (lib, "jacobi_ring")
+    m = re.search(r"jacobi_ring_kernelILi(\d)E", name)
+    if m:
+        src = ("padded",) if m.group(1) == "2" else ()
+        return (lib, "jacobi_ring") + src + _storage(name, m)
     m = re.search(r"laplace6_ring_kernelILi(\d)ELb(\d)E", name)
     if m:
         return (lib, "laplace6_ring", int(m.group(1)), m.group(2) == "1")
@@ -4236,6 +4727,8 @@ def main() -> int:
     worst.update(compare_mhd_overlap_kernels(torch, cm, mo))
     log("phase 3: bfloat16 storage on the MHD ring kernels (B9-B14)")
     worst_bf16 = compare_mhd_bf16_kernels(torch, cm, mo)
+    log("phase 3: bfloat16 on the Jacobi kernels (K1-K3, B5-B7)")
+    worst_jbf16 = compare_jacobi_bf16_kernels(torch, cs, ch, co)
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -4275,6 +4768,11 @@ def main() -> int:
     log("phase 4: Astaroth temporal path (exchange_every 2-4 on xla) and "
         "Boundary.NONE on four 256^3 shards of one card")
     mhd_temporal = run_astaroth_temporal(torch)
+    log("phase 4: Jacobi3D 512^3 bfloat16 (wrap, halo, overlap, pallas, "
+        "exchange_every 16) on one card")
+    jbf16_path = run_jacobi_bf16(torch, cs, ch, co)
+    log("phase 4: particle-in-cell, 256^3 on (2,2,2) shards of one card")
+    pic = run_pic(torch)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -4311,6 +4809,10 @@ def main() -> int:
         log(f"  Astaroth {label}: bf16 {rate!r} against float32 "
             f"{f32_rates.get(label)!r} iterations/s")
     bf16_times = time_mhd_bf16_kernels(torch, cm, mo)
+    jbf16_times = time_jacobi_bf16(torch, cs, ch, co, {
+        "wrap": sps["wrap"], "halo (1,2,2)": halo_times["steps_per_s"][
+            "(1,2,2)"], "overlap (1,2,2)": dma_times["steps_per_s"][
+            "(1,2,2)"]})
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
@@ -4403,6 +4905,30 @@ def main() -> int:
                       if k[0] == lib and len(k) > 1
                       and k[-1] in ("bf16", "bf16->f32", "f32->bf16")}}
         kernels.append(entry)
+    # the bfloat16 instances of K1-K3 and B5-B7: launches of the phase-4
+    # bf16 runs, errors against the bf16 twins, times of phase 5
+    for name in JACOBI_BF16_NAMES:
+        tag, source, replaces = KERNEL_META[name]
+        t = jbf16_times["kernels"][name]
+        entry = {
+            "name": f"{name} bf16 ({tag})", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": jbf16_path["launches"][name],
+            "max_abs_err": worst_jbf16[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name in ("jacobi7_wrapn", "jacobi7_halon"):
+            lib = "jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo"
+            entry["N=16"] = dict(
+                jbf16_times["kernels"][f"{name} N=16"],
+                launches=jbf16_path["launches_by_run"][
+                    "wrap exchange_every=16" if name == "jacobi7_wrapn"
+                    else "halo (1,2,2) exchange_every=16"][name])
+            entry["ptxas"] = {", ".join(str(x) for x in k[2:]): use
+                              for k, use in ptxas.items()
+                              if k[:2] == (lib, "jacobi_ring")
+                              and k[-1] == "bf16"}
+        kernels.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
@@ -4466,6 +4992,12 @@ def main() -> int:
                    "astaroth_f32_iters_per_s_same_run": f32_rates,
                    "bf16_kernel_times": bf16_times,
                    "astaroth_temporal": mhd_temporal,
+                   "jacobi_bf16_path": jbf16_path,
+                   "jacobi_bf16_steps_per_s": jbf16_times["steps_per_s"],
+                   "jacobi_bf16_runs_steps_per_s":
+                       jbf16_times["runs_steps_per_s"],
+                   "jacobi_bf16_kernel_times": jbf16_times["kernels"],
+                   "pic": pic,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -84,9 +84,9 @@ def add_dtype_flags(ap: argparse.ArgumentParser) -> None:
     g.add_argument("--f64", action="store_true")
     g.add_argument("--bf16", action="store_true",
                    help="bfloat16 fields (Astaroth: stored half-width, "
-                        "computed in float32, its CUDA kernels included; "
-                        "Jacobi: the plain PyTorch paths, its CUDA kernels "
-                        "take float32)")
+                        "computed in float32; Jacobi: computed in "
+                        "bfloat16, rounded after every operation as the "
+                        "JAX kernels round; both on their CUDA kernels)")
 
 
 def dtype_from_args(args):

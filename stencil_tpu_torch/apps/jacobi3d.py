@@ -27,7 +27,10 @@ prints the one that ran. ``--exchange-every S`` is the temporal depth
 (``Jacobi3D(exchange_every=S)``): N of the N-step kernels on ``wrap``
 and ``halo``, one deep exchange per S steps on the padded paths
 (``xla-temporal[s=S]``); ``--wrap-steps N`` sets STENCIL_WRAP_STEPS,
-which an explicit ``--exchange-every`` overrides.
+which an explicit ``--exchange-every`` overrides. ``--bf16`` runs a
+bfloat16 field on the kernels' bfloat16 instances (up to 16 steps a
+group, bfloat16's sublane tile), ``--f64`` a float64 one on the plain
+paths, as JAX's ``--bf16`` / ``--f64`` do.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from __future__ import annotations
 import argparse
 import os
 
-from ._common import (KERNEL_CHOICES, add_device_flags, add_method_flags,
-                      mesh_from_args, methods_from_args, sampled_steps_per_s)
+from ._common import (KERNEL_CHOICES, add_device_flags, add_dtype_flags,
+                      add_method_flags, dtype_from_args, mesh_from_args,
+                      methods_from_args, sampled_steps_per_s)
 
 
 def main(argv=None) -> None:
@@ -62,6 +66,7 @@ def main(argv=None) -> None:
                          "halo); 0 leaves the default")
     add_device_flags(ap)
     add_method_flags(ap)
+    add_dtype_flags(ap)
     args = ap.parse_args(argv)
     if args.wrap_steps:
         os.environ["STENCIL_WRAP_STEPS"] = str(args.wrap_steps)
@@ -72,7 +77,8 @@ def main(argv=None) -> None:
     devices, shape = mesh_from_args(args,
                                     xfree=args.kernel in ("halo", "auto"))
     gx, gy, gz = args.x * shape[0], args.y * shape[1], args.z * shape[2]
-    j = Jacobi3D(gx, gy, gz, kernel=args.kernel, mesh_shape=shape,
+    j = Jacobi3D(gx, gy, gz, dtype=dtype_from_args(args),
+                 kernel=args.kernel, mesh_shape=shape,
                  devices=devices, methods=methods_from_args(args),
                  exchange_every=args.exchange_every or None)
     j.init()

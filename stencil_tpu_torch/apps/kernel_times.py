@@ -63,7 +63,10 @@ without the pair on 256^3 over (1,1,1) (three ``run(10)`` each).
 ``--bf16`` (``--model mhd`` and ``pair``): the same with bfloat16
 fields (stored half-width, computed in float32; the pairs' scratch
 float32), the bounds counting 2-byte cells, the paths in bfloat16; the
-results go to ``kernel_times_<model>_bf16_<label>.json``.
+results go to ``kernel_times_<model>_bf16_<label>.json``. With ``--model
+jacobi``: K1, K2, K3, B5 and B6 in bfloat16 (computed in bfloat16, as
+the JAX kernels compute), K2 and B6 also at N = 16 (two launches), K3
+beside ``conv3d``'s bfloat16 time, the paths in bfloat16.
 
 ``--model laplace6``: B8 (laplace6, no model path runs it) on a random
 256^3 interior padded by 3 (Astaroth's per-rank grid) and on 136 x 128
@@ -178,13 +181,14 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
     from stencil_tpu_torch.ops import cuda_stencil as cs
 
     smoke, steps, reps = m.smoke, 2, 20
+    dtype, item = _storage(args)
     with contextlib.redirect_stdout(log):
         _build.build_all(["jacobi7", "jacobi_halo"])
     gen = torch.Generator(device="cuda").manual_seed(97)
     n = 512
 
     def wrap(shape, k):
-        a = torch.rand(shape, generator=gen, device="cuda")
+        a = torch.rand(shape, generator=gen, device="cuda").to(dtype)
         b = torch.empty_like(a)
         hot, cold, r = smoke.spheres(shape)
         if k == 1:
@@ -192,13 +196,25 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
         else:
             fn = lambda: cs.jacobi7_wrapn_cuda(a, hot, cold, r, steps=k,
                                                out=b)
-        return fn, 8.0 * a.numel(), 7.0 * k * a.numel()
+        return fn, 2.0 * item * a.numel(), 7.0 * k * a.numel()
+
+    def padded(shape):
+        from stencil_tpu_torch.geometry import Dim3, Radius
+
+        p = torch.rand(tuple(v + 2 for v in shape), generator=gen,
+                       device="cuda").to(dtype)
+        b = torch.empty(shape, dtype=dtype, device="cuda")
+        inner = Dim3(shape[2], shape[1], shape[0])
+        fn = lambda: cs.jacobi7_padded_cuda(p, Radius.constant(1), inner,
+                                            out=b)
+        return fn, item * (p.numel() + b.numel()), 6.0 * b.numel()
 
     def halo(size_xyz, k):
         kw = (dict(rz=1, ry=1) if k == 1 else
               dict(rz=k, ry=k, radius_rows=k, y_z_extended=True))
         (a,), (sl,), (org,), (lens,), (hot, cold, r), gsize = \
-            smoke.halo_case(torch, gen, size_xyz, (1, 1, 1), kw)
+            smoke.halo_case(torch, gen, size_xyz, (1, 1, 1), kw,
+                            dtype=dtype)
         b = torch.empty_like(a)
         if k == 1:
             fn = lambda: ch.jacobi7_halo_cuda(a, sl, org, hot, cold, r,
@@ -206,7 +222,7 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
         else:
             fn = lambda: ch.jacobi7_halon_cuda(a, sl, org, gsize, hot, cold,
                                                r, steps=k, out=b)
-        return (fn, smoke.halo_bytes(a.shape, k, k > 1),
+        return (fn, smoke.halo_bytes(a.shape, k, k > 1, item),
                 7.0 * k * a.numel())
 
     cases = {"K2 512^3": wrap((n, n, n), steps),
@@ -215,6 +231,10 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
              "B6 512x256x256 shard": halo((n, n // 2, n // 2), steps),
              "K1 512^3": wrap((n, n, n), 1),
              "B5 512^3 (1,1,1)": halo((n, n, n), 1)}
+    if args.bf16:
+        cases.update({"K2 512^3 N=16": wrap((n, n, n), 16),
+                      "B6 512^3 (1,1,1) N=16": halo((n, n, n), 16),
+                      "K3 512^3": padded((n, n, n))})
     turns = time_in_turns(cases, {"ms": lambda fn: smoke.event_ms(
         torch, fn, reps, warmup=3)})
     res = {"steps": steps, "reps": reps, "cases": {}}
@@ -232,7 +252,7 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
     if args.paths:
         res["paths"] = {}
         for name, kernel, mesh, kw in JACOBI_PATHS:
-            j = smoke.jacobi_mesh(kernel, mesh, **kw)
+            j = smoke.jacobi_mesh(kernel, mesh, dtype=dtype, **kw)
             j.run(2)
             j.block()
             rate, runs = smoke.timed_runs(j, 40)
@@ -800,7 +820,8 @@ def main(argv=None) -> int:
     ap.add_argument("--plans", action="store_true",
                     help="with --model laplace6: B8 at other launch plans")
     ap.add_argument("--bf16", action="store_true",
-                    help="with --model mhd or pair: bfloat16 fields")
+                    help="with --model jacobi, mhd or pair: bfloat16 "
+                         "fields")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     m = Measuring()

@@ -40,15 +40,13 @@ def field_from_jax(arr: np.ndarray, radius: Radius, layout: str = "padded",
     ``layout="interior"``: ``arr`` is the global interior; the halos of
     the result are zero, as after ``DistributedDomain.set_interior``.
     ``dtype`` (default: ``arr``'s) must match ``arr``'s exactly — the
-    state is carried bit for bit, never converted.
+    state is carried bit for bit, never converted —, bfloat16 as
+    ``tensor_from_jax`` takes it.
     """
     arr = np.asarray(arr)
-    want = torch_dtype(arr.dtype)
-    if dtype is not None and torch_dtype(dtype) != want:
-        raise TypeError(f"field dtype {arr.dtype} does not match "
-                        f"{dtype}; convert explicitly before loading")
     dev = resolve_device(device)
-    host = torch.tensor(arr)     # a copy, also of a read-only array
+    host = tensor_from_jax(arr, dtype)   # a copy, also of a read-only array
+    want = host.dtype
     if layout == "padded":
         return host.to(dev)
     if layout != "interior":
@@ -174,3 +172,43 @@ def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
         wt[q] = (_scatter(t, domain, None) if arr.shape == shape
                  else _blocks(t, domain))
     return out, wt
+
+
+def pic_state_from_jax(state: Dict[str, np.ndarray], domain, capacity: int,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, List[torch.Tensor]]:
+    """The port's PIC state from the JAX model's ``Pic.state`` handed over
+    as numpy (``{k: np.asarray(v)}``): each particle lane (``x`` .. ``q``,
+    ``valid``) a global array of one ``capacity`` block per mesh position
+    (z outermost, x fastest: the port's shard order), ``overflow`` one
+    count per mesh position, and ``rho`` the padded global array, one
+    ``raw_size(local, alloc_radius)`` block per mesh position. Returns
+    ``{key: [shard tensor]}`` on ``domain``'s devices, for
+    ``Pic.load_state``, bit for bit; ``dtype``, if given, must match the
+    particle lanes' and rho's."""
+    from .models.pic import PARTICLE_FIELDS
+
+    n = domain.mesh_counts.flatten()
+    missing = set(PARTICLE_FIELDS + ("valid", "overflow", "rho")) - set(state)
+    if missing:
+        raise ValueError(f"a PIC state lacks {sorted(missing)}")
+    padded = zyx_shape(raw_size(domain.local_size, domain.alloc_radius)
+                       * domain.mesh_counts)
+    rho = tensor_from_jax(np.asarray(state["rho"]), dtype)
+    if tuple(rho.shape) != padded:
+        raise ValueError(f"rho has shape {tuple(rho.shape)}, expected the "
+                         f"padded {padded}")
+    out = {"rho": _blocks(rho, domain)}
+    devs = domain.mesh.devices
+    for k in PARTICLE_FIELDS + ("valid", "overflow"):
+        arr = np.asarray(state[k])
+        per = 1 if k == "overflow" else int(capacity)
+        if arr.shape != (n * per,):
+            raise ValueError(f"{k} has shape {arr.shape}, expected "
+                             f"({n * per},)")
+        t = (torch.from_numpy(arr.astype(np.float32)) if k == "overflow"
+             else torch.from_numpy(arr.copy()) if k == "valid"
+             else tensor_from_jax(arr, rho.dtype))
+        out[k] = [t[i * per:(i + 1) * per].to(devs[i]).clone()
+                  for i in range(n)]
+    return out

@@ -1,4 +1,5 @@
-// Jacobi-3D halo kernels for Hopper (sm_90a), float32: the multi-device
+// Jacobi-3D halo kernels for Hopper (sm_90a), float32 and bfloat16
+// storage (every launcher takes `is_bf16`): the multi-device
 // step on an interior-resident shard whose halo arrives as four slab
 // arrays (stencil_tpu_torch/parallel/exchange.py exchange_interior_slabs).
 //
@@ -20,6 +21,14 @@
 // with Zs = Z for B5 and Zs = Z + 2*rz (rows z = -rz..Z+rz-1, "z
 // extended", so yz corners ride along) for B6. x is never sharded: it
 // wraps in the kernel.
+//
+// bfloat16: B5 has a kernel of its own in which a thread owns two
+// adjacent x cells, each add and the multiply by bf16(1/6) rounding to
+// bfloat16 at once in B5's order (csrc/bf16_math.cuh); B6 is the ring
+// kernel's bfloat16 instance. B6 of 9 to 16 steps is two launches
+// (ops/cuda_halo.py): jacobi7_halon_launch with `grow` = N2 over the shard
+// grown by N2 rows into a padded buffer, then jacobi7_halon_padded_launch
+// for the last N2 steps from it.
 
 #include "jacobi_ring.cuh"
 
@@ -50,7 +59,7 @@ constexpr int kZRun = 16;
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(kBX * kBY)
 jacobi7_halo_kernel(const float* __restrict__ in, float* __restrict__ out,
-                    SlabSrc sl, int Z, int Y, int X, int Lz, int Ly, int oz,
+                    SlabSrc<float> sl, int Z, int Y, int X, int Lz, int Ly, int oz,
                     int oy, int ox, Spheres s) {
   const int x = blockIdx.x * kBX + threadIdx.x;
   const int y = blockIdx.y * kBY + threadIdx.y;
@@ -86,23 +95,104 @@ jacobi7_halo_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
+// B5 in bfloat16: the thread of column pair (y, x), x even, as the float32
+// kernel's thread of column (y, x); the left neighbour of x and the right
+// one of x + 1 single cells (x wraps), everything else pairs of the same
+// rows. Order ((((ym+yp)+xm)+xp)+zm)+zp, *1/6, rounded after each.
+template <bool kVec>
+__global__ void __launch_bounds__(kBX * kBY)
+jacobi7_halo_bf16_kernel(const bf16* __restrict__ in, bf16* __restrict__ out,
+                         SlabSrc<bf16> sl, int Z, int Y, int X, int Lz,
+                         int Ly, int oz, int oy, int ox, Spheres s) {
+  const int x = 2 * (blockIdx.x * kBX + threadIdx.x);
+  const int y = blockIdx.y * kBY + threadIdx.y;
+  const int z0 = blockIdx.z * kZRun;
+  if (x >= X || y >= Y || z0 >= Z) return;
+  const bool two = x + 1 < X;
+  const int xm = x == 0 ? X - 1 : x - 1;         // left of x
+  const int xr = x + 1 < X ? x + 1 : 0;          // right of x
+  const int xp = x + 2 < X ? x + 2 : x + 2 - X;  // right of x + 1
+  const size_t plane = static_cast<size_t>(Y) * X;
+  const size_t col = static_cast<size_t>(y) * X + x;
+  const int e = sl.e;
+  const int z1 = min(z0 + kZRun, Z);
+  float2 below = z0 == 0
+      ? pair<kVec>(sl.zlo + static_cast<size_t>(sl.rz - 1) * plane + col, two)
+      : pair<kVec>(in + (z0 - 1) * plane + col, two);
+  float2 centre = pair<kVec>(in + z0 * plane + col, two);
+  for (int z = z0; z < z1; ++z) {
+    const bf16* p = in + z * plane;
+    const float2 nxt = z + 1 < Z ? pair<kVec>(in + (z + 1) * plane + col, two)
+                                 : make_float2(0.0f, 0.0f);
+    const float2 above = z + 1 >= Lz ? pair<kVec>(sl.zhi + col, two) : nxt;
+    const size_t yrow = static_cast<size_t>(z) * e;
+    const float2 ym = y == 0 ? pair<kVec>(sl.ylo + (yrow + e - 1) * X + x, two)
+                             : pair<kVec>(p + col - X, two);
+    const float2 yp = y + 1 >= Ly ? pair<kVec>(sl.yhi + yrow * X + x, two)
+                                  : pair<kVec>(p + col + X, two);
+    const bf16* row = p + static_cast<size_t>(y) * X;
+    float v0 = add_bf16(ym.x, yp.x);
+    v0 = add_bf16(v0, ld1(row + xm));
+    v0 = add_bf16(v0, two ? centre.y : ld1(row + xr));
+    v0 = add_bf16(v0, below.x);
+    v0 = add_bf16(v0, above.x);
+    v0 = impose(mul_bf16(v0, kSixthBf16), ox + x, oy + y, oz + z, s);
+    float v1 = 0.0f;
+    if (two) {
+      v1 = add_bf16(ym.y, yp.y);
+      v1 = add_bf16(v1, centre.x);
+      v1 = add_bf16(v1, ld1(row + xp));
+      v1 = add_bf16(v1, below.y);
+      v1 = add_bf16(v1, above.y);
+      v1 = impose(mul_bf16(v1, kSixthBf16), ox + x + 1, oy + y, oz + z, s);
+    }
+    put_pair<kVec>(out + z * plane + col, v0, v1, two);
+    below = centre;
+    centre = nxt;
+  }
+}
+
+inline bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-cudaError_t jacobi7_halo_launch(const float* in, float* out,
-                                const float* zlo, const float* zhi,
-                                const float* ylo, const float* yhi, int Z,
-                                int Y, int X, int rz, int e, int Lz, int Ly,
-                                int oz, int oy, int ox, int hx, int hy,
-                                int hz, int cx, int cy, int cz, int r2,
+cudaError_t jacobi7_halo_launch(const void* in, void* out, const void* zlo,
+                                const void* zhi, const void* ylo,
+                                const void* yhi, int Z, int Y, int X, int rz,
+                                int e, int Lz, int Ly, int oz, int oy,
+                                int ox, int hx, int hy, int hz, int cx,
+                                int cy, int cz, int r2, int is_bf16,
                                 void* stream) {
-  const SlabSrc sl{zlo, zhi, ylo, yhi, rz, e};
   const Spheres s{hx, hy, hz, cx, cy, cz, r2};
-  const dim3 grid(blocks(X, kBX), blocks(Y, kBY), blocks(Z, kZRun));
-  jacobi7_halo_kernel<<<grid, dim3(kBX, kBY), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      in, out, sl, Z, Y, X, Lz, Ly, oz, oy, ox, s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    const SlabSrc<float> sl{
+        static_cast<const float*>(zlo), static_cast<const float*>(zhi),
+        static_cast<const float*>(ylo), static_cast<const float*>(yhi), rz,
+        e};
+    const dim3 grid(blocks(X, kBX), blocks(Y, kBY), blocks(Z, kZRun));
+    jacobi7_halo_kernel<<<grid, dim3(kBX, kBY), 0, st>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), sl, Z, Y,
+        X, Lz, Ly, oz, oy, ox, s);
+    return cudaGetLastError();
+  }
+  const SlabSrc<bf16> sl{
+      static_cast<const bf16*>(zlo), static_cast<const bf16*>(zhi),
+      static_cast<const bf16*>(ylo), static_cast<const bf16*>(yhi), rz, e};
+  const dim3 grid(blocks(X, 2 * kBX), blocks(Y, kBY), blocks(Z, kZRun));
+  const bf16* bi = static_cast<const bf16*>(in);
+  bf16* bo = static_cast<bf16*>(out);
+  if (X % 2 == 0 && aligned4(in) && aligned4(out) && aligned4(zlo) &&
+      aligned4(zhi) && aligned4(ylo) && aligned4(yhi))
+    jacobi7_halo_bf16_kernel<true><<<grid, dim3(kBX, kBY), 0, st>>>(
+        bi, bo, sl, Z, Y, X, Lz, Ly, oz, oy, ox, s);
+  else
+    jacobi7_halo_bf16_kernel<false><<<grid, dim3(kBX, kBY), 0, st>>>(
+        bi, bo, sl, Z, Y, X, Lz, Ly, oz, oy, ox, s);
   return cudaGetLastError();
 }
 
@@ -125,20 +215,59 @@ cudaError_t jacobi7_halo_launch(const float* in, float* out,
 // Order (:404-410): ((zm+zp)+(ym+yp))+(xm+xp), *1/6.
 // ---------------------------------------------------------------------
 
-cudaError_t jacobi7_halon_launch(const float* in, float* out,
-                                 const float* zlo, const float* zhi,
-                                 const float* ylo, const float* yhi, int Z,
-                                 int Y, int X, int rz, int e, int oz,
-                                 int oy, int ox, int gz, int gy, int gx,
-                                 int hx, int hy, int hz, int cx, int cy,
-                                 int cz, int r2, int N, int ty, int depth,
-                                 int zrun, void* stream) {
-  if (rz < N || e < N) return cudaErrorInvalidValue;
-  const SlabSrc sl{zlo, zhi, ylo, yhi, rz, e};
+// `grow` > 0 (the first launch of 9 to 16 steps): the output box is the
+// shard grown by `grow` planes and rows on each side in z and y, written
+// to `out` as a (Z + 2 grow, Y + 2 grow, X) buffer.
+cudaError_t jacobi7_halon_launch(const void* in, void* out, const void* zlo,
+                                 const void* zhi, const void* ylo,
+                                 const void* yhi, int Z, int Y, int X,
+                                 int rz, int e, int oz, int oy, int ox,
+                                 int gz, int gy, int gx, int hx, int hy,
+                                 int hz, int cx, int cy, int cz, int r2,
+                                 int N, int ty, int depth, int zrun,
+                                 int grow, int is_bf16, void* stream) {
+  if (grow < 0 || rz < N + grow || e < N + grow) return cudaErrorInvalidValue;
   const Global g{oz, oy, ox, gz, gy, gx};
   const Spheres s{hx, hy, hz, cx, cy, cz, r2};
-  return launch_jacobi_ring<kSlabRows>(
-      in, out, sl, Z, Y, X, g, s, N, RingPlan{ty, depth, zrun},
+  const Box bx{-grow, -grow, Z + 2 * grow, Y + 2 * grow};
+  const RingPlan pl{ty, depth, zrun};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const SlabSrc<bf16> sl{
+        static_cast<const bf16*>(zlo), static_cast<const bf16*>(zhi),
+        static_cast<const bf16*>(ylo), static_cast<const bf16*>(yhi), rz,
+        e};
+    return launch_jacobi_ring<kSlabRows, bf16>(
+        static_cast<const bf16*>(in), static_cast<bf16*>(out), sl, Z, Y, X,
+        bx, g, s, N, pl, st);
+  }
+  const SlabSrc<float> sl{
+      static_cast<const float*>(zlo), static_cast<const float*>(zhi),
+      static_cast<const float*>(ylo), static_cast<const float*>(yhi), rz, e};
+  return launch_jacobi_ring<kSlabRows, float>(
+      static_cast<const float*>(in), static_cast<float*>(out), sl, Z, Y, X,
+      bx, g, s, N, pl, st);
+}
+
+// The second launch of 9 to 16 steps (bfloat16 only): N more steps of the
+// (Z, Y, X) shard from `in`, a (Z + 2 pad, Y + 2 pad, X) buffer of the
+// shard grown by `pad` >= N rows in z and y (the first launch's output).
+cudaError_t jacobi7_halon_padded_launch(const void* in, void* out, int Z,
+                                        int Y, int X, int pad, int oz,
+                                        int oy, int ox, int gz, int gy,
+                                        int gx, int hx, int hy, int hz,
+                                        int cx, int cy, int cz, int r2,
+                                        int N, int ty, int depth, int zrun,
+                                        int is_bf16, void* stream) {
+  // only bfloat16 takes more than 8 steps
+  if (pad < N || !is_bf16) return cudaErrorInvalidValue;
+  const Global g{oz, oy, ox, gz, gy, gx};
+  const Spheres s{hx, hy, hz, cx, cy, cz, r2};
+  SlabSrc<bf16> sl{};
+  sl.rz = pad;
+  return launch_jacobi_ring<kPaddedRows, bf16>(
+      static_cast<const bf16*>(in), static_cast<bf16*>(out), sl, Z, Y, X,
+      Box{0, 0, Z, Y}, g, s, N, RingPlan{ty, depth, zrun},
       static_cast<cudaStream_t>(stream));
 }
 

@@ -1,15 +1,27 @@
-// The z-streaming N-step Jacobi kernel for Hopper (sm_90a), float32: one
-// kernel body that csrc/jacobi7.cu launches as K2 and csrc/jacobi_halo.cu
-// as B6, and the device code both libraries share (the spheres, the
-// floor modulo).
+// The z-streaming N-step Jacobi kernel for Hopper (sm_90a), float32 or
+// bfloat16 storage: one kernel body that csrc/jacobi7.cu launches as K2
+// and csrc/jacobi_halo.cu as B6, and the device code both libraries
+// share (the spheres, the floor modulo).
 //
 // N Jacobi steps per pass over device memory (temporal blocking), 1 <= N
-// <= 8: each step averages the six face neighbours, in the order of the
-// JAX kernels, ((zm+zp)+(ym+yp))+(xm+xp), then * 1/6 (pallas_stencil.py
-// :325-330, pallas_halo.py:404-410), with __fadd_rn / __fmul_rn in a
-// library built -fmad=false; after every step the Dirichlet spheres are
-// re-imposed at the GLOBAL coordinates wrapped modulo the global grid,
-// since the recomputed ring cells may belong to a neighbouring shard.
+// <= 8 a launch: each step averages the six face neighbours, in the order
+// of the JAX kernels, ((zm+zp)+(ym+yp))+(xm+xp), then * 1/6
+// (pallas_stencil.py:325-330, pallas_halo.py:404-410), with __fadd_rn /
+// __fmul_rn in a library built -fmad=false; after every step the
+// Dirichlet spheres are re-imposed at the GLOBAL coordinates wrapped
+// modulo the global grid, since the recomputed ring cells may belong to
+// a neighbouring shard.
+//
+// bfloat16 (T = bf16): the ring holds bfloat16 cells, so a window plane
+// takes half the shared memory, and every add and the multiply by
+// bf16(1/6) round to bfloat16 at once (csrc/bf16_math.cuh), as the JAX
+// kernels do; intermediate levels are bfloat16 values, as JAX's are.
+// The wrappers run 9 <= N <= 16 (bfloat16's sublane tile is 16) as two
+// launches: the first walks N1 = ceil(N / 2) steps over the shard grown
+// by N2 = N - N1 rows in z and y into a padded buffer in device memory
+// (Box), the second the last N2 steps from that buffer (kPaddedRows).
+// Every cell's value at a level depends only on its position, so the two
+// launches compute what one launch of N steps would, bit for bit.
 //
 // Design. A block of 256 threads owns a 64 x TY (x, y) tile of outputs
 // and walks a run of `zrun` z planes of it (TY, the prefetch depth and
@@ -44,8 +56,12 @@
 //                 slabs (ylo, yhi) for rows y < 0 and y >= Y at every
 //                 plane: the sequential-sweep corner rule of
 //                 pallas_halo.py:439-452.
-// x wraps inside the row in both. On a (1,1,1) mesh B6's slabs are the
-// shard's own wrapped rows, so B6 there computes K2's values bit for bit.
+//   kPaddedRows   the second launch of N > 8: row y of plane p of a
+//                 buffer padded by rz in z and y (the first launch's
+//                 output box).
+// x wraps inside the row in all three. On a (1,1,1) mesh B6's slabs are
+// the shard's own wrapped rows, so B6 there computes K2's values bit for
+// bit.
 
 #pragma once
 
@@ -53,6 +69,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "bf16_math.cuh"
 
 namespace {
 
@@ -91,23 +109,32 @@ inline unsigned blocks(int n, int per) {
 constexpr int kRingThreads = 256;
 constexpr int kRingWarps = kRingThreads / 32;
 constexpr int kTX = 64;        // tile columns: 32 lanes, 2 columns a lane
-constexpr int kMaxSteps = 8;   // the JAX kernel's limit: the sublane tile
+constexpr int kMaxSteps = 8;   // steps of one launch: float32's sublane tile
 // The static tables below hold kMaxWY window rows and kMaxWX columns;
 // ops/cuda_stencil.py counts their bytes (RING_STATIC_BYTES) from the
 // same two numbers, and the card tests hold that to the build's.
 constexpr int kMaxWY = 48;     // window rows the row and sphere tables hold
 constexpr int kMaxWX = 80;     // window columns: kTX + 2 * ring_margin(8)
 
-enum RowSource { kWrappedRows = 0, kSlabRows = 1 };
+enum RowSource { kWrappedRows = 0, kSlabRows = 1, kPaddedRows = 2 };
 
-// The slabs of a B6 shard (z-extended y slabs; see csrc/jacobi_halo.cu).
+// The slabs of a B6 shard (z-extended y slabs; see csrc/jacobi_halo.cu);
+// with kPaddedRows only rz, the pad of the buffer, is read.
+template <class T>
 struct SlabSrc {
-  const float* zlo;
-  const float* zhi;
-  const float* ylo;
-  const float* yhi;
+  const T* zlo;
+  const T* zhi;
+  const T* ylo;
+  const T* yhi;
   int rz;  // rows of zlo/zhi, and the z offset of a y slab
   int e;   // columns of ylo/yhi
+};
+
+// The launch's output box, in the shard's coordinates: planes [oz, oz +
+// nz) and rows [oy, oy + ny), every x; written to `out` as a dense (nz,
+// ny, X) array. The shard itself is (0, 0, Z, Y).
+struct Box {
+  int oz, oy, nz, ny;
 };
 
 // The shard's global origin and the global grid, for the spheres (K2:
@@ -126,8 +153,9 @@ struct RingPlan {
 // at plane pref = -1, 0, Z (for p < 0, 0 <= p < Z, p >= Z), and the row
 // at plane p is base[j] + (p - pref) * stride; K2 uses base[1] alone, at
 // plane wrap(p, Z). base[j] == nullptr: the row is never needed.
+template <class T>
 struct RowSrc {
-  const float* base[3];
+  const T* base[3];
   int stride;
 };
 
@@ -139,14 +167,20 @@ __host__ __device__ inline int ring_slots(int N, int depth) {
   return depth + 3 + 4 * (N - 1);
 }
 
+template <class T>
 inline size_t ring_smem_bytes(int N, const RingPlan& p) {
   const size_t wx = kTX + 2 * ring_margin(N), wy = p.ty + 2 * N;
-  return sizeof(float) * ring_slots(N, p.depth) * wx * wy;
+  return sizeof(T) * ring_slots(N, p.depth) * wx * wy;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(bf16* dst, const bf16* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -171,8 +205,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// ring cells of either storage type, as float32 (csrc/bf16_math.cuh has
+// the bfloat16 ones)
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // the squared distances of a coordinate g to the hot (x) and cold (y)
@@ -189,13 +230,21 @@ __device__ __forceinline__ float impose2(float v, int2 dx, int2 dy, int2 dz,
   return v;
 }
 
-// one Jacobi step of a cell: ((zm+zp)+(ym+yp))+(xm+xp), * 1/6
+// one Jacobi step of a cell: ((zm+zp)+(ym+yp))+(xm+xp), * 1/6; in
+// bfloat16 every operation rounds to bfloat16
+template <class T>
 __device__ __forceinline__ float step7(float zm, float zp, float ym, float yp,
                                        float xm, float xp) {
-  return __fmul_rn(
-      __fadd_rn(__fadd_rn(__fadd_rn(zm, zp), __fadd_rn(ym, yp)),
-                __fadd_rn(xm, xp)),
-      kSixth);
+  if constexpr (sizeof(T) == 2) {
+    return mul_bf16(add_bf16(add_bf16(add_bf16(zm, zp), add_bf16(ym, yp)),
+                             add_bf16(xm, xp)),
+                    kSixthBf16);
+  } else {
+    return __fmul_rn(
+        __fadd_rn(__fadd_rn(__fadd_rn(zm, zp), __fadd_rn(ym, yp)),
+                  __fadd_rn(xm, xp)),
+        kSixth);
+  }
 }
 
 // Rows [r0, r1) of one level at a thread's two columns, window cell i =
@@ -204,27 +253,27 @@ __device__ __forceinline__ float step7(float zm, float zp, float ym, float yp,
 // to device memory at o (row stride X, rows below `rows_in` and the
 // columns flagged in xin), else to dst in shared memory. kSpheres: impose
 // them (dx per column, dy per window row in sy, dz per plane).
-template <bool kOut, bool kSpheres>
+template <bool kOut, bool kSpheres, class T>
 __device__ __forceinline__ void ring_rows(
-    const float* lo, const float* mid, const float* hi, float* dst, float* o,
-    int i, int r0, int r1, int P, int X, int rows_in, bool xin0, bool xin1,
-    int2 dx0, int2 dx1, int2 dz, const int2* sy, int r2) {
+    const T* lo, const T* mid, const T* hi, T* dst, T* o, int i, int r0,
+    int r1, int P, int X, int rows_in, bool xin0, bool xin1, int2 dx0,
+    int2 dx1, int2 dz, const int2* sy, int r2) {
   float2 up = ld2(mid + i - P), ctr = ld2(mid + i);
   for (int rr = r0; rr < r1; ++rr) {
     const float2 dn = ld2(mid + i + P);
     const float2 zm = ld2(lo + i), zp = ld2(hi + i);
-    float v0 = step7(zm.x, zp.x, up.x, dn.x, mid[i - 1], ctr.y);
-    float v1 = step7(zm.y, zp.y, up.y, dn.y, ctr.x, mid[i + 2]);
+    float v0 = step7<T>(zm.x, zp.x, up.x, dn.x, ld1(mid + i - 1), ctr.y);
+    float v1 = step7<T>(zm.y, zp.y, up.y, dn.y, ctr.x, ld1(mid + i + 2));
     if (kSpheres) {
       const int2 dy = sy[rr];
       v0 = impose2(v0, dx0, dy, dz, r2);
       v1 = impose2(v1, dx1, dy, dz, r2);
     }
     if (!kOut) {
-      *reinterpret_cast<float2*>(dst + i) = make_float2(v0, v1);
+      st2(dst + i, v0, v1);
     } else if (rr < rows_in) {
-      if (xin0) o[0] = v0;
-      if (xin1) o[1] = v1;
+      if (xin0) st1(o, v0);
+      if (xin1) st1(o + 1, v1);
     }
     up = ctr;
     ctr = dn;
@@ -233,40 +282,49 @@ __device__ __forceinline__ void ring_rows(
   }
 }
 
-template <int kSource>
+template <int kSource, class T>
 __global__ void __launch_bounds__(kRingThreads, 2)
-jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   SlabSrc sl, int Z, int Y, int X, Global g, Spheres s,
-                   int N, RingPlan pl, int vec) {
-  extern __shared__ __align__(16) float ring[];
-  __shared__ RowSrc rows[kMaxWY];
+jacobi_ring_kernel(const T* __restrict__ in, T* __restrict__ out,
+                   SlabSrc<T> sl, int Z, int Y, int X, Box box, Global g,
+                   Spheres s, int N, RingPlan pl, int vec) {
+  // K2's box is always the field: spelled out, so that its offsets fold
+  const Box bx = kSource == kWrappedRows ? Box{0, 0, Z, Y} : box;
+  extern __shared__ __align__(16) float ring_raw[];
+  T* const ring = reinterpret_cast<T*>(ring_raw);
+  __shared__ RowSrc<T> rows[kMaxWY];
   __shared__ int2 sx[kMaxWX], sy[kMaxWY];  // squared distances to centres
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = ring_margin(N), TY = pl.ty;
   const int P = kTX + 2 * M, WY = TY + 2 * N;  // window pitch and rows
   const int plane = P * WY;
   const int S = pl.depth + 3;                  // input ring slots
-  float* const lvl = ring + S * plane;         // levels 1..N-1, 4 slots each
-  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.z * pl.zrun, z1 = min(z0 + pl.zrun, Z);
+  T* const lvl = ring + S * plane;             // levels 1..N-1, 4 slots each
+  const int x0 = blockIdx.x * kTX, y0 = bx.oy + blockIdx.y * TY;
+  const int z0 = bx.oz + blockIdx.z * pl.zrun;
+  const int z1 = min(z0 + pl.zrun, bx.oz + bx.nz);
   const int xw = x0 - M, yw = y0 - N, zs = z0 - N;  // window origin
+  const int yend = bx.oy + bx.ny;                   // the box's last row + 1
   const size_t yx = static_cast<size_t>(Y) * X;
 
   if (tid < WY) {
     const int y = yw + tid;
-    RowSrc r;
+    RowSrc<T> r;
     r.base[0] = r.base[1] = r.base[2] = nullptr;
     r.stride = 0;
     // no output row of the tile reads a row N or more beyond its last
-    if (y < min(y0 + TY, Y) + N) {
+    if (y < min(y0 + TY, yend) + N) {
       if (kSource == kWrappedRows) {
         r.base[1] = in + static_cast<size_t>(wrap(y, Y)) * X;
         r.stride = Y * X;
+      } else if (kSource == kPaddedRows) {
+        const int YP = Y + 2 * sl.rz;  // rows of a plane of the buffer
+        r.base[1] = in + (static_cast<size_t>(sl.rz) * YP + sl.rz + y) * X;
+        r.stride = YP * X;
       } else if (y < 0 || y >= Y) {
-        const float* slab = y < 0 ? sl.ylo : sl.yhi;
+        const T* slab = y < 0 ? sl.ylo : sl.yhi;
         const int col = y < 0 ? sl.e + y : y - Y;
         const int st = sl.e * X;
-        const float* row0 =
+        const T* row0 =
             slab + (static_cast<size_t>(sl.rz) * sl.e + col) * X;  // z = 0
         r.base[0] = row0 - st;
         r.base[1] = row0;
@@ -295,32 +353,44 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
                        __syncthreads_or(fy.y <= s.r2);
 
   // plane p of the window into input slot `slot_index`, one row a warp:
-  // 16-byte copies, the chunk 4 * lane, or 4-byte ones, the columns lane
-  // + 32 i, x wrapped
+  // 16-byte copies (four float32 or, 8 bytes, four bfloat16 cells), the
+  // chunk 4 * lane, or single cells, the columns lane + 32 i, x wrapped
+  // (4-byte cp.async for float32, a load and a store for bfloat16: the
+  // store lands before the barrier of the pass that reads it)
   int xs[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
     xs[i] = wrap(xw + (vec ? 4 * lane : lane + 32 * i), X);
   auto load_plane = [&](int p, int slot_index) {
-    float* slot = ring + slot_index * plane;
-    int j = 1, pp;
+    T* slot = ring + slot_index * plane;
+    int j = 1, pp = p;
     if (kSource == kWrappedRows) {
       pp = wrap(p, Z);
-    } else {
+    } else if (kSource == kSlabRows) {
       j = p < 0 ? 0 : (p < Z ? 1 : 2);
       pp = p - (j == 0 ? -1 : (j == 1 ? 0 : Z));
     }
     for (int r = warp; r < WY; r += kRingWarps) {
-      const float* b = rows[r].base[j];
+      const T* b = rows[r].base[j];
       if (b == nullptr) continue;
-      const float* row = b + static_cast<ptrdiff_t>(pp) * rows[r].stride;
-      float* d = slot + r * P;
+      const T* row = b + static_cast<ptrdiff_t>(pp) * rows[r].stride;
+      T* d = slot + r * P;
       if (vec) {
-        if (4 * lane < P) cp_async16(d + 4 * lane, row + xs[0]);
+        if (4 * lane < P) {
+          if constexpr (sizeof(T) == 2)
+            cp_async8(d + 4 * lane, row + xs[0]);
+          else
+            cp_async16(d + 4 * lane, row + xs[0]);
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-          if (lane + 32 * i < P) cp_async4(d + lane + 32 * i, row + xs[i]);
+          if (lane + 32 * i < P) {
+            if constexpr (sizeof(T) == 2)
+              d[lane + 32 * i] = row[xs[i]];
+            else
+              cp_async4(d + lane + 32 * i, row + xs[i]);
+          }
       }
     }
   };
@@ -340,10 +410,10 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
     if (i < nload) load_plane(zs + i, i);
     cp_async_commit();
   }
-  const int T = z1 - z0 + 3 * N - 1;
+  const int T_ = z1 - z0 + 3 * N - 1;
   int slot = 0;                      // the input slot of plane p0
   int gz0 = wrap(g.oz + zs, g.gz);   // the global z of plane p0
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < T_; ++t) {
     const int p0 = zs + t;
     cp_async_wait_ahead(pl.depth);  // plane p0 has landed (this thread's)
     __syncthreads();                // ... everyone's, and pass t-1 is done
@@ -356,13 +426,13 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
     for (int k = 1; k <= N; ++k) {
       const int q = p0 - (2 * k - 1);  // the plane level k computes
       if (q < z0 - N + k || q >= z1 + N - k) continue;
-      const float *lo, *mid, *hi;
+      const T *lo, *mid, *hi;
       if (k == 1) {  // input planes p0 - 2, p0 - 1, p0
         lo = ring + (slot >= 2 ? slot - 2 : slot - 2 + S) * plane;
         mid = ring + (slot >= 1 ? slot - 1 : slot - 1 + S) * plane;
         hi = ring + slot * plane;
       } else {       // level k-1's planes q - 1, q, q + 1
-        const float* b = lvl + (k - 2) * 4 * plane;
+        const T* b = lvl + (k - 2) * 4 * plane;
         lo = b + ((t - 2 * k) & 3) * plane;
         mid = b + ((t - 2 * k + 1) & 3) * plane;
         hi = b + ((t - 2 * k + 2) & 3) * plane;
@@ -376,14 +446,16 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
       const int r1 = k + h * (warp + 1) / kRingWarps;
       const int i = r0 * P + cb;
       if (k < N) {
-        float* const dst = lvl + (k - 1) * 4 * plane +
-                           ((t - 2 * k + 1) & 3) * plane;
+        T* const dst = lvl + (k - 1) * 4 * plane +
+                       ((t - 2 * k + 1) & 3) * plane;
         if (spheres)
-          ring_rows<false, true>(lo, mid, hi, dst, nullptr, i, r0, r1, P, X,
-                                 0, xin0, xin1, dx0, dx1, dz, sy, s.r2);
+          ring_rows<false, true>(lo, mid, hi, dst, static_cast<T*>(nullptr),
+                                 i, r0, r1, P, X, 0, xin0, xin1, dx0, dx1,
+                                 dz, sy, s.r2);
         else
-          ring_rows<false, false>(lo, mid, hi, dst, nullptr, i, r0, r1, P, X,
-                                  0, xin0, xin1, dx0, dx1, dz, sy, s.r2);
+          ring_rows<false, false>(lo, mid, hi, dst, static_cast<T*>(nullptr),
+                                  i, r0, r1, P, X, 0, xin0, xin1, dx0, dx1,
+                                  dz, sy, s.r2);
         // the m columns on either side of this warp's rows: lane (side,
         // row) = (lane / 16, lane % 16), one column of each side a round
         const int rr = r0 + (lane & 15);
@@ -391,22 +463,26 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
           for (int e = 0; e < m; ++e) {
             const int c = lane < 16 ? M - m + e : M + kTX + e;
             const int j = rr * P + c;
-            float v = step7(lo[j], hi[j], mid[j - P], mid[j + P], mid[j - 1],
-                            mid[j + 1]);
+            float v = step7<T>(ld1(lo + j), ld1(hi + j), ld1(mid + j - P),
+                               ld1(mid + j + P), ld1(mid + j - 1),
+                               ld1(mid + j + 1));
             if (spheres) v = impose2(v, sx[c], sy[rr], dz, s.r2);
-            dst[j] = v;
+            st1(dst + j, v);
           }
         }
       } else {
-        float* const o = out + static_cast<size_t>(q) * yx +
-                         static_cast<size_t>(yw + r0) * X + (xw + cb);
-        const int rows_in = Y - yw;  // window rows inside the field
+        T* const o = out +
+                     static_cast<size_t>(q - bx.oz) * bx.ny * X +
+                     static_cast<size_t>(yw + r0 - bx.oy) * X + (xw + cb);
+        const int rows_in = yend - yw;  // window rows inside the box
         if (spheres)
-          ring_rows<true, true>(lo, mid, hi, nullptr, o, i, r0, r1, P, X,
-                                rows_in, xin0, xin1, dx0, dx1, dz, sy, s.r2);
+          ring_rows<true, true>(lo, mid, hi, static_cast<T*>(nullptr), o, i,
+                                r0, r1, P, X, rows_in, xin0, xin1, dx0, dx1,
+                                dz, sy, s.r2);
         else
-          ring_rows<true, false>(lo, mid, hi, nullptr, o, i, r0, r1, P, X,
-                                 rows_in, xin0, xin1, dx0, dx1, dz, sy, s.r2);
+          ring_rows<true, false>(lo, mid, hi, static_cast<T*>(nullptr), o, i,
+                                 r0, r1, P, X, rows_in, xin0, xin1, dx0, dx1,
+                                 dz, sy, s.r2);
       }
     }
     if (++slot == S) slot = 0;
@@ -415,33 +491,52 @@ jacobi_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
   cp_async_wait_all();
 }
 
-// The ring kernel with row source kSource over the whole (Z, Y, X) field
-// or shard; invalid for a plan that does not fit.
-template <int kSource>
-cudaError_t launch_jacobi_ring(const float* in, float* out, const SlabSrc& sl,
-                               int Z, int Y, int X, const Global& g,
-                               const Spheres& s, int N, const RingPlan& pl,
-                               cudaStream_t stream) {
-  if (N < 1 || N > kMaxSteps || Z < 1 || Y < 1 || X < 1 || pl.ty < 1 || pl.ty + 2 * N > kMaxWY || pl.depth < 1 || pl.depth > 4 ||
-      pl.zrun < 1)
+// The ring kernel with row source kSource over the output box `bx` of a
+// (Z, Y, X) field or shard; invalid for a plan that does not fit. Copies
+// of 16 bytes (float32) or 8 bytes (bfloat16) where X % 4 == 0 and every
+// source is aligned to them, single cells otherwise.
+template <int kSource, class T>
+cudaError_t launch_jacobi_ring(const T* in, T* out, const SlabSrc<T>& sl,
+                               int Z, int Y, int X, const Box& bx,
+                               const Global& g, const Spheres& s, int N,
+                               const RingPlan& pl, cudaStream_t stream) {
+  if (N < 1 || N > kMaxSteps || Z < 1 || Y < 1 || X < 1 || pl.ty < 1 ||
+      pl.ty + 2 * N > kMaxWY || pl.depth < 1 || pl.depth > 4 ||
+      pl.zrun < 1 || bx.nz < 1 || bx.ny < 1)
     return cudaErrorInvalidValue;
-  const auto aligned = [](const float* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const auto aligned = [](const T* p) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
   };
   const int vec = X % 4 == 0 && aligned(in) &&
-                  (kSource == kWrappedRows ||
+                  (kSource != kSlabRows ||
                    (aligned(sl.zlo) && aligned(sl.zhi) && aligned(sl.ylo) &&
                     aligned(sl.yhi)));
-  const size_t smem = ring_smem_bytes(N, pl);
-  auto kernel = jacobi_ring_kernel<kSource>;
+  const size_t smem = ring_smem_bytes<T>(N, pl);
+  auto kernel = jacobi_ring_kernel<kSource, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(blocks(X, kTX), blocks(Y, pl.ty), blocks(Z, pl.zrun));
-  kernel<<<grid, kRingThreads, smem, stream>>>(in, out, sl, Z, Y, X, g, s, N,
-                                               pl, vec);
+  const dim3 grid(blocks(X, kTX), blocks(bx.ny, pl.ty),
+                  blocks(bx.nz, pl.zrun));
+  kernel<<<grid, kRingThreads, smem, stream>>>(in, out, sl, Z, Y, X, bx, g,
+                                               s, N, pl, vec);
   return cudaGetLastError();
+}
+
+// Blocks of the ring kernel (row source kSource, storage T) one SM holds
+// at a tile and depth.
+template <int kSource, class T>
+cudaError_t ring_blocks_per_sm(int N, int ty, int depth,
+                               int* blocks_per_sm) {
+  const size_t smem = ring_smem_bytes<T>(N, RingPlan{ty, depth, 1});
+  auto kernel = jacobi_ring_kernel<kSource, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kRingThreads, smem);
 }
 
 }  // namespace

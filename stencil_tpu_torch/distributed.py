@@ -385,12 +385,15 @@ class DistributedDomain:
     # -- IO (reference: src/stencil.cu:1188-1264) -----------------------
     def assemble_interior(self, shards: Sequence) -> np.ndarray:
         """The global (z,y,x) interior from padded shards laid out like
-        this domain's (tensors or arrays, x fastest), on the host."""
+        this domain's (tensors or arrays, x fastest), on the host;
+        bfloat16, which numpy lacks, as float32 of the same values."""
         out = None
         for i, s in enumerate(shards):
             sz = self.shard_size(i)
             org = self.shard_origin(i)
             blk = s[interior_slices(sz, self.alloc_radius)]
+            if isinstance(blk, torch.Tensor) and blk.dtype == torch.bfloat16:
+                blk = blk.float()
             blk = blk.cpu().numpy() if isinstance(blk, torch.Tensor) \
                 else np.asarray(blk)
             if out is None:

@@ -46,8 +46,9 @@ model:
   ``iters % s``. Per-axis depths (``{"z": 3}``) run only here.
 * ``auto`` — on CUDA devices, JAX's on-TPU choice: ``overlap`` when
   overlap is asked for and possible, else ``wrap`` on a (1,1,1) mesh,
-  else ``halo`` when x is unsharded, else ``xla`` (a kernel path only for
-  float32); on the CPU ``xla``, as the JAX model picks it off-TPU.
+  else ``halo`` when x is unsharded, else ``xla`` (a kernel path for
+  float32 and bfloat16, whose kernels have bfloat16 instances; float64
+  takes ``xla``); on the CPU ``xla``, as the JAX model picks it off-TPU.
 
 The padded paths exchange by ``methods`` (``Method`` flags, JAX's
 ``DistributedDomain.set_methods``): ``Method.PallasDMA`` is B4's
@@ -83,9 +84,10 @@ from ..distributed import DeviceLike, DistributedDomain, torch_dtype
 from ..geometry import DepthsLike, Dim3, Dim3Like, Radius, normalize_depths
 from ..ops.cuda_halo import jacobi7_halo_cuda, jacobi7_halon_cuda
 from ..ops.cuda_overlap import OverlapRecv, jacobi7_overlap_cuda
-from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, impose_spheres,
-                                jacobi7_padded_cuda, jacobi7_wrap_cuda,
-                                jacobi7_wrapn_cuda, sublane_tile)
+from ..ops.cuda_stencil import (COLD_TEMP, HOT_TEMP, KERNEL_DTYPES,
+                                impose_spheres, jacobi7_padded_cuda,
+                                jacobi7_wrap_cuda, jacobi7_wrapn_cuda,
+                                sublane_tile)
 from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import global_coords, jacobi7, write_interior
 from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
@@ -205,19 +207,20 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
 
 def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
                        local: Dim3, radius_ok: bool, nonperiodic: bool,
-                       on_gpu: bool, f32: bool,
+                       on_gpu: bool, kernel_dtype: bool,
                        depths: Dim3 = Dim3(1, 1, 1),
                        wire_narrows: bool = False,
                        irredundant: bool = False) -> str:
     """The compute path ``Jacobi3D`` builds: JAX's selection rules
     (models/jacobi.py:460-575) with its on-TPU choice taken on CUDA
-    devices, where the port's kernels run (and, as they take float32
-    only, for a float32 domain). ``depths``: the domain's temporal
-    depths (``exchange_depths``); above 1 the padded paths become
-    ``xla-temporal[s=…]`` (``-overlap``). ``wire_narrows`` (a narrowing
-    wire format) and ``irredundant`` (the irredundant wire layout) rule
-    out the halo and overlap paths, which move their own slabs; a
-    narrowing format also refuses ``exchange_every > 1`` and overlap.
+    devices, where the port's kernels run (and, as they take float32 and
+    bfloat16, for a domain of those: ``kernel_dtype``). ``depths``: the
+    domain's temporal depths (``exchange_depths``); above 1 the padded
+    paths become ``xla-temporal[s=…]`` (``-overlap``). ``wire_narrows``
+    (a narrowing wire format) and ``irredundant`` (the irredundant wire
+    layout) rule out the halo and overlap paths, which move their own
+    slabs; a narrowing format also refuses ``exchange_every > 1`` and
+    overlap.
     Raises as JAX does for an explicit kernel its conditions exclude."""
     if overlap and rem != Dim3(0, 0, 0):
         raise NotImplementedError("overlap mode requires an evenly "
@@ -236,7 +239,7 @@ def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
             f"are not supported with kernel={kernel!r} — the in-kernel "
             f"multi-step paths have one step count, not one per axis; use "
             f"kernel='xla' or 'auto'")
-    accel = on_gpu and f32
+    accel = on_gpu and kernel_dtype
     wrap_ok = (counts == Dim3(1, 1, 1) and rem == Dim3(0, 0, 0)
                and not overlap and radius_ok and not nonperiodic
                and not asym)
@@ -375,13 +378,13 @@ class Jacobi3D:
         radius = dd.radius
         radius_ok = all(radius.face(a, s) == 1
                         for a in range(3) for s in (-1, 1))
-        # the port's kernels take float32 only, so ``auto`` picks them
-        # only for a float32 domain
-        f32 = self._dtype == torch.float32
+        # the port's kernels take float32 and bfloat16, so ``auto`` picks
+        # them only for a domain of those
+        kdt = self._dtype in KERNEL_DTYPES
         path = select_kernel_path(
             self._kernel, self._overlap, dd.mesh_counts, dd.rem,
             dd.local_size, radius_ok, dd.boundary == Boundary.NONE,
-            all(d.type == "cuda" for d in dd.mesh.devices), f32,
+            all(d.type == "cuda" for d in dd.mesh.devices), kdt,
             dd.exchange_depths,
             wire_narrows=any(v != "f32" for v in
                              normalize_wire_format(dd.wire_format).values()),
@@ -391,9 +394,9 @@ class Jacobi3D:
                 or path.startswith("xla-temporal")):
             LOG_INFO(f"jacobi kernel path: {path}")
         kernel = path.split("-")[0]
-        if kernel in ("wrap", "halo", "pallas", "overlap") and not f32:
+        if kernel in ("wrap", "halo", "pallas", "overlap") and not kdt:
             raise TypeError(f"kernel={kernel!r} runs CUDA kernels that take "
-                            f"float32 only, got {self._dtype}; use "
+                            f"float32 or bfloat16, got {self._dtype}; use "
                             f"kernel='xla'")
         self._method = pick_method(dd.methods)
         tile = sublane_tile(self._dtype)

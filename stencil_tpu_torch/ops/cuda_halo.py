@@ -19,7 +19,15 @@ the shard and the slabs), launched as ``cuda_stencil.jacobi_ring_plan``
 says. The module rules of
 ``ops/cuda_stencil.py`` hold: a CPU tensor goes to the plain twin; a
 CUDA tensor launches the kernel or raises; each launch adds one to the
-wrapper's entry in ``LAUNCHES``; float32 only.
+wrapper's entry in ``LAUNCHES``; float32 or bfloat16 (each kernel has a
+bfloat16 instance that rounds after every operation, as the JAX kernels
+compute a bfloat16 shard).
+
+B6 takes ``1 <= steps <=`` the dtype's sublane tile (8 float32, 16
+bfloat16). The ring kernel takes 8 a launch, so 9 to 16 steps are two
+launches (``cuda_stencil.ring_split``): N1 = ceil(N / 2) steps from the
+slabs over the shard grown by N2 = N - N1 rows in z and y, into a padded
+buffer in device memory, then the last N2 steps from that buffer.
 
 The two kernels add in different orders, as their JAX originals do (B5:
 ``((((ym+yp)+xm)+xp)+zm)+zp``, K1's; B6 per step:
@@ -36,15 +44,13 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .cuda_stencil import (_check, _check_cuda, _out, _sphere_args,
-                           impose_spheres, jacobi_ring_plan, sm_count)
+                           impose_spheres, is_bf16, jacobi_ring_plan,
+                           ring_split, sm_count, sublane_tile)
 from .stencil_kernels import sixth
 
 #: launches per wrapper since the last ``reset_launch_counts``; only a
 #: kernel launch counts, never a call that went to the plain twin
 LAUNCHES = {"jacobi7_halo": 0, "jacobi7_halon": 0}
-
-#: the JAX kernel's step limit (the f32 sublane tile), as for K2
-MAX_STEPS = 8
 
 SLAB_NAMES = ("zlo", "zhi", "ylo", "yhi")
 
@@ -138,8 +144,9 @@ _LIB = "jacobi_halo"
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "jacobi7_halo_launch": [_P] * 6 + [_I] * 17 + [_P],
-    "jacobi7_halon_launch": [_P] * 6 + [_I] * 22 + [_P],
+    "jacobi7_halo_launch": [_P] * 6 + [_I] * 18 + [_P],
+    "jacobi7_halon_launch": [_P] * 6 + [_I] * 24 + [_P],
+    "jacobi7_halon_padded_launch": [_P] * 2 + [_I] * 22 + [_P],
 }
 
 
@@ -183,9 +190,10 @@ def jacobi7_halo_cuda(interior: torch.Tensor, slabs: Dict[str, torch.Tensor],
                       interior_len_zy: Optional[Sequence[int]] = None,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B5: one Jacobi step plus spheres on an interior-resident (Z, Y, X)
-    float32 shard with slabs ``zlo/zhi (rz, Y, X)``, ``ylo/yhi (Z, e,
-    X)``. ``origin_zyx``: the shard's global origin; ``interior_len_zy``:
-    its actual (z, y) extents on a short (+-1) shard."""
+    float32 or bfloat16 shard with slabs ``zlo/zhi (rz, Y, X)``,
+    ``ylo/yhi (Z, e, X)``. ``origin_zyx``: the shard's global origin;
+    ``interior_len_zy``: its actual (z, y) extents on a short (+-1)
+    shard."""
     what = "jacobi7_halo_cuda"
     _check(interior, what)
     rz, e = _check_slabs(interior, slabs, False, 1, what)
@@ -203,7 +211,7 @@ def jacobi7_halo_cuda(interior: torch.Tensor, slabs: Dict[str, torch.Tensor],
     _launch("jacobi7_halo_launch", interior.device, interior.data_ptr(),
             out.data_ptr(), *(slabs[k].data_ptr() for k in SLAB_NAMES),
             Z, Y, X, rz, e, Lz, Ly, oz, oy, ox,
-            *_sphere_args(hot_c, cold_c, sph_r))
+            *_sphere_args(hot_c, cold_c, sph_r), is_bf16(interior))
     LAUNCHES["jacobi7_halo"] += 1
     return out
 
@@ -214,15 +222,17 @@ def jacobi7_halon_cuda(interior: torch.Tensor,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B6: ``steps`` fused Jacobi steps (spheres after each, at global
     coordinates wrapped modulo ``gsize_zyx``) per radius-``steps`` slab
-    exchange, on an evenly divided (Z, Y, X) float32 shard with slabs
-    ``zlo/zhi (rz, Y, X)`` and z-extended ``ylo/yhi (Z + 2 rz, e, X)``,
-    ``rz, e >= steps``: the port's own ``rz = steps`` slabs or JAX's
-    ``rz = block_z``. ``1 <= steps <= 8``, the JAX kernel's limit."""
+    exchange, on an evenly divided (Z, Y, X) float32 or bfloat16 shard
+    with slabs ``zlo/zhi (rz, Y, X)`` and z-extended ``ylo/yhi (Z + 2 rz,
+    e, X)``, ``rz, e >= steps``: the port's own ``rz = steps`` slabs or
+    JAX's ``rz = block_z``. ``1 <= steps <=`` the sublane tile, the JAX
+    kernel's limit (8 float32, 16 bfloat16)."""
     what = "jacobi7_halon_cuda"
     _check(interior, what)
     N = int(steps)
-    if N < 1 or N > MAX_STEPS:
-        raise ValueError(f"{what}: needs 1 <= steps <= {MAX_STEPS}, got "
+    tile = sublane_tile(interior.dtype)
+    if N < 1 or N > tile:
+        raise ValueError(f"{what}: needs 1 <= steps <= {tile}, got "
                          f"steps={N}")
     rz, e = _check_slabs(interior, slabs, True, N, what)
     out = _out(interior, out, interior.shape, what)
@@ -234,10 +244,22 @@ def jacobi7_halon_cuda(interior: torch.Tensor,
     Z, Y, X = interior.shape
     oz, oy, ox = (int(v) for v in origin_zyx)
     gz, gy, gx = (int(v) for v in gsize_zyx)
-    plan = jacobi_ring_plan(Z, Y, X, N, sm_count(interior.device))
-    _launch("jacobi7_halon_launch", interior.device, interior.data_ptr(),
-            out.data_ptr(), *(slabs[k].data_ptr() for k in SLAB_NAMES),
-            Z, Y, X, rz, e, oz, oy, ox, gz, gy, gx,
-            *_sphere_args(hot_c, cold_c, sph_r), N, *plan[:3])
+    dev, isz, bf = interior.device, interior.element_size(), is_bf16(interior)
+    spheres = _sphere_args(hot_c, cold_c, sph_r)
+    split = ring_split(N)
+    grow = N - split[0]  # the rows the second launch reads beyond the shard
+    dst = out if grow == 0 else torch.empty(
+        (Z + 2 * grow, Y + 2 * grow, X), dtype=interior.dtype, device=dev)
+    plan = jacobi_ring_plan(Z + 2 * grow, Y + 2 * grow, X, split[0],
+                            sm_count(dev), isz)
+    _launch("jacobi7_halon_launch", dev, interior.data_ptr(),
+            dst.data_ptr(), *(slabs[k].data_ptr() for k in SLAB_NAMES),
+            Z, Y, X, rz, e, oz, oy, ox, gz, gy, gx, *spheres, split[0],
+            *plan[:3], grow, bf)
+    if grow:
+        plan = jacobi_ring_plan(Z, Y, X, grow, sm_count(dev), isz)
+        _launch("jacobi7_halon_padded_launch", dev, dst.data_ptr(),
+                out.data_ptr(), Z, Y, X, grow, oz, oy, ox, gz, gy, gx,
+                *spheres, grow, *plan[:3], bf)
     LAUNCHES["jacobi7_halon"] += 1
     return out

@@ -15,7 +15,9 @@ B7  pallas_overlap.py:55 ``jacobi7_overlap_pallas``  ``jacobi7_overlap_cuda``  `
 ==  ==========================================  ========================  =========================
 
 The module rules of ``ops/cuda_stencil.py`` hold: CPU shards go to the
-plain twin; CUDA shards launch the kernels or raise; float32 only. A
+plain twin; CUDA shards launch the kernels or raise; float32 or
+bfloat16 (a bfloat16 instance of each launch that rounds after every
+operation, as the JAX kernel computes a bfloat16 shard). A
 step adds one to ``LAUNCHES["jacobi7_overlap"]`` per shard (its launch
 A and its launch B).
 
@@ -44,7 +46,8 @@ import torch
 from ..geometry import Dim3
 from ..parallel.mesh import mesh_neighbor
 from .cuda_exchange import enable_peer_access
-from .cuda_stencil import _check, _check_cuda, _sphere_args, impose_spheres
+from .cuda_stencil import (_check, _check_cuda, _sphere_args, impose_spheres,
+                           is_bf16)
 from .stencil_kernels import sixth
 
 #: steps per shard since the last ``reset_launch_counts`` (each step is
@@ -114,12 +117,12 @@ def _check_mesh(interiors: Sequence[torch.Tensor], counts: Dim3,
     if len(interiors) != counts.flatten():
         raise ValueError(f"{what}: {len(interiors)} shards for a "
                          f"{tuple(counts)} mesh")
-    shape = interiors[0].shape
+    shape, dtype = interiors[0].shape, interiors[0].dtype
     for t in interiors:
         _check(t, what)
-        if t.shape != shape:
-            raise ValueError(f"{what}: shards of shapes {tuple(shape)} "
-                             f"and {tuple(t.shape)}")
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{what}: shards of {dtype} {tuple(shape)} "
+                             f"and {t.dtype} {tuple(t.shape)}")
     Z, Y, X = shape
     if Z < 4 or Y < 2:
         raise ValueError(f"{what}: needs Z >= 4, Y >= 2, got {(Z, Y)}")
@@ -292,7 +295,7 @@ def jacobi7_overlap_plain(interiors: Sequence[torch.Tensor],
 # kernel wrapper
 # ---------------------------------------------------------------------------
 _LIB = "jacobi_overlap"
-_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
@@ -301,8 +304,9 @@ def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
                          recv: Optional[OverlapRecv] = None
                          ) -> Tuple[List[torch.Tensor], OverlapRecv]:
     """B7: one overlapped Jacobi step plus the spheres on every (Z, Y,
-    X) float32 shard of an x-unsharded mesh (``interiors[i]`` at global
-    origin ``origins[i]`` = (z, y, x), x fastest), Z >= 4, Y >= 2.
+    X) float32 or bfloat16 shard of an x-unsharded mesh (``interiors[i]``
+    at global origin ``origins[i]`` = (z, y, x), x fastest), Z >= 4, Y >=
+    2.
     ``out``: the shards' output tensors (not aliasing the inputs);
     ``recv``: the mesh's persistent ``OverlapRecv`` (made here if None).
     Returns (out, recv); ``recv.slabs`` then hold the landed slabs."""
@@ -335,7 +339,7 @@ def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
         raise ValueError(f"{what}: recv was made for another mesh")
     from . import _build
 
-    spheres = _sphere_args(hot_c, cold_c, sph_r)
+    spheres = (*_sphere_args(hot_c, cold_c, sph_r), is_bf16(arrs[0]))
     orgs = [tuple(int(v) for v in o) for o in origins]
     n = len(arrs)
     with recv.own_session():

@@ -22,9 +22,18 @@ kernel of its own, launched as ``laplace6_plan`` says. A
 wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain twin (that is how the tests run); a CUDA tensor launches the
 kernel or raises — it never falls back. Each launch adds one to the
-wrapper's entry in ``LAUNCHES``. The kernels take float32 only; K1–K3
-refuse any other dtype on the CPU too, while ``laplace6_cuda`` hands a
-CPU tensor of any float dtype to its twin, as the MHD wrappers do.
+wrapper's entry in ``LAUNCHES``. K1–K3 take float32 or bfloat16 (a
+bfloat16 instance of each kernel: every add and the multiply by
+bf16(1/6) round to bfloat16 at once, in the kernel's order, as the JAX
+kernels compute a bfloat16 field) and refuse any other dtype on the CPU
+too; B8 takes float32 on the card, while ``laplace6_cuda`` hands a CPU
+tensor of any float dtype to its twin, as the MHD wrappers do.
+
+K2 takes ``1 <= steps <=`` the dtype's sublane tile: 8 for float32, 16
+for bfloat16. The ring kernel takes 8 a launch, so bfloat16 runs 9 to 16
+steps as two launches, ceil(N / 2) steps into a field in device memory
+and the rest from it; every value of the ring depends only on its
+position, so the two launches compute what one of N steps would.
 
 The two wrap kernels add in different orders, as their JAX originals
 do (K1: ``((((ym+yp)+xm)+xp)+zm)+zp``; K2 per step:
@@ -70,6 +79,22 @@ def sublane_tile_bytes(itemsize: int) -> int:
 
 def sublane_tile(dtype: torch.dtype) -> int:
     return sublane_tile_bytes(torch.empty((), dtype=dtype).element_size())
+
+
+#: the storage dtypes of the Jacobi kernels (K1-K3, B5-B7)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+#: the steps one launch of the ring kernel takes (``kMaxSteps``)
+RING_MAX_STEPS = 8
+
+
+def ring_split(steps: int) -> Tuple[int, ...]:
+    """The steps of each ring launch of an N-step call: N itself up to
+    ``RING_MAX_STEPS``, else ceil(N / 2) and the rest."""
+    N = int(steps)
+    if N <= RING_MAX_STEPS:
+        return (N,)
+    return (-(-N // 2), N // 2)
 
 
 # ---------------------------------------------------------------------------
@@ -230,21 +255,23 @@ def ring_margin(steps: int) -> int:
     return 4 * -(-steps // 4)
 
 
-def ring_smem_bytes(steps: int, ty: int, depth: int) -> int:
+def ring_smem_bytes(steps: int, ty: int, depth: int,
+                    itemsize: int = 4) -> int:
     """The ring kernel's dynamic shared memory: depth + 3 input planes
     and 4 planes for each of the N - 1 intermediate levels, of the
-    (64 + 2M) x (ty + 2N) window (``ring_smem_bytes`` in
-    csrc/jacobi_ring.cuh)."""
+    (64 + 2M) x (ty + 2N) window, in cells of the storage dtype
+    (``ring_smem_bytes`` in csrc/jacobi_ring.cuh)."""
     slots = depth + 3 + 4 * (steps - 1)
-    return 4 * slots * (RING_TILE_X + 2 * ring_margin(steps)) \
+    return itemsize * slots * (RING_TILE_X + 2 * ring_margin(steps)) \
         * (ty + 2 * steps)
 
 
-def ring_blocks_per_sm(steps: int, ty: int, depth: int) -> int:
+def ring_blocks_per_sm(steps: int, ty: int, depth: int,
+                       itemsize: int = 4) -> int:
     """Blocks of the ring kernel one SM holds, by shared memory and by
     registers; 0 where one block does not fit. ``ring_occupancy`` reads
     the card's count."""
-    need = ring_smem_bytes(steps, ty, depth)
+    need = ring_smem_bytes(steps, ty, depth, itemsize)
     if need + RING_STATIC_BYTES > BLOCK_SMEM_BYTES:
         return 0
     per = need + RING_STATIC_BYTES + BLOCK_RESERVED_BYTES
@@ -252,17 +279,17 @@ def ring_blocks_per_sm(steps: int, ty: int, depth: int) -> int:
                SM_SMEM_BYTES // per)
 
 
-def ring_tile(steps: int) -> Tuple[int, int, int]:
+def ring_tile(steps: int, itemsize: int = 4) -> Tuple[int, int, int]:
     """(ty, depth, blocks per SM) of N steps: the first tile rows of
     ``RING_TILE_ROWS`` that fit at depth 2, then the deepest prefetch
     that keeps as many blocks on an SM, but 3 where several blocks share
     it (six planes or more in flight an SM; depth 4 at N = 2 would leave
     256 bytes of the SM's shared memory)."""
     for ty in RING_TILE_ROWS:
-        bps = ring_blocks_per_sm(steps, ty, RING_DEPTHS[0])
+        bps = ring_blocks_per_sm(steps, ty, RING_DEPTHS[0], itemsize)
         if bps:
             depth = max(d for d in RING_DEPTHS
-                        if ring_blocks_per_sm(steps, ty, d) == bps
+                        if ring_blocks_per_sm(steps, ty, d, itemsize) == bps
                         and (bps == 1 or d <= 3))
             return ty, depth, bps
     raise ValueError(f"no ring tile fits {steps} steps")
@@ -277,16 +304,18 @@ def ring_cost(Z: int, Y: int, X: int, steps: int, n_sms: int, ty: int,
 
 
 @functools.lru_cache(maxsize=None)
-def jacobi_ring_plan(Z: int, Y: int, X: int, steps: int,
-                     n_sms: int) -> RingPlan:
+def jacobi_ring_plan(Z: int, Y: int, X: int, steps: int, n_sms: int,
+                     itemsize: int = 4) -> RingPlan:
     """The ring kernel's launch for N = ``steps`` over a (Z, Y, X) field
-    or shard on a card of ``n_sms`` SMs: ``ring_tile``'s tile, and the
-    z run that minimises ``ring_cost`` (waves x planes loaded), found
-    among the runs ceil(Z / k), k = 1..Z: any other run loads more
-    planes for the same number of blocks. Ties go to the longer run."""
-    if not 1 <= steps <= 8:
-        raise ValueError(f"the ring kernel takes 1 <= steps <= 8, got {steps}")
-    ty, depth, bps = ring_tile(steps)
+    or shard (or output box) on a card of ``n_sms`` SMs, in cells of
+    ``itemsize`` bytes: ``ring_tile``'s tile, and the z run that
+    minimises ``ring_cost`` (waves x planes loaded), found among the runs
+    ceil(Z / k), k = 1..Z: any other run loads more planes for the same
+    number of blocks. Ties go to the longer run."""
+    if not 1 <= steps <= RING_MAX_STEPS:
+        raise ValueError(f"the ring kernel takes 1 <= steps <= "
+                         f"{RING_MAX_STEPS} a launch, got {steps}")
+    ty, depth, bps = ring_tile(steps, itemsize)
     runs = {-(-Z // k) for k in range(1, Z + 1)}
     zrun = min(runs, key=lambda r: (ring_cost(Z, Y, X, steps, n_sms, ty,
                                               bps, r), -r))
@@ -361,13 +390,14 @@ def sm_count(device: torch.device) -> int:
 
 
 def ring_occupancy(device: torch.device, steps: int, ty: int,
-                   depth: int) -> int:
-    """Blocks of the ring kernel (K2's instantiation) one SM of
-    ``device`` holds at this tile and depth, as the CUDA runtime counts
-    them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+                   depth: int, itemsize: int = 4) -> int:
+    """Blocks of the ring kernel (K2's instantiation for the storage
+    dtype of ``itemsize`` bytes) one SM of ``device`` holds at this tile
+    and depth, as the CUDA runtime counts them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
     ``ring_blocks_per_sm`` models it."""
     return _occupancy(_LIB, "jacobi7_ring_blocks_per_sm", device, steps,
-                      ty, depth)
+                      ty, depth, int(itemsize == 2))
 
 
 def _occupancy(lib: str, fn_name: str, device: torch.device, *args) -> int:
@@ -393,9 +423,9 @@ _LIB = "jacobi7"
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "jacobi7_wrap_launch": [_P, _P] + [_I] * 10 + [_P],
-    "jacobi7_wrapn_launch": [_P, _P] + [_I] * 14 + [_P],
-    "jacobi7_padded_launch": [_P, _P] + [_I] * 8 + [_P],
+    "jacobi7_wrap_launch": [_P, _P] + [_I] * 11 + [_P],
+    "jacobi7_wrapn_launch": [_P, _P] + [_I] * 15 + [_P],
+    "jacobi7_padded_launch": [_P, _P] + [_I] * 9 + [_P],
     "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3
     + [_I, _P],
 }
@@ -408,9 +438,11 @@ def _launch(fn_name: str, device: torch.device, *args,
     _build.launch(lib_name, fn_name, _SIGNATURES[fn_name], device, *args)
 
 
-def _check(t: torch.Tensor, what: str) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: the CUDA kernel takes float32, got "
+def _check(t: torch.Tensor, what: str,
+           dtypes: Tuple[torch.dtype, ...] = KERNEL_DTYPES) -> None:
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what}: the CUDA kernel takes {names}, got "
                         f"{t.dtype}")
     if t.dim() != 3:
         raise ValueError(f"{what}: expected a (Z, Y, X) tensor, got "
@@ -442,11 +474,16 @@ def _sphere_args(hot_c, cold_c, sph_r):
     return (*map(int, hot_c), *map(int, cold_c), int(sph_r) * int(sph_r))
 
 
+def is_bf16(t: torch.Tensor) -> int:
+    """The launchers' ``is_bf16`` argument for a tensor's dtype."""
+    return int(t.dtype == torch.bfloat16)
+
+
 def jacobi7_wrap_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: one periodic Jacobi step plus spheres on an unpadded (Z, Y,
-    X) float32 field. ``out`` (optional, not aliasing ``interior``)
-    receives the result."""
+    X) float32 or bfloat16 field. ``out`` (optional, not aliasing
+    ``interior``) receives the result."""
     what = "jacobi7_wrap_cuda"
     _check(interior, what)
     out = _out(interior, out, interior.shape, what)
@@ -455,7 +492,8 @@ def jacobi7_wrap_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
     _check_cuda(interior, what)
     Z, Y, X = interior.shape
     _launch("jacobi7_wrap_launch", interior.device, interior.data_ptr(),
-            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r))
+            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r),
+            is_bf16(interior))
     LAUNCHES["jacobi7_wrap"] += 1
     return out
 
@@ -465,8 +503,10 @@ def jacobi7_wrapn_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: ``steps`` fused periodic Jacobi steps (spheres after each) in
     one pass over memory, launched as ``jacobi_ring_plan`` says. Keeps
-    the JAX kernel's rules, ``1 <= steps <= 8`` and ``Y % 8 == 0`` for
-    float32 (see ``sublane_tile_bytes``)."""
+    the JAX kernel's rules, ``1 <= steps <= tile`` and ``Y % tile ==
+    0`` with the dtype's sublane tile, 8 for float32 and 16 for bfloat16
+    (see ``sublane_tile_bytes``); 9 to 16 steps are two launches
+    (``ring_split``)."""
     what = "jacobi7_wrapn_cuda"
     _check(interior, what)
     N = int(steps)
@@ -482,10 +522,16 @@ def jacobi7_wrapn_cuda(interior: torch.Tensor, hot_c, cold_c, sph_r: int,
         return out.copy_(jacobi7_wrapn_plain(interior, hot_c, cold_c, sph_r,
                                              steps=N))
     _check_cuda(interior, what)
-    plan = jacobi_ring_plan(Z, Y, X, N, sm_count(interior.device))
-    _launch("jacobi7_wrapn_launch", interior.device, interior.data_ptr(),
-            out.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r), N,
-            *plan[:3])
+    split = ring_split(N)
+    src = interior
+    for k, n in enumerate(split):
+        dst = out if k == len(split) - 1 else torch.empty_like(interior)
+        plan = jacobi_ring_plan(Z, Y, X, n, sm_count(interior.device),
+                                interior.element_size())
+        _launch("jacobi7_wrapn_launch", interior.device, src.data_ptr(),
+                dst.data_ptr(), Z, Y, X, *_sphere_args(hot_c, cold_c, sph_r),
+                n, *plan[:3], is_bf16(interior))
+        src = dst
     LAUNCHES["jacobi7_wrapn"] += 1
     return out
 
@@ -494,8 +540,8 @@ def jacobi7_padded_cuda(padded: torch.Tensor, radius: Radius,
                         interior: Dim3,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: the 7-point average over a halo-padded (Zp, Yp, Xp) float32
-    shard with pads ``radius.pad_lo()`` below; returns the (Z, Y, X)
-    interior (the caller imposes sources and writes it back)."""
+    or bfloat16 shard with pads ``radius.pad_lo()`` below; returns the
+    (Z, Y, X) interior (the caller imposes sources and writes it back)."""
     what = "jacobi7_padded_cuda"
     _check(padded, what)
     lo = radius.pad_lo()
@@ -511,7 +557,8 @@ def jacobi7_padded_cuda(padded: torch.Tensor, radius: Radius,
         return out.copy_(jacobi7_padded_plain(padded, radius, interior))
     _check_cuda(padded, what)
     _launch("jacobi7_padded_launch", padded.device, padded.data_ptr(),
-            out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x)
+            out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x,
+            is_bf16(padded))
     LAUNCHES["jacobi7_padded"] += 1
     return out
 
@@ -539,7 +586,7 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     out = _out(padded, out, (Z, Y, X), what)
     if padded.device.type == "cpu":
         return out.copy_(laplace6_plain(padded, radius, interior, inv_ds))
-    _check(padded, what)
+    _check(padded, what, (torch.float32,))
     _check_cuda(padded, what)
     ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv_ds)
     plan = laplace6_plan(Z, Y, X, sm_count(padded.device))

@@ -44,6 +44,23 @@ def jacobi7(padded: torch.Tensor, radius: Radius,
     return acc * sixth(padded.dtype, padded.device)
 
 
+def central_diff(padded: torch.Tensor, axis: int, radius: Radius,
+                 interior: Dim3) -> torch.Tensor:
+    """Second-order central difference along grid ``axis`` (0=x, 1=y,
+    2=z): ``(p[i+1] - p[i-1]) * 0.5`` over the ``interior`` region — the
+    radius-1 gradient component the PIC model's field gather
+    interpolates (``models/pic.py`` computes ``E = -grad rho``).
+    ``radius`` is the ALLOCATION radius of ``padded``; the slices reach
+    one cell past the region along ``axis`` only."""
+    lo = radius.pad_lo()
+    plus = [0, 0, 0]
+    plus[axis] = 1
+    minus = [0, 0, 0]
+    minus[axis] = -1
+    return (shifted(padded, tuple(plus), lo, interior)
+            - shifted(padded, tuple(minus), lo, interior)) * 0.5
+
+
 def sixth(dtype: torch.dtype, device) -> torch.Tensor:
     """1/6 rounded once to ``dtype`` — the ``dt.type(1.0 / 6.0)`` of the
     JAX kernels — as a 0-dim tensor, so the multiply runs in ``dtype``."""

@@ -24,6 +24,9 @@ share one; on a one-shard axis the neighbour is the shard itself).
   bfloat16 or one of the float8 types on the sender's device, crosses to
   the receiver's device at that width, and widens back to float32
   before it is written; only mesh axes of more than one shard narrow.
+* ``accumulate_shard`` is the adjoint sweep: it adds every pad slab into
+  the interior that owns it and zeroes the pad (the PIC deposit,
+  ``models/pic.py``).
 * ``exchange_interior_slabs`` returns, per shard, the four slab tensors
   the halo kernels read (``ops/cuda_halo.py``), leaving the shards as
   they are.
@@ -448,6 +451,70 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
                 dst.copy_(src)
             else:
                 dst.copy_(_ship(src, arrs[i].device, fmt, name, probe))
+    return shards
+
+
+def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
+                     mesh_counts: Dim3 = Dim3(1, 1, 1),
+                     axis_order: Tuple[int, ...] = (2, 1, 0),
+                     rem: Dim3 = Dim3(0, 0, 0),
+                     nonperiodic: bool = False,
+                     probe: Optional[WireProbe] = None
+                     ) -> Sequence[torch.Tensor]:
+    """The ADJOINT of ``exchange_shard``, in place on the padded (z,y,x)
+    shards of a mesh (x fastest); returns ``shards`` (JAX
+    ``parallel/exchange.py:335-404``): fold halo-pad contributions back
+    into the interiors that own them (a PIC particle near a shard edge
+    deposits charge into pad cells that belong to a neighbour).
+
+    Per axis, in the reverse of the exchange's order (z, y, x), each pad
+    slab is added into the owning neighbour's interior edge rows, then
+    zeroed: first the hi pad ``[p_lo + L, p_lo + L + r_hi)`` into the
+    +neighbour's rows ``[p_lo, p_lo + r_hi)``, then the lo pad ``[0,
+    r_lo)`` into the -neighbour's rows ``[p_lo + L' - r_lo, p_lo + L')``,
+    where ``L`` is this shard's actual interior length (``rem``: uneven
+    +-1 shards) and ``L'`` the neighbour's. A slab spans the full
+    allocation of the other two axes, so edge and corner contributions
+    ride into the other axes' pads and are folded by the later sweeps.
+    As JAX's ``ppermute`` is simultaneous, every shard's slab of a
+    direction is taken before any shard adds its arrivals.
+    ``nonperiodic``: contributions crossing the open global boundary are
+    dropped (on a one-shard axis, all of them). ``probe`` records every
+    message between two mesh positions (one a shard, direction and axis
+    of more than one shard)."""
+    counts = Dim3.of(mesh_counts)
+    arrs = _as_list(shards, counts)
+    idx = [mesh_index(i, counts) for i in range(len(arrs))]
+    for a in axis_order:
+        r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
+        if r_lo == 0 and r_hi == 0:
+            continue
+        dim = AXIS_TO_DIM[a]
+        name = AXIS_NAME[a]
+        interior = arrs[0].shape[dim] - r_lo - r_hi
+        lens = [shard_interior_len(a, interior, rem, m[a]) for m in idx]
+        # (side the slab travels, its rows on the sender, the rows it is
+        # added into on the receiver, the edge whose arrivals the open
+        # boundary absorbs)
+        moves = []
+        if r_hi > 0:
+            moves.append((1, lambda i: (r_lo + lens[i], r_hi),
+                          lambda i: (r_lo, r_hi), -1))
+        if r_lo > 0:
+            moves.append((-1, lambda i: (0, r_lo),
+                          lambda i: (lens[i], r_lo), 1))
+        for side, src_at, dst_at, edge in moves:
+            sent = [t.narrow(dim, *src_at(i)).clone()
+                    for i, t in enumerate(arrs)]
+            for i, t in enumerate(arrs):
+                j = mesh_neighbor(i, counts, a, -side)
+                recv = sent[j]
+                if j != i and probe is not None:
+                    probe.moved(name, recv.dtype, recv.dtype, recv.dtype)
+                if not (nonperiodic and _exterior(i, counts, a, edge)):
+                    dst = t.narrow(dim, *dst_at(i))
+                    dst.copy_(dst + recv.to(t.device))
+                t.narrow(dim, *src_at(i)).zero_()
     return shards
 
 

@@ -165,12 +165,14 @@ def _fresh_ptxas(lib, tmp_path, kernel):
 @pytest.mark.parametrize("lib", ["jacobi7", "jacobi_halo"])
 def test_jacobi_ring_kernel_fits_the_planners_registers_without_spills(
         cs, lib, tmp_path):
-    """The one instantiation of the Jacobi ring kernel in each library
-    (K2 in ``jacobi7``, B6 in ``jacobi_halo``): at most the registers
-    and exactly the static shared memory that the planner counts
-    (``RING_REGISTERS``, ``RING_STATIC_BYTES``), and no spill."""
+    """Every instantiation of the Jacobi ring kernel in each library (K2
+    in ``jacobi7``, float32 and bfloat16; B6 in ``jacobi_halo``, float32
+    and bfloat16 from the slabs and bfloat16 from the padded buffer of
+    its second launch): at most the registers and exactly the static
+    shared memory that the planner counts (``RING_REGISTERS``,
+    ``RING_STATIC_BYTES``), and no spill."""
     usage = _fresh_ptxas(lib, tmp_path, "jacobi_ring_kernel")
-    assert len(usage) == 1, usage
+    assert len(usage) == {"jacobi7": 2, "jacobi_halo": 3}[lib], usage
     for name, use in usage.items():
         assert use["registers"] <= cs.RING_REGISTERS, (name, use)
         assert use["static_smem"] == cs.RING_STATIC_BYTES, (name, use)
@@ -715,7 +717,7 @@ def ch(cs):
     return cuda_halo
 
 
-def _halo_case(size_xyz, mesh, slab_kw, seed):
+def _halo_case(size_xyz, mesh, slab_kw, seed, dtype=torch.float32):
     """Random capacity shards of a grid over a mesh on the card, their
     slabs, and per shard its origin (z, y, x) and live (z, y) extents."""
     from stencil_tpu_torch.parallel.exchange import (exchange_interior_slabs,
@@ -726,7 +728,7 @@ def _halo_case(size_xyz, mesh, slab_kw, seed):
     size, counts = Dim3(*size_xyz), Dim3(*mesh)
     cap = Dim3(*(-(-size[a] // counts[a]) for a in range(3)))
     rem = Dim3(*(size[a] % counts[a] for a in range(3)))
-    shards = [_rand((cap.z, cap.y, cap.x), seed + i)
+    shards = [_rand((cap.z, cap.y, cap.x), seed + i).to(dtype)
               for i in range(counts.flatten())]
     kw = dict(slab_kw)
     if not kw.get("y_z_extended"):
@@ -1886,3 +1888,163 @@ def test_bf16_astaroth_kernel_paths_on_the_card(mo, cm):
     for q in FIELDS:
         err = np.abs(hpair[0][q] - halo[0][q]).max()
         assert err <= 6 * BF16_ULP * np.abs(halo[0][q]).max(), (q, err)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 on the Jacobi kernels: K1-K3 and B5-B7 against their twins
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+# y a multiple of bfloat16's sublane tile (16), which K2 keeps; odd x
+# (single-cell loads), x % 4 == 0 (8-byte copies), several ring tiles
+BF16_SHAPES = [(5, 16, 7), (9, 16, 13), (3, 32, 33), (1, 16, 1),
+               (7, 48, 68), (23, 32, 132)]
+
+
+def _misaligned(t):
+    """``t``'s values in a tensor whose base is 2 bytes off 4-byte
+    alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    odd = buf[1:].view(t.shape)
+    odd.copy_(t)
+    assert odd.data_ptr() % 4 == 2
+    return odd
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_wrap_kernels_equal_twins(cs, shape):
+    """K1 and K2 (N = 1, 2, 3, 8 in one launch, 9 and 16 in two) bitwise
+    their twins in bfloat16, on aligned and misaligned fields."""
+    Z, Y, X = shape
+    hot, cold, r = (X // 3, Y // 2, Z // 2), (2 * X // 3, Y // 2, Z // 2), 2
+    cs.reset_launch_counts()
+    for t in (_rand(shape, 131).to(BF16),
+              _misaligned(_rand(shape, 132).to(BF16))):
+        assert torch.equal(cs.jacobi7_wrap_cuda(t, hot, cold, r),
+                           cs.jacobi7_wrap_plain(t, hot, cold, r))
+        for n in (1, 2, 3, 8, 9, 16):
+            assert torch.equal(
+                cs.jacobi7_wrapn_cuda(t, hot, cold, r, steps=n),
+                cs.jacobi7_wrapn_plain(t, hot, cold, r, steps=n)), n
+    assert cs.LAUNCHES["jacobi7_wrap"] == 2
+    assert cs.LAUNCHES["jacobi7_wrapn"] == 12
+
+
+@pytest.mark.parametrize("asym", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_padded_kernel_equals_twin(cs, shape, asym):
+    r = Radius.constant(1)
+    if asym:
+        r.set_dir((1, 0, 0), 2)
+        r.set_dir((0, 0, -1), 3)
+    interior = Dim3(shape[2], shape[1], shape[0])
+    p = _rand(zyx_shape(raw_size(interior, r)), 133).to(BF16)
+    before = cs.LAUNCHES["jacobi7_padded"]
+    assert torch.equal(cs.jacobi7_padded_cuda(p, r, interior),
+                       cs.jacobi7_padded_plain(p, r, interior))
+    assert cs.LAUNCHES["jacobi7_padded"] == before + 1
+
+
+@pytest.mark.parametrize("size,mesh,kw", [
+    ((7, 8, 5), (1, 1, 1), dict(rz=1, ry=8)),
+    ((13, 17, 9), (1, 2, 2), dict(rz=1, ry=1)),        # uneven y and z
+    ((32, 16, 11), (1, 2, 2), dict(rz=1, ry=8)),       # uneven z, x even
+])
+def test_bf16_halo_kernel_equals_twin(ch, size, mesh, kw):
+    shards, slabs, meta, (hot, cold, r), _ = _halo_case(size, mesh, kw, 134,
+                                                        BF16)
+    before = ch.LAUNCHES["jacobi7_halo"]
+    for t, sl, (org, lens) in zip(shards, slabs, meta):
+        assert torch.equal(
+            ch.jacobi7_halo_cuda(t, sl, org, hot, cold, r,
+                                 interior_len_zy=lens),
+            ch.jacobi7_halo_plain(t, sl, org, hot, cold, r, lens))
+    assert ch.LAUNCHES["jacobi7_halo"] == before + len(shards)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3, 8, 9, 16])
+@pytest.mark.parametrize("size,mesh", [((20, 16, 20), (1, 1, 1)),
+                                       ((33, 64, 48), (1, 2, 2)),
+                                       ((64, 32, 36), (1, 2, 2))])
+def test_bf16_halon_kernel_equals_twin(ch, size, mesh, steps):
+    """B6 in bfloat16 (9 and 16 steps: two launches through a padded
+    buffer) bitwise its twin on the halo path's own slabs (rz = ry = N);
+    on (1,1,1) it also equals K2."""
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    kw = dict(rz=steps, ry=steps, radius_rows=steps, y_z_extended=True)
+    shards, slabs, meta, (hot, cold, r), gsize = _halo_case(size, mesh, kw,
+                                                            135, BF16)
+    for t, sl, (org, _) in zip(shards, slabs, meta):
+        got = ch.jacobi7_halon_cuda(t, sl, org, gsize, hot, cold, r,
+                                    steps=steps)
+        assert torch.equal(got, ch.jacobi7_halon_plain(
+            t, sl, org, gsize, hot, cold, r, steps=steps))
+        if mesh == (1, 1, 1):
+            assert torch.equal(got, cs.jacobi7_wrapn_cuda(t, hot, cold, r,
+                                                          steps=steps))
+
+
+@pytest.mark.parametrize("size,mesh", [((24, 16, 16), (1, 2, 2)),
+                                       ((33, 32, 32), (1, 2, 4)),
+                                       ((17, 6, 9), (1, 1, 1))])
+def test_bf16_overlap_kernel_equals_twin(co, size, mesh):
+    shards, orgs, (hot, cold, r) = _overlap_case(size, mesh, 136)
+    shards = [t.to(BF16) for t in shards]
+    counts = Dim3(*mesh)
+    co.reset_launch_counts()
+    out, recv = co.jacobi7_overlap_cuda(shards, orgs, hot, cold, r, counts)
+    assert co.LAUNCHES["jacobi7_overlap"] == len(shards)
+    new, slabs = co.jacobi7_overlap_plain(shards, orgs, hot, cold, r, counts)
+    for i in range(len(shards)):
+        assert torch.equal(out[i], new[i]), i
+        for k in co.SLAB_NAMES:
+            assert torch.equal(recv.slabs[i][k], slabs[i][k]), (i, k)
+
+
+@pytest.mark.parametrize("steps", range(1, 9))
+def test_bf16_ring_plan_matches_the_card(cs, steps):
+    ty, depth, bps = cs.ring_tile(steps, 2)
+    assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth,
+                             2) == bps
+
+
+def test_bf16_jacobi_paths_take_the_kernels(cs, ch, co):
+    """bfloat16 ``auto`` takes ``wrap`` on one shard and ``halo`` /
+    ``overlap`` on (1,2,2), as float32 does, and launches the bfloat16
+    kernels; ``halo`` on (1,1,1) equals ``wrap`` bitwise, also at
+    exchange_every 16 (two ring launches a group); float64 still refuses
+    the kernel paths."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    def run(n, **kw):
+        for mod in (cs, ch, co):
+            mod.reset_launch_counts()
+        m = Jacobi3D(64, 64, 64, dtype=BF16, **kw)
+        m.init()
+        m.run(n)
+        counts = {**cs.LAUNCHES, **ch.LAUNCHES, **co.LAUNCHES}
+        return m, {k: v for k, v in counts.items() if v}
+
+    w, got = run(5, device="cuda")
+    assert w.kernel_path == "wrap"
+    assert got == {"jacobi7_wrapn": 2, "jacobi7_wrap": 1}
+    h, got = run(5, kernel="halo", device="cuda")
+    assert got == {"jacobi7_halon": 2, "jacobi7_halo": 1}
+    np.testing.assert_array_equal(h.temperature(), w.temperature())
+    q, got = run(5, mesh_shape=(1, 2, 2), devices=["cuda:0"] * 4)
+    assert q.kernel_path == "halo"
+    assert got == {"jacobi7_halon": 8, "jacobi7_halo": 4}
+    np.testing.assert_array_equal(q.temperature(), w.temperature())
+    o, got = run(3, overlap=True, mesh_shape=(1, 2, 2),
+                 devices=["cuda:0"] * 4)
+    assert o.kernel_path == "overlap" and got == {"jacobi7_overlap": 12}
+    w16, got = run(32, device="cuda", exchange_every=16)
+    assert got == {"jacobi7_wrapn": 2}
+    h16, got = run(32, kernel="halo", device="cuda", exchange_every=16)
+    assert got == {"jacobi7_halon": 2}
+    np.testing.assert_array_equal(h16.temperature(), w16.temperature())
+    with pytest.raises(TypeError, match="float32"):
+        Jacobi3D(64, 64, 64, dtype=torch.float64, kernel="wrap",
+                 device="cuda")
+    assert Jacobi3D(64, 64, 64, dtype=torch.float64,
+                    device="cuda").kernel_path == "xla"
