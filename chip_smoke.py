@@ -242,6 +242,19 @@ Phases, in order; any failure exits non-zero before the last line:
      a shard a step, the total charge within 1e-5 of the count; and NGP
      float64 at 1 particle a cell, the total charge equal to the count
      exactly after every step.
+   - Two ranks on the one card (``run_two_ranks``): two processes
+     (``multihost.spawn_ranks``, ``gloo``: every message between them
+     staged through host memory), two shards each of (1,2,2).
+     ``Jacobi3D(512, 512, 512)`` ``halo`` (B6 x 10 + B5 x 1 a shard per
+     ``run(21)``, counted in each rank) and ``xla``, each ``run(21)``,
+     and ``Astaroth(256, 512, 512)`` ``halo`` ``run(2)`` (B11 x 6 a
+     shard) from a state seeded on the card; each gathered on rank 0
+     (``temperature()``, ``field(q)``: collectives) and held bitwise
+     against the same path in this one process, by SHA-256 of the
+     arrays; steps/s (iterations/s) of both beside each other, three
+     timed runs pooled (each run's rate beside it). With two
+     or more cards the Jacobi ``halo`` case runs again with ``nccl``,
+     one rank a card; with one card a line says why it did not.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -4595,6 +4608,221 @@ def kernel_key(lib: str, name: str):
     return None
 
 
+# ----------------------------------------------------------------------
+# phase 4: two ranks on the one card (multi-process meshes)
+# ----------------------------------------------------------------------
+TWO_RANK_STEPS = 21
+TWO_RANK_MHD_ITERS = 2
+#: timed runs a case, pooled (host-clocked rates can halve between runs)
+TWO_RANK_REPS = 3
+#: untimed steps (iterations) first, the same in every process
+TWO_RANK_WARMUP = {"jacobi": 2, "astaroth": 1}
+TWO_RANK_MESH = (1, 2, 2)
+TWO_RANK_SIZE = {"jacobi": "512^3", "astaroth": "256x512x512"}
+TWO_RANK_OUT = os.path.join("chiprun_out", "two_ranks")
+
+
+def digest(a) -> str:
+    """SHA-256 of a numpy array's bytes: equal digests are equal bits."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(memoryview(np.ascontiguousarray(a))).hexdigest()
+
+
+def seed_mhd(torch, m, card: str, seed: int = 18) -> None:
+    """An Astaroth state drawn on the card from ``seed`` (the same bits
+    in every process): lnrho 0.5, the velocities in [-0.1, 0.1), the
+    other fields in [-1, 1). A host ``init()`` of 256 x 512 x 512 takes
+    seconds a model."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    d = m.dd.size
+    gen = torch.Generator(device=card).manual_seed(seed)
+    for q in FIELDS:
+        v = torch.rand((d.z, d.y, d.x), generator=gen, device=card) * 2 - 1
+        if q == "lnrho":
+            v.fill_(0.5)
+        elif q.startswith("uu"):
+            v *= 0.1
+        m.dd.set_interior(q, v)
+
+
+def timed(run, block, n: int, barrier=None) -> dict:
+    """``TWO_RANK_REPS`` runs of ``run(n)``, each started and ended by
+    ``block()`` (and a barrier of every rank, where given): all
+    iterations over all their seconds, and each run's rate."""
+    secs = []
+    for _ in range(TWO_RANK_REPS):
+        block()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        run(n)
+        block()
+        if barrier is not None:
+            barrier()
+        secs.append(time.perf_counter() - t0)
+    return {"rate": TWO_RANK_REPS * n / sum(secs), "seconds": sum(secs),
+            "rates": [n / t for t in secs]}
+
+
+def two_rank_paths(rank: int, out: str, cards, cases) -> None:
+    """One rank of ``run_two_ranks``: the ``cases`` (``jacobi halo``,
+    ``jacobi xla``, ``astaroth halo``) over ``TWO_RANK_MESH`` with two
+    shards on card ``cards[rank]``; writes ``rank<r>.json`` (path,
+    pooled rate, this rank's launches over the timed runs, and on rank 0
+    the gathered arrays' digests)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.ops import cuda_halo as ch
+    from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+    from stencil_tpu_torch.parallel.multihost import backend, global_devices
+
+    card = cards[rank]
+    devs = global_devices([card, card])
+    res = {"backend": backend(), "card": card}
+    for case in cases:
+        model, kernel = case.split()
+        if model == "jacobi":
+            m = Jacobi3D(N512, N512, N512, kernel=kernel,
+                         mesh_shape=TWO_RANK_MESH, devices=devs)
+            m.init()
+            n = TWO_RANK_STEPS
+        else:
+            m = Astaroth(N256, 2 * N256, 2 * N256, kernel=kernel,
+                         mesh_shape=TWO_RANK_MESH, devices=devs)
+            seed_mhd(torch, m, card)
+            n = TWO_RANK_MHD_ITERS
+        m.run(TWO_RANK_WARMUP[model])
+        for mod in (ch, cm, cs):
+            mod.reset_launch_counts()
+        rate = timed(m.run, m.block, n, dist.barrier)
+        launches = {k: v for mod in (ch, cm, cs)
+                    for k, v in mod.LAUNCHES.items() if v}
+        arrays = ({"temp": m.temperature()} if model == "jacobi"
+                  else {q: m.field(q) for q in FIELDS})
+        res[case] = {"path": m.kernel_path, **rate, "launches": launches,
+                     "exchange_s": m.measure_exchange_seconds(),
+                     "shards": m.dd.mesh.local_positions,
+                     "digests": {k: digest(v) for k, v in arrays.items()}
+                     if rank == 0 else None,
+                     "finite": all(bool(np.isfinite(v).all())
+                                   for v in arrays.values())}
+        del m, arrays
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def one_process(torch, case: str) -> dict:
+    """``case`` of ``two_rank_paths`` in this process, its four shards on
+    the card: path, pooled rate and digests."""
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth
+
+    model, kernel = case.split()
+    if model == "jacobi":
+        m = jacobi_mesh(kernel, TWO_RANK_MESH)
+        n = TWO_RANK_STEPS
+    else:
+        m = Astaroth(N256, 2 * N256, 2 * N256, kernel=kernel,
+                     mesh_shape=TWO_RANK_MESH, devices=[CARD] * 4)
+        seed_mhd(torch, m, CARD)
+        n = TWO_RANK_MHD_ITERS
+    m.run(TWO_RANK_WARMUP[model])
+    rate = timed(m.run, m.block, n)
+    arrays = ({"temp": m.temperature()} if model == "jacobi"
+              else {q: m.field(q) for q in FIELDS})
+    got = {"path": m.kernel_path, **rate,
+           "exchange_s": m.measure_exchange_seconds(),
+           "digests": {k: digest(v) for k, v in arrays.items()}}
+    del m, arrays
+    torch.cuda.empty_cache()
+    return got
+
+
+#: the launches a rank's two shards make per timed run of a case
+#: (STENCIL_WRAP_STEPS 2: ten B6 groups and a B5 tail in run(21); three
+#: B11 a shard an iteration)
+TWO_RANK_LAUNCHES = {
+    "jacobi halo": {"jacobi7_halo": 2, "jacobi7_halon": 20},
+    "jacobi xla": {},
+    "astaroth halo": {"mhd_substep_halo": 12}}
+
+
+def run_two_ranks(torch) -> dict:
+    """Phase 4: a mesh over two processes on the one card (gloo, host-
+    staged messages), each case bitwise the same path in one process
+    after the same steps; and with two or more cards the Jacobi halo
+    case over nccl, one rank a card. The launch counts are each rank's,
+    read around its timed runs; every rate pools ``TWO_RANK_REPS``
+    runs."""
+    from stencil_tpu_torch.parallel.multihost import spawn_ranks
+
+    os.makedirs(TWO_RANK_OUT, exist_ok=True)
+    cases = ("jacobi halo", "jacobi xla", "astaroth halo")
+    worlds = [("gloo", [CARD, CARD], cases)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        worlds.append(("nccl", ["cuda:0", "cuda:1"], ("jacobi halo",)))
+    else:
+        log("  nccl two-rank case not run: it needs a card per rank, and "
+            f"this machine has {n_cards} CUDA device")
+    torch.cuda.empty_cache()
+    ref = {case: one_process(torch, case) for case in cases}
+    out = {"one_process": ref}
+    for backend_name, cards, todo in worlds:
+        t0 = time.perf_counter()
+        spawn_ranks(two_rank_paths, 2,
+                    args=(TWO_RANK_OUT, cards, todo),
+                    backend_name=backend_name, timeout_s=600)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(TWO_RANK_OUT, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"  two ranks ({backend_name}, cards {cards}): world of 2 "
+            f"processes ran in {time.perf_counter() - t0:.1f} s")
+        for case in todo:
+            got = [rk[case] for rk in ranks]
+            unit = "steps/s" if case.startswith("jacobi") else \
+                "iterations/s"
+            same = got[0]["digests"] == ref[case]["digests"]
+            want = {k: v * TWO_RANK_REPS
+                    for k, v in TWO_RANK_LAUNCHES[case].items()}
+            log(f"  {case} {TWO_RANK_SIZE[case.split()[0]]} (1,2,2), two "
+                f"ranks ({backend_name}"
+                f"): {got[0]['rate']!r} {unit} pooled over "
+                f"{TWO_RANK_REPS} runs, each {got[0]['rates']!r} (path "
+                f"{got[0]['path']}, shards {got[0]['shards']} and "
+                f"{got[1]['shards']}); one process: "
+                f"{ref[case]['rate']!r} {unit}, each "
+                f"{ref[case]['rates']!r}; "
+                f"{'bitwise equal' if same else 'DIFFERENT'}; launches "
+                f"{got[0]['launches']} and {got[1]['launches']}; exchange "
+                f"{got[0]['exchange_s']!r} s "
+                f"{'a step' if unit == 'steps/s' else 'an iteration'} "
+                f"against {ref[case]['exchange_s']!r} in one process")
+            if not same or not all(g["finite"] for g in got):
+                raise AssertionError(f"{case} over two ranks "
+                                     f"({backend_name}) is not bitwise the "
+                                     f"one-process run")
+            if got[0]["path"] != ref[case]["path"] or any(
+                    g["launches"] != want for g in got):
+                raise AssertionError(
+                    f"{case} over two ranks took {got[0]['path']} with "
+                    f"launches {[g['launches'] for g in got]}, not "
+                    f"{ref[case]['path']} with {want} a rank")
+        out[backend_name] = {case: [rk[case] for rk in ranks]
+                             for case in todo}
+    return out
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers, spill bytes and static shared memory of every
     ring-kernel instantiation in the build log (``_build.ptxas_usage``):
@@ -4773,6 +5001,10 @@ def main() -> int:
     jbf16_path = run_jacobi_bf16(torch, cs, ch, co)
     log("phase 4: particle-in-cell, 256^3 on (2,2,2) shards of one card")
     pic = run_pic(torch)
+    log("phase 4: two ranks on the one card (gloo-staged), Jacobi3D 512^3 "
+        "halo and xla, Astaroth 256x512x512 halo, against one process "
+        "(card: " + card + ")")
+    two_ranks = run_two_ranks(torch)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -4998,6 +5230,7 @@ def main() -> int:
                        jbf16_times["runs_steps_per_s"],
                    "jacobi_bf16_kernel_times": jbf16_times["kernels"],
                    "pic": pic,
+                   "two_ranks": two_ranks,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": kernels}))

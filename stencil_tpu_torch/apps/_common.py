@@ -13,6 +13,16 @@ so ``cuda:0,cuda:0,cuda:0,cuda:0`` puts four shards on one card and
 device for the whole mesh, and with neither every visible CUDA device is
 used (no card: the app raises, it never falls back to the CPU).
 
+Several processes: started under ``python -m torch.distributed.run
+--nproc_per_node P``, an app calls ``multihost.initialize_distributed``
+(reading torchrun's environment; ``--backend`` names ``nccl`` or
+``gloo``), the device flags then name THIS rank's devices (default: its
+card, ``cuda:LOCAL_RANK``), the mesh spans every rank's, and rank 0
+alone prints the result line. The
+DCN flags (``--dcn-axis``, ``--fake-slices``; JAX's ``apps/_common.py:
+83-134``) block one grid axis across hosts, or across fake groups of
+the devices.
+
 Not in this slice: the observatory ledger record (``--ledger``, JAX's
 ``emit_bench_artifacts`` schema-1 append) waits for ROADMAP A12; a
 non-empty ``--ledger`` raises, and ``--json-out`` writes the JSON alone.
@@ -36,23 +46,39 @@ def mesh_shape(text: str):
 
 
 def add_device_flags(ap: argparse.ArgumentParser, mesh: bool = True) -> None:
-    """``--devices``, ``--device`` and (with ``mesh``) ``--mesh-shape``."""
+    """``--devices``, ``--device``, ``--backend`` and (with ``mesh``)
+    ``--mesh-shape``."""
     if mesh:
         ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
                         metavar="X,Y,Z", help="shards along x, y and z")
     ap.add_argument("--devices", default=None,
                     help="comma list of torch devices, one per mesh "
-                         "position (x fastest; repeats allowed)")
+                         "position (x fastest; repeats allowed); under "
+                         "torchrun, this rank's")
     ap.add_argument("--device", default=None,
-                    help="one torch device for the whole mesh")
+                    help="one torch device for the whole mesh (under "
+                         "torchrun, for this rank's shards)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun: nccl "
+                         "(a card per rank) or gloo (messages staged "
+                         "through host memory); default nccl with a card")
 
 
 def devices_from_args(args) -> list:
     """The device list the flags name: ``--devices`` verbatim, else
     ``--device`` (or every visible CUDA device) — repeated over the mesh
-    when ``--mesh-shape`` asks for more shards than that one device."""
+    when ``--mesh-shape`` asks for more shards than that one device. In
+    a process group of more than one rank the flags name this rank's
+    devices (default: its card) and the list is every rank's
+    (``multihost.global_devices``)."""
     from ..parallel.mesh import resolve_devices
+    from ..parallel.multihost import global_devices, process_count
 
+    if process_count() > 1:
+        local = (args.devices.split(",") if getattr(args, "devices", None)
+                 else [args.device] if getattr(args, "device", None)
+                 else None)
+        return global_devices(local)
     if getattr(args, "devices", None):
         return args.devices.split(",")
     devices = resolve_devices(None, getattr(args, "device", None))
@@ -65,16 +91,70 @@ def devices_from_args(args) -> list:
 
 def mesh_from_args(args, xfree: bool = False) -> Tuple[list, tuple]:
     """(devices, mesh shape): ``--mesh-shape`` or, without it, the
-    near-cubic shape over the devices (x-unsharded when ``xfree``, as
-    the halo paths want)."""
+    host-compatible shape when the DCN tier is asked for
+    (``dcn_mesh_shape``), else the near-cubic shape over the devices
+    (x-unsharded when ``xfree``, as the halo paths want)."""
     from ..parallel.mesh import default_mesh_shape, default_mesh_shape_xfree
 
     devices = devices_from_args(args)
     shape = getattr(args, "mesh_shape", None)
     if shape is None:
+        shape = dcn_mesh_shape(args, devices, xfree)
+    if shape is None:
         shape = tuple((default_mesh_shape_xfree if xfree
                        else default_mesh_shape)(len(devices)))
     return devices, tuple(shape)
+
+
+def add_dcn_flags(ap: argparse.ArgumentParser) -> None:
+    """The host tier (the reference's NodePartition level,
+    partition.hpp:120-256)."""
+    ap.add_argument("--dcn-axis", default=None,
+                    choices=("x", "y", "z", "auto"),
+                    help="block this grid axis across hosts so that only "
+                         "its halo sweep crosses between them ('auto' "
+                         "lets the planner choose); omit for one tier")
+    ap.add_argument("--fake-slices", type=int, default=0, metavar="S",
+                    help="treat the devices as S equal hosts (testing the "
+                         "tier on one machine)")
+
+
+def dcn_from_args(args, devices) -> dict:
+    """The ``dcn_axis`` / ``dcn_groups`` model kwargs the DCN flags ask
+    for over ``devices`` (``--fake-slices``: S equal consecutive groups
+    of them); {} without the tier."""
+    axis = getattr(args, "dcn_axis", None)
+    fake = getattr(args, "fake_slices", 0)
+    if axis is None and not fake:
+        return {}
+    groups = None
+    if fake:
+        if len(devices) % fake:
+            raise SystemExit(f"{len(devices)} devices not divisible into "
+                             f"{fake} fake slices")
+        per = len(devices) // fake
+        groups = [list(devices[i * per:(i + 1) * per]) for i in range(fake)]
+    return {"dcn_axis": axis or "auto", "dcn_groups": groups}
+
+
+def dcn_mesh_shape(args, devices, xfree: bool):
+    """The weak-scaling mesh shape under the DCN tier: its host-blocked
+    axis divisible by the host count (JAX ``apps/_common.py:111-134``).
+    None without the tier."""
+    from ..parallel.mesh import default_mesh_shape_dcn
+    from ..parallel.multihost import slice_groups
+
+    kw = dcn_from_args(args, devices)
+    if not kw:
+        return None
+    groups = kw["dcn_groups"] or slice_groups(devices)
+    axis = {"x": 0, "y": 1, "z": 2}.get(kw["dcn_axis"], 2)
+    if xfree and axis == 0 and len(groups) > 1:
+        raise SystemExit("--dcn-axis x shards the lane axis, which the "
+                         "halo kernel path cannot use; pick y/z or "
+                         "--kernel xla")
+    return tuple(default_mesh_shape_dcn(len(devices), len(groups),
+                                        axis=axis, xfree=xfree))
 
 
 def add_dtype_flags(ap: argparse.ArgumentParser) -> None:

@@ -34,6 +34,12 @@ depth-3S exchange per S RK substeps (``xla-temporal[s=S]``; S=2 is the
 substep pair on the halo paths). ``--f64`` and ``--bf16`` choose the
 field dtype (float32 by default; bfloat16 is stored half-width and
 computed in float32, on the CUDA kernels too).
+
+Under ``python -m torch.distributed.run --nproc_per_node P`` each rank
+runs its own shards (``--devices`` are its own; ``--backend gloo`` puts
+several ranks on one card) and rank 0 prints the line; ``--dcn-axis`` /
+``--fake-slices`` block one grid axis across hosts, as in
+``apps/jacobi3d.py``.
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ from __future__ import annotations
 import argparse
 import time
 
-from ._common import (add_dtype_flags, add_method_flags, dtype_from_args,
-                      mesh_shape, methods_from_args)
+from ..parallel.multihost import initialize_distributed
+from ._common import (add_dcn_flags, add_device_flags, add_dtype_flags,
+                      add_method_flags, dcn_from_args, dtype_from_args,
+                      mesh_from_args, methods_from_args)
 
 
 def main(argv=None) -> None:
@@ -70,40 +78,25 @@ def main(argv=None) -> None:
     ap.add_argument("--overlap", action="store_true",
                     help="interior/exterior comm-compute overlap per "
                          "substep")
-    ap.add_argument("--mesh-shape", type=mesh_shape, default=None,
-                    metavar="X,Y,Z", help="shards along x, y and z")
-    ap.add_argument("--devices", default=None,
-                    help="comma list of torch devices, one per mesh "
-                         "position (x fastest; repeats allowed)")
-    ap.add_argument("--device", default=None,
-                    help="one torch device for the whole mesh")
+    add_device_flags(ap)
     add_method_flags(ap)
+    add_dcn_flags(ap)
     args = ap.parse_args(argv)
+    rank = initialize_distributed(backend=args.backend)
 
     from ..models.astaroth import Astaroth, MhdParams
     from ..numerics import Statistics
-    from ..parallel.mesh import (default_mesh_shape, default_mesh_shape_xfree,
-                                 resolve_devices)
 
     prm = MhdParams.from_conf(args.conf) if args.conf else MhdParams()
     dtype = dtype_from_args(args)
-    shape = args.mesh_shape
-    if args.devices is not None:
-        devices = args.devices.split(",")
-    else:
-        devices = resolve_devices(None, args.device)
-        if shape is not None and len(devices) == 1:
-            # every shard of the mesh on the one device
-            devices = devices * (shape[0] * shape[1] * shape[2])
-    if shape is None:
-        xfree = args.kernel in ("halo", "auto")
-        shape = tuple((default_mesh_shape_xfree if xfree
-                       else default_mesh_shape)(len(devices)))
+    devices, shape = mesh_from_args(args,
+                                    xfree=args.kernel in ("halo", "auto"))
     gx, gy, gz = args.nx * shape[0], args.ny * shape[1], args.nz * shape[2]
     m = Astaroth(gx, gy, gz, params=prm, dtype=dtype, kernel=args.kernel,
                  mesh_shape=shape, devices=devices, overlap=args.overlap,
                  methods=methods_from_args(args),
-                 exchange_every=args.exchange_every or None)
+                 exchange_every=args.exchange_every or None,
+                 **dcn_from_args(args, devices))
     m.init()
     stats = Statistics()
     for i in range(2 + max(args.iters, 1)):
@@ -114,6 +107,8 @@ def main(argv=None) -> None:
             stats.insert(time.perf_counter() - t0)
     exch = m.measure_exchange_seconds()
     xstats = m.exchange_stats()
+    if rank != 0:
+        return
     print(",".join(str(f) for f in (
         m.dd.num_subdomains(), gx, gy, gz,
         f"{stats.trimean():.6e}", f"{exch:.6e}", xstats["path"],

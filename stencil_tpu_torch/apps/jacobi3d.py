@@ -31,6 +31,19 @@ which an explicit ``--exchange-every`` overrides. ``--bf16`` runs a
 bfloat16 field on the kernels' bfloat16 instances (up to 16 steps a
 group, bfloat16's sublane tile), ``--f64`` a float64 one on the plain
 paths, as JAX's ``--bf16`` / ``--f64`` do.
+
+One rank per card (``--backend nccl``, the default with a card), or
+several ranks on one card (``--backend gloo``, messages staged through
+host memory):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 256 --z 256 \
+        --kernel halo --mesh-shape 1,2,2 --devices cuda:0,cuda:0 \
+        --backend gloo
+
+Each rank's ``--devices`` are its own; rank 0 prints the line.
+``--dcn-axis`` / ``--fake-slices`` block one grid axis across hosts (or
+fake groups of the devices), as JAX's flags do.
 """
 
 from __future__ import annotations
@@ -38,8 +51,10 @@ from __future__ import annotations
 import argparse
 import os
 
-from ._common import (KERNEL_CHOICES, add_device_flags, add_dtype_flags,
-                      add_method_flags, dtype_from_args, mesh_from_args,
+from ..parallel.multihost import initialize_distributed
+from ._common import (KERNEL_CHOICES, add_dcn_flags, add_device_flags,
+                      add_dtype_flags, add_method_flags, dcn_from_args,
+                      dtype_from_args, mesh_from_args,
                       methods_from_args, sampled_steps_per_s)
 
 
@@ -67,7 +82,9 @@ def main(argv=None) -> None:
     add_device_flags(ap)
     add_method_flags(ap)
     add_dtype_flags(ap)
+    add_dcn_flags(ap)
     args = ap.parse_args(argv)
+    rank = initialize_distributed(backend=args.backend)
     if args.wrap_steps:
         os.environ["STENCIL_WRAP_STEPS"] = str(args.wrap_steps)
 
@@ -80,7 +97,8 @@ def main(argv=None) -> None:
     j = Jacobi3D(gx, gy, gz, dtype=dtype_from_args(args),
                  kernel=args.kernel, mesh_shape=shape,
                  devices=devices, methods=methods_from_args(args),
-                 exchange_every=args.exchange_every or None)
+                 exchange_every=args.exchange_every or None,
+                 **dcn_from_args(args, devices))
     j.init()
     stats, _ = sampled_steps_per_s(lambda: j.run(args.batch), j.block,
                                    max(args.iters // args.batch, 1),
@@ -88,6 +106,8 @@ def main(argv=None) -> None:
     b = j.dd.exchange_bytes_per_axis()
     xstats = j.exchange_stats()
     ex_s = j.measure_exchange_seconds()
+    if rank != 0:
+        return
     print(",".join(str(f) for f in (
         "jacobi3d", pick_method(j.dd.methods), j.dd.num_subdomains(),
         gx, gy, gz, b["x"], b["y"], b["z"],

@@ -11,6 +11,12 @@ every device. Lines:
 
     pingpong,bytes_per_dev,trimean_s,GBps_per_dev
 
+and last the alpha-beta fit of the sweep, ``t = alpha + bytes / beta``
+by least squares on the relative error (every size weighs alike), which
+``analysis/costmodel.py`` takes as its intra-host link:
+
+    pingpong fit: alpha_s=<s> beta_Bps=<bytes/s> over <n> sizes
+
 Run it as
 
     python -m stencil_tpu_torch.apps.pingpong --devices cuda:0,cuda:1
@@ -48,6 +54,7 @@ def main(argv=None) -> None:
             dst[(i + 1) % n].copy_(src[i])
 
     print(csv_line("pingpong", "bytes_per_dev", "trimean_s", "GBps_per_dev"))
+    sizes, times = [], []
     for p in range(args.min, args.max + 1):
         nbytes = 1 << p
         elems = max(nbytes // 4, 1)
@@ -63,8 +70,25 @@ def main(argv=None) -> None:
             stats.insert(time.perf_counter() - t0)
             a, b = b, a
         tm = stats.trimean()
+        sizes.append(nbytes)
+        times.append(tm)
         print(csv_line("pingpong", nbytes, f"{tm:.6e}",
                        f"{nbytes / tm / 1e9:.3f}"))
+    alpha, beta = fit_alpha_beta(sizes, times)
+    print(f"pingpong fit: alpha_s={alpha!r} beta_Bps={beta!r} over "
+          f"{len(sizes)} sizes")
+
+
+def fit_alpha_beta(sizes, times):
+    """(alpha seconds, beta bytes/s) of ``t = alpha + n / beta`` fitted
+    to the (bytes, seconds) samples by least squares on the relative
+    error."""
+    import numpy as np
+
+    t = np.asarray(times, dtype=np.float64)
+    a = np.stack([1.0 / t, np.asarray(sizes, dtype=np.float64) / t], axis=1)
+    (alpha, inv_beta), *_ = np.linalg.lstsq(a, np.ones_like(t), rcond=None)
+    return float(alpha), float(1.0 / inv_beta)
 
 
 if __name__ == "__main__":

@@ -96,9 +96,14 @@ def _scatter(values: torch.Tensor, domain, radius: Optional[Radius]
              ) -> List[torch.Tensor]:
     """A global (z,y,x) interior cut into ``domain``'s shards on their
     devices, each at capacity: padded by ``radius`` (zero halos), or
-    unpadded with ``radius=None``; a short shard's dead rows are zero."""
+    unpadded with ``radius=None``; a short shard's dead rows are zero.
+    None at the positions another process owns."""
     shards = []
+    own = set(domain.mesh.local_positions)
     for i, dev in enumerate(domain.mesh.devices):
+        if i not in own:
+            shards.append(None)
+            continue
         sz, org = domain.shard_size(i), domain.shard_origin(i)
         cap = (raw_size(domain.local_size, radius) if radius is not None
                else domain.local_size)
@@ -114,12 +119,17 @@ def _scatter(values: torch.Tensor, domain, radius: Optional[Radius]
 def _blocks(values: torch.Tensor, domain) -> List[torch.Tensor]:
     """A global array of equal per-shard blocks (JAX's layout of a
     sharded array, the block of mesh position (x, y, z) at block index
-    (z, y, x)) cut into ``domain``'s shards on their devices."""
+    (z, y, x)) cut into ``domain``'s shards on their devices; None at
+    the positions another process owns."""
     c = domain.mesh_counts
     bz, by, bx = (values.shape[0] // c.z, values.shape[1] // c.y,
                   values.shape[2] // c.x)
     out = []
+    own = set(domain.mesh.local_positions)
     for i, dev in enumerate(domain.mesh.devices):
+        if i not in own:
+            out.append(None)
+            continue
         m = domain.shard_index(i)
         out.append(values[m.z * bz:(m.z + 1) * bz, m.y * by:(m.y + 1) * by,
                           m.x * bx:(m.x + 1) * bx].to(dev).clone())
@@ -163,7 +173,7 @@ def astaroth_state_from_jax(fields: Dict[str, np.ndarray],
         if arr.shape not in (shape, padded):
             raise ValueError(f"w[{q!r}] has shape {arr.shape}, expected the "
                              f"interior's {shape} or the padded {padded}")
-        want = out[q][0].dtype
+        want = next(t for t in out[q] if t is not None).dtype
         try:
             t = tensor_from_jax(arr, want)
         except TypeError:

@@ -75,6 +75,15 @@ the ``xla`` paths. bfloat16 fields are stored in bfloat16 and computed
 in float32 on every path (``ops/cuda_mhd.compute_dtype``); ``field`` and
 ``accumulator`` hand them out as float32 arrays. On the CPU the kernel
 wrappers run their plain twins.
+
+A mesh may span processes (``distributed.py``): every rank builds the
+same model and runs its own shards; ``xla``, ``xla-temporal`` and
+``halo`` (B11, and B12 with the pair) move the slabs that cross between
+ranks as messages, ``field`` and ``accumulator`` are collectives, and
+``halo-overlap``, ``xla-overlap`` and ``PallasDMA`` raise (ROADMAP A4c).
+``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts, with
+JAX's x-unsharded mesh for the halo paths (``models/astaroth.py:
+249-266``).
 """
 
 from __future__ import annotations
@@ -94,7 +103,8 @@ from ..local_domain import interior_slices, zyx_shape
 from ..local_domain import raw_size
 from ..ops.fd6 import RADIUS, FieldData, const
 from ..ops.stencil_kernels import global_coords
-from ..parallel.exchange import exchange_interior_slabs, interior_slab_bytes
+from ..parallel.exchange import (exchange_interior_slabs,
+                                 interior_slab_bytes, refuse_across_ranks)
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
 from ..parallel.temporal import temporal_shard_steps, validate_temporal
@@ -268,14 +278,6 @@ def _host_values(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
                                       .dtype))
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor on the host as numpy; bfloat16 (which numpy lacks) as the
-    float32 array of the same values."""
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
-
-
 def _views(t: torch.Tensor) -> Fields:
     """The 8 fields of a (8, Z, Y, X) state tensor, as contiguous
     views in FIELDS order."""
@@ -337,8 +339,10 @@ class Astaroth:
                  exchange_every: Optional[int] = None,
                  boundary: Optional[Boundary] = None,
                  device: DeviceLike = None,
-                 devices: Optional[Sequence] = None) -> None:
+                 devices: Optional[Sequence] = None,
+                 dcn_axis=None, dcn_groups=None) -> None:
         from ..ops.cuda_mhd import KERNEL_DTYPES, mhd_tile
+        from .jacobi import _dcn_xfree_shape
 
         if kernel not in ("auto", "wrap", "halo", "xla"):
             raise ValueError(
@@ -362,9 +366,24 @@ class Astaroth:
             self.dd.set_exchange_every(self._exchange_every)
         if boundary is not None:
             self.dd.set_boundary(boundary)
+        dcn = dcn_axis is not None or dcn_groups is not None
+        if dcn:
+            self.dd.set_dcn_axis(dcn_axis, dcn_groups)
         devs = self.dd._devices
+        on_gpu = all(d.type == "cuda" for d in devs)
         if mesh_shape is not None:
             self.dd.set_mesh_shape(mesh_shape)
+        elif dcn:
+            # the planner does not know that the halo paths need x
+            # unsharded (the same rule as Jacobi3D's)
+            halo_want = kernel == "halo" or (
+                kernel == "auto" and on_gpu and self._dtype in KERNEL_DTYPES)
+            shape = _dcn_xfree_shape(Dim3(nx, ny, nz), self.dd._global,
+                                     dcn_axis, dcn_groups,
+                                     "halo" if halo_want else "xla",
+                                     align=mhd_tile(self._dtype))
+            if shape is not None:
+                self.dd.set_mesh_shape(shape)
         elif len(devs) > 1 and (
                 kernel == "halo"
                 or (kernel == "auto" and self._dtype in KERNEL_DTYPES
@@ -434,12 +453,15 @@ class Astaroth:
         self._inner = None
         for q in FIELDS:
             for dst, src in zip(self.dd.curr[q], padded[q]):
-                dst.copy_(src)
+                if dst is not None:
+                    dst.copy_(src)
         self._w = None
         if wt is not None:
             self._ensure_w()
             cap = self._capacity()
             for i, wi in enumerate(self._w):
+                if wi is None:
+                    continue
                 for q in FIELDS:
                     src = wt[q][i]
                     if src.shape == wi[q].shape:
@@ -489,6 +511,12 @@ class Astaroth:
         if self._w_padded:
             validate_temporal(dd.radius, dd.local_size, s, dd.rem)
         self._method = pick_method(dd.methods)
+        if dd.mesh.spans_ranks and (
+                "overlap" in kernel or (self._method == Method.PallasDMA
+                                        and kernel.startswith("xla"))):
+            refuse_across_ranks(f"Astaroth's {kernel!r} path" + (
+                " with Method.PallasDMA (B4)"
+                if self._method == Method.PallasDMA else ""))
         self.kernel_path = kernel
 
     # -- stepping -------------------------------------------------------
@@ -517,9 +545,11 @@ class Astaroth:
         if self._w is None:
             size = (raw_size(self.dd.local_size, self.dd.alloc_radius)
                     if self._w_padded else self.dd.local_size)
+            own = set(self.dd.mesh.local_positions)
             self._w = [{q: torch.zeros(zyx_shape(size), dtype=self._dtype,
                                        device=d)
-                        for q in FIELDS} for d in self.dd.mesh.devices]
+                        for q in FIELDS} if i in own else None
+                       for i, d in enumerate(self.dd.mesh.devices)]
 
     def _capacity(self) -> Tuple[slice, slice, slice]:
         return interior_slices(self.dd.local_size, self.dd.alloc_radius)
@@ -542,6 +572,8 @@ class Astaroth:
         cap = self._capacity()
         dd.exchange()
         for i, w in enumerate(self._w):
+            if w is None:
+                continue
             data = {q: FieldData(dd.curr[q][i].to(comp), inv_ds, pad_lo,
                                  dd.local_size)
                     for q in FIELDS}
@@ -622,7 +654,8 @@ class Astaroth:
         nonper = dd.boundary == Boundary.NONE
         origins = [dd.shard_origin(i) for i in range(dd.num_subdomains())]
         state = {q: dd.curr[q] for q in FIELDS}
-        state.update({f"w:{q}": [w[q] for w in self._w] for q in FIELDS})
+        state.update({f"w:{q}": [None if w is None else w[q]
+                                 for w in self._w] for q in FIELDS})
         w_keys = [f"w:{q}" for q in FIELDS]
 
         def make_update(start: int):
@@ -673,7 +706,7 @@ class Astaroth:
                                  make_update(start), depth, alloc_steps=s,
                                  rem=dd.rem, exchange_keys=keys,
                                  overlap=self._overlap and depth > 1,
-                                 nonperiodic=nonper)
+                                 nonperiodic=nonper, ranks=dd.mesh.peers)
 
         period = math.lcm(3, s)
         per_period = period // 3
@@ -701,15 +734,21 @@ class Astaroth:
         from ..ops import cuda_mhd as cm
         from ..ops import cuda_mhd_overlap as mo
 
+        own = self.dd.mesh.local_positions
         if self._inner is None:
             cap = self._capacity()
             self._inner = [torch.stack([self.dd.curr[q][i][cap]
                                         for q in FIELDS])
+                           if i in own else None
                            for i in range(self.dd.num_subdomains())]
         a = self._inner
-        b = [torch.empty_like(t) for t in a]
-        w1 = None if self._pair else [torch.empty_like(t) for t in a]
-        w2 = [torch.empty_like(t) for t in a]
+
+        def like(ts):
+            return [None if t is None else torch.empty_like(t) for t in ts]
+
+        b = like(a)
+        w1 = None if self._pair else like(a)
+        w2 = like(a)
         prm, dt = self.prm, self.prm.dt
         counts = self.dd.mesh_counts
         path = self.kernel_path
@@ -724,10 +763,12 @@ class Astaroth:
         def slabs(rr: int) -> List[Dict[str, Dict[str, torch.Tensor]]]:
             if not halo:
                 return [None] * len(a)
-            return [{q: {k: v[j] for k, v in sl.items()}
+            return [None if sl is None else
+                    {q: {k: v[j] for k, v in sl.items()}
                      for j, q in enumerate(FIELDS)}
                     for sl in exchange_interior_slabs(
-                        a, counts, rz=rr, ry=rr, y_z_extended=True)]
+                        a, counts, rz=rr, ry=rr, y_z_extended=True,
+                        ranks=self.dd.mesh.peers)]
 
         def substep(s: int, w_in, w_out) -> None:
             if path == "halo-overlap":
@@ -736,7 +777,9 @@ class Astaroth:
                                        out_f=views(b), out_w=views(w_out),
                                        recv=recv)
                 return
-            for i, sl in enumerate(slabs(cm.R)):
+            sls = slabs(cm.R)
+            for i in own:
+                sl = sls[i]
                 wi = None if w_in is None else _views(w_in[i])
                 wo = None if w_out is None else _views(w_out[i])
                 if halo:
@@ -756,7 +799,9 @@ class Astaroth:
                                        pair=True, out_f=views(b),
                                        out_w=views(w2), recv=recv)
                 return
-            for i, sl in enumerate(slabs(2 * cm.R)):
+            sls = slabs(2 * cm.R)
+            for i in own:
+                sl = sls[i]
                 out = dict(out_f=_views(b[i]), out_w=_views(w2[i]))
                 if halo:
                     cm.mhd_substep01_halo_cuda(_views(a[i]), sl, prm, dt,
@@ -778,7 +823,7 @@ class Astaroth:
                 substep(2, w2, None)
                 a, b = b, a
         self._inner = a
-        self._w = [_views(t) for t in w2]
+        self._w = [None if t is None else _views(t) for t in w2]
 
     def sync_domain(self) -> None:
         """Write the wrap and halo paths' resident interiors back into
@@ -790,27 +835,25 @@ class Astaroth:
             for q, dst in self.dd.curr.items():
                 k = FIELDS.index(q)
                 for i, t in enumerate(self._inner):
-                    dst[i][cap].copy_(t[k])
+                    if t is not None:
+                        dst[i][cap].copy_(t[k])
             self._inner = None
 
     def block(self) -> None:
-        device_sync(self._inner if self._inner is not None
-                    else self.dd.curr["lnrho"])
+        device_sync([t for t in (self._inner if self._inner is not None
+                                 else self.dd.curr["lnrho"])
+                     if t is not None])
 
     def _gather(self, shards: Sequence[torch.Tensor]) -> np.ndarray:
         """The global (z,y,x) array on the host from capacity-sized
         unpadded shards (a short shard's dead rows dropped); bfloat16 as
-        float32 (``_to_host``)."""
-        dd = self.dd
-        out = None
+        float32. A collective on a mesh that spans
+        processes (``DistributedDomain.gather_blocks``)."""
+        blocks = []
         for i, t in enumerate(shards):
-            sz, org = dd.shard_size(i), dd.shard_origin(i)
-            blk = _to_host(t[:sz.z, :sz.y, :sz.x])
-            if out is None:
-                out = np.empty(zyx_shape(dd.size), dtype=blk.dtype)
-            out[org.z:org.z + sz.z, org.y:org.y + sz.y,
-                org.x:org.x + sz.x] = blk
-        return out
+            sz = self.dd.shard_size(i)
+            blocks.append(None if t is None else t[:sz.z, :sz.y, :sz.x])
+        return self.dd.gather_blocks(blocks, self._dtype)
 
     def field(self, name: str) -> np.ndarray:
         """The global (z,y,x) interior of field ``name`` on the host (a
@@ -818,9 +861,11 @@ class Astaroth:
         values exactly (numpy has no bfloat16)."""
         if self._inner is None:
             cap = self._capacity()
-            return self._gather([t[cap] for t in self.dd.curr[name]])
+            return self._gather([None if t is None else t[cap]
+                                 for t in self.dd.curr[name]])
         k = FIELDS.index(name)
-        return self._gather([t[k] for t in self._inner])
+        return self._gather([None if t is None else t[k]
+                             for t in self._inner])
 
     def accumulator(self, name: str) -> Optional[np.ndarray]:
         """The global (z,y,x) RK3 accumulator ``w`` of field ``name`` on
@@ -830,7 +875,8 @@ class Astaroth:
         if self._w is None:
             return None
         cap = self._capacity() if self._w_padded else (slice(None),) * 3
-        return self._gather([w[name][cap] for w in self._w])
+        return self._gather([None if w is None else w[name][cap]
+                             for w in self._w])
 
     # -- exchange accounting -------------------------------------------
     def exchange_stats(self) -> dict:
@@ -887,20 +933,23 @@ class Astaroth:
         ending in a device synchronize; the state is not touched."""
         dd = self.dd
         c = dd.local_size
+        own = set(dd.mesh.local_positions)
         shards = [torch.zeros((len(FIELDS), c.z, c.y, c.x), dtype=self._dtype,
-                              device=d) for d in dd.mesh.devices]
+                              device=d) if i in own else None
+                  for i, d in enumerate(dd.mesh.devices)]
 
         def once() -> List:
             return exchange_interior_slabs(shards, dd.mesh_counts,
                                            rz=radius_rows, ry=radius_rows,
-                                           y_z_extended=True)
+                                           y_z_extended=True,
+                                           ranks=dd.mesh.peers)
 
         once()
-        device_sync(shards)
+        device_sync([t for t in shards if t is not None])
         t0 = time.perf_counter()
         for _ in range(reps):
             out = once()
-        device_sync([s["yhi"] for s in out])
+        device_sync([s["yhi"] for s in out if s is not None])
         return (time.perf_counter() - t0) / reps
 
     def measure_exchange_seconds(self, reps: int = 5) -> float:

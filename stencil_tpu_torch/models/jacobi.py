@@ -69,6 +69,15 @@ it.
 (default 2); an explicit ``s`` sets N of K2 and B6 there (``s = 1``
 forces single steps) and deepens the allocation as JAX does, and makes
 the padded paths temporal.
+
+A mesh may span processes (``devices`` of ``GlobalDevice``s, the
+default in a process group of more than one rank; see
+``distributed.py``): every rank builds the same model and runs its own
+shards; the ``xla``, ``pallas``, ``halo`` and ``xla-temporal`` paths
+move the slabs that cross between ranks as messages, ``temperature()``
+is a collective, and the overlap paths and ``PallasDMA`` raise (ROADMAP
+A4c). ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts
+(``DistributedDomain.set_dcn_axis``; JAX ``models/jacobi.py:309-326``).
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import global_coords, jacobi7, write_interior
 from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
                                  interior_slab_bytes, normalize_wire_format,
-                                 shard_interior_len, shard_origin)
+                                 refuse_across_ranks, shard_interior_len,
+                                 shard_origin)
 from ..parallel.mesh import mesh_index
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
@@ -161,7 +171,8 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
                       kernel: str = "xla", rem: Dim3 = Dim3(0, 0, 0),
                       nonperiodic: bool = False,
                       method: Method = Method.Default,
-                      wire_format=None, wire_layout=None) -> None:
+                      wire_format=None, wire_layout=None,
+                      ranks: Optional[Sequence[int]] = None) -> None:
     """One Jacobi step on the padded shards of a mesh (x fastest):
     exchange by ``method``, then per shard the 7-point update of its
     capacity interior plus the Dirichlet sphere sources at its own
@@ -170,12 +181,16 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
     PyTorch) or "pallas" (K3, ``jacobi7_padded_cuda``).
     ``wire_format`` narrows the halo wire only, ``wire_layout`` picks
     the message geometry (``parallel/exchange.py``); the update runs at
-    the storage dtype."""
+    the storage dtype. ``ranks``: each position's owner on a mesh that
+    spans processes (None at the positions of ``shards`` other ranks
+    own)."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
     dispatch_exchange({"temp": shards}, radius, counts, method, rem=rem,
                       nonperiodic=nonperiodic, wire_format=wire_format,
-                      wire_layout=wire_layout)
+                      wire_layout=wire_layout, ranks=ranks)
     for i, p in enumerate(shards):
+        if p is None:
+            continue
         new = _update(p, radius, local, kernel)
         origin = shard_origin(local, rem, mesh_index(i, counts))
         new = _apply_sources(new, origin, hot_c, cold_c, sph_r)
@@ -203,6 +218,52 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
         origin = shard_origin(local, Dim3(0, 0, 0), mesh_index(i, counts))
         out = _apply_sources(new[i]["temp"], origin, hot_c, cold_c, sph_r)
         write_interior(p, out, radius)
+
+
+def _dcn_request_kwargs(dd) -> dict:
+    """The DCN-tier request ``dd`` was configured with, as model
+    constructor kwargs (JAX ``models/jacobi.py:152-161``), so that a
+    model rebuilt from a domain keeps its host tier (``None`` axis:
+    derived, spelled ``"auto"``)."""
+    if not dd._dcn_requested:
+        return {}
+    req = dd._dcn_axis_req
+    return {"dcn_axis": "auto" if req is None else req,
+            "dcn_groups": dd._dcn_groups}
+
+
+def _dcn_xfree_shape(size: Dim3, devices, dcn_axis, dcn_groups, kernel,
+                     align: int = 1, on_gpu: bool = False):
+    """A host-compatible x-unsharded mesh shape when the DCN tier is
+    asked for together with a halo path (``kernel="halo"``, or ``auto``
+    on a card, ``on_gpu``), since NodePartition's split may shard x,
+    which the slab kernels cannot take (JAX ``models/jacobi.py:
+    229-263``). None — realize()'s planner then decides — for other
+    kernels, an x-axis tier, a device count the host groups do not
+    divide, or a shape the grid cannot host (every axis dividing evenly,
+    local z and y multiples of ``align``)."""
+    from ..parallel.mesh import default_mesh_shape_dcn
+    from ..parallel.multihost import slice_groups
+
+    if not (kernel == "halo" or (kernel == "auto" and on_gpu)):
+        return None
+    axis = dcn_axis
+    if isinstance(axis, str):
+        axis = {"x": 0, "y": 1, "z": 2, "auto": None}[axis]
+    if axis == 0:
+        return None
+    groups = dcn_groups or slice_groups(devices)
+    if len(groups) <= 1 or len(devices) % len(groups):
+        return None
+    shape = default_mesh_shape_dcn(len(devices), len(groups),
+                                   axis=2 if axis is None else axis,
+                                   xfree=True)
+    for a in range(3):
+        if size[a] % shape[a]:
+            return None
+    if (size.z // shape.z) % align or (size.y // shape.y) % align:
+        return None
+    return shape
 
 
 def select_kernel_path(kernel: str, overlap: bool, counts: Dim3, rem: Dim3,
@@ -310,7 +371,8 @@ class Jacobi3D:
                  methods: Method = Method.Default,
                  overlap: bool = False,
                  exchange_every: Optional[DepthsLike] = None,
-                 wire_format=None, wire_layout=None) -> None:
+                 wire_format=None, wire_layout=None,
+                 dcn_axis=None, dcn_groups=None) -> None:
         if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
@@ -339,10 +401,21 @@ class Jacobi3D:
             self.dd.set_wire_format(wire_format)
         if wire_layout is not None:
             self.dd.set_wire_layout(wire_layout)
+        dcn = dcn_axis is not None or dcn_groups is not None
+        if dcn:
+            self.dd.set_dcn_axis(dcn_axis, dcn_groups)
         devs = self.dd._devices
         on_gpu = all(d.type == "cuda" for d in devs)
         if mesh_shape is not None:
             self.dd.set_mesh_shape(mesh_shape)
+        elif dcn:
+            # the planner does not know that the halo paths need x
+            # unsharded: derive a host-compatible x-free shape here
+            shape = _dcn_xfree_shape(Dim3(x, y, z), self.dd._global,
+                                     dcn_axis, dcn_groups, kernel,
+                                     on_gpu=on_gpu)
+            if shape is not None:
+                self.dd.set_mesh_shape(shape)
         elif len(devs) > 1 and not overlap and (
                 kernel == "halo" or (kernel == "auto" and on_gpu)):
             # prefer an x-unsharded decomposition so the halo path is
@@ -361,6 +434,8 @@ class Jacobi3D:
     # -- initial conditions (reference: bin/jacobi3d.cu:18-27) ---------
     def init(self) -> None:
         for i, p in enumerate(self.dd.curr["temp"]):
+            if p is None:
+                continue
             p.zero_()
             self.dd.interior("temp", i).fill_((HOT_TEMP + COLD_TEMP) / 2)
 
@@ -399,6 +474,13 @@ class Jacobi3D:
                             f"float32 or bfloat16, got {self._dtype}; use "
                             f"kernel='xla'")
         self._method = pick_method(dd.methods)
+        if dd.mesh.spans_ranks and (
+                "overlap" in path or (self._method == Method.PallasDMA
+                                      and kernel in ("xla", "pallas"))):
+            refuse_across_ranks(
+                f"Jacobi3D's {path!r} path" + (
+                    " with Method.PallasDMA (B4)"
+                    if self._method == Method.PallasDMA else ""))
         tile = sublane_tile(self._dtype)
         if path.startswith("xla-temporal"):
             validate_temporal(radius, dd.local_size, dd.exchange_depths,
@@ -486,7 +568,8 @@ class Jacobi3D:
                                   kernel=self._base_kernel, rem=dd.rem,
                                   nonperiodic=nonper, method=self._method,
                                   wire_format=dd.wire_format,
-                                  wire_layout=dd.wire_layout)
+                                  wire_layout=dd.wire_layout,
+                                  ranks=dd.mesh.peers)
 
     def _run_temporal(self, n: int) -> None:
         """JAX's ``_build_temporal_step`` (models/jacobi.py:590-662):
@@ -519,7 +602,8 @@ class Jacobi3D:
                                  self._method, update_fn, depth,
                                  alloc_steps=depths, rem=rem, overlap=ovl,
                                  nonperiodic=nonper,
-                                 wire_layout=dd.wire_layout)
+                                 wire_layout=dd.wire_layout,
+                                 ranks=dd.mesh.peers)
 
         s = dd.exchange_every
         for _ in range(n // s):
@@ -567,34 +651,39 @@ class Jacobi3D:
         hot, cold, sph_r = sphere_geometry(dd.size)
         gsize = (dd.size.z, dd.size.y, dd.size.x)
         cap = self._capacity_slices()
-        a = [p[cap].contiguous() for p in dd.curr["temp"]]
-        b = [torch.empty_like(t) for t in a]
-        orgs, lens = [], []
-        for i in range(len(a)):
+        own = dd.mesh.local_positions
+        ranks = dd.mesh.peers
+        a = [None if p is None else p[cap].contiguous()
+             for p in dd.curr["temp"]]
+        b = [None if t is None else torch.empty_like(t) for t in a]
+        orgs, lens = {}, {}
+        for i in own:
             idx = dd.shard_index(i)
             ox, oy, oz = shard_origin(local, rem, idx)
-            orgs.append((oz, oy, ox))
-            lens.append((shard_interior_len(2, local.z, rem, idx.z),
-                         shard_interior_len(1, local.y, rem, idx.y)))
+            orgs[i] = (oz, oy, ox)
+            lens[i] = (shard_interior_len(2, local.z, rem, idx.z),
+                       shard_interior_len(1, local.y, rem, idx.y))
         N = self._halo_n
         tail = n
         if self._halo_pair_ok:
             for _ in range(n // N):
                 slabs = exchange_interior_slabs(a, counts, rz=N, ry=N,
-                                                y_z_extended=True)
-                for i in range(len(a)):
+                                                y_z_extended=True,
+                                                ranks=ranks)
+                for i in own:
                     jacobi7_halon_cuda(a[i], slabs[i], orgs[i], gsize, hot,
                                        cold, sph_r, steps=N, out=b[i])
                 a, b = b, a
             tail = n % N
         for _ in range(tail):
-            slabs = exchange_interior_slabs(a, counts, rz=1, ry=1, rem=rem)
-            for i in range(len(a)):
+            slabs = exchange_interior_slabs(a, counts, rz=1, ry=1, rem=rem,
+                                            ranks=ranks)
+            for i in own:
                 jacobi7_halo_cuda(a[i], slabs[i], orgs[i], hot, cold, sph_r,
                                   interior_len_zy=lens[i], out=b[i])
             a, b = b, a
-        for p, t in zip(dd.curr["temp"], a):
-            p[cap].copy_(t)
+        for i in own:
+            dd.curr["temp"][i][cap].copy_(a[i])
 
     def _run_overlap(self, n: int) -> None:
         """As ``_run_halo``: each shard's capacity interior (the grid is
@@ -625,10 +714,11 @@ class Jacobi3D:
             p[cap].copy_(t)
 
     def block(self) -> None:
-        device_sync(self.dd.curr["temp"])
+        device_sync([t for t in self.dd.curr["temp"] if t is not None])
 
     def temperature(self) -> np.ndarray:
-        """Global interior (z,y,x) on the host."""
+        """Global interior (z,y,x) on the host (a collective on a mesh
+        that spans processes: every rank gets the whole array)."""
         return self.dd.interior_to_host("temp")
 
     def exchange_stats(self) -> dict:
@@ -701,22 +791,25 @@ class Jacobi3D:
         cfg = self._slab_exchange_cfg
         dd = self.dd
         c = dd.local_size
+        own = set(dd.mesh.local_positions)
         shards = [torch.zeros((c.z, c.y, c.x), dtype=self._dtype, device=d)
-                  for d in dd.mesh.devices]
+                  if i in own else None
+                  for i, d in enumerate(dd.mesh.devices)]
         rem = Dim3(0, 0, 0) if cfg["y_z_extended"] else dd.rem
 
         def once() -> List:
             return exchange_interior_slabs(
                 shards, dd.mesh_counts, rz=cfg["rz"], ry=cfg["ry"],
                 radius_rows=cfg["radius_rows"],
-                y_z_extended=cfg["y_z_extended"], rem=rem)
+                y_z_extended=cfg["y_z_extended"], rem=rem,
+                ranks=dd.mesh.peers)
 
         once()
-        device_sync(shards)
+        device_sync([t for t in shards if t is not None])
         t0 = time.perf_counter()
         for _ in range(reps):
             out = once()
-        device_sync([s["yhi"] for s in out])
+        device_sync([s["yhi"] for s in out if s is not None])
         return (time.perf_counter() - t0) / reps
 
 

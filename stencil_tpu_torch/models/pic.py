@@ -47,8 +47,8 @@ from ..distributed import DeviceLike, DistributedDomain, torch_dtype
 from ..geometry import Dim3
 from ..ops.stencil_kernels import central_diff
 from ..parallel.exchange import (WireProbe, accumulate_shard,
-                                 dispatch_exchange, shard_interior_len,
-                                 shard_origin)
+                                 dispatch_exchange, refuse_across_ranks,
+                                 shard_interior_len, shard_origin)
 from ..parallel.methods import Method, pick_method
 from ..parallel.migrate import (migrate_shard, migration_record_rows,
                                 migration_wire_bytes_per_shard)
@@ -107,6 +107,9 @@ class Pic:
         self._dtype = torch_dtype(dtype)
         self.dd.add_data("rho", self._dtype)
         self.dd.realize()
+        if self.dd.mesh.spans_ranks:
+            refuse_across_ranks("the particle-in-cell model (migration and "
+                                "the charge deposit)")
         self.n_particles = int(n_particles)
         self.deposition = deposition
         self.dt = float(dt)

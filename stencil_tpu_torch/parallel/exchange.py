@@ -44,6 +44,20 @@ fastest, the order of ``Mesh.devices``) in place of the one traced
 shard, so that tests feed both packages the same values. Unlike the JAX
 versions, the engines update the shards IN PLACE.
 
+A mesh may span processes (``parallel/mesh.py``): the list then holds
+None at the positions other ranks own, and ``ranks=`` (``Mesh.peers``)
+names each position's owner. Each move of a direction, from shard ``j``
+into shard ``i``, is then a local copy where this rank owns both, a send
+of ``j``'s box to ``i``'s owner where it owns ``j``, a receive into
+``i``'s box where it owns ``i``, and nothing where it owns neither; all
+of one direction's messages go in one batch (``multihost.RankMessages``),
+which lands before the next direction starts, so that edges and corners
+ride the later sweeps as they do in one process. A narrowing wire format
+narrows before the send and widens after the receive. The slab, packed
+and interior-slab engines run across ranks; the remote-write kernel
+(B4), the all-gather engine, ``start_dispatch_exchange`` (the overlap
+paths) and ``accumulate_shard`` raise there (ROADMAP A4c).
+
 Within one direction every source is interior along the sweep axis and
 every destination halo, so the copies of one direction may run in any
 order, on shards that share a device or not, and give what JAX's
@@ -62,7 +76,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..geometry import Dim3, Radius
-from .mesh import mesh_index, mesh_linear, mesh_neighbor
+from .mesh import mesh_index, mesh_linear, mesh_neighbor, this_rank
 from .packing import (DirectionPlan, Span, normalize_wire_layout,
                       plan_direction)
 
@@ -269,6 +283,28 @@ def _as_list(shards: Sequence[torch.Tensor],
     return out
 
 
+def _first(arrs: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """A shard this process holds (every shard has the same shape and
+    dtype)."""
+    for t in arrs:
+        if t is not None:
+            return t
+    raise ValueError("this process holds no shard of the mesh")
+
+
+#: the ROADMAP item that takes the remote-write, all-gather, overlap and
+#: adjoint paths across processes
+A4C = "ROADMAP A4c"
+
+
+def refuse_across_ranks(what: str) -> None:
+    """Raise for a path that runs in one process only."""
+    raise NotImplementedError(
+        f"{what} does not run on a mesh that spans processes yet "
+        f"({A4C}); use the PpermuteSlab or PpermutePacked methods and the "
+        f"non-overlapped paths")
+
+
 def _check_pads(a: int, radius: Radius, alloc_r: Radius) -> None:
     if (alloc_r.face(a, -1) < radius.face(a, -1)
             or alloc_r.face(a, 1) < radius.face(a, 1)):
@@ -400,7 +436,8 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
                    alloc_radius: "Radius | None" = None,
                    nonperiodic: bool = False,
                    wire_format=None, wire_layout=None,
-                   probe: Optional[WireProbe] = None
+                   probe: Optional[WireProbe] = None,
+                   ranks: Optional[Sequence[int]] = None
                    ) -> Sequence[torch.Tensor]:
     """Fill all halo regions of the padded (z,y,x) shards of a mesh (x
     fastest) via sequential axis sweeps, in place; returns ``shards``.
@@ -428,18 +465,34 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
     ``packing.plan_direction`` placed by each shard's own interior
     lengths). The live window (interior plus wire-radius shell) is
     bitwise the slab layout's; a short shard's dead slack row may
-    differ. ``probe``: records every message (``make_exchange``)."""
+    differ. ``probe``: records every message (``make_exchange``).
+    ``ranks``: each position's owner on a mesh that spans processes
+    (None at the positions of ``shards`` other ranks own)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
     alloc_r = alloc_radius if alloc_radius is not None else radius
     wf = normalize_wire_format(wire_format)
     layout = normalize_wire_layout(wire_layout)
-    for a, _, per in _moves(arrs[0].shape, radius, alloc_r, counts, rem,
-                            axis_order, layout, nonperiodic):
+    me = this_rank() if ranks is not None else None
+    for a, _, per in _moves(_first(arrs).shape, radius, alloc_r, counts,
+                            rem, axis_order, layout, nonperiodic):
         name = AXIS_NAME[a]
         fmt = wf[name] if counts[a] > 1 else "f32"
         plain = fmt == "f32" and probe is None
+        msgs = _messages(ranks)
         for i, (dst_at, j, src_at) in enumerate(per):
+            mine = ranks is None or ranks[i] == me
+            if j is not None and ranks is not None and ranks[j] != me:
+                if mine:
+                    dst = _view(arrs[i], dst_at)
+                    msgs.recv(dst.shape, wire_dtype(dst.dtype, fmt),
+                              dst.device, ranks[j], i, _lander(dst))
+                continue
+            if not mine:
+                if j is not None:
+                    msgs.send(_to_wire(_view(arrs[j], src_at), fmt),
+                              ranks[i], i)
+                continue
             dst = _view(arrs[i], dst_at)
             if j is None:
                 dst.zero_()
@@ -451,7 +504,28 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
                 dst.copy_(src)
             else:
                 dst.copy_(_ship(src, arrs[i].device, fmt, name, probe))
+        if msgs is not None:
+            msgs.run()
     return shards
+
+
+def _messages(ranks):
+    """A batch of cross-rank messages for one direction, or None in one
+    process."""
+    if ranks is None:
+        return None
+    from .multihost import RankMessages
+
+    return RankMessages()
+
+
+def _lander(dst: torch.Tensor):
+    """What writes an arrived wire message into ``dst``: widened to its
+    storage dtype on ``dst``'s device, then copied."""
+    def land(buf: torch.Tensor) -> None:
+        dst.copy_(_from_wire(buf, dst.dtype))
+
+    return land
 
 
 def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
@@ -484,6 +558,8 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
     of more than one shard)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
+    if any(t is None for t in arrs):
+        refuse_across_ranks("accumulate_shard (the PIC deposit)")
     idx = [mesh_index(i, counts) for i in range(len(arrs))]
     for a in axis_order:
         r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
@@ -522,7 +598,8 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
                             mesh_counts: Dim3,
                             rz: int, ry: int, radius_rows: int = 0,
                             y_z_extended: bool = False,
-                            rem: Dim3 = Dim3(0, 0, 0)
+                            rem: Dim3 = Dim3(0, 0, 0),
+                            ranks: Optional[Sequence[int]] = None
                             ) -> List[Dict[str, torch.Tensor]]:
     """The halo SLABS of the interior-resident (unpadded) shards of a
     mesh: the data plane of the halo kernels (``ops/cuda_halo.py``,
@@ -549,14 +626,19 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
     neighbour is the shard itself (periodic). x must not be sharded.
     ``rem``: uneven (+-1) shards are capacity-sized, so the hi-edge sends
     come from each shard's ACTUAL last rows; not with ``y_z_extended``.
+    ``ranks``: each position's owner on a mesh that spans processes; the
+    shards and the returned slabs are then None at the positions other
+    ranks own. The z slabs land before the y sources that span them are
+    sent, in two batches of messages.
     """
     counts = Dim3.of(mesh_counts)
     if counts.x != 1:
         raise ValueError("exchange_interior_slabs: x must not be sharded "
                          f"(mesh {tuple(counts)})")
     arrs = _as_list(shards, counts)
-    lead = tuple(arrs[0].shape[:-3])
-    Z, Y, X = arrs[0].shape[-3:]
+    first = _first(arrs)
+    lead = tuple(first.shape[:-3])
+    Z, Y, X = first.shape[-3:]
     r = radius_rows or min(rz, ry)
     if not (r <= rz and r <= ry):
         raise ValueError(f"radius_rows {r} exceeds rz={rz} or ry={ry}")
@@ -567,29 +649,55 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
     Lz = [shard_interior_len(2, Z, rem, idx[i].z) for i in range(n)]
     Ly = [shard_interior_len(1, Y, rem, idx[i].y) for i in range(n)]
 
-    def to(t: torch.Tensor, i: int) -> torch.Tensor:
-        return t.to(arrs[i].device, copy=True)
+    me = this_rank() if ranks is not None else None
+
+    def moved(*plans) -> List[List[Optional[torch.Tensor]]]:
+        """Per plan ``(axis, step, rows, take)``, the message of every
+        position ``i`` this process holds, on its device: ``take(j)`` of
+        the neighbour ``j`` one ``step`` along ``axis``, ``rows`` (z, y)
+        of it. Cross-rank messages of all the plans go in one batch."""
+        outs: List[List[Optional[torch.Tensor]]] = [[None] * n
+                                                    for _ in plans]
+        msgs = _messages(ranks)
+        for p, (axis, step, rows, take) in enumerate(plans):
+            for i in range(n):
+                j = mesh_neighbor(i, counts, axis, step)
+                mine = ranks is None or ranks[i] == me
+                if ranks is None or ranks[j] == me:
+                    if mine:
+                        outs[p][i] = take(j).to(arrs[i].device, copy=True)
+                    else:
+                        msgs.send(take(j), ranks[i], len(plans) * i + p)
+                elif mine:
+                    def land(buf, p=p, i=i):
+                        outs[p][i] = buf
+
+                    msgs.recv(lead + (rows[0], rows[1], X), first.dtype,
+                              arrs[i].device, ranks[j],
+                              len(plans) * i + p, land)
+        if msgs is not None:
+            msgs.run()
+        return outs
 
     # r-row transfers: zlo from the z-minus neighbour's actual top rows,
     # zhi from the z-plus neighbour's bottom rows
-    zlo_r = [to(arrs[j].narrow(-3, Lz[j] - r, r), i) for i, j in
-             ((i, mesh_neighbor(i, counts, 2, -1)) for i in range(n))]
-    zhi_r = [to(arrs[j].narrow(-3, 0, r), i) for i, j in
-             ((i, mesh_neighbor(i, counts, 2, 1)) for i in range(n))]
+    zlo_r, zhi_r = moved(
+        (2, -1, (r, Y), lambda j: arrs[j].narrow(-3, Lz[j] - r, r)),
+        (2, 1, (r, Y), lambda j: arrs[j].narrow(-3, 0, r)))
     if y_z_extended:
         def ysrc(j: int, lo: bool) -> torch.Tensor:
             y0 = 0 if lo else Y - r
             return torch.cat([t.narrow(-2, y0, r) for t in
                               (zlo_r[j], arrs[j], zhi_r[j])], dim=-3)
         zoff = rz - r
+        yrows = (Z + 2 * r, r)
     else:
         def ysrc(j: int, lo: bool) -> torch.Tensor:
             return arrs[j].narrow(-2, 0 if lo else Ly[j] - r, r)
         zoff = 0
-    ylo_r = [to(ysrc(mesh_neighbor(i, counts, 1, -1), False), i)
-             for i in range(n)]
-    yhi_r = [to(ysrc(mesh_neighbor(i, counts, 1, 1), True), i)
-             for i in range(n)]
+        yrows = (Z, r)
+    ylo_r, yhi_r = moved((1, -1, yrows, lambda j: ysrc(j, False)),
+                         (1, 1, yrows, lambda j: ysrc(j, True)))
 
     def zembed(recv: torch.Tensor, align_hi: bool) -> torch.Tensor:
         if rz == r:
@@ -607,7 +715,8 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
             out = torch.cat([zpad, out, zpad], dim=-3)
         return out.contiguous()
 
-    return [{"zlo": zembed(zlo_r[i], True), "zhi": zembed(zhi_r[i], False),
+    return [None if zlo_r[i] is None else
+            {"zlo": zembed(zlo_r[i], True), "zhi": zembed(zhi_r[i], False),
              "ylo": yembed(ylo_r[i], True), "yhi": yembed(yhi_r[i], False)}
             for i in range(n)]
 
@@ -646,21 +755,23 @@ def measure_slab_exchange_seconds(mesh, local: Dim3, dtype, rz: int, ry: int,
 
     counts = mesh.shape
     fields = [[torch.zeros((local.z, local.y, local.x), dtype=dtype,
-                           device=d) for d in mesh.devices]
+                           device=d) if i in mesh.local_positions else None
+               for i, d in enumerate(mesh.devices)]
               for _ in range(nfields)]
 
     def once():
         return [exchange_interior_slabs(f, counts, rz=rz, ry=ry,
                                         radius_rows=radius_rows,
-                                        y_z_extended=y_z_extended)
+                                        y_z_extended=y_z_extended,
+                                        ranks=mesh.peers)
                 for f in fields]
 
     out = once()
-    device_sync([t for f in fields for t in f])
+    device_sync([t for f in fields for t in f if t is not None])
     t0 = time.perf_counter()
     for _ in range(reps):
         out = once()
-    device_sync([s[k] for per in out for s in per
+    device_sync([s[k] for per in out for s in per if s is not None
                  for k in ("zlo", "zhi", "ylo", "yhi")])
     return (time.perf_counter() - t0) / reps
 
@@ -708,7 +819,8 @@ def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
                           alloc_radius: "Radius | None" = None,
                           nonperiodic: bool = False,
                           wire_format=None, wire_layout=None,
-                          probe: Optional[WireProbe] = None
+                          probe: Optional[WireProbe] = None,
+                          ranks: Optional[Sequence[int]] = None
                           ) -> Dict[str, List[torch.Tensor]]:
     """Multi-quantity exchange with per-direction packing (JAX
     ``parallel/exchange.py:518-644``; reference src/packer.cu:10-44,
@@ -720,27 +832,47 @@ def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
     this shard's device, widened once, split, and written back. The
     placement of every part is ``exchange_shard``'s, so each quantity's
     halos come out bitwise as ``exchange_shard`` fills them. A one-shard
-    axis is a local copy of each quantity, as there."""
+    axis is a local copy of each quantity, as there. ``ranks``: each
+    position's owner on a mesh that spans processes (``exchange_shard``):
+    a packed buffer is then one message."""
     counts = Dim3.of(mesh_counts)
     alloc_r = alloc_radius if alloc_radius is not None else radius
     wf = normalize_wire_format(wire_format)
     layout = normalize_wire_layout(wire_layout)
     names = sorted(fields)
     arrs = {q: _as_list(fields[q], counts) for q in names}
-    moves = {q: _moves(arrs[q][0].shape, radius, alloc_r, counts, rem,
+    moves = {q: _moves(_first(arrs[q]).shape, radius, alloc_r, counts, rem,
                        axis_order, layout, nonperiodic) for q in names}
     groups: Dict[torch.dtype, List[str]] = {}
     for q in names:
-        groups.setdefault(arrs[q][0].dtype, []).append(q)
+        groups.setdefault(_first(arrs[q]).dtype, []).append(q)
+    me = this_rank() if ranks is not None else None
+    n = counts.flatten()
     for k, (a, _, first) in enumerate(moves[names[0]]):
         name = AXIS_NAME[a]
         fmt = wf[name] if counts[a] > 1 else "f32"
-        for qs in groups.values():
+        msgs = _messages(ranks)
+        for g, (dt, qs) in enumerate(groups.items()):
             for i, (_, j, _) in enumerate(first):
+                mine = ranks is None or ranks[i] == me
+                theirs = (j is not None and ranks is not None
+                          and ranks[j] != me)
+                if not mine:
+                    if j is not None and not theirs:
+                        srcs = [_view(arrs[q][j], moves[q][k][2][i][2])
+                                for q in qs]
+                        buf = torch.cat([s.reshape(-1) for s in srcs])
+                        msgs.send(_to_wire(buf, fmt), ranks[i], g * n + i)
+                    continue
                 dsts = [_view(arrs[q][i], moves[q][k][2][i][0]) for q in qs]
                 if j is None:
                     for d in dsts:
                         d.zero_()
+                    continue
+                if theirs:
+                    msgs.recv((sum(d.numel() for d in dsts),),
+                              wire_dtype(dt, fmt), dsts[0].device, ranks[j],
+                              g * n + i, _splitter(dsts))
                     continue
                 srcs = [_view(arrs[q][j], moves[q][k][2][i][2]) for q in qs]
                 if j == i:
@@ -749,12 +881,23 @@ def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
                     continue
                 buf = torch.cat([s.reshape(-1) for s in srcs])
                 dev = dsts[0].device
-                recv = _ship(buf, dev, fmt, name, probe).to(dev)
-                off = 0
-                for d in dsts:
-                    d.copy_(recv[off:off + d.numel()].view(d.shape))
-                    off += d.numel()
+                _splitter(dsts)(_ship(buf, dev, fmt, name, probe).to(dev))
+        if msgs is not None:
+            msgs.run()
     return fields
+
+
+def _splitter(dsts: Sequence[torch.Tensor]):
+    """What writes an arrived packed buffer into the boxes ``dsts``, in
+    order: widened to their storage dtype, then split."""
+    def land(buf: torch.Tensor) -> None:
+        recv = _from_wire(buf, dsts[0].dtype)
+        off = 0
+        for d in dsts:
+            d.copy_(recv[off:off + d.numel()].view(d.shape))
+            off += d.numel()
+
+    return land
 
 
 def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
@@ -773,6 +916,8 @@ def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
     refuses the rest), so every shard's boxes lie alike."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
+    if any(t is None for t in arrs):
+        refuse_across_ranks("the all-gather exchange (Method.AllGather)")
     for a, side, per in _moves(arrs[0].shape, radius, radius, counts,
                                Dim3(0, 0, 0), axis_order, "slab", False):
         n_dev = counts[a]
@@ -828,14 +973,28 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
                             alloc_radius: "Radius | None" = None,
                             nonperiodic: bool = False,
                             wire_format=None, wire_layout=None,
-                            probe: Optional[WireProbe] = None):
+                            probe: Optional[WireProbe] = None,
+                            ranks: Optional[Sequence[int]] = None):
     """Start ``dispatch_exchange`` and return a handle whose ``wait()``
     makes the work queued after it on the cards' current streams see
     the filled halos. Between the two, the caller may queue work that
     reads only the shards' interiors, which the exchange does not write
     — the overlap path's inner block. The copy engines run on the
     current streams and have landed at once; ``PallasDMA`` runs on one
-    side stream per card (``parallel/cuda_exchange.py``)."""
+    side stream per card (``parallel/cuda_exchange.py``). On a mesh that
+    spans processes (``ranks``) this raises: the overlap paths are
+    ROADMAP A4c."""
+    if ranks is not None:
+        refuse_across_ranks("an exchange started for overlap "
+                            "(start_dispatch_exchange)")
+    return _start_exchange(fields, radius, mesh_counts, method, axis_order,
+                           rem, alloc_radius, nonperiodic, wire_format,
+                           wire_layout, probe)
+
+
+def _start_exchange(fields, radius, mesh_counts, method, axis_order, rem,
+                    alloc_radius, nonperiodic, wire_format, wire_layout,
+                    probe, ranks=None):
     from .methods import WIRE_CAPABLE, Method
 
     counts = Dim3.of(mesh_counts)
@@ -854,6 +1013,8 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
             f"wire formats, and non-slab wire layouts are only "
             f"supported by the PpermuteSlab and PpermutePacked "
             f"methods, not {method}")
+    if ranks is not None and method not in WIRE_CAPABLE:
+        refuse_across_ranks(f"the {method} exchange")
     if method == Method.PallasDMA:
         from .cuda_exchange import start_exchange_shard_cuda
 
@@ -861,7 +1022,8 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
                                          counts, axis_order)
     if method == Method.PpermutePacked:
         exchange_shard_packed(fields, radius, counts, axis_order, rem,
-                              alloc_radius, nonperiodic, wf, layout, probe)
+                              alloc_radius, nonperiodic, wf, layout, probe,
+                              ranks)
     elif method == Method.AllGather:
         for shards in fields.values():
             exchange_shard_allgather(shards, radius, counts, axis_order,
@@ -869,7 +1031,8 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
     else:
         for shards in fields.values():
             exchange_shard(shards, radius, counts, axis_order, rem,
-                           alloc_radius, nonperiodic, wf, layout, probe)
+                           alloc_radius, nonperiodic, wf, layout, probe,
+                           ranks)
     return ExchangeInFlight()
 
 
@@ -880,7 +1043,8 @@ def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
                       alloc_radius: "Radius | None" = None,
                       nonperiodic: bool = False,
                       wire_format=None, wire_layout=None,
-                      probe: Optional[WireProbe] = None
+                      probe: Optional[WireProbe] = None,
+                      ranks: Optional[Sequence[int]] = None
                       ) -> Dict[str, List[torch.Tensor]]:
     """Route a multi-quantity exchange (``fields[q]`` is the list of
     padded shards of quantity q, x fastest) to the selected strategy,
@@ -892,10 +1056,12 @@ def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
     plain twin) on the CPU; ``PpermutePacked`` is
     ``exchange_shard_packed``, ``AllGather`` ``exchange_shard_allgather``
     and ``PpermuteSlab`` ``exchange_shard``. The halos are the same bits
-    whatever the method."""
-    start_dispatch_exchange(fields, radius, mesh_counts, method, axis_order,
-                            rem, alloc_radius, nonperiodic, wire_format,
-                            wire_layout, probe).wait()
+    whatever the method. ``ranks``: each position's owner on a mesh that
+    spans processes, where the slab and packed engines run and the
+    others raise (ROADMAP A4c)."""
+    _start_exchange(fields, radius, mesh_counts, method, axis_order, rem,
+                    alloc_radius, nonperiodic, wire_format, wire_layout,
+                    probe, ranks).wait()
     return fields
 
 
@@ -921,7 +1087,9 @@ def make_exchange(mesh, radius: Radius, methods=None,
     ``PrecisionGateError``. The returned callable carries
     ``wire_format``, ``wire_layout``, ``precision_declaration`` and
     ``precision_certificate`` (None for an all-f32 wire, which runs no
-    gate)."""
+    gate). On a mesh that spans processes the exchange moves messages
+    between ranks (``mesh.peers``); the probe stays a simulation of the
+    whole mesh in this process."""
     from .methods import Method, pick_method
 
     method = pick_method(Method.Default if methods is None else methods)
@@ -936,7 +1104,9 @@ def make_exchange(mesh, radius: Radius, methods=None,
         return dispatch_exchange(fields, radius, counts, method, axis_order,
                                  rem, nonperiodic=nonperiodic,
                                  wire_format=wf, wire_layout=layout,
-                                 probe=probe)
+                                 probe=probe,
+                                 ranks=None if probe is not None
+                                 else mesh.peers)
 
     cert = None
     if narrows:

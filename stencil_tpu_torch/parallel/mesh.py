@@ -1,12 +1,19 @@
-"""The mesh of shards: which device holds each subdomain.
+"""The mesh of shards: which device, of which process, holds each
+subdomain.
 
 PyTorch-port counterpart of ``stencil_tpu/parallel/mesh.py``. The JAX
-package runs one process over a ``jax.sharding.Mesh`` of devices; the
-port does the same with one Python process that holds one shard tensor
-per mesh position, each on its own ``torch.device``, and moves slabs
-between them by device-to-device copies (the reference's same-rank
-transport, ``cudaMemcpyPeerAsync``). Mesh positions are ordered x
-fastest, as the JAX mesh's device list is.
+package runs one process over a ``jax.sharding.Mesh`` of devices. The
+port holds one shard tensor per mesh position, each on its own
+``torch.device``, and moves slabs between them by device-to-device
+copies (the reference's same-rank transport, ``cudaMemcpyPeerAsync``).
+Mesh positions are ordered x fastest, as the JAX mesh's device list is.
+
+A mesh may span processes (one ``torch.distributed`` rank per card, the
+reference's one MPI rank per GPU): each position then has an owner rank
+(``GlobalDevice``), a process allocates only the shards it owns
+(``Mesh.local_positions``), and the exchange engines move a slab between
+two ranks as a message (``parallel/multihost.py``). Plain devices are
+owned by the process that names them.
 
 A device may repeat: several shards then share one card (the reference's
 own test strategy, ``test/test_exchange.cu:52`` ``dd.set_gpus({0,0})``),
@@ -15,7 +22,8 @@ and ``devices=["cpu"] * n`` runs a mesh on the host.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import socket
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -25,22 +33,74 @@ from ..numerics import prime_factors
 DeviceLike = Union[str, torch.device, None]
 
 
+class GlobalDevice(NamedTuple):
+    """A device of a multi-process mesh: the rank that drives it, that
+    rank's host and the ``torch.device`` on that host
+    (``multihost.global_devices``)."""
+
+    rank: int
+    host: str
+    device: torch.device
+
+
+def this_rank() -> int:
+    """This process's ``torch.distributed`` rank (0 when no process
+    group is up)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def as_global(d) -> GlobalDevice:
+    """``d`` as a ``GlobalDevice``: a plain device belongs to this
+    process."""
+    if isinstance(d, GlobalDevice):
+        return d
+    return GlobalDevice(this_rank(), socket.gethostname(), torch.device(d))
+
+
+def device_sorted(devices: Sequence) -> List:
+    """Devices ordered by rank, then device index: the counterpart of
+    JAX's ``_torus_sorted`` (``stencil_tpu/parallel/mesh.py:33``), whose
+    physical torus coordinates a GPU host does not have (every card of
+    an NVSwitch host is one hop from every other). Stable, so equal
+    devices keep their order."""
+    def key(d):
+        g = as_global(d)
+        return (g.rank, g.device.type, -1 if g.device.index is None
+                else g.device.index)
+
+    return sorted(devices, key=key)
+
+
 def resolve_devices(devices: Optional[Sequence] = None,
-                    device: DeviceLike = None) -> List[torch.device]:
+                    device: DeviceLike = None) -> List:
     """The device list a domain runs on. ``devices`` is taken verbatim
-    (repeats allowed); else ``device`` alone; else every visible CUDA
-    device, the counterpart of ``jax.devices()`` — and with no card that
-    raises: the port never falls back to the CPU by itself."""
+    (repeats allowed; ``GlobalDevice`` entries, a mesh over processes,
+    are kept as they are); else ``device`` alone; else, in a process
+    group of more than one rank, every rank's devices
+    (``multihost.global_devices``); else every visible CUDA device, the
+    counterpart of ``jax.devices()`` — and with no card that raises: the
+    port never falls back to the CPU by itself."""
     if devices is not None and device is not None:
         raise ValueError("pass device= (one device) or devices= (a mesh), "
                          "not both")
     if devices is not None:
-        out = [torch.device(d) for d in devices]
+        out = [d if isinstance(d, GlobalDevice) else torch.device(d)
+               for d in devices]
         if not out:
             raise ValueError("devices= is empty")
+        if any(isinstance(d, GlobalDevice) for d in out):
+            return [as_global(d) for d in out]
     elif device is not None:
         out = [torch.device(device)]
     else:
+        from .multihost import global_devices, process_count
+
+        if process_count() > 1:
+            return global_devices()
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' (or "
@@ -78,17 +138,34 @@ def mesh_neighbor(i: int, counts: Dim3, axis: int, step: int) -> int:
 
 
 class Mesh:
-    """A (x, y, z) grid of mesh positions, each with its device:
-    ``devices[i]`` holds the shard at linear position ``i`` (x fastest,
-    ``mesh_index``)."""
+    """A (x, y, z) grid of mesh positions, each with its device and the
+    rank that owns it: ``devices[i]`` holds the shard at linear position
+    ``i`` (x fastest, ``mesh_index``) in process ``ranks[i]``. ``devices``
+    may mix plain devices (this process's) and ``GlobalDevice``s."""
 
     def __init__(self, shape: Dim3Like, devices: Sequence) -> None:
         self.shape = Dim3.of(shape)
-        self.devices = [torch.device(d) for d in devices]
+        slots = [as_global(d) for d in devices]
+        self.devices = [g.device for g in slots]
         if self.shape.flatten() != len(self.devices):
             raise ValueError(f"mesh shape {self.shape} needs "
                              f"{self.shape.flatten()} devices, have "
                              f"{len(self.devices)}")
+        #: the owner rank of each position, and this process's rank
+        self.ranks = tuple(g.rank for g in slots)
+        self.rank = this_rank()
+        #: the positions whose shards this process holds
+        self.local_positions = [i for i, r in enumerate(self.ranks)
+                                if r == self.rank]
+        #: does any position belong to another process?
+        self.spans_ranks = len(self.local_positions) != len(self.ranks)
+
+    @property
+    def peers(self) -> Optional[tuple]:
+        """What the exchange engines take as ``ranks=``: the owner of
+        each position on a mesh that spans processes, None on one whose
+        shards this process holds all of."""
+        return self.ranks if self.spans_ranks else None
 
 
 def make_mesh(mesh_shape: Optional[Dim3Like] = None,
@@ -124,6 +201,22 @@ def default_mesh_shape_xfree(n: int) -> Dim3:
         dims[dims.index(min(dims))] *= f
     dims.sort(reverse=True)
     return Dim3(1, dims[1], dims[0])
+
+
+def default_mesh_shape_dcn(n: int, n_slices: int, axis: int = 2,
+                           xfree: bool = False) -> Dim3:
+    """Mesh shape whose ``axis`` is divisible by ``n_slices`` (the
+    constraint the slice-blocked DCN tier needs): the slice factor goes
+    on ``axis`` and the per-slice remainder is factored near-cubic (or
+    x-unsharded when ``xfree``) — JAX ``parallel/mesh.py:108-121``."""
+    if n % n_slices:
+        raise ValueError(f"{n} devices not divisible into {n_slices} "
+                         f"slices")
+    base = (default_mesh_shape_xfree(n // n_slices) if xfree
+            else default_mesh_shape(n // n_slices))
+    dims = [base.x, base.y, base.z]
+    dims[axis] *= n_slices
+    return Dim3(*dims)
 
 
 def mesh_dim(mesh: Mesh) -> Dim3:

@@ -171,7 +171,8 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
                          overlap: bool = False,
                          nonperiodic: bool = False,
                          wire_format=None,
-                         wire_layout=None
+                         wire_layout=None,
+                         ranks: Optional[Sequence[int]] = None
                          ) -> Dict[str, List[torch.Tensor]]:
     """One ``steps``-deep blocked group on every shard of a mesh: a
     single depth-``steps*r`` exchange, then ``steps`` applications of
@@ -199,7 +200,12 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     (``refresh_axes``), and each axis's window saw-tooths with its own
     ``m_a(k)``. Non-uniform depths decline ``overlap`` and the
     ``"irredundant"`` wire layout, which both assume one group-wide
-    exchange."""
+    exchange.
+
+    ``ranks``: each position's owner on a mesh that spans processes
+    (``parallel/exchange.py``); the shards are None at the positions
+    other ranks own, and ``update_fn`` runs on this process's own. The
+    overlap split raises there (ROADMAP A4c)."""
     depths = normalize_depths(steps)
     alloc_d = depths if alloc_steps is None else normalize_depths(alloc_steps)
     if any(not 1 <= depths[a] <= alloc_d[a] for a in range(3)):
@@ -226,21 +232,26 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
     r_lo, r_hi = radius.pad_lo(), radius.pad_hi()
     names = list(fields)
     n = len(fields[names[0]])
-    any_p = fields[names[0]][0]
+    any_p = next(t for t in fields[names[0]] if t is not None)
     cap = Dim3(any_p.shape[2] - p_lo.x - p_hi.x,
                any_p.shape[1] - p_lo.y - p_hi.y,
                any_p.shape[0] - p_lo.z - p_hi.z)
     validate_temporal(radius, cap, depths, rem)
 
-    shards = [{q: fields[q][i] for q in names} for i in range(n)]
+    shards = [{q: fields[q][i] for q in names}
+              if fields[names[0]][i] is not None else None
+              for i in range(n)]
+    own = [(i, sh) for i, sh in enumerate(shards) if sh is not None]
     keys = sorted(fields) if exchange_keys is None else list(exchange_keys)
     wired = {q: fields[q] for q in keys}
-    landed = start_dispatch_exchange(wired, wire,
-                                     mesh_counts, method, rem=rem,
-                                     alloc_radius=alloc_r,
-                                     nonperiodic=nonperiodic,
-                                     wire_format=wire_format,
-                                     wire_layout=wire_layout)
+    ex_kw = dict(rem=rem, alloc_radius=alloc_r, nonperiodic=nonperiodic,
+                 wire_format=wire_format, wire_layout=wire_layout)
+    if overlap:
+        landed = start_dispatch_exchange(wired, wire, mesh_counts, method,
+                                         ranks=ranks, **ex_kw)
+    else:
+        dispatch_exchange(wired, wire, mesh_counts, method, ranks=ranks,
+                          **ex_kw)
 
     windows = sub_step_windows(radius, cap, depths)
     k0 = 0
@@ -264,22 +275,22 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
                 dims[a] = t
                 shells.append((Dim3(*off), Dim3(*dims)))
         pieces: List[List] = [[] for _ in range(n)]
-        for i, shard in enumerate(shards):
+        for i, shard in own:
             off, dims = inner
             pieces[i].append((off, update_fn(
                 _region_blocks(shard, p_lo, r_lo, r_hi, off, dims), dims,
                 (off.x, off.y, off.z), 0, i)))
         landed.wait()
-        for i, shard in enumerate(shards):
+        for i, shard in own:
             for off, dims in shells:
                 pieces[i].append((off, update_fn(
                     _region_blocks(shard, p_lo, r_lo, r_hi, off, dims),
                     dims, (off.x, off.y, off.z), 0, i)))
-        for i, shard in enumerate(shards):
+        for i, shard in own:
             for off, outs in pieces[i]:
                 _write_region(shard, p_lo, off, outs)
         k0 = 1
-    else:
+    elif overlap:
         landed.wait()
 
     for k in range(k0, steps):
@@ -291,13 +302,9 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
             if axes:
                 dispatch_exchange(wired,
                                   _axes_wire_radius(radius, depths, axes),
-                                  mesh_counts, method, rem=rem,
-                                  alloc_radius=alloc_r,
-                                  nonperiodic=nonperiodic,
-                                  wire_format=wire_format,
-                                  wire_layout=wire_layout)
+                                  mesh_counts, method, ranks=ranks, **ex_kw)
         off, dims = windows[k]
-        for i, shard in enumerate(shards):
+        for i, shard in own:
             outs = update_fn(_region_blocks(shard, p_lo, r_lo, r_hi, off,
                                             dims),
                              dims, (off.x, off.y, off.z), k, i)

@@ -7,16 +7,17 @@ solve only on a non-uniform one. An NVSwitch H100 node is uniform (every
 pair of cards one NVLink hop apart), and so is a device list that
 repeats one card, so the port ships the trivial branch: subdomain ``i``
 (x fastest) runs on ``devices[i]``. ``mode="qap"`` raises until
-``qap.py`` is ported (ROADMAP A5).
+``qap.py`` is ported (ROADMAP A5). A device may be a
+``parallel/mesh.GlobalDevice`` (a mesh over processes); the placement
+keeps its owner rank.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-import torch
-
 from .geometry import Dim3, Dim3Like
+from .parallel.mesh import GlobalDevice, as_global
 from .partition import RankPartition
 
 PLACEMENT_MODES = ("auto", "qap", "trivial")
@@ -30,7 +31,8 @@ class Placement:
     def __init__(self, part: RankPartition, devices: Sequence,
                  assignment: Optional[List[int]] = None) -> None:
         self.part = part
-        self.devices = [torch.device(d) for d in devices]
+        self.slots: List[GlobalDevice] = [as_global(d) for d in devices]
+        self.devices = [g.device for g in self.slots]
         n = part.dim().flatten()
         if len(self.devices) != n:
             raise ValueError(f"{len(self.devices)} devices for {n} "
@@ -46,11 +48,11 @@ class Placement:
     def subdomain_origin(self, idx: Dim3Like) -> Dim3:
         return self.part.subdomain_origin(Dim3.of(idx))
 
-    def device_order_for_mesh(self) -> List[torch.device]:
-        """Devices ordered by subdomain linear index (x fastest), for
-        ``parallel.mesh.Mesh``."""
-        return [self.devices[self.assignment[i]]
-                for i in range(len(self.devices))]
+    def slot_order_for_mesh(self) -> List[GlobalDevice]:
+        """Devices with their owner ranks, ordered by subdomain linear
+        index (x fastest), for ``parallel.mesh.Mesh``."""
+        return [self.slots[self.assignment[i]]
+                for i in range(len(self.slots))]
 
 
 def normalize_placement_mode(mode: Optional[str]) -> str:

@@ -2048,3 +2048,76 @@ def test_bf16_jacobi_paths_take_the_kernels(cs, ch, co):
                  device="cuda")
     assert Jacobi3D(64, 64, 64, dtype=torch.float64,
                     device="cuda").kernel_path == "xla"
+
+
+# -- meshes over processes (parallel/multihost.py) --------------------
+CARD_CASES = (("jacobi", "halo", 9), ("jacobi", "xla", 9),
+              ("jacobi", "pallas", 9), ("astaroth", "halo", 2),
+              ("astaroth_pair", "halo", 2))
+
+
+def _one_process(model, kernel, steps):
+    from stencil_tpu_torch.models.astaroth import Astaroth
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+    if model == "jacobi":
+        m = Jacobi3D(128, 128, 128, kernel=kernel, mesh_shape=(1, 2, 2),
+                     devices=["cuda:0"] * 4)
+    else:
+        m = Astaroth(32, 64, 64, kernel=kernel, mesh_shape=(1, 2, 2),
+                     devices=["cuda:0"] * 4,
+                     exchange_every=2 if "pair" in model else None)
+    m.init()
+    m.run(steps)
+    return ({"temp": m.temperature()} if model == "jacobi"
+            else {q: m.field(q) for q in ("lnrho", "uux", "ax", "ss")})
+
+
+def _spawned(tmp_path, backend, cards):
+    import torch_mp_workers
+    from stencil_tpu_torch.parallel.multihost import spawn_ranks
+
+    spawn_ranks(torch_mp_workers.card_paths, 2,
+                args=(str(tmp_path), cards, CARD_CASES),
+                backend_name=backend, rendezvous_dir=str(tmp_path),
+                timeout_s=300)
+    return {f"{m}_{k}": np.load(tmp_path / f"{m}_{k}.npz")
+            for m, k, _ in CARD_CASES}
+
+
+def _assert_same_as_one_process(got):
+    for model, kernel, steps in CARD_CASES:
+        want = _one_process(model, kernel, steps)
+        for q, w in want.items():
+            np.testing.assert_array_equal(got[f"{model}_{kernel}"][q], w,
+                                          err_msg=f"{model} {kernel} {q}")
+
+
+def test_two_ranks_on_one_card_equal_one_process(cs, tmp_path):
+    """Two processes on the one card, gloo (every message staged through
+    host memory), two shards each of (1,2,2): Jacobi halo (B6 + B5),
+    xla and pallas (K3) at 128^3 and Astaroth halo (B11; B12 with the
+    pair) at 32 x 64 x 64, each bitwise the same four shards in one
+    process."""
+    _assert_same_as_one_process(_spawned(tmp_path, "gloo",
+                                         ["cuda:0", "cuda:0"]))
+
+
+def test_nccl_ranks_on_two_cards_equal_one_card(cs, tmp_path):
+    """One rank a card over nccl (CUDA tensors rank to rank), the same
+    cases bitwise the one-card, one-process run."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA GPUs (one nccl rank a card)")
+    if not torch.distributed.is_nccl_available():
+        pytest.skip("this PyTorch build has no NCCL")
+    _assert_same_as_one_process(_spawned(tmp_path, "nccl",
+                                         ["cuda:0", "cuda:1"]))
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cs, tmp_path):
+    """nccl asked for two ranks on one card raises on both, naming
+    gloo's host staging, before any message is sent."""
+    if not torch.distributed.is_nccl_available():
+        pytest.skip("this PyTorch build has no NCCL")
+    with pytest.raises(Exception, match="card per rank"):
+        _spawned(tmp_path, "nccl", ["cuda:0", "cuda:0"])

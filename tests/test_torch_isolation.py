@@ -52,7 +52,8 @@ def test_imports_without_nvcc_or_jax():
             " stencil_tpu_torch.ops.cuda_exchange, stencil_tpu_torch.ops.cuda_overlap,"
             " stencil_tpu_torch.parallel.cuda_exchange,"
             " stencil_tpu_torch.parallel.overlap, stencil_tpu_torch.apps.measure_overlap,"
-            " stencil_tpu_torch.ops.cuda_mhd_overlap, stencil_tpu_torch.apps._common;"
+            " stencil_tpu_torch.ops.cuda_mhd_overlap, stencil_tpu_torch.apps._common,"
+            " stencil_tpu_torch.parallel.multihost, stencil_tpu_torch.analysis.costmodel;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'stencil_tpu')];"
             " assert not bad, bad")

@@ -140,7 +140,8 @@ def test_devices_resolve_like_the_port_requires(monkeypatch):
 def test_placement_is_trivial_and_qap_is_not_ported():
     part = RankPartition.from_dim(Dim3(8, 8, 8), Dim3(1, 2, 2))
     pl = make_placement(part, ["cpu"] * 4)
-    assert pl.device_order_for_mesh() == [torch.device("cpu")] * 4
+    assert [g.device for g in pl.slot_order_for_mesh()] == \
+        [torch.device("cpu")] * 4
     with pytest.raises(NotImplementedError, match="A5"):
         make_placement(part, ["cpu"] * 4, mode="qap")
     with pytest.raises(ValueError):
