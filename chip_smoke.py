@@ -255,6 +255,25 @@ Phases, in order; any failure exits non-zero before the last line:
      timed runs pooled (each run's rate beside it). With two
      or more cards the Jacobi ``halo`` case runs again with ``nccl``,
      one rank a card; with one card a line says why it did not.
+   - Segments (``run_segments``, ``parallel/megastep.py``): at 512^3
+     ``Jacobi3D`` ``wrap`` in float32 and bfloat16 (K2, K2, K1 a
+     5-step segment), ``halo`` and ``overlap`` on four 512 x 256 x 256
+     shards of the card (B6 + B5, B7), ``pallas`` with ``PallasDMA`` on
+     the four shards (K3 + B4) and ``xla``; ``Astaroth`` 256^3
+     ``xla-temporal[s=2]`` (a 3-iteration segment: one period and a
+     tail); PIC 256^3 NGP float64 on (2,2,2) (a 2-step segment). Each
+     against a twin model run stepwise in the segment's chunks with a
+     sentinel probe after each: fields (and ``w``, and every particle
+     lane) and the trace bitwise, the launch counts of the two runs
+     equal and the path's kernels launched; every segment run, and its
+     trace's copy to the host, under
+     ``torch.cuda.set_sync_debug_mode("error")``; a NaN planted before a
+     segment trips its first row; Astaroth's ``wrap``, ``halo`` and
+     ``halo-overlap`` decline (``interior-resident-state``). Then
+     ``apps._common.megastep_race`` on ``wrap`` and on ``halo`` (1,2,2)
+     at 512^3 (three races pooled, each beside) and the probe's ms a row
+     (CUDA events) beside its bound, the padded field's bytes over
+     3.35 TB/s.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -4540,6 +4559,271 @@ def run_pic(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: segments (parallel/megastep.py)
+# ---------------------------------------------------------------------------
+SEG_K = 5               # steps a Jacobi segment: chunks 2, 2, 1 on wrap/halo
+SEG_RUNS = 2            # segment runs held against the stepwise twin
+#: (label, kernel, mesh, model kwargs, kernels the path must launch)
+SEG_JACOBI = (
+    ("wrap float32", "wrap", (1, 1, 1), {},
+     ("jacobi7_wrapn", "jacobi7_wrap")),
+    ("wrap bfloat16", "wrap", (1, 1, 1), {"dtype": "bfloat16"},
+     ("jacobi7_wrapn", "jacobi7_wrap")),
+    ("halo (1,2,2)", "halo", (1, 2, 2), {},
+     ("jacobi7_halon", "jacobi7_halo")),
+    ("overlap (1,2,2)", "halo", (1, 2, 2), {"overlap": True},
+     ("jacobi7_overlap",)),
+    ("pallas PallasDMA (1,2,2)", "pallas", (1, 2, 2),
+     {"methods": "PallasDMA"}, ("jacobi7_padded", "exchange_axis")),
+    ("xla", "xla", (1, 1, 1), {}, ()),
+)
+SEG_RACE_K = 8
+SEG_RACE_STEPS = 48
+SEG_RACE_REPS = 3
+
+
+def all_launches():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from stencil_tpu_torch.ops import cuda_exchange as cx
+    from stencil_tpu_torch.ops import cuda_halo as ch
+    from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+    from stencil_tpu_torch.ops import cuda_overlap as co
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    out = {}
+    for mod in (cs, ch, co, cx, cm, mo):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def launch_delta(before: dict) -> dict:
+    now = all_launches()
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
+
+
+def checked_segment(torch, seg, base: int, sentinel=None):
+    """``seg.run(base)`` and the queued copy of its trace to the host
+    (``sentinel.observe_segment``), with every host synchronization an
+    error (``torch.cuda.set_sync_debug_mode``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr = seg.run(base)
+        if sentinel is not None:
+            sentinel.observe_segment(tr, tr.abs_steps)
+        return tr
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def segment_against_stepwise(torch, a, b, sentinel_of, fields_of, k: int,
+                             runs: int):
+    """``runs`` segments of ``k`` on model ``b`` (``checked_segment``)
+    and, on its twin ``a``, the same chunks stepwise with a sentinel
+    probe after each: (the segments' probe records, the stepwise
+    probes' records, the launches of ``a``, the launches of ``b``). The
+    records hold every element of a trace row (counts, max |finite| and
+    extra columns, float32 values as Python floats: exact)."""
+    seg = b.make_segment(k)
+    chunks = [q - p for p, q in zip((0,) + seg.probe_steps,
+                                    seg.probe_steps)]
+    sa = sentinel_of(a)
+    before = all_launches()
+    for r in range(runs):
+        for c, step in zip(chunks, seg.probe_steps):
+            a.run(c)
+            sa.probe(fields_of(a), r * k + step)
+    a.block()
+    la = launch_delta(before)
+    sb = sentinel_of(b)
+    before = all_launches()
+    for r in range(runs):
+        checked_segment(torch, seg, r * k, sb)
+    b.block()
+    lb = launch_delta(before)
+    want = [x.to_record() for x in sa.poll(block=True)]
+    got = [x.to_record() for x in sb.poll(block=True)]
+    if any(x["tripped"] for x in got + want):
+        raise AssertionError("a clean run tripped its sentinel")
+    return got, want, la, lb
+
+
+def run_segments(torch) -> dict:
+    """Phase 4: segments (``make_segment``) on the card, each against a
+    stepwise twin: fields and trace bitwise, launches equal, no host
+    sync inside a segment, a planted NaN trips the first row; Astaroth's
+    kernel paths decline; the race and the probe's cost."""
+    from stencil_tpu_torch.apps._common import megastep_race
+    from stencil_tpu_torch.models.astaroth import Astaroth
+    from stencil_tpu_torch.models.pic import PARTICLE_STATE_KEYS, Pic
+    from stencil_tpu_torch.parallel.megastep import (
+        DECLINE_INTERIOR_RESIDENT_STATE)
+    from stencil_tpu_torch.parallel.methods import Method
+    from stencil_tpu_torch.resilience.health import (HealthSentinel,
+                                                     probe_mesh)
+
+    card = card_line()
+    out = {"jacobi": {}, "launches": {}}
+    for label, kernel, mesh, kw, kernels in SEG_JACOBI:
+        kw = dict(kw)
+        if "dtype" in kw:
+            kw["dtype"] = getattr(torch, kw["dtype"])
+        if "methods" in kw:
+            kw["methods"] = getattr(Method, kw["methods"])
+        a = jacobi_mesh(kernel, mesh, **kw)
+        b = jacobi_mesh(kernel, mesh, **kw)
+        t0 = time.perf_counter()
+        got, want, la, lb = segment_against_stepwise(
+            torch, a, b, lambda m: HealthSentinel(m.dd),
+            lambda m: m.dd.curr, SEG_K, SEG_RUNS)
+        same = torch.equal(gather(torch, a), gather(torch, b)) and \
+            got == want
+        log(f"  segment {label} 512^3, {SEG_RUNS} x make_segment({SEG_K}) "
+            f"({b.kernel_path}, probe steps {list(b.make_segment(SEG_K).probe_steps)}) "
+            f"vs stepwise: fields and trace "
+            f"{'bitwise equal' if same else 'DIFFERENT'}; launches "
+            f"segments {lb} stepwise {la}; no host sync inside "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not same:
+            raise AssertionError(f"segment {label} disagrees with stepwise")
+        if la != lb or any(lb.get(n, 0) < 1 for n in kernels):
+            raise AssertionError(f"segment {label}: launches {lb} against "
+                                 f"stepwise {la}, kernels {kernels}")
+        # a NaN planted before a segment trips its first row
+        t = b.dd.interior("temp", 0)
+        t[t.shape[0] // 2, t.shape[1] // 2, t.shape[2] // 2] = float("nan")
+        seg = b.make_segment(SEG_K)
+        sent = HealthSentinel(b.dd)
+        tr = checked_segment(torch, seg, 100, sent)
+        rows = sent.poll(block=True)
+        first = sent.tripped.step if sent.tripped else None
+        log(f"  segment {label}: NaN planted before make_segment({SEG_K})"
+            f".run(100): tripped at step {first} (want "
+            f"{tr.abs_steps[0]}), non-finite cells a row "
+            f"{[r.nonfinite['temp'] for r in rows]}")
+        if first != tr.abs_steps[0]:
+            raise AssertionError(f"segment {label}: the planted NaN "
+                                 f"tripped {first}")
+        for n, v in lb.items():
+            out["launches"][n] = out["launches"].get(n, 0) + v
+        out["jacobi"][label] = {"path": b.kernel_path, "launches": lb,
+                                "tripped_step": first}
+        del a, b, seg, t
+        torch.cuda.empty_cache()
+
+    # Astaroth 256^3 xla-temporal[s=2]: one period and a tail
+    def mhd():
+        return Astaroth(N256, N256, N256, kernel="xla", exchange_every=2,
+                        dtype=torch.float32, devices=[CARD])
+
+    a = mhd()
+    a.init()
+    b = mhd()
+    seed_state(torch, b, a)
+    t0 = time.perf_counter()
+    got, want, la, lb = segment_against_stepwise(
+        torch, a, b, lambda m: HealthSentinel(m.dd), lambda m: m.dd.curr,
+        3, 1)
+    fa, wa = state_of(torch, a)
+    fb, wb = state_of(torch, b)
+    same = (got == want
+            and all(torch.equal(fa[q], fb[q]) for q in fa)
+            and all(torch.equal(wa[q], wb[q]) for q in wa))
+    log(f"  segment Astaroth 256^3 {b.kernel_path}, make_segment(3) "
+        f"(probe steps {list(b.make_segment(3).probe_steps)}) vs stepwise: "
+        f"fields, w and trace {'bitwise equal' if same else 'DIFFERENT'}; "
+        f"launches {lb} / {la}; no host sync inside "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same or la != lb:
+        raise AssertionError("the Astaroth segment disagrees with stepwise")
+    out["astaroth"] = {"path": b.kernel_path, "launches": lb}
+    del a, b, fa, wa, fb, wb
+    torch.cuda.empty_cache()
+    declines = {}
+    for kernel, overlap, mesh in (("wrap", False, (1, 1, 1)),
+                                  ("halo", False, (1, 2, 2)),
+                                  ("halo", True, (1, 2, 2))):
+        m = Astaroth(32, 32, 32, kernel=kernel, overlap=overlap,
+                     mesh_shape=mesh,
+                     devices=[CARD] * (mesh[1] * mesh[2]))
+        d = m.make_segment(2)
+        declines[m.kernel_path] = getattr(d, "code", None)
+        if d or d.code != DECLINE_INTERIOR_RESIDENT_STATE:
+            raise AssertionError(f"Astaroth {m.kernel_path} did not "
+                                 f"decline: {d!r}")
+    log(f"  Astaroth kernel paths decline: {declines}")
+    out["astaroth_declines"] = declines
+
+    # PIC 256^3 NGP float64 on (2,2,2), one particle a cell
+    g = PIC_GRID
+    total = g ** 3
+
+    def pic():
+        p = Pic(g, g, g, total, mesh_shape=PIC_MESH, devices=[CARD] * 8,
+                dtype=torch.float64, deposition="ngp", init=False)
+        p.set_shard_particles(pic_shard_particles(torch, p, total // 8,
+                                                  seed=5))
+        return p
+
+    a, b = pic(), pic()
+    t0 = time.perf_counter()
+    got, want, la, lb = segment_against_stepwise(
+        torch, a, b, lambda m: m.make_sentinel(), lambda m: m.state, 2, 1)
+    same = got == want and all(
+        torch.equal(u, v) for k in ("rho",) + PARTICLE_STATE_KEYS
+        for u, v in zip(a.state[k], b.state[k]))
+    log(f"  segment PIC {g}^3 NGP float64 {PIC_MESH}, make_segment(2) vs "
+        f"stepwise: every state tensor and the trace "
+        f"{'bitwise equal' if same else 'DIFFERENT'}; overflow column "
+        f"{[x['metrics'] for x in got]}; no host sync inside "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("the PIC segment disagrees with stepwise")
+    del a, b
+    torch.cuda.empty_cache()
+
+    # the race (three pooled, each beside) and the probe's cost a row
+    races = {}
+    for label, kernel, mesh in (("wrap 512^3", "wrap", (1, 1, 1)),
+                                ("halo 512^3 (1,2,2)", "halo", (1, 2, 2))):
+        runs = [megastep_race(lambda: jacobi_mesh(kernel, mesh),
+                              lambda m: HealthSentinel(m.dd),
+                              lambda m: m.dd.curr, SEG_RACE_K,
+                              SEG_RACE_STEPS)
+                for _ in range(SEG_RACE_REPS)]
+        n = SEG_RACE_REPS * SEG_RACE_STEPS
+        step = n / sum(SEG_RACE_STEPS / r[0] for r in runs)
+        fused = n / sum(SEG_RACE_STEPS / r[1] for r in runs)
+        races[label] = {"stepwise_steps_per_s": step,
+                        "fused_steps_per_s": fused,
+                        "runs": [list(r) for r in runs]}
+        log(f"  megastep_race {label}, k={SEG_RACE_K}, "
+            f"{SEG_RACE_STEPS} steps: stepwise {step!r} steps/s, segments "
+            f"{fused!r} steps/s, pooled over {SEG_RACE_REPS} "
+            f"(stepwise, segments, ratio each: {runs}) (card: {card})")
+        torch.cuda.empty_cache()
+    probe_ms = {}
+    for label, kernel, mesh in (("512^3 one shard", "wrap", (1, 1, 1)),
+                                ("512^3 four shards (1,2,2)", "halo",
+                                 (1, 2, 2))):
+        j = jacobi_mesh(kernel, mesh)
+        fields = {"temp": j.dd.curr["temp"]}
+        ms = event_ms(torch, lambda: probe_mesh(fields, j.dd.mesh), 10)
+        nbytes = sum(t.numel() * t.element_size() for t in fields["temp"])
+        bound, by = bound_ms(nbytes, 0.0)
+        probe_ms[label] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                           "bytes": nbytes}
+        log(f"  probe row, {label} float32: {ms!r} ms (bound {bound!r} "
+            f"ms: {nbytes} padded bytes over 3.35 TB/s) (card: {card})")
+        del j, fields
+        torch.cuda.empty_cache()
+    out["race"] = races
+    out["probe_ms"] = probe_ms
+    out["card"] = card
+    return out
+
+
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
@@ -5001,6 +5285,9 @@ def main() -> int:
     jbf16_path = run_jacobi_bf16(torch, cs, ch, co)
     log("phase 4: particle-in-cell, 256^3 on (2,2,2) shards of one card")
     pic = run_pic(torch)
+    log("phase 4: segments (make_segment) on Jacobi3D 512^3, Astaroth "
+        "256^3 xla-temporal[s=2] and PIC 256^3, against stepwise twins")
+    segments = run_segments(torch)
     log("phase 4: two ranks on the one card (gloo-staged), Jacobi3D 512^3 "
         "halo and xla, Astaroth 256x512x512 halo, against one process "
         "(card: " + card + ")")
@@ -5230,6 +5517,7 @@ def main() -> int:
                        jbf16_times["runs_steps_per_s"],
                    "jacobi_bf16_kernel_times": jbf16_times["kernels"],
                    "pic": pic,
+                   "segments": segments,
                    "two_ranks": two_ranks,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)

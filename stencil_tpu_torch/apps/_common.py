@@ -257,6 +257,52 @@ def sampled_steps_per_s(one, block, samples: int, batch: int,
     return stats, batch / stats.trimean()
 
 
+def megastep_race(make_engine, make_sentinel, fields_fn, k: int,
+                  n: int, probe_every: int = 1):
+    """The stepwise-against-segments race (JAX ``apps/_common.py:
+    213-262``): the stepwise side takes one ``step()`` and one health
+    probe per iteration, the fused side one ``make_segment(k,
+    probe_every)`` run per ``k`` steps with the probe rows kept on the
+    device — the same problem and health coverage. Engines expose
+    ``step()``, ``make_segment`` and ``block()``; a warm step and a warm
+    segment run outside the timed windows. Returns
+    ``(stepwise_steps_per_s, fused_steps_per_s, fused_over_stepwise)``."""
+    eng = make_engine()
+    sent = make_sentinel(eng)
+    eng.step()
+    sent.probe(fields_fn(eng), 0)
+    sent.poll(block=True)
+    eng.block()
+    t0 = time.perf_counter()
+    for i in range(n):
+        eng.step()
+        sent.probe(fields_fn(eng), i + 1)
+        sent.poll()
+    sent.poll(block=True)
+    eng.block()
+    step_dt = time.perf_counter() - t0
+
+    engf = make_engine()
+    fsent = make_sentinel(engf)
+    seg = engf.make_segment(k, probe_every=probe_every)
+    tr = seg.run(0)
+    fsent.observe_segment(tr.array, tr.abs_steps)
+    fsent.poll(block=True)
+    fsent.reset()
+    engf.block()
+    t0 = time.perf_counter()
+    done = 0
+    while done < n:
+        tr = seg.run(done)
+        done += k
+        fsent.observe_segment(tr.array, tr.abs_steps)
+        fsent.poll()
+    fsent.poll(block=True)
+    engf.block()
+    fused_dt = time.perf_counter() - t0
+    return n / step_dt, n / fused_dt, step_dt / fused_dt
+
+
 def add_bench_record_flags(ap: argparse.ArgumentParser) -> None:
     """``--json-out`` and ``--ledger`` (the observatory ledger waits for
     ROADMAP A12)."""

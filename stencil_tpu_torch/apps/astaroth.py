@@ -35,6 +35,12 @@ substep pair on the halo paths). ``--f64`` and ``--bf16`` choose the
 field dtype (float32 by default; bfloat16 is stored half-width and
 computed in float32, on the CUDA kernels too).
 
+``--fuse-segments`` advances ``--check-every`` iterations a sample as
+one segment (``parallel/megastep.py``: the health probe's rows kept on
+the device) and prints the per-iteration time; the interior-resident
+kernel paths (``wrap``, ``halo``, ``halo-overlap``) decline, print the
+reason on stderr and keep the per-iteration loop, as JAX's app does.
+
 Under ``python -m torch.distributed.run --nproc_per_node P`` each rank
 runs its own shards (``--devices`` are its own; ``--backend gloo`` puts
 several ranks on one card) and rank 0 prints the line; ``--dcn-axis`` /
@@ -45,6 +51,7 @@ several ranks on one card) and rank 0 prints the line; ``--dcn-axis`` /
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 from ..parallel.multihost import initialize_distributed
@@ -78,6 +85,15 @@ def main(argv=None) -> None:
     ap.add_argument("--overlap", action="store_true",
                     help="interior/exterior comm-compute overlap per "
                          "substep")
+    ap.add_argument("--fuse-segments",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="advance --check-every iterations a sample as one "
+                         "segment with the health probe kept on the device "
+                         "(xla and temporal paths; the interior-resident "
+                         "kernel paths decline and keep the per-iteration "
+                         "loop)")
+    ap.add_argument("--check-every", type=int, default=4,
+                    help="segment length (iterations) for --fuse-segments")
     add_device_flags(ap)
     add_method_flags(ap)
     add_dcn_flags(ap)
@@ -98,10 +114,31 @@ def main(argv=None) -> None:
                  exchange_every=args.exchange_every or None,
                  **dcn_from_args(args, devices))
     m.init()
+    segment = None
+    if args.fuse_segments:
+        segment = m.make_segment(max(args.check_every, 1))
+        if not segment:
+            print(f"# --fuse-segments: declined on the '{m.kernel_path}' "
+                  f"path ({segment.reason}); using the classic loop",
+                  file=sys.stderr)
+            segment = None
+    it = 0
+
+    def one() -> None:
+        nonlocal it
+        if segment is None:
+            m.step()
+            it += 1
+        else:
+            segment.run(it)
+            it += segment.steps
+
+    samples = (max(args.iters // segment.steps, 1) if segment is not None
+               else max(args.iters, 1))
     stats = Statistics()
-    for i in range(2 + max(args.iters, 1)):
+    for i in range(2 + samples):
         t0 = time.perf_counter()
-        m.step()
+        one()
         m.block()
         if i >= 2:
             stats.insert(time.perf_counter() - t0)
@@ -111,7 +148,8 @@ def main(argv=None) -> None:
         return
     print(",".join(str(f) for f in (
         m.dd.num_subdomains(), gx, gy, gz,
-        f"{stats.trimean():.6e}", f"{exch:.6e}", xstats["path"],
+        f"{stats.trimean() / (segment.steps if segment else 1):.6e}",
+        f"{exch:.6e}", xstats["path"],
         int(xstats["bytes_per_iteration"]))))
 
 

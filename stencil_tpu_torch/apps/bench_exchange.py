@@ -31,11 +31,23 @@ and added to ``--json-out`` as ``wire_layout_race``. Run it as
     python -m stencil_tpu_torch.apps.bench_exchange \\
         --devices cuda:0,cuda:0,cuda:0,cuda:0 --exchange-every 1,2,4
 
+Segments: ``--fuse-segments`` races ``--check-every``-step segments
+(``parallel/megastep.py``, the health probe's rows kept on the device)
+against the per-step loop of one step and one probe an iteration, on
+one device at the per-shard size, in three legs as JAX's
+(``apps/bench_exchange.py:335-415``): Jacobi ``xla``, PIC (256 CIC
+float32 particles, the whole state carried) and Astaroth's
+``xla-temporal[s=2]``, printed as
+
+    bench_exchange_megastep_<leg>,check_every,steps,stepwise steps/s,fused steps/s,ratio
+
+and the Jacobi leg once more as ``bench_exchange_megastep``; ``--json-out``
+adds them as ``fused``.
+
 Only CSV lines go to stdout. These options wait for an item of the
 ROADMAP and raise ``NotImplementedError`` naming it: ``--autotune``,
-``--tune-cache``, ``--metrics-json``, ``--ledger`` (A12);
-``--fuse-segments``, ``--check-every`` (A10). The JSON has no
-``link_classes`` block (the link observatory, A12).
+``--tune-cache``, ``--metrics-json``, ``--ledger`` (A12). The JSON has
+no ``link_classes`` block (the link observatory, A12).
 """
 
 from __future__ import annotations
@@ -46,8 +58,8 @@ import sys
 
 from ._common import (add_bench_record_flags, add_device_flags,
                       add_method_flags, csv_line, grouped_steps_per_s,
-                      mesh_from_args, methods_from_args, refuse_pending,
-                      timed_samples)
+                      megastep_race, mesh_from_args, methods_from_args,
+                      refuse_pending, timed_samples)
 
 
 def _parse_depths(text: str):
@@ -115,9 +127,11 @@ def main(argv=None) -> None:
     ap.add_argument("--metrics-json", default="", metavar="PATH",
                     help="telemetry metrics snapshot (ROADMAP A12)")
     ap.add_argument("--fuse-segments", action="store_true",
-                    help="megastep race (ROADMAP A10)")
-    ap.add_argument("--check-every", type=int, default=None,
-                    help="megastep segment length (ROADMAP A10)")
+                    help="race --check-every-step segments (health probe "
+                         "rows on the device) against the per-step loop "
+                         "on the same problems, on one device")
+    ap.add_argument("--check-every", type=int, default=8,
+                    help="segment length for --fuse-segments")
     ap.add_argument("--autotune", action="store_true",
                     help="exchange autotuner (ROADMAP A12)")
     ap.add_argument("--tune-cache", default="", metavar="PATH",
@@ -129,9 +143,7 @@ def main(argv=None) -> None:
     refuse_pending(args, [
         ("--autotune", "A12 (tuning)", False),
         ("--tune-cache", "A12 (tuning)", ""),
-        ("--metrics-json", "A12 (telemetry)", ""),
-        ("--fuse-segments", "A10 (megastep)", False),
-        ("--check-every", "A10 (megastep)", None)])
+        ("--metrics-json", "A12 (telemetry)", "")])
 
     import torch
 
@@ -257,6 +269,10 @@ def main(argv=None) -> None:
                   f"{sps:.3f} steps/s (x{sps_ratio:.2f} blocked loop)",
                   file=sys.stderr)
 
+    fused_cmp = None
+    if args.fuse_segments:
+        fused_cmp = _megastep_legs(args, devices[0])
+
     if args.json_out:
         base = results[0]
         results_by_s = {str(r["exchange_every"]): r for r in results}
@@ -282,9 +298,75 @@ def main(argv=None) -> None:
         }
         if layout_cmp is not None:
             payload["wire_layout_race"] = layout_cmp
+        if fused_cmp is not None:
+            payload["fused"] = fused_cmp
         with open(args.json_out, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)
+
+
+def _megastep_legs(args, device) -> dict:
+    """The three segment races on ``device`` (JAX
+    ``apps/bench_exchange.py:335-415``): Jacobi ``xla``, PIC and
+    Astaroth ``xla-temporal[s=2]`` at the per-shard size, ``n`` steps
+    rounded down to whole segments."""
+    import torch
+
+    from ..models.astaroth import Astaroth
+    from ..models.jacobi import Jacobi3D
+    from ..models.pic import Pic
+    from ..resilience.health import HealthSentinel
+
+    k = max(args.check_every, 1)
+    n = max(args.iters, k)
+    n -= n % k
+    ast_s = 2
+
+    def leg(name, make_engine, make_sentinel, fields_fn, **extra):
+        sps, fps, ratio = megastep_race(make_engine, make_sentinel,
+                                        fields_fn, k, n)
+        row = {"check_every": k, "steps": n,
+               "stepwise_steps_per_s": sps, "fused_steps_per_s": fps,
+               "fused_over_stepwise": ratio, **extra}
+        print(csv_line(f"bench_exchange_megastep_{name}", k, n,
+                       f"{sps:.3f}", f"{fps:.3f}", f"{ratio:.3f}"),
+              flush=True)
+        print(f"bench_exchange megastep[{name}]: segments[k={k}] "
+              f"{fps:.3f} steps/s vs per-step loop {sps:.3f} steps/s "
+              f"(x{ratio:.2f})", file=sys.stderr)
+        return row
+
+    def mk_jacobi():
+        j = Jacobi3D(args.x, args.y, args.z, mesh_shape=(1, 1, 1),
+                     devices=[device], dtype=torch.float32, kernel="xla",
+                     methods=methods_from_args(args))
+        j.init()
+        return j
+
+    def mk_pic():
+        return Pic(args.x, args.y, args.z, 256, mesh_shape=(1, 1, 1),
+                   devices=[device], dtype=torch.float32,
+                   deposition="cic")
+
+    def mk_astaroth():
+        a = Astaroth(args.x, args.y, args.z, mesh_shape=(1, 1, 1),
+                     devices=[device], dtype=torch.float32, kernel="xla",
+                     exchange_every=ast_s)
+        a.init()
+        return a
+
+    fused = leg("jacobi", mk_jacobi, lambda e: HealthSentinel(e.dd),
+                lambda e: e.dd.curr)
+    fused["pic"] = leg("pic", mk_pic, lambda e: e.make_sentinel(),
+                       lambda e: e.state)
+    fused["astaroth_temporal"] = leg(
+        "astaroth", mk_astaroth, lambda e: HealthSentinel(e.dd),
+        lambda e: e.dd.curr, exchange_every=ast_s)
+    print(csv_line("bench_exchange_megastep", k, n,
+                   f"{fused['stepwise_steps_per_s']:.3f}",
+                   f"{fused['fused_steps_per_s']:.3f}",
+                   f"{fused['fused_over_stepwise']:.3f}"), flush=True)
+    return fused
 
 
 if __name__ == "__main__":

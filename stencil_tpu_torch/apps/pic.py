@@ -9,10 +9,17 @@ mig_bytes_per_shard,overflow``.
 
     python -m stencil_tpu_torch.apps.pic --devices cpu,cpu,cpu,cpu
 
-Not in this slice: ``--fuse-segments`` (the megastep race; off by
-default here, where JAX's defaults on) waits for ROADMAP A10,
-``--resilient`` and the ``--chaos-*`` fault plan for A11, and
-``--metrics-json`` and ``--ledger`` for A12; each raises when given.
+``--fuse-segments`` (on by default, as JAX's): the segment race on one
+device at the per-device size (``_common.megastep_race``): one step and
+one health probe an iteration against one ``--fuse-check-every``-step
+segment (the probe rows, overflow column included, kept on the device),
+printed as ``pic-megastep,check_every,steps,stepwise steps/s,fused
+steps/s,ratio`` and added to ``--json-out`` as ``fused``;
+``--no-fuse-segments`` skips it.
+
+Not in this slice: ``--resilient`` and the ``--chaos-*`` fault plan wait
+for ROADMAP A11, ``--metrics-json`` and ``--ledger`` for A12; each
+raises when given.
 """
 
 from __future__ import annotations
@@ -22,8 +29,8 @@ import json
 
 from ._common import (add_bench_record_flags, add_device_flags,
                       add_dtype_flags, add_method_flags, csv_line,
-                      devices_from_args, dtype_from_args, methods_from_args,
-                      refuse_pending, sampled_steps_per_s)
+                      devices_from_args, dtype_from_args, megastep_race,
+                      methods_from_args, refuse_pending, sampled_steps_per_s)
 
 
 def main(argv=None) -> None:
@@ -45,9 +52,12 @@ def main(argv=None) -> None:
                          "(0 = capacity/4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fuse-segments",
-                    action=argparse.BooleanOptionalAction, default=False,
-                    help="megastep execution (ROADMAP A10: not ported)")
-    ap.add_argument("--fuse-check-every", type=int, default=8)
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="race --fuse-check-every-step segments (probe "
+                         "rows on the device) against the per-step loop "
+                         "of one step and one probe, on one device")
+    ap.add_argument("--fuse-check-every", type=int, default=8,
+                    help="segment length for the race")
     ap.add_argument("--metrics-json", default="", metavar="PATH",
                     help="telemetry snapshot (ROADMAP A12: not ported)")
     add_dtype_flags(ap)
@@ -72,7 +82,6 @@ def main(argv=None) -> None:
     res.add_argument("--chaos-seed", type=int, default=0)
     args = ap.parse_args(argv)
     refuse_pending(args, [
-        ("--fuse-segments", "A10 (megastep segments)", False),
         ("--resilient", "A11 (resilience)", False),
         ("--chaos-particle-loss", "A11 (resilience)", 0),
         ("--chaos-nan", "A11 (resilience)", 0),
@@ -101,6 +110,26 @@ def main(argv=None) -> None:
                    f"{1.0 / sps:.6e}", f"{psps:.6e}",
                    mig["migration_bytes_per_shard"],
                    int(p.overflow_total())))
+    fused = None
+    if args.fuse_segments:
+        k = max(args.fuse_check_every, 1)
+        nr = max(args.iters, k)
+        nr -= nr % k
+
+        def mk():
+            return Pic(args.x, args.y, args.z, args.particles,
+                       mesh_shape=(1, 1, 1), devices=devices[:1],
+                       dtype=dtype_from_args(args),
+                       deposition=args.deposition, dt=args.dt,
+                       seed=args.seed)
+
+        sps_s, fps, ratio = megastep_race(
+            mk, lambda e: e.make_sentinel(), lambda e: e.state, k, nr)
+        fused = {"check_every": k, "steps": nr,
+                 "stepwise_steps_per_s": sps_s, "fused_steps_per_s": fps,
+                 "fused_over_stepwise": ratio}
+        print(csv_line("pic-megastep", k, nr, f"{sps_s:.3f}", f"{fps:.3f}",
+                       f"{ratio:.3f}"))
     if args.json_out:
         rec = {"bench": "pic",
                "config": {"grid": [gx, gy, gz], "devices": ndev,
@@ -113,6 +142,8 @@ def main(argv=None) -> None:
                "migration_bytes_per_shard": mig["migration_bytes_per_shard"],
                "overflow": p.overflow_total(),
                "total_charge": p.total_charge()}
+        if fused is not None:
+            rec["fused"] = fused
         with open(args.json_out, "w") as f:
             json.dump(rec, f, indent=1)
 

@@ -44,6 +44,10 @@ make_exchange``, which gates a narrowing format behind a precision
 certificate (``precision_certificate``), and prices the bytes at the
 wire's width and layout.
 
+Segments (``make_segment``): ``k`` applications of a caller's step over
+the shards with the health probe kept on the device
+(``parallel/megastep.py``).
+
 Not ported: the exchange autotuner (ROADMAP A12), the plan file
 (``_write_plan``, A5) and QAP placement (``set_placement("qap")`` raises
 at realize(): A5).
@@ -487,6 +491,22 @@ class DistributedDomain:
         if self.local_size is None:
             raise RuntimeError("realize() first")
         self._exchange_fn(self.curr)
+
+    def make_segment(self, shard_step, check_every: int,
+                     probe_every: int = 1, metrics=None):
+        """``check_every`` applications of ``shard_step`` (``fields ->
+        fields`` over the ``{name: [padded shard, ...]}`` dict) with the
+        health probe on the device every ``probe_every`` steps — a
+        megastep (``parallel/megastep.py``). The returned ``Segment``
+        advances ``curr`` per ``run()`` and hands back the stacked probe
+        trace; ``metrics`` (``telemetry.probe.StepMetrics``) adds the
+        telemetry columns to its rows."""
+        if self.local_size is None:
+            raise RuntimeError("realize() first")
+        from .parallel.megastep import make_domain_segment
+        return make_domain_segment(self, shard_step, check_every,
+                                   probe_every=probe_every,
+                                   metrics=metrics)
 
     def swap(self) -> None:
         """Swap curr/next bindings (reference: src/local_domain.cu:67-84);

@@ -84,6 +84,11 @@ ranks as messages, ``field`` and ``accumulator`` are collectives, and
 ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts, with
 JAX's x-unsharded mesh for the halo paths (``models/astaroth.py:
 249-266``).
+
+``make_segment(k)`` (``parallel/megastep.py``) runs ``k`` iterations of
+the ``xla`` paths with ``w`` carried and a health-probe row on the
+device after each chunk; the kernel paths keep their state outside
+``dd.curr`` and decline, as JAX's do.
 """
 
 from __future__ import annotations
@@ -518,6 +523,82 @@ class Astaroth:
                 " with Method.PallasDMA (B4)"
                 if self._method == Method.PallasDMA else ""))
         self.kernel_path = kernel
+        self._build_segment()
+
+    # -- megastep: campaign segments ------------------------------------
+    def _build_segment(self) -> None:
+        """The segment builder of the built path (JAX
+        models/astaroth.py:548, :756, :1062-1069): a chunk is one
+        ``run(c)``: on ``xla`` and ``xla-overlap`` one iteration, on
+        ``xla-temporal[s=…]`` a whole ``lcm(3, s)``-period block
+        (``lcm(3, s)/3`` iterations, every group's RK phase static, w
+        shipped in the deep exchange where a group starts at alpha != 0)
+        or a tail iteration of three depth-1 groups. The interior-resident
+        kernel paths keep their state in ``self._inner``, outside
+        ``dd.curr``, and decline."""
+        from ..parallel.megastep import DECLINE_INTERIOR_RESIDENT_STATE
+
+        if self.kernel_path in ("wrap", "halo", "halo-overlap"):
+            self._set_segment_decline(
+                "interior-resident state (self._inner, one (8, Z, Y, X) "
+                "tensor a shard) lives outside dd.curr between the "
+                "extract and the insert (sync_domain)",
+                code=DECLINE_INTERIOR_RESIDENT_STATE)
+        else:
+            self._set_segment_builder(
+                self.run, math.lcm(3, self.dd.exchange_every) // 3
+                if self._w_padded else 1)
+
+    def _set_segment_builder(self, advance_iters, stride: int = 1) -> None:
+        """Register the segment factory: the ``(fields, w)`` pair is the
+        carry (``dd.curr`` and ``self._w``, advanced in place), the probe
+        reads the 8 padded fields after each chunk of
+        ``advance_iters(c)`` iterations (``c`` the stride or 1)."""
+        from ..parallel import megastep as ms
+
+        def state_fn():
+            self._ensure_w()
+            return (self.dd.curr, self._w)
+
+        def adopt(out):
+            self.dd.curr, self._w = out
+
+        def step(fw, c, i):
+            advance_iters(c)
+            return (self.dd.curr, self._w)
+
+        self._segment_decline = None
+        self._segment_builder = ms.SegmentCompiler(
+            self.dd.mesh,
+            ms.CarryContract(
+                probe_view=lambda fw: {q: fw[0][q] for q in FIELDS},
+                stride=stride),
+            step, state_fn, adopt)
+
+    def _set_segment_decline(self, reason: str,
+                             code: Optional[str] = None) -> None:
+        self._segment_builder = None
+        self._segment_decline = reason
+        self._segment_decline_code = code
+
+    def make_segment(self, check_every: int, probe_every: int = 1,
+                     metrics=None):
+        """A ``Segment`` advancing ``check_every`` RK3 iterations with
+        the health probe kept on the device (``parallel/megastep.py``);
+        the ``w`` accumulators are carried with the fields. The
+        interior-resident kernel paths return a falsy ``SegmentDecline``
+        (code ``interior-resident-state``)."""
+        builder = getattr(self, "_segment_builder", None)
+        if builder is None:
+            from ..parallel import megastep as ms
+            reason = (getattr(self, "_segment_decline", None)
+                      or "no fused-segment builder for this path")
+            code = (getattr(self, "_segment_decline_code", None)
+                    or ms.DECLINE_NO_BUILDER)
+            return ms.decline("astaroth", self.kernel_path, reason,
+                              code=code)
+        return builder(int(check_every), max(int(probe_every), 1),
+                       metrics)
 
     # -- stepping -------------------------------------------------------
     def step(self) -> None:

@@ -78,10 +78,15 @@ move the slabs that cross between ranks as messages, ``temperature()``
 is a collective, and the overlap paths and ``PallasDMA`` raise (ROADMAP
 A4c). ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts
 (``DistributedDomain.set_dcn_axis``; JAX ``models/jacobi.py:309-326``).
+
+``make_segment(k)`` (``parallel/megastep.py``) runs ``k`` steps of any
+path through the same kernels as ``run(k)``, in the blocked loops'
+chunks, with a health-probe row on the device after each chunk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -499,6 +504,7 @@ class Jacobi3D:
                                            per_iter_div=1)
         self._base_kernel = kernel
         self.kernel_path = path
+        self._build_segment()
 
     def _build_halo_step(self, tile: int) -> None:
         """JAX's ``_build_halo_step`` rules (models/jacobi.py:838-878):
@@ -529,6 +535,84 @@ class Jacobi3D:
                  per_iter_div=N) if pair_ok
             else dict(rz=1, ry=1, radius_rows=1, y_z_extended=False,
                       per_iter_div=1))
+
+    # -- megastep: campaign segments ------------------------------------
+    def _build_segment(self) -> None:
+        """The segment builder of the built path (JAX's registrations,
+        models/jacobi.py:588, :662, :731, :812, :908). A chunk of ``c``
+        steps is one ``run(c)``, which at the path's stride is one group
+        and at 1 a single tail step: a padded path's step,
+        ``xla-temporal[s=…]``'s group of ``s`` or depth-1 step, one K2/B6
+        launch (a shard) or K1/B5 step on ``wrap``/``halo``, the interior
+        sliced out and written back per chunk so that every probe row
+        reads current state. ``overlap``: a B7 step a chunk, all in one
+        session of its receive slabs. JAX gates that path on its schedule
+        certificate; the port has no certifier yet (ROADMAP A14), so it
+        builds the segment directly."""
+        path = self.kernel_path
+        if path == "overlap":
+            self._overlap_recv_for()
+            self._set_segment_builder(
+                self._overlap_chunk,
+                session=lambda: self._overlap_recv.session())
+            return
+        stride = (self._wrap_n if path == "wrap" and self._pair_ok
+                  else self._halo_n if path == "halo" and self._halo_pair_ok
+                  else self.dd.exchange_every
+                  if path.startswith("xla-temporal") else 1)
+        self._set_segment_builder(self.run, stride)
+
+    def _set_segment_builder(self, advance, stride: int = 1,
+                             session=None) -> None:
+        """Register the segment factory of the built path:
+        ``advance(steps)`` moves every shard ``steps`` steps in place
+        (``steps`` is the path's stride or a single tail step). The carry
+        is the padded field's shards; ``make_segment`` builds segments
+        through ``parallel/megastep.SegmentCompiler``."""
+        from ..parallel import megastep as ms
+
+        def adopt(out):
+            self.dd.curr["temp"] = out
+
+        def step(p, c, i):
+            advance(c)
+            return p
+
+        self._segment_decline = None
+        self._segment_builder = ms.SegmentCompiler(
+            self.dd.mesh,
+            ms.CarryContract(probe_view=lambda p: {"temp": p},
+                             stride=stride),
+            step, lambda: self.dd.curr["temp"], adopt, session=session)
+
+    def _set_segment_decline(self, reason: str,
+                             code: Optional[str] = None) -> None:
+        """The built path cannot run segments: record why (prose and a
+        ``megastep.DECLINE_*`` code) for ``make_segment``."""
+        self._segment_builder = None
+        self._segment_decline = reason
+        self._segment_decline_code = code
+
+    def make_segment(self, check_every: int, probe_every: int = 1,
+                     metrics=None):
+        """A ``Segment`` advancing ``check_every`` iterations with the
+        health probe kept on the device every ``probe_every`` steps
+        (``parallel/megastep.py``): ``seg.run(base_step)`` advances the
+        field in place through the same kernels as ``run`` and returns
+        the probe trace; ``metrics`` (``telemetry.probe.StepMetrics``)
+        adds the step-metric columns. A path that cannot run segments
+        returns a falsy ``SegmentDecline`` with the reason."""
+        builder = getattr(self, "_segment_builder", None)
+        if builder is None:
+            from ..parallel import megastep as ms
+            reason = (getattr(self, "_segment_decline", None)
+                      or "no fused-segment builder for this path")
+            code = (getattr(self, "_segment_decline_code", None)
+                    or ms.DECLINE_NO_BUILDER)
+            return ms.decline("jacobi", self.kernel_path, reason,
+                              code=code)
+        return builder(int(check_every), max(int(probe_every), 1),
+                       metrics)
 
     # -- stepping -------------------------------------------------------
     def step(self) -> None:
@@ -692,20 +776,52 @@ class Jacobi3D:
         stale. The shards' receive slabs persist across runs. The steps
         run in one ``OverlapRecv.session``: between them only B7's two
         ordering rules join the shards' streams."""
+        self._overlap_steps(n, self._overlap_recv_for().session)
+
+    def _overlap_recv_for(self) -> OverlapRecv:
+        """The shards' persistent receive slabs and stream ordering,
+        made at first use."""
+        if self._overlap_recv is None:
+            cap = self._capacity_slices()
+            self._overlap_recv = OverlapRecv(
+                [p[cap].contiguous() for p in self.dd.curr["temp"]],
+                self.dd.mesh_counts)
+        return self._overlap_recv
+
+    def _overlap_chunk(self, n: int) -> None:
+        """A segment's chunk of ``n`` B7 steps inside the segment's one
+        session: the shard streams wait for the current streams before
+        the steps and the current streams for the shard streams after
+        them, since the chunk's write-back and the probe run on the
+        current streams."""
+        streams = self._overlap_recv.streams
+
+        @contextlib.contextmanager
+        def joined():
+            if streams is not None:
+                streams.enter()
+            yield
+            if streams is not None:
+                streams.exit()
+
+        self._overlap_steps(n, joined)
+
+    def _overlap_steps(self, n: int, around) -> None:
+        """Slice the interiors, run ``n`` B7 steps inside the context
+        ``around()`` makes (it orders the shard streams after the slices
+        and the current streams after the steps), write them back."""
         dd = self.dd
         counts, local = dd.mesh_counts, dd.local_size
         hot, cold, sph_r = sphere_geometry(dd.size)
         cap = self._capacity_slices()
+        recv = self._overlap_recv
         a = [p[cap].contiguous() for p in dd.curr["temp"]]
         b = [torch.empty_like(t) for t in a]
         orgs = []
         for i in range(len(a)):
             ox, oy, oz = shard_origin(local, dd.rem, dd.shard_index(i))
             orgs.append((oz, oy, ox))
-        if self._overlap_recv is None:
-            self._overlap_recv = OverlapRecv(a, counts)
-        recv = self._overlap_recv
-        with recv.session():
+        with around():
             for _ in range(n):
                 jacobi7_overlap_cuda(a, orgs, hot, cold, sph_r, counts,
                                      out=b, recv=recv)

@@ -31,9 +31,14 @@ there; NGP of unit charges in float64 is exact in any order).
 Boundaries are periodic. State per shard: ``rho`` (``dd.curr["rho"]``,
 updated in place) and the particle SoA fields, ``valid`` and
 ``overflow`` in ``state``, each a list over the shards (x fastest).
-Not ported: ``make_segment`` (ROADMAP A10), ``make_sentinel`` and
-``run_resilient`` (A11), the ``perf_model_*`` hooks and the telemetry
-export (A12); each raises ``NotImplementedError`` naming its item.
+
+Segments (``make_segment``, ``parallel/megastep.py``) carry the whole
+state; their probe rows, like ``make_sentinel``'s probes, reduce rho and
+the seven particle lanes with the per-shard cumulative overflow as an
+extra column on the same reduction (its max over the shards).
+Not ported: ``run_resilient`` (ROADMAP A11), the ``perf_model_*`` hooks
+and the telemetry export (A12); each raises ``NotImplementedError``
+naming its item.
 """
 
 from __future__ import annotations
@@ -147,6 +152,8 @@ class Pic:
         #: records every message between two mesh positions while set
         #: (a ``WireProbe``); None otherwise
         self.probe: Optional[WireProbe] = None
+        self._probe_names = ["rho"] + list(PARTICLE_FIELDS)
+        self._build_segment_builder()
         if init:
             self.init()
 
@@ -392,6 +399,70 @@ class Pic:
         for _ in range(int(iters)):
             self.step()
 
+    # -- megastep: campaign segments -------------------------------------
+    def _probe_extra(self, st) -> Dict[str, List[torch.Tensor]]:
+        """The overflow column: each shard's cumulative drop count."""
+        return {"migration_overflow": [o[0] for o in st["overflow"]]}
+
+    def segment_contract(self):
+        """The PIC carry contract (``parallel/megastep.py``): the whole
+        state — the padded rho, every particle lane, ``valid`` and the
+        overflow counts —, probe rows over rho and the seven lanes with
+        the cumulative migration-overflow count as an extra column on
+        the same reduction (the column layout ``make_sentinel``'s
+        ``extra_names`` decode)."""
+        from ..parallel.megastep import CarryContract
+
+        return CarryContract(
+            probe_view=lambda st: {q: st[q] for q in self._probe_names},
+            probe_extra=self._probe_extra)
+
+    def _adopt(self, out) -> None:
+        self.state = out
+        self.dd.curr["rho"] = self.state["rho"]
+
+    def _build_segment_builder(self) -> None:
+        from ..parallel.megastep import SegmentCompiler
+
+        def advance(st, c, i):
+            self.run(c)
+            return self.state
+
+        self._segment_builder = SegmentCompiler(
+            self.dd.mesh, self.segment_contract(), advance,
+            lambda: self.state, self._adopt,
+            # the sentinel decodes PIC's own overflow column; telemetry
+            # columns would shift it, so the rows keep the contract's
+            # columns whatever ``metrics`` is
+            use_metrics=False)
+
+    def make_segment(self, check_every: int, probe_every: int = 1,
+                     metrics=None):
+        """A ``Segment`` advancing ``check_every`` PIC steps (deposit,
+        accumulate, exchange, gather, push, migrate), with the health
+        probe (rho, the particle lanes and the overflow column) on the
+        device every ``probe_every`` steps. ``metrics`` is accepted for
+        the drivers' interface and ignored (see ``segment_contract``)."""
+        return self._segment_builder(int(check_every),
+                                     max(int(probe_every), 1), metrics)
+
+    def make_sentinel(self, window: int = 8, growth_factor: float = 1e6):
+        """A ``resilience.health.HealthSentinel`` over the live state (rho
+        and every particle lane), the overflow column riding the probe's
+        reduction (``HealthStats.metrics['migration_overflow']``). The
+        reduction is a max, so the column is the WORST shard's cumulative
+        drop count; ``overflow_total()`` is the sum."""
+        from ..resilience.health import HealthSentinel, probe_mesh
+
+        names = self._probe_names
+        return HealthSentinel(
+            self.dd, window=window, growth_factor=growth_factor,
+            names=names,
+            probe_fn=lambda st, step: probe_mesh(
+                {q: st[q] for q in names}, self.dd.mesh,
+                self._probe_extra(st)),
+            extra_names=("migration_overflow",))
+
     def block(self) -> None:
         device_sync(self.state["rho"] + self.state["x"])
 
@@ -436,13 +507,6 @@ class Pic:
         }
 
     # -- not ported yet ----------------------------------------------------
-    def make_segment(self, check_every: int, probe_every: int = 1,
-                     metrics=None):
-        raise _deferred("A10", "make_segment")
-
-    def make_sentinel(self, window: int = 8, growth_factor: float = 1e6):
-        raise _deferred("A11", "make_sentinel")
-
     def run_resilient(self, n_steps: int, policy=None,
                       ckpt_dir: Optional[str] = None, faults=None):
         raise _deferred("A11", "run_resilient")

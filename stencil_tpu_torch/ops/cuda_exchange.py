@@ -293,7 +293,11 @@ class ExchangePlan:
             for cs in per_card:
                 rows[cs.card] += cs.rows
         for c in self.cards:
-            t = torch.tensor(rows[c], dtype=torch.int64, device=c)
+            # queued on the current stream from pinned memory (nothing
+            # waits for the card); start_sweeps orders the side stream
+            # after it
+            t = torch.tensor(rows[c], dtype=torch.int64).pin_memory().to(
+                c, non_blocking=True)
             t.record_stream(card_stream(c))
             self.tables[c] = t
         row_bytes = 8 * len(ENTRY_FIELDS)

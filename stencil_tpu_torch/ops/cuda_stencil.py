@@ -122,7 +122,7 @@ def impose_spheres(vals: torch.Tensor, hot_c: Tuple[int, int, int],
         d2 = (((gz - cz) ** 2)[:, None, None] + ((gy - cy) ** 2)[None, :, None]
               + ((gx - cx) ** 2)[None, None, :])
         vals = torch.where(d2 <= r2,
-                           torch.tensor(temp, dtype=vals.dtype, device=dev),
+                           torch.full((), temp, dtype=vals.dtype, device=dev),
                            vals)
     return vals
 

@@ -63,8 +63,10 @@ def central_diff(padded: torch.Tensor, axis: int, radius: Radius,
 
 def sixth(dtype: torch.dtype, device) -> torch.Tensor:
     """1/6 rounded once to ``dtype`` — the ``dt.type(1.0 / 6.0)`` of the
-    JAX kernels — as a 0-dim tensor, so the multiply runs in ``dtype``."""
-    return torch.tensor(1.0 / 6.0, dtype=dtype, device=device)
+    JAX kernels — as a 0-dim tensor, so the multiply runs in ``dtype``.
+    Made by a fill on ``device``: a copy from host memory would wait for
+    the card."""
+    return torch.full((), 1.0 / 6.0, dtype=dtype, device=device)
 
 
 def write_interior(padded: torch.Tensor, interior_vals: torch.Tensor,

@@ -211,8 +211,6 @@ def test_machine_info_lists_the_devices(capsys):
     (bench_exchange, ["--tune-cache", "plans.json"], "A12"),
     (bench_exchange, ["--metrics-json", "m.json"], "A12"),
     (bench_exchange, ["--ledger", "ledger.jsonl"], "A12"),
-    (bench_exchange, ["--fuse-segments"], "A10"),
-    (bench_exchange, ["--check-every", "8"], "A10"),
     (jacobi3d_strong, ["--random"], "A5"),
 ])
 def test_pending_options_raise_naming_their_item(app, argv, item):

@@ -77,13 +77,22 @@ def _models(case):
     return j, p
 
 
-@pytest.fixture(scope="module", params=list(CASES))
+#: the cases this file runs; ``test_torch_astaroth_temporal_more.py``
+#: runs the others, so that a worker of ``--dist loadfile`` compiles
+#: half of the JAX models
+HERE = ("s2", "s2-mesh221", "s4")
+
+
+@pytest.fixture(scope="module", params=HERE)
 def runs(request):
+    return run_case(request.param)
+
+
+def run_case(case):
     """Per case: the JAX and port states after each of the two runs, both
     models' exchange_stats, and a second port model that took JAX's
     fields and padded w after the first run (``load_state``), as loaded
     and after the second run."""
-    case = request.param
     mesh, size, s, overlap, dtype, (n1, n2) = CASES[case]
     j, p = _models(case)
     assert p.kernel_path == j.kernel_path

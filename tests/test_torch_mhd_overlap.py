@@ -147,11 +147,29 @@ CASE_IDS = [f"{''.join(map(str, m))}-{np.dtype(d).name}-"
             for m, d, s, rw, ww, pr in CASES]
 
 
-@pytest.fixture(scope="module", params=CASES, ids=CASE_IDS)
+#: the cases this file runs (two substep pairs among them);
+#: ``test_torch_mhd_overlap_more.py`` runs the others, so that a worker
+#: of ``--dist loadfile`` interprets half of the JAX kernels
+HERE = ("112-float64-pair", "122-float32-pair", "112-float64-s1",
+        "112-float32-s2-no_w_out")
+
+
+def _cases(here: bool):
+    """(params, ids) of the cases in ``HERE`` or, with ``here`` False,
+    of the others."""
+    sel = [(c, i) for c, i in zip(CASES, CASE_IDS) if (i in HERE) == here]
+    return {"params": [c for c, _ in sel], "ids": [i for _, i in sel]}
+
+
+@pytest.fixture(scope="module", **_cases(True))
 def case(request):
+    return run_case(request.param)
+
+
+def run_case(param):
     """One variant run through JAX's interpreted kernels and the port's
     twins on the same seeded shards."""
-    mesh, dtype, s, read_w, write_w, pair = request.param
+    mesh, dtype, s, read_w, write_w, pair = param
     G = (LOCAL[0] * mesh[2], LOCAL[1] * mesh[1], LOCAL[2])
     rng = np.random.default_rng(6100 + 7 * s + mesh[1])
     f = {q: (0.1 * rng.normal(size=G)).astype(dtype) for q in FIELDS}

@@ -118,6 +118,27 @@ def test_jacobi_on_four_ranks_equals_one_process(four_ranks, tag, kernel,
                                   j.temperature().view(np.uint32))
 
 
+def test_segment_across_ranks_equals_one_process(two_ranks):
+    """Jacobi3D ``halo`` on (1,2,2), two shards on each of two ranks: a
+    5-step segment (probe rows every 2 steps, their max across the ranks
+    one all_reduce a row) gives the one-process segment's field and trace
+    bitwise, and the one-process field equals its ``run(5)``."""
+    j = Jacobi3D(16, 16, 16, kernel="halo", mesh_shape=(1, 2, 2),
+                 devices=["cpu"] * 4)
+    j.init()
+    tr = j.make_segment(workers.SEGMENT_STEPS, probe_every=2).run(0)
+    ref = Jacobi3D(16, 16, 16, kernel="halo", mesh_shape=(1, 2, 2),
+                   devices=["cpu"] * 4)
+    ref.init()
+    ref.run(workers.SEGMENT_STEPS)
+    np.testing.assert_array_equal(j.temperature(), ref.temperature())
+    got = np.load(two_ranks / "segment_halo.npy")
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  j.temperature().view(np.uint32))
+    np.testing.assert_array_equal(
+        np.load(two_ranks / "segment_halo_trace.npy"), tr.array.numpy())
+
+
 @pytest.mark.parametrize("path", ["jacobi_overlap", "jacobi_halo_overlap",
                                   "jacobi_pallas_dma", "allgather",
                                   "astaroth_halo_overlap", "pic"])

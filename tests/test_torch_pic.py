@@ -362,9 +362,7 @@ def test_state_from_jax_round_trips_and_continues():
 
 def test_deferred_hooks_name_their_queue_items():
     p = Pic(8, 8, 8, 16, mesh_shape=(1, 1, 1), devices=["cpu"])
-    for call, item in ((lambda: p.make_segment(4), "A10"),
-                       (p.make_sentinel, "A11"),
-                       (lambda: p.run_resilient(2), "A11"),
+    for call, item in ((lambda: p.run_resilient(2), "A11"),
                        (p.perf_model_step_seconds, "A12")):
         with pytest.raises(NotImplementedError, match=item):
             call()
@@ -396,8 +394,9 @@ with reference_block_planner():
 def test_app_prints_jax_columns(capsys):
     """``apps/pic.py`` on four CPU shards prints JAX's CSV line: every
     column but the three measured ones (min, trimean, particle steps/s)
-    equal to JAX's app on four fake CPU devices; the options that wait
-    for A10, A11 and A12 raise naming them."""
+    equal to JAX's app on four fake CPU devices (both without the
+    segment race, ``tests/test_torch_megastep_apps.py``'s); the options
+    that wait for A11 and A12 raise naming them."""
     import os
     import subprocess
     import sys
@@ -416,7 +415,7 @@ def test_app_prints_jax_columns(capsys):
                          text=True, timeout=300, cwd=str(root), env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     want = [ln for ln in out.stdout.splitlines() if ln.startswith("pic,")]
-    app.main(argv + ["--devices", "cpu,cpu,cpu,cpu"])
+    app.main(argv + ["--no-fuse-segments", "--devices", "cpu,cpu,cpu,cpu"])
     got = [ln for ln in capsys.readouterr().out.splitlines()
            if ln.startswith("pic,")]
     assert len(got) == len(want) == 1
@@ -427,8 +426,7 @@ def test_app_prints_jax_columns(capsys):
             float(a), float(b)
         else:
             assert a == b, (i, g, w)
-    for flags, item in ((["--fuse-segments"], "A10"),
-                        (["--resilient"], "A11"),
+    for flags, item in ((["--resilient"], "A11"),
                         (["--chaos-nan", "3"], "A11"),
                         (["--metrics-json", "m.json"], "A12"),
                         (["--ledger", "l.jsonl"], "A12")):

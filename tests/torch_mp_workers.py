@@ -44,6 +44,9 @@ JACOBI_CASES = (("halo_s1", "halo", (1, 2, 4), 1),
 
 #: the checkerboard placement of a (2,2,2) mesh on two ranks: every
 #: neighbour along every axis lies on the other rank
+#: the segment of ``two_rank_cases`` (halo on (1,2,2))
+SEGMENT_STEPS = 5
+
 CHECKERBOARD = [(x + y + z) % 2 for z in range(2) for y in range(2)
                 for x in range(2)]
 
@@ -167,6 +170,17 @@ def two_rank_cases(rank: int, out: str) -> None:
         fields = {q: m.field(q) for q in ("lnrho", "uux", "ax", "ss")}
         if rank == 0:
             np.savez(os.path.join(out, f"{tag}.npz"), **fields)
+    # a segment on the halo path over (1,2,2), two shards a rank: its
+    # probe rows reduce across the ranks (one all_reduce a row)
+    j = Jacobi3D(16, 16, 16, kernel="halo", mesh_shape=(1, 2, 2),
+                 devices=devs2)
+    j.init()
+    tr = j.make_segment(SEGMENT_STEPS, probe_every=2).run(0)
+    temp = j.temperature()
+    if rank == 0:
+        np.save(os.path.join(out, "segment_halo.npy"), temp)
+        np.save(os.path.join(out, "segment_halo_trace.npy"),
+                tr.array.numpy())
     got = _refusals(devs2)
     try:
         check_transport("nccl", global_devices(["cpu"]))

@@ -4,9 +4,21 @@ stencil_tpu (tests/test_torch_*.py)."""
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 
 import numpy as np
+import torch
+
+# Under pytest-xdist each worker is a process whose torch takes one
+# intra-op thread a core, so N workers oversubscribe the cores N times
+# and the port's many small CPU ops spin against each other (four
+# workers on 8 cores ran the two heaviest files 2.3x slower). Every
+# worker imports this module when it collects the tests: give each its
+# share of the cores.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1") or 1)
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 #: names newer jax releases moved from ``jax.core`` to
 #: ``jax.extend.core``; ``stencil_tpu/analysis/jaxprs.py`` reads them
