@@ -243,18 +243,32 @@ Phases, in order; any failure exits non-zero before the last line:
      float64 at 1 particle a cell, the total charge equal to the count
      exactly after every step.
    - Two ranks on the one card (``run_two_ranks``): two processes
-     (``multihost.spawn_ranks``, ``gloo``: every message between them
-     staged through host memory), two shards each of (1,2,2).
-     ``Jacobi3D(512, 512, 512)`` ``halo`` (B6 x 10 + B5 x 1 a shard per
-     ``run(21)``, counted in each rank) and ``xla``, each ``run(21)``,
-     and ``Astaroth(256, 512, 512)`` ``halo`` ``run(2)`` (B11 x 6 a
-     shard) from a state seeded on the card; each gathered on rank 0
-     (``temperature()``, ``field(q)``: collectives) and held bitwise
-     against the same path in this one process, by SHA-256 of the
-     arrays; steps/s (iterations/s) of both beside each other, three
-     timed runs pooled (each run's rate beside it). With two
-     or more cards the Jacobi ``halo`` case runs again with ``nccl``,
-     one rank a card; with one card a line says why it did not.
+     (``multihost.spawn_ranks``, ``gloo`` for the group), two shards
+     each of (1,2,2) (PIC: four of (2,2,2)), every case of
+     ``TWO_RANK_CASES``: ``Jacobi3D(512, 512, 512)`` ``halo`` (B6 x 10
+     + B5 x 1 a shard per ``run(21)``) and ``xla``, and
+     ``Astaroth(256, 512, 512)`` ``halo`` ``run(2)`` (B11 x 6 a shard),
+     whose slabs go as gloo messages staged through host memory; the
+     remote-write kernels across processes (``IPC_CASES``): Jacobi
+     ``overlap`` (B7, ``run(21)``), ``pallas`` with ``PallasDMA`` (K3 +
+     B4, ``run(4)``) and Astaroth ``halo-overlap`` with and without the
+     pair (B13/B14, ``run(2)``), whose only cross-process path is the
+     other rank's buffers mapped through CUDA IPC and device-side flags
+     (``parallel/ipc.py``: no message through the group, checked); and
+     ``xla-overlap`` and ``xla`` with ``AllGather`` (``run(21)``) and
+     PIC 256^3 NGP float64 (2 steps, the total charge equal to the count
+     exactly). Each from a state seeded on the card, gathered on rank 0
+     (collectives) and held bitwise against the same path in this one
+     process, by SHA-256 of the arrays; each rank's launch deltas and
+     their sum against the one process's (equal, except B4's, which
+     launches once a card and sweep in every process: twice the one
+     process's); steps/s (iterations/s) beside the one process's and,
+     for the IPC cases, beside the world's Jacobi ``halo``; three
+     timed runs pooled (each run's rate beside it; PIC one); each case
+     ends with ``ipc.release``. With two or more cards the Jacobi
+     ``halo`` case and the IPC cases run again with ``nccl``, one rank a
+     card (IPC over NVLink); with one card a line says why they did
+     not.
    - Segments (``run_segments``, ``parallel/megastep.py``): at 512^3
      ``Jacobi3D`` ``wrap`` in float32 and bfloat16 (K2, K2, K1 a
      5-step segment), ``halo`` and ``overlap`` on four 512 x 256 x 256
@@ -347,6 +361,7 @@ the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import io
 import json
 import os
@@ -4900,9 +4915,10 @@ TWO_RANK_MHD_ITERS = 2
 #: timed runs a case, pooled (host-clocked rates can halve between runs)
 TWO_RANK_REPS = 3
 #: untimed steps (iterations) first, the same in every process
-TWO_RANK_WARMUP = {"jacobi": 2, "astaroth": 1}
+TWO_RANK_WARMUP = {"jacobi": 2, "astaroth": 1, "pic": 0}
 TWO_RANK_MESH = (1, 2, 2)
-TWO_RANK_SIZE = {"jacobi": "512^3", "astaroth": "256x512x512"}
+TWO_RANK_SIZE = {"jacobi": "512^3", "astaroth": "256x512x512",
+                 "pic": "256^3 NGP float64"}
 TWO_RANK_OUT = os.path.join("chiprun_out", "two_ranks")
 
 
@@ -4933,12 +4949,13 @@ def seed_mhd(torch, m, card: str, seed: int = 18) -> None:
         m.dd.set_interior(q, v)
 
 
-def timed(run, block, n: int, barrier=None) -> dict:
-    """``TWO_RANK_REPS`` runs of ``run(n)``, each started and ended by
+def timed(run, block, n: int, barrier=None, reps: int = TWO_RANK_REPS
+          ) -> dict:
+    """``reps`` runs of ``run(n)``, each started and ended by
     ``block()`` (and a barrier of every rank, where given): all
     iterations over all their seconds, and each run's rate."""
     secs = []
-    for _ in range(TWO_RANK_REPS):
+    for _ in range(reps):
         block()
         if barrier is not None:
             barrier()
@@ -4948,116 +4965,197 @@ def timed(run, block, n: int, barrier=None) -> dict:
         if barrier is not None:
             barrier()
         secs.append(time.perf_counter() - t0)
-    return {"rate": TWO_RANK_REPS * n / sum(secs), "seconds": sum(secs),
+    return {"rate": reps * n / sum(secs), "seconds": sum(secs),
             "rates": [n / t for t in secs]}
 
 
-def two_rank_paths(rank: int, out: str, cards, cases) -> None:
-    """One rank of ``run_two_ranks``: the ``cases`` (``jacobi halo``,
-    ``jacobi xla``, ``astaroth halo``) over ``TWO_RANK_MESH`` with two
-    shards on card ``cards[rank]``; writes ``rank<r>.json`` (path,
-    pooled rate, this rank's launches over the timed runs, and on rank 0
-    the gathered arrays' digests)."""
+#: the cases of the two-rank worlds: name -> (model, constructor
+#: settings, steps a timed run). The first three move their slabs as
+#: gloo messages; the rest of the Jacobi and Astaroth cases are the
+#: remote-write kernels across processes (``IPC_CASES``: B7, K3 + B4,
+#: B13/B14 with and without the pair) and the overlap exchange, the
+#: all-gather engine and PIC, whose messages go through the group
+TWO_RANK_CASES = {
+    "jacobi halo": ("jacobi", {"kernel": "halo"}, TWO_RANK_STEPS),
+    "jacobi xla": ("jacobi", {"kernel": "xla"}, TWO_RANK_STEPS),
+    "astaroth halo": ("astaroth", {"kernel": "halo"}, TWO_RANK_MHD_ITERS),
+    "jacobi overlap": ("jacobi", {"kernel": "halo", "overlap": True},
+                       TWO_RANK_STEPS),
+    "jacobi pallas-dma": ("jacobi", {"kernel": "pallas",
+                                     "methods": "PallasDMA"}, 4),
+    "jacobi xla-overlap": ("jacobi", {"kernel": "xla", "overlap": True},
+                           TWO_RANK_STEPS),
+    "jacobi xla-allgather": ("jacobi", {"kernel": "xla",
+                                        "methods": "AllGather"},
+                             TWO_RANK_STEPS),
+    "astaroth halo-overlap": ("astaroth", {"kernel": "halo",
+                                           "overlap": True},
+                              TWO_RANK_MHD_ITERS),
+    "astaroth halo-overlap+pair": ("astaroth", {"kernel": "halo",
+                                                "overlap": True,
+                                                "exchange_every": 2},
+                                   TWO_RANK_MHD_ITERS),
+    "pic ngp": ("pic", {}, 2),
+}
+#: seconds a case may take in a rank of the world before it is ended
+TWO_RANK_CASE_S = 300
+#: the cases whose cross-process path is CUDA IPC and device-side flags
+IPC_CASES = ("jacobi overlap", "jacobi pallas-dma", "astaroth halo-overlap",
+             "astaroth halo-overlap+pair")
+#: timed runs a case (PIC: one run of 2 steps, its migration buffers
+#: staged through the host)
+TWO_RANK_RUNS = {"jacobi": TWO_RANK_REPS, "astaroth": TWO_RANK_REPS,
+                 "pic": 1}
+
+
+def two_rank_model(torch, case: str, devs, card: str):
+    """The model of ``case`` over ``devs`` (four positions of (1,2,2),
+    or eight of (2,2,2) for PIC), its state made on ``card`` from a
+    seed, the same bits in every process."""
+    from stencil_tpu_torch.models.astaroth import Astaroth
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.models.pic import Pic
+    from stencil_tpu_torch.parallel.methods import Method
+
+    model, kw, _ = TWO_RANK_CASES[case]
+    kw = dict(kw)
+    if "methods" in kw:
+        kw["methods"] = Method[kw["methods"]]
+    if model == "jacobi":
+        m = Jacobi3D(N512, N512, N512, mesh_shape=TWO_RANK_MESH,
+                     devices=devs, **kw)
+        m.init()
+    elif model == "astaroth":
+        m = Astaroth(N256, 2 * N256, 2 * N256, mesh_shape=TWO_RANK_MESH,
+                     devices=devs, **kw)
+        seed_mhd(torch, m, card)
+    else:
+        total = PIC_GRID ** 3
+        m = Pic(PIC_GRID, PIC_GRID, PIC_GRID, total, mesh_shape=PIC_MESH,
+                devices=devs, dtype=torch.float64, deposition="ngp",
+                init=False)
+        with torch.cuda.device(card):
+            m.set_shard_particles(pic_shard_particles(torch, m, total // 8,
+                                                      seed=5))
+    return m
+
+
+def two_rank_arrays(case: str, m) -> dict:
+    """What a case is held to (collectives on a mesh over ranks)."""
+    from stencil_tpu_torch.models.astaroth import FIELDS
+
+    model = TWO_RANK_CASES[case][0]
+    if model == "jacobi":
+        return {"temp": m.temperature()}
+    if model == "astaroth":
+        return {q: m.field(q) for q in FIELDS}
+    return {"rho": m.rho(), **m.particles_to_host()}
+
+
+def two_rank_run(torch, case: str, m, barrier=None) -> dict:
+    """Warm ``m`` up, then time ``TWO_RANK_RUNS`` runs of the case's
+    steps, counting the kernels' launches, the messages through the
+    process group and the flag operations of this process over them."""
     import numpy as np
+
+    from stencil_tpu_torch.parallel import ipc, multihost
+
+    model, _, n = TWO_RANK_CASES[case]
+    m.run(TWO_RANK_WARMUP[model])
+    m.block()
+    before = all_launches()
+    msgs, flags = dict(multihost.MESSAGES), dict(ipc.STATS)
+    rate = timed(m.run, m.block, n, barrier, TWO_RANK_RUNS[model])
+    got = {"path": getattr(m, "kernel_path", "pic"), **rate,
+           "launches": launch_delta(before),
+           "messages": {k: v - msgs[k]
+                        for k, v in multihost.MESSAGES.items()},
+           "flags": {k: v - flags[k] for k, v in ipc.STATS.items()}}
+    arrays = two_rank_arrays(case, m)
+    if case in ("jacobi halo", "jacobi xla", "astaroth halo"):
+        got["exchange_s"] = m.measure_exchange_seconds()
+    got["digests"] = {k: digest(v) for k, v in arrays.items()}
+    got["finite"] = all(bool(np.isfinite(v).all()) for v in arrays.values())
+    if model == "pic":
+        got["charge"] = m.total_charge()
+    return got
+
+
+def two_rank_paths(rank: int, out: str, cards, cases) -> None:
+    """One rank of ``run_two_ranks``: the ``cases`` (``TWO_RANK_CASES``)
+    with two shards (PIC: four) on card ``cards[rank]``; writes
+    ``rank<r>.json`` (per case: path, pooled rate, this rank's launches,
+    messages and flag operations over the timed runs, the gathered
+    arrays' digests and, for the IPC cases, the blocks this rank mapped
+    from the other). After each case ``ipc.release`` (a collective)
+    closes the mappings before the buffers go."""
     import torch
     import torch.distributed as dist
 
-    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth
-    from stencil_tpu_torch.models.jacobi import Jacobi3D
-    from stencil_tpu_torch.ops import cuda_halo as ch
-    from stencil_tpu_torch.ops import cuda_mhd as cm
-    from stencil_tpu_torch.ops import cuda_stencil as cs
+    from stencil_tpu_torch.parallel import ipc
     from stencil_tpu_torch.parallel.multihost import backend, global_devices
 
     card = cards[rank]
-    devs = global_devices([card, card])
+    torch.cuda.set_device(card)
     res = {"backend": backend(), "card": card}
     for case in cases:
-        model, kernel = case.split()
-        if model == "jacobi":
-            m = Jacobi3D(N512, N512, N512, kernel=kernel,
-                         mesh_shape=TWO_RANK_MESH, devices=devs)
-            m.init()
-            n = TWO_RANK_STEPS
-        else:
-            m = Astaroth(N256, 2 * N256, 2 * N256, kernel=kernel,
-                         mesh_shape=TWO_RANK_MESH, devices=devs)
-            seed_mhd(torch, m, card)
-            n = TWO_RANK_MHD_ITERS
-        m.run(TWO_RANK_WARMUP[model])
-        for mod in (ch, cm, cs):
-            mod.reset_launch_counts()
-        rate = timed(m.run, m.block, n, dist.barrier)
-        launches = {k: v for mod in (ch, cm, cs)
-                    for k, v in mod.LAUNCHES.items() if v}
-        arrays = ({"temp": m.temperature()} if model == "jacobi"
-                  else {q: m.field(q) for q in FIELDS})
-        res[case] = {"path": m.kernel_path, **rate, "launches": launches,
-                     "exchange_s": m.measure_exchange_seconds(),
-                     "shards": m.dd.mesh.local_positions,
-                     "digests": {k: digest(v) for k, v in arrays.items()}
-                     if rank == 0 else None,
-                     "finite": all(bool(np.isfinite(v).all())
-                                   for v in arrays.values())}
-        del m, arrays
+        # a case that has not ended in TWO_RANK_CASE_S (a flag that is
+        # never written) ends this process, and the world fails
+        faulthandler.dump_traceback_later(TWO_RANK_CASE_S, exit=True)
+        model = TWO_RANK_CASES[case][0]
+        devs = global_devices([card] * (4 if model == "pic" else 2))
+        mapped = ipc.STATS["mapped"]
+        m = two_rank_model(torch, case, devs, card)
+        got = two_rank_run(torch, case, m, dist.barrier)
+        got["mapped"] = ipc.STATS["mapped"] - mapped
+        got["shards"] = m.dd.mesh.local_positions
+        res[case] = got
+        del m
+        ipc.release()
         torch.cuda.empty_cache()
+        faulthandler.cancel_dump_traceback_later()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
 
 
 def one_process(torch, case: str) -> dict:
-    """``case`` of ``two_rank_paths`` in this process, its four shards on
-    the card: path, pooled rate and digests."""
-    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth
-
-    model, kernel = case.split()
-    if model == "jacobi":
-        m = jacobi_mesh(kernel, TWO_RANK_MESH)
-        n = TWO_RANK_STEPS
-    else:
-        m = Astaroth(N256, 2 * N256, 2 * N256, kernel=kernel,
-                     mesh_shape=TWO_RANK_MESH, devices=[CARD] * 4)
-        seed_mhd(torch, m, CARD)
-        n = TWO_RANK_MHD_ITERS
-    m.run(TWO_RANK_WARMUP[model])
-    rate = timed(m.run, m.block, n)
-    arrays = ({"temp": m.temperature()} if model == "jacobi"
-              else {q: m.field(q) for q in FIELDS})
-    got = {"path": m.kernel_path, **rate,
-           "exchange_s": m.measure_exchange_seconds(),
-           "digests": {k: digest(v) for k, v in arrays.items()}}
-    del m, arrays
+    """``case`` of ``two_rank_paths`` in this process, its four (PIC:
+    eight) shards on the card: path, pooled rate, launches and
+    digests."""
+    model = TWO_RANK_CASES[case][0]
+    m = two_rank_model(torch, case, [CARD] * (8 if model == "pic" else 4),
+                       CARD)
+    got = two_rank_run(torch, case, m)
+    del m
     torch.cuda.empty_cache()
     return got
 
 
-#: the launches a rank's two shards make per timed run of a case
-#: (STENCIL_WRAP_STEPS 2: ten B6 groups and a B5 tail in run(21); three
-#: B11 a shard an iteration)
-TWO_RANK_LAUNCHES = {
-    "jacobi halo": {"jacobi7_halo": 2, "jacobi7_halon": 20},
-    "jacobi xla": {},
-    "astaroth halo": {"mhd_substep_halo": 12}}
-
-
 def run_two_ranks(torch) -> dict:
-    """Phase 4: a mesh over two processes on the one card (gloo, host-
-    staged messages), each case bitwise the same path in one process
-    after the same steps; and with two or more cards the Jacobi halo
-    case over nccl, one rank a card. The launch counts are each rank's,
-    read around its timed runs; every rate pools ``TWO_RANK_REPS``
-    runs."""
+    """Phase 4: a mesh over two processes on the one card (gloo for the
+    group), each case bitwise the same path in one process after the
+    same steps: the gloo-staged ``halo`` and ``xla`` paths, the
+    remote-write kernels over CUDA IPC with device-side flags (B7, K3 +
+    B4, B13/B14 with and without the pair: no message through the
+    group), the overlap exchange, the all-gather engine and PIC; with
+    two or more cards the Jacobi halo case and the IPC cases again over
+    nccl, one rank a card (IPC over NVLink). The launch counts are each
+    rank's, read around its timed runs; their sum over the ranks equals
+    the one-process count, except B4's, which launches once a card and
+    sweep in every process (twice the one process's on one card)."""
     from stencil_tpu_torch.parallel.multihost import spawn_ranks
 
     os.makedirs(TWO_RANK_OUT, exist_ok=True)
-    cases = ("jacobi halo", "jacobi xla", "astaroth halo")
+    cases = tuple(TWO_RANK_CASES)
     worlds = [("gloo", [CARD, CARD], cases)]
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
-        worlds.append(("nccl", ["cuda:0", "cuda:1"], ("jacobi halo",)))
+        worlds.append(("nccl", ["cuda:0", "cuda:1"],
+                       ("jacobi halo",) + IPC_CASES))
     else:
-        log("  nccl two-rank case not run: it needs a card per rank, and "
-            f"this machine has {n_cards} CUDA device")
+        log("  nccl two-rank cases (jacobi halo, and B7, B4 and B13/B14 "
+            "over CUDA IPC between two cards, NVLink) not run: they need a "
+            f"card per rank, and this machine has {n_cards} CUDA device")
     torch.cuda.empty_cache()
     ref = {case: one_process(torch, case) for case in cases}
     out = {"one_process": ref}
@@ -5072,39 +5170,73 @@ def run_two_ranks(torch) -> dict:
                 ranks.append(json.load(f))
         log(f"  two ranks ({backend_name}, cards {cards}): world of 2 "
             f"processes ran in {time.perf_counter() - t0:.1f} s")
+        halo_rate = ranks[0]["jacobi halo"]["rate"]
         for case in todo:
-            got = [rk[case] for rk in ranks]
-            unit = "steps/s" if case.startswith("jacobi") else \
-                "iterations/s"
-            same = got[0]["digests"] == ref[case]["digests"]
-            want = {k: v * TWO_RANK_REPS
-                    for k, v in TWO_RANK_LAUNCHES[case].items()}
-            log(f"  {case} {TWO_RANK_SIZE[case.split()[0]]} (1,2,2), two "
-                f"ranks ({backend_name}"
-                f"): {got[0]['rate']!r} {unit} pooled over "
-                f"{TWO_RANK_REPS} runs, each {got[0]['rates']!r} (path "
-                f"{got[0]['path']}, shards {got[0]['shards']} and "
-                f"{got[1]['shards']}); one process: "
-                f"{ref[case]['rate']!r} {unit}, each "
-                f"{ref[case]['rates']!r}; "
-                f"{'bitwise equal' if same else 'DIFFERENT'}; launches "
-                f"{got[0]['launches']} and {got[1]['launches']}; exchange "
-                f"{got[0]['exchange_s']!r} s "
-                f"{'a step' if unit == 'steps/s' else 'an iteration'} "
-                f"against {ref[case]['exchange_s']!r} in one process")
-            if not same or not all(g["finite"] for g in got):
-                raise AssertionError(f"{case} over two ranks "
-                                     f"({backend_name}) is not bitwise the "
-                                     f"one-process run")
-            if got[0]["path"] != ref[case]["path"] or any(
-                    g["launches"] != want for g in got):
-                raise AssertionError(
-                    f"{case} over two ranks took {got[0]['path']} with "
-                    f"launches {[g['launches'] for g in got]}, not "
-                    f"{ref[case]['path']} with {want} a rank")
+            check_two_rank_case(case, backend_name,
+                                [rk[case] for rk in ranks], ref[case],
+                                halo_rate)
         out[backend_name] = {case: [rk[case] for rk in ranks]
                              for case in todo}
     return out
+
+
+def check_two_rank_case(case: str, backend_name: str, got, ref,
+                        halo_rate: float) -> None:
+    """Print one case of a world beside the one process (and an IPC
+    case beside the world's Jacobi halo rate, whose slabs go as
+    messages through the group), and raise unless it
+    is bitwise the one process's, finite, on the same path, with every
+    kernel launched as often as the one process launches it (B4: once a
+    process) and, for an IPC case, nothing sent through the group."""
+    model = TWO_RANK_CASES[case][0]
+    unit = ("steps/s" if model == "jacobi" else "iterations/s"
+            if model == "astaroth" else "steps/s (PIC)")
+    same = got[0]["digests"] == ref["digests"]
+    total = {}
+    for g in got:
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    want = {k: v * (2 if k == "exchange_axis" else 1)
+            for k, v in ref["launches"].items()}
+    ipc_case = case in IPC_CASES
+    sent = sum(g["messages"]["sent"] for g in got)
+    waits = sum(g["flags"]["waits"] for g in got)
+    transport = (f"CUDA IPC + device flags ({waits} waits, "
+                 f"{sum(g['flags']['signals'] for g in got)} signals, "
+                 f"{[g['mapped'] for g in got]} blocks mapped), {sent} "
+                 f"messages through the group" if ipc_case else
+                 f"{sent} {backend_name} messages "
+                 f"({sum(g['messages']['bytes'] for g in got)} bytes"
+                 f"{' halo_rate through host memory' if backend_name == 'gloo' else ''})")
+    log(f"  {case} {TWO_RANK_SIZE[model]}, two ranks ({backend_name}): "
+        f"{got[0]['rate']!r} {unit} pooled over {len(got[0]['rates'])} "
+        f"runs, each {got[0]['rates']!r} (path {got[0]['path']}, shards "
+        f"{got[0]['shards']} and {got[1]['shards']}); one process: "
+        f"{ref['rate']!r} {unit}, each {ref['rates']!r}"
+        + (f"; jacobi halo over {backend_name} messages: {halo_rate!r} "
+           f"steps/s" if ipc_case else "")
+        + f"; {'bitwise equal' if same else 'DIFFERENT'}; launches "
+        f"{got[0]['launches']} and {got[1]['launches']}, sum {total} "
+        f"against one process {ref['launches']}; transport: {transport}"
+        + (f"; total charge {got[0]['charge']!r}" if model == "pic" else "")
+        + (f"; exchange {got[0]['exchange_s']!r} s a step (iteration) "
+           f"against {ref['exchange_s']!r} in one process"
+           if "exchange_s" in ref else "")
+        + f" (card: {card_line()})")
+    if not same or not all(g["finite"] for g in got):
+        raise AssertionError(f"{case} over two ranks ({backend_name}) is "
+                             f"not bitwise the one-process run")
+    if got[0]["path"] != ref["path"] or total != want:
+        raise AssertionError(
+            f"{case} over two ranks took {got[0]['path']} with launches "
+            f"{total}, not {ref['path']} with {want}")
+    if ipc_case and (sent or not waits):
+        raise AssertionError(f"{case} over two ranks sent {sent} messages "
+                             f"and queued {waits} flag waits: its only "
+                             f"cross-process path must be CUDA IPC")
+    if model == "pic" and got[0]["charge"] != PIC_GRID ** 3:
+        raise AssertionError(f"PIC over two ranks: total charge "
+                             f"{got[0]['charge']!r}, not {PIC_GRID ** 3}")
 
 
 def ptxas_usage(log: str) -> dict:
@@ -5288,9 +5420,10 @@ def main() -> int:
     log("phase 4: segments (make_segment) on Jacobi3D 512^3, Astaroth "
         "256^3 xla-temporal[s=2] and PIC 256^3, against stepwise twins")
     segments = run_segments(torch)
-    log("phase 4: two ranks on the one card (gloo-staged), Jacobi3D 512^3 "
-        "halo and xla, Astaroth 256x512x512 halo, against one process "
-        "(card: " + card + ")")
+    log("phase 4: two ranks on the one card: Jacobi3D 512^3 halo and xla "
+        "and Astaroth 256x512x512 halo (gloo-staged), B7, K3 + B4 and "
+        "B13/B14 over CUDA IPC with device-side flags, xla-overlap, "
+        "AllGather and PIC 256^3, against one process (card: " + card + ")")
     two_ranks = run_two_ranks(torch)
 
     # phase 5: timing

@@ -44,6 +44,16 @@ float32 particles, the whole state carried) and Astaroth's
 and the Jacobi leg once more as ``bench_exchange_megastep``; ``--json-out``
 adds them as ``fused``.
 
+Under torchrun every rank runs its own shards (``--devices`` are its
+own; ``--backend gloo`` puts several ranks on one card), every method
+runs across the ranks (``--pallas-dma``: B4 storing into the other
+ranks' shards over CUDA IPC on the card), each rank races the segments
+on its own first device, and rank 0 prints and writes ``--json-out``:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m stencil_tpu_torch.apps.bench_exchange --devices cuda:0,cuda:0 \
+        --mesh-shape 1,2,2 --backend gloo --pallas-dma
+
 Only CSV lines go to stdout. These options wait for an item of the
 ROADMAP and raise ``NotImplementedError`` naming it: ``--autotune``,
 ``--tune-cache``, ``--metrics-json``, ``--ledger`` (A12). The JSON has
@@ -103,6 +113,15 @@ def _depth_label(s) -> str:
     return str(s)
 
 
+#: this process's rank: only rank 0 prints
+_RANK = [0]
+
+
+def _say(*a, **kw) -> None:
+    if _RANK[0] == 0:
+        print(*a, **kw)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--x", type=int, default=128, help="per-shard x size")
@@ -151,8 +170,11 @@ def main(argv=None) -> None:
     from ..geometry import Radius
     from ..models.jacobi import Jacobi3D
     from ..parallel.packing import WIRE_LAYOUTS
+    from ..parallel.mesh import as_global
+    from ..parallel.multihost import initialize_distributed
     from ..utils.timers import device_sync
 
+    _RANK[0] = rank = initialize_distributed(backend=args.backend)
     devices, mesh_shape = mesh_from_args(args)
     ndev = len(devices)
     gx, gy, gz = (args.x * mesh_shape[0], args.y * mesh_shape[1],
@@ -195,7 +217,8 @@ def main(argv=None) -> None:
     def exchange_trimean(dd):
         return timed_samples(
             dd.exchange,
-            lambda: device_sync([t for v in dd.curr.values() for t in v]),
+            lambda: device_sync([t for v in dd.curr.values() for t in v
+                                 if t is not None]),
             args.iters).trimean()
 
     results = []
@@ -203,7 +226,7 @@ def main(argv=None) -> None:
         dd = make_domain(s)
         tm = exchange_trimean(dd)
         per_ex = dd.exchange_bytes_total()
-        print(csv_line("bench_exchange", dd.methods, ndev,
+        _say(csv_line("bench_exchange", dd.methods, ndev,
                        args.x, args.y, args.z, args.fr, args.er, args.cr,
                        args.fields, _depth_label(s), per_ex,
                        f"{tm:.6e}", f"{per_ex / tm:.6e}"), flush=True)
@@ -229,7 +252,7 @@ def main(argv=None) -> None:
             "jacobi_bytes_per_step_model": xs["bytes_per_iteration"],
             "trimean_exchange_s": tm,
         })
-        print(f"bench_exchange steps: s={_depth_label(s)} "
+        _say(f"bench_exchange steps: s={_depth_label(s)} "
               f"steps/s={n / dt:.3f} (jacobi blocked loop) "
               f"rounds/step={xs['rounds_per_iteration']:.3f} "
               f"amortized={amortized:.0f}B/step (model)", file=sys.stderr)
@@ -260,20 +283,22 @@ def main(argv=None) -> None:
                 "steps_per_s": sps,
                 "steps_per_s_ratio": sps_ratio,
             }
-            print(csv_line("bench_exchange_layout", layout, primary_layout,
+            _say(csv_line("bench_exchange_layout", layout, primary_layout,
                            _depth_label(s0), per_ex, f"{tm:.6e}",
                            f"{bytes_ratio:.4f}", f"{sps_ratio:.3f}"),
                   flush=True)
-            print(f"bench_exchange layout: {layout} {per_ex}B/exchange "
+            _say(f"bench_exchange layout: {layout} {per_ex}B/exchange "
                   f"({bytes_ratio:.3f}x {primary_layout} bytes) "
                   f"{sps:.3f} steps/s (x{sps_ratio:.2f} blocked loop)",
                   file=sys.stderr)
 
     fused_cmp = None
     if args.fuse_segments:
-        fused_cmp = _megastep_legs(args, devices[0])
+        fused_cmp = _megastep_legs(args, next(
+            as_global(d).device for d in devices
+            if as_global(d).rank == rank))
 
-    if args.json_out:
+    if args.json_out and rank == 0:
         base = results[0]
         results_by_s = {str(r["exchange_every"]): r for r in results}
         payload = {
@@ -302,7 +327,7 @@ def main(argv=None) -> None:
             payload["fused"] = fused_cmp
         with open(args.json_out, "w") as f:
             json.dump(payload, f, indent=2)
-        print(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)
+        _say(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)
 
 
 def _megastep_legs(args, device) -> dict:
@@ -328,10 +353,10 @@ def _megastep_legs(args, device) -> dict:
         row = {"check_every": k, "steps": n,
                "stepwise_steps_per_s": sps, "fused_steps_per_s": fps,
                "fused_over_stepwise": ratio, **extra}
-        print(csv_line(f"bench_exchange_megastep_{name}", k, n,
+        _say(csv_line(f"bench_exchange_megastep_{name}", k, n,
                        f"{sps:.3f}", f"{fps:.3f}", f"{ratio:.3f}"),
               flush=True)
-        print(f"bench_exchange megastep[{name}]: segments[k={k}] "
+        _say(f"bench_exchange megastep[{name}]: segments[k={k}] "
               f"{fps:.3f} steps/s vs per-step loop {sps:.3f} steps/s "
               f"(x{ratio:.2f})", file=sys.stderr)
         return row
@@ -362,7 +387,7 @@ def _megastep_legs(args, device) -> dict:
     fused["astaroth_temporal"] = leg(
         "astaroth", mk_astaroth, lambda e: HealthSentinel(e.dd),
         lambda e: e.dd.curr, exchange_every=ast_s)
-    print(csv_line("bench_exchange_megastep", k, n,
+    _say(csv_line("bench_exchange_megastep", k, n,
                    f"{fused['stepwise_steps_per_s']:.3f}",
                    f"{fused['fused_steps_per_s']:.3f}",
                    f"{fused['fused_over_stepwise']:.3f}"), flush=True)

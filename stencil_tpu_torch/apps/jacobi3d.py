@@ -30,7 +30,10 @@ and ``halo``, one deep exchange per S steps on the padded paths
 which an explicit ``--exchange-every`` overrides. ``--bf16`` runs a
 bfloat16 field on the kernels' bfloat16 instances (up to 16 steps a
 group, bfloat16's sublane tile), ``--f64`` a float64 one on the plain
-paths, as JAX's ``--bf16`` / ``--f64`` do.
+paths, as JAX's ``--bf16`` / ``--f64`` do. ``--overlap`` hides the
+exchange behind the interior (``Jacobi3D(overlap=True)``): B7 on the
+``halo`` and ``auto`` kernels, the inner block queued between the
+exchange's start and its landing on ``xla`` and ``pallas``.
 
 One rank per card (``--backend nccl``, the default with a card), or
 several ranks on one card (``--backend gloo``, messages staged through
@@ -41,7 +44,16 @@ host memory):
         --kernel halo --mesh-shape 1,2,2 --devices cuda:0,cuda:0 \
         --backend gloo
 
-Each rank's ``--devices`` are its own; rank 0 prints the line.
+Each rank's ``--devices`` are its own; rank 0 prints the line. Every
+path runs across ranks: ``--overlap`` (B7) and ``--pallas-dma`` (B4)
+store into the other ranks' shards over CUDA IPC, ordered by
+device-side flags, with no message through the group:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 256 --z 256 \
+        --kernel halo --overlap --mesh-shape 1,2,2 \
+        --devices cuda:0,cuda:0 --backend gloo
+
 ``--dcn-axis`` / ``--fake-slices`` block one grid axis across hosts (or
 fake groups of the devices), as JAX's flags do.
 """
@@ -79,6 +91,8 @@ def main(argv=None) -> None:
                     help="temporal blocking depth: one depth-S exchange "
                          "per S steps (xla), S steps a launch (wrap, "
                          "halo); 0 leaves the default")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap the exchange with the interior update")
     add_device_flags(ap)
     add_method_flags(ap)
     add_dtype_flags(ap)
@@ -98,7 +112,7 @@ def main(argv=None) -> None:
                  kernel=args.kernel, mesh_shape=shape,
                  devices=devices, methods=methods_from_args(args),
                  exchange_every=args.exchange_every or None,
-                 **dcn_from_args(args, devices))
+                 overlap=args.overlap, **dcn_from_args(args, devices))
     j.init()
     stats, _ = sampled_steps_per_s(lambda: j.run(args.batch), j.block,
                                    max(args.iters // args.batch, 1),

@@ -9,13 +9,23 @@ mig_bytes_per_shard,overflow``.
 
     python -m stencil_tpu_torch.apps.pic --devices cpu,cpu,cpu,cpu
 
+Under torchrun every rank runs its own shards (``--devices`` are its
+own; ``--backend gloo`` puts several ranks on one card), the deposit's
+accumulate, the exchange and the migration send what crosses between
+ranks as messages, and rank 0 prints:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m stencil_tpu_torch.apps.pic --devices cuda:0,cuda:0,cuda:0,cuda:0 \
+        --backend gloo --x 64 --y 64 --z 64 --particles 262144
+
 ``--fuse-segments`` (on by default, as JAX's): the segment race on one
 device at the per-device size (``_common.megastep_race``): one step and
 one health probe an iteration against one ``--fuse-check-every``-step
 segment (the probe rows, overflow column included, kept on the device),
 printed as ``pic-megastep,check_every,steps,stepwise steps/s,fused
 steps/s,ratio`` and added to ``--json-out`` as ``fused``;
-``--no-fuse-segments`` skips it.
+``--no-fuse-segments`` skips it. Under torchrun each rank races on
+its own first device and rank 0 prints its race.
 
 Not in this slice: ``--resilient`` and the ``--chaos-*`` fault plan wait
 for ROADMAP A11, ``--metrics-json`` and ``--ledger`` for A12; each
@@ -89,8 +99,10 @@ def main(argv=None) -> None:
         ("--metrics-json", "A12 (telemetry)", "")])
 
     from ..models.pic import Pic
-    from ..parallel.mesh import default_mesh_shape
+    from ..parallel.mesh import as_global, default_mesh_shape
+    from ..parallel.multihost import initialize_distributed
 
+    rank = initialize_distributed(backend=args.backend)
     devices = devices_from_args(args)
     ndev = len(devices)
     mesh = default_mesh_shape(ndev)
@@ -105,20 +117,25 @@ def main(argv=None) -> None:
                                      args.batch)
     mig = p.migration_stats()
     psps = n * sps  # particle steps advanced per second
-    print(csv_line("pic", methods_from_args(args), ndev, gx, gy, gz, n,
-                   args.deposition, f"{stats.min() / args.batch:.6e}",
-                   f"{1.0 / sps:.6e}", f"{psps:.6e}",
-                   mig["migration_bytes_per_shard"],
-                   int(p.overflow_total())))
+    overflow = int(p.overflow_total())
+    charge = p.total_charge()
+    if rank == 0:
+        print(csv_line("pic", methods_from_args(args), ndev, gx, gy, gz, n,
+                       args.deposition, f"{stats.min() / args.batch:.6e}",
+                       f"{1.0 / sps:.6e}", f"{psps:.6e}",
+                       mig["migration_bytes_per_shard"], overflow))
     fused = None
     if args.fuse_segments:
         k = max(args.fuse_check_every, 1)
         nr = max(args.iters, k)
         nr -= nr % k
+        # this rank's first device (a mesh of one, in this process)
+        own = [as_global(d).device for d in devices
+               if as_global(d).rank == rank][:1]
 
         def mk():
             return Pic(args.x, args.y, args.z, args.particles,
-                       mesh_shape=(1, 1, 1), devices=devices[:1],
+                       mesh_shape=(1, 1, 1), devices=own,
                        dtype=dtype_from_args(args),
                        deposition=args.deposition, dt=args.dt,
                        seed=args.seed)
@@ -128,9 +145,10 @@ def main(argv=None) -> None:
         fused = {"check_every": k, "steps": nr,
                  "stepwise_steps_per_s": sps_s, "fused_steps_per_s": fps,
                  "fused_over_stepwise": ratio}
-        print(csv_line("pic-megastep", k, nr, f"{sps_s:.3f}", f"{fps:.3f}",
-                       f"{ratio:.3f}"))
-    if args.json_out:
+        if rank == 0:
+            print(csv_line("pic-megastep", k, nr, f"{sps_s:.3f}",
+                           f"{fps:.3f}", f"{ratio:.3f}"))
+    if args.json_out and rank == 0:
         rec = {"bench": "pic",
                "config": {"grid": [gx, gy, gz], "devices": ndev,
                           "particles": n, "deposition": args.deposition,
@@ -140,8 +158,7 @@ def main(argv=None) -> None:
                "seconds_per_step": 1.0 / sps,
                "particle_steps_per_s": psps,
                "migration_bytes_per_shard": mig["migration_bytes_per_shard"],
-               "overflow": p.overflow_total(),
-               "total_charge": p.total_charge()}
+               "overflow": overflow, "total_charge": charge}
         if fused is not None:
             rec["fused"] = fused
         with open(args.json_out, "w") as f:

@@ -77,10 +77,12 @@ in float32 on every path (``ops/cuda_mhd.compute_dtype``); ``field`` and
 wrappers run their plain twins.
 
 A mesh may span processes (``distributed.py``): every rank builds the
-same model and runs its own shards; ``xla``, ``xla-temporal`` and
-``halo`` (B11, and B12 with the pair) move the slabs that cross between
-ranks as messages, ``field`` and ``accumulator`` are collectives, and
-``halo-overlap``, ``xla-overlap`` and ``PallasDMA`` raise (ROADMAP A4c).
+same model and runs its own shards, on every path: ``xla``,
+``xla-overlap``, ``xla-temporal`` and ``halo`` (B11, and B12 with the
+pair) move the slabs that cross between ranks as messages,
+``halo-overlap`` (B13/B14) and ``PallasDMA`` (B4) store into the other
+ranks' buffers through CUDA IPC on the card (on CPU shards their twins
+send messages), and ``field`` and ``accumulator`` are collectives.
 ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts, with
 JAX's x-unsharded mesh for the halo paths (``models/astaroth.py:
 249-266``).
@@ -108,8 +110,7 @@ from ..local_domain import interior_slices, zyx_shape
 from ..local_domain import raw_size
 from ..ops.fd6 import RADIUS, FieldData, const
 from ..ops.stencil_kernels import global_coords
-from ..parallel.exchange import (exchange_interior_slabs,
-                                 interior_slab_bytes, refuse_across_ranks)
+from ..parallel.exchange import exchange_interior_slabs, interior_slab_bytes
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
 from ..parallel.temporal import temporal_shard_steps, validate_temporal
@@ -516,12 +517,6 @@ class Astaroth:
         if self._w_padded:
             validate_temporal(dd.radius, dd.local_size, s, dd.rem)
         self._method = pick_method(dd.methods)
-        if dd.mesh.spans_ranks and (
-                "overlap" in kernel or (self._method == Method.PallasDMA
-                                        and kernel.startswith("xla"))):
-            refuse_across_ranks(f"Astaroth's {kernel!r} path" + (
-                " with Method.PallasDMA (B4)"
-                if self._method == Method.PallasDMA else ""))
         self.kernel_path = kernel
         self._build_segment()
 
@@ -700,8 +695,11 @@ class Astaroth:
         cap = self._capacity()
         parts = overlapped_update(dd.curr, dd.radius, dd.mesh_counts,
                                   self._method, upd,
-                                  nonperiodic=dd.boundary == Boundary.NONE)
+                                  nonperiodic=dd.boundary == Boundary.NONE,
+                                  ranks=dd.mesh.peers)
         for i, got in enumerate(parts):
+            if got is None:
+                continue
             for q in FIELDS:
                 ws[i][q] = got[f"w:{q}"]
                 dd.curr[q][i][cap].copy_(got[f"f:{q}"])
@@ -835,11 +833,13 @@ class Astaroth:
         path = self.kernel_path
         halo = path == "halo"
         if path == "halo-overlap" and self._overlap_recv is None:
-            self._overlap_recv = mo.MhdOverlapRecv(a, counts)
+            self._overlap_recv = mo.MhdOverlapRecv(a, counts,
+                                                   self.dd.mesh.peers)
         recv = self._overlap_recv
 
         def views(ts):
-            return None if ts is None else [_views(t) for t in ts]
+            return None if ts is None else [None if t is None else _views(t)
+                                            for t in ts]
 
         def slabs(rr: int) -> List[Dict[str, Dict[str, torch.Tensor]]]:
             if not halo:

@@ -73,10 +73,13 @@ the padded paths temporal.
 A mesh may span processes (``devices`` of ``GlobalDevice``s, the
 default in a process group of more than one rank; see
 ``distributed.py``): every rank builds the same model and runs its own
-shards; the ``xla``, ``pallas``, ``halo`` and ``xla-temporal`` paths
-move the slabs that cross between ranks as messages, ``temperature()``
-is a collective, and the overlap paths and ``PallasDMA`` raise (ROADMAP
-A4c). ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts
+shards; every path runs there. The ``xla``, ``pallas``, ``halo``,
+``xla-temporal`` and ``-overlap`` paths move the slabs that cross between
+ranks as messages (the overlapped ones post the first direction's before
+the inner block and land them after it), ``PallasDMA`` (B4) and
+``overlap`` (B7) store into the other ranks' buffers through CUDA IPC on
+the card, ordered by device-side flags (``parallel/ipc.py``), and
+``temperature()`` is a collective. ``dcn_axis`` / ``dcn_groups`` block one grid axis across hosts
 (``DistributedDomain.set_dcn_axis``; JAX ``models/jacobi.py:309-326``).
 
 ``make_segment(k)`` (``parallel/megastep.py``) runs ``k`` steps of any
@@ -106,8 +109,7 @@ from ..ops.halo_plan import pair_halo_refusal
 from ..ops.stencil_kernels import global_coords, jacobi7, write_interior
 from ..parallel.exchange import (dispatch_exchange, exchange_interior_slabs,
                                  interior_slab_bytes, normalize_wire_format,
-                                 refuse_across_ranks, shard_interior_len,
-                                 shard_origin)
+                                 shard_interior_len, shard_origin)
 from ..parallel.mesh import mesh_index
 from ..parallel.methods import Method, pick_method
 from ..parallel.overlap import overlapped_update
@@ -206,20 +208,24 @@ def jacobi_shard_step_overlap(shards: Sequence[torch.Tensor],
                               radius: Radius, counts: Dim3, local: Dim3,
                               gsize: Dim3, method: Method,
                               kernel: str = "xla",
-                              nonperiodic: bool = False) -> None:
+                              nonperiodic: bool = False,
+                              ranks: Optional[Sequence[int]] = None) -> None:
     """The overlapped variant of ``jacobi_shard_step`` on an evenly
     divided mesh (JAX: models/jacobi.py:125-149): the deep interior of
     every shard is computed while the exchange runs, the thin face
     slabs from the exchanged shards afterwards
-    (``parallel/overlap.py``), then the spheres and the write-back."""
+    (``parallel/overlap.py``), then the spheres and the write-back.
+    ``ranks``: as for ``jacobi_shard_step``."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
 
     def upd(blocks, dims, off, i):
         return {"temp": _update(blocks["temp"], radius, dims, kernel)}
 
     new = overlapped_update({"temp": list(shards)}, radius, counts, method,
-                            upd, nonperiodic=nonperiodic)
+                            upd, nonperiodic=nonperiodic, ranks=ranks)
     for i, p in enumerate(shards):
+        if p is None:
+            continue
         origin = shard_origin(local, Dim3(0, 0, 0), mesh_index(i, counts))
         out = _apply_sources(new[i]["temp"], origin, hot_c, cold_c, sph_r)
         write_interior(p, out, radius)
@@ -479,13 +485,6 @@ class Jacobi3D:
                             f"float32 or bfloat16, got {self._dtype}; use "
                             f"kernel='xla'")
         self._method = pick_method(dd.methods)
-        if dd.mesh.spans_ranks and (
-                "overlap" in path or (self._method == Method.PallasDMA
-                                      and kernel in ("xla", "pallas"))):
-            refuse_across_ranks(
-                f"Jacobi3D's {path!r} path" + (
-                    " with Method.PallasDMA (B4)"
-                    if self._method == Method.PallasDMA else ""))
         tile = sublane_tile(self._dtype)
         if path.startswith("xla-temporal"):
             validate_temporal(radius, dd.local_size, dd.exchange_depths,
@@ -645,7 +644,8 @@ class Jacobi3D:
                 jacobi_shard_step_overlap(
                     dd.curr["temp"], dd.radius, dd.mesh_counts,
                     dd.local_size, dd.size, self._method,
-                    kernel=self._base_kernel, nonperiodic=nonper)
+                    kernel=self._base_kernel, nonperiodic=nonper,
+                    ranks=dd.mesh.peers)
             else:
                 jacobi_shard_step(dd.curr["temp"], dd.radius,
                                   dd.mesh_counts, dd.local_size, dd.size,
@@ -784,8 +784,9 @@ class Jacobi3D:
         if self._overlap_recv is None:
             cap = self._capacity_slices()
             self._overlap_recv = OverlapRecv(
-                [p[cap].contiguous() for p in self.dd.curr["temp"]],
-                self.dd.mesh_counts)
+                [None if p is None else p[cap].contiguous()
+                 for p in self.dd.curr["temp"]],
+                self.dd.mesh_counts, self.dd.mesh.peers)
         return self._overlap_recv
 
     def _overlap_chunk(self, n: int) -> None:
@@ -815,8 +816,9 @@ class Jacobi3D:
         hot, cold, sph_r = sphere_geometry(dd.size)
         cap = self._capacity_slices()
         recv = self._overlap_recv
-        a = [p[cap].contiguous() for p in dd.curr["temp"]]
-        b = [torch.empty_like(t) for t in a]
+        a = [None if p is None else p[cap].contiguous()
+             for p in dd.curr["temp"]]
+        b = [None if t is None else torch.empty_like(t) for t in a]
         orgs = []
         for i in range(len(a)):
             ox, oy, oz = shard_origin(local, dd.rem, dd.shard_index(i))
@@ -827,7 +829,8 @@ class Jacobi3D:
                                      out=b, recv=recv)
                 a, b = b, a
         for p, t in zip(dd.curr["temp"], a):
-            p[cap].copy_(t)
+            if p is not None:
+                p[cap].copy_(t)
 
     def block(self) -> None:
         device_sync([t for t in self.dd.curr["temp"] if t is not None])

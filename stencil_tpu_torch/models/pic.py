@@ -20,7 +20,11 @@ step, per shard:
    ring, with the overflow count carried per shard.
 
 Each phase runs for every shard before the next starts, as JAX's
-``shard_map`` program does between its collectives. Messages a step
+``shard_map`` program does between its collectives. On a mesh that
+spans processes every rank builds the same model and runs the phases on
+its own shards (every list of ``state`` None at the other positions):
+the accumulate, the exchange and the migration send what crosses
+between ranks as messages, and the diagnostics are collectives. Messages a step
 and shard: 2 per mesh axis of more than one shard for each of the
 accumulate, the exchange and the migration (18 on (2,2,2)). The JAX
 model's PIC is plain XLA with no Pallas kernel; so is the port's: the
@@ -52,8 +56,8 @@ from ..distributed import DeviceLike, DistributedDomain, torch_dtype
 from ..geometry import Dim3
 from ..ops.stencil_kernels import central_diff
 from ..parallel.exchange import (WireProbe, accumulate_shard,
-                                 dispatch_exchange, refuse_across_ranks,
-                                 shard_interior_len, shard_origin)
+                                 dispatch_exchange, shard_interior_len,
+                                 shard_origin)
 from ..parallel.methods import Method, pick_method
 from ..parallel.migrate import (migrate_shard, migration_record_rows,
                                 migration_wire_bytes_per_shard)
@@ -112,9 +116,6 @@ class Pic:
         self._dtype = torch_dtype(dtype)
         self.dd.add_data("rho", self._dtype)
         self.dd.realize()
-        if self.dd.mesh.spans_ranks:
-            refuse_across_ranks("the particle-in-cell model (migration and "
-                                "the charge deposit)")
         self.n_particles = int(n_particles)
         self.deposition = deposition
         self.dt = float(dt)
@@ -233,13 +234,20 @@ class Pic:
         values of field k (``PARTICLE_FIELDS``) of the particles that
         shard i owns, on any device. Each shard's lanes are padded to
         the capacity (dead slots zero, ``valid`` False) on its device;
-        the overflow counts restart at zero."""
+        the overflow counts restart at zero. On a mesh that spans
+        processes only this rank's shards are installed (the other
+        entries of ``per_shard`` may be None)."""
         devs = self.dd.mesh.devices
         if len(per_shard) != len(devs):
             raise ValueError(f"{len(per_shard)} shards of particles for "
                              f"{len(devs)} shards")
+        own = set(self.dd.mesh.local_positions)
         lanes = {k: [] for k in PARTICLE_STATE_KEYS}
         for i, (parts, dev) in enumerate(zip(per_shard, devs)):
+            if i not in own:
+                for k in PARTICLE_STATE_KEYS:
+                    lanes[k].append(None)
+                continue
             m = int(parts["x"].shape[0])
             if m > self.capacity:
                 raise ValueError(f"{m} particles on shard {i} but "
@@ -262,14 +270,16 @@ class Pic:
         for instance ``convert.pic_state_from_jax`` of a JAX model's, so
         that a JAX run continues here."""
         for dst, src in zip(self.state["rho"], state["rho"]):
-            dst.copy_(src)
+            if dst is not None:
+                dst.copy_(src)
+        own = set(self.dd.mesh.local_positions)
         for k in PARTICLE_STATE_KEYS:
             want = (torch.bool if k == "valid" else torch.float32
                     if k == "overflow" else self._dtype)
-            if any(t.dtype != want for t in state[k]):
+            if any(state[k][i].dtype != want for i in own):
                 raise TypeError(f"state[{k!r}] is not {want}")
-            self.state[k] = [t.to(d) for t, d in
-                             zip(state[k], self.dd.mesh.devices)]
+            self.state[k] = [state[k][i].to(d) if i in own else None
+                             for i, d in enumerate(self.dd.mesh.devices)]
 
     # -- the step --------------------------------------------------------
     def _weights(self, px, py, pz):
@@ -369,29 +379,30 @@ class Pic:
         dd = self.dd
         n = dd.mesh_counts.flatten()
         counts, rem = dd.mesh_counts, dd.rem
-        for i in range(n):
+        ranks = dd.mesh.peers
+        own = dd.mesh.local_positions
+        for i in own:
             self._deposit(i, self._corners(i))
         accumulate_shard(self.state["rho"], dd.alloc_radius, counts,
-                         rem=rem, probe=self.probe)
+                         rem=rem, probe=self.probe, ranks=ranks)
         dispatch_exchange({"rho": self.state["rho"]}, dd.alloc_radius,
                           counts, pick_method(dd.methods), rem=rem,
-                          probe=self.probe)
-        new = {k: [] for k in PARTICLE_FIELDS}
-        valid, offs, cfl = [], [], []
-        for i in range(n):
-            f, v, o, c = self._push(i, self._gather(i, self._corners(i)))
+                          probe=self.probe, ranks=ranks)
+        new = {k: [None] * n for k in PARTICLE_FIELDS}
+        valid, offs, cfl = [None] * n, [None] * n, [None] * n
+        for i in own:
+            f, valid[i], offs[i], cfl[i] = self._push(
+                i, self._gather(i, self._corners(i)))
             for k in PARTICLE_FIELDS:
-                new[k].append(f[k])
-            valid.append(v)
-            offs.append(o)
-            cfl.append(c)
+                new[k][i] = f[k]
         fields, valid, ovf = migrate_shard(new, valid, offs, counts,
-                                           self.budget, probe=self.probe)
+                                           self.budget, probe=self.probe,
+                                           ranks=ranks)
         for k in PARTICLE_FIELDS:
             self.state[k] = fields[k]
         self.state["valid"] = valid
         self.state["overflow"] = [
-            prev + (o + c.sum().to(torch.float32))
+            None if prev is None else prev + (o + c.sum().to(torch.float32))
             for prev, o, c in zip(self.state["overflow"], ovf, cfl)]
 
     def run(self, iters: int) -> None:
@@ -402,7 +413,8 @@ class Pic:
     # -- megastep: campaign segments -------------------------------------
     def _probe_extra(self, st) -> Dict[str, List[torch.Tensor]]:
         """The overflow column: each shard's cumulative drop count."""
-        return {"migration_overflow": [o[0] for o in st["overflow"]]}
+        return {"migration_overflow": [None if o is None else o[0]
+                                       for o in st["overflow"]]}
 
     def segment_contract(self):
         """The PIC carry contract (``parallel/megastep.py``): the whole
@@ -464,33 +476,68 @@ class Pic:
             extra_names=("migration_overflow",))
 
     def block(self) -> None:
-        device_sync(self.state["rho"] + self.state["x"])
+        device_sync([t for t in self.state["rho"] + self.state["x"]
+                     if t is not None])
 
     # -- diagnostics ----------------------------------------------------
     def rho(self) -> np.ndarray:
         """Global interior charge density (z,y,x) on the host."""
         return self.dd.interior_to_host("rho")
 
+    def _per_shard(self, value) -> List[float]:
+        """``value(i)`` (a float) of every shard, in position order: on a
+        mesh that spans processes each rank fills its own, and one
+        all-reduce (a sum, into zeros) hands every rank all of them, so
+        the totals are the same bits on every rank and in one process."""
+        n = self.dd.mesh_counts.flatten()
+        got = [0.0] * n
+        for i in self.dd.mesh.local_positions:
+            got[i] = float(value(i))
+        if self.dd.mesh.spans_ranks:
+            import torch.distributed as dist
+
+            from ..parallel.multihost import backend
+
+            dev = (self.dd.mesh.devices[self.dd.mesh.local_positions[0]]
+                   if backend() == "nccl" else "cpu")
+            t = torch.tensor(got, dtype=torch.float64, device=dev)
+            dist.all_reduce(t)
+            got = t.tolist()
+        return got
+
     def total_charge(self) -> float:
-        """Sum of the deposited charge over the global grid."""
-        rho = self.rho()
-        return float(np.sum(rho, dtype=rho.dtype))
+        """Sum of the deposited charge over the global grid: each shard's
+        interior summed in float64, the shards' sums added in position
+        order (a collective on a mesh that spans processes)."""
+        return float(sum(self._per_shard(
+            lambda i: torch.sum(self.dd.interior("rho", i),
+                                dtype=torch.float64))))
 
     def particles_to_host(self) -> Dict[str, np.ndarray]:
         """Host copies of the live particles only (shard by shard, slot
         by slot), plus the per-shard overflow counts under
-        ``'overflow'``."""
-        valid = [v.cpu() for v in self.state["valid"]]
-        out = {k: np.concatenate([t.cpu()[v].numpy() for t, v
-                                  in zip(self.state[k], valid)])
-               for k in PARTICLE_FIELDS}
-        out["overflow"] = np.concatenate(
-            [t.cpu().numpy() for t in self.state["overflow"]])
-        return out
+        ``'overflow'`` (a collective on a mesh that spans processes:
+        every rank gets every shard's)."""
+        per = {}
+        for i in self.dd.mesh.local_positions:
+            v = self.state["valid"][i].cpu()
+            per[i] = {k: self.state[k][i].cpu()[v].numpy()
+                      for k in PARTICLE_FIELDS}
+            per[i]["overflow"] = self.state["overflow"][i].cpu().numpy()
+        if self.dd.mesh.spans_ranks:
+            from ..parallel.multihost import all_gather_objects
+
+            for got in all_gather_objects(per):
+                per.update(got)
+        order = sorted(per)
+        return {k: np.concatenate([per[i][k] for i in order])
+                for k in PARTICLE_FIELDS + ("overflow",)}
 
     def overflow_total(self) -> float:
-        """Particles dropped by migration so far (all shards)."""
-        return float(sum(float(t.sum()) for t in self.state["overflow"]))
+        """Particles dropped by migration so far (all shards; a
+        collective on a mesh that spans processes)."""
+        return float(sum(self._per_shard(
+            lambda i: self.state["overflow"][i].sum())))
 
     def migration_stats(self) -> dict:
         """The migration's wire cost and the CFL displacement bound (JAX

@@ -39,6 +39,20 @@ read); with several cards, every card's sweep s lands before any card's
 sweep s+1 starts; and ``CardJoin.exit`` makes each card's current
 stream wait for every card's side stream. No kernel waits on a flag
 another launch sets.
+
+Across processes (``ranks``: a mesh that spans ranks) each rank plans
+and launches its own cards only: a table row for each shard it holds,
+where a neighbour another rank owns gets its pointer mapped through CUDA
+IPC (``parallel/ipc.share``, both of a domain's buffers alike, since the
+plan cache keys by pointer). Between ranks the events become the
+device-side counters of ``parallel/ipc.PeerFlags`` (``ipc.b4_schedule``):
+a card signals READY once its current streams' earlier work is done (its
+halos may be written) and waits for every other rank's card's READY
+before its first sweep; it waits for every other card's SWEPT of sweep s
+before sweep s + 1 and, after the last, before the exchange is joined
+back. Within a rank the events stay as they are. On CPU shards the twin
+moves the slabs that cross between ranks as messages
+(``multihost.RankMessages``).
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ from typing import Dict, Hashable, List, Optional, Sequence, Set, Tuple
 import torch
 
 from ..geometry import Dim3
-from ..parallel.mesh import mesh_neighbor
+from ..parallel.mesh import mesh_neighbor, this_rank
 
 #: launches per wrapper since the last ``reset_launch_counts``; only a
 #: kernel launch counts, never a call that went to the plain twin
@@ -105,8 +119,9 @@ def _check_sweep(shards: Sequence[torch.Tensor], axis: int, r_lo: int,
     arrs = list(shards)
     if len(arrs) != counts.flatten():
         raise ValueError(f"{len(arrs)} shards for a {tuple(counts)} mesh")
-    shape, dtype = arrs[0].shape, arrs[0].dtype
-    for t in arrs:
+    held = [t for t in arrs if t is not None]
+    shape, dtype = held[0].shape, held[0].dtype
+    for t in held:
         if t.shape != shape or t.dtype != dtype or t.dim() != 3:
             raise ValueError("exchange_axis: every shard must be a padded "
                              "(Z, Y, X) tensor of one shape and dtype")
@@ -118,7 +133,8 @@ def _check_sweep(shards: Sequence[torch.Tensor], axis: int, r_lo: int,
 
 
 def exchange_axis_plain(shards: Sequence[torch.Tensor], axis: int,
-                        r_lo: int, r_hi: int, counts: Dim3
+                        r_lo: int, r_hi: int, counts: Dim3,
+                        ranks: Optional[Sequence[int]] = None
                         ) -> Sequence[torch.Tensor]:
     """B4's twin: one sweep along grid ``axis`` (0 x, 1 y, 2 z) over the
     padded (z,y,x) shards of a mesh (x fastest), in place: shard i's
@@ -126,19 +142,38 @@ def exchange_axis_plain(shards: Sequence[torch.Tensor], axis: int,
     interior)``, its left neighbour's hi halo ``[r_lo + interior,
     alloc)`` <- its ``[r_lo, r_lo + r_hi)``, full cross sections
     (pallas_exchange.py:84-109). Every source is interior and every
-    destination halo, so the copies may run in any order."""
+    destination halo, so the copies may run in any order. ``ranks``:
+    each position's owner on a mesh that spans processes (None at the
+    positions of ``shards`` other ranks own); a slab whose two ends lie
+    on two ranks is a message, all of the sweep's in one batch."""
     counts = Dim3.of(counts)
     arrs = _check_sweep(shards, axis, r_lo, r_hi, counts)
     dim = _AXIS_TO_DIM[axis]
-    interior = arrs[0].shape[dim] - r_lo - r_hi
+    interior = next(t for t in arrs if t is not None).shape[dim] - r_lo - r_hi
+    msgs = None
+    if ranks is not None:
+        from ..parallel.multihost import RankMessages
+
+        msgs = RankMessages()
     for i, src in enumerate(arrs):
-        if r_lo:
-            right = arrs[mesh_neighbor(i, counts, axis, 1)]
-            right.narrow(dim, 0, r_lo).copy_(src.narrow(dim, interior, r_lo))
-        if r_hi:
-            left = arrs[mesh_neighbor(i, counts, axis, -1)]
-            left.narrow(dim, r_lo + interior, r_hi).copy_(
-                src.narrow(dim, r_lo, r_hi))
+        # (rows, the neighbour written, its first halo row, my first row)
+        for k, (r, j, at, frm) in enumerate((
+                (r_lo, mesh_neighbor(i, counts, axis, 1), 0, interior),
+                (r_hi, mesh_neighbor(i, counts, axis, -1), r_lo + interior,
+                 r_lo))):
+            if not r:
+                continue
+            dst = arrs[j]
+            if src is not None and dst is not None:
+                dst.narrow(dim, at, r).copy_(src.narrow(dim, frm, r))
+            elif src is not None:
+                msgs.send(src.narrow(dim, frm, r), ranks[j], 2 * j + k)
+            elif dst is not None:
+                view = dst.narrow(dim, at, r)
+                msgs.recv(view.shape, view.dtype, view.device, ranks[i],
+                          2 * j + k, view.copy_)
+    if msgs is not None:
+        msgs.run()
     return shards
 
 
@@ -195,7 +230,9 @@ def plan_card_sweeps(ptrs: Sequence[Sequence[int]],
     in order of first appearance: ``ptrs[q][i]`` is the pointer of shard
     i (x fastest) of quantity q, ``shapes[q]``/``itemsizes[q]`` its
     padded (Z, Y, X) shape and element bytes, ``cards[i]`` the card that
-    holds shard i (of every quantity). A card's table has one row per
+    holds shard i (of every quantity), or None where another process
+    holds it (its pointers are then the IPC-mapped ones, used only as
+    neighbours' targets). A card's table has one row per
     (quantity, shard) it holds, with the shard's right and left
     neighbours along ``axis`` (``mesh_neighbor``; itself on a one-shard
     axis); its unit is the widest that divides every pointer and every
@@ -207,13 +244,15 @@ def plan_card_sweeps(ptrs: Sequence[Sequence[int]],
     dim = _AXIS_TO_DIM[axis]
     right = [mesh_neighbor(i, counts, axis, 1) for i in range(n)]
     left = [mesh_neighbor(i, counts, axis, -1) for i in range(n)]
-    held: Dict[Hashable, List[Tuple[int, int]]] = {c: [] for c in cards}
+    held: Dict[Hashable, List[Tuple[int, int]]] = {
+        c: [] for c in cards if c is not None}
     for q, qp in enumerate(ptrs):
         if len(qp) != n:
             raise ValueError(f"quantity {q}: {len(qp)} shards for a "
                              f"{tuple(counts)} mesh")
         for i in range(n):
-            held[cards[i]].append((q, i))
+            if cards[i] is not None:
+                held[cards[i]].append((q, i))
     out = []
     for card, keys in held.items():
         vals = []
@@ -247,33 +286,47 @@ class ExchangePlan:
     buffers: ``launches[s]`` holds sweep s's ``CardSweep`` per card. On
     CUDA shards it also enables peer access between every shard's card
     and its neighbours' and uploads each card's launch table (every
-    sweep's rows, back to back) into that card's memory."""
+    sweep's rows, back to back) into that card's memory. ``ranks``: each
+    position's owner on a mesh that spans processes (``fields[q][i]``
+    None where another rank holds it); on the card the plan is then made
+    collectively: the other ranks' shards are mapped (``ipc.share``) and
+    ``flags`` is the mesh's ``ipc.PeerFlags`` (None in one process)."""
 
     def __init__(self, fields: Sequence[Sequence[torch.Tensor]],
-                 sweeps: Sequence[Sweep], counts: Dim3) -> None:
+                 sweeps: Sequence[Sweep], counts: Dim3,
+                 ranks: Optional[Sequence[int]] = None) -> None:
         counts = Dim3.of(counts)
         fields = [list(s) for s in fields]
         for shards in fields:
             for axis, r_lo, r_hi in sweeps:
                 _check_sweep(shards, axis, r_lo, r_hi, counts)
-        devices = [t.device for t in fields[0]]
+        devices = [None if t is None else t.device for t in fields[0]]
         for shards in fields:
-            if [t.device for t in shards] != devices:
+            if [None if t is None else t.device for t in shards] != devices:
                 raise ValueError("exchange: shard i of every quantity must "
                                  "lie on one device")
-        kinds = {d.type for d in devices}
+        local = [d for d in devices if d is not None]
+        kinds = {d.type for d in local}
         self.cuda = kinds == {"cuda"}
         if not self.cuda and kinds != {"cpu"}:
             raise ValueError("exchange_axis_cuda: shards on "
-                             f"{sorted({str(d) for d in devices})}; all "
+                             f"{sorted({str(d) for d in local})}; all "
                              f"must be on CUDA devices (or all on the CPU)")
-        if not all(t.is_contiguous() for s in fields for t in s):
+        if not all(t.is_contiguous() for s in fields for t in s
+                   if t is not None):
             raise ValueError("exchange_axis_cuda: shards must be contiguous")
-        ptrs = [[t.data_ptr() for t in s] for s in fields]
-        shapes = [tuple(s[0].shape) for s in fields]
-        items = [s[0].element_size() for s in fields]
+        self.flags = None
+        self.remote_cards: Dict[int, torch.device] = {}
+        if ranks is not None and self.cuda:
+            ptrs = self._share(fields, ranks, devices, local[0])
+        else:
+            ptrs = [[t.data_ptr() for t in s] for s in fields]
+        shapes = [tuple(next(t for t in s if t is not None).shape)
+                  for s in fields]
+        items = [next(t for t in s if t is not None).element_size()
+                 for s in fields]
         self.sweeps = tuple(sweeps)
-        self.cards = list(dict.fromkeys(devices))
+        self.cards = list(dict.fromkeys(local))
         self.launches = [plan_card_sweeps(ptrs, shapes, items, devices, a,
                                           lo, hi, counts)
                          for a, lo, hi in sweeps]
@@ -282,12 +335,32 @@ class ExchangePlan:
         if self.cuda:
             self._upload(devices, counts)
 
+    def _share(self, fields, ranks, devices, lead) -> List[List[int]]:
+        """The pointers of every position's shards, the other ranks'
+        mapped into this process (a collective), and the mesh's flag
+        channel."""
+        from ..parallel import ipc
+
+        where = ipc.mesh_devices(devices)
+        self.remote_cards = {i: where[i] for i, d in enumerate(devices)
+                             if d is None}
+        self.flags = ipc.channel(ranks, where)
+        if _PLANS.clear not in ipc._ON_RELEASE:
+            ipc.on_release(_PLANS.clear)
+        got = ipc.share({("b4", q, i): t for q, s in enumerate(fields)
+                         for i, t in enumerate(s)}, lead)
+        return [[got[("b4", q, i)] for i in range(len(s))]
+                for q, s in enumerate(fields)]
+
     def _upload(self, devices, counts: Dim3) -> None:
         for i, d in enumerate(devices):
+            if d is None:
+                continue
             for a, _, _ in self.sweeps:
                 for step in (1, -1):
-                    enable_peer_access(d, devices[mesh_neighbor(
-                        i, counts, a, step)])
+                    j = mesh_neighbor(i, counts, a, step)
+                    enable_peer_access(d, devices[j] if devices[j] is not None
+                                       else self.remote_cards[j])
         rows: Dict[torch.device, list] = {c: [] for c in self.cards}
         for per_card in self.launches:
             for cs in per_card:
@@ -314,29 +387,35 @@ class ExchangePlan:
 
 
 #: plans by key (the buffers' pointers, shapes, strides and dtypes, the
-#: sweeps and the mesh counts), least recently used first
+#: sweeps, the mesh counts and owners), least recently used first
 _PLANS: "OrderedDict[tuple, ExchangePlan]" = OrderedDict()
 PLAN_CACHE_SIZE = 64
 
 
-def _plan_key(fields, sweeps, counts) -> tuple:
-    return (tuple(sweeps), tuple(counts),
-            tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+def _plan_key(fields, sweeps, counts, ranks) -> tuple:
+    return (tuple(sweeps), tuple(counts), ranks,
+            tuple(None if t is None else
+                  (t.data_ptr(), t.shape, t.stride(), t.dtype)
                   for s in fields for t in s))
 
 
 def exchange_plan(fields: Sequence[Sequence[torch.Tensor]],
-                  sweeps: Sequence[Sweep], counts: Dim3) -> ExchangePlan:
+                  sweeps: Sequence[Sweep], counts: Dim3,
+                  ranks: Optional[Sequence[int]] = None) -> ExchangePlan:
     """The cached ``ExchangePlan`` of these buffers and sweeps: built on
     the first call for a key and whenever a buffer is replaced (a new
     pointer, shape, stride or dtype changes the key), else returned as
-    it is."""
-    key = _plan_key(fields, sweeps, counts)
+    it is. Across ranks every rank builds it at the same call (a
+    collective): the buffers it shared stay alive until
+    ``ipc.release``, so a pointer seen before names the same buffer on
+    every rank, and ``release`` forgets every plan."""
+    key = _plan_key(fields, sweeps, counts,
+                    None if ranks is None else tuple(ranks))
     plan = _PLANS.get(key)
     if plan is not None:
         _PLANS.move_to_end(key)
         return plan
-    plan = ExchangePlan(fields, sweeps, counts)
+    plan = ExchangePlan(fields, sweeps, counts, ranks)
     _PLANS[key] = plan
     while len(_PLANS) > PLAN_CACHE_SIZE:
         _PLANS.popitem(last=False)
@@ -404,7 +483,8 @@ def _launch_card(args: Tuple, stream: "torch.cuda.Stream") -> None:
 
 
 def start_sweeps(fields: Sequence[Sequence[torch.Tensor]],
-                 sweeps: Sequence[Sweep], counts: Dim3
+                 sweeps: Sequence[Sweep], counts: Dim3,
+                 ranks: Optional[Sequence[int]] = None
                  ) -> Optional[CardJoin]:
     """Queue ``sweeps`` (each (axis, r_lo, r_hi), in order) over every
     quantity's padded shards ``fields[q][i]`` in place. On CUDA: one B4
@@ -415,32 +495,84 @@ def start_sweeps(fields: Sequence[Sequence[torch.Tensor]],
     sweep s lands before any card's sweep s+1 starts (one event per
     card). Returns the ``CardJoin`` whose ``exit()`` joins the side
     streams back. On the CPU the sweeps run at once through the twin,
-    and None is returned."""
+    and None is returned. ``ranks``: each position's owner on a mesh
+    that spans processes; each rank then sweeps its own cards, ordered
+    against the other ranks' by ``ipc.b4_schedule``'s flags."""
     counts = Dim3.of(counts)
-    if all(t.device.type == "cpu" for s in fields for t in s):
+    if all(t.device.type == "cpu" for s in fields for t in s
+           if t is not None):
         for axis, r_lo, r_hi in sweeps:
             for shards in fields:
-                exchange_axis_plain(shards, axis, r_lo, r_hi, counts)
+                exchange_axis_plain(shards, axis, r_lo, r_hi, counts, ranks)
         return None
-    plan = exchange_plan(fields, sweeps, counts)
+    plan = exchange_plan(fields, sweeps, counts, ranks)
     cards = plan.cards
     ready = [_record(c, "ready", torch.cuda.current_stream(c)) for c in cards]
     for c in cards:
         side = card_stream(c)
         for e in ready:
             side.wait_event(e)
-    for s, args in enumerate(plan.args):
-        if s and len(cards) > 1:
-            swept = [_record(c, "swept", card_stream(c)) for c in cards]
-            for c in cards:
-                side = card_stream(c)
-                for d, e in zip(cards, swept):
-                    if d != c:
-                        side.wait_event(e)
-        for a in args:
-            _launch_card(a, card_stream(a[0]))
+    from ..parallel import ipc
+
+    # each card's schedule (``ipc.b4_schedule``): in one process its
+    # launches alone; across ranks with the READY and SWEPT flags
+    flags = plan.flags
+    me = this_rank()
+    remote = ({} if flags is None else
+              {c: i for c, i in flags.leads.items() if c[0] != me})
+    value = flags.tick(ipc.READY) if flags is not None else 0
+    swept = [flags.tick(ipc.SWEPT) if flags is not None else 0
+             for _ in plan.args]
+    stages = {}
+    for c in cards:
+        key = ipc.card_key(me, c)
+        own = flags.leads[key] if flags is not None else 0
+        stages[c] = _stages(ipc.b4_schedule(key, {**remote, key: own},
+                                            value, swept))
+
+    def launcher(c):
+        def launch(s):
+            _launch_card(next(a for a in plan.args[s] if a[0] == c),
+                         card_stream(c))
             LAUNCHES["exchange_axis"] += 1
+        return launch
+
+    # stage s holds sweep s on every card (across ranks a last one: the
+    # closing waits)
+    for s in range(len(stages[cards[0]])):
+        _after_local_sweep(cards, s if s < len(plan.args) else 0)
+        for c in cards:
+            ipc.run_schedule(flags, stages[c][s], card_stream(c), launcher(c))
     return CardJoin(cards)
+
+
+def _after_local_sweep(cards: Sequence[torch.device], s: int) -> None:
+    """Before sweep ``s`` > 0 with several cards of this process: every
+    card's side stream waits for every other card's sweep s - 1."""
+    if not s or len(cards) < 2:
+        return
+    swept = [_record(c, "swept", card_stream(c)) for c in cards]
+    for c in cards:
+        side = card_stream(c)
+        for d, e in zip(cards, swept):
+            if d != c:
+                side.wait_event(e)
+
+
+def _stages(ops: list) -> List[list]:
+    """A card's B4 schedule cut before each sweep's waits (or launch):
+    stage s holds sweep s; a last stage, the waits after the last sweep.
+    Every card of a rank runs stage s before any runs stage s + 1, so
+    that the events between a rank's cards are recorded in order."""
+    out: List[list] = [[]]
+    launched = False
+    for op in ops:
+        if launched and op.op in ("wait", "launch"):
+            out.append([])
+            launched = False
+        launched = launched or op.op == "launch"
+        out[-1].append(op)
+    return out
 
 
 def exchange_axis_cuda(shards: Sequence[torch.Tensor], axis: int, r_lo: int,

@@ -56,6 +56,14 @@ receive buffers; the targets of a shard's launch A are its four face
 neighbours and its four diagonal (z+-1, y+-1) neighbours, whose ylo/yhi
 corner rows it stores directly. The pair's scratch of a shard is
 written and read on that shard's stream only.
+
+Across processes (``ranks``) every list over the mesh holds None at the
+positions other ranks hold; a rank launches for its own shards only,
+its launch A storing into the other ranks' receive buffers through CUDA
+IPC (``MhdOverlapRecv.ptrs``), ordered by ``ShardOrdering``'s flags. The
+pair's scratch is never written by another shard, so it is not shared.
+On CPU shards the twins take the landed rows from
+``exchange_interior_slabs``' messages between the ranks.
 """
 
 from __future__ import annotations
@@ -327,7 +335,9 @@ class MhdOverlapRecv(ShardOrdering):
     later, inside a session, a card's zeroing would race with the stores
     of shards on other cards, which no event orders against it."""
 
-    def __init__(self, shards: Sequence[torch.Tensor], counts: Dim3) -> None:
+    def __init__(self, shards: Sequence[Optional[torch.Tensor]],
+                 counts: Dim3, ranks: Optional[Sequence[int]] = None
+                 ) -> None:
         self.counts = Dim3.of(counts)
         if self.counts.x != 1:
             raise ValueError(f"MhdOverlapRecv: x must not be sharded (mesh "
@@ -335,17 +345,23 @@ class MhdOverlapRecv(ShardOrdering):
         if len(shards) != self.counts.flatten():
             raise ValueError(f"MhdOverlapRecv: {len(shards)} shards for a "
                              f"{tuple(self.counts)} mesh")
-        self.shape = tuple(shards[0].shape[-3:])
-        self.dtype = shards[0].dtype
-        self.devices = [t.device for t in shards]
+        held = next(t for t in shards if t is not None)
+        self.shape = tuple(held.shape[-3:])
+        self.dtype = held.dtype
+        self.devices = [None if t is None else t.device for t in shards]
         Z, Y, _ = self.shape
         n = len(shards)
         self.pieces = {hr: [send_pieces(i, self.counts, Z, Y, hr)
                             for i in range(n)] for hr in (R, 2 * R)}
         super().__init__(self.devices,
                          [[j for _, j, _ in self.pieces[R][i]]
-                          for i in range(n)])
+                          for i in range(n)], ranks)
         self._buffers = {hr: self._zeroed_buffers(hr) for hr in (R, 2 * R)}
+        #: per row count, the pointer of every position's (8, ...)
+        #: receive buffer of each name (another rank's mapped through
+        #: CUDA IPC); None on the CPU
+        self.ptrs = ({hr: self.share(self._buffers[hr]) for hr in (R, 2 * R)}
+                     if self.streams is not None else None)
         self._pair: List[Optional[PairScratch]] = [None] * n
         #: B14's launch arguments per argument set (``_fixup_args``)
         self.fixup_cache: Dict[tuple, tuple] = {}
@@ -355,7 +371,8 @@ class MhdOverlapRecv(ShardOrdering):
         shapes = {"zlo": (8, hr, Y, X), "zhi": (8, hr, Y, X),
                   "ylo": (8, Z + 2 * hr, hr, X),
                   "yhi": (8, Z + 2 * hr, hr, X)}
-        return [{k: torch.zeros(s, dtype=self.dtype, device=d)
+        return [None if d is None else
+                {k: torch.zeros(s, dtype=self.dtype, device=d)
                  for k, s in shapes.items()} for d in self.devices]
 
     def buffers(self, hr: int) -> List[Dict[str, torch.Tensor]]:
@@ -378,26 +395,41 @@ class MhdOverlapRecv(ShardOrdering):
         ``halo_window`` and B11/B12 read."""
         from ..models.astaroth import FIELDS
 
-        return [{q: {k: v[f] for k, v in b.items()}
+        return [None if b is None else
+                {q: {k: v[f] for k, v in b.items()}
                  for f, q in enumerate(FIELDS)} for b in self.buffers(hr)]
+
+    def field_ptrs(self, hr: int, j: int, k: str) -> List[int]:
+        """The 8 per-field pointers of position j's receive buffer ``k``
+        of ``hr`` rows (FIELDS order), this process's or mapped."""
+        Z, Y, X = self.shape
+        rows = hr * Y * X if k in ("zlo", "zhi") else (Z + 2 * hr) * hr * X
+        step = rows * torch.empty((), dtype=self.dtype).element_size()
+        base = self.ptrs[hr][j][k]
+        return [base + q * step for q in range(8)]
 
 
 # ---------------------------------------------------------------------------
 # plain twins
 # ---------------------------------------------------------------------------
-def landed_slabs(shards: Sequence[Fields], counts: Dim3, hr: int
-                 ) -> List[Slabs]:
+def landed_slabs(shards: Sequence[Optional[Fields]], counts: Dim3, hr: int,
+                 ranks: Optional[Sequence[int]] = None
+                 ) -> List[Optional[Slabs]]:
     """Every shard's landed rows after every launch A of a substep: the
     slabs of ``exchange_interior_slabs(rz=hr, ry=hr, y_z_extended=True)``
-    over the 8 fields, per field."""
+    over the 8 fields, per field (None at the positions other ranks
+    hold, ``ranks``)."""
     from ..models.astaroth import FIELDS
 
-    stacked = [torch.stack([f[q] for q in FIELDS]) for f in shards]
-    return [{q: {k: v[f] for k, v in sl.items()} for f, q in
+    stacked = [None if f is None else torch.stack([f[q] for q in FIELDS])
+               for f in shards]
+    return [None if sl is None else
+            {q: {k: v[f] for k, v in sl.items()} for f, q in
              enumerate(FIELDS)}
             for sl in exchange_interior_slabs(stacked, Dim3.of(counts),
                                               rz=hr, ry=hr,
-                                              y_z_extended=True)]
+                                              y_z_extended=True,
+                                              ranks=ranks)]
 
 
 def _own_window_update(fields: Fields, w: Optional[Fields], s: int, prm,
@@ -416,21 +448,28 @@ def _own_window_update(fields: Fields, w: Optional[Fields], s: int, prm,
 def mhd_substep_overlap_plain(fields: Sequence[Fields],
                               w: Optional[Sequence[Fields]], s: int, prm,
                               dt_phys: float, counts: Dim3,
-                              pair: bool = False, write_w: bool = True
+                              pair: bool = False, write_w: bool = True,
+                              ranks: Optional[Sequence[int]] = None
                               ) -> Tuple[List[Fields], Optional[List[Fields]],
                                          List[Slabs]]:
     """B13's twin over every shard of the mesh: (new fields, new w or
     None, landed rows). The new fields and w hold B11's (B12's) values at
     ``interior_region`` and zeros elsewhere; the landed rows are
     ``landed_slabs``. ``pair=True``: substeps 0+1 (``s`` and ``w`` are
-    not read)."""
+    not read). ``ranks``: each position's owner on a mesh that spans
+    processes (None in every list at the positions other ranks hold)."""
     from ..models.astaroth import FIELDS
 
-    Z, Y, _ = fields[0][FIELDS[0]].shape
+    Z, Y, _ = _held(fields)[FIELDS[0]].shape
     inner = interior_region(Z, Y, pair)
     new_f: List[Fields] = []
     new_w: Optional[List[Fields]] = [] if write_w else None
     for i, f in enumerate(fields):
+        if f is None:
+            new_f.append(None)
+            if write_w:
+                new_w.append(None)
+            continue
         got_f, got_w = _own_window_update(f, None if w is None else w[i], s,
                                           prm, dt_phys, pair, write_w)
         for got, out in ((got_f, new_f), (got_w, new_w)):
@@ -441,7 +480,12 @@ def mhd_substep_overlap_plain(fields: Sequence[Fields],
                 if inner is not None:
                     _write_regions(z[q], got[q], [inner])
             out.append(z)
-    return new_f, new_w, landed_slabs(fields, counts, halo_rows(pair))
+    return new_f, new_w, landed_slabs(fields, counts, halo_rows(pair), ranks)
+
+
+def _held(fields: Sequence[Optional[Fields]]) -> Fields:
+    """The first shard's fields this process holds."""
+    return next(f for f in fields if f is not None)
 
 
 def mhd_substep_fixup_plain(fields: Sequence[Fields],
@@ -458,12 +502,17 @@ def mhd_substep_fixup_plain(fields: Sequence[Fields],
     None for w."""
     from ..models.astaroth import FIELDS
 
-    Z, Y, _ = fields[0][FIELDS[0]].shape
+    Z, Y, _ = _held(fields)[FIELDS[0]].shape
     shell = shell_regions(Z, Y, pair)
     write_w = w_partial is not None
     out_f: List[Fields] = []
     out_w: Optional[List[Fields]] = [] if write_w else None
     for i, f in enumerate(fields):
+        if f is None:
+            out_f.append(None)
+            if write_w:
+                out_w.append(None)
+            continue
         if pair:
             full_f, full_w = cm.mhd_substep01_halo_plain(f, slabs[i], prm,
                                                          dt_phys)
@@ -534,12 +583,14 @@ def _check_mesh(fields: Sequence[Fields], w, counts: Dim3, what: str):
         raise ValueError(f"{what}: {len(w)} w for {len(fields)} shards")
     f0 = None
     for i, f in enumerate(fields):
+        if f is None:
+            continue
         g = cm._check_fields(f, None if w is None else w[i], what)
         if f0 is not None and (g.shape != f0.shape or g.dtype != f0.dtype):
             raise ValueError(f"{what}: shards of {tuple(f0.shape)} "
                              f"{f0.dtype} and {tuple(g.shape)} {g.dtype}")
         f0 = f0 if f0 is not None else g
-    devs = {f[next(iter(f))].device.type for f in fields}
+    devs = {f[next(iter(f))].device.type for f in fields if f is not None}
     if len(devs) != 1:
         raise ValueError(f"{what}: shards on CPU and CUDA devices at once")
     return counts, f0
@@ -559,15 +610,18 @@ def _check_w_args(w, s: int, pair: bool, write_w: bool, what: str) -> None:
 
 
 def _recv_for(recv: Optional[MhdOverlapRecv], fields: Sequence[Fields],
-              counts: Dim3, what: str) -> MhdOverlapRecv:
+              counts: Dim3, what: str,
+              ranks: Optional[Sequence[int]] = None) -> MhdOverlapRecv:
     from ..models.astaroth import FIELDS
 
-    f0 = fields[0][FIELDS[0]]
+    f0 = _held(fields)[FIELDS[0]]
     if recv is None:
-        return MhdOverlapRecv([f[FIELDS[0]] for f in fields], counts)
+        return MhdOverlapRecv([None if f is None else f[FIELDS[0]]
+                               for f in fields], counts, ranks)
     if (recv.counts != counts or recv.shape != tuple(f0.shape)
             or recv.dtype != f0.dtype
-            or recv.devices != [f[FIELDS[0]].device for f in fields]):
+            or recv.devices != [None if f is None else f[FIELDS[0]].device
+                                for f in fields]):
         raise ValueError(f"{what}: recv was made for another mesh")
     return recv
 
@@ -584,7 +638,8 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
                              pair: bool = False, write_w: bool = True,
                              out_f: Optional[Sequence[Fields]] = None,
                              out_w: Optional[Sequence[Fields]] = None,
-                             recv: Optional[MhdOverlapRecv] = None
+                             recv: Optional[MhdOverlapRecv] = None,
+                             ranks: Optional[Sequence[int]] = None
                              ) -> Tuple[List[Fields], Optional[List[Fields]],
                                         MhdOverlapRecv]:
     """B13 (launch A) on every shard of an x-unsharded mesh
@@ -597,7 +652,9 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
     only where alpha_s == 0; ``write_w=False``); ``pair=True`` runs
     substeps 0+1 (``w`` None, w written). Returns (out_f, out_w or None,
     recv); on the card the landed rows are complete once every shard's
-    launch A has run (rule (b) orders B14 after them)."""
+    launch A has run (rule (b) orders B14 after them). On a mesh that
+    spans processes (``ranks``, or ``recv.ranks``) every list holds None
+    at the positions other ranks hold."""
     from ..models.astaroth import FIELDS
 
     what = "mhd_substep_overlap_cuda"
@@ -605,20 +662,24 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
     if not write_w and out_w is not None:
         raise ValueError(f"{what}: out_w given with write_w=False")
     counts, f0 = _check_mesh(fields, w, counts, what)
-    recv = _recv_for(recv, fields, counts, what)
+    recv = _recv_for(recv, fields, counts, what, ranks)
     hr = halo_rows(pair)
-    n = len(fields)
-    out_f = [cm._outputs(f[FIELDS[0]], None if out_f is None else out_f[i],
-                         what) for i, f in enumerate(fields)]
-    out_w = ([cm._outputs(f[FIELDS[0]], None if out_w is None else out_w[i],
-                          what) for i, f in enumerate(fields)]
-             if write_w else None)
+    own = recv.local
+
+    def outs(given):
+        return [None if f is None else
+                cm._outputs(f[FIELDS[0]], None if given is None else given[i],
+                            what) for i, f in enumerate(fields)]
+
+    out_f = outs(out_f)
+    out_w = outs(out_w) if write_w else None
     if f0.device.type == "cpu":
         nf, nw, slabs = mhd_substep_overlap_plain(fields, w, s, prm, dt_phys,
                                                   counts, pair=pair,
-                                                  write_w=write_w)
+                                                  write_w=write_w,
+                                                  ranks=recv.ranks)
         landed = recv.landed(hr)
-        for i in range(n):
+        for i in own:
             for q in FIELDS:
                 out_f[i][q].copy_(nf[i][q])
                 if write_w:
@@ -626,8 +687,8 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
                 for k in SLAB_NAMES:
                     landed[i][q][k].copy_(slabs[i][q][k])
         return out_f, out_w, recv
-    bufs = recv.buffers(hr)
-    for i, f in enumerate(fields):
+    for i in own:
+        f = fields[i]
         ts = ([f[q] for q in FIELDS] + list(out_f[i].values())
               + ([w[i][q] for q in FIELDS] if w is not None else [])
               + (list(out_w[i].values()) if write_w else []))
@@ -640,10 +701,12 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
     from . import _build
 
     with recv.own_session():
-        for i, f in enumerate(fields):
+        recv.begin_a()
+        for i in own:
+            f = fields[i]
             pieces = recv.pieces[hr][i]
-            dst = cm._ptrs([bufs[j][k][q] for k, j, _ in pieces
-                            for q in range(8)])
+            dst = (ctypes.c_void_p * 64)(*[p for k, j, _ in pieces
+                                           for p in recv.field_ptrs(hr, j, k)])
             geo = np.asarray([g for _, _, g in pieces], dtype=np.int32)
             p_in, p_f = _launch_ptrs(f), _launch_ptrs(out_f[i])
             p_w = _launch_ptrs(None if w is None else w[i])
@@ -663,7 +726,7 @@ def mhd_substep_overlap_cuda(fields: Sequence[Fields],
                               cm.is_bf16(f0))
             if sc is not None:
                 sc.holds = pair_key(f, consts)
-    LAUNCHES["mhd_substep_overlap"] += n
+    LAUNCHES["mhd_substep_overlap"] += len(own)
     return out_f, out_w, recv
 
 
@@ -696,30 +759,33 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
     counts, f0 = _check_mesh(fields, w, counts, what)
     recv = _recv_for(recv, fields, counts, what)
     hr = halo_rows(pair)
-    n = len(fields)
-    f_partial = [cm._outputs(f[FIELDS[0]], fp, what)
+    own = recv.local
+    f_partial = [None if f is None else cm._outputs(f[FIELDS[0]], fp, what)
                  for f, fp in zip(fields, f_partial)]
     if write_w:
-        w_partial = [cm._outputs(f[FIELDS[0]], wp, what)
+        w_partial = [None if f is None else
+                     cm._outputs(f[FIELDS[0]], wp, what)
                      for f, wp in zip(fields, w_partial)]
     if f0.device.type == "cpu":
         nf, nw = mhd_substep_fixup_plain(fields, w, f_partial, w_partial,
                                          recv.landed(hr), s, prm, dt_phys,
                                          pair=pair)
-        for i in range(n):
+        for i in own:
             for q in FIELDS:
                 f_partial[i][q].copy_(nf[i][q])
                 if write_w:
                     w_partial[i][q].copy_(nw[i][q])
         return f_partial, w_partial
-    for i, f in enumerate(fields):
+    for i in own:
+        f = fields[i]
         ts = ([f[q] for q in FIELDS] + list(f_partial[i].values())
               + ([w[i][q] for q in FIELDS] if w is not None else [])
               + (list(w_partial[i].values()) if write_w else []))
         cm._check_cuda(f0, ts, what)
     consts = cm.kernel_consts(prm, dt_phys, s)
     if pair:
-        for i, f in enumerate(fields):
+        for i in own:
+            f = fields[i]
             sc = recv.pair_scratch(i)
             if sc is None or sc.holds != pair_key(f, consts):
                 raise ValueError(
@@ -731,11 +797,12 @@ def mhd_substep_fixup_cuda(fields: Sequence[Fields],
 
     sig = _SIGNATURES["mhd_substep_fixup_launch"]
     with recv.own_session():
-        for j, a in enumerate(args):
+        recv.begin_b()
+        for j, a in zip(own, args):
             with recv.launch_b(j):
                 _build.launch(_LIB, "mhd_substep_fixup_launch", sig,
                               recv.devices[j], *a)
-    LAUNCHES["mhd_substep_fixup"] += n
+    LAUNCHES["mhd_substep_fixup"] += len(own)
     return f_partial, w_partial
 
 
@@ -749,7 +816,8 @@ def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
                 w: Optional[Sequence[Fields]], f_partial: Sequence[Fields],
                 w_partial: Optional[Sequence[Fields]], consts: np.ndarray,
                 pair: bool) -> List[tuple]:
-    """B14's launcher arguments per shard (after the device), built once
+    """B14's launcher arguments per shard of this process (after the
+    device; in ``recv.local`` order), built once
     per argument set and kept in ``recv.fixup_cache`` (at most
     ``FIXUP_CACHE_SETS``, then it starts anew): the pointer arrays (with
     the pair, the shard's scratch), the plan's ints
@@ -763,7 +831,7 @@ def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
     groups = (fields, w, f_partial, w_partial)
     key = (pair, consts.tobytes()) + tuple(
         None if g is None else tuple(g[i][q].data_ptr() for q in FIELDS)
-        for i in range(len(fields)) for g in groups)
+        for i in recv.local for g in groups)
     got = recv.fixup_cache.get(key)
     if got is not None:
         return got[0]
@@ -776,7 +844,8 @@ def _fixup_args(recv: MhdOverlapRecv, fields: Sequence[Fields],
     n_margin = plan.margin.floats if pair else 0
     landed = recv.landed(hr)
     args = []
-    for j, f in enumerate(fields):
+    for j in recv.local:
+        f = fields[j]
         sc = recv.pair_scratch(j) if pair else None
         scratch = ((None,) * 4 if sc is None else
                    (sc.p_f1, sc.p_w1, sc.p_margin, sc.p_slabs1))

@@ -65,13 +65,17 @@ def reset_launch_counts() -> None:
 
 class ShardStreams:
     """One CUDA stream per shard of a mesh (``devices[i]`` holds shard
-    i; a device may repeat, and each repeat gets a stream of its own),
-    with the event joins between them and the cards' current streams."""
+    i; a device may repeat, and each repeat gets a stream of its own;
+    None where another process holds the shard, which gets none), with
+    the event joins between them and the cards' current streams."""
 
-    def __init__(self, devices: Sequence[torch.device]) -> None:
-        self.devices = [torch.device(d) for d in devices]
-        self.streams = [torch.cuda.Stream(d) for d in self.devices]
-        self.cards = list(dict.fromkeys(self.devices))
+    def __init__(self, devices: Sequence[Optional[torch.device]]) -> None:
+        self.devices = [None if d is None else torch.device(d)
+                        for d in devices]
+        self.streams = [None if d is None else torch.cuda.Stream(d)
+                        for d in self.devices]
+        self.cards = list(dict.fromkeys(d for d in self.devices
+                                        if d is not None))
 
     def __getitem__(self, i: int) -> torch.cuda.Stream:
         return self.streams[i]
@@ -85,13 +89,14 @@ class ShardStreams:
         events = [torch.cuda.current_stream(d).record_event()
                   for d in self.cards]
         for s in self.streams:
-            for e in events:
-                s.wait_event(e)
+            if s is not None:
+                for e in events:
+                    s.wait_event(e)
 
     def exit(self) -> None:
         """The current stream of every card of the mesh waits for every
         shard's stream."""
-        events = [s.record_event() for s in self.streams]
+        events = [s.record_event() for s in self.streams if s is not None]
         for d in self.cards:
             cur = torch.cuda.current_stream(d)
             for e in events:
@@ -117,8 +122,9 @@ def _check_mesh(interiors: Sequence[torch.Tensor], counts: Dim3,
     if len(interiors) != counts.flatten():
         raise ValueError(f"{what}: {len(interiors)} shards for a "
                          f"{tuple(counts)} mesh")
-    shape, dtype = interiors[0].shape, interiors[0].dtype
-    for t in interiors:
+    held = [t for t in interiors if t is not None]
+    shape, dtype = held[0].shape, held[0].dtype
+    for t in held:
         _check(t, what)
         if t.shape != shape or t.dtype != dtype:
             raise ValueError(f"{what}: shards of {dtype} {tuple(shape)} "
@@ -136,24 +142,69 @@ class ShardOrdering:
     shard i's launch A writes (itself included on a one-shard axis);
     ``sources[j]`` the shards that write into shard j's. On the CPU
     (``devices`` all CPU) it holds no streams, and only ``session``
-    applies."""
+    applies.
 
-    def __init__(self, devices: Sequence[torch.device],
-                 targets: Sequence[Sequence[int]]) -> None:
+    ``ranks``: each position's owner on a mesh that spans processes
+    (``devices[i]`` None where another rank holds the shard). This
+    process then holds streams and events for its own shards only, and
+    between shards of two ranks rules (a) and (b) are the device-side
+    counters of the mesh's ``ipc.PeerFlags`` (``ipc.overlap_a_schedule``,
+    ``ipc.overlap_b_schedule``): a launch A signals SENT to each remote
+    target's card, a launch B waits for each remote source's SENT of the
+    same phase and signals READ back, and the next launch A waits for
+    that READ. ``begin_a`` and ``begin_b`` open each phase (one call of
+    a wrapper over every shard); made collectively on the card."""
+
+    def __init__(self, devices: Sequence[Optional[torch.device]],
+                 targets: Sequence[Sequence[int]],
+                 ranks: Optional[Sequence[int]] = None) -> None:
         n = len(devices)
         self.targets = [sorted(set(t)) for t in targets]
         self.sources = [sorted({i for i in range(n) if j in self.targets[i]})
                         for j in range(n)]
+        self.local = [i for i, d in enumerate(devices) if d is not None]
+        self.ranks = None if ranks is None else tuple(ranks)
         self.streams: Optional[ShardStreams] = None
+        self.flags = None
+        self.remote: Dict[int, tuple] = {}
         self.active = False
-        if torch.device(devices[0]).type == "cuda":
-            self.streams = ShardStreams(devices)
-            self.sent = [torch.cuda.Event() for _ in range(n)]
-            self.read = [torch.cuda.Event() for _ in range(n)]
-            self._read_recorded = [False] * n
-            for i, d in enumerate(devices):
-                for j in self.targets[i]:
-                    enable_peer_access(d, devices[j])
+        if torch.device(devices[self.local[0]]).type != "cuda":
+            return
+        self.streams = ShardStreams(devices)
+        self.sent = [torch.cuda.Event() for _ in range(n)]
+        self.read = [torch.cuda.Event() for _ in range(n)]
+        self._read_recorded = [False] * n
+        where = devices
+        if ranks is not None:
+            from ..parallel import ipc
+
+            where = ipc.mesh_devices(devices)
+            self.flags = ipc.channel(ranks, where)
+            self.remote = self.flags.remote()
+            self.card = {i: ipc.card_key(ranks[i], where[i])
+                         for i in self.local}
+            #: this object's SENT value of the current A phase, its READ
+            #: value of the current B phase, and the B value the current
+            #: A phase waits for (0 before the first B phase)
+            self._sent_value = self._b_value = self._read_value = 0
+        for i in self.local:
+            for j in self.targets[i]:
+                enable_peer_access(where[i], where[j])
+
+    def begin_a(self) -> None:
+        """Open an A phase (every shard's launch A of one step)."""
+        if self.flags is not None:
+            from ..parallel import ipc
+
+            self._read_value = self._b_value
+            self._sent_value = self.flags.tick(ipc.SENT)
+
+    def begin_b(self) -> None:
+        """Open a B phase (every shard's launch B of one step)."""
+        if self.flags is not None:
+            from ..parallel import ipc
+
+            self._b_value = self.flags.tick(ipc.READ)
 
     @contextlib.contextmanager
     def session(self) -> Iterator["ShardOrdering"]:
@@ -171,17 +222,37 @@ class ShardOrdering:
             if self.streams is not None:
                 self.streams.exit()
 
+    def _flagged(self, ops, s):
+        """Split a schedule at its launch: run what comes before on
+        stream ``s`` now; return what comes after."""
+        from ..parallel import ipc
+
+        k = next(n for n, op in enumerate(ops) if op.op == "launch")
+        ipc.run_schedule(self.flags, ops[:k], s)
+        return ops[k + 1:]
+
     @contextlib.contextmanager
     def launch_a(self, i: int) -> Iterator[torch.cuda.Stream]:
         """The block launches shard i's launch A on its stream, after
         rule (a): every other target's previous launch B."""
         s = self.streams[i]
         for j in self.targets[i]:
-            if j != i and self._read_recorded[j]:
+            if j != i and j not in self.remote and self._read_recorded[j]:
                 s.wait_event(self.read[j])
+        after = []
+        if self.flags is not None:
+            from ..parallel import ipc
+
+            after = self._flagged(ipc.overlap_a_schedule(
+                i, self.targets[i], self.remote, self.card[i],
+                self._sent_value, self._read_value), s)
         with torch.cuda.stream(s):
             yield s
         self.sent[i].record(s)
+        if after:
+            from ..parallel import ipc
+
+            ipc.run_schedule(self.flags, after, s)
 
     @contextlib.contextmanager
     def launch_b(self, j: int) -> Iterator[torch.cuda.Stream]:
@@ -190,12 +261,23 @@ class ShardOrdering:
         j."""
         s = self.streams[j]
         for i in self.sources[j]:
-            if i != j:
+            if i != j and i not in self.remote:
                 s.wait_event(self.sent[i])
+        after = []
+        if self.flags is not None:
+            from ..parallel import ipc
+
+            after = self._flagged(ipc.overlap_b_schedule(
+                j, self.sources[j], self.remote, self.card[j],
+                self._sent_value, self._b_value), s)
         with torch.cuda.stream(s):
             yield s
         self.read[j].record(s)
         self._read_recorded[j] = True
+        if after:
+            from ..parallel import ipc
+
+            ipc.run_schedule(self.flags, after, s)
 
     @contextlib.contextmanager
     def own_session(self) -> Iterator[None]:
@@ -206,42 +288,97 @@ class ShardOrdering:
         with self.session():
             yield
 
+    def share(self, buffers: Sequence[Optional[Dict[str, torch.Tensor]]]
+              ) -> List[Dict[str, int]]:
+        """Per position, the pointer of each of its receive ``buffers``
+        (``buffers[i]``: name -> tensor, the same names at every
+        position; None where another rank holds position i): this
+        process's own, or the other rank's mapped through CUDA IPC
+        (``ipc.share``, a collective) on a mesh that spans processes on
+        the card."""
+        if self.flags is None:
+            return [None if b is None else
+                    {k: t.data_ptr() for k, t in b.items()} for b in buffers]
+        from ..parallel import ipc
+
+        names = sorted(next(b for b in buffers if b is not None))
+        got = ipc.share({("recv", i, k): None if b is None else b[k]
+                         for i, b in enumerate(buffers) for k in names},
+                        self.streams[self.local[0]].device)
+        return [{k: got[("recv", i, k)] for k in names}
+                for i in range(len(buffers))]
+
 
 class OverlapRecv(ShardOrdering):
     """The persistent receive slabs of every shard of a mesh — ``slabs[i]
     = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X), "yhi": (Z,
     1, X)}`` on shard i's device — and, on the card, the shards' streams
-    and the events of rules (a) and (b) (``ShardOrdering``)."""
+    and the events of rules (a) and (b) (``ShardOrdering``). ``ranks``:
+    each position's owner on a mesh that spans processes (``interiors``
+    and ``slabs`` None at the positions other ranks hold); ``ptrs[i][k]``
+    is the pointer launch A stores slab k of position i through, mapped
+    from its owner on the card."""
 
-    def __init__(self, interiors: Sequence[torch.Tensor], counts: Dim3
+    def __init__(self, interiors: Sequence[Optional[torch.Tensor]],
+                 counts: Dim3, ranks: Optional[Sequence[int]] = None
                  ) -> None:
         self.counts = Dim3.of(counts)
         Z, Y, X = _check_mesh(interiors, self.counts, "OverlapRecv")
         shapes = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X),
                   "yhi": (Z, 1, X)}
-        self.slabs = [{k: torch.zeros(s, dtype=t.dtype, device=t.device)
+        self.slabs = [None if t is None else
+                      {k: torch.zeros(s, dtype=t.dtype, device=t.device)
                        for k, s in shapes.items()} for t in interiors]
         self.send_to = [send_targets(i, self.counts)
                         for i in range(len(interiors))]
-        super().__init__([t.device for t in interiors],
-                         [list(t.values()) for t in self.send_to])
+        super().__init__([None if t is None else t.device
+                          for t in interiors],
+                         [list(t.values()) for t in self.send_to], ranks)
+        self.ptrs = (self.share(self.slabs) if self.streams is not None
+                     else None)
 
 
 # ---------------------------------------------------------------------------
 # plain twin
 # ---------------------------------------------------------------------------
-def gather_overlap_slabs(interiors: Sequence[torch.Tensor], counts: Dim3
-                         ) -> List[Dict[str, torch.Tensor]]:
+def gather_overlap_slabs(interiors: Sequence[Optional[torch.Tensor]],
+                         counts: Dim3,
+                         ranks: Optional[Sequence[int]] = None
+                         ) -> List[Optional[Dict[str, torch.Tensor]]]:
     """Each shard's four landed slabs, read from its neighbours: what
-    every launch A of a step leaves in the receive buffers."""
+    every launch A of a step leaves in the receive buffers. ``ranks``:
+    each position's owner on a mesh that spans processes (``interiors``
+    None at the positions other ranks hold, and so is their entry of
+    the result); a slab between two ranks is a message, all in one
+    batch."""
     counts = Dim3.of(counts)
-    out = [{} for _ in interiors]
+    out = [None if c is None else {} for c in interiors]
+    msgs = None
+    if ranks is not None:
+        from ..parallel.multihost import RankMessages
+
+        msgs = RankMessages()
+    held = next(c for c in interiors if c is not None)
+    Z, Y, X = held.shape
+    shapes = {"zlo": (1, Y, X), "zhi": (1, Y, X), "ylo": (Z, 1, X),
+              "yhi": (Z, 1, X)}
     for i, c in enumerate(interiors):
-        Y = c.shape[1]
-        sends = {"zlo": c[-1:], "zhi": c[:1], "ylo": c[:, Y - 1:Y],
-                 "yhi": c[:, :1]}
-        for k, j in send_targets(i, counts).items():
-            out[j][k] = sends[k].to(interiors[j].device, copy=True)
+        sends = (None if c is None else
+                 {"zlo": c[-1:], "zhi": c[:1], "ylo": c[:, Y - 1:Y],
+                  "yhi": c[:, :1]})
+        for n, (k, j) in enumerate(send_targets(i, counts).items()):
+            tag = 4 * j + n
+            if c is not None and interiors[j] is not None:
+                out[j][k] = sends[k].to(interiors[j].device, copy=True)
+            elif c is not None:
+                msgs.send(sends[k], ranks[j], tag)
+            elif interiors[j] is not None:
+                def land(buf, j=j, k=k):
+                    out[j][k] = buf
+                msgs.recv(shapes[k], held.dtype, interiors[j].device,
+                          ranks[i], tag, land)
+    if msgs is not None:
+        msgs.run()
     return out
 
 
@@ -279,15 +416,18 @@ def jacobi7_overlap_shard_plain(interior: torch.Tensor,
                           origin_zyx=tuple(int(v) for v in origin_zyx))
 
 
-def jacobi7_overlap_plain(interiors: Sequence[torch.Tensor],
+def jacobi7_overlap_plain(interiors: Sequence[Optional[torch.Tensor]],
                           origins: Sequence, hot_c, cold_c, sph_r: int,
-                          counts: Dim3
-                          ) -> Tuple[List[torch.Tensor],
-                                     List[Dict[str, torch.Tensor]]]:
+                          counts: Dim3,
+                          ranks: Optional[Sequence[int]] = None
+                          ) -> Tuple[List[Optional[torch.Tensor]],
+                                     List[Optional[Dict[str, torch.Tensor]]]]:
     """B7's twin over every shard of the mesh: (new shards, each shard's
-    landed slabs)."""
-    slabs = gather_overlap_slabs(interiors, counts)
-    return ([jacobi7_overlap_shard_plain(c, s, o, hot_c, cold_c, sph_r)
+    landed slabs); None at the positions other ranks hold (``ranks``,
+    ``gather_overlap_slabs``)."""
+    slabs = gather_overlap_slabs(interiors, counts, ranks)
+    return ([None if c is None else
+             jacobi7_overlap_shard_plain(c, s, o, hot_c, cold_c, sph_r)
              for c, s, o in zip(interiors, slabs, origins)], slabs)
 
 
@@ -301,60 +441,71 @@ _SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
                          hot_c, cold_c, sph_r: int, counts: Dim3,
                          out: Optional[Sequence[torch.Tensor]] = None,
-                         recv: Optional[OverlapRecv] = None
+                         recv: Optional[OverlapRecv] = None,
+                         ranks: Optional[Sequence[int]] = None
                          ) -> Tuple[List[torch.Tensor], OverlapRecv]:
     """B7: one overlapped Jacobi step plus the spheres on every (Z, Y,
     X) float32 or bfloat16 shard of an x-unsharded mesh (``interiors[i]``
     at global origin ``origins[i]`` = (z, y, x), x fastest), Z >= 4, Y >=
     2.
     ``out``: the shards' output tensors (not aliasing the inputs);
-    ``recv``: the mesh's persistent ``OverlapRecv`` (made here if None).
-    Returns (out, recv); ``recv.slabs`` then hold the landed slabs."""
+    ``recv``: the mesh's persistent ``OverlapRecv`` (made here if None,
+    with ``ranks``). Returns (out, recv); ``recv.slabs`` then hold the
+    landed slabs. On a mesh that spans processes (``recv.ranks``) the
+    shards, ``out`` and the result are None at the positions other
+    ranks hold; launch A stores into their receive slabs through CUDA
+    IPC, and each rank counts its own shards' launches."""
     what = "jacobi7_overlap_cuda"
     counts = Dim3.of(counts)
     arrs = list(interiors)
     Z, Y, X = _check_mesh(arrs, counts, what)
     if out is None:
-        out = [torch.empty_like(t) for t in arrs]
+        out = [None if t is None else torch.empty_like(t) for t in arrs]
     out = list(out)
     for t, o in zip(arrs, out):
+        if t is None:
+            continue
         if (o.shape != t.shape or o.dtype != t.dtype or o.device != t.device
                 or not o.is_contiguous() or o.data_ptr() == t.data_ptr()):
             raise ValueError(f"{what}: out must be contiguous {t.dtype} "
                              f"tensors of the shards' shape and devices, "
                              f"not aliasing them")
     if recv is None:
-        recv = OverlapRecv(arrs, counts)
-    if all(t.device.type == "cpu" for t in arrs):
+        recv = OverlapRecv(arrs, counts, ranks)
+    own = recv.local
+    if all(arrs[i].device.type == "cpu" for i in own):
         new, slabs = jacobi7_overlap_plain(arrs, origins, hot_c, cold_c,
-                                           sph_r, counts)
-        for o, v, dst, src in zip(out, new, recv.slabs, slabs):
-            o.copy_(v)
+                                           sph_r, counts, recv.ranks)
+        for i in own:
+            out[i].copy_(new[i])
             for k in SLAB_NAMES:
-                dst[k].copy_(src[k])
+                recv.slabs[i][k].copy_(slabs[i][k])
         return out, recv
-    for t in arrs + out:
-        _check_cuda(t, what)
+    for i in own:
+        _check_cuda(arrs[i], what)
+        _check_cuda(out[i], what)
     if recv.streams is None or recv.counts != counts:
         raise ValueError(f"{what}: recv was made for another mesh")
     from . import _build
 
-    spheres = (*_sphere_args(hot_c, cold_c, sph_r), is_bf16(arrs[0]))
+    spheres = (*_sphere_args(hot_c, cold_c, sph_r), is_bf16(arrs[own[0]]))
     orgs = [tuple(int(v) for v in o) for o in origins]
-    n = len(arrs)
     with recv.own_session():
         # launch A: sends and the interior, after rule (a)
-        for i, t in enumerate(arrs):
+        recv.begin_a()
+        for i in own:
+            t = arrs[i]
             tg = recv.send_to[i]
             with recv.launch_a(i):
                 _build.launch(_LIB, "jacobi7_overlap_inner_launch",
                               _SIGNATURE, t.device, t.data_ptr(),
                               out[i].data_ptr(),
-                              *(recv.slabs[tg[k]][k].data_ptr()
-                                for k in SLAB_NAMES), Z, Y, X, *orgs[i],
-                              *spheres)
+                              *(recv.ptrs[tg[k]][k] for k in SLAB_NAMES),
+                              Z, Y, X, *orgs[i], *spheres)
         # launch B: the faces, after rule (b)
-        for j, t in enumerate(arrs):
+        recv.begin_b()
+        for j in own:
+            t = arrs[j]
             with recv.launch_b(j):
                 _build.launch(_LIB, "jacobi7_overlap_faces_launch",
                               _SIGNATURE, t.device, t.data_ptr(),
@@ -362,5 +513,5 @@ def jacobi7_overlap_cuda(interiors: Sequence[torch.Tensor], origins: Sequence,
                               *(recv.slabs[j][k].data_ptr()
                                 for k in SLAB_NAMES), Z, Y, X, *orgs[j],
                               *spheres)
-    LAUNCHES["jacobi7_overlap"] += n
+    LAUNCHES["jacobi7_overlap"] += len(own)
     return out, recv

@@ -11,12 +11,16 @@ local periodic copy that JAX does there with that axis's radius alone
 (:133-139). Every slab spans the full padded cross section, so edges and
 corners ride along from sweep to sweep: every card's sweep a lands
 before any card's sweep a+1 starts. The halos equal those of the slab
-method bit for bit.
+method bit for bit. On a mesh that spans processes each rank launches
+on its own cards and stores into the other ranks' shards through CUDA
+IPC, every sweep ordered by device-side flags (``ops/cuda_exchange.py``,
+``parallel/ipc.py``); on CPU shards the twin sends those slabs as
+messages.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -27,27 +31,32 @@ from .exchange import ExchangeInFlight
 
 def start_exchange_shard_cuda(fields: Sequence[Sequence[torch.Tensor]],
                               radius: Radius, mesh_counts: Dim3,
-                              axis_order: Tuple[int, ...] = (0, 1, 2)
+                              axis_order: Tuple[int, ...] = (0, 1, 2),
+                              ranks: Optional[Sequence[int]] = None
                               ) -> ExchangeInFlight:
     """Queue the sweeps of every quantity's shards (``fields[q][i]``:
     shard i of quantity q, x fastest) and return the handle whose
     ``wait()`` joins them back. On the card the sweeps run on one side
     stream per card, after the work already queued on the current
-    streams of the mesh's cards; on the CPU they run at once."""
+    streams of the mesh's cards; on the CPU they run at once.
+    ``ranks``: each position's owner on a mesh that spans processes
+    (None in ``fields[q]`` at the positions other ranks own); still one
+    launch per card and sweep, each rank counting its own."""
     sweeps = [(a, radius.face(a, -1), radius.face(a, 1)) for a in axis_order
               if radius.face(a, -1) or radius.face(a, 1)]
     return ExchangeInFlight(start_sweeps(fields, sweeps,
-                                         Dim3.of(mesh_counts)))
+                                         Dim3.of(mesh_counts), ranks))
 
 
 def exchange_shard_cuda(shards: Sequence[torch.Tensor], radius: Radius,
                         mesh_counts: Dim3,
-                        axis_order: Tuple[int, ...] = (0, 1, 2)
+                        axis_order: Tuple[int, ...] = (0, 1, 2),
+                        ranks: Optional[Sequence[int]] = None
                         ) -> Sequence[torch.Tensor]:
     """Fill all halos of the padded (z,y,x) shards of a mesh (x fastest)
     in place with the remote-write sweeps; returns ``shards``. The same
     contract as ``exchange_shard`` for an evenly divided, periodic grid
     whose allocation is ``radius`` deep."""
     start_exchange_shard_cuda([shards], radius, mesh_counts,
-                              axis_order).wait()
+                              axis_order, ranks).wait()
     return shards

@@ -53,10 +53,14 @@ of ``j``'s box to ``i``'s owner where it owns ``j``, a receive into
 of one direction's messages go in one batch (``multihost.RankMessages``),
 which lands before the next direction starts, so that edges and corners
 ride the later sweeps as they do in one process. A narrowing wire format
-narrows before the send and widens after the receive. The slab, packed
-and interior-slab engines run across ranks; the remote-write kernel
-(B4), the all-gather engine, ``start_dispatch_exchange`` (the overlap
-paths) and ``accumulate_shard`` raise there (ROADMAP A4c).
+narrows before the send and widens after the receive. Every engine runs
+across ranks: the slab, packed, all-gather and interior-slab engines and
+``accumulate_shard`` by such batches; the remote-write kernel (B4) on
+CUDA shards by stores into the other ranks' shards, mapped through CUDA
+IPC (``parallel/ipc.py``), and on CPU shards by batches as well. An
+exchange started for overlap (``start_dispatch_exchange``) posts its
+first direction's batch and returns; ``wait()`` lands it and runs the
+rest, so the work queued in between overlaps the messages.
 
 Within one direction every source is interior along the sweep axis and
 every destination halo, so the copies of one direction may run in any
@@ -71,6 +75,7 @@ its slabs.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -292,19 +297,6 @@ def _first(arrs: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
     raise ValueError("this process holds no shard of the mesh")
 
 
-#: the ROADMAP item that takes the remote-write, all-gather, overlap and
-#: adjoint paths across processes
-A4C = "ROADMAP A4c"
-
-
-def refuse_across_ranks(what: str) -> None:
-    """Raise for a path that runs in one process only."""
-    raise NotImplementedError(
-        f"{what} does not run on a mesh that spans processes yet "
-        f"({A4C}); use the PpermuteSlab or PpermutePacked methods and the "
-        f"non-overlapped paths")
-
-
 def _check_pads(a: int, radius: Radius, alloc_r: Radius) -> None:
     if (alloc_r.face(a, -1) < radius.face(a, -1)
             or alloc_r.face(a, 1) < radius.face(a, 1)):
@@ -468,6 +460,19 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
     differ. ``probe``: records every message (``make_exchange``).
     ``ranks``: each position's owner on a mesh that spans processes
     (None at the positions of ``shards`` other ranks own)."""
+    for _ in _shard_batches(shards, radius, mesh_counts, axis_order, rem,
+                            alloc_radius, nonperiodic, wire_format,
+                            wire_layout, probe, ranks):
+        pass
+    return shards
+
+
+def _shard_batches(shards, radius, mesh_counts, axis_order, rem,
+                   alloc_radius, nonperiodic, wire_format, wire_layout,
+                   probe, ranks):
+    """``exchange_shard`` as a generator: it yields once each direction's
+    batch of cross-rank messages is posted, and lands the batch when
+    resumed (in one process it never yields)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
     alloc_r = alloc_radius if alloc_radius is not None else radius
@@ -504,9 +509,16 @@ def exchange_shard(shards: Sequence[torch.Tensor], radius: Radius,
                 dst.copy_(src)
             else:
                 dst.copy_(_ship(src, arrs[i].device, fmt, name, probe))
-        if msgs is not None:
-            msgs.run()
-    return shards
+        yield from _posted(msgs)
+
+
+def _posted(msgs):
+    """Post a batch of messages, yield, then land it (nothing without a
+    batch)."""
+    if msgs is not None:
+        msgs.start()
+        yield
+        msgs.wait()
 
 
 def _messages(ranks):
@@ -533,7 +545,8 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
                      axis_order: Tuple[int, ...] = (2, 1, 0),
                      rem: Dim3 = Dim3(0, 0, 0),
                      nonperiodic: bool = False,
-                     probe: Optional[WireProbe] = None
+                     probe: Optional[WireProbe] = None,
+                     ranks: Optional[Sequence[int]] = None
                      ) -> Sequence[torch.Tensor]:
     """The ADJOINT of ``exchange_shard``, in place on the padded (z,y,x)
     shards of a mesh (x fastest); returns ``shards`` (JAX
@@ -555,11 +568,15 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
     ``nonperiodic``: contributions crossing the open global boundary are
     dropped (on a one-shard axis, all of them). ``probe`` records every
     message between two mesh positions (one a shard, direction and axis
-    of more than one shard)."""
+    of more than one shard). ``ranks``: each position's owner on a mesh
+    that spans processes (None at the positions of ``shards`` other
+    ranks own): a slab whose receiver another rank owns goes as a
+    message, in one batch a direction, taken with the others before any
+    arrival is added."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
-    if any(t is None for t in arrs):
-        refuse_across_ranks("accumulate_shard (the PIC deposit)")
+    me = this_rank() if ranks is not None else None
+    own = [i for i, t in enumerate(arrs) if t is not None]
     idx = [mesh_index(i, counts) for i in range(len(arrs))]
     for a in axis_order:
         r_lo, r_hi = radius.face(a, -1), radius.face(a, 1)
@@ -567,7 +584,7 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
             continue
         dim = AXIS_TO_DIM[a]
         name = AXIS_NAME[a]
-        interior = arrs[0].shape[dim] - r_lo - r_hi
+        interior = _first(arrs).shape[dim] - r_lo - r_hi
         lens = [shard_interior_len(a, interior, rem, m[a]) for m in idx]
         # (side the slab travels, its rows on the sender, the rows it is
         # added into on the receiver, the edge whose arrivals the open
@@ -580,14 +597,33 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
             moves.append((-1, lambda i: (0, r_lo),
                           lambda i: (lens[i], r_lo), 1))
         for side, src_at, dst_at, edge in moves:
-            sent = [t.narrow(dim, *src_at(i)).clone()
+            sent = [None if t is None else t.narrow(dim, *src_at(i)).clone()
                     for i, t in enumerate(arrs)]
-            for i, t in enumerate(arrs):
+            takes = [not (nonperiodic and _exterior(i, counts, a, edge))
+                     for i in range(len(arrs))]
+            sent_from: Dict[int, torch.Tensor] = {}
+            msgs = _messages(ranks)
+            if msgs is not None:
+                for i in range(len(arrs)):
+                    j = mesh_neighbor(i, counts, a, -side)
+                    if not takes[i] or ranks[i] == ranks[j]:
+                        continue
+                    if ranks[j] == me:
+                        msgs.send(sent[j], ranks[i], i)
+                    elif ranks[i] == me:
+                        def land(buf, i=i):
+                            sent_from[i] = buf
+                        t = arrs[i]
+                        msgs.recv(sent[i].shape, t.dtype, t.device, ranks[j],
+                                  i, land)
+                msgs.run()
+            for i in own:
+                t = arrs[i]
                 j = mesh_neighbor(i, counts, a, -side)
-                recv = sent[j]
+                recv = sent_from.get(i, sent[j])
                 if j != i and probe is not None:
                     probe.moved(name, recv.dtype, recv.dtype, recv.dtype)
-                if not (nonperiodic and _exterior(i, counts, a, edge)):
+                if takes[i]:
                     dst = t.narrow(dim, *dst_at(i))
                     dst.copy_(dst + recv.to(t.device))
                 t.narrow(dim, *src_at(i)).zero_()
@@ -835,6 +871,17 @@ def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
     axis is a local copy of each quantity, as there. ``ranks``: each
     position's owner on a mesh that spans processes (``exchange_shard``):
     a packed buffer is then one message."""
+    for _ in _packed_batches(fields, radius, mesh_counts, axis_order, rem,
+                             alloc_radius, nonperiodic, wire_format,
+                             wire_layout, probe, ranks):
+        pass
+    return fields
+
+
+def _packed_batches(fields, radius, mesh_counts, axis_order, rem,
+                    alloc_radius, nonperiodic, wire_format, wire_layout,
+                    probe, ranks):
+    """``exchange_shard_packed`` as a generator (``_shard_batches``)."""
     counts = Dim3.of(mesh_counts)
     alloc_r = alloc_radius if alloc_radius is not None else radius
     wf = normalize_wire_format(wire_format)
@@ -882,9 +929,7 @@ def exchange_shard_packed(fields: Dict[str, List[torch.Tensor]],
                 buf = torch.cat([s.reshape(-1) for s in srcs])
                 dev = dsts[0].device
                 _splitter(dsts)(_ship(buf, dev, fmt, name, probe).to(dev))
-        if msgs is not None:
-            msgs.run()
-    return fields
+        yield from _posted(msgs)
 
 
 def _splitter(dsts: Sequence[torch.Tensor]):
@@ -903,7 +948,8 @@ def _splitter(dsts: Sequence[torch.Tensor]):
 def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
                              mesh_counts: Dim3,
                              axis_order: Tuple[int, ...] = (0, 1, 2),
-                             probe: Optional[WireProbe] = None
+                             probe: Optional[WireProbe] = None,
+                             ranks: Optional[Sequence[int]] = None
                              ) -> Sequence[torch.Tensor]:
     """The all-gather control strategy (JAX ``parallel/exchange.py:
     647-681``; reference bin/bench_alltoallv.cu), in place; returns
@@ -913,20 +959,34 @@ def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
     stack on its own device: n times the bytes of the slab copy, the
     same halos. A one-shard axis is the slab copy's local wrap. Even
     grids with the allocation at ``radius`` only (``dispatch_exchange``
-    refuses the rest), so every shard's boxes lie alike."""
+    refuses the rest), so every shard's boxes lie alike. ``ranks``:
+    each position's owner on a mesh that spans processes; a position
+    then receives every slab of its line that another rank owns as a
+    message (one batch a direction), n times the slab's bytes too."""
+    for _ in _allgather_batches(shards, radius, mesh_counts, axis_order,
+                                probe, ranks):
+        pass
+    return shards
+
+
+def _allgather_batches(shards, radius, mesh_counts, axis_order, probe,
+                       ranks):
+    """``exchange_shard_allgather`` as a generator (``_shard_batches``)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
-    if any(t is None for t in arrs):
-        refuse_across_ranks("the all-gather exchange (Method.AllGather)")
-    for a, side, per in _moves(arrs[0].shape, radius, radius, counts,
+    for a, side, per in _moves(_first(arrs).shape, radius, radius, counts,
                                Dim3(0, 0, 0), axis_order, "slab", False):
         n_dev = counts[a]
         if n_dev == 1:
             for i, (dst_at, _, src_at) in enumerate(per):
-                _view(arrs[i], dst_at).copy_(_view(arrs[i], src_at).clone())
+                if arrs[i] is not None:
+                    _view(arrs[i], dst_at).copy_(
+                        _view(arrs[i], src_at).clone())
             continue
         name = AXIS_NAME[a]
         dst_at, _, src_at = per[0]
+        msgs = _messages(ranks)
+        stacks = []
         for first in range(len(arrs)):
             idx = list(mesh_index(first, counts))
             if idx[a] != 0:
@@ -935,32 +995,66 @@ def exchange_shard_allgather(shards: Sequence[torch.Tensor], radius: Radius,
             for k in range(n_dev):
                 idx[a] = k
                 line.append(mesh_linear(Dim3(*idx), counts))
-            slabs = [_view(arrs[k], src_at) for k in line]
+            slabs = [None if arrs[k] is None else _view(arrs[k], src_at)
+                     for k in line]
             gathered = {}
             for k in line:
+                if arrs[k] is None:
+                    # another rank's position: this rank sends it the
+                    # slabs it owns
+                    for p, s in enumerate(slabs):
+                        if s is not None:
+                            msgs.send(s, ranks[k], k * n_dev + p)
+                    continue
+                # one stack a device in one process; across ranks one a
+                # position, so that a sender knows every message it owes
                 dev = arrs[k].device
-                if dev not in gathered:
-                    gathered[dev] = torch.stack([s.to(dev) for s in slabs])
-                    if probe is not None:
-                        for s in slabs:
-                            probe.moved(name, s.dtype, s.dtype, s.dtype)
+                key = dev if ranks is None else k
+                if key in gathered:
+                    continue
+                got = gathered[key] = [None] * n_dev
+                for p, s in enumerate(slabs):
+                    if s is not None:
+                        got[p] = s.to(dev)
+                        continue
+
+                    def land(buf, got=got, p=p):
+                        got[p] = buf
+                    msgs.recv(_view(arrs[k], src_at).shape, arrs[k].dtype,
+                              dev, ranks[line[p]], k * n_dev + p, land)
+                if probe is not None:
+                    for s in slabs:
+                        probe.moved(name, s.dtype, s.dtype, s.dtype)
+            stacks.append((line, gathered))
+        yield from _posted(msgs)
+        for line, gathered in stacks:
+            stacked = {key: torch.stack(got) for key, got in gathered.items()}
             for p, k in enumerate(line):
-                recv = gathered[arrs[k].device][(p + side) % n_dev]
-                _view(arrs[k], dst_at).copy_(recv)
-    return shards
+                if arrs[k] is not None:
+                    key = arrs[k].device if ranks is None else k
+                    _view(arrs[k], dst_at).copy_(
+                        stacked[key][(p + side) % n_dev])
 
 
 class ExchangeInFlight:
-    """A started exchange. ``wait()`` makes the cards' current streams
-    wait for the side streams it runs on (``join``, an ``ops/
-    cuda_exchange.CardJoin``); with none — the copy engines, or any
-    exchange on the CPU — it has landed already and ``wait()`` has
-    nothing to do."""
+    """A started exchange. ``wait()`` runs what is left of it: the
+    batches of cross-rank messages still to post and land (``pending``,
+    a generator of the copy engines' directions, stopped after the
+    first direction's batch was posted), then makes the cards' current
+    streams wait for the side streams it runs on (``join``, an ``ops/
+    cuda_exchange.CardJoin``). With neither — the copy engines in one
+    process, or any exchange on the CPU in one process — it has landed
+    already and ``wait()`` has nothing to do."""
 
-    def __init__(self, join=None) -> None:
+    def __init__(self, join=None, pending=None) -> None:
         self._join = join
+        self._pending = pending
 
     def wait(self) -> None:
+        if self._pending is not None:
+            for _ in self._pending:
+                pass
+            self._pending = None
         if self._join is not None:
             self._join.exit()
             self._join = None
@@ -979,17 +1073,17 @@ def start_dispatch_exchange(fields: Dict[str, List[torch.Tensor]],
     makes the work queued after it on the cards' current streams see
     the filled halos. Between the two, the caller may queue work that
     reads only the shards' interiors, which the exchange does not write
-    — the overlap path's inner block. The copy engines run on the
-    current streams and have landed at once; ``PallasDMA`` runs on one
-    side stream per card (``parallel/cuda_exchange.py``). On a mesh that
-    spans processes (``ranks``) this raises: the overlap paths are
-    ROADMAP A4c."""
-    if ranks is not None:
-        refuse_across_ranks("an exchange started for overlap "
-                            "(start_dispatch_exchange)")
+    — the overlap path's inner block. In one process the copy engines
+    run on the current streams and have landed at once; ``PallasDMA``
+    runs on one side stream per card (``parallel/cuda_exchange.py``).
+    On a mesh that spans processes (``ranks``) the copy engines post
+    their first direction's messages here and finish in ``wait()``
+    (every later direction carries the earlier ones' halos, so it
+    starts only once they have landed); ``PallasDMA`` stores into the
+    other ranks' shards, ordered by device-side flags."""
     return _start_exchange(fields, radius, mesh_counts, method, axis_order,
                            rem, alloc_radius, nonperiodic, wire_format,
-                           wire_layout, probe)
+                           wire_layout, probe, ranks)
 
 
 def _start_exchange(fields, radius, mesh_counts, method, axis_order, rem,
@@ -1013,27 +1107,28 @@ def _start_exchange(fields, radius, mesh_counts, method, axis_order, rem,
             f"wire formats, and non-slab wire layouts are only "
             f"supported by the PpermuteSlab and PpermutePacked "
             f"methods, not {method}")
-    if ranks is not None and method not in WIRE_CAPABLE:
-        refuse_across_ranks(f"the {method} exchange")
     if method == Method.PallasDMA:
         from .cuda_exchange import start_exchange_shard_cuda
 
         return start_exchange_shard_cuda(list(fields.values()), radius,
-                                         counts, axis_order)
+                                         counts, axis_order, ranks)
     if method == Method.PpermutePacked:
-        exchange_shard_packed(fields, radius, counts, axis_order, rem,
-                              alloc_radius, nonperiodic, wf, layout, probe,
-                              ranks)
+        batches = _packed_batches(fields, radius, counts, axis_order, rem,
+                                  alloc_radius, nonperiodic, wf, layout,
+                                  probe, ranks)
     elif method == Method.AllGather:
-        for shards in fields.values():
-            exchange_shard_allgather(shards, radius, counts, axis_order,
-                                     probe)
+        batches = itertools.chain.from_iterable(
+            _allgather_batches(shards, radius, counts, axis_order, probe,
+                               ranks) for shards in fields.values())
     else:
-        for shards in fields.values():
-            exchange_shard(shards, radius, counts, axis_order, rem,
+        batches = itertools.chain.from_iterable(
+            _shard_batches(shards, radius, counts, axis_order, rem,
                            alloc_radius, nonperiodic, wf, layout, probe,
-                           ranks)
-    return ExchangeInFlight()
+                           ranks) for shards in fields.values())
+    # run up to the first posted batch (in one process: to the end)
+    if next(batches, StopIteration) is StopIteration:
+        return ExchangeInFlight()
+    return ExchangeInFlight(pending=batches)
 
 
 def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
@@ -1057,8 +1152,9 @@ def dispatch_exchange(fields: Dict[str, List[torch.Tensor]], radius: Radius,
     ``exchange_shard_packed``, ``AllGather`` ``exchange_shard_allgather``
     and ``PpermuteSlab`` ``exchange_shard``. The halos are the same bits
     whatever the method. ``ranks``: each position's owner on a mesh that
-    spans processes, where the slab and packed engines run and the
-    others raise (ROADMAP A4c)."""
+    spans processes, where every method runs (the copy engines by
+    messages between the ranks, ``PallasDMA`` by stores over CUDA IPC
+    on the card)."""
     _start_exchange(fields, radius, mesh_counts, method, axis_order, rem,
                     alloc_radius, nonperiodic, wire_format, wire_layout,
                     probe, ranks).wait()

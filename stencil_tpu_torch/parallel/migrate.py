@@ -27,7 +27,11 @@ remaining offsets and the validity flag into ``code = (ox+1) + 3*(oy+1)
 The JAX engine runs inside ``shard_map`` and moves each buffer with a
 simultaneous ``lax.ppermute``. The port holds every shard in one
 process, so each axis first builds the buffers of BOTH directions on
-every shard, and only then lets any shard take its arrivals.
+every shard, and only then lets any shard take its arrivals. On a mesh
+that spans processes (``ranks``) each rank builds its own shards'
+buffers, sends those whose receiver another rank holds as messages (one
+batch an axis, tagged by receiver and direction as the slab engine tags
+its own) and takes its arrivals once the batch has landed.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..geometry import Dim3
-from .exchange import AXIS_NAME, WireProbe
-from .mesh import mesh_neighbor
+from .exchange import AXIS_NAME, WireProbe, _messages
+from .mesh import mesh_neighbor, this_rank
 
 #: wire-record rows beyond the SoA fields: one packed control row
 RECORD_EXTRA_ROWS = 1
@@ -107,7 +111,8 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
                                       torch.Tensor]],
                   mesh_counts: Dim3, budget: int,
                   axis_order: Tuple[int, ...] = (0, 1, 2),
-                  probe: Optional[WireProbe] = None
+                  probe: Optional[WireProbe] = None,
+                  ranks: Optional[Sequence[int]] = None
                   ) -> Tuple[Dict[str, List[torch.Tensor]],
                              List[torch.Tensor], List[torch.Tensor]]:
     """Migrate every shard's particles to their destination shards (JAX
@@ -121,33 +126,41 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
     valid, overflow)``, ``overflow[i]`` the float32 count of particles
     shard i dropped this migration (send budget exceeded, or no free
     slot for an arrival). ``probe`` records every message between two
-    mesh positions."""
+    mesh positions. ``ranks``: each position's owner on a mesh that spans
+    processes (every list None at the positions other ranks hold, in
+    the arguments and the results)."""
     counts = Dim3.of(mesh_counts)
     names = sorted(fields)
     if not names:
         raise ValueError("migrate_shard needs at least one field")
-    dt = fields[names[0]][0].dtype
+    n = len(valid)
+    own = [i for i in range(n) if valid[i] is not None]
+    dt = fields[names[0]][own[0]].dtype
     for q in names:
-        if any(t.dtype != dt for t in fields[q]):
+        if any(fields[q][i].dtype != dt for i in own):
             raise ValueError(f"migrate_shard fields must share one dtype: "
                              f"{q!r} is not {dt}")
     budget = int(budget)
     if budget < 1:
         raise ValueError(f"budget must be >= 1, got {budget}")
-    n = len(valid)
-    capacity = fields[names[0]][0].shape[0]
-    work = [{q: fields[q][i] for q in names} for i in range(n)]
-    offs = [[o.to(dt) for o in offsets[i]] for i in range(n)]
-    valid = [v.to(torch.bool) for v in valid]
-    overflow = [torch.zeros((), dtype=torch.float32, device=v.device)
+    capacity = fields[names[0]][own[0]].shape[0]
+    me = this_rank() if ranks is not None else None
+    work = [None if valid[i] is None else {q: fields[q][i] for q in names}
+            for i in range(n)]
+    offs = [None if valid[i] is None else [o.to(dt) for o in offsets[i]]
+            for i in range(n)]
+    valid = [None if v is None else v.to(torch.bool) for v in valid]
+    overflow = [None if v is None else
+                torch.zeros((), dtype=torch.float32, device=v.device)
                 for v in valid]
+    rows_n = migration_record_rows(len(names))
 
     for a in axis_order:
         name = AXIS_NAME[a]
         # every shard's two messages of this axis, before any arrives
         bufs = {}
-        leaving = []
-        for i in range(n):
+        leaving = [None] * n
+        for i in own:
             out = torch.zeros_like(valid[i])
             for side in (1, -1):
                 leave = valid[i] & (offs[i][a] == side)
@@ -163,8 +176,23 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
                              torch.int32), -1, 1) for b in range(3)]
                 rows.append(encode_record_code(comps, sent).to(dt))
                 bufs[i, side] = torch.stack(rows)
-            leaving.append(out)
-        for i in range(n):
+            leaving[i] = out
+        msgs = _messages(ranks)
+        if msgs is not None:
+            for i in range(n):
+                for k, side in enumerate((1, -1)):
+                    j = mesh_neighbor(i, counts, a, -side)
+                    if ranks[i] == ranks[j]:
+                        continue
+                    if ranks[j] == me:
+                        msgs.send(bufs[j, side], ranks[i], 2 * i + k)
+                    elif ranks[i] == me:
+                        def land(buf, j=j, side=side):
+                            bufs[j, side] = buf
+                        msgs.recv((rows_n, budget), dt, valid[i].device,
+                                  ranks[j], 2 * i + k, land)
+            msgs.run()
+        for i in own:
             # the +1 message comes from the -1 neighbour, and back
             incoming = []
             for side in (1, -1):
@@ -192,5 +220,6 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
             offs[i] = [_put(offs[i][b], slot, inc_comps[b].to(dt))
                        for b in range(3)]
             valid[i] = _put(v, slot, torch.ones_like(inc_valid))
-    out = {q: [work[i][q] for i in range(n)] for q in names}
+    out = {q: [None if work[i] is None else work[i][q] for i in range(n)]
+           for q in names}
     return out, valid, overflow

@@ -266,6 +266,12 @@ def dcn_bytes_per_exchange(dd, dcn_axis: int = 2) -> int:
     return dd.exchange_bytes_per_axis().get("xyz"[dcn_axis], 0)
 
 
+#: messages and bytes ``RankMessages`` has queued in this process, sent
+#: and received (what a run can read to show that a path moved nothing
+#: through the process group)
+MESSAGES = {"sent": 0, "received": 0, "bytes": 0}
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor's storage as a flat uint8 tensor (every
     backend carries uint8, whatever the element type)."""
@@ -275,9 +281,10 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 class RankMessages:
     """One batch of point-to-point messages between the ranks of the
     process group: what one direction of an exchange sweep sends and
-    receives. ``send`` and ``recv`` queue; ``run`` posts the batch in
-    one ``batch_isend_irecv``, waits for every message, then hands each
-    arrival, on its destination device, to its ``land`` callback.
+    receives. ``send`` and ``recv`` queue; ``start`` posts the batch in
+    one ``batch_isend_irecv`` and returns at once; ``wait`` finishes
+    every message, then hands each arrival, on its destination device,
+    to its ``land`` callback. ``run`` is ``start`` then ``wait``.
 
     NCCL matches the messages of a pair of ranks in the order they are
     posted and ignores tags, so every rank must queue them in one global
@@ -290,12 +297,16 @@ class RankMessages:
         self._staged = backend() == "gloo"
         self._ops: list = []
         self._arrivals: list = []
+        self._works: list = []
+        self._posted: list = []
 
     def send(self, t: torch.Tensor, to: int, tag: int) -> None:
         import torch.distributed as dist
 
         t = (t.to("cpu") if self._staged else t).contiguous()
         self._ops.append(dist.P2POp(dist.isend, _bytes(t), to, tag=tag))
+        MESSAGES["sent"] += 1
+        MESSAGES["bytes"] += t.numel() * t.element_size()
 
     def recv(self, shape, dtype: torch.dtype, device: torch.device,
              frm: int, tag: int,
@@ -306,16 +317,38 @@ class RankMessages:
                           device="cpu" if self._staged else device)
         self._ops.append(dist.P2POp(dist.irecv, _bytes(buf), frm, tag=tag))
         self._arrivals.append((buf, device, land))
+        MESSAGES["received"] += 1
 
-    def run(self) -> None:
+    def start(self) -> None:
+        """Post the queued messages (one ``batch_isend_irecv``); the
+        buffers stay referenced here until ``wait``."""
         import torch.distributed as dist
 
         if self._ops:
-            for work in dist.batch_isend_irecv(self._ops):
-                work.wait()
+            self._works = dist.batch_isend_irecv(self._ops)
+        self._posted, self._ops = self._ops, []
+
+    def wait(self) -> None:
+        """Finish the posted messages and land every arrival."""
+        for work in self._works:
+            work.wait()
         for buf, device, land in self._arrivals:
             land(buf.to(device))
-        self._ops, self._arrivals = [], []
+        self._works, self._posted, self._arrivals = [], [], []
+
+    def run(self) -> None:
+        self.start()
+        self.wait()
+
+
+def all_gather_objects(obj) -> list:
+    """Every rank's ``obj`` (picklable), in rank order: a collective
+    (``all_gather_object`` of the default group)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def broadcast_blocks(blocks: Sequence[Optional[torch.Tensor]],

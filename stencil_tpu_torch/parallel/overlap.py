@@ -22,7 +22,7 @@ Region decomposition (per shard, interior coordinates), as in JAX:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,8 +77,9 @@ def _region_blocks(fields: Dict[str, torch.Tensor], radius: Radius,
 
 def overlapped_update(fields: Dict[str, List[torch.Tensor]], radius: Radius,
                       mesh_counts: Dim3, method, update_fn: UpdateFn,
-                      nonperiodic: bool = False
-                      ) -> List[Dict[str, torch.Tensor]]:
+                      nonperiodic: bool = False,
+                      ranks: Optional[Sequence[int]] = None
+                      ) -> List[Optional[Dict[str, torch.Tensor]]]:
     """Run ``update_fn`` over the interior/exterior decomposition of
     every shard (``fields[q][i]``: padded shard i of quantity q, x
     fastest) with the halo exchange overlapping the inner blocks'
@@ -87,36 +88,41 @@ def overlapped_update(fields: Dict[str, List[torch.Tensor]], radius: Radius,
     ``update_fn`` produced assembled into a full interior-shaped
     tensor. The inner blocks are queued between the exchange's start
     and its ``wait``: they read the interiors, which the exchange never
-    writes, so they see the pre-exchange values as JAX's do."""
+    writes, so they see the pre-exchange values as JAX's do. ``ranks``:
+    each position's owner on a mesh that spans processes (None in
+    ``fields[q]``, and in the result, at the positions other ranks
+    hold); the exchange's first direction of messages is then in flight
+    while the inner blocks are queued."""
     lo = radius.pad_lo()
     hi = radius.pad_hi()
     names = list(fields)
     n = len(fields[names[0]])
-    p0 = fields[names[0]][0]
+    own = [i for i in range(n) if fields[names[0]][i] is not None]
+    p0 = fields[names[0]][own[0]]
     local = Dim3(p0.shape[2] - lo.x - hi.x, p0.shape[1] - lo.y - hi.y,
                  p0.shape[0] - lo.z - hi.z)
     inner, ext = split_regions(radius, local)
 
     landed = start_dispatch_exchange(fields, radius, mesh_counts, method,
-                                     nonperiodic=nonperiodic)
+                                     nonperiodic=nonperiodic, ranks=ranks)
     pieces: List[List[Tuple[Dim3, Dict[str, torch.Tensor]]]] = [
         [] for _ in range(n)]
-    for i in range(n):
+    for i in own:
         shard = {q: fields[q][i] for q in names}
         for off, dims in inner:
             pieces[i].append((off, update_fn(
                 _region_blocks(shard, radius, off, dims), dims,
                 (off.x, off.y, off.z), i)))
     landed.wait()
-    for i in range(n):
+    for i in own:
         shard = {q: fields[q][i] for q in names}
         for off, dims in ext:
             pieces[i].append((off, update_fn(
                 _region_blocks(shard, radius, off, dims), dims,
                 (off.x, off.y, off.z), i)))
 
-    out: List[Dict[str, torch.Tensor]] = []
-    for i in range(n):
+    out: List[Optional[Dict[str, torch.Tensor]]] = [None] * n
+    for i in own:
         assembled: Dict[str, torch.Tensor] = {}
         for off, outs in pieces[i]:
             for key, val in outs.items():
@@ -127,5 +133,5 @@ def overlapped_update(fields: Dict[str, List[torch.Tensor]], radius: Radius,
                 z, y, x = val.shape
                 assembled[key][off.z:off.z + z, off.y:off.y + y,
                                off.x:off.x + x] = val
-        out.append(assembled)
+        out[i] = assembled
     return out

@@ -204,8 +204,9 @@ def temporal_shard_steps(fields: Dict[str, List[torch.Tensor]],
 
     ``ranks``: each position's owner on a mesh that spans processes
     (``parallel/exchange.py``); the shards are None at the positions
-    other ranks own, and ``update_fn`` runs on this process's own. The
-    overlap split raises there (ROADMAP A4c)."""
+    other ranks own, and ``update_fn`` runs on this process's own. With
+    ``overlap`` the deep exchange's first direction of messages is in
+    flight while sub-step 0's inner blocks are queued."""
     depths = normalize_depths(steps)
     alloc_d = depths if alloc_steps is None else normalize_depths(alloc_steps)
     if any(not 1 <= depths[a] <= alloc_d[a] for a in range(3)):

@@ -74,7 +74,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-    assert set(_build.sources()) == {"exchange_dma", "jacobi7",
+    assert set(_build.sources()) == {"exchange_dma", "ipc", "jacobi7",
                                      "jacobi_halo", "jacobi_overlap",
                                      "laplace6", "mhd", "mhd_overlap"}
     assert os.path.basename(_build.library_path("jacobi7")).startswith(

@@ -6,9 +6,13 @@ port and the JAX package.
 The rank functions live in ``torch_mp_workers`` (no JAX, so a rank
 starts in about a second); each world runs once per module and writes
 its results, which the tests read. NCCL is not in this image: gloo
-moves the CPU tensors. Tolerance: bitwise everywhere — a message moves
-the same bits a one-process copy does, and every rank computes its own
-shards as the one process computes them.
+moves the CPU tensors. Tolerance: bitwise against the one-process port
+everywhere — a message moves the same bits a one-process copy does, and
+every rank computes its own shards as the one process computes them.
+Against the JAX package, one path of each family: Jacobi's bitwise,
+Astaroth's float64 within rtol 1e-11 / atol 1e-13 (JAX's CPU compiler
+contracts into FMAs) and PIC's particles within rtol 1e-12 and rho
+within 1e-12, as the one-process files hold them.
 """
 
 import json
@@ -21,8 +25,9 @@ import torch
 import torch_mp_workers as workers
 from stencil_tpu_torch.models.astaroth import Astaroth
 from stencil_tpu_torch.models.jacobi import Jacobi3D
+from stencil_tpu_torch.models.pic import PARTICLE_FIELDS
 from stencil_tpu_torch.parallel import multihost
-from torch_port_support import reference_block_planner
+from torch_port_support import astaroth_state, reference_block_planner
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -139,15 +144,145 @@ def test_segment_across_ranks_equals_one_process(two_ranks):
         np.load(two_ranks / "segment_halo_trace.npy"), tr.array.numpy())
 
 
-@pytest.mark.parametrize("path", ["jacobi_overlap", "jacobi_halo_overlap",
-                                  "jacobi_pallas_dma", "allgather",
-                                  "astaroth_halo_overlap", "pic"])
-def test_a4c_paths_refuse_a_mesh_across_ranks(two_ranks, path):
-    """The overlap paths, B4 (PallasDMA), the all-gather engine and PIC
-    raise NotImplementedError naming ROADMAP A4c on a mesh over two
-    ranks."""
-    got = json.loads((two_ranks / "refusals.json").read_text())
-    assert got[path] == "A4c"
+def _one_process(model, kw, steps):
+    n = int(np.prod(kw["mesh_shape"]))
+    m = workers.a4c_model(model, kw, ["cpu"] * n)
+    m.run(steps)
+    return workers.a4c_result(model, m)
+
+
+def _assert_same(got, want):
+    assert set(got.files) == set(want), (sorted(got.files), sorted(want))
+    for k, v in want.items():
+        g, v = got[k], np.asarray(v)
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        if v.dtype.kind == "f":
+            np.testing.assert_array_equal(np.atleast_1d(g).view(np.uint8),
+                                          np.atleast_1d(v).view(np.uint8),
+                                          err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, v, err_msg=k)
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in workers.A4C_CASES])
+def test_a4c_path_across_ranks_equals_one_process(two_ranks, tag):
+    """Each path of the remote-write kernels' twins, the overlap
+    exchanges, the all-gather engine and PIC over two ranks (two or four
+    shards a rank, or the checkerboard of (2,2,2)): every gathered array
+    bitwise the same path in one process — Jacobi ``overlap`` (B7's
+    twin) on (1,2,2) and (1,1,4), ``xla-overlap``, ``pallas-overlap``
+    with PallasDMA, ``xla-temporal[s=2]-overlap``, ``xla`` with PallasDMA
+    (B4's twin) and with AllGather; Astaroth ``halo-overlap`` (B13/B14's
+    twins) with and without the pair and ``xla-overlap`` (fields and
+    w); PIC NGP float64 and CIC float32 (rho, the particles slot by
+    slot, the total charge and the overflow)."""
+    _, model, kw, _, steps = next(c for c in workers.A4C_CASES
+                                  if c[0] == tag)
+    _assert_same(np.load(two_ranks / f"{tag}.npz"),
+                 _one_process(model, kw, steps))
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in workers.A4C_FOUR])
+def test_a4c_path_on_four_ranks_equals_one_process(four_ranks, tag):
+    """Jacobi ``overlap`` and PIC NGP float64 on (1,2,2) with every shard
+    its own rank: bitwise the one-process run."""
+    _, model, kw, _, steps = next(c for c in workers.A4C_FOUR
+                                  if c[0] == tag)
+    _assert_same(np.load(four_ranks / f"{tag}.npz"),
+                 _one_process(model, kw, steps))
+
+
+def test_overlap_segment_across_ranks_equals_one_process(two_ranks):
+    """A 5-step segment (probe rows every 2 steps) on the ``overlap``
+    path (B7's twin, all of it in one session) over two ranks: the field
+    and the trace bitwise the one-process segment's."""
+    j = Jacobi3D(16, 16, 16, kernel="halo", overlap=True,
+                 mesh_shape=(1, 2, 2), devices=["cpu"] * 4)
+    j.init()
+    tr = j.make_segment(workers.SEGMENT_STEPS, probe_every=2).run(0)
+    _assert_same(np.load(two_ranks / "segment_overlap.npz"),
+                 {"temp": j.temperature(), "trace": tr.array.numpy(),
+                  "path": np.array("overlap")})
+
+
+def test_jacobi_overlap_across_ranks_equals_jax(two_ranks):
+    """The ``overlap`` path over two ranks (B7's twin, 3 steps on
+    (1,2,2)) bitwise JAX's in-kernel RDMA overlap model on four fake
+    devices."""
+    from stencil_tpu.models.jacobi import Jacobi3D as JJacobi3D
+
+    with reference_block_planner():
+        jj = JJacobi3D(16, 16, 16, dtype=np.float32, kernel="halo",
+                       overlap=True, mesh_shape=(1, 2, 2),
+                       devices=jax.devices()[:4])
+        assert jj.kernel_path == "overlap"
+        jj.init()
+        jj.run(3)
+        want = np.asarray(jj.temperature())
+    got = np.load(two_ranks / "jacobi_overlap.npz")["temp"]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_jacobi_dma_across_ranks_equals_jax(two_ranks):
+    """``xla`` with PallasDMA on the checkerboard of (2,2,2) over two
+    ranks (B4's twin, every move between the ranks), 3 steps: bitwise
+    JAX's ``xla`` run with its remote-write exchange on eight fake
+    devices."""
+    from stencil_tpu.models.jacobi import Jacobi3D as JJacobi3D
+    from stencil_tpu.parallel.methods import Method as JMethod
+
+    jj = JJacobi3D(16, 16, 16, dtype=np.float32, kernel="xla",
+                   mesh_shape=(2, 2, 2), devices=jax.devices()[:8],
+                   methods=JMethod.PallasDMA)
+    jj.init()
+    jj.run(3)
+    want = np.asarray(jj.temperature())
+    got = np.load(two_ranks / "jacobi_xla_dma.npz")["temp"]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_astaroth_xla_overlap_across_ranks_equals_jax(two_ranks):
+    """Astaroth ``xla-overlap`` over two ranks, 16^3 float64 at dt 1e-4,
+    one iteration: JAX's ``xla-overlap`` on four fake devices within
+    rtol 1e-11 / atol 1e-13, fields and w."""
+    from stencil_tpu.models import astaroth as jm
+
+    jj = jm.Astaroth(16, 16, 16, params=jm.MhdParams(dt=1e-4),
+                     mesh_shape=(1, 2, 2), dtype=np.float64,
+                     devices=jax.devices()[:4], kernel="xla", overlap=True)
+    assert jj.kernel_path == "xla-overlap"
+    jj.init()
+    jj.step()
+    jf, jw = astaroth_state(jj)
+    got = np.load(two_ranks / "mhd_xla_overlap.npz")
+    for q in jm.FIELDS:
+        np.testing.assert_allclose(got[q], jf[q], rtol=1e-11, atol=1e-13,
+                                   err_msg=q)
+        np.testing.assert_allclose(got[f"w_{q}"], jw[q], rtol=1e-11,
+                                   atol=1e-13, err_msg=q)
+
+
+def test_pic_across_ranks_equals_jax(two_ranks):
+    """PIC NGP float64 on the checkerboard of (2,2,2) over two ranks
+    (the deposit's accumulate and the migration between the ranks), 3
+    steps from the seeded ``init()``: JAX's model on eight fake devices,
+    the particles slot by slot within rtol 1e-12, rho within 1e-12 and
+    the overflow counts equal."""
+    from stencil_tpu.models.pic import Pic as JPic
+
+    jp = JPic(12, 12, 12, 300, mesh_shape=(2, 2, 2),
+              devices=jax.devices()[:8], dtype=np.float64,
+              deposition="ngp", seed=11)
+    jp.run(3)
+    got = np.load(two_ranks / "pic_ngp_f64.npz")
+    want = jp.particles_to_host()
+    for k in PARTICLE_FIELDS:
+        np.testing.assert_allclose(got[f"p_{k}"], want[k], rtol=1e-12,
+                                   atol=0, err_msg=k)
+    np.testing.assert_array_equal(got["p_overflow"], want["overflow"])
+    np.testing.assert_allclose(got["rho"], np.asarray(jp.rho()), rtol=0,
+                               atol=1e-12)
+    assert float(got["charge"]) == 300.0
 
 
 def test_nccl_refuses_what_it_cannot_carry(two_ranks):

@@ -42,11 +42,61 @@ JACOBI_CASES = (("halo_s1", "halo", (1, 2, 4), 1),
                 ("pallas", "pallas", (2, 2, 2), None),
                 ("xla_temporal", "xla", (2, 2, 2), 2))
 
-#: the checkerboard placement of a (2,2,2) mesh on two ranks: every
-#: neighbour along every axis lies on the other rank
 #: the segment of ``two_rank_cases`` (halo on (1,2,2))
 SEGMENT_STEPS = 5
 
+#: the paths of the remote-write kernels, the overlap exchanges, the
+#: all-gather engine and PIC across ranks (two-rank world): (tag, model,
+#: constructor settings, placement, steps). Placement "pairs": the mesh
+#: positions in rank order (two shards a rank on four positions, four on
+#: eight); "board": ``CHECKERBOARD`` on (2,2,2), every neighbour on the
+#: other rank. Jacobi 16^3 float32, Astaroth 16^3 float64 at dt 1e-4,
+#: PIC float64 NGP on 12^3 and float32 CIC on 8 x 8 x 16.
+A4C_CASES = (
+    ("jacobi_overlap", "jacobi",
+     {"kernel": "halo", "overlap": True, "mesh_shape": (1, 2, 2)}, "pairs", 3),
+    ("jacobi_halo_overlap_z", "jacobi",
+     {"kernel": "halo", "overlap": True, "mesh_shape": (1, 1, 4)}, "pairs", 3),
+    ("jacobi_xla_overlap", "jacobi",
+     {"kernel": "xla", "overlap": True, "mesh_shape": (1, 2, 2)}, "pairs", 3),
+    ("jacobi_pallas_overlap_dma", "jacobi",
+     {"kernel": "pallas", "overlap": True, "methods": Method.PallasDMA,
+      "mesh_shape": (1, 2, 2)}, "pairs", 3),
+    ("jacobi_temporal_overlap", "jacobi",
+     {"kernel": "xla", "overlap": True, "exchange_every": 2,
+      "mesh_shape": (2, 2, 2)}, "pairs", 5),
+    ("jacobi_xla_dma", "jacobi",
+     {"kernel": "xla", "methods": Method.PallasDMA, "mesh_shape": (2, 2, 2)},
+     "board", 3),
+    ("jacobi_xla_allgather", "jacobi",
+     {"kernel": "xla", "methods": Method.AllGather, "mesh_shape": (2, 2, 2)},
+     "board", 3),
+    ("mhd_halo_overlap", "astaroth",
+     {"kernel": "halo", "overlap": True, "mesh_shape": (1, 2, 2)}, "pairs", 1),
+    ("mhd_halo_overlap_pair", "astaroth",
+     {"kernel": "halo", "overlap": True, "exchange_every": 2,
+      "mesh_shape": (1, 2, 2)}, "pairs", 1),
+    ("mhd_xla_overlap", "astaroth",
+     {"kernel": "xla", "overlap": True, "mesh_shape": (1, 2, 2)}, "pairs", 1),
+    ("pic_ngp_f64", "pic",
+     {"deposition": "ngp", "dtype": torch.float64, "mesh_shape": (2, 2, 2)},
+     "board", 3),
+    ("pic_cic_f32", "pic",
+     {"deposition": "cic", "dtype": torch.float32, "mesh_shape": (1, 2, 2)},
+     "pairs", 3),
+)
+
+#: the four-rank world's cases in which every shard is its own rank
+A4C_FOUR = (
+    ("jacobi_overlap_4", "jacobi",
+     {"kernel": "halo", "overlap": True, "mesh_shape": (1, 2, 2)}, "pairs", 3),
+    ("pic_ngp_4", "pic",
+     {"deposition": "ngp", "dtype": torch.float64, "mesh_shape": (1, 2, 2)},
+     "pairs", 3),
+)
+
+#: the checkerboard placement of a (2,2,2) mesh on two ranks: every
+#: neighbour along every axis lies on the other rank
 CHECKERBOARD = [(x + y + z) % 2 for z in range(2) for y in range(2)
                 for x in range(2)]
 
@@ -83,56 +133,70 @@ def exchange_domain(name: str, devices) -> DistributedDomain:
     return dd
 
 
+def a4c_model(model: str, kw: dict, devices):
+    """A model of an ``A4C_CASES`` entry over ``devices``, initialized."""
+    from stencil_tpu_torch.models.astaroth import Astaroth, MhdParams
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.models.pic import Pic
+
+    if model == "jacobi":
+        m = Jacobi3D(16, 16, 16, devices=devices, **kw)
+        m.init()
+    elif model == "astaroth":
+        m = Astaroth(16, 16, 16, params=MhdParams(dt=1e-4), devices=devices,
+                     dtype=torch.float64, **kw)
+        m.init()
+    else:
+        grid = (12, 12, 12) if kw["deposition"] == "ngp" else (8, 8, 16)
+        m = Pic(*grid, 300, devices=devices, seed=11, **kw)
+    return m
+
+
+def a4c_result(model: str, m) -> dict:
+    """What a case is held to (collectives: every rank calls it)."""
+    if model == "jacobi":
+        return {"temp": m.temperature(), "path": np.array(m.kernel_path)}
+    if model == "astaroth":
+        from stencil_tpu_torch.models.astaroth import FIELDS
+
+        return {**{q: m.field(q) for q in FIELDS},
+                **{f"w_{q}": m.accumulator(q) for q in FIELDS},
+                "path": np.array(m.kernel_path)}
+    got = {f"p_{k}": v for k, v in m.particles_to_host().items()}
+    return {"rho": m.rho(), "charge": np.array(m.total_charge()),
+            "overflow_total": np.array(m.overflow_total()), **got}
+
+
+def _a4c(rank: int, out: str, cases, placements) -> None:
+    """Run ``cases`` over ``placements[layout]``; rank 0 saves each."""
+    for tag, model, kw, layout, steps in cases:
+        n = int(np.prod(kw["mesh_shape"]))
+        m = a4c_model(model, kw, placements[
+            layout if layout == "board" else f"pairs{n}"])
+        m.run(steps)
+        got = a4c_result(model, m)
+        if rank == 0:
+            np.savez(os.path.join(out, f"{tag}.npz"), **got)
+    # a segment on the overlap path (B7's twin), (1,2,2)
+    if "segment" in placements:
+        from stencil_tpu_torch.models.jacobi import Jacobi3D
+
+        j = Jacobi3D(16, 16, 16, kernel="halo", overlap=True,
+                     mesh_shape=(1, 2, 2), devices=placements["segment"])
+        j.init()
+        tr = j.make_segment(SEGMENT_STEPS, probe_every=2).run(0)
+        temp = j.temperature()
+        if rank == 0:
+            np.savez(os.path.join(out, "segment_overlap.npz"), temp=temp,
+                     trace=tr.array.numpy(), path=np.array(j.kernel_path))
+
+
 def _save_shards(out: str, tag: str, dd: DistributedDomain) -> None:
     for q, shards in dd.curr.items():
         for i, t in enumerate(shards):
             if t is not None:
                 np.save(os.path.join(out, f"{tag}_{q}_{i}.npy"),
                         t.cpu().numpy())
-
-
-def _refusals(devs) -> dict:
-    """Which A4c paths raise ``NotImplementedError`` naming the item on
-    a mesh over ``devs`` (four positions, two ranks)."""
-    from stencil_tpu_torch.models.astaroth import Astaroth
-    from stencil_tpu_torch.models.jacobi import Jacobi3D
-    from stencil_tpu_torch.models.pic import Pic
-
-    cases = {
-        "jacobi_overlap": lambda: Jacobi3D(
-            16, 16, 16, kernel="xla", overlap=True, mesh_shape=(1, 2, 2),
-            devices=devs),
-        "jacobi_halo_overlap": lambda: Jacobi3D(
-            16, 16, 16, kernel="halo", overlap=True, mesh_shape=(1, 2, 2),
-            devices=devs),
-        "jacobi_pallas_dma": lambda: Jacobi3D(
-            16, 16, 16, kernel="xla", methods=Method.PallasDMA,
-            mesh_shape=(1, 2, 2), devices=devs),
-        "allgather": lambda: _exchange_with(devs, Method.AllGather),
-        "astaroth_halo_overlap": lambda: Astaroth(
-            16, 16, 16, kernel="halo", overlap=True, mesh_shape=(1, 2, 2),
-            devices=devs),
-        "pic": lambda: Pic(8, 8, 8, 16, mesh_shape=(1, 2, 2), devices=devs,
-                           dtype=torch.float64, init=False),
-    }
-    got = {}
-    for name, make in cases.items():
-        try:
-            make()
-            got[name] = "ran"
-        except NotImplementedError as e:
-            got[name] = "A4c" if "A4c" in str(e) else f"other: {e}"
-    return got
-
-
-def _exchange_with(devs, method) -> None:
-    dd = DistributedDomain(8, 8, 8, devices=devs)
-    dd.set_radius(1)
-    dd.set_mesh_shape((1, 2, 2))
-    dd.set_methods(method)
-    dd.add_data("q", torch.float32)
-    dd.realize()
-    dd.exchange()
 
 
 def two_rank_cases(rank: int, out: str) -> None:
@@ -181,7 +245,9 @@ def two_rank_cases(rank: int, out: str) -> None:
         np.save(os.path.join(out, "segment_halo.npy"), temp)
         np.save(os.path.join(out, "segment_halo_trace.npy"),
                 tr.array.numpy())
-    got = _refusals(devs2)
+    _a4c(rank, out, A4C_CASES, {"pairs4": devs2, "pairs8": devs,
+                                "board": board, "segment": devs2})
+    got = {}
     try:
         check_transport("nccl", global_devices(["cpu"]))
         got["nccl_on_cpu"] = "ran"
@@ -193,12 +259,14 @@ def two_rank_cases(rank: int, out: str) -> None:
 
 
 def four_rank_jacobi(rank: int, out: str) -> None:
-    """The ``JACOBI_CASES``, two shards on each of four ranks: ``halo``
-    over (1,2,4) at exchange_every 1 (B5) and 2 (B6), ``pallas`` (K3)
-    and ``xla-temporal[s=2]`` over (2,2,2); 5 steps each."""
+    """The ``A4C_FOUR`` cases, one shard a rank, then the
+    ``JACOBI_CASES``, two shards on each of four ranks: ``halo`` over
+    (1,2,4) at exchange_every 1 (B5) and 2 (B6), ``pallas`` (K3) and
+    ``xla-temporal[s=2]`` over (2,2,2); 5 steps each."""
     from stencil_tpu_torch.models.jacobi import Jacobi3D
 
     torch.set_num_threads(1)
+    _a4c(rank, out, A4C_FOUR, {"pairs4": global_devices(["cpu"])})
     devs = global_devices(["cpu"] * 2)
     for tag, kernel, mesh, every in JACOBI_CASES:
         j = Jacobi3D(16, 16, 16, kernel=kernel, mesh_shape=mesh,
