@@ -288,6 +288,27 @@ Phases, in order; any failure exits non-zero before the last line:
      at 512^3 (three races pooled, each beside) and the probe's ms a row
      (CUDA events) beside its bound, the padded field's bytes over
      3.35 TB/s.
+   - Resilience and placement (``run_resilience``): ``run_resilient``
+     on ``Jacobi3D`` 512^3 ``wrap`` (40 steps, check 10, checkpoints
+     every 20, a NaN at 25: restored from 20, bitwise a clean
+     ``run(40)``), on ``halo`` (1,2,2) at ``exchange_every=2`` (a NaN at
+     5 twice with ``max_retries=1``: the ladder degrades to s = 1;
+     bitwise s = 2 up to the anchor and s = 1 after it), a preemption at
+     20 and the resume (bitwise one ``run(40)``), ``Astaroth`` 256^3
+     ``wrap`` (B9; a NaN at iteration 3, bitwise a clean ``run(4)``) and
+     PIC 128^3 CIC float32 with a ``ParticleLoss`` (its total charge,
+     C1's float32 sum of rho, beside the count); each with JAX's events
+     for its plan (``RES_EVENTS``, as a multiset: an async checkpoint may
+     land later on the card) and each kernel's launches equal to the
+     clean run's plus the replayed window's, every segment under the
+     driver's ``set_sync_debug_mode("error")`` guard. Then checkpoint
+     save and restore seconds at 512^3, the campaign's steps/s beside
+     plain ``run()``, the rollback's replay cost; ``make_placement(
+     NodeAware, mode="qap")`` on (1,2,2), the Jacobi ``halo`` run under
+     it bitwise the trivial order's; ``bench_qap``'s lines and whether
+     ``qap.cpp`` built natively; the plan file of the 512^3 (1,2,2)
+     domain, its message bytes equal to the irredundant layout's
+     ``exchange_bytes_total()``.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -4839,6 +4860,434 @@ def run_segments(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: resilience and placement (resilience/driver.py, placement.py)
+# ---------------------------------------------------------------------------
+#: the events of JAX's driver for the phase's fault plans (as ``(kind,
+#: step)``; ``tests/test_torch_resilience.py`` holds the port's CPU runs
+#: of the same plans and these lists against JAX's driver). On the card
+#: an async checkpoint's event may come later than on the CPU (it is
+#: written once its device copies are done), so the phase compares them
+#: as multisets and records whether the order matched
+RES_EVENTS = {
+    "wrap nan": [("checkpoint", 0), ("checkpoint", 20), ("fault_nan", 25),
+                 ("sentinel_tripped", 25), ("restored", 20),
+                 ("checkpoint", 40)],
+    "halo degrade": [("checkpoint", 0), ("checkpoint", 4), ("fault_nan", 5),
+                     ("sentinel_tripped", 5), ("restored", 4),
+                     ("fault_nan", 5), ("sentinel_tripped", 5),
+                     ("degraded", None), ("restored", 4),
+                     ("checkpoint", 8), ("checkpoint", 10)],
+    "wrap preempt": [("checkpoint", 0), ("checkpoint", 10),
+                     ("fault_preemption", 20), ("checkpoint", 20),
+                     ("preempted", 20)],
+    "astaroth nan": [("checkpoint", 0), ("checkpoint", 2), ("fault_nan", 3),
+                     ("sentinel_tripped", 3), ("restored", 2),
+                     ("checkpoint", 4)],
+    "pic loss": [("checkpoint", 0), ("checkpoint", 2),
+                 ("fault_particle_loss", 3), ("sentinel_tripped", 3),
+                 ("restored", 2), ("checkpoint", 4), ("checkpoint", 6)],
+}
+#: the fault plans (constructor arguments) and policies of the cases
+RES_PLANS = {
+    "wrap nan": ({"nans": [{"step": 25}]},
+                 {"check_every": 10, "ckpt_every": 20}, 40),
+    "halo degrade": ({"nans": [{"step": 5, "repeat": 2}]},
+                     {"check_every": 2, "ckpt_every": 4, "max_retries": 1},
+                     10),
+    "wrap preempt": ({"preemptions": [{"step": 20}]},
+                     {"check_every": 10, "ckpt_every": 10}, 40),
+    "astaroth nan": ({"nans": [{"step": 3, "quantity": "uux"}]},
+                     {"check_every": 1, "ckpt_every": 2}, 4),
+    "pic loss": ({"particle_losses": [{"step": 3, "count": 2,
+                                       "shard": (1, 0, 0)}]},
+                 {"check_every": 2, "ckpt_every": 2}, 6),
+}
+RES_PIC_GRID = 128      # (2,2,2) shards of 64^3, 4 particles a cell
+RES_IO_REPS = 2
+
+
+def fault_plan(spec: dict):
+    """A ``FaultPlan`` from a ``RES_PLANS`` description."""
+    from stencil_tpu_torch import resilience as rs
+
+    cls = {"nans": rs.NaNInjection, "preemptions": rs.Preemption,
+           "particle_losses": rs.ParticleLoss}
+    return rs.FaultPlan(**{k: [cls[k](**a) for a in v]
+                           for k, v in spec.items()})
+
+
+def res_policy(**kw):
+    from stencil_tpu_torch.resilience import ResiliencePolicy
+
+    return ResiliencePolicy(base_delay=0.0, sleep=lambda s: None,
+                            max_to_keep=2, **kw)
+
+
+def res_events(rep) -> list:
+    return [(e["event"], e.get("step")) for e in rep.events
+            if e["event"] != "fused_decline"]
+
+
+def sum_launches(*deltas) -> dict:
+    out = {}
+    for d in deltas:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def timed_launches(torch, fn):
+    """(launch delta, seconds) of ``fn()`` with the card idle on both
+    sides."""
+    torch.cuda.synchronize()
+    before = all_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return launch_delta(before), time.perf_counter() - t0, out
+
+
+def rep_events(rep) -> list:
+    return [(e["event"], e.get("step")) for e in rep.events]
+
+
+def split_segments(segs):
+    """(kept, replayed) of a campaign's dispatched segments (base, k):
+    a segment based at or after a later one's base was rolled back."""
+    kept, replayed = [], []
+    for b, k in segs:
+        while kept and kept[-1][0] >= b:
+            replayed.insert(0, kept.pop())
+        kept.append((b, k))
+    return kept, replayed
+
+
+def res_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"resilience and placement: {what}")
+
+
+def run_resilience(torch) -> dict:
+    """Phase 4: the resilient campaigns (``run_resilient``), checkpoint
+    I/O and QAP placement on the card. Each campaign: JAX's events for
+    its plan, the final state bitwise its clean run's (by SHA-256), and
+    each kernel's launches equal to the clean run's plus the replayed
+    window's; every segment dispatch under the driver's transfer guard
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import tempfile
+
+    import numpy as np
+
+    from stencil_tpu_torch.apps import bench_qap
+    from stencil_tpu_torch.distributed import DistributedDomain
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch import qap
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+    from stencil_tpu_torch.models.pic import Pic
+    from stencil_tpu_torch.partition import RankPartition
+    from stencil_tpu_torch.placement import PlacementStrategy, make_placement
+    from stencil_tpu_torch.telemetry import get_registry, get_tracer
+    from stencil_tpu_torch.utils import checkpoint as ck
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"card": card, "launches": {}, "events": {}}
+
+    def sha(j) -> str:
+        return digest(gather(torch, j).cpu().numpy())
+
+    def campaign(label, model, ckpt, **kw):
+        """Run the campaign of ``label``: (report, launch delta,
+        seconds, the segments it dispatched as (base, k) — from the
+        driver's ``megastep`` spans —, the steps it ran, replays
+        included — its ``stencil_run_steps_total`` delta)."""
+        spec, pol, n = RES_PLANS[label]
+        tracer = get_tracer()
+        steps_total = get_registry().counter("stencil_run_steps_total")
+        n0, s0 = len(tracer.finished()), steps_total.value()
+        delta, secs, rep = timed_launches(
+            torch, lambda: model.run_resilient(
+                n, policy=res_policy(**pol), ckpt_dir=ckpt,
+                faults=fault_plan(spec), **kw))
+        segs = [(sp.attrs["step"], sp.attrs["steps"])
+                for sp in tracer.finished()[n0:] if sp.name == "megastep"]
+        done = int(steps_total.value() - s0)
+        got = res_events(rep)
+        # the same events; their order may differ from JAX's CPU run by
+        # an async checkpoint, written once its copies are done on the
+        # card, so possibly after a later fault's event
+        res_check(sorted(got, key=repr) == sorted(RES_EVENTS[label],
+                                                  key=repr),
+                  f"{label}: events {got} != JAX's {RES_EVENTS[label]}")
+        out["events"][label] = {"events": got,
+                                "in_jax_order": got == RES_EVENTS[label],
+                                "segments": segs, "steps_run": done}
+        out["launches"][label] = delta
+        return rep, delta, secs, segs, done
+
+    try:
+        # A. Jacobi 512^3 wrap, a NaN at 25, restore of step 20. The
+        # segments run past the anchor before the trip is harvested
+        # (20..25, cut at the fault's step: K2, K2, K1; on the card also
+        # 25..30, dispatched before the probe's copy had landed) are the
+        # replayed window; after the rollback the fired fault no longer
+        # cuts, so the kept segments are those of one run(40)
+        j = jacobi_mesh("wrap")
+        rep, l_camp, secs_nan, segs, done = campaign(
+            "wrap nan", j, os.path.join(root, "a"))
+        kept, replayed = split_segments(segs)
+        clean = jacobi_mesh("wrap")
+        l_clean, _, _ = timed_launches(
+            torch, lambda: [clean.run(k) for _, k in kept])
+        scratch = jacobi_mesh("wrap")
+        l_replay, _, _ = timed_launches(
+            torch, lambda: [scratch.run(k) for _, k in replayed])
+        del scratch
+        plain = jacobi_mesh("wrap")
+        plain.run(40)
+        want = sum_launches(l_clean, l_replay)
+        same = sha(j) == sha(clean) == sha(plain)
+        log(f"  resilient Jacobi 512^3 wrap, run_resilient(40) check 10, "
+            f"checkpoint 20, NaN at 25: {rep.rollbacks} rollback, "
+            f"fused={rep.fused}, segments {segs} ({done} steps run); final "
+            f"field {'bitwise equal (SHA-256)' if same else 'DIFFERENT'} "
+            f"to a clean run(40); launches {l_camp} = the clean run's "
+            f"{l_clean} + the replayed window's {replayed} {l_replay}: "
+            f"{l_camp == want}")
+        res_check(same and rep.rollbacks == 1 and rep.fused
+                  and sum(k for _, k in kept) == 40
+                  and done == 40 + sum(k for _, k in replayed),
+                  "wrap campaign differs from its clean run")
+        res_check(l_camp == want, f"wrap launches {l_camp} != {want}")
+        del clean, plain
+        # the same campaign without the fault, the plain run, the replay
+        j2 = jacobi_mesh("wrap")
+        l_free, secs_free, _ = timed_launches(
+            torch, lambda: j2.run_resilient(
+                40, policy=res_policy(check_every=10, ckpt_every=20),
+                ckpt_dir=os.path.join(root, "a_free")))
+        p = jacobi_mesh("wrap")
+        _, secs_plain, _ = timed_launches(torch, lambda: p.run(40))
+        del j2, p
+        rates = {"campaign_steps_per_s": 40 / secs_free,
+                 "campaign_with_rollback_steps_per_s": 40 / secs_nan,
+                 "plain_run_steps_per_s": 40 / secs_plain,
+                 "rollback_replay_s": secs_nan - secs_free}
+        out["wrap_rates"] = rates
+        log(f"  Jacobi 512^3 wrap, 40 steps: campaign (check 10, "
+            f"checkpoints 0, 20, 40) {rates['campaign_steps_per_s']!r} "
+            f"steps/s, with the NaN rollback "
+            f"{rates['campaign_with_rollback_steps_per_s']!r}, plain run() "
+            f"{rates['plain_run_steps_per_s']!r}; the rollback's replay "
+            f"costs {rates['rollback_replay_s']!r} s (card: {card})")
+
+        # checkpoint I/O at 512^3
+        io_s = {"save_s": [], "restore_s": []}
+        for r in range(RES_IO_REPS):
+            d = os.path.join(root, f"io{r}")
+            t0 = time.perf_counter()
+            ck.save_domain(j.dd, d, 1)
+            io_s["save_s"].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.restore_domain(j.dd, d)
+            torch.cuda.synchronize()
+            io_s["restore_s"].append(time.perf_counter() - t0)
+        nbytes = 4 * N512 ** 3
+        io_s["bytes"] = nbytes
+        io_s["save_gb_per_s"] = [nbytes / s / 1e9 for s in io_s["save_s"]]
+        io_s["restore_gb_per_s"] = [nbytes / s / 1e9
+                                    for s in io_s["restore_s"]]
+        out["checkpoint_io_512"] = io_s
+        log(f"  checkpoint of Jacobi 512^3 float32 ({nbytes} bytes, "
+            f"sha256 per file, write to a temporary directory then rename): "
+            f"save {io_s['save_s']} s ({io_s['save_gb_per_s']} GB/s), "
+            f"restore {io_s['restore_s']} s ({io_s['restore_gb_per_s']} "
+            f"GB/s), the file cache warm (card: {card})")
+        del j
+
+        # B. Jacobi 512^3 halo (1,2,2) at exchange_every=2: the ladder
+        # degrades to s = 1 after max_retries; the kept segments run at
+        # s = 2 up to the restore anchor and at s = 1 after it, the
+        # replayed ones at s = 2
+        j = jacobi_mesh("halo", (1, 2, 2), exchange_every=2)
+        rep, l_camp, _, segs, done = campaign(
+            "halo degrade", j, os.path.join(root, "b"))
+        kept, replayed = split_segments(segs)
+        anchor = [st for ev, st in rep_events(rep) if ev == "restored"][-1]
+        ref = jacobi_mesh("halo", (1, 2, 2), exchange_every=2)
+        l_ref_a, _, _ = timed_launches(
+            torch, lambda: [ref.run(k) for b, k in kept if b < anchor])
+        ref1 = jacobi_mesh("halo", (1, 2, 2), exchange_every=1)
+        for i in range(4):
+            ref1.dd.interior("temp", i).copy_(ref.dd.interior("temp", i))
+        l_ref_b, _, _ = timed_launches(
+            torch, lambda: [ref1.run(k) for b, k in kept if b >= anchor])
+        scratch = jacobi_mesh("halo", (1, 2, 2), exchange_every=2)
+        l_replay, _, _ = timed_launches(
+            torch, lambda: [scratch.run(k) for _, k in replayed])
+        del scratch, ref
+        want = sum_launches(l_ref_a, l_ref_b, l_replay)
+        same = sha(j) == sha(ref1)
+        log(f"  resilient Jacobi 512^3 halo (1,2,2) exchange_every=2, NaN "
+            f"at 5 twice, max_retries 1: degradations {rep.degradations}, "
+            f"final {rep.final_config}, path {j.kernel_path}, segments "
+            f"{segs}; final field {'bitwise equal' if same else 'DIFFERENT'}"
+            f" to s = 2 up to the anchor {anchor} and s = 1 after it; "
+            f"launches {l_camp} = {l_ref_a} + {l_ref_b} + the replayed "
+            f"{replayed} {l_replay}: {l_camp == want}")
+        res_check(same and rep.degradations == ["PpermuteSlab[s=1]"]
+                  and sum(k for _, k in kept) == 10,
+                  "the halo ladder campaign")
+        res_check(l_camp == want, f"halo launches {l_camp} != {want}")
+        del j, ref1
+
+        # C. preemption at 20 of 40 on wrap, then the resume
+        d = os.path.join(root, "c")
+        j = jacobi_mesh("wrap")
+        rep, l_first, _, _, _ = campaign("wrap preempt", j, d)
+        meta = ck.checkpoint_meta(d)
+        k = jacobi_mesh("wrap")
+        l_second, _, rep2 = timed_launches(
+            torch, lambda: k.run_resilient(
+                40, policy=res_policy(check_every=10, ckpt_every=10),
+                ckpt_dir=d))
+        plain = jacobi_mesh("wrap")
+        l_plain, _, _ = timed_launches(torch, lambda: plain.run(40))
+        same = sha(k) == sha(plain)
+        log(f"  preemption at step 20 of 40 (wrap 512^3): preempted="
+            f"{rep.preempted}, checkpoint meta preempted={meta['preempted']}"
+            f" completed_steps={meta['completed_steps']}; the resume from "
+            f"{rep2.resumed_from} to {rep2.steps}: final field "
+            f"{'bitwise equal' if same else 'DIFFERENT'} to an "
+            f"uninterrupted run(40); launches {sum_launches(l_first, l_second)}"
+            f" vs {l_plain}")
+        res_check(rep.preempted and meta["preempted"] is True
+                  and rep2.resumed_from == 20 and rep2.steps == 40 and same,
+                  "preemption and resume")
+        res_check(sum_launches(l_first, l_second) == l_plain,
+                  "preempted + resumed launches differ from one run(40)")
+        del j, k, plain
+
+        # D. Astaroth 256^3 wrap (B9) float32, a NaN at iteration 3
+        prm = MhdParams(dt=MHD_PATH_DT)
+
+        def astaroth():
+            m = Astaroth(N256, N256, N256, params=prm, kernel="wrap",
+                         device=CARD)
+            seed_mhd(torch, m, CARD)
+            m.block()
+            return m
+
+        m = astaroth()
+        rep, l_camp, _, _, done = campaign("astaroth nan", m,
+                                           os.path.join(root, "d"))
+        clean = astaroth()
+        l_clean, _, _ = timed_launches(torch, lambda: clean.run(4))
+        # stepwise (the wrap path declines segments): every iteration
+        # past the anchor that ran before the trip was harvested replays
+        scratch = astaroth()
+        l_replay, _, _ = timed_launches(torch,
+                                        lambda: scratch.run(done - 4))
+        del scratch
+        same = all(digest(m.field(q)) == digest(clean.field(q))
+                   for q in FIELDS)
+        want = sum_launches(l_clean, l_replay)
+        log(f"  resilient Astaroth 256^3 wrap float32, run_resilient(4) "
+            f"checkpoint 2, NaN in uux at 3: {rep.rollbacks} rollback, "
+            f"stepwise ({rep.fused_decline_code}), {done} iterations run; "
+            f"the 8 fields {'bitwise equal' if same else 'DIFFERENT'} to a "
+            f"clean run(4); launches {l_camp} = {l_clean} + the replayed "
+            f"{done - 4} iteration(s) {l_replay}: {l_camp == want}")
+        res_check(same and rep.rollbacks == 1, "the Astaroth campaign")
+        res_check(l_camp == want, f"Astaroth launches {l_camp} != {want}")
+        del m, clean
+        torch.cuda.empty_cache()
+
+        # E. PIC 128^3 CIC float32 on (2,2,2) with a ParticleLoss
+        g = RES_PIC_GRID
+        total = PIC_PER_CELL * g ** 3
+        p = Pic(g, g, g, total, mesh_shape=PIC_MESH, devices=[CARD] * 8,
+                dtype=torch.float32, deposition="cic", init=False)
+        p.set_shard_particles(pic_shard_particles(torch, p, total // 8,
+                                                  seed=6))
+        rep, _, secs, _, _ = campaign("pic loss", p,
+                                      os.path.join(root, "e"))
+        charge = p.total_charge()
+        finite = bool(np.isfinite(p.rho()).all())
+        log(f"  resilient PIC {g}^3 CIC float32 on {PIC_MESH}, {total} "
+            f"particles, ParticleLoss of 2 at step 3: {rep.rollbacks} "
+            f"rollback, fused={rep.fused}, {secs!r} s; total_charge (C1: "
+            f"the float32 sum of rho) {charge!r} against {total} "
+            f"particles, overflow {p.overflow_total()}")
+        res_check(rep.rollbacks == 1 and finite
+                  and abs(charge - total) <= 1e-5 * total
+                  and p.overflow_total() == 0, "the PIC campaign")
+        out["pic"] = {"particles": total, "total_charge": charge,
+                      "seconds": secs}
+        del p
+        torch.cuda.empty_cache()
+
+        # G. placement: the QAP order on (1,2,2) of the card
+        part = RankPartition.from_dim(Dim3(N512, N512, N512), Dim3(1, 2, 2))
+        pl = make_placement(PlacementStrategy.NodeAware, part, [CARD] * 4,
+                            Radius.constant(1), [4], mode="qap")
+        q = jacobi_mesh("halo", (1, 2, 2), placement="qap")
+        t = jacobi_mesh("halo", (1, 2, 2),
+                        placement=PlacementStrategy.Trivial)
+        q.run(4)
+        t.run(4)
+        same = sha(q) == sha(t)
+        log(f"  placement: make_placement(NodeAware, mode='qap') on (1,2,2) "
+            f"of the card: assignment {pl.assignment} (the domain's "
+            f"{q.dd.placement.assignment}); Jacobi halo 512^3 4 steps "
+            f"under it {'bitwise equal' if same else 'DIFFERENT'} to the "
+            f"trivial order")
+        res_check(same and q.dd.placement.assignment == pl.assignment,
+                  "QAP order against the trivial order")
+        del q, t
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_qap.main(["--sizes", "4", "6", "8", "10", "16", "32"])
+        for line in buf.getvalue().splitlines():
+            log(f"  {line}")
+        out["bench_qap"] = buf.getvalue().splitlines()
+        out["qap_native"] = qap.native_available()
+        log(f"  qap.cpp built natively (g++): {qap.native_available()}")
+        res_check(qap.native_available(), "qap.cpp did not build")
+        plans = {}
+        for layout in ("slab", "irredundant"):
+            dd = DistributedDomain(N512, N512, N512, devices=[CARD] * 4)
+            dd.set_radius(1)
+            dd.set_mesh_shape((1, 2, 2))
+            dd.set_wire_layout(layout)
+            dd.set_output_prefix(os.path.join(root, f"{layout}_"))
+            dd.add_data("temp")
+            dd.realize()
+            plans[layout] = dd.exchange_bytes_total()
+            del dd
+            torch.cuda.empty_cache()
+        text = open(os.path.join(root, "slab_plan.txt")).read()
+        msgs = [int(ln.rsplit(": ", 1)[1].split()[0])
+                for ln in text.splitlines() if ln.startswith("message ")]
+        out["plan_file"] = {"messages": len(msgs), "bytes": sum(msgs),
+                            "exchange_bytes_total_slab": plans["slab"],
+                            "exchange_bytes_total_irredundant":
+                                plans["irredundant"]}
+        log(f"  plan file of the 512^3 (1,2,2) domain: {len(msgs)} "
+            f"messages, {sum(msgs)} bytes = exchange_bytes_total() of the "
+            f"irredundant layout {plans['irredundant']} (each halo cell "
+            f"once), <= the slab layout's {plans['slab']}")
+        res_check(len(msgs) == 96 and sum(msgs) == plans["irredundant"]
+                  <= plans["slab"], "the plan file's messages")
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 
 
@@ -5420,6 +5869,10 @@ def main() -> int:
     log("phase 4: segments (make_segment) on Jacobi3D 512^3, Astaroth "
         "256^3 xla-temporal[s=2] and PIC 256^3, against stepwise twins")
     segments = run_segments(torch)
+    log("phase 4: resilience and placement: run_resilient on Jacobi3D "
+        "512^3 (wrap, halo), Astaroth 256^3 wrap and PIC 128^3, checkpoint "
+        "I/O, QAP placement and the plan file (card: " + card + ")")
+    resilience = run_resilience(torch)
     log("phase 4: two ranks on the one card: Jacobi3D 512^3 halo and xla "
         "and Astaroth 256x512x512 halo (gloo-staged), B7, K3 + B4 and "
         "B13/B14 over CUDA IPC with device-side flags, xla-overlap, "
@@ -5484,6 +5937,9 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        entry["resilient_launches"] = {
+            label: d[name] for label, d in resilience["launches"].items()
+            if d.get(name)}
         if name == "laplace6":
             entry["path"] = "none: no model path runs it in either package"
             entry["ptxas"] = {
@@ -5651,6 +6107,7 @@ def main() -> int:
                    "jacobi_bf16_kernel_times": jbf16_times["kernels"],
                    "pic": pic,
                    "segments": segments,
+                   "resilience": resilience,
                    "two_ranks": two_ranks,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)

@@ -157,6 +157,56 @@ def dcn_mesh_shape(args, devices, xfree: bool):
                                         axis=axis, xfree=xfree))
 
 
+def add_placement_flags(p: argparse.ArgumentParser) -> None:
+    """``--trivial`` / ``--random`` (JAX ``apps/_common.py:138``); the
+    default is the node-aware placement."""
+    p.add_argument("--trivial", action="store_true",
+                   help="trivial placement instead of node-aware")
+    p.add_argument("--random", action="store_true",
+                   help="random placement (experimental control)")
+
+
+def placement_from_args(args):
+    """The ``PlacementStrategy`` the placement flags name."""
+    from ..placement import PlacementStrategy
+    if getattr(args, "random", False):
+        return PlacementStrategy.IntraNodeRandom
+    if getattr(args, "trivial", False):
+        return PlacementStrategy.Trivial
+    return PlacementStrategy.NodeAware
+
+
+def add_resilience_flags(ap: argparse.ArgumentParser,
+                         ckpt_every: int = 10) -> argparse._ArgumentGroup:
+    """The recovery driver's flags shared by the apps (JAX
+    ``apps/jacobi3d.py:103-135``, ``apps/pic.py:99-112``); returns the
+    group, for an app's own ``--chaos-*`` flags."""
+    res = ap.add_argument_group(
+        "resilience", "run under the checkpoint-rollback recovery driver "
+        "(stencil_tpu_torch/resilience); the --chaos-* flags inject "
+        "seeded faults")
+    res.add_argument("--resilient", action="store_true",
+                     help="run --iters iterations under run_resilient "
+                          "instead of the timed loop")
+    res.add_argument("--ckpt-dir", default="",
+                     help="checkpoint/resume directory (preempted runs "
+                          "resume from it on the next invocation)")
+    res.add_argument("--ckpt-every", type=int, default=ckpt_every)
+    res.add_argument("--check-every", type=int, default=1,
+                     help="health-sentinel boundary cadence (steps), and "
+                          "the segment length")
+    res.add_argument("--max-retries", type=int, default=3)
+    res.add_argument("--events-json", default="",
+                     help="write the resilience event log (JSON) here")
+    res.add_argument("--chaos-nan", type=int, default=0, metavar="STEP",
+                     help="inject one NaN into shard 0 after STEP")
+    res.add_argument("--chaos-save-fail", type=int, default=0,
+                     metavar="STEP", help="the checkpoint save at STEP "
+                     "raises transient IOErrors (retried)")
+    res.add_argument("--chaos-seed", type=int, default=0)
+    return res
+
+
 def add_dtype_flags(ap: argparse.ArgumentParser) -> None:
     """``--f64`` / ``--bf16`` (the reference's float/double templating
     analog)."""

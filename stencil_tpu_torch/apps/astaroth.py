@@ -41,6 +41,13 @@ the device) and prints the per-iteration time; the interior-resident
 kernel paths (``wrap``, ``halo``, ``halo-overlap``) decline, print the
 reason on stderr and keep the per-iteration loop, as JAX's app does.
 
+``--prefix P`` names the output files: ``--paraview-init`` and
+``--paraview-final`` dump ParaView CSVs (``Pinit<i>.txt``,
+``Pfinal<i>.txt``). ``--checkpoint-dir D`` saves the state (the RK
+accumulators as extras) every ``--checkpoint-every`` iterations and at
+exit (``utils/checkpoint.py``), and ``--resume`` starts from the latest
+checkpoint in ``D``, as JAX's app does.
+
 Under ``python -m torch.distributed.run --nproc_per_node P`` each rank
 runs its own shards (``--devices`` are its own; ``--backend gloo`` puts
 several ranks on one card) and rank 0 prints the line; ``--dcn-axis`` /
@@ -94,6 +101,18 @@ def main(argv=None) -> None:
                          "loop)")
     ap.add_argument("--check-every", type=int, default=4,
                     help="segment length (iterations) for --fuse-segments")
+    ap.add_argument("--paraview-init", action="store_true")
+    ap.add_argument("--paraview-final", action="store_true")
+    ap.add_argument("--prefix", default="")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="checkpoint directory (the working AC_start_step "
+                         "analog — the reference's conf knob is never "
+                         "restored, astaroth/astaroth.conf:36-38)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save every N iterations (0: only at exit)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir")
     add_device_flags(ap)
     add_method_flags(ap)
     add_dcn_flags(ap)
@@ -114,6 +133,27 @@ def main(argv=None) -> None:
                  exchange_every=args.exchange_every or None,
                  **dcn_from_args(args, devices))
     m.init()
+    it = 0
+    if args.checkpoint_dir and args.resume:
+        from ..utils.checkpoint import restore_domain
+        # flush and drop the resident state, so that the restored
+        # dd.curr is what the next iteration reads
+        m.sync_domain()
+        it, extra = restore_domain(m.dd, args.checkpoint_dir)
+        m.install_w(extra)
+        if rank == 0:
+            print(f"# resumed from step {it}")
+    if args.paraview_init:
+        m.dd.write_paraview(args.prefix + "init")
+    last_saved = None
+
+    def save() -> None:
+        nonlocal last_saved
+        from ..utils.checkpoint import save_domain
+        m.sync_domain()
+        save_domain(m.dd, args.checkpoint_dir, it, extra=m._w_extras())
+        last_saved = it
+
     segment = None
     if args.fuse_segments:
         segment = m.make_segment(max(args.check_every, 1))
@@ -122,16 +162,22 @@ def main(argv=None) -> None:
                   f"path ({segment.reason}); using the classic loop",
                   file=sys.stderr)
             segment = None
-    it = 0
 
     def one() -> None:
         nonlocal it
+        prev = it
         if segment is None:
             m.step()
             it += 1
         else:
             segment.run(it)
             it += segment.steps
+        # "crossed a checkpoint boundary", not an exact modulus: a
+        # segment advances several iterations at once
+        if (args.checkpoint_dir and args.checkpoint_every
+                and it // args.checkpoint_every
+                > prev // args.checkpoint_every):
+            save()
 
     samples = (max(args.iters // segment.steps, 1) if segment is not None
                else max(args.iters, 1))
@@ -142,8 +188,14 @@ def main(argv=None) -> None:
         m.block()
         if i >= 2:
             stats.insert(time.perf_counter() - t0)
+    if args.checkpoint_dir and last_saved != it:
+        save()
     exch = m.measure_exchange_seconds()
     xstats = m.exchange_stats()
+    if args.paraview_final:
+        # flush the resident state into dd.curr first
+        m.sync_domain()
+        m.dd.write_paraview(args.prefix + "final")
     if rank != 0:
         return
     print(",".join(str(f) for f in (

@@ -56,6 +56,27 @@ device-side flags, with no message through the group:
 
 ``--dcn-axis`` / ``--fake-slices`` block one grid axis across hosts (or
 fake groups of the devices), as JAX's flags do.
+
+Placement and output (JAX's flags): ``--trivial`` / ``--random`` choose
+the placement strategy (node-aware by default), ``--prefix P`` writes
+the plan file ``Pplan.txt`` and ``Pcomm_matrix.txt`` at realize, and
+``--paraview`` dumps ParaView CSVs (``Pjacobi3d_init<i>.txt``, every
+``--period`` samples ``Pjacobi3d_<n><i>.txt``, and
+``Pjacobi3d_final<i>.txt``).
+
+``--resilient`` runs ``--iters`` iterations under the checkpoint-rollback
+driver (``Jacobi3D.run_resilient``) instead of the timed loop: health
+probes every ``--check-every`` steps (the segment length), checkpoints
+every ``--ckpt-every`` into ``--ckpt-dir`` (a preempted run resumes from
+it), seeded faults from ``--chaos-nan``, ``--chaos-halo``,
+``--chaos-save-fail`` and ``--chaos-preempt``, the event log into
+``--events-json``; it prints JAX's line
+``jacobi3d-resilient,methods,steps,rollbacks,save_retries,degradations,
+preempted,final_config``:
+
+    python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 \
+        --resilient --iters 40 --check-every 10 --ckpt-every 20 \
+        --chaos-nan 25 --ckpt-dir /tmp/j3d_ckpt
 """
 
 from __future__ import annotations
@@ -65,9 +86,45 @@ import os
 
 from ..parallel.multihost import initialize_distributed
 from ._common import (KERNEL_CHOICES, add_dcn_flags, add_device_flags,
-                      add_dtype_flags, add_method_flags, dcn_from_args,
-                      dtype_from_args, mesh_from_args,
-                      methods_from_args, sampled_steps_per_s)
+                      add_dtype_flags, add_method_flags, add_placement_flags,
+                      add_resilience_flags, csv_line, dcn_from_args,
+                      dtype_from_args, mesh_from_args, methods_from_args,
+                      placement_from_args, sampled_steps_per_s)
+
+
+def _run_resilient(j, args, rank: int) -> None:
+    """The chaos entry (JAX ``apps/jacobi3d.py:24``): the recovery
+    driver with the seeded faults of the ``--chaos-*`` flags, then a
+    summary line and, optionally, the event-log JSON."""
+    from ..resilience import (FaultPlan, HaloCorruption, NaNInjection,
+                              Preemption, ResiliencePolicy,
+                              TransientSaveFailure)
+
+    plan = FaultPlan(seed=args.chaos_seed)
+    if args.chaos_nan:
+        plan.nans.append(NaNInjection(step=args.chaos_nan))
+    if args.chaos_halo:
+        plan.halos.append(HaloCorruption(step=args.chaos_halo))
+    if args.chaos_save_fail:
+        plan.save_failures.append(
+            TransientSaveFailure(step=args.chaos_save_fail))
+    if args.chaos_preempt:
+        plan.preemptions.append(Preemption(step=args.chaos_preempt))
+    policy = ResiliencePolicy(check_every=args.check_every,
+                              ckpt_every=args.ckpt_every,
+                              max_retries=args.max_retries,
+                              base_delay=0.01,
+                              fuse_segments=args.fuse_segments)
+    report = j.run_resilient(args.iters, policy=policy,
+                             ckpt_dir=args.ckpt_dir or None, faults=plan)
+    if rank != 0:
+        return
+    if args.events_json:
+        report.write(args.events_json)
+    print(csv_line("jacobi3d-resilient", methods_from_args(args),
+                   report.steps, report.rollbacks, report.save_retries,
+                   len(report.degradations), int(report.preempted),
+                   report.final_config))
 
 
 def main(argv=None) -> None:
@@ -93,10 +150,26 @@ def main(argv=None) -> None:
                          "halo); 0 leaves the default")
     ap.add_argument("--overlap", action="store_true",
                     help="overlap the exchange with the interior update")
+    ap.add_argument("--prefix", default="", help="output prefix (plan "
+                    "file, comm matrix, ParaView dumps)")
+    ap.add_argument("--paraview", action="store_true")
+    ap.add_argument("--period", type=int, default=0,
+                    help="paraview dump every N samples")
     add_device_flags(ap)
     add_method_flags(ap)
+    add_placement_flags(ap)
     add_dtype_flags(ap)
     add_dcn_flags(ap)
+    res = add_resilience_flags(ap)
+    res.add_argument("--fuse-segments",
+                     action=argparse.BooleanOptionalAction, default=True,
+                     help="segments (default on): one segment per "
+                          "--check-every boundary, the probe rows on the "
+                          "device; --no-fuse-segments steps one by one")
+    res.add_argument("--chaos-halo", type=int, default=0, metavar="STEP",
+                     help="corrupt a halo cell after STEP")
+    res.add_argument("--chaos-preempt", type=int, default=0,
+                     metavar="STEP", help="deliver SIGTERM after STEP")
     args = ap.parse_args(argv)
     rank = initialize_distributed(backend=args.backend)
     if args.wrap_steps:
@@ -112,23 +185,40 @@ def main(argv=None) -> None:
                  kernel=args.kernel, mesh_shape=shape,
                  devices=devices, methods=methods_from_args(args),
                  exchange_every=args.exchange_every or None,
-                 overlap=args.overlap, **dcn_from_args(args, devices))
+                 overlap=args.overlap, placement=placement_from_args(args),
+                 output_prefix=args.prefix, **dcn_from_args(args, devices))
     j.init()
-    stats, _ = sampled_steps_per_s(lambda: j.run(args.batch), j.block,
+    if args.paraview:
+        j.dd.write_paraview(args.prefix + "jacobi3d_init")
+    if args.resilient:
+        _run_resilient(j, args, rank)
+        return
+    n = 0
+
+    def one():
+        nonlocal n
+        j.run(args.batch)
+        n += 1
+        if args.paraview and args.period and n % args.period == 0:
+            j.dd.write_paraview(f"{args.prefix}jacobi3d_{n}")
+
+    stats, _ = sampled_steps_per_s(one, j.block,
                                    max(args.iters // args.batch, 1),
                                    args.batch)
     b = j.dd.exchange_bytes_per_axis()
     xstats = j.exchange_stats()
     ex_s = j.measure_exchange_seconds()
+    if args.paraview:
+        j.dd.write_paraview(args.prefix + "jacobi3d_final")
     if rank != 0:
         return
-    print(",".join(str(f) for f in (
+    print(csv_line(
         "jacobi3d", pick_method(j.dd.methods), j.dd.num_subdomains(),
         gx, gy, gz, b["x"], b["y"], b["z"],
         f"{stats.min() / args.batch:.6e}",
         f"{stats.trimean() / args.batch:.6e}",
         xstats["path"], int(xstats["bytes_per_iteration"]),
-        f"{ex_s:.6e}")))
+        f"{ex_s:.6e}"))
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ iterations timed in samples of ``--batch``, and the line
 
     jacobi3d_strong,methods,devices,x,y,z,bytes_x,bytes_y,bytes_z,min (s),trimean (s),path,bytes/iter,exchange (s)
 
-with per-iteration seconds, as ``jacobi3d`` prints it. Placement is
-trivial in the port (``--trivial`` is accepted; ``--random`` waits for
-ROADMAP A5). Run it as
+with per-iteration seconds, as ``jacobi3d`` prints it. ``--trivial`` and
+``--random`` choose the placement (``PlacementStrategy``; the default is
+node-aware). Run it as
 
     python -m stencil_tpu_torch.apps.jacobi3d_strong \\
         --devices cuda:0,cuda:0,cuda:0,cuda:0 --kernel halo
@@ -19,8 +19,9 @@ from __future__ import annotations
 import argparse
 
 from ._common import (KERNEL_CHOICES, add_device_flags, add_dtype_flags,
-                      add_method_flags, csv_line, devices_from_args,
-                      dtype_from_args, methods_from_args, refuse_pending,
+                      add_method_flags, add_placement_flags, csv_line,
+                      devices_from_args, dtype_from_args,
+                      methods_from_args, placement_from_args,
                       timed_samples)
 
 
@@ -34,19 +35,16 @@ def main(argv=None) -> None:
     add_dtype_flags(ap)
     ap.add_argument("--kernel", default="auto", choices=KERNEL_CHOICES)
     add_method_flags(ap)
-    ap.add_argument("--trivial", action="store_true",
-                    help="trivial placement (the port's only one)")
-    ap.add_argument("--random", action="store_true",
-                    help="random placement (ROADMAP A5)")
+    add_placement_flags(ap)
     add_device_flags(ap)
     args = ap.parse_args(argv)
-    refuse_pending(args, [("--random", "A5 (placement)", False)])
 
     from ..models.jacobi import Jacobi3D
 
     methods = methods_from_args(args)
     j = Jacobi3D(args.x, args.y, args.z, dtype=dtype_from_args(args),
                  kernel=args.kernel, methods=methods,
+                 placement=placement_from_args(args),
                  mesh_shape=args.mesh_shape, devices=devices_from_args(args))
     j.init()
     samples = max(args.iters // args.batch, 1)

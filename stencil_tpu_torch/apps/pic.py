@@ -27,9 +27,19 @@ steps/s,ratio`` and added to ``--json-out`` as ``fused``;
 ``--no-fuse-segments`` skips it. Under torchrun each rank races on
 its own first device and rank 0 prints its race.
 
-Not in this slice: ``--resilient`` and the ``--chaos-*`` fault plan wait
-for ROADMAP A11, ``--metrics-json`` and ``--ledger`` for A12; each
-raises when given.
+``--resilient`` runs ``--iters`` steps under the checkpoint-rollback
+driver (``Pic.run_resilient``) instead of the timed loop, with the
+seeded faults of the ``--chaos-*`` flags, checkpoints every
+``--ckpt-every`` steps into ``--ckpt-dir`` (a preempted run resumes from
+it) and the event log in ``--events-json``; it prints JAX's line
+``pic-resilient,methods,steps,rollbacks,save_retries,preempted,
+overflow,final_config``:
+
+    python -m stencil_tpu_torch.apps.pic --devices cpu,cpu,cpu,cpu \
+        --resilient --chaos-particle-loss 3 --ckpt-dir /tmp/pic_ckpt
+
+Not in this slice: ``--metrics-json`` and ``--ledger`` wait for
+ROADMAP A12 and raise when given.
 """
 
 from __future__ import annotations
@@ -38,9 +48,44 @@ import argparse
 import json
 
 from ._common import (add_bench_record_flags, add_device_flags,
-                      add_dtype_flags, add_method_flags, csv_line,
+                      add_dtype_flags, add_method_flags,
+                      add_resilience_flags, csv_line,
                       devices_from_args, dtype_from_args, megastep_race,
                       methods_from_args, refuse_pending, sampled_steps_per_s)
+
+
+def _run_resilient(p, args, rank: int) -> None:
+    """The chaos entry (JAX ``apps/pic.py:24``): the recovery driver
+    with the seeded faults of the ``--chaos-*`` flags, then a summary
+    line and, optionally, the event-log JSON."""
+    from ..resilience import (FaultPlan, NaNInjection, ParticleLoss,
+                              ResiliencePolicy, TransientSaveFailure)
+
+    plan = FaultPlan(seed=args.chaos_seed)
+    if args.chaos_particle_loss:
+        plan.particle_losses.append(
+            ParticleLoss(step=args.chaos_particle_loss,
+                         count=args.chaos_particle_count))
+    if args.chaos_nan:
+        plan.nans.append(NaNInjection(step=args.chaos_nan))
+    if args.chaos_save_fail:
+        plan.save_failures.append(
+            TransientSaveFailure(step=args.chaos_save_fail))
+    policy = ResiliencePolicy(check_every=args.check_every,
+                              ckpt_every=args.ckpt_every,
+                              max_retries=args.max_retries,
+                              base_delay=0.01,
+                              fuse_segments=args.fuse_segments)
+    report = p.run_resilient(args.iters, policy=policy,
+                             ckpt_dir=args.ckpt_dir or None, faults=plan)
+    overflow = int(p.overflow_total())
+    if rank != 0:
+        return
+    if args.events_json:
+        report.write(args.events_json)
+    print(csv_line("pic-resilient", methods_from_args(args),
+                   report.steps, report.rollbacks, report.save_retries,
+                   int(report.preempted), overflow, report.final_config))
 
 
 def main(argv=None) -> None:
@@ -74,29 +119,16 @@ def main(argv=None) -> None:
     add_method_flags(ap)
     add_device_flags(ap, mesh=False)
     add_bench_record_flags(ap)
-    res = ap.add_argument_group(
-        "resilience", "the checkpoint-rollback driver and its fault plan "
-        "(ROADMAP A11: not ported)")
-    res.add_argument("--resilient", action="store_true")
-    res.add_argument("--ckpt-dir", default="")
-    res.add_argument("--ckpt-every", type=int, default=4)
-    res.add_argument("--check-every", type=int, default=1)
-    res.add_argument("--max-retries", type=int, default=3)
-    res.add_argument("--events-json", default="")
+    res = add_resilience_flags(ap, ckpt_every=4)
     res.add_argument("--chaos-particle-loss", type=int, default=0,
-                     metavar="STEP")
+                     metavar="STEP", help="NaN particle records of shard 0 "
+                     "after STEP (ParticleLoss)")
     res.add_argument("--chaos-particle-count", type=int, default=2)
-    res.add_argument("--chaos-nan", type=int, default=0, metavar="STEP")
-    res.add_argument("--chaos-save-fail", type=int, default=0,
-                     metavar="STEP")
-    res.add_argument("--chaos-seed", type=int, default=0)
     args = ap.parse_args(argv)
-    refuse_pending(args, [
-        ("--resilient", "A11 (resilience)", False),
-        ("--chaos-particle-loss", "A11 (resilience)", 0),
-        ("--chaos-nan", "A11 (resilience)", 0),
-        ("--chaos-save-fail", "A11 (resilience)", 0),
-        ("--metrics-json", "A12 (telemetry)", "")])
+    if args.resilient and args.json_out:
+        ap.error("--json-out records the timed bench path; it is not "
+                 "produced by --resilient (use --events-json there)")
+    refuse_pending(args, [("--metrics-json", "A12 (telemetry)", "")])
 
     from ..models.pic import Pic
     from ..parallel.mesh import as_global, default_mesh_shape
@@ -112,6 +144,9 @@ def main(argv=None) -> None:
             devices=devices, methods=methods_from_args(args),
             capacity=args.capacity or None, budget=args.budget or None,
             deposition=args.deposition, dt=args.dt, seed=args.seed)
+    if args.resilient:
+        _run_resilient(p, args, rank)
+        return
     stats, sps = sampled_steps_per_s(lambda: p.run(args.batch), p.block,
                                      max(args.iters // args.batch, 1),
                                      args.batch)

@@ -48,20 +48,39 @@ Segments (``make_segment``): ``k`` applications of a caller's step over
 the shards with the health probe kept on the device
 (``parallel/megastep.py``).
 
-Not ported: the exchange autotuner (ROADMAP A12), the plan file
-(``_write_plan``, A5) and QAP placement (``set_placement("qap")`` raises
-at realize(): A5).
+Placement (``set_placement``; ``placement.py``): a
+``PlacementStrategy`` (NodeAware, Trivial, IntraNodeRandom) or the
+NodeAware mode ``"auto"`` | ``"qap"`` | ``"trivial"``. With an output
+prefix (``set_output_prefix``, or ``$STENCIL_OUTPUT_PREFIX``)
+``realize()`` writes the plan file ``<prefix>plan.txt`` (one line per
+planned message) and ``<prefix>comm_matrix.txt`` (the subdomain-pair
+bytes, ``numpy.loadtxt`` format), rank 0 alone on a mesh over processes.
+
+Geometry queries for overlap (``domain_view``, ``get_interior``,
+``get_exterior``, ``get_compute_region``; reference:
+src/stencil.cu:874-977), per-exchange timing (``enable_timing``: CUDA
+events on a card, ``perf_counter`` on the CPU, the raw seconds in
+``exchange_seconds``) and the reference's ParaView CSV dumps
+(``write_paraview``, byte-identical to the JAX package's for the same
+state).
+
+Not ported: the exchange autotuner and its report (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .geometry import DepthsLike, Dim3, Dim3Like, Radius, normalize_depths
-from .local_domain import interior_slices, raw_size, zyx_shape
+from .geometry import (DepthsLike, Dim3, Dim3Like, Radius, Rect3,
+                       normalize_depths)
+from .local_domain import (LocalDomain, get_exterior as _dom_exterior,
+                           get_interior as _dom_interior, interior_slices,
+                           raw_size, zyx_shape)
 from .numerics import div_ceil
 from .parallel.exchange import (exchanged_bytes_per_sweep, make_exchange,
                                 normalize_wire_format)
@@ -72,7 +91,8 @@ from .parallel.packing import (irredundant_bytes_per_sweep,
                                normalize_wire_layout)
 from .partition import (NodePartition, RankPartition,
                         exact_partition_candidates, partition_dims_even)
-from .placement import Placement, make_placement, normalize_placement_mode
+from .placement import (Placement, PlacementStrategy, make_placement,
+                        normalize_placement_mode)
 from .topology import Boundary, Topology
 from .utils.logging import LOG_INFO
 
@@ -119,7 +139,16 @@ class DistributedDomain:
         self.wire_format = "f32"
         self.wire_layout = "slab"
         self._exchange_fn = None
+        self.strategy = PlacementStrategy.NodeAware
         self.placement_mode = "auto"
+        self._output_prefix = os.environ.get("STENCIL_OUTPUT_PREFIX", "")
+        #: the exchange autotuner's adopted plan (ROADMAP A12): None, so
+        #: the plan's provenance is "default"
+        self.plan = None
+        self.setup_seconds: Dict[str, float] = {}
+        #: per-exchange seconds while ``enable_timing`` is on
+        self.exchange_seconds: List[float] = []
+        self._timing = False
         self._mesh_shape: Optional[Dim3] = None
         # the DCN tier (set_dcn_axis); resolved by realize()
         self._dcn_requested = False
@@ -221,10 +250,34 @@ class DistributedDomain:
         analog; a repeated device list plays its set_gpus({0,0}))."""
         self._mesh_shape = Dim3.of(shape)
 
-    def set_placement(self, mode: str) -> None:
-        """Placement mode ``"auto"`` | ``"trivial"`` | ``"qap"`` (the
-        last raises at realize(): ROADMAP A5)."""
-        self.placement_mode = normalize_placement_mode(mode)
+    def set_placement(self, s: Union[PlacementStrategy, str]) -> None:
+        """A ``PlacementStrategy`` selects the placement family
+        (NodeAware, Trivial, IntraNodeRandom); a string ``"auto"`` |
+        ``"qap"`` | ``"trivial"`` sets the NodeAware placement mode
+        instead (``placement.make_placement``), as JAX's does."""
+        if isinstance(s, PlacementStrategy):
+            self.strategy = s
+        else:
+            self.placement_mode = normalize_placement_mode(s)
+
+    def set_output_prefix(self, prefix: str) -> None:
+        """Where ``realize()`` writes the plan file and the comm matrix
+        (``<prefix>plan.txt``, ``<prefix>comm_matrix.txt``); empty writes
+        nothing."""
+        self._output_prefix = prefix
+
+    def enable_timing(self, on: bool = True) -> None:
+        """Time every ``exchange()`` into ``exchange_seconds`` (the
+        reference's STENCIL_EXCHANGE_STATS): CUDA events on a card, which
+        the call waits for, ``perf_counter`` on the CPU. Off by default,
+        since it synchronizes each exchange."""
+        self._timing = on
+
+    @property
+    def plan_provenance(self) -> str:
+        """How the exchange configuration was decided: ``default`` (the
+        static priority list) until the autotuner is ported (A12)."""
+        return self.plan.provenance if self.plan is not None else "default"
 
     def set_dcn_axis(self, axis: Union[int, str, None] = None,
                      groups=None) -> None:
@@ -362,16 +415,25 @@ class DistributedDomain:
         else ``make_placement``."""
         part = RankPartition.from_dim(self.size, dim)
         if self._dcn_requested and self.n_slices > 1:
-            if self.placement_mode != "auto":
+            if self.strategy != PlacementStrategy.NodeAware or \
+                    self.placement_mode != "auto":
+                what = (self.strategy.value
+                        if self.strategy != PlacementStrategy.NodeAware
+                        else self.placement_mode)
                 raise ValueError(
-                    f"placement mode {self.placement_mode!r} is "
-                    f"incompatible with the DCN tier (host blocking "
-                    f"determines the placement)")
+                    f"placement {what!r} is incompatible with the DCN "
+                    f"tier (host blocking determines the placement)")
             from .parallel.multihost import multihost_device_order
 
             return Placement(part, multihost_device_order(
                 dim, self.dcn_axis, groups=groups))
-        return make_placement(part, self._global, mode=self.placement_mode)
+        return make_placement(self.strategy, part, self._global,
+                              self.radius,
+                              [self._dtypes[q].itemsize
+                               for q in self._names],
+                              mode=self.placement_mode,
+                              dcn_axis=self.dcn_axis,
+                              n_slices=self.n_slices)
 
     def realize(self) -> None:
         """Partition the grid, place the shards and allocate zeroed
@@ -402,6 +464,7 @@ class DistributedDomain:
             raise NotImplementedError(
                 f"wire_layout {self.wire_layout!r} is supported only "
                 f"by the PpermuteSlab and PpermutePacked methods")
+        t0 = time.perf_counter()
         dim = self._choose_partition_dim()
         # per-shard capacity = ceil sizes; uneven shards are one short
         # (reference: partition.hpp:55-69)
@@ -438,11 +501,15 @@ class DistributedDomain:
                for a in range(3)):
             raise ValueError(f"subdomain {min_local} smaller than "
                              f"(deepened) radius {self.alloc_radius}")
+        self.setup_seconds["partition"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self.placement = self._choose_placement(
             dim, self._discover_dcn_groups())
+        self.topology = Topology(dim, self.boundary)
+        self.setup_seconds["placement"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self.mesh = Mesh(dim, self.placement.slot_order_for_mesh())
         self.mesh_counts = dim
-        self.topology = Topology(dim, self.boundary)
         shape = zyx_shape(raw_size(self.local_size, self.alloc_radius))
         own = set(self.mesh.local_positions)
         for q in self._names:
@@ -450,6 +517,8 @@ class DistributedDomain:
                                         device=d) if i in own else None
                             for i, d in enumerate(self.mesh.devices)]
         self.next_ = {}
+        self.setup_seconds["realize"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         # the DEEP exchange (wire depth s*r) when exchange_every > 1; a
         # narrowing wire format runs make_exchange's precision gate, a
         # probe exchange on "meta" shards of these specs
@@ -471,6 +540,9 @@ class DistributedDomain:
                     wire_format=self.wire_format)
             for k in b:
                 self._bytes_per_axis[k] += b[k]
+        self.setup_seconds["plan"] = time.perf_counter() - t0
+        if self._output_prefix and self.mesh.rank == 0:
+            self._write_plan()
         dcn = (f", dcn axis {'xyz'[self.dcn_axis]}x{self.n_slices}"
                if self.dcn_axis is not None and self.n_slices > 1 else "")
         ranks = (f", ranks {sorted(set(self.mesh.ranks))}"
@@ -490,7 +562,30 @@ class DistributedDomain:
         deep halo of the allocation when ``exchange_every > 1``."""
         if self.local_size is None:
             raise RuntimeError("realize() first")
+        if not self._timing:
+            self._exchange_fn(self.curr)
+            return
+        cards = sorted({t.device for v in self.curr.values() for t in v
+                        if t is not None and t.is_cuda}, key=str)
+        if not cards:
+            t0 = time.perf_counter()
+            self._exchange_fn(self.curr)
+            self.exchange_seconds.append(time.perf_counter() - t0)
+            return
+        marks = []
+        for d in cards:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record(torch.cuda.current_stream(d))
+            marks.append((d, start, end))
         self._exchange_fn(self.curr)
+        for d, _, end in marks:
+            end.record(torch.cuda.current_stream(d))
+        ms = 0.0
+        for _, start, end in marks:
+            end.synchronize()
+            ms = max(ms, start.elapsed_time(end))
+        self.exchange_seconds.append(ms / 1e3)
 
     def make_segment(self, shard_step, check_every: int,
                      probe_every: int = 1, metrics=None):
@@ -520,6 +615,33 @@ class DistributedDomain:
     # -- geometry -------------------------------------------------------
     def num_subdomains(self) -> int:
         return self.mesh_counts.flatten()
+
+    def domain_view(self, i: int) -> LocalDomain:
+        """A geometry-only ``LocalDomain`` of the subdomain with linear
+        id ``i`` (no allocation: the data lives in ``curr``)."""
+        idx = self.placement.part.dimensionize(i)
+        dom = LocalDomain(self.placement.subdomain_size(idx),
+                          self.placement.subdomain_origin(idx), self.radius,
+                          device=self.mesh.devices[i])
+        for q in self._names:
+            dom.add_data(q, self._dtypes[q])
+        return dom
+
+    def get_interior(self) -> List[Rect3]:
+        """Per-subdomain interior regions, whose stencil reads never
+        touch a halo: safe to compute while the exchange is in flight
+        (reference: src/stencil.cu:874-921)."""
+        return [_dom_interior(self.domain_view(i))
+                for i in range(self.num_subdomains())]
+
+    def get_exterior(self) -> List[List[Rect3]]:
+        """Per-subdomain face slabs covering each compute region minus
+        its interior (reference: src/stencil.cu:927-977)."""
+        return [_dom_exterior(self.domain_view(i))
+                for i in range(self.num_subdomains())]
+
+    def get_compute_region(self) -> Rect3:
+        return Rect3(Dim3(0, 0, 0), self.size)
 
     def shard_index(self, i: int) -> Dim3:
         """Mesh position (x, y, z) of shard ``i`` (x fastest)."""
@@ -589,6 +711,65 @@ class DistributedDomain:
         n = self.mesh_counts.flatten()
         return sum(self._bytes_per_axis[name] * n / d[a]
                    for a, name in ((0, "x"), (1, "y"), (2, "z")))
+
+    def _write_plan(self) -> None:
+        """Write the plan file and the communication matrix (reference:
+        src/stencil.cu:482-637: plan_<rank>.txt and the rank x rank
+        matrix in numpy.loadtxt format), line for line as JAX's
+        ``_write_plan`` writes them."""
+        from .placement import comm_bytes_matrix, iter_messages
+
+        prefix = self._output_prefix
+        dim = self.placement.dim()
+        elem = [self._dtypes[q].itemsize for q in self._names]
+        with open(f"{prefix}plan.txt", "w") as f:
+            f.write(f"global size: {self.size}\n")
+            f.write(f"mesh: {dim}\n")
+            f.write(f"local size: {self.local_size}\n")
+            f.write(f"method: {pick_method(self.methods)}\n")
+            f.write(f"plan provenance: {self.plan_provenance}\n")
+            f.write(f"exchange_every: {self.exchange_every}\n")
+            d = self.exchange_depths
+            if not d.x == d.y == d.z:
+                f.write(f"exchange_depths: {d.x}.{d.y}.{d.z}\n")
+            f.write(f"placement mode: {self.placement_mode}\n")
+            f.write(f"wire_layout: {self.wire_layout}\n")
+            f.write(f"quantities: {self._names}\n")
+            for i in range(dim.flatten()):
+                idx = self.placement.part.dimensionize(i)
+                g = self.placement.get_device(idx)
+                dev = (f"{g.device} (rank {g.rank})"
+                       if self.mesh.spans_ranks else f"{g.device}")
+                f.write(f"subdomain {i} idx {idx} -> device {dev}\n")
+            for axis, b in self._bytes_per_axis.items():
+                f.write(f"bytes per shard per exchange, axis {axis}: {b}\n")
+            # one line per planned message, priced at the wire's depth
+            # (the deepened slabs under temporal blocking)
+            for i, j, d, nbytes in iter_messages(
+                    self.placement.part, self.alloc_radius, elem,
+                    self.topology):
+                f.write(f"message {i} -> {j} dir "
+                        f"({d.x},{d.y},{d.z}): {nbytes} B\n")
+            if self.dcn_axis is not None and self.n_slices > 1:
+                f.write(f"dcn axis: {'xyz'[self.dcn_axis]} "
+                        f"({self.n_slices} slices)\n")
+                f.write(f"bytes per exchange over DCN (whole mesh): "
+                        f"{self.exchange_bytes_dcn()}\n")
+                f.write(f"bytes per exchange over ICI (whole mesh): "
+                        f"{self.exchange_bytes_ici()}\n")
+        w = comm_bytes_matrix(self.placement.part, self.alloc_radius, elem,
+                              self.topology)
+        np.savetxt(f"{prefix}comm_matrix.txt", w, fmt="%d")
+
+    # -- checkpoints (utils/checkpoint.py) -------------------------------
+    def close_checkpoints(self) -> None:
+        """Forget the checkpoint directories this domain saved to or
+        restored from (JAX ``distributed.py:810``, which closes their
+        cached managers; the port's checkpoints hold no open handle)."""
+        from .utils.checkpoint import close_checkpoints
+
+        for d in getattr(self, "_ckpt_dirs", ()):
+            close_checkpoints(d)
 
     # -- IO (reference: src/stencil.cu:1188-1264) -----------------------
     def assemble_interior(self, shards: Sequence,
@@ -676,3 +857,36 @@ class DistributedDomain:
             dst[interior_slices(sz, self.alloc_radius)].copy_(
                 values[org.z:org.z + sz.z, org.y:org.y + sz.y,
                        org.x:org.x + sz.x])
+
+    def write_paraview(self, prefix: str) -> None:
+        """CSV dumps, one file per subdomain, rows ``Z,Y,X,q0,...``
+        (reference: src/stencil.cu:1188-1264), byte for byte as JAX's
+        ``write_paraview``: float32 values as ``%.9g``, float64 as
+        ``%.17g``, bfloat16 widened to float32. The interiors are
+        gathered collectively; on a mesh over processes rank 0 writes
+        every file."""
+        interiors = {q: self.interior_to_host(q) for q in self._names}
+        if self.mesh.rank != 0:
+            return
+        for i in range(self.num_subdomains()):
+            idx = self.placement.part.dimensionize(i)
+            org = self.placement.subdomain_origin(idx)
+            sz = self.placement.subdomain_size(idx)
+            gz, gy, gx = np.meshgrid(
+                np.arange(org.z, org.z + sz.z),
+                np.arange(org.y, org.y + sz.y),
+                np.arange(org.x, org.x + sz.x), indexing="ij")
+            cols = [gz.ravel(), gy.ravel(), gx.ravel()]
+            wide = {q: np.float64 if self._dtypes[q].itemsize > 4
+                    else np.float32 for q in self._names}
+            cols += [np.asarray(
+                interiors[q][org.z:org.z + sz.z, org.y:org.y + sz.y,
+                             org.x:org.x + sz.x].ravel(), dtype=wide[q])
+                     for q in self._names]
+            table = np.column_stack(cols)
+            header = "Z,Y,X," + ",".join(self._names)
+            fmt = ["%d", "%d", "%d"] + [
+                "%.17g" if self._dtypes[q].itemsize > 4 else "%.9g"
+                for q in self._names]
+            np.savetxt(f"{prefix}{i}.txt", table, fmt=fmt, delimiter=",",
+                       header=header, comments="")

@@ -920,6 +920,75 @@ class Astaroth:
                         dst[i][cap].copy_(t[k])
             self._inner = None
 
+    # -- resilient run loop (resilience/driver.py) -----------------------
+    def _live_fields(self) -> Dict[str, List[Optional[torch.Tensor]]]:
+        """The live state the sentinel probes and faults hit: views of
+        the interior-resident tensors on the kernel paths, else
+        ``dd.curr``."""
+        if self._inner is None:
+            return self.dd.curr
+        return {q: [None if t is None else t[k] for t in self._inner]
+                for k, q in enumerate(FIELDS)}
+
+    def _w_extras(self):
+        """The RK accumulators as checkpoint extras (one list over the
+        shards a field), or None before the first iteration."""
+        if self._w is None:
+            return None
+        return {q: [None if w is None else w[q] for w in self._w]
+                for q in FIELDS}
+
+    def install_w(self, extras) -> None:
+        """Install RK accumulators restored from a checkpoint
+        (``_w_extras``' layout; None or empty: none yet)."""
+        if not extras:
+            self._w = None
+            return
+        n = self.dd.num_subdomains()
+        self._w = [None if extras[FIELDS[0]][i] is None else
+                   {q: extras[q][i] for q in FIELDS} for i in range(n)]
+
+    def run_resilient(self, n_steps: int, policy=None,
+                      ckpt_dir: Optional[str] = None, faults=None):
+        """``n_steps`` RK3 iterations under the checkpoint-rollback
+        recovery driver (JAX ``models/astaroth.py:1216``). The RK
+        accumulators ride the checkpoint as extras; the interior-resident
+        state of the kernel paths is flushed (``sync_domain``) before
+        every save and dropped on restore. Returns the
+        ``ResilienceReport``."""
+        from ..resilience.driver import run_resilient
+        from .jacobi import _dcn_request_kwargs
+
+        size = self.dd.size
+
+        def rebuild(cfg):
+            new = Astaroth(size.x, size.y, size.z, params=self.prm,
+                           mesh_shape=tuple(self.dd.placement.dim()),
+                           dtype=self._dtype, devices=self.dd._global,
+                           methods=cfg.method, kernel=self._kernel,
+                           overlap=self._overlap,
+                           exchange_every=cfg.exchange_every,
+                           boundary=self.dd.boundary,
+                           **_dcn_request_kwargs(self.dd))
+            # adopt in place; re-point the interior-write hook at the
+            # surviving handle so that sync_domain keeps working
+            new.dd._on_interior_write.clear()
+            self.__dict__.update(new.__dict__)
+            self.dd.on_interior_write(lambda name: self.sync_domain())
+            return self.dd, self.step, self.make_segment
+
+        def on_restore(extras):
+            # restored state replaces everything the kernel paths cached
+            self._inner = None
+            self.install_w(extras)
+
+        return run_resilient(
+            self.dd, self.step, n_steps, policy=policy,
+            ckpt_dir=ckpt_dir, faults=faults, rebuild=rebuild,
+            extra_fn=self._w_extras, on_restore=on_restore,
+            fields_fn=self._live_fields, pre_checkpoint=self.sync_domain,
+            make_segment=self.make_segment, perf_entry="astaroth")
+
     def block(self) -> None:
         device_sync([t for t in (self._inner if self._inner is not None
                                  else self.dd.curr["lnrho"])

@@ -383,7 +383,8 @@ class Jacobi3D:
                  overlap: bool = False,
                  exchange_every: Optional[DepthsLike] = None,
                  wire_format=None, wire_layout=None,
-                 dcn_axis=None, dcn_groups=None) -> None:
+                 dcn_axis=None, dcn_groups=None,
+                 placement=None, output_prefix: str = "") -> None:
         if kernel not in ("auto", "wrap", "halo", "xla", "pallas"):
             raise ValueError(
                 f"kernel must be auto|wrap|halo|xla|pallas, got {kernel!r}")
@@ -415,6 +416,11 @@ class Jacobi3D:
         dcn = dcn_axis is not None or dcn_groups is not None
         if dcn:
             self.dd.set_dcn_axis(dcn_axis, dcn_groups)
+        if placement is not None:
+            # a PlacementStrategy or a NodeAware mode (placement.py)
+            self.dd.set_placement(placement)
+        if output_prefix:
+            self.dd.set_output_prefix(output_prefix)
         devs = self.dd._devices
         on_gpu = all(d.type == "cuda" for d in devs)
         if mesh_shape is not None:
@@ -834,6 +840,46 @@ class Jacobi3D:
 
     def block(self) -> None:
         device_sync([t for t in self.dd.curr["temp"] if t is not None])
+
+    # -- resilient run loop (resilience/driver.py) -----------------------
+    def run_resilient(self, n_steps: int, policy=None,
+                      ckpt_dir: Optional[str] = None, faults=None):
+        """``n_steps`` iterations under the checkpoint-rollback recovery
+        driver (``resilience.run_resilient``; JAX
+        ``models/jacobi.py:1046``): health sentinels every
+        ``policy.check_every`` steps, integrity-checked checkpoints every
+        ``policy.ckpt_every``, rollback and bounded retry on divergence,
+        configuration degradation on repeated failure (the solver is
+        rebuilt in place at the softer configuration), and clean SIGTERM
+        preemption and resume through ``ckpt_dir``. The state is
+        ``dd.curr``, which every path writes back after each run, so a
+        restore needs no cache of its own to drop. Returns the
+        ``ResilienceReport``."""
+        from ..resilience.driver import run_resilient
+
+        def rebuild(cfg):
+            size = self.dd.size
+            new = Jacobi3D(
+                size.x, size.y, size.z,
+                mesh_shape=tuple(self.dd.placement.dim()),
+                dtype=self._dtype, devices=self.dd._global,
+                methods=cfg.method, kernel=self._kernel,
+                overlap=self._overlap, exchange_every=cfg.exchange_every,
+                boundary=self.dd.boundary, placement=self.dd.strategy,
+                output_prefix=self.dd._output_prefix,
+                **_dcn_request_kwargs(self.dd))
+            # adopt the rebuilt engine in place, so that the caller's
+            # handle and the driver's fields_fn stay valid; its segment
+            # factory serves from here on
+            self.__dict__.update(new.__dict__)
+            return self.dd, self.step, self.make_segment
+
+        return run_resilient(self.dd, self.step, n_steps, policy=policy,
+                             ckpt_dir=ckpt_dir, faults=faults,
+                             rebuild=rebuild,
+                             fields_fn=lambda: self.dd.curr,
+                             make_segment=self.make_segment,
+                             perf_entry="jacobi")
 
     def temperature(self) -> np.ndarray:
         """Global interior (z,y,x) on the host (a collective on a mesh

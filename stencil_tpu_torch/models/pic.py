@@ -40,9 +40,9 @@ Segments (``make_segment``, ``parallel/megastep.py``) carry the whole
 state; their probe rows, like ``make_sentinel``'s probes, reduce rho and
 the seven particle lanes with the per-shard cumulative overflow as an
 extra column on the same reduction (its max over the shards).
-Not ported: ``run_resilient`` (ROADMAP A11), the ``perf_model_*`` hooks
-and the telemetry export (A12); each raises ``NotImplementedError``
-naming its item.
+``run_resilient`` runs them under the recovery driver, the particle
+lanes riding each checkpoint. Not ported: the ``perf_model_*`` hooks
+(ROADMAP A12); each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -126,6 +126,8 @@ class Pic:
         per = -(-self.n_particles // n_shards)
         self.capacity = (int(capacity) if capacity is not None
                          else max(2 * per, 8))
+        # the slot block per shard, for the ParticleLoss fault
+        self.dd.particle_capacity = self.capacity
         if self.capacity < per:
             raise ValueError(
                 f"capacity {self.capacity} < {per} particles/shard at "
@@ -506,12 +508,12 @@ class Pic:
         return got
 
     def total_charge(self) -> float:
-        """Sum of the deposited charge over the global grid: each shard's
-        interior summed in float64, the shards' sums added in position
-        order (a collective on a mesh that spans processes)."""
-        return float(sum(self._per_shard(
-            lambda i: torch.sum(self.dd.interior("rho", i),
-                                dtype=torch.float64))))
+        """Sum of the deposited charge over the global grid: the model
+        dtype's ``np.sum`` of ``rho()``, as JAX's ``Pic.total_charge``
+        (a collective on a mesh that spans processes; every rank gets
+        the same value)."""
+        r = self.rho()
+        return float(np.sum(r, dtype=r.dtype))
 
     def particles_to_host(self) -> Dict[str, np.ndarray]:
         """Host copies of the live particles only (shard by shard, slot
@@ -553,19 +555,72 @@ class Pic:
             "max_displacement_per_step": float(self._min_extent),
         }
 
-    # -- not ported yet ----------------------------------------------------
+    # -- checkpointing / resilience ---------------------------------------
+    def _particle_extras(self) -> Dict[str, List[torch.Tensor]]:
+        return {k: self.state[k] for k in PARTICLE_STATE_KEYS}
+
+    def _install_particles(self, extras: Dict[str, list]) -> None:
+        for k in PARTICLE_STATE_KEYS:
+            if k not in extras:
+                raise ValueError(f"checkpoint extras missing particle "
+                                 f"lane {k!r}")
+            want = (torch.bool if k == "valid" else torch.float32
+                    if k == "overflow" else self._dtype)
+            self.state[k] = [None if t is None else t.to(want)
+                             for t in extras[k]]
+
     def run_resilient(self, n_steps: int, policy=None,
                       ckpt_dir: Optional[str] = None, faults=None):
-        raise _deferred("A11", "run_resilient")
+        """``n_steps`` PIC steps under the checkpoint-rollback driver
+        (JAX ``models/pic.py:575``): the particle lanes, ``valid`` and
+        the overflow counts ride every checkpoint as extras, the sentinel
+        (``make_sentinel``) probes the whole live state with the overflow
+        column on its one reduction, and a recovered run equals the
+        fault-free one. Exports ``stencil_run_particles_total`` and
+        ``stencil_run_migration_overflow_total``."""
+        from ..resilience.driver import run_resilient
 
+        ovf0 = self.overflow_total()
+
+        def on_restore(extras):
+            # restore_domain already reinstalled rho into dd.curr
+            self.state["rho"] = self.dd.curr["rho"]
+            self._install_particles(extras)
+
+        report = run_resilient(
+            self.dd, self.step, n_steps, policy=policy,
+            ckpt_dir=ckpt_dir, faults=faults,
+            extra_fn=self._particle_extras, on_restore=on_restore,
+            fields_fn=lambda: self.state,
+            make_segment=self.make_segment,
+            sentinel_factory=lambda dd: self.make_sentinel(),
+            perf_entry="pic")
+        self._export_run_metrics(report.steps, ovf0)
+        return report
+
+    def _export_run_metrics(self, steps: int, ovf0: float = 0.0) -> None:
+        """Process-registry telemetry: particle steps advanced and
+        migration-overflow drops (JAX's metric names)."""
+        from ..telemetry import get_registry
+        reg = get_registry()
+        c = reg.counter(
+            "stencil_run_particles_total",
+            "particle steps advanced by PIC run loops (one count per "
+            "particle per step; replayed rollback windows included)")
+        c.inc(max(int(steps), 0) * self.n_particles)
+        o = reg.counter(
+            "stencil_run_migration_overflow_total",
+            "particles dropped by fixed-capacity migration (send "
+            "budget or receive capacity exceeded) — nonzero means the "
+            "capacity/budget plan is undersized for the flux")
+        o.inc(max(self.overflow_total() - ovf0, 0.0))
+
+    # -- not ported yet ----------------------------------------------------
     def perf_model_step_seconds(self):
         raise _deferred("A12", "perf_model_step_seconds")
 
     def perf_model_bytes_per_step(self):
         raise _deferred("A12", "perf_model_bytes_per_step")
-
-    def _export_run_metrics(self, steps: int, ovf0: float = 0.0) -> None:
-        raise _deferred("A12", "telemetry export")
 
 
 def dense_reference_rho(x, y, z, q, gsize, dtype=np.float64,

@@ -40,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: libraries nvcc built in this process (``analysis/recompile.py``)
+BUILDS = 0
 
 
 def sources() -> Dict[str, Path]:
@@ -124,6 +126,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if log.strip():
             print(f"nvcc {srcs[name].name}:\n{log}", flush=True)
         os.replace(tmp, out)
+    global BUILDS
+    BUILDS += len(procs) - len(failed)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds

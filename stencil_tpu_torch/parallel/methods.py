@@ -56,6 +56,15 @@ def method_supports_wire_format(m: "Method") -> bool:
     return m in WIRE_CAPABLE
 
 
+def method_runnable(m: "Method") -> bool:
+    """Can this strategy execute in this process (JAX
+    ``parallel/methods.py:69``)? Every transport runs in the port —
+    ``PallasDMA`` as B4 on the card and as its plain twin on the CPU —,
+    so True for each (``Auto`` carries no transport). The resilience
+    driver's degradation ladder filters the priority list by it."""
+    return m in METHOD_PRIORITY
+
+
 def pick_method(methods: "Method") -> "Method":
     """Choose the single strategy the exchange will use: the requested
     transport of highest priority (the analog of the reference's

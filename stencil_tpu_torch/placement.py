@@ -1,26 +1,164 @@
-"""Placement: subdomain index <-> device, trivial subset.
+"""Placement: mapping subdomain indices onto devices.
 
 PyTorch-port counterpart of ``stencil_tpu/placement.py`` (reference:
-partition.hpp:264-445). The JAX package's default (``mode="auto"``)
-keeps the trivial order on a uniform fabric and refines it with a QAP
-solve only on a non-uniform one. An NVSwitch H100 node is uniform (every
-pair of cards one NVLink hop apart), and so is a device list that
-repeats one card, so the port ships the trivial branch: subdomain ``i``
-(x fastest) runs on ``devices[i]``. ``mode="qap"`` raises until
-``qap.py`` is ported (ROADMAP A5). A device may be a
-``parallel/mesh.GlobalDevice`` (a mesh over processes); the placement
-keeps its owner rank.
+include/stencil/partition.hpp:258-831, placement_intranoderandom.hpp): a
+bijection between subdomain index (Dim3) and a device, chosen to put
+heavy halo traffic on fast links.
+
+Strategies (``PlacementStrategy``), as in the JAX package:
+
+* ``Trivial`` — subdomain ``i`` (x fastest) on ``devices[i]``;
+* ``IntraNodeRandom`` — a seeded shuffle, the experimental control;
+* ``NodeAware`` (the default) — the devices sorted
+  (``parallel/mesh.device_sorted``, the counterpart of JAX's torus
+  sort), then, when the fabric is non-uniform or ``mode="qap"`` asks for
+  it, the assignment refined by a QAP solve (``qap.py``) of the
+  halo-bytes x distance objective, clamped so that it never costs more
+  than the identity.
+
+A CUDA device has no physical torus coordinates, so the distances are
+uniform (every card of an NVSwitch host one hop from every other), and
+``mode="auto"`` keeps the sorted order there, as JAX's does on a
+coordless fabric. ``mode="qap"``, or a DCN-blocked axis, takes the
+synthetic lattice distances of ``mesh_distance_matrix`` (wrapped-torus
+hops over the shard lattice plus a penalty across hosts). A device may
+be a ``parallel/mesh.GlobalDevice`` (a mesh over processes); the
+placement keeps its owner rank.
 """
 
 from __future__ import annotations
 
+import enum
 from typing import List, Optional, Sequence
 
-from .geometry import Dim3, Dim3Like
-from .parallel.mesh import GlobalDevice, as_global
-from .partition import RankPartition
+import numpy as np
 
-PLACEMENT_MODES = ("auto", "qap", "trivial")
+from . import qap
+from .geometry import Dim3, Dim3Like, Radius, all_directions
+from .local_domain import halo_bytes
+from .parallel.mesh import GlobalDevice, as_global, device_sorted
+from .partition import RankPartition
+from .topology import Topology
+
+
+class PlacementStrategy(enum.Enum):
+    """reference: include/stencil/partition.hpp:258-262."""
+
+    NodeAware = "node-aware"
+    Trivial = "trivial"
+    IntraNodeRandom = "random"
+
+
+def iter_messages(part: RankPartition, radius: Radius,
+                  elem_sizes: Sequence[int],
+                  topo: Optional[Topology] = None):
+    """Yield every planned cross-subdomain halo message as ``(i, j,
+    direction, bytes)`` — the one source of the comm matrix and the plan
+    file's per-message lines (reference: src/stencil.cu:523-637 plans
+    one message per direction). ``topo`` carries the boundary condition;
+    periodic by default."""
+    if topo is None:
+        topo = Topology(part.dim())
+    n = part.dim().flatten()
+    for i in range(n):
+        idx = part.dimensionize(i)
+        for d in all_directions():
+            if radius.dir(-d) == 0:
+                # no send in d when the opposite radius is zero
+                # (reference: src/stencil.cu:344)
+                continue
+            nbr = topo.get_neighbor(idx, d)
+            if not nbr.exists:
+                continue
+            j = part.linearize(nbr.index)
+            if i == j:
+                continue  # a wrap onto the same subdomain is local
+            dst_size = part.subdomain_size(nbr.index)
+            nbytes = sum(halo_bytes(-d, dst_size, radius, es)
+                         for es in elem_sizes)
+            yield i, j, d, nbytes
+
+
+def comm_bytes_matrix(part: RankPartition, radius: Radius,
+                      elem_sizes: Sequence[int],
+                      topo: Optional[Topology] = None) -> np.ndarray:
+    """Subdomain-pair halo bytes, the "w" matrix of the QAP (reference:
+    partition.hpp:722-752): entry [i, j] = bytes subdomain i sends
+    subdomain j per exchange, over every quantity and direction."""
+    n = part.dim().flatten()
+    w = np.zeros((n, n), dtype=np.float64)
+    for i, j, _, nbytes in iter_messages(part, radius, elem_sizes, topo):
+        w[i, j] += nbytes
+    return w
+
+
+def torus_distance_matrix(devices: Sequence) -> np.ndarray:
+    """Device-pair distance: the L1 hop count over physical torus
+    coordinates where every device exposes ``coords``, else uniform
+    distance 1 (reference: src/gpu_topology.cpp:17-95,
+    bandwidth = 1/distance). Port devices have no coordinates."""
+    n = len(devices)
+    coords = []
+    for d in devices:
+        c = getattr(d, "coords", None)
+        if c is None or len(c) < 3:
+            coords = None
+            break
+        coords.append(tuple(c))
+    dist = np.ones((n, n), dtype=np.float64)
+    np.fill_diagonal(dist, 0.0)
+    if coords is None:
+        return dist
+    for i in range(n):
+        for j in range(n):
+            if i != j:
+                dist[i, j] = sum(abs(a - b)
+                                 for a, b in zip(coords[i], coords[j]))
+    return dist
+
+
+def _lattice_torus_hops(counts: Dim3) -> np.ndarray:
+    """Wrapped-torus hop distance over the shard lattice itself (JAX
+    ``observatory/linkmap.py:408``): per axis ``min(|d|, n - |d|)``,
+    summed."""
+    counts = Dim3.of(counts)
+    n = counts.flatten()
+    idx = np.arange(n)
+    coords = np.stack([idx % counts.x,
+                       (idx // counts.x) % counts.y,
+                       idx // (counts.x * counts.y)], axis=1)
+    dist = np.zeros((n, n), dtype=np.float64)
+    for a in range(3):
+        d = np.abs(coords[:, None, a] - coords[None, :, a])
+        dist += np.minimum(d, counts[a] - d)
+    return dist
+
+
+def shard_slice(i: int, counts: Dim3, dcn_axis: int,
+                n_slices: int) -> int:
+    """Which host group holds shard ``i``: subdomains block onto the
+    groups along the DCN axis (JAX ``observatory/linkmap.py:456``)."""
+    counts = Dim3.of(counts)
+    idx = (i % counts.x, (i // counts.x) % counts.y,
+           i // (counts.x * counts.y))
+    return idx[dcn_axis] * int(n_slices) // counts[dcn_axis]
+
+
+def mesh_distance_matrix(counts: Dim3, dcn_axis: Optional[int] = None,
+                         n_slices: int = 1,
+                         dcn_hop_penalty: float = 8.0) -> np.ndarray:
+    """Device-slot distances for the shard lattice of coordless devices
+    (JAX ``observatory/linkmap.py:428``): wrapped-torus hops over the
+    lattice; pairs on different hosts (the DCN tier) add
+    ``dcn_hop_penalty`` hops."""
+    counts = Dim3.of(counts)
+    dist = _lattice_torus_hops(counts)
+    if dcn_axis is not None and int(n_slices) > 1:
+        slices = np.array([shard_slice(i, counts, dcn_axis, n_slices)
+                           for i in range(counts.flatten())])
+        dist = dist + float(dcn_hop_penalty) * (slices[:, None]
+                                                != slices[None, :])
+    return dist
 
 
 class Placement:
@@ -42,6 +180,18 @@ class Placement:
     def dim(self) -> Dim3:
         return self.part.dim()
 
+    def get_device(self, idx: Dim3Like) -> GlobalDevice:
+        """The device (with its owner rank) hosting subdomain ``idx``
+        (the reference's get_cuda)."""
+        i = self.part.linearize(Dim3.of(idx))
+        return self.slots[self.assignment[i]]
+
+    def get_idx(self, device) -> Dim3:
+        """The subdomain index hosted by ``device`` (the reference's
+        get_idx): the first slot that holds it."""
+        slot = self.slots.index(as_global(device))
+        return self.part.dimensionize(self.assignment.index(slot))
+
     def subdomain_size(self, idx: Dim3Like) -> Dim3:
         return self.part.subdomain_size(Dim3.of(idx))
 
@@ -55,6 +205,13 @@ class Placement:
                 for i in range(len(self.slots))]
 
 
+#: placement modes of the NodeAware strategy
+#: (``DistributedDomain.set_placement`` / ``Jacobi3D(placement=...)``):
+#: "auto" deploys the QAP assignment only on a non-uniform fabric,
+#: "qap" and "trivial" force one side
+PLACEMENT_MODES = ("auto", "qap", "trivial")
+
+
 def normalize_placement_mode(mode: Optional[str]) -> str:
     m = "auto" if mode is None else str(mode)
     if m not in PLACEMENT_MODES:
@@ -63,12 +220,54 @@ def normalize_placement_mode(mode: Optional[str]) -> str:
     return m
 
 
-def make_placement(part: RankPartition, devices: Sequence,
-                   mode: str = "auto") -> Placement:
-    """The trivial placement (``auto`` on a uniform fabric, or
-    ``trivial``); ``qap`` raises ``NotImplementedError``."""
-    if normalize_placement_mode(mode) == "qap":
-        raise NotImplementedError(
-            "placement mode 'qap' needs the QAP solver (stencil_tpu/qap.py), "
-            "not ported yet: ROADMAP A5")
-    return Placement(part, list(devices))
+def make_placement(strategy: PlacementStrategy, part: RankPartition,
+                   devices: Sequence, radius: Radius,
+                   elem_sizes: Sequence[int], seed: int = 0,
+                   qap_timeout_s: float = 2.0, mode: str = "auto",
+                   dcn_axis: Optional[int] = None,
+                   n_slices: int = 1) -> Placement:
+    """Construct a placement (reference: src/stencil.cu:201-239; JAX
+    ``placement.py:172-237``).
+
+    * Trivial: subdomain i -> device i in the order given.
+    * IntraNodeRandom: a shuffle seeded by ``seed``.
+    * NodeAware: the sorted devices, refined by a QAP solve when the
+      fabric is non-uniform — a spread in the device distances, or a
+      DCN-blocked axis (``dcn_axis``/``n_slices``), where coordless
+      devices take ``mesh_distance_matrix``'s synthetic distances — or
+      always under ``mode="qap"``; ``mode="trivial"`` keeps the sorted
+      order. Up to 8 subdomains the exact solver runs, beyond it the
+      hill climb; an order costlier than the identity is never shipped.
+    """
+    n = part.dim().flatten()
+    mode = normalize_placement_mode(mode)
+    if strategy == PlacementStrategy.Trivial:
+        return Placement(part, list(devices))
+    if strategy == PlacementStrategy.IntraNodeRandom:
+        rng = np.random.default_rng(seed)
+        assignment = list(rng.permutation(n))
+        return Placement(part, list(devices), [int(a) for a in assignment])
+    devs = device_sorted(devices)
+    if n <= 1 or mode == "trivial":
+        return Placement(part, devs)
+    dist = torus_distance_matrix(devs)
+    offdiag = dist[~np.eye(n, dtype=bool)]
+    measured_nonuniform = not np.all(offdiag == offdiag[0])
+    dcn_blocked = dcn_axis is not None and int(n_slices) > 1
+    if not measured_nonuniform and (dcn_blocked or mode == "qap"):
+        dist = mesh_distance_matrix(part.dim(), dcn_axis=dcn_axis,
+                                    n_slices=n_slices)
+        offdiag = dist[~np.eye(n, dtype=bool)]
+    nonuniform = not np.all(offdiag == offdiag[0])
+    if mode == "auto" and not nonuniform:
+        return Placement(part, devs)
+    w = comm_bytes_matrix(part, radius, elem_sizes)
+    if n <= 8:
+        f, _ = qap.solve(w, dist, timeout_s=qap_timeout_s)
+    else:
+        f, _ = qap.solve_catch(w, dist)
+    f = [int(i) for i in f]
+    identity = list(range(n))
+    if qap.cost(w, dist, f) > qap.cost(w, dist, identity):
+        f = identity  # never ship a costlier-than-trivial order
+    return Placement(part, devs, f)

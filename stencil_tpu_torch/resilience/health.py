@@ -1,8 +1,7 @@
 """Health probe and sentinel: divergence detection kept on the device.
 
 PyTorch-port counterpart of ``stencil_tpu/resilience/health.py`` (the
-probe and the sentinel; the recovery driver, the fault plan and the
-checkpoints are ROADMAP A11):
+probe and the sentinel, which the recovery driver ``driver.py`` runs):
 
 * per quantity, two scalars are reduced on the shard's device — the
   count of non-finite cells and the max |finite| value — stacked into

@@ -26,7 +26,7 @@ import pytest
 from stencil_tpu.distributed import DistributedDomain as JDomain
 from stencil_tpu.geometry import Radius as JRadius
 from stencil_tpu_torch.apps import (bench_exchange, bench_methods,
-                                    bench_pack, exchange_strong,
+                                    bench_pack, bench_qap, exchange_strong,
                                     exchange_weak, jacobi3d,
                                     jacobi3d_strong, machine_info, pingpong)
 
@@ -58,19 +58,28 @@ CASES = {
     "jacobi3d_strong": (S16 + ["--iters", "2", "--batch", "1"],
                         S16 + ["--iters", "2", "--batch", "1"] + CPU4,
                         {9, 10, 13}),
+    "jacobi3d_strong_random": (
+        S16 + ["--iters", "2", "--batch", "1", "--random"],
+        S16 + ["--iters", "2", "--batch", "1", "--random"] + CPU4,
+        {9, 10, 13}),
+    "bench_qap": (["--sizes", "4", "6", "9", "12"],
+                  ["--sizes", "4", "6", "9", "12"], {3, 5}),
     "pingpong": (["--min", "10", "--max", "11", "--iters", "2"],
                  ["--min", "10", "--max", "11", "--iters", "2"] + CPU4,
                  {2, 3}),
 }
 #: the app file of a case whose name is not its app's
 CASE_APP = {"bench_exchange_irredundant": "bench_exchange",
-            "bench_exchange_layout_race": "bench_exchange"}
+            "bench_exchange_layout_race": "bench_exchange",
+            "jacobi3d_strong_random": "jacobi3d_strong"}
 PORT_APPS = {"bench_exchange": bench_exchange,
              "bench_exchange_irredundant": bench_exchange,
              "bench_exchange_layout_race": bench_exchange,
              "exchange_weak": exchange_weak,
              "exchange_strong": exchange_strong,
-             "jacobi3d_strong": jacobi3d_strong, "pingpong": pingpong}
+             "jacobi3d_strong": jacobi3d_strong,
+             "jacobi3d_strong_random": jacobi3d_strong,
+             "bench_qap": bench_qap, "pingpong": pingpong}
 
 JAX_RUNNER = """
 import contextlib, io, json, runpy, sys
@@ -211,7 +220,6 @@ def test_machine_info_lists_the_devices(capsys):
     (bench_exchange, ["--tune-cache", "plans.json"], "A12"),
     (bench_exchange, ["--metrics-json", "m.json"], "A12"),
     (bench_exchange, ["--ledger", "ledger.jsonl"], "A12"),
-    (jacobi3d_strong, ["--random"], "A5"),
 ])
 def test_pending_options_raise_naming_their_item(app, argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -278,3 +286,78 @@ def test_new_modules_import_without_jax():
                          env={"PATH": "/usr/bin:/bin",
                               "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
+
+
+JAX_RESILIENT = """
+import runpy, sys
+sys.path.insert(0, {tests!r})
+sys.path.insert(0, {apps!r})
+from torch_port_support import reference_block_planner
+sys.argv = ["jacobi3d.py", "--fake-cpu", "4"] + {argv!r}
+with reference_block_planner():
+    runpy.run_path({apps!r} + "/jacobi3d.py", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("chaos", [["--chaos-nan", "5"],
+                                   ["--chaos-halo", "3",
+                                    "--chaos-save-fail", "4"]])
+def test_jacobi3d_resilient_prints_jax_columns(tmp_path, capsys, chaos):
+    """``jacobi3d --resilient`` with seeded faults prints JAX's
+    ``jacobi3d-resilient`` line, column for column, and its events JSON
+    has JAX's kinds and steps (JAX's observatory events left out; the
+    order but for the async checkpoints, ``same_events``); the run also
+    writes the plan file under ``--prefix``."""
+    argv = S16 + ["--iters", "8", "--resilient", "--ckpt-every", "4",
+                  "--kernel", "xla"] + chaos
+    code = JAX_RESILIENT.format(
+        tests=str(ROOT / "tests"), apps=str(ROOT / "apps"),
+        argv=argv + ["--ckpt-dir", str(tmp_path / "jax"), "--events-json",
+                     str(tmp_path / "jax.json")])
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("jacobi3d-resilient,")]
+    jacobi3d.main(argv + ["--ckpt-dir", str(tmp_path / "port"),
+                          "--events-json", str(tmp_path / "port.json"),
+                          "--prefix", str(tmp_path / "p_")] + CPU4)
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("jacobi3d-resilient,")]
+    assert got == want and len(got) == 1
+
+    def kinds(path):
+        rec = json.loads(Path(path).read_text())
+        return [(e["event"], e.get("step")) for e in rec["events"]
+                if not e["event"].startswith("perf_")]
+
+    from torch_port_support import same_events
+    assert same_events(kinds(tmp_path / "port.json"),
+                       kinds(tmp_path / "jax.json"))
+    assert (tmp_path / "p_plan.txt").exists()
+
+
+def test_astaroth_checkpoint_and_paraview_flags(tmp_path, capsys):
+    """``astaroth --checkpoint-dir --checkpoint-every`` saves the state
+    (the RK accumulators as extras) as JAX's app does — every crossed
+    boundary of N iterations, warm-ups included, and at exit —,
+    ``--resume`` starts from the latest, and ``--prefix`` with
+    ``--paraview-final`` writes one CSV a shard."""
+    from stencil_tpu_torch.apps import astaroth
+    from stencil_tpu_torch.utils.checkpoint import all_steps, checkpoint_meta
+
+    d = str(tmp_path / "ck")
+    argv = ["--nx", "8", "--ny", "8", "--nz", "8", "--iters", "3",
+            "--kernel", "xla", "--device", "cpu", "--checkpoint-dir", d]
+    astaroth.main(argv + ["--checkpoint-every", "2", "--prefix",
+                          str(tmp_path / "a_"), "--paraview-final"])
+    # 2 warm-up and 3 timed iterations: boundaries 2 and 4, then exit 5
+    assert all_steps(d) == [2, 4, 5]
+    assert set(checkpoint_meta(d)["extra"]) >= {"lnrho", "uux"}
+    assert (tmp_path / "a_final0.txt").read_text().startswith(
+        "Z,Y,X,lnrho,")
+    astaroth.main(argv + ["--resume"])
+    assert "# resumed from step 5" in capsys.readouterr().out
+    assert all_steps(d)[-1] == 10

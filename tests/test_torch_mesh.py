@@ -35,7 +35,7 @@ from stencil_tpu_torch.parallel.mesh import (Mesh, default_mesh_shape,
                                              mesh_linear, mesh_neighbor,
                                              resolve_devices)
 from stencil_tpu_torch.partition import RankPartition
-from stencil_tpu_torch.placement import make_placement
+from stencil_tpu_torch.placement import PlacementStrategy, make_placement
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -137,21 +137,26 @@ def test_devices_resolve_like_the_port_requires(monkeypatch):
         resolve_devices(["cuda:0"])
 
 
-def test_placement_is_trivial_and_qap_is_not_ported():
+def test_placement_qap_mode_equals_jax():
+    """``set_placement("qap")`` realizes, and its assignment (and the
+    default ``auto`` one) equals JAX's domain's on the same mesh."""
     part = RankPartition.from_dim(Dim3(8, 8, 8), Dim3(1, 2, 2))
-    pl = make_placement(part, ["cpu"] * 4)
+    pl = make_placement(PlacementStrategy.NodeAware, part, ["cpu"] * 4,
+                        Radius.constant(1), [4])
     assert [g.device for g in pl.slot_order_for_mesh()] == \
         [torch.device("cpu")] * 4
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_placement(part, ["cpu"] * 4, mode="qap")
     with pytest.raises(ValueError):
-        make_placement(part, ["cpu"] * 4, mode="bogus")
-    pd = DistributedDomain(8, 8, 8, devices=["cpu"] * 4)
-    pd.set_radius(1)
-    pd.add_data("q")
-    pd.set_placement("qap")
-    with pytest.raises(NotImplementedError, match="A5"):
+        make_placement(PlacementStrategy.NodeAware, part, ["cpu"] * 4,
+                       Radius.constant(1), [4], mode="bogus")
+    for mode in ("auto", "qap"):
+        jd, pd = _domains((16, 8, 8), 4, mesh=(2, 2, 1), realize=False)
+        jd.set_placement(mode)
+        pd.set_placement(mode)
+        jd.realize()
         pd.realize()
+        assert pd.placement.assignment == \
+            [int(a) for a in jd.placement.assignment]
+        assert pd.placement_mode == jd.placement_mode == mode
 
 
 def _padded_blocks(host, counts, shard_shape):

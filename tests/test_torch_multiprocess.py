@@ -311,3 +311,53 @@ def test_one_process_needs_no_process_group():
     assert multihost.process_count() == 1
     got = multihost.global_devices(["cpu", "cpu"])
     assert [(g.rank, g.device) for g in got] == [(0, torch.device("cpu"))] * 2
+
+
+def test_total_charge_is_jax_value_on_every_rank(two_ranks):
+    """C1 across ranks: CIC float32 on 16^3 with 16,384 particles, seed
+    7, one step, over (1,2,2) on two ranks: every rank's
+    ``total_charge`` is JAX's value (the float32 ``np.sum`` of rho)."""
+    from stencil_tpu.models.pic import Pic as JPic
+
+    jp = JPic(16, 16, 16, 16384, mesh_shape=(1, 2, 2),
+              devices=jax.devices()[:4], dtype=np.float32,
+              deposition="cic", seed=7)
+    jp.step()
+    got = json.loads((two_ranks / "resilience.json").read_text())
+    assert got["charges"] == [jp.total_charge()] * 2
+
+
+def test_resilient_campaign_across_ranks_equals_one_process(two_ranks,
+                                                            tmp_path):
+    """A resilient Jacobi ``halo`` campaign on (1,2,2) over two ranks —
+    a NaN at step 3 rolled back, a preemption at step 6 and the resume
+    to step 10 — gives the one-process campaign's events and its final
+    field bitwise (and the clean run's, stepped in the same segments)."""
+    got = json.loads((two_ranks / "resilience.json").read_text())
+    first, second, temp = workers.resilient_campaign(
+        ["cpu"] * 4, str(tmp_path / "ckpt"))
+    assert [tuple(e) for e in got["first"]] == first
+    assert [tuple(e) for e in got["second"]] == second
+    kinds = [k for k, _ in first]
+    assert "sentinel_tripped" in kinds and kinds[-1] == "preempted"
+    ranks_temp = np.load(two_ranks / "resilient_temp.npy")
+    np.testing.assert_array_equal(ranks_temp.view(np.uint32),
+                                  temp.view(np.uint32))
+    # the clean run in the campaign's one-step segments (single-step
+    # launches: an N-step group sums in another order)
+    clean = Jacobi3D(16, 16, 16, kernel="halo", mesh_shape=(1, 2, 2),
+                     devices=["cpu"] * 4)
+    clean.init()
+    for _ in range(workers.RESILIENT_STEPS):
+        clean.run(1)
+    np.testing.assert_array_equal(temp, clean.temperature())
+
+
+def test_checkpoint_corrupted_on_one_rank_walks_both_back(two_ranks):
+    """Step 4's files of rank 1's shards bit-flipped: both ranks restore
+    step 2, whose interior comes back bitwise."""
+    got = json.loads((two_ranks / "resilience.json").read_text())
+    assert got["corrupt_steps"] == [2, 2]
+    np.testing.assert_array_equal(
+        np.load(two_ranks / "corrupt_restored.npy"),
+        workers.seeded_interior((16, 16, 16), 2))

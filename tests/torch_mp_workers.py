@@ -247,6 +247,7 @@ def two_rank_cases(rank: int, out: str) -> None:
                 tr.array.numpy())
     _a4c(rank, out, A4C_CASES, {"pairs4": devs2, "pairs8": devs,
                                 "board": board, "segment": devs2})
+    resilience_cases(rank, out, devs2)
     got = {}
     try:
         check_transport("nccl", global_devices(["cpu"]))
@@ -256,6 +257,82 @@ def two_rank_cases(rank: int, out: str) -> None:
     if rank == 0:
         with open(os.path.join(out, "refusals.json"), "w") as f:
             json.dump(got, f)
+
+
+#: the resilient campaign across ranks: Jacobi halo on (1,2,2) (two
+#: shards a rank), a NaN at step 3 and a preemption at step 6 of 10,
+#: checkpoints every 2 steps; then a resume to the end
+RESILIENT_STEPS = 10
+
+
+def resilient_campaign(devices, ckpt_dir: str):
+    """The campaign of ``resilience_cases`` on ``devices`` (one process
+    or a rank's share): the preempted run's report, then the resumed
+    one's and the final field."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.resilience import (FaultPlan, NaNInjection,
+                                              Preemption, ResiliencePolicy)
+
+    def model():
+        j = Jacobi3D(16, 16, 16, kernel="halo", mesh_shape=(1, 2, 2),
+                     devices=devices)
+        j.init()
+        return j
+
+    pol = ResiliencePolicy(check_every=1, ckpt_every=2, base_delay=0.0,
+                           sleep=lambda s: None)
+    j = model()
+    first = j.run_resilient(RESILIENT_STEPS, policy=pol, ckpt_dir=ckpt_dir,
+                            faults=FaultPlan(nans=[NaNInjection(step=3)],
+                                             preemptions=[
+                                                 Preemption(step=6)]))
+    k = model()
+    second = k.run_resilient(RESILIENT_STEPS, policy=pol, ckpt_dir=ckpt_dir)
+    return ([(e["event"], e.get("step")) for e in first.events],
+            [(e["event"], e.get("step")) for e in second.events],
+            k.temperature())
+
+
+def resilience_cases(rank: int, out: str, devs2) -> None:
+    """C1 and A11 across two ranks: ``Pic.total_charge`` (CIC float32,
+    16^3, 16,384 particles, seed 7, one step) on every rank; the
+    resilient campaign with a NaN and a preemption; and a checkpoint
+    corrupted on rank 1 alone, which walks both ranks back."""
+    from stencil_tpu_torch.models.pic import Pic
+    from stencil_tpu_torch.parallel.multihost import all_gather_objects
+    from stencil_tpu_torch.resilience import CheckpointCorruption
+    from stencil_tpu_torch.utils import checkpoint as ck
+
+    p = Pic(16, 16, 16, 16384, mesh_shape=(1, 2, 2), devices=devs2,
+            dtype=torch.float32, deposition="cic", seed=7)
+    p.step()
+    charges = all_gather_objects(p.total_charge())
+    first, second, temp = resilient_campaign(
+        devs2, os.path.join(out, "resilient_ckpt"))
+    # corrupt step 4 on rank 1's shards only: both ranks restore step 2
+    dd = DistributedDomain(16, 16, 16, devices=devs2)
+    dd.set_radius(1)
+    dd.set_mesh_shape((1, 2, 2))
+    dd.add_data("q")
+    dd.realize()
+    d = os.path.join(out, "corrupt_ckpt")
+    for step in (2, 4):
+        dd.set_interior("q", seeded_interior((16, 16, 16), step))
+        ck.save_domain(dd, d, step)
+    if rank == 1:
+        CheckpointCorruption(step=4, mode="bitflip").fire(
+            d, 4, np.random.default_rng(0), lambda *a, **k: None,
+            positions=dd.mesh.local_positions)
+    dd.set_interior("q", seeded_interior((16, 16, 16), 9))
+    step, _ = ck.restore_domain(dd, d)
+    steps = all_gather_objects(step)
+    restored = dd.interior_to_host("q")
+    if rank == 0:
+        with open(os.path.join(out, "resilience.json"), "w") as f:
+            json.dump({"charges": charges, "first": first,
+                       "second": second, "corrupt_steps": steps}, f)
+        np.save(os.path.join(out, "resilient_temp.npy"), temp)
+        np.save(os.path.join(out, "corrupt_restored.npy"), restored)
 
 
 def four_rank_jacobi(rank: int, out: str) -> None:
