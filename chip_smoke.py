@@ -309,6 +309,22 @@ Phases, in order; any failure exits non-zero before the last line:
      ``qap.cpp`` built natively; the plan file of the 512^3 (1,2,2)
      domain, its message bytes equal to the irredundant layout's
      ``exchange_bytes_total()``.
+   - Autotune and observatory (``run_autotune_observatory``,
+     ``tuning/``, ``observatory/``): ``Jacobi3D`` 512^3 float32
+     ``pallas`` on (1,2,2) shards of the card with ``Method.Auto`` (the
+     real ``MeshTimer``, depths (1, 2) — the ``pallas`` path keeps depth
+     1 — and ``max_measurements=4``): the winner, each timed
+     candidate's measured ms a step beside the model's, the fitted
+     alpha and beta and the measurements; ``run(4)`` on it bitwise the
+     same run with the winner named, with equal launches (K3 16, B4 12
+     when ``PallasDMA`` wins); a second ``realize()`` on the same cache
+     a hit with 0 measurements. A ``halo`` (1,2,2) campaign with one
+     NaN, ``attribute_perf`` and a flight-recorder directory: the
+     error-ratio gauge finite and positive, the dump valid
+     (``validate_dump``). ``MetricsServer`` on port 0 read once at
+     ``/metrics``; ``bench_exchange --autotune --tune-cache
+     --metrics-json --ledger --json-out`` into a temporary directory,
+     its ledger records valid.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -386,6 +402,7 @@ import faulthandler
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1207,7 +1224,7 @@ def run_exchange_apps(torch, cx) -> dict:
     size = ["--x", "256", "--y", "256", "--z", "256"]
     runs = (("bench_exchange", bench_exchange.main,
              ["--devices", cuda4, *size, "--exchange-every", "1,2,4",
-              "--json-out", os.path.join("chiprun_out",
+              "--ledger", "", "--json-out", os.path.join("chiprun_out",
                                          "bench_exchange_smoke.json")], 3),
             ("bench_exchange --pallas-dma", bench_exchange.main,
              ["--devices", cuda4, *size, "--pallas-dma"], 1),
@@ -1596,7 +1613,8 @@ def bench_exchange_layout_race(torch) -> dict:
                              "--x", str(N256), "--y", str(N256),
                              "--z", str(N256), "--iters", "10",
                              "--wire-layout",
-                             "slab,irredundant", "--json-out", path])
+                             "slab,irredundant", "--ledger", "",
+                             "--json-out", path])
     lines = [ln for ln in buf.getvalue().splitlines() if "," in ln]
     for ln in lines:
         log(f"  {ln}")
@@ -4925,8 +4943,12 @@ def res_policy(**kw):
 
 
 def res_events(rep) -> list:
+    """A report's ``(kind, step)`` events but the fused-decline notes and
+    the observatory's ``perf_*`` events, which follow the card's clock
+    (as the CPU tests compare them)."""
     return [(e["event"], e.get("step")) for e in rep.events
-            if e["event"] != "fused_decline"]
+            if e["event"] != "fused_decline"
+            and not e["event"].startswith("perf_")]
 
 
 def sum_launches(*deltas) -> dict:
@@ -5294,6 +5316,233 @@ PTXAS_KEYS = ("registers", "spill_stores", "spill_loads", "sass")
 # the libraries that build a ring kernel: B9/B11, B13's interior and
 # B14's shell (csrc/mhd_ring.cuh), K2 and B6 (csrc/jacobi_ring.cuh)
 RING_LIBS = ("mhd", "mhd_overlap", "jacobi7", "jacobi_halo", "laplace6")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: autotune and observatory (tuning/, observatory/, telemetry/http)
+# ---------------------------------------------------------------------------
+def auto_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"autotune and observatory: {what}")
+
+
+def run_autotune_observatory(torch) -> dict:
+    """Phase 4: ``Method.Auto`` on ``Jacobi3D`` 512^3 ``pallas`` (1,2,2),
+    the observatory around a resilient campaign, the ``/metrics`` server
+    and ``bench_exchange``'s autotune, metrics and ledger options."""
+    import tempfile
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    out = {"card": card}
+    mesh = (1, 2, 2)
+    devs = [CARD] * 4
+    # Method.Auto reads its plan cache from the environment
+    prior_cache = os.environ.get("STENCIL_TUNE_CACHE")
+    os.environ["STENCIL_TUNE_CACHE"] = os.path.join(root, "plans.json")
+    try:
+        return _autotune_observatory(torch, root, out, mesh, devs)
+    finally:
+        if prior_cache is None:
+            os.environ.pop("STENCIL_TUNE_CACHE", None)
+        else:
+            os.environ["STENCIL_TUNE_CACHE"] = prior_cache
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _autotune_observatory(torch, root, out, mesh, devs) -> dict:
+    import math
+    import urllib.request
+
+    from stencil_tpu_torch.apps import bench_exchange
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.observatory import (METRIC_MODEL_ERROR_RATIO,
+                                               validate_dump)
+    from stencil_tpu_torch.observatory.ledger import (read_ledger,
+                                                      validate_ledger)
+    from stencil_tpu_torch.parallel.methods import Method
+    from stencil_tpu_torch.telemetry import MetricsServer, get_registry
+    from stencil_tpu_torch.utils.profiling import autotune_report
+
+    card = out["card"]
+
+    def auto_jacobi():
+        # the pallas path sweeps depth 1 only; the tuner times at most
+        # four candidates (its default)
+        return Jacobi3D(N512, N512, N512, kernel="pallas", mesh_shape=mesh,
+                        devices=devs, methods=Method.Auto)
+
+    # 1. Method.Auto: the tuner times its candidates on the four shards
+    torch.cuda.synchronize()
+    before = all_launches()
+    t0 = time.perf_counter()
+    j = auto_jacobi()
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_launches = launch_delta(before)
+    plan = j.dd.plan
+    win = plan.config
+    timed = {k: {"measured_ms": 1e3 * c["measured_s"],
+                 "min_ms": 1e3 * c["measured_min_s"],
+                 "max_ms": 1e3 * c["measured_max_s"],
+                 "model_ms": 1e3 * c["predicted_s"]}
+             for k, c in plan.costs.items() if "measured_s" in c}
+    fit = plan.coefficients["ici"]
+    out.update(winner=win.key(), provenance=plan.provenance,
+               measurements=plan.measurements, autotune_wall_s=tune_s,
+               candidates_ms_per_step=timed,
+               alpha_s=fit["alpha_s"], beta_bytes_per_s=fit["beta_bytes_per_s"],
+               tune_launches=tune_launches, tiling=plan.tiling)
+    log(autotune_report(plan))
+    log(f"  Method.Auto on Jacobi3D 512^3 float32 pallas (1,2,2): winner "
+        f"{win.key()} ({plan.provenance}, {plan.measurements} "
+        f"measurements, {tune_s!r} s with the realize); fitted alpha "
+        f"{fit['alpha_s']!r} s, beta {fit['beta_bytes_per_s']!r} B/s; "
+        f"timed candidates (ms a step: the median of the windows, their "
+        f"least and most, the model's): {timed}; "
+        f"launches while tuning {tune_launches} (card: {card})")
+    auto_check(plan.provenance == "tuned" and len(timed) >= 1
+               and win.exchange_every == 1 and j.kernel_path == "pallas",
+               f"tuned plan {win.key()} {plan.provenance} on path "
+               f"{j.kernel_path}")
+    j.init()
+    j.block()
+    before = all_launches()
+    j.run(4)
+    j.block()
+    l_auto = launch_delta(before)
+    named = jacobi_mesh("pallas", mesh, methods=Method[win.method])
+    before = all_launches()
+    named.run(4)
+    named.block()
+    l_named = launch_delta(before)
+    same = equal_bits(torch, gather(torch, j), gather(torch, named))
+    want_b4 = 12 if win.method == "PallasDMA" else 0
+    out.update(run4_launches=l_auto, named_run4_launches=l_named,
+               run4_bitwise=same)
+    log(f"  run(4) on the winner: {'bitwise equal' if same else 'DIFFERENT'}"
+        f" to the same run with {win.method} named; launches {l_auto} "
+        f"against {l_named}")
+    auto_check(same and l_auto == l_named
+               and l_auto.get("jacobi7_padded") == 16
+               and l_auto.get("exchange_axis", 0) == want_b4,
+               f"run(4) {same}, launches {l_auto} vs {l_named}")
+    del j, named
+    # a second realize on the same cache: a hit, nothing measured
+    before = all_launches()
+    j2 = auto_jacobi()
+    hit = j2.dd.plan
+    out.update(second_provenance=hit.provenance,
+               second_measurements=hit.measurements,
+               second_tune_launches=launch_delta(before))
+    log(f"  second realize: {hit.config.key()} provenance "
+        f"{hit.provenance}, {hit.measurements} measurements")
+    auto_check(hit.provenance == "cached" and hit.measurements == 0
+               and hit.config == win, f"second realize {hit.provenance} "
+               f"{hit.measurements} {hit.config.key()}")
+    del j2
+
+    # 2. the observatory around a resilient halo campaign with one NaN
+    flight = os.path.join(root, "flight")
+    h = jacobi_mesh("halo", mesh)
+    rep = h.run_resilient(10, policy=res_policy(
+        check_every=2, ckpt_every=4, flight_recorder_dir=flight),
+        ckpt_dir=os.path.join(root, "ckpt"),
+        faults=fault_plan({"nans": [{"step": 5}]}))
+    gauge = get_registry().gauge(METRIC_MODEL_ERROR_RATIO)
+    ratio = gauge.value(entry="jacobi", method="PpermuteSlab", s="1")
+    dumps = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+    problems = [p for d in dumps
+                for p in validate_dump(os.path.join(flight, d))]
+    drift = [e for e in rep.events if e["event"] == "perf_drift"]
+    out.update(campaign_rollbacks=rep.rollbacks, error_ratio=ratio,
+               flight_dumps=dumps, perf_drift_events=len(drift))
+    log(f"  resilient halo (1,2,2) 512^3, NaN at 5: {rep.rollbacks} "
+        f"rollback, stencil_perf_model_error_ratio {ratio!r}, "
+        f"{len(drift)} perf_drift events, flight dumps {dumps} "
+        f"{'valid' if not problems else problems}")
+    auto_check(rep.rollbacks == 1 and math.isfinite(ratio) and ratio > 0
+               and dumps and not problems,
+               f"campaign ratio {ratio} dumps {dumps} {problems}")
+    del h
+    out["attribution_cost"] = attribution_cost(root, mesh)
+
+    # 3. the /metrics server, read once from this process
+    with MetricsServer(get_registry(), port=0) as srv:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=10).read()
+    text = body.decode()
+    out["metrics_bytes"] = len(body)
+    log(f"  /metrics on port {srv.port}: {len(body)} bytes, the error "
+        f"ratio {'present' if METRIC_MODEL_ERROR_RATIO in text else 'MISSING'}")
+    auto_check(METRIC_MODEL_ERROR_RATIO in text
+               and "stencil_run_steps_total" in text, "/metrics body")
+
+    # 4. bench_exchange --autotune --tune-cache --metrics-json --ledger
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("cache", "be_plans.json"), ("metrics", "be_metrics.json"),
+        ("ledger", "be_ledger.jsonl"), ("json", "be.json"))}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_exchange.main([
+            "--x", "128", "--y", "128", "--z", "128", "--iters", "5",
+            "--devices", ",".join(devs), "--mesh-shape", "1,2,2",
+            "--autotune", "--tune-cache", paths["cache"],
+            "--metrics-json", paths["metrics"], "--ledger", paths["ledger"],
+            "--json-out", paths["json"]])
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("bench_exchange")]
+    records = read_ledger(paths["ledger"])
+    bad = validate_ledger(records)
+    with open(paths["metrics"]) as f:
+        snap = json.load(f)
+    out.update(bench_exchange_lines=lines, ledger_records=len(records),
+               ledger_benches=[r["bench"] for r in records])
+    log(f"  bench_exchange --autotune: {lines}; {len(records)} ledger "
+        f"records {'valid' if not bad else bad}, metrics snapshot "
+        f"{len(snap.get('metrics', {}))} metrics")
+    auto_check(records and not bad and any(
+        ln.startswith("bench_exchange_autotune,") for ln in lines)
+        and "stencil_bench_tuned_steps_per_s" in snap.get("metrics", {}),
+        f"bench_exchange records {bad} lines {lines}")
+    return out
+
+
+def attribution_cost(root, mesh) -> dict:
+    """Campaign steps/s of the ``halo`` (1,2,2) runs with ``attribute_perf``
+    off and on (the attributor fences the cards after every segment), in
+    the order off, on, on, off: the phase's campaign (10 steps, a NaN at
+    5, checkpoints every 4, a flight recorder), and 40 clean steps with
+    no checkpoints, where the fence is all that differs."""
+    cases = {
+        "nan_ckpt_10": dict(steps=10, ckpt=True,
+                            faults={"nans": [{"step": 5}]}),
+        "clean_40": dict(steps=40, ckpt=False, faults=None)}
+    res = {}
+    for name, c in cases.items():
+        rates = {"off": [], "on": []}
+        for k, on in enumerate((False, True, True, False)):
+            h = jacobi_mesh("halo", mesh)
+            tag = f"{name}_{k}"
+            pol = res_policy(check_every=2, ckpt_every=4, attribute_perf=on,
+                             flight_recorder_dir=os.path.join(
+                                 root, "flight_" + tag))
+            t0 = time.perf_counter()
+            h.run_resilient(
+                c["steps"], policy=pol,
+                ckpt_dir=(os.path.join(root, "ckpt_" + tag) if c["ckpt"]
+                          else None),
+                faults=fault_plan(c["faults"]) if c["faults"] else None)
+            h.block()
+            rates["on" if on else "off"].append(
+                c["steps"] / (time.perf_counter() - t0))
+            del h
+            shutil.rmtree(os.path.join(root, "ckpt_" + tag),
+                          ignore_errors=True)
+        res[name] = rates
+        log(f"  attribution cost, halo (1,2,2) 512^3 {name}: steps/s off "
+            f"{rates['off']!r}, on {rates['on']!r}")
+    return res
 
 
 def _storage(name: str, m) -> tuple:
@@ -5873,6 +6122,14 @@ def main() -> int:
         "512^3 (wrap, halo), Astaroth 256^3 wrap and PIC 128^3, checkpoint "
         "I/O, QAP placement and the plan file (card: " + card + ")")
     resilience = run_resilience(torch)
+    log("phase 4: autotune and observatory: Method.Auto on Jacobi3D 512^3 "
+        "pallas (1,2,2), the attributor and flight recorder on a halo "
+        "campaign, /metrics and bench_exchange --autotune (card: " + card
+        + ")")
+    t0 = time.perf_counter()
+    autotune = run_autotune_observatory(torch)
+    autotune["phase_s"] = time.perf_counter() - t0
+    log(f"  phase took {autotune['phase_s']!r} s")
     log("phase 4: two ranks on the one card: Jacobi3D 512^3 halo and xla "
         "and Astaroth 256x512x512 halo (gloo-staged), B7, K3 + B4 and "
         "B13/B14 over CUDA IPC with device-side flags, xla-overlap, "
@@ -5964,6 +6221,9 @@ def main() -> int:
             entry["ptxas"] = ptxas.get(
                 ("jacobi7" if name == "jacobi7_wrapn" else "jacobi_halo",
                  "jacobi_ring"), {})
+        if name in ("jacobi7_padded", "exchange_axis"):
+            # the Method.Auto run(4) on the tuned winner (phase 4)
+            entry["auto_launches"] = autotune["run4_launches"].get(name, 0)
         if name == "jacobi7_padded":
             # K3 behind narrowed and irredundant wires: launches of the
             # phase-4 pallas run(4) on four shards behind a bf16
@@ -6108,6 +6368,7 @@ def main() -> int:
                    "pic": pic,
                    "segments": segments,
                    "resilience": resilience,
+                   "autotune": autotune,
                    "two_ranks": two_ranks,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)

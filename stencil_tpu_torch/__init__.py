@@ -20,6 +20,11 @@ from .models.jacobi import Jacobi3D
 from .parallel.methods import Method
 from .topology import Boundary, Topology
 
-__all__ = ["Astaroth", "Boundary", "Dim3", "DistributedDomain", "Jacobi3D",
+#: the port's own version: it joins the autotuner's plan fingerprint
+#: (``tuning/plan.py``), so a plan tuned by one package never replays
+#: on the other
+__version__ = "0.1.0+torch"
+
+__all__ = ["__version__", "Astaroth", "Boundary", "Dim3", "DistributedDomain", "Jacobi3D",
            "Method", "MhdParams", "Radius", "Rect3", "Topology",
            "all_directions"]

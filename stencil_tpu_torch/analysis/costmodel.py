@@ -7,8 +7,16 @@ analytic messages and wire bytes one shard contributes per exchange
 round under each method, per mesh axis, and the per-step seconds under
 per-axis temporal depths with one axis on the slow inter-host link. The
 DCN planner (``DistributedDomain._plan_dcn_partition``) ranks candidate
-mesh shapes and host-blocked axes with ``asymmetric_step_seconds``. The
-JAX module's jaxpr and HLO checkers are not here (ROADMAP A12, A14).
+mesh shapes and host-blocked axes with ``asymmetric_step_seconds``.
+
+The byte and time model of the exchange autotuner (``tuning/``) and the
+performance observatory (``observatory/``) follows (JAX
+``analysis/costmodel.py:125-238``, ``:472-535``): the deep exchange's
+bytes and their amortization over the steps it feeds, the particle
+migration's static wire bill, the per-step seconds of one (method,
+depth) configuration and the depth crossover. The JAX module's jaxpr
+and HLO checkers (``jaxpr_flops``, ``io_bytes``, ``check_costmodel``)
+are not here (ROADMAP A14).
 
 The defaults price the H100 host, not a TPU: the intra-host link is the
 fit ``apps/pingpong.py`` makes on the card, the inter-host link an
@@ -22,6 +30,7 @@ from typing import Dict, Sequence, Tuple
 
 from ..geometry import normalize_depths
 from ..parallel.exchange import exchanged_bytes_per_sweep
+from ..parallel.migrate import migration_messages, migration_record_rows
 from ..parallel.packing import (irredundant_bytes_per_sweep,
                                 normalize_wire_layout)
 
@@ -239,3 +248,149 @@ def asymmetric_step_seconds(method_name: str,
         c = resolve_link_coeffs(coeffs, axis=a, dcn=a == dcn_axis)
         total += c.seconds(m, b) / depths[a]
     return total
+
+
+def deep_exchange_bytes_per_shard(shard_interior_zyx: Sequence[int],
+                                  radius, counts, elem_size: int,
+                                  steps: int,
+                                  wire_layout: str = "slab") -> int:
+    """Wire bytes ONE shard sends per ``steps``-deep exchange (temporal
+    blocking): the deepened radius' rows over the deepened padded
+    cross-sections, under the selected wire layout (JAX
+    ``analysis/costmodel.py:125-139``)."""
+    deep = radius.deepened(steps)
+    return sum(sweep_wire_bytes(_padded(shard_interior_zyx, deep), deep,
+                                counts, elem_size,
+                                layout=wire_layout).values())
+
+
+def amortized_step_wire_bytes(shard_interior_zyx: Sequence[int],
+                              radius, counts, elem_size: int,
+                              steps: int,
+                              wire_layout: str = "slab") -> float:
+    """Per-shard wire bytes charged to each STEP under ``steps``-deep
+    blocking: the deep exchange's bytes over the ``steps`` steps it
+    feeds (JAX ``analysis/costmodel.py:142-155``)."""
+    return deep_exchange_bytes_per_shard(shard_interior_zyx, radius,
+                                         counts, elem_size, steps,
+                                         wire_layout) / steps
+
+
+def migration_wire_bytes_per_shard(n_fields: int, budget: int, counts,
+                                   elem_size: int) -> int:
+    """Wire bytes ONE shard sends per particle-migration step: 2
+    messages per mesh axis of more than one shard, each a fixed
+    ``record_rows x budget`` buffer (JAX ``analysis/costmodel.py:
+    169-180``)."""
+    return (migration_messages(counts) * migration_record_rows(n_fields)
+            * int(budget) * int(elem_size))
+
+
+def migration_step_seconds(n_fields: int, budget: int, counts,
+                           elem_size: int,
+                           coeffs: "LinkCoefficients | None" = None
+                           ) -> float:
+    """Alpha-beta migration cost per STEP: the messages plus the
+    budget-sized buffers over the link's rate (JAX
+    ``analysis/costmodel.py:183-196``)."""
+    c = coeffs if coeffs is not None else DEFAULT_ICI_COEFFS
+    return c.seconds(migration_messages(counts),
+                     migration_wire_bytes_per_shard(
+                         n_fields, budget, counts, elem_size))
+
+
+def temporal_step_exchange_seconds(shard_interior_zyx: Sequence[int],
+                                   radius, counts, elem_size: int,
+                                   steps: int, round_latency_s: float,
+                                   wire_bytes_per_s: float) -> float:
+    """Alpha-beta exchange cost per STEP at blocking depth ``steps``:
+    ``latency / steps + amortized_bytes / bandwidth`` (JAX
+    ``analysis/costmodel.py:199-209``)."""
+    amort = amortized_step_wire_bytes(shard_interior_zyx, radius, counts,
+                                      elem_size, steps)
+    return round_latency_s / steps + amort / wire_bytes_per_s
+
+
+def _depth_fits(d, radius, shard_interior_zyx) -> bool:
+    z, y, x = shard_interior_zyx
+    interior_xyz = (x, y, z)
+    return all(d[a] * max(radius.face(a, -1), radius.face(a, 1))
+               <= interior_xyz[a] for a in range(3))
+
+
+def predict_exchange_every(shard_interior_zyx: Sequence[int], radius,
+                           counts, elem_size: int,
+                           round_latency_s: float,
+                           wire_bytes_per_s: float,
+                           candidates: Sequence[int] = (1, 2, 3, 4, 6, 8)
+                           ) -> Tuple[int, Dict[int, float]]:
+    """The ``exchange_every`` minimizing the alpha-beta per-step
+    exchange time, among the depths the shard can host (JAX
+    ``analysis/costmodel.py:212-238``). Returns ``(best_s, {s:
+    seconds_per_step})``."""
+    costs: Dict[int, float] = {}
+    for s in candidates:
+        if not _depth_fits((s, s, s), radius, shard_interior_zyx):
+            continue
+        costs[s] = temporal_step_exchange_seconds(
+            shard_interior_zyx, radius, counts, elem_size, s,
+            round_latency_s, wire_bytes_per_s)
+    if not costs:
+        raise ValueError(f"no candidate depth fits shards "
+                         f"{shard_interior_zyx} with radius {radius}")
+    return min(costs, key=costs.get), costs
+
+
+def predict_exchange_depths(shard_interior_zyx: Sequence[int], radius,
+                            counts, elem_size: int, coeffs=None,
+                            dcn_axis: "int | None" = None,
+                            candidates: Sequence = (1, 2, 4, 8)
+                            ) -> Tuple[Tuple[int, int, int],
+                                       Dict[Tuple[int, int, int], float]]:
+    """``predict_exchange_every`` over per-axis depths priced per link
+    with ``asymmetric_step_seconds`` (JAX ``analysis/costmodel.py:
+    472-498``). Returns ``(best, {depths_xyz: seconds})``."""
+    costs: Dict[Tuple[int, int, int], float] = {}
+    for cand in candidates:
+        d = normalize_depths(cand)
+        if not _depth_fits(d, radius, shard_interior_zyx):
+            continue
+        costs[tuple(d)] = asymmetric_step_seconds(
+            "PpermuteSlab", shard_interior_zyx, radius, counts,
+            [elem_size], d, coeffs=coeffs, dcn_axis=dcn_axis)
+    if not costs:
+        raise ValueError(f"no candidate depth fits shards "
+                         f"{shard_interior_zyx} with radius {radius}")
+    return min(costs, key=costs.get), costs
+
+
+def configured_step_seconds(method_name: str,
+                            shard_interior_zyx: Sequence[int], radius,
+                            counts, elem_sizes: Sequence[int],
+                            steps,
+                            coeffs=DEFAULT_ICI_COEFFS,
+                            dtype_groups: "int | None" = None,
+                            wire_format=None,
+                            wire_layout: str = "slab",
+                            dcn_axis: "int | None" = None) -> float:
+    """Alpha-beta exchange seconds per STEP of one (method, depth)
+    configuration: the deep round's cost over the ``steps`` steps it
+    feeds (JAX ``analysis/costmodel.py:501-535``). The autotuner calls
+    it with MEASURED coefficients to prune its sweep. Per-axis ``steps``
+    or a per-link ``coeffs`` dict (with ``dcn_axis``) go through
+    ``asymmetric_step_seconds``; the uniform single-link case keeps the
+    one-term arithmetic."""
+    depths = normalize_depths(steps)
+    uniform = depths.x == depths.y == depths.z
+    if uniform and isinstance(coeffs, LinkCoefficients) \
+            and dcn_axis is None:
+        messages, nbytes = exchange_round_model(
+            method_name, shard_interior_zyx, radius, counts, elem_sizes,
+            depths.x, dtype_groups, wire_format=wire_format,
+            wire_layout=wire_layout)
+        return coeffs.seconds(messages, nbytes) / depths.x
+    return asymmetric_step_seconds(
+        method_name, shard_interior_zyx, radius, counts, elem_sizes,
+        depths, coeffs=coeffs, dcn_axis=dcn_axis,
+        dtype_groups=dtype_groups, wire_format=wire_format,
+        wire_layout=wire_layout)

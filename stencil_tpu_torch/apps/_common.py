@@ -23,16 +23,23 @@ DCN flags (``--dcn-axis``, ``--fake-slices``; JAX's ``apps/_common.py:
 83-134``) block one grid axis across hosts, or across fake groups of
 the devices.
 
-Not in this slice: the observatory ledger record (``--ledger``, JAX's
-``emit_bench_artifacts`` schema-1 append) waits for ROADMAP A12; a
-non-empty ``--ledger`` raises, and ``--json-out`` writes the JSON alone.
+The bench artifacts (``emit_bench_artifacts``, JAX's
+``apps/_common.py:260-340``): ``--json-out`` writes the app's JSON and
+appends the observatory's schema-1 ledger records made from the same
+payload (``observatory/ledger.payload_records``) to ``--ledger``, else
+``$STENCIL_BENCH_LEDGER``, else ``~/.cache/stencil_tpu_torch/
+ledger.jsonl`` (JAX's default is the checkout's ``bench/ledger.jsonl``;
+the port leaves that folder as it is); ``--ledger ''`` (or the
+variable set empty) turns the ledger off.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
-from typing import List, Tuple
+from typing import Tuple
 
 KERNEL_CHOICES = ("auto", "wrap", "halo", "xla", "pallas")
 
@@ -354,24 +361,67 @@ def megastep_race(make_engine, make_sentinel, fields_fn, k: int,
 
 
 def add_bench_record_flags(ap: argparse.ArgumentParser) -> None:
-    """``--json-out`` and ``--ledger`` (the observatory ledger waits for
-    ROADMAP A12)."""
+    """``--json-out`` and ``--ledger``: where a ``--json-out`` run also
+    appends its observatory bench records."""
     ap.add_argument("--json-out", default="", metavar="PATH",
                     help="write the measured numbers as a JSON artifact")
     ap.add_argument("--ledger", default=None, metavar="PATH",
-                    help="observatory bench ledger (ROADMAP A12: not "
-                         "ported; only '' is accepted)")
+                    help="bench trajectory ledger (JSONL) the --json-out "
+                         "records are also appended to; default "
+                         "$STENCIL_BENCH_LEDGER, else "
+                         "~/.cache/stencil_tpu_torch/ledger.jsonl; '' "
+                         "(or STENCIL_BENCH_LEDGER='') turns it off")
 
 
-def refuse_pending(args, pending: List[Tuple[str, str, object]]) -> None:
-    """Raise ``NotImplementedError`` for the first option that was given
-    but waits for a ROADMAP item: ``pending`` lists (flag, item, value
-    that means "not given"). Always checks ``--ledger`` (A12)."""
-    checks = list(pending)
-    if hasattr(args, "ledger"):
-        checks.append(("--ledger", "A12 (observatory ledger)", None))
-    for flag, item, unset in checks:
-        value = getattr(args, flag.lstrip("-").replace("-", "_"), unset)
-        if value != unset and not (flag == "--ledger" and value == ""):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it waits for ROADMAP {item}")
+def resolve_ledger_path(args):
+    """The ledger the records land in, or None when turned off: an
+    environment variable set empty turns it off as ``--ledger ''``
+    does; only an unset one falls through to the default."""
+    from ..observatory.ledger import ENV_LEDGER, default_ledger_path
+
+    led = getattr(args, "ledger", None)
+    if led is None:
+        led = os.environ.get(ENV_LEDGER)
+        if led is None:
+            led = str(default_ledger_path())
+    return led or None
+
+
+def emit_bench_artifacts(args, payload, source: str):
+    """Write the ``--json-out`` artifact and append the ledger records
+    made from the same payload (``observatory/ledger.payload_records``,
+    provenance ``measured``), with the payload's tiling plan, link-class
+    shares and wire layout stamped into each record's config after its
+    fingerprint is fixed (JAX ``apps/_common.py:287-340``). Nothing
+    without ``--json-out``. Returns the ledger path, or None."""
+    import json
+
+    if not getattr(args, "json_out", ""):
+        return None
+    with open(args.json_out, "w") as f:
+        json.dump(payload, f, indent=2)
+    ledger = resolve_ledger_path(args)
+    if ledger:
+        from ..observatory.ledger import append_record, payload_records
+
+        records, skipped = payload_records(payload, source,
+                                           provenance="measured",
+                                           created=time.time())
+        for rec in records:
+            if payload.get("tiling_plan"):
+                rec["config"].setdefault("tiling_plan",
+                                         payload["tiling_plan"])
+            if payload.get("link_classes"):
+                rec["config"].setdefault(
+                    "link_classes",
+                    {k: round(v["share"], 6)
+                     for k, v in payload["link_classes"].items()})
+            if payload.get("wire_layout"):
+                rec["config"].setdefault("wire_layout",
+                                         payload["wire_layout"])
+            append_record(ledger, rec)
+        for s in skipped:
+            print(f"{source}: ledger skip: {s}", file=sys.stderr)
+        print(f"{source}: appended {len(records)} ledger record(s) -> "
+              f"{ledger}", file=sys.stderr)
+    return ledger

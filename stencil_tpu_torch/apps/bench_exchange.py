@@ -54,22 +54,38 @@ on its own first device, and rank 0 prints and writes ``--json-out``:
         -m stencil_tpu_torch.apps.bench_exchange --devices cuda:0,cuda:0 \
         --mesh-shape 1,2,2 --backend gloo --pallas-dma
 
-Only CSV lines go to stdout. These options wait for an item of the
-ROADMAP and raise ``NotImplementedError`` naming it: ``--autotune``,
-``--tune-cache``, ``--metrics-json``, ``--ledger`` (A12). The JSON has
-no ``link_classes`` block (the link observatory, A12).
+The autotuner (``--autotune``, JAX ``apps/bench_exchange.py:289-331``):
+tune the Jacobi problem itself (radius 1, one float32 field) through
+``DistributedDomain.autotune`` (plan cache ``--tune-cache``, else
+``$STENCIL_TUNE_CACHE``, else the default), print its report on stderr,
+and race the plan's method and depth against ``Method.Default`` on the
+blocked Jacobi loop, printed as
+
+    bench_exchange_autotune,plan,provenance,default steps/s,tuned steps/s,ratio
+
+and added to ``--json-out`` as ``autotune``. The link observatory
+classifies the first swept depth's traffic matrix by mesh axis and link
+class (``observatory/linkmap.link_attribution_for``): each one's bytes a
+step, share, and utilization of its fitted peak at the measured
+exchange time, in ``--json-out`` as ``link_classes``. ``--metrics-json``
+writes JAX's gauges (``stencil_bench_steps_per_s{exchange_every}``,
+``stencil_bench_bytes_per_step_model``, the tuned race, the segment
+race and the link gauges) as a telemetry snapshot; ``--json-out`` also
+appends the observatory's ledger records (``--ledger``,
+``apps/_common.emit_bench_artifacts``).
+
+Only CSV lines go to stdout.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 
 from ._common import (add_bench_record_flags, add_device_flags,
-                      add_method_flags, csv_line, grouped_steps_per_s,
-                      megastep_race, mesh_from_args, methods_from_args,
-                      refuse_pending, timed_samples)
+                      add_method_flags, csv_line, emit_bench_artifacts,
+                      grouped_steps_per_s, megastep_race, mesh_from_args,
+                      methods_from_args, timed_samples)
 
 
 def _parse_depths(text: str):
@@ -144,7 +160,10 @@ def main(argv=None) -> None:
                          "seconds and the blocked Jacobi steps/s against "
                          "the sweep's at its smallest depth")
     ap.add_argument("--metrics-json", default="", metavar="PATH",
-                    help="telemetry metrics snapshot (ROADMAP A12)")
+                    help="also record the measured numbers as a telemetry "
+                         "metrics snapshot (gauges stencil_bench_steps_"
+                         "per_s{exchange_every=}, stencil_bench_bytes_per_"
+                         "step_model{...})")
     ap.add_argument("--fuse-segments", action="store_true",
                     help="race --check-every-step segments (health probe "
                          "rows on the device) against the per-step loop "
@@ -152,23 +171,24 @@ def main(argv=None) -> None:
     ap.add_argument("--check-every", type=int, default=8,
                     help="segment length for --fuse-segments")
     ap.add_argument("--autotune", action="store_true",
-                    help="exchange autotuner (ROADMAP A12)")
+                    help="run the exchange autotuner and race the tuned "
+                         "plan against Method.Default on the blocked "
+                         "Jacobi loop")
     ap.add_argument("--tune-cache", default="", metavar="PATH",
-                    help="autotuner plan cache (ROADMAP A12)")
+                    help="plan cache file for --autotune (default: "
+                         "$STENCIL_TUNE_CACHE or "
+                         "~/.cache/stencil_tpu_torch/plans.json)")
     add_method_flags(ap)
     add_device_flags(ap)
     add_bench_record_flags(ap)
     args = ap.parse_args(argv)
-    refuse_pending(args, [
-        ("--autotune", "A12 (tuning)", False),
-        ("--tune-cache", "A12 (tuning)", ""),
-        ("--metrics-json", "A12 (telemetry)", "")])
 
     import torch
 
     from ..distributed import DistributedDomain
     from ..geometry import Radius
     from ..models.jacobi import Jacobi3D
+    from ..parallel.methods import Method
     from ..parallel.packing import WIRE_LAYOUTS
     from ..parallel.mesh import as_global
     from ..parallel.multihost import initialize_distributed
@@ -188,7 +208,7 @@ def main(argv=None) -> None:
                          f"{WIRE_LAYOUTS}, got {args.wire_layout!r}")
     primary_layout = layouts[0]
 
-    def jacobi_steps_per_s(s, layout=primary_layout):
+    def jacobi_steps_per_s(s, layout=primary_layout, methods=methods):
         """Steps/s of the blocked hot path: the Jacobi model's run loop
         (deep exchange + sub-steps, the redundant ring compute included)
         under this configuration."""
@@ -222,6 +242,7 @@ def main(argv=None) -> None:
             args.iters).trimean()
 
     results = []
+    link_classes = None  # the first depth's classified link map
     for s in depths:
         dd = make_domain(s)
         tm = exchange_trimean(dd)
@@ -231,6 +252,8 @@ def main(argv=None) -> None:
                        args.fields, _depth_label(s), per_ex,
                        f"{tm:.6e}", f"{per_ex / tm:.6e}"), flush=True)
         amortized = dd.exchange_bytes_amortized_per_step()
+        if s == depths[0]:
+            link_classes = _link_classes(dd, _depth_max(s), tm)
         del dd
         n, dt, j = jacobi_steps_per_s(s)
         xs = j.exchange_stats()
@@ -292,6 +315,42 @@ def main(argv=None) -> None:
                   f"{sps:.3f} steps/s (x{sps_ratio:.2f} blocked loop)",
                   file=sys.stderr)
 
+    autotune_cmp = None
+    if args.autotune:
+        # tune the Jacobi problem itself (radius 1, one float32 field),
+        # then race the plan against Method.Default on the blocked loop
+        from ..utils.profiling import autotune_report
+
+        dd = DistributedDomain(gx, gy, gz, devices=devices)
+        dd.set_mesh_shape(mesh_shape)
+        dd.set_radius(1)
+        dd.add_data("temp", torch.float32)
+        plan = dd.autotune(cache_path=args.tune_cache or None)
+        _say(autotune_report(plan), file=sys.stderr)
+        del dd
+        base_row = next((r for r in results if r["exchange_every"] == 1
+                         and methods == Method.Default), None)
+        if base_row is not None:
+            base_sps = base_row["steps_per_s"]
+        else:
+            n, dt, _ = jacobi_steps_per_s(1, methods=Method.Default)
+            base_sps = n / dt
+        n, dt, _ = jacobi_steps_per_s(plan.config.exchange_every,
+                                      methods=Method[plan.config.method])
+        tuned_sps = n / dt
+        autotune_cmp = {"plan": plan.to_record(),
+                        "default_steps_per_s": base_sps,
+                        "tuned_steps_per_s": tuned_sps,
+                        "tuned_over_default": tuned_sps / base_sps}
+        _say(csv_line("bench_exchange_autotune", plan.config.key(),
+                      plan.provenance, f"{base_sps:.3f}",
+                      f"{tuned_sps:.3f}", f"{tuned_sps / base_sps:.3f}"),
+             flush=True)
+        _say(f"bench_exchange autotune: tuned {plan.config.key()} "
+             f"({plan.provenance}) {tuned_sps:.3f} steps/s vs default "
+             f"{base_sps:.3f} steps/s (x{tuned_sps / base_sps:.2f})",
+             file=sys.stderr)
+
     fused_cmp = None
     if args.fuse_segments:
         fused_cmp = _megastep_legs(args, next(
@@ -323,11 +382,83 @@ def main(argv=None) -> None:
         }
         if layout_cmp is not None:
             payload["wire_layout_race"] = layout_cmp
+        if autotune_cmp is not None:
+            payload["autotune"] = autotune_cmp
         if fused_cmp is not None:
             payload["fused"] = fused_cmp
-        with open(args.json_out, "w") as f:
-            json.dump(payload, f, indent=2)
+        if link_classes is not None:
+            payload["link_classes"] = link_classes
+        emit_bench_artifacts(args, payload, "bench_exchange")
         _say(f"bench_exchange: wrote {args.json_out}", file=sys.stderr)
+    if args.metrics_json and rank == 0:
+        _write_metrics(args.metrics_json, results, autotune_cmp,
+                       fused_cmp, link_classes)
+        _say(f"bench_exchange: metrics snapshot -> {args.metrics_json}",
+             file=sys.stderr)
+
+
+def _link_classes(dd, s: int, exchange_s: float):
+    """Per-(axis, link class) bytes a step, share and utilization of the
+    fitted peak during the measured exchange of ``dd`` (JAX
+    ``apps/bench_exchange.py:222-244``); None on one shard."""
+    from ..observatory.linkmap import link_attribution_for
+
+    link = link_attribution_for(dd)
+    if link is None:
+        return None
+    total = sum(link["bytes_per_step"].values()) or 1.0
+    return {f"{axis}/{klass}": {
+                "bytes_per_step": b, "share": b / total,
+                "utilization": (b * s / exchange_s)
+                / link["peak_bytes_per_s"].get(axis, 1e30)}
+            for (axis, klass), b in sorted(link["bytes_per_step"].items())}
+
+
+def _write_metrics(path, results, autotune_cmp, fused_cmp,
+                   link_classes) -> None:
+    """JAX's bench gauges (``apps/bench_exchange.py:464-523``) in a
+    telemetry snapshot, set from the same numbers as the JSON."""
+    from ..observatory.linkmap import (METRIC_LINK_BYTES_PER_STEP,
+                                       METRIC_LINK_UTILIZATION)
+    from ..telemetry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    g_sps = reg.gauge("stencil_bench_steps_per_s",
+                      "measured steps/s of the blocked Jacobi loop, by "
+                      "temporal depth")
+    g_bps = reg.gauge("stencil_bench_bytes_per_step_model",
+                      "amortized exchange B/step (analytic model)")
+    for r in results:
+        label = str(r["exchange_every"])
+        g_sps.set(r["steps_per_s"], exchange_every=label)
+        g_bps.set(r["amortized_bytes_per_step_model"], exchange_every=label)
+    if autotune_cmp is not None:
+        g = reg.gauge("stencil_bench_tuned_steps_per_s",
+                      "steps/s of the measured tuned plan vs "
+                      "Method.Default")
+        g.set(autotune_cmp["tuned_steps_per_s"], config="tuned")
+        g.set(autotune_cmp["default_steps_per_s"], config="default")
+    if fused_cmp is not None:
+        g = reg.gauge("stencil_bench_fused_steps_per_s",
+                      "segment race: steps/s by dispatch mode (fused = one "
+                      "segment per check_every steps with the probe rows "
+                      "on the device; stepwise = one step and one probe "
+                      "per step)")
+        ck = str(fused_cmp["check_every"])
+        g.set(fused_cmp["fused_steps_per_s"], mode="fused", check_every=ck)
+        g.set(fused_cmp["stepwise_steps_per_s"], mode="stepwise",
+              check_every=ck)
+    if link_classes is not None:
+        g_lb = reg.gauge(METRIC_LINK_BYTES_PER_STEP,
+                         "modeled wire B/step per mesh axis and link class")
+        g_lu = reg.gauge(METRIC_LINK_UTILIZATION,
+                         "achieved/fitted-peak utilization per mesh axis "
+                         "and link class")
+        for key, row in link_classes.items():
+            axis, klass = key.split("/")
+            g_lb.set(row["bytes_per_step"], axis=axis, link_class=klass)
+            g_lu.set(row["utilization"], axis=axis, link_class=klass)
+    reg.write_snapshot(path)
 
 
 def _megastep_legs(args, device) -> dict:

@@ -64,6 +64,12 @@ the plan file ``Pplan.txt`` and ``Pcomm_matrix.txt`` at realize, and
 ``--period`` samples ``Pjacobi3d_<n><i>.txt``, and
 ``Pjacobi3d_final<i>.txt``).
 
+``--json-out`` writes the timed run's bench record (JAX's payload:
+steps/s, the per-step times and the byte model; on a kernel path also
+``tiling_plan``, the launch the port's planners choose for the shard,
+``tuning/plan.tiling_record``) and appends it to the observatory's
+ledger (``--ledger``, ``_common.emit_bench_artifacts``).
+
 ``--resilient`` runs ``--iters`` iterations under the checkpoint-rollback
 driver (``Jacobi3D.run_resilient``) instead of the timed loop: health
 probes every ``--check-every`` steps (the segment length), checkpoints
@@ -85,10 +91,11 @@ import argparse
 import os
 
 from ..parallel.multihost import initialize_distributed
-from ._common import (KERNEL_CHOICES, add_dcn_flags, add_device_flags,
-                      add_dtype_flags, add_method_flags, add_placement_flags,
-                      add_resilience_flags, csv_line, dcn_from_args,
-                      dtype_from_args, mesh_from_args, methods_from_args,
+from ._common import (KERNEL_CHOICES, add_bench_record_flags, add_dcn_flags,
+                      add_device_flags, add_dtype_flags, add_method_flags,
+                      add_placement_flags, add_resilience_flags, csv_line,
+                      dcn_from_args, dtype_from_args, emit_bench_artifacts,
+                      mesh_from_args, methods_from_args,
                       placement_from_args, sampled_steps_per_s)
 
 
@@ -160,6 +167,7 @@ def main(argv=None) -> None:
     add_placement_flags(ap)
     add_dtype_flags(ap)
     add_dcn_flags(ap)
+    add_bench_record_flags(ap)
     res = add_resilience_flags(ap)
     res.add_argument("--fuse-segments",
                      action=argparse.BooleanOptionalAction, default=True,
@@ -202,9 +210,9 @@ def main(argv=None) -> None:
         if args.paraview and args.period and n % args.period == 0:
             j.dd.write_paraview(f"{args.prefix}jacobi3d_{n}")
 
-    stats, _ = sampled_steps_per_s(one, j.block,
-                                   max(args.iters // args.batch, 1),
-                                   args.batch)
+    stats, sps = sampled_steps_per_s(one, j.block,
+                                     max(args.iters // args.batch, 1),
+                                     args.batch)
     b = j.dd.exchange_bytes_per_axis()
     xstats = j.exchange_stats()
     ex_s = j.measure_exchange_seconds()
@@ -219,6 +227,30 @@ def main(argv=None) -> None:
         f"{stats.trimean() / args.batch:.6e}",
         xstats["path"], int(xstats["bytes_per_iteration"]),
         f"{ex_s:.6e}"))
+    # the launch the port's planners choose for this shard, on a kernel
+    # path (JAX apps/jacobi3d.py:200-215 records its VMEM blocks)
+    tiling_plan = None
+    if "xla" not in xstats["path"]:
+        from ..tuning import geometry_from_domain, tiling_record
+
+        tiling_plan = tiling_record(geometry_from_domain(
+            j.dd, j.dd.mesh_counts))
+    emit_bench_artifacts(
+        args,
+        {"bench": "jacobi3d",
+         **({"tiling_plan": tiling_plan} if tiling_plan else {}),
+         "config": {"grid": [gx, gy, gz], "devices": j.dd.num_subdomains(),
+                    "mesh": list(shape), "kernel": xstats["path"],
+                    "methods": str(methods_from_args(args)),
+                    "dtype": str(j._dtype).replace("torch.", ""),
+                    "exchange_every": args.exchange_every or 1},
+         "metrics": {"steps_per_s": sps,
+                     "min_step_s": stats.min() / args.batch,
+                     "trimean_step_s": stats.trimean() / args.batch,
+                     "bytes_per_iteration_model":
+                         float(xstats["bytes_per_iteration"]),
+                     "exchange_s_per_iteration": ex_s}},
+        "jacobi3d")
 
 
 if __name__ == "__main__":

@@ -38,20 +38,23 @@ overflow,final_config``:
     python -m stencil_tpu_torch.apps.pic --devices cpu,cpu,cpu,cpu \
         --resilient --chaos-particle-loss 3 --ckpt-dir /tmp/pic_ckpt
 
-Not in this slice: ``--metrics-json`` and ``--ledger`` wait for
-ROADMAP A12 and raise when given.
+``--json-out`` writes the timed run's JSON and appends its ledger
+records (``--ledger``, ``_common.emit_bench_artifacts``);
+``--metrics-json`` writes JAX's gauges
+(``stencil_bench_particle_steps_per_s{deposition}``,
+``stencil_bench_migration_bytes_per_shard{deposition}``) as a telemetry
+snapshot.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 
 from ._common import (add_bench_record_flags, add_device_flags,
                       add_dtype_flags, add_method_flags,
-                      add_resilience_flags, csv_line,
+                      add_resilience_flags, csv_line, emit_bench_artifacts,
                       devices_from_args, dtype_from_args, megastep_race,
-                      methods_from_args, refuse_pending, sampled_steps_per_s)
+                      methods_from_args, sampled_steps_per_s)
 
 
 def _run_resilient(p, args, rank: int) -> None:
@@ -114,7 +117,10 @@ def main(argv=None) -> None:
     ap.add_argument("--fuse-check-every", type=int, default=8,
                     help="segment length for the race")
     ap.add_argument("--metrics-json", default="", metavar="PATH",
-                    help="telemetry snapshot (ROADMAP A12: not ported)")
+                    help="also record the measured numbers as a telemetry "
+                         "metrics snapshot (gauges stencil_bench_particle_"
+                         "steps_per_s{deposition=} and stencil_bench_"
+                         "migration_bytes_per_shard{deposition=})")
     add_dtype_flags(ap)
     add_method_flags(ap)
     add_device_flags(ap, mesh=False)
@@ -128,7 +134,6 @@ def main(argv=None) -> None:
     if args.resilient and args.json_out:
         ap.error("--json-out records the timed bench path; it is not "
                  "produced by --resilient (use --events-json there)")
-    refuse_pending(args, [("--metrics-json", "A12 (telemetry)", "")])
 
     from ..models.pic import Pic
     from ..parallel.mesh import as_global, default_mesh_shape
@@ -196,8 +201,20 @@ def main(argv=None) -> None:
                "overflow": overflow, "total_charge": charge}
         if fused is not None:
             rec["fused"] = fused
-        with open(args.json_out, "w") as f:
-            json.dump(rec, f, indent=1)
+        emit_bench_artifacts(args, rec, "pic")
+    if args.metrics_json and rank == 0:
+        # the same figures as the JSON, as JAX's gauges
+        from ..telemetry import MetricsRegistry
+
+        reg = MetricsRegistry()
+        reg.gauge("stencil_bench_particle_steps_per_s",
+                  "measured particle steps/s of the PIC loop, by "
+                  "deposition scheme").set(psps, deposition=args.deposition)
+        reg.gauge("stencil_bench_migration_bytes_per_shard",
+                  "static migration wire B/shard/step of the measured "
+                  "configuration (analytic model)").set(
+            mig["migration_bytes_per_shard"], deposition=args.deposition)
+        reg.write_snapshot(args.metrics_json)
 
 
 if __name__ == "__main__":

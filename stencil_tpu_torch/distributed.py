@@ -64,7 +64,9 @@ events on a card, ``perf_counter`` on the CPU, the raw seconds in
 (``write_paraview``, byte-identical to the JAX package's for the same
 state).
 
-Not ported: the exchange autotuner and its report (ROADMAP A12).
+The exchange autotuner (``autotune``, ``apply_plan``; ``tuning/``):
+``Method.Auto`` asks ``realize()`` to measure the mesh and adopt the
+fastest exchange plan, through the plan cache (``$STENCIL_TUNE_CACHE``).
 """
 
 from __future__ import annotations
@@ -142,9 +144,12 @@ class DistributedDomain:
         self.strategy = PlacementStrategy.NodeAware
         self.placement_mode = "auto"
         self._output_prefix = os.environ.get("STENCIL_OUTPUT_PREFIX", "")
-        #: the exchange autotuner's adopted plan (ROADMAP A12): None, so
-        #: the plan's provenance is "default"
+        #: the exchange autotuner's adopted plan (``tuning.Plan``); None:
+        #: the static priority list decided ("default")
         self.plan = None
+        #: whether the tuner sweeps deep exchanges (a model whose path
+        #: refuses exchange_every > 1 sets it False)
+        self._tune_deep = True
         self.setup_seconds: Dict[str, float] = {}
         #: per-exchange seconds while ``enable_timing`` is on
         self.exchange_seconds: List[float] = []
@@ -273,10 +278,70 @@ class DistributedDomain:
         since it synchronizes each exchange."""
         self._timing = on
 
+    # -- exchange autotuning (tuning/) -----------------------------------
+    def autotune(self, timer=None, use_cache: bool = True,
+                 force: bool = False, cache_path=None,
+                 max_measurements: int = 4, depths=None,
+                 overlap_options=(False,), topology_path=None,
+                 wire_formats=("f32",), wire_layouts=("slab",)):
+        """Measure the mesh and adopt the fastest exchange plan (JAX
+        ``distributed.py:250-286``; the reference's measured per-pair
+        routing, src/stencil.cu:371-458, as one decision): the measure
+        -> fit -> plan -> cache pipeline of ``tuning/``. A plan-cache
+        hit skips measurement; ``force=True`` re-measures. Call between
+        configuration and ``realize()``, or set ``Method.Auto`` and
+        realize() calls it. ``timer``: the measurement backend (default
+        ``tuning.MeshTimer`` over this domain's mesh; tests inject
+        ``tuning.FakeTimer``). A model whose path takes no deep exchange
+        has the sweep cut to depth 1. Returns the adopted
+        ``tuning.Plan``."""
+        if self.mesh is not None:
+            raise RuntimeError("autotune() before realize()")
+        if not self._names:
+            raise ValueError("add_data at least one quantity first")
+        from .tuning import DEFAULT_DEPTHS, autotune_domain
+
+        depths = DEFAULT_DEPTHS if depths is None else depths
+        if not self._tune_deep:
+            depths = [d for d in depths if d == 1] or [1]
+        plan = autotune_domain(
+            self, timer=timer, use_cache=use_cache, force=force,
+            cache_path=cache_path, depths=depths,
+            overlap_options=overlap_options,
+            max_measurements=max_measurements,
+            topology_path=topology_path, wire_formats=wire_formats,
+            wire_layouts=wire_layouts)
+        self.apply_plan(plan)
+        return plan
+
+    def apply_plan(self, plan) -> None:
+        """Adopt a tuned, cached or shipped plan (JAX
+        ``distributed.py:288-310``): its method, temporal depth,
+        placement mode, wire format and layout replace the static
+        configuration. ``plan.config.overlap`` is advisory for the models
+        (``Jacobi3D``/``Astaroth`` ``overlap=``)."""
+        self.methods = Method[plan.config.method]
+        depths = getattr(plan.config, "depths", None)
+        if depths is not None:
+            self.set_exchange_every(tuple(depths))
+        elif plan.config.exchange_every != self.exchange_every:
+            self.set_exchange_every(plan.config.exchange_every)
+        mode = getattr(plan, "placement", "auto")
+        if mode != self.placement_mode:
+            self.placement_mode = normalize_placement_mode(mode)
+        wf = getattr(plan.config, "wire_format", "f32")
+        if wf != self.wire_format:
+            self.set_wire_format(wf)
+        wl = getattr(plan.config, "wire_layout", "slab")
+        if wl != self.wire_layout:
+            self.set_wire_layout(wl)
+        self.plan = plan
+
     @property
     def plan_provenance(self) -> str:
-        """How the exchange configuration was decided: ``default`` (the
-        static priority list) until the autotuner is ported (A12)."""
+        """How the exchange configuration was decided: ``tuned``
+        (measured this run), ``cached`` (a plan-cache hit) or
+        ``default`` (the static priority list)."""
         return self.plan.provenance if self.plan is not None else "default"
 
     def set_dcn_axis(self, axis: Union[int, str, None] = None,
@@ -357,7 +422,11 @@ class DistributedDomain:
         from .analysis.costmodel import asymmetric_step_seconds
 
         elem_sizes = [self._dtypes[q].itemsize for q in self._names] or [4]
-        method = pick_method(self.methods).name
+        # Method.Auto alone, before the tuner has resolved it, prices the
+        # candidates at the default transport
+        transports = self.methods & ~Method.Auto
+        method = pick_method(transports if transports else
+                             Method.Default).name
         best = None
         for dim in exact_partition_candidates(self.size, n):
             axes = ([self._dcn_axis_req] if self._dcn_axis_req is not None
@@ -444,6 +513,10 @@ class DistributedDomain:
         if not self._names:
             raise ValueError("add_data at least one quantity before "
                              "realize()")
+        if Method.Auto in self.methods:
+            # the standing autotune request: resolve it to a transport
+            # before anything picks one
+            self.autotune()
         if self.boundary not in (Boundary.PERIODIC, Boundary.NONE):
             raise NotImplementedError(f"unsupported boundary {self.boundary}")
         method = pick_method(self.methods)
@@ -728,6 +801,10 @@ class DistributedDomain:
             f.write(f"local size: {self.local_size}\n")
             f.write(f"method: {pick_method(self.methods)}\n")
             f.write(f"plan provenance: {self.plan_provenance}\n")
+            if self.plan is not None:
+                f.write(f"plan fingerprint: {self.plan.fingerprint}\n")
+                f.write(f"plan config: {self.plan.config.key()}\n")
+                f.write(f"plan measurements: {self.plan.measurements}\n")
             f.write(f"exchange_every: {self.exchange_every}\n")
             d = self.exchange_depths
             if not d.x == d.y == d.z:

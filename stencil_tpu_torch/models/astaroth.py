@@ -368,6 +368,9 @@ class Astaroth:
                                     devices=devices)
         self.dd.set_radius(Radius.constant(RADIUS))
         self.dd.set_methods(methods)
+        # Method.Auto: the kernel paths keep their own substep grouping,
+        # only the xla path takes a tuned depth
+        self.dd._tune_deep = kernel == "xla" and not overlap
         if self._exchange_every > 1:
             self.dd.set_exchange_every(self._exchange_every)
         if boundary is not None:
@@ -403,6 +406,8 @@ class Astaroth:
         for q in FIELDS:
             self.dd.add_data(q, self._dtype)
         self.dd.realize()
+        # a tuned plan may have set the depth
+        self._exchange_every = self.dd.exchange_every
         self._kernel = kernel
         self._overlap = bool(overlap)
         # the halo-overlap path's receive buffers and stream ordering,

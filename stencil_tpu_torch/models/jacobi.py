@@ -391,6 +391,9 @@ class Jacobi3D:
         self.dd = DistributedDomain(x, y, z, device=device, devices=devices)
         self.dd.set_radius(1)
         self.dd.set_methods(methods)
+        # Method.Auto: the tuner sweeps only the depths the path runs
+        # (the pallas and overlap paths refuse exchange_every > 1)
+        self.dd._tune_deep = kernel != "pallas" and not overlap
         # temporal blocking: None = unset (the wrap and halo paths keep
         # their STENCIL_WRAP_STEPS default); an explicit s pins the depth
         # — deep allocations and one deep exchange per s steps on the

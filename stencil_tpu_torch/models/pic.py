@@ -41,8 +41,9 @@ state; their probe rows, like ``make_sentinel``'s probes, reduce rho and
 the seven particle lanes with the per-shard cumulative overflow as an
 extra column on the same reduction (its max over the shards).
 ``run_resilient`` runs them under the recovery driver, the particle
-lanes riding each checkpoint. Not ported: the ``perf_model_*`` hooks
-(ROADMAP A12); each raises ``NotImplementedError`` naming its item.
+lanes riding each checkpoint, attributed by the performance observatory
+against ``perf_model_step_seconds`` and ``perf_model_bytes_per_step``
+(the two sweeps and the migration ring a step).
 """
 
 from __future__ import annotations
@@ -76,11 +77,6 @@ RADIUS = 2
 
 def _floor_int(v: torch.Tensor) -> torch.Tensor:
     return torch.floor(v).to(torch.int32)
-
-
-def _deferred(item: str, what: str):
-    return NotImplementedError(
-        f"Pic.{what} is not ported yet (ROADMAP {item})")
 
 
 class Pic:
@@ -594,6 +590,8 @@ class Pic:
             fields_fn=lambda: self.state,
             make_segment=self.make_segment,
             sentinel_factory=lambda dd: self.make_sentinel(),
+            model_step_seconds=self.perf_model_step_seconds(),
+            model_bytes_per_step=self.perf_model_bytes_per_step(),
             perf_entry="pic")
         self._export_run_metrics(report.steps, ovf0)
         return report
@@ -615,12 +613,32 @@ class Pic:
             "capacity/budget plan is undersized for the flux")
         o.inc(max(self.overflow_total() - ovf0, 0.0))
 
-    # -- not ported yet ----------------------------------------------------
-    def perf_model_step_seconds(self):
-        raise _deferred("A12", "perf_model_step_seconds")
+    # -- the performance observatory's price of a step ---------------------
+    def perf_model_step_seconds(self) -> Optional[float]:
+        """The cost model's wire seconds per STEP (JAX ``models/pic.py:
+        509-529``): the reverse halo-accumulate and the forward exchange
+        (two radius-2 sweeps) priced by the exchange model, plus the
+        migration ring (``analysis/costmodel.migration_step_seconds``).
+        None on a one-shard mesh."""
+        from ..analysis.costmodel import migration_step_seconds
+        from ..observatory.attribution import model_step_seconds_for
 
-    def perf_model_bytes_per_step(self):
-        raise _deferred("A12", "perf_model_bytes_per_step")
+        sweep = model_step_seconds_for(self.dd)
+        if sweep is None:
+            return None
+        mig = migration_step_seconds(len(PARTICLE_FIELDS), self.budget,
+                                     self.dd.mesh_counts,
+                                     self._dtype.itemsize)
+        total = 2.0 * sweep + mig
+        return total if total > 0 else None
+
+    def perf_model_bytes_per_step(self) -> float:
+        """Whole-mesh modeled wire B/step: two sweeps and the migration
+        ring on every shard (JAX ``models/pic.py:531-541``)."""
+        n_shards = self.dd.mesh_counts.flatten()
+        mig = self.migration_stats()["migration_bytes_per_shard"]
+        return (2.0 * float(self.dd.exchange_bytes_amortized_per_step())
+                + mig * n_shards)
 
 
 def dense_reference_rho(x, y, z, q, gsize, dtype=np.float64,

@@ -71,12 +71,16 @@ def pick_method(methods: "Method") -> "Method":
     per-pair transport routing, src/stencil.cu:371-458). Every transport
     runs in the port — ``PallasDMA`` as its CUDA kernel on the card and
     as the kernel's plain twin on the CPU —, so nothing requested is
-    ever replaced by another. ``Method.Auto`` alone raises: the port has
-    no exchange autotuner yet."""
+    ever replaced by another. ``Method.Auto`` is a request to the
+    exchange autotuner (``tuning/``), which ``DistributedDomain.
+    realize()`` resolves to the measured winner before any pick; alone
+    and unresolved it carries no transport and raises, as JAX's does."""
     requested = [m for m in METHOD_PRIORITY if m in methods]
     if requested:
         return requested[0]
     if Method.Auto in methods:
-        raise ValueError("Method.Auto carries no transport, and the port "
-                         "has no exchange autotuner yet: name a method")
+        raise ValueError(
+            "Method.Auto carries no transport — resolve it first via "
+            "DistributedDomain.autotune()/realize() (the autotuner "
+            "replaces Auto with the measured winner)")
     raise ValueError(f"no usable method in {methods}")

@@ -20,8 +20,9 @@ A CUDA device has no physical torus coordinates, so the distances are
 uniform (every card of an NVSwitch host one hop from every other), and
 ``mode="auto"`` keeps the sorted order there, as JAX's does on a
 coordless fabric. ``mode="qap"``, or a DCN-blocked axis, takes the
-synthetic lattice distances of ``mesh_distance_matrix`` (wrapped-torus
-hops over the shard lattice plus a penalty across hosts). A device may
+synthetic lattice distances of ``mesh_distance_matrix``
+(``observatory/linkmap.py``: wrapped-torus hops over the shard lattice
+plus a penalty across hosts). A device may
 be a ``parallel/mesh.GlobalDevice`` (a mesh over processes); the
 placement keeps its owner rank.
 """
@@ -36,6 +37,7 @@ import numpy as np
 from . import qap
 from .geometry import Dim3, Dim3Like, Radius, all_directions
 from .local_domain import halo_bytes
+from .observatory.linkmap import mesh_distance_matrix
 from .parallel.mesh import GlobalDevice, as_global, device_sorted
 from .partition import RankPartition
 from .topology import Topology
@@ -114,50 +116,6 @@ def torus_distance_matrix(devices: Sequence) -> np.ndarray:
             if i != j:
                 dist[i, j] = sum(abs(a - b)
                                  for a, b in zip(coords[i], coords[j]))
-    return dist
-
-
-def _lattice_torus_hops(counts: Dim3) -> np.ndarray:
-    """Wrapped-torus hop distance over the shard lattice itself (JAX
-    ``observatory/linkmap.py:408``): per axis ``min(|d|, n - |d|)``,
-    summed."""
-    counts = Dim3.of(counts)
-    n = counts.flatten()
-    idx = np.arange(n)
-    coords = np.stack([idx % counts.x,
-                       (idx // counts.x) % counts.y,
-                       idx // (counts.x * counts.y)], axis=1)
-    dist = np.zeros((n, n), dtype=np.float64)
-    for a in range(3):
-        d = np.abs(coords[:, None, a] - coords[None, :, a])
-        dist += np.minimum(d, counts[a] - d)
-    return dist
-
-
-def shard_slice(i: int, counts: Dim3, dcn_axis: int,
-                n_slices: int) -> int:
-    """Which host group holds shard ``i``: subdomains block onto the
-    groups along the DCN axis (JAX ``observatory/linkmap.py:456``)."""
-    counts = Dim3.of(counts)
-    idx = (i % counts.x, (i // counts.x) % counts.y,
-           i // (counts.x * counts.y))
-    return idx[dcn_axis] * int(n_slices) // counts[dcn_axis]
-
-
-def mesh_distance_matrix(counts: Dim3, dcn_axis: Optional[int] = None,
-                         n_slices: int = 1,
-                         dcn_hop_penalty: float = 8.0) -> np.ndarray:
-    """Device-slot distances for the shard lattice of coordless devices
-    (JAX ``observatory/linkmap.py:428``): wrapped-torus hops over the
-    lattice; pairs on different hosts (the DCN tier) add
-    ``dcn_hop_penalty`` hops."""
-    counts = Dim3.of(counts)
-    dist = _lattice_torus_hops(counts)
-    if dcn_axis is not None and int(n_slices) > 1:
-        slices = np.array([shard_slice(i, counts, dcn_axis, n_slices)
-                           for i in range(counts.flatten())])
-        dist = dist + float(dcn_hop_penalty) * (slices[:, None]
-                                                != slices[None, :])
     return dist
 
 

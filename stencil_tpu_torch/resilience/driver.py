@@ -39,15 +39,19 @@ SIGTERM flag is gathered across ranks each turn, so that every rank
 reaches the same restore, save and preemption at the same step.
 
 Everything lands in a JSON-serializable :class:`ResilienceReport`
-event log. The performance observatory is not ported (ROADMAP A12):
-``flight_recorder_dir`` (or ``$STENCIL_FLIGHT_RECORDER_DIR``) and
-``retune_on_drift=True`` raise ``NotImplementedError``, and under the
-default ``attribute_perf=True`` the loop runs with no attributor —
-JAX's own outcome for a domain it cannot price — after one warning.
+event log. The performance observatory rides along (``observatory/``):
+under ``attribute_perf`` (the default) a ``PerfAttributor`` times every
+segment, and every ``check_every``-step window of the stepwise loop,
+against the cost model's price of the configuration and emits JAX's
+``perf_drift`` events; ``retune_on_drift`` then invalidates the plan's
+cache record; ``flight_recorder_dir`` (or
+``$STENCIL_FLIGHT_RECORDER_DIR``) arms the flight recorder, which dumps
+on a trip, a degradation, SIGTERM and an unhandled error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -66,13 +70,9 @@ from ..parallel.methods import (METHOD_PRIORITY, Method, method_runnable,
 from ..utils.checkpoint import restore_domain, save_domain
 from ..utils.logging import LOG_INFO, LOG_WARN
 from ..utils.retry import retry
+from ..utils.timers import device_sync
 from .faults import FaultPlan
 from .health import HealthSentinel, HealthStats
-
-#: the env var that arms JAX's flight recorder (A12: refused here)
-ENV_FLIGHT_DIR = "STENCIL_FLIGHT_RECORDER_DIR"
-
-_warned_attribution = False
 
 
 class ResilienceError(RuntimeError):
@@ -102,17 +102,21 @@ class ResiliencePolicy:
     # location; the segment's final step is always probed)
     fuse_segments: bool = True
     probe_every: int = 1
-    # performance observatory (JAX observatory/attribution.py; ROADMAP
-    # A12, not ported): the default attribute_perf=True runs with no
-    # attributor after one warning; retune_on_drift=True raises
+    # performance observatory (observatory/attribution.py): pair every
+    # dispatch's measured seconds/step with the cost model's price,
+    # exported as stencil_perf_model_error_ratio{entry,method,s}; after
+    # drift_window consecutive observations departing from the first
+    # by more than drift_tolerance (relative) a perf_drift event is
+    # emitted, and retune_on_drift also drops the plan's cache record
+    # (plan_cache_path; default $STENCIL_TUNE_CACHE or the default file)
     attribute_perf: bool = True
     drift_tolerance: float = 0.5
     drift_window: int = 3
     retune_on_drift: bool = False
     plan_cache_path: Optional[str] = None
-    # flight recorder (JAX observatory/recorder.py; ROADMAP A12, not
-    # ported): a directory here or in $STENCIL_FLIGHT_RECORDER_DIR
-    # raises
+    # flight recorder (observatory/recorder.py): a bounded black box
+    # dumped into this directory (or $STENCIL_FLIGHT_RECORDER_DIR) on a
+    # trip, a degradation, SIGTERM and an unhandled error
     flight_recorder_dir: Optional[str] = None
 
 
@@ -256,24 +260,13 @@ class _ResilientRun:
     def __init__(self, dd, step_fn, n_steps, policy, ckpt_dir, faults,
                  rebuild, extra_fn, on_restore, fields_fn,
                  pre_checkpoint, make_segment=None,
-                 sentinel_factory=None, perf_entry=None):
+                 sentinel_factory=None, model_step_seconds=None,
+                 model_bytes_per_step=None, perf_entry=None):
         self.dd = dd
         self.step_fn = step_fn
         self.n_steps = int(n_steps)
         self.policy = policy or ResiliencePolicy()
         p = self.policy
-        self._flight_dir = (p.flight_recorder_dir
-                            or os.environ.get(ENV_FLIGHT_DIR) or None)
-        if self._flight_dir:
-            raise NotImplementedError(
-                "the flight recorder (flight_recorder_dir / "
-                f"${ENV_FLIGHT_DIR}) is part of the performance "
-                "observatory, not ported yet: ROADMAP A12")
-        if p.retune_on_drift:
-            raise NotImplementedError(
-                "retune_on_drift needs the performance observatory's "
-                "attributor and the exchange autotuner's plan cache, not "
-                "ported yet: ROADMAP A12")
         self.ckpt_dir = ckpt_dir
         self.faults = faults
         self.rebuild = rebuild
@@ -356,12 +349,26 @@ class _ResilientRun:
                 self._note_fused_decline(
                     "engine provides no fused-segment factory",
                     code=DECLINE_NO_FACTORY)
-        global _warned_attribution
-        if p.attribute_perf and not _warned_attribution:
-            _warned_attribution = True
-            LOG_WARN("attribute_perf: the performance observatory is not "
-                     "ported yet (ROADMAP A12); running without an "
-                     "attributor")
+        # the performance observatory (observatory/): a host clock around
+        # every dispatch, the dispatched work unchanged
+        self._model_step_seconds = model_step_seconds
+        self._model_bytes_per_step = model_bytes_per_step
+        self.flight = None
+        self.attributor = (self._make_attributor() if p.attribute_perf
+                           else None)
+        #: the stepwise attribution window (dispatch seconds, base step):
+        #: one observation per check_every steps, timing the step
+        #: dispatches and one fence, not the probes or saves between
+        self._att_window_s = 0.0
+        self._att_window_base = None
+        from ..observatory.recorder import ENV_FLIGHT_DIR, FlightRecorder
+        self._flight_dir = (p.flight_recorder_dir
+                            or os.environ.get(ENV_FLIGHT_DIR) or None)
+        if self._flight_dir:
+            self.flight = FlightRecorder(run_id=self.report.run_id,
+                                         registry=reg, tracer=self._tracer)
+            self.report.add_sink(self.flight)
+            self.flight.set_linkmap(getattr(self, "_link_summary", None))
 
     @property
     def _collective(self) -> bool:
@@ -393,6 +400,77 @@ class _ResilientRun:
         return HealthSentinel(dd, window=self.policy.window,
                               growth_factor=self.policy.growth_factor,
                               metrics=self._step_metrics)
+
+    # -- performance observatory ------------------------------------------
+    def _make_attributor(self):
+        """A ``PerfAttributor`` for the current configuration, or None
+        when nothing is priced (one shard, an unpriceable geometry). The
+        price is the caller's (PIC passes its migration and sweep
+        figure) on the first build; a degradation rebuild re-derives it
+        from the rebuilt domain (JAX ``driver.py:387-434``)."""
+        from ..observatory.attribution import (PerfAttributor,
+                                               model_step_seconds_for)
+        from ..observatory.linkmap import link_attribution_for
+
+        model = self._model_step_seconds
+        if model is None:
+            model = model_step_seconds_for(self.dd)
+        if not model:
+            return None
+        cfg = _current_config(self.dd)
+        plan = getattr(self.dd, "plan", None)
+        p = self.policy
+        nbytes = self._model_bytes_per_step
+        if nbytes is None:
+            nbytes = (self._step_metrics.bytes_per_step
+                      if getattr(self, "_step_metrics", None) is not None
+                      else 0.0)
+        link = link_attribution_for(self.dd)
+        self._link_summary = link["summary"] if link else None
+        if self.flight is not None:
+            self.flight.set_linkmap(self._link_summary)
+        return PerfAttributor(
+            entry=self._perf_entry, method=cfg.method.name,
+            exchange_every=cfg.exchange_every,
+            model_step_seconds=model,
+            model_bytes_per_step=float(nbytes),
+            tolerance=p.drift_tolerance, window=p.drift_window,
+            warmup=1,  # the first dispatch builds kernels and tables
+            emit=self.report.log,
+            on_drift=(self._on_perf_drift if p.retune_on_drift
+                      else None),
+            link_bytes_per_step=(link["bytes_per_step"] if link
+                                 else None),
+            link_peak_bytes_per_s=(link["peak_bytes_per_s"] if link
+                                   else None),
+            fingerprint=(plan.fingerprint if plan is not None else None))
+
+    def _on_perf_drift(self, attrs: Dict) -> None:
+        """``retune_on_drift``: the plan whose prediction the machine
+        stopped matching loses its cache record, so that the next tune
+        re-measures."""
+        from ..observatory.attribution import make_drift_invalidator
+        make_drift_invalidator(self.policy.plan_cache_path,
+                               self.report.log)(attrs)
+
+    def _block_fields(self) -> None:
+        """The attribution fence: a synchronize of every card holding
+        the live state."""
+        device_sync([t for v in self._fields().values() for t in v
+                     if isinstance(t, torch.Tensor)])
+
+    def _attributed(self, k: int):
+        """The timing context of one dispatch of ``k`` steps (a no-op
+        without an attributor)."""
+        if self.attributor is None:
+            return contextlib.nullcontext()
+        return self.attributor.dispatch(k, self._block_fields,
+                                        step=self.step + k)
+
+    def _flight_dump(self, reason: str, **attrs) -> Optional[str]:
+        from ..observatory.recorder import safe_dump
+        return safe_dump(self.flight, self._flight_dir, reason,
+                         step=self.step, **attrs)
 
     # -- helpers --------------------------------------------------------
     def _fields(self):
@@ -501,7 +579,10 @@ class _ResilientRun:
 
     def _observe_probes(self, results: List[HealthStats]) -> None:
         """Export the probe-observed amortized B/step next to the
-        model's figure."""
+        model's figure, and keep the probes in the flight recorder."""
+        if self.flight is not None:
+            for stats in results:
+                self.flight.record_probe(stats.to_record())
         if self._step_metrics is None:
             return
         for stats in results:
@@ -526,6 +607,8 @@ class _ResilientRun:
                 self.dd, rebase_step=step, prev=pre_degrade)
         self.sentinel.reset()
         self._last_clean_health = None
+        # a rolled-back window is replay: no attribution across it
+        self._att_window_base = None
         self.report.log("restored", step=step)
 
     def _handle_trip(self, tripped: List[HealthStats]) -> None:
@@ -553,6 +636,10 @@ class _ResilientRun:
         self.policy.sleep(self.policy.base_delay
                           * (2 ** max(self.attempts - 1, 0)))
         self._restore()
+        # the black box holds the whole incident: trip, any degradation
+        # and the rollback it resolved into
+        self._flight_dump("sentinel_trip", trip_step=stats.step,
+                          trip_reason=stats.reason)
 
     def _degrade_or_die(self, stats: HealthStats) -> None:
         if self.ladder is None:
@@ -605,6 +692,13 @@ class _ResilientRun:
             self.report.degradations.append(cfg.key())
             self._m_degradations.inc()
             self.report.log("degraded", config=cfg.key())
+            if self.attributor is not None:
+                # the degraded engine has a new price and labels
+                self._model_step_seconds = None
+                self._model_bytes_per_step = None
+                self.attributor = self._make_attributor()
+                self._att_window_base = None
+            self._flight_dump("degraded", config=cfg.key())
             return
         raise ResilienceError(
             f"retries exhausted ({self.policy.max_retries}) at "
@@ -670,10 +764,13 @@ class _ResilientRun:
             with self._tracer.span("segment.dispatch", k=k,
                                    check_every=self.policy.check_every,
                                    entry=self._perf_entry):
-                # no host synchronization inside a segment on a card
+                # the attributor's fence comes after the guard: no
+                # host synchronization inside a segment on a card
                 # (STENCIL_ALLOW_TRANSFERS=1 opts out)
-                with hot_loop_transfer_guard(_guarded_devices(self.dd)):
-                    trace = seg.run(base)
+                with self._attributed(k):
+                    with hot_loop_transfer_guard(
+                            _guarded_devices(self.dd)):
+                        trace = seg.run(base)
         if self._compile_guard is not None:
             self._compile_guard.observe(self.make_segment,
                                         "megastep segment")
@@ -695,9 +792,17 @@ class _ResilientRun:
 
     # -- the loop -------------------------------------------------------
     def run(self) -> ResilienceReport:
-        with self._tracer.span("resilience.run", run=self.report.run_id,
-                               n_steps=self.n_steps):
-            return self._run()
+        try:
+            with self._tracer.span("resilience.run",
+                                   run=self.report.run_id,
+                                   n_steps=self.n_steps):
+                return self._run()
+        except Exception as e:
+            # an unhandled error: the black box is the post-mortem (the
+            # error still propagates)
+            self._flight_dump("unhandled_error",
+                              error=f"{type(e).__name__}: {e}")
+            raise
 
     def _run(self) -> ResilienceReport:
         policy = self.policy
@@ -725,6 +830,9 @@ class _ResilientRun:
                 self._poll_pending_save()
                 if self._preempt_due():
                     self._flush_pending_save()
+                    # the black box before the preemption checkpoint: if
+                    # the save dies, the incident record exists
+                    self._flight_dump("preempt")
                     if self.ckpt_dir is not None:
                         # poisoned state is never persisted: if the
                         # drain trips, skip the save and let the last
@@ -773,11 +881,30 @@ class _ResilientRun:
                         if self._preempt:
                             continue  # SIGTERM landed at the boundary
                 else:
-                    self.step_fn()
+                    att = self.attributor
+                    if att is not None:
+                        if self._att_window_base is None:
+                            self._att_window_base = self.step
+                            self._att_window_s = 0.0
+                        t0 = time.perf_counter()
+                        self.step_fn()
+                        self._att_window_s += time.perf_counter() - t0
+                    else:
+                        self.step_fn()
                     self.step += 1
                     self.report.steps = self.step
                     self._m_steps.inc()
                     self._m_fused_dispatch.inc(fused="false")
+                    if att is not None \
+                            and self.step % policy.check_every == 0:
+                        # the window's step dispatches plus ONE fence,
+                        # amortized over its steps
+                        t0 = time.perf_counter()
+                        self._block_fields()
+                        self._att_window_s += time.perf_counter() - t0
+                        att.observe(self.step - self._att_window_base,
+                                    self._att_window_s, step=self.step)
+                        self._att_window_base = None
                     if self.faults is not None:
                         # faults hit the LIVE fields — the dict the
                         # sentinel probes
@@ -848,6 +975,8 @@ def run_resilient(dd, step_fn: Callable[[], None], n_steps: int,
                   pre_checkpoint: Optional[Callable[[], None]] = None,
                   make_segment: Optional[Callable] = None,
                   sentinel_factory: Optional[Callable] = None,
+                  model_step_seconds: Optional[float] = None,
+                  model_bytes_per_step: Optional[float] = None,
                   perf_entry: Optional[str] = None
                   ) -> ResilienceReport:
     """Drive ``step_fn`` for ``n_steps`` steps with health sentinels,
@@ -871,7 +1000,11 @@ def run_resilient(dd, step_fn: Callable[[], None], n_steps: int,
     the loop dispatches one segment per health boundary and saves
     asynchronously. ``sentinel_factory(dd)``: build the health sentinel
     instead (models whose live state is wider than the domain's fields,
-    as PIC). ``perf_entry`` labels the run's events.
+    as PIC). ``model_step_seconds``/``model_bytes_per_step``: the
+    observatory's price of a step (models whose wire bill the exchange
+    model does not see, as PIC's migration ring, pass theirs; None
+    derives both from ``dd``); ``perf_entry`` labels the run's events
+    and the ``stencil_perf_model_error_ratio{entry,method,s}`` gauges.
 
     Returns a :class:`ResilienceReport`; if it says ``preempted``, rerun
     with the same ``ckpt_dir`` to resume."""
@@ -879,4 +1012,6 @@ def run_resilient(dd, step_fn: Callable[[], None], n_steps: int,
                          rebuild, extra_fn, on_restore, fields_fn,
                          pre_checkpoint, make_segment=make_segment,
                          sentinel_factory=sentinel_factory,
+                         model_step_seconds=model_step_seconds,
+                         model_bytes_per_step=model_bytes_per_step,
                          perf_entry=perf_entry).run()

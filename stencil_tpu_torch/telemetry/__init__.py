@@ -13,14 +13,16 @@ resilience driver writes into:
 * **metrics** (``metrics.py``) — labeled counters, gauges and
   histograms with Prometheus text and JSON snapshots;
 * **step metrics** (``probe.py``) — counters riding the health probe's
-  one reduction.
-
-The ``/metrics`` server and the CLI stay ROADMAP A12.
+  one reduction;
+* **the ``/metrics`` server** (``http.py``, ``MetricsServer``) and the
+  CLI (``python -m stencil_tpu_torch.telemetry``: ``snapshot``,
+  ``validate-trace``, ``validate-events``).
 """
 
 from .events import (EVENT_SCHEMA_VERSION, EventLog, JsonlSink,
                      ListSink, RingSink, StreamJsonSink, new_run_id,
                      validate_events)
+from .http import MetricsServer
 from .metrics import (DEFAULT_BUCKETS, METRICS_SCHEMA_VERSION, Counter,
                       Gauge, Histogram, MetricsRegistry, get_registry,
                       metric_value, parse_prometheus_text,
@@ -36,6 +38,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
     "DEFAULT_BUCKETS", "metric_value", "parse_prometheus_text",
     "snapshot_value", "render_snapshot_text",
+    "MetricsServer",
     "Span", "Tracer", "get_tracer", "set_tracer",
     "validate_chrome_trace",
     "STEP_METRIC_NAMES", "StepMetrics", "step_metrics_for",

@@ -1,7 +1,7 @@
 """Counters / gauges / histograms with a Prometheus text surface.
 
 PyTorch-port copy of ``stencil_tpu/telemetry/metrics.py`` (plain
-Python; the ``/metrics`` server and the CLI stay ROADMAP A12). The
+Python; ``http.py`` serves it at ``/metrics``). The
 operational metrics layer: labeled counters, gauges, and
 histograms in one thread-safe :class:`MetricsRegistry`, exportable two
 ways — Prometheus text exposition (``to_prometheus_text``) and a JSON

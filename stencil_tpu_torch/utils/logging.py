@@ -32,6 +32,10 @@ def _emit(tag: str, lvl: int, msg: str) -> None:
         print(f"[{_rank()}] {tag}: {msg}", file=sys.stderr)
 
 
+def LOG_DEBUG(msg: str) -> None:
+    _emit("DEBUG", 1, msg)
+
+
 def LOG_INFO(msg: str) -> None:
     _emit("INFO", 2, msg)
 

@@ -96,6 +96,13 @@ print("RESULT " + json.dumps(out))
 """
 
 
+@pytest.fixture(autouse=True)
+def no_default_ledger(monkeypatch):
+    """A ``--json-out`` run appends to the ledger its test names, never
+    to the default one under ``$HOME``."""
+    monkeypatch.setenv("STENCIL_BENCH_LEDGER", "")
+
+
 @pytest.fixture(scope="module")
 def jax_lines():
     """Stdout of each JAX app, all run in one process over 4 fake CPU
@@ -221,9 +228,76 @@ def test_machine_info_lists_the_devices(capsys):
     (bench_exchange, ["--metrics-json", "m.json"], "A12"),
     (bench_exchange, ["--ledger", "ledger.jsonl"], "A12"),
 ])
-def test_pending_options_raise_naming_their_item(app, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        app.main(argv + ["--device", "cpu"])
+def test_pending_options_raise_naming_their_item(app, argv, item, tmp_path,
+                                                 monkeypatch, capsys):
+    """The options that waited for ROADMAP ``item`` (A12) now run, each
+    writing what JAX's writes: ``--autotune`` the tuned race (CSV line
+    and ``autotune`` block), ``--tune-cache`` the plan file,
+    ``--metrics-json`` JAX's gauges, ``--ledger`` valid records stamped
+    with the link classes."""
+    from stencil_tpu_torch.observatory.ledger import (read_ledger,
+                                                      validate_ledger)
+    from stencil_tpu_torch.telemetry import snapshot_value
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("STENCIL_TUNE_CACHE", str(tmp_path / "env.json"))
+    monkeypatch.setenv("STENCIL_BENCH_LEDGER", "")
+    extra = ["--autotune"] if argv[0] == "--tune-cache" else []
+    app.main(argv + extra + ["--x", "8", "--y", "8", "--z", "8", "--iters",
+                             "1", "--json-out", "be.json"] + CPU4)
+    payload = json.loads(Path("be.json").read_text())
+    rows = _csv(capsys.readouterr().out)
+    if argv[0] == "--autotune":
+        plan = payload["autotune"]["plan"]
+        assert plan["provenance"] == "tuned" and (tmp_path /
+                                                  "env.json").exists()
+        assert [r for r in rows if r[0] == "bench_exchange_autotune"][0][
+            1] == f"{plan['config']['method']}[s=" \
+            f"{plan['config']['exchange_every']}]"
+    elif argv[0] == "--tune-cache":
+        assert Path(argv[1]).exists() and not (tmp_path / "env.json").exists()
+    elif argv[0] == "--metrics-json":
+        snap = json.loads(Path(argv[1]).read_text())
+        assert snapshot_value(snap, "stencil_bench_steps_per_s",
+                              exchange_every="1") == \
+            payload["configs"][0]["steps_per_s"]
+        key = next(iter(payload["link_classes"]))
+        axis, klass = key.split("/")
+        assert snapshot_value(snap, "stencil_link_bytes_per_step",
+                              axis=axis, link_class=klass) == \
+            payload["link_classes"][key]["bytes_per_step"]
+    else:
+        records = read_ledger(argv[1])
+        assert validate_ledger(records) == [] and \
+            records[0]["bench"] == "bench_exchange"
+        assert set(records[0]["config"]["link_classes"]) == \
+            set(payload["link_classes"])
+        assert item == "A12"
+
+
+def test_jacobi3d_json_out_ledger_and_tiling(tmp_path, capsys):
+    """``jacobi3d --json-out`` (JAX's payload) on a kernel path carries
+    the port's tiling record, and its ledger record keys the trajectory
+    by JAX's config fingerprint."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.observatory.ledger import (config_fingerprint,
+                                                      read_ledger)
+
+    led, out = tmp_path / "l.jsonl", tmp_path / "j.json"
+    jacobi3d.main(S16 + ["--iters", "2", "--batch", "1", "--kernel",
+                         "pallas", "--json-out", str(out), "--ledger",
+                         str(led), "--device", "cpu"])
+    payload = json.loads(out.read_text())
+    assert payload["tiling_plan"]["jacobi_ring_kernel"]["steps"] == 2
+    assert payload["config"] == {"grid": [16, 16, 16], "devices": 1,
+                                 "mesh": [1, 1, 1], "kernel": "pallas",
+                                 "methods": "PpermuteSlab",
+                                 "dtype": "float32", "exchange_every": 1}
+    rec = read_ledger(led)[0]
+    assert rec["fingerprint"] == config_fingerprint("jacobi3d",
+                                                    payload["config"])
+    assert rec["config"]["tiling_plan"] == payload["tiling_plan"]
+    assert rec["metrics"]["steps_per_s"] > 0
 
 
 def test_bench_exchange_layout_race_json_matches_jax_bytes(tmp_path, capsys):

@@ -353,6 +353,47 @@ def test_resilient_campaign_across_ranks_equals_one_process(two_ranks,
     np.testing.assert_array_equal(temp, clean.temperature())
 
 
+def test_autotune_across_ranks_agrees_on_one_plan(two_ranks):
+    """``Method.Auto`` on a mesh over two ranks: both ranks adopt rank
+    0's tuned plan (their own timings differ), the second domain is a
+    cache hit on both, and the run equals one process running the
+    winner by name, bitwise."""
+    recs = [json.loads((two_ranks / f"autotune_{r}.json").read_text())
+            for r in range(2)]
+    assert recs[0]["plan"] == recs[1]["plan"]
+    assert recs[0]["plan"]["provenance"] == "tuned"
+    assert recs[0]["plan"]["measurements"] == 3 + 4
+    for rec in recs:
+        assert rec["second"]["provenance"] == "cached"
+        assert rec["second"]["measurements"] == 0
+        assert rec["second"]["config"] == rec["plan"]["config"]
+    cfg = recs[0]["plan"]["config"]
+    from stencil_tpu_torch.parallel.methods import Method
+
+    j = Jacobi3D(16, 16, 16, kernel="xla", mesh_shape=(1, 2, 2),
+                 devices=["cpu"] * 4, methods=Method[cfg["method"]],
+                 exchange_every=cfg["exchange_every"])
+    j.init()
+    j.run(3)
+    got = np.load(two_ranks / "autotune_temp.npy")
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  j.temperature().view(np.uint32))
+
+
+def test_autotune_ranks_with_different_clocks_time_the_same_candidates(
+        two_ranks):
+    """Each rank's clock fits an opposite link (rank 0 all latency, rank
+    1 all bandwidth, ``workers.AGREEMENT_LINKS``), which on its own
+    would rank a different pair of candidates first: both rank with rank
+    0's fit, time the same candidates and adopt one plan."""
+    recs = [json.loads((two_ranks / f"agreement_{r}.json").read_text())
+            for r in range(2)]
+    assert len(recs[0]["timed"]) == 2
+    assert recs[0]["timed"] == recs[1]["timed"]
+    assert recs[0]["plan"] == recs[1]["plan"]
+    assert recs[0]["plan"]["config"]["exchange_every"] > 1
+
+
 def test_checkpoint_corrupted_on_one_rank_walks_both_back(two_ranks):
     """Step 4's files of rank 1's shards bit-flipped: both ranks restore
     step 2, whose interior comes back bitwise."""

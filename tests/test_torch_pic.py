@@ -362,10 +362,13 @@ def test_state_from_jax_round_trips_and_continues():
     np.testing.assert_allclose(pp.rho(), jp.rho(), rtol=0, atol=1e-12)
 
 
-def test_deferred_hooks_name_their_queue_items(tmp_path):
+def test_deferred_hooks_name_their_queue_items(tmp_path, monkeypatch):
     """``run_resilient`` runs (a clean campaign: bitwise the plain run,
-    the particle lanes checkpointed as extras); the perf-model hooks
-    still raise naming A12."""
+    the particle lanes checkpointed as extras); the perf-model hooks,
+    once deferred to A12, equal JAX's (``Pic.perf_model_step_seconds``
+    and ``perf_model_bytes_per_step``) with both packages' default link
+    priced alike (their defaults differ: H100 against TPU), and are None
+    on one shard, as JAX's."""
     p = Pic(8, 8, 8, 16, mesh_shape=(1, 1, 1), devices=["cpu"],
             dtype=torch.float64, deposition="ngp")
     q = Pic(8, 8, 8, 16, mesh_shape=(1, 1, 1), devices=["cpu"],
@@ -382,8 +385,25 @@ def test_deferred_hooks_name_their_queue_items(tmp_path):
     np.testing.assert_array_equal(p.rho(), q.rho())
     assert set(checkpoint_meta(str(tmp_path))["extra"]) == \
         set(PARTICLE_STATE_KEYS)
-    with pytest.raises(NotImplementedError, match="A12"):
-        p.perf_model_step_seconds()
+    assert p.perf_model_step_seconds() is None
+    from stencil_tpu_torch.analysis import costmodel as pcm
+
+    link = (2e-6, 3e10)
+    monkeypatch.setattr(pcm, "DEFAULT_ICI_COEFFS",
+                        pcm.LinkCoefficients(*link))
+    for dep, dtype in (("ngp", np.float64), ("cic", np.float32)):
+        jp, pp = _pics((16, 8, 8), 64, (2, 2, 2), deposition=dep,
+                       dtype=dtype)
+        with reference_block_planner():
+            from stencil_tpu.analysis import costmodel as jcm
+
+            monkeypatch.setattr(jcm, "DEFAULT_ICI_COEFFS",
+                                jcm.LinkCoefficients(*link))
+            want = (jp.perf_model_step_seconds(),
+                    jp.perf_model_bytes_per_step())
+        got = (pp.perf_model_step_seconds(), pp.perf_model_bytes_per_step())
+        assert got[0] == pytest.approx(want[0], rel=1e-12) and got[0] > 0
+        assert got[1] == want[1] > 0
     with pytest.raises(NotImplementedError):
         from stencil_tpu_torch import Method
 
@@ -427,7 +447,7 @@ with reference_block_planner():
 """
 
 
-def test_app_prints_jax_columns(capsys):
+def test_app_prints_jax_columns(capsys, tmp_path):
     """``apps/pic.py`` on four CPU shards prints JAX's CSV line: every
     column but the three measured ones (min, trimean, particle steps/s)
     equal to JAX's app on four fake CPU devices (both without the
@@ -462,10 +482,23 @@ def test_app_prints_jax_columns(capsys):
             float(a), float(b)
         else:
             assert a == b, (i, g, w)
-    for flags, item in ((["--metrics-json", "m.json"], "A12"),
-                        (["--ledger", "l.jsonl"], "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            app.main(flags + ["--device", "cpu"])
+    # --metrics-json and --ledger, once deferred to A12: JAX's gauges,
+    # and a valid ledger record of the same numbers
+    from stencil_tpu_torch.observatory.ledger import (read_ledger,
+                                                      validate_ledger)
+    from stencil_tpu_torch.telemetry import snapshot_value
+
+    d = tmp_path
+    app.main(argv + ["--no-fuse-segments", "--device", "cpu",
+                     "--metrics-json", str(d / "m.json"), "--ledger",
+                     str(d / "l.jsonl"), "--json-out", str(d / "p.json")])
+    snap = json.loads((d / "m.json").read_text())
+    rec = json.loads((d / "p.json").read_text())
+    assert snapshot_value(snap, "stencil_bench_particle_steps_per_s",
+                          deposition="cic") == rec["particle_steps_per_s"]
+    led = read_ledger(d / "l.jsonl")
+    assert validate_ledger(led) == [] and led[0]["bench"] == "pic"
+    assert led[0]["metrics"]["steps_per_s"] == 1.0 / rec["seconds_per_step"]
 
 
 def test_app_resilient_chaos_nan_prints_jax_columns(tmp_path, capsys):

@@ -5,8 +5,9 @@ package's, for the fault plans of JAX's ``tests/test_resilience.py``.
 Each case runs ``Jacobi3D.run_resilient`` in both packages (16^3 on the
 (2,2,2) mesh, ``xla``; JAX on its fake CPU devices, the port on CPU
 shards) and compares the reports: the events as ``(kind, step)`` pairs
-(JAX's performance-observatory events, ``perf_*``, are left out — the
-observatory is ROADMAP A12 and the port emits none; ``same_events``: the
+(the performance-observatory events, ``perf_*``, are left out: they
+follow each run's own clock, and ``test_perf_drift_events_equal_jax``
+holds them under a fake one; ``same_events``: the
 same multiset and the same order but for the checkpoints, whose async
 write JAX's dispatch may report later), the step, rollback,
 save-retry and degradation counts, the final configuration — and the
@@ -299,15 +300,108 @@ def test_fused_loop_probes_ride_the_segment_trace(tmp_path, monkeypatch):
     assert probes == [] and traces == [(1, 2), (3, 4)]
 
 
-def test_observatory_options_raise_naming_a12(tmp_path, monkeypatch):
+def _drifting_clock(monkeypatch, mod, steps):
+    """Make every ``PerfAttributor`` of observatory module ``mod`` time
+    with a clock whose k-th dispatch lasts ``steps[k]`` seconds."""
+    import functools
+
+    seq = [x for d in steps for x in (0.0, d)]
+    t = [0.0]
+
+    def clock():
+        t[0] += seq.pop(0) if seq else 1.0
+        return t[0]
+
+    init = mod.PerfAttributor.__init__
+    monkeypatch.setattr(mod.PerfAttributor, "__init__",
+                        functools.partialmethod(init, clock=clock))
+
+
+#: segment seconds of a 12-step campaign in 2-step segments: a warm-up,
+#: the reference, one more alike, then three at 3x — a drift at step 12
+DRIFT = [5.0, 1.0, 1.0, 3.0, 3.0, 3.0]
+
+
+def _drift_attrs(events):
+    return [(e["step"], e["consecutive"], e["s"], e["method"], e["entry"],
+             e["tolerance"], e["window"], round(e["ratio"] / e["baseline"],
+                                                12))
+            for e in events if e["event"] == "perf_drift"]
+
+
+def test_perf_drift_events_equal_jax(tmp_path, monkeypatch):
+    """The driver's attributor under a fake clock: the same
+    ``perf_drift`` events as JAX's driver for the same segment times
+    (the ratios' scale differs with the default link price; their
+    departure from the reference does not)."""
+    from stencil_tpu_torch.observatory import attribution as pa
+
+    pol = fast_policy(check_every=2, ckpt_every=4)
+    _drifting_clock(monkeypatch, pa, DRIFT)
     j = make_jacobi()
-    for pol in (dict(flight_recorder_dir=str(tmp_path)),
-                dict(retune_on_drift=True)):
-        with pytest.raises(NotImplementedError, match="A12"):
-            j.run_resilient(2, policy=ResiliencePolicy(**fast_policy(**pol)))
-    monkeypatch.setenv("STENCIL_FLIGHT_RECORDER_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A12"):
-        j.run_resilient(2, policy=ResiliencePolicy(**fast_policy()))
+    rep = j.run_resilient(STEPS, policy=ResiliencePolicy(**pol),
+                          ckpt_dir=str(tmp_path / "port"))
+    got = _drift_attrs(rep.events)
+    with reference_block_planner():
+        from stencil_tpu import resilience as jr
+        from stencil_tpu.models.jacobi import Jacobi3D as JJacobi3D
+        from stencil_tpu.observatory import attribution as ja
+
+        _drifting_clock(monkeypatch, ja, DRIFT)
+        k = JJacobi3D(N, N, N, mesh_shape=(2, 2, 2), dtype=np.float32,
+                      devices=jax.devices()[:8])
+        k.init()
+        jrep = k.run_resilient(STEPS, policy=jr.ResiliencePolicy(**pol),
+                               ckpt_dir=str(tmp_path / "jax"))
+        want = _drift_attrs(jrep.events)
+    assert got == want == [(12, 3, 1, "PpermuteSlab", "jacobi", 0.5, 3,
+                            3.0)]
+
+
+def test_observatory_options_raise_naming_a12(tmp_path, monkeypatch):
+    """The A12 options that raised before the observatory was ported now
+    run: ``flight_recorder_dir`` (and ``$STENCIL_FLIGHT_RECORDER_DIR``)
+    dump each incident in JAX's schema, and ``retune_on_drift`` drops
+    the tuned plan's cache record on a drift (``plan_invalidated``)."""
+    from stencil_tpu_torch.observatory import attribution as pa
+    from stencil_tpu_torch.observatory.recorder import validate_dump
+    from stencil_tpu_torch import tuning
+    from stencil_tpu_torch.tuning import FakeTimer, load_plan
+
+    import stencil_tpu_torch.resilience as prs
+    flight = tmp_path / "flight"
+    rep = make_jacobi().run_resilient(
+        STEPS, policy=ResiliencePolicy(**fast_policy(
+            flight_recorder_dir=str(flight))),
+        ckpt_dir=str(tmp_path / "a"),
+        faults=_plan(prs, {"nans": [dict(step=7)]}))
+    dumps = sorted(flight.iterdir())
+    assert rep.rollbacks == 1 and len(dumps) == 1
+    assert "sentinel_trip" in dumps[0].name
+    assert validate_dump(dumps[0]) == []
+    monkeypatch.setenv("STENCIL_FLIGHT_RECORDER_DIR", str(tmp_path / "env"))
+    make_jacobi().run_resilient(
+        STEPS, policy=ResiliencePolicy(**fast_policy()),
+        ckpt_dir=str(tmp_path / "b"),
+        faults=_plan(prs, {"preemptions": [dict(step=6)]}))
+    assert [p.name.split("_")[-1] for p in (tmp_path / "env").iterdir()] \
+        == ["preempt.json"]
+    monkeypatch.delenv("STENCIL_FLIGHT_RECORDER_DIR")
+    cache = tmp_path / "plans.json"
+    monkeypatch.setenv("STENCIL_TUNE_CACHE", str(cache))
+    monkeypatch.setattr(tuning, "MeshTimer", lambda *a, **kw: FakeTimer())
+    j = make_jacobi(methods=Method.Auto)
+    fp = j.dd.plan.fingerprint
+    assert load_plan(fp, cache) is not None
+    _drifting_clock(monkeypatch, pa, DRIFT)
+    rep = j.run_resilient(STEPS, policy=ResiliencePolicy(**fast_policy(
+        check_every=2, ckpt_every=4, retune_on_drift=True,
+        plan_cache_path=str(cache))), ckpt_dir=str(tmp_path / "c"))
+    kinds = [e["event"] for e in rep.events]
+    assert "perf_drift" in kinds
+    inval = [e for e in rep.events if e["event"] == "plan_invalidated"]
+    assert inval and inval[0]["fingerprint"] == fp and inval[0]["removed"]
+    assert load_plan(fp, cache) is None
 
 
 def test_run_loop_counters_use_jax_names(tmp_path):

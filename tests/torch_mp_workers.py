@@ -248,6 +248,8 @@ def two_rank_cases(rank: int, out: str) -> None:
     _a4c(rank, out, A4C_CASES, {"pairs4": devs2, "pairs8": devs,
                                 "board": board, "segment": devs2})
     resilience_cases(rank, out, devs2)
+    autotune_case(rank, out, devs2)
+    autotune_agreement_case(rank, out, devs2)
     got = {}
     try:
         check_transport("nccl", global_devices(["cpu"]))
@@ -257,6 +259,72 @@ def two_rank_cases(rank: int, out: str) -> None:
     if rank == 0:
         with open(os.path.join(out, "refusals.json"), "w") as f:
             json.dump(got, f)
+
+
+def autotune_case(rank: int, out: str, devs2) -> None:
+    """``Method.Auto`` across two ranks: the real timer (its ring shift
+    along z crosses the ranks as a message, every candidate's exchange
+    too), every rank adopting rank 0's plan; a second domain of the same
+    problem reads the cache both ranks see. Each rank writes its plans
+    and its ``run(3)`` field."""
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.parallel.methods import Method
+
+    os.environ["STENCIL_TUNE_CACHE"] = os.path.join(out, "plans.json")
+    j = Jacobi3D(16, 16, 16, kernel="xla", mesh_shape=(1, 2, 2),
+                 devices=devs2, methods=Method.Auto)
+    j.init()
+    j.run(3)
+    k = Jacobi3D(16, 16, 16, kernel="xla", mesh_shape=(1, 2, 2),
+                 devices=devs2, methods=Method.Auto)
+    temp = j.temperature()
+    with open(os.path.join(out, f"autotune_{rank}.json"), "w") as f:
+        json.dump({"plan": j.dd.plan.to_record(),
+                   "second": k.dd.plan.to_record()}, f)
+    if rank == 0:
+        np.save(os.path.join(out, "autotune_temp.npy"), temp)
+
+
+#: each rank's own link in ``autotune_agreement_case``: rank 0's is all
+#: latency (the deepest exchange ranks first), rank 1's all bandwidth
+#: (depth 1 ranks first), so that each rank's own fit would keep
+#: different candidates
+AGREEMENT_LINKS = ((1e-3, 1e15), (1e-9, 1e6))
+
+
+class RecordingTimer:
+    """A ``FakeTimer`` that notes the key of every candidate it times."""
+
+    def __init__(self, timer) -> None:
+        self._timer = timer
+        self.timed = []
+
+    def __getattr__(self, name):
+        return getattr(self._timer, name)
+
+    def exchange_round(self, cand, geom):
+        self.timed.append(cand.key())
+        return self._timer.exchange_round(cand, geom)
+
+
+def autotune_agreement_case(rank: int, out: str, devs2) -> None:
+    """Two ranks whose clocks fit opposite links: both rank with rank
+    0's fit, so both time the same candidates (the timings are
+    collective exchanges) and adopt one plan. Each rank writes the keys
+    it timed and its plan."""
+    from stencil_tpu_torch.analysis.costmodel import LinkCoefficients
+    from stencil_tpu_torch.tuning import FakeTimer
+
+    alpha, beta = AGREEMENT_LINKS[rank]
+    timer = RecordingTimer(FakeTimer(LinkCoefficients(
+        alpha_s=alpha, beta_bytes_per_s=beta)))
+    dd = DistributedDomain(16, 16, 16, devices=devs2)
+    dd.set_mesh_shape((1, 2, 2))
+    dd.set_radius(1)
+    dd.add_data("q0", torch.float32)
+    plan = dd.autotune(timer=timer, use_cache=False, max_measurements=2)
+    with open(os.path.join(out, f"agreement_{rank}.json"), "w") as f:
+        json.dump({"timed": timer.timed, "plan": plan.to_record()}, f)
 
 
 #: the resilient campaign across ranks: Jacobi halo on (1,2,2) (two
@@ -288,9 +356,12 @@ def resilient_campaign(devices, ckpt_dir: str):
                                                  Preemption(step=6)]))
     k = model()
     second = k.run_resilient(RESILIENT_STEPS, policy=pol, ckpt_dir=ckpt_dir)
-    return ([(e["event"], e.get("step")) for e in first.events],
-            [(e["event"], e.get("step")) for e in second.events],
-            k.temperature())
+    # the observatory's perf_* events follow each rank's own clock
+    def kinds(rep):
+        return [(e["event"], e.get("step")) for e in rep.events
+                if not e["event"].startswith("perf_")]
+
+    return kinds(first), kinds(second), k.temperature()
 
 
 def resilience_cases(rank: int, out: str, devs2) -> None:

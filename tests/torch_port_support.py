@@ -27,17 +27,20 @@ _JAX_CORE_NAMES = ("Jaxpr", "ClosedJaxpr", "Literal", "Var")
 
 
 @contextlib.contextmanager
-def reference_block_planner():
-    """Let the JAX package's wrap kernels run on this jax.
+def reference_modules():
+    """Let the JAX-package modules that import ``stencil_tpu.analysis``
+    run on this jax: the wrap kernels' block planner, and the modules the
+    A12 parity tests hold the port against (``stencil_tpu.tuning``,
+    ``stencil_tpu.observatory``, ``stencil_tpu.analysis.costmodel``).
 
-    ``jacobi7_wrap_pallas`` and ``jacobi7_wrapn_pallas`` choose their
-    blocks through ``stencil_tpu.analysis.tiling``, whose package import
-    reads ``jax.core.Jaxpr`` and its siblings (``ops/pallas_halo.py``
-    imports it at module level). Where jax no longer has them there,
-    lend the ``jax.extend.core`` objects for the duration, then take them
-    back and drop every JAX-package module imported meanwhile, so every
-    other test sees the process as it was. The JAX package itself is not
-    touched."""
+    ``stencil_tpu/analysis/__init__.py`` reaches ``analysis/jaxprs.py``,
+    which reads ``jax.core.Jaxpr`` and its siblings (and
+    ``ops/pallas_halo.py`` imports ``analysis.tiling`` at module level).
+    Where jax no longer has them there, lend the ``jax.extend.core``
+    objects for the duration, then take them back and drop every
+    JAX-package module imported meanwhile, so every other test sees the
+    process as it was. Call the JAX functions inside the context: their
+    lazy imports need it. The JAX package itself is not touched."""
     import jax.core as jc
     import jax.extend.core as jec
 
@@ -63,6 +66,10 @@ def reference_block_planner():
                     delattr(pkg, child)
             for name in lent:
                 delattr(jc, name)
+
+
+#: the name the wrap-kernel tests use
+reference_block_planner = reference_modules
 
 
 def sphere_args(shape_zyx):
