@@ -325,6 +325,31 @@ Phases, in order; any failure exits non-zero before the last line:
      ``/metrics``; ``bench_exchange --autotune --tune-cache
      --metrics-json --ledger --json-out`` into a temporary directory,
      its ledger records valid.
+   - Ensemble serving (``run_serving``, ``serving/``): ``EnsembleJacobi``
+     width 8 at 256^3 float32 on (1,1,1) and on four shards of (1,2,2):
+     members 0 and 5 bitwise ``Jacobi3D(kernel="xla")`` runs of the same
+     initial fields, members 6 and 7 (other hot/cold) bitwise one-member
+     ensembles; with a plan naming ``PallasDMA`` (a temporary plan
+     cache) on (1,2,2), B4's launches per ``run(4)`` (counts set to 0
+     just before) 12 at width 8 as at width 1, its launch tables' bytes
+     exactly 8x, the slab engine's messages equal and its wire bytes
+     exactly 8x, every member bitwise the width-8 ensemble of the plain
+     slab exchange (``Default``) on the same initial fields and member 0
+     bitwise the width-1 run; the three B4 sweeps of 8 members and of
+     one (CUDA events); member-steps/s at width 1 and 8 on (1,1,1) and
+     on the (1,2,2) ``PallasDMA`` ensembles (events, three runs pooled). ``EnsembleAstaroth`` width 4 at 128^3, member 2 on
+     other ``nu_visc``/``eta``: members 0 and 2 bitwise the standalone
+     ``Astaroth(kernel="xla")`` with their coefficients. A
+     ``CampaignService`` on (1,2,2) with a ``MeshTimer``: three tenants
+     at 256^3 and a warm second wave (the adopted plan; 0 recompiles and
+     0 measurements from ``metrics_text()``), a NaN in one lane rolled
+     back alone (every lane bitwise a clean service), a preemption and
+     its resume (bitwise); with ``attribute_perf`` off, on, on, off,
+     each service warmed by a short wave, the time a segment takes in a
+     longer wave, from the service's own ``segment`` spans. A ``Fleet`` of three replicas on the card at 128^3
+     (buckets 64^3 and 128^3, one grid padded up), four tenants, the
+     replica owning t0 killed at step 2: every campaign bitwise the calm
+     fleet's.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -5545,6 +5570,486 @@ def attribution_cost(root, mesh) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4: ensemble serving (serving/)
+# ---------------------------------------------------------------------------
+SERVE_N = 256           # the Jacobi ensemble's and the service's grid a side
+SERVE_WIDTH = 8         # Jacobi ensemble members
+SERVE_STEPS = 4         # run(4)
+SERVE_RATE_RUNS = 3     # member-steps/s: runs pooled
+SERVE_AST_N = 128       # the Astaroth ensemble's grid a side
+SERVE_AST_WIDTH = 4
+SERVE_FLEET_N = 128     # the fleet's grid a side (its bucket)
+SERVE_ATT_STEPS = 32    # the attribution cost's timed wave, member steps
+SERVE_TEMPS = {6: (1.5, -0.5), 7: (0.75, 0.25)}   # other hot/cold members
+
+
+def serve_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"ensemble serving: {what}")
+
+
+def b4_table_bytes(fields, radius, counts) -> int:
+    """Bytes B4's launch tables of one exchange store: every row's two
+    slabs, over every sweep (``ops/cuda_exchange.exchange_plan``; rows
+    of a one-shard axis store into the shard itself)."""
+    from stencil_tpu_torch.ops import cuda_exchange as cx
+
+    sweeps = [(a, radius.face(a, -1), radius.face(a, 1)) for a in range(3)]
+    plan = cx.exchange_plan(cx.member_views(fields), sweeps, counts)
+    f = cx.ENTRY_FIELDS
+    lo, hi, runs = f.index("lo_run"), f.index("hi_run"), f.index("runs")
+    return sum((row[lo] + row[hi]) * row[runs] * cs.unit
+               for per_card in plan.launches for cs in per_card
+               for row in cs.rows)
+
+
+def seeded_member(torch, k: int, n: int):
+    """Member ``k``'s initial temperature, made on the card from a seed:
+    0.5 + 0.01 x uniform noise, (n, n, n)."""
+    g = torch.Generator(device=CARD).manual_seed(1000 + k)
+    return 0.5 + 0.01 * torch.rand((n, n, n), generator=g, device=CARD)
+
+
+def serving_plan_cache(root: str, fp: str, method: str) -> str:
+    """A plan cache holding one plan that names ``method`` (depth 1) for
+    the fingerprint ``fp``."""
+    from stencil_tpu_torch.tuning import Candidate, Plan, store_plan
+
+    path = os.path.join(root, f"plans_{method}.json")
+    store_plan(Plan(config=Candidate(method=method), fingerprint=fp,
+                    coefficients={}, costs={}), path)
+    return path
+
+
+def member_steps_per_s(torch, eng, k: int) -> tuple:
+    """Member-steps/s of ``eng.run(k)``: CUDA events around each of
+    ``SERVE_RATE_RUNS`` runs after one untimed run, pooled (all member
+    steps over all their seconds), and each run's rate."""
+    eng.run(1)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(SERVE_RATE_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.run(k)
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    work = eng.n_members * k
+    return (1e3 * work * len(ms) / sum(ms), [1e3 * work / m for m in ms])
+
+
+def run_serving(torch) -> dict:
+    """Phase 4: ensemble serving — the Jacobi and Astaroth ensembles
+    against their standalone models bitwise, B4 on the member views of
+    a PallasDMA plan, the campaign service (tuned plan, warm path,
+    member rollback, preemption) and the fleet's replica-kill recovery,
+    all on the one card."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        return _serving(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _serving(torch, root) -> dict:
+    import numpy as np
+
+    from stencil_tpu_torch.models.astaroth import FIELDS, Astaroth, MhdParams
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.ops import cuda_exchange as cx
+    from stencil_tpu_torch.parallel.exchange import WireProbe, dispatch_exchange
+    from stencil_tpu_torch.parallel.methods import Method
+    from stencil_tpu_torch.serving import EnsembleAstaroth, EnsembleJacobi
+    from stencil_tpu_torch.tuning import load_plan
+
+    card = card_line()
+    out = {"card": card}
+    n = SERVE_N
+    grid = (n, n, n)
+
+    # 1. the Jacobi ensemble, width 8 at 256^3 float32, periodic
+    def jacobi_ensemble(mesh, width=SERVE_WIDTH, plan=None, temps=True):
+        devs = [CARD] * (mesh[0] * mesh[1] * mesh[2])
+        eng = EnsembleJacobi(width, *grid, mesh_shape=mesh, devices=devs,
+                             plan=plan)
+        for k, (hot, cold) in SERVE_TEMPS.items():
+            if temps and k < width:
+                eng.set_member_params(k, {"hot_temp": hot,
+                                          "cold_temp": cold})
+        eng.init()
+        for k in range(width):
+            eng.set_member_interior("temp", k, seeded_member(torch, k, n))
+        return eng
+
+    checks = {}
+    for mesh in ((1, 1, 1), (1, 2, 2)):
+        devs = [CARD] * (mesh[0] * mesh[1] * mesh[2])
+        eng = jacobi_ensemble(mesh)
+        eng.run(SERVE_STEPS)
+        ref = Jacobi3D(*grid, kernel="xla", mesh_shape=mesh, devices=devs)
+        same = []
+        for k in (0, SERVE_WIDTH - 3):
+            ref.init()
+            ref.dd.set_interior("temp", seeded_member(torch, k, n))
+            ref.run(SERVE_STEPS)
+            same.append(np.array_equal(ref.temperature(),
+                                       eng.member_interior("temp", k)))
+        for k, (hot, cold) in SERVE_TEMPS.items():
+            solo = EnsembleJacobi(1, *grid, mesh_shape=mesh, devices=devs)
+            solo.set_member_params(0, {"hot_temp": hot, "cold_temp": cold})
+            solo.init()
+            solo.set_member_interior("temp", 0, seeded_member(torch, k, n))
+            solo.run(SERVE_STEPS)
+            same.append(np.array_equal(solo.member_interior("temp", 0),
+                                       eng.member_interior("temp", k)))
+            del solo
+        checks[str(mesh)] = same
+        log(f"  Jacobi ensemble width {SERVE_WIDTH} {n}^3 {mesh}: members "
+            f"0 and {SERVE_WIDTH - 3} against Jacobi3D(kernel='xla'), "
+            f"members {sorted(SERVE_TEMPS)} (other hot/cold) against "
+            f"one-member ensembles: {'bitwise equal' if all(same) else same}")
+        serve_check(all(same), f"Jacobi ensemble {mesh}: {same}")
+        del eng, ref
+    out["jacobi_bitwise"] = checks
+
+    # 2. B4 on the member views: a plan naming PallasDMA, (1,2,2)
+    mesh = (1, 2, 2)
+    devs = [CARD] * 4
+    fp = EnsembleJacobi(1, *grid, mesh_shape=mesh, devices=devs).fingerprint
+    cache = serving_plan_cache(root, fp, "PallasDMA")
+    plan = load_plan(fp, cache)
+    runs = {}
+    # the same initial fields through the plain slab exchange
+    plain = jacobi_ensemble(mesh, temps=False)
+    plain.run(SERVE_STEPS)
+    for width in (1, SERVE_WIDTH):
+        eng = jacobi_ensemble(mesh, width=width, plan=plan, temps=False)
+        serve_check(eng._method == Method.PallasDMA,
+                    f"plan adopted {eng._method}")
+        torch.cuda.synchronize()
+        cx.reset_launch_counts()
+        eng.run(SERVE_STEPS)
+        torch.cuda.synchronize()
+        launches = cx.LAUNCHES["exchange_axis"]
+        dd = eng.dd
+        table = b4_table_bytes(list(eng.state.values()), dd.radius,
+                               dd.mesh_counts)
+        probe = WireProbe()
+        copies = {"temp": [t.clone() for t in eng.state["temp"]]}
+        dispatch_exchange(copies, dd.radius, dd.mesh_counts,
+                          Method.PpermuteSlab, probe=probe)
+        def sweeps(eng=eng, dd=dd):
+            join = cx.start_sweeps([eng.state["temp"]],
+                                   [(a, 1, 1) for a in range(3)],
+                                   dd.mesh_counts)
+            if join is not None:
+                join.exit()
+
+        sweep_ms = event_ms(torch, sweeps, reps=20)
+        runs[width] = {"launches_run4": launches, "b4_table_bytes": table,
+                       "slab_messages": len(probe.records),
+                       "slab_wire_bytes": probe.bytes,
+                       "b4_sweeps_ms": sweep_ms, "eng": eng}
+    one, many = runs[1], runs[SERVE_WIDTH]
+    b4 = {"launches_run4": many["launches_run4"],
+          "single_launches_run4": one["launches_run4"],
+          # each stored slab read once and written once
+          "b4_sweeps_bound_ms": bound_ms(2 * many["b4_table_bytes"], 0)[0]}
+    for key in ("b4_table_bytes", "slab_messages", "slab_wire_bytes",
+                "b4_sweeps_ms"):
+        b4[key] = many[key]
+        b4["single_" + key] = one[key]
+    # every member of the B4 run against the plain exchange's, and
+    # member 0 against the width-1 B4 run
+    same = [np.array_equal(many["eng"].member_interior("temp", k),
+                           plain.member_interior("temp", k))
+            for k in range(SERVE_WIDTH)]
+    same.append(np.array_equal(many["eng"].member_interior("temp", 0),
+                               one["eng"].member_interior("temp", 0)))
+    del plain
+    out["b4"] = b4
+    log(f"  B4 batched, PallasDMA plan (seeded cache), {n}^3 (1,2,2): "
+        f"run({SERVE_STEPS}) launches width {SERVE_WIDTH} "
+        f"{many['launches_run4']} against width 1 {one['launches_run4']}; "
+        f"B4 table bytes an exchange {many['b4_table_bytes']} against "
+        f"{one['b4_table_bytes']} "
+        f"(x{many['b4_table_bytes'] / one['b4_table_bytes']!r}); slab "
+        f"engine {many['slab_messages']} messages, {many['slab_wire_bytes']}"
+        f" wire bytes against {one['slab_messages']}, "
+        f"{one['slab_wire_bytes']}; the three sweeps "
+        f"{many['b4_sweeps_ms']!r} ms batched against "
+        f"{one['b4_sweeps_ms']!r} ms one member (events); members "
+        f"0..{SERVE_WIDTH - 1} against the plain slab exchange, member 0 "
+        f"against width 1: {'bitwise' if all(same) else same} "
+        f"(card: {card})")
+    serve_check(
+        many["launches_run4"] == one["launches_run4"] == 3 * SERVE_STEPS
+        and many["b4_table_bytes"] == SERVE_WIDTH * one["b4_table_bytes"]
+        and many["slab_messages"] == one["slab_messages"] > 0
+        and many["slab_wire_bytes"] == SERVE_WIDTH * one["slab_wire_bytes"]
+        and all(same), f"B4 batched {b4} bitwise {same}")
+
+    # 3. member-steps/s at width 1 and 8: the (1,2,2) PallasDMA
+    # ensembles above, and (1,1,1) with the default method
+    rates = {"(1,2,2) PallasDMA": {w: member_steps_per_s(
+        torch, r["eng"], SERVE_STEPS) for w, r in runs.items()}}
+    del runs, one, many
+    rates["(1,1,1) Default"] = {}
+    for width in (1, SERVE_WIDTH):
+        eng = jacobi_ensemble((1, 1, 1), width=width, temps=False)
+        rates["(1,1,1) Default"][width] = member_steps_per_s(
+            torch, eng, SERVE_STEPS)
+        del eng
+    out["member_steps_per_s"] = {
+        m: {w: r[0] for w, r in per.items()} for m, per in rates.items()}
+    out["runs_member_steps_per_s"] = {
+        m: {w: r[1] for w, r in per.items()} for m, per in rates.items()}
+    for m, per in rates.items():
+        log(f"  member-steps/s {n}^3 {m}, pooled over {SERVE_RATE_RUNS} "
+            f"runs: width 1 {per[1][0]!r} (each {per[1][1]!r}), width "
+            f"{SERVE_WIDTH} {per[SERVE_WIDTH][0]!r} (each "
+            f"{per[SERVE_WIDTH][1]!r}) (card: {card})")
+
+    # 4. the Astaroth ensemble, width 4 at 128^3 float32
+    an = SERVE_AST_N
+    over = {"nu_visc": 7e-3, "eta": 6e-3}
+    eng = EnsembleAstaroth(SERVE_AST_WIDTH, an, an, an, mesh_shape=(1, 1, 1),
+                           devices=[CARD])
+    eng.init(seeds=[20 + k for k in range(SERVE_AST_WIDTH)])
+    eng.set_member_params(2, over)
+    ics = {k: {q: eng.member_interior(q, k) for q in FIELDS}
+           for k in (0, 2)}
+    eng.run(1)
+    same = []
+    for k in (0, 2):
+        ref = Astaroth(an, an, an, kernel="xla", mesh_shape=(1, 1, 1),
+                       devices=[CARD],
+                       params=MhdParams(**(over if k == 2 else {})))
+        for q in FIELDS:
+            ref.dd.set_interior(q, torch.from_numpy(ics[k][q]))
+        ref.run(1)
+        same.append(all(np.array_equal(ref.field(q),
+                                       eng.member_interior(q, k))
+                        for q in FIELDS))
+        del ref
+    out["astaroth_bitwise"] = same
+    log(f"  Astaroth ensemble width {SERVE_AST_WIDTH} {an}^3 float32, "
+        f"member 2 on nu_visc/eta {over}: members 0 and 2 against "
+        f"Astaroth(kernel='xla') with their coefficients: "
+        f"{'bitwise equal' if all(same) else same}")
+    serve_check(all(same), f"Astaroth ensemble members {same}")
+    del eng
+
+    out["service"] = serving_service(torch, root)
+    out["fleet"] = serving_fleet(torch, root)
+    return out
+
+
+def serving_requests(tag: str, chaos: bool = False, n_steps: int = 6,
+                     **kw):
+    from stencil_tpu_torch.serving import CampaignRequest
+
+    kw.setdefault("ckpt_every", 3)
+    return [CampaignRequest(
+        tenant=f"t{i}", campaign=tag, grid=(SERVE_N,) * 3, n_steps=n_steps,
+        mesh_shape=(1, 2, 2), init_seed=100 + i,
+        params={"hot_temp": 1.0 + 0.25 * i},
+        chaos_nan_step=4 if chaos and i == 1 else None, **kw)
+        for i in range(3)]
+
+
+def segment_cycle(tracer, lanes: int) -> tuple:
+    """From a service's ``segment`` spans of one wave: the seconds from
+    one segment's start to the next's (dispatch, the attributor's fence
+    when on, the blocking probe poll, the lane bookkeeping) averaged
+    over the wave, and the member steps a second over those cycles."""
+    segs = sorted((sp for sp in tracer.finished() if sp.name == "segment"),
+                  key=lambda sp: sp.start_s)
+    cycles = [b.start_s - a.start_s for a, b in zip(segs, segs[1:])]
+    steps = sum(sp.attrs["steps"] for sp in segs[:-1]) * lanes
+    return sum(cycles) / len(cycles), steps / sum(cycles)
+
+
+def serving_service(torch, root) -> dict:
+    """The campaign service on (1,2,2) of the card: a MeshTimer tunes the
+    plan once, three tenants at 256^3 and a warm second wave; a NaN in
+    one lane rolls back that lane alone; a preempted campaign resumes;
+    the time a segment takes with ``attribute_perf`` off, on, on, off."""
+    import numpy as np
+
+    from stencil_tpu_torch.geometry import Dim3
+    from stencil_tpu_torch.numerics import div_ceil
+    from stencil_tpu_torch.parallel.mesh import Mesh
+    from stencil_tpu_torch.serving import CampaignService
+    from stencil_tpu_torch.serving.ensemble import request_domain
+    from stencil_tpu_torch.telemetry import metric_value
+    from stencil_tpu_torch.tuning import MeshTimer
+
+    card = card_line()
+    devs = [CARD] * 4
+    cache = os.path.join(root, "service_plans.json")
+    dd = request_domain(serving_requests("probe")[0], devs)
+    dim = dd._choose_partition_dim()
+    timer = MeshTimer(Mesh(dim, dd._choose_placement(
+        dim, dd._discover_dcn_groups()).slot_order_for_mesh()),
+        Dim3(*(div_ceil(dd.size[a], dim[a]) for a in range(3))),
+        [dd._dtypes[q] for q in dd._names])
+
+    def service(tag, **kw):
+        return CampaignService(os.path.join(root, tag), devices=devs,
+                               width=4, tuner_timer=timer,
+                               plan_cache_path=cache, **kw)
+
+    out = {}
+    svc = service("svc")
+    hs = [svc.submit(r) for r in serving_requests("wave1", chaos=True)]
+    svc.drain()
+    res = [h.result(timeout=0) for h in hs]
+    eng = next(iter(svc._engines.values()))
+    plan = eng.dd.plan
+    text1 = metric_value(svc.metrics_text(),
+                         "stencil_service_tuner_measurements_total")
+    warm = svc.submit(serving_requests("wave2")[0])
+    svc.drain()
+    warm_res = warm.result(timeout=0)
+    text = svc.metrics_text()
+    recompiles = metric_value(text, "stencil_service_recompiles_total")
+    meas = metric_value(text, "stencil_service_tuner_measurements_total")
+    out.update(plan=plan.config.key(), plan_provenance=plan.provenance,
+               tune_measurements=text1, recompiles=recompiles,
+               warm_measurements=meas - text1,
+               rollbacks=[r.rollbacks for r in res])
+    log(f"  service (1,2,2) {SERVE_N}^3, MeshTimer: adopted plan "
+        f"{plan.config.key()} ({plan.provenance}, {int(text1)} "
+        f"measurements); rollbacks {[r.rollbacks for r in res]}; warm "
+        f"wave: recompiles {recompiles}, measurements {meas - text1} "
+        f"(metrics_text)")
+    serve_check(recompiles == 0 and meas == text1 and text1 > 0
+                and warm_res.steps == 6
+                and [r.rollbacks for r in res] == [0, 1, 0],
+                f"service {out}")
+    calm = service("calm")
+    hc = [calm.submit(r) for r in serving_requests("wave1")]
+    calm.drain()
+    same = [np.array_equal(h.result(timeout=0).final["temp"], r.final["temp"])
+            for h, r in zip(hc, res)]
+    out["chaos_vs_clean_bitwise"] = same
+    log(f"  NaN in t1's lane at step 4: rolled back alone; t0, t1, t2 "
+        f"against a clean service: {same}")
+    serve_check(all(same), f"service lanes against a clean run {same}")
+    # preempt at step 3, resume in a new service: bitwise the clean run
+    pre = service("pre")
+    pre.arm_preempt_at(3)
+    hp = pre.submit(serving_requests("wave1")[0])
+    pre.drain()
+    r_pre = hp.result(timeout=0)
+    pre2 = CampaignService(os.path.join(root, "pre"), devices=devs,
+                           width=4, tuner_timer=timer, plan_cache_path=cache)
+    hr = pre2.submit(serving_requests("wave1")[0])
+    pre2.drain()
+    r_res = hr.result(timeout=0)
+    resumed = np.array_equal(r_res.final["temp"],
+                             hc[0].result(timeout=0).final["temp"])
+    out.update(preempted_at=r_pre.steps, resumed_from=r_res.resumed_from,
+               resume_bitwise=resumed)
+    log(f"  preempted at step {r_pre.steps}, resumed from "
+        f"{r_res.resumed_from}: {'bitwise' if resumed else 'DIFFERENT'} "
+        f"the clean run")
+    serve_check(r_pre.preempted and r_pre.steps == 3
+                and r_res.resumed_from == 3 and resumed,
+                f"preempt/resume {r_pre.steps} {r_res.resumed_from}")
+    del svc, calm, pre, pre2
+    # the attributor's cost: attribute_perf off, on, on, off; each
+    # service warmed by a two-step wave (engine, plan, attributor built),
+    # then a wave of SERVE_ATT_STEPS one-step segments (check_every 1,
+    # the default) timed by its own segment spans
+    cycle = {"off": [], "on": []}
+    rates = {"off": [], "on": []}
+    for k, on in enumerate((False, True, True, False)):
+        s = service(f"att{k}", attribute_perf=on)
+        for r in serving_requests(f"att{k}warm", n_steps=2, ckpt_every=0):
+            s.submit(r)
+        s.drain()
+        s.tracer.clear()
+        hs = [s.submit(r) for r in serving_requests(
+            f"att{k}", n_steps=SERVE_ATT_STEPS, ckpt_every=0)]
+        s.drain()
+        serve_check(all(h.result(timeout=0).steps == SERVE_ATT_STEPS
+                        for h in hs), f"attribution wave att{k}")
+        sec, rate = segment_cycle(s.tracer, len(hs))
+        cycle["on" if on else "off"].append(sec)
+        rates["on" if on else "off"].append(rate)
+        del s
+    out["segment_s"] = cycle
+    out["segment_member_steps_per_s"] = rates
+    log(f"  service segments (3 tenants x {SERVE_ATT_STEPS} one-step "
+        f"segments after a warm wave, width 4, {SERVE_N}^3 (1,2,2); "
+        f"segment span start to start): attribute_perf off "
+        f"{cycle['off']!r} s ({rates['off']!r} member steps/s), on "
+        f"{cycle['on']!r} s ({rates['on']!r}) (card: {card})")
+    return out
+
+
+def serving_fleet(torch, root) -> dict:
+    """Three replicas sharing the card at 128^3 (buckets 64^3, 128^3),
+    four tenants (one grid padded up to its bucket); the replica that
+    owns t0 is killed at member step 2: every campaign equals its calm
+    run bitwise."""
+    import numpy as np
+
+    from stencil_tpu_torch.resilience.faults import ReplicaCrash
+    from stencil_tpu_torch.serving import (CampaignRequest, Fleet,
+                                           rendezvous_replica)
+    from stencil_tpu_torch.serving.queue import request_fingerprint
+
+    n = SERVE_FLEET_N
+    buckets = ((64, 64, 64), (n, n, n))
+    plans = os.path.join(root, "fleet_plans.json")
+
+    def reqs():
+        return [CampaignRequest(
+            tenant=f"t{i}", campaign="c0",
+            grid=(n * 25 // 32, n, n) if i == 3 else (n, n, n), n_steps=6,
+            ckpt_every=2, init_seed=200 + i,
+            params={"hot_temp": 1.0 + 0.05 * i}) for i in range(4)]
+
+    def fleet(tag, chaos=()):
+        return Fleet(os.path.join(root, tag), n_replicas=3, devices=[CARD],
+                     width=4, plan_cache_path=plans, buckets=buckets,
+                     chaos=chaos)
+
+    calm = fleet("calm")
+    hc = [calm.submit(r) for r in reqs()]
+    calm.serve()
+    r0 = reqs()[0]
+    fp = request_fingerprint(r0, devices=[CARD])
+    victim = int(rendezvous_replica(
+        f"{fp}|t0", [f"replica-{i}" for i in range(3)]).rsplit("-", 1)[1])
+    chaos = fleet("chaos", [ReplicaCrash(step=0, replica=victim,
+                                         at_member_step=2)])
+    hs = [chaos.submit(r) for r in reqs()]
+    chaos.serve()
+    same = [np.array_equal(a.result(timeout=0).final["temp"],
+                           b.result(timeout=0).final["temp"])
+            for a, b in zip(hc, hs)]
+    states = [r.state for r in chaos.replicas]
+    resumed = [h.result(timeout=0).resumed_from for h in hs]
+    log(f"  fleet 3 replicas {n}^3, buckets {buckets}, 4 tenants: "
+        f"replica-{victim} killed at step 2; replicas {states}; resumed "
+        f"from {resumed}; every campaign against the calm fleet: "
+        f"{'bitwise equal' if all(same) else same}")
+    serve_check(all(same) and states.count("dead") == 1
+                and any(r == 2 for r in resumed),
+                f"fleet recovery {same} {states} {resumed}")
+    return {"victim": victim, "states": states, "resumed_from": resumed,
+            "bitwise": same}
+
+
 def _storage(name: str, m) -> tuple:
     """The storage types after a match of the bool template arguments: ()
     for the float32 instance, else ("bf16", ...) or the (TIn, TOut) pair
@@ -6130,6 +6635,13 @@ def main() -> int:
     autotune = run_autotune_observatory(torch)
     autotune["phase_s"] = time.perf_counter() - t0
     log(f"  phase took {autotune['phase_s']!r} s")
+    log("phase 4: ensemble serving: Jacobi ensembles width 8 at 256^3 "
+        "(1,1,1) and (1,2,2) with B4 on the member views, Astaroth width 4 "
+        "at 128^3, the campaign service and the fleet (card: " + card + ")")
+    t0 = time.perf_counter()
+    serving = run_serving(torch)
+    serving["phase_s"] = time.perf_counter() - t0
+    log(f"  phase took {serving['phase_s']!r} s")
     log("phase 4: two ranks on the one card: Jacobi3D 512^3 halo and xla "
         "and Astaroth 256x512x512 halo (gloo-staged), B7, K3 + B4 and "
         "B13/B14 over CUDA IPC with device-side flags, xla-overlap, "
@@ -6224,6 +6736,10 @@ def main() -> int:
         if name in ("jacobi7_padded", "exchange_axis"):
             # the Method.Auto run(4) on the tuned winner (phase 4)
             entry["auto_launches"] = autotune["run4_launches"].get(name, 0)
+        if name == "exchange_axis":
+            # the serving path: run(4) of the width-8 ensemble on (1,2,2)
+            # with a PallasDMA plan, the member views rows of one table
+            entry["serving"] = serving["b4"]
         if name == "jacobi7_padded":
             # K3 behind narrowed and irredundant wires: launches of the
             # phase-4 pallas run(4) on four shards behind a bf16
@@ -6369,6 +6885,7 @@ def main() -> int:
                    "segments": segments,
                    "resilience": resilience,
                    "autotune": autotune,
+                   "serving": serving,
                    "two_ranks": two_ranks,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)

@@ -273,6 +273,35 @@ def mhd_rates(f: Dict[str, FieldData], prm: MhdParams, dtype):
             "ax": d_aa[0], "ay": d_aa[1], "az": d_aa[2], "ss": d_ss}
 
 
+def mhd_substep_shard(curr: Dict[str, torch.Tensor],
+                      w: Dict[str, torch.Tensor], s: int, prm: MhdParams,
+                      dtype: torch.dtype, radius: Radius, local: Dim3,
+                      alloc_radius: Radius) -> None:
+    """RK3 substep ``s`` on one exchanged padded shard: the rates and the
+    update ``wq = alpha*w + dt*rates; u = value + beta*wq`` over its
+    capacity interior (the JAX model's ``substep_fused``), written into
+    ``curr`` in place, with ``w[q]`` replaced by the new accumulator.
+    Leading dimensions (an ensemble's member axis) broadcast, and so do
+    ``prm``'s coefficients where they are ``(N, 1, 1, 1)`` tensors."""
+    from ..ops.cuda_mhd import compute_dtype
+
+    comp = compute_dtype(dtype)
+    pad_lo = radius.pad_lo()
+    inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
+    alpha = const(RK3_ALPHA[s], comp)
+    beta = const(RK3_BETA[s], comp)
+    dt_ = const(prm.dt, comp)
+    cap = (Ellipsis,) + interior_slices(local, alloc_radius)
+    data = {q: FieldData(t.to(comp), inv_ds, pad_lo, local)
+            for q, t in curr.items()}
+    rates = mhd_rates(data, prm, comp)
+    for q in curr:
+        wq = alpha * w[q].to(comp) + dt_ * rates[q]
+        uq = data[q].value + beta * wq
+        w[q] = wq.to(dtype)
+        curr[q][cap].copy_(uq)
+
+
 def _host_values(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     """A float64 initial-condition array as a host tensor of ``dtype``,
     rounded as the JAX model's ``astype`` rounds it: numpy for float32
@@ -636,34 +665,16 @@ class Astaroth:
         return interior_slices(self.dd.local_size, self.dd.alloc_radius)
 
     def _substep_xla(self, s: int) -> None:
-        """One substep on the padded shards: exchange, then per shard the
-        rates and the update ``wq = alpha*w + dt*rates; u = value +
-        beta*wq`` over its capacity interior (the JAX model's
-        ``substep_fused``), written into the shard in place."""
-        from ..ops.cuda_mhd import compute_dtype
-
+        """One substep on the padded shards: exchange, then per shard
+        ``mhd_substep_shard``, written into the shard in place."""
         dd = self.dd
-        prm = self.prm
-        comp = compute_dtype(self._dtype)
-        pad_lo = dd.radius.pad_lo()
-        inv_ds = (1.0 / prm.dsx, 1.0 / prm.dsy, 1.0 / prm.dsz)
-        alpha = const(RK3_ALPHA[s], comp)
-        beta = const(RK3_BETA[s], comp)
-        dt_ = const(prm.dt, comp)
-        cap = self._capacity()
         dd.exchange()
         for i, w in enumerate(self._w):
             if w is None:
                 continue
-            data = {q: FieldData(dd.curr[q][i].to(comp), inv_ds, pad_lo,
-                                 dd.local_size)
-                    for q in FIELDS}
-            rates = mhd_rates(data, prm, comp)
-            for q in FIELDS:
-                wq = alpha * w[q].to(comp) + dt_ * rates[q]
-                uq = data[q].value + beta * wq
-                w[q] = wq.to(self._dtype)
-                dd.curr[q][i][cap].copy_(uq)
+            mhd_substep_shard({q: dd.curr[q][i] for q in FIELDS}, w, s,
+                              self.prm, self._dtype, dd.radius,
+                              dd.local_size, dd.alloc_radius)
 
     def _substep_xla_overlap(self, s: int) -> None:
         """``_substep_xla`` with the exchange overlapped

@@ -132,12 +132,13 @@ def sphere_geometry(gsize: Dim3):
 
 
 def _apply_sources(new: torch.Tensor, origin_xyz, hot_c: Dim3,
-                   cold_c: Dim3, sph_r: int) -> torch.Tensor:
+                   cold_c: Dim3, sph_r: int, temps=None) -> torch.Tensor:
     """Re-impose the Dirichlet hot/cold spheres on a shard's interior
     whose global origin is ``origin_xyz`` (reference:
-    bin/jacobi3d.cu:40-63)."""
+    bin/jacobi3d.cu:40-63); ``temps`` as ``impose_spheres`` takes it."""
     ox, oy, oz = origin_xyz
-    return impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox))
+    return impose_spheres(new, hot_c, cold_c, sph_r, origin_zyx=(oz, oy, ox),
+                          temps=temps)
 
 
 def _apply_sources_windowed(new: torch.Tensor, origin_xyz, dims: Dim3,
@@ -179,7 +180,8 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
                       nonperiodic: bool = False,
                       method: Method = Method.Default,
                       wire_format=None, wire_layout=None,
-                      ranks: Optional[Sequence[int]] = None) -> None:
+                      ranks: Optional[Sequence[int]] = None,
+                      temps: Optional[Sequence[tuple]] = None) -> None:
     """One Jacobi step on the padded shards of a mesh (x fastest):
     exchange by ``method``, then per shard the 7-point update of its
     capacity interior plus the Dirichlet sphere sources at its own
@@ -190,7 +192,9 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
     the message geometry (``parallel/exchange.py``); the update runs at
     the storage dtype. ``ranks``: each position's owner on a mesh that
     spans processes (None at the positions of ``shards`` other ranks
-    own)."""
+    own). ``temps``: per shard, the (hot, cold) sphere values as
+    ``impose_spheres`` takes them — an ensemble's per-member
+    temperatures, whose shards carry a leading member axis."""
     hot_c, cold_c, sph_r = sphere_geometry(gsize)
     dispatch_exchange({"temp": shards}, radius, counts, method, rem=rem,
                       nonperiodic=nonperiodic, wire_format=wire_format,
@@ -200,7 +204,8 @@ def jacobi_shard_step(shards: Sequence[torch.Tensor], radius: Radius,
             continue
         new = _update(p, radius, local, kernel)
         origin = shard_origin(local, rem, mesh_index(i, counts))
-        new = _apply_sources(new, origin, hot_c, cold_c, sph_r)
+        new = _apply_sources(new, origin, hot_c, cold_c, sph_r,
+                             None if temps is None else temps[i])
         write_interior(p, new, radius)
 
 

@@ -482,6 +482,33 @@ def _launch_card(args: Tuple, stream: "torch.cuda.Stream") -> None:
         raise RuntimeError(f"{_LAUNCHER} failed: CUDA error {err}")
 
 
+def member_views(fields: Sequence[Sequence[torch.Tensor]]
+                 ) -> List[List[torch.Tensor]]:
+    """The (Z, Y, X) quantities B4 sweeps: each quantity's shards as
+    they are, or, where a shard carries leading dimensions (an
+    ensemble's ``(N, Zp, Yp, Xp)`` member axis), one quantity per
+    member of the member views ``shard[k]`` — contiguous (Z, Y, X)
+    tensors of the batched one, so N members are N more rows of the
+    same launch table and the launches do not depend on N. The views
+    keep the batched tensor's addresses, so the plan cache
+    (``exchange_plan``) hits as long as the batched tensor is written in
+    place; a batched shard must be contiguous."""
+    out: List[List[torch.Tensor]] = []
+    for shards in fields:
+        first = next(t for t in shards if t is not None)
+        if first.dim() == 3:
+            out.append(list(shards))
+            continue
+        if not all(t.is_contiguous() for t in shards if t is not None):
+            raise ValueError("exchange_axis_cuda: batched shards must be "
+                             "contiguous")
+        flat = [None if t is None else t.reshape((-1,) + tuple(t.shape[-3:]))
+                for t in shards]
+        for k in range(math.prod(first.shape[:-3])):
+            out.append([None if t is None else t[k] for t in flat])
+    return out
+
+
 def start_sweeps(fields: Sequence[Sequence[torch.Tensor]],
                  sweeps: Sequence[Sweep], counts: Dim3,
                  ranks: Optional[Sequence[int]] = None
@@ -497,8 +524,11 @@ def start_sweeps(fields: Sequence[Sequence[torch.Tensor]],
     streams back. On the CPU the sweeps run at once through the twin,
     and None is returned. ``ranks``: each position's owner on a mesh
     that spans processes; each rank then sweeps its own cards, ordered
-    against the other ranks' by ``ipc.b4_schedule``'s flags."""
+    against the other ranks' by ``ipc.b4_schedule``'s flags. A shard
+    with leading dimensions (an ensemble's member axis) is swept as its
+    member views (``member_views``): the same launches as one member."""
     counts = Dim3.of(counts)
+    fields = member_views(fields)
     if all(t.device.type == "cpu" for s in fields for t in s
            if t is not None):
         for axis, r_lo, r_hi in sweeps:

@@ -103,7 +103,8 @@ def ring_split(steps: int) -> Tuple[int, ...]:
 def impose_spheres(vals: torch.Tensor, hot_c: Tuple[int, int, int],
                    cold_c: Tuple[int, int, int], sph_r: int,
                    origin_zyx: Tuple[int, int, int] = (0, 0, 0),
-                   period_zyx: Optional[Tuple[int, int, int]] = None
+                   period_zyx: Optional[Tuple[int, int, int]] = None,
+                   temps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> torch.Tensor:
     """Re-impose the Dirichlet spheres on a (Z, Y, X) block whose
     global origin is ``origin_zyx``: hot (1) first, then cold (0), which
@@ -111,19 +112,24 @@ def impose_spheres(vals: torch.Tensor, hot_c: Tuple[int, int, int],
     ``hot_c``/``cold_c`` are (cx, cy, cz). ``period_zyx``: wrap the
     coordinates modulo the global grid first (floor modulo, so a ring
     cell at a negative coordinate wraps to the top), as the N-step halo
-    kernel's ring cells need (pallas_halo.py:388-402)."""
+    kernel's ring cells need (pallas_halo.py:388-402). ``temps``: the
+    (hot, cold) values as tensors in ``vals``' dtype on its device in
+    place of the constants — an ensemble's per-member temperatures,
+    ``(N, 1, 1, 1)`` against an (N, Z, Y, X) block (JAX
+    ``serving/ensemble.py:580-583``)."""
     dev = vals.device
     gz, gy, gx = (o + torch.arange(n, device=dev, dtype=torch.int32)
-                  for n, o in zip(vals.shape, origin_zyx))
+                  for n, o in zip(vals.shape[-3:], origin_zyx))
     if period_zyx is not None:
         gz, gy, gx = (g % p for g, p in zip((gz, gy, gx), period_zyx))
     r2 = sph_r * sph_r
-    for (cx, cy, cz), temp in ((hot_c, HOT_TEMP), (cold_c, COLD_TEMP)):
+    if temps is None:
+        temps = tuple(torch.full((), t, dtype=vals.dtype, device=dev)
+                      for t in (HOT_TEMP, COLD_TEMP))
+    for (cx, cy, cz), temp in zip((hot_c, cold_c), temps):
         d2 = (((gz - cz) ** 2)[:, None, None] + ((gy - cy) ** 2)[None, :, None]
               + ((gx - cx) ** 2)[None, None, :])
-        vals = torch.where(d2 <= r2,
-                           torch.full((), temp, dtype=vals.dtype, device=dev),
-                           vals)
+        vals = torch.where(d2 <= r2, temp, vals)
     return vals
 
 

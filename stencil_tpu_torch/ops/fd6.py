@@ -15,9 +15,10 @@ Coefficients (6th-order central):
   radius, i.e. Radius.constant(3), the reference's STENCIL_ORDER 6
   (astaroth/astaroth.h:8-9).
 
-Axis convention: axis 0=x, 1=y, 2=z (grid order); tensors are (z,y,x).
+Axis convention: axis 0=x, 1=y, 2=z (grid order); tensors are (z,y,x),
+with any leading dimensions riding along (an ensemble's member axis).
 ``x_wrap=True``: the tensor carries no x padding and spans the whole
-periodic x extent; a +ox shift is ``torch.roll(w, -ox, 2)`` (the JAX
+periodic x extent; a +ox shift is ``torch.roll(w, -ox, -1)`` (the JAX
 module's in-kernel ``pltpu.roll``).
 """
 
@@ -38,11 +39,15 @@ _DC = (270.0 / 720.0, -27.0 / 720.0, 2.0 / 720.0)
 RADIUS = 3
 
 
-def const(v: float, dtype: torch.dtype) -> torch.Tensor:
+def const(v, dtype: torch.dtype) -> torch.Tensor:
     """``v`` rounded once to ``dtype`` — the ``jnp.asarray(v, dtype)``
     of the JAX code — as a 0-dim CPU tensor. PyTorch takes a 0-dim CPU
     tensor as a scalar operand on any device, so the arithmetic runs in
-    ``dtype`` and no constant is copied to the card."""
+    ``dtype`` and no constant is copied to the card. A tensor ``v`` (an
+    ensemble's per-member coefficients, ``(N, 1, 1, 1)`` on the shard's
+    device) is cast to ``dtype`` where it lies."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
     return torch.tensor(float(v), dtype=dtype)
 
 
@@ -52,13 +57,13 @@ def _shift(padded: torch.Tensor, off_xyz: Tuple[int, int, int],
     ox, oy, oz = off_xyz
     z0, y0 = pad_lo.z + oz, pad_lo.y + oy
     if x_wrap:
-        assert pad_lo.x == 0 and interior.x == padded.shape[2]
-        w = padded[z0:z0 + interior.z, y0:y0 + interior.y, :]
+        assert pad_lo.x == 0 and interior.x == padded.shape[-1]
+        w = padded[..., z0:z0 + interior.z, y0:y0 + interior.y, :]
         if ox:
-            w = torch.roll(w, -ox, 2)
+            w = torch.roll(w, -ox, -1)
         return w
     x0 = pad_lo.x + ox
-    return padded[z0:z0 + interior.z, y0:y0 + interior.y,
+    return padded[..., z0:z0 + interior.z, y0:y0 + interior.y,
                   x0:x0 + interior.x]
 
 

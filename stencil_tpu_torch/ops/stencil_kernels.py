@@ -21,9 +21,10 @@ def shifted(padded: torch.Tensor, off: Tuple[int, int, int],
             pad_lo: Dim3, interior: Dim3) -> torch.Tensor:
     """Interior-shaped view of ``padded`` shifted by ``off`` (x,y,z
     direction vector): element [k,j,i] = padded[k+oz, j+oy, i+ox] in
-    interior coordinates."""
+    interior coordinates. Leading dimensions (an ensemble's member axis,
+    ``serving/ensemble.py``) ride along: the last three are (z, y, x)."""
     ox, oy, oz = off
-    return padded[pad_lo.z + oz:pad_lo.z + oz + interior.z,
+    return padded[..., pad_lo.z + oz:pad_lo.z + oz + interior.z,
                   pad_lo.y + oy:pad_lo.y + oy + interior.y,
                   pad_lo.x + ox:pad_lo.x + ox + interior.x]
 
@@ -72,10 +73,12 @@ def sixth(dtype: torch.dtype, device) -> torch.Tensor:
 def write_interior(padded: torch.Tensor, interior_vals: torch.Tensor,
                    radius: Radius) -> torch.Tensor:
     """Place interior-shaped values into a padded shard, IN PLACE (the
-    JAX version returns a new array); halos keep their contents."""
+    JAX version returns a new array); halos keep their contents. Both
+    may carry the same leading dimensions."""
     lo = radius.pad_lo()
-    Z, Y, X = interior_vals.shape
-    padded[lo.z:lo.z + Z, lo.y:lo.y + Y, lo.x:lo.x + X].copy_(interior_vals)
+    Z, Y, X = interior_vals.shape[-3:]
+    padded[..., lo.z:lo.z + Z, lo.y:lo.y + Y,
+           lo.x:lo.x + X].copy_(interior_vals)
     return padded
 
 

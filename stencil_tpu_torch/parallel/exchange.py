@@ -228,15 +228,21 @@ class WireProbe:
     """The record of a probe exchange (``make_exchange``'s precision
     gate): per message that moves between two mesh positions, its axis,
     the dtype it crossed at, the storage dtype it was meant for and the
-    dtype it was written as."""
+    dtype it was written as; ``bytes`` sums the messages' wire bytes."""
 
     def __init__(self) -> None:
         self.records: List[Tuple[str, torch.dtype, torch.dtype,
                                  torch.dtype]] = []
+        self.bytes = 0
 
     def moved(self, axis: str, wire: torch.dtype, storage: torch.dtype,
-              written: torch.dtype) -> None:
+              written: torch.dtype, nbytes: int) -> None:
         self.records.append((axis, wire, storage, written))
+        self.bytes += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _ship(src: torch.Tensor, device: torch.device, fmt: str, axis: str,
@@ -248,7 +254,7 @@ def _ship(src: torch.Tensor, device: torch.device, fmt: str, axis: str,
     wire = _to_wire(src, fmt)
     recv = src if wire is src else _from_wire(wire.to(device), src.dtype)
     if probe is not None:
-        probe.moved(axis, wire.dtype, src.dtype, recv.dtype)
+        probe.moved(axis, wire.dtype, src.dtype, recv.dtype, _nbytes(wire))
     return recv
 
 
@@ -348,14 +354,21 @@ def _narrows(spans: Tuple[Span, Span, Span], lens: Tuple[int, int, int],
     ``DirectionPlan`` box out of a padded (z,y,x) shard whose actual
     interior lengths are ``lens`` (per grid axis): a ``plus_L`` span
     starts ``lens[a]`` further on (JAX: ``_box_take`` / ``_box_put``).
-    A span over a whole dimension needs none, so a slab is one."""
+    A span over a whole dimension needs none, so a slab is one. The
+    dimensions count from the end, so that a shard with leading
+    dimensions (an ensemble's member axis) is cut alike."""
     out = []
     for a in range(3):
-        s, dim = spans[a], AXIS_TO_DIM[a]
+        s, dim = spans[a], _dim(a)
         start = s.base + (lens[a] if s.plus_L else 0)
         if start != 0 or s.size != shape_zyx[dim]:
             out.append((dim, start, s.size))
     return tuple(out)
+
+
+def _dim(a: int) -> int:
+    """The tensor dimension of grid axis ``a``, counted from the end."""
+    return AXIS_TO_DIM[a] - 3
 
 
 def _view(arr: torch.Tensor,
@@ -389,14 +402,17 @@ def _moves(shape_zyx: Sequence[int], radius: Radius, alloc_r: Radius,
     direction in sweep order, ``(axis, side, per_shard)``, where
     ``per_shard[i]`` is ``(dst, j, src)``: the ``narrow`` calls
     (``_narrows``) of shard i's halo box, and those of the box of shard
-    j it is filled from — ``j`` None where the halo is zero-filled."""
-    key = (tuple(shape_zyx), _faces(radius), _faces(alloc_r),
+    j it is filled from — ``j`` None where the halo is zero-filled.
+    ``shape_zyx`` may carry leading dimensions (an ensemble's member
+    axis): the moves depend on its last three only, so one message per
+    direction carries every member's slab."""
+    shape = tuple(int(v) for v in shape_zyx[-3:])
+    key = (shape, _faces(radius), _faces(alloc_r),
            tuple(counts), tuple(rem), tuple(axis_order), layout,
            nonperiodic)
     got = _MOVES.get(key)
     if got is not None:
         return got
-    shape = tuple(int(v) for v in shape_zyx)
     lens = _shard_lens(shape, alloc_r, counts, rem)
     out = []
     for a in axis_order:
@@ -622,7 +638,8 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
                 j = mesh_neighbor(i, counts, a, -side)
                 recv = sent_from.get(i, sent[j])
                 if j != i and probe is not None:
-                    probe.moved(name, recv.dtype, recv.dtype, recv.dtype)
+                    probe.moved(name, recv.dtype, recv.dtype, recv.dtype,
+                                _nbytes(recv))
                 if takes[i]:
                     dst = t.narrow(dim, *dst_at(i))
                     dst.copy_(dst + recv.to(t.device))
@@ -1024,7 +1041,8 @@ def _allgather_batches(shards, radius, mesh_counts, axis_order, probe,
                               dev, ranks[line[p]], k * n_dev + p, land)
                 if probe is not None:
                     for s in slabs:
-                        probe.moved(name, s.dtype, s.dtype, s.dtype)
+                        probe.moved(name, s.dtype, s.dtype, s.dtype,
+                                    _nbytes(s))
             stacks.append((line, gathered))
         yield from _posted(msgs)
         for line, gathered in stacks:

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..geometry import Dim3
-from .exchange import AXIS_NAME, WireProbe, _messages
+from .exchange import AXIS_NAME, WireProbe, _messages, _nbytes
 from .mesh import mesh_neighbor, this_rank
 
 #: wire-record rows beyond the SoA fields: one packed control row
@@ -199,7 +199,8 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
                 j = mesh_neighbor(i, counts, a, -side)
                 buf = bufs[j, side]
                 if j != i and probe is not None:
-                    probe.moved(name, buf.dtype, buf.dtype, buf.dtype)
+                    probe.moved(name, buf.dtype, buf.dtype, buf.dtype,
+                                _nbytes(buf))
                 incoming.append(buf.to(valid[i].device))
             v = valid[i] & ~leaving[i]
             buf = torch.cat(incoming, dim=1)

@@ -48,7 +48,11 @@ def probe_shard(fields: Dict[str, torch.Tensor],
                 = None) -> torch.Tensor:
     """One shard's health stats: a ``(2, n)`` float32 vector on the
     shard's device — row 0 the non-finite cell count, row 1 the max
-    |finite| value — in the dict's quantity order. ``extra``: named
+    |finite| value — in the dict's quantity order. A tensor of more than
+    three dimensions is reduced over its last three: a batched
+    ``(N, Z, Y, X)``
+    ensemble shard gives one ``(N, 2, n)`` row a member (JAX's
+    ``make_ensemble_probe``, a vmapped ``probe_shard``). ``extra``: named
     scalar columns appended after the quantities (the value in BOTH
     rows), e.g. telemetry step metrics or PIC's overflow count, so that
     they ride the same reduction. The whole-mesh max is
@@ -57,24 +61,29 @@ def probe_shard(fields: Dict[str, torch.Tensor],
     dev = None
     for p in fields.values():
         dev = p.device
-        nonfinite = (~torch.isfinite(p)).sum().to(torch.float32)
+        # a tensor of up to three dimensions (a field, a particle lane)
+        # reduces whole; a batched one per leading index
+        cells = (-3, -2, -1) if p.dim() > 3 else tuple(range(p.dim()))
+        nonfinite = (~torch.isfinite(p)).sum(cells).to(torch.float32)
         # |p| with every non-finite cell set to 0: JAX's
         # where(isfinite(p), abs(p), 0) in one temporary
         mag = p.abs().nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
-        cols.append(torch.stack([nonfinite, mag.amax().to(torch.float32)]))
+        cols.append(torch.stack([nonfinite,
+                                 mag.amax(cells).to(torch.float32)], -1))
     for v in (extra or {}).values():
         v = (v.to(dev, torch.float32).reshape(())
              if isinstance(v, torch.Tensor)
              else torch.full((), float(v), dtype=torch.float32, device=dev))
-        cols.append(torch.stack([v, v]))
-    return torch.stack(cols, dim=1)
+        cols.append(torch.stack([v, v]).expand(cols[0].shape))
+    return torch.stack(cols, dim=-1)
 
 
 def probe_mesh(fields: Dict[str, Sequence[Optional[torch.Tensor]]],
                mesh=None,
                extra: Optional[Dict[str, ExtraColumn]] = None
                ) -> torch.Tensor:
-    """The ``(2, n + len(extra))`` whole-mesh probe vector:
+    """The ``(2, n + len(extra))`` whole-mesh probe vector (``(N, 2,
+    n)`` for batched ensemble shards):
     ``probe_shard`` on every shard this process holds (``fields[q]``:
     one padded tensor per mesh position, None at other ranks'), the
     elementwise max of those vectors (one ``amax`` of their stack, on

@@ -24,6 +24,9 @@ own on-disk format with the same contract:
 
 Arrays are per-shard, as the port's state is: ``fields[q]`` and every
 extra are lists over the mesh positions (None at another rank's).
+``save_arrays``/``restore_arrays`` keep named WHOLE arrays instead (the
+serving layer's member checkpoints: global interiors, which restore on
+any mesh), with the same digests, rename, retention and walk-back.
 Across ranks each rank writes its own shards' files, and rank 0 writes
 the meta record once every rank's files are in (the gathers of
 ``multihost.all_gather_objects`` order them); restore picks ONE step on
@@ -72,6 +75,32 @@ def close_checkpoints(directory: Optional[str] = None) -> None:
         _KNOWN.clear()
     else:
         _KNOWN.discard(str(Path(directory).absolute()))
+
+
+# ----------------------------------------------------------------------
+# namespace-component hygiene (multi-tenant checkpoint trees)
+# ----------------------------------------------------------------------
+def validate_checkpoint_component(component: str,
+                                  kind: str = "component") -> str:
+    """Validate a string that becomes ONE directory component of a
+    checkpoint namespace (a tenant or campaign id of the serving layer,
+    JAX ``utils/checkpoint.py:52``): an id like ``../other-tenant`` must
+    never escape its namespace. Rejects empty strings, path separators
+    (``/``, ``\\``), ``.`` and ``..``, NUL and other control characters.
+    Returns the component unchanged when valid; raises ``ValueError``
+    otherwise."""
+    if not isinstance(component, str) or not component:
+        raise ValueError(f"{kind} must be a non-empty string, "
+                         f"got {component!r}")
+    if component in (".", ".."):
+        raise ValueError(f"{kind} {component!r} is a path traversal "
+                         f"name")
+    bad = [ch for ch in component
+           if ch in ("/", "\\", "\x00") or ord(ch) < 0x20]
+    if bad:
+        raise ValueError(f"{kind} {component!r} contains path "
+                         f"separators or control characters {bad!r}")
+    return component
 
 
 # ----------------------------------------------------------------------
@@ -454,3 +483,91 @@ def restore_domain(dd, directory: str, step: Optional[int] = None
         extras[k] = [_to_tensor(*shards[i], devices[i]) if i in shards
                      else None for i in range(len(devices))]
     return found, extras
+
+
+# ----------------------------------------------------------------------
+# named global arrays (the serving layer's member checkpoints)
+# ----------------------------------------------------------------------
+def save_arrays(directory: str, step: int, arrays: Dict[str, Any],
+                meta: Optional[Dict[str, Any]] = None,
+                max_to_keep: Optional[int] = None, attempts: int = 3,
+                base_delay: float = 0.1, sleep=None) -> None:
+    """Write named WHOLE arrays (numpy arrays or tensors, e.g. one
+    member's global interiors) as checkpoint ``step`` of ``directory``:
+    one file per name (``<name>.0.bin``), a sha256 per file in the meta
+    record, the same atomic rename and ``max_to_keep`` as ``save_state``.
+    Nothing in the step depends on a mesh, so it restores onto any
+    (JAX's member checkpoints store the same global interiors)."""
+    tensors = {k: (v if isinstance(v, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(v)))
+               for k, v in arrays.items()}
+    save_state(None, directory, step, {k: [t] for k, t in tensors.items()},
+               meta=meta, max_to_keep=max_to_keep, attempts=attempts,
+               base_delay=base_delay, sleep=sleep)
+
+
+def _read_arrays(directory: str, step: int
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Checkpoint ``step``'s named arrays (``save_arrays``) and meta
+    record, each digest verified; ``CorruptCheckpointError`` when the
+    step cannot be trusted. bfloat16 comes back as its uint16 patterns
+    (the record's ``dtype`` names it)."""
+    path = Path(directory) / str(step)
+    try:
+        with open(path / META) as f:
+            meta = json.load(f)
+    except Exception as e:  # noqa: BLE001 - unreadable -> corrupt
+        raise CorruptCheckpointError(
+            f"step {step}: meta record unreadable "
+            f"({type(e).__name__}: {e})") from e
+    out: Dict[str, np.ndarray] = {}
+    for name, rec in (meta.get("arrays") or {}).items():
+        key = name.rsplit(".", 1)[0]
+        try:
+            host = np.fromfile(path / rec["file"],
+                               dtype=_storage_numpy_dtype(rec["dtype"]))
+            want = int(np.prod(rec["shape"]))
+            if host.size != want:
+                raise CorruptCheckpointError(
+                    f"step {step}: {rec['file']} holds {host.size} of "
+                    f"{want} elements")
+        except CorruptCheckpointError:
+            raise
+        except Exception as e:  # noqa: BLE001 - missing/short file
+            raise CorruptCheckpointError(
+                f"step {step}: {rec.get('file')} unreadable "
+                f"({type(e).__name__}: {e})") from e
+        host = host.reshape(rec["shape"])
+        want = rec.get("sha256")
+        if want is not None and array_digest(host, rec["dtype"]) != want:
+            raise CorruptCheckpointError(
+                f"step {step}: integrity sha256 mismatch for {key} "
+                f"(bit-rot or tampering)")
+        out[key] = host
+    return out, meta
+
+
+def restore_arrays(directory: str, step: Optional[int] = None
+                   ) -> Tuple[int, Dict[str, np.ndarray], Dict[str, Any]]:
+    """``(step, arrays, meta)`` of the newest restorable ``save_arrays``
+    step in ``directory`` (or ``step``): a corrupt step (unreadable
+    meta, a short file, a digest mismatch) is logged and walked past to
+    the next older one. Raises ``FileNotFoundError`` when there is no
+    step, ``CorruptCheckpointError`` when none restores."""
+    candidates = ([int(step)] if step is not None
+                  else sorted(all_steps(directory), reverse=True))
+    if not candidates:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    last_err = None
+    for cand in candidates:
+        try:
+            arrays, meta = _read_arrays(directory, cand)
+        except CorruptCheckpointError as e:
+            last_err = e
+            LOG_WARN(f"checkpoint {directory} {e}; falling back to an "
+                     f"older step")
+            continue
+        return cand, arrays, meta
+    raise CorruptCheckpointError(
+        f"no restorable checkpoint in {directory} (tried steps "
+        f"{candidates}): {last_err}")

@@ -2121,3 +2121,112 @@ def test_nccl_refuses_two_ranks_on_one_card(cs, tmp_path):
         pytest.skip("this PyTorch build has no NCCL")
     with pytest.raises(Exception, match="card per rank"):
         _spawned(tmp_path, "nccl", ["cuda:0", "cuda:0"])
+
+
+# ---------------------------------------------------------------------------
+# ensemble serving: B4 on the member views (serving/ensemble.py)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_members", [1, 3, 8])
+def test_batched_sweeps_are_one_table_of_member_views(cx, n_members, dtype):
+    """Batched (N, Zp, Yp, Xp) shards of a (1,2,2) mesh: one B4 launch
+    per sweep whatever N is, every member bitwise the twin's sweeps of
+    its view, the plan's rows N x the shards; writing the batched tensor
+    in place keeps the cached plan, a new tensor gets a new one."""
+    counts = Dim3(1, 2, 2)
+    radius = Radius.constant(1)
+    per = [_padded_shards((12, 10, 14), (1, 2, 2), radius, dtype,
+                          300 + 10 * k) for k in range(n_members)]
+    batched = [torch.stack([per[k][i] for k in range(n_members)])
+               for i in range(4)]
+    sweeps = [(0, 1, 1), (1, 1, 1), (2, 1, 1)]
+    before = cx.LAUNCHES["exchange_axis"]
+    cx.start_sweeps([batched], sweeps, counts).exit()
+    assert cx.LAUNCHES["exchange_axis"] == before + 3
+    for k in range(n_members):
+        for a, lo, hi in sweeps:
+            cx.exchange_axis_plain(per[k], a, lo, hi, counts)
+        for i in range(4):
+            assert torch.equal(batched[i][k], per[k][i]), (k, i)
+    views = cx.member_views([batched])
+    plan = cx.exchange_plan(views, sweeps, counts)
+    assert all(len(pc) == 1 and len(pc[0].rows) == 4 * n_members
+               for pc in plan.launches)
+    batched[0].mul_(2.0)
+    assert cx.exchange_plan(cx.member_views([batched]), sweeps,
+                            counts) is plan
+    batched[0] = batched[0].clone()
+    assert cx.exchange_plan(cx.member_views([batched]), sweeps,
+                            counts) is not plan
+
+
+class _DmaPlan:
+    """A stand-in tuning plan that names PallasDMA at depth 1."""
+
+    class config:
+        method = "PallasDMA"
+        exchange_every = 1
+
+    provenance = "cached"
+
+
+def test_ensemble_pallas_dma_on_card_is_bitwise_and_sync_free(cx):
+    """A width-4 Jacobi ensemble on (1,2,2) of the card with a PallasDMA
+    plan: run(4) is 12 B4 launches (one per sweep and step, as one
+    member's) and bitwise the default method; a segment with its probe
+    rows runs under the hot-loop transfer guard (any host sync
+    raises)."""
+    from stencil_tpu_torch.analysis.transfer import hot_loop_transfer_guard
+    from stencil_tpu_torch.serving import EnsembleJacobi
+
+    devs = ["cuda:0"] * 4
+
+    def make(plan):
+        eng = EnsembleJacobi(4, 32, 32, 32, mesh_shape=(1, 2, 2),
+                             devices=devs, plan=plan)
+        eng.set_member_params(3, {"hot_temp": 2.0, "cold_temp": -1.0})
+        eng.init()
+        for k in range(4):
+            eng.set_member_interior("temp", k,
+                                    _rand((32, 32, 32), 400 + k).cpu())
+        return eng
+
+    dma, ref = make(_DmaPlan()), make(None)
+    torch.cuda.synchronize()
+    before = cx.LAUNCHES["exchange_axis"]
+    dma.run(4)
+    torch.cuda.synchronize()
+    assert cx.LAUNCHES["exchange_axis"] == before + 12
+    ref.run(4)
+    with hot_loop_transfer_guard(dma.devices):
+        tr = dma.run_segment(3, probe_every=1)
+    ref.run(3)
+    assert tr.array.shape == (3, 4, 2, 1) and tr.array.is_cuda
+    for k in range(4):
+        np.testing.assert_array_equal(dma.member_interior("temp", k),
+                                      ref.member_interior("temp", k))
+
+
+def test_service_worker_thread_on_card(cs, tmp_path):
+    """The service's ``start()`` worker thread serves on the card (its
+    current device set in the thread), bitwise the drained service."""
+    from stencil_tpu_torch.serving import CampaignRequest, CampaignService
+
+    def req():
+        return CampaignRequest(tenant="t0", campaign="c", grid=(32, 32, 32),
+                               n_steps=4, ckpt_every=2, init_seed=3,
+                               mesh_shape=(1, 2, 2))
+
+    devs = ["cuda:0"] * 4
+    svc = CampaignService(str(tmp_path / "a"), devices=devs, width=2)
+    svc.start()
+    try:
+        got = svc.submit(req()).result(timeout=300)
+    finally:
+        svc.stop()
+    ref = CampaignService(str(tmp_path / "b"), devices=devs, width=2)
+    h = ref.submit(req())
+    ref.drain()
+    np.testing.assert_array_equal(got.final["temp"],
+                                  h.result(timeout=0).final["temp"])

@@ -252,3 +252,28 @@ def same_events(got, want) -> bool:
 
     return (sorted(got, key=repr) == sorted(want, key=repr)
             and rest(got) == rest(want))
+
+
+def run_jax_app(name, argv):
+    """Stdout of the JAX package's ``apps/<name>.py`` run in this
+    process (its 8 fake CPU devices; call inside ``reference_modules``)."""
+    import contextlib
+    import io
+    import runpy
+    from pathlib import Path
+
+    import pytest
+
+    apps = str(Path(__file__).resolve().parent.parent / "apps")
+    old_argv, old_path = sys.argv, list(sys.path)
+    sys.argv = [name] + argv
+    sys.path.insert(0, apps)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            with pytest.raises(SystemExit) as done:
+                runpy.run_path(f"{apps}/{name}.py", run_name="__main__")
+        assert done.value.code == 0
+    finally:
+        sys.argv, sys.path[:] = old_argv, old_path
+    return buf.getvalue()
