@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero before the last line:
    shell and the margin kernel again (the pair forms) in
    ``mhd_overlap``; ``csrc/jacobi_ring.cuh``: K2 in ``jacobi7``, B6 in
    ``jacobi_halo``) and of B8's ring kernel (``csrc/laplace6.cu``: each
-   copy width and store width), the MHD ones for float32 and bfloat16
+   copy width and store width, float32 and bfloat16), the MHD ones for
+   float32 and bfloat16
    storage (and the bf16 pair's mixed instances), are read from the
    ``-Xptxas=-v`` lines (a NOTE where one uses more than 128 registers
    or spills), their opcode counts from ``cuobjdump -sass``.
@@ -32,7 +33,11 @@ Phases, in order; any failure exits non-zero before the last line:
      last one is shorter), (1, 8, 1) (smaller than one tile) and (5, 7,
      33) (x not a multiple of 4) (Z,Y,X), and at 29 x 37 x 70 with low
      pads above 3 and padded rows that start on 4 or 8 bytes (its 4- and
-     8-byte copies, 4-byte stores). Tolerance: 0, as for K3.
+     8-byte copies, 4-byte stores). Tolerance: 0, as for K3. B8's
+     bfloat16 instance at the same shapes and layouts, on float32 draws
+     rounded once to bfloat16 (its 2-byte and 4-byte loads, 8-byte and
+     2-byte stores). Tolerance: 0 (bfloat16x2 instructions round each
+     operation once, as the twin's bfloat16 ops do).
    - B5 (jacobi7_halo) and B6 (jacobi7_halon) on slabs from
      ``exchange_interior_slabs``: B5 at 512^3 with its own wrapped
      slabs, and on the four shards of 512 x 511 x 509 (x, y, z) over
@@ -350,6 +355,16 @@ Phases, in order; any failure exits non-zero before the last line:
      (buckets 64^3 and 128^3, one grid padded up), four tenants, the
      replica owning t0 killed at step 2: every campaign bitwise the calm
      fleet's.
+   - Analysis (``run_analysis``, ``stencil_tpu_torch.analysis``): every
+     registered target, the ``cuda.`` group on the card (K3, B8 in
+     float32 and bfloat16, B5, B6 and B11 under the footprint probe;
+     every library's registers and spills; occupancy at the planned
+     launches; donation and transfer on the wrap, pallas + PallasDMA
+     and certified overlap paths); one line a checker, no error, no
+     card target skipped, every kernel of ``ANALYSIS_KERNELS``
+     launched. The segments step above holds the ``overlap`` segment,
+     built on B7's replay-safe schedule certificate, bitwise its
+     stepwise run with equal launches.
 5. timing: steps/s of the Jacobi wrap, pallas and xla paths at 512^3,
    of the halo path at 512^3 on (1,1,1) and on (1,2,2) on the one card
    (every Jacobi rate three runs pooled), K2 and B6 at 512^3 and B6 on
@@ -414,7 +429,11 @@ Phases, in order; any failure exits non-zero before the last line:
    quarter shards) beside their twins, bounds counting 2-byte cells,
    and the bf16 ``wrap``, ``halo`` and ``overlap`` rates beside float32's
    (``time_jacobi_bf16``; the kernels line's ``jacobi7_... bf16``
-   entries). Results also go to chiprun_out/chip_smoke.json.
+   entries). B8 in bfloat16 at 256^3 by events and device time beside
+   float32's device time, its twin and conv3d in bfloat16 (the kernels
+   line's ``laplace6 bf16`` entry, bound counting 2-byte cells,
+   ``time_laplace6_bf16``). Results also go to
+   chiprun_out/chip_smoke.json.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 the ``kernels`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -1733,13 +1752,16 @@ LAPLACE6_LAYOUTS = [((5, 4, 6), (4, 4, 3), 0, 0),   # Xp odd: 4-byte copies
                     ((6, 3, 5), (4, 4, 4), 2, 3)]
 
 
-def compare_laplace6(torch, cs) -> float:
+def compare_laplace6(torch, cs, dtype=None) -> float:
     """Phase 3: B8 bitwise against its twin, one launch a call, at
     ``MHD_SHAPES`` and ``LAPLACE6_SHAPES`` padded by 3, and at 29 x 37 x
-    70 in each of ``LAPLACE6_LAYOUTS``. Returns the largest absolute
-    difference."""
+    70 in each of ``LAPLACE6_LAYOUTS``, in float32 or (``dtype``)
+    bfloat16: cells drawn in float32 and rounded once. Returns the
+    largest absolute difference."""
     from stencil_tpu_torch.geometry import Dim3, Radius
 
+    dtype = dtype or torch.float32
+    name = "B8" if dtype == torch.float32 else "B8 bf16"
     gen = torch.Generator(device="cuda").manual_seed(4322)
     inv = mhd_inv_ds()
 
@@ -1757,24 +1779,24 @@ def compare_laplace6(torch, cs) -> float:
             r.set_dir(tuple(d), v)
         shape = (Z + lo[2] + hi[2], Y + lo[1] + hi[1], X + lo[0] + hi[0])
         n = shape[0] * shape[1] * shape[2]
-        pad = torch.randn((n + off,), generator=gen,
-                          device="cuda")[off:].view(shape)
-        out = torch.full((Z * Y * X + ooff,), float("nan"),
+        pad = torch.randn((n + off,), generator=gen, device="cuda").to(
+            dtype)[off:].view(shape)
+        out = torch.full((Z * Y * X + ooff,), float("nan"), dtype=dtype,
                          device="cuda")[ooff:].view(Z, Y, X)
         before = cs.LAUNCHES["laplace6"]
         got = cs.laplace6_cuda(pad, r, Dim3(X, Y, Z), inv, out=out)
         want = cs.laplace6_plain(pad, r, Dim3(X, Y, Z), inv)
-        err = float((got - want).abs().max())
+        err = float((got.float() - want.float()).abs().max())
         same = bool(torch.equal(got, want))
         plan = cs.laplace6_plan(Z, Y, X, n_sms)
         tag = f"{(Z, Y, X)} pads {lo}/{hi} offsets {off}/{ooff}"
-        log(f"  B8 {tag}, plan {tuple(plan)}: max |kernel - twin| = "
+        log(f"  {name} {tag}, plan {tuple(plan)}: max |kernel - twin| = "
             f"{err!r} ({'bitwise equal' if same else 'DIFFERENT'})")
         if not same or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"B8 {tag}: kernel disagrees with its "
-                                 f"twin")
+            raise AssertionError(f"{name} {tag}: kernel disagrees with "
+                                 f"its twin")
         if cs.LAUNCHES["laplace6"] != before + 1:
-            raise AssertionError(f"B8 {tag}: not one launch a call")
+            raise AssertionError(f"{name} {tag}: not one launch a call")
         worst = max(worst, err)
         del pad, out, got, want
     return worst
@@ -2361,6 +2383,164 @@ def time_mhd_kernels(torch, cs, cm) -> dict:
     del f, w, pad, lap_out
     torch.cuda.empty_cache()
     return res
+
+
+def time_laplace6_bf16(torch, cs) -> dict:
+    """Phase 5: B8's bfloat16 instance at 256^3 by CUDA events and by
+    device time alone, its twin, and its function as one library call
+    (conv3d in bfloat16 with the 7x7x7 cross, its own order: held to 2 %
+    of max |kernel|); the bound counts 2-byte cells. B8 float32 at the
+    same shape beside it, in the same process."""
+    import torch.nn.functional as F
+
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops.fd6 import _D2, _D2_C
+
+    n = N256
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4323)
+    r3 = Radius.constant(3)
+    interior = Dim3(n, n, n)
+    inv = mhd_inv_ds()
+    pad = torch.randn((n + 6,) * 3, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = torch.empty((n,) * 3, device="cuda", dtype=torch.bfloat16)
+    pts = float(n) ** 3
+
+    def kern():
+        return cs.laplace6_cuda(pad, r3, interior, inv, out=out)
+
+    ms = event_ms(torch, kern, reps=20)
+    dms = device_ms(torch, kern, 20, warmup=3)
+    plain_ms = event_ms(torch, lambda: cs.laplace6_plain(pad, r3, interior,
+                                                         inv),
+                        reps=2, warmup=1)
+    pad32 = pad.float()
+    out32 = torch.empty((n,) * 3, device="cuda")
+    f32_dms = device_ms(torch, lambda: cs.laplace6_cuda(
+        pad32, r3, interior, inv, out=out32), 20, warmup=3)
+    bms, by = bound_ms((float(n + 6) ** 3 + pts) * 2, LAPLACE6_FLOPS * pts)
+    ix2, iy2, iz2 = (v * v for v in inv)
+    wt = torch.zeros((7, 7, 7), dtype=torch.float64)
+    wt[3, 3, 3] = _D2_C * (ix2 + iy2 + iz2)
+    for i, c in enumerate(_D2, start=1):
+        for sgn in (-1, 1):
+            wt[3, 3, 3 + sgn * i] = c * ix2
+            wt[3, 3 + sgn * i, 3] = c * iy2
+            wt[3 + sgn * i, 3, 3] = c * iz2
+    weight = wt.to(torch.bfloat16).cuda()[None, None]
+    want = kern().float()
+    got = F.conv3d(pad[None, None], weight)[0, 0].float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"  laplace6 bf16: max |conv3d - kernel| = {err!r} "
+        f"({err / scale:.2e} of max |kernel|)")
+    if not err <= 0.02 * scale:
+        raise AssertionError("conv3d does not compute B8's function")
+    lib_ms = event_ms(torch, lambda: F.conv3d(pad[None, None], weight),
+                      reps=5)
+    plan = cs.laplace6_plan(n, n, n, cs.sm_count(dev))
+    card_bps = cs.laplace6_occupancy(dev, 2)
+    if card_bps != plan.blocks_per_sm:
+        raise AssertionError(f"laplace6 bf16: the card holds {card_bps} "
+                             f"blocks an SM, the plan {plan.blocks_per_sm}")
+    res = {"ms": ms, "device_ms": dms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "float32_device_ms": f32_dms, "blocks_per_sm": card_bps,
+           "plan": plan._asdict(),
+           "design": ("the float32 kernel's z-streaming ring of float32 "
+                      "cells; bfloat16 window cells fetched in pairs into "
+                      "registers after a pass's barrier and landed, "
+                      "widened, at its end; four outputs of a row as two "
+                      "bfloat16x2 lanes, each add and multiply one "
+                      "packed instruction rounded once")}
+    log(f"  laplace6 bf16: {ms!r} ms/launch by events, device {dms!r} ms "
+        f"(float32 {f32_dms!r}), bound {bms!r} ms ({by}), "
+        f"{100 * bms / dms:.1f}% of bound by device time; plain twin "
+        f"{plain_ms!r} ms; conv3d bf16 {lib_ms!r} ms; plan {tuple(plan)}")
+    del pad, out, pad32, out32, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the analysis checkers (stencil_tpu_torch.analysis)
+# ---------------------------------------------------------------------------
+#: the kernels the analysis phase must launch (the cuda. targets)
+ANALYSIS_KERNELS = ("jacobi7_padded", "laplace6", "jacobi7_halo",
+                    "jacobi7_halon", "mhd_substep_halo", "jacobi7_wrap",
+                    "jacobi7_wrapn", "exchange_axis", "jacobi7_overlap")
+ANALYSIS_B8_BF16 = "footprint:cuda.footprint.ops.cuda_stencil.laplace6_cuda[bf16]"
+
+
+def run_analysis(torch) -> dict:
+    """Phase 4, "analysis": every registered target of
+    ``stencil_tpu_torch.analysis`` on this machine, the ``cuda.`` group
+    on the card (the kernels' footprints, their builds' registers and
+    spills, occupancy at the planned launches, donation and transfer on
+    the wrap, pallas + PallasDMA and certified overlap paths). Fails on
+    any error finding or any ``cuda.`` target skipped; one line a
+    checker. The launch counts are set to 0 just before and read just
+    after: every kernel of ``ANALYSIS_KERNELS`` must have launched."""
+    from stencil_tpu_torch.analysis import CHECKERS, run_targets
+    from stencil_tpu_torch.analysis.registry import (NO_COUNTERPART,
+                                                     default_targets)
+
+    for mod_counts in _launch_tables():
+        for k in mod_counts:
+            mod_counts[k] = 0
+    t0 = time.perf_counter()
+    targets = default_targets()
+    report = run_targets(targets)
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    per = {}
+    for c in CHECKERS:
+        names = [t.name for t in targets if t.checker == c]
+        errs = [f for f in report.errors if f.checker == c]
+        warns = [f for f in report.warnings if f.checker == c]
+        per[c] = {"targets": len(names), "errors": len(errs),
+                  "warnings": len(warns),
+                  "seconds": report.checker_seconds.get(c, 0.0),
+                  "card_targets": sum(n.startswith("cuda.") for n in names)}
+        log(f"  analysis {c}: {len(names)} targets "
+            f"({per[c]['card_targets']} on the card), {len(errs)} errors, "
+            f"{len(warns)} warnings, {per[c]['seconds']:.2f} s")
+    for f in report.findings:
+        log(f"  analysis {'ERROR' if f.severity == 'error' else 'warn '} "
+            f"{f}")
+    skipped = [k for k, m in report.metrics.items() if "skipped" in m]
+    log(f"  analysis: {len(report.targets_checked)} targets "
+        f"({len(NO_COUNTERPART)} JAX targets without a counterpart), "
+        f"{len(report.errors)} errors, {len(report.warnings)} warnings, "
+        f"{len(skipped)} skipped, in {seconds:.1f} s; launches {launches}")
+    if report.errors or skipped:
+        raise AssertionError(f"analysis: {len(report.errors)} errors, "
+                             f"skipped {skipped}")
+    idle = [k for k in ANALYSIS_KERNELS if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"analysis: no launch of {idle}")
+    occupancy = {k.split(":", 1)[1]: m for k, m in report.metrics.items()
+                 if k.startswith("tiling:cuda.")}
+    builds = {k.split(":", 1)[1]: m for k, m in report.metrics.items()
+              if k.startswith("vmem:cuda.")}
+    return {"seconds": seconds, "checkers": per, "launches": launches,
+            "targets": len(report.targets_checked),
+            "warnings": [str(f) for f in report.warnings],
+            "b8_bf16_launches": report.metrics[ANALYSIS_B8_BF16][
+                "probe_runs"],
+            "occupancy": occupancy, "builds": builds}
+
+
+def _launch_tables():
+    from stencil_tpu_torch.ops import cuda_exchange as cx
+    from stencil_tpu_torch.ops import cuda_halo as ch
+    from stencil_tpu_torch.ops import cuda_mhd as cm
+    from stencil_tpu_torch.ops import cuda_mhd_overlap as mo
+    from stencil_tpu_torch.ops import cuda_overlap as co
+    from stencil_tpu_torch.ops import cuda_stencil as cs
+
+    return [mod.LAUNCHES for mod in (cs, ch, co, cx, cm, mo)]
 
 
 def timed_runs(m, k: int, reps: int = 3):
@@ -4758,6 +4938,12 @@ def run_segments(torch) -> dict:
             lambda m: m.dd.curr, SEG_K, SEG_RUNS)
         same = torch.equal(gather(torch, a), gather(torch, b)) and \
             got == want
+        if kw.get("overlap"):
+            # the overlap segment is built on B7's schedule certificate
+            cert = b._schedule_certificate
+            log(f"  segment {label}: schedule certificate {cert.to_dict()}")
+            if not cert.replay_safe:
+                raise AssertionError(f"segment {label}: uncertified")
         log(f"  segment {label} 512^3, {SEG_RUNS} x make_segment({SEG_K}) "
             f"({b.kernel_path}, probe steps {list(b.make_segment(SEG_K).probe_steps)}) "
             f"vs stepwise: fields and trace "
@@ -6080,8 +6266,9 @@ def kernel_key(lib: str, name: str):
     sends, (library, "jacobi_ring") of the Jacobi ring kernel (K2 in
     ``jacobi7``, B6 in ``jacobi_halo``; "padded" for the source of B6's
     second launch of 9 to 16 steps, and "bf16" for bfloat16), or
-    (library, "laplace6_ring", copy floats, 16-byte stores) of B8's
-    (``laplace6_ring_kernel<kChunk, kVecOut>``), from its mangled name,
+    (library, "laplace6_ring", cells a copy or load, vector stores[,
+    "bf16"]) of B8's (``laplace6_ring_kernel<T, kChunk, kVecOut>``), from
+    its mangled name,
     else None."""
     import re
 
@@ -6104,9 +6291,11 @@ def kernel_key(lib: str, name: str):
     if m:
         src = ("padded",) if m.group(1) == "2" else ()
         return (lib, "jacobi_ring") + src + _storage(name, m)
-    m = re.search(r"laplace6_ring_kernelILi(\d)ELb(\d)E", name)
+    m = re.search(r"laplace6_ring_kernelI(f|13__nv_bfloat16)Li(\d)ELb(\d)E",
+                  name)
     if m:
-        return (lib, "laplace6_ring", int(m.group(1)), m.group(2) == "1")
+        return ((lib, "laplace6_ring", int(m.group(2)), m.group(3) == "1")
+                + (("bf16",) if m.group(1) != "f" else ()))
     return None
 
 
@@ -6442,19 +6631,19 @@ def check_two_rank_case(case: str, backend_name: str, got, ref,
                              f"{got[0]['charge']!r}, not {PIC_GRID ** 3}")
 
 
-def ptxas_usage(log: str) -> dict:
+def ptxas_usage() -> dict:
     """Registers, spill bytes and static shared memory of every
-    ring-kernel instantiation in the build log (``_build.ptxas_usage``):
-    ``kernel_key`` -> {"registers", "spill_stores", "spill_loads",
-    "static_smem"}. Empty when the libraries were built before (no
-    log)."""
+    ring-kernel instantiation, from each library's ``-Xptxas=-v`` lines
+    (``_build.usage``): ``kernel_key`` -> {"registers", "spill_stores",
+    "spill_loads", "static_smem"}."""
     from stencil_tpu_torch.ops import _build
 
     out = {}
-    for (lib, name), use in _build.ptxas_usage(log).items():
-        key = kernel_key(lib, name)
-        if key is not None:
-            out[key] = use
+    for lib in _build.sources():
+        for (_, name), use in _build.usage(lib).items():
+            key = kernel_key(lib, name)
+            if key is not None:
+                out[key] = use
     return out
 
 
@@ -6548,11 +6737,8 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    build_log = io.StringIO()
-    with contextlib.redirect_stdout(build_log):
-        built = _build.build_all()
-    print(build_log.getvalue(), end="", flush=True)
-    ptxas = ptxas_usage(build_log.getvalue())
+    built = _build.build_all()
+    ptxas = ptxas_usage()
     for key, counts in sass_counts().items():
         ptxas.setdefault(key, {})["sass"] = counts
     log(f"phase 2: built {sorted(built)} in "
@@ -6576,6 +6762,8 @@ def main() -> int:
     worst_bf16 = compare_mhd_bf16_kernels(torch, cm, mo)
     log("phase 3: bfloat16 on the Jacobi kernels (K1-K3, B5-B7)")
     worst_jbf16 = compare_jacobi_bf16_kernels(torch, cs, ch, co)
+    log("phase 3: B8 in bfloat16 (laplace6_cuda) against its twin")
+    worst_b8_bf16 = compare_laplace6(torch, cs, torch.bfloat16)
 
     # phase 4: the main paths
     log("phase 4: Jacobi3D 512^3 float32 main path")
@@ -6647,6 +6835,9 @@ def main() -> int:
         "B13/B14 over CUDA IPC with device-side flags, xla-overlap, "
         "AllGather and PIC 256^3, against one process (card: " + card + ")")
     two_ranks = run_two_ranks(torch)
+    log("phase 4: analysis: the registry of stencil_tpu_torch.analysis, "
+        "the cuda. targets on the card (card: " + card + ")")
+    analysis = run_analysis(torch)
 
     # phase 5: timing
     log("phase 5: timing at 512^3 (Jacobi) and 256^3 (Astaroth) (card: "
@@ -6687,6 +6878,7 @@ def main() -> int:
         "wrap": sps["wrap"], "halo (1,2,2)": halo_times["steps_per_s"][
             "(1,2,2)"], "overlap (1,2,2)": dma_times["steps_per_s"][
             "(1,2,2)"]})
+    b8_bf16_times = time_laplace6_bf16(torch, cs)
     times = time_kernels(torch, cs)
     times.update(halo_times["kernels"])
     times.update(time_mhd_kernels(torch, cs, cm))
@@ -6715,7 +6907,8 @@ def main() -> int:
                 f"laplace6_ring_kernel {4 * k[2]}-byte copies, "
                 f"16-byte stores={k[3]}": use
                 for k, use in ptxas.items() if k[:2] == ("laplace6",
-                                                         "laplace6_ring")}
+                                                         "laplace6_ring")
+                and k[-1] != "bf16"}
         for k in ("device_ms", "design", "blocks_per_sm"):
             if k in t:
                 entry[k] = t[k]
@@ -6813,6 +7006,30 @@ def main() -> int:
                               if k[:2] == (lib, "jacobi_ring")
                               and k[-1] == "bf16"}
         kernels.append(entry)
+    # B8's bfloat16 instance: its path is this slice's analysis phase
+    # (the cuda. footprint target), its error against the bf16 twin,
+    # its times of phase 5
+    tag, source, replaces = KERNEL_META["laplace6"]
+    t = b8_bf16_times
+    kernels.append({
+        "name": f"laplace6 bf16 ({tag})", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": analysis["b8_bf16_launches"],
+        "max_abs_err": worst_b8_bf16, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"], "design": t["design"],
+        "blocks_per_sm": t["blocks_per_sm"],
+        "path": "the analysis phase (cuda.footprint target); no model path "
+                "runs B8 in either package",
+        "ptxas": {f"laplace6_ring_kernel bf16 {2 * k[2]}-byte loads, "
+                  f"8-byte stores={k[3]}": use
+                  for k, use in ptxas.items()
+                  if k[:2] == ("laplace6", "laplace6_ring") and
+                  k[-1] == "bf16"}})
+    for entry in kernels:
+        base = entry["name"].split(" (")[0]
+        if " bf16" not in base:
+            entry["analysis_launches"] = analysis["launches"].get(base, 0)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
@@ -6887,6 +7104,8 @@ def main() -> int:
                    "autotune": autotune,
                    "serving": serving,
                    "two_ranks": two_ranks,
+                   "analysis": analysis,
+                   "laplace6_bf16": b8_bf16_times,
                    "kernels": kernels}, f, indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,12 @@ performance observatory (``observatory/``) follows (JAX
 ``analysis/costmodel.py:125-238``, ``:472-535``): the deep exchange's
 bytes and their amortization over the steps it feeds, the particle
 migration's static wire bill, the per-step seconds of one (method,
-depth) configuration and the depth crossover. The JAX module's jaxpr
-and HLO checkers (``jaxpr_flops``, ``io_bytes``, ``check_costmodel``)
-are not here (ROADMAP A14).
+depth) configuration and the depth crossover. The checker
+(``CostModelSpec``, ``CostModelTarget``, ``check_costmodel``; checker 5)
+holds the bytes the engines' probe records against that model exactly,
+and prices a run's arithmetic with JAX's ``jaxpr_flops`` weights over
+the aten ops ``probes.OpLog`` sees (``op_flops``), its inputs' and
+outputs' bytes standing for ``io_bytes``.
 
 The defaults price the H100 host, not a TPU: the intra-host link is the
 fit ``apps/pingpong.py`` makes on the card, the inter-host link an
@@ -394,3 +397,87 @@ def configured_step_seconds(method_name: str,
         depths, coeffs=coeffs, dcn_axis=dcn_axis,
         dtype_groups=dtype_groups, wire_format=wire_format,
         wire_layout=wire_layout)
+
+
+# ---------------------------------------------------------------------------
+# the checker: probed wire bytes against the byte model, FLOPs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class FlopsSpec:
+    """A plain computation to price: ``fn()`` runs it once on small CPU
+    tensors; ``io_bytes`` its inputs' and outputs' bytes."""
+    fn: "object"
+    io_bytes: int
+
+
+@dataclasses.dataclass
+class CostModelSpec:
+    """A run whose messages are held to the byte model: ``run()`` runs
+    it once in one process; ``expected_bytes_total`` is what the model
+    says its messages carry, over every shard; ``flops`` (optional) a
+    ``FlopsSpec`` of its arithmetic."""
+    run: "object"
+    expected_bytes_total: int
+    flops: "FlopsSpec | None" = None
+
+
+@dataclasses.dataclass
+class CostModelTarget:
+    name: str
+    build: "object"
+
+    checker = "costmodel"
+
+
+def op_flops(fn) -> Tuple[int, int]:
+    """(FLOPs by JAX's ``jaxpr_flops`` weights, ops seen) of ``fn()``,
+    through ``probes.OpLog``."""
+    import torch
+
+    from .probes import OpLog
+
+    with torch.no_grad(), OpLog() as log:
+        fn()
+    return log.flops, len(log.ops)
+
+
+def check_costmodel(target: CostModelTarget):
+    """Probed wire bytes equal the byte model exactly (JAX's
+    HLO-observed bytes against its analytic model); FLOPs and the
+    arithmetic intensity where the target prices its arithmetic."""
+    import torch
+
+    from ..parallel.exchange import WireProbe, recording
+    from .entries import ExchangeSpec, probe_messages
+    from .report import Finding
+
+    try:
+        spec = target.build()
+    except Exception as e:  # noqa: BLE001
+        return [Finding("costmodel", target.name,
+                        f"target build failed: {type(e).__name__}: {e}")]
+    if isinstance(spec, ExchangeSpec):
+        observed = probe_messages(spec).bytes
+        expected = spec.expected_bytes_per_shard * spec.counts.flatten()
+        flops = None
+    else:
+        probe = WireProbe()
+        with torch.no_grad(), recording(probe):
+            spec.run()
+        observed, expected = probe.bytes, spec.expected_bytes_total
+        flops = spec.flops
+    findings = []
+    if observed != expected:
+        findings.append(Finding(
+            "costmodel", target.name,
+            f"probed wire bytes {observed} != the byte model's {expected} "
+            f"(difference {observed - expected})"))
+    metrics = {"observed_bytes": observed, "expected_bytes": expected}
+    if flops is not None:
+        n, ops = op_flops(flops.fn)
+        if not ops:
+            findings.append(Finding("costmodel", target.name,
+                                    "no op seen: nothing priced"))
+        metrics.update(flops=n, io_bytes=flops.io_bytes,
+                       arithmetic_intensity=n / max(flops.io_bytes, 1))
+    return findings, metrics

@@ -8,13 +8,19 @@ dispatch. JAX watches a jitted function's trace cache; the port runs no
 tracing compiler, and its only run-time compilation is ``nvcc`` building
 a kernel library at first use (``ops/_build.py``), so the guard watches
 the count of libraries built in this process. The first dispatch of a
-segment factory may build (first use); any build after it raises. The
-static checker stays ROADMAP A14.
+segment factory may build (first use); any build after it raises.
+
+The checker (``RecompileTarget``, ``check_recompile``; checker 9) holds
+an entry's dispatches stable, as JAX's fingerprints do: after a first
+dispatch, a second builds no kernel library (``ops/_build.BUILDS``
+unchanged), the carry keeps its shapes, dtypes and devices, and paired
+curr/next buffers (``DistributedDomain.swap``) agree in all three.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Callable, Dict, Tuple
 
 #: arm the runtime build-count guard in the resilience driver
 ASSERT_SINGLE_COMPILE_ENV = "STENCIL_ASSERT_SINGLE_COMPILE"
@@ -51,3 +57,55 @@ class SingleCompileGuard:
                 f"librar{'y' if now - prev[1] == 1 else 'ies'} built "
                 f"between dispatches — the hot loop is compiling")
         self._seen[id(factory)] = (factory, now)
+
+
+@dataclasses.dataclass
+class RecompileTarget:
+    name: str
+    build: Callable[[], object]
+
+    checker = "recompile"
+
+
+def _signature(tensors) -> list:
+    return [(tuple(t.shape), t.dtype, str(t.device)) for t in tensors]
+
+
+def check_recompile(target: RecompileTarget):
+    import torch
+
+    from .report import Finding
+
+    try:
+        spec = target.build()
+        with torch.no_grad():
+            spec.dispatch()
+    except Exception as e:  # noqa: BLE001
+        return [Finding("recompile", target.name,
+                        f"target build failed: {type(e).__name__}: {e}")]
+    guard = SingleCompileGuard()
+    guard.observe(spec.dispatch, target.name)
+    sig = _signature(spec.carry())
+    findings = []
+    with torch.no_grad():
+        spec.dispatch()
+    try:
+        guard.observe(spec.dispatch, target.name)
+    except RecompileGuardError as e:
+        findings.append(Finding("recompile", target.name, str(e)))
+    now = _signature(spec.carry())
+    if now != sig:
+        findings.append(Finding(
+            "recompile", target.name,
+            "the carry's shapes, dtypes or devices changed across a "
+            "dispatch: the next one would run another specialization"))
+    for a, b in (spec.pairs() if spec.pairs else ()):
+        if _signature([a]) != _signature([b]):
+            findings.append(Finding(
+                "recompile", target.name,
+                f"paired buffers differ: {_signature([a])} vs "
+                f"{_signature([b])}"))
+    if not sig:
+        findings.append(Finding("recompile", target.name,
+                                "no carry: nothing checked"))
+    return findings, {"carry_tensors": len(sig), "builds": builds()}

@@ -711,7 +711,7 @@ def laplace6_plans(m: Measuring, cs, shape) -> dict:
         _build.launch("laplace6", "laplace6_launch",
                       cs._SIGNATURES["laplace6_launch"], dev, p.data_ptr(),
                       out.data_ptr(), Z, Y, X, Y + 6, X + 6, 3, 3, 3, ix2,
-                      iy2, iz2, run)
+                      iy2, iz2, run, 0)
 
     field = buf[:numel].view(padded)
     odd = buf[1:].view(padded)   # 4 bytes past 8: 4-byte copies

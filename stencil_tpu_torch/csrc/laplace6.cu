@@ -1,4 +1,4 @@
-// 6th-order Laplacian kernel for Hopper (sm_90a), float32.
+// 6th-order Laplacian kernel for Hopper (sm_90a), float32 and bfloat16.
 //
 // B8 laplace6_ring_kernel replaces stencil_tpu/ops/pallas_stencil.py:432
 // laplace6_pallas: the sum over x, y and z of the 6th-order central
@@ -44,11 +44,30 @@
 // i - 3. Odd z runs walk down, so that neighbouring runs read the planes
 // they share at about the same time.
 // Ragged x, y and z are masked; 16-byte stores where X is a multiple of 4.
+//
+// bfloat16 (the same kernel, T = bf16): the ring still holds float32
+// cells, each the exact value of a bfloat16 cell, so the window indexing
+// and the pencil are the float32 kernel's. A plane is fetched as pairs of
+// bfloat16 cells into registers after the pass's barrier and written into
+// its ring slot, widened, at the end of the pass (PlaneLoader<bf16>), so
+// that the loads fly behind the pass's arithmetic. A thread's four
+// outputs of a row are two bfloat16x2 lanes: every add and multiply is
+// one of Hopper's packed bfloat16 instructions, rounded once, in the
+// twin's order, with D2_C and w_i rounded once to bfloat16 as
+// dt.type(...) rounds them and inv_ds^2 handed in rounded the same way:
+// kernel and twin agree bitwise (add2/mul2 below say why). A float32 add
+// rounded to bfloat16 after every operation costs a conversion an
+// operation, at a fraction of the float32 rate: 3x the float32 kernel's
+// time on the first build. Bound: bytes, (Zp*Yp*Xp + Z*Y*X) * 2 B
+// (0.0208 ms at 256^3 on 3.35 TB/s).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
+#include "bf16_math.cuh"
 
 namespace {
 
@@ -57,6 +76,9 @@ constexpr float kC = static_cast<float>(-49.0 / 18.0);
 constexpr float kW1 = static_cast<float>(3.0 / 2.0);
 constexpr float kW2 = static_cast<float>(-3.0 / 20.0);
 constexpr float kW3 = static_cast<float>(1.0 / 90.0);
+// bfloat16: the same constants rounded once to bfloat16, as dt.type(...)
+// rounds them: -2.71875 (0xC02E), 1.5 (0x3FC0), -0.150390625 (0xBE1A),
+// 0.0111083984375 (0x3C36); weight2 and kC2 below hold their bits
 constexpr int R = 3;
 
 constexpr int kThreads = 256;
@@ -92,6 +114,34 @@ struct Scale {
 
 __device__ __forceinline__ float weight(int d) {
   return d == 1 ? kW1 : (d == 2 ? kW2 : kW3);
+}
+
+// bfloat16: two lanes a register (lane 0 in the low half). pk packs two
+// bfloat16-exact floats (the ring's widened cells) without rounding;
+// add2 and mul2 are Hopper's bfloat16x2 add and multiply, each lane
+// rounded once to nearest even. On bfloat16 inputs that equals the
+// float32 operation rounded to bfloat16 (the twin's and JAX's): a product
+// of two 8-bit significands is exact in float32, and a float32 sum of two
+// bfloat16 values is inexact only where the exponents differ by 16 or
+// more, where both roundings give the larger operand. The explicit .rn
+// keeps ptxas from fusing a multiply and an add.
+__device__ __forceinline__ unsigned pk(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// D2_C and w_i in both lanes
+constexpr unsigned kC2 = 0xC02EC02Eu;
+__device__ __forceinline__ unsigned weight2(int d) {
+  return d == 1 ? 0x3FC03FC0u : (d == 2 ? 0xBE1ABE1Au : 0x3C363C36u);
 }
 
 __device__ __forceinline__ float part(const float4& v, int e) {
@@ -150,27 +200,196 @@ __device__ __forceinline__ float4 centres(const float* p) {
   return kShift == 0 ? a : make_float4(a.y, a.z, a.w, p[4]);
 }
 
-// B8's ring kernel. kChunk: floats a cp.async copies (2 where the
-// padded rows are 8-byte aligned and the low x pad odd, else 1).
-template <int kChunk, bool kVecOut>
+// Where the window planes come from: the padded field at stream plane 0
+// (base: its window column 0), and the window's first padded row and
+// column. Window rows below the padded field copy its last row instead,
+// and cells outside the padded row are left out: either only ever feeds
+// outputs that are not stored.
+template <typename T>
+struct Window {
+  const T* base;
+  int yw, xw, Yp, Xp;
+  __device__ __forceinline__ const T* row(int r) const {
+    return base + static_cast<ptrdiff_t>(min(yw + r, Yp - 1)) * Xp;
+  }
+  // window columns c .. c + n - 1 lie in the padded row
+  __device__ __forceinline__ bool inside(int c, int n) const {
+    return xw + c >= 0 && xw + c + n <= Xp;
+  }
+};
+
+// Fills ring slots with window planes, one plane a call of fetch(slot),
+// in stream order: each plane is `step` elements past the last. land()
+// at the end of the pass finishes what fetch began.
+template <typename T, int kChunk>
+struct PlaneLoader;
+
+// float32: cp.async straight into the slot (land has nothing to do). On
+// this card the number of cp.async instructions, not their bytes, sets
+// the copy rate, so each row's first 64 columns are full warp-wide chunks
+// and the 8 left over of 4 or 8 rows share one instruction.
+template <int kChunk>
+struct PlaneLoader<float, kChunk> {
+  static constexpr int kCopyRows = kWinRows / kWarps;  // full rows a warp
+  // a row's 72 smem columns: the full chunks of its first 64, and the 8
+  // left over, whose cells (kLeftCells a row) of kLeftRows rows one
+  // instruction copies; warp w copies leftover groups w, w + 8, ...
+  static constexpr int kFull = 2 / kChunk;
+  static constexpr int kLeftCells = 8 / kChunk;
+  static constexpr int kLeftRows = 32 / kLeftCells;
+  static constexpr int kLeftGroups = kWinRows / kLeftRows;
+  static constexpr int kLeftPerWarp = (kLeftGroups + kWarps - 1) / kWarps;
+  const float* rp[kCopyRows];  // full rows warp + 8 m, at column kChunk lane
+  int full0, full1;
+  unsigned dfull;
+  const float* lp[kLeftPerWarp];  // leftover cells
+  int left_on[kLeftPerWarp];
+  unsigned dleft[kLeftPerWarp];
+  ptrdiff_t step;
+
+  __device__ __forceinline__ PlaneLoader(const Window<float>& w,
+                                         unsigned ring_s, int tid,
+                                         ptrdiff_t step_)
+      : step(step_) {
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int m = 0; m < kCopyRows; ++m)
+      rp[m] = w.row(warp + kWarps * m) + kChunk * lane;
+    full0 = w.inside(kChunk * lane, kChunk);
+    full1 = kFull > 1 && w.inside(kChunk * lane + 32, kChunk);
+    dfull = ring_s + 4 * (warp * kPitch + kChunk * lane);
+    const int lc = 64 + kChunk * (lane % kLeftCells);
+#pragma unroll
+    for (int u = 0; u < kLeftPerWarp; ++u) {
+      const int q = warp + kWarps * u, r = q * kLeftRows + lane / kLeftCells;
+      left_on[u] = q < kLeftGroups && w.inside(lc, kChunk);
+      lp[u] = w.row(q < kLeftGroups ? r : 0) + lc;
+      dleft[u] = ring_s + 4 * ((q < kLeftGroups ? r : 0) * kPitch + lc);
+    }
+  }
+  __device__ __forceinline__ void fetch(int slot) {
+    const unsigned d = 4 * slot * kPlane;
+#pragma unroll
+    for (int m = 0; m < kCopyRows; ++m) {
+      copy_full<kChunk>(dfull + d + 4 * m * kWarps * kPitch, rp[m], full0,
+                        full1);
+      rp[m] += step;
+    }
+#pragma unroll
+    for (int u = 0; u < kLeftPerWarp; ++u) {
+      copy_cell<kChunk>(dleft[u] + d, lp[u], left_on[u]);
+      lp[u] += step;
+    }
+  }
+  __device__ __forceinline__ void land(float*) {}
+};
+
+// bfloat16: fetch() loads the thread's pairs of adjacent window cells
+// into registers (two cells a register), land() writes them into the
+// slot widened to float32. A plane's 72 x kWinRows cells are 36 pairs a
+// row; pair p sits at smem floats 2p .. 2p + 1 of the plane (kPitch =
+// 2 * 36), and thread t takes pairs t, t + 256, ... kChunk 2: a pair is
+// one 4-byte load (window column 0 on an even padded column of a 4-byte
+// aligned row, so that a pair lies in its row whole or not at all), else
+// two 2-byte loads.
+template <int kChunk>
+struct PlaneLoader<bf16, kChunk> {
+  static constexpr int kPairs = kPitch / 2 * kWinRows;
+  static constexpr int kStage = (kPairs + kThreads - 1) / kThreads;
+  const bf16* plane;    // the padded plane the next fetch reads
+  int off[kStage];      // each pair's first cell in a plane
+  unsigned on;          // bit 2m (2m + 1): pair m's first (second) cell
+  unsigned staged[kStage];
+  int tid, slot;        // slot: where land() writes, -1 for nothing
+  ptrdiff_t step;
+
+  __device__ __forceinline__ PlaneLoader(const Window<bf16>& w, unsigned,
+                                         int tid_, ptrdiff_t step_)
+      : plane(w.base), on(0), tid(tid_), slot(-1), step(step_) {
+#pragma unroll
+    for (int m = 0; m < kStage; ++m) {
+      const int p = tid + kThreads * m;
+      const int r = p < kPairs ? p / (kPitch / 2) : 0;
+      const int c = 2 * (p % (kPitch / 2));
+      off[m] = static_cast<int>(w.row(r) - w.base) + c;
+      if (p < kPairs && w.inside(c, kChunk)) on |= 1u << (2 * m);
+      if (p < kPairs && w.inside(c + 1, 1)) on |= 2u << (2 * m);
+    }
+  }
+  __device__ __forceinline__ void fetch(int slot_) {
+    const unsigned short* const q =
+        reinterpret_cast<const unsigned short*>(plane);
+#pragma unroll
+    for (int m = 0; m < kStage; ++m) {
+      if constexpr (kChunk == 2) {
+        staged[m] = (on >> (2 * m)) & 1u
+                        ? *reinterpret_cast<const unsigned*>(q + off[m])
+                        : 0u;
+      } else {
+        const unsigned lo = (on >> (2 * m)) & 1u ? q[off[m]] : 0u;
+        const unsigned hi = (on >> (2 * m)) & 2u ? q[off[m] + 1] : 0u;
+        staged[m] = lo | (hi << 16);
+      }
+    }
+    plane += step;
+    slot = slot_;
+  }
+  __device__ __forceinline__ void land(float* ring) {
+    if (slot < 0) return;
+    float* const d = ring + slot * kPlane;
+#pragma unroll
+    for (int m = 0; m < kStage; ++m) {
+      const int p = tid + kThreads * m;
+      if (p < kPairs)
+        *reinterpret_cast<float2*>(d + 2 * p) =
+            make_float2(__uint_as_float(staged[m] << 16),
+                        __uint_as_float(staged[m] & 0xffff0000u));
+    }
+    slot = -1;
+  }
+};
+
+// four outputs of a row at p, of which only the first n < 4 may be
+// stored where kVec is false
+template <bool kVec>
+__device__ __forceinline__ void store4(float* p, const float (&v)[4], int n) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = v[e];
+  }
+}
+// bfloat16: four outputs as two bfloat16x2 lanes; 8-byte stores where
+// kVec
+template <bool kVec>
+__device__ __forceinline__ void store4b(bf16* p, const unsigned (&v)[2],
+                                        int n) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+  } else {
+    unsigned short* const q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n)
+        q[e] = static_cast<unsigned short>(v[e / 2] >> (16 * (e % 2)));
+  }
+}
+
+// B8's ring kernel on cells of T (float or bf16). kChunk: cells a copy
+// or load takes (2 where the padded rows are 8-byte aligned in float32,
+// 4-byte aligned in bfloat16, and the low x pad odd, else 1).
+template <typename T, int kChunk, bool kVecOut>
 __global__ void __launch_bounds__(kThreads, 2)
-laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     Geom g, Scale s, int zrun) {
+laplace6_ring_kernel(const T* __restrict__ in, T* __restrict__ out, Geom g,
+                     Scale s, int zrun) {
   extern __shared__ __align__(16) float ring[];
   // smem column of window column 0: 1 with 8-byte copies, so that each
   // lands on 8 bytes (the low x pad is odd); then the thread's centres
   // start one float past 16 bytes and take two loads a row
   constexpr int kShift = kChunk - 1;
-  constexpr int kCopyRows = kWinRows / kWarps;  // full rows a warp copies
-  // a row's 72 smem columns: the full chunks of its first 64, and the 8
-  // left over, whose cells (kLeftCells a row) of kLeftRows rows one
-  // instruction copies; warp w copies leftover groups w, w + 8, ...
-  constexpr int kFull = 2 / kChunk;
-  constexpr int kLeftCells = 8 / kChunk;
-  constexpr int kLeftRows = 32 / kLeftCells;
-  constexpr int kLeftGroups = kWinRows / kLeftRows;
-  constexpr int kLeftPerWarp = (kLeftGroups + kWarps - 1) / kWarps;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
   const int z0 = blockIdx.z * zrun, z1 = min(z0 + zrun, g.Z);
   // Odd z runs walk down: two neighbouring runs then reach the R planes
@@ -184,52 +403,10 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
   const ptrdiff_t pplane = static_cast<ptrdiff_t>(g.Yp) * g.Xp;
   const int xw = x0 + g.lx - 4 - kShift;  // padded column of smem column 0
   const int yw = y0 + g.ly - R;           // padded row of window row 0
-
-  // Window rows below the padded field copy its last row instead, and
-  // cells outside the padded row are left out: either only ever feeds
-  // outputs that are not stored. Each pointer walks its row's planes in
-  // stream order.
-  const float* const base = in + (zs + g.lz) * pplane + xw;
-  const auto row_at = [&](int r) {
-    return base + static_cast<ptrdiff_t>(min(yw + r, g.Yp - 1)) * g.Xp;
-  };
-  const auto inside = [&](int c) {  // smem column c starts a valid cell
-    return xw + c >= 0 && xw + c + kChunk <= g.Xp;
-  };
-  const unsigned ring_s =
-      static_cast<unsigned>(__cvta_generic_to_shared(ring));
-  const float* rp[kCopyRows];  // full rows warp + 8 m, at column kChunk lane
-#pragma unroll
-  for (int m = 0; m < kCopyRows; ++m)
-    rp[m] = row_at(warp + kWarps * m) + kChunk * lane;
-  const int full0 = inside(kChunk * lane);
-  const int full1 = kFull > 1 && inside(kChunk * lane + 32);
-  const unsigned dfull = ring_s + 4 * (warp * kPitch + kChunk * lane);
-  const float* lp[kLeftPerWarp];  // leftover cells
-  int left_on[kLeftPerWarp];
-  unsigned dleft[kLeftPerWarp];
-  const int lc = 64 + kChunk * (lane % kLeftCells);
-#pragma unroll
-  for (int u = 0; u < kLeftPerWarp; ++u) {
-    const int q = warp + kWarps * u, r = q * kLeftRows + lane / kLeftCells;
-    left_on[u] = q < kLeftGroups && inside(lc);
-    lp[u] = row_at(q < kLeftGroups ? r : 0) + lc;
-    dleft[u] = ring_s + 4 * ((q < kLeftGroups ? r : 0) * kPitch + lc);
-  }
-  auto load_plane = [&](int slot) {
-    const unsigned d = 4 * slot * kPlane;
-#pragma unroll
-    for (int m = 0; m < kCopyRows; ++m) {
-      copy_full<kChunk>(dfull + d + 4 * m * kWarps * kPitch, rp[m], full0,
-                        full1);
-      rp[m] += dz * pplane;
-    }
-#pragma unroll
-    for (int u = 0; u < kLeftPerWarp; ++u) {
-      copy_cell<kChunk>(dleft[u] + d, lp[u], left_on[u]);
-      lp[u] += dz * pplane;
-    }
-  };
+  const Window<T> win{in + (zs + g.lz) * pplane + xw, yw, xw, g.Yp, g.Xp};
+  PlaneLoader<T, kChunk> ld(
+      win, static_cast<unsigned>(__cvta_generic_to_shared(ring)), tid,
+      dz * pplane);
 
   // this thread's four columns and kRows rows: its first centre row's
   // 16-byte-aligned smem offset, and its first output
@@ -237,18 +414,27 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int ci = (R + kRows * ty) * kPitch + 4 + 4 * tx;
   const int ox = x0 + 4 * tx, oy = y0 + kRows * ty;
   const ptrdiff_t oplane = dz * static_cast<ptrdiff_t>(g.Y) * g.X;
-  float* o = out + (zs + dz * R) * static_cast<ptrdiff_t>(g.Y) * g.X +
-             static_cast<size_t>(oy) * g.X + ox;
+  T* o = out + (zs + dz * R) * static_cast<ptrdiff_t>(g.Y) * g.X +
+         static_cast<size_t>(oy) * g.X + ox;
+
+  // bfloat16: inv_ds^2 (bfloat16-exact) in both lanes
+  const unsigned sx2 = pk(s.ix2, s.ix2), sy2 = pk(s.iy2, s.iy2),
+                 sz2 = pk(s.iz2, s.iz2);
 
   const int nload = z1 - z0 + 2 * R;  // planes z0 - R .. z1 + R - 1
   for (int i = 0; i < kDepth; ++i) {
-    if (i < nload) load_plane(i);
+    if (i < nload) {
+      ld.fetch(i);
+      ld.land(ring);
+    }
     cp_async_commit();
   }
   // pass i waits for plane i (in ring slot `slot`), asks for plane i +
   // kDepth into the slot of plane i - 4 (read in pass i - 1, which the
-  // barrier has closed) and reads plane i's centres into the pencil:
-  // pc[r][i % 7] is row r's four centre columns at plane i
+  // barrier has closed; the bfloat16 loader writes it at the end of pass
+  // i, when plane i - 4's slot is still read by no pass) and reads plane
+  // i's centres into the pencil: pc[r][i % 7] is row r's four centre
+  // columns at plane i
   float4 pc[kRows][kPencil];
   int slot = 0;
   auto advance = [&](int i) {
@@ -256,7 +442,7 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
     __syncthreads();        // ... everyone's; pass i - 1 is done
     if (i + kDepth < nload) {
       const int ls = slot + kDepth;
-      load_plane(ls < kSlots ? ls : ls - kSlots);
+      ld.fetch(ls < kSlots ? ls : ls - kSlots);
     }
     cp_async_commit();
   };
@@ -267,6 +453,7 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       pc[r][k] = centres<kShift>(pi + r * kPitch);
+    ld.land(ring);
     if (++slot == kSlots) slot = 0;
   }
   // pass i >= 6 computes the output plane of stream plane i - 3; in
@@ -311,37 +498,65 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
             for (int q = 0; q < 10; ++q) xs[q] = v[q];
           }
-          float res[4];
+          if (oy + r >= g.Y || ox >= g.X) continue;
+          T* const po = o + static_cast<size_t>(r) * g.X;
+          if constexpr (std::is_same<T, bf16>::value) {
+            // outputs (0, 1) and (2, 3) as two bfloat16x2 lanes
+            unsigned res[2];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ctr = xs[R + e];
-            float accx = kC * ctr;
-            float accy = accx;
-            float accz = kC * ctr;
+            for (int h = 0; h < 2; ++h) {
+              const int e0 = 2 * h, e1 = 2 * h + 1;
+              const unsigned ctr = pk(xs[R + e0], xs[R + e1]);
+              unsigned accx = mul2(kC2, ctr);
+              unsigned accy = accx;
+              unsigned accz = mul2(kC2, ctr);
 #pragma unroll
-            for (int d = 1; d <= R; ++d) {
-              const float wd = weight(d);
-              accx = accx + wd * (xs[R + e + d] + xs[R + e - d]);
-              accy = accy + wd * (part(yv[R + r + d], e) +
-                                  part(yv[R + r - d], e));
-              accz = accz + wd * (part(pc[r][(k + 3 + d) % kPencil], e) +
-                                  part(pc[r][(k + 3 - d) % kPencil], e));
+              for (int d = 1; d <= R; ++d) {
+                const unsigned wd = weight2(d);
+                accx = add2(accx, mul2(wd, add2(pk(xs[R + e0 + d],
+                                                   xs[R + e1 + d]),
+                                                pk(xs[R + e0 - d],
+                                                   xs[R + e1 - d]))));
+                accy = add2(
+                    accy,
+                    mul2(wd, add2(pk(part(yv[R + r + d], e0),
+                                     part(yv[R + r + d], e1)),
+                                  pk(part(yv[R + r - d], e0),
+                                     part(yv[R + r - d], e1)))));
+                const float4 zh = pc[r][(k + 3 + d) % kPencil];
+                const float4 zl = pc[r][(k + 3 - d) % kPencil];
+                accz = add2(accz, mul2(wd, add2(pk(part(zh, e0),
+                                                   part(zh, e1)),
+                                                pk(part(zl, e0),
+                                                   part(zl, e1)))));
+              }
+              res[h] = add2(add2(mul2(accx, sx2), mul2(accy, sy2)),
+                            mul2(accz, sz2));
             }
-            res[e] = accx * s.ix2 + accy * s.iy2 + accz * s.iz2;
-          }
-          if (oy + r < g.Y) {
-            float* const p = o + static_cast<size_t>(r) * g.X;
-            if (kVecOut) {
-              if (ox < g.X)
-                *reinterpret_cast<float4*>(p) =
-                    make_float4(res[0], res[1], res[2], res[3]);
-            } else {
+            store4b<kVecOut>(po, res, g.X - ox);
+          } else {
+            float res[4];
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                if (ox + e < g.X) p[e] = res[e];
+            for (int e = 0; e < 4; ++e) {
+              const float ctr = xs[R + e];
+              float accx = kC * ctr;
+              float accy = accx;
+              float accz = kC * ctr;
+#pragma unroll
+              for (int d = 1; d <= R; ++d) {
+                const float wd = weight(d);
+                accx = accx + wd * (xs[R + e + d] + xs[R + e - d]);
+                accy = accy + wd * (part(yv[R + r + d], e) +
+                                    part(yv[R + r - d], e));
+                accz = accz + wd * (part(pc[r][(k + 3 + d) % kPencil], e) +
+                                    part(pc[r][(k + 3 - d) % kPencil], e));
+              }
+              res[e] = accx * s.ix2 + accy * s.iy2 + accz * s.iz2;
             }
+            store4<kVecOut>(po, res, g.X - ox);
           }
         }
+        ld.land(ring);
         o += oplane;
         if (++slot == kSlots) slot = 0;
       }
@@ -350,15 +565,15 @@ laplace6_ring_kernel(const float* __restrict__ in, float* __restrict__ out,
   cp_async_wait_all();
 }
 
-// B8 with kChunk-float copies; 16-byte stores where X is a multiple of 4
-// and the output 16-byte aligned.
-template <int kChunk>
-cudaError_t launch(const float* in, float* out, const Geom& g,
-                   const Scale& s, int zrun, cudaStream_t stream) {
-  const bool vec_out =
-      g.X % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const auto kernel = vec_out ? laplace6_ring_kernel<kChunk, true>
-                              : laplace6_ring_kernel<kChunk, false>;
+// B8 on cells of T with kChunk-float copies; 16-byte stores (8-byte in
+// bfloat16) where X is a multiple of 4 and the output aligned to them.
+template <typename T, int kChunk>
+cudaError_t launch(const T* in, T* out, const Geom& g, const Scale& s,
+                   int zrun, cudaStream_t stream) {
+  const bool vec_out = g.X % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  const auto kernel = vec_out ? laplace6_ring_kernel<T, kChunk, true>
+                              : laplace6_ring_kernel<T, kChunk, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kRingBytes));
@@ -374,29 +589,44 @@ extern "C" {
 
 // B8 over the (Z, Y, X) interior of a (Zp, Yp, Xp) field with low pads
 // (lz, ly, lx) >= 3, in z runs of `zrun` planes (ops/cuda_stencil.py
-// laplace6_plan): 8-byte copies where every padded row starts on 8 bytes
-// (Xp even, the field 8-byte aligned) and lx is odd, 4-byte ones
-// otherwise.
-cudaError_t laplace6_launch(const float* in, float* out, int Z, int Y, int X,
+// laplace6_plan), on float32 cells or, where is_bf16, bfloat16 ones
+// (ix2, iy2, iz2 then bfloat16-exact). Two cells a copy or load where
+// every padded row starts on two cells (Xp even, the field aligned to
+// two cells) and lx is odd, one otherwise.
+cudaError_t laplace6_launch(const void* in, void* out, int Z, int Y, int X,
                             int Yp, int Xp, int lz, int ly, int lx,
                             float ix2, float iy2, float iz2, int zrun,
-                            void* stream) {
+                            int is_bf16, void* stream) {
   if (Z < 1 || Y < 1 || X < 1 || lz < R || ly < R || lx < R || zrun < 1)
     return cudaErrorInvalidValue;
   const Geom g{Z, Y, X, Yp, Xp, lz, ly, lx};
   const Scale s{ix2, iy2, iz2};
   const auto st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const auto* bin = static_cast<const bf16*>(in);
+    auto* bout = static_cast<bf16*>(out);
+    if (Xp % 2 == 0 && reinterpret_cast<uintptr_t>(in) % 4 == 0 && lx % 2)
+      return launch<bf16, 2>(bin, bout, g, s, zrun, st);
+    return launch<bf16, 1>(bin, bout, g, s, zrun, st);
+  }
+  const auto* fin = static_cast<const float*>(in);
+  auto* fout = static_cast<float*>(out);
   if (Xp % 2 == 0 && reinterpret_cast<uintptr_t>(in) % 8 == 0 && lx % 2)
-    return launch<2>(in, out, g, s, zrun, st);
-  return launch<1>(in, out, g, s, zrun, st);
+    return launch<float, 2>(fin, fout, g, s, zrun, st);
+  return launch<float, 1>(fin, fout, g, s, zrun, st);
 }
 
 // How many blocks of the kernel one SM holds, as the CUDA runtime counts
-// them (the instantiation of Astaroth's layout: 8-byte copies, odd low x
-// pad, 16-byte stores): ops/cuda_stencil.py laplace6_blocks_per_sm models
-// it, and laplace6_plan plans with that.
-cudaError_t laplace6_blocks_per_sm(int* blocks_per_sm) {
-  const auto kernel = laplace6_ring_kernel<2, true>;
+// them (the instance of Astaroth's layout: two cells a copy or load, odd
+// low x pad, 16-byte stores in float32, 8-byte in bfloat16):
+// ops/cuda_stencil.py laplace6_blocks_per_sm models it, and laplace6_plan
+// plans with that.
+cudaError_t laplace6_blocks_per_sm(int is_bf16, int* blocks_per_sm) {
+  const auto kernel =
+      is_bf16 ? reinterpret_cast<const void*>(
+                    laplace6_ring_kernel<bf16, 2, true>)
+              : reinterpret_cast<const void*>(
+                    laplace6_ring_kernel<float, 2, true>);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kRingBytes));

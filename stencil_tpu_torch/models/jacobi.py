@@ -559,11 +559,25 @@ class Jacobi3D:
         launch (a shard) or K1/B5 step on ``wrap``/``halo``, the interior
         sliced out and written back per chunk so that every probe row
         reads current state. ``overlap``: a B7 step a chunk, all in one
-        session of its receive slabs. JAX gates that path on its schedule
-        certificate; the port has no certifier yet (ROADMAP A14), so it
-        builds the segment directly."""
+        session of its receive slabs, built only when B7's flag and event
+        schedule on this mesh and these ranks certifies replay-safe
+        (``analysis/schedule.overlap_certificate``, memoized; JAX
+        models/jacobi.py:930-948); otherwise the path declines with
+        ``DECLINE_UNCERTIFIED_SCHEDULE`` and the certificate's reasons."""
+        from ..parallel import megastep as ms
+
         path = self.kernel_path
         if path == "overlap":
+            from ..analysis import schedule
+
+            cert = schedule.overlap_certificate(self.dd.mesh_counts,
+                                                self.dd.mesh.peers)
+            self._schedule_certificate = cert
+            gate = ms.certificate_gate(cert)
+            if gate is not None:
+                self._set_segment_decline(
+                    gate, ms.DECLINE_UNCERTIFIED_SCHEDULE)
+                return
             self._overlap_recv_for()
             self._set_segment_builder(
                 self._overlap_chunk,

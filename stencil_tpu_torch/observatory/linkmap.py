@@ -31,8 +31,9 @@ link class) bytes a step and per-axis fitted peaks, which
 ``attribution.PerfAttributor`` exports as
 ``stencil_link_bytes_per_step`` and ``stencil_link_utilization_ratio``.
 
-The JAX module's HLO checker (``LinkmapSpec``, ``LinkmapTarget``,
-``check_linkmap``) waits for the analysis checkers (ROADMAP A14).
+The checker (``LinkmapTarget``, ``check_linkmap``, checker 11 of
+``stencil_tpu_torch.analysis``) holds the matrix against the messages a
+run moves, link by link.
 """
 
 from __future__ import annotations
@@ -789,3 +790,69 @@ def render_summary(summary: LinkmapSummary) -> str:
         lines.append(f"  {key:<14} {row['bytes']:>12} B  "
                      f"({100 * row['share']:5.1f}%)")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# checker 11: the modeled matrix against the probed messages
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class LinkmapTarget:
+    """``build()`` gives an ``analysis.entries.ExchangeSpec`` whose
+    ``traffic()`` is the modeled matrix of its run."""
+    name: str
+    build: Callable[[], object]
+
+    checker = "linkmap"
+
+
+def probed_matrix(messages, n: int) -> np.ndarray:
+    """Per-(src, dst) bytes of ``WireProbe.messages``, whose positions
+    must lie in ``range(n)``."""
+    w = np.zeros((n, n), dtype=np.int64)
+    for _, src, dst, nbytes in messages:
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"message {src} -> {dst} lies outside the "
+                             f"{n} positions")
+        w[src, dst] += nbytes
+    return w
+
+
+def check_linkmap(target: LinkmapTarget):
+    """The modeled traffic matrix equals the probed messages exactly,
+    link by link (by total where the spec's ``by_link`` is off: the
+    all-gather engine moves each slab to every shard of its line, which
+    the model prices as one contribution a shard)."""
+    from ..analysis.entries import probe_messages
+    from ..analysis.report import Finding
+
+    try:
+        spec = target.build()
+        tm = spec.traffic()
+    except Exception as e:  # noqa: BLE001
+        return [Finding("linkmap", target.name,
+                        f"target build failed: {type(e).__name__}: {e}")]
+    probe = probe_messages(spec)
+    got = probed_matrix(probe.messages, tm.n)
+    want = tm.matrix()
+    findings = []
+    if spec.by_link:
+        bad = np.argwhere(got != want)
+        for src, dst in bad[:8]:
+            findings.append(Finding(
+                "linkmap", target.name,
+                f"link {src} -> {dst}: probed {int(got[src, dst])} B, "
+                f"modeled {int(want[src, dst])} B"))
+        if len(bad) > 8:
+            findings.append(Finding("linkmap", target.name,
+                                    f"... and {len(bad) - 8} more links"))
+    elif int(got.sum()) != int(want.sum()):
+        findings.append(Finding(
+            "linkmap", target.name,
+            f"probed {int(got.sum())} B in all, modeled {int(want.sum())}"))
+    if not want.any():
+        findings.append(Finding("linkmap", target.name,
+                                "the modeled matrix is empty: nothing "
+                                "checked"))
+    return findings, {"links": int((want != 0).sum()),
+                      "bytes": int(want.sum()),
+                      "probed_bytes": int(got.sum())}

@@ -42,6 +42,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 #: libraries nvcc built in this process (``analysis/recompile.py``)
 BUILDS = 0
+#: each library's nvcc output (the ``-Xptxas=-v`` lines) where this
+#: process built it (``usage``)
+LOGS: Dict[str, str] = {}
 
 
 def sources() -> Dict[str, Path]:
@@ -125,6 +128,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         if log.strip():
             print(f"nvcc {srcs[name].name}:\n{log}", flush=True)
+        LOGS[name] = f"nvcc {srcs[name].name}:\n{log}"
         os.replace(tmp, out)
     global BUILDS
     BUILDS += len(procs) - len(failed)
@@ -166,6 +170,32 @@ def ptxas_usage(log: str, lib: Optional[str] = None
         if m:
             use["static_smem"] = int(m.group(1))
     return out
+
+
+def usage(name: str) -> Dict[tuple, Dict[str, int]]:
+    """``ptxas_usage`` of library ``name``: from this process's build,
+    or else from fresh ``nvcc`` runs into scratch files of the build
+    directory (every library without a log, all started together; the
+    libraries on disk are left as they are)."""
+    if name not in LOGS:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        procs = {}
+        for lib, src in sources().items():
+            if lib in LOGS:
+                continue
+            tmp = library_path(lib).with_suffix(f".{os.getpid()}.usage")
+            procs[lib] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        for lib, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            tmp.unlink(missing_ok=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {lib}:\n{log}")
+            LOGS[lib] = f"nvcc {lib}.cu:\n{log}"
+    return ptxas_usage(LOGS[name], name)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -135,6 +135,55 @@ def _check_mesh(interiors: Sequence[torch.Tensor], counts: Dim3,
     return Z, Y, X
 
 
+#: the ``kind`` of an event of ``ShardOrdering`` in an ordering schedule
+#: (``ordering_a_schedule``): ``sent[slot]`` and ``read[slot]``, where
+#: any other kind is a device-side counter of ``ipc.PeerFlags``
+EV_SENT, EV_READ = "ev-sent", "ev-read"
+
+
+def ordering_a_schedule(i: int, targets: Sequence[int], remote: Dict,
+                        card, sent: int, read_before: int) -> List:
+    """Position i's launch A as ``ShardOrdering.launch_a`` carries it
+    out, a list of ``ipc.FlagOp``. Rule (a) between positions of this
+    process: wait for ``read[j]`` of every other target j that is not
+    ``remote`` (its launch B of the last B phase, value ``read_before``;
+    none before the first); between ranks ``ipc.overlap_a_schedule``'s
+    flags and launch; ``sent[i]`` recorded as ``sent`` right after the
+    launch. An event's value is the phase that records it; the card
+    ignores it, and ``analysis/schedule.py`` replays it."""
+    from ..parallel import ipc
+
+    ops = []
+    if read_before:
+        ops += [ipc.FlagOp("wait", EV_READ, j, read_before, card)
+                for j in targets if j != i and j not in remote]
+    for op in ipc.overlap_a_schedule(i, targets, remote, card, sent,
+                                     read_before):
+        ops.append(op)
+        if op.op == "launch":
+            ops.append(ipc.FlagOp("signal", EV_SENT, i, sent, card))
+    return ops
+
+
+def ordering_b_schedule(j: int, sources: Sequence[int], remote: Dict,
+                        card, sent: int, read: int) -> List:
+    """Position j's launch B as ``ShardOrdering.launch_b`` carries it
+    out. Rule (b) between positions of this process: wait for
+    ``sent[i]`` of every other source i that is not ``remote`` (its
+    launch A of this phase, value ``sent``); between ranks
+    ``ipc.overlap_b_schedule``'s flags and launch; ``read[j]`` recorded
+    as ``read`` right after the launch."""
+    from ..parallel import ipc
+
+    ops = [ipc.FlagOp("wait", EV_SENT, i, sent, card)
+           for i in sources if i != j and i not in remote]
+    for op in ipc.overlap_b_schedule(j, sources, remote, card, sent, read):
+        ops.append(op)
+        if op.op == "launch":
+            ops.append(ipc.FlagOp("signal", EV_READ, j, read, card))
+    return ops
+
+
 class ShardOrdering:
     """The ordering of a mesh's remote-write launches on the card: one
     CUDA stream per shard (``ShardStreams``) and the events of rules (a)
@@ -153,7 +202,10 @@ class ShardOrdering:
     target's card, a launch B waits for each remote source's SENT of the
     same phase and signals READ back, and the next launch A waits for
     that READ. ``begin_a`` and ``begin_b`` open each phase (one call of
-    a wrapper over every shard); made collectively on the card."""
+    a wrapper over every shard); made collectively on the card. Both
+    kinds of order are the schedules ``ordering_a_schedule`` and
+    ``ordering_b_schedule`` give, which ``launch_a`` and ``launch_b``
+    carry out and the schedule checker replays."""
 
     def __init__(self, devices: Sequence[Optional[torch.device]],
                  targets: Sequence[Sequence[int]],
@@ -167,13 +219,18 @@ class ShardOrdering:
         self.streams: Optional[ShardStreams] = None
         self.flags = None
         self.remote: Dict[int, tuple] = {}
+        self.card: Dict[int, tuple] = {}
+        #: this object's SENT value of the current A phase, its READ value
+        #: of the current B phase, and the B value the current A phase
+        #: waits for (0 before the first B phase): the channel's ticks on
+        #: a mesh that spans processes, else phase counts
+        self._sent_value = self._b_value = self._read_value = 0
         self.active = False
         if torch.device(devices[self.local[0]]).type != "cuda":
             return
         self.streams = ShardStreams(devices)
         self.sent = [torch.cuda.Event() for _ in range(n)]
         self.read = [torch.cuda.Event() for _ in range(n)]
-        self._read_recorded = [False] * n
         where = devices
         if ranks is not None:
             from ..parallel import ipc
@@ -183,28 +240,24 @@ class ShardOrdering:
             self.remote = self.flags.remote()
             self.card = {i: ipc.card_key(ranks[i], where[i])
                          for i in self.local}
-            #: this object's SENT value of the current A phase, its READ
-            #: value of the current B phase, and the B value the current
-            #: A phase waits for (0 before the first B phase)
-            self._sent_value = self._b_value = self._read_value = 0
         for i in self.local:
             for j in self.targets[i]:
                 enable_peer_access(where[i], where[j])
 
     def begin_a(self) -> None:
         """Open an A phase (every shard's launch A of one step)."""
-        if self.flags is not None:
-            from ..parallel import ipc
+        from ..parallel import ipc
 
-            self._read_value = self._b_value
-            self._sent_value = self.flags.tick(ipc.SENT)
+        self._read_value = self._b_value
+        self._sent_value = (self._sent_value + 1 if self.flags is None
+                            else self.flags.tick(ipc.SENT))
 
     def begin_b(self) -> None:
         """Open a B phase (every shard's launch B of one step)."""
-        if self.flags is not None:
-            from ..parallel import ipc
+        from ..parallel import ipc
 
-            self._b_value = self.flags.tick(ipc.READ)
+        self._b_value = (self._b_value + 1 if self.flags is None
+                         else self.flags.tick(ipc.READ))
 
     @contextlib.contextmanager
     def session(self) -> Iterator["ShardOrdering"]:
@@ -222,62 +275,46 @@ class ShardOrdering:
             if self.streams is not None:
                 self.streams.exit()
 
-    def _flagged(self, ops, s):
-        """Split a schedule at its launch: run what comes before on
-        stream ``s`` now; return what comes after."""
+    def _carry(self, ops, s: torch.cuda.Stream
+               ) -> Iterator[torch.cuda.Stream]:
+        """Carry out an ordering schedule on stream ``s``: its steps
+        before the launch, then the launch (the caller's block, on
+        ``s``), then its steps after."""
+        k = next(n for n, op in enumerate(ops) if op.op == "launch")
+        self._run(ops[:k], s)
+        with torch.cuda.stream(s):
+            yield s
+        self._run(ops[k + 1:], s)
+
+    def _run(self, ops, s: torch.cuda.Stream) -> None:
         from ..parallel import ipc
 
-        k = next(n for n, op in enumerate(ops) if op.op == "launch")
-        ipc.run_schedule(self.flags, ops[:k], s)
-        return ops[k + 1:]
+        for op in ops:
+            if op.kind in (EV_SENT, EV_READ):
+                ev = (self.sent if op.kind == EV_SENT else self.read)[op.slot]
+                if op.op == "wait":
+                    s.wait_event(ev)
+                else:
+                    ev.record(s)
+            else:
+                ipc.run_schedule(self.flags, [op], s)
 
     @contextlib.contextmanager
     def launch_a(self, i: int) -> Iterator[torch.cuda.Stream]:
         """The block launches shard i's launch A on its stream, after
         rule (a): every other target's previous launch B."""
-        s = self.streams[i]
-        for j in self.targets[i]:
-            if j != i and j not in self.remote and self._read_recorded[j]:
-                s.wait_event(self.read[j])
-        after = []
-        if self.flags is not None:
-            from ..parallel import ipc
-
-            after = self._flagged(ipc.overlap_a_schedule(
-                i, self.targets[i], self.remote, self.card[i],
-                self._sent_value, self._read_value), s)
-        with torch.cuda.stream(s):
-            yield s
-        self.sent[i].record(s)
-        if after:
-            from ..parallel import ipc
-
-            ipc.run_schedule(self.flags, after, s)
+        yield from self._carry(ordering_a_schedule(
+            i, self.targets[i], self.remote, self.card.get(i),
+            self._sent_value, self._read_value), self.streams[i])
 
     @contextlib.contextmanager
     def launch_b(self, j: int) -> Iterator[torch.cuda.Stream]:
         """The block launches shard j's launch B on its stream, after
         rule (b): the launch A of every other shard that writes into
         j."""
-        s = self.streams[j]
-        for i in self.sources[j]:
-            if i != j and i not in self.remote:
-                s.wait_event(self.sent[i])
-        after = []
-        if self.flags is not None:
-            from ..parallel import ipc
-
-            after = self._flagged(ipc.overlap_b_schedule(
-                j, self.sources[j], self.remote, self.card[j],
-                self._sent_value, self._b_value), s)
-        with torch.cuda.stream(s):
-            yield s
-        self.read[j].record(s)
-        self._read_recorded[j] = True
-        if after:
-            from ..parallel import ipc
-
-            ipc.run_schedule(self.flags, after, s)
+        yield from self._carry(ordering_b_schedule(
+            j, self.sources[j], self.remote, self.card.get(j),
+            self._sent_value, self._b_value), self.streams[j])
 
     @contextlib.contextmanager
     def own_session(self) -> Iterator[None]:

@@ -26,8 +26,11 @@ wrapper's entry in ``LAUNCHES``. K1–K3 take float32 or bfloat16 (a
 bfloat16 instance of each kernel: every add and the multiply by
 bf16(1/6) round to bfloat16 at once, in the kernel's order, as the JAX
 kernels compute a bfloat16 field) and refuse any other dtype on the CPU
-too; B8 takes float32 on the card, while ``laplace6_cuda`` hands a CPU
-tensor of any float dtype to its twin, as the MHD wrappers do.
+too; B8 takes float32 or bfloat16 on the card (its bfloat16 instance
+rounds every add and multiply to bfloat16 at once, in the twin's order,
+with ``D2_C``, ``w_i`` and ``inv_ds²`` rounded once), while
+``laplace6_cuda`` hands a CPU tensor of any float dtype to its twin, as
+the MHD wrappers do.
 
 K2 takes ``1 <= steps <=`` the dtype's sublane tile: 8 for float32, 16
 for bfloat16. The ring kernel takes 8 a launch, so bfloat16 runs 9 to 16
@@ -47,7 +50,6 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..geometry import Dim3, Radius
@@ -350,7 +352,8 @@ LAPLACE6_R = 3
 #: to a multiple of the block's 8 warps, which copy a row each at a time
 LAPLACE6_WINDOW_ROWS = 8 * -(-(LAPLACE6_TY + 2 * LAPLACE6_R) // 8)
 #: B8's dynamic shared memory: a ring of depth + 4 window planes
-#: (``kRingBytes`` in csrc/laplace6.cu)
+#: (``kRingBytes`` in csrc/laplace6.cu), of float32 cells in both
+#: instances: the bfloat16 one widens each cell exactly as it lands
 LAPLACE6_SMEM_BYTES = 4 * (LAPLACE6_DEPTH + LAPLACE6_R + 1) \
     * LAPLACE6_PITCH * LAPLACE6_WINDOW_ROWS
 
@@ -364,7 +367,9 @@ class Laplace6Plan(NamedTuple):
 
 def laplace6_blocks_per_sm() -> int:
     """Blocks of B8's kernel one SM holds, by shared memory and by
-    registers. ``laplace6_occupancy`` reads the card's count."""
+    registers: the same for 4- and 2-byte cells, whose ring is float32
+    alike and whose build is held to ``LAPLACE6_REGISTERS`` alike.
+    ``laplace6_occupancy`` reads the card's count."""
     return min(SM_REGISTERS // (LAPLACE6_THREADS * LAPLACE6_REGISTERS),
                SM_SMEM_BYTES // (LAPLACE6_SMEM_BYTES + BLOCK_RESERVED_BYTES))
 
@@ -375,7 +380,9 @@ def laplace6_plan(Z: int, Y: int, X: int, n_sms: int) -> Laplace6Plan:
     the z run that minimises ``ring_cost`` (waves x planes a block
     loads, the ring's model at radius 3) on the 64 x 32 tile, among the
     runs ceil(Z / k), k = 1..Z: any other run loads more planes for the
-    same number of blocks. Ties go to the longer run."""
+    same number of blocks. Ties go to the longer run. float32 and
+    bfloat16 cells take the same plan: both instances hold as many
+    blocks an SM (``laplace6_blocks_per_sm``)."""
     bps = laplace6_blocks_per_sm()
     runs = {-(-Z // k) for k in range(1, Z + 1)}
     zrun = min(runs, key=lambda r: (ring_cost(
@@ -383,11 +390,13 @@ def laplace6_plan(Z: int, Y: int, X: int, n_sms: int) -> Laplace6Plan:
     return Laplace6Plan(zrun, bps)
 
 
-def laplace6_occupancy(device: torch.device) -> int:
-    """Blocks of B8's kernel one SM of ``device`` holds, as the CUDA
-    runtime counts them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+def laplace6_occupancy(device: torch.device, itemsize: int = 4) -> int:
+    """Blocks of B8's kernel (the instance for ``itemsize``-byte cells)
+    one SM of ``device`` holds, as the CUDA runtime counts them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
     ``laplace6_blocks_per_sm`` models it."""
-    return _occupancy("laplace6", "laplace6_blocks_per_sm", device)
+    return _occupancy("laplace6", "laplace6_blocks_per_sm", device,
+                      int(itemsize == 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -433,7 +442,7 @@ _SIGNATURES = {
     "jacobi7_wrapn_launch": [_P, _P] + [_I] * 15 + [_P],
     "jacobi7_padded_launch": [_P, _P] + [_I] * 9 + [_P],
     "laplace6_launch": [_P, _P] + [_I] * 8 + [ctypes.c_float] * 3
-    + [_I, _P],
+    + [_I, _I, _P],
 }
 
 
@@ -575,8 +584,8 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     """B8: the 6th-order Laplacian over a halo-padded (Zp, Yp, Xp) shard
     with low pads ``radius.pad_lo()`` of at least 3 and a radius-3 ring
     on the high side; returns the (Z, Y, X) interior. A CUDA tensor must
-    be float32 and is one launch, as ``laplace6_plan`` says; a CPU
-    tensor of any float dtype goes to the twin."""
+    be float32 or bfloat16 and is one launch, as ``laplace6_plan`` says;
+    a CPU tensor of any float dtype goes to the twin."""
     what = "laplace6_cuda"
     if padded.dim() != 3 or not padded.is_floating_point():
         raise ValueError(f"{what}: expected a floating (Z, Y, X) tensor, "
@@ -592,12 +601,13 @@ def laplace6_cuda(padded: torch.Tensor, radius: Radius, interior: Dim3,
     out = _out(padded, out, (Z, Y, X), what)
     if padded.device.type == "cpu":
         return out.copy_(laplace6_plain(padded, radius, interior, inv_ds))
-    _check(padded, what, (torch.float32,))
+    _check(padded, what)
     _check_cuda(padded, what)
-    ix2, iy2, iz2 = (float(np.float32(v * v)) for v in inv_ds)
+    # inv_ds² rounded once to the field's dtype, as the twin's const()
+    ix2, iy2, iz2 = (float(const(v * v, padded.dtype)) for v in inv_ds)
     plan = laplace6_plan(Z, Y, X, sm_count(padded.device))
     _launch("laplace6_launch", padded.device, padded.data_ptr(),
             out.data_ptr(), Z, Y, X, Yp, Xp, lo.z, lo.y, lo.x, ix2, iy2,
-            iz2, plan.zrun, lib_name="laplace6")
+            iz2, plan.zrun, is_bf16(padded), lib_name="laplace6")
     LAUNCHES["laplace6"] += 1
     return out

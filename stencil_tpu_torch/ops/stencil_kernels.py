@@ -45,6 +45,31 @@ def jacobi7(padded: torch.Tensor, radius: Radius,
     return acc * sixth(padded.dtype, padded.device)
 
 
+def laplacian27(padded: torch.Tensor, radius: Radius, interior: Dim3,
+                weights=None) -> torch.Tensor:
+    """27-point weighted stencil over the radius-1 box (JAX
+    ``ops/stencil_kernels.py:46``): it reads the edge and corner halo
+    data the 7-point stencil does not. ``weights`` = (centre, face,
+    edge, corner), by default the 27-point Laplacian's; the terms are
+    added in the JAX version's order (x outermost, then y, then z)."""
+    lo = radius.pad_lo()
+    if weights is None:
+        w_center, w_face = -88.0 / 26.0, 6.0 / 26.0
+        w_edge, w_corner = 3.0 / 26.0, 2.0 / 26.0
+    else:
+        w_center, w_face, w_edge, w_corner = weights
+    out = w_center * shifted(padded, (0, 0, 0), lo, interior)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                n = (dx != 0) + (dy != 0) + (dz != 0)
+                if n == 0:
+                    continue
+                w = (w_face, w_edge, w_corner)[n - 1]
+                out = out + w * shifted(padded, (dx, dy, dz), lo, interior)
+    return out
+
+
 def central_diff(padded: torch.Tensor, axis: int, radius: Radius,
                  interior: Dim3) -> torch.Tensor:
     """Second-order central difference along grid ``axis`` (0=x, 1=y,

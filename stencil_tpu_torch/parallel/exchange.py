@@ -226,19 +226,54 @@ def _from_wire(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class WireProbe:
     """The record of a probe exchange (``make_exchange``'s precision
-    gate): per message that moves between two mesh positions, its axis,
-    the dtype it crossed at, the storage dtype it was meant for and the
-    dtype it was written as; ``bytes`` sums the messages' wire bytes."""
+    gate, the analysis checkers): per message that moves between two
+    mesh positions, its axis, the dtype it crossed at, the storage dtype
+    it was meant for and the dtype it was written as (``records``), and
+    its axis, source and destination positions and wire bytes
+    (``messages``); ``bytes`` sums the messages' wire bytes."""
 
     def __init__(self) -> None:
         self.records: List[Tuple[str, torch.dtype, torch.dtype,
                                  torch.dtype]] = []
+        self.messages: List[Tuple[str, int, int, int]] = []
         self.bytes = 0
 
     def moved(self, axis: str, wire: torch.dtype, storage: torch.dtype,
-              written: torch.dtype, nbytes: int) -> None:
+              written: torch.dtype, nbytes: int, src: int,
+              dst: int) -> None:
         self.records.append((axis, wire, storage, written))
+        self.messages.append((axis, int(src), int(dst), int(nbytes)))
         self.bytes += int(nbytes)
+
+
+#: the probes ``recording`` installed: every engine records its messages
+#: into the innermost one when its caller passed none
+_RECORDING: List[WireProbe] = []
+
+
+class recording:
+    """``with recording(probe):`` — every exchange, accumulate and
+    migration run inside the block records each message it moves
+    between two mesh positions into ``probe`` (one process; the copy
+    engines then ship every message through ``_ship`` as a probed
+    exchange does), also where a caller deeper down passes no probe."""
+
+    def __init__(self, probe: WireProbe) -> None:
+        self.probe = probe
+
+    def __enter__(self) -> WireProbe:
+        _RECORDING.append(self.probe)
+        return self.probe
+
+    def __exit__(self, *exc) -> None:
+        _RECORDING.remove(self.probe)
+
+
+def active_probe(probe: Optional[WireProbe]) -> Optional[WireProbe]:
+    """``probe``, or the innermost ``recording`` probe."""
+    if probe is not None or not _RECORDING:
+        return probe
+    return _RECORDING[-1]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -246,15 +281,17 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _ship(src: torch.Tensor, device: torch.device, fmt: str, axis: str,
-          probe: Optional[WireProbe] = None) -> torch.Tensor:
-    """One message between two mesh positions: ``src`` narrowed under
-    ``fmt`` on its own device, moved to ``device`` at wire width, and
-    widened back to its storage dtype there. A message that does not
-    narrow is returned as it is, for the caller's ``copy_`` to move."""
+          probe: Optional[WireProbe], frm: int, to: int) -> torch.Tensor:
+    """One message from mesh position ``frm`` to ``to``: ``src``
+    narrowed under ``fmt`` on its own device, moved to ``device`` at wire
+    width, and widened back to its storage dtype there. A message that
+    does not narrow is returned as it is, for the caller's ``copy_`` to
+    move."""
     wire = _to_wire(src, fmt)
     recv = src if wire is src else _from_wire(wire.to(device), src.dtype)
     if probe is not None:
-        probe.moved(axis, wire.dtype, src.dtype, recv.dtype, _nbytes(wire))
+        probe.moved(axis, wire.dtype, src.dtype, recv.dtype, _nbytes(wire),
+                    frm, to)
     return recv
 
 
@@ -494,6 +531,7 @@ def _shard_batches(shards, radius, mesh_counts, axis_order, rem,
     alloc_r = alloc_radius if alloc_radius is not None else radius
     wf = normalize_wire_format(wire_format)
     layout = normalize_wire_layout(wire_layout)
+    probe = active_probe(probe)
     me = this_rank() if ranks is not None else None
     for a, _, per in _moves(_first(arrs).shape, radius, alloc_r, counts,
                             rem, axis_order, layout, nonperiodic):
@@ -524,7 +562,8 @@ def _shard_batches(shards, radius, mesh_counts, axis_order, rem,
             elif plain:
                 dst.copy_(src)
             else:
-                dst.copy_(_ship(src, arrs[i].device, fmt, name, probe))
+                dst.copy_(_ship(src, arrs[i].device, fmt, name, probe, j,
+                                i))
         yield from _posted(msgs)
 
 
@@ -591,6 +630,7 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
     arrival is added."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
+    probe = active_probe(probe)
     me = this_rank() if ranks is not None else None
     own = [i for i, t in enumerate(arrs) if t is not None]
     idx = [mesh_index(i, counts) for i in range(len(arrs))]
@@ -639,7 +679,7 @@ def accumulate_shard(shards: Sequence[torch.Tensor], radius: Radius,
                 recv = sent_from.get(i, sent[j])
                 if j != i and probe is not None:
                     probe.moved(name, recv.dtype, recv.dtype, recv.dtype,
-                                _nbytes(recv))
+                                _nbytes(recv), j, i)
                 if takes[i]:
                     dst = t.narrow(dim, *dst_at(i))
                     dst.copy_(dst + recv.to(t.device))
@@ -703,6 +743,7 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
     Ly = [shard_interior_len(1, Y, rem, idx[i].y) for i in range(n)]
 
     me = this_rank() if ranks is not None else None
+    probe = active_probe(None)
 
     def moved(*plans) -> List[List[Optional[torch.Tensor]]]:
         """Per plan ``(axis, step, rows, take)``, the message of every
@@ -719,6 +760,10 @@ def exchange_interior_slabs(shards: Sequence[torch.Tensor],
                 if ranks is None or ranks[j] == me:
                     if mine:
                         outs[p][i] = take(j).to(arrs[i].device, copy=True)
+                        if probe is not None and j != i:
+                            t = outs[p][i]
+                            probe.moved(AXIS_NAME[axis], t.dtype, t.dtype,
+                                        t.dtype, _nbytes(t), j, i)
                     else:
                         msgs.send(take(j), ranks[i], len(plans) * i + p)
                 elif mine:
@@ -910,6 +955,7 @@ def _packed_batches(fields, radius, mesh_counts, axis_order, rem,
     groups: Dict[torch.dtype, List[str]] = {}
     for q in names:
         groups.setdefault(_first(arrs[q]).dtype, []).append(q)
+    probe = active_probe(probe)
     me = this_rank() if ranks is not None else None
     n = counts.flatten()
     for k, (a, _, first) in enumerate(moves[names[0]]):
@@ -945,7 +991,8 @@ def _packed_batches(fields, radius, mesh_counts, axis_order, rem,
                     continue
                 buf = torch.cat([s.reshape(-1) for s in srcs])
                 dev = dsts[0].device
-                _splitter(dsts)(_ship(buf, dev, fmt, name, probe).to(dev))
+                _splitter(dsts)(_ship(buf, dev, fmt, name, probe, j,
+                                      i).to(dev))
         yield from _posted(msgs)
 
 
@@ -991,6 +1038,7 @@ def _allgather_batches(shards, radius, mesh_counts, axis_order, probe,
     """``exchange_shard_allgather`` as a generator (``_shard_batches``)."""
     counts = Dim3.of(mesh_counts)
     arrs = _as_list(shards, counts)
+    probe = active_probe(probe)
     for a, side, per in _moves(_first(arrs).shape, radius, radius, counts,
                                Dim3(0, 0, 0), axis_order, "slab", False):
         n_dev = counts[a]
@@ -1040,9 +1088,9 @@ def _allgather_batches(shards, radius, mesh_counts, axis_order, probe,
                     msgs.recv(_view(arrs[k], src_at).shape, arrs[k].dtype,
                               dev, ranks[line[p]], k * n_dev + p, land)
                 if probe is not None:
-                    for s in slabs:
+                    for p, s in zip(line, slabs):
                         probe.moved(name, s.dtype, s.dtype, s.dtype,
-                                    _nbytes(s))
+                                    _nbytes(s), p, k)
             stacks.append((line, gathered))
         yield from _posted(msgs)
         for line, gathered in stacks:

@@ -41,7 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..geometry import Dim3
-from .exchange import AXIS_NAME, WireProbe, _messages, _nbytes
+from .exchange import (AXIS_NAME, WireProbe, _messages, _nbytes,
+                       active_probe)
 from .mesh import mesh_neighbor, this_rank
 
 #: wire-record rows beyond the SoA fields: one packed control row
@@ -144,6 +145,7 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
     if budget < 1:
         raise ValueError(f"budget must be >= 1, got {budget}")
     capacity = fields[names[0]][own[0]].shape[0]
+    probe = active_probe(probe)
     me = this_rank() if ranks is not None else None
     work = [None if valid[i] is None else {q: fields[q][i] for q in names}
             for i in range(n)]
@@ -200,7 +202,7 @@ def migrate_shard(fields: Dict[str, List[torch.Tensor]],
                 buf = bufs[j, side]
                 if j != i and probe is not None:
                     probe.moved(name, buf.dtype, buf.dtype, buf.dtype,
-                                _nbytes(buf))
+                                _nbytes(buf), j, i)
                 incoming.append(buf.to(valid[i].device))
             v = valid[i] & ~leaving[i]
             buf = torch.cat(incoming, dim=1)

@@ -145,33 +145,26 @@ def test_ring_plan_matches_the_card(cs, steps):
     assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth) == bps
 
 
-def _fresh_ptxas(lib, tmp_path, kernel):
+def _ptxas(lib, kernel):
     """Registers, spills and static shared memory of every instantiation
-    of ``kernel`` in a fresh build of library ``lib``, built as the
-    package builds it, from the ``-Xptxas=-v`` lines."""
-    import subprocess
-
+    of ``kernel`` in library ``lib`` as the package builds it, from the
+    ``-Xptxas=-v`` lines (``_build.usage``)."""
     from stencil_tpu_torch.ops import _build
 
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-           str(tmp_path / f"lib{lib}.so"), str(_build.sources()[lib])]
-    log = subprocess.run(cmd, capture_output=True, text=True, check=True,
-                         timeout=600)
-    return {name: use for (_, name), use
-            in _build.ptxas_usage(log.stdout + log.stderr, lib).items()
+    return {name: use for (_, name), use in _build.usage(lib).items()
             if kernel in name}
 
 
 @pytest.mark.parametrize("lib", ["jacobi7", "jacobi_halo"])
 def test_jacobi_ring_kernel_fits_the_planners_registers_without_spills(
-        cs, lib, tmp_path):
+        cs, lib):
     """Every instantiation of the Jacobi ring kernel in each library (K2
     in ``jacobi7``, float32 and bfloat16; B6 in ``jacobi_halo``, float32
     and bfloat16 from the slabs and bfloat16 from the padded buffer of
     its second launch): at most the registers and exactly the static
     shared memory that the planner counts (``RING_REGISTERS``,
     ``RING_STATIC_BYTES``), and no spill."""
-    usage = _fresh_ptxas(lib, tmp_path, "jacobi_ring_kernel")
+    usage = _ptxas(lib, "jacobi_ring_kernel")
     assert len(usage) == {"jacobi7": 2, "jacobi_halo": 3}[lib], usage
     for name, use in usage.items():
         assert use["registers"] <= cs.RING_REGISTERS, (name, use)
@@ -342,18 +335,79 @@ def test_laplace6_kernel_equals_twin_on_wide_and_unaligned_pads(
 def test_laplace6_plan_matches_the_card(cs):
     """The planner's blocks an SM (shared memory and registers) are the
     card's: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on B8's
-    kernel."""
+    kernel, float32 and bfloat16."""
     assert cs.laplace6_occupancy(torch.device("cuda")) \
+        == cs.laplace6_blocks_per_sm()
+    assert cs.laplace6_occupancy(torch.device("cuda"), 2) \
         == cs.laplace6_blocks_per_sm()
 
 
-def test_laplace6_kernel_fits_the_planners_registers_without_spills(
-        cs, tmp_path):
+@pytest.mark.parametrize("shape", LAPLACE6_SHAPES)
+def test_laplace6_bf16_kernel_equals_twin(cs, shape):
+    """B8's bfloat16 instance (bfloat16x2 arithmetic, each operation
+    rounded once, in the twin's order) against the twin on the same
+    bfloat16 cells: bitwise, one launch a call."""
+    Z, Y, X = shape
+    r = Radius.constant(3)
+    interior = Dim3(X, Y, Z)
+    p = (_rand(zyx_shape(raw_size(interior, r)), 46) * 4 - 2).to(
+        torch.bfloat16)
+    before = cs.LAUNCHES["laplace6"]
+    got = cs.laplace6_cuda(p, r, interior, LAPLACE6_INV)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, cs.laplace6_plain(p, r, interior, LAPLACE6_INV))
+    assert cs.LAUNCHES["laplace6"] == before + 1
+
+
+@pytest.mark.parametrize("lo,hi,offset,out_offset", [
+    ((5, 4, 6), (4, 4, 3), 0, 0),    # Xp odd: 2-byte loads
+    ((3, 3, 3), (3, 3, 3), 1, 0),    # rows off 4 bytes: 2-byte loads
+    ((3, 5, 4), (5, 3, 3), 2, 0),    # odd low x pad: 4-byte pair loads
+    ((4, 4, 4), (4, 4, 4), 0, 1),    # outputs off 8 bytes: 2-byte stores
+])   # (x, y, z)
+def test_laplace6_bf16_kernel_on_wide_and_unaligned_pads(
+        cs, lo, hi, offset, out_offset):
+    X, Y, Z = 70, 37, 29
+    shape = (Z + lo[2] + hi[2], Y + lo[1] + hi[1], X + lo[0] + hi[0])
+    n = shape[0] * shape[1] * shape[2]
+    p = _rand((n + offset,), 47).to(torch.bfloat16)[offset:].view(shape)
+    out = torch.full((Z * Y * X + out_offset,), float("nan"),
+                     dtype=torch.bfloat16,
+                     device="cuda")[out_offset:].view(Z, Y, X)
+    r = _laplace6_radius(lo)
+    got = cs.laplace6_cuda(p, r, Dim3(X, Y, Z), LAPLACE6_INV, out=out)
+    assert torch.equal(got, cs.laplace6_plain(p, r, Dim3(X, Y, Z),
+                                              LAPLACE6_INV))
+
+
+def test_laplace6_refuses_other_dtypes_on_the_card(cs):
+    p = _rand((14, 14, 14), 48)
+    for dt in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cs.laplace6_cuda(p.to(dt), Radius.constant(3), Dim3(8, 8, 8))
+
+
+def test_cuda_analysis_targets_are_clean(cs):
+    """The ``cuda.`` analysis targets (the kernels' footprints, their
+    builds' registers and spills, their occupancy, donation and
+    transfer on the kernel paths): none skipped on the card, no error."""
+    from stencil_tpu_torch.analysis import run_targets
+    from stencil_tpu_torch.analysis.card import card_targets
+
+    targets = card_targets()
+    report = run_targets(targets)
+    assert len(report.targets_checked) == len(targets)
+    assert not [k for k, m in report.metrics.items() if "skipped" in m]
+    assert report.ok, [str(f) for f in report.errors]
+
+
+def test_laplace6_kernel_fits_the_planners_registers_without_spills(cs):
     """Every instantiation of B8's kernel (copy width, store width): at
     most the registers the planner counts (``LAPLACE6_REGISTERS``), no
     spill and no static shared memory."""
-    usage = _fresh_ptxas("laplace6", tmp_path, "laplace6_ring_kernel")
-    assert len(usage) == 4, usage   # 2 copy widths x 2 store widths
+    usage = _ptxas("laplace6", "laplace6_ring_kernel")
+    # float32 and bfloat16, 2 copy (load) widths x 2 store widths each
+    assert len(usage) == 8, usage
     for name, use in usage.items():
         assert use["registers"] <= cs.LAPLACE6_REGISTERS, (name, use)
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
@@ -500,13 +554,13 @@ def test_b12_is_bitwise_b11_then_a_slab_round_then_b11(cm, size, mesh,
 
 
 @pytest.mark.parametrize("lib", ["mhd", "mhd_overlap"])
-def test_margin_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
+def test_margin_kernel_holds_128_registers_without_spills(cs, lib):
     """The margin kernel (``csrc/mhd_margin.cuh`` ``mhd_margin_kernel``:
     both instances of the ring behind one uniform branch), as B12 in
     ``mhd`` and B14's pair in ``mhd_overlap`` build it, built as the
     package builds it: at most 128 registers a thread and no spill, in
     both its instantiations (float32 and bfloat16 shards)."""
-    usage = _fresh_ptxas(lib, tmp_path, "mhd_margin_kernel")
+    usage = _ptxas(lib, "mhd_margin_kernel")
     assert len(usage) == 2, usage      # the shard's storage type
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
@@ -551,12 +605,12 @@ def test_mhd_halo_kernels_on_one_shard_equal_the_wrap_kernels(cm, shape):
 
 
 @pytest.mark.parametrize("lib", ["mhd", "mhd_overlap"])
-def test_ring_kernel_holds_128_registers_without_spills(cs, lib, tmp_path):
+def test_ring_kernel_holds_128_registers_without_spills(cs, lib):
     """Every instantiation of the ring kernel (B9 and B11 in ``mhd``,
     B13's interior in ``mhd_overlap``), built as the package builds it:
     at most 128 registers a thread (one 512-thread block an SM) and no
     spill, from the ``-Xptxas=-v`` lines."""
-    usage = _fresh_ptxas(lib, tmp_path, "mhd_substep_ring_kernel")
+    usage = _ptxas(lib, "mhd_substep_ring_kernel")
     # (read_w, write_w) for float32 and for bfloat16 storage, and the
     # bf16 pair's bf16 -> float32 substep 0 and float32 -> bf16 substep 1
     assert len(usage) == 10, usage
@@ -1481,13 +1535,13 @@ def test_mhd_overlap_kernels_match_twins_and_halo_kernels(mo, cm, size, mesh):
                         assert torch.equal(kw[i][q], hw[q]), (pair, s, i, q)
 
 
-def test_b14_kernel_fits_the_planners_registers_without_spills(mo, tmp_path):
+def test_b14_kernel_fits_the_planners_registers_without_spills(mo):
     """B14's one-substep kernel (``mhd_shell_kernel``: both instances of
     the ring, z and y, behind one uniform branch), every (read_w,
     write_w) instantiation built as the package builds it: at most 128
     registers a thread, no spill, and the one block an SM that the
     planner counts (``FIXUP_BLOCKS_PER_SM``), as the card counts it."""
-    usage = _fresh_ptxas("mhd_overlap", tmp_path, "mhd_shell_kernel")
+    usage = _ptxas("mhd_overlap", "mhd_shell_kernel")
     assert len(usage) == 10, usage     # as the ring kernel's
     for name, use in usage.items():
         assert use["registers"] <= 128, (name, use)
