@@ -6647,35 +6647,30 @@ def ptxas_usage() -> dict:
     return out
 
 
+#: opcodes every ``sass_counts`` entry names, frequent or not: the
+#: float32 -> bfloat16 conversions (F2F, F2FP) and the packed half-width
+#: arithmetic (HADD2, HMUL2, HFMA2)
+SASS_WATCHED = ("F2F", "F2FP", "HADD2", "HMUL2", "HFMA2")
+
+
 def sass_counts() -> dict:
     """Static opcode counts of every ring-kernel instantiation in the
-    built ``RING_LIBS`` libraries (``cuobjdump -sass``; each
-    instruction of the kernel once, loops not unrolled): ``kernel_key``
-    -> {"total": n, and the 8 most frequent opcodes}. Empty where the
-    toolkit has no cuobjdump."""
-    import collections
-    import re
-    import shutil
-
+    ``RING_LIBS`` libraries (``_build.sass_opcodes``): ``kernel_key`` ->
+    {"total": n, the 8 most frequent opcodes and the ``SASS_WATCHED``
+    ones}. Empty where the toolkit has no cuobjdump."""
     from stencil_tpu_torch.ops import _build
 
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
-    if not tool:
-        return {}
     out = {}
     for lib in RING_LIBS:
-        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            key = kernel_key(lib, part.split("\n", 1)[0])
+        ops = _build.sass_opcodes(lib)
+        if ops is None:
+            return {}
+        for name, c in ops.items():
+            key = kernel_key(lib, name)
             if key is None:
                 continue
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9_.]+)", part)
-            c = collections.Counter(o.split(".")[0] for o in ops)
-            out[key] = dict(total=len(ops), **dict(c.most_common(8)))
+            out[key] = dict(total=sum(c.values()), **dict(c.most_common(8)))
+            out[key].update((o, c[o]) for o in SASS_WATCHED)
     return out
 
 

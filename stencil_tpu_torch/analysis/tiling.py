@@ -131,7 +131,7 @@ def k2_plan(n: int, steps: int, itemsize: int = 4,
                      grid(0, n, cs.RING_TILE_X)),
                     cs.ring_smem_bytes(steps, p.ty, p.depth, itemsize),
                     cs.RING_STATIC_BYTES, cs.RING_THREADS,
-                    p.blocks_per_sm, p.zrun, cs.RING_REGISTERS,
+                    p.blocks_per_sm, p.zrun, cs.ring_registers(itemsize),
                     f"ty={p.ty} depth={p.depth}")
 
 

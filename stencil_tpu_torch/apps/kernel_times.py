@@ -22,7 +22,8 @@ and B6 (the main path's group): K2 on a periodic 512^3 field and on
 wrapped slabs (the ``halo`` path on one card) and on a 512 x 256 x 256
 (x y z) grid as one shard (a quarter shard of 512^3 over (1,2,2)); K1
 and B5 at 512^3; each ``chip_smoke.event_ms`` of 20 launches after 3
-warm-ups. ``--paths`` adds the Jacobi path rates at 512^3
+warm-ups and by device time alone (``chip_smoke.device_ms``, the same
+launches queued behind a sleeping kernel). ``--paths`` adds the Jacobi path rates at 512^3
 (``chip_smoke.timed_runs`` of three ``run(40)``): ``wrap``, ``halo`` on
 (1,1,1) and on four shards of (1,2,2) on the card, ``overlap`` on
 (1,2,2).
@@ -235,18 +236,24 @@ def jacobi(args, m: Measuring, log: io.StringIO) -> dict:
         cases.update({"K2 512^3 N=16": wrap((n, n, n), 16),
                       "B6 512^3 (1,1,1) N=16": halo((n, n, n), 16),
                       "K3 512^3": padded((n, n, n))})
-    turns = time_in_turns(cases, {"ms": lambda fn: smoke.event_ms(
-        torch, fn, reps, warmup=3)})
+    turns = time_in_turns(cases, {
+        "ms": lambda fn: smoke.event_ms(torch, fn, reps, warmup=3),
+        "device_ms": lambda fn: smoke.device_ms(torch, fn, reps, warmup=3)})
     res = {"steps": steps, "reps": reps, "cases": {}}
     for name, (_, nbytes, flops) in cases.items():
         ms = sum(turns[name]["ms"]) / 2
+        dev = sum(turns[name]["device_ms"]) / 2
         bound, by = smoke.bound_ms(nbytes, flops)
         res["cases"][name] = {"ms": ms, "turns_ms": turns[name]["ms"],
+                              "device_ms": dev,
+                              "device_turns_ms": turns[name]["device_ms"],
                               "bound_ms": bound, "bound_by": by,
-                              "share": bound / ms}
+                              "share": bound / ms,
+                              "device_share": bound / dev}
         print(f"{args.label}: {name}: {ms!r} ms ({turns[name]['ms']}), "
-              f"bound {bound!r} ms ({by}), {100 * bound / ms:.1f}% of bound",
-              flush=True)
+              f"device {dev!r} ms ({turns[name]['device_ms']}), "
+              f"bound {bound!r} ms ({by}), {100 * bound / dev:.1f}% of "
+              f"bound (device)", flush=True)
     del cases
     torch.cuda.empty_cache()
     if args.paths:

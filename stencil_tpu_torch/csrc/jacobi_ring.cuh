@@ -13,9 +13,20 @@
 // a neighbouring shard.
 //
 // bfloat16 (T = bf16): the ring holds bfloat16 cells, so a window plane
-// takes half the shared memory, and every add and the multiply by
-// bf16(1/6) round to bfloat16 at once (csrc/bf16_math.cuh), as the JAX
-// kernels do; intermediate levels are bfloat16 values, as JAX's are.
+// takes half the shared memory, and a lane's two columns are one 32-bit
+// bfloat16x2 word of the ring (lane 0 in the low half), never widened:
+// the six neighbours are words (the x pairs (x-1, x) and (x+1, x+2) each
+// one __byte_perm of the centre word and the word beside it), the step
+// is four add.rn.bf16x2 and one mul.rn.bf16x2 by bf16(1/6) in both
+// halves, each half rounded once, which equals the JAX kernels' and the
+// twins' float32 operation rounded to bfloat16 (csrc/bf16_math.cuh; a
+// NaN's bits may differ, its value not), and a level's cells go out as
+// the same word: one 4-byte store where both columns are inside and the
+// output row is 4-byte aligned, 2-byte stores only at a ragged x edge or
+// odd X. The spheres overwrite a half with 1.0 (0x3F80) or 0. The
+// margin columns beyond the tile use scalar add.rn.bf16 / mul.rn.bf16,
+// spread over the lanes two columns at a time. No cell is converted
+// between float32 and bfloat16 anywhere in the instance.
 // The wrappers run 9 <= N <= 16 (bfloat16's sublane tile is 16) as two
 // launches: the first walks N1 = ceil(N / 2) steps over the shard grown
 // by N2 = N - N1 rows in z and y into a padded buffer in device memory
@@ -40,7 +51,7 @@
 // p0 - 2k + 2, all finished in earlier passes, over the tile grown by
 // N - k cells in x and y (the ring that neighbouring blocks recompute
 // too). Level N goes straight to device memory. Each lane owns two
-// columns of the tile at every level (float2 loads and stores), each
+// columns of the tile at every level (float2 or bfloat16x2 words), each
 // warp a run of rows whose y neighbours roll through registers
 // (ring_rows); the few columns beyond the tile are one cell a lane. The
 // spheres are tested only on planes and in blocks that reach them (a
@@ -205,8 +216,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// ring cells of either storage type, as float32 (csrc/bf16_math.cuh has
-// the bfloat16 ones)
+// float32 ring cells (csrc/bf16_math.cuh has the bfloat16 ones)
 __device__ __forceinline__ float ld1(const float* p) { return *p; }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -230,21 +240,50 @@ __device__ __forceinline__ float impose2(float v, int2 dx, int2 dy, int2 dz,
   return v;
 }
 
-// one Jacobi step of a cell: ((zm+zp)+(ym+yp))+(xm+xp), * 1/6; in
-// bfloat16 every operation rounds to bfloat16
-template <class T>
+// impose2 on the bits of one bfloat16 cell (1.0 is 0x3F80)
+__device__ __forceinline__ unsigned short impose1(unsigned short v,
+                                                  int2 dx, int2 dy, int2 dz,
+                                                  int r2) {
+  if (dx.x + dy.x + dz.x <= r2) v = kOne1;
+  if (dx.y + dy.y + dz.y <= r2) v = 0;
+  return v;
+}
+
+// impose2 on a bfloat16x2 word: column dx0 in the low half, dx1 in the
+// high half
+__device__ __forceinline__ unsigned impose_x2(unsigned v, int2 dx0,
+                                              int2 dx1, int2 dy, int2 dz,
+                                              int r2) {
+  const int hot = dy.x + dz.x, cold = dy.y + dz.y;
+  if (dx0.x + hot <= r2) v = (v & 0xffff0000u) | kOne1;
+  if (dx0.y + cold <= r2) v &= 0xffff0000u;
+  if (dx1.x + hot <= r2) v = (v & 0xffffu) | (unsigned(kOne1) << 16);
+  if (dx1.y + cold <= r2) v &= 0xffffu;
+  return v;
+}
+
+// one Jacobi step of a cell: ((zm+zp)+(ym+yp))+(xm+xp), * 1/6
 __device__ __forceinline__ float step7(float zm, float zp, float ym, float yp,
                                        float xm, float xp) {
-  if constexpr (sizeof(T) == 2) {
-    return mul_bf16(add_bf16(add_bf16(add_bf16(zm, zp), add_bf16(ym, yp)),
-                             add_bf16(xm, xp)),
-                    kSixthBf16);
-  } else {
-    return __fmul_rn(
-        __fadd_rn(__fadd_rn(__fadd_rn(zm, zp), __fadd_rn(ym, yp)),
-                  __fadd_rn(xm, xp)),
-        kSixth);
-  }
+  return __fmul_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(zm, zp), __fadd_rn(ym, yp)),
+                __fadd_rn(xm, xp)),
+      kSixth);
+}
+
+// the same step on two bfloat16 cells a word, and on one cell's bits:
+// every operation rounded once to bfloat16
+__device__ __forceinline__ unsigned step7_x2(unsigned zm, unsigned zp,
+                                             unsigned ym, unsigned yp,
+                                             unsigned xm, unsigned xp) {
+  return mul2(add2(add2(add2(zm, zp), add2(ym, yp)), add2(xm, xp)),
+              kSixth2);
+}
+__device__ __forceinline__ unsigned short step7_x1(
+    unsigned short zm, unsigned short zp, unsigned short ym,
+    unsigned short yp, unsigned short xm, unsigned short xp) {
+  return mul1(add1(add1(add1(zm, zp), add1(ym, yp)), add1(xm, xp)),
+              kSixth1);
 }
 
 // Rows [r0, r1) of one level at a thread's two columns, window cell i =
@@ -252,18 +291,19 @@ __device__ __forceinline__ float step7(float zm, float zp, float ym, float yp,
 // above it; y neighbours roll through registers. kOut: the last level,
 // to device memory at o (row stride X, rows below `rows_in` and the
 // columns flagged in xin), else to dst in shared memory. kSpheres: impose
-// them (dx per column, dy per window row in sy, dz per plane).
-template <bool kOut, bool kSpheres, class T>
+// them (dx per column, dy per window row in sy, dz per plane). `opair`
+// is the bfloat16 instance's (below).
+template <bool kOut, bool kSpheres>
 __device__ __forceinline__ void ring_rows(
-    const T* lo, const T* mid, const T* hi, T* dst, T* o, int i, int r0,
-    int r1, int P, int X, int rows_in, bool xin0, bool xin1, int2 dx0,
-    int2 dx1, int2 dz, const int2* sy, int r2) {
+    const float* lo, const float* mid, const float* hi, float* dst, float* o,
+    int i, int r0, int r1, int P, int X, int rows_in, bool xin0, bool xin1,
+    bool /*opair*/, int2 dx0, int2 dx1, int2 dz, const int2* sy, int r2) {
   float2 up = ld2(mid + i - P), ctr = ld2(mid + i);
   for (int rr = r0; rr < r1; ++rr) {
     const float2 dn = ld2(mid + i + P);
     const float2 zm = ld2(lo + i), zp = ld2(hi + i);
-    float v0 = step7<T>(zm.x, zp.x, up.x, dn.x, ld1(mid + i - 1), ctr.y);
-    float v1 = step7<T>(zm.y, zp.y, up.y, dn.y, ctr.x, ld1(mid + i + 2));
+    float v0 = step7(zm.x, zp.x, up.x, dn.x, ld1(mid + i - 1), ctr.y);
+    float v1 = step7(zm.y, zp.y, up.y, dn.y, ctr.x, ld1(mid + i + 2));
     if (kSpheres) {
       const int2 dy = sy[rr];
       v0 = impose2(v0, dx0, dy, dz, r2);
@@ -282,8 +322,54 @@ __device__ __forceinline__ void ring_rows(
   }
 }
 
+// The same rows in bfloat16: the two columns are one word of the ring (i
+// and P are even), the x pairs the centre word's halves beside the
+// halves of the words at i - 2 and i + 2. kOut stores one word where
+// `opair` (both columns inside, every output row 4-byte aligned), else
+// the halves that are inside.
+template <bool kOut, bool kSpheres>
+__device__ __forceinline__ void ring_rows(
+    const bf16* lo, const bf16* mid, const bf16* hi, bf16* dst, bf16* o,
+    int i, int r0, int r1, int P, int X, int rows_in, bool xin0, bool xin1,
+    bool opair, int2 dx0, int2 dx1, int2 dz, const int2* sy, int r2) {
+  const int w = P >> 1;  // words a window row
+  const unsigned* l = reinterpret_cast<const unsigned*>(lo + i);
+  const unsigned* m = reinterpret_cast<const unsigned*>(mid + i);
+  const unsigned* h = reinterpret_cast<const unsigned*>(hi + i);
+  unsigned* d = kOut ? nullptr : reinterpret_cast<unsigned*>(dst + i);
+  unsigned up = m[-w], ctr = m[0];
+  for (int rr = r0; rr < r1; ++rr) {
+    const unsigned dn = m[w];
+    const unsigned xm = __byte_perm(m[-1], ctr, 0x5432);  // (x-1, x)
+    const unsigned xp = __byte_perm(ctr, m[1], 0x5432);   // (x+1, x+2)
+    unsigned v = step7_x2(*l, *h, up, dn, xm, xp);
+    if (kSpheres) v = impose_x2(v, dx0, dx1, sy[rr], dz, r2);
+    if (!kOut) {
+      *d = v;
+      d += w;
+    } else if (rr < rows_in) {
+      if (opair) {
+        *reinterpret_cast<unsigned*>(o) = v;
+      } else {
+        unsigned short* const os = reinterpret_cast<unsigned short*>(o);
+        if (xin0) os[0] = static_cast<unsigned short>(v);
+        if (xin1) os[1] = static_cast<unsigned short>(v >> 16);
+      }
+    }
+    up = ctr;
+    ctr = dn;
+    l += w;
+    m += w;
+    h += w;
+    if (kOut) o += X;
+  }
+}
+
+// float32: at least two blocks an SM (its 77-78 registers let three in);
+// bfloat16: four, at most 64 registers (ops/cuda_stencil.py
+// RING_REGISTERS_BF16), which shared memory allows at N = 1, 2
 template <int kSource, class T>
-__global__ void __launch_bounds__(kRingThreads, 2)
+__global__ void __launch_bounds__(kRingThreads, sizeof(T) == 2 ? 4 : 2)
 jacobi_ring_kernel(const T* __restrict__ in, T* __restrict__ out,
                    SlabSrc<T> sl, int Z, int Y, int X, Box box, Global g,
                    Spheres s, int N, RingPlan pl, int vec) {
@@ -400,10 +486,14 @@ jacobi_ring_kernel(const T* __restrict__ in, T* __restrict__ out,
   // to the 8 warps in runs of consecutive rows (ring_rows), so a thread's
   // columns (and their x, for the spheres) are the same at every level
   // and pass; each warp also takes the m columns on either side of its
-  // rows, one cell a lane.
+  // rows, one cell a lane (bfloat16: two cells of each side a round).
   const int cb = M + 2 * lane;  // this lane's first window column
   const int2 dx0 = sx[cb], dx1 = sx[cb + 1];
   const bool xin0 = xw + cb < X, xin1 = xw + cb + 1 < X;
+  // bfloat16: the two columns go out as one word (xw + cb is even, so
+  // every output row keeps the alignment of `out` where X is even)
+  const bool opair = sizeof(T) == 2 && xin1 && X % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
 
   const int nload = z1 - z0 + 2 * N;  // input planes zs .. zs + nload - 1
   for (int i = 0; i < pl.depth; ++i) {
@@ -450,24 +540,43 @@ jacobi_ring_kernel(const T* __restrict__ in, T* __restrict__ out,
                        ((t - 2 * k + 1) & 3) * plane;
         if (spheres)
           ring_rows<false, true>(lo, mid, hi, dst, static_cast<T*>(nullptr),
-                                 i, r0, r1, P, X, 0, xin0, xin1, dx0, dx1,
-                                 dz, sy, s.r2);
+                                 i, r0, r1, P, X, 0, xin0, xin1, opair, dx0,
+                                 dx1, dz, sy, s.r2);
         else
           ring_rows<false, false>(lo, mid, hi, dst, static_cast<T*>(nullptr),
-                                  i, r0, r1, P, X, 0, xin0, xin1, dx0, dx1,
-                                  dz, sy, s.r2);
-        // the m columns on either side of this warp's rows: lane (side,
-        // row) = (lane / 16, lane % 16), one column of each side a round
-        const int rr = r0 + (lane & 15);
-        if (rr < r1) {
-          for (int e = 0; e < m; ++e) {
-            const int c = lane < 16 ? M - m + e : M + kTX + e;
-            const int j = rr * P + c;
-            float v = step7<T>(ld1(lo + j), ld1(hi + j), ld1(mid + j - P),
-                               ld1(mid + j + P), ld1(mid + j - 1),
-                               ld1(mid + j + 1));
-            if (spheres) v = impose2(v, sx[c], sy[rr], dz, s.r2);
-            st1(dst + j, v);
+                                  i, r0, r1, P, X, 0, xin0, xin1, opair, dx0,
+                                  dx1, dz, sy, s.r2);
+        if constexpr (sizeof(T) == 2) {
+          // the m columns on either side of this warp's rows (at most
+          // (kMaxWY - 2) / kRingWarps + 1 = 6 of them): lane (side,
+          // column parity, row) = (lane / 16, lane / 8 % 2, lane % 8),
+          // two columns of each side a round
+          const int rr = r0 + (lane & 7);
+          if (rr < r1) {
+            for (int e = (lane >> 3) & 1; e < m; e += 2) {
+              const int c = lane < 16 ? M - m + e : M + kTX + e;
+              const int j = rr * P + c;
+              unsigned short v = step7_x1(
+                  bits1(lo + j), bits1(hi + j), bits1(mid + j - P),
+                  bits1(mid + j + P), bits1(mid + j - 1), bits1(mid + j + 1));
+              if (spheres) v = impose1(v, sx[c], sy[rr], dz, s.r2);
+              *reinterpret_cast<unsigned short*>(dst + j) = v;
+            }
+          }
+        } else {
+          // the m columns on either side of this warp's rows: lane (side,
+          // row) = (lane / 16, lane % 16), one column of each side a round
+          const int rr = r0 + (lane & 15);
+          if (rr < r1) {
+            for (int e = 0; e < m; ++e) {
+              const int c = lane < 16 ? M - m + e : M + kTX + e;
+              const int j = rr * P + c;
+              float v = step7(ld1(lo + j), ld1(hi + j), ld1(mid + j - P),
+                              ld1(mid + j + P), ld1(mid + j - 1),
+                              ld1(mid + j + 1));
+              if (spheres) v = impose2(v, sx[c], sy[rr], dz, s.r2);
+              st1(dst + j, v);
+            }
           }
         }
       } else {
@@ -477,12 +586,12 @@ jacobi_ring_kernel(const T* __restrict__ in, T* __restrict__ out,
         const int rows_in = yend - yw;  // window rows inside the box
         if (spheres)
           ring_rows<true, true>(lo, mid, hi, static_cast<T*>(nullptr), o, i,
-                                r0, r1, P, X, rows_in, xin0, xin1, dx0, dx1,
-                                dz, sy, s.r2);
+                                r0, r1, P, X, rows_in, xin0, xin1, opair,
+                                dx0, dx1, dz, sy, s.r2);
         else
           ring_rows<true, false>(lo, mid, hi, static_cast<T*>(nullptr), o, i,
-                                 r0, r1, P, X, rows_in, xin0, xin1, dx0, dx1,
-                                 dz, sy, s.r2);
+                                 r0, r1, P, X, rows_in, xin0, xin1, opair,
+                                 dx0, dx1, dz, sy, s.r2);
       }
     }
     if (++slot == S) slot = 0;

@@ -55,7 +55,7 @@
 // one of Hopper's packed bfloat16 instructions, rounded once, in the
 // twin's order, with D2_C and w_i rounded once to bfloat16 as
 // dt.type(...) rounds them and inv_ds^2 handed in rounded the same way:
-// kernel and twin agree bitwise (add2/mul2 below say why). A float32 add
+// kernel and twin agree bitwise (csrc/bf16_math.cuh says why). A float32 add
 // rounded to bfloat16 after every operation costs a conversion an
 // operation, at a fraction of the float32 rate: 3x the float32 kernel's
 // time on the first build. Bound: bytes, (Zp*Yp*Xp + Z*Y*X) * 2 B
@@ -116,28 +116,11 @@ __device__ __forceinline__ float weight(int d) {
   return d == 1 ? kW1 : (d == 2 ? kW2 : kW3);
 }
 
-// bfloat16: two lanes a register (lane 0 in the low half). pk packs two
-// bfloat16-exact floats (the ring's widened cells) without rounding;
-// add2 and mul2 are Hopper's bfloat16x2 add and multiply, each lane
-// rounded once to nearest even. On bfloat16 inputs that equals the
-// float32 operation rounded to bfloat16 (the twin's and JAX's): a product
-// of two 8-bit significands is exact in float32, and a float32 sum of two
-// bfloat16 values is inexact only where the exponents differ by 16 or
-// more, where both roundings give the larger operand. The explicit .rn
-// keeps ptxas from fusing a multiply and an add.
-__device__ __forceinline__ unsigned pk(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
-  unsigned d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
-  unsigned d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
+// bfloat16: two lanes a register (lane 0 in the low half); pk, add2 and
+// mul2 (csrc/bf16_math.cuh) pack two of the ring's widened cells and add
+// and multiply them with Hopper's bfloat16x2 instructions, each lane
+// rounded once: the twin's float32 operation rounded to bfloat16, as
+// bf16_math.cuh argues.
 // D2_C and w_i in both lanes
 constexpr unsigned kC2 = 0xC02EC02Eu;
 __device__ __forceinline__ unsigned weight2(int d) {

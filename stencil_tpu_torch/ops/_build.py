@@ -19,6 +19,7 @@ no CUDA toolkit; a missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -208,6 +209,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def sass_opcodes(name: str) -> Optional[Dict[str, collections.Counter]]:
+    """Static SASS opcode counts of every kernel of library ``name`` as
+    the package builds it (``cuobjdump -sass`` beside nvcc, else on
+    PATH; each instruction once, loops not unrolled; an opcode without
+    its predicate and modifiers): mangled name -> Counter. None where
+    the toolkit has no cuobjdump. Builds the library if needed."""
+    build_all([name])
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]+)", part)
+        out[part.split("\n", 1)[0].strip()] = collections.Counter(
+            o.split(".")[0] for o in ops)
+    return out
 
 
 def launch(name: str, fn_name: str, argtypes, device, *args) -> None:

@@ -21,7 +21,8 @@ says. The module rules of
 CUDA tensor launches the kernel or raises; each launch adds one to the
 wrapper's entry in ``LAUNCHES``; float32 or bfloat16 (each kernel has a
 bfloat16 instance that rounds after every operation, as the JAX kernels
-compute a bfloat16 shard).
+compute a bfloat16 shard; B6's by Hopper's packed bfloat16 instructions,
+``csrc/bf16_math.cuh``).
 
 B6 takes ``1 <= steps <=`` the dtype's sublane tile (8 float32, 16
 bfloat16). The ring kernel takes 8 a launch, so 9 to 16 steps are two

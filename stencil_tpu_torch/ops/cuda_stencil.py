@@ -25,7 +25,8 @@ kernel or raises — it never falls back. Each launch adds one to the
 wrapper's entry in ``LAUNCHES``. K1–K3 take float32 or bfloat16 (a
 bfloat16 instance of each kernel: every add and the multiply by
 bf16(1/6) round to bfloat16 at once, in the kernel's order, as the JAX
-kernels compute a bfloat16 field) and refuse any other dtype on the CPU
+kernels compute a bfloat16 field; K2's by Hopper's packed bfloat16
+instructions, ``csrc/bf16_math.cuh``) and refuse any other dtype on the CPU
 too; B8 takes float32 or bfloat16 on the card (its bfloat16 instance
 rounds every add and multiply to bfloat16 at once, in the twin's order,
 with ``D2_C``, ``w_i`` and ``inv_ds²`` rounded once), while
@@ -221,12 +222,15 @@ def laplace6_plain(padded: torch.Tensor, radius: Radius, interior: Dim3,
 # the N-step ring kernel's launch plan (K2 and B6)
 # ---------------------------------------------------------------------------
 #: the ring kernel's threads a block, the registers an SM holds, and the
-#: registers the card allots a thread of the kernel: its 77-78
-#: (``-Xptxas=-v``) in the card's unit of 8, which the card tests hold
-#: the build to; so three blocks an SM where shared memory allows
+#: registers the card allots a thread of the float32 instances: their
+#: 77-78 (``-Xptxas=-v``) in the card's unit of 8, which the card tests
+#: hold the build to; so three blocks an SM where shared memory allows
 RING_THREADS = 256
 SM_REGISTERS = 64 * 1024
 RING_REGISTERS = 80
+#: the same for the bfloat16 instances, built for four blocks an SM
+#: (``__launch_bounds__(256, 4)``: at most 64 registers; ``ring_registers``)
+RING_REGISTERS_BF16 = 64
 #: shared memory of an H100 SM, the most one block may ask for, what the
 #: runtime keeps per block, and the kernel's static tables: a ``RowSrc``
 #: (three pointers and a stride) for each of ``kMaxWY`` window rows and
@@ -274,6 +278,12 @@ def ring_smem_bytes(steps: int, ty: int, depth: int,
         * (ty + 2 * steps)
 
 
+def ring_registers(itemsize: int = 4) -> int:
+    """Registers the card allots a thread of the ring kernel's instances
+    for ``itemsize``-byte cells."""
+    return RING_REGISTERS_BF16 if itemsize == 2 else RING_REGISTERS
+
+
 def ring_blocks_per_sm(steps: int, ty: int, depth: int,
                        itemsize: int = 4) -> int:
     """Blocks of the ring kernel one SM holds, by shared memory and by
@@ -283,7 +293,7 @@ def ring_blocks_per_sm(steps: int, ty: int, depth: int,
     if need + RING_STATIC_BYTES > BLOCK_SMEM_BYTES:
         return 0
     per = need + RING_STATIC_BYTES + BLOCK_RESERVED_BYTES
-    return min(SM_REGISTERS // (RING_THREADS * RING_REGISTERS),
+    return min(SM_REGISTERS // (RING_THREADS * ring_registers(itemsize)),
                SM_SMEM_BYTES // per)
 
 

@@ -136,13 +136,16 @@ def test_wrapn_ring_kernel_equals_twin_across_tiles_and_runs(cs, shape):
                        cs.jacobi7_wrapn_plain(odd, hot, cold, r, steps=2))
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("steps", range(1, 9))
-def test_ring_plan_matches_the_card(cs, steps):
+def test_ring_plan_matches_the_card(cs, steps, itemsize):
     """The planner's blocks an SM (shared memory and registers) are the
     card's: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on K2's
-    instantiation at the planned tile and depth."""
-    ty, depth, bps = cs.ring_tile(steps)
-    assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth) == bps
+    instantiation for float32 (4-byte) or bfloat16 (2-byte) cells at the
+    planned tile and depth."""
+    ty, depth, bps = cs.ring_tile(steps, itemsize)
+    assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth,
+                             itemsize) == bps
 
 
 def _ptxas(lib, kernel):
@@ -162,15 +165,36 @@ def test_jacobi_ring_kernel_fits_the_planners_registers_without_spills(
     in ``jacobi7``, float32 and bfloat16; B6 in ``jacobi_halo``, float32
     and bfloat16 from the slabs and bfloat16 from the padded buffer of
     its second launch): at most the registers and exactly the static
-    shared memory that the planner counts (``RING_REGISTERS``,
-    ``RING_STATIC_BYTES``), and no spill."""
+    shared memory that the planner counts for its cell size
+    (``ring_registers``, ``RING_STATIC_BYTES``), and no spill."""
     usage = _ptxas(lib, "jacobi_ring_kernel")
     assert len(usage) == {"jacobi7": 2, "jacobi_halo": 3}[lib], usage
     for name, use in usage.items():
-        assert use["registers"] <= cs.RING_REGISTERS, (name, use)
+        item = 2 if "__nv_bfloat16" in name else 4
+        assert use["registers"] <= cs.ring_registers(item), (name, use)
         assert use["static_smem"] == cs.RING_STATIC_BYTES, (name, use)
         assert (use["spill_stores"], use["spill_loads"]) == (0, 0), \
             (name, use)
+
+
+@pytest.mark.parametrize("lib", ["jacobi7", "jacobi_halo"])
+def test_bf16_jacobi_ring_computes_in_packed_bf16_without_conversions(
+        cs, lib):
+    """The bfloat16 ring instantiations (K2; B6 from the slabs and from
+    the padded buffer) compute with Hopper's packed bfloat16 add and
+    multiply and convert no float32 to bfloat16: no F2F or F2FP in their
+    SASS (csrc/bf16_math.cuh)."""
+    from stencil_tpu_torch.ops import _build
+
+    counts = _build.sass_opcodes(lib)
+    if counts is None:
+        pytest.skip("no cuobjdump beside nvcc")
+    bf16 = {k: c for k, c in counts.items()
+            if "jacobi_ring_kernel" in k and "__nv_bfloat16" in k}
+    assert len(bf16) == {"jacobi7": 1, "jacobi_halo": 2}[lib], counts
+    for name, c in bf16.items():
+        assert c["HADD2"] > 0 and c["HMUL2"] > 0, (name, c)
+        assert c["F2F"] == 0 and c["F2FP"] == 0, (name, c)
 
 
 # ---------------------------------------------------------------------------
@@ -2053,13 +2077,6 @@ def test_bf16_overlap_kernel_equals_twin(co, size, mesh):
         assert torch.equal(out[i], new[i]), i
         for k in co.SLAB_NAMES:
             assert torch.equal(recv.slabs[i][k], slabs[i][k]), (i, k)
-
-
-@pytest.mark.parametrize("steps", range(1, 9))
-def test_bf16_ring_plan_matches_the_card(cs, steps):
-    ty, depth, bps = cs.ring_tile(steps, 2)
-    assert cs.ring_occupancy(torch.device("cuda"), steps, ty, depth,
-                             2) == bps
 
 
 def test_bf16_jacobi_paths_take_the_kernels(cs, ch, co):

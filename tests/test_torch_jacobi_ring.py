@@ -58,25 +58,55 @@ def test_main_path_plans_on_an_h100():
     assert 8 * 16 * (512 // f.zrun) <= 132 * f.blocks_per_sm
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("steps", range(1, 9))
-def test_tile_has_the_most_rows_that_fit(steps):
-    ty, depth, bps = cs.ring_tile(steps)
+def test_tile_has_the_most_rows_that_fit(steps, itemsize):
+    """float32 (4-byte) and bfloat16 (2-byte) cells: the bfloat16
+    instances are built for four blocks an SM (64 registers), float32's
+    for three (80)."""
+    ty, depth, bps = cs.ring_tile(steps, itemsize)
     assert ty in cs.RING_TILE_ROWS
-    need = cs.ring_smem_bytes(steps, ty, depth) + cs.RING_STATIC_BYTES
+    need = cs.ring_smem_bytes(steps, ty, depth, itemsize) \
+        + cs.RING_STATIC_BYTES
     assert need <= cs.BLOCK_SMEM_BYTES
     assert bps * (need + cs.BLOCK_RESERVED_BYTES) <= cs.SM_SMEM_BYTES
     assert 2 <= depth <= 4
-    assert 1 <= bps <= cs.SM_REGISTERS // (cs.RING_THREADS
-                                           * cs.RING_REGISTERS) == 3
+    assert 1 <= bps <= cs.SM_REGISTERS // (
+        cs.RING_THREADS * cs.ring_registers(itemsize)) \
+        == {4: 3, 2: 4}[itemsize]
     # every taller tile misses a block's shared memory at depth 2
     for more in cs.RING_TILE_ROWS[:cs.RING_TILE_ROWS.index(ty)]:
-        assert cs.ring_blocks_per_sm(steps, more, 2) == 0
+        assert cs.ring_blocks_per_sm(steps, more, 2, itemsize) == 0
     # the window: a margin of N rounded up to 4 columns (16-byte rows),
     # N rows; the row and sphere tables hold it
     assert cs.ring_margin(steps) % 4 == 0 and cs.ring_margin(steps) >= steps
     assert ty + 2 * steps <= cs.RING_MAX_WINDOW_ROWS
     assert cs.RING_TILE_X + 2 * cs.ring_margin(steps) \
         <= cs.RING_MAX_WINDOW_COLS
+
+
+@pytest.mark.parametrize("steps,tile", [
+    (1, (32, 3, 4)), (2, (32, 3, 4)), (3, (32, 2, 3)), (4, (32, 3, 2)),
+    (5, (32, 4, 1)), (6, (32, 4, 1)), (7, (32, 4, 1)), (8, (16, 4, 1))])
+def test_bf16_tiles_on_an_h100(steps, tile):
+    """bfloat16 cells: the 64 registers of the packed instances let four
+    blocks share an SM at N = 1, 2; shared memory caps N = 3, 4 at three
+    and two, and N = 5..8 at one, as for float32 at N >= 3."""
+    assert cs.ring_registers(2) == cs.RING_REGISTERS_BF16 == 64
+    assert cs.ring_tile(steps, 2) == tile
+    assert cs.ring_blocks_per_sm(steps, tile[0], tile[1], 2) == tile[2]
+
+
+def test_bf16_main_path_plans_on_an_h100():
+    """bfloat16 at N = 2: 512^3 is 4 runs of 128 planes of 8 x 16
+    tiles, 512 blocks, one wave of four blocks on 132 SMs; the quarter
+    shard 8 runs of 32 planes of 8 x 8 tiles, also 512 blocks."""
+    f = cs.jacobi_ring_plan(512, 512, 512, 2, 132, 2)
+    assert f == cs.RingPlan(ty=32, depth=3, zrun=128, blocks_per_sm=4)
+    assert 8 * 16 * (512 // f.zrun) <= 132 * f.blocks_per_sm
+    q = cs.jacobi_ring_plan(256, 256, 512, 2, 132, 2)
+    assert q == cs.RingPlan(ty=32, depth=3, zrun=32, blocks_per_sm=4)
+    assert 8 * 8 * (256 // q.zrun) <= 132 * q.blocks_per_sm
 
 
 def test_main_path_tile_keeps_two_blocks_an_sm():
